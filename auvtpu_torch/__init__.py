@@ -1,7 +1,9 @@
-"""auvtpu_torch: the masked-grid kriging fill of :mod:`auvtpu` in PyTorch, with
-hand-written CUDA kernels for NVIDIA Hopper (sm_90a).
+"""auvtpu_torch: the dense (Grid B) fills and the streaming mosaic of
+:mod:`auvtpu` in PyTorch, with hand-written CUDA kernels for NVIDIA Hopper
+(sm_90a).
 
-Imports torch, numpy and the standard library only, never jax or auvtpu.
+Imports torch, numpy and the standard library only (scipy and pandas for
+file I/O), never jax or auvtpu.
 
 - :mod:`auvtpu_torch.grid`       RegularGrid: (elev, valid) tensors on one device
 - :mod:`auvtpu_torch.config`     the reference's constants
@@ -9,8 +11,13 @@ Imports torch, numpy and the standard library only, never jax or auvtpu.
 - :mod:`auvtpu_torch.masking`    seeded masking, as the reference pipeline
 - :mod:`auvtpu_torch.synthetic`  synthetic bathymetry (Kerguelen stand-in)
 - :mod:`auvtpu_torch.variogram`  empirical variogram + Gauss-Newton fit
-- :mod:`auvtpu_torch.ops`        kriging solve and the dense kriging fill
+- :mod:`auvtpu_torch.ops`        kriging solve; bilinear, mean, IDW, kriging fills
 - :mod:`auvtpu_torch.kernels`    CUDA kernels, their wrappers, the nvcc build
+- :mod:`auvtpu_torch.streaming`  StreamingInterpolator: staged ingest, window fills
+- :mod:`auvtpu_torch.metrics`    the reference's error metrics
+- :mod:`auvtpu_torch.io`         GEBCO tiles, grid/point CSVs, the results CSV
+- :mod:`auvtpu_torch.utils`      end-to-end and steady-state timing
+- :mod:`auvtpu_torch.cli`        bench_grid_b, stream_demo
 - :mod:`auvtpu_torch.convert`    state from the JAX package, numpy in
 - :mod:`auvtpu_torch.entry`      fit_fill: fit, fill, keep observed cells
 """

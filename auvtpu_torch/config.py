@@ -1,8 +1,8 @@
 """Typed configuration: the reference's constants as frozen dataclasses.
 
-Copied from :mod:`auvtpu.config` (the subset the kriging fill needs) so the
-port never imports the JAX package; ``tests/test_torch_tables.py`` pins the
-two equal.
+Copied from :mod:`auvtpu.config` (the subset the port needs) so the port
+never imports the JAX package; ``tests/test_torch_tables.py`` pins the two
+equal.
 """
 
 from __future__ import annotations
@@ -72,8 +72,50 @@ class Extent:
         )
 
 
-# Kerguelen Plateau tile bounds (test_gebco.cpp:132-134).
-KERGUELEN_EXTENT = Extent(min_lon=74.615, max_lon=84.785, min_lat=-58.2508, max_lat=-49.6982)
+# Extents used by the reference harnesses.
+GRID_A_EXTENT = Extent(min_lon=-180.0, max_lon=-160.0, min_lat=20.0, max_lat=30.0)  # test_interpolation.cpp:143-144
+KERGUELEN_EXTENT = Extent(min_lon=74.615, max_lon=84.785, min_lat=-58.2508, max_lat=-49.6982)  # test_gebco.cpp:132-134
+
+# GEBCO tiles of the reference study (bounds from the file names, which is
+# what the reference harness keys off).  Paths are relative to a GEBCO data
+# root; the Kerguelen tile is missing upstream and is replaced by a
+# synthetic stand-in of its shape.
+GEBCO_TILES = {
+    "mariana": {
+        "path": "Mariana Trench/GEBCO_05_May_2025_1bf90a8fdc83/gebco_2024_n13.0188_s9.0088_w137.9828_e142.0148.nc",
+        "extent": Extent(min_lon=137.9828, max_lon=142.0148, min_lat=9.0088, max_lat=13.0188),
+    },
+    "mid_atlantic": {
+        "path": "Mid-Atlantic Ridge/GEBCO_05_May_2025_861eace686e1/gebco_2024_n1.0071_s-0.5035_w-30.9967_e-29.4993.nc",
+        "extent": Extent(min_lon=-30.9967, max_lon=-29.4993, min_lat=-0.5035, max_lat=1.0071),
+    },
+    "east_pacific": {
+        "path": "East-Pacific Rise/GEBCO_05_May_2025_c75e2141a65d/gebco_2024_n12.085_s7.9541_w-112.0496_e-105.9851.nc",
+        "extent": Extent(min_lon=-112.0496, max_lon=-105.9851, min_lat=7.9541, max_lat=12.085),
+    },
+    "us_east_coast": {
+        "path": "GEBCO_28_Feb_2025_5615bda1e072/gebco_2024_n38.2361_s33.7129_w-73.5773_e-70.4713.nc",
+        "extent": Extent(min_lon=-73.5773, max_lon=-70.4713, min_lat=33.7129, max_lat=38.2361),
+    },
+    "kerguelen": {
+        "path": None,
+        "extent": KERGUELEN_EXTENT,
+        "shape": (2053, 2441),
+    },
+}
+
+# Results CSV schema (results/TestingResults1.csv:1).
+RESULTS_SCHEMA = (
+    "Machine",
+    "InterpolationType",
+    "GridType",
+    "BatchSize",
+    "Time",
+    "RemovalFraction",
+    "MAE",
+    "RMSE",
+    "Max Error",
+)
 
 # Masking defaults (subset_bathymetry.py:32-41).
 DEFAULT_REMOVAL_FRACTION = 0.10

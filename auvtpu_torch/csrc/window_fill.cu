@@ -1,35 +1,45 @@
-// Windowed first-k-valid selection and the fused ordinary-kriging fill, for
-// Hopper (sm_90a).  Plain C interface, loaded with ctypes by
+// Windowed first-k-valid selection and the fills built on it, for Hopper
+// (sm_90a).  Plain C interface, loaded with ctypes by
 // auvtpu_torch/kernels/window_fill.py.
 //
-// Replaces two TPU kernels of auvtpu/pallas/window_fill.py:
-//   topk_full_kernel    <- _make_topk_full_kernel    (B2, pallas_topk_full)
-//   kriging_fill_kernel <- _make_kriging_fill_kernel (B1, pallas_fill_kriging)
+// Replaces four TPU kernels of auvtpu/pallas/window_fill.py:
+//   topk_full_kernel<.., false> <- _make_topk_full_kernel    (B2, pallas_topk_full)
+//   topk_full_kernel<.., true>  <- _make_topk_kernel         (B4, pallas_topk_idx)
+//   kriging_fill_kernel         <- _make_kriging_fill_kernel (B1, pallas_fill_kriging)
+//   fill_kernel<KIND>           <- _make_fill_kernel         (B3, pallas_fill_idw /
+//                                                             pallas_fill_mean)
 //
 // What they compute.  Per output cell, scan a static window-offset table
 // sorted by (distance^2, collection order) and keep the first k cells that
-// are valid; B2 writes (cnt, values, offsets), B1 goes on to build and solve
-// the 5x6 ordinary-kriging system in registers and writes the prediction
-// (and optionally the kriging variance).  First-k-valid in a static order is
-// a per-cell rule, so each thread stops as soon as its own cell is full and
-// the answer is the same as the TPU's per-tile early exit.
+// are valid.  B2 writes (cnt, values, offsets); B4 writes (cnt, table
+// indices), the slim form of the same selection; B1 goes on to build and
+// solve the 5x6 ordinary-kriging system in registers and writes the
+// prediction (and optionally the kriging variance); B3 folds each found cell
+// into an inverse-distance-weighted sum (weights from a host table) or a
+// plain mean, keeping no slots at all.  First-k-valid in a static order is a
+// per-cell rule, so each thread stops as soon as its own cell is full and the
+// answer is the same as the TPU's per-tile early exit.
 //
 // Input is one NaN-encoded plane (invalid and out-of-grid cells are NaN),
 // padded by R on every side so no read needs a bounds check.  Slots are
-// written with selects, never with hit * (v - old) arithmetic: 0 * NaN is NaN.
+// written with selects, and B3 adds only the values it takes, never
+// hit * (v - old) or 0 * v arithmetic: 0 * NaN is NaN.
 //
-// What bounds them on the H100.  With 10% of cells masked a cell finds its 4
-// neighbours within 3-5 offsets, so B2 reads ~5 floats per cell, nearly all
-// of them L1/L2 hits shared with the neighbouring threads, and writes 1+3k
-// planes: it is bound by the output writes to HBM.  B1 writes one plane (two
-// with the variance) and does ~100 multiply-adds, 21 divides (gj), 10 square
-// roots and 10 exps per cell, so it is bound by issue of the IEEE divides
-// and transcendentals rather than by memory.  The design does the simple
-// thing for both: one thread per cell in 32x8 blocks, reads through the
-// read-only data cache (__ldg) so a warp's 32 neighbouring loads of one
-// offset coalesce, the offset table read by all threads of a warp at the
-// same index (a broadcast), and the whole system kept in registers.  Faster
-// variants (shared-memory halo tiles, fewer divides) are later work.
+// What bounds them on the H100.  With 10-20% of cells masked a scan for 4
+// neighbours reads 4.4-5.0 table rows per cell, one for 8 about 10 (measured
+// at the Kerguelen stand-in), nearly all of them L1/L2 hits shared with the
+// neighbouring threads.  B2 writes 1+3k planes and B4 1+k: both are bound by
+// the output writes to HBM.  B3 writes one plane and does a few operations
+// per candidate: it is bound by memory (one read of the padded plane, one
+// write of the output).  B1 writes one plane (two with the variance) and does
+// ~100 multiply-adds, 21 divides (gj), 10 square roots and 10 exps per cell,
+// so it is bound by the throughput of the IEEE divides and transcendentals
+// rather than by memory.  The design does the simple thing for all of them:
+// one thread per cell in 32x8 blocks, reads through the read-only data cache
+// (__ldg) so a warp's 32 neighbouring loads of one offset coalesce, the
+// offset table (and B3's weight table) read by all threads of a warp at the
+// same index (a broadcast), and all state kept in registers.  Faster variants
+// (shared-memory halo tiles, fewer divides, no padded plane) are later work.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -66,7 +76,10 @@ __device__ __forceinline__ int select_first_k(const float* __restrict__ base, in
   return cnt;
 }
 
-template <int KCAP>
+// IDX = false (B2): out is (1+3k, H, W) = cnt, vals[k], dxs[k], dys[k].
+// IDX = true  (B4): out is (1+k, H, W)  = cnt, table index of each slot as a
+//                   float, -1 at an empty slot (pallas_topk_idx's planes).
+template <int KCAP, bool IDX>
 __global__ void __launch_bounds__(BX * BY)
 topk_full_kernel(const float* __restrict__ nanp, const int2* __restrict__ tab, int m,
                  int H, int W, int R, int k, float* __restrict__ out) {
@@ -91,12 +104,16 @@ topk_full_kernel(const float* __restrict__ nanp, const int2* __restrict__ tab, i
   for (int s = 0; s < KCAP; ++s) {
     if (s < k) {
       const bool live = s < cnt;
-      // an empty slot decodes to offset (-R, -R), as pallas_topk_full's
-      // code -1 does; every consumer masks slots >= cnt
-      const int2 o = live ? __ldg(tab + tix[s]) : make_int2(-R, -R);
-      out[(1 + s) * plane + cell] = live ? vals[s] : 0.f;
-      out[(1 + k + s) * plane + cell] = (float)o.x;
-      out[(1 + 2 * k + s) * plane + cell] = (float)o.y;
+      if (IDX) {
+        out[(1 + s) * plane + cell] = live ? (float)tix[s] : -1.f;
+      } else {
+        // an empty slot decodes to offset (-R, -R), as pallas_topk_full's
+        // code -1 does; every consumer masks slots >= cnt
+        const int2 o = live ? __ldg(tab + tix[s]) : make_int2(-R, -R);
+        out[(1 + s) * plane + cell] = live ? vals[s] : 0.f;
+        out[(1 + k + s) * plane + cell] = (float)o.x;
+        out[(1 + 2 * k + s) * plane + cell] = (float)o.y;
+      }
     }
   }
 }
@@ -257,6 +274,47 @@ kriging_fill_kernel(const float* __restrict__ nanp, const int2* __restrict__ tab
   }
 }
 
+enum FillKind { kIDW = 0, kMean = 1 };
+
+// B3: first-k-valid IDW or mean.  wtab[t] is the IDW weight of table row t,
+// 1/(d2^(p/2)+eps) rounded to float32 on the host (window_fill.py:331-335);
+// the mean ignores it.  Sums run in table order, the order of the plain
+// version, and add only the cells taken.
+template <int KIND>
+__global__ void __launch_bounds__(BX * BY)
+fill_kernel(const float* __restrict__ nanp, const int2* __restrict__ tab,
+            const float* __restrict__ wtab, int m, int H, int W, int R, int k, float eps,
+            float* __restrict__ out) {
+  const int c = blockIdx.x * BX + threadIdx.x;
+  const int r = blockIdx.y * BY + threadIdx.y;
+  if (r >= H || c >= W) return;
+  const int pitch = W + 2 * R;
+  const float* base = nanp + (size_t)(r + R) * pitch + (c + R);
+  int cnt = 0;
+  float ws = 0.f;
+  float vs = 0.f;
+  for (int t = 0; t < m && cnt < k; ++t) {
+    const int2 o = __ldg(tab + t);
+    const float v = __ldg(base + o.y * pitch + o.x);
+    if (!isnan(v)) {
+      if (KIND == kIDW) {
+        const float w = __ldg(wtab + t);
+        ws = ws + w;
+        vs = vs + w * v;
+      } else {
+        vs = vs + v;
+      }
+      ++cnt;
+    }
+  }
+  float res;
+  if (KIND == kIDW)
+    res = cnt > 0 ? vs / fmaxf(ws, eps) : NAN;
+  else
+    res = cnt > 0 ? vs / fmaxf((float)cnt, 1.f) : NAN;
+  out[(size_t)r * W + c] = res;
+}
+
 dim3 grid_for(int H, int W) { return dim3((W + BX - 1) / BX, (H + BY - 1) / BY); }
 
 template <int MODEL, int SOLVER>
@@ -295,9 +353,47 @@ int auvtpu_topk_full(const void* nanp, const void* tab, int m, int H, int W, int
   const int2* t = (const int2*)tab;
   float* o = (float*)out;
   if (k <= 4)
-    topk_full_kernel<4><<<g, b, 0, st>>>(p, t, m, H, W, R, k, o);
+    topk_full_kernel<4, false><<<g, b, 0, st>>>(p, t, m, H, W, R, k, o);
   else
-    topk_full_kernel<16><<<g, b, 0, st>>>(p, t, m, H, W, R, k, o);
+    topk_full_kernel<16, false><<<g, b, 0, st>>>(p, t, m, H, W, R, k, o);
+  return (int)cudaGetLastError();
+}
+
+// nanp, tab as above; out: (1+k, H, W) f32 = cnt, slot table indices (-1 =
+// empty).  1 <= k <= 16.
+int auvtpu_topk_idx(const void* nanp, const void* tab, int m, int H, int W, int R, int k,
+                    void* out, void* stream) {
+  if (k < 1 || k > 16) return (int)cudaErrorInvalidValue;
+  const dim3 b(BX, BY);
+  const dim3 g = grid_for(H, W);
+  cudaStream_t st = (cudaStream_t)stream;
+  const float* p = (const float*)nanp;
+  const int2* t = (const int2*)tab;
+  float* o = (float*)out;
+  if (k <= 4)
+    topk_full_kernel<4, true><<<g, b, 0, st>>>(p, t, m, H, W, R, k, o);
+  else
+    topk_full_kernel<16, true><<<g, b, 0, st>>>(p, t, m, H, W, R, k, o);
+  return (int)cudaGetLastError();
+}
+
+// nanp, tab as above; wtab: (m,) f32 IDW weights on the device (read only
+// for kind 0); kind 0 = IDW, 1 = mean; eps: IDW's floor on the weight sum;
+// out: (H, W) f32.  Any k >= 0 (no slots are kept).
+int auvtpu_fill(const void* nanp, const void* tab, const void* wtab, int m, int H, int W,
+                int R, int kind, int k, float eps, void* out, void* stream) {
+  if (kind < 0 || kind > 1) return (int)cudaErrorInvalidValue;
+  const dim3 b(BX, BY);
+  const dim3 g = grid_for(H, W);
+  cudaStream_t st = (cudaStream_t)stream;
+  const float* p = (const float*)nanp;
+  const int2* t = (const int2*)tab;
+  const float* w = (const float*)wtab;
+  float* o = (float*)out;
+  if (kind == kIDW)
+    fill_kernel<kIDW><<<g, b, 0, st>>>(p, t, w, m, H, W, R, k, eps, o);
+  else
+    fill_kernel<kMean><<<g, b, 0, st>>>(p, t, w, m, H, W, R, k, eps, o);
   return (int)cudaGetLastError();
 }
 

@@ -14,7 +14,7 @@ from .synthetic import shelf_seamount
 from .variogram import fit_variogram
 
 
-def tiny_masked_grid(h: int = 96, w: int = 64, removal: float = 0.2, *, device="cpu") -> RegularGrid:
+def tiny_masked_grid(h: int = 96, w: int = 64, removal: float = 0.2, *, device="cuda") -> RegularGrid:
     """The small masked shelf-and-seamount grid of ``__graft_entry__``: unit
     steps, 20% of cells removed with seed 3."""
     elev = shelf_seamount(h, w)

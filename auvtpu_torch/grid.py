@@ -77,9 +77,10 @@ class RegularGrid:
 
     # -- constructors ------------------------------------------------------
     @classmethod
-    def from_nan_array(cls, elev, extent: Extent, dtype=torch.float32, device="cpu") -> "RegularGrid":
+    def from_nan_array(cls, elev, extent: Extent, dtype=torch.float32, device="cuda") -> "RegularGrid":
         """Build from a (H, W) array where missing cells are NaN: split it into
-        (values, mask) and copy both to ``device`` once."""
+        (values, mask) and copy both to ``device`` once.  The default device
+        is the card: a CPU grid (``device="cpu"``) runs the plain versions."""
         elev = np.asarray(elev, dtype=np.float64)
         valid = np.isfinite(elev)
         filled = np.where(valid, elev, 0.0)
@@ -93,8 +94,9 @@ class RegularGrid:
         )
 
     @classmethod
-    def dense(cls, elev, extent: Extent, dtype=torch.float32, device="cpu") -> "RegularGrid":
-        """Build from a fully observed (H, W) array."""
+    def dense(cls, elev, extent: Extent, dtype=torch.float32, device="cuda") -> "RegularGrid":
+        """Build from a fully observed (H, W) array (on the card unless
+        ``device`` says otherwise)."""
         ev = torch.as_tensor(np.asarray(elev), dtype=dtype).to(device)
         return cls(
             elev=ev,

@@ -1,18 +1,21 @@
 """Wrappers of the windowed-fill CUDA kernels (counterpart of
 :mod:`auvtpu.pallas.window_fill`).
 
-Two kernels, both in ``csrc/window_fill.cu``:
+Four kernels, all in ``csrc/window_fill.cu``:
 
 - :func:`topk_full` (B2, replaces ``_make_topk_full_kernel``): first-k-valid
   selection, returning (cnt, vals, dxs, dys) planes;
+- :func:`topk_idx` (B4, replaces ``_make_topk_kernel``): the same selection
+  as (cnt, slot table-index planes), a mode of B2's kernel;
 - :func:`fill_kriging_fused` (B1, replaces ``_make_kriging_fill_kernel``):
-  the same selection and the 5x6 ordinary-kriging solve in one pass.
+  the same selection and the 5x6 ordinary-kriging solve in one pass;
+- :func:`fill_idw_fused` and :func:`fill_mean_fused` (B3, replace
+  ``_make_fill_kernel``): first-k-valid IDW and mean fills.
 
-Each has a plain torch version beside it (:func:`topk_full_ref`,
-:func:`fill_kriging_fused_ref`).  A wrapper runs the plain version only for a
-grid on the CPU; for a CUDA grid it launches its kernel or raises.  Each
-launch adds one to ``LAUNCHES[<wrapper name>]``, so a run can show that it
-went through the kernels.
+Each has a plain torch version beside it (``<wrapper>_ref``).  A wrapper runs
+the plain version only for a grid on the CPU; for a CUDA grid it launches
+its kernel or raises.  Each launch adds one to ``LAUNCHES[<wrapper name>]``,
+so a run can show that it went through the kernels.
 """
 
 from __future__ import annotations
@@ -23,12 +26,25 @@ from functools import lru_cache
 import numpy as np
 import torch
 
-from ..config import KrigingConfig
+from ..config import IDWConfig, KrigingConfig
 from ..grid import RegularGrid
-from ..ops.dense import krige_planes, window_topk_planes
+from ..ops.dense import (
+    fill_idw,
+    fill_window_mean,
+    idw_denominators,
+    krige_planes,
+    window_topk_idx,
+    window_topk_planes,
+)
 from ..tables import sorted_offsets
 
-LAUNCHES = {"topk_full": 0, "fill_kriging_fused": 0}
+LAUNCHES = {
+    "topk_full": 0,
+    "topk_idx": 0,
+    "fill_kriging_fused": 0,
+    "fill_idw_fused": 0,
+    "fill_mean_fused": 0,
+}
 
 MAX_K = 16  # slots the selection kernel keeps in registers
 _MODELS = {"exponential": 0, "linear": 1, "spherical": 2, "gaussian": 3}
@@ -48,6 +64,10 @@ def _lib() -> ctypes.CDLL:
     P, I = ctypes.c_void_p, ctypes.c_int
     lib.auvtpu_topk_full.argtypes = [P, P, I, I, I, I, I, P, P]
     lib.auvtpu_topk_full.restype = I
+    lib.auvtpu_topk_idx.argtypes = [P, P, I, I, I, I, I, P, P]
+    lib.auvtpu_topk_idx.restype = I
+    lib.auvtpu_fill.argtypes = [P, P, P, I, I, I, I, I, I, ctypes.c_float, P, P]
+    lib.auvtpu_fill.restype = I
     lib.auvtpu_kriging_fill.argtypes = [P, P, I, I, I, I, P, I, I, I, P, P]
     lib.auvtpu_kriging_fill.restype = I
     lib.auvtpu_error_string.argtypes = [I]
@@ -145,6 +165,100 @@ def topk_full(grid: RegularGrid, *, k: int = 4, max_radius: int = 10, convention
         [out[1 + k + s] for s in range(k)],
         [out[1 + 2 * k + s] for s in range(k)],
     )
+
+
+# ---------------------------------------------------------------------------
+# B4: first-k-valid selection as slot table indices (a mode of B2's kernel)
+# ---------------------------------------------------------------------------
+
+def topk_idx_ref(grid: RegularGrid, *, k: int = 4, max_radius: int = 10, convention: str = "reference"):
+    """Plain version of :func:`topk_idx`: :func:`auvtpu_torch.ops.dense.window_topk_idx`."""
+    return window_topk_idx(grid, k=k, max_radius=max_radius, convention=convention)
+
+
+def topk_idx(grid: RegularGrid, *, k: int = 4, max_radius: int = 10, convention: str = "reference"):
+    """First-k-valid selection (B4) as (cnt, [k index planes]), f32: each
+    plane holds the sorted-table row of the slot's cell, -1 at an empty
+    slot, as ``pallas_topk_idx`` returns them."""
+    if grid.elev.device.type == "cpu":
+        return topk_idx_ref(grid, k=k, max_radius=max_radius, convention=convention)
+    dev = _check_cuda_grid(grid, "topk_idx")
+    if not 1 <= k <= MAX_K:
+        raise ValueError(f"topk_idx: k={k} outside 1..{MAX_K}")
+    H, W = grid.shape
+    R = max_radius
+    out = torch.empty((1 + k, H, W), dtype=torch.float32, device=dev)
+    if H * W > 0:
+        nanp = _nan_padded(grid, R)
+        tab = _device_table(R, convention, dev)
+        with torch.cuda.device(dev):
+            err = _lib().auvtpu_topk_idx(
+                nanp.data_ptr(), tab.data_ptr(), tab.shape[0], H, W, R, k,
+                out.data_ptr(), _stream(dev),
+            )
+        _raise_on(err, "topk_idx")
+        LAUNCHES["topk_idx"] += 1
+    return out[0], [out[1 + s] for s in range(k)]
+
+
+# ---------------------------------------------------------------------------
+# B3: first-k-valid IDW and mean fills
+# ---------------------------------------------------------------------------
+
+@lru_cache(maxsize=16)
+def _device_weights(max_radius: int, power: float, convention: str, device: torch.device) -> torch.Tensor:
+    """IDW weight of each sorted-table row, 1/(d2^(p/2)+eps) in float32 (the
+    Pallas host table, window_fill.py:331-335), on ``device``."""
+    m = len(sorted_offsets(max_radius, convention)[0])
+    w = np.float32(1.0) / idw_denominators(max_radius, power, convention)[:m]
+    return torch.from_numpy(w.astype(np.float32)).to(device)
+
+
+def _fill(grid: RegularGrid, kind: int, name: str, *, k: int, power: float, max_radius: int, convention: str):
+    dev = _check_cuda_grid(grid, name)
+    H, W = grid.shape
+    R = max_radius
+    out = torch.empty((H, W), dtype=torch.float32, device=dev)
+    if H * W > 0:
+        nanp = _nan_padded(grid, R)
+        tab = _device_table(R, convention, dev)
+        wtab = _device_weights(R, float(power), convention, dev)
+        with torch.cuda.device(dev):
+            err = _lib().auvtpu_fill(
+                nanp.data_ptr(), tab.data_ptr(), wtab.data_ptr(), tab.shape[0], H, W, R,
+                kind, k, IDWConfig().eps, out.data_ptr(), _stream(dev),
+            )
+        _raise_on(err, name)
+        LAUNCHES[name] += 1
+    return out
+
+
+def fill_idw_fused_ref(grid: RegularGrid, *, k: int = 8, power: float = 2.0, max_radius: int = 10, convention: str = "reference"):
+    """Plain version of :func:`fill_idw_fused`: :func:`auvtpu_torch.ops.dense.fill_idw`."""
+    return fill_idw(grid, k=k, power=power, max_radius=max_radius, convention=convention, backend="torch")
+
+
+def fill_idw_fused(grid: RegularGrid, *, k: int = 8, power: float = 2.0, max_radius: int = 10, convention: str = "reference"):
+    """First-k-valid IDW fill (B3): Σwv / max(Σw, eps) over the k nearest
+    valid cells with static weights 1/(d2^(p/2)+eps), NaN where none is
+    found; the semantics of ``pallas_fill_idw`` and ``ops.dense.fill_idw``."""
+    if grid.elev.device.type == "cpu":
+        return fill_idw_fused_ref(grid, k=k, power=power, max_radius=max_radius, convention=convention)
+    return _fill(grid, 0, "fill_idw_fused", k=k, power=power, max_radius=max_radius, convention=convention)
+
+
+def fill_mean_fused_ref(grid: RegularGrid, *, k: int = 4, max_radius: int = 10, convention: str = "reference"):
+    """Plain version of :func:`fill_mean_fused`: :func:`auvtpu_torch.ops.dense.fill_window_mean`."""
+    return fill_window_mean(grid, k=k, max_radius=max_radius, convention=convention, backend="torch")
+
+
+def fill_mean_fused(grid: RegularGrid, *, k: int = 4, max_radius: int = 10, convention: str = "reference"):
+    """First-k-valid mean fill (B3): the mean of the k nearest valid cells,
+    NaN where none is found; the semantics of ``pallas_fill_mean`` and
+    ``ops.dense.fill_window_mean``."""
+    if grid.elev.device.type == "cpu":
+        return fill_mean_fused_ref(grid, k=k, max_radius=max_radius, convention=convention)
+    return _fill(grid, 1, "fill_mean_fused", k=k, power=0.0, max_radius=max_radius, convention=convention)
 
 
 # ---------------------------------------------------------------------------

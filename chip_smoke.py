@@ -3,9 +3,9 @@
 
 Run from the root of a checkout:  python3 chip_smoke.py
 
-Drives the port's main path, the masked-grid ordinary-kriging fill, at the
-bench workload (the 2053x2441 Kerguelen stand-in, 10 % of cells masked with
-seed 42: 501,137 cells) in phases, one line each:
+Drives the port's main paths on the 2053x2441 Kerguelen stand-in (10 % or
+20 % of cells masked with seed 42: 501,137 or 1,002,274 cells) and a 4096x4096
+streaming mosaic, in phases, one line each:
 
 1. device   torch sees a CUDA card; its name and power limit; TF32 off
 2. build    nvcc builds the kernels from csrc/ (seconds, ptxas registers)
@@ -22,6 +22,28 @@ seed 42: 501,137 cells) in phases, one line each:
             vs plain again under the fitted parameters.
 7. timing   CUDA events, 3 warm-up calls then the median of 20, kernels and
             plain versions side by side
+8. B3, B4   the IDW/mean fill kernel vs its plain version at the stand-in
+            r0.20 (IDW k=8, mean k=4) and on the 256x320 grid (both
+            conventions, R 5 and 10): NaN placement equal, rtol=1e-5,
+            atol=1e-3.  B4's own path, its entry point topk_idx and the
+            slot gather at the r0.20 masked cells (launch counts zeroed
+            around it), giving B2's values and offsets at every live slot;
+            the slot-index kernel exactly equal to its plain version, and
+            its indices decoded through the table equal to B2's offsets
+9. grid B   auvtpu_torch.cli.bench_grid_b at r0.10 and r0.20 (Bilinear,
+            Cubic, Kriging, IDW; --backend auto): RMSE within 1e-3 m (2e-3
+            for Kriging) of the JAX package's, bilinear coverage within
+            1e-6; launch counts zeroed before the phase show B1 and B3 (both
+            kinds) ran
+10. stream  the streaming demo's survey (4096x4096 mosaic, 40,000 swaths of
+            256 beams, R=5, 256x256 windows) through StreamingInterpolator
+            with backend "auto": snapshot count and f64 nansum exactly the
+            JAX package's, window RMSEs within 1e-3 m, fused windows vs
+            backend "torch" at the B3/B1 bars, the fitted variogram and the
+            uncertainty window; launch counts zeroed before the phase show
+            B1 and B3 ran
+11. timing  B3 and B4 vs plain at r0.20, the Grid B methods, streaming ingest
+            and window refresh (fused and torch)
 
 then one JSON line of the kernels and, last, the device JSON line.  Any
 failure raises and the script exits non-zero; without a CUDA device it exits
@@ -52,6 +74,39 @@ RMSE_TOL = 2e-3
 RTOL, ATOL = 1e-4, 0.05  # kernel vs plain (tests/test_pallas.py:110)
 LU_RTOL = 1.5e-3  # lu vs gj (auvtpu/pallas/window_fill.py:852-854)
 REPO = os.path.dirname(os.path.abspath(__file__))
+B3_RTOL, B3_ATOL = 1e-5, 1e-3  # B3 vs plain (tests/test_pallas.py:44)
+
+# Grid B on the stand-in, mask seed 42, reference convention: the JAX
+# package's all_reference_metrics on XLA:CPU (Kriging r0.10 is RMSE_FIXED)
+GRID_B_RMSE = {
+    0.10: {"Bilinear": 6.762240688, "Cubic": 4.955056601, "IDW": 5.660344353, "Kriging": RMSE_FIXED},
+    0.20: {"Bilinear": 6.897029474, "Cubic": 4.650243606, "IDW": 5.921949899, "Kriging": 5.499908106},
+}
+GRID_B_COVERAGE = {0.10: 0.99887855, 0.20: 0.99171684}  # Bilinear
+GRID_B_TOL = {"Bilinear": 1e-3, "Cubic": 1e-3, "IDW": 1e-3, "Kriging": 2e-3}
+
+# The streaming demo's workload, and what the JAX package gives for it
+# (auvtpu.streaming on XLA:CPU): observed cells and the f64 nansum of the
+# snapshot pin the mosaic bit for bit; window RMSEs are against the
+# noiseless truth at centre (2048, 2048) (kriging with (1, 100, 10))
+STREAM = dict(shape=(4096, 4096), steps=40_000, beams=256, swath_width=60.0,
+              line_spacing=40, noise=0.5, fill_every=10, seed=42)
+STREAM_OBSERVED = 2_796_131
+STREAM_NANSUM = -269342243.3535929
+STREAM_RMSE = {"idw": 0.276323, "mean": 0.263797, "kriging": 0.341797}
+STREAM_WINDOW_FINITE = 256 * 256  # every cell of those windows
+STREAM_LAST = ((3840, 3840), 52_190, 0.298887)  # window at the last position, IDW
+STREAM_VAR_FINITE = 65_335
+STREAM_TOL = 1e-3
+
+# H100 SXM peaks for bounds (NVIDIA data sheet): HBM bytes/s, f32 FLOP/s
+# outside the tensor cores
+HBM_BPS = 3.35e12
+F32_FLOPS = 67e12
+# f32 operations of B1's solve per cell: 10 gammas (~11 each), slot
+# coordinates (~32), the 5x6 Gauss-Jordan (180), prediction and variance
+# (~20); sqrt, exp and divide counted as one each
+B1_SOLVE_OPS = 340
 
 # fitted-scale parameters per model for the small-grid sweep (unit steps)
 MODEL_VPARAMS = {
@@ -74,8 +129,8 @@ def card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def close_planes(got, want, what: str) -> float:
-    """Assert equal NaN placement and |got-want| <= ATOL + RTOL |want|;
+def close_planes(got, want, what: str, rtol: float = RTOL, atol: float = ATOL) -> float:
+    """Assert equal NaN placement and |got-want| <= atol + rtol |want|;
     return the largest difference."""
     import torch
 
@@ -84,10 +139,10 @@ def close_planes(got, want, what: str) -> float:
         raise AssertionError(f"{what}: NaN placement differs at {int((nan_g != nan_w).sum())} cells")
     ok = ~nan_w
     d = (got[ok] - want[ok]).abs()
-    bad = int((d > ATOL + RTOL * want[ok].abs()).sum())
+    bad = int((d > atol + rtol * want[ok].abs()).sum())
     worst = float(d.max()) if d.numel() else 0.0
     if bad:
-        raise AssertionError(f"{what}: {bad} cells outside rtol={RTOL}, atol={ATOL} (max |diff| {worst})")
+        raise AssertionError(f"{what}: {bad} cells outside rtol={rtol}, atol={atol} (max |diff| {worst})")
     return worst
 
 
@@ -144,7 +199,30 @@ def time_ms(fn, warmup: int = 3, reps: int = 20) -> float:
     return float(np.median(times))
 
 
-def bench_workload(device):
+def bound(nbytes: float, ops: float) -> tuple[float, str]:
+    """Least time (ms) the card could take: the larger of the bytes over
+    the HBM rate and the f32 operations over the f32 peak."""
+    t_b, t_o = nbytes / HBM_BPS * 1e3, ops / F32_FLOPS * 1e3
+    return (t_b, "bytes") if t_b >= t_o else (t_o, "operations")
+
+
+def scan_counts(grid, k: int, R: int = 10) -> tuple[float, float]:
+    """(table rows scanned, cells taken) summed over the grid for a
+    first-k-valid scan: a cell full at slot k stops after the row of its
+    last slot, any other cell reads the whole table.  Taken from the plain
+    slot-index selection, so it launches no kernel."""
+    import torch
+
+    from auvtpu_torch.kernels import window_fill as wf
+    from auvtpu_torch.tables import sorted_offsets
+
+    cnt, idx = wf.topk_idx_ref(grid, k=k, max_radius=R)
+    m = len(sorted_offsets(R)[0])
+    scanned = torch.where(cnt >= k, idx[k - 1] + 1.0, float(m))
+    return float(scanned.double().sum()), float(cnt.double().sum())
+
+
+def bench_workload(device, removal: float = REMOVAL):
     from auvtpu_torch.config import KERGUELEN_EXTENT
     from auvtpu_torch.grid import RegularGrid
     from auvtpu_torch.masking import mask_grid
@@ -152,7 +230,7 @@ def bench_workload(device):
 
     import torch
 
-    reduced, rc, truth = mask_grid(kerguelen_standin(SHAPE), REMOVAL)
+    reduced, rc, truth = mask_grid(kerguelen_standin(SHAPE), removal)
     grid = RegularGrid.from_nan_array(reduced, KERGUELEN_EXTENT, device=device)
     rows = torch.as_tensor(rc[:, 0], device=device)
     cols = torch.as_tensor(rc[:, 1], device=device)
@@ -263,8 +341,8 @@ def main() -> int:
         raise AssertionError(f"only {n_fin}/{n_pts} masked cells finite")
     if not abs(r_fit - RMSE_FITTED) <= RMSE_TOL:
         raise AssertionError(f"fit_fill RMSE {r_fit} outside {RMSE_FITTED} +- {RMSE_TOL}")
-    for k, n in launches.items():
-        if n < 1:
+    for k in ("fill_kriging_fused", "topk_full"):
+        if launches[k] < 1:
             raise AssertionError(f"kernel {k} was not launched on the main path")
     e_fit = close_planes(wf.fill_kriging_fused(grid, vparams=vparams),
                          wf.fill_kriging_fused_ref(grid, vparams=vparams), "B1 vs plain, fitted")
@@ -290,13 +368,252 @@ def main() -> int:
         say("timing", f"{label:26s} {t:.4f} ms{rate}  [{card}]")
     say("timing", f"peak device memory {torch.cuda.max_memory_allocated(dev) / 2**20:.0f} MiB")
 
+    # ---- 8. B3 and B4 vs their plain versions
+    del sel
+    grid2, rows2, cols2, _ = bench_workload(dev, 0.20)
+    b3_err = {"idw": 0.0, "mean": 0.0}
+    checks = [("stand-in r0.20 R=10 reference", grid2, 10, "reference")] + [
+        (f"256x320 R={R} {conv}", sg, R, conv) for R in (5, 10) for conv in ("reference", "centered")
+    ]
+    for label, g, R, conv in checks:
+        e_i = close_planes(wf.fill_idw_fused(g, k=8, max_radius=R, convention=conv),
+                           wf.fill_idw_fused_ref(g, k=8, max_radius=R, convention=conv),
+                           f"B3 idw vs plain, {label}", B3_RTOL, B3_ATOL)
+        e_m = close_planes(wf.fill_mean_fused(g, k=4, max_radius=R, convention=conv),
+                           wf.fill_mean_fused_ref(g, k=4, max_radius=R, convention=conv),
+                           f"B3 mean vs plain, {label}", B3_RTOL, B3_ATOL)
+        b3_err["idw"] = max(b3_err["idw"], e_i)
+        b3_err["mean"] = max(b3_err["mean"], e_m)
+        say("B3", f"{label}: max |kernel - plain| idw k=8 {e_i:.6g} m, mean k=4 {e_m:.6g} m")
+    from auvtpu_torch.ops.dense import _slots_at
+    from auvtpu_torch.tables import sorted_offsets
+
+    # B4's own path (launch counts from here to the slot gather): the
+    # slot-index selection over the plane, its slots read at the masked cells
+    wf.reset_launches()
+    cnt4, idx4 = wf.topk_idx(grid2, k=4, max_radius=10)
+    flat2 = rows2.long() * grid2.num_lon + cols2.long()
+    vals4, dxs4, dys4 = _slots_at(grid2, idx4, flat2, 10)
+    torch.cuda.synchronize()
+    launches_b4 = dict(wf.LAUNCHES)
+    if launches_b4["topk_idx"] < 1:
+        raise AssertionError("kernel topk_idx was not launched on its path")
+    full = wf.topk_full(grid2, k=4, max_radius=10)
+    live_at = cnt4.reshape(-1)[flat2][:, None] > torch.arange(4, device=dev)
+    want_v = torch.stack([v.reshape(-1)[flat2] for v in full[1]], dim=1)
+    want_dx = torch.stack([d.reshape(-1)[flat2] for d in full[2]], dim=1)
+    want_dy = torch.stack([d.reshape(-1)[flat2] for d in full[3]], dim=1)
+    if not (torch.equal(vals4, want_v) and torch.equal(dxs4[live_at], want_dx[live_at])
+            and torch.equal(dys4[live_at], want_dy[live_at])):
+        raise AssertionError("B4 path: slots at the masked cells differ from B2's")
+    say("B4", f"path: topk_idx + slot gather at {flat2.numel()} masked cells (r0.20) equal to B2's "
+        f"values and offsets at every live slot; launches {launches_b4}")
+    b4_err = 0.0
+    for label, g, R, conv, k in (("stand-in r0.20", grid2, 10, "reference", 4),
+                                 ("256x320 R=5 centered", sg, 5, "centered", 7)):
+        if g is grid2:
+            cnt_k, idx_k = cnt4, idx4  # the path's own output
+        else:
+            cnt_k, idx_k = wf.topk_idx(g, k=k, max_radius=R, convention=conv)
+        cnt_p, idx_p = wf.topk_idx_ref(g, k=k, max_radius=R, convention=conv)
+        full = wf.topk_full(g, k=k, max_radius=R, convention=conv)
+        torch.cuda.synchronize()
+        b4_err = max(b4_err, float((cnt_k - cnt_p).abs().max()),
+                     *(float((a - b).abs().max()) for a, b in zip(idx_k, idx_p)))
+        if not (torch.equal(cnt_k, cnt_p) and torch.equal(cnt_k, full[0])):
+            raise AssertionError(f"B4 {label}: counts differ from plain or from B2")
+        dxs, dys, _ = sorted_offsets(R, conv)
+        tdx = torch.as_tensor(dxs, dtype=torch.float32, device=dev)
+        tdy = torch.as_tensor(dys, dtype=torch.float32, device=dev)
+        for s_ in range(k):
+            if not torch.equal(idx_k[s_], idx_p[s_]):
+                raise AssertionError(f"B4 {label}: slot {s_} indices differ at {int((idx_k[s_] != idx_p[s_]).sum())} cells")
+            live = cnt_k > s_
+            ii = idx_k[s_][live].long()
+            if not (torch.equal(tdx[ii], full[2][s_][live]) and torch.equal(tdy[ii], full[3][s_][live])):
+                raise AssertionError(f"B4 {label}: slot {s_} decodes to other offsets than B2's")
+            if not bool((idx_k[s_][~live] == -1).all()):
+                raise AssertionError(f"B4 {label}: slot {s_} empty slots are not -1")
+        say("B4", f"{label} k={k} {conv}: cnt and index planes exactly equal to plain; "
+            f"decoded offsets equal to B2's at every live slot")
+    del full, cnt_k, idx_k, cnt_p, idx_p, cnt4, idx4, vals4, dxs4, dys4
+
+    # ---- 9. Grid B through the CLI (launch counts from here to the end of
+    # the phase)
+    from auvtpu_torch.cli import bench_grid_b
+
+    res_csv = os.path.join(REPO, "results_local", "chip_smoke_grid_b.csv")
+    if os.path.exists(res_csv):
+        os.remove(res_csv)
+    base = ["--region", "kerguelen", "--results", res_csv, "--machine", "H100"]
+    wf.reset_launches()
+    grid_b = {
+        r: bench_grid_b.main(base + ["--removal", str(r), "--backend", "auto",
+                                     "--methods", "Bilinear", "Cubic", "Kriging", "IDW"])
+        for r in (0.10, 0.20)
+    }
+    launches_b = dict(wf.LAUNCHES)
+    for r, summary in grid_b.items():
+        for method, m in summary.items():
+            want, tol = GRID_B_RMSE[r][method], GRID_B_TOL[method]
+            if not abs(m["RMSE"] - want) <= tol:
+                raise AssertionError(f"Grid B r{r} {method}: RMSE {m['RMSE']} outside {want} +- {tol}")
+        cov = summary["Bilinear"]["coverage"]
+        if not abs(cov - GRID_B_COVERAGE[r]) <= 1e-6:
+            raise AssertionError(f"Grid B r{r}: bilinear coverage {cov} outside {GRID_B_COVERAGE[r]} +- 1e-6")
+        say("gridB", f"r{r}: " + ", ".join(f"{k} RMSE {v['RMSE']:.6f}" for k, v in summary.items())
+            + f"; bilinear coverage {cov:.8f}")
+    say("gridB", f"launches {launches_b}")
+    for k in ("fill_idw_fused", "fill_mean_fused", "fill_kriging_fused"):
+        if launches_b[k] < 1:
+            raise AssertionError(f"kernel {k} was not launched on the Grid B path")
+
+    # ---- 10. streaming (launch counts from here to the uncertainty window)
+    from auvtpu_torch.cli.stream_demo import survey
+    from auvtpu_torch.config import Extent
+    from auvtpu_torch.streaming import StreamingInterpolator
+    from auvtpu_torch.synthetic import shelf_seamount
+
+    H, W = STREAM["shape"]
+    s_truth = shelf_seamount(H, W)
+
+    def window_rmse(tile, origin):
+        t = tile.double().cpu().numpy()
+        r0, c0 = origin
+        want = s_truth[r0:r0 + t.shape[0], c0:c0 + t.shape[1]]
+        fin = np.isfinite(t)
+        d = t[fin] - want[fin]
+        return float(np.sqrt(np.mean(d * d))), int(fin.sum())
+
+    t_stream = time.perf_counter()
+    wf.reset_launches()
+    si = StreamingInterpolator((H, W), Extent(0.0, W - 1.0, 0.0, H - 1.0), window=(256, 256),
+                               method="idw", max_radius=5)
+    if si.backend != "fused":
+        raise AssertionError(f"streaming backend auto resolved to {si.backend} on {si.device}")
+    st = survey(si, s_truth, **{k: v for k, v in STREAM.items() if k != "shape"})
+    snap = si.snapshot()
+    n_cells, nsum = int(np.isfinite(snap).sum()), float(np.nansum(snap))
+    say("stream", f"{st['n_obs']} soundings in {STREAM['steps']} swaths: {n_cells} observed cells, "
+        f"f64 nansum {nsum!r}")
+    if n_cells != STREAM_OBSERVED or nsum != STREAM_NANSUM:
+        raise AssertionError(f"mosaic differs from the JAX package's: {n_cells} cells, nansum {nsum!r} "
+                             f"(want {STREAM_OBSERVED}, {STREAM_NANSUM!r})")
+    del snap
+    windows = {}
+    for method in ("idw", "mean", "kriging"):
+        si.method = method
+        windows[method], origin = si.window_fill(2048, 2048)
+        r, n_fin = window_rmse(windows[method], origin)
+        say("stream", f"window {method:7s} at (2048, 2048), origin {origin}: {n_fin} finite, RMSE {r:.6f} m")
+        if n_fin != STREAM_WINDOW_FINITE or not abs(r - STREAM_RMSE[method]) <= STREAM_TOL:
+            raise AssertionError(f"window {method}: {n_fin} finite, RMSE {r} (want {STREAM_WINDOW_FINITE}, "
+                                 f"{STREAM_RMSE[method]} +- {STREAM_TOL})")
+        # the plain versions on the same mosaic (they launch no kernel)
+        si.backend = "torch"
+        plain, _ = si.window_fill(2048, 2048)
+        si.backend = "fused"
+        bar = (RTOL, ATOL) if method == "kriging" else (B3_RTOL, B3_ATOL)
+        e = close_planes(windows[method], plain, f"stream window {method} fused vs torch", *bar)
+        if method != "kriging":
+            b3_err[method] = max(b3_err[method], e)
+        say("stream", f"window {method:7s} fused vs torch: max |diff| {e:.6g} m")
+    si.method = "idw"
+    tile, origin = si.window_fill(*st["last"])
+    r, n_fin = window_rmse(tile, origin)
+    say("stream", f"window idw at the last position {st['last']}, origin {origin}: {n_fin} finite, RMSE {r:.6f} m")
+    if (origin, n_fin) != STREAM_LAST[:2] or not abs(r - STREAM_LAST[2]) <= STREAM_TOL:
+        raise AssertionError(f"last window: origin {origin}, {n_fin} finite, RMSE {r} (want {STREAM_LAST})")
+    vp = [float(v) for v in si.fit_variogram()]
+    var, _ = si.window_uncertainty(2048, 2048)
+    launches_s = dict(wf.LAUNCHES)
+    fin = torch.isfinite(var)
+    n_var = int(fin.sum())
+    say("stream", f"fitted variogram {vp}; uncertainty window: {n_var} finite, min {float(var[fin].min()):.6g}; "
+        f"launches {launches_s}")
+    if not all(np.isfinite(p) and p > 0 for p in vp):
+        raise AssertionError(f"streaming fit not finite and positive: {vp}")
+    if n_var < 0.99 * STREAM_VAR_FINITE or not bool((var[fin] >= 0).all()):
+        raise AssertionError(f"uncertainty window: {n_var} finite cells (want >= 99 % of {STREAM_VAR_FINITE}), all >= 0")
+    for k in ("fill_idw_fused", "fill_mean_fused", "fill_kriging_fused"):
+        if launches_s[k] < 1:
+            raise AssertionError(f"kernel {k} was not launched on the streaming path")
+    si.backend = "torch"
+    var_t, _ = si.window_uncertainty(2048, 2048)
+    e = close_planes(var, var_t, "stream uncertainty fused vs torch")
+    say("stream", f"uncertainty fused vs torch: max |diff| {e:.6g}; phase took "
+        f"{time.perf_counter() - t_stream:.1f} s")
+
+    # ---- 11. timing of this slice
+    def refresh_ms(backend: str, reps: int = 20) -> float:
+        """Host clock per window refresh, result on the host."""
+        si.backend, si.method = backend, "idw"
+        for _ in range(2):
+            si.window_fill(2048, 2048)[0].cpu()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            si.window_fill(2048, 2048)[0].cpu()
+        return (time.perf_counter() - t0) * 1e3 / reps
+
+    ms.update({
+        "B3 idw k=8": time_ms(lambda: wf.fill_idw_fused(grid2, k=8)),
+        "B3 idw k=8 plain": time_ms(lambda: wf.fill_idw_fused_ref(grid2, k=8)),
+        "B3 mean k=4": time_ms(lambda: wf.fill_mean_fused(grid2, k=4)),
+        "B3 mean k=4 plain": time_ms(lambda: wf.fill_mean_fused_ref(grid2, k=4)),
+        "B4 k=4": time_ms(lambda: wf.topk_idx(grid2, k=4)),
+        "B4 k=4 plain": time_ms(lambda: wf.topk_idx_ref(grid2, k=4)),
+        "window refresh fused": refresh_ms("fused"),
+        "window refresh torch": refresh_ms("torch"),
+    })
+    for label in ("B3 idw k=8", "B3 mean k=4", "B4 k=4"):
+        say("timing", f"stand-in r0.20 {label:12s} {ms[label]:.4f} ms, plain {ms[label + ' plain']:.4f} ms  [{card}]")
+    for r, summary in grid_b.items():
+        for method, m in summary.items():
+            say("timing", f"Grid B r{r} {method:8s} steady {m['steady_ms']:.4f} ms "
+                f"({m['n'] / m['steady_ms'] / 1e3:.3f} M masked pts/s), end-to-end {m['e2e_ms']:.3f} ms  [{card}]")
+    say("timing", f"streaming ingest {st['n_obs'] / st['t_ingest'] / 1e6:.3f} M obs/s; survey refresh "
+        f"{st['t_fill'] / st['n_fills'] * 1e3:.4f} ms ({st['n_fills']} refreshes); window refresh at "
+        f"(2048, 2048) fused {ms['window refresh fused']:.4f} ms, torch {ms['window refresh torch']:.4f} ms  [{card}]")
+    say("timing", f"peak device memory {torch.cuda.max_memory_allocated(dev) / 2**20:.0f} MiB")
+
+    # bounds, from this run's inputs
+    # B1/B2 timed on the r0.10 grid, B3/B4 on the r0.20 one (same shape);
+    # bytes: each input plane read once, each output plane written once
+    n = SHAPE[0] * SHAPE[1]
+    s4_bench, _ = scan_counts(grid, 4)
+    s4, t4 = scan_counts(grid2, 4)
+    s8, t8 = scan_counts(grid2, 8)
+    bounds = {
+        "fill_kriging_fused": bound(4.0 * n * (2 + 1), s4_bench + B1_SOLVE_OPS * n),
+        "topk_full": bound(4.0 * n * (2 + 1 + 3 * 4), s4_bench),
+        "fill_idw_fused": bound(4.0 * n * (2 + 1), s8 + 3 * t8 + 2 * n),
+        "fill_mean_fused": bound(4.0 * n * (2 + 1), s4 + t4 + 2 * n),
+        "topk_idx": bound(4.0 * n * (1 + 1 + 4), s4),  # reads validity only
+    }
+    say("bounds", "; ".join(f"{k} {v[0] * 1e3:.2f} us ({v[1]})" for k, v in bounds.items())
+        + f"; rows scanned per cell: k=4 {s4 / n:.3f}, k=8 {s8 / n:.3f} (r0.20), k=4 {s4_bench / n:.3f} (r0.10)")
+
+    src = "auvtpu_torch/csrc/window_fill.cu"
+    rows_ = [
+        ("fill_kriging_fused", "auvtpu/pallas/window_fill.py:648",
+         launches["fill_kriging_fused"] + launches_b["fill_kriging_fused"] + launches_s["fill_kriging_fused"],
+         b1_err, ms["fused (B1)"], ms["B1 plain"]),
+        ("topk_full", "auvtpu/pallas/window_fill.py:501", launches["topk_full"],
+         b2_err, ms["B2"], ms["B2 plain"]),
+        ("fill_idw_fused", "auvtpu/pallas/window_fill.py:230",
+         launches_b["fill_idw_fused"] + launches_s["fill_idw_fused"],
+         b3_err["idw"], ms["B3 idw k=8"], ms["B3 idw k=8 plain"]),
+        ("fill_mean_fused", "auvtpu/pallas/window_fill.py:230",
+         launches_b["fill_mean_fused"] + launches_s["fill_mean_fused"],
+         b3_err["mean"], ms["B3 mean k=4"], ms["B3 mean k=4 plain"]),
+        ("topk_idx", "auvtpu/pallas/window_fill.py:384", launches_b4["topk_idx"],
+         b4_err, ms["B4 k=4"], ms["B4 k=4 plain"]),
+    ]
     kernels = [
-        {"name": "fill_kriging_fused", "route": "cuda", "source": "auvtpu_torch/csrc/window_fill.cu",
-         "replaces": "auvtpu/pallas/window_fill.py:648", "launches": launches["fill_kriging_fused"],
-         "max_abs_err": b1_err, "ms": ms["fused (B1)"], "plain_ms": ms["B1 plain"]},
-        {"name": "topk_full", "route": "cuda", "source": "auvtpu_torch/csrc/window_fill.cu",
-         "replaces": "auvtpu/pallas/window_fill.py:501", "launches": launches["topk_full"],
-         "max_abs_err": b2_err, "ms": ms["B2"], "plain_ms": ms["B2 plain"]},
+        {"name": k, "route": "cuda", "source": src, "replaces": rep, "launches": n,
+         "max_abs_err": err, "ms": t, "plain_ms": tp, "bound_ms": bounds[k][0],
+         "bound_by": bounds[k][1], "library_ms": None}
+        for k, rep, n, err, t, tp in rows_
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -54,7 +54,7 @@ def _port_grid(jg):
 
 def test_tiny_masked_grid_is_the_graft_grid(graft):
     jg, _ = graft
-    tg = entry.tiny_masked_grid()
+    tg = entry.tiny_masked_grid(device="cpu")
     np.testing.assert_array_equal(tg.elev.numpy(), np.asarray(jg.elev))
     np.testing.assert_array_equal(tg.valid.numpy(), np.asarray(jg.valid))
     assert (tg.min_lon, tg.max_lon, tg.min_lat, tg.max_lat) == (jg.min_lon, jg.max_lon, jg.min_lat, jg.max_lat)

@@ -75,6 +75,14 @@ def test_config_equal():
     assert tcfg.DEFAULT_REMOVAL_FRACTION == jcfg.DEFAULT_REMOVAL_FRACTION
     assert tcfg.DEFAULT_MASK_SEED == jcfg.DEFAULT_MASK_SEED
     assert tcfg.FallbackConfig().max_candidates == jcfg.FallbackConfig().max_candidates
+    assert dataclasses.astuple(tcfg.GRID_A_EXTENT) == dataclasses.astuple(jcfg.GRID_A_EXTENT)
+    assert tcfg.RESULTS_SCHEMA == jcfg.RESULTS_SCHEMA
+    assert tcfg.GEBCO_TILES.keys() == jcfg.GEBCO_TILES.keys()
+    for name, tile in tcfg.GEBCO_TILES.items():
+        jtile = jcfg.GEBCO_TILES[name]
+        assert tile.keys() == jtile.keys()
+        assert tile["path"] == jtile["path"] and tile.get("shape") == jtile.get("shape")
+        assert dataclasses.astuple(tile["extent"]) == dataclasses.astuple(jtile["extent"])
 
 
 @pytest.mark.parametrize("shape,frac,seed", [((64, 80), 0.1, 42), ((37, 53), 0.25, 3)])
@@ -101,7 +109,7 @@ def test_synthetic_surfaces_equal():
 
 def test_grid_matches_jax_grid():
     elev, _, _ = mask_grid(tsyn.kerguelen_standin((64, 80)), 0.1)
-    g = RegularGrid.from_nan_array(elev, tcfg.KERGUELEN_EXTENT)
+    g = RegularGrid.from_nan_array(elev, tcfg.KERGUELEN_EXTENT, device="cpu")
     jg = JGrid.from_nan_array(elev, jcfg.KERGUELEN_EXTENT)
     np.testing.assert_array_equal(g.elev.numpy(), np.asarray(jg.elev))
     np.testing.assert_array_equal(g.valid.numpy(), np.asarray(jg.valid))
@@ -116,7 +124,7 @@ def test_grid_matches_jax_grid():
     lats = np.array([-58.0, -55.1, -49.8], np.float32)
     for a, b in zip(g.lonlat_to_xy(torch.from_numpy(lons), torch.from_numpy(lats)), jg.lonlat_to_xy(lons, lats)):
         np.testing.assert_array_equal(a.numpy(), np.asarray(b))
-    d = RegularGrid.dense(tsyn.sinusoid(8, 9), tcfg.KERGUELEN_EXTENT)
+    d = RegularGrid.dense(tsyn.sinusoid(8, 9), tcfg.KERGUELEN_EXTENT, device="cpu")
     jd = JGrid.dense(jsyn.sinusoid(8, 9), jcfg.KERGUELEN_EXTENT)
     np.testing.assert_array_equal(d.elev.numpy(), np.asarray(jd.elev))
     np.testing.assert_array_equal(d.valid.numpy(), np.asarray(jd.valid))
@@ -137,7 +145,10 @@ def _imported_roots(path):
 
 def test_port_imports_no_jax_or_auvtpu():
     files = sorted(PORT.rglob("*.py")) + [PORT.parent / "chip_smoke.py"]
-    assert len(files) >= 13
+    names = {str(f.relative_to(PORT)) for f in files if PORT in f.parents}
+    for new in ("cli/bench_grid_b.py", "cli/stream_demo.py", "utils/timing.py", "streaming.py", "metrics.py", "io.py"):
+        assert new in names
+    assert len(files) >= 24
     bad = {
         str(f.relative_to(PORT.parent)): sorted(set(_imported_roots(f)) & _BANNED)
         for f in files
