@@ -1,6 +1,6 @@
-"""auvtpu_torch: the dense (Grid B) fills and the streaming mosaic of
-:mod:`auvtpu` in PyTorch, with hand-written CUDA kernels for NVIDIA Hopper
-(sm_90a).
+"""auvtpu_torch: the dense (Grid B) fills, the streaming mosaic and the
+scattered (Grid A) serving of :mod:`auvtpu` in PyTorch, with hand-written
+CUDA kernels for NVIDIA Hopper (sm_90a).
 
 Imports torch, numpy and the standard library only (scipy and pandas for
 file I/O), never jax or auvtpu.
@@ -11,13 +11,15 @@ file I/O), never jax or auvtpu.
 - :mod:`auvtpu_torch.masking`    seeded masking, as the reference pipeline
 - :mod:`auvtpu_torch.synthetic`  synthetic bathymetry (Kerguelen stand-in)
 - :mod:`auvtpu_torch.variogram`  empirical variogram + Gauss-Newton fit
-- :mod:`auvtpu_torch.ops`        kriging solve; bilinear, mean, IDW, kriging fills
+- :mod:`auvtpu_torch.ops`        kriging solve; bilinear, mean, IDW, kriging fills;
+                                 scattered ops, stencil packs, TwoTierInterpolator
+- :mod:`auvtpu_torch.golden`     f64 numpy oracles (GoldenGrid, GoldenV2)
 - :mod:`auvtpu_torch.kernels`    CUDA kernels, their wrappers, the nvcc build
 - :mod:`auvtpu_torch.streaming`  StreamingInterpolator: staged ingest, window fills
 - :mod:`auvtpu_torch.metrics`    the reference's error metrics
 - :mod:`auvtpu_torch.io`         GEBCO tiles, grid/point CSVs, the results CSV
 - :mod:`auvtpu_torch.utils`      end-to-end and steady-state timing
-- :mod:`auvtpu_torch.cli`        bench_grid_b, stream_demo
+- :mod:`auvtpu_torch.cli`        bench_grid_a, bench_grid_b, stream_demo
 - :mod:`auvtpu_torch.convert`    state from the JAX package, numpy in
 - :mod:`auvtpu_torch.entry`      fit_fill: fit, fill, keep observed cells
 """

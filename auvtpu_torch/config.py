@@ -120,3 +120,13 @@ RESULTS_SCHEMA = (
 # Masking defaults (subset_bathymetry.py:32-41).
 DEFAULT_REMOVAL_FRACTION = 0.10
 DEFAULT_MASK_SEED = 42
+
+# Grid A batch sizes (test_interpolation.cpp:163).
+GRID_A_BATCH_SIZES = (1_000, 5_000, 10_000, 50_000, 100_000, 1_000_000, 5_000_000)
+
+# Grid A synthetic grid dimensions (generate_csv_grids.cpp:103).
+GRID_A_SHAPE = (3200, 4000)  # (num_lat, num_lon)
+
+# Cross-engine validation (test_interpolation.cpp:214-249).
+VALIDATION_POINTS = 10
+VALIDATION_ATOL = 1e-6

@@ -1,6 +1,8 @@
 """Hand-written CUDA kernels for Hopper, built from ``csrc/`` with nvcc at
 first use and bound with ctypes.  Importing this package builds nothing."""
 
+from .scattered_select import packed_idw_fused, packed_kriging_fused, window_select_fused
+from .valid_select import kriging_valid_t, packed_idw_t, packed_kriging_t, valid_select_t
 from .window_fill import (
     LAUNCHES,
     fill_kriging_fused,
@@ -17,4 +19,11 @@ __all__ = [
     "reset_launches",
     "topk_full",
     "topk_full_ref",
+    "kriging_valid_t",
+    "packed_idw_fused",
+    "packed_idw_t",
+    "packed_kriging_fused",
+    "packed_kriging_t",
+    "valid_select_t",
+    "window_select_fused",
 ]

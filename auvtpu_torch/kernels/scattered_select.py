@@ -1,0 +1,264 @@
+"""The scattered-query selection kernel (B5, B6, B7) and the B7 wrappers
+(counterpart of :mod:`auvtpu.pallas.scattered_select`).
+
+One templated CUDA kernel in ``csrc/scattered_select.cu`` replaces three TPU
+kernels: per query it reads the P taps of its centre cell's pack row, takes
+the squared distance to each valid tap and extracts the k nearest by
+min-extract passes (ties to the lowest table index = collection order).
+Its modes:
+
+- ``"rows_t"`` (B5, ``valid_select.py::_sel_kernel``): (1+2k[+k][+1], N)
+  rows [cnt, k vals, (k d2), k codes, (resolved)], dy-major codes; wrappers
+  in :mod:`auvtpu_torch.kernels.valid_select`;
+- ``"idw"`` (B6, ``valid_select.py::_idw_kernel``): (2[+1], N) rows
+  [sum w*v, sum w, (resolved)], power-2 weights;
+- ``"rows_n"`` (B7, ``scattered_select.py::_make_select_kernel``): (N, 1+3k)
+  rows [cnt, vals, d2s, codes], dx-major codes; wrappers
+  :func:`window_select_fused`, :func:`packed_kriging_fused` and
+  :func:`packed_idw_fused` below, which return the select dict of
+  :func:`auvtpu_torch.ops.packs.packed_window_select`.
+
+The normalisation (x, y, oob, centre cell, fractional offsets) is torch, in
+one place (:func:`prologue`); the kernel does the fetch and the selection.
+:func:`select_ref` is the kernel's plain version, a transcription of the
+TPU kernels (same d2 op order, sentinels and tie rule).  :func:`select`
+runs it only for a pack on the CPU; for a CUDA pack it launches the kernel
+or raises.  Each launch adds one to ``LAUNCHES[<kernel>]``.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from functools import lru_cache
+
+import numpy as np
+import torch
+
+from ..config import IDWConfig
+from ..grid import RegularGrid
+from ..ops.packs import (
+    SENTINEL,
+    idw_from_select,
+    kriging_from_select,
+    pack_width,
+    window_offsets,
+)
+from ..ops.scattered import _normalize, centre_cells
+
+# one count per TPU kernel replaced
+LAUNCHES = {"select_rows": 0, "idw_rows": 0, "window_select_fused": 0}
+_MODES = {"rows_t": (0, "select_rows"), "idw": (1, "idw_rows"), "rows_n": (2, "window_select_fused")}
+KERNEL_P = (16, 32, 64)  # pack widths the kernel is built for (radius <= 3)
+INF = 3e30  # d2 of an invalid tap (valid_select.py:62)
+
+
+def reset_launches() -> None:
+    for name in LAUNCHES:
+        LAUNCHES[name] = 0
+
+
+@lru_cache(maxsize=None)
+def _lib() -> ctypes.CDLL:
+    from .build import load
+
+    lib = load("scattered_select")
+    P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    lib.auvtpu_scattered_select.argtypes = [P, I, P, P, P, I, I, I, I, F, I, F, F, P, P]
+    lib.auvtpu_scattered_select.restype = I
+    lib.auvtpu_scattered_error_string.argtypes = [I]
+    lib.auvtpu_scattered_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def build() -> None:
+    """Compile and load the kernel now rather than at the first launch."""
+    _lib()
+
+
+# ---------------------------------------------------------------------------
+# offset tables: (3, P) f32 rows dx, dy, code
+# ---------------------------------------------------------------------------
+
+def table(offs, P: int, R: int, layout: str, device) -> torch.Tensor:
+    """(3, P) f32 per-tap (dx, dy, code) on ``device`` for a pack of width P
+    holding ``offs`` (dy, dx).
+
+    layout 'dy' (B5, B6; valid_select.py:65-76): dead taps carry offset 0;
+    code (dy+R)*B + (dx+R).  layout 'dx' (B7; scattered_select.py:50-67):
+    dead taps carry offset 1e4 and code -1; code (dx+R)*B + (dy+R).  The
+    pack holds the sentinel at dead taps, so their entries are never
+    selected."""
+    return _table(tuple(offs), P, R, layout, torch.device(device))
+
+
+@lru_cache(maxsize=32)
+def _table(offs: tuple, P: int, R: int, layout: str, device: torch.device) -> torch.Tensor:
+    B = 2 * R + 2
+    tab = np.full((3, P), 0.0 if layout == "dy" else 1e4, np.float32)
+    tab[2] = R * B + R if layout == "dy" else -1.0
+    for t, (dy, dx) in enumerate(offs):
+        tab[0, t], tab[1, t] = dx, dy
+        tab[2, t] = (dy + R) * B + (dx + R) if layout == "dy" else (dx + R) * B + (dy + R)
+    return torch.from_numpy(tab).to(device)
+
+
+# ---------------------------------------------------------------------------
+# prologue (torch) and the kernel with its plain version
+# ---------------------------------------------------------------------------
+
+def prologue(grid: RegularGrid, lons, lats):
+    """The query geometry both the kernel and the epilogues use: x, y, oob
+    (:func:`auvtpu_torch.ops.scattered._normalize`), the clamped centre
+    (ci, cj), its cell index cj*W + ci (int32) and the fractional offsets
+    fx = x - ci, fy = y - cj (valid_select.py:146-173)."""
+    if grid.dtype != torch.float32:
+        raise TypeError(
+            f"the scattered select kernels are float32 (grid is {grid.dtype}); "
+            "float64 callers use the torch packed path (ops.packs)"
+        )
+    x, y, oob = _normalize(grid, lons, lats)
+    ci, cj = centre_cells(grid, x, y)
+    cell = cj * grid.num_lon + ci
+    return x, y, oob, ci, cj, cell, x - ci.to(x.dtype), y - cj.to(y.dtype)
+
+
+def _out_shape(mode: str, n: int, k: int, emit_d2: bool, resolve: bool):
+    if mode == "rows_t":
+        return (1 + (3 if emit_d2 else 2) * k + int(resolve), n)
+    if mode == "idw":
+        return (2 + int(resolve), n)
+    return (n, 1 + 3 * k)
+
+
+def select_ref(pack, P: int, cell, fx, fy, tab, *, mode: str, k: int, emit_d2: bool = False, half: float = 0.5, resolve_thresh=None, eps: float = IDWConfig().eps):
+    """Plain version of :func:`select`: the TPU kernels' arithmetic on (N, P)
+    stencils, one min-extract pass per slot."""
+    if mode not in _MODES:
+        raise ValueError(mode)
+    st = pack.view(-1, P)[cell.long()]
+    n = st.shape[0]
+    ok = st < 0.5 * SENTINEL
+    di = (tab[0] + half)[None, :] - fx[:, None]
+    dj = (tab[1] + half)[None, :] - fy[:, None]
+    d2 = torch.where(ok, di * di + dj * dj, torch.full_like(st, INF))
+    iota = torch.arange(P, device=st.device)
+    zero = torch.zeros(n, dtype=st.dtype, device=st.device)
+    cnt, num, den, resolved = zero, zero, zero, zero
+    vals, d2s, codes = [], [], []
+    for s in range(k):
+        m = d2.min(dim=1).values
+        got = m < 0.5 * INF
+        idx = torch.where(d2 == m[:, None], iota, P).min(dim=1).values  # lowest index of the min
+        val = torch.where(got, st.gather(1, idx[:, None])[:, 0], zero)
+        d2 = d2.scatter(1, idx[:, None], INF)
+        if mode == "idw":
+            w = torch.where(got, 1.0 / (m + eps), zero)
+            num = num + w * val
+            den = den + w
+        else:
+            vals.append(val)
+            d2s.append(torch.where(got, m, torch.full_like(m, INF)))
+            codes.append(torch.where(got, tab[2][idx], zero))
+        cnt = cnt + got.to(st.dtype)
+        if s == k - 1 and resolve_thresh is not None:
+            resolved = (got & (m < resolve_thresh)).to(st.dtype)
+    res = [resolved] if resolve_thresh is not None else []
+    if mode == "idw":
+        return torch.stack([num, den] + res)
+    if mode == "rows_t":
+        return torch.stack([cnt] + vals + (d2s if emit_d2 else []) + codes + res)
+    return torch.stack([cnt] + vals + d2s + codes, dim=1)
+
+
+def _stream(dev: torch.device) -> ctypes.c_void_p:
+    return ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream)
+
+
+def select(pack, P: int, cell, fx, fy, tab, *, mode: str, k: int, emit_d2: bool = False, half: float = 0.5, resolve_thresh=None, eps: float = IDWConfig().eps):
+    """k-nearest selection over the pack rows ``cell`` (B5/B6/B7 by ``mode``).
+
+    pack (cells*P,) f32 with the 1e30 sentinel at invalid taps; cell (N,)
+    integer; fx, fy (N,) f32; tab (3, P) f32 (dx, dy, code).  For a CPU pack
+    this is :func:`select_ref`; for a CUDA pack it launches the kernel."""
+    kw = dict(mode=mode, k=k, emit_d2=emit_d2, half=half, resolve_thresh=resolve_thresh, eps=eps)
+    if pack.device.type == "cpu":
+        return select_ref(pack, P, cell, fx, fy, tab, **kw)
+    if mode not in _MODES:
+        raise ValueError(mode)
+    code, name = _MODES[mode]
+    dev = pack.device
+    if pack.dtype != torch.float32 or fx.dtype != torch.float32 or fy.dtype != torch.float32:
+        raise TypeError(f"{name}: the kernel is float32 only (pack {pack.dtype}, fx {fx.dtype})")
+    if P not in KERNEL_P:
+        raise ValueError(
+            f"{name}: pack width P={P} is not built: the kernel keeps P distances in "
+            f"registers and takes P in {KERNEL_P}, window radius <= 3 (radius 4 needs P=128)"
+        )
+    if not 1 <= k <= P:
+        raise ValueError(f"{name}: k={k} outside 1..{P}")
+    if not pack.is_contiguous() or pack.data_ptr() % 16 or pack.numel() % P:
+        raise ValueError(f"{name}: the pack must be contiguous, 16-byte aligned and a whole number of rows")
+    for t in (cell, fx, fy, tab):
+        if t.device != dev:
+            raise ValueError(f"{name}: pack on {dev} but an input on {t.device}")
+    n = int(cell.shape[0])
+    out = torch.empty(_out_shape(mode, n, k, emit_d2, resolve_thresh is not None), dtype=torch.float32, device=dev)
+    if n == 0:
+        return out
+    cell32 = cell.to(torch.int32).contiguous()
+    fxy = torch.stack([fx, fy]).contiguous()
+    tab = tab.to(torch.float32).contiguous()
+    with torch.cuda.device(dev):
+        err = _lib().auvtpu_scattered_select(
+            pack.data_ptr(), P, cell32.data_ptr(), fxy.data_ptr(), tab.data_ptr(), n, k, code,
+            int(emit_d2), float(half), int(resolve_thresh is not None),
+            float(resolve_thresh) if resolve_thresh is not None else 0.0, float(eps),
+            out.data_ptr(), _stream(dev),
+        )
+    if err != 0:
+        msg = _lib().auvtpu_scattered_error_string(err).decode()
+        raise RuntimeError(f"{name}: CUDA launch failed: {msg} ({err})")
+    LAUNCHES[name] += 1
+    return out
+
+
+# ---------------------------------------------------------------------------
+# B7 wrappers: the select dict of ops.packs.packed_window_select
+# ---------------------------------------------------------------------------
+
+def window_select_fused(pack, grid: RegularGrid, lons, lats, *, k: int, window_radius: int = 2, convention: str = "reference"):
+    """Window top-k from a pack through the B7 mode of the kernel (drop-in
+    for ``ops.packs.packed_window_select``; ``pallas_window_select``).
+    Returns the same select dict: x, y, oob, ci, cj, val, d2, slot_ok,
+    found, dy, dx."""
+    offs = window_offsets(window_radius)
+    P = pack_width(len(offs))
+    R = window_radius
+    B = 2 * R + 2
+    x, y, oob, ci, cj, cell, fx, fy = prologue(grid, lons, lats)
+    half = 0.5 if convention == "reference" else 0.0
+    out = select(pack, P, cell, fx, fy, table(offs, P, R, "dx", grid.device), mode="rows_n", k=k, half=half)
+    found = out[:, 0].to(torch.int32)
+    slot_ok = torch.arange(k, device=out.device)[None, :] < found[:, None]
+    c_ = torch.clamp(out[:, 1 + 2 * k:1 + 3 * k], min=0.0)
+    dxs = torch.floor(c_ * (1.0 / B))
+    dys = c_ - dxs * B - R
+    return {
+        "x": x, "y": y, "oob": oob, "ci": ci, "cj": cj,
+        "val": out[:, 1:1 + k], "d2": out[:, 1 + k:1 + 2 * k], "slot_ok": slot_ok,
+        "found": found, "dy": dys, "dx": dxs - R,
+    }
+
+
+def packed_kriging_fused(pack, grid: RegularGrid, lons, lats, *, window_radius: int = 2, vparams=None, convention: str = "reference", model: str = "exponential"):
+    """Ordinary kriging with the selection in B7 (``pallas_packed_kriging``);
+    the 5x6 solve is the shared torch epilogue."""
+    sel = window_select_fused(pack, grid, lons, lats, k=4, window_radius=window_radius, convention=convention)
+    return kriging_from_select(grid, lons, lats, sel, vparams=vparams, convention=convention, model=model)
+
+
+def packed_idw_fused(pack, grid: RegularGrid, lons, lats, *, k: int = 8, power: float = 2.0, window_radius: int = 2, convention: str = "reference"):
+    """k-nearest IDW with the selection in B7 (``pallas_packed_idw``)."""
+    sel = window_select_fused(pack, grid, lons, lats, k=k, window_radius=window_radius, convention=convention)
+    return idw_from_select(sel, power=power, eps=IDWConfig(k=k, power=power).eps)
+

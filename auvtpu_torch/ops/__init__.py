@@ -1,6 +1,8 @@
-"""Torch interpolation ops: the ordinary-kriging solve and the dense
-(cell-aligned) fills: bilinear, window mean, IDW and kriging."""
+"""Torch interpolation ops: the dense (cell-aligned) fills of Grid B and the
+2x upsampling of Grid A, the scattered-query ops (plain windowed and packed)
+of Grid A and the two-tier scattered engine, and the kriging solve core."""
 
+from .batch import apply_chunked
 from .dense import (
     fill_bilinear,
     fill_idw,
@@ -9,12 +11,37 @@ from .dense import (
     krige_planes,
     kriging_at_cells,
     resolve_backend,
+    upsample2x_bicubic,
+    upsample2x_bilinear,
     window_topk_idx,
     window_topk_planes,
 )
-from .scattered import gj56, krige_solve, krige_solve_cols, lu56, variogram
+from .packs import (
+    StencilPack,
+    build_valid16_pack,
+    packed_bicubic,
+    packed_bilinear,
+    packed_idw,
+    packed_kriging,
+    packed_kriging_valid,
+    packed_window_select,
+)
+from .scattered import (
+    gj56,
+    krige_solve,
+    krige_solve_cols,
+    lu56,
+    scattered_bicubic,
+    scattered_bilinear,
+    scattered_idw,
+    scattered_kriging,
+    variogram,
+)
+from .two_tier import TwoTierInterpolator
+from .window import ring_tables, window_select
 
 __all__ = [
+    "apply_chunked",
     "fill_bilinear",
     "fill_idw",
     "fill_kriging",
@@ -22,11 +49,28 @@ __all__ = [
     "krige_planes",
     "kriging_at_cells",
     "resolve_backend",
+    "upsample2x_bicubic",
+    "upsample2x_bilinear",
     "window_topk_idx",
     "window_topk_planes",
+    "StencilPack",
+    "build_valid16_pack",
+    "packed_bicubic",
+    "packed_bilinear",
+    "packed_idw",
+    "packed_kriging",
+    "packed_kriging_valid",
+    "packed_window_select",
     "gj56",
     "krige_solve",
     "krige_solve_cols",
     "lu56",
+    "scattered_bicubic",
+    "scattered_bilinear",
+    "scattered_idw",
+    "scattered_kriging",
     "variogram",
+    "TwoTierInterpolator",
+    "ring_tables",
+    "window_select",
 ]

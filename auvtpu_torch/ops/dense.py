@@ -335,3 +335,48 @@ def kriging_at_cells(grid: RegularGrid, rows, cols, *, max_radius: int = 10, vpa
     rows = torch.as_tensor(rows, dtype=torch.int64).to(plane.device)
     cols = torch.as_tensor(cols, dtype=torch.int64).to(plane.device)
     return plane.reshape(-1)[rows * grid.num_lon + cols]
+
+
+# ---------------------------------------------------------------------------
+# Grid A: 2x upsampling (separable stencils, fully valid grids)
+# ---------------------------------------------------------------------------
+
+def _interleave_cols(a: torch.Tensor, b: torch.Tensor):
+    """a (H, W), b (H, W-1) -> (H, 2W-1): a0 b0 a1 b1 ... a_{W-1}."""
+    H, W = a.shape
+    out = torch.empty((H, 2 * W - 1), dtype=a.dtype, device=a.device)
+    out[:, 0::2] = a
+    out[:, 1::2] = b
+    return out
+
+
+def upsample2x_bilinear(grid: RegularGrid):
+    """(H, W) -> (2H-1, 2W-1): even points copy, odd points average: the
+    reference's expanded-grid bilinear pass (queries at half-integer grid
+    coordinates, so wx, wy in {0, 0.5}; test_interpolation.cpp:283-306)."""
+    g = grid.elev
+    hmid = 0.5 * (g[:, :-1] + g[:, 1:])
+    rows = _interleave_cols(g, hmid)  # (H, 2W-1)
+    vmid = 0.5 * (rows[:-1, :] + rows[1:, :])
+    return _interleave_cols(rows.T, vmid.T).T.contiguous()
+
+
+def _cr_half_filter(g: torch.Tensor, axis: int):
+    """Catmull-Rom at t=1/2 along ``axis``: (-1, 9, 9, -1)/16 with
+    edge-replicated ends (the reference clamps patch indices,
+    GridH.cpp:244-247)."""
+    if axis == 0:
+        g = g.T
+    p = F.pad(g[None], (1, 2), mode="replicate")[0]
+    mid = (-p[:, 0:-3] + 9.0 * p[:, 1:-2] + 9.0 * p[:, 2:-1] - p[:, 3:]) / 16.0
+    mid = mid[:, : g.shape[1] - 1]
+    out = _interleave_cols(g, mid)
+    return out.T if axis == 0 else out
+
+
+def upsample2x_bicubic(grid: RegularGrid):
+    """(H, W) -> (2H-1, 2W-1) separable Catmull-Rom: even rows/cols are exact
+    copies (t=0 gives p1), odd positions the half-phase kernel.  Matches the
+    reference's per-point bicubic on fully valid grids."""
+    a = _cr_half_filter(grid.elev, axis=1)
+    return _cr_half_filter(a, axis=0).contiguous()

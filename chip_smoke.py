@@ -4,8 +4,8 @@
 Run from the root of a checkout:  python3 chip_smoke.py
 
 Drives the port's main paths on the 2053x2441 Kerguelen stand-in (10 % or
-20 % of cells masked with seed 42: 501,137 or 1,002,274 cells) and a 4096x4096
-streaming mosaic, in phases, one line each:
+20 % of cells masked with seed 42: 501,137 or 1,002,274 cells), a 4096x4096
+streaming mosaic and scattered queries on the 3200x4000 Grid A, in phases:
 
 1. device   torch sees a CUDA card; its name and power limit; TF32 off
 2. build    nvcc builds the kernels from csrc/ (seconds, ptxas registers)
@@ -44,6 +44,25 @@ streaming mosaic, in phases, one line each:
             B1 and B3 ran
 11. timing  B3 and B4 vs plain at r0.20, the Grid B methods, streaming ingest
             and window refresh (fused and torch)
+12. B5-B7   the scattered select kernel vs its plain version on Grid A
+            (3200x4000 shelf + seamount, fully valid: valid16 and radius-2
+            packs) and on the stand-in r0.10, 1M numpy-seeded queries plus
+            the tie queries each: rows, codes, d2, the resolved row and the
+            IDW sums exactly equal; the kernel paths' predictions vs the
+            torch packed paths at rtol=1e-5, atol=1e-4
+13. grid A  auvtpu_torch.cli.bench_grid_a on the default grid at 1e3, 1e5,
+            1e6 and 5e6 queries (all four methods, --backend auto), then 1e6
+            with --backend fused: every validation PASSED (5e-5 x scale);
+            launch counts show B5 and B6 under auto, B7 under fused; 4096
+            queries per method vs GoldenGrid/GoldenV2 at the same bar
+14. twotier TwoTierInterpolator (auto = the B5/B6 kernels) on the stand-in
+            r0.10 with 1M queries vs backend "torch" (tests/test_packs.py
+            bars), the escalated fraction, B5/B6 launched; 4096 queries plus
+            escalating hole queries vs GoldenV2 on the stand-in with unit
+            steps
+15. timing  the select kernel alone and plain, its wrappers and the torch
+            paths at 1M Grid A queries, two-tier calls, the Grid A steady
+            state per method and batch
 
 then one JSON line of the kernels and, last, the device JSON line.  Any
 failure raises and the script exits non-zero; without a CUDA device it exits
@@ -115,6 +134,16 @@ MODEL_VPARAMS = {
     "spherical": (0.5, 80.0, 12.0),
     "gaussian": (2.0, 150.0, 6.0),
 }
+
+
+# Scattered serving (phases 12-14)
+SOURCES = ("window_fill", "scattered_select")  # csrc/<name>.cu, built together
+N_SCATTER = 1_000_000
+SCATTER_RTOL, SCATTER_ATOL = 1e-5, 1e-4  # kernel paths vs torch (tests/test_pallas.py:300)
+TT_BARS = {"kriging": (1e-4, 0.1), "idw": (1e-4, 0.05)}  # two-tier vs torch (tests/test_packs.py:116-120)
+GRID_A_BATCHES = (1_000, 100_000, 1_000_000, 5_000_000)
+GOLDEN_TOL = 5e-5  # x max(1, |golden|): the Grid A CLI's f32 bar
+N_GOLDEN = 4096
 
 
 def say(phase: str, msg: str) -> None:
@@ -247,6 +276,54 @@ def small_grid(device):
     return RegularGrid.from_nan_array(elev, Extent(0.0, 319.0, 0.0, 255.0), device=device)
 
 
+def scattered_queries(ext, H: int, W: int, n: int, seed: int, device):
+    """n numpy-seeded uniform points in the extent, then the adversarial
+    queries of tests/test_pallas.py:295-301 placed on this grid: exact cell
+    centres, half-integer tie lines, corners and edges.  float32 tensors."""
+    import torch
+
+    rng = np.random.default_rng(seed)
+    xs = np.array([3.0, 4.5, 10.0, W - 2.5, 0.0, 0.5, W - 1.0])
+    ys = np.array([5.0, 6.5, H - 5.5, 2.0, 0.0, 1.5, H - 1.0])
+    lons = np.concatenate([rng.uniform(ext.min_lon, ext.max_lon, n),
+                           ext.min_lon + xs * (ext.max_lon - ext.min_lon) / (W - 1)])
+    lats = np.concatenate([rng.uniform(ext.min_lat, ext.max_lat, n),
+                           ext.min_lat + ys * (ext.max_lat - ext.min_lat) / (H - 1)])
+    return (torch.from_numpy(lons.astype(np.float32)).to(device),
+            torch.from_numpy(lats.astype(np.float32)).to(device))
+
+
+def select_cases(g, p16=None):
+    """(kernel, pack, P, offsets, mode, table layout, options) of the select
+    kernel at the main paths' settings: B5 as valid16 kriging (d2 rows too)
+    and as the two-tier window kriging (resolved row), B6 as the window IDW
+    k=8 with the resolved row, B7 at k=4 and k=8."""
+    from auvtpu_torch.ops import packs as tp
+
+    offs = tp.window_offsets(2)
+    win, P = tp.build_pack(g, offs, clamp=False)
+    cases = [
+        ("select_rows", win, P, offs, "rows_t", "dy", dict(k=4, resolve_thresh=4.0)),
+        ("idw_rows", win, P, offs, "idw", "dy", dict(k=8, resolve_thresh=4.0)),
+        ("window_select_fused", win, P, offs, "rows_n", "dx", dict(k=4)),
+        ("window_select_fused", win, P, offs, "rows_n", "dx", dict(k=8)),
+    ]
+    if p16 is not None:
+        cases.insert(0, ("select_rows", p16, 16, tp.VALID16_OFFSETS, "rows_t", "dy", dict(k=4, emit_d2=True)))
+    return win, cases
+
+
+def golden_check(got, want, what: str) -> float:
+    """Assert the Grid A CLI's validation bar (atol GOLDEN_TOL x max(1,
+    |golden|), NaN placement equal); return the largest difference."""
+    got = got.detach().cpu().numpy().astype(np.float64)
+    scale = max(1.0, float(np.nanmax(np.abs(want))))
+    if not np.allclose(got, want, atol=GOLDEN_TOL * scale, equal_nan=True):
+        raise AssertionError(f"{what}: differs from the golden engine beyond {GOLDEN_TOL} x {scale:.6g} "
+                             f"(max |diff| {np.nanmax(np.abs(got - want))})")
+    return float(np.nanmax(np.abs(got - want)))
+
+
 def main() -> int:
     import torch
 
@@ -267,18 +344,26 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     card = card_line()
     print(card, flush=True)
-    name = torch.cuda.get_device_name(0)
-    say("device", f"{name}, {torch.cuda.device_count()} visible; torch {torch.__version__}, "
+    device_kind = torch.cuda.get_device_name(0)
+    say("device", f"{device_kind}, {torch.cuda.device_count()} visible; torch {torch.__version__}, "
         f"CUDA {torch.version.cuda}; TF32 off")
 
     # ---- 2. build
+    from concurrent.futures import ThreadPoolExecutor
+
+    from auvtpu_torch.kernels import scattered_select as ss
+
     t0 = time.perf_counter()
+    with ThreadPoolExecutor(len(SOURCES)) as ex:  # one nvcc per source, all started together
+        list(ex.map(kbuild.build, SOURCES))
     wf.build()
-    say("build", f"window_fill.cu built and loaded in {time.perf_counter() - t0:.1f} s")
-    log = kbuild.library_path("window_fill").with_suffix(".log")
-    if log.exists():
-        regs = [ln.strip() for ln in log.read_text().splitlines() if "registers" in ln]
-        say("build", f"ptxas: {len(regs)} kernels; " + " | ".join(regs[:3]))
+    ss.build()
+    say("build", f"{', '.join(s + '.cu' for s in SOURCES)} built and loaded in {time.perf_counter() - t0:.1f} s")
+    for src in SOURCES:
+        log = kbuild.library_path(src).with_suffix(".log")
+        if log.exists():
+            regs = [ln.strip() for ln in log.read_text().splitlines() if "registers" in ln]
+            say("build", f"{src} ptxas: {len(regs)} kernels; " + " | ".join(regs[:3]))
 
     grid, rows, cols, truth = bench_workload(dev)
     n_pts = truth.numel()
@@ -576,6 +661,183 @@ def main() -> int:
         f"(2048, 2048) fused {ms['window refresh fused']:.4f} ms, torch {ms['window refresh torch']:.4f} ms  [{card}]")
     say("timing", f"peak device memory {torch.cuda.max_memory_allocated(dev) / 2**20:.0f} MiB")
 
+    del si, windows, plain, var, var_t, tile, sg
+    torch.cuda.empty_cache()
+
+    # ---- 12. B5/B6/B7 vs their plain versions on Grid A and the stand-in
+    from auvtpu_torch.cli import bench_grid_a
+    from auvtpu_torch.config import GRID_A_EXTENT, GRID_A_SHAPE, KERGUELEN_EXTENT
+    from auvtpu_torch.golden import GoldenGrid, GoldenV2
+    from auvtpu_torch.grid import RegularGrid
+    from auvtpu_torch.kernels import valid_select as vs
+    from auvtpu_torch.ops import TwoTierInterpolator
+    from auvtpu_torch.ops import packs as tp
+
+    t_sc = time.perf_counter()
+    a_elev = shelf_seamount(*GRID_A_SHAPE)
+    gA = RegularGrid.dense(a_elev, GRID_A_EXTENT, device=dev)
+    qA = scattered_queries(GRID_A_EXTENT, *GRID_A_SHAPE, N_SCATTER, 7, dev)
+    qK = scattered_queries(KERGUELEN_EXTENT, *SHAPE, N_SCATTER, 8, dev)
+    p16 = tp.build_valid16_pack(gA)
+    sc_err = {"select_rows": 0.0, "idw_rows": 0.0, "window_select_fused": 0.0}
+    for label, g, (lo, la), p16_ in (("Grid A", gA, qA, p16), ("stand-in r0.10", grid, qK, None)):
+        win, cases = select_cases(g, p16_)
+        _, _, _, _, _, cell, fx, fy = ss.prologue(g, lo, la)
+        for kname, pack, P, offs, mode, layout, kw in cases:
+            tab = ss.table(offs, P, 2, layout, dev)
+            a = ss.select(pack, P, cell, fx, fy, tab, mode=mode, **kw)
+            b = ss.select_ref(pack, P, cell, fx, fy, tab, mode=mode, **kw)
+            torch.cuda.synchronize()
+            if not torch.equal(a, b):
+                raise AssertionError(f"{kname} {mode} {kw} at {label}: kernel differs from plain at "
+                                     f"{int((a != b).sum())} entries")
+            sc_err[kname] = max(sc_err[kname], float((a - b).abs().max()))
+            say("B5-B7", f"{label} P={P} {kname} ({mode}, {kw}): {tuple(a.shape)} exactly equal to plain")
+        pairs = [
+            ("B5 packed_kriging_t", vs.packed_kriging_t(win, g, lo, la), tp.packed_kriging(win, g, lo, la)),
+            ("B6 packed_idw_t", vs.packed_idw_t(win, g, lo, la), tp.packed_idw(win, g, lo, la)),
+            ("B7 packed_kriging_fused", ss.packed_kriging_fused(win, g, lo, la), tp.packed_kriging(win, g, lo, la)),
+            ("B7 packed_idw_fused", ss.packed_idw_fused(win, g, lo, la), tp.packed_idw(win, g, lo, la)),
+        ]
+        if p16_ is not None:
+            pairs.insert(0, ("B5 kriging_valid_t", vs.kriging_valid_t(p16_, g, lo, la),
+                             tp.packed_kriging_valid(p16_, g, lo, la)))
+        for what, got, want in pairs:
+            e = close_planes(got, want, f"{what} vs torch at {label}", SCATTER_RTOL, SCATTER_ATOL)
+            say("B5-B7", f"{label} {what} vs the torch packed path: max |diff| {e:.6g} m "
+                f"({int(torch.isnan(got).sum())} NaN)")
+        del win, cases, pairs
+    del p16
+    torch.cuda.empty_cache()
+
+    # ---- 13. Grid A through the CLI (launch counts from here to the end of
+    # each run)
+    res_a = os.path.join(REPO, "results_local", "chip_smoke_grid_a.csv")
+    if os.path.exists(res_a):
+        os.remove(res_a)
+    base_a = ["--results", res_a, "--machine", "H100", "--methods", "Bilinear", "Cubic", "Kriging", "IDW"]
+    ss.reset_launches()
+    grid_a = bench_grid_a.main(base_a + ["--backend", "auto", "--batch-sizes", *map(str, GRID_A_BATCHES)])
+    launches_a = dict(ss.LAUNCHES)
+    ss.reset_launches()
+    grid_a_fused = bench_grid_a.main(base_a + ["--backend", "fused", "--batch-sizes", str(N_SCATTER)])
+    launches_af = dict(ss.LAUNCHES)
+    n_valid = sum(v["validated"] is not None for v in grid_a.values()) + sum(
+        v["validated"] is not None for v in grid_a_fused.values())
+    if not all(v["validated"] in (True, None) for v in (*grid_a.values(), *grid_a_fused.values())):
+        raise AssertionError("a Grid A validation failed")
+    say("gridA", f"{n_valid} validations against the golden engines PASSED; launches auto {launches_a}, "
+        f"fused {launches_af}")
+    if launches_a["select_rows"] < 1 or launches_a["idw_rows"] < 1:
+        raise AssertionError("B5 and B6 were not both launched on the Grid A auto path")
+    if launches_af["window_select_fused"] < 1:
+        raise AssertionError("B7 was not launched on the Grid A fused path")
+    golden_a, golden_v2 = (cls(a_elev, GRID_A_EXTENT.min_lon, GRID_A_EXTENT.max_lon, GRID_A_EXTENT.min_lat,
+                               GRID_A_EXTENT.max_lat) for cls in (GoldenGrid, GoldenV2))
+    lo_h, la_h = (q[:N_GOLDEN].double().cpu().numpy() for q in qA)
+    goldens = {"Bilinear": golden_a.bilinear(lo_h, la_h), "Cubic": golden_a.cubic(lo_h, la_h),
+               "Kriging": golden_v2.kriging(lo_h, la_h), "IDW": golden_v2.idw(lo_h, la_h, k=8)}
+    for backend in ("auto", "fused"):
+        ops_a, path = bench_grid_a.make_ops(gA, a_elev, packed=True, backend=backend, window_radius=2)
+        errs = {m: golden_check(fn(gA, qA[0][:N_GOLDEN], qA[1][:N_GOLDEN]), goldens[m], f"Grid A {m} {backend}")
+                for m, fn in ops_a.items()}
+        say("gridA", f"--backend {backend} ({path}): {N_GOLDEN} queries vs GoldenGrid/GoldenV2, max |diff| "
+            + ", ".join(f"{m} {e:.3g}" for m, e in errs.items()) + f" m (bar {GOLDEN_TOL} x scale)")
+        del ops_a
+    torch.cuda.empty_cache()
+
+    # ---- 14. TwoTierInterpolator on the stand-in r0.10 (launch counts around
+    # the two calls)
+    ss.reset_launches()
+    tt = TwoTierInterpolator(grid)
+    if tt.backend != "transposed":
+        raise AssertionError(f"TwoTierInterpolator auto resolved to {tt.backend} on {grid.device}")
+    tt_k = tt.kriging(*qK)
+    tt_i = tt.idw(*qK)
+    torch.cuda.synchronize()
+    launches_t = dict(ss.LAUNCHES)
+    if launches_t["select_rows"] < 1 or launches_t["idw_rows"] < 1:
+        raise AssertionError(f"B5 and B6 were not both launched on the two-tier path: {launches_t}")
+    ref_tt = TwoTierInterpolator(grid, backend="torch")
+    e_k = close_planes(tt_k, ref_tt.kriging(*qK), "two-tier kriging vs torch", *TT_BARS["kriging"])
+    e_i = close_planes(tt_i, ref_tt.idw(*qK), "two-tier idw vs torch", *TT_BARS["idw"])
+    esc = {k: int(tt._resolved_mask(*qK, k)[1]) / qK[0].numel() for k in (4, 8)}
+    say("twotier", f"stand-in r0.10, {qK[0].numel()} queries, backend {tt.backend}: vs torch max |diff| "
+        f"kriging {e_k:.6g} m, idw {e_i:.6g} m; escalated fraction k=4 {esc[4]:.3g}, k=8 {esc[8]:.3g}; "
+        f"launches {launches_t}")
+    # the golden check on the stand-in's cells with unit steps, where float32
+    # coordinates are exact (on the Kerguelen extent they move a query by up
+    # to ~1e-3 cells, which flips near-tied neighbours; printed below), and
+    # with an 11x11 hole whose queries escalate
+    red = grid.to_nan_array()
+    Hs, Ws = SHAPE
+    hole = red.copy()
+    hole[1000:1011, 1200:1211] = np.nan
+    unit = Extent(0.0, Ws - 1.0, 0.0, Hs - 1.0)
+    gu = RegularGrid.from_nan_array(hole, unit, device=dev)
+    qu = scattered_queries(unit, Hs, Ws, N_GOLDEN, 9, dev)
+    qu = tuple(torch.cat([q, torch.tensor(v, device=dev)]) for q, v in zip(qu, ([1205.0, 1205.4], [1005.0, 1004.6])))
+    ttu = TwoTierInterpolator(gu)
+    gv_u = GoldenV2(hole, 0.0, Ws - 1.0, 0.0, Hs - 1.0)
+    qu_h = [q.double().cpu().numpy() for q in qu]
+    n_esc = int(ttu._resolved_mask(*qu, 4)[1])
+    if n_esc < 2:
+        raise AssertionError(f"the hole queries did not escalate ({n_esc})")
+    g_k = golden_check(ttu.kriging(*qu), gv_u.kriging(*qu_h), "two-tier kriging vs GoldenV2")
+    g_i = golden_check(ttu.idw(*qu), gv_u.idw(*qu_h, k=8), "two-tier idw vs GoldenV2")
+    gv_k = GoldenV2(red, KERGUELEN_EXTENT.min_lon, KERGUELEN_EXTENT.max_lon, KERGUELEN_EXTENT.min_lat,
+                    KERGUELEN_EXTENT.max_lat)
+    qk_h = [q[:N_GOLDEN].double().cpu().numpy() for q in qK]
+    ext_i = float(np.nanmax(np.abs(tt_i[:N_GOLDEN].double().cpu().numpy() - gv_k.idw(*qk_h, k=8))))
+    ext_k = float(np.nanmax(np.abs(tt_k[:N_GOLDEN].double().cpu().numpy() - gv_k.kriging(*qk_h))))
+    say("twotier", f"unit-step stand-in with a hole, {qu[0].numel()} queries ({n_esc} escalated) vs GoldenV2: "
+        f"max |diff| kriging {g_k:.6g} m, idw {g_i:.6g} m (bar {GOLDEN_TOL} x scale); on the Kerguelen "
+        f"extent (float32 coordinates, not gated): kriging {ext_k:.6g} m, idw {ext_i:.6g} m")
+    say("twotier", f"phases 12-14 took {time.perf_counter() - t_sc:.1f} s")
+
+    # ---- 15. timing of the scattered slice: kernel alone and plain on the
+    # phase-12 inputs, the wrappers, the Grid A CLI's steady state
+    _, _, _, _, _, cellA, fxA, fyA = ss.prologue(gA, *qA)
+    p16 = tp.build_valid16_pack(gA)
+    winA, _ = tp.build_pack(gA, tp.window_offsets(2), clamp=False)
+    tab16 = ss.table(tp.VALID16_OFFSETS, 16, 2, "dy", dev)
+    tab32 = ss.table(tp.window_offsets(2), 32, 2, "dy", dev)
+    tab32n = ss.table(tp.window_offsets(2), 32, 2, "dx", dev)
+    sel_args = {
+        "select_rows": (p16, 16, cellA, fxA, fyA, tab16, dict(mode="rows_t", k=4)),
+        "idw_rows": (winA, 32, cellA, fxA, fyA, tab32, dict(mode="idw", k=8)),
+        "window_select_fused": (winA, 32, cellA, fxA, fyA, tab32n, dict(mode="rows_n", k=4)),
+    }
+    for kname, (pk, P, c_, x_, y_, t_, kw) in sel_args.items():
+        ms[f"{kname} alone"] = time_ms(lambda: ss.select(pk, P, c_, x_, y_, t_, **kw))
+        ms[f"{kname} plain"] = time_ms(lambda: ss.select_ref(pk, P, c_, x_, y_, t_, **kw), reps=5)
+        say("timing", f"Grid A {N_SCATTER} queries {kname:20s} kernel alone {ms[kname + ' alone']:.4f} ms, "
+            f"plain {ms[kname + ' plain']:.4f} ms  [{card}]")
+    wrappers = {
+        "kriging_valid_t (B5)": lambda: vs.kriging_valid_t(p16, gA, *qA),
+        "packed_kriging_valid (torch)": lambda: tp.packed_kriging_valid(p16, gA, *qA),
+        "packed_idw_t (B6)": lambda: vs.packed_idw_t(winA, gA, *qA),
+        "packed_idw (torch)": lambda: tp.packed_idw(winA, gA, *qA),
+        "packed_kriging_fused (B7)": lambda: ss.packed_kriging_fused(winA, gA, *qA),
+        "packed_idw_fused (B7)": lambda: ss.packed_idw_fused(winA, gA, *qA),
+        "packed_kriging (torch)": lambda: tp.packed_kriging(winA, gA, *qA),
+        "prologue (_normalize, centre, fx, fy)": lambda: ss.prologue(gA, *qA),
+        "two-tier kriging r0.10 (B5)": lambda: tt.kriging(*qK),
+        "two-tier idw r0.10 (B6)": lambda: tt.idw(*qK),
+        "two-tier kriging r0.10 (torch)": lambda: ref_tt.kriging(*qK),
+    }
+    for label, fn in wrappers.items():
+        ms[label] = time_ms(fn, reps=10)
+        say("timing", f"{N_SCATTER} queries {label:38s} {ms[label]:.4f} ms "
+            f"({N_SCATTER / ms[label] / 1e3:.2f} M pts/s)  [{card}]")
+    for (method, n), v in sorted(grid_a.items(), key=lambda kv: (kv[0][1], kv[0][0])):
+        say("timing", f"Grid A auto n={n:>9} {method:8s} steady {v['steady_ms']:.4f} ms "
+            f"({n / v['steady_ms'] / 1e3:.2f} M pts/s), end-to-end {v['e2e_ms']:.3f} ms  [{card}]")
+    for (method, n), v in grid_a_fused.items():
+        say("timing", f"Grid A fused n={n:>9} {method:8s} steady {v['steady_ms']:.4f} ms "
+            f"({n / v['steady_ms'] / 1e3:.2f} M pts/s)  [{card}]")
+    say("timing", f"peak device memory {torch.cuda.max_memory_allocated(dev) / 2**20:.0f} MiB")
+
     # bounds, from this run's inputs
     # B1/B2 timed on the r0.10 grid, B3/B4 on the r0.20 one (same shape);
     # bytes: each input plane read once, each output plane written once
@@ -590,10 +852,19 @@ def main() -> int:
         "fill_mean_fused": bound(4.0 * n * (2 + 1), s4 + t4 + 2 * n),
         "topk_idx": bound(4.0 * n * (1 + 1 + 4), s4),  # reads validity only
     }
+    # the select kernel, per query: its P pack floats, the cell index and
+    # (fx, fy) read, its rows written; ~8 operations a tap for d2 and 2 per
+    # tap and slot for the min-extract (+ 4 a slot for B6's weights)
+    nq = float(cellA.numel())
+    bounds.update({
+        "select_rows": bound(nq * (16 * 4 + 12 + (1 + 2 * 4) * 4), nq * (8 * 16 + 2 * 4 * 16)),
+        "idw_rows": bound(nq * (32 * 4 + 12 + 2 * 4), nq * (8 * 32 + 2 * 8 * 32 + 4 * 8)),
+        "window_select_fused": bound(nq * (32 * 4 + 12 + (1 + 3 * 4) * 4), nq * (8 * 32 + 2 * 4 * 32)),
+    })
     say("bounds", "; ".join(f"{k} {v[0] * 1e3:.2f} us ({v[1]})" for k, v in bounds.items())
-        + f"; rows scanned per cell: k=4 {s4 / n:.3f}, k=8 {s8 / n:.3f} (r0.20), k=4 {s4_bench / n:.3f} (r0.10)")
+        + f"; rows scanned per cell: k=4 {s4 / n:.3f}, k=8 {s8 / n:.3f} (r0.20), k=4 {s4_bench / n:.3f} (r0.10); "
+        f"select kernels at {int(nq)} Grid A queries")
 
-    src = "auvtpu_torch/csrc/window_fill.cu"
     rows_ = [
         ("fill_kriging_fused", "auvtpu/pallas/window_fill.py:648",
          launches["fill_kriging_fused"] + launches_b["fill_kriging_fused"] + launches_s["fill_kriging_fused"],
@@ -609,15 +880,29 @@ def main() -> int:
         ("topk_idx", "auvtpu/pallas/window_fill.py:384", launches_b4["topk_idx"],
          b4_err, ms["B4 k=4"], ms["B4 k=4 plain"]),
     ]
+    src = {k: "auvtpu_torch/csrc/window_fill.cu" for k, *_ in rows_}
+    rows_ += [
+        ("select_rows", "auvtpu/pallas/valid_select.py:79",
+         launches_a["select_rows"] + launches_t["select_rows"],
+         sc_err["select_rows"], ms["select_rows alone"], ms["select_rows plain"]),
+        ("idw_rows", "auvtpu/pallas/valid_select.py:113",
+         launches_a["idw_rows"] + launches_t["idw_rows"],
+         sc_err["idw_rows"], ms["idw_rows alone"], ms["idw_rows plain"]),
+        ("window_select_fused", "auvtpu/pallas/scattered_select.py:70",
+         launches_af["window_select_fused"],
+         sc_err["window_select_fused"], ms["window_select_fused alone"], ms["window_select_fused plain"]),
+    ]
+    for k in ("select_rows", "idw_rows", "window_select_fused"):
+        src[k] = "auvtpu_torch/csrc/scattered_select.cu"
     kernels = [
-        {"name": k, "route": "cuda", "source": src, "replaces": rep, "launches": n,
+        {"name": k, "route": "cuda", "source": src[k], "replaces": rep, "launches": n,
          "max_abs_err": err, "ms": t, "plain_ms": tp, "bound_ms": bounds[k][0],
          "bound_by": bounds[k][1], "library_ms": None}
         for k, rep, n, err, t, tp in rows_
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
-        "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}), flush=True)
+        "platform": "gpu", "kind": device_kind, "count": torch.cuda.device_count()}}), flush=True)
     return 0
 
 

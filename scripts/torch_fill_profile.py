@@ -13,7 +13,12 @@ kriging fill, 20 % for the IDW/mean fills and the slot-index selection; a
 - a torch.profiler table of device time by kernel over a few calls of each
   backend of fill_kriging, of fit_fill, of the Grid B IDW and Kriging
   methods at r0.20 and of a streaming window refresh, with the host-clock time per
-  call beside it (their ratio is the device's busy share).
+  call beside it (their ratio is the device's busy share);
+- Grid A scattered kriging at 5M queries through the valid16 B5 kernel
+  (``kriging_valid_t``, the CLI's --backend auto path): ``_normalize``, the
+  whole prologue, the B5 kernel alone, the torch row epilogue (decode and
+  5x6 solve) and the wrapper, then the profiler table and the device's idle
+  share for it and for B6 IDW.
 
 Prints the card's name and power limit beside the numbers.
 """
@@ -51,6 +56,67 @@ def streaming_mosaic(dev):
     si.ingest(rows, cols, vals)
     si.flush()
     return si
+
+
+def profile(label, fn, reps, card):
+    """Host clock per call (unprofiled), then device time by kernel under
+    torch.profiler; prints both and the device's idle share."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) * 1e3 / reps
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    ka = prof.key_averages()
+    # kernel rows only: an aten op row repeats its kernels' device time
+    dev_total = sum(
+        e.self_device_time_total for e in ka if e.device_type == torch.autograd.DeviceType.CUDA
+    ) / (reps * 1e3)
+    print(f"\n== {label}: device time {dev_total:.4f} ms per call (profiler, {reps} calls), "
+          f"host clock {wall:.4f} ms per call (unprofiled), device idle {1 - dev_total / wall:.1%} [{card}]")
+    print(ka.table(sort_by="self_device_time_total", row_limit=8, max_name_column_width=60))
+
+
+def grid_a_breakdown(dev, card, n=5_000_000):
+    """Grid A kriging through the valid16 B5 kernel at n queries, piece by
+    piece."""
+    from auvtpu_torch.cli.bench_grid_a import random_queries
+    from auvtpu_torch.config import GRID_A_EXTENT, GRID_A_SHAPE
+    from auvtpu_torch.grid import RegularGrid
+    from auvtpu_torch.kernels import scattered_select as ss
+    from auvtpu_torch.kernels import valid_select as vs
+    from auvtpu_torch.ops import packs as tp
+    from auvtpu_torch.ops.scattered import _normalize
+    from auvtpu_torch.synthetic import shelf_seamount
+
+    g = RegularGrid.dense(shelf_seamount(*GRID_A_SHAPE), GRID_A_EXTENT, device=dev)
+    p16 = tp.build_valid16_pack(g)
+    win, _ = tp.build_pack(g, tp.window_offsets(2), clamp=False)
+    lons, lats = random_queries(torch.Generator(device=dev).manual_seed(42), n, dev)
+    x, y, oob, ci, cj, cell, fx, fy = ss.prologue(g, lons, lats)
+    tab = ss.table(tp.VALID16_OFFSETS, 16, 2, "dy", dev)
+    rows = ss.select(p16, 16, cell, fx, fy, tab, mode="rows_t", k=4)
+    pieces = {
+        "_normalize": lambda: _normalize(g, lons, lats),
+        "prologue (normalize, centre, fx, fy)": lambda: ss.prologue(g, lons, lats),
+        "B5 kernel alone": lambda: ss.select(p16, 16, cell, fx, fy, tab, mode="rows_t", k=4),
+        "row epilogue (decode + torch solve)": lambda: vs._kriging_rows_epilogue(
+            g, lons, lats, rows, oob, ci, cj, 2, vparams=None, model="exponential"),
+        "kriging_valid_t (whole)": lambda: vs.kriging_valid_t(p16, g, lons, lats),
+        "packed_idw_t k=8 (whole)": lambda: vs.packed_idw_t(win, g, lons, lats),
+    }
+    print(f"\nGrid A {GRID_A_SHAPE[1]}x{GRID_A_SHAPE[0]}, {n} queries")
+    for label, fn in pieces.items():
+        t = cs.time_ms(fn, reps=10)
+        print(f"{label:38s} {t:9.4f} ms  ({n / t / 1e3:.1f} M pts/s)  [{card}]")
+    profile(f"Grid A kriging {n} queries (B5 valid16 + torch epilogue)", lambda: vs.kriging_valid_t(p16, g, lons, lats), 5, card)
+    profile(f"Grid A IDW {n} queries (B6)", lambda: vs.packed_idw_t(win, g, lons, lats), 5, card)
 
 
 def main() -> int:
@@ -119,7 +185,6 @@ def main() -> int:
         tile, _ = si.window_fill(2048, 2048)
         return tile.cpu()
 
-    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     for label, fn, reps in (
         ("fused", lambda: fill_kriging(grid, backend="fused"), 3),
         ("select", lambda: fill_kriging(grid, backend="select"), 3),
@@ -129,25 +194,8 @@ def main() -> int:
         ("Grid B Kriging r0.20 (B1 + gather)", lambda: kriging_at_cells(grid2, rows2, cols2), 3),
         ("window refresh 256x256 idw, result on the host", refresh, 20),
     ):
-        fn()
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-        wall = (time.perf_counter() - t0) * 1e3 / reps
-        with torch.profiler.profile(activities=acts) as prof:
-            for _ in range(reps):
-                fn()
-            torch.cuda.synchronize()
-        ka = prof.key_averages()
-        # kernel rows only: an aten op row repeats its kernels' device time
-        dev_total = sum(
-            e.self_device_time_total for e in ka if e.device_type == torch.autograd.DeviceType.CUDA
-        ) / (reps * 1e3)
-        print(f"\n== {label}: device time {dev_total:.4f} ms per call (profiler, {reps} calls), "
-              f"host clock {wall:.4f} ms per call (unprofiled) [{card}]")
-        print(ka.table(sort_by="self_device_time_total", row_limit=8, max_name_column_width=60))
+        profile(label, fn, reps, card)
+    grid_a_breakdown(dev, card)
     return 0
 
 

@@ -121,3 +121,52 @@ def test_lawnmower_track_matches_jax():
     for args in ((128, 128, 60, 40), (4096, 4096, 40_000, 40), (100, 300, 7, 25)):
         for a, b in zip(stream_demo.lawnmower_track(*args), j_track(*args)):
             np.testing.assert_array_equal(a, b)
+
+
+@pytest.mark.parametrize("backend", ["auto", "torch", "fused"])
+def test_bench_grid_a_cpu(tmp_path, backend):
+    from auvtpu.io import ResultsWriter as JResultsWriter
+
+    from auvtpu_torch.cli import bench_grid_a
+    from auvtpu_torch.kernels import scattered_select as ss
+
+    out = str(tmp_path / "res.csv")
+    ss.reset_launches()
+    summary = bench_grid_a.main([
+        "--num-lon", "80", "--num-lat", "64", "--batch-sizes", "1000", "--device", "cpu",
+        "--backend", backend, "--results", out,
+    ])
+    assert all(c == 0 for c in ss.LAUNCHES.values())  # a CPU grid runs the plain versions
+    methods = ["Bilinear", "Cubic", "Kriging", "IDW"]
+    assert sorted(summary) == sorted((m, 1000) for m in methods)
+    assert all(v["validated"] for v in summary.values())
+    got = pd.read_csv(out)
+    j_out = str(tmp_path / "j.csv")
+    JResultsWriter(j_out, with_region=True, with_cold=True)
+    assert list(got.columns) == list(pd.read_csv(j_out).columns)
+    assert list(got["InterpolationType"]) == methods
+    assert (got["GridType"] == "A").all() and (got["BatchSize"] == 1000).all() and (got["Region"] == "grid_a").all()
+    assert got["RMSE"].isna().all() and (got["Time"] > 0).all()
+
+
+def test_bench_grid_a_windowed_and_expanded(tmp_path):
+    from auvtpu_torch.cli import bench_grid_a
+
+    prefix = str(tmp_path / "exp")
+    summary = bench_grid_a.main([
+        "--num-lon", "40", "--num-lat", "32", "--batch-sizes", "300", "--device", "cpu", "--no-packed",
+        "--results", str(tmp_path / "res.csv"), "--expanded", "--expanded-out-prefix", prefix,
+    ])
+    assert all(v["validated"] for v in summary.values())
+    for name in ("bilin", "cubic", "kriging", "idw"):
+        grid = np.loadtxt(f"{prefix}_gpu_{name}.csv", delimiter=",")
+        assert grid.shape == (63, 79) and np.isfinite(grid).all()
+
+
+def test_bench_grid_a_help_names_what_is_left_out(capsys):
+    from auvtpu_torch.cli import bench_grid_a
+
+    with pytest.raises(SystemExit):
+        bench_grid_a.main(["--help"])
+    text = capsys.readouterr().out
+    assert "--selection" in text and "exact" in text and "--backend" in text and "--device" in text

@@ -77,6 +77,9 @@ def test_config_equal():
     assert tcfg.FallbackConfig().max_candidates == jcfg.FallbackConfig().max_candidates
     assert dataclasses.astuple(tcfg.GRID_A_EXTENT) == dataclasses.astuple(jcfg.GRID_A_EXTENT)
     assert tcfg.RESULTS_SCHEMA == jcfg.RESULTS_SCHEMA
+    assert tuple(tcfg.GRID_A_BATCH_SIZES) == tuple(jcfg.GRID_A_BATCH_SIZES)
+    assert tcfg.GRID_A_SHAPE == jcfg.GRID_A_SHAPE
+    assert (tcfg.VALIDATION_POINTS, tcfg.VALIDATION_ATOL) == (jcfg.VALIDATION_POINTS, jcfg.VALIDATION_ATOL)
     assert tcfg.GEBCO_TILES.keys() == jcfg.GEBCO_TILES.keys()
     for name, tile in tcfg.GEBCO_TILES.items():
         jtile = jcfg.GEBCO_TILES[name]
@@ -146,9 +149,13 @@ def _imported_roots(path):
 def test_port_imports_no_jax_or_auvtpu():
     files = sorted(PORT.rglob("*.py")) + [PORT.parent / "chip_smoke.py"]
     names = {str(f.relative_to(PORT)) for f in files if PORT in f.parents}
-    for new in ("cli/bench_grid_b.py", "cli/stream_demo.py", "utils/timing.py", "streaming.py", "metrics.py", "io.py"):
+    for new in (
+        "cli/bench_grid_b.py", "cli/stream_demo.py", "utils/timing.py", "streaming.py", "metrics.py", "io.py",
+        "cli/bench_grid_a.py", "golden/engine.py", "golden/v2.py", "ops/window.py", "ops/packs.py",
+        "ops/batch.py", "ops/two_tier.py", "kernels/valid_select.py", "kernels/scattered_select.py",
+    ):
         assert new in names
-    assert len(files) >= 24
+    assert len(files) >= 33
     bad = {
         str(f.relative_to(PORT.parent)): sorted(set(_imported_roots(f)) & _BANNED)
         for f in files
