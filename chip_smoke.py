@@ -63,6 +63,33 @@ streaming mosaic and scattered queries on the 3200x4000 Grid A, in phases:
 15. timing  the select kernel alone and plain, its wrappers and the torch
             paths at 1M Grid A queries, two-tier calls, the Grid A steady
             state per method and batch
+16. B8      the band/atlas resample kernel vs its plain version on the
+            stand-in r0.10: 5M pings of the band weave on the B1-filled band
+            and of the diagonal on the 8-page atlas (chunk 2048, hat_t, auto
+            windows), a masked band (a hole in vmask), the "aligned"
+            geometry with one-hot weights, and one-hot and hat weights at
+            64x160 (tests/test_band.py:86-119): ok exactly equal and z
+            bit-equal; the band's resolved share > 0.9 and its values within
+            5e-3 m of an f64 bilinear of the band plane at the same
+            coordinates (the JAX package's on-chip bar)
+17. mission auvtpu_torch.cli.mission at its defaults (512x640, 200k pings,
+            --max-bands 8) for the band and diagonal missions, routed and
+            forced onto the band path; BandRouter.kriging and .idw on the
+            stand-in r0.10 at 5M pings (band weave, diagonal atlas), forced
+            band and routed: every depth finite; the route under the JAX
+            package's COST_NS, the page count and the unresolved count
+            equal to the JAX package's and the f64 depth sum within 1e-3 m
+            a ping of it (scripts/band_reference_pins.py); launch counts
+            zeroed before the phase show B1, B3, B8 and, where queries
+            escalated, B5/B6; then the real-time loop of
+            tests/test_band.py:451-497 (streaming ingest, refresh, serve)
+18. timing  B8 alone (launched back to back through its library), its
+            wrapper, its plain version and grid_sample at 5M; the band and
+            atlas prepare (fills); BandRouter.kriging at 5M; 512-ping tick
+            latency with a refresh every 32 ticks and 8,192 observations a
+            tick (scripts/mission_replay.py's loop); the calibration of the
+            router's COST_NS, and the calibrated router's decisions on a
+            4096-query random batch (packed) and the prepared 5M band (band)
 
 then one JSON line of the kernels and, last, the device JSON line.  Any
 failure raises and the script exits non-zero; without a CUDA device it exits
@@ -137,13 +164,45 @@ MODEL_VPARAMS = {
 
 
 # Scattered serving (phases 12-14)
-SOURCES = ("window_fill", "scattered_select")  # csrc/<name>.cu, built together
+SOURCES = ("window_fill", "scattered_select", "band_resample")  # csrc/<name>.cu, built together
 N_SCATTER = 1_000_000
 SCATTER_RTOL, SCATTER_ATOL = 1e-5, 1e-4  # kernel paths vs torch (tests/test_pallas.py:300)
 TT_BARS = {"kriging": (1e-4, 0.1), "idw": (1e-4, 0.05)}  # two-tier vs torch (tests/test_packs.py:116-120)
 GRID_A_BATCHES = (1_000, 100_000, 1_000_000, 5_000_000)
 GOLDEN_TOL = 5e-5  # x max(1, |golden|): the Grid A CLI's f32 bar
 N_GOLDEN = 4096
+
+
+# Band serving (phases 16-18)
+N_BAND = 5_000_000
+BAND_F64_TOL = 5e-3  # resample vs f64 bilinear (scripts/chip_smoke.py:172-198)
+DEPTH_SUM_TOL = 1e-3  # m a ping: |sum of served depths - the JAX package's| / n
+# the JAX package's routing constants (auvtpu/ops/band.py:762-777): routes
+# are compared under these, the port's own COST_NS are the H100's
+JAX_COST_NS = {"packed_per_query": 8.3, "dispatch": 7.3e6, "fill_per_cell": 1.0, "resample_per_query": 3.0}
+# auvtpu.ops.band.BandRouter on XLA:CPU, scripts/band_reference_pins.py:
+# cli/<mission> is the mission CLI's workload (512x640, 200,000 pings, seed
+# 42, --max-bands 8), standin/<mission>/<method> the stand-in r0.10 with
+# 5,000,000 pings (seed 0; band weave: one band, diagonal: up to 8 pages)
+BAND_PINS = {
+    "cli/band": dict(route="packed", pages=4, wr=56, wc=16, masked=False, unresolved=1752,
+                     depth_sum=-15836418.445456505, packed_depth_sum=-15821279.09181118),
+    "cli/diagonal": dict(route="packed", pages=6, wr=40, wc=16, masked=False, unresolved=0,
+                         depth_sum=-19316779.50036335, packed_depth_sum=-19286330.287711143),
+    "standin/band/kriging": dict(route="band", pages=1, wr=64, wc=8, masked=False, unresolved=0,
+                                 depth_sum=-8549135931.344101),
+    "standin/band/idw": dict(route="band", pages=1, wr=64, wc=8, masked=False, unresolved=0,
+                             depth_sum=-8549157678.563873),
+    "standin/diagonal/kriging": dict(route="band", pages=8, wr=64, wc=8, masked=False, unresolved=60988,
+                                     depth_sum=-11021481917.877838),
+    "standin/diagonal/idw": dict(route="band", pages=8, wr=64, wc=8, masked=False, unresolved=60988,
+                                 depth_sum=-11021496468.685257),
+}
+MAX_BANDS = {"band": 1, "diagonal": 8}
+# scripts/mission_replay.py's loop at one of its ingest rates
+TICK, N_TICKS, WARMUP_TICKS, REFRESH_EVERY, TICK_OBS, SWATH_HALF_ROWS = 512, 256, 4, 32, 8192, 24
+# band shapes of the fill-cost line (0.16M-5M cells, the JAX probe's span)
+FILL_SHAPES = ((64, 2441), (256, 2441), (1024, 2441), (2053, 2441))
 
 
 def say(phase: str, msg: str) -> None:
@@ -226,6 +285,55 @@ def time_ms(fn, warmup: int = 3, reps: int = 20) -> float:
         b.synchronize()
         times.append(a.elapsed_time(b))
     return float(np.median(times))
+
+
+def time_back_to_back(fn, launches: int = 50, reps: int = 5) -> float:
+    """Median device time of one call from CUDA events around ``launches``
+    calls issued back to back (for calls whose host cost is below their
+    device time, so the device never waits for the host)."""
+    import torch
+
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        for _ in range(launches):
+            fn()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b) / launches)
+    return float(np.median(times))
+
+
+def b8_launcher(args, kw):
+    """A closure launching B8 on these inputs straight through its library,
+    outputs allocated once: the kernel alone, without the wrapper's checks
+    and allocations, for timing it back to back."""
+    import torch
+
+    from auvtpu_torch.kernels import band_resample as kb
+
+    planes, vm, org, x, y = args
+    K, R, C = planes.shape
+    n = x.numel()
+    geo = kb.geometry(R, C, kw["wr"], kw["wc"], kw["aligned"])
+    z = torch.empty(n, dtype=torch.float32, device=x.device)
+    ok = torch.empty(n, dtype=torch.bool, device=x.device)
+    lib, stream = kb._lib(), kb._stream(x.device)
+
+    def launch():
+        err = lib.auvtpu_band_resample(
+            planes.data_ptr(), vm.data_ptr() if vm is not None else None, org.data_ptr(), K, R, C,
+            x.data_ptr(), y.data_ptr(), n, kw["chunk"], *geo, int(vm is not None), int(kw["pick"]),
+            int(kw["hat"]), kb.WSUM_THRESH, z.data_ptr(), ok.data_ptr(), stream)
+        if err:
+            raise RuntimeError(f"B8 launch failed ({err})")
+
+    return launch
 
 
 def bound(nbytes: float, ops: float) -> tuple[float, str]:
@@ -324,6 +432,213 @@ def golden_check(got, want, what: str) -> float:
     return float(np.nanmax(np.abs(got - want)))
 
 
+def band_tracks(grid, n: int, seed: int = 0):
+    """The band weave and the diagonal mission (mission.synthetic_trajectory)
+    as float32 tensors on the grid's device."""
+    import torch
+
+    from auvtpu_torch.cli.mission import synthetic_trajectory
+
+    out = {}
+    for kind in ("band", "diagonal"):
+        lon, lat = synthetic_trajectory(kind, grid, n, seed)
+        out[kind] = (torch.from_numpy(lon).to(grid.device), torch.from_numpy(lat).to(grid.device))
+    return out
+
+
+def b8_call(rs, lons, lats, *, aligned: bool = False):
+    """(args, kwargs) of the B8 wrapper for resampler ``rs`` on these
+    queries: the inputs its resample() passes (``aligned``: the Pallas
+    geometry with one-hot weights, as backend "aligned" takes it)."""
+    import torch
+
+    from auvtpu_torch.ops import band as tband
+
+    _, x, y, chunk = rs.coords(lons, lats)
+    if isinstance(rs, tband.BandResampler):
+        b = rs.band
+        planes, vm, org, pick, masked = b.plane[None], b.vmask[None], torch.zeros(
+            (1, 2), dtype=b.plane.dtype, device=b.plane.device), False, b.masked
+    else:
+        a = rs.atlas
+        planes, vm, org, pick, masked = a.planes, a.vmasks, a.origins, a.planes.shape[0] > 1, a.masked
+    aligned = aligned and not masked
+    kw = dict(chunk=chunk, wr=rs.wr, wc=rs.wc, pick=pick, aligned=aligned,
+              hat=not aligned and rs.lerp_mode != "onehot")
+    return (planes, vm if masked else None, org, x, y), kw
+
+
+def b8_equal(args, kw, what: str):
+    """B8 vs its plain version on the same inputs: ok exactly equal, z
+    bit-equal at resolved queries and NaN elsewhere.  Returns (z, ok, max
+    |kernel - plain|)."""
+    import torch
+
+    from auvtpu_torch.kernels import band_resample as kb
+
+    z, ok = kb.band_resample(*args, **kw)
+    zp, okp = kb.band_resample_ref(*args, **kw)
+    if z.is_cuda:
+        torch.cuda.synchronize()
+    if not torch.equal(ok, okp):
+        raise AssertionError(f"B8 {what}: ok differs from plain at {int((ok != okp).sum())} queries")
+    if not torch.equal(torch.isnan(z), ~ok):
+        raise AssertionError(f"B8 {what}: NaN placement differs from ~ok")
+    err = float((z[ok] - zp[ok]).abs().max()) if bool(ok.any()) else 0.0
+    if not torch.equal(z[ok], zp[ok]):
+        raise AssertionError(f"B8 {what}: z differs from plain (max |diff| {err})")
+    return z, ok, err
+
+
+def f64_bilinear_err(plane, x, y, z, ok) -> float:
+    """Largest |z - f64 bilinear of ``plane``| over the resolved queries, the
+    f64 bilinear taken at the same (float32) band-frame coordinates."""
+    import torch
+
+    x64, y64 = x[ok].double(), y[ok].double()
+    p = plane.double()
+    x0, y0 = torch.floor(x64), torch.floor(y64)
+    wx, wy = x64 - x0, y64 - y0
+    xi, yi = x0.long(), y0.long()
+    want = ((1 - wy) * ((1 - wx) * p[yi, xi] + wx * p[yi, xi + 1])
+            + wy * ((1 - wx) * p[yi + 1, xi] + wx * p[yi + 1, xi + 1]))
+    return float((z[ok].double() - want).abs().max())
+
+
+def check_pin(key: str, got: dict, n: int) -> None:
+    """Hold a band-path result {pages, wr, wc, masked, unresolved, depth_sum}
+    (those present) to the JAX package's pin."""
+    pin = BAND_PINS[key]
+    for k in ("pages", "wr", "wc", "masked", "unresolved"):
+        if k in got and got[k] != pin[k]:
+            raise AssertionError(f"{key}: {k} {got[k]} differs from the JAX package's {pin[k]}")
+    want = pin["packed_depth_sum"] if got.get("route") == "packed" else pin["depth_sum"]
+    if not abs(got["depth_sum"] - want) <= DEPTH_SUM_TOL * n:
+        raise AssertionError(f"{key}: depth sum {got['depth_sum']!r} outside {want!r} +- {DEPTH_SUM_TOL} x {n}")
+
+
+def mission_cli_runs(dev, say_=say):
+    """Phase 17a: the mission CLI at its defaults, routed and forced onto
+    the band path, for both missions.  Returns {(mission, force): summary}."""
+    from auvtpu_torch.cli import mission
+    from auvtpu_torch.config import Extent
+    from auvtpu_torch.grid import RegularGrid
+    from auvtpu_torch.masking import mask_grid
+    from auvtpu_torch.ops.band import BandRouter
+    from auvtpu_torch.synthetic import shelf_seamount
+
+    H, W = 512, 640
+    g = RegularGrid.from_nan_array(np.asarray(mask_grid(shelf_seamount(H, W), 0.10, 42)[0], np.float32),
+                                   Extent(0.0, W - 1.0, 0.0, H - 1.0), device=dev)
+    out = {}
+    for kind in ("band", "diagonal"):
+        key = f"cli/{kind}"
+        lon, lat = mission.synthetic_trajectory(kind, g, 200_000, 42)
+        j_route = BandRouter(g, max_bands=8, cost_ns=JAX_COST_NS).route(lon, lat)
+        if j_route != BAND_PINS[key]["route"]:
+            raise AssertionError(f"{key}: route under the JAX costs {j_route}, the JAX package's {BAND_PINS[key]['route']}")
+        for force in (None, "band"):
+            argv = ["--synthetic", kind, "--device", str(dev)] + (["--force", force] if force else [])
+            summ = mission.main(argv)
+            check_pin(key, summ, summ["n"])
+            out[(kind, force)] = summ
+            say_("mission", f"CLI {kind} {'forced band' if force else 'routed'}: route {summ['route']} (JAX costs: "
+                 f"{j_route}), {summ['pages']} pages, unresolved {summ['unresolved']}, depth sum "
+                 f"{summ['depth_sum']!r} (JAX {BAND_PINS[key]['packed_depth_sum' if summ['route'] == 'packed' else 'depth_sum']!r}), "
+                 f"{summ['wall_ms']:.1f} ms cold")
+    return out
+
+
+def standin_serving_runs(grid, tracks, say_=say):
+    """Phase 17b: BandRouter.kriging and .idw at 5M pings on the stand-in,
+    forced band and routed (each from a fresh router, which prepares its
+    band or atlas itself).  Returns {(key, force): summary}."""
+    import torch
+
+    from auvtpu_torch.ops.band import BandRouter
+
+    out = {}
+    for kind, (lon, lat) in tracks.items():
+        mb = MAX_BANDS[kind]
+        for method in ("kriging", "idw"):
+            key = f"standin/{kind}/{method}"
+            j_route = BandRouter(grid, max_bands=mb, cost_ns=JAX_COST_NS).route(lon, lat)
+            for force in ("band", None):
+                r = BandRouter(grid, max_bands=mb)
+                route = force or r.route(lon, lat)
+                if route != BAND_PINS[key]["route"] or j_route != route:
+                    raise AssertionError(f"{key}: route {route} (JAX costs {j_route}), the JAX package's "
+                                         f"{BAND_PINS[key]['route']}")
+                z = getattr(r, method)(lon, lat, force=force)
+                if not bool(torch.isfinite(z).all()):
+                    raise AssertionError(f"{key}: non-finite depths")
+                held = r._atlas if r._atlas is not None else r._band
+                summ = dict(route=route, pages=held.shape[0] if r._atlas is not None else 1, wr=r._resampler.wr,
+                            wc=r._resampler.wc, masked=held.masked, unresolved=r.last_unresolved,
+                            depth_sum=float(z.double().sum()))
+                check_pin(key, summ, z.numel())
+                out[(key, force)] = summ
+                say_("mission", f"{key} {'forced band' if force else 'routed'}: route {route}, {summ['pages']} pages, "
+                     f"window {summ['wr']}x{summ['wc']}, unresolved {summ['unresolved']}, depth sum "
+                     f"{summ['depth_sum']!r} (JAX {BAND_PINS[key]['depth_sum']!r})")
+    return out
+
+
+def tick_latency(grid, dev) -> dict:
+    """scripts/mission_replay.py's real-time loop at TICK_OBS observations a
+    tick: a streaming mosaic seeded with the grid's observed cells; per
+    TICK-ping tick, ingest and flush a swath around the vehicle, refresh the
+    router from the mosaic every REFRESH_EVERY ticks, and serve the tick's
+    pings through BandRouter.kriging until their sum is on the host.
+    Host-clock ms per tick."""
+    import torch
+
+    from auvtpu_torch.cli.mission import synthetic_trajectory
+    from auvtpu_torch.config import KERGUELEN_EXTENT
+    from auvtpu_torch.ops.band import BandRouter
+    from auvtpu_torch.streaming import StreamingInterpolator
+
+    H, W = grid.shape
+    prior = grid.to_nan_array()
+    si = StreamingInterpolator((H, W), KERGUELEN_EXTENT, swath_cap=65536, stage_slots=16, method="kriging",
+                               device=dev)
+    rs_, cs_ = np.nonzero(~np.isnan(prior))
+    si.ingest(rs_, cs_, prior[rs_, cs_])
+    si.flush()
+    n = N_TICKS * TICK
+    lon, lat = synthetic_trajectory("band", si.grid(), n, 0)
+    x = (lon.astype(np.float64) - KERGUELEN_EXTENT.min_lon) / grid.lon_step
+    y = (lat.astype(np.float64) - KERGUELEN_EXTENT.min_lat) / grid.lat_step
+    router = BandRouter(si.grid())
+    router.prepare(lon, lat)
+    rng = np.random.default_rng(1)
+    serve, post, refresh = [], [], []
+    for tick in range(-WARMUP_TICKS, N_TICKS):
+        i = max(tick, 0)
+        s, e = i * TICK, (i + 1) * TICK
+        vy = int(np.clip(y[s], SWATH_HALF_ROWS, H - 1 - SWATH_HALF_ROWS))
+        orow = rng.integers(vy - SWATH_HALF_ROWS, vy + SWATH_HALF_ROWS, TICK_OBS)
+        ocol = rng.integers(max(int(x[s]) - 64, 0), min(int(x[e - 1]) + 64, W - 1), TICK_OBS)
+        si.ingest(orow, ocol, -3000.0 + 0.1 * orow.astype(np.float64))
+        si.flush()
+        refreshed = tick > 0 and tick % REFRESH_EVERY == 0
+        if refreshed:
+            t0 = time.perf_counter()
+            router.refresh(grid=si.grid())
+            refresh.append((time.perf_counter() - t0) * 1e3)
+        t0 = time.perf_counter()
+        chk = float(router.kriging(lon[s:e], lat[s:e]).sum())  # the tick ends with its depths on the host
+        dt = (time.perf_counter() - t0) * 1e3
+        if not np.isfinite(chk):
+            raise AssertionError(f"tick {tick}: non-finite depths")
+        if tick >= 0:
+            (post if refreshed else serve).append(dt)
+    torch.cuda.synchronize()
+    return dict(p50=float(np.percentile(serve, 50)), p99=float(np.percentile(serve, 99)), max=float(np.max(serve)),
+                n=len(serve), post_p50=float(np.median(post)), post_max=float(np.max(post)),
+                refresh_p50=float(np.median(refresh)))
+
+
 def main() -> int:
     import torch
 
@@ -351,6 +666,7 @@ def main() -> int:
     # ---- 2. build
     from concurrent.futures import ThreadPoolExecutor
 
+    from auvtpu_torch.kernels import band_resample as kb
     from auvtpu_torch.kernels import scattered_select as ss
 
     t0 = time.perf_counter()
@@ -358,6 +674,7 @@ def main() -> int:
         list(ex.map(kbuild.build, SOURCES))
     wf.build()
     ss.build()
+    kb.build()
     say("build", f"{', '.join(s + '.cu' for s in SOURCES)} built and loaded in {time.perf_counter() - t0:.1f} s")
     for src in SOURCES:
         log = kbuild.library_path(src).with_suffix(".log")
@@ -837,6 +1154,225 @@ def main() -> int:
         say("timing", f"Grid A fused n={n:>9} {method:8s} steady {v['steady_ms']:.4f} ms "
             f"({n / v['steady_ms'] / 1e3:.2f} M pts/s)  [{card}]")
     say("timing", f"peak device memory {torch.cuda.max_memory_allocated(dev) / 2**20:.0f} MiB")
+    del p16, winA, fxA, fyA, qA, gA, sel_args, wrappers
+    torch.cuda.empty_cache()
+
+    # ---- 16. B8 vs its plain version: the band weave on the B1-filled band
+    # and the diagonal on the 8-page atlas at 5M pings, a masked band, the
+    # aligned geometry, and both weight families at the 64-row test size
+    import torch.nn.functional as F
+
+    from auvtpu_torch.ops import band as tband
+
+    t_band = time.perf_counter()
+    tracks = band_tracks(grid, N_BAND)
+    rb = tband.BandRouter(grid)
+    band = rb.prepare(*tracks["band"])
+    rs_b = rb._resampler
+    ra = tband.BandRouter(grid, max_bands=8)
+    atlas = ra.prepare(*tracks["diagonal"])
+    rs_a = ra._resampler
+    say("B8", f"stand-in r0.10 band {band.shape} at ({band.row0}, {band.col0}), masked={band.masked}, window "
+        f"{rs_b.wr}x{rs_b.wc}; atlas {atlas.shape}, masked={atlas.masked}, window {rs_a.wr}x{rs_a.wc}; "
+        f"{N_BAND} pings each, chunk {rs_b.chunk}, lerp {rs_b.lerp_mode}, backend {rs_b.backend}")
+    if rs_b.backend != "fused" or rs_a.backend != "fused":
+        raise AssertionError(f"the resamplers' auto backend resolved to {rs_b.backend}/{rs_a.backend}")
+    band_args, band_kw = b8_call(rs_b, *tracks["band"])
+    z_b, ok_b, b8_err = b8_equal(band_args, band_kw, "band weave")
+    xb_, yb_ = band_args[3][:N_BAND], band_args[4][:N_BAND]
+    share = float(ok_b[:N_BAND].float().mean())
+    e64 = f64_bilinear_err(band.plane, xb_, yb_, z_b[:N_BAND], ok_b[:N_BAND])
+    say("B8", f"band weave: ok and z equal to plain; resolved {share:.6f}; max |z - f64 bilinear| {e64:.3g} m")
+    if share <= 0.9 or not e64 < BAND_F64_TOL:
+        raise AssertionError(f"band weave: resolved {share} (want > 0.9), f64 error {e64} (want < {BAND_F64_TOL})")
+    atlas_args, atlas_kw = b8_call(rs_a, *tracks["diagonal"])
+    _, ok_a, e = b8_equal(atlas_args, atlas_kw, "diagonal atlas")
+    b8_err = max(b8_err, e)
+    say("B8", f"diagonal atlas: ok and z equal to plain; resolved {float(ok_a[:N_BAND].float().mean()):.6f}")
+    # a masked band: a hole across the weave's centre rows
+    R_, C_ = band.shape
+    hole = band.vmask.clone()
+    hole[R_ // 2 - 2:R_ // 2 + 2, 1000:1100] = 0.0
+    mband = tband.Band(plane=band.plane * hole, vmask=hole, masked=True, row0=band.row0, col0=band.col0)
+    rs_m = tband.BandResampler(grid, mband, chunk=rs_b.chunk, win_rows=rs_b.wr, win_cols=rs_b.wc,
+                               lerp_mode=rs_b.lerp_mode)
+    m_args, m_kw = b8_call(rs_m, *tracks["band"])
+    z_m, ok_m, e = b8_equal(m_args, m_kw, "masked band")
+    b8_err = max(b8_err, e)
+    lost = int((ok_b & ~ok_m).sum())
+    e64m = f64_bilinear_err(mband.plane, xb_, yb_, z_m[:N_BAND], ok_m[:N_BAND])
+    say("B8", f"masked band: ok and z equal to plain; {lost} pings unresolved by the hole; max |z - f64| {e64m:.3g} m")
+    if lost == 0 or not e64m < BAND_F64_TOL:
+        raise AssertionError(f"masked band: {lost} pings lost to the hole, f64 error {e64m}")
+    for label, rs_, tr in (("band", rs_b, tracks["band"]), ("atlas", rs_a, tracks["diagonal"])):
+        args, kw = b8_call(rs_, *tr, aligned=True)
+        _, ok_al, e = b8_equal(args, kw, f"{label} aligned")
+        b8_err = max(b8_err, e)
+        say("B8", f"{label} aligned geometry (one-hot weights): ok and z equal to plain; resolved "
+            f"{float(ok_al[:N_BAND].float().mean()):.6f}")
+    # tests/test_band.py:86-119 on the card: a 48x160 IDW band (B3) of a
+    # 96x160 dense grid, 1000 pings, chunk 64, 32x128 windows
+    EXT_T = Extent(-74.0, -70.0, 35.0, 38.0)
+    g_t = RegularGrid.dense(shelf_seamount(96, 160), EXT_T, device=dev)
+    b_t = tband.fill_band(g_t, 16, 48, 0, 160, method="idw")
+    hole_t = b_t.vmask.clone()
+    hole_t[20:22, 60:64] = 0.0
+    bm_t = tband.Band(plane=b_t.plane * hole_t, vmask=hole_t, masked=True, row0=16, col0=0)
+    tt_ = np.linspace(0.0, 1.0, 1000)
+    rng_t = np.random.default_rng(0)
+    xt = np.clip(1.0 + tt_ * 157 + rng_t.normal(0, 0.05, 1000), 0.5, 158.5)
+    yt = np.clip(96 * 0.4 + 96 * 0.05 * np.sin(tt_ * 40 * np.pi) + rng_t.normal(0, 0.05, 1000), 0.5, 94.5)
+    q_t = (torch.from_numpy((-74.0 + xt * g_t.lon_step).astype(np.float32)).to(dev),
+           torch.from_numpy((35.0 + yt * g_t.lat_step).astype(np.float32)).to(dev))
+    for b_ in (b_t, bm_t):
+        for lerp in ("onehot", "hat"):
+            rs_t = tband.BandResampler(g_t, b_, chunk=64, win_rows=32, win_cols=128, lerp_mode=lerp)
+            args, kw = b8_call(rs_t, *q_t)
+            _, ok_t, e = b8_equal(args, kw, f"48x160 {lerp} masked={b_.masked}")
+            b8_err = max(b8_err, e)
+            say("B8", f"48x160 band, {lerp} weights, masked={b_.masked}: ok and z equal to plain; resolved "
+                f"{float(ok_t[:1000].float().mean()):.4f}")
+    say("B8", f"phase took {time.perf_counter() - t_band:.1f} s")
+
+    # ---- 17. mission (launch counts from here to the end of the real-time
+    # loop)
+    t_m = time.perf_counter()
+    wf.reset_launches()
+    ss.reset_launches()
+    kb.reset_launches()
+    cli_runs = mission_cli_runs(dev)
+    serving = standin_serving_runs(grid, tracks)
+    # the real-time loop of tests/test_band.py:451-497: ingest, refresh,
+    # serve; new observations reach the band fill and the escalation engine
+    si_m = StreamingInterpolator((96, 256), EXT_T, swath_cap=512, method="kriging", device=dev)
+
+    def swath(c0, c1):
+        rr, cc = np.mgrid[0:96:2, c0:c1]
+        rr, cc = rr.ravel(), cc.ravel()
+        si_m.ingest(rr, cc, (100.0 + rr * 0.5 + cc * 0.25).astype(np.float64))
+
+    swath(0, 128)
+    r_m = tband.BandRouter(si_m.grid(), chunk=64, win_rows=32, win_cols=128)
+    t_ = np.linspace(0, 1, 512)
+    x_m = 2.0 + t_ * 120.0
+    y_m = 48.0 + 3 * np.sin(t_ * 20 * np.pi)
+    lon_m = (-74.0 + x_m * r_m.grid.lon_step).astype(np.float32)
+    lat_m = (35.0 + y_m * r_m.grid.lat_step).astype(np.float32)
+    r_m.prepare(lon_m, lat_m)
+    z1 = r_m.kriging(lon_m, lat_m, force="band").double().cpu().numpy()
+    swath(128, 256)
+    r_m.refresh(grid=si_m.grid())
+    x2_m = 130.0 + t_ * 110.0
+    lon2_m = (-74.0 + x2_m * r_m.grid.lon_step).astype(np.float32)
+    z2 = r_m.kriging(lon2_m, lat_m, force="band").double().cpu().numpy()
+    e1 = float(np.abs(z1 - (100.0 + y_m * 0.5 + x_m * 0.25)).max())
+    e2 = float(np.abs(z2 - (100.0 + y_m * 0.5 + x2_m * 0.25)).max())
+    if not (np.isfinite(z1).all() and np.isfinite(z2).all() and e1 < 1.0 and e2 < 1.0
+            and r_m.two_tier.grid is r_m.grid and r_m.last_unresolved > 0):
+        raise AssertionError(f"real-time loop: max |err| {e1}, {e2} (want < 1 m, finite), "
+                             f"{r_m.last_unresolved} escalated after the refresh")
+    launches_m = {**wf.LAUNCHES, **ss.LAUNCHES, **kb.LAUNCHES}
+    say("mission", f"real-time loop (96x256 streaming, refresh, serve): max |err| {e1:.4f} / {e2:.4f} m on the "
+        f"linear field, {r_m.last_unresolved} escalated after the refresh; launches {launches_m}; phase took "
+        f"{time.perf_counter() - t_m:.1f} s")
+    need = ["fill_kriging_fused", "fill_idw_fused", "band_resample"]
+    if any(v["unresolved"] for (k, _), v in serving.items() if k.endswith("kriging")):
+        need.append("select_rows")
+    if any(v["unresolved"] for (k, _), v in serving.items() if k.endswith("idw")):
+        need.append("idw_rows")
+    for k in need:
+        if launches_m[k] < 1:
+            raise AssertionError(f"kernel {k} was not launched on the mission path")
+
+    # ---- 18. timing of the band slice and the router's COST_NS
+    def host_ms(fn, warmup: int = 1, reps: int = 5) -> float:
+        """Median host clock of one call ending in a device sync."""
+        for _ in range(warmup):
+            fn()
+        torch.cuda.synchronize()
+        times = []
+        for _ in range(reps):
+            t0_ = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0_) * 1e3)
+        return float(np.median(times))
+
+    ms["B8 band"] = time_back_to_back(b8_launcher(band_args, band_kw))
+    ms["B8 band wrapper"] = time_ms(lambda: kb.band_resample(*band_args, **band_kw))
+    ms["B8 band plain"] = time_ms(lambda: kb.band_resample_ref(*band_args, **band_kw), reps=5)
+    ms["B8 atlas"] = time_back_to_back(b8_launcher(atlas_args, atlas_kw))
+    ms["B8 atlas wrapper"] = time_ms(lambda: kb.band_resample(*atlas_args, **atlas_kw))
+    ms["B8 atlas plain"] = time_ms(lambda: kb.band_resample_ref(*atlas_args, **atlas_kw), reps=5)
+    # the library yardstick: grid_sample (bilinear, align_corners=True) on the
+    # same plane and coordinates computes the values alone (no window, no
+    # resolved mask); it is timed here and used nowhere in the port
+    R_, C_ = band.shape
+    gs_grid = torch.stack([xb_ * (2.0 / (C_ - 1)) - 1.0, yb_ * (2.0 / (R_ - 1)) - 1.0], dim=-1)[None, None]
+    gs_plane = band.plane[None, None]
+    z_gs = F.grid_sample(gs_plane, gs_grid, mode="bilinear", align_corners=True)[0, 0, 0]
+    ok_ = ok_b[:N_BAND]
+    gs_diff = float((z_gs[ok_] - z_b[:N_BAND][ok_]).abs().max())
+    ms["grid_sample"] = time_back_to_back(lambda: F.grid_sample(gs_plane, gs_grid, mode="bilinear", align_corners=True))
+    ms["band resample"] = time_ms(lambda: rs_b.resample(*tracks["band"]))
+    ms["atlas resample"] = time_ms(lambda: rs_a.resample(*tracks["diagonal"]))
+    for label in ("B8 band", "B8 atlas"):
+        say("timing", f"{N_BAND} pings {label:9s} kernel alone {ms[label]:.4f} ms (back to back), wrapper "
+            f"{ms[label + ' wrapper']:.4f} ms, plain {ms[label + ' plain']:.4f} ms  [{card}]")
+    say("timing", f"{N_BAND} pings grid_sample on the band {ms['grid_sample']:.4f} ms (back to back; values only; max |diff| from B8 "
+        f"at resolved pings {gs_diff:.3g} m); BandResampler.resample {ms['band resample']:.4f} ms, "
+        f"AtlasResampler.resample {ms['atlas resample']:.4f} ms  [{card}]")
+    ms["band prepare"] = host_ms(lambda: rb.prepare(*tracks["band"]))
+    ms["atlas prepare"] = host_ms(lambda: ra.prepare(*tracks["diagonal"]))
+    ms["band kriging"] = host_ms(lambda: rb.kriging(*tracks["band"]))
+    ms["atlas kriging"] = host_ms(lambda: ra.kriging(*tracks["diagonal"]))
+    say("timing", f"prepare (plan + fills, host clock): band {ms['band prepare']:.4f} ms ({band.cells} cells), atlas "
+        f"{ms['atlas prepare']:.4f} ms ({atlas.cells} cells); BandRouter.kriging at {N_BAND} (route, resample, "
+        f"escalation): band {ms['band kriging']:.4f} ms ({N_BAND / ms['band kriging'] / 1e3:.1f} M pts/s), atlas "
+        f"{ms['atlas kriging']:.4f} ms ({N_BAND / ms['atlas kriging'] / 1e3:.1f} M pts/s)  [{card}]")
+    tick = tick_latency(grid, dev)
+    say("timing", f"tick latency, {TICK}-ping ticks, {TICK_OBS} observations a tick, refresh every {REFRESH_EVERY}: "
+        f"p50 {tick['p50']:.4f} ms, p99 {tick['p99']:.4f} ms, max {tick['max']:.4f} ms over {tick['n']} ticks; "
+        f"after a refresh p50 {tick['post_p50']:.4f} ms, max {tick['post_max']:.4f} ms; refresh() "
+        f"p50 {tick['refresh_p50']:.4f} ms  [{card}]")
+    # the router's cost model on this card
+    tt5 = TwoTierInterpolator(grid)
+    q5 = scattered_queries(KERGUELEN_EXTENT, *SHAPE, N_BAND, 10, dev)
+    ms["packed 5M"] = time_ms(lambda: tt5.kriging(*q5), reps=5)
+    # the fill line: fill_per_cell is the slope of the fills' device time
+    # (CUDA events) over the cells, dispatch what the host clock adds on top
+    # (the median over the shapes); a least-squares line through the host
+    # clock alone is flat here, the calls being host-bound at every shape
+    H_, W_ = grid.shape
+    fills = []
+    for nr, nc in FILL_SHAPES:
+        fill_ = (lambda r0_=(H_ - nr) // 2, nr=nr, nc=nc: rb._fill_one(r0_, nr, 0, nc, True))
+        fills.append((nr * nc, host_ms(fill_), time_ms(fill_, reps=10)))
+    per_cell = max(float(np.polyfit([c for c, _, _ in fills], [d * 1e6 for _, _, d in fills], 1)[0]), 0.0)
+    cal = {
+        "packed_per_query": ms["packed 5M"] * 1e6 / q5[0].numel(),
+        "dispatch": float(np.median([h * 1e6 - per_cell * c for c, h, _ in fills])),
+        "fill_per_cell": per_cell,
+        "resample_per_query": ms["band resample"] * 1e6 / N_BAND,
+    }
+    say("timing", "fills, host clock / events: " + ", ".join(f"{c} cells {h:.4f} / {d:.4f} ms" for c, h, d in fills)
+        + f"; two-tier kriging at {q5[0].numel()} random queries {ms['packed 5M']:.4f} ms  [{card}]")
+    say("timing", f"calibrated COST_NS {json.dumps(cal)}; committed {json.dumps(tband.COST_NS)}  [{card}]")
+    rng_q = np.random.default_rng(11)
+    rq = (rng_q.uniform(KERGUELEN_EXTENT.min_lon, KERGUELEN_EXTENT.max_lon, 4096).astype(np.float32),
+          rng_q.uniform(KERGUELEN_EXTENT.min_lat, KERGUELEN_EXTENT.max_lat, 4096).astype(np.float32))
+    for label, costs in (("calibrated", cal), ("committed", tband.COST_NS)):
+        r_c = tband.BandRouter(grid, cost_ns=costs)
+        random_route = r_c.route(*rq)
+        r_c.prepare(*tracks["band"])
+        band_route = r_c.route(*tracks["band"], band_ready=True)
+        say("timing", f"{label} costs: 4096 random queries route {random_route}, the prepared {N_BAND}-ping band "
+            f"routes {band_route}")
+        if (random_route, band_route) != ("packed", "band"):
+            raise AssertionError(f"{label} router: random batch {random_route}, prepared band {band_route}")
+    del tt5, q5, r_c, tick
+    torch.cuda.empty_cache()
+    say("timing", f"peak device memory {torch.cuda.max_memory_allocated(dev) / 2**20:.0f} MiB")
 
     # bounds, from this run's inputs
     # B1/B2 timed on the r0.10 grid, B3/B4 on the r0.20 one (same shape);
@@ -861,6 +1397,11 @@ def main() -> int:
         "idw_rows": bound(nq * (32 * 4 + 12 + 2 * 4), nq * (8 * 32 + 2 * 8 * 32 + 4 * 8)),
         "window_select_fused": bound(nq * (32 * 4 + 12 + (1 + 3 * 4) * 4), nq * (8 * 32 + 2 * 4 * 32)),
     })
+    # B8, per ping of the band weave: x and y read, z and ok written; per
+    # chunk its window of the band once; ~25 f32 operations a ping
+    nq_b = float(band_args[3].numel())
+    wh_, ww_ = kb.geometry(*band.shape, band_kw["wr"], band_kw["wc"], False)[:2]
+    bounds["band_resample"] = bound(nq_b * 13 + nq_b / band_kw["chunk"] * wh_ * ww_ * 4, nq_b * 25)
     say("bounds", "; ".join(f"{k} {v[0] * 1e3:.2f} us ({v[1]})" for k, v in bounds.items())
         + f"; rows scanned per cell: k=4 {s4 / n:.3f}, k=8 {s8 / n:.3f} (r0.20), k=4 {s4_bench / n:.3f} (r0.10); "
         f"select kernels at {int(nq)} Grid A queries")
@@ -894,10 +1435,14 @@ def main() -> int:
     ]
     for k in ("select_rows", "idw_rows", "window_select_fused"):
         src[k] = "auvtpu_torch/csrc/scattered_select.cu"
+    rows_.append(("band_resample", "auvtpu/pallas/band_resample.py:43", launches_m["band_resample"],
+                  b8_err, ms["B8 band"], ms["B8 band plain"]))
+    src["band_resample"] = "auvtpu_torch/csrc/band_resample.cu"
+    library = {"band_resample": ms["grid_sample"]}  # values only, no resolved mask
     kernels = [
         {"name": k, "route": "cuda", "source": src[k], "replaces": rep, "launches": n,
          "max_abs_err": err, "ms": t, "plain_ms": tp, "bound_ms": bounds[k][0],
-         "bound_by": bounds[k][1], "library_ms": None}
+         "bound_by": bounds[k][1], "library_ms": library.get(k)}
         for k, rep, n, err, t, tp in rows_
     ]
     print(json.dumps({"kernels": kernels}), flush=True)

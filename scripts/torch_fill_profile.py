@@ -18,7 +18,13 @@ kriging fill, 20 % for the IDW/mean fills and the slot-index selection; a
   (``kriging_valid_t``, the CLI's --backend auto path): ``_normalize``, the
   whole prologue, the B5 kernel alone, the torch row epilogue (decode and
   5x6 solve) and the wrapper, then the profiler table and the device's idle
-  share for it and for B6 IDW.
+  share for it and for B6 IDW;
+- band serving at 5M pings of the stand-in (chip_smoke.py's phase 16-17
+  workloads: the band weave on one band, the diagonal on the 8-page atlas):
+  the coordinate prologue, the B8 kernel alone, the resampler, the route
+  (coherence), the escalation of the unresolved pings and the whole
+  ``BandRouter.kriging`` call, then the profiler table and the device's idle
+  share of that call.
 
 Prints the card's name and power limit beside the numbers.
 """
@@ -119,6 +125,39 @@ def grid_a_breakdown(dev, card, n=5_000_000):
     profile(f"Grid A IDW {n} queries (B6)", lambda: vs.packed_idw_t(win, g, lons, lats), 5, card)
 
 
+def band_breakdown(grid, card, n=cs.N_BAND):
+    """BandRouter.kriging at n pings of the band weave and the diagonal
+    atlas, piece by piece."""
+    from auvtpu_torch.kernels import band_resample as kb
+    from auvtpu_torch.ops import band as tband
+
+    tracks = cs.band_tracks(grid, n)
+    print(f"\nband serving, {n} pings on the stand-in r0.10")
+    for kind, (lon, lat) in tracks.items():
+        r = tband.BandRouter(grid, max_bands=cs.MAX_BANDS[kind])
+        r.prepare(lon, lat)
+        rs = r._resampler
+        args, kw = cs.b8_call(rs, lon, lat)
+        z, ok = rs.resample(lon, lat)
+        bad = torch.nonzero(~ok).reshape(-1)
+        print(f"{kind}: window {rs.wr}x{rs.wc}, chunk {kw['chunk']}, {bad.numel()} pings escalate")
+        print(f"{kind:8s} {'B8 kernel alone (back to back)':40s} "
+              f"{cs.time_back_to_back(cs.b8_launcher(args, kw)):9.4f} ms  [{card}]")
+        pieces = {
+            "coordinates (_xy, shift, pad)": lambda: rs.coords(lon, lat),
+            "B8 wrapper": lambda: kb.band_resample(*args, **kw),
+            "resample (coordinates + B8)": lambda: rs.resample(lon, lat),
+            "route (coherence, 1 readback)": lambda: r.route(lon, lat, band_ready=True),
+            "kriging (whole call)": lambda: r.kriging(lon, lat),
+        }
+        if bad.numel():
+            pieces["escalation (two-tier on the unresolved)"] = lambda: r.two_tier.kriging(lon[bad], lat[bad])
+        for label, fn in pieces.items():
+            t = cs.time_ms(fn, reps=10)
+            print(f"{kind:8s} {label:40s} {t:9.4f} ms  [{card}]")
+        profile(f"BandRouter.kriging {kind} {n} pings", lambda: r.kriging(lon, lat), 5, card)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("torch sees no CUDA device", file=sys.stderr)
@@ -196,6 +235,7 @@ def main() -> int:
     ):
         profile(label, fn, reps, card)
     grid_a_breakdown(dev, card)
+    band_breakdown(grid, card)
     return 0
 
 

@@ -9,12 +9,13 @@ import pytest
 import torch
 
 from auvtpu.cli.bench_grid_b import main as j_bench_grid_b
+from auvtpu.cli.mission import main as j_mission
 from auvtpu.cli.stream_demo import main as j_stream_demo
 from auvtpu.io import write_grid_csv, write_reference_missing
 from auvtpu.masking import mask_grid
 from auvtpu.synthetic import shelf_seamount
 
-from auvtpu_torch.cli import bench_grid_b, stream_demo
+from auvtpu_torch.cli import bench_grid_b, mission, stream_demo
 from auvtpu_torch.kernels import window_fill as wf
 
 torch.set_num_threads(1)
@@ -170,3 +171,63 @@ def test_bench_grid_a_help_names_what_is_left_out(capsys):
         bench_grid_a.main(["--help"])
     text = capsys.readouterr().out
     assert "--selection" in text and "exact" in text and "--backend" in text and "--device" in text
+
+
+@pytest.mark.parametrize("force", [None, "band"], ids=["routed", "band"])
+@pytest.mark.parametrize("synthetic", ["band", "diagonal"])
+def test_mission_matches_jax_cli(tmp_path, monkeypatch, capsys, synthetic, force):
+    # routed under the JAX package's cost constants (the port's are the
+    # H100's own), then forced onto the band/atlas path: the same route and
+    # the served depths at the two-tier bars (tests/test_torch_two_tier.py)
+    from auvtpu.ops import band as jb
+
+    from auvtpu_torch.kernels import band_resample as kb
+    from auvtpu_torch.ops import band as tb
+
+    monkeypatch.setattr(tb, "COST_NS", dict(jb.COST_NS))
+    argv = ["--grid-shape", "64", "160", "--pings", "4000", "--synthetic", synthetic]
+    argv += ["--force", force] if force else []
+    out, j_out = str(tmp_path / "port.csv"), str(tmp_path / "jax.csv")
+    kb.reset_launches()
+    summary = mission.main(argv + ["--device", "cpu", "--out", out])
+    capsys.readouterr()
+    assert j_mission(argv + ["--out", j_out]) == 0
+    j_log = capsys.readouterr().out
+    assert kb.LAUNCHES["band_resample"] == 0  # a CPU grid runs the plain version
+    got, want = pd.read_csv(out), pd.read_csv(j_out)
+    assert list(got.columns) == list(want.columns) == ["lon", "lat", "interpolated_value"]
+    np.testing.assert_array_equal(got[["lon", "lat"]].to_numpy(), want[["lon", "lat"]].to_numpy())
+    np.testing.assert_allclose(got["interpolated_value"], want["interpolated_value"], rtol=1e-4, atol=0.1)
+    assert summary["route"] == (force or "packed") and summary["n"] == 4000
+    assert np.isclose(summary["depth_sum"], got["interpolated_value"].sum(), rtol=1e-6)
+    if force:
+        pages = [ln.split()[1] for ln in j_log.splitlines() if ln.startswith("atlas:")]
+        assert summary["pages"] == (int(pages[0]) if pages else 1)
+        resolved = [ln.split()[2] for ln in j_log.splitlines() if ln.startswith("resolved in-band:")]
+        assert f"{1.0 - summary['unresolved'] / 4000:.4f}" == resolved[0]
+
+
+def test_mission_trajectories_match_jax():
+    from auvtpu.cli.mission import synthetic_trajectory as j_traj
+    from auvtpu.grid import RegularGrid as JGrid
+
+    from auvtpu_torch.config import Extent
+    from auvtpu_torch.grid import RegularGrid
+
+    for shape in ((64, 160), (512, 640), (2053, 2441)):
+        H, W = shape
+        ext = Extent(0.0, W - 1.0, 0.0, H - 1.0)
+        g = RegularGrid.dense(np.zeros(shape), ext, device="cpu")
+        jg = JGrid.dense(np.zeros(shape), ext)
+        for kind in ("band", "diagonal"):
+            for a, b in zip(mission.synthetic_trajectory(kind, g, 5000, 3), j_traj(kind, jg, 5000, 3)):
+                np.testing.assert_array_equal(a, b)
+    with pytest.raises(ValueError):
+        mission.synthetic_trajectory("spiral", g, 10)
+
+
+def test_mission_help_names_what_is_left_out(capsys):
+    with pytest.raises(SystemExit):
+        mission.main(["--help"])
+    text = capsys.readouterr().out
+    assert "--export-dir" in text and "--device" in text and "--fill-backend" in text
