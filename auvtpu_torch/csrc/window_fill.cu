@@ -6,7 +6,7 @@
 //   topk_full_kernel<.., false> <- _make_topk_full_kernel    (B2, pallas_topk_full)
 //   topk_full_kernel<.., true>  <- _make_topk_kernel         (B4, pallas_topk_idx)
 //   kriging_fill_kernel         <- _make_kriging_fill_kernel (B1, pallas_fill_kriging)
-//   fill_kernel<KIND>           <- _make_fill_kernel         (B3, pallas_fill_idw /
+//   fill_tile_kernel<KIND, CPT> <- _make_fill_kernel         (B3, pallas_fill_idw /
 //                                                             pallas_fill_mean)
 //
 // What they compute.  Per output cell, scan a static window-offset table
@@ -20,26 +20,33 @@
 // per-cell rule, so each thread stops as soon as its own cell is full and the
 // answer is the same as the TPU's per-tile early exit.
 //
-// Input is one NaN-encoded plane (invalid and out-of-grid cells are NaN),
-// padded by R on every side so no read needs a bounds check.  Slots are
-// written with selects, and B3 adds only the values it takes, never
-// hit * (v - old) or 0 * v arithmetic: 0 * NaN is NaN.
+// B1, B2 and B4 read one NaN-encoded plane (invalid and out-of-grid cells
+// are NaN) that the wrapper builds, padded by R on every side so no read
+// needs a bounds check.  B3 reads the elevation and validity planes as they
+// are and builds the NaN-encoded halo of each tile in shared memory itself.
+// Slots are written with selects, and B3 adds only the values it takes,
+// never hit * (v - old) or 0 * v arithmetic: 0 * NaN is NaN.
 //
 // What bounds them on the H100.  With 10-20% of cells masked a scan for 4
 // neighbours reads 4.4-5.0 table rows per cell, one for 8 about 10 (measured
-// at the Kerguelen stand-in), nearly all of them L1/L2 hits shared with the
-// neighbouring threads.  B2 writes 1+3k planes and B4 1+k: both are bound by
-// the output writes to HBM.  B3 writes one plane and does a few operations
-// per candidate: it is bound by memory (one read of the padded plane, one
-// write of the output).  B1 writes one plane (two with the variance) and does
-// ~100 multiply-adds, 21 divides (gj), 10 square roots and 10 exps per cell,
-// so it is bound by the throughput of the IEEE divides and transcendentals
-// rather than by memory.  The design does the simple thing for all of them:
-// one thread per cell in 32x8 blocks, reads through the read-only data cache
-// (__ldg) so a warp's 32 neighbouring loads of one offset coalesce, the
-// offset table (and B3's weight table) read by all threads of a warp at the
-// same index (a broadcast), and all state kept in registers.  Faster variants
-// (shared-memory halo tiles, fewer divides, no padded plane) are later work.
+// at the Kerguelen stand-in).  B2 writes 1+3k planes and B4 1+k: both are
+// bound by the output writes to HBM.  B3 reads two planes, writes one and
+// does a few operations per candidate: it is bound by those bytes.  B1
+// writes one plane (two with the variance) and does ~100 multiply-adds, 21
+// divides (gj), 10 square roots and 10 exps per cell, so it is bound by the
+// throughput of the IEEE divides and transcendentals rather than by memory.
+// B1, B2 and B4 do the simple thing: one thread per cell in 32x8 blocks,
+// reads through the read-only data cache (__ldg) so a warp's 32
+// neighbouring loads of one offset coalesce, the offset table read by all
+// threads of a warp at the same index (a broadcast), all state in registers.
+// B3 (fill_tile_kernel below) takes what they leave: no padded copy (its
+// four extra launches cost about the kernel's time again), the scan's
+// dependent loads served from shared memory, where they were L1/L2 round
+// trips, and several cells a thread so that those loads overlap.  The price
+// is a second plane read (valid beside elev, where the padded copy was one
+// NaN-encoded plane).  Measured on the H100, the halo loads (2.6 reads a
+// cell through L2 at R=10) and the scan's instructions, not DRAM, hold it
+// near four times its bound.  B1, B2 and B4 could take the same loader.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -276,43 +283,149 @@ kriging_fill_kernel(const float* __restrict__ nanp, const int2* __restrict__ tab
 
 enum FillKind { kIDW = 0, kMean = 1 };
 
-// B3: first-k-valid IDW or mean.  wtab[t] is the IDW weight of table row t,
-// 1/(d2^(p/2)+eps) rounded to float32 on the host (window_fill.py:331-335);
-// the mean ignores it.  Sums run in table order, the order of the plain
-// version, and add only the cells taken.
-template <int KIND>
-__global__ void __launch_bounds__(BX * BY)
-fill_kernel(const float* __restrict__ nanp, const int2* __restrict__ tab,
-            const float* __restrict__ wtab, int m, int H, int W, int R, int k, float eps,
-            float* __restrict__ out) {
-  const int c = blockIdx.x * BX + threadIdx.x;
-  const int r = blockIdx.y * BY + threadIdx.y;
-  if (r >= H || c >= W) return;
-  const int pitch = W + 2 * R;
-  const float* base = nanp + (size_t)(r + R) * pitch + (c + R);
-  int cnt = 0;
-  float ws = 0.f;
-  float vs = 0.f;
-  for (int t = 0; t < m && cnt < k; ++t) {
-    const int2 o = __ldg(tab + t);
-    const float v = __ldg(base + o.y * pitch + o.x);
-    if (!isnan(v)) {
-      if (KIND == kIDW) {
-        const float w = __ldg(wtab + t);
-        ws = ws + w;
-        vs = vs + w * v;
-      } else {
-        vs = vs + v;
+// B3: first-k-valid IDW or mean over a halo tile in shared memory.  One
+// block of FT_W x FT_TY threads fills an FT_W-column, TH = FT_TY*CPT-row tile
+// of the output, CPT cells a thread (rows ty, ty + FT_TY, ...).  It reads the
+// planes themselves (row pitches pe, pv: a window view of a larger mosaic is
+// taken as it is), never a padded copy:
+//   1. the (TH + 2R) x (FT_W + 2R) halo tile, NaN where a cell lies outside
+//      the plane or valid <= 0.5 (a select).  Warp w loads tile rows w,
+//      w + FT_TY, ..., FT_ROWS rows a batch, its lanes on adjacent columns
+//      (coalesced), every load of a batch issued before any store: they are
+//      L2 round trips, and one pair at a time left the block waiting on each;
+//   2. the table as each row's offset within the tile, and its IDW weight
+//      wtab[t] = 1/(d2^(p/2)+eps) rounded to float32 on the host
+//      (window_fill.py:331-335);
+//   3. per cell, the first k valid cells in table order; a thread's CPT
+//      scans step through the table together, so their shared loads overlap
+//      (every load of the tile is in range: the table's offsets are within
+//      R).  Sums run in table order and add only the cells taken, as the
+//      plain version adds them, so the two are bit-equal;
+//   4. with `keep`, a cell with valid > 0.5 writes its own elev (the
+//      streaming window's where(valid > 0.5, elev, fill)) and skips the scan.
+constexpr int FT_W = 32;
+constexpr int FT_TY = 8;
+constexpr int FT_THREADS = FT_W * FT_TY;
+constexpr int FT_ROWS = 4;  // tile rows a warp loads in one batch
+
+template <int KIND, int CPT>
+__global__ void __launch_bounds__(FT_THREADS)
+fill_tile_kernel(const float* __restrict__ elev, int pe, const float* __restrict__ valid, int pv,
+                 const int2* __restrict__ tab, const float* __restrict__ wtab, int m, int H, int W,
+                 int R, int k, float eps, int keep, float* __restrict__ out) {
+  extern __shared__ float smem[];
+  constexpr int TH = FT_TY * CPT;
+  const int tw = FT_W + 2 * R;
+  const int th = TH + 2 * R;
+  float* tile = smem;
+  int* soff = reinterpret_cast<int*>(tile + th * tw);
+  float* sw = reinterpret_cast<float*>(soff + m);
+  const int r0 = blockIdx.y * TH;
+  const int c0 = blockIdx.x * FT_W;
+  const int lane = threadIdx.x;
+
+  for (int tc0 = 0; tc0 < tw; tc0 += 2 * FT_W) {
+    for (int tr0 = threadIdx.y; tr0 < th; tr0 += FT_TY * FT_ROWS) {
+      float e[FT_ROWS][2], va[FT_ROWS][2];
+#pragma unroll
+      for (int b = 0; b < FT_ROWS; ++b) {
+        const int tr = tr0 + b * FT_TY;
+        const int gr = r0 - R + tr;
+        const bool row_in = tr < th && gr >= 0 && gr < H;
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int tc = tc0 + lane + h * FT_W;
+          const int gc = c0 - R + tc;
+          const bool in = row_in && tc < tw && gc >= 0 && gc < W;
+          e[b][h] = in ? __ldg(elev + (size_t)gr * pe + gc) : 0.f;
+          va[b][h] = in ? __ldg(valid + (size_t)gr * pv + gc) : 0.f;
+        }
       }
-      ++cnt;
+#pragma unroll
+      for (int b = 0; b < FT_ROWS; ++b) {
+        const int tr = tr0 + b * FT_TY;
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int tc = tc0 + lane + h * FT_W;
+          if (tr < th && tc < tw) tile[tr * tw + tc] = va[b][h] > 0.5f ? e[b][h] : NAN;
+        }
+      }
     }
   }
-  float res;
-  if (KIND == kIDW)
-    res = cnt > 0 ? vs / fmaxf(ws, eps) : NAN;
-  else
-    res = cnt > 0 ? vs / fmaxf((float)cnt, 1.f) : NAN;
-  out[(size_t)r * W + c] = res;
+  for (int t = threadIdx.y * FT_W + lane; t < m; t += FT_THREADS) {
+    const int2 o = __ldg(tab + t);
+    soff[t] = o.y * tw + o.x;
+    if (KIND == kIDW) sw[t] = __ldg(wtab + t);
+  }
+
+  const int c = c0 + lane;
+  int at[CPT], lim[CPT], cnt[CPT];
+  float ws[CPT], vs[CPT], own[CPT];
+  bool kept[CPT];
+#pragma unroll
+  for (int j = 0; j < CPT; ++j) {
+    const int lr = threadIdx.y + j * FT_TY;
+    const int r = r0 + lr;
+    const bool live = r < H && c < W;
+    kept[j] = live && keep && __ldg(valid + (size_t)r * pv + c) > 0.5f;
+    own[j] = kept[j] ? __ldg(elev + (size_t)r * pe + c) : 0.f;
+    at[j] = (lr + R) * tw + lane + R;
+    lim[j] = live && !kept[j] ? k : 0;  // a cell outside the plane or kept scans nothing
+    cnt[j] = 0;
+    ws[j] = 0.f;
+    vs[j] = 0.f;
+  }
+  __syncthreads();
+
+  for (int t = 0; t < m; ++t) {
+    bool more = false;
+#pragma unroll
+    for (int j = 0; j < CPT; ++j) more = more || cnt[j] < lim[j];
+    if (!more) break;
+    const int so = soff[t];
+    const float w = KIND == kIDW ? sw[t] : 0.f;
+#pragma unroll
+    for (int j = 0; j < CPT; ++j) {
+      const float v = tile[at[j] + so];
+      if (cnt[j] < lim[j] && !isnan(v)) {
+        if (KIND == kIDW) {
+          ws[j] = ws[j] + w;
+          vs[j] = vs[j] + w * v;
+        } else {
+          vs[j] = vs[j] + v;
+        }
+        ++cnt[j];
+      }
+    }
+  }
+#pragma unroll
+  for (int j = 0; j < CPT; ++j) {
+    const int r = r0 + threadIdx.y + j * FT_TY;
+    if (r < H && c < W) {
+      float res;
+      if (KIND == kIDW)
+        res = cnt[j] > 0 ? vs[j] / fmaxf(ws[j], eps) : NAN;
+      else
+        res = cnt[j] > 0 ? vs[j] / fmaxf((float)cnt[j], 1.f) : NAN;
+      out[(size_t)r * W + c] = kept[j] ? own[j] : res;
+    }
+  }
+}
+
+template <int KIND, int CPT>
+int launch_fill(const float* e, int pe, const float* va, int pv, const int2* t, const float* w,
+                int m, int H, int W, int R, int k, float eps, int keep, float* o, cudaStream_t st) {
+  constexpr int TH = FT_TY * CPT;
+  const size_t smem = sizeof(float) * (size_t)(TH + 2 * R) * (FT_W + 2 * R) + 8 * (size_t)m;
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(fill_tile_kernel<KIND, CPT>,
+                                                 cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return (int)err;
+  }
+  const dim3 g((W + FT_W - 1) / FT_W, (H + TH - 1) / TH);
+  fill_tile_kernel<KIND, CPT><<<g, dim3(FT_W, FT_TY), smem, st>>>(e, pe, va, pv, t, w, m, H, W, R, k,
+                                                                   eps, keep, o);
+  return (int)cudaGetLastError();
 }
 
 dim3 grid_for(int H, int W) { return dim3((W + BX - 1) / BX, (H + BY - 1) / BY); }
@@ -377,24 +490,34 @@ int auvtpu_topk_idx(const void* nanp, const void* tab, int m, int H, int W, int 
   return (int)cudaGetLastError();
 }
 
-// nanp, tab as above; wtab: (m,) f32 IDW weights on the device (read only
-// for kind 0); kind 0 = IDW, 1 = mean; eps: IDW's floor on the weight sum;
-// out: (H, W) f32.  Any k >= 0 (no slots are kept).
-int auvtpu_fill(const void* nanp, const void* tab, const void* wtab, int m, int H, int W,
-                int R, int kind, int k, float eps, void* out, void* stream) {
-  if (kind < 0 || kind > 1) return (int)cudaErrorInvalidValue;
-  const dim3 b(BX, BY);
-  const dim3 g = grid_for(H, W);
+// elev, valid: (H, W) f32 planes with unit column stride and row pitches pe,
+// pv (elements); tab: (m, 2) int32 (dx, dy) with |dx|, |dy| <= R; wtab: (m,)
+// f32 IDW weights on the device (read only for kind 0); kind 0 = IDW, 1 =
+// mean; eps: IDW's floor on the weight sum; keep: valid cells write their
+// own elev; out: (H, W) f32, contiguous.  Any k >= 0 (no slots are kept).
+// Four cells a thread (32x32 tiles, the least halo a cell) where the plane
+// has the tiles to fill the card a few times over, two (32x16) otherwise: a
+// 256x256 streaming window gets 128 blocks rather than 64.
+int auvtpu_fill(const void* elev, int pe, const void* valid, int pv, const void* tab,
+                const void* wtab, int m, int H, int W, int R, int kind, int k, float eps, int keep,
+                void* out, void* stream) {
+  if (kind < 0 || kind > 1 || R < 0 || m < 1 || k < 0) return (int)cudaErrorInvalidValue;
+  if (H <= 0 || W <= 0) return (int)cudaSuccess;
+  int dev = 0, sms = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  const int cpt = (long long)((H + 31) / 32) * ((W + FT_W - 1) / FT_W) >= 4LL * sms ? 4 : 2;
   cudaStream_t st = (cudaStream_t)stream;
-  const float* p = (const float*)nanp;
+  const float* e = (const float*)elev;
+  const float* va = (const float*)valid;
   const int2* t = (const int2*)tab;
   const float* w = (const float*)wtab;
   float* o = (float*)out;
   if (kind == kIDW)
-    fill_kernel<kIDW><<<g, b, 0, st>>>(p, t, w, m, H, W, R, k, eps, o);
-  else
-    fill_kernel<kMean><<<g, b, 0, st>>>(p, t, w, m, H, W, R, k, eps, o);
-  return (int)cudaGetLastError();
+    return cpt == 2 ? launch_fill<kIDW, 2>(e, pe, va, pv, t, w, m, H, W, R, k, eps, keep, o, st)
+                    : launch_fill<kIDW, 4>(e, pe, va, pv, t, w, m, H, W, R, k, eps, keep, o, st);
+  return cpt == 2 ? launch_fill<kMean, 2>(e, pe, va, pv, t, w, m, H, W, R, k, eps, keep, o, st)
+                  : launch_fill<kMean, 4>(e, pe, va, pv, t, w, m, H, W, R, k, eps, keep, o, st);
 }
 
 // nanp, tab as above; par: 11 f32 on the device; model 0..3 (exponential,

@@ -18,6 +18,13 @@ import torch
 from .config import Extent
 
 
+def as_dtype(v: float, dtype: torch.dtype) -> float:
+    """The python float ``v`` rounded to ``dtype``, so that torch's scalar
+    arithmetic on a ``dtype`` tensor sees the value JAX's weak-typed scalar
+    becomes."""
+    return float(np.float32(v)) if dtype == torch.float32 else float(v)
+
+
 @dataclasses.dataclass(frozen=True)
 class RegularGrid:
     """A regular geographic grid.
@@ -66,6 +73,21 @@ class RegularGrid:
     @property
     def extent(self) -> Extent:
         return Extent(self.min_lon, self.max_lon, self.min_lat, self.max_lat)
+
+    def step_tensors(self, dtype: torch.dtype | None = None, device=None):
+        """(lon_step, lat_step) rounded to ``dtype`` as 0-d tensors on
+        ``device`` (the grid's by default), made once per grid.  Query
+        coordinates divide by these: a python-scalar divisor of a CUDA tensor
+        is a multiply by its reciprocal, which can move a quotient by an ulp
+        from the division JAX computes."""
+        dtype = self.dtype if dtype is None else dtype
+        device = self.device if device is None else torch.device(device)
+        cache = self.__dict__.setdefault("_step_tensors", {})  # frozen: no setattr
+        steps = cache.get((dtype, device))
+        if steps is None:
+            steps = tuple(torch.tensor(s, dtype=dtype, device=device) for s in (self.lon_step, self.lat_step))
+            cache[(dtype, device)] = steps
+        return steps
 
     @property
     def dtype(self) -> torch.dtype:
@@ -121,7 +143,13 @@ class RegularGrid:
         return lon, lat
 
     def lonlat_to_xy(self, lons, lats):
-        """Geographic coords -> continuous grid coords (x = col, y = row)."""
-        x = (torch.as_tensor(lons) - self.min_lon) / self.lon_step
-        y = (torch.as_tensor(lats) - self.min_lat) / self.lat_step
-        return x, y
+        """Geographic coords -> continuous grid coords (x = col, y = row), in
+        the queries' floating dtype: ``(lon - min_lon) / lon_step`` with both
+        scalars rounded to it, the step divided as a 0-d tensor (exact
+        division on a card too)."""
+        out = []
+        for i, (q, lo) in enumerate(((lons, self.min_lon), (lats, self.min_lat))):
+            q = torch.as_tensor(q)
+            dt = q.dtype if q.is_floating_point() else torch.get_default_dtype()
+            out.append((q.to(dt) - as_dtype(lo, dt)) / self.step_tensors(dt, q.device)[i])
+        return tuple(out)

@@ -3,10 +3,19 @@
 ``auvtpu.ops.band``).
 
 ``csrc/band_resample.cu`` serves a trajectory in chunks of consecutive
-queries, one thread block a chunk: it picks the chunk's page (``pick``),
-bases one window at the chunk's minimum cell, and resamples each query
-bilinearly from the four corners of its cell, NaN where the cell leaves the
-window or the page (or, with ``masked``, touches an undefined cell).
+queries, one thread block a chunk: it maps each query into the frame of the
+pages (the coordinate prologue), picks the chunk's page (``pick``), bases
+one window at the chunk's minimum cell, and resamples each query bilinearly
+from the four corners of its cell, NaN where the cell leaves the window or
+the page (or, with ``masked``, touches an undefined cell).
+
+The prologue is an affine map of f32 scalars ``(u0, du, su, v0, dv, sv)``:
+x = (u - u0) / du - su and y = (v - v0) / dv - sv, each operation rounded
+once (IEEE division).  With the grid's origin, step and a band's (col0,
+row0) it is ``ops.band._xy`` followed by the band shift, bit for bit; the
+identity ``(0, 1, 0)`` takes frame coordinates as they are.  The batch may
+end in a ragged chunk: its bbox is reduced over its real queries only,
+which gives the min and max of the JAX package's pad with the last query.
 
 Two choices shape the result, and the kernel and the plain version take
 both:
@@ -19,11 +28,11 @@ both:
   kernel and ``lerp_mode="onehot"``; ``hat=True`` the hat family
   (1-f, 1-(1-f)) of ``"hat"``, ``"hat2"`` and ``"hat_t"``.
 
-:func:`band_resample_ref` is the plain version: the same floors, the same
-four-corner gather and the same two-term sums in the same order, so the two
-are bit-equal on a card.  :func:`band_resample` runs it only for planes on
-the CPU; for CUDA planes it launches the kernel or raises.  Each launch adds
-one to ``LAUNCHES["band_resample"]``.
+:func:`band_resample_ref` is the plain version: the same prologue, floors,
+four-corner gather and two-term sums in the same order, so the two are
+bit-equal on a card.  :func:`band_resample` runs it only for planes on the
+CPU; for CUDA planes it launches the kernel or raises.  Each launch adds one
+to ``LAUNCHES["band_resample"]``.
 """
 
 from __future__ import annotations
@@ -40,6 +49,8 @@ LAUNCHES = {"band_resample": 0}
 # masked queries resolve where the weights on the vmask sum above 1 - 1e-3,
 # the python constant JAX rounds to float32 (ops/band.py:217, :246)
 WSUM_THRESH = float(np.float32(1.0 - 1e-3))
+# the prologue that takes frame coordinates as they are: (x - 0) / 1 - 0
+IDENTITY = (0.0, 1.0, 0.0, 0.0, 1.0, 0.0)
 
 
 def reset_launches() -> None:
@@ -51,9 +62,9 @@ def _lib() -> ctypes.CDLL:
     from .build import load
 
     lib = load("band_resample")
-    P, I = ctypes.c_void_p, ctypes.c_int
+    P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     lib.auvtpu_band_resample.argtypes = [P, P, P, I, I, I, P, P, I, I, I, I, I, I, I, I, I, I, I,
-                                         ctypes.c_float, P, P, P]
+                                         F, F, F, F, F, F, F, P, P, P]
     lib.auvtpu_band_resample.restype = I
     lib.auvtpu_band_error_string.argtypes = [I]
     lib.auvtpu_band_error_string.restype = ctypes.c_char_p
@@ -81,19 +92,33 @@ def geometry(R: int, C: int, wr: int, wc: int, aligned: bool):
     return wrp, wcp, 8, 128, Rp - wrp, Cp - wcp
 
 
-def band_resample_ref(planes, vmasks, origins, x, y, *, chunk: int, wr: int, wc: int, pick: bool, aligned: bool = False, hat: bool = True):
+def band_resample_ref(planes, vmasks, origins, x, y, *, chunk: int, wr: int, wc: int, pick: bool, aligned: bool = False, hat: bool = True, affine=IDENTITY):
     """Plain version of :func:`band_resample`.
 
     planes (K, R, C) NaN-free page values; vmasks (K, R, C) definedness or
     None (the page is fully defined); origins (K, 2) page (row0, col0) in
-    the planes' dtype; x, y (N,) coordinates in the frame the origins refer
-    to, N % chunk == 0.  Returns (z (N,), ok (N,) bool)."""
+    the planes' dtype, or None (every page at (0, 0)); x, y (N,) query
+    coordinates, mapped into the origins' frame by ``affine`` (module
+    docstring), any N (the last chunk may be ragged).  Returns (z (N,), ok
+    (N,) bool)."""
     K, R, C = planes.shape
     n = x.shape[0]
-    if n % chunk:
-        raise ValueError(f"band_resample: {n} queries are not a multiple of chunk={chunk}")
+    dev = planes.device
+    if n == 0:
+        return x.new_empty(0), torch.zeros(0, dtype=torch.bool, device=x.device)
+    u0, du, su, v0, dv, sv = affine
+    # the steps divide as 0-d tensors: a python-scalar divisor of a CUDA
+    # tensor is a multiply by its reciprocal, which the kernel does not do
+    x = (x - u0) / torch.tensor(du, dtype=x.dtype, device=x.device) - su
+    y = (y - v0) / torch.tensor(dv, dtype=y.dtype, device=y.device) - sv
+    pad = (-n) % chunk  # the ragged last chunk, padded with its last query
+    if pad:
+        x = torch.cat([x, x[-1:].expand(pad)])
+        y = torch.cat([y, y[-1:].expand(pad)])
+    if origins is None:
+        origins = torch.zeros((K, 2), dtype=planes.dtype, device=dev)
     wh, ww, ar, ac, lim_r, lim_c = geometry(R, C, wr, wc, aligned)
-    nch = n // chunk
+    nch = x.shape[0] // chunk
     xc = x.reshape(nch, chunk)
     yc = y.reshape(nch, chunk)
     if pick:
@@ -141,36 +166,42 @@ def band_resample_ref(planes, vmasks, origins, x, y, *, chunk: int, wr: int, wc:
     if vmasks is not None:
         ok = ok & (lerp(vmasks.reshape(-1)) > WSUM_THRESH)
     z = torch.where(ok, z, torch.full_like(z, float("nan")))
-    return z.reshape(-1), ok.reshape(-1)
+    return z.reshape(-1)[:n], ok.reshape(-1)[:n]
 
 
 def _stream(dev: torch.device) -> ctypes.c_void_p:
     return ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream)
 
 
-def band_resample(planes, vmasks, origins, x, y, *, chunk: int, wr: int, wc: int, pick: bool, aligned: bool = False, hat: bool = True):
+def band_resample(planes, vmasks, origins, x, y, *, chunk: int, wr: int, wc: int, pick: bool, aligned: bool = False, hat: bool = True, affine=IDENTITY):
     """Chunked windowed bilinear over K pages (B8): (z, ok) as
     :func:`band_resample_ref` gives them.  For planes on the CPU this is the
-    plain version; for CUDA planes it launches the kernel."""
+    plain version; for CUDA planes it launches the kernel: one launch and
+    the two outputs' allocation, whatever the batch."""
     if planes.device.type == "cpu":
-        return band_resample_ref(planes, vmasks, origins, x, y, chunk=chunk, wr=wr, wc=wc, pick=pick, aligned=aligned, hat=hat)
+        return band_resample_ref(planes, vmasks, origins, x, y, chunk=chunk, wr=wr, wc=wc, pick=pick,
+                                 aligned=aligned, hat=hat, affine=affine)
     dev = planes.device
-    ins = [planes, origins, x, y] + ([vmasks] if vmasks is not None else [])
+    ins = [planes, x, y] + [t for t in (origins, vmasks) if t is not None]
     if any(t.dtype != torch.float32 for t in ins):
         raise TypeError(f"band_resample: the kernel is float32 only (got {sorted({str(t.dtype) for t in ins})}); "
                         "float64 callers use the plain path on the CPU")
     if any(t.device != dev for t in ins):
         raise ValueError(f"band_resample: planes on {dev} but an input on another device")
-    if planes.dim() != 3 or origins.shape != (planes.shape[0], 2) or x.shape != y.shape or x.dim() != 1:
-        raise ValueError("band_resample: planes (K, R, C), origins (K, 2), x and y (N,) expected")
+    if planes.dim() != 3 or x.shape != y.shape or x.dim() != 1 or (
+            origins is not None and origins.shape != (planes.shape[0], 2)):
+        raise ValueError("band_resample: planes (K, R, C), origins (K, 2) or None, x and y (N,) expected")
     if vmasks is not None and vmasks.shape != planes.shape:
         raise ValueError("band_resample: vmasks must have the planes' shape")
+    if chunk < 1:
+        raise ValueError(f"band_resample: chunk={chunk} must be positive")
     K, R, C = planes.shape
     n = int(x.shape[0])
-    if n % chunk:
-        raise ValueError(f"band_resample: {n} queries are not a multiple of chunk={chunk}")
     wh, ww, ar, ac, lim_r, lim_c = geometry(R, C, wr, wc, aligned)
-    planes, origins, x, y = (t.contiguous() for t in (planes, origins, x, y))
+    # a strided x or y is copied; an unaligned slice is taken as it is (the
+    # kernel's scalar-load instantiation)
+    planes, x, y = (t.contiguous() for t in (planes, x, y))
+    org = origins.contiguous() if origins is not None else None
     vm = vmasks.contiguous() if vmasks is not None else None
     z = torch.empty(n, dtype=torch.float32, device=dev)
     ok = torch.empty(n, dtype=torch.bool, device=dev)
@@ -178,9 +209,10 @@ def band_resample(planes, vmasks, origins, x, y, *, chunk: int, wr: int, wc: int
         return z, ok
     with torch.cuda.device(dev):
         err = _lib().auvtpu_band_resample(
-            planes.data_ptr(), vm.data_ptr() if vm is not None else None, origins.data_ptr(), K, R, C,
+            planes.data_ptr(), vm.data_ptr() if vm is not None else None,
+            org.data_ptr() if org is not None else None, K, R, C,
             x.data_ptr(), y.data_ptr(), n, chunk, wh, ww, ar, ac, lim_r, lim_c,
-            int(vm is not None), int(pick), int(hat), WSUM_THRESH, z.data_ptr(), ok.data_ptr(), _stream(dev),
+            int(vm is not None), int(pick), int(hat), WSUM_THRESH, *affine, z.data_ptr(), ok.data_ptr(), _stream(dev),
         )
     if err != 0:
         msg = _lib().auvtpu_band_error_string(err).decode()

@@ -10,9 +10,13 @@ Four kernels, all in ``csrc/window_fill.cu``:
 - :func:`fill_kriging_fused` (B1, replaces ``_make_kriging_fill_kernel``):
   the same selection and the 5x6 ordinary-kriging solve in one pass;
 - :func:`fill_idw_fused` and :func:`fill_mean_fused` (B3, replace
-  ``_make_fill_kernel``): first-k-valid IDW and mean fills.
+  ``_make_fill_kernel``): first-k-valid IDW and mean fills, reading the
+  grid's planes as they are (a window view of a larger mosaic included),
+  optionally keeping observed cells' own values (``keep_observed``).
 
-Each has a plain torch version beside it (``<wrapper>_ref``).  A wrapper runs
+B1, B2 and B4 read a NaN-padded copy of the plane that the wrapper builds
+(:func:`_nan_padded`); B3 builds its halo tiles itself.  Each has a plain
+torch version beside it (``<wrapper>_ref``).  A wrapper runs
 the plain version only for a grid on the CPU; for a CUDA grid it launches
 its kernel or raises.  Each launch adds one to ``LAUNCHES[<wrapper name>]``,
 so a run can show that it went through the kernels.
@@ -66,7 +70,7 @@ def _lib() -> ctypes.CDLL:
     lib.auvtpu_topk_full.restype = I
     lib.auvtpu_topk_idx.argtypes = [P, P, I, I, I, I, I, P, P]
     lib.auvtpu_topk_idx.restype = I
-    lib.auvtpu_fill.argtypes = [P, P, P, I, I, I, I, I, I, ctypes.c_float, P, P]
+    lib.auvtpu_fill.argtypes = [P, I, P, I, P, P, I, I, I, I, I, I, ctypes.c_float, I, P, P]
     lib.auvtpu_fill.restype = I
     lib.auvtpu_kriging_fill.argtypes = [P, P, I, I, I, I, P, I, I, I, P, P]
     lib.auvtpu_kriging_fill.restype = I
@@ -214,51 +218,70 @@ def _device_weights(max_radius: int, power: float, convention: str, device: torc
     return torch.from_numpy(w.astype(np.float32)).to(device)
 
 
-def _fill(grid: RegularGrid, kind: int, name: str, *, k: int, power: float, max_radius: int, convention: str):
+def _pitch(t: torch.Tensor, what: str) -> int:
+    """Row pitch, in elements, of a 2-D plane whose columns are adjacent."""
+    if t.dim() != 2 or (t.shape[1] > 1 and t.stride(1) != 1):
+        raise ValueError(f"{what}: the kernel takes (H, W) planes with unit column stride (got strides "
+                         f"{tuple(t.stride())}); copy the plane first if that is what you mean")
+    return t.stride(0)
+
+
+def _fill(grid: RegularGrid, kind: int, name: str, *, k: int, power: float, max_radius: int, convention: str, keep_observed: bool):
     dev = _check_cuda_grid(grid, name)
     H, W = grid.shape
     R = max_radius
+    pe, pv = _pitch(grid.elev, name), _pitch(grid.valid, name)
     out = torch.empty((H, W), dtype=torch.float32, device=dev)
     if H * W > 0:
-        nanp = _nan_padded(grid, R)
         tab = _device_table(R, convention, dev)
         wtab = _device_weights(R, float(power), convention, dev)
         with torch.cuda.device(dev):
             err = _lib().auvtpu_fill(
-                nanp.data_ptr(), tab.data_ptr(), wtab.data_ptr(), tab.shape[0], H, W, R,
-                kind, k, IDWConfig().eps, out.data_ptr(), _stream(dev),
+                grid.elev.data_ptr(), pe, grid.valid.data_ptr(), pv, tab.data_ptr(), wtab.data_ptr(),
+                tab.shape[0], H, W, R, kind, k, IDWConfig().eps, int(keep_observed),
+                out.data_ptr(), _stream(dev),
             )
         _raise_on(err, name)
         LAUNCHES[name] += 1
     return out
 
 
-def fill_idw_fused_ref(grid: RegularGrid, *, k: int = 8, power: float = 2.0, max_radius: int = 10, convention: str = "reference"):
+def fill_idw_fused_ref(grid: RegularGrid, *, k: int = 8, power: float = 2.0, max_radius: int = 10, convention: str = "reference", keep_observed: bool = False):
     """Plain version of :func:`fill_idw_fused`: :func:`auvtpu_torch.ops.dense.fill_idw`."""
-    return fill_idw(grid, k=k, power=power, max_radius=max_radius, convention=convention, backend="torch")
+    return fill_idw(grid, k=k, power=power, max_radius=max_radius, convention=convention, backend="torch",
+                    keep_observed=keep_observed)
 
 
-def fill_idw_fused(grid: RegularGrid, *, k: int = 8, power: float = 2.0, max_radius: int = 10, convention: str = "reference"):
+def fill_idw_fused(grid: RegularGrid, *, k: int = 8, power: float = 2.0, max_radius: int = 10, convention: str = "reference", keep_observed: bool = False):
     """First-k-valid IDW fill (B3): Σwv / max(Σw, eps) over the k nearest
     valid cells with static weights 1/(d2^(p/2)+eps), NaN where none is
-    found; the semantics of ``pallas_fill_idw`` and ``ops.dense.fill_idw``."""
+    found; the semantics of ``pallas_fill_idw`` and ``ops.dense.fill_idw``.
+    ``keep_observed``: cells with valid > 0.5 keep their own elevation.
+    The planes may be views with any row stride (a window of a mosaic); a
+    column stride other than 1 raises."""
     if grid.elev.device.type == "cpu":
-        return fill_idw_fused_ref(grid, k=k, power=power, max_radius=max_radius, convention=convention)
-    return _fill(grid, 0, "fill_idw_fused", k=k, power=power, max_radius=max_radius, convention=convention)
+        return fill_idw_fused_ref(grid, k=k, power=power, max_radius=max_radius, convention=convention,
+                                  keep_observed=keep_observed)
+    return _fill(grid, 0, "fill_idw_fused", k=k, power=power, max_radius=max_radius, convention=convention,
+                 keep_observed=keep_observed)
 
 
-def fill_mean_fused_ref(grid: RegularGrid, *, k: int = 4, max_radius: int = 10, convention: str = "reference"):
+def fill_mean_fused_ref(grid: RegularGrid, *, k: int = 4, max_radius: int = 10, convention: str = "reference", keep_observed: bool = False):
     """Plain version of :func:`fill_mean_fused`: :func:`auvtpu_torch.ops.dense.fill_window_mean`."""
-    return fill_window_mean(grid, k=k, max_radius=max_radius, convention=convention, backend="torch")
+    return fill_window_mean(grid, k=k, max_radius=max_radius, convention=convention, backend="torch",
+                            keep_observed=keep_observed)
 
 
-def fill_mean_fused(grid: RegularGrid, *, k: int = 4, max_radius: int = 10, convention: str = "reference"):
+def fill_mean_fused(grid: RegularGrid, *, k: int = 4, max_radius: int = 10, convention: str = "reference", keep_observed: bool = False):
     """First-k-valid mean fill (B3): the mean of the k nearest valid cells,
     NaN where none is found; the semantics of ``pallas_fill_mean`` and
-    ``ops.dense.fill_window_mean``."""
+    ``ops.dense.fill_window_mean``.  ``keep_observed`` and the planes'
+    strides as for :func:`fill_idw_fused`."""
     if grid.elev.device.type == "cpu":
-        return fill_mean_fused_ref(grid, k=k, max_radius=max_radius, convention=convention)
-    return _fill(grid, 1, "fill_mean_fused", k=k, power=0.0, max_radius=max_radius, convention=convention)
+        return fill_mean_fused_ref(grid, k=k, max_radius=max_radius, convention=convention,
+                                   keep_observed=keep_observed)
+    return _fill(grid, 1, "fill_mean_fused", k=k, power=0.0, max_radius=max_radius, convention=convention,
+                 keep_observed=keep_observed)
 
 
 # ---------------------------------------------------------------------------

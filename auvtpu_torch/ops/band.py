@@ -86,14 +86,24 @@ def resolve_resample_backend(backend: str, plane: torch.Tensor) -> str:
 def _xy(grid: RegularGrid, lons, lats):
     """Grid-frame (x, y) of lon/lat queries in the grid's dtype on its
     device: ``(lon - min_lon) / lon_step`` with both scalars rounded to the
-    dtype, as JAX computes it.  The steps divide as 0-d tensors on the
-    device: a python-scalar divisor of a CUDA tensor is a multiply by its
-    reciprocal, which can differ from the division by an ulp."""
+    dtype, as JAX computes it.  The steps divide as the grid's 0-d tensors
+    (:meth:`RegularGrid.step_tensors`): a python-scalar divisor of a CUDA
+    tensor is a multiply by its reciprocal, which can differ from the
+    division by an ulp."""
     lons, lats = queries(grid, lons, lats)
-    dt, dev = grid.dtype, grid.device
-    lon_step = torch.tensor(as_dtype(grid.lon_step, dt), dtype=dt, device=dev)
-    lat_step = torch.tensor(as_dtype(grid.lat_step, dt), dtype=dt, device=dev)
+    dt = grid.dtype
+    lon_step, lat_step = grid.step_tensors()
     return (lons - as_dtype(grid.min_lon, dt)) / lon_step, (lats - as_dtype(grid.min_lat, dt)) / lat_step
+
+
+def _affine(grid: RegularGrid, col0: int = 0, row0: int = 0):
+    """The resample's coordinate prologue for lon/lat queries of ``grid``,
+    (u0, du, su, v0, dv, sv) with x = (lon - u0) / du - su and y = (lat -
+    v0) / dv - sv in the grid's dtype: :func:`_xy` and the shift into a band
+    at (row0, col0), bit for bit (the B8 kernel and its plain version both
+    compute it)."""
+    dt = grid.dtype
+    return tuple(as_dtype(v, dt) for v in (grid.min_lon, grid.lon_step, col0, grid.min_lat, grid.lat_step, row0))
 
 
 def _pad_to_chunk(x, y, chunk: int):
@@ -106,29 +116,30 @@ def _pad_to_chunk(x, y, chunk: int):
     return x, y
 
 
-def _atlas_resample(planes, vmasks, origins, x, y, *, chunk: int, wr: int, wc: int, masked: bool, pick: bool = True, lerp_mode: str = "onehot", aligned: bool = False, plain: bool = False):
+def _atlas_resample(planes, vmasks, origins, x, y, *, chunk: int, wr: int, wc: int, masked: bool, pick: bool = True, lerp_mode: str = "onehot", aligned: bool = False, plain: bool = False, affine=None):
     """Chunked windowed bilinear over a K-page atlas (``_atlas_resample``).
 
     planes (K, R, C) NaN-free pages (0 at undefined cells); vmasks their
     definedness, read when ``masked``; origins (K, 2) page (row0, col0) in
-    the planes' dtype; x, y (N,) grid-frame coordinates, N % chunk == 0.
-    ``pick`` False serves page 0 (the single band).  ``aligned`` takes the
-    Pallas kernel's windows; ``plain`` runs the plain version whatever the
-    device.  Returns (z, ok), z NaN where a query is unresolved."""
-    from ..kernels.band_resample import band_resample, band_resample_ref
+    the planes' dtype (None: every page at (0, 0)); x, y (N,) grid-frame
+    coordinates, or lon/lat with ``affine`` (:func:`_affine`), any N (a
+    ragged last chunk is reduced over its real queries).  ``pick`` False
+    serves page 0 (the single band).  ``aligned`` takes the Pallas kernel's
+    windows; ``plain`` runs the plain version whatever the device.  Returns
+    (z, ok), z NaN where a query is unresolved."""
+    from ..kernels.band_resample import IDENTITY, band_resample, band_resample_ref
 
     fn = band_resample_ref if plain else band_resample
     return fn(planes, vmasks if masked else None, origins, x, y, chunk=chunk, wr=wr, wc=wc,
-              pick=pick, aligned=aligned, hat=_hat(lerp_mode))
+              pick=pick, aligned=aligned, hat=_hat(lerp_mode), affine=affine or IDENTITY)
 
 
-def _band_resample(plane, vmask, x, y, *, chunk: int, wr: int, wc: int, masked: bool, lerp_mode: str = "onehot", aligned: bool = False, plain: bool = False):
+def _band_resample(plane, vmask, x, y, *, chunk: int, wr: int, wc: int, masked: bool, lerp_mode: str = "onehot", aligned: bool = False, plain: bool = False, affine=None):
     """Chunked windowed bilinear over one band plane (``_band_resample``):
-    x, y are band-frame coordinates; the band is a one-page atlas at origin
-    (0, 0)."""
-    origins = torch.zeros((1, 2), dtype=plane.dtype, device=plane.device)
-    return _atlas_resample(plane[None], vmask[None], origins, x, y, chunk=chunk, wr=wr, wc=wc, masked=masked,
-                           pick=False, lerp_mode=lerp_mode, aligned=aligned, plain=plain)
+    x, y are band-frame coordinates (or lon/lat with ``affine``); the band
+    is a one-page atlas at origin (0, 0)."""
+    return _atlas_resample(plane[None], vmask[None], None, x, y, chunk=chunk, wr=wr, wc=wc, masked=masked,
+                           pick=False, lerp_mode=lerp_mode, aligned=aligned, plain=plain, affine=affine)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -224,8 +235,9 @@ class BandResampler:
         self.lerp_mode = lerp_mode
 
     def coords(self, lons, lats):
-        """(n, x, y, chunk): the band-frame coordinates the resample takes,
-        padded to a whole number of chunks."""
+        """(n, x, y, chunk): the band-frame coordinates the resample's
+        prologue computes, padded to a whole number of chunks, for tools
+        that look at them; the resample itself takes lon/lat."""
         x, y = _xy(self.grid, lons, lats)
         n = x.shape[0]
         chunk = _effective_chunk(n, self.chunk)
@@ -233,15 +245,17 @@ class BandResampler:
         return n, x, y, chunk
 
     def resample(self, lons, lats):
-        """Returns (values, resolved_mask); unresolved entries are NaN."""
-        n, x, y, chunk = self.coords(lons, lats)
-        aligned = self.backend == "aligned" and not self.band.masked
-        z, ok = _band_resample(
-            self.band.plane, self.band.vmask, x, y, chunk=chunk, wr=self.wr, wc=self.wc,
-            masked=self.band.masked, lerp_mode="onehot" if aligned else self.lerp_mode,
-            aligned=aligned, plain=self.backend == "torch",
+        """Returns (values, resolved_mask); unresolved entries are NaN.  On
+        a CUDA band this is one B8 launch: the lon/lat to band-frame
+        prologue and the ragged last chunk are the kernel's."""
+        lons, lats = queries(self.grid, lons, lats)
+        b = self.band
+        aligned = self.backend == "aligned" and not b.masked
+        return _band_resample(
+            b.plane, b.vmask, lons, lats, chunk=_effective_chunk(lons.shape[0], self.chunk), wr=self.wr,
+            wc=self.wc, masked=b.masked, lerp_mode="onehot" if aligned else self.lerp_mode,
+            aligned=aligned, plain=self.backend == "torch", affine=_affine(self.grid, b.col0, b.row0),
         )
-        return z[:n], ok[:n]
 
 
 def _chunk_boxes_device(x, y, *, chunk: int):
@@ -427,8 +441,9 @@ class AtlasResampler:
         self.lerp_mode = lerp_mode
 
     def coords(self, lons, lats):
-        """(n, x, y, chunk): the grid-frame coordinates the resample takes,
-        padded to a whole number of chunks."""
+        """(n, x, y, chunk): the grid-frame coordinates the resample's
+        prologue computes, padded to a whole number of chunks, for tools
+        that look at them; the resample itself takes lon/lat."""
         x, y = _xy(self.grid, lons, lats)
         n = x.shape[0]
         chunk = _effective_chunk(n, self.chunk)
@@ -436,16 +451,18 @@ class AtlasResampler:
         return n, x, y, chunk
 
     def resample(self, lons, lats):
-        """Returns (values, resolved_mask); unresolved entries are NaN."""
-        n, x, y, chunk = self.coords(lons, lats)
+        """Returns (values, resolved_mask); unresolved entries are NaN.  On
+        a CUDA atlas this is one B8 launch (the prologue and the ragged last
+        chunk are the kernel's)."""
+        lons, lats = queries(self.grid, lons, lats)
         a = self.atlas
         aligned = self.backend == "aligned" and not a.masked
-        z, ok = _atlas_resample(
-            a.planes, a.vmasks, a.origins, x, y, chunk=chunk, wr=self.wr, wc=self.wc, masked=a.masked,
-            pick=a.planes.shape[0] > 1, lerp_mode="onehot" if aligned else self.lerp_mode,
-            aligned=aligned, plain=self.backend == "torch",
+        return _atlas_resample(
+            a.planes, a.vmasks, a.origins, lons, lats, chunk=_effective_chunk(lons.shape[0], self.chunk),
+            wr=self.wr, wc=self.wc, masked=a.masked, pick=a.planes.shape[0] > 1,
+            lerp_mode="onehot" if aligned else self.lerp_mode, aligned=aligned,
+            plain=self.backend == "torch", affine=_affine(self.grid),
         )
-        return z[:n], ok[:n]
 
 
 # Routing costs in ns per unit, measured on one NVIDIA H100 80GB HBM3 at a
@@ -456,12 +473,14 @@ class AtlasResampler:
 # of it (every fill up to 5M cells is host-bound on this card).  packed is
 # the two-tier kriging call on 5M uniform random queries of the masked
 # Kerguelen stand-in (its best case, so the router over-credits packed);
-# resample is a 5M-ping BandResampler call on the band weave.
+# resample is a 5M-ping BandResampler call on the band weave, lon/lat in,
+# one B8 launch with the coordinate prologue inside (a later run than the
+# other three: the prologue moved into the kernel after they were taken).
 COST_NS = {
     "packed_per_query": 2.949,
     "dispatch": 3.367e5,
     "fill_per_cell": 0.03544,
-    "resample_per_query": 0.0472,
+    "resample_per_query": 0.02496,
 }
 
 

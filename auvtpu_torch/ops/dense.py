@@ -101,18 +101,24 @@ def _b3_kernel(backend: str, grid: RegularGrid) -> bool:
     return backend != "torch"
 
 
-def fill_window_mean(grid: RegularGrid, *, k: int = 4, max_radius: int = 10, convention: str = "reference", backend: str = "auto"):
+def _keep_observed(grid: RegularGrid, plane):
+    """Observed cells (valid > 0.5) keep their own elevation."""
+    return torch.where(grid.valid > 0.5, grid.elev, plane)
+
+
+def fill_window_mean(grid: RegularGrid, *, k: int = 4, max_radius: int = 10, convention: str = "reference", backend: str = "auto", keep_observed: bool = False):
     """Mean of the k nearest valid cells per cell, NaN where none is found:
     the dense Grid B 'cubic' (at a masked centre the reference's bicubic
     always takes its ring-fallback path, kernels.cu:305-371).
 
     backend: 'torch' (the plain whole-plane scan below), 'fused' or
     'select' (the B3 kernel) or 'auto' ('fused' on a CUDA float32 grid,
-    'torch' otherwise)."""
+    'torch' otherwise).  ``keep_observed``: observed cells keep their own
+    value, the streaming window's rule (B3 applies it in the same pass)."""
     if _b3_kernel(backend, grid):
         from ..kernels.window_fill import fill_mean_fused
 
-        return fill_mean_fused(grid, k=k, max_radius=max_radius, convention=convention)
+        return fill_mean_fused(grid, k=k, max_radius=max_radius, convention=convention, keep_observed=keep_observed)
     dt = grid.dtype
     zero = torch.zeros_like(grid.elev)
 
@@ -122,7 +128,8 @@ def fill_window_mean(grid: RegularGrid, *, k: int = 4, max_radius: int = 10, con
         return cnt + take, s + take * v
 
     cnt, s = _offset_loop(grid, max_radius, k, (zero, zero), step, convention)
-    return torch.where(cnt > 0, s / torch.clamp(cnt, min=1.0), float("nan"))
+    plane = torch.where(cnt > 0, s / torch.clamp(cnt, min=1.0), float("nan"))
+    return _keep_observed(grid, plane) if keep_observed else plane
 
 
 def idw_denominators(max_radius: int, power: float, convention: str = "reference") -> np.ndarray:
@@ -132,14 +139,15 @@ def idw_denominators(max_radius: int, power: float, convention: str = "reference
     return d2s ** np.float32(power / 2.0) + np.float32(IDWConfig().eps)
 
 
-def fill_idw(grid: RegularGrid, *, k: int = 8, power: float = 2.0, max_radius: int = 10, convention: str = "reference", backend: str = "auto"):
+def fill_idw(grid: RegularGrid, *, k: int = 8, power: float = 2.0, max_radius: int = 10, convention: str = "reference", backend: str = "auto", keep_observed: bool = False):
     """k-nearest inverse-distance-weighted fill plane: weights
     1/(d2^(p/2)+eps), Σwv / max(Σw, eps), NaN where no neighbour is found.
-    ``backend`` as for :func:`fill_window_mean`."""
+    ``backend`` and ``keep_observed`` as for :func:`fill_window_mean`."""
     if _b3_kernel(backend, grid):
         from ..kernels.window_fill import fill_idw_fused
 
-        return fill_idw_fused(grid, k=k, power=power, max_radius=max_radius, convention=convention)
+        return fill_idw_fused(grid, k=k, power=power, max_radius=max_radius, convention=convention,
+                              keep_observed=keep_observed)
     eps = IDWConfig().eps
     dt = grid.dtype
     zero = torch.zeros_like(grid.elev)
@@ -152,7 +160,8 @@ def fill_idw(grid: RegularGrid, *, k: int = 8, power: float = 2.0, max_radius: i
         return cnt + take, ws + w, vs + w * v
 
     cnt, ws, vs = _offset_loop(grid, max_radius, k, (zero, zero, zero), step, convention)
-    return torch.where(cnt > 0, vs / torch.clamp(ws, min=eps), float("nan"))
+    plane = torch.where(cnt > 0, vs / torch.clamp(ws, min=eps), float("nan"))
+    return _keep_observed(grid, plane) if keep_observed else plane
 
 
 def window_topk_idx(grid: RegularGrid, *, k: int = 4, max_radius: int = 10, convention: str = "reference"):

@@ -18,24 +18,16 @@ one elementwise op over all queries.  NaN appears only in outputs
 
 from __future__ import annotations
 
-import numpy as np
 import torch
 
 from ..config import IDWConfig, KrigingConfig
-from ..grid import RegularGrid
+from ..grid import RegularGrid, as_dtype
 from .window import fetch_masked, masked_mean, nan_plane, window_select
 
 
 # ---------------------------------------------------------------------------
 # shared helpers
 # ---------------------------------------------------------------------------
-
-def as_dtype(v: float, dtype: torch.dtype) -> float:
-    """The python float ``v`` rounded to ``dtype``, so that torch's scalar
-    arithmetic on a ``dtype`` tensor sees the value JAX's weak-typed scalar
-    becomes."""
-    return float(np.float32(v)) if dtype == torch.float32 else float(v)
-
 
 def queries(grid: RegularGrid, lons, lats):
     """(lons, lats) as tensors of the grid's dtype on its device."""
@@ -47,15 +39,18 @@ def queries(grid: RegularGrid, lons, lats):
 def _normalize(grid: RegularGrid, lons, lats):
     """lon/lat -> grid coords + strict out-of-bounds mask (GridH.cpp:162-168),
     in the grid's dtype: ``(lon - min_lon) / lon_step`` with both scalars
-    rounded to that dtype, as JAX computes it.  OOB coords are zeroed so
-    downstream indices stay in range."""
+    rounded to that dtype, as JAX computes it; the steps divide as the
+    grid's 0-d tensors (:meth:`RegularGrid.step_tensors`), so the division
+    is exact on a card too.  OOB coords are zeroed so downstream indices
+    stay in range."""
     lons, lats = queries(grid, lons, lats)
     dt = grid.dtype
     min_lon, max_lon = as_dtype(grid.min_lon, dt), as_dtype(grid.max_lon, dt)
     min_lat, max_lat = as_dtype(grid.min_lat, dt), as_dtype(grid.max_lat, dt)
     oob = (lons < min_lon) | (lons > max_lon) | (lats < min_lat) | (lats > max_lat)
-    x = (lons - min_lon) / as_dtype(grid.lon_step, dt)
-    y = (lats - min_lat) / as_dtype(grid.lat_step, dt)
+    lon_step, lat_step = grid.step_tensors()
+    x = (lons - min_lon) / lon_step
+    y = (lats - min_lat) / lat_step
     zero = torch.zeros_like(x)
     return torch.where(oob, zero, x), torch.where(oob, zero, y), oob
 

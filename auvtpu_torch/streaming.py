@@ -58,7 +58,9 @@ def _fill_window_planes(we, wv, meta, r0, c0, vparams, *, method, k, max_radius,
     kriging and the variance); 'torch' their plain versions.  The window is a
     sub-plane of the mosaic, so kriging gets the mosaic's cell ``steps`` and
     the window's origin (r0, c0) and its variogram geometry stays in mosaic
-    coordinates.  Observed cells keep their values (variance: read 0).
+    coordinates.  Observed cells keep their values (variance: read 0); B3
+    keeps them in its own pass, so an idw or mean refresh of a CUDA mosaic
+    is one launch on the window's views.
     """
     min_lon, max_lon, min_lat, max_lat = meta
     g = RegularGrid(elev=we, valid=wv, min_lon=min_lon, max_lon=max_lon, min_lat=min_lat, max_lat=max_lat)
@@ -71,15 +73,14 @@ def _fill_window_planes(we, wv, meta, r0, c0, vparams, *, method, k, max_radius,
         )
         return torch.where(wv > 0.5, 0.0, var)
     if method == "idw":
-        plane = fill_idw(g, k=k, max_radius=max_radius, backend=backend)
-    elif method == "mean":
-        plane = fill_window_mean(g, k=k, max_radius=max_radius, backend=backend)
-    elif method == "kriging":
-        plane = fill_kriging(
-            g, max_radius=max_radius, vparams=vparams, row0=r0, col0=c0, steps=steps, backend=backend,
-        )
-    else:
+        return fill_idw(g, k=k, max_radius=max_radius, backend=backend, keep_observed=True)
+    if method == "mean":
+        return fill_window_mean(g, k=k, max_radius=max_radius, backend=backend, keep_observed=True)
+    if method != "kriging":
         raise ValueError(method)
+    plane = fill_kriging(
+        g, max_radius=max_radius, vparams=vparams, row0=r0, col0=c0, steps=steps, backend=backend,
+    )
     return torch.where(wv > 0.5, we, plane)
 
 

@@ -23,9 +23,11 @@ streaming mosaic and scattered queries on the 3200x4000 Grid A, in phases:
 7. timing   CUDA events, 3 warm-up calls then the median of 20, kernels and
             plain versions side by side
 8. B3, B4   the IDW/mean fill kernel vs its plain version at the stand-in
-            r0.20 (IDW k=8, mean k=4) and on the 256x320 grid (both
-            conventions, R 5 and 10): NaN placement equal, rtol=1e-5,
-            atol=1e-3.  B4's own path, its entry point topk_idx and the
+            r0.20 (IDW k=8, mean k=4), on the 256x320 grid (both
+            conventions, R 5 and 10) and on window views of the stand-in
+            (row stride 2441, 256x256 at R=5 and 1024x2048 at R=10) with
+            observed cells kept: NaN placement equal, rtol=1e-5,
+            atol=1e-3, observed cells exactly kept.  B4's own path, its entry point topk_idx and the
             slot gather at the r0.20 masked cells (launch counts zeroed
             around it), giving B2's values and offsets at every live slot;
             the slot-index kernel exactly equal to its plain version, and
@@ -42,8 +44,12 @@ streaming mosaic and scattered queries on the 3200x4000 Grid A, in phases:
             backend "torch" at the B3/B1 bars, the fitted variogram and the
             uncertainty window; launch counts zeroed before the phase show
             B1 and B3 ran
-11. timing  B3 and B4 vs plain at r0.20, the Grid B methods, streaming ingest
-            and window refresh (fused and torch)
+11. timing  the idw and mean window refresh is one B3 launch (launch counts,
+            and the profiler's device kernels of one refresh); B3 alone
+            by its device duration (profiler kernel records) back to back
+            and cold (a 128 MB write before each launch), its wrapper and
+            plain version, B4 vs plain at r0.20, the Grid B
+            methods, streaming ingest and window refresh (fused and torch)
 12. B5-B7   the scattered select kernel vs its plain version on Grid A
             (3200x4000 shelf + seamount, fully valid: valid16 and radius-2
             packs) and on the stand-in r0.10, 1M numpy-seeded queries plus
@@ -53,7 +59,9 @@ streaming mosaic and scattered queries on the 3200x4000 Grid A, in phases:
 13. grid A  auvtpu_torch.cli.bench_grid_a on the default grid at 1e3, 1e5,
             1e6 and 5e6 queries (all four methods, --backend auto), then 1e6
             with --backend fused: every validation PASSED (5e-5 x scale);
-            launch counts show B5 and B6 under auto, B7 under fused; 4096
+            launch counts show B5 and B6 under auto, B7 under fused;
+            _normalize and lonlat_to_xy on the card equal to the CPU's bit
+            for bit at the 1M phase-12 queries; 4096
             queries per method vs GoldenGrid/GoldenV2 at the same bar
 14. twotier TwoTierInterpolator (auto = the B5/B6 kernels) on the stand-in
             r0.10 with 1M queries vs backend "torch" (tests/test_packs.py
@@ -64,14 +72,17 @@ streaming mosaic and scattered queries on the 3200x4000 Grid A, in phases:
             paths at 1M Grid A queries, two-tier calls, the Grid A steady
             state per method and batch
 16. B8      the band/atlas resample kernel vs its plain version on the
-            stand-in r0.10: 5M pings of the band weave on the B1-filled band
-            and of the diagonal on the 8-page atlas (chunk 2048, hat_t, auto
-            windows), a masked band (a hole in vmask), the "aligned"
-            geometry with one-hot weights, and one-hot and hat weights at
-            64x160 (tests/test_band.py:86-119): ok exactly equal and z
-            bit-equal; the band's resolved share > 0.9 and its values within
-            5e-3 m of an f64 bilinear of the band plane at the same
-            coordinates (the JAX package's on-chip bar)
+            stand-in r0.10, on lon/lat through the kernel's coordinate
+            prologue, with a ragged last chunk: 5M pings of the band weave
+            on the B1-filled band and of the diagonal on the 8-page atlas
+            (chunk 2048, hat_t, auto windows), a 512-ping tick, a masked
+            band (a hole in vmask), the "aligned" geometry with one-hot
+            weights, and one-hot and hat weights at 64x160
+            (tests/test_band.py:86-119): ok exactly equal and z bit-equal;
+            the band weave also equal to the kernel on the torch prologue's
+            coordinates (_xy, shift, pad); the band's resolved share > 0.9
+            and its values within 5e-3 m of an f64 bilinear of the band
+            plane at the same coordinates (the JAX package's on-chip bar)
 17. mission auvtpu_torch.cli.mission at its defaults (512x640, 200k pings,
             --max-bands 8) for the band and diagonal missions, routed and
             forced onto the band path; BandRouter.kriging and .idw on the
@@ -83,8 +94,11 @@ streaming mosaic and scattered queries on the 3200x4000 Grid A, in phases:
             zeroed before the phase show B1, B3, B8 and, where queries
             escalated, B5/B6; then the real-time loop of
             tests/test_band.py:451-497 (streaming ingest, refresh, serve)
-18. timing  B8 alone (launched back to back through its library), its
-            wrapper, its plain version and grid_sample at 5M; the band and
+18. timing  B8 alone (launched through its library; device duration back
+            to back and cold after a 128 MB write), its wrapper, its plain
+            version and grid_sample (the same two ways) at 5M; one B8 launch and
+            no other device kernel per BandResampler/AtlasResampler call
+            (launch counts, profiler); the band and
             atlas prepare (fills); BandRouter.kriging at 5M; 512-ping tick
             latency with a refresh every 32 ticks and 8,192 observations a
             tick (scripts/mission_replay.py's loop); the calibration of the
@@ -287,51 +301,127 @@ def time_ms(fn, warmup: int = 3, reps: int = 20) -> float:
     return float(np.median(times))
 
 
-def time_back_to_back(fn, launches: int = 50, reps: int = 5) -> float:
-    """Median device time of one call from CUDA events around ``launches``
-    calls issued back to back (for calls whose host cost is below their
-    device time, so the device never waits for the host)."""
+def device_ms(fn, match: str | None, reps: int = 30, cold: bool = False, attempts: int = 3) -> float:
+    """Device duration (ms) of one call of ``fn`` from torch.profiler's
+    kernel records (CUPTI), with no host time in it, back to back (the
+    inputs warm in the L2) or ``cold`` (a 128 MB write before each call):
+    the median duration of the kernels whose name holds ``match``, one a
+    call, or, with no ``match``, the sum over the call's kernels of each
+    one's median.  The tracer may drop records, the last of a session and
+    now and then all of them; a median of the ones it keeps is not biased by
+    that, and a session that keeps fewer than 5 is profiled again, up to
+    ``attempts`` times."""
     import torch
 
-    for _ in range(3):
-        fn()
+    scratch = torch.empty(128 << 18, dtype=torch.float32, device="cuda")
+    fn()
     torch.cuda.synchronize()
-    times = []
-    for _ in range(reps):
-        a = torch.cuda.Event(enable_timing=True)
-        b = torch.cuda.Event(enable_timing=True)
-        a.record()
-        for _ in range(launches):
-            fn()
-        b.record()
-        b.synchronize()
-        times.append(a.elapsed_time(b) / launches)
-    return float(np.median(times))
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    for _ in range(attempts):
+        with torch.profiler.profile(activities=acts) as prof:
+            for _ in range(reps):
+                if cold:
+                    scratch.fill_(1.0)
+                fn()
+            torch.cuda.synchronize()
+        kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA
+                   and not e.name.lower().startswith(("memcpy", "memset"))]
+        names = {e.name for e in kernels if "FillFunctor" not in e.name} if match is None else {
+            e.name for e in kernels if match in e.name}  # the scratch writes are torch's fill
+        durs = {name: [e.time_range.elapsed_us() for e in kernels if e.name == name] for name in names}
+        if any(len(d) > reps for d in durs.values()):
+            raise RuntimeError(f"{match!r}: more kernel records than calls: { {k: len(d) for k, d in durs.items()} }")
+        if names and all(len(d) >= 5 for d in durs.values()):
+            return sum(float(np.median(d)) for d in durs.values()) / 1e3
+    raise RuntimeError(f"{match!r}: kernel records { {k: len(d) for k, d in durs.items()} } of {reps} calls in "
+                       f"each of {attempts} sessions")
 
 
-def b8_launcher(args, kw):
-    """A closure launching B8 on these inputs straight through its library,
-    outputs allocated once: the kernel alone, without the wrapper's checks
-    and allocations, for timing it back to back."""
+def device_kernels(fn, reps: int = 20, attempts: int = 3) -> dict:
+    """{name: records} of the device kernels that ``reps`` calls of ``fn``
+    launch, from torch.profiler's kernel records (memory copies and sets are
+    not kernels).  The tracer drops the last records of a session, and now
+    and then all of them: the calls are many, and a session that keeps no
+    kernel record is profiled again, up to ``attempts`` times; raises where
+    none keeps one."""
+    import collections
+
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    for _ in range(attempts):
+        with torch.profiler.profile(activities=acts) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        names = collections.Counter(e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA
+                                    and not e.name.lower().startswith(("memcpy", "memset")))
+        if names:
+            return dict(names)
+    raise RuntimeError(f"the profiler kept no kernel record of {reps} calls in {attempts} sessions")
+
+
+def only_kernel(fn, match: str, what: str, reps: int = 20) -> dict:
+    """Check that ``fn`` runs one device kernel, the one whose name holds
+    ``match``, at most once a call: every kernel record of ``reps`` calls
+    is that kernel's.  Returns {name: records kept}."""
+    names = device_kernels(fn, reps)
+    if any(match not in name for name in names) or sum(names.values()) > reps:
+        raise AssertionError(f"{what}: device kernels of {reps} calls {names}, want {match} alone, once a call")
+    return names
+
+
+def b8_launcher(args, kw, lib=None):
+    """A closure launching B8 on these inputs straight through its library
+    (``lib``, or the checkout's), outputs allocated once: the kernel alone,
+    without the wrapper's checks and allocations, for timing it back to back
+    or cold."""
     import torch
 
     from auvtpu_torch.kernels import band_resample as kb
 
-    planes, vm, org, x, y = args
+    planes, vm, org, u, v = args
     K, R, C = planes.shape
-    n = x.numel()
+    n = u.numel()
     geo = kb.geometry(R, C, kw["wr"], kw["wc"], kw["aligned"])
-    z = torch.empty(n, dtype=torch.float32, device=x.device)
-    ok = torch.empty(n, dtype=torch.bool, device=x.device)
-    lib, stream = kb._lib(), kb._stream(x.device)
+    z = torch.empty(n, dtype=torch.float32, device=u.device)
+    ok = torch.empty(n, dtype=torch.bool, device=u.device)
+    lib, stream = lib or kb._lib(), kb._stream(u.device)
 
     def launch():
         err = lib.auvtpu_band_resample(
-            planes.data_ptr(), vm.data_ptr() if vm is not None else None, org.data_ptr(), K, R, C,
-            x.data_ptr(), y.data_ptr(), n, kw["chunk"], *geo, int(vm is not None), int(kw["pick"]),
-            int(kw["hat"]), kb.WSUM_THRESH, z.data_ptr(), ok.data_ptr(), stream)
+            planes.data_ptr(), vm.data_ptr() if vm is not None else None,
+            org.data_ptr() if org is not None else None, K, R, C, u.data_ptr(), v.data_ptr(), n, kw["chunk"],
+            *geo, int(vm is not None), int(kw["pick"]), int(kw["hat"]), kb.WSUM_THRESH, *kw["affine"],
+            z.data_ptr(), ok.data_ptr(), stream)
         if err:
             raise RuntimeError(f"B8 launch failed ({err})")
+
+    return launch
+
+
+def b3_launcher(grid, kind: int, k: int, R: int = 10, lib=None):
+    """A closure launching B3 on ``grid`` straight through its library
+    (``lib``, or the checkout's), output allocated once (the kernel
+    alone)."""
+    import torch
+
+    from auvtpu_torch.kernels import window_fill as wf
+
+    H, W = grid.shape
+    dev = grid.device
+    tab, wtab = wf._device_table(R, "reference", dev), wf._device_weights(R, 2.0, "reference", dev)
+    out = torch.empty((H, W), dtype=torch.float32, device=dev)
+    lib, stream = lib or wf._lib(), wf._stream(dev)
+
+    def launch():
+        err = lib.auvtpu_fill(grid.elev.data_ptr(), grid.elev.stride(0), grid.valid.data_ptr(), grid.valid.stride(0),
+                              tab.data_ptr(), wtab.data_ptr(), tab.shape[0], H, W, R, kind, k, 1e-12, 0,
+                              out.data_ptr(), stream)
+        if err:
+            raise RuntimeError(f"B3 launch failed ({err})")
 
     return launch
 
@@ -448,24 +538,25 @@ def band_tracks(grid, n: int, seed: int = 0):
 
 def b8_call(rs, lons, lats, *, aligned: bool = False):
     """(args, kwargs) of the B8 wrapper for resampler ``rs`` on these
-    queries: the inputs its resample() passes (``aligned``: the Pallas
-    geometry with one-hot weights, as backend "aligned" takes it)."""
-    import torch
-
+    queries: what its resample() passes, lon/lat with the coordinate
+    prologue (``aligned``: the Pallas geometry with one-hot weights, as
+    backend "aligned" takes it)."""
     from auvtpu_torch.ops import band as tband
+    from auvtpu_torch.ops.scattered import queries
 
-    _, x, y, chunk = rs.coords(lons, lats)
+    lons, lats = queries(rs.grid, lons, lats)
     if isinstance(rs, tband.BandResampler):
         b = rs.band
-        planes, vm, org, pick, masked = b.plane[None], b.vmask[None], torch.zeros(
-            (1, 2), dtype=b.plane.dtype, device=b.plane.device), False, b.masked
+        planes, vm, org, pick, masked = b.plane[None], b.vmask[None], None, False, b.masked
+        affine = tband._affine(rs.grid, b.col0, b.row0)
     else:
         a = rs.atlas
         planes, vm, org, pick, masked = a.planes, a.vmasks, a.origins, a.planes.shape[0] > 1, a.masked
+        affine = tband._affine(rs.grid)
     aligned = aligned and not masked
-    kw = dict(chunk=chunk, wr=rs.wr, wc=rs.wc, pick=pick, aligned=aligned,
-              hat=not aligned and rs.lerp_mode != "onehot")
-    return (planes, vm if masked else None, org, x, y), kw
+    kw = dict(chunk=tband._effective_chunk(lons.shape[0], rs.chunk), wr=rs.wr, wc=rs.wc, pick=pick,
+              aligned=aligned, hat=not aligned and rs.lerp_mode != "onehot", affine=affine)
+    return (planes, vm if masked else None, org, lons, lats), kw
 
 
 def b8_equal(args, kw, what: str):
@@ -755,10 +846,13 @@ def main() -> int:
     sel = wf.topk_full(grid, k=4, max_radius=10)
     ms = {
         "fused (B1)": time_ms(lambda: fill_kriging(grid, backend="fused")),
+        "B1 kernel alone": device_ms(lambda: wf.fill_kriging_fused(grid), "kriging_fill_kernel"),
+        "B1 wrapper": time_ms(lambda: wf.fill_kriging_fused(grid)),
         "B1 plain": time_ms(lambda: wf.fill_kriging_fused_ref(grid)),
         "select (B2 + torch solve)": time_ms(lambda: fill_kriging(grid, backend="select")),
         "torch (plain)": time_ms(lambda: fill_kriging(grid, backend="torch")),
-        "B2": time_ms(lambda: wf.topk_full(grid, k=4, max_radius=10)),
+        "B2 kernel alone": device_ms(lambda: wf.topk_full(grid, k=4, max_radius=10), "topk_full_kernel"),
+        "B2 wrapper": time_ms(lambda: wf.topk_full(grid, k=4, max_radius=10)),
         "B2 plain": time_ms(lambda: wf.topk_full_ref(grid, k=4, max_radius=10)),
         "torch solve": time_ms(lambda: krige_planes(grid, sel)),
         "variogram fit": time_ms(lambda: fit_variogram(grid)),
@@ -771,6 +865,8 @@ def main() -> int:
     say("timing", f"peak device memory {torch.cuda.max_memory_allocated(dev) / 2**20:.0f} MiB")
 
     # ---- 8. B3 and B4 vs their plain versions
+    from auvtpu_torch.grid import RegularGrid
+
     del sel
     grid2, rows2, cols2, _ = bench_workload(dev, 0.20)
     b3_err = {"idw": 0.0, "mean": 0.0}
@@ -787,6 +883,22 @@ def main() -> int:
         b3_err["idw"] = max(b3_err["idw"], e_i)
         b3_err["mean"] = max(b3_err["mean"], e_m)
         say("B3", f"{label}: max |kernel - plain| idw k=8 {e_i:.6g} m, mean k=4 {e_m:.6g} m")
+    # a window view of the stand-in (row stride 2441) with observed cells kept,
+    # as the streaming refresh reads the mosaic, at both tile shapes
+    for (wh, ww), R in (((256, 256), 5), ((1024, 2048), 10)):
+        gw = RegularGrid(grid2.elev[700:700 + wh, 300:300 + ww], grid2.valid[700:700 + wh, 300:300 + ww],
+                         0.0, ww - 1.0, 0.0, wh - 1.0)
+        for fused, ref, k, kind in ((wf.fill_idw_fused, wf.fill_idw_fused_ref, 8, "idw"),
+                                    (wf.fill_mean_fused, wf.fill_mean_fused_ref, 4, "mean")):
+            got = fused(gw, k=k, max_radius=R, keep_observed=True)
+            e = close_planes(got, ref(gw, k=k, max_radius=R, keep_observed=True),
+                             f"B3 {kind} vs plain, {wh}x{ww} window view, keep_observed", B3_RTOL, B3_ATOL)
+            obs = gw.valid > 0.5
+            if not torch.equal(got[obs], gw.elev[obs]):
+                raise AssertionError(f"B3 {kind} keep_observed: an observed cell lost its value")
+            b3_err[kind] = max(b3_err[kind], e)
+            say("B3", f"{wh}x{ww} window view (row stride {gw.elev.stride(0)}) R={R} keep_observed: "
+                f"{kind} max |kernel - plain| {e:.6g} m; observed cells kept")
     from auvtpu_torch.ops.dense import _slots_at
     from auvtpu_torch.tables import sorted_offsets
 
@@ -957,18 +1069,40 @@ def main() -> int:
             si.window_fill(2048, 2048)[0].cpu()
         return (time.perf_counter() - t0) * 1e3 / reps
 
+    # the streaming refresh (idw and mean) is one B3 launch on the window's
+    # views: no NaN-padded plane, no torch pass (launch counts, and the
+    # profiler's device kernels of one refresh)
+    for method in ("idw", "mean"):
+        si.backend, si.method = "fused", method
+        wf.reset_launches()
+        si.window_fill(2048, 2048)
+        if sum(wf.LAUNCHES.values()) != 1 or wf.LAUNCHES[f"fill_{method}_fused"] != 1:
+            raise AssertionError(f"window refresh {method}: launches {wf.LAUNCHES}, want one B3 launch")
+        seen = only_kernel(lambda: si.window_fill(2048, 2048)[0].cpu(), "fill_tile_kernel",
+                           f"window refresh {method}")
+        say("stream", f"window refresh {method}: one B3 launch; the device kernels of 20 refreshes, with the "
+            f"records the profiler kept: {seen}")
     ms.update({
-        "B3 idw k=8": time_ms(lambda: wf.fill_idw_fused(grid2, k=8)),
+        "B3 idw k=8": device_ms(b3_launcher(grid2, 0, 8), "fill_tile_kernel"),
+        "B3 idw k=8 cold": device_ms(b3_launcher(grid2, 0, 8), "fill_tile_kernel", cold=True),
+        "B3 idw k=8 wrapper": time_ms(lambda: wf.fill_idw_fused(grid2, k=8)),
         "B3 idw k=8 plain": time_ms(lambda: wf.fill_idw_fused_ref(grid2, k=8)),
-        "B3 mean k=4": time_ms(lambda: wf.fill_mean_fused(grid2, k=4)),
+        "B3 mean k=4": device_ms(b3_launcher(grid2, 1, 4), "fill_tile_kernel"),
+        "B3 mean k=4 cold": device_ms(b3_launcher(grid2, 1, 4), "fill_tile_kernel", cold=True),
+        "B3 mean k=4 wrapper": time_ms(lambda: wf.fill_mean_fused(grid2, k=4)),
         "B3 mean k=4 plain": time_ms(lambda: wf.fill_mean_fused_ref(grid2, k=4)),
-        "B4 k=4": time_ms(lambda: wf.topk_idx(grid2, k=4)),
+        "B4 k=4": device_ms(lambda: wf.topk_idx(grid2, k=4), "topk_full_kernel"),
+        "B4 k=4 wrapper": time_ms(lambda: wf.topk_idx(grid2, k=4)),
         "B4 k=4 plain": time_ms(lambda: wf.topk_idx_ref(grid2, k=4)),
         "window refresh fused": refresh_ms("fused"),
         "window refresh torch": refresh_ms("torch"),
     })
-    for label in ("B3 idw k=8", "B3 mean k=4", "B4 k=4"):
-        say("timing", f"stand-in r0.20 {label:12s} {ms[label]:.4f} ms, plain {ms[label + ' plain']:.4f} ms  [{card}]")
+    for label in ("B3 idw k=8", "B3 mean k=4"):
+        say("timing", f"stand-in r0.20 {label:12s} kernel alone {ms[label]:.4f} ms back to back, "
+            f"{ms[label + ' cold']:.4f} ms cold; wrapper {ms[label + ' wrapper']:.4f} ms; plain "
+            f"{ms[label + ' plain']:.4f} ms  [{card}]")
+    say("timing", f"stand-in r0.20 B4 k=4       kernel alone {ms['B4 k=4']:.4f} ms; wrapper {ms['B4 k=4 wrapper']:.4f} "
+        f"ms; plain {ms['B4 k=4 plain']:.4f} ms  [{card}]")
     for r, summary in grid_b.items():
         for method, m in summary.items():
             say("timing", f"Grid B r{r} {method:8s} steady {m['steady_ms']:.4f} ms "
@@ -1049,6 +1183,20 @@ def main() -> int:
         raise AssertionError("B5 and B6 were not both launched on the Grid A auto path")
     if launches_af["window_select_fused"] < 1:
         raise AssertionError("B7 was not launched on the Grid A fused path")
+    # query coordinates divide by the grid's 0-d step tensors: on the card
+    # they equal the CPU's bit for bit (a python-scalar divisor would be a
+    # reciprocal multiply here)
+    from auvtpu_torch.ops.scattered import _normalize
+
+    gA_cpu = RegularGrid.dense(a_elev, GRID_A_EXTENT, device="cpu")
+    qA_cpu = tuple(q.cpu() for q in qA)
+    for what, got, want in (("_normalize", _normalize(gA, *qA), _normalize(gA_cpu, *qA_cpu)),
+                            ("lonlat_to_xy", gA.lonlat_to_xy(*qA), gA_cpu.lonlat_to_xy(*qA_cpu))):
+        if not all(torch.equal(a.cpu(), b) for a, b in zip(got, want)):
+            raise AssertionError(f"{what}: the card's Grid A coordinates differ from the CPU's")
+    say("gridA", f"_normalize and lonlat_to_xy at {qA[0].numel()} Grid A queries: the card's coordinates equal "
+        f"the CPU's bit for bit")
+    del gA_cpu, qA_cpu
     golden_a, golden_v2 = (cls(a_elev, GRID_A_EXTENT.min_lon, GRID_A_EXTENT.max_lon, GRID_A_EXTENT.min_lat,
                                GRID_A_EXTENT.max_lat) for cls in (GoldenGrid, GoldenV2))
     lo_h, la_h = (q[:N_GOLDEN].double().cpu().numpy() for q in qA)
@@ -1126,10 +1274,11 @@ def main() -> int:
         "window_select_fused": (winA, 32, cellA, fxA, fyA, tab32n, dict(mode="rows_n", k=4)),
     }
     for kname, (pk, P, c_, x_, y_, t_, kw) in sel_args.items():
-        ms[f"{kname} alone"] = time_ms(lambda: ss.select(pk, P, c_, x_, y_, t_, **kw))
+        ms[f"{kname} alone"] = device_ms(lambda: ss.select(pk, P, c_, x_, y_, t_, **kw), "select_kernel")
+        ms[f"{kname} wrapper"] = time_ms(lambda: ss.select(pk, P, c_, x_, y_, t_, **kw))
         ms[f"{kname} plain"] = time_ms(lambda: ss.select_ref(pk, P, c_, x_, y_, t_, **kw), reps=5)
         say("timing", f"Grid A {N_SCATTER} queries {kname:20s} kernel alone {ms[kname + ' alone']:.4f} ms, "
-            f"plain {ms[kname + ' plain']:.4f} ms  [{card}]")
+            f"wrapper {ms[kname + ' wrapper']:.4f} ms, plain {ms[kname + ' plain']:.4f} ms  [{card}]")
     wrappers = {
         "kriging_valid_t (B5)": lambda: vs.kriging_valid_t(p16, gA, *qA),
         "packed_kriging_valid (torch)": lambda: tp.packed_kriging_valid(p16, gA, *qA),
@@ -1179,16 +1328,30 @@ def main() -> int:
         raise AssertionError(f"the resamplers' auto backend resolved to {rs_b.backend}/{rs_a.backend}")
     band_args, band_kw = b8_call(rs_b, *tracks["band"])
     z_b, ok_b, b8_err = b8_equal(band_args, band_kw, "band weave")
-    xb_, yb_ = band_args[3][:N_BAND], band_args[4][:N_BAND]
-    share = float(ok_b[:N_BAND].float().mean())
-    e64 = f64_bilinear_err(band.plane, xb_, yb_, z_b[:N_BAND], ok_b[:N_BAND])
-    say("B8", f"band weave: ok and z equal to plain; resolved {share:.6f}; max |z - f64 bilinear| {e64:.3g} m")
+    # the band-frame coordinates the kernel's prologue computes, as the torch
+    # prologue (_xy, the shift, the pad) gives them: the kernel on those, with
+    # the identity prologue, must return the same pings bit for bit
+    _, xb_, yb_, _ = rs_b.coords(*tracks["band"])
+    z_c, ok_c = kb.band_resample(*band_args[:3], xb_, yb_, **dict(band_kw, affine=kb.IDENTITY))
+    if not (torch.equal(ok_c[:N_BAND], ok_b) and torch.equal(z_c[:N_BAND][ok_b], z_b[ok_b])):
+        raise AssertionError("band weave: the fused prologue differs from _xy + shift + pad")
+    xb_, yb_ = xb_[:N_BAND], yb_[:N_BAND]
+    share = float(ok_b.float().mean())
+    e64 = f64_bilinear_err(band.plane, xb_, yb_, z_b, ok_b)
+    say("B8", f"band weave ({N_BAND} pings, {N_BAND % band_kw['chunk']} in the ragged last chunk): ok and z equal "
+        f"to plain, and to the kernel on the torch prologue's coordinates; resolved {share:.6f}; max |z - f64 "
+        f"bilinear| {e64:.3g} m")
     if share <= 0.9 or not e64 < BAND_F64_TOL:
         raise AssertionError(f"band weave: resolved {share} (want > 0.9), f64 error {e64} (want < {BAND_F64_TOL})")
+    # a 512-ping navigation tick: the effective chunk is the tick
+    tick_args, tick_kw = b8_call(rs_b, *(t[:TICK] for t in tracks["band"]))
+    _, _, e = b8_equal(tick_args, tick_kw, f"{TICK}-ping tick")
+    b8_err = max(b8_err, e)
+    say("B8", f"{TICK}-ping tick (chunk {tick_kw['chunk']}): ok and z equal to plain")
     atlas_args, atlas_kw = b8_call(rs_a, *tracks["diagonal"])
     _, ok_a, e = b8_equal(atlas_args, atlas_kw, "diagonal atlas")
     b8_err = max(b8_err, e)
-    say("B8", f"diagonal atlas: ok and z equal to plain; resolved {float(ok_a[:N_BAND].float().mean()):.6f}")
+    say("B8", f"diagonal atlas: ok and z equal to plain; resolved {float(ok_a.float().mean()):.6f}")
     # a masked band: a hole across the weave's centre rows
     R_, C_ = band.shape
     hole = band.vmask.clone()
@@ -1200,7 +1363,7 @@ def main() -> int:
     z_m, ok_m, e = b8_equal(m_args, m_kw, "masked band")
     b8_err = max(b8_err, e)
     lost = int((ok_b & ~ok_m).sum())
-    e64m = f64_bilinear_err(mband.plane, xb_, yb_, z_m[:N_BAND], ok_m[:N_BAND])
+    e64m = f64_bilinear_err(mband.plane, xb_, yb_, z_m, ok_m)
     say("B8", f"masked band: ok and z equal to plain; {lost} pings unresolved by the hole; max |z - f64| {e64m:.3g} m")
     if lost == 0 or not e64m < BAND_F64_TOL:
         raise AssertionError(f"masked band: {lost} pings lost to the hole, f64 error {e64m}")
@@ -1209,7 +1372,7 @@ def main() -> int:
         _, ok_al, e = b8_equal(args, kw, f"{label} aligned")
         b8_err = max(b8_err, e)
         say("B8", f"{label} aligned geometry (one-hot weights): ok and z equal to plain; resolved "
-            f"{float(ok_al[:N_BAND].float().mean()):.6f}")
+            f"{float(ok_al.float().mean()):.6f}")
     # tests/test_band.py:86-119 on the card: a 48x160 IDW band (B3) of a
     # 96x160 dense grid, 1000 pings, chunk 64, 32x128 windows
     EXT_T = Extent(-74.0, -70.0, 35.0, 38.0)
@@ -1231,7 +1394,7 @@ def main() -> int:
             _, ok_t, e = b8_equal(args, kw, f"48x160 {lerp} masked={b_.masked}")
             b8_err = max(b8_err, e)
             say("B8", f"48x160 band, {lerp} weights, masked={b_.masked}: ok and z equal to plain; resolved "
-                f"{float(ok_t[:1000].float().mean()):.4f}")
+                f"{float(ok_t.float().mean()):.4f}")
     say("B8", f"phase took {time.perf_counter() - t_band:.1f} s")
 
     # ---- 17. mission (launch counts from here to the end of the real-time
@@ -1298,10 +1461,12 @@ def main() -> int:
             times.append((time.perf_counter() - t0_) * 1e3)
         return float(np.median(times))
 
-    ms["B8 band"] = time_back_to_back(b8_launcher(band_args, band_kw))
+    ms["B8 band"] = device_ms(b8_launcher(band_args, band_kw), "band_resample_")
+    ms["B8 band cold"] = device_ms(b8_launcher(band_args, band_kw), "band_resample_", cold=True)
     ms["B8 band wrapper"] = time_ms(lambda: kb.band_resample(*band_args, **band_kw))
     ms["B8 band plain"] = time_ms(lambda: kb.band_resample_ref(*band_args, **band_kw), reps=5)
-    ms["B8 atlas"] = time_back_to_back(b8_launcher(atlas_args, atlas_kw))
+    ms["B8 atlas"] = device_ms(b8_launcher(atlas_args, atlas_kw), "band_resample_")
+    ms["B8 atlas cold"] = device_ms(b8_launcher(atlas_args, atlas_kw), "band_resample_", cold=True)
     ms["B8 atlas wrapper"] = time_ms(lambda: kb.band_resample(*atlas_args, **atlas_kw))
     ms["B8 atlas plain"] = time_ms(lambda: kb.band_resample_ref(*atlas_args, **atlas_kw), reps=5)
     # the library yardstick: grid_sample (bilinear, align_corners=True) on the
@@ -1311,17 +1476,34 @@ def main() -> int:
     gs_grid = torch.stack([xb_ * (2.0 / (C_ - 1)) - 1.0, yb_ * (2.0 / (R_ - 1)) - 1.0], dim=-1)[None, None]
     gs_plane = band.plane[None, None]
     z_gs = F.grid_sample(gs_plane, gs_grid, mode="bilinear", align_corners=True)[0, 0, 0]
-    ok_ = ok_b[:N_BAND]
-    gs_diff = float((z_gs[ok_] - z_b[:N_BAND][ok_]).abs().max())
-    ms["grid_sample"] = time_back_to_back(lambda: F.grid_sample(gs_plane, gs_grid, mode="bilinear", align_corners=True))
+    gs_diff = float((z_gs[ok_b] - z_b[ok_b]).abs().max())
+
+    def grid_sample():
+        F.grid_sample(gs_plane, gs_grid, mode="bilinear", align_corners=True)
+
+    ms["grid_sample"] = device_ms(grid_sample, None)
+    ms["grid_sample cold"] = device_ms(grid_sample, None, cold=True)
+    say("timing", f"grid_sample's device kernels, 20 calls: {device_kernels(grid_sample)}")
     ms["band resample"] = time_ms(lambda: rs_b.resample(*tracks["band"]))
     ms["atlas resample"] = time_ms(lambda: rs_a.resample(*tracks["diagonal"]))
+    ms["band coords"] = time_ms(lambda: rs_b.coords(*tracks["band"]))
     for label in ("B8 band", "B8 atlas"):
-        say("timing", f"{N_BAND} pings {label:9s} kernel alone {ms[label]:.4f} ms (back to back), wrapper "
-            f"{ms[label + ' wrapper']:.4f} ms, plain {ms[label + ' plain']:.4f} ms  [{card}]")
-    say("timing", f"{N_BAND} pings grid_sample on the band {ms['grid_sample']:.4f} ms (back to back; values only; max |diff| from B8 "
-        f"at resolved pings {gs_diff:.3g} m); BandResampler.resample {ms['band resample']:.4f} ms, "
-        f"AtlasResampler.resample {ms['atlas resample']:.4f} ms  [{card}]")
+        say("timing", f"{N_BAND} pings {label:9s} kernel alone {ms[label]:.4f} ms back to back, {ms[label + ' cold']:.4f} "
+            f"ms cold; wrapper {ms[label + ' wrapper']:.4f} ms, plain {ms[label + ' plain']:.4f} ms  [{card}]")
+    say("timing", f"{N_BAND} pings grid_sample on the band {ms['grid_sample']:.4f} ms back to back, "
+        f"{ms['grid_sample cold']:.4f} ms cold (values only, on band-frame coordinates made beforehand; max |diff| "
+        f"from B8 at resolved pings {gs_diff:.3g} m); BandResampler.resample {ms['band resample']:.4f} ms, "
+        f"AtlasResampler.resample {ms['atlas resample']:.4f} ms; "
+        f"the torch prologue it no longer runs (coords()) {ms['band coords']:.4f} ms  [{card}]")
+    for label, rs_, tr in (("BandResampler", rs_b, tracks["band"]), ("AtlasResampler", rs_a, tracks["diagonal"])):
+        kb.reset_launches()
+        rs_.resample(*tr)
+        launches_r = kb.LAUNCHES["band_resample"]
+        if launches_r != 1:
+            raise AssertionError(f"{label}.resample: {launches_r} B8 launches, want one")
+        seen = only_kernel(lambda: rs_.resample(*tr), "band_resample_", f"{label}.resample")
+        say("timing", f"{label}.resample: one B8 launch; the device kernels of 20 calls, with the records the "
+            f"profiler kept: {seen}")
     ms["band prepare"] = host_ms(lambda: rb.prepare(*tracks["band"]))
     ms["atlas prepare"] = host_ms(lambda: ra.prepare(*tracks["diagonal"]))
     ms["band kriging"] = host_ms(lambda: rb.kriging(*tracks["band"]))
@@ -1397,11 +1579,13 @@ def main() -> int:
         "idw_rows": bound(nq * (32 * 4 + 12 + 2 * 4), nq * (8 * 32 + 2 * 8 * 32 + 4 * 8)),
         "window_select_fused": bound(nq * (32 * 4 + 12 + (1 + 3 * 4) * 4), nq * (8 * 32 + 2 * 4 * 32)),
     })
-    # B8, per ping of the band weave: x and y read, z and ok written; per
-    # chunk its window of the band once; ~25 f32 operations a ping
-    nq_b = float(band_args[3].numel())
+    # B8, per ping of the band weave: lon and lat read, z and ok written; the
+    # plane read once: a window a chunk, but no more than the whole band;
+    # ~31 f32 operations a ping (the coordinate prologue's 6 included)
+    nq_b = float(N_BAND)
     wh_, ww_ = kb.geometry(*band.shape, band_kw["wr"], band_kw["wc"], False)[:2]
-    bounds["band_resample"] = bound(nq_b * 13 + nq_b / band_kw["chunk"] * wh_ * ww_ * 4, nq_b * 25)
+    plane_cells = min(-(-N_BAND // band_kw["chunk"]) * wh_ * ww_, band.shape[0] * band.shape[1])
+    bounds["band_resample"] = bound(nq_b * 13 + plane_cells * 4, nq_b * 31)
     say("bounds", "; ".join(f"{k} {v[0] * 1e3:.2f} us ({v[1]})" for k, v in bounds.items())
         + f"; rows scanned per cell: k=4 {s4 / n:.3f}, k=8 {s8 / n:.3f} (r0.20), k=4 {s4_bench / n:.3f} (r0.10); "
         f"select kernels at {int(nq)} Grid A queries")
@@ -1409,41 +1593,44 @@ def main() -> int:
     rows_ = [
         ("fill_kriging_fused", "auvtpu/pallas/window_fill.py:648",
          launches["fill_kriging_fused"] + launches_b["fill_kriging_fused"] + launches_s["fill_kriging_fused"],
-         b1_err, ms["fused (B1)"], ms["B1 plain"]),
+         b1_err, ms["B1 kernel alone"], ms["B1 wrapper"], ms["B1 plain"]),
         ("topk_full", "auvtpu/pallas/window_fill.py:501", launches["topk_full"],
-         b2_err, ms["B2"], ms["B2 plain"]),
+         b2_err, ms["B2 kernel alone"], ms["B2 wrapper"], ms["B2 plain"]),
         ("fill_idw_fused", "auvtpu/pallas/window_fill.py:230",
          launches_b["fill_idw_fused"] + launches_s["fill_idw_fused"],
-         b3_err["idw"], ms["B3 idw k=8"], ms["B3 idw k=8 plain"]),
+         b3_err["idw"], ms["B3 idw k=8"], ms["B3 idw k=8 wrapper"], ms["B3 idw k=8 plain"]),
         ("fill_mean_fused", "auvtpu/pallas/window_fill.py:230",
          launches_b["fill_mean_fused"] + launches_s["fill_mean_fused"],
-         b3_err["mean"], ms["B3 mean k=4"], ms["B3 mean k=4 plain"]),
+         b3_err["mean"], ms["B3 mean k=4"], ms["B3 mean k=4 wrapper"], ms["B3 mean k=4 plain"]),
         ("topk_idx", "auvtpu/pallas/window_fill.py:384", launches_b4["topk_idx"],
-         b4_err, ms["B4 k=4"], ms["B4 k=4 plain"]),
+         b4_err, ms["B4 k=4"], ms["B4 k=4 wrapper"], ms["B4 k=4 plain"]),
     ]
     src = {k: "auvtpu_torch/csrc/window_fill.cu" for k, *_ in rows_}
     rows_ += [
         ("select_rows", "auvtpu/pallas/valid_select.py:79",
          launches_a["select_rows"] + launches_t["select_rows"],
-         sc_err["select_rows"], ms["select_rows alone"], ms["select_rows plain"]),
+         sc_err["select_rows"], ms["select_rows alone"], ms["select_rows wrapper"],
+         ms["select_rows plain"]),
         ("idw_rows", "auvtpu/pallas/valid_select.py:113",
          launches_a["idw_rows"] + launches_t["idw_rows"],
-         sc_err["idw_rows"], ms["idw_rows alone"], ms["idw_rows plain"]),
+         sc_err["idw_rows"], ms["idw_rows alone"], ms["idw_rows wrapper"],
+         ms["idw_rows plain"]),
         ("window_select_fused", "auvtpu/pallas/scattered_select.py:70",
          launches_af["window_select_fused"],
-         sc_err["window_select_fused"], ms["window_select_fused alone"], ms["window_select_fused plain"]),
+         sc_err["window_select_fused"], ms["window_select_fused alone"], ms["window_select_fused wrapper"],
+         ms["window_select_fused plain"]),
     ]
     for k in ("select_rows", "idw_rows", "window_select_fused"):
         src[k] = "auvtpu_torch/csrc/scattered_select.cu"
     rows_.append(("band_resample", "auvtpu/pallas/band_resample.py:43", launches_m["band_resample"],
-                  b8_err, ms["B8 band"], ms["B8 band plain"]))
+                  b8_err, ms["B8 band"], ms["B8 band wrapper"], ms["B8 band plain"]))
     src["band_resample"] = "auvtpu_torch/csrc/band_resample.cu"
     library = {"band_resample": ms["grid_sample"]}  # values only, no resolved mask
     kernels = [
         {"name": k, "route": "cuda", "source": src[k], "replaces": rep, "launches": n,
-         "max_abs_err": err, "ms": t, "plain_ms": tp, "bound_ms": bounds[k][0],
+         "max_abs_err": err, "ms": t, "wrapper_ms": tw, "plain_ms": tp, "bound_ms": bounds[k][0],
          "bound_by": bounds[k][1], "library_ms": library.get(k)}
-        for k, rep, n, err, t, tp in rows_
+        for k, rep, n, err, t, tw, tp in rows_
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

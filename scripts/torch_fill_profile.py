@@ -7,9 +7,14 @@ kriging fill, 20 % for the IDW/mean fills and the slot-index selection; a
 4096x4096 streaming mosaic):
 
 - CUDA-event medians of the pieces of each fused path: the NaN-padded plane
-  the wrappers build, each kernel (B1, B2, B3 idw and mean, B4) launched
-  alone on ready inputs, and its whole wrapper; the variogram fit split into
-  the empirical variogram and the Gauss-Newton loop;
+  the B1, B2 and B4 wrappers build, each kernel launched alone on ready
+  inputs (B3 by its device duration in the profiler's kernel records, back
+  to back and with the L2 cold), and its whole wrapper; the variogram fit
+  split into the empirical variogram and the Gauss-Newton loop;
+- the streaming window refresh (256x256 idw at R=5 on a 4096x4096 mosaic)
+  piece by piece: the whole refresh with its result on the host, the B3
+  kernel alone on the mosaic's window views, the readback, and the device
+  kernels one refresh launches;
 - a torch.profiler table of device time by kernel over a few calls of each
   backend of fill_kriging, of fit_fill, of the Grid B IDW and Kriging
   methods at r0.20 and of a streaming window refresh, with the host-clock time per
@@ -21,10 +26,12 @@ kriging fill, 20 % for the IDW/mean fills and the slot-index selection; a
   share for it and for B6 IDW;
 - band serving at 5M pings of the stand-in (chip_smoke.py's phase 16-17
   workloads: the band weave on one band, the diagonal on the 8-page atlas):
-  the coordinate prologue, the B8 kernel alone, the resampler, the route
-  (coherence), the escalation of the unresolved pings and the whole
-  ``BandRouter.kriging`` call, then the profiler table and the device's idle
-  share of that call.
+  the B8 kernel alone (device duration, back to back and cold, its
+  coordinate prologue included), its wrapper, the resampler on lon/lat (one
+  launch), the torch prologue it replaced (``coords()``: ``_xy``, shift,
+  pad), the route (coherence), the escalation of the unresolved pings and
+  the whole ``BandRouter.kriging`` call, then the profiler table and the
+  device's idle share of that call.
 
 Prints the card's name and power limit beside the numbers.
 """
@@ -42,6 +49,7 @@ import time  # noqa: E402
 import chip_smoke as cs  # noqa: E402
 from auvtpu_torch import entry  # noqa: E402
 from auvtpu_torch.config import Extent  # noqa: E402
+from auvtpu_torch.grid import RegularGrid  # noqa: E402
 from auvtpu_torch.kernels import window_fill as wf  # noqa: E402
 from auvtpu_torch.ops import fill_kriging, kriging_at_cells  # noqa: E402
 from auvtpu_torch.streaming import StreamingInterpolator  # noqa: E402
@@ -141,12 +149,14 @@ def band_breakdown(grid, card, n=cs.N_BAND):
         z, ok = rs.resample(lon, lat)
         bad = torch.nonzero(~ok).reshape(-1)
         print(f"{kind}: window {rs.wr}x{rs.wc}, chunk {kw['chunk']}, {bad.numel()} pings escalate")
-        print(f"{kind:8s} {'B8 kernel alone (back to back)':40s} "
-              f"{cs.time_back_to_back(cs.b8_launcher(args, kw)):9.4f} ms  [{card}]")
+        for cold in (False, True):
+            t = cs.device_ms(cs.b8_launcher(args, kw), "band_resample_", cold=cold)
+            label = f"B8 kernel alone ({'cold' if cold else 'back to back'}, device)"
+            print(f"{kind:8s} {label:40s} {t:9.4f} ms  [{card}]")
         pieces = {
-            "coordinates (_xy, shift, pad)": lambda: rs.coords(lon, lat),
-            "B8 wrapper": lambda: kb.band_resample(*args, **kw),
-            "resample (coordinates + B8)": lambda: rs.resample(lon, lat),
+            "B8 wrapper (one launch)": lambda: kb.band_resample(*args, **kw),
+            "resample (lon/lat, one B8 launch)": lambda: rs.resample(lon, lat),
+            "coords() (the torch prologue B8 took in)": lambda: rs.coords(lon, lat),
             "route (coherence, 1 readback)": lambda: r.route(lon, lat, band_ready=True),
             "kriging (whole call)": lambda: r.kriging(lon, lat),
         }
@@ -186,17 +196,17 @@ def main() -> int:
 
     grid2, rows2, cols2, _ = cs.bench_workload(dev, 0.20)
     nanp2 = wf._nan_padded(grid2, R)
-    wtab = wf._device_weights(R, 2.0, "reference", dev)
     idx_out = torch.empty((5, H, W), device=dev)
-
-    def b3_kernel(kind, k):
-        lib.auvtpu_fill(nanp2.data_ptr(), tab.data_ptr(), wtab.data_ptr(), tab.shape[0], H, W, R,
-                        kind, k, 1e-12, out.data_ptr(), stream)
 
     def b4_kernel():
         lib.auvtpu_topk_idx(nanp2.data_ptr(), tab.data_ptr(), tab.shape[0], H, W, R, 4,
                             idx_out.data_ptr(), stream)
 
+    for label, kind, k in (("B3 idw k=8", 0, 8), ("B3 mean k=4", 1, 4)):
+        for cold in (False, True):
+            t = cs.device_ms(cs.b3_launcher(grid2, kind, k), "fill_tile_kernel", cold=cold)
+            print(f"{label + ' kernel alone (' + ('cold' if cold else 'back to back') + ', device)':44s} "
+                  f"{t:9.4f} ms  [{card}]")
     lags, gamma, counts = empirical_variogram(grid)
     step = 0.5 * (abs(grid.lat_step) + abs(grid.lon_step))
     pieces = {
@@ -205,9 +215,7 @@ def main() -> int:
         "B1 wrapper (fused fill)": lambda: wf.fill_kriging_fused(grid),
         "B2 kernel alone": b2_kernel,
         "B2 wrapper": lambda: wf.topk_full(grid),
-        "B3 idw k=8 kernel alone": lambda: b3_kernel(0, 8),
         "B3 idw k=8 wrapper": lambda: wf.fill_idw_fused(grid2, k=8),
-        "B3 mean k=4 kernel alone": lambda: b3_kernel(1, 4),
         "B3 mean k=4 wrapper": lambda: wf.fill_mean_fused(grid2, k=4),
         "B4 k=4 kernel alone": b4_kernel,
         "B4 k=4 wrapper": lambda: wf.topk_idx(grid2, k=4),
@@ -223,6 +231,20 @@ def main() -> int:
     def refresh():
         tile, _ = si.window_fill(2048, 2048)
         return tile.cpu()
+
+    # the window refresh, piece by piece: one B3 launch on the mosaic's views
+    tile, (r0, c0) = si.window_fill(2048, 2048)
+    view = RegularGrid(si.elev[r0:r0 + 256, c0:c0 + 256], si.valid[r0:r0 + 256, c0:c0 + 256], 0.0, 255.0, 0.0, 255.0)
+    print(f"\nwindow refresh 256x256 idw k={si.k} R={si.max_radius}; device kernels of 20 refreshes "
+          f"(kernel records kept): {cs.device_kernels(refresh)}")
+    for label, t in (
+        ("whole refresh, result on the host (host clock)", cs.time_ms(refresh)),
+        ("B3 alone on the window views (device)", cs.device_ms(cs.b3_launcher(view, 0, si.k, si.max_radius),
+                                                              "fill_tile_kernel")),
+        ("window_fill without the readback (events)", cs.time_ms(lambda: si.window_fill(2048, 2048))),
+        ("readback of the 256x256 tile (events)", cs.time_ms(lambda: tile.cpu())),
+    ):
+        print(f"{label:48s} {t:9.4f} ms  [{card}]")
 
     for label, fn, reps in (
         ("fused", lambda: fill_kriging(grid, backend="fused"), 3),

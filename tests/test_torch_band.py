@@ -279,6 +279,94 @@ def test_weight_families_are_transcribed_literally():
     assert (out["hat"] != out["onehot"]).any()
 
 
+def _pad_last(a, chunk):
+    """The JAX package's pad of a ragged last chunk with the last query."""
+    pad = (-a.shape[0]) % chunk
+    return jnp.concatenate([a, jnp.broadcast_to(a[-1], (pad,))]) if pad else a
+
+
+@pytest.mark.parametrize("n", [1, 255, 1000, 4097])
+@pytest.mark.parametrize("masked", [False, True], ids=["dense", "masked"])
+@pytest.mark.parametrize("lerp_mode", ["onehot", "hat"])
+def test_band_resample_ref_prologue_matches_jax(lerp_mode, masked, n):
+    # the plain version on lon/lat through the prologue (x = (lon - min_lon)
+    # / lon_step - col0) with a ragged last chunk, against JAX's
+    # lonlat_to_xy, band shift, pad with the last query and _band_resample
+    plane, vmask = _band_plane(masked)
+    jg = JGrid.dense(np.zeros((96, 160), np.float32), EXT)
+    g = grid_from_arrays(np.zeros((96, 160), np.float32), np.ones((96, 160), np.float32), jg.min_lon, jg.max_lon,
+                         jg.min_lat, jg.max_lat, "cpu")
+    x, y = (a[:n] for a in _band_coords(max(n, 1024)))
+    lon, lat = _lonlat(96, 160, x.astype(np.float64), y.astype(np.float64) + 30.0)
+    chunk = 64
+    jx, jy = jg.lonlat_to_xy(jnp.asarray(lon), jnp.asarray(lat))
+    kw = dict(chunk=chunk, wr=32, wc=128, masked=masked, lerp_mode=lerp_mode)
+    zj, okj = jb._band_resample(jnp.asarray(plane), jnp.asarray(vmask), _pad_last(jx - 0, chunk),
+                                _pad_last(jy - 30, chunk), **kw)
+    p, vm = torch.from_numpy(plane), torch.from_numpy(vmask)
+    got = kb.band_resample_ref(p[None], vm[None] if masked else None, None, torch.from_numpy(lon),
+                               torch.from_numpy(lat), chunk=chunk, wr=32, wc=128, pick=False,
+                               hat=lerp_mode != "onehot", affine=tb._affine(g, 0, 30))
+    assert got[0].shape == got[1].shape == (n,)
+    _resampled_close(got, (np.asarray(zj)[:n], np.asarray(okj)[:n]))
+    # and bit for bit the torch prologue (_xy, the shift, the pad) followed by
+    # the identity prologue
+    tx, ty = tb._xy(g, lon, lat)
+    tx, ty = tb._pad_to_chunk(tx - 0, ty - 30, chunk)
+    z0, ok0 = kb.band_resample_ref(p[None], vm[None] if masked else None, None, tx, ty, chunk=chunk, wr=32, wc=128,
+                                   pick=False, hat=lerp_mode != "onehot")
+    assert torch.equal(got[1], ok0[:n]) and torch.equal(got[0][got[1]], z0[:n][got[1]])
+
+
+@pytest.mark.parametrize("n", [1, 255, 1000, 1537])
+def test_atlas_resample_ref_prologue_matches_jax(n):
+    # grid-frame prologue (no shift), a ragged last chunk, the page pick
+    K, R, C = 3, 64, 256
+    rng = np.random.default_rng(1)
+    planes = rng.normal(0, 100, (K, R, C)).astype(np.float32)
+    origins = np.array([[0.0, 0.0], [64.0, 200.0], [128.0, 400.0]], np.float32)
+    H, W = 200, 640
+    jg = JGrid.dense(np.zeros((H, W), np.float32), EXT)
+    g = grid_from_arrays(np.zeros((H, W), np.float32), np.ones((H, W), np.float32), jg.min_lon, jg.max_lon,
+                         jg.min_lat, jg.max_lat, "cpu")
+    t = np.linspace(0, 1, n)
+    lon, lat = _lonlat(H, W, 2.0 + t * 600.0, 2.0 + t * 180.0 + 3 * np.sin(t * 25 * np.pi))
+    chunk = 128
+    jx, jy = jg.lonlat_to_xy(jnp.asarray(lon), jnp.asarray(lat))
+    for lerp_mode in ("onehot", "hat"):
+        zj, okj = jb._atlas_resample(jnp.asarray(planes), jnp.asarray(np.ones_like(planes)), jnp.asarray(origins),
+                                     _pad_last(jx, chunk), _pad_last(jy, chunk), chunk=chunk, wr=32, wc=128,
+                                     masked=False, pick=True, lerp_mode=lerp_mode)
+        got = kb.band_resample_ref(torch.from_numpy(planes), None, torch.from_numpy(origins), torch.from_numpy(lon),
+                                   torch.from_numpy(lat), chunk=chunk, wr=32, wc=128, pick=True,
+                                   hat=lerp_mode != "onehot", affine=tb._affine(g))
+        ok = _resampled_close(got, (np.asarray(zj)[:n], np.asarray(okj)[:n]))
+        assert ok.shape == (n,)
+
+
+@pytest.mark.parametrize("n", [1, 255, 513])
+def test_resamplers_take_lonlat_at_any_n(n):
+    # BandResampler/AtlasResampler at one query, a ragged 256-chunk and
+    # chunk + 1, against the JAX package's resamplers
+    jg, g = _dense_pair(96, 160)
+    lon, lat = _trajectory(96, 160, n, row_frac=0.4, row_width_frac=0.05)
+    jband = jb.fill_band(jg, 16, 48, 0, 160, method="idw")
+    band = tb.Band(plane=torch.from_numpy(np.array(jband.plane)), vmask=torch.from_numpy(np.array(jband.vmask)),
+                   masked=False, row0=16, col0=0)
+    rs = tb.BandResampler(g, band, chunk=512, win_rows=32, win_cols=128)
+    got = rs.resample(lon, lat)
+    assert got[0].shape == (n,)
+    _resampled_close(got, jb.BandResampler(jg, jband, chunk=512, win_rows=32, win_cols=128).resample(lon, lat))
+    segs = [(16, 0, 48, 96), (16, 64, 48, 96)]
+    jatlas = jb.build_atlas(jg, segs, method="idw")
+    atlas = tb.BandAtlas(planes=torch.from_numpy(np.array(jatlas.planes)), vmasks=torch.from_numpy(np.array(jatlas.vmasks)),
+                         origins=torch.from_numpy(np.array(jatlas.origins)), masked=bool(jatlas.masked))
+    ra = tb.AtlasResampler(g, atlas, chunk=512, win_rows=32, win_cols=128)
+    got = ra.resample(lon, lat)
+    assert got[0].shape == (n,)
+    _resampled_close(got, jb.AtlasResampler(jg, jatlas, chunk=512, win_rows=32, win_cols=128).resample(lon, lat))
+
+
 def _interp():
     return pltpu.force_tpu_interpret_mode()
 

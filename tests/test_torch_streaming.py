@@ -177,6 +177,30 @@ def test_window_fill_matches_jax(method):
     np.testing.assert_array_equal(got[obs].numpy(), t.elev[origin[0]:origin[0] + 64, origin[1]:origin[1] + 64][obs].numpy())
 
 
+@pytest.mark.parametrize("method", ["idw", "mean"])
+def test_keep_observed_matches_jax_window_planes(method):
+    # B3's keep_observed on the mosaic's window views is the JAX package's
+    # window rule: its fill, then where(valid > 0.5, elev, fill)
+    import jax.numpy as jnp
+    from auvtpu.streaming import _fill_window_planes as j_window_planes
+
+    from auvtpu_torch.grid import RegularGrid
+
+    j, t = _pair(method, k=8)
+    rows, cols, vals = _survey(3, 5000, lo=(30, 40), hi=(130, 150))
+    _ingest_both((j, t), rows, cols, vals)
+    t.flush()
+    r0, c0 = 48, 70
+    we, wv = t.elev[r0:r0 + 64, c0:c0 + 64], t.valid[r0:r0 + 64, c0:c0 + 64]
+    want = j_window_planes(jnp.asarray(we.numpy()), jnp.asarray(wv.numpy()), j._meta, r0, c0, None, method=method,
+                           k=8, max_radius=5, steps=j._steps)
+    fill = wf.fill_idw_fused if method == "idw" else wf.fill_mean_fused
+    got = fill(RegularGrid(we, wv, *t._meta), k=8, max_radius=5, keep_observed=True)
+    _assert_close(got, want, *BARS[method])
+    obs = wv > 0.5
+    assert obs.any() and torch.equal(got[obs], we[obs])
+
+
 def test_window_uncertainty_matches_jax():
     j, t = _pair()
     rows, cols, vals = _survey(6, 3000, lo=(64, 80), hi=(96, 112))

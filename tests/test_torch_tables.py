@@ -110,6 +110,27 @@ def test_synthetic_surfaces_equal():
     np.testing.assert_array_equal(tsyn.sinusoid(33, 47), jsyn.sinusoid(33, 47))
 
 
+def test_step_tensors_are_made_once_and_keep_the_query_dtype():
+    # the 0-d step tensors that query coordinates divide by: rounded to the
+    # dtype, one pair per (dtype, device) and grid; lonlat_to_xy keeps a
+    # float64 query in float64 and a float32 one bit-equal to JAX's
+    g = RegularGrid.dense(tsyn.sinusoid(33, 47), tcfg.KERGUELEN_EXTENT, device="cpu")
+    lon_step, lat_step = g.step_tensors()
+    assert g.step_tensors()[0] is lon_step and lon_step.dtype == torch.float32 and lon_step.ndim == 0
+    assert float(lon_step) == float(np.float32(g.lon_step)) and float(lat_step) == float(np.float32(g.lat_step))
+    assert float(g.step_tensors(torch.float64)[1]) == g.lat_step
+    lons = np.array([74.7, 80.0, 84.7])
+    lats = np.array([-58.0, -55.1, -49.8])
+    x64, y64 = g.lonlat_to_xy(torch.from_numpy(lons), torch.from_numpy(lats))
+    assert x64.dtype == torch.float64
+    np.testing.assert_array_equal(x64.numpy(), (lons - g.min_lon) / g.lon_step)
+    np.testing.assert_array_equal(y64.numpy(), (lats - g.min_lat) / g.lat_step)
+    jg = JGrid.dense(jsyn.sinusoid(33, 47), jcfg.KERGUELEN_EXTENT)
+    for a, b in zip(g.lonlat_to_xy(torch.from_numpy(lons.astype(np.float32)), torch.from_numpy(lats.astype(np.float32))),
+                    jg.lonlat_to_xy(lons.astype(np.float32), lats.astype(np.float32))):
+        np.testing.assert_array_equal(a.numpy(), np.asarray(b))
+
+
 def test_grid_matches_jax_grid():
     elev, _, _ = mask_grid(tsyn.kerguelen_standin((64, 80)), 0.1)
     g = RegularGrid.from_nan_array(elev, tcfg.KERGUELEN_EXTENT, device="cpu")

@@ -17,7 +17,7 @@ from auvtpu.grid import RegularGrid as JGrid
 from auvtpu.masking import mask_grid
 from auvtpu.ops import fill_kriging as j_fill_kriging
 from auvtpu.ops.dense import window_topk_planes as j_window_topk_planes
-from auvtpu.pallas import pallas_fill_kriging, pallas_topk_full
+from auvtpu.pallas import pallas_fill_idw, pallas_fill_kriging, pallas_fill_mean, pallas_topk_full
 from auvtpu.synthetic import shelf_seamount
 from jax.experimental.pallas import tpu as pltpu
 
@@ -113,6 +113,30 @@ def test_fused_options_match_xla(jgrid, tgrid, variant):
         assert (_np(got[1])[~np.isnan(_np(got[1]))] >= 0).all()
     else:
         _assert_plane_close(got, want)
+
+
+@pytest.mark.parametrize("keep_observed", [False, True], ids=["filled", "kept"])
+@pytest.mark.parametrize("kind", ["idw", "mean"])
+def test_b3_plain_on_a_window_view_matches_pallas(jgrid, tgrid, kind, keep_observed):
+    # B3 reads a window of a larger plane as it is (row stride W): its plain
+    # version on the view against the Pallas kernel (interpret mode) on the
+    # same window, observed cells filled or kept (streaming.py:120's where)
+    r0, c0, wh, ww = 20, 12, 48, 40
+    win = RegularGrid(tgrid.elev[r0:r0 + wh, c0:c0 + ww], tgrid.valid[r0:r0 + wh, c0:c0 + ww],
+                      0.0, ww - 1.0, 0.0, wh - 1.0)
+    assert win.elev.stride() == (W, 1) and not win.elev.is_contiguous()
+    jwin = JGrid(elev=jgrid.elev[r0:r0 + wh, c0:c0 + ww], valid=jgrid.valid[r0:r0 + wh, c0:c0 + ww],
+                 min_lon=0.0, max_lon=ww - 1.0, min_lat=0.0, max_lat=wh - 1.0)
+    fused, pallas_fn, k = (wf.fill_idw_fused, pallas_fill_idw, 8) if kind == "idw" else (wf.fill_mean_fused, pallas_fill_mean, 4)
+    with pltpu.force_tpu_interpret_mode():
+        want = np.asarray(pallas_fn(jwin, k=k, max_radius=R))
+    if keep_observed:
+        want = np.where(np.asarray(jwin.valid) > 0.5, np.asarray(jwin.elev), want)
+    got = fused(win, k=k, max_radius=R, keep_observed=keep_observed)
+    assert got.shape == (wh, ww)
+    np.testing.assert_array_equal(np.isnan(_np(got)), np.isnan(want))
+    ok = ~np.isnan(want)
+    np.testing.assert_allclose(_np(got)[ok], want[ok], rtol=1e-5, atol=1e-3)
 
 
 def test_lu_solver_within_bound_of_gj(tgrid):
