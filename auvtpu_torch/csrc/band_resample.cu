@@ -87,6 +87,8 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "exact_div.cuh"
+
 namespace {
 
 constexpr int kThreads = 256;  // the generic kernel's most threads a block
@@ -127,32 +129,6 @@ __device__ __forceinline__ int floordiv(int a, int b) {
 }
 
 __device__ __forceinline__ int clampi(int v, int lo, int hi) { return v < lo ? lo : (v > hi ? hi : v); }
-
-// RN(a / d) for a divisor d shared by every query, from r = RN(1 / d) and no
-// divide: q = RN(a r) lies within 2 ulp of a/d, one FMA correction makes it
-// faithful, and a second gives RN(a / d) (Markstein: a faithful q and r
-// within half an ulp of 1/d; the residual a - q d is exact in an FMA).  That
-// holds while nothing over- or underflows; `exact` turns false for an a
-// outside [2^-90, 2^90] (0, inf and NaN included), which must then take the
-// IEEE division.  The divide it replaces is a subroutine with a range check
-// and a branch.
-__device__ __forceinline__ float quotient(float a, float d, float r, bool& exact) {
-  float q = a * r;
-  float e = fmaf(-q, d, a);
-  q = fmaf(e, r, q);
-  e = fmaf(-q, d, a);
-  q = fmaf(e, r, q);
-  const float m = fabsf(a);
-  exact = exact && m >= 0x1p-90f && m <= 0x1p90f;
-  return q;
-}
-
-// Whether quotient() may divide by d: |d| in [2^-30, 2^30] keeps every
-// quotient of an a in [2^-90, 2^90] and its residuals normal.
-__device__ __forceinline__ bool divisor_ok(float d) {
-  const float m = fabsf(d);
-  return m >= 0x1p-30f && m <= 0x1p30f;
-}
 
 // Step 0 for one coordinate: (u - u0) / du - su, the division by quotient()
 // (r = RN(1 / du), dok = divisor_ok(du)) where that is exact, by IEEE '/'

@@ -20,42 +20,47 @@
 // per-cell rule, so each thread stops as soon as its own cell is full and the
 // answer is the same as the TPU's per-tile early exit.
 //
-// B1, B2 and B4 read one NaN-encoded plane (invalid and out-of-grid cells
-// are NaN) that the wrapper builds, padded by R on every side so no read
-// needs a bounds check.  B3 reads the elevation and validity planes as they
-// are and builds the NaN-encoded halo of each tile in shared memory itself.
-// Slots are written with selects, and B3 adds only the values it takes,
-// never hit * (v - old) or 0 * v arithmetic: 0 * NaN is NaN.
+// B2 and B4 read one NaN-encoded plane (invalid and out-of-grid cells are
+// NaN) that the wrapper builds, padded by R on every side so no read needs a
+// bounds check.  B1 and B3 read the elevation and validity planes as they
+// are and build the NaN-encoded halo of each tile in shared memory
+// themselves (halo_tile.cuh).  Slots are written with selects, and B3 adds
+// only the values it takes, never hit * (v - old) or 0 * v arithmetic:
+// 0 * NaN is NaN.
 //
 // What bounds them on the H100.  With 10-20% of cells masked a scan for 4
 // neighbours reads 4.4-5.0 table rows per cell, one for 8 about 10 (measured
 // at the Kerguelen stand-in).  B2 writes 1+3k planes and B4 1+k: both are
 // bound by the output writes to HBM.  B3 reads two planes, writes one and
 // does a few operations per candidate: it is bound by those bytes.  B1
-// writes one plane (two with the variance) and does ~100 multiply-adds, 21
-// divides (gj), 10 square roots and 10 exps per cell, so it is bound by the
-// throughput of the IEEE divides and transcendentals rather than by memory.
-// B1, B2 and B4 do the simple thing: one thread per cell in 32x8 blocks,
-// reads through the read-only data cache (__ldg) so a warp's 32
-// neighbouring loads of one offset coalesce, the offset table read by all
-// threads of a warp at the same index (a broadcast), all state in registers.
-// B3 (fill_tile_kernel below) takes what they leave: no padded copy (its
-// four extra launches cost about the kernel's time again), the scan's
-// dependent loads served from shared memory, where they were L1/L2 round
-// trips, and several cells a thread so that those loads overlap.  The price
-// is a second plane read (valid beside elev, where the padded copy was one
-// NaN-encoded plane).  Measured on the H100, the halo loads (2.6 reads a
-// cell through L2 at R=10) and the scan's instructions, not DRAM, hold it
-// near four times its bound.  B1, B2 and B4 could take the same loader.
+// writes one plane (two with the variance) and does ~100 multiply-adds, 20
+// divides (gj), 10 square roots and 10 exps per cell: it is bound by the
+// issue of those ~1,000 instructions a cell, not by memory.  B2 and B4 do
+// the simple thing: one thread per cell in 32x8 blocks, reads through the
+// read-only data cache (__ldg) so a warp's 32 neighbouring loads of one
+// offset coalesce, the offset table read by all threads of a warp at the
+// same index (a broadcast), all state in registers.  B3 (fill_tile_kernel) and B1
+// (kriging_fill_kernel) take what they leave: no padded copy (its four
+// extra launches cost about the kernel's time again), the scan's dependent
+// loads served from shared memory, where they were L1/L2 round trips, and
+// several cells a thread so that those loads overlap.  The price is a second
+// plane read (valid beside elev, where the padded copy was one NaN-encoded
+// plane).  For B1, an issue-bound kernel, the halo costs instructions
+// (the load, the table in shared memory) that the padded copy's launches
+// paid for outside it: alone it is slower than the kernel on the padded
+// plane, the call faster (PERF.md).
 
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
+#include "halo_tile.cuh"
+
 namespace {
 
 constexpr int BX = 32;
 constexpr int BY = 8;
+constexpr int KBY = 8;  // B1's warps a block
 
 // First-k-valid scan.  `base` points at the cell's own position in the padded
 // plane; tab[t] = (dx, dy).  Fills slots 0..cnt-1 with the value and the table
@@ -142,51 +147,37 @@ __device__ __forceinline__ float gamma_fn(float h, float nugget, float sill, flo
   return nugget + sill * (1.f - expf(-(hr * hr)));
 }
 
-// par: nugget, sill, range, min_lon, min_lat, lon_step, lat_step, half,
-//      pivot_tol, row0, col0 (window_fill.py:884-891), read on the device so
-//      fitted parameters never travel to the host.
+// The fixed parameters of a B1 launch, by value (window_fill.py:884-891).
+// The variogram's (nugget, sill, range) are read through p_vario where it is
+// not null (fitted parameters: three f32 on the device, which never travel
+// to the host), else taken from vario.
+struct KrigingParams {
+  float min_lon, min_lat, lon_step, lat_step, half, pivot_tol, row0, col0;
+  float vario[3];
+  const float* p_vario[3];
+};
+
+// One cell's kriging inputs: its cnt <= 4 found neighbours (value vz,
+// centre cx, cy in degrees; empty slots hold 0 and the (-R, -R) offset) and
+// the query point.
+struct CellIn {
+  float vz[4], cx[4], cy[4];
+  float qlon, qlat;
+  int cnt;
+};
+
+// The 5x6 ordinary-kriging system of one cell, solved unpivoted with IEEE
+// divisions in the order of ops/scattered.py: the prediction (the neighbour
+// mean where fewer than 4 were found or a pivot fell below pivot_tol) and,
+// with VAR, the variance into var.
 template <int MODEL, int SOLVER, bool VAR>
-__global__ void __launch_bounds__(BX * BY)
-kriging_fill_kernel(const float* __restrict__ nanp, const int2* __restrict__ tab, int m,
-                    int H, int W, int R, const float* __restrict__ par,
-                    float* __restrict__ out) {
-  const int c = blockIdx.x * BX + threadIdx.x;
-  const int r = blockIdx.y * BY + threadIdx.y;
-  if (r >= H || c >= W) return;
-  const int pitch = W + 2 * R;
-  const float* base = nanp + (size_t)(r + R) * pitch + (c + R);
-  float vals[4] = {0.f, 0.f, 0.f, 0.f};
-  int tix[4] = {0, 0, 0, 0};
-  const int cnt = select_first_k<4>(base, pitch, tab, m, 4, vals, tix);
-
-  const float nugget = __ldg(par + 0);
-  const float sill = __ldg(par + 1);
-  const float vrange = __ldg(par + 2);
-  const float min_lon = __ldg(par + 3);
-  const float min_lat = __ldg(par + 4);
-  const float lon_step = __ldg(par + 5);
-  const float lat_step = __ldg(par + 6);
-  const float half = __ldg(par + 7);
-  const float pivot_tol = __ldg(par + 8);
-  const float row0 = __ldg(par + 9);
-  const float col0 = __ldg(par + 10);
-
-  // Absolute f32 degrees first, differences after: the cancellation is part
-  // of the reference answer (integers < 2^24 make col + col0 exact).
-  const float colf = (float)c + col0;
-  const float rowf = (float)r + row0;
-  const float qlon = min_lon + colf * lon_step;
-  const float qlat = min_lat + rowf * lat_step;
-  float cx[4], cy[4], vz[4];
-#pragma unroll
-  for (int s = 0; s < 4; ++s) {
-    const bool live = s < cnt;
-    const int2 o = live ? __ldg(tab + tix[s]) : make_int2(-R, -R);
-    cx[s] = min_lon + ((colf + (float)o.x) + half) * lon_step;
-    cy[s] = min_lat + ((rowf + (float)o.y) + half) * lat_step;
-    vz[s] = live ? vals[s] : 0.f;
-  }
-
+__device__ __forceinline__ float krige_cell(const CellIn& in, float nugget, float sill, float vrange,
+                                            float pivot_tol, float& var) {
+  const float qlon = in.qlon, qlat = in.qlat;
+  const int cnt = in.cnt;
+  const float(&vz)[4] = in.vz;
+  const float(&cx)[4] = in.cx;
+  const float(&cy)[4] = in.cy;
   float M[5][6];
 #pragma unroll
   for (int a = 0; a < 4; ++a) {
@@ -262,22 +253,133 @@ kriging_fill_kernel(const float* __restrict__ nanp, const int2* __restrict__ tab
     }
   }
 
-  const float pred = lam[0] * vz[0] + lam[1] * vz[1] + lam[2] * vz[2] + lam[3] * vz[3];
+  const float pr = lam[0] * vz[0] + lam[1] * vz[1] + lam[2] * vz[2] + lam[3] * vz[3];
   const float fbs = vz[0] + vz[1] + vz[2] + vz[3];
   const float fb = cnt > 0 ? fbs / fmaxf((float)cnt, 1.f) : NAN;
   const bool bail = singular || cnt < 4;
-  const size_t cell = (size_t)r * W + c;
-  out[cell] = bail ? fb : pred;
   if (VAR) {
     // sigma^2 = sum_i w_i gamma_i0 + mu, clamped at 0 (a NaN stays NaN);
     // fallback cells have no defined variance
-    float var = lam[0] * gamma0[0];
-    var = var + lam[1] * gamma0[1];
-    var = var + lam[2] * gamma0[2];
-    var = var + lam[3] * gamma0[3];
-    var = var + lam[4];
-    var = var < 0.f ? 0.f : var;
-    out[(size_t)H * W + cell] = bail ? NAN : var;
+    float v = lam[0] * gamma0[0];
+    v = v + lam[1] * gamma0[1];
+    v = v + lam[2] * gamma0[2];
+    v = v + lam[3] * gamma0[3];
+    v = v + lam[4];
+    v = v < 0.f ? 0.f : v;
+    var = bail ? NAN : v;
+  }
+  return bail ? fb : pr;
+}
+
+// B1: first-4-valid selection and the kriging solve per cell, over a halo
+// tile in shared memory (halo_tile.cuh).  One block of BX x KBY threads
+// fills a BX-column, KBY*CPT-row tile of the output, CPT cells a thread
+// (rows ty, ty + KBY, ...): the CPT scans step through the table together,
+// as B3's do, so their shared loads overlap; then each cell is solved in
+// registers, one copy of the solve for the thread's cells.
+template <int MODEL, int SOLVER, bool VAR, int CPT>
+__global__ void __launch_bounds__(BX * KBY)
+kriging_fill_kernel(const float* __restrict__ elev, int pe, const float* __restrict__ valid, int pv,
+                    const int2* __restrict__ tab, int m, int H, int W, int R, KrigingParams P,
+                    float* __restrict__ out) {
+  extern __shared__ float smem[];
+  constexpr int TH = KBY * CPT;
+  const int tw = BX + 2 * R;
+  const int th = TH + 2 * R;
+  float* tile = smem;
+  // the table as (dx, dy) and as each row's offset within the tile: the
+  // solve reads a slot's offsets here, where a global read would be an L2
+  // round trip at the start of every cell's solve
+  int2* stab = reinterpret_cast<int2*>(tile + ((th * tw + 1) & ~1));
+  int* soff = reinterpret_cast<int*>(stab + m);
+  // each cell's scan result, so that the solve holds one cell's in
+  // registers: 48 of them, five 256-thread blocks an SM
+  constexpr int NT = BX * KBY;
+  unsigned long long* sslots = reinterpret_cast<unsigned long long*>(soff + ((m + 1) & ~1));
+  int* scnt = reinterpret_cast<int*>(sslots + CPT * NT);
+  const int tid = threadIdx.y * BX + threadIdx.x;
+  const int r0 = blockIdx.y * TH;
+  const int c0 = blockIdx.x * BX;
+  const int lane = threadIdx.x;
+  load_halo_tile<BX, KBY, 4>(tile, th, tw, r0, c0, R, elev, pe, valid, pv, H, W);
+  for (int t = threadIdx.y * BX + lane; t < m; t += BX * KBY) {
+    const int2 o = __ldg(tab + t);
+    stab[t] = o;
+    soff[t] = o.y * tw + o.x;
+  }
+  const float nugget = P.p_vario[0] ? __ldg(P.p_vario[0]) : P.vario[0];
+  const float sill = P.p_vario[1] ? __ldg(P.p_vario[1]) : P.vario[1];
+  const float vrange = P.p_vario[2] ? __ldg(P.p_vario[2]) : P.vario[2];
+  const int c = c0 + lane;
+  // a cell's slots as the table rows of its first four valid cells, 16 bits
+  // each (m <= 65535): a shift and an or a find, where a slot array would
+  // take a compare and two selects a slot; the values are read back from
+  // the tile, which stays in place until the block ends
+  int at[CPT], lim[CPT], cnt[CPT];
+  unsigned long long slots[CPT];
+#pragma unroll
+  for (int j = 0; j < CPT; ++j) {
+    const int lr = threadIdx.y + j * KBY;
+    at[j] = (lr + R) * tw + lane + R;
+    lim[j] = (r0 + lr < H && c < W) ? 4 : 0;  // a cell outside the plane scans nothing
+    cnt[j] = 0;
+    slots[j] = 0ull;
+  }
+  __syncthreads();
+
+  // first 4 valid cells in table order
+  for (int t = 0; t < m; ++t) {
+    bool more = false;
+#pragma unroll
+    for (int j = 0; j < CPT; ++j) more = more || cnt[j] < lim[j];
+    if (!more) break;
+    const int so = soff[t];
+#pragma unroll
+    for (int j = 0; j < CPT; ++j) {
+      const float v = tile[at[j] + so];
+      if (cnt[j] < lim[j] && !isnan(v)) {
+        slots[j] |= (unsigned long long)t << (16 * cnt[j]);
+        ++cnt[j];
+      }
+    }
+  }
+
+#pragma unroll
+  for (int j = 0; j < CPT; ++j) {
+    sslots[j * NT + tid] = slots[j];
+    scnt[j * NT + tid] = cnt[j];
+  }
+
+  const size_t plane = (size_t)H * W;
+#pragma unroll 1
+  for (int j = 0; j < CPT; ++j) {
+    const int r = r0 + threadIdx.y + j * KBY;
+    if (r >= H || c >= W) continue;
+    const int cj = scnt[j * NT + tid];
+    const int aj = (threadIdx.y + j * KBY + R) * tw + lane + R;
+    const unsigned long long sj = sslots[j * NT + tid];
+    CellIn in;
+    in.cnt = cj;
+    // Absolute f32 degrees first, differences after: the cancellation is
+    // part of the reference answer (integers < 2^24 make col + col0 exact).
+    const float colf = (float)c + P.col0;
+    const float rowf = (float)r + P.row0;
+    in.qlon = P.min_lon + colf * P.lon_step;
+    in.qlat = P.min_lat + rowf * P.lat_step;
+#pragma unroll
+    for (int s = 0; s < 4; ++s) {
+      const bool live = s < in.cnt;
+      const int ts = (int)((sj >> (16 * s)) & 0xffffu);
+      const int2 o = live ? stab[ts] : make_int2(-R, -R);
+      in.cx[s] = P.min_lon + ((colf + (float)o.x) + P.half) * P.lon_step;
+      in.cy[s] = P.min_lat + ((rowf + (float)o.y) + P.half) * P.lat_step;
+      in.vz[s] = live ? tile[aj + soff[ts]] : 0.f;
+    }
+    float var = 0.f;
+    const float pred = krige_cell<MODEL, SOLVER, VAR>(in, nugget, sill, vrange, P.pivot_tol, var);
+    const size_t cell = (size_t)r * W + c;
+    out[cell] = pred;
+    if (VAR) out[plane + cell] = var;
   }
 }
 
@@ -324,34 +426,7 @@ fill_tile_kernel(const float* __restrict__ elev, int pe, const float* __restrict
   const int c0 = blockIdx.x * FT_W;
   const int lane = threadIdx.x;
 
-  for (int tc0 = 0; tc0 < tw; tc0 += 2 * FT_W) {
-    for (int tr0 = threadIdx.y; tr0 < th; tr0 += FT_TY * FT_ROWS) {
-      float e[FT_ROWS][2], va[FT_ROWS][2];
-#pragma unroll
-      for (int b = 0; b < FT_ROWS; ++b) {
-        const int tr = tr0 + b * FT_TY;
-        const int gr = r0 - R + tr;
-        const bool row_in = tr < th && gr >= 0 && gr < H;
-#pragma unroll
-        for (int h = 0; h < 2; ++h) {
-          const int tc = tc0 + lane + h * FT_W;
-          const int gc = c0 - R + tc;
-          const bool in = row_in && tc < tw && gc >= 0 && gc < W;
-          e[b][h] = in ? __ldg(elev + (size_t)gr * pe + gc) : 0.f;
-          va[b][h] = in ? __ldg(valid + (size_t)gr * pv + gc) : 0.f;
-        }
-      }
-#pragma unroll
-      for (int b = 0; b < FT_ROWS; ++b) {
-        const int tr = tr0 + b * FT_TY;
-#pragma unroll
-        for (int h = 0; h < 2; ++h) {
-          const int tc = tc0 + lane + h * FT_W;
-          if (tr < th && tc < tw) tile[tr * tw + tc] = va[b][h] > 0.5f ? e[b][h] : NAN;
-        }
-      }
-    }
-  }
+  load_halo_tile<FT_W, FT_TY, FT_ROWS>(tile, th, tw, r0, c0, R, elev, pe, valid, pv, H, W);
   for (int t = threadIdx.y * FT_W + lane; t < m; t += FT_THREADS) {
     const int2 o = __ldg(tab + t);
     soff[t] = o.y * tw + o.x;
@@ -430,24 +505,54 @@ int launch_fill(const float* e, int pe, const float* va, int pv, const int2* t, 
 
 dim3 grid_for(int H, int W) { return dim3((W + BX - 1) / BX, (H + BY - 1) / BY); }
 
-template <int MODEL, int SOLVER>
-void launch_kriging(bool var, dim3 g, dim3 b, cudaStream_t st, const float* nanp,
-                    const int2* tab, int m, int H, int W, int R, const float* par,
-                    float* out) {
-  if (var)
-    kriging_fill_kernel<MODEL, SOLVER, true><<<g, b, 0, st>>>(nanp, tab, m, H, W, R, par, out);
-  else
-    kriging_fill_kernel<MODEL, SOLVER, false><<<g, b, 0, st>>>(nanp, tab, m, H, W, R, par, out);
+template <int MODEL, int SOLVER, bool VAR, int CPT>
+int launch_kriging(dim3 g, cudaStream_t st, const float* e, int pe, const float* va, int pv,
+                   const int2* tab, int m, int H, int W, int R, const KrigingParams& par, float* out) {
+  const size_t tsz = (size_t)(KBY * CPT + 2 * R) * (BX + 2 * R);
+  const size_t smem = sizeof(float) * ((tsz + 1) & ~(size_t)1) + 8 * (size_t)m + 4 * (size_t)((m + 1) & ~1) +
+                      12 * (size_t)(CPT * BX * KBY);
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(kriging_fill_kernel<MODEL, SOLVER, VAR, CPT>,
+                                                 cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return (int)err;
+  }
+  kriging_fill_kernel<MODEL, SOLVER, VAR, CPT><<<g, dim3(BX, KBY), smem, st>>>(e, pe, va, pv, tab, m, H, W, R,
+                                                                              par, out);
+  return (int)cudaGetLastError();
 }
 
-template <int MODEL>
-void launch_kriging_solver(int solver, bool var, dim3 g, dim3 b, cudaStream_t st,
-                           const float* nanp, const int2* tab, int m, int H, int W, int R,
-                           const float* par, float* out) {
-  if (solver == kGJ)
-    launch_kriging<MODEL, kGJ>(var, g, b, st, nanp, tab, m, H, W, R, par, out);
-  else
-    launch_kriging<MODEL, kLU>(var, g, b, st, nanp, tab, m, H, W, R, par, out);
+template <int MODEL, int SOLVER, int CPT>
+int launch_kriging_var(bool var, dim3 g, cudaStream_t st, const float* e, int pe, const float* va,
+                       int pv, const int2* tab, int m, int H, int W, int R, const KrigingParams& par,
+                       float* out) {
+  return var ? launch_kriging<MODEL, SOLVER, true, CPT>(g, st, e, pe, va, pv, tab, m, H, W, R, par, out)
+             : launch_kriging<MODEL, SOLVER, false, CPT>(g, st, e, pe, va, pv, tab, m, H, W, R, par, out);
+}
+
+template <int MODEL, int CPT>
+int launch_kriging_solver(int solver, bool var, dim3 g, cudaStream_t st, const float* e, int pe,
+                          const float* va, int pv, const int2* tab, int m, int H, int W, int R,
+                          const KrigingParams& par, float* out) {
+  return solver == kGJ
+             ? launch_kriging_var<MODEL, kGJ, CPT>(var, g, st, e, pe, va, pv, tab, m, H, W, R, par, out)
+             : launch_kriging_var<MODEL, kLU, CPT>(var, g, st, e, pe, va, pv, tab, m, H, W, R, par, out);
+}
+
+template <int CPT>
+int launch_kriging_model(int model, int solver, bool var, cudaStream_t st, const float* e, int pe,
+                         const float* va, int pv, const int2* tab, int m, int H, int W, int R,
+                         const KrigingParams& par, float* out) {
+  const dim3 g((W + BX - 1) / BX, (H + KBY * CPT - 1) / (KBY * CPT));
+  switch (model) {
+    case kExponential:
+      return launch_kriging_solver<kExponential, CPT>(solver, var, g, st, e, pe, va, pv, tab, m, H, W, R, par, out);
+    case kLinear:
+      return launch_kriging_solver<kLinear, CPT>(solver, var, g, st, e, pe, va, pv, tab, m, H, W, R, par, out);
+    case kSpherical:
+      return launch_kriging_solver<kSpherical, CPT>(solver, var, g, st, e, pe, va, pv, tab, m, H, W, R, par, out);
+    default:
+      return launch_kriging_solver<kGaussian, CPT>(solver, var, g, st, e, pe, va, pv, tab, m, H, W, R, par, out);
+  }
 }
 
 }  // namespace
@@ -520,36 +625,51 @@ int auvtpu_fill(const void* elev, int pe, const void* valid, int pv, const void*
                   : launch_fill<kMean, 4>(e, pe, va, pv, t, w, m, H, W, R, k, eps, keep, o, st);
 }
 
-// nanp, tab as above; par: 11 f32 on the device; model 0..3 (exponential,
-// linear, spherical, gaussian); solver 0 = gj, 1 = lu; out: (H, W) f32, or
-// (2, H, W) with the variance plane second.
-int auvtpu_kriging_fill(const void* nanp, const void* tab, int m, int H, int W, int R,
-                        const void* par, int model, int solver, int with_variance, void* out,
-                        void* stream) {
-  if (model < 0 || model > 3 || solver < 0 || solver > 1) return (int)cudaErrorInvalidValue;
-  const dim3 b(BX, BY);
-  const dim3 g = grid_for(H, W);
+// elev, valid: (H, W) f32 planes with unit column stride and row pitches pe,
+// pv (as for auvtpu_fill); tab: (m, 2) int32 (dx, dy), |dx|, |dy| <= R;
+// geo: min_lon, min_lat, lon_step, lat_step, half, pivot_tol, row0, col0 (8
+// f32 on the host, passed by value); vario: nugget, sill, range (3 f32 on
+// the host), each replaced by *p_nugget, *p_sill, *p_range (one f32 on the
+// device) where that pointer is not null; model 0..3 (exponential, linear,
+// spherical, gaussian); solver 0 = gj, 1 = lu;
+// out: (H, W) f32, or (2, H, W) with the variance plane second; contiguous.
+// One kernel launch, nothing else on the stream.
+int auvtpu_kriging_fill(const void* elev, int pe, const void* valid, int pv, const void* tab, int m, int H,
+                        int W, int R, const float* geo, const float* vario, const void* p_nugget,
+                        const void* p_sill, const void* p_range, int model, int solver, int with_variance,
+                        void* out, void* stream) {
+  if (model < 0 || model > 3 || solver < 0 || solver > 1 || R < 0 || m < 1 || m > 65535)
+    return (int)cudaErrorInvalidValue;
+  if (H <= 0 || W <= 0) return (int)cudaSuccess;
+  // four cells a thread (the least halo a cell) where the plane has the
+  // tiles for two blocks an SM, one otherwise: a 256x256 streaming window
+  // gets 256 blocks rather than 64
+  int dev = 0, sms = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  const bool four = (long long)((W + BX - 1) / BX) * ((H + 4 * KBY - 1) / (4 * KBY)) >= 2LL * sms;
+  KrigingParams par;
+  par.min_lon = geo[0];
+  par.min_lat = geo[1];
+  par.lon_step = geo[2];
+  par.lat_step = geo[3];
+  par.half = geo[4];
+  par.pivot_tol = geo[5];
+  par.row0 = geo[6];
+  par.col0 = geo[7];
+  const void* ptrs[3] = {p_nugget, p_sill, p_range};
+  for (int i = 0; i < 3; ++i) {
+    par.vario[i] = vario[i];
+    par.p_vario[i] = (const float*)ptrs[i];
+  }
   cudaStream_t st = (cudaStream_t)stream;
-  const float* p = (const float*)nanp;
+  const float* e = (const float*)elev;
+  const float* va = (const float*)valid;
   const int2* t = (const int2*)tab;
-  const float* pr = (const float*)par;
   float* o = (float*)out;
   const bool var = with_variance != 0;
-  switch (model) {
-    case kExponential:
-      launch_kriging_solver<kExponential>(solver, var, g, b, st, p, t, m, H, W, R, pr, o);
-      break;
-    case kLinear:
-      launch_kriging_solver<kLinear>(solver, var, g, b, st, p, t, m, H, W, R, pr, o);
-      break;
-    case kSpherical:
-      launch_kriging_solver<kSpherical>(solver, var, g, b, st, p, t, m, H, W, R, pr, o);
-      break;
-    default:
-      launch_kriging_solver<kGaussian>(solver, var, g, b, st, p, t, m, H, W, R, pr, o);
-      break;
-  }
-  return (int)cudaGetLastError();
+  return four ? launch_kriging_model<4>(model, solver, var, st, e, pe, va, pv, t, m, H, W, R, par, o)
+              : launch_kriging_model<1>(model, solver, var, st, e, pe, va, pv, t, m, H, W, R, par, o);
 }
 
 const char* auvtpu_error_string(int err) { return cudaGetErrorString((cudaError_t)err); }

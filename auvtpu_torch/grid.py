@@ -11,6 +11,7 @@ row 0 is ``min_lat``, column 0 is ``min_lon``.
 from __future__ import annotations
 
 import dataclasses
+import functools
 
 import numpy as np
 import torch
@@ -23,6 +24,22 @@ def as_dtype(v: float, dtype: torch.dtype) -> float:
     arithmetic on a ``dtype`` tensor sees the value JAX's weak-typed scalar
     becomes."""
     return float(np.float32(v)) if dtype == torch.float32 else float(v)
+
+
+def divisor(v, like: torch.Tensor):
+    """``v`` (a python number or a tensor) as a divisor of the tensor
+    ``like``.  A python scalar dividing a CUDA tensor is a multiply by its
+    rounded reciprocal, which can move a quotient by an ulp from the
+    division JAX computes (and the kernels do); on the card a number becomes
+    a 0-d tensor of ``like``'s dtype, made once per value."""
+    if torch.is_tensor(v) or like.device.type == "cpu":
+        return v
+    return _scalar_tensor(float(v), like.dtype, like.device)
+
+
+@functools.lru_cache(maxsize=64)
+def _scalar_tensor(v: float, dtype: torch.dtype, device: torch.device) -> torch.Tensor:
+    return torch.tensor(v, dtype=dtype, device=device)
 
 
 @dataclasses.dataclass(frozen=True)

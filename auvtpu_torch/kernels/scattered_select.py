@@ -1,17 +1,19 @@
-"""The scattered-query selection kernel (B5, B6, B7) and the B7 wrappers
+"""The scattered-query selection kernels (B5, B6, B7) and the B7 wrappers
 (counterpart of :mod:`auvtpu.pallas.scattered_select`).
 
-One templated CUDA kernel in ``csrc/scattered_select.cu`` replaces three TPU
-kernels: per query it reads the P taps of its centre cell's pack row, takes
-the squared distance to each valid tap and extracts the k nearest by
-min-extract passes (ties to the lowest table index = collection order).
-Its modes:
+Two CUDA kernels in ``csrc/scattered_select.cu`` replace three TPU kernels:
+per query they read the taps of its centre cell's pack row, take the
+squared distance to each valid tap and extract the k nearest by min-extract
+passes (ties to the lowest table index = collection order).  The modes of
+:func:`select`:
 
 - ``"rows_t"`` (B5, ``valid_select.py::_sel_kernel``): (1+2k[+k][+1], N)
   rows [cnt, k vals, (k d2), k codes, (resolved)], dy-major codes; wrappers
   in :mod:`auvtpu_torch.kernels.valid_select`;
 - ``"idw"`` (B6, ``valid_select.py::_idw_kernel``): (2[+1], N) rows
-  [sum w*v, sum w, (resolved)], power-2 weights;
+  [sum w*v, sum w, (resolved)], power-2 weights, in a kernel of its own
+  that scans only the window's real taps and takes them by value (a pack
+  that is not 16-byte aligned takes its scalar loads);
 - ``"rows_n"`` (B7, ``scattered_select.py::_make_select_kernel``): (N, 1+3k)
   rows [cnt, vals, d2s, codes], dx-major codes; wrappers
   :func:`window_select_fused`, :func:`packed_kriging_fused` and
@@ -63,8 +65,10 @@ def _lib() -> ctypes.CDLL:
 
     lib = load("scattered_select")
     P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.auvtpu_scattered_select.argtypes = [P, I, P, P, P, I, I, I, I, F, I, F, F, P, P]
+    lib.auvtpu_scattered_select.argtypes = [P, I, P, P, P, I, I, I, I, F, I, F, P, P]
     lib.auvtpu_scattered_select.restype = I
+    lib.auvtpu_idw_select.argtypes = [P, I, I, P, P, ctypes.POINTER(F), I, I, I, F, F, P, P]
+    lib.auvtpu_idw_select.restype = I
     lib.auvtpu_scattered_error_string.argtypes = [I]
     lib.auvtpu_scattered_error_string.restype = ctypes.c_char_p
     return lib
@@ -79,6 +83,9 @@ def build() -> None:
 # offset tables: (3, P) f32 rows dx, dy, code
 # ---------------------------------------------------------------------------
 
+IDW_M = (9, 16, 25, 49)  # real taps a row B6 is built for: windows of radius 1-3, valid16
+
+
 def table(offs, P: int, R: int, layout: str, device) -> torch.Tensor:
     """(3, P) f32 per-tap (dx, dy, code) on ``device`` for a pack of width P
     holding ``offs`` (dy, dx).
@@ -87,7 +94,8 @@ def table(offs, P: int, R: int, layout: str, device) -> torch.Tensor:
     code (dy+R)*B + (dx+R).  layout 'dx' (B7; scattered_select.py:50-67):
     dead taps carry offset 1e4 and code -1; code (dx+R)*B + (dy+R).  The
     pack holds the sentinel at dead taps, so their entries are never
-    selected."""
+    selected.  The tensor carries its host copy as ``.host``, from which B6
+    takes its taps by value."""
     return _table(tuple(offs), P, R, layout, torch.device(device))
 
 
@@ -99,7 +107,32 @@ def _table(offs: tuple, P: int, R: int, layout: str, device: torch.device) -> to
     for t, (dy, dx) in enumerate(offs):
         tab[0, t], tab[1, t] = dx, dy
         tab[2, t] = (dy + R) * B + (dx + R) if layout == "dy" else (dx + R) * B + (dy + R)
-    return torch.from_numpy(tab).to(device)
+    out = torch.from_numpy(tab).to(device)
+    out.host = tab
+    return out
+
+
+def _idw_taps(tab: torch.Tensor, P: int, half: float):
+    """(M, taps) for B6: the instantiation M that holds the real taps of
+    ``tab`` (layout 'dy') and (dx + half, dy + half) of each of its first M
+    taps as 2*M host float32, exact sums (dx integer, half 0 or 0.5).  The
+    taps come from the host copy a table of :func:`table` carries, or, for
+    another table, from one copy back to the host.  The real taps run to the
+    last with an offset other than (0, 0): dead taps carry (0, 0) and the
+    windows list the centre tap first, so every window of a build size
+    finds its build.  Taps past the real ones are padding, which the pack
+    marks invalid."""
+    host = getattr(tab, "host", None)
+    if host is None:
+        host = tab.detach().cpu().numpy()
+    dx, dy = host[0].astype(np.float32), host[1].astype(np.float32)
+    off = np.flatnonzero((dx != 0) | (dy != 0))
+    n = int(off[-1]) + 1 if off.size else 1
+    M = next((m for m in IDW_M if m >= n and pack_width(m) == P), None)
+    if M is None:
+        raise ValueError(f"idw_rows: no build for {n} taps in rows of {P}; built for {IDW_M}")
+    h32 = np.float32(half)
+    return M, np.ascontiguousarray(np.concatenate([dx[:M] + h32, dy[:M] + h32]), dtype=np.float32)
 
 
 # ---------------------------------------------------------------------------
@@ -148,17 +181,23 @@ def select_ref(pack, P: int, cell, fx, fy, tab, *, mode: str, k: int, emit_d2: b
     for s in range(k):
         m = d2.min(dim=1).values
         got = m < 0.5 * INF
-        idx = torch.where(d2 == m[:, None], iota, P).min(dim=1).values  # lowest index of the min
-        val = torch.where(got, st.gather(1, idx[:, None])[:, 0], zero)
-        d2 = d2.scatter(1, idx[:, None], INF)
+        # the lowest index of the min; P where no tap equals it (a NaN query:
+        # m is NaN), and then the pass takes no slot, as the TPU kernels'
+        # all-zero one-hot takes none
+        idx = torch.where(d2 == m[:, None], iota, P).min(dim=1).values
+        at = idx.clamp(max=P - 1)
+        val = torch.where(got, st.gather(1, at[:, None])[:, 0], zero)
+        d2 = torch.where((iota == idx[:, None]) & got[:, None], INF, d2)
         if mode == "idw":
             w = torch.where(got, 1.0 / (m + eps), zero)
             num = num + w * val
             den = den + w
         else:
             vals.append(val)
-            d2s.append(torch.where(got, m, torch.full_like(m, INF)))
-            codes.append(torch.where(got, tab[2][idx], zero))
+            # B7 writes the pass's minimum as it is (scattered_select.py:100),
+            # B5 INF at an empty slot (valid_select.py:101)
+            d2s.append(m if mode == "rows_n" else torch.where(got, m, torch.full_like(m, INF)))
+            codes.append(torch.where(got, tab[2][at], zero))
         cnt = cnt + got.to(st.dtype)
         if s == k - 1 and resolve_thresh is not None:
             resolved = (got & (m < resolve_thresh)).to(st.dtype)
@@ -196,8 +235,9 @@ def select(pack, P: int, cell, fx, fy, tab, *, mode: str, k: int, emit_d2: bool 
         )
     if not 1 <= k <= P:
         raise ValueError(f"{name}: k={k} outside 1..{P}")
-    if not pack.is_contiguous() or pack.data_ptr() % 16 or pack.numel() % P:
-        raise ValueError(f"{name}: the pack must be contiguous, 16-byte aligned and a whole number of rows")
+    if not pack.is_contiguous() or pack.numel() % P or (pack.data_ptr() % 16 and mode != "idw"):
+        raise ValueError(f"{name}: the pack must be contiguous, a whole number of rows and (but for B6, "
+                         "which takes scalar loads there) 16-byte aligned")
     for t in (cell, fx, fy, tab):
         if t.device != dev:
             raise ValueError(f"{name}: pack on {dev} but an input on {t.device}")
@@ -207,14 +247,22 @@ def select(pack, P: int, cell, fx, fy, tab, *, mode: str, k: int, emit_d2: bool 
         return out
     cell32 = cell.to(torch.int32).contiguous()
     fxy = torch.stack([fx, fy]).contiguous()
-    tab = tab.to(torch.float32).contiguous()
+    thresh = float(resolve_thresh) if resolve_thresh is not None else 0.0
     with torch.cuda.device(dev):
-        err = _lib().auvtpu_scattered_select(
-            pack.data_ptr(), P, cell32.data_ptr(), fxy.data_ptr(), tab.data_ptr(), n, k, code,
-            int(emit_d2), float(half), int(resolve_thresh is not None),
-            float(resolve_thresh) if resolve_thresh is not None else 0.0, float(eps),
-            out.data_ptr(), _stream(dev),
-        )
+        if mode == "idw":
+            M, taps = _idw_taps(tab, P, half)
+            err = _lib().auvtpu_idw_select(
+                pack.data_ptr(), P, M, cell32.data_ptr(), fxy.data_ptr(),
+                taps.ctypes.data_as(ctypes.POINTER(ctypes.c_float)), n, k, int(resolve_thresh is not None),
+                thresh, float(eps), out.data_ptr(), _stream(dev),
+            )
+        else:
+            tab = tab.to(torch.float32).contiguous()
+            err = _lib().auvtpu_scattered_select(
+                pack.data_ptr(), P, cell32.data_ptr(), fxy.data_ptr(), tab.data_ptr(), n, k, code,
+                int(emit_d2), float(half), int(resolve_thresh is not None), thresh,
+                out.data_ptr(), _stream(dev),
+            )
     if err != 0:
         msg = _lib().auvtpu_scattered_error_string(err).decode()
         raise RuntimeError(f"{name}: CUDA launch failed: {msg} ({err})")

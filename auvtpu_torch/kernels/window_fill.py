@@ -14,12 +14,14 @@ Four kernels, all in ``csrc/window_fill.cu``:
   grid's planes as they are (a window view of a larger mosaic included),
   optionally keeping observed cells' own values (``keep_observed``).
 
-B1, B2 and B4 read a NaN-padded copy of the plane that the wrapper builds
-(:func:`_nan_padded`); B3 builds its halo tiles itself.  Each has a plain
-torch version beside it (``<wrapper>_ref``).  A wrapper runs
-the plain version only for a grid on the CPU; for a CUDA grid it launches
-its kernel or raises.  Each launch adds one to ``LAUNCHES[<wrapper name>]``,
-so a run can show that it went through the kernels.
+B2 and B4 read a NaN-padded copy of the plane that the wrapper builds
+(:func:`_nan_padded`); B1 and B3 build their halo tiles themselves, from
+the grid's planes as they are, and a B1 call is one launch and nothing
+else.  Each has a plain torch version beside it (``<wrapper>_ref``).  A
+wrapper runs the plain version only for a grid on the CPU; for a CUDA grid
+it launches its kernel or raises.  Each launch adds one to
+``LAUNCHES[<wrapper name>]``, so a run can show that it went through the
+kernels.
 """
 
 from __future__ import annotations
@@ -72,7 +74,8 @@ def _lib() -> ctypes.CDLL:
     lib.auvtpu_topk_idx.restype = I
     lib.auvtpu_fill.argtypes = [P, I, P, I, P, P, I, I, I, I, I, I, ctypes.c_float, I, P, P]
     lib.auvtpu_fill.restype = I
-    lib.auvtpu_kriging_fill.argtypes = [P, P, I, I, I, I, P, I, I, I, P, P]
+    FP = ctypes.POINTER(ctypes.c_float)
+    lib.auvtpu_kriging_fill.argtypes = [P, I, P, I, P, I, I, I, I, FP, FP, P, P, P, I, I, I, P, P]
     lib.auvtpu_kriging_fill.restype = I
     lib.auvtpu_error_string.argtypes = [I]
     lib.auvtpu_error_string.restype = ctypes.c_char_p
@@ -302,26 +305,33 @@ def fill_kriging_fused_ref(grid: RegularGrid, *, max_radius: int = 10, conventio
     )
 
 
-def _par(grid: RegularGrid, vparams, convention: str, row0, col0, steps, dev) -> torch.Tensor:
-    """The kernel's 11 f32 parameters on ``dev`` (window_fill.py:884-891).
-    Tensor entries (fitted variogram parameters) are copied on the device,
-    never through the host."""
+def _kriging_params(grid: RegularGrid, vparams, convention: str, row0, col0, steps, dev):
+    """B1's parameters for one launch: the 8 fixed ones (min_lon, min_lat,
+    lon_step, lat_step, half, pivot_tol, row0, col0) and the variogram's 3
+    as host float32, passed by value, and for each variogram parameter that
+    is a tensor (fitted parameters, 0-d on the device) its device address,
+    so it never travels to the host.  Returns (geo, vario, pointers, keep):
+    ``keep`` holds the tensors the pointers point into until the launch."""
     cfg = KrigingConfig()
     if vparams is None:
         vparams = (cfg.variogram.nugget, cfg.variogram.sill, cfg.variogram.range)
     lat_step, lon_step = (grid.lat_step, grid.lon_step) if steps is None else steps
     half = 0.5 if convention == "reference" else 0.0
-    vals = [
-        *vparams, grid.min_lon, grid.min_lat, lon_step, lat_step,
-        half, cfg.pivot_tol, row0, col0,
-    ]
-    par = torch.tensor(
-        [0.0 if torch.is_tensor(v) else float(v) for v in vals], dtype=torch.float32
-    ).to(dev)
-    for i, v in enumerate(vals):
+    geo = (ctypes.c_float * 8)(*(float(v) for v in (grid.min_lon, grid.min_lat, lon_step, lat_step, half,
+                                                     cfg.pivot_tol, row0, col0)))
+    vario = (ctypes.c_float * 3)()
+    ptrs, keep = [None] * 3, []
+    for i, v in enumerate(vparams):
         if torch.is_tensor(v):
-            par[i] = v
-    return par
+            if v.numel() != 1:
+                raise ValueError(f"fill_kriging_fused: variogram parameter {i} has {v.numel()} elements, want one")
+            if v.device != dev or v.dtype != torch.float32:
+                v = v.to(dev, torch.float32)  # a copy, where the caller's tensor is not float32 on the card
+            keep.append(v)
+            ptrs[i] = v.data_ptr()
+        else:
+            vario[i] = float(v)
+    return geo, vario, ptrs, keep
 
 
 def fill_kriging_fused(grid: RegularGrid, *, max_radius: int = 10, convention: str = "reference", vparams=None, model: str = "exponential", solver: str = "gj", with_variance: bool = False, row0=0, col0=0, steps=None):
@@ -332,7 +342,10 @@ def fill_kriging_fused(grid: RegularGrid, *, max_radius: int = 10, convention: s
     fell below 1e-12 (NaN where none was found); ``solver`` 'gj' (the
     reference's Gauss-Jordan) or 'lu' (within 1.5e-3 of it);
     ``with_variance`` also returns the variance plane (NaN at fallback
-    cells); row0/col0/steps place a sub-plane in a larger grid."""
+    cells); row0/col0/steps place a sub-plane in a larger grid.  The planes
+    may be views with any row stride, as for :func:`fill_idw_fused`;
+    fitted variogram parameters (0-d tensors on the card) are read there by
+    the kernel."""
     if grid.elev.device.type == "cpu":
         return fill_kriging_fused_ref(
             grid, max_radius=max_radius, convention=convention, vparams=vparams,
@@ -346,17 +359,18 @@ def fill_kriging_fused(grid: RegularGrid, *, max_radius: int = 10, convention: s
         raise ValueError(solver)
     H, W = grid.shape
     R = max_radius
+    pe, pv = _pitch(grid.elev, "fill_kriging_fused"), _pitch(grid.valid, "fill_kriging_fused")
     out = torch.empty((2, H, W) if with_variance else (H, W), dtype=torch.float32, device=dev)
     if H * W > 0:
-        nanp = _nan_padded(grid, R)
         tab = _device_table(R, convention, dev)
-        par = _par(grid, vparams, convention, row0, col0, steps, dev)
+        geo, vario, ptrs, keep = _kriging_params(grid, vparams, convention, row0, col0, steps, dev)
         with torch.cuda.device(dev):
             err = _lib().auvtpu_kriging_fill(
-                nanp.data_ptr(), tab.data_ptr(), tab.shape[0], H, W, R,
-                par.data_ptr(), _MODELS[model], _SOLVERS[solver], int(with_variance),
+                grid.elev.data_ptr(), pe, grid.valid.data_ptr(), pv, tab.data_ptr(), tab.shape[0], H, W, R,
+                geo, vario, *ptrs, _MODELS[model], _SOLVERS[solver], int(with_variance),
                 out.data_ptr(), _stream(dev),
             )
+        del keep
         _raise_on(err, "fill_kriging_fused")
         LAUNCHES["fill_kriging_fused"] += 1
     if with_variance:

@@ -21,7 +21,7 @@ from __future__ import annotations
 import torch
 
 from ..config import IDWConfig, KrigingConfig
-from ..grid import RegularGrid, as_dtype
+from ..grid import RegularGrid, as_dtype, divisor
 from .window import fetch_masked, masked_mean, nan_plane, window_select
 
 
@@ -161,7 +161,7 @@ def variogram(h, params):
     (GridH.cpp:371-376).  ``params`` is (nugget, sill, range): floats or
     0-d tensors (fitted variograms).  No clamp on range."""
     nugget, sill, rng = params
-    return nugget + sill * (1.0 - torch.exp(-h / rng))
+    return nugget + sill * (1.0 - torch.exp(-h / divisor(rng, h)))
 
 
 def krige_solve(qlon, qlat, vals, cx, cy, cfg: KrigingConfig = KrigingConfig(), vparams=None, model: str = "exponential", with_variance: bool = False, solver: str = "gj"):

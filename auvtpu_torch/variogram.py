@@ -21,7 +21,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from .grid import RegularGrid
+from .grid import RegularGrid, divisor
 
 
 @lru_cache(maxsize=8)
@@ -106,7 +106,7 @@ def variogram_model(h, params, model: str = "exponential"):
       gaussian:    gamma = nugget + p1 (1 - e^(-(h/p2)^2))
     """
     nugget, p1, p2 = params
-    p2 = torch.clamp(p2, min=1e-6) if torch.is_tensor(p2) else max(p2, 1e-6)
+    p2 = divisor(torch.clamp(p2, min=1e-6) if torch.is_tensor(p2) else max(p2, 1e-6), h)
     if model == "exponential":
         return nugget + p1 * (1.0 - torch.exp(-h / p2))
     if model == "linear":

@@ -10,18 +10,22 @@ streaming mosaic and scattered queries on the 3200x4000 Grid A, in phases:
 1. device   torch sees a CUDA card; its name and power limit; TF32 off
 2. build    nvcc builds the kernels from csrc/ (seconds, ptxas registers)
 3. B2       selection kernel vs its plain torch version: exactly equal
-4. B1       fused kriging kernel vs its plain version at the bench workload
-            and, on a 256x320 grid, every model, centered, lu, variance and
-            a sub-plane origin: NaN placement equal, rtol=1e-4, atol=0.05;
-            lu vs gj within 1.5e-3 relative
+4. B1       fused kriging kernel vs its plain version, bit for bit, at the
+            bench workload (gj and lu), on a 256x320 grid (every model,
+            both solvers, centered, variance and a sub-plane origin) and on
+            a 1024x2048 window view of the stand-in read in place; lu vs gj
+            within 1.5e-3 relative; a call is one kernel launch and no
+            memory copy (the profiler's device records of 20 calls)
 5. main     fill_kriging(backend="fused") and (backend="select") scored on
             the masked cells: RMSE within 5.7149 +- 2e-3 m
 6. entry    entry.fit_fill: fitted parameters finite and positive, > 99 %
             of masked cells finite, RMSE within 5.7156 +- 2e-3 m.  The launch
             counts, zeroed before phase 5, must show both kernels ran.  B1
-            vs plain again under the fitted parameters.
+            vs plain again under the fitted parameters (bit for bit; read on
+            the device: one launch, no copy)
 7. timing   CUDA events, 3 warm-up calls then the median of 20, kernels and
-            plain versions side by side
+            plain versions side by side; B1 alone by its device duration,
+            back to back and cold
 8. B3, B4   the IDW/mean fill kernel vs its plain version at the stand-in
             r0.20 (IDW k=8, mean k=4), on the 256x320 grid (both
             conventions, R 5 and 10) and on window views of the stand-in
@@ -53,9 +57,10 @@ streaming mosaic and scattered queries on the 3200x4000 Grid A, in phases:
 12. B5-B7   the scattered select kernel vs its plain version on Grid A
             (3200x4000 shelf + seamount, fully valid: valid16 and radius-2
             packs) and on the stand-in r0.10, 1M numpy-seeded queries plus
-            the tie queries each: rows, codes, d2, the resolved row and the
-            IDW sums exactly equal; the kernel paths' predictions vs the
-            torch packed paths at rtol=1e-5, atol=1e-4
+            the tie queries and NaN, +-inf, +-1e30 and out-of-grid ones
+            each: rows, codes, d2, the resolved row and the IDW sums exactly
+            equal (NaN where plain has NaN); the kernel paths' predictions
+            vs the torch packed paths at rtol=1e-5, atol=1e-4
 13. grid A  auvtpu_torch.cli.bench_grid_a on the default grid at 1e3, 1e5,
             1e6 and 5e6 queries (all four methods, --backend auto), then 1e6
             with --backend fused: every validation PASSED (5e-5 x scale);
@@ -68,9 +73,9 @@ streaming mosaic and scattered queries on the 3200x4000 Grid A, in phases:
             bars), the escalated fraction, B5/B6 launched; 4096 queries plus
             escalating hole queries vs GoldenV2 on the stand-in with unit
             steps
-15. timing  the select kernel alone and plain, its wrappers and the torch
-            paths at 1M Grid A queries, two-tier calls, the Grid A steady
-            state per method and batch
+15. timing  the select kernels alone (B6 also cold) and plain, their
+            wrappers and the torch paths at 1M Grid A queries, two-tier
+            calls, the Grid A steady state per method and batch
 16. B8      the band/atlas resample kernel vs its plain version on the
             stand-in r0.10, on lon/lat through the kernel's coordinate
             prologue, with a ragged last chunk: 5M pings of the band weave
@@ -260,6 +265,21 @@ def within_rel(got, want, rtol: float, what: str) -> float:
     return float(rel)
 
 
+def same_planes(got, want, what: str) -> float:
+    """Assert bit-equal values and equal NaN placement (NaN payloads aside);
+    return the largest difference, 0."""
+    import torch
+
+    nan = torch.isnan(want)
+    if not torch.equal(torch.isnan(got), nan):
+        raise AssertionError(f"{what}: NaN placement differs at {int((torch.isnan(got) != nan).sum())} entries")
+    a, b = got[~nan].contiguous(), want[~nan].contiguous()
+    if not torch.equal(a.view(torch.int32), b.view(torch.int32)):
+        raise AssertionError(f"{what}: {int((a != b).sum())} entries differ from plain (max |diff| "
+                             f"{float((a - b).abs().max())})")
+    return 0.0
+
+
 def selection_equal(got, want, what: str) -> None:
     import torch
 
@@ -337,13 +357,13 @@ def device_ms(fn, match: str | None, reps: int = 30, cold: bool = False, attempt
                        f"each of {attempts} sessions")
 
 
-def device_kernels(fn, reps: int = 20, attempts: int = 3) -> dict:
+def device_kernels(fn, reps: int = 20, attempts: int = 3, copies: bool = False) -> dict:
     """{name: records} of the device kernels that ``reps`` calls of ``fn``
     launch, from torch.profiler's kernel records (memory copies and sets are
-    not kernels).  The tracer drops the last records of a session, and now
-    and then all of them: the calls are many, and a session that keeps no
-    kernel record is profiled again, up to ``attempts`` times; raises where
-    none keeps one."""
+    not kernels; ``copies`` counts their records too).  The tracer drops the
+    last records of a session, and now and then all of them: the calls are
+    many, and a session that keeps no kernel record is profiled again, up to
+    ``attempts`` times; raises where none keeps one."""
     import collections
 
     import torch
@@ -357,17 +377,18 @@ def device_kernels(fn, reps: int = 20, attempts: int = 3) -> dict:
                 fn()
             torch.cuda.synchronize()
         names = collections.Counter(e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA
-                                    and not e.name.lower().startswith(("memcpy", "memset")))
-        if names:
+                                    and (copies or not e.name.lower().startswith(("memcpy", "memset"))))
+        if any(not n.lower().startswith(("memcpy", "memset")) for n in names):
             return dict(names)
     raise RuntimeError(f"the profiler kept no kernel record of {reps} calls in {attempts} sessions")
 
 
-def only_kernel(fn, match: str, what: str, reps: int = 20) -> dict:
+def only_kernel(fn, match: str, what: str, reps: int = 20, copies: bool = False) -> dict:
     """Check that ``fn`` runs one device kernel, the one whose name holds
     ``match``, at most once a call: every kernel record of ``reps`` calls
-    is that kernel's.  Returns {name: records kept}."""
-    names = device_kernels(fn, reps)
+    is that kernel's (with ``copies``, and no memory copy or set runs on the
+    device either).  Returns {name: records kept}."""
+    names = device_kernels(fn, reps, copies=copies)
     if any(match not in name for name in names) or sum(names.values()) > reps:
         raise AssertionError(f"{what}: device kernels of {reps} calls {names}, want {match} alone, once a call")
     return names
@@ -424,6 +445,76 @@ def b3_launcher(grid, kind: int, k: int, R: int = 10, lib=None):
             raise RuntimeError(f"B3 launch failed ({err})")
 
     return launch
+
+
+def b1_launcher(grid, R: int = 10, lib=None, vparams=None):
+    """A closure launching B1 (exponential, gj, no variance) on ``grid``
+    straight through its library (``lib``, or the checkout's), output
+    allocated once (the kernel alone)."""
+    import torch
+
+    from auvtpu_torch.kernels import window_fill as wf
+
+    H, W = grid.shape
+    dev = grid.device
+    tab = wf._device_table(R, "reference", dev)
+    geo, vario, ptrs, keep = wf._kriging_params(grid, vparams, "reference", 0, 0, None, dev)
+    out = torch.empty((H, W), dtype=torch.float32, device=dev)
+    lib, stream = lib or wf._lib(), wf._stream(dev)
+
+    def launch():
+        err = lib.auvtpu_kriging_fill(grid.elev.data_ptr(), grid.elev.stride(0), grid.valid.data_ptr(),
+                                      grid.valid.stride(0), tab.data_ptr(), tab.shape[0], H, W, R, geo, vario,
+                                      *ptrs, 0, 0, 0, out.data_ptr(), stream)
+        if err:
+            raise RuntimeError(f"B1 launch failed ({err})")
+
+    launch.keep = keep
+    return launch
+
+
+def b6_launcher(pack, P: int, cell, fx, fy, tab, k: int, half: float = 0.5, lib=None):
+    """A closure launching B6 straight through its library (``lib``, or the
+    checkout's) on these inputs, output allocated once (the kernel alone)."""
+    import ctypes
+
+    import torch
+
+    from auvtpu_torch.config import IDWConfig
+    from auvtpu_torch.kernels import scattered_select as ss
+
+    n = cell.numel()
+    cell32 = cell.to(torch.int32).contiguous()
+    fxy = torch.stack([fx, fy]).contiguous()
+    M, taps = ss._idw_taps(tab, P, half)
+    out = torch.empty((2, n), dtype=torch.float32, device=pack.device)
+    lib, stream = lib or ss._lib(), ss._stream(pack.device)
+    tp_ = taps.ctypes.data_as(ctypes.POINTER(ctypes.c_float))
+
+    def launch():
+        err = lib.auvtpu_idw_select(pack.data_ptr(), P, M, cell32.data_ptr(), fxy.data_ptr(), tp_, n, k, 0, 0.0,
+                                    IDWConfig(k=k).eps, out.data_ptr(), stream)
+        if err:
+            raise RuntimeError(f"B6 launch failed ({err})")
+
+    launch.keep = (taps, cell32, fxy)
+    return launch
+
+
+def odd_queries(ext, H: int, W: int, device):
+    """Queries at NaN, +-inf and +-1e30 coordinates on either axis, and just
+    outside the grid, on this extent: float32 tensors."""
+    import torch
+
+    nan, inf = float("nan"), float("inf")
+    lon_in = ext.min_lon + 0.4 * (ext.max_lon - ext.min_lon)
+    lat_in = ext.min_lat + 0.6 * (ext.max_lat - ext.min_lat)
+    lo_out, la_out = ext.min_lon - 3 * (ext.max_lon - ext.min_lon) / (W - 1), ext.max_lat + 2 * (
+        ext.max_lat - ext.min_lat) / (H - 1)
+    lons = [nan, lon_in, nan, inf, -inf, lon_in, lon_in, 1e30, -1e30, lon_in, lo_out, lon_in]
+    lats = [lat_in, nan, nan, lat_in, lat_in, inf, -inf, lat_in, lat_in, -1e30, lat_in, la_out]
+    return (torch.tensor(lons, dtype=torch.float32, device=device),
+            torch.tensor(lats, dtype=torch.float32, device=device))
 
 
 def bound(nbytes: float, ops: float) -> tuple[float, str]:
@@ -739,6 +830,7 @@ def main() -> int:
         return 1
     sys.path.insert(0, REPO)
     from auvtpu_torch import entry
+    from auvtpu_torch.grid import RegularGrid
     from auvtpu_torch.kernels import build as kbuild
     from auvtpu_torch.kernels import window_fill as wf
     from auvtpu_torch.ops import fill_kriging, krige_planes
@@ -787,26 +879,40 @@ def main() -> int:
         f"cells with 4 found: {float((sel_k[0] == 4).float().mean()):.6f}")
     del sel_k, sel_p
 
-    # ---- 4. B1 vs plain
+    # ---- 4. B1 vs plain (bit for bit), and one launch a call
     plane_k = wf.fill_kriging_fused(grid)
     plane_p = wf.fill_kriging_fused_ref(grid)
-    b1_err = close_planes(plane_k, plane_p, "B1 vs plain, bench")
-    lu_rel = within_rel(wf.fill_kriging_fused(grid, solver="lu"), plane_k, LU_RTOL, "B1 lu vs gj, bench")
-    say("B1", f"bench: max |kernel - plain| {b1_err:.6g} m; lu vs gj max rel {lu_rel:.3g}")
-    del plane_p
+    b1_err = same_planes(plane_k, plane_p, "B1 vs plain, bench")
+    lu_k = wf.fill_kriging_fused(grid, solver="lu")
+    b1_err = max(b1_err, same_planes(lu_k, wf.fill_kriging_fused_ref(grid, solver="lu"), "B1 lu vs plain, bench"))
+    lu_rel = within_rel(lu_k, plane_k, LU_RTOL, "B1 lu vs gj, bench")
+    say("B1", f"bench: gj and lu bit-equal to plain; lu vs gj max rel {lu_rel:.3g}")
+    del plane_p, lu_k
+    seen = only_kernel(lambda: wf.fill_kriging_fused(grid), "kriging_fill_kernel", "B1 call", copies=True)
+    say("B1", f"one kernel launch a call and no memory copy; the device records of 20 calls the profiler "
+        f"kept: {seen}")
     sg = small_grid(dev)
     for model, vp in MODEL_VPARAMS.items():
-        kw = dict(model=model, vparams=vp, convention="centered", with_variance=True,
-                  row0=17, col0=29, steps=(0.8, 0.6))
-        pk, vk = wf.fill_kriging_fused(sg, solver="lu", **kw)
-        pp, vpl = wf.fill_kriging_fused_ref(sg, solver="lu", **kw)
-        e_p = close_planes(pk, pp, f"B1 vs plain, {model}")
-        e_v = close_planes(vk, vpl, f"B1 variance vs plain, {model}")
-        b1_err = max(b1_err, e_p)
-        gj, _ = wf.fill_kriging_fused(sg, solver="gj", **kw)
-        rel = within_rel(pk, gj, LU_RTOL, f"B1 lu vs gj, {model}")
-        say("B1", f"256x320 {model:11s} centered lu variance row0/col0/steps: max |diff| "
-            f"plane {e_p:.3g} var {e_v:.3g}; lu vs gj rel {rel:.3g}")
+        for solver in ("gj", "lu"):
+            kw = dict(model=model, vparams=vp, convention="centered", with_variance=True,
+                      row0=17, col0=29, steps=(0.8, 0.6), solver=solver)
+            pk, vk = wf.fill_kriging_fused(sg, **kw)
+            pp, vpl = wf.fill_kriging_fused_ref(sg, **kw)
+            same_planes(pk, pp, f"B1 vs plain, {model} {solver}")
+            same_planes(vk, vpl, f"B1 variance vs plain, {model} {solver}")
+            if solver == "lu":
+                rel = within_rel(pk, gj, LU_RTOL, f"B1 lu vs gj, {model}")
+            gj = pk
+        say("B1", f"256x320 {model:11s} centered, variance, row0/col0/steps: gj and lu, plane and variance "
+            f"bit-equal to plain; lu vs gj rel {rel:.3g}")
+    # a 1024x2048 window view of the stand-in (row stride 2441), read in place
+    gw = RegularGrid(grid.elev[600:1624, 200:2248], grid.valid[600:1624, 200:2248], grid.min_lon, grid.max_lon,
+                     grid.min_lat, grid.max_lat)
+    same_planes(wf.fill_kriging_fused(gw, row0=600, col0=200, steps=(grid.lat_step, grid.lon_step)),
+                wf.fill_kriging_fused_ref(gw, row0=600, col0=200, steps=(grid.lat_step, grid.lon_step)),
+                "B1 vs plain, window view")
+    say("B1", f"1024x2048 window view (row stride {gw.elev.stride(0)}) at (600, 200): bit-equal to plain")
+    del gw
 
     # ---- 5. main path (launch counts from here to the end of phase 6)
     wf.reset_launches()
@@ -837,16 +943,20 @@ def main() -> int:
     for k in ("fill_kriging_fused", "topk_full"):
         if launches[k] < 1:
             raise AssertionError(f"kernel {k} was not launched on the main path")
-    e_fit = close_planes(wf.fill_kriging_fused(grid, vparams=vparams),
-                         wf.fill_kriging_fused_ref(grid, vparams=vparams), "B1 vs plain, fitted")
+    e_fit = same_planes(wf.fill_kriging_fused(grid, vparams=vparams),
+                        wf.fill_kriging_fused_ref(grid, vparams=vparams), "B1 vs plain, fitted")
     b1_err = max(b1_err, e_fit)
-    say("entry", f"B1 vs plain under the fitted parameters: max |diff| {e_fit:.6g} m")
+    seen = only_kernel(lambda: wf.fill_kriging_fused(grid, vparams=vparams), "kriging_fill_kernel",
+                       "B1 call, fitted parameters", copies=True)
+    say("entry", f"B1 vs plain under the fitted parameters (read on the device): bit-equal; one kernel launch "
+        f"a call and no memory copy, device records of 20 calls kept: {seen}")
 
     # ---- 7. timing
     sel = wf.topk_full(grid, k=4, max_radius=10)
     ms = {
         "fused (B1)": time_ms(lambda: fill_kriging(grid, backend="fused")),
-        "B1 kernel alone": device_ms(lambda: wf.fill_kriging_fused(grid), "kriging_fill_kernel"),
+        "B1 kernel alone": device_ms(b1_launcher(grid), "kriging_fill_kernel"),
+        "B1 kernel alone cold": device_ms(b1_launcher(grid), "kriging_fill_kernel", cold=True),
         "B1 wrapper": time_ms(lambda: wf.fill_kriging_fused(grid)),
         "B1 plain": time_ms(lambda: wf.fill_kriging_fused_ref(grid)),
         "select (B2 + torch solve)": time_ms(lambda: fill_kriging(grid, backend="select")),
@@ -1131,19 +1241,21 @@ def main() -> int:
     qK = scattered_queries(KERGUELEN_EXTENT, *SHAPE, N_SCATTER, 8, dev)
     p16 = tp.build_valid16_pack(gA)
     sc_err = {"select_rows": 0.0, "idw_rows": 0.0, "window_select_fused": 0.0}
-    for label, g, (lo, la), p16_ in (("Grid A", gA, qA, p16), ("stand-in r0.10", grid, qK, None)):
+    for label, g, (lo, la), p16_, ext, shape in (("Grid A", gA, qA, p16, GRID_A_EXTENT, GRID_A_SHAPE),
+                                                 ("stand-in r0.10", grid, qK, None, KERGUELEN_EXTENT, SHAPE)):
         win, cases = select_cases(g, p16_)
-        _, _, _, _, _, cell, fx, fy = ss.prologue(g, lo, la)
+        # the phase's queries and, for the kernels alone, NaN/inf/1e30 and
+        # out-of-grid ones (on a NaN query no slot is taken; B7's d2 row is NaN)
+        odd = odd_queries(ext, *shape, dev)
+        _, _, _, _, _, cell, fx, fy = ss.prologue(g, torch.cat([lo, odd[0]]), torch.cat([la, odd[1]]))
         for kname, pack, P, offs, mode, layout, kw in cases:
             tab = ss.table(offs, P, 2, layout, dev)
             a = ss.select(pack, P, cell, fx, fy, tab, mode=mode, **kw)
             b = ss.select_ref(pack, P, cell, fx, fy, tab, mode=mode, **kw)
             torch.cuda.synchronize()
-            if not torch.equal(a, b):
-                raise AssertionError(f"{kname} {mode} {kw} at {label}: kernel differs from plain at "
-                                     f"{int((a != b).sum())} entries")
-            sc_err[kname] = max(sc_err[kname], float((a - b).abs().max()))
-            say("B5-B7", f"{label} P={P} {kname} ({mode}, {kw}): {tuple(a.shape)} exactly equal to plain")
+            sc_err[kname] = max(sc_err[kname], same_planes(a, b, f"{kname} {mode} {kw} at {label}"))
+            say("B5-B7", f"{label} P={P} {kname} ({mode}, {kw}): {tuple(a.shape)} exactly equal to plain, "
+                f"{odd[0].numel()} NaN/inf/1e30/out-of-grid queries included")
         pairs = [
             ("B5 packed_kriging_t", vs.packed_kriging_t(win, g, lo, la), tp.packed_kriging(win, g, lo, la)),
             ("B6 packed_idw_t", vs.packed_idw_t(win, g, lo, la), tp.packed_idw(win, g, lo, la)),
@@ -1275,9 +1387,13 @@ def main() -> int:
     }
     for kname, (pk, P, c_, x_, y_, t_, kw) in sel_args.items():
         ms[f"{kname} alone"] = device_ms(lambda: ss.select(pk, P, c_, x_, y_, t_, **kw), "select_kernel")
+        if kname == "idw_rows":
+            ms["idw_rows alone cold"] = device_ms(b6_launcher(pk, P, c_, x_, y_, t_, kw["k"]), "idw_select_kernel",
+                                                  cold=True)
         ms[f"{kname} wrapper"] = time_ms(lambda: ss.select(pk, P, c_, x_, y_, t_, **kw))
         ms[f"{kname} plain"] = time_ms(lambda: ss.select_ref(pk, P, c_, x_, y_, t_, **kw), reps=5)
-        say("timing", f"Grid A {N_SCATTER} queries {kname:20s} kernel alone {ms[kname + ' alone']:.4f} ms, "
+        cold = f" ({ms['idw_rows alone cold']:.4f} cold)" if kname == "idw_rows" else ""
+        say("timing", f"Grid A {N_SCATTER} queries {kname:20s} kernel alone {ms[kname + ' alone']:.4f} ms{cold}, "
             f"wrapper {ms[kname + ' wrapper']:.4f} ms, plain {ms[kname + ' plain']:.4f} ms  [{card}]")
     wrappers = {
         "kriging_valid_t (B5)": lambda: vs.kriging_valid_t(p16, gA, *qA),
@@ -1576,7 +1692,8 @@ def main() -> int:
     nq = float(cellA.numel())
     bounds.update({
         "select_rows": bound(nq * (16 * 4 + 12 + (1 + 2 * 4) * 4), nq * (8 * 16 + 2 * 4 * 16)),
-        "idw_rows": bound(nq * (32 * 4 + 12 + 2 * 4), nq * (8 * 32 + 2 * 8 * 32 + 4 * 8)),
+        # B6 reads 25 taps of each 32-float row: 112 B, four 32-byte sectors
+        "idw_rows": bound(nq * (32 * 4 + 12 + 2 * 4), nq * (8 * 25 + 2 * 8 * 25 + 4 * 8)),
         "window_select_fused": bound(nq * (32 * 4 + 12 + (1 + 3 * 4) * 4), nq * (8 * 32 + 2 * 4 * 32)),
     })
     # B8, per ping of the band weave: lon and lat read, z and ok written; the

@@ -1,5 +1,5 @@
-"""B3 and B8 of this checkout against another version of their sources, on
-one NVIDIA GPU.
+"""B1, B3, B5, B6, B7 and B8 of this checkout against another version of
+their sources, on one NVIDIA GPU.
 
 Run from the root of a checkout:
 
@@ -7,29 +7,36 @@ Run from the root of a checkout:
 
 where DIR holds the other version (``git archive <commit> auvtpu_torch/csrc
 | tar -x -C DIR``, into a directory .gitignore lists).  Its
-``csrc/window_fill.cu`` and ``csrc/band_resample.cu`` are built with the
-same nvcc flags and called through their C interfaces.  The script knows
-two interfaces and reads which one the other version has from its sources:
-this checkout's, and the earlier one of commit 9ff8bad and before (B3 on a
-NaN-padded plane, B8 on band-frame coordinates padded to whole chunks, as
-that version's wrappers fed them).  Any other interface stops it before a
-launch.
+``csrc/window_fill.cu``, ``csrc/scattered_select.cu`` and
+``csrc/band_resample.cu`` are built with the same nvcc flags and called
+through their C interfaces.  The script knows three interfaces and reads
+which one the other version has from its sources: this checkout's; commit
+91269b4's (B1 on a NaN-padded plane with its parameters in a device tensor,
+B6 as mode 1 of ``auvtpu_scattered_select``, which then took an eps); and
+commit 9ff8bad's and before (also B3 on a NaN-padded plane, B8 on band-frame
+coordinates padded to whole chunks, as that version's wrappers fed them).
+Any other interface stops it before a launch.
 
-The inputs are chip_smoke.py's: the Kerguelen stand-in r0.20 (B3 idw k=8
-and mean k=4 at R=10, a 256x256 window view at R=5 as the streaming refresh
-reads it) and the 5M-ping band weave on the B1-filled band of the stand-in
-r0.10 (B8 with hat weights and the default window, at chunks 2048 and 512).
-Each kernel is timed by its device duration in the profiler's kernel
-records (CUPTI), so no host time enters: back to back (inputs warm in the
-L2) and cold (a 128 MB write before each launch), in the order other,
-this, this, other.  Prints the card's name and power limit beside the
-numbers.
+The inputs are chip_smoke.py's: the Kerguelen stand-in r0.10 (B1,
+exponential, gj, R=10) and r0.20 (B3 idw k=8 and mean k=4 at R=10; a
+256x256 window view as the streaming refresh reads it, B3 idw k=8 at R=5,
+B1 at R=5 and R=10); 1M queries on Grid A (B5 valid16 k=4, B6 radius 2 k=8, B7 radius
+2 k=4); the 5M-ping band weave on the B1-filled band of the stand-in r0.10
+(B8 with hat weights and the default window, at chunks 2048 and 512).  Each
+kernel is timed by its device duration in the profiler's kernel records
+(CUPTI), so no host time enters: back to back (inputs warm in the L2) and
+cold (a 128 MB write before each launch), in the order other, this, this,
+other.  Then the static SASS instruction mix (``cuobjdump -sass``) of the
+timed kernels of both versions, by class.  Prints the card's name and power
+limit beside the numbers.
 """
 
 import argparse
+import collections
 import ctypes
 import os
 import re
+import shutil
 import subprocess
 import sys
 
@@ -39,76 +46,188 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, ROOT)
 
 import chip_smoke as cs  # noqa: E402
+from auvtpu_torch.config import GRID_A_EXTENT, GRID_A_SHAPE, IDWConfig  # noqa: E402
 from auvtpu_torch.grid import RegularGrid  # noqa: E402
 from auvtpu_torch.kernels import band_resample as kb  # noqa: E402
 from auvtpu_torch.kernels import build as kbuild  # noqa: E402
+from auvtpu_torch.kernels import scattered_select as ss  # noqa: E402
 from auvtpu_torch.kernels import window_fill as wf  # noqa: E402
 from auvtpu_torch.ops import band as tband  # noqa: E402
+from auvtpu_torch.ops import packs as tp  # noqa: E402
+from auvtpu_torch.synthetic import shelf_seamount  # noqa: E402
 
 P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-# the earlier interface: the parameter lists of auvtpu_fill and
-# auvtpu_band_resample at commit 9ff8bad, and their ctypes argument types
+# the earlier interfaces: {C function: {commit: (parameter list, ctypes argument types)}}
 EARLIER = {
-    "auvtpu_fill": ("const void* nanp, const void* tab, const void* wtab, int m, int H, int W, int R, int kind, "
-                    "int k, float eps, void* out, void* stream", [P, P, P, I, I, I, I, I, I, F, P, P]),
-    "auvtpu_band_resample": (
+    "auvtpu_fill": {"9ff8bad": (
+        "const void* nanp, const void* tab, const void* wtab, int m, int H, int W, int R, int kind, "
+        "int k, float eps, void* out, void* stream", [P, P, P, I, I, I, I, I, I, F, P, P])},
+    "auvtpu_band_resample": {"9ff8bad": (
         "const void* planes, const void* vmasks, const void* origins, int K, int R, int C, const void* x, "
         "const void* y, int n, int chunk, int wh, int ww, int ar, int ac, int lim_r, int lim_c, int masked, "
         "int pick, int hat, float thresh, void* z, void* ok, void* stream",
-        [P, P, P, I, I, I, P, P, I, I, I, I, I, I, I, I, I, I, I, F, P, P, P]),
+        [P, P, P, I, I, I, P, P, I, I, I, I, I, I, I, I, I, I, I, F, P, P, P])},
+    "auvtpu_kriging_fill": {"91269b4": (
+        "const void* nanp, const void* tab, int m, int H, int W, int R, const void* par, int model, int solver, "
+        "int with_variance, void* out, void* stream", [P, P, I, I, I, I, P, I, I, I, P, P])},
+    "auvtpu_scattered_select": {"91269b4": (
+        "const void* pack, int P, const void* cell, const void* fxy, const void* tab, int n, int k, int mode, "
+        "int emit_d2, float half, int has_resolve, float resolve_thresh, float eps, void* out, void* stream",
+        [P, I, P, P, P, I, I, I, I, F, I, F, F, P, P])},
 }
+THIS_LIB = {"window_fill": wf._lib, "scattered_select": ss._lib, "band_resample": kb._lib}
 
 
-def signature(src: str, fn: str) -> str:
+def signature(src: str, fn: str) -> str | None:
     """The parameter list of ``fn`` in the C source ``src``, whitespace
-    normalised."""
+    normalised; None where the source has no such function."""
     m = re.search(rf"\bint {fn}\(([^)]*)\)", open(src).read())
-    if m is None:
-        raise SystemExit(f"{src}: no 'int {fn}(...)'")
-    return " ".join(m.group(1).split())
+    return None if m is None else " ".join(m.group(1).split())
 
 
-def build_other(parent: str, name: str, fn: str) -> tuple[ctypes.CDLL, bool]:
-    """The other version's library and whether it has the earlier interface
-    (False: this checkout's)."""
+def build_other(parent: str, name: str) -> tuple[ctypes.CDLL, str]:
+    """The other version's library of ``csrc/<name>.cu`` and its path."""
     src = os.path.join(parent, "auvtpu_torch", "csrc", f"{name}.cu")
-    sig = signature(src, fn)
-    earlier = sig == EARLIER[fn][0]
-    if not earlier and sig != signature(os.path.join(kbuild.CSRC, f"{name}.cu"), fn):
-        raise SystemExit(f"{src}: {fn}({sig}) is neither this checkout's interface nor the earlier one")
     out = os.path.join(kbuild.BUILD_DIR, f"other_{name}.so")
     os.makedirs(kbuild.BUILD_DIR, exist_ok=True)
     subprocess.run([kbuild.nvcc_path(), *kbuild.NVCC_FLAGS, "-o", out, src], check=True, capture_output=True)
-    lib = ctypes.CDLL(out)
-    getattr(lib, fn).argtypes = EARLIER[fn][1] if earlier else getattr(kb._lib() if name == "band_resample"
-                                                                       else wf._lib(), fn).argtypes
-    return lib, earlier
+    return ctypes.CDLL(out), out
+
+
+def interface(parent: str, name: str, lib: ctypes.CDLL, fn: str) -> str | None:
+    """Which interface the other version's ``fn`` has: "this", a commit of
+    EARLIER, or None where it has no ``fn``; sets its argument types.  Stops
+    on any other interface."""
+    sig = signature(os.path.join(parent, "auvtpu_torch", "csrc", f"{name}.cu"), fn)
+    if sig is None:
+        return None
+    if sig == signature(os.path.join(kbuild.CSRC, f"{name}.cu"), fn):
+        getattr(lib, fn).argtypes = getattr(THIS_LIB[name](), fn).argtypes
+        return "this"
+    for commit, (known, argtypes) in EARLIER.get(fn, {}).items():
+        if sig == known:
+            getattr(lib, fn).argtypes = argtypes
+            return commit
+    raise SystemExit(f"{parent}: {fn}({sig}) is neither this checkout's interface nor a known earlier one")
+
+
+def b1_earlier(lib, grid, R: int, stream):
+    """B1 of 91269b4: the NaN-padded plane and the 11 parameters on the
+    device, made once here (that version's wrapper made them each call)."""
+    H, W = grid.shape
+    tab = wf._device_table(R, "reference", grid.device)
+    nanp = torch.full((H + 2 * R, W + 2 * R), float("nan"), device=grid.device)
+    nanp[R:R + H, R:R + W] = torch.where(grid.valid > 0.5, grid.elev, float("nan"))
+    par = torch.tensor([1.0, 100.0, 10.0, grid.min_lon, grid.min_lat, grid.lon_step, grid.lat_step, 0.5, 1e-12,
+                        0.0, 0.0], dtype=torch.float32, device=grid.device)
+    out = torch.empty((H, W), device=grid.device)
+
+    def launch():
+        lib.auvtpu_kriging_fill(nanp.data_ptr(), tab.data_ptr(), tab.shape[0], H, W, R, par.data_ptr(), 0, 0, 0,
+                                out.data_ptr(), stream)
+
+    return launch
+
+
+def select_launcher(lib, earlier: bool, pack, P: int, cell, fx, fy, tab, mode: int, k: int, stream):
+    """B5 (mode 0), B7 (mode 2) or, for 91269b4, B6 (mode 1) through
+    auvtpu_scattered_select, output allocated once."""
+    n = cell.numel()
+    rows = {0: 1 + 2 * k, 1: 2, 2: 1 + 3 * k}[mode]
+    out = torch.empty(rows * n, device=pack.device)
+    cell32, fxy = cell.to(torch.int32).contiguous(), torch.stack([fx, fy]).contiguous()
+    eps = [IDWConfig(k=k).eps] if earlier else []
+
+    def launch():
+        lib.auvtpu_scattered_select(pack.data_ptr(), P, cell32.data_ptr(), fxy.data_ptr(), tab.data_ptr(), n, k,
+                                    mode, 0, 0.5, 0, 0.0, *eps, out.data_ptr(), stream)
+
+    return launch
+
+
+SASS_CLASSES = {
+    "compare/select": ("FSETP", "ISETP", "FSEL", "SEL", "FMNMX", "IMNMX", "VIMNMX", "PLOP3", "PSETP", "FCHK"),
+    "FFMA/FADD/FMUL": ("FFMA", "FADD", "FMUL"),
+    "MUFU": ("MUFU",),
+    "loads/stores": ("LDG", "LDS", "LDC", "LDL", "STG", "STS", "STL", "ULDC"),
+    "branch/call": ("BRA", "CALL", "RET", "BSSY", "BSYNC", "EXIT"),
+}
+
+
+def sass_mix(lib_path: str, matches: list[str]) -> dict:
+    """{demangled kernel name: {class: static instruction count}} of the
+    kernels in the library whose name, demangled with its template
+    arguments as plain numbers and true/false, holds one of ``matches``."""
+    cuobjdump = os.path.join(os.path.dirname(kbuild.nvcc_path()), "cuobjdump")
+    filt = shutil.which("cu++filt", path=os.path.dirname(kbuild.nvcc_path())) or shutil.which("c++filt")
+    text = subprocess.run([cuobjdump, "-sass", lib_path], capture_output=True, text=True, check=True).stdout
+    blocks = re.split(r"\n\s*Function : ", text)[1:]
+    out = {}
+    for block in blocks:
+        name = block.split("\n", 1)[0].strip()
+        if filt:
+            name = subprocess.run([filt, name], capture_output=True, text=True).stdout.strip() or name
+        name = re.sub(r"\((?:unsigned )?int\)", "", name.replace("(bool)1", "true").replace("(bool)0", "false"))
+        if not any(m in name for m in matches):
+            continue
+        ops = re.findall(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P[T0-9]+\s+)?([A-Z][A-Z0-9_]*)", block)
+        counts = collections.Counter(op for op in ops)
+        mix = {cls: sum(v for op, v in counts.items() if op in names) for cls, names in SASS_CLASSES.items()}
+        mix["total"] = sum(counts.values())
+        out[name] = mix
+    if not out:
+        print(f"SASS {lib_path}: {len(blocks)} functions, none named {matches} (demangler {filt})", flush=True)
+    return out
 
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--parent", required=True, help="root of the other version's checkout")
+    ap.add_argument("--only", default="B1,B3,B5,B6,B7,B8", help="the kernels to time, e.g. B1,B6")
     args = ap.parse_args()
+    only = set(args.only.split(","))
     if not torch.cuda.is_available():
         print("torch sees no CUDA device", file=sys.stderr)
         return 1
     dev = torch.device("cuda", 0)
     card = cs.card_line()
     print(card)
-    old_wf, wf_earlier = build_other(args.parent, "window_fill", "auvtpu_fill")
-    old_kb, kb_earlier = build_other(args.parent, "band_resample", "auvtpu_band_resample")
+    other = {name: build_other(args.parent, name) for name in THIS_LIB}
+    lib_wf, lib_ss, lib_kb = (other[n][0] for n in ("window_fill", "scattered_select", "band_resample"))
+    ifc = {
+        "B1": interface(args.parent, "window_fill", lib_wf, "auvtpu_kriging_fill"),
+        "B3": interface(args.parent, "window_fill", lib_wf, "auvtpu_fill"),
+        "B5/B7": interface(args.parent, "scattered_select", lib_ss, "auvtpu_scattered_select"),
+        "B6": interface(args.parent, "scattered_select", lib_ss, "auvtpu_idw_select"),
+        "B8": interface(args.parent, "band_resample", lib_kb, "auvtpu_band_resample"),
+    }
+    if ifc["B6"] is None and ifc["B5/B7"] != "91269b4":
+        raise SystemExit("the other version has neither auvtpu_idw_select nor 91269b4's B6 mode")
+    if ifc["B1"] is None:
+        raise SystemExit("the other version has no auvtpu_kriging_fill")
+    print("other version's interfaces: " + ", ".join(f"{k} {v or 'B5/B7 mode 1'}" for k, v in ifc.items()),
+          flush=True)
     stream = wf._stream(dev)
-    print(f"other version's interfaces: B3 {'earlier' if wf_earlier else 'this'}, "
-          f"B8 {'earlier' if kb_earlier else 'this'}", flush=True)
+    cases = []
 
-    # B3 on the stand-in r0.20 and on a 256x256 window view at R=5
+    # B1 on the stand-in r0.10 (the fused fill's workload) and on a 256x256
+    # window view of the r0.20 stand-in at R=5 and R=10, as the streaming
+    # refresh reads the mosaic (the launcher takes 4 cells a thread on the
+    # first, 1 on the window)
+    grid, *_ = cs.bench_workload(dev, 0.10)
     grid2, *_ = cs.bench_workload(dev, 0.20)
     win = RegularGrid(grid2.elev[700:956, 300:556], grid2.valid[700:956, 300:556], 0.0, 255.0, 0.0, 255.0)
-    cases = []
+    for label, g, R in (("stand-in r0.10", grid, 10), ("256x256 window view R=5", win, 5),
+                        ("256x256 window view R=10", win, 10)) if "B1" in only else ():
+        old_b1 = cs.b1_launcher(g, R, lib=lib_wf) if ifc["B1"] == "this" else b1_earlier(lib_wf, g, R, stream)
+        cases.append((f"{label} B1 exponential gj", old_b1, "kriging_fill_kernel", cs.b1_launcher(g, R),
+                      "kriging_fill_kernel"))
+
+    # B3 on the stand-in r0.20 and on the 256x256 window view at R=5
     for label, g, R, kind, k in (("stand-in r0.20 idw k=8 R=10", grid2, 10, 0, 8),
                                  ("stand-in r0.20 mean k=4 R=10", grid2, 10, 1, 4),
-                                 ("256x256 window view idw k=8 R=5", win, 5, 0, 8)):
-        if wf_earlier:
+                                 ("256x256 window view idw k=8 R=5", win, 5, 0, 8)) if "B3" in only else ():
+        if ifc["B3"] == "9ff8bad":
             h, w = g.shape
             tab = wf._device_table(R, "reference", dev)
             wtab = wf._device_weights(R, 2.0, "reference", dev)
@@ -116,16 +235,39 @@ def main() -> int:
             nanp = wf._nan_padded(g, R)  # that version's wrapper built it before each launch
 
             def old(R=R, kind=kind, k=k, tab=tab, wtab=wtab, out=out, h=h, w=w, nanp=nanp):
-                old_wf.auvtpu_fill(nanp.data_ptr(), tab.data_ptr(), wtab.data_ptr(), tab.shape[0], h, w, R, kind, k,
+                lib_wf.auvtpu_fill(nanp.data_ptr(), tab.data_ptr(), wtab.data_ptr(), tab.shape[0], h, w, R, kind, k,
                                    1e-12, out.data_ptr(), stream)
 
             cases.append((label, old, "fill_kernel", cs.b3_launcher(g, kind, k, R), "fill_tile_kernel"))
         else:
-            cases.append((label, cs.b3_launcher(g, kind, k, R, lib=old_wf), "fill_tile_kernel",
+            cases.append((label, cs.b3_launcher(g, kind, k, R, lib=lib_wf), "fill_tile_kernel",
                           cs.b3_launcher(g, kind, k, R), "fill_tile_kernel"))
+    del grid2, win
+
+    # B5, B6, B7 at 1M Grid A queries (chip_smoke phase 15)
+    gA = RegularGrid.dense(shelf_seamount(*GRID_A_SHAPE), GRID_A_EXTENT, device=dev)
+    qA = cs.scattered_queries(GRID_A_EXTENT, *GRID_A_SHAPE, cs.N_SCATTER, 7, dev)
+    _, _, _, _, _, cellA, fxA, fyA = ss.prologue(gA, *qA)
+    p16 = tp.build_valid16_pack(gA)
+    winA, _ = tp.build_pack(gA, tp.window_offsets(2), clamp=False)
+    tab16 = ss.table(tp.VALID16_OFFSETS, 16, 2, "dy", dev)
+    tab32 = ss.table(tp.window_offsets(2), 32, 2, "dy", dev)
+    tab32n = ss.table(tp.window_offsets(2), 32, 2, "dx", dev)
+    earlier_ss = ifc["B5/B7"] == "91269b4"
+    for label, pk, P_, tab, mode, k in (("Grid A 1M B5 valid16 k=4", p16, 16, tab16, 0, 4),
+                                        ("Grid A 1M B7 radius 2 k=4", winA, 32, tab32n, 2, 4)):
+        if label.split()[3] not in only:
+            continue
+        cases.append((label, select_launcher(lib_ss, earlier_ss, pk, P_, cellA, fxA, fyA, tab, mode, k, stream),
+                      "select_kernel", select_launcher(ss._lib(), False, pk, P_, cellA, fxA, fyA, tab, mode, k, stream),
+                      "select_kernel"))
+    if "B6" in only:
+        old_b6 = (cs.b6_launcher(winA, 32, cellA, fxA, fyA, tab32, 8, lib=lib_ss) if ifc["B6"] == "this"
+                  else select_launcher(lib_ss, True, winA, 32, cellA, fxA, fyA, tab32, 1, 8, stream))
+        cases.append(("Grid A 1M B6 radius 2 k=8", old_b6, "select_kernel",
+                      cs.b6_launcher(winA, 32, cellA, fxA, fyA, tab32, 8), "idw_select_kernel"))
 
     # B8 on the 5M band weave
-    grid, *_ = cs.bench_workload(dev, 0.10)
     tracks = cs.band_tracks(grid, cs.N_BAND)
     rb = tband.BandRouter(grid)
     band = rb.prepare(*tracks["band"])
@@ -140,15 +282,15 @@ def main() -> int:
     zo = torch.empty(x.numel(), device=dev)
     oko = torch.empty(x.numel(), dtype=torch.bool, device=dev)
     org = torch.zeros((1, 2), device=dev)
-    for chunk in (2048, 512):
+    for chunk in (2048, 512) if "B8" in only else ():
         kw = dict(b_kw, chunk=chunk)
-        if kb_earlier:
-            def old(chunk=chunk):
-                old_kb.auvtpu_band_resample(band.plane.data_ptr(), None, org.data_ptr(), K, R_, C_, x.data_ptr(),
+        if ifc["B8"] == "9ff8bad":
+            def old(chunk=chunk, kw=kw):
+                lib_kb.auvtpu_band_resample(band.plane.data_ptr(), None, org.data_ptr(), K, R_, C_, x.data_ptr(),
                                             y.data_ptr(), x.numel(), chunk, *geo, 0, 0, int(kw["hat"]),
                                             kb.WSUM_THRESH, zo.data_ptr(), oko.data_ptr(), stream)
         else:
-            old = cs.b8_launcher(b_args, kw, lib=old_kb)
+            old = cs.b8_launcher(b_args, kw, lib=lib_kb)
         cases.append((f"band weave {cs.N_BAND} pings chunk {chunk}", old, "band_resample_",
                       cs.b8_launcher(b_args, kw), "band_resample_"))
 
@@ -156,8 +298,17 @@ def main() -> int:
         for cold in (False, True):
             t = [cs.device_ms(old, old_name, cold=cold), cs.device_ms(new, new_name, cold=cold),
                  cs.device_ms(new, new_name, cold=cold), cs.device_ms(old, old_name, cold=cold)]
-            print(f"{label:36s} {'cold' if cold else 'back to back':12s} other {t[0]:.4f} / {t[3]:.4f} ms, "
+            print(f"{label:56s} {'cold' if cold else 'back to back':12s} other {t[0]:.4f} / {t[3]:.4f} ms, "
                   f"this {t[1]:.4f} / {t[2]:.4f} ms  [{card}]", flush=True)
+
+    # the static SASS mix of the timed kernels (the instantiations above)
+    matches = ["kriging_fill_kernel<0, 0, false", "select_kernel<32, 1>", "select_kernel<16, 0>",
+               "select_kernel<32, 2>", "idw_select_kernel<25, 32, true>", "fill_tile_kernel<0, 4>"]
+    for who, paths in (("other", [other[n][1] for n in ("window_fill", "scattered_select")]),
+                       ("this", [str(kbuild.library_path(n)) for n in ("window_fill", "scattered_select")])):
+        for path in paths:
+            for name, mix in sass_mix(path, matches).items():
+                print(f"SASS {who:5s} {name[:90]:90s} " + ", ".join(f"{c} {v}" for c, v in mix.items()), flush=True)
     return 0
 
 

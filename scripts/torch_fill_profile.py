@@ -7,9 +7,10 @@ kriging fill, 20 % for the IDW/mean fills and the slot-index selection; a
 4096x4096 streaming mosaic):
 
 - CUDA-event medians of the pieces of each fused path: the NaN-padded plane
-  the B1, B2 and B4 wrappers build, each kernel launched alone on ready
-  inputs (B3 by its device duration in the profiler's kernel records, back
-  to back and with the L2 cold), and its whole wrapper; the variogram fit
+  the B2 and B4 wrappers build, each kernel launched alone on ready inputs
+  (B1 and B3 also by their device duration in the profiler's kernel
+  records, back to back and with the L2 cold), and its whole wrapper; the
+  variogram fit
   split into the empirical variogram and the Gauss-Newton loop;
 - the streaming window refresh (256x256 idw at R=5 on a 4096x4096 mosaic)
   piece by piece: the whole refresh with its result on the host, the B3
@@ -180,15 +181,10 @@ def main() -> int:
     H, W = grid.shape
     nanp = wf._nan_padded(grid, R)
     tab = wf._device_table(R, "reference", dev)
-    par = wf._par(grid, None, "reference", 0, 0, None, dev)
-    out = torch.empty((H, W), device=dev)
     sel_out = torch.empty((13, H, W), device=dev)
     lib = wf._lib()
     stream = wf._stream(dev)
-
-    def b1_kernel():
-        lib.auvtpu_kriging_fill(nanp.data_ptr(), tab.data_ptr(), tab.shape[0], H, W, R,
-                                par.data_ptr(), 0, 0, 0, out.data_ptr(), stream)
+    b1_kernel = cs.b1_launcher(grid, R)
 
     def b2_kernel():
         lib.auvtpu_topk_full(nanp.data_ptr(), tab.data_ptr(), tab.shape[0], H, W, R, 4,
@@ -209,8 +205,11 @@ def main() -> int:
                   f"{t:9.4f} ms  [{card}]")
     lags, gamma, counts = empirical_variogram(grid)
     step = 0.5 * (abs(grid.lat_step) + abs(grid.lon_step))
+    for cold in (False, True):
+        t = cs.device_ms(b1_kernel, "kriging_fill_kernel", cold=cold)
+        print(f"{'B1 kernel alone (' + ('cold' if cold else 'back to back') + ', device)':44s} {t:9.4f} ms  [{card}]")
     pieces = {
-        "NaN-padded plane (wrapper)": lambda: wf._nan_padded(grid, R),
+        "NaN-padded plane (B2, B4 wrappers)": lambda: wf._nan_padded(grid, R),
         "B1 kernel alone": b1_kernel,
         "B1 wrapper (fused fill)": lambda: wf.fill_kriging_fused(grid),
         "B2 kernel alone": b2_kernel,
@@ -223,7 +222,7 @@ def main() -> int:
         "Gauss-Newton fit (25 it)": lambda: fit_exponential(lags * step, gamma, counts, iters=25),
     }
     for label, fn in pieces.items():
-        print(f"{label:28s} {cs.time_ms(fn):9.4f} ms  [{card}]")
+        print(f"{label:36s} {cs.time_ms(fn):9.4f} ms  [{card}]")
 
     si = streaming_mosaic(dev)
     flat2 = rows2 * W + cols2
