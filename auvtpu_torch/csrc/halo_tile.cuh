@@ -1,6 +1,7 @@
 // The NaN-encoded halo tile of a block, loaded into shared memory from the
 // elevation and validity planes as they are, for Hopper (sm_90a).  Included
-// by window_fill.cu: B3 (fill_tile_kernel) and B1 (kriging_fill_kernel).
+// by window_fill.cu: B3 (fill_tile_kernel), B1 (kriging_fill_kernel) and B2
+// (topk_tile_kernel).
 //
 // A block of BW x BH threads (BW = 32: threadIdx.x is the lane) fills the
 // th x tw tile whose cell (0, 0) is the plane's (r0 - R, c0 - R).  A tile

@@ -2,14 +2,14 @@
 // (sm_90a).  Plain C interface, loaded with ctypes by
 // auvtpu_torch/kernels/scattered_select.py.
 //
-// Replaces three TPU kernels with two kernels:
-//   select_kernel<P, kRowsT>      <- pallas/valid_select.py::_sel_kernel
-//                                    (B5: valid_select_t, pallas_kriging_valid,
-//                                    pallas_packed_kriging_t)
-//   select_kernel<P, kRowsN>      <- pallas/scattered_select.py::_make_select_kernel
-//                                    (B7: pallas_window_select)
-//   idw_select_kernel<M, P, VEC>  <- pallas/valid_select.py::_idw_kernel
-//                                    (B6: pallas_packed_idw_t)
+// Replaces three TPU kernels with three kernels:
+//   select_kernel<P>                 <- pallas/valid_select.py::_sel_kernel
+//                                       (B5: valid_select_t, pallas_kriging_valid,
+//                                       pallas_packed_kriging_t)
+//   idw_select_kernel<M, P, VEC>     <- pallas/valid_select.py::_idw_kernel
+//                                       (B6: pallas_packed_idw_t)
+//   window_select_kernel<M, K, VEC>  <- pallas/scattered_select.py::_make_select_kernel
+//                                       (B7: pallas_window_select)
 // The TPU kernels differ in layout only: (P, N) transposed stencils and
 // (N, 128) pack rows with a one-hot sub-block pick are the TPU's ways around
 // its gather unit.  On Hopper each query is one thread that reads its own
@@ -19,45 +19,46 @@
 // sentinel >= 0.5e30 marks an invalid or out-of-grid tap); the squared
 // distance d2 = ((dx+half)-fx)^2 + ((dy+half)-fy)^2 to each valid tap, in
 // exactly that op order (valid_select.py:84-87, scattered_select.py:83-85),
-// 3e30 at invalid taps; then k passes of min-extract, each a strict `<` scan
-// in table order, so the lowest table index (collection order) wins a tie,
-// as the lowest sublane or lane does on the TPU.  A pass whose minimum is
-// not below 1.5e30 takes no slot and knocks nothing out (a NaN query: its
-// d2 are NaN, no `<` sees them).  Each slot is written as soon as it is
-// found, so no slot array is indexed.  An empty slot carries value 0 and
-// code 0 (the TPU kernels' all-zero one-hot); the kriging epilogue relies
-// on it (fb = sum(vals)/max(found,1)).
-//   kRowsT (B5): rows (1+2k[+k][+1], N) = cnt, k values, (k d2), k codes,
-//                (resolved).  The code table is dy-major (valid_select.py:74).
-//   kRowsN (B7): rows (N, 1+3k) = cnt, k values, k d2, k codes, the code
-//                table dx-major (scattered_select.py:66); the d2 of a slot
-//                is the pass's minimum as it is: 3e30 at an empty slot, NaN
-//                on a NaN query, as jnp.min gives it.
-//   B6:          rows (2[+1], N) = sum w*v, sum w with w = 1/(d2+eps) per
-//                found slot (power 2, valid_select.py:126-138), (resolved).
+// 3e30 at invalid taps; then k passes of min-extract, each taking the lowest
+// table index (collection order) on a tie, as the lowest sublane or lane
+// does on the TPU.  A pass whose minimum is not below 1.5e30 takes no slot
+// and knocks nothing out (a NaN query: its d2 are NaN, no minimum of them is
+// below 1.5e30).  An empty slot carries value 0 and code 0 (the TPU
+// kernels' all-zero one-hot); the kriging epilogue relies on it
+// (fb = sum(vals)/max(found,1)).
+//   B5: rows (1+2k[+k][+1], N) = cnt, k values, (k d2), k codes,
+//       (resolved).  The code table is dy-major (valid_select.py:74).
+//   B6: rows (2[+1], N) = sum w*v, sum w with w = 1/(d2+eps) per found slot
+//       (power 2, valid_select.py:126-138), (resolved).
+//   B7: rows (N, 1+3k) = cnt, k values, k d2, k codes, the code dx-major
+//       (scattered_select.py:66); the d2 of a slot is the pass's minimum
+//       over all P lanes as jnp.min gives it: 3e30 at an empty slot, NaN on a
+//       NaN query.
 // "resolved" (two-tier) is written at slot k-1 only: found & (d2 <
-// resolve_thresh).  The wrapper passes the code table, so select_kernel
-// does not know either code layout.
+// resolve_thresh).
 //
 // What bounds them on the H100.  Per query a kernel reads its pack row
 // (64 B valid16, 128 B radius 2), 12 bytes of cell index and fractional
 // offsets, and writes rows*4 bytes (8-52 B); it does ~7 operations a tap for
 // the distances and a few compare-selects a tap and slot.  The pack rows are
 // random reads (one 64-128 B segment each), not streams.  select_kernel
-// (B5, B7) does the simple thing: one thread per query in 1-D blocks of
-// 256; the row read as P/4 16-byte loads through the read-only cache; d2
-// fully unrolled in P registers (template on P); the offset tables read at
-// one address by the whole warp (a broadcast), the chosen value and code
-// reloaded per slot; outputs written lanes-major (B5: coalesced) or
-// row-major (B7: 1+3k floats a query, as the JAX layout is).  P is 16, 32
-// or 64 (radius <= 3); radius 4 (P=128) would need 128 d2 registers and is
-// refused by the wrapper.  idw_select_kernel (B6) is that kernel redesigned
-// for the card: it takes the M real taps, not the P of the pitch (25 of 32
-// at radius 2), takes the tap offsets as constant-bank operands instead of
-// 2P loads a query, keeps the values in registers instead of reloading one
-// per slot, finds each slot's minimum by a tournament (a dependency chain
-// log2(M) deep, where the scan's is M deep), skips the last pass's
-// knock-out and runs 128-thread blocks.
+// (B5) does the simple thing: one thread per query in 1-D blocks of 256; the
+// row read as P/4 16-byte loads through the read-only cache; d2 fully
+// unrolled in P registers (template on P); the offset table (dx, dy, code)
+// read at one address by the whole warp (a broadcast), the chosen value and
+// code reloaded per slot, each slot's minimum found by a strict-< scan P
+// deep; outputs written lanes-major (coalesced).  P is 16, 32 or 64 (radius
+// <= 3); radius 4 (P=128) would need 128 d2 registers and is refused by the
+// wrapper.  idw_select_kernel (B6) and window_select_kernel (B7) are that
+// kernel redesigned for the card: they take the M real taps, not the P of
+// the pitch (25 of 32 at radius 2), take the taps as constant-bank operands
+// instead of 2P-3P table loads a query, keep the values in registers instead
+// of reloading one per slot, find each slot's minimum by a tournament (a
+// dependency chain log2(M) deep, where the scan's is M deep), skip the last
+// pass's knock-out and run 128-thread blocks.  B7 also stages its block's
+// (N, 1+3k) rows in shared memory and writes them as one contiguous span of
+// 16-byte stores: a thread's own 1+3k stores, 4(1+3k) bytes apart from the
+// next thread's, would touch a line each.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -70,11 +71,10 @@ constexpr float kInf = 3e30f;           // d2 of an invalid tap (valid_select.py
 constexpr float kHalfInf = 1.5e30f;     // 0.5 * kInf: "found"
 constexpr float kHalfSentinel = 0.5e30f;  // 0.5 * pack sentinel: valid tap
 
-enum Mode { kRowsT = 0, kRowsN = 2 };  // auvtpu_scattered_select's mode codes
-
-// pack: (cells, P) f32; cell: (n,) int32; fxy: (2, n) f32 (fx row, then fy);
-// tab: (3, P) f32 = dx, dy, code per tap.
-template <int P, int MODE>
+// B5.  pack: (cells, P) f32; cell: (n,) int32; fxy: (2, n) f32 (fx row, then
+// fy); tab: (3, P) f32 = dx, dy, code per tap.  Each slot is written as soon
+// as it is found, so no slot array is indexed.
+template <int P>
 __global__ void __launch_bounds__(kThreads)
 select_kernel(const float* __restrict__ pack, const int* __restrict__ cell,
               const float* __restrict__ fxy, const float* __restrict__ tab, int n, int k,
@@ -101,15 +101,7 @@ select_kernel(const float* __restrict__ pack, const int* __restrict__ cell,
   }
 
   const size_t N = (size_t)n;
-  const int code_row = 1 + (emit_d2 ? 2 : 1) * k;  // kRowsT
-  float* orow = out + (size_t)q * (1 + 3 * k);     // kRowsN
-  // kRowsN writes each pass's minimum as it is: jnp.min is NaN where a tap's
-  // d2 is (a NaN query), and the strict-< scan would not see that NaN
-  bool nan_row = false;
-  if (MODE == kRowsN) {
-#pragma unroll
-    for (int t = 0; t < P; ++t) nan_row = nan_row || isnan(d2[t]);
-  }
+  const int code_row = 1 + (emit_d2 ? 2 : 1) * k;
   float cnt = 0.f;
   float resolved = 0.f;
   for (int s = 0; s < k; ++s) {
@@ -130,104 +122,38 @@ select_kernel(const float* __restrict__ pack, const int* __restrict__ cell,
     for (int t = 0; t < P; ++t) d2[t] = (t == hit) ? kInf : d2[t];
     const float val = got ? __ldg(row + idx) : 0.f;
     const float code = got ? __ldg(tab + 2 * P + idx) : 0.f;
-    if (MODE == kRowsT) {
-      out[(1 + s) * N + q] = val;
-      if (emit_d2) out[(1 + k + s) * N + q] = got ? m : kInf;
-      out[(code_row + s) * N + q] = code;
-    } else {
-      orow[1 + s] = val;
-      orow[1 + k + s] = nan_row ? NAN : m;
-      orow[1 + 2 * k + s] = code;
-    }
+    out[(1 + s) * N + q] = val;
+    if (emit_d2) out[(1 + k + s) * N + q] = got ? m : kInf;
+    out[(code_row + s) * N + q] = code;
     cnt = cnt + (got ? 1.f : 0.f);
     if (s == k - 1) resolved = (got && m < resolve_thresh) ? 1.f : 0.f;
   }
 
-  if (MODE == kRowsT) {
-    out[q] = cnt;
-    if (has_resolve) out[(code_row + k) * N + q] = resolved;
-  } else {
-    orow[0] = cnt;
-  }
+  out[q] = cnt;
+  if (has_resolve) out[(code_row + k) * N + q] = resolved;
 }
 
-template <int P>
-void launch(int mode, dim3 g, cudaStream_t st, const float* pack, const int* cell,
-            const float* fxy, const float* tab, int n, int k, int emit_d2, float half,
-            int has_resolve, float thresh, float* out) {
-  if (mode == kRowsT)
-    select_kernel<P, kRowsT><<<g, kThreads, 0, st>>>(pack, cell, fxy, tab, n, k, emit_d2, half,
-                                                     has_resolve, thresh, out);
-  else
-    select_kernel<P, kRowsN><<<g, kThreads, 0, st>>>(pack, cell, fxy, tab, n, k, emit_d2, half,
-                                                     has_resolve, thresh, out);
-}
-
-// B6: k-nearest IDW over the M real taps of a pack row (the pack's row pitch
-// is P >= M; its P - M padding taps are never read).  One thread a query,
-// kIdwThreads a block.
-//   - taps: (dx + half, dy + half) of each tap, passed by value: the kernel
-//     reads them as constant-bank operands, with no load.  dx is an integer
-//     and half 0 or 0.5, so the host's sum is exact and the op order
-//     (dx + half) - fx is the plain version's;
-//   - the row: M values from ceil(M/4) 16-byte loads (VEC) or M scalar loads,
-//     kept in registers with each tap's d2 (3e30 at an invalid tap);
-//   - per slot, the lowest-index minimum and its value by a tournament over
-//     the taps (tree_min: each match keeps the left, lower-index side on a
-//     tie, so it is the strict-< scan's answer), log2(M) matches deep where
-//     a scan is M deep, each match a DPX integer min of the d2 bits; then the
-//     winner knocked out, except after the last slot.  Passes stop at the
-//     first that finds no tap below 1.5e30 (no valid tap left, or a NaN or
-//     out-of-range query: every later pass would find none either; on a NaN
-//     query every valid tap's d2 is NaN, and no min of them is below 1.5e30);
-//   - w = 1/(m + eps) as an IEEE divide, num += w*v and den += w in slot
-//     order, each op rounded once (-fmad=false): bit-equal to select_ref;
-//   - resolved (two-tier) at slot k - 1: found and m < resolve_thresh.
-constexpr int kIdwThreads = 128;
-
+// The real taps of a window row, passed by value: the kernels read them as
+// constant-bank operands, with no load.  x, y: dx + half and dy + half of
+// each tap (dx an integer and half 0 or 0.5, so the host's sum is exact and
+// the op order (dx + half) - fx is the plain version's); code: B7's code of
+// the tap, (dx + R) * B + (dy + R), an integer exact in f32.
 template <int M>
 struct Taps {
   float x[M];
   float y[M];
 };
 
-// The lowest-index minimum of d2[LO, LO + N) with its index and value.
-template <int LO, int N, int M>
-__device__ __forceinline__ void tree_min(const float (&d2)[M], const float (&val)[M], float& m, int& idx,
-                                         float& v) {
-  if constexpr (N == 1) {
-    m = d2[LO];
-    idx = LO;
-    v = val[LO];
-  } else {
-    constexpr int L = N / 2;
-    float ml, mr, vl, vr;
-    int il, ir;
-    tree_min<LO, L, M>(d2, val, ml, il, vl);
-    tree_min<LO + L, N - L, M>(d2, val, mr, ir, vr);
-    // min of the d2 bits as ints (d2 >= 0, so their order is the floats'),
-    // with left = (ml <= mr): a tie keeps the left, lower-index side.  One
-    // DPX instruction where a float compare and a select were two
-    bool left;
-    m = __int_as_float(__vibmin_s32(__float_as_int(ml), __float_as_int(mr), &left));
-    idx = left ? il : ir;
-    v = left ? vl : vr;
-  }
-}
+template <int M>
+struct CodedTaps {
+  float x[M];
+  float y[M];
+  float code[M];
+};
 
-template <int M, int P, bool VEC>
-__global__ void __launch_bounds__(kIdwThreads)
-idw_select_kernel(const float* __restrict__ pack, const int* __restrict__ cell,
-                  const float* __restrict__ fxy, const Taps<M> taps, int n, int k, int has_resolve,
-                  float resolve_thresh, float eps, float* __restrict__ out) {
-  static_assert(M <= P, "a pack row holds its taps");
-  const int q = blockIdx.x * kIdwThreads + threadIdx.x;
-  if (q >= n) return;
-  const float* row = pack + (size_t)__ldg(cell + q) * P;
-  const float fx = __ldg(fxy + q);
-  const float fy = __ldg(fxy + n + q);
-
-  float val[M];
+// A row's M values from ceil(M/4) 16-byte loads (VEC) or M scalar loads.
+template <int M, bool VEC>
+__device__ __forceinline__ void load_row(const float* __restrict__ row, float (&val)[M]) {
   if (VEC) {
 #pragma unroll
     for (int t4 = 0; t4 < (M + 3) / 4; ++t4) {
@@ -241,6 +167,65 @@ idw_select_kernel(const float* __restrict__ pack, const int* __restrict__ cell,
 #pragma unroll
     for (int t = 0; t < M; ++t) val[t] = __ldg(row + t);
   }
+}
+
+// The lowest-index minimum of d2[LO, LO + N) with its value and the tag of
+// its tap, tag(t): the tap's index (B6) or its code (B7).
+template <int LO, int N, int M, class Tag, class T>
+__device__ __forceinline__ void tree_min(const float (&d2)[M], const float (&val)[M], const Tag& tag, float& m,
+                                         T& id, float& v) {
+  if constexpr (N == 1) {
+    m = d2[LO];
+    id = tag(LO);
+    v = val[LO];
+  } else {
+    constexpr int L = N / 2;
+    float ml, mr, vl, vr;
+    T il, ir;
+    tree_min<LO, L, M>(d2, val, tag, ml, il, vl);
+    tree_min<LO + L, N - L, M>(d2, val, tag, mr, ir, vr);
+    // min of the d2 bits as ints (d2 >= 0, so their order is the floats'),
+    // with left = (ml <= mr): a tie keeps the left, lower-index side.  One
+    // DPX instruction where a float compare and a select were two
+    bool left;
+    m = __int_as_float(__vibmin_s32(__float_as_int(ml), __float_as_int(mr), &left));
+    id = left ? il : ir;
+    v = left ? vl : vr;
+  }
+}
+
+// B6: k-nearest IDW over the M real taps of a pack row (the pack's row pitch
+// is P >= M; its P - M padding taps are never read).  One thread a query,
+// kSelThreads a block.
+//   - the row's M values and each tap's d2 (3e30 at an invalid tap) in
+//     registers;
+//   - per slot, the lowest-index minimum and its value by a tournament over
+//     the taps (tree_min: each match keeps the left, lower-index side on a
+//     tie, so it is the strict-< scan's answer), log2(M) matches deep where
+//     a scan is M deep, each match a DPX integer min of the d2 bits; then the
+//     winner knocked out, except after the last slot.  Passes stop at the
+//     first that finds no tap below 1.5e30 (no valid tap left, or a NaN or
+//     out-of-range query: every later pass would find none either; on a NaN
+//     query every valid tap's d2 is NaN, and no min of them is below 1.5e30);
+//   - w = 1/(m + eps) as an IEEE divide, num += w*v and den += w in slot
+//     order, each op rounded once (-fmad=false): bit-equal to select_ref;
+//   - resolved (two-tier) at slot k - 1: found and m < resolve_thresh.
+constexpr int kSelThreads = 128;
+
+template <int M, int P, bool VEC>
+__global__ void __launch_bounds__(kSelThreads)
+idw_select_kernel(const float* __restrict__ pack, const int* __restrict__ cell,
+                  const float* __restrict__ fxy, const Taps<M> taps, int n, int k, int has_resolve,
+                  float resolve_thresh, float eps, float* __restrict__ out) {
+  static_assert(M <= P, "a pack row holds its taps");
+  const int q = blockIdx.x * kSelThreads + threadIdx.x;
+  if (q >= n) return;
+  const float* row = pack + (size_t)__ldg(cell + q) * P;
+  const float fx = __ldg(fxy + q);
+  const float fy = __ldg(fxy + n + q);
+
+  float val[M];
+  load_row<M, VEC>(row, val);
   float d2[M];
 #pragma unroll
   for (int t = 0; t < M; ++t) {
@@ -255,7 +240,7 @@ idw_select_kernel(const float* __restrict__ pack, const int* __restrict__ cell,
   for (int s = 0; s < k; ++s) {
     float m, v;
     int idx;
-    tree_min<0, M, M>(d2, val, m, idx, v);
+    tree_min<0, M, M>(d2, val, [](int t) { return t; }, m, idx, v);
     if (!(m < kHalfInf)) break;
     const float w = 1.f / (m + eps);
     num = num + w * v;
@@ -282,25 +267,159 @@ int launch_idw(bool vec, dim3 g, cudaStream_t st, const float* pack, const int* 
     tv.y[t] = taps[M + t];
   }
   if (vec)
-    idw_select_kernel<M, P, true><<<g, kIdwThreads, 0, st>>>(pack, cell, fxy, tv, n, k, has_resolve, thresh,
+    idw_select_kernel<M, P, true><<<g, kSelThreads, 0, st>>>(pack, cell, fxy, tv, n, k, has_resolve, thresh,
                                                             eps, out);
   else
-    idw_select_kernel<M, P, false><<<g, kIdwThreads, 0, st>>>(pack, cell, fxy, tv, n, k, has_resolve, thresh,
+    idw_select_kernel<M, P, false><<<g, kSelThreads, 0, st>>>(pack, cell, fxy, tv, n, k, has_resolve, thresh,
                                                              eps, out);
   return (int)cudaGetLastError();
 }
+
+// B7: window top-k over the M real taps of a pack row, as B6 selects them,
+// with (N, 1+3k) rows out.  One thread a query, kSelThreads a block; K is k
+// where the main paths' k (4, 8) is built, so a row's length and each slot's
+// place in it are known at compile time, and 0 for the build that takes any
+// k.  The passes stay a loop: unrolled, they were even at k=4 and 3 % slower
+// at k=8 (PERF.md).
+//   - the tournament carries each tap's code in place of its index, and the
+//     winner is knocked out by its code (codes are distinct);
+//   - the d2 of a slot no tap fills is what the plain version's minimum over
+//     all P lanes gives: the padding lanes are sentinels (3e30), so the
+//     tournament's minimum over the real taps clamped at 3e30 (a real tap's
+//     d2 may be inf on an inf or 1e30 query, or lie anywhere above 1.5e30);
+//     NaN in every slot of a NaN query with a valid tap (jnp.min's NaN).  A
+//     NaN query stops at its first pass: a DPX min of NaN bits is never
+//     below 1.5e30;
+//   - each thread writes its row into the block's rows in shared memory,
+//     placed so that the block's span of the output and its copy there
+//     share their offset within 16 bytes; then the block writes the span
+//     with 16-byte stores, a scalar head and tail where the span does not
+//     start or end on 16 bytes (a tail block, an output at any 4-byte
+//     alignment).
+template <int M, int K, bool VEC>
+__global__ void __launch_bounds__(kSelThreads)
+window_select_kernel(const float* __restrict__ pack, const int* __restrict__ cell,
+                     const float* __restrict__ fxy, const __grid_constant__ CodedTaps<M> taps, int n, int k,
+                     float* __restrict__ out) {
+  constexpr int P = M <= 16 ? 16 : (M <= 32 ? 32 : 64);
+  extern __shared__ float4 stage4[];
+  const int kk = K > 0 ? K : k;
+  const int len = 1 + 3 * kk;
+  const int q0 = blockIdx.x * kSelThreads;
+  const int q = q0 + threadIdx.x;
+  float* const span = out + (size_t)q0 * len;
+  const int a = (int)(((uintptr_t)span >> 2) & 3);
+  float* const rows = reinterpret_cast<float*>(stage4) + a;
+  if (q < n) {
+    float* const mine = rows + threadIdx.x * len;
+    const float* row = pack + (size_t)__ldg(cell + q) * P;
+    const float fx = __ldg(fxy + q);
+    const float fy = __ldg(fxy + n + q);
+    float val[M];
+    load_row<M, VEC>(row, val);
+    float d2[M];
+#pragma unroll
+    for (int t = 0; t < M; ++t) {
+      const float di = taps.x[t] - fx;
+      const float dj = taps.y[t] - fy;
+      d2[t] = val[t] < kHalfSentinel ? di * di + dj * dj : kInf;
+    }
+
+    int cnt = 0;
+    float rest = kInf;  // the d2 of the slots no tap fills
+#pragma unroll 1
+    for (int s = 0; s < kk; ++s) {
+      float m, v, c;
+      tree_min<0, M, M>(d2, val, [&](int t) { return taps.code[t]; }, m, c, v);
+      if (!(m < kHalfInf)) {
+        rest = m;
+        break;
+      }
+      mine[1 + s] = v;
+      mine[1 + kk + s] = m;
+      mine[1 + 2 * kk + s] = c;
+      ++cnt;
+      if (s == kk - 1) break;
+#pragma unroll
+      for (int t = 0; t < M; ++t) d2[t] = c == taps.code[t] ? kInf : d2[t];
+    }
+    bool nan_row = false;
+    if (isnan(fx) || isnan(fy)) {
+#pragma unroll
+      for (int t = 0; t < M; ++t) nan_row = nan_row || val[t] < kHalfSentinel;
+    }
+    rest = nan_row ? NAN : fminf(rest, kInf);
+    for (int s = cnt; s < kk; ++s) {
+      mine[1 + s] = 0.f;
+      mine[1 + kk + s] = rest;
+      mine[1 + 2 * kk + s] = 0.f;
+    }
+    mine[0] = (float)cnt;
+  }
+  __syncthreads();
+
+  const int count = min(kSelThreads, n - q0) * len;
+  const int head = min((4 - a) & 3, count);
+  const int body = (count - head) >> 2;
+  for (int i = threadIdx.x; i < head; i += kSelThreads) span[i] = rows[i];
+  float4* const span4 = reinterpret_cast<float4*>(span + head);
+  const float4* const rows4 = reinterpret_cast<const float4*>(rows + head);  // a + head is 0 or 4
+  for (int i = threadIdx.x; i < body; i += kSelThreads) span4[i] = rows4[i];
+  for (int i = head + 4 * body + threadIdx.x; i < count; i += kSelThreads) span[i] = rows[i];
+}
+
+template <int M, int K, bool VEC>
+int launch_window_kernel(dim3 g, cudaStream_t st, const float* pack, const int* cell, const float* fxy,
+                         const CodedTaps<M>& tv, int n, int k, float* out) {
+  const size_t smem = sizeof(float) * ((size_t)kSelThreads * (1 + 3 * k) + 4);
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(window_select_kernel<M, K, VEC>,
+                                                 cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return (int)err;
+  }
+  window_select_kernel<M, K, VEC><<<g, kSelThreads, smem, st>>>(pack, cell, fxy, tv, n, k, out);
+  return (int)cudaGetLastError();
+}
+
+template <int M, bool VEC>
+int launch_window_k(dim3 g, cudaStream_t st, const float* pack, const int* cell, const float* fxy,
+                    const CodedTaps<M>& tv, int n, int k, float* out) {
+  switch (k) {
+    case 4:
+      return launch_window_kernel<M, 4, VEC>(g, st, pack, cell, fxy, tv, n, k, out);
+    case 8:
+      return launch_window_kernel<M, 8, VEC>(g, st, pack, cell, fxy, tv, n, k, out);
+    default:
+      return launch_window_kernel<M, 0, VEC>(g, st, pack, cell, fxy, tv, n, k, out);
+  }
+}
+
+template <int M>
+int launch_window(bool vec, dim3 g, cudaStream_t st, const float* pack, const int* cell, const float* fxy,
+                  const float* taps, int n, int k, float* out) {
+  CodedTaps<M> tv;
+  for (int t = 0; t < M; ++t) {
+    tv.x[t] = taps[t];
+    tv.y[t] = taps[M + t];
+    tv.code[t] = taps[2 * M + t];
+  }
+  return vec ? launch_window_k<M, true>(g, st, pack, cell, fxy, tv, n, k, out)
+             : launch_window_k<M, false>(g, st, pack, cell, fxy, tv, n, k, out);
+}
+
+int pitch_for(int M) { return M <= 16 ? 16 : (M <= 32 ? 32 : 64); }
 
 }  // namespace
 
 extern "C" {
 
-// pack: (cells, P) f32, 16-byte aligned, P in {16, 32, 64}; cell: (n,)
-// int32; fxy: (2, n) f32; tab: (3, P) f32 (dx, dy, code); mode 0 = B5 rows,
-// 2 = B7 (n, 1+3k) rows; 1 <= k <= P; out as the mode says.
-int auvtpu_scattered_select(const void* pack, int P, const void* cell, const void* fxy,
-                            const void* tab, int n, int k, int mode, int emit_d2, float half,
-                            int has_resolve, float resolve_thresh, void* out, void* stream) {
-  if ((mode != kRowsT && mode != kRowsN) || k < 1 || k > P || n < 0) return (int)cudaErrorInvalidValue;
+// B5.  pack: (cells, P) f32, 16-byte aligned, P in {16, 32, 64}; cell: (n,)
+// int32; fxy: (2, n) f32; tab: (3, P) f32 (dx, dy, code); 1 <= k <= P;
+// out: (1+2k[+k][+1], n) f32 rows.
+int auvtpu_scattered_select(const void* pack, int P, const void* cell, const void* fxy, const void* tab, int n,
+                            int k, int emit_d2, float half, int has_resolve, float resolve_thresh, void* out,
+                            void* stream) {
+  if (k < 1 || k > P || n < 0) return (int)cudaErrorInvalidValue;
   if (n == 0) return (int)cudaSuccess;
   const dim3 g((unsigned)((n + kThreads - 1) / kThreads));
   cudaStream_t st = (cudaStream_t)stream;
@@ -311,13 +430,13 @@ int auvtpu_scattered_select(const void* pack, int P, const void* cell, const voi
   float* o = (float*)out;
   switch (P) {
     case 16:
-      launch<16>(mode, g, st, p, c, f, t, n, k, emit_d2, half, has_resolve, resolve_thresh, o);
+      select_kernel<16><<<g, kThreads, 0, st>>>(p, c, f, t, n, k, emit_d2, half, has_resolve, resolve_thresh, o);
       break;
     case 32:
-      launch<32>(mode, g, st, p, c, f, t, n, k, emit_d2, half, has_resolve, resolve_thresh, o);
+      select_kernel<32><<<g, kThreads, 0, st>>>(p, c, f, t, n, k, emit_d2, half, has_resolve, resolve_thresh, o);
       break;
     case 64:
-      launch<64>(mode, g, st, p, c, f, t, n, k, emit_d2, half, has_resolve, resolve_thresh, o);
+      select_kernel<64><<<g, kThreads, 0, st>>>(p, c, f, t, n, k, emit_d2, half, has_resolve, resolve_thresh, o);
       break;
     default:
       return (int)cudaErrorInvalidValue;
@@ -334,10 +453,9 @@ int auvtpu_scattered_select(const void* pack, int P, const void* cell, const voi
 int auvtpu_idw_select(const void* pack, int P, int M, const void* cell, const void* fxy, const float* taps,
                       int n, int k, int has_resolve, float resolve_thresh, float eps, void* out,
                       void* stream) {
-  const int want_p = M <= 16 ? 16 : (M <= 32 ? 32 : 64);
-  if (P != want_p || k < 1 || k > P || n < 0) return (int)cudaErrorInvalidValue;
+  if (P != pitch_for(M) || k < 1 || k > P || n < 0) return (int)cudaErrorInvalidValue;
   if (n == 0) return (int)cudaSuccess;
-  const dim3 g((unsigned)((n + kIdwThreads - 1) / kIdwThreads));
+  const dim3 g((unsigned)((n + kSelThreads - 1) / kSelThreads));
   cudaStream_t st = (cudaStream_t)stream;
   const float* p = (const float*)pack;
   const int* c = (const int*)cell;
@@ -353,6 +471,35 @@ int auvtpu_idw_select(const void* pack, int P, int M, const void* cell, const vo
       return launch_idw<25, 32>(vec, g, st, p, c, f, taps, n, k, has_resolve, resolve_thresh, eps, o);
     case 49:
       return launch_idw<49, 64>(vec, g, st, p, c, f, taps, n, k, has_resolve, resolve_thresh, eps, o);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+}
+
+// B7.  pack: (cells, P) f32 with P the smallest of 16, 32, 64 that holds M;
+// M, the real taps a row, in {9, 25, 49} (windows of radius 1-3); taps: 3*M
+// f32 on the host, dx + half of each tap, then dy + half, then its code
+// (dx + R) * B + (dy + R); cell: (n,) int32; fxy: (2, n) f32; 1 <= k <= P;
+// out: (n, 1+3k) f32 = cnt, k values, k d2, k codes, at any 4-byte
+// alignment.  A pack that is not 16-byte aligned takes scalar loads.
+int auvtpu_window_select(const void* pack, int P, int M, const void* cell, const void* fxy, const float* taps,
+                         int n, int k, void* out, void* stream) {
+  if (P != pitch_for(M) || k < 1 || k > P || n < 0 || ((uintptr_t)out & 3)) return (int)cudaErrorInvalidValue;
+  if (n == 0) return (int)cudaSuccess;
+  const dim3 g((unsigned)((n + kSelThreads - 1) / kSelThreads));
+  cudaStream_t st = (cudaStream_t)stream;
+  const float* p = (const float*)pack;
+  const int* c = (const int*)cell;
+  const float* f = (const float*)fxy;
+  float* o = (float*)out;
+  const bool vec = ((uintptr_t)pack & 15) == 0;
+  switch (M) {
+    case 9:
+      return launch_window<9>(vec, g, st, p, c, f, taps, n, k, o);
+    case 25:
+      return launch_window<25>(vec, g, st, p, c, f, taps, n, k, o);
+    case 49:
+      return launch_window<49>(vec, g, st, p, c, f, taps, n, k, o);
     default:
       return (int)cudaErrorInvalidValue;
   }

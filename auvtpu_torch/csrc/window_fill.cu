@@ -3,11 +3,11 @@
 // auvtpu_torch/kernels/window_fill.py.
 //
 // Replaces four TPU kernels of auvtpu/pallas/window_fill.py:
-//   topk_full_kernel<.., false> <- _make_topk_full_kernel    (B2, pallas_topk_full)
-//   topk_full_kernel<.., true>  <- _make_topk_kernel         (B4, pallas_topk_idx)
-//   kriging_fill_kernel         <- _make_kriging_fill_kernel (B1, pallas_fill_kriging)
-//   fill_tile_kernel<KIND, CPT> <- _make_fill_kernel         (B3, pallas_fill_idw /
-//                                                             pallas_fill_mean)
+//   topk_tile_kernel<KCAP, CPT>  <- _make_topk_full_kernel    (B2, pallas_topk_full)
+//   topk_idx_kernel<KCAP>        <- _make_topk_kernel         (B4, pallas_topk_idx)
+//   kriging_fill_kernel          <- _make_kriging_fill_kernel (B1, pallas_fill_kriging)
+//   fill_tile_kernel<KIND, CPT>  <- _make_fill_kernel         (B3, pallas_fill_idw /
+//                                                              pallas_fill_mean)
 //
 // What they compute.  Per output cell, scan a static window-offset table
 // sorted by (distance^2, collection order) and keep the first k cells that
@@ -20,10 +20,10 @@
 // per-cell rule, so each thread stops as soon as its own cell is full and the
 // answer is the same as the TPU's per-tile early exit.
 //
-// B2 and B4 read one NaN-encoded plane (invalid and out-of-grid cells are
-// NaN) that the wrapper builds, padded by R on every side so no read needs a
-// bounds check.  B1 and B3 read the elevation and validity planes as they
-// are and build the NaN-encoded halo of each tile in shared memory
+// B4 reads one NaN-encoded plane (invalid and out-of-grid cells are NaN)
+// that the wrapper builds, padded by R on every side so no read needs a
+// bounds check.  B1, B2 and B3 read the elevation and validity planes as
+// they are and build the NaN-encoded halo of each tile in shared memory
 // themselves (halo_tile.cuh).  Slots are written with selects, and B3 adds
 // only the values it takes, never hit * (v - old) or 0 * v arithmetic:
 // 0 * NaN is NaN.
@@ -35,20 +35,20 @@
 // does a few operations per candidate: it is bound by those bytes.  B1
 // writes one plane (two with the variance) and does ~100 multiply-adds, 20
 // divides (gj), 10 square roots and 10 exps per cell: it is bound by the
-// issue of those ~1,000 instructions a cell, not by memory.  B2 and B4 do
-// the simple thing: one thread per cell in 32x8 blocks, reads through the
+// issue of those ~1,000 instructions a cell, not by memory.  B4 does the
+// simple thing: one thread per cell in 32x8 blocks, reads through the
 // read-only data cache (__ldg) so a warp's 32 neighbouring loads of one
 // offset coalesce, the offset table read by all threads of a warp at the
-// same index (a broadcast), all state in registers.  B3 (fill_tile_kernel) and B1
-// (kriging_fill_kernel) take what they leave: no padded copy (its four
-// extra launches cost about the kernel's time again), the scan's dependent
-// loads served from shared memory, where they were L1/L2 round trips, and
-// several cells a thread so that those loads overlap.  The price is a second
-// plane read (valid beside elev, where the padded copy was one NaN-encoded
-// plane).  For B1, an issue-bound kernel, the halo costs instructions
-// (the load, the table in shared memory) that the padded copy's launches
-// paid for outside it: alone it is slower than the kernel on the padded
-// plane, the call faster (PERF.md).
+// same index (a broadcast), all state in registers.  B2 (topk_tile_kernel),
+// B3 (fill_tile_kernel) and B1 (kriging_fill_kernel) take what it leaves:
+// no padded copy (its four extra launches cost about the kernel's time
+// again), the scan's dependent loads served from shared memory, where they
+// were L1/L2 round trips, and several cells a thread so that those loads
+// overlap.  The price is a second plane read (valid beside elev, where the
+// padded copy was one NaN-encoded plane).  For B1, an issue-bound kernel,
+// the halo costs instructions (the load, the table in shared memory) that
+// the padded copy's launches paid for outside it: alone it is slower than
+// the kernel on the padded plane, the call faster (PERF.md).
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -63,13 +63,12 @@ constexpr int BY = 8;
 constexpr int KBY = 8;  // B1's warps a block
 
 // First-k-valid scan.  `base` points at the cell's own position in the padded
-// plane; tab[t] = (dx, dy).  Fills slots 0..cnt-1 with the value and the table
-// index of each selected cell and returns cnt.  The unrolled compare keeps the
-// slots in registers (a dynamically indexed array would go to local memory).
+// plane; tab[t] = (dx, dy).  Fills slots 0..cnt-1 with the table index of
+// each selected cell and returns cnt.  The unrolled compare keeps the slots
+// in registers (a dynamically indexed array would go to local memory).
 template <int KCAP>
 __device__ __forceinline__ int select_first_k(const float* __restrict__ base, int pitch,
-                                              const int2* __restrict__ tab, int m, int k,
-                                              float (&vals)[KCAP], int (&tix)[KCAP]) {
+                                              const int2* __restrict__ tab, int m, int k, int (&tix)[KCAP]) {
   int cnt = 0;
   for (int t = 0; t < m && cnt < k; ++t) {
     const int2 o = __ldg(tab + t);
@@ -77,10 +76,7 @@ __device__ __forceinline__ int select_first_k(const float* __restrict__ base, in
     if (!isnan(v)) {
 #pragma unroll
       for (int s = 0; s < KCAP; ++s) {
-        if (s == cnt) {
-          vals[s] = v;
-          tix[s] = t;
-        }
+        if (s == cnt) tix[s] = t;
       }
       ++cnt;
     }
@@ -88,46 +84,168 @@ __device__ __forceinline__ int select_first_k(const float* __restrict__ base, in
   return cnt;
 }
 
-// IDX = false (B2): out is (1+3k, H, W) = cnt, vals[k], dxs[k], dys[k].
-// IDX = true  (B4): out is (1+k, H, W)  = cnt, table index of each slot as a
-//                   float, -1 at an empty slot (pallas_topk_idx's planes).
-template <int KCAP, bool IDX>
+// B4: out is (1+k, H, W) = cnt, table index of each slot as a float, -1 at
+// an empty slot (pallas_topk_idx's planes), over the NaN-padded plane.
+template <int KCAP>
 __global__ void __launch_bounds__(BX * BY)
-topk_full_kernel(const float* __restrict__ nanp, const int2* __restrict__ tab, int m,
-                 int H, int W, int R, int k, float* __restrict__ out) {
+topk_idx_kernel(const float* __restrict__ nanp, const int2* __restrict__ tab, int m,
+                int H, int W, int R, int k, float* __restrict__ out) {
   const int c = blockIdx.x * BX + threadIdx.x;
   const int r = blockIdx.y * BY + threadIdx.y;
   if (r >= H || c >= W) return;
   const int pitch = W + 2 * R;
   const float* base = nanp + (size_t)(r + R) * pitch + (c + R);
-  float vals[KCAP];
   int tix[KCAP];
 #pragma unroll
-  for (int s = 0; s < KCAP; ++s) {
-    vals[s] = 0.f;
-    tix[s] = 0;
-  }
-  const int cnt = select_first_k<KCAP>(base, pitch, tab, m, k, vals, tix);
+  for (int s = 0; s < KCAP; ++s) tix[s] = 0;
+  const int cnt = select_first_k<KCAP>(base, pitch, tab, m, k, tix);
 
   const size_t plane = (size_t)H * W;
   const size_t cell = (size_t)r * W + c;
   out[cell] = (float)cnt;
 #pragma unroll
   for (int s = 0; s < KCAP; ++s) {
-    if (s < k) {
-      const bool live = s < cnt;
-      if (IDX) {
-        out[(1 + s) * plane + cell] = live ? (float)tix[s] : -1.f;
-      } else {
-        // an empty slot decodes to offset (-R, -R), as pallas_topk_full's
-        // code -1 does; every consumer masks slots >= cnt
-        const int2 o = live ? __ldg(tab + tix[s]) : make_int2(-R, -R);
-        out[(1 + s) * plane + cell] = live ? vals[s] : 0.f;
-        out[(1 + k + s) * plane + cell] = (float)o.x;
-        out[(1 + 2 * k + s) * plane + cell] = (float)o.y;
+    if (s < k) out[(1 + s) * plane + cell] = s < cnt ? (float)tix[s] : -1.f;
+  }
+}
+
+// One output row segment of a warp, count <= 32 * CPX cells from dst on
+// (lane l holds cells l, l + 32, ...), written with 16-byte stores: staged in
+// the warp's buffer of 32 * CPX + 4 floats at dst's offset within 16 bytes,
+// so that the span's 16-byte-aligned middle is read back as float4s, with a
+// scalar head and tail (an output row at any 4-byte alignment: the planes'
+// width is odd in general).  B2's writes are most of its bytes: with a
+// 4-byte store a cell and plane it took 0.20 ms at the r0.10 stand-in, with
+// these spans 0.18 at first (PERF.md).
+template <int CPX>
+__device__ __forceinline__ void write_row(float* __restrict__ dst, const float (&v)[CPX], float* __restrict__ buf,
+                                          int count, int lane) {
+  const int a = (int)(((uintptr_t)dst >> 2) & 3);
+#pragma unroll
+  for (int j = 0; j < CPX; ++j) buf[a + lane + 32 * j] = v[j];
+  __syncwarp();
+  const int head = min((4 - a) & 3, count);
+  const int body = (count - head) >> 2;
+  if (lane < head) dst[lane] = buf[a + lane];
+  float4* const dst4 = reinterpret_cast<float4*>(dst + head);
+  const float4* const buf4 = reinterpret_cast<const float4*>(buf + a + head);  // a + head is 0 or 4
+  for (int i = lane; i < body; i += 32) dst4[i] = buf4[i];
+  const int i = head + 4 * body + lane;
+  if (i < count) dst[i] = buf[a + i];
+  __syncwarp();
+}
+
+// B2: first-k-valid selection over a halo tile in shared memory
+// (halo_tile.cuh), out (1+3k, H, W) = cnt, vals[k], dxs[k], dys[k].  One
+// block of BX x BY threads fills a BX*CPX-column, BY-row tile of the output,
+// CPX cells a thread (columns lane, lane + 32, ...; warp w on row w), four
+// blocks an SM (launch bounds: 64 registers; at the 78 it took unbounded, 3
+// blocks were 8 % slower):
+//   1. the halo tile, the table as (dx, dy) and as each row's offset within
+//      the tile;
+//   2. per cell, the table rows of its first k valid cells in table order,
+//      16 bits each, two to a register (m <= 65535): the CPX scans step
+//      through the table together, so their shared loads overlap;
+//   3. per plane, each warp's row of the tile written with write_row: the
+//      value read back from the tile and the offset from the table, or value
+//      0 and offset (-R, -R) at an empty slot (as pallas_topk_full's code -1
+//      decodes; every consumer masks slots >= cnt).  The 1+3k planes (260 MB
+//      at the r0.10 stand-in, k=4) are most of the kernel's bytes.
+template <int KCAP, int CPX>
+__global__ void __launch_bounds__(BX * BY, 4)
+topk_tile_kernel(const float* __restrict__ elev, int pe, const float* __restrict__ valid, int pv,
+                 const int2* __restrict__ tab, int m, int H, int W, int R, int k, float* __restrict__ out) {
+  extern __shared__ float4 smem4[];
+  constexpr int TW = BX * CPX;
+  const int tw = TW + 2 * R;
+  const int th = BY + 2 * R;
+  float* const buf = reinterpret_cast<float*>(smem4) + threadIdx.y * (TW + 4);
+  int2* stab = reinterpret_cast<int2*>(reinterpret_cast<float*>(smem4) + BY * (TW + 4));
+  int* soff = reinterpret_cast<int*>(stab + m);
+  float* tile = reinterpret_cast<float*>(soff + m);
+  const int r0 = blockIdx.y * BY;
+  const int c0 = blockIdx.x * TW;
+  const int lane = threadIdx.x;
+  const int r = r0 + threadIdx.y;
+  load_halo_tile<BX, BY, 4>(tile, th, tw, r0, c0, R, elev, pe, valid, pv, H, W);
+  for (int t = threadIdx.y * BX + lane; t < m; t += BX * BY) {
+    const int2 o = __ldg(tab + t);
+    stab[t] = o;
+    soff[t] = o.y * tw + o.x;
+  }
+
+  int at[CPX], lim[CPX], cnt[CPX];
+  unsigned slots[CPX][KCAP / 2];
+#pragma unroll
+  for (int j = 0; j < CPX; ++j) {
+    at[j] = (threadIdx.y + R) * tw + lane + 32 * j + R;
+    lim[j] = (r < H && c0 + lane + 32 * j < W) ? k : 0;  // a cell outside the plane scans nothing
+    cnt[j] = 0;
+#pragma unroll
+    for (int w = 0; w < KCAP / 2; ++w) slots[j][w] = 0u;
+  }
+  __syncthreads();
+
+  for (int t = 0; t < m; ++t) {
+    bool more = false;
+#pragma unroll
+    for (int j = 0; j < CPX; ++j) more = more || cnt[j] < lim[j];
+    if (!more) break;
+    const int so = soff[t];
+#pragma unroll
+    for (int j = 0; j < CPX; ++j) {
+      const float v = tile[at[j] + so];
+      if (cnt[j] < lim[j] && !isnan(v)) {
+        const unsigned row = (unsigned)t << (16 * (cnt[j] & 1));
+#pragma unroll
+        for (int w = 0; w < KCAP / 2; ++w) slots[j][w] |= w == (cnt[j] >> 1) ? row : 0u;
+        ++cnt[j];
       }
     }
   }
+
+  if (r >= H) return;  // the warp's row lies below the plane
+  const int count = min(TW, W - c0);
+  const size_t plane = (size_t)H * W;
+  float* const row = out + (size_t)r * W + c0;
+  float v[CPX];
+#pragma unroll
+  for (int j = 0; j < CPX; ++j) v[j] = (float)cnt[j];
+  write_row<CPX>(row, v, buf, count, lane);
+  // a slot's three planes one at a time, each cell's offset read again from
+  // the table for each: CPX values live, not 3 * CPX
+#pragma unroll
+  for (int s = 0; s < KCAP; ++s) {
+    if (s < k) {
+#pragma unroll
+      for (int part = 0; part < 3; ++part) {
+#pragma unroll
+        for (int j = 0; j < CPX; ++j) {
+          const bool live = s < cnt[j];
+          const int ts = (int)((slots[j][s >> 1] >> (16 * (s & 1))) & 0xffffu);
+          const int2 d = live ? stab[ts] : make_int2(-R, -R);
+          v[j] = part == 0 ? (live ? tile[at[j] + d.y * tw + d.x] : 0.f) : (float)(part == 1 ? d.x : d.y);
+        }
+        write_row<CPX>(row + (1 + part * k + s) * plane, v, buf, count, lane);
+      }
+    }
+  }
+}
+
+template <int KCAP, int CPX>
+int launch_topk_tile(cudaStream_t st, const float* e, int pe, const float* va, int pv, const int2* tab, int m,
+                     int H, int W, int R, int k, float* out) {
+  constexpr int TW = BX * CPX;
+  const size_t smem = sizeof(float) * (size_t)BY * (TW + 4) + 12 * (size_t)m +
+                      sizeof(float) * (size_t)(BY + 2 * R) * (TW + 2 * R);
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(topk_tile_kernel<KCAP, CPX>,
+                                                 cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return (int)err;
+  }
+  const dim3 g((W + TW - 1) / TW, (H + BY - 1) / BY);
+  topk_tile_kernel<KCAP, CPX><<<g, dim3(BX, BY), smem, st>>>(e, pe, va, pv, tab, m, H, W, R, k, out);
+  return (int)cudaGetLastError();
 }
 
 enum Model { kExponential = 0, kLinear = 1, kSpherical = 2, kGaussian = 3 };
@@ -503,8 +621,6 @@ int launch_fill(const float* e, int pe, const float* va, int pv, const int2* t, 
   return (int)cudaGetLastError();
 }
 
-dim3 grid_for(int H, int W) { return dim3((W + BX - 1) / BX, (H + BY - 1) / BY); }
-
 template <int MODEL, int SOLVER, bool VAR, int CPT>
 int launch_kriging(dim3 g, cudaStream_t st, const float* e, int pe, const float* va, int pv,
                    const int2* tab, int m, int H, int W, int R, const KrigingParams& par, float* out) {
@@ -559,39 +675,51 @@ int launch_kriging_model(int model, int solver, bool var, cudaStream_t st, const
 
 extern "C" {
 
-// nanp: (H+2R, W+2R) f32, NaN = invalid; tab: (m, 2) int32 (dx, dy);
-// out: (1+3k, H, W) f32 = cnt, vals[k], dxs[k], dys[k].  1 <= k <= 16.
-int auvtpu_topk_full(const void* nanp, const void* tab, int m, int H, int W, int R, int k,
-                     void* out, void* stream) {
-  if (k < 1 || k > 16) return (int)cudaErrorInvalidValue;
-  const dim3 b(BX, BY);
-  const dim3 g = grid_for(H, W);
+// B2.  elev, valid: (H, W) f32 planes with unit column stride and row
+// pitches pe, pv (elements), read as they are; tab: (m, 2) int32 (dx, dy)
+// with |dx|, |dy| <= R, m <= 65535; out: (1+3k, H, W) f32 = cnt, vals[k],
+// dxs[k], dys[k], contiguous.  1 <= k <= 16.  Where the plane has the tiles
+// for two blocks an SM, eight cells a thread for k <= 4 (256x8 tiles: the
+// longest row spans, the least halo a cell; 8 was 5 % faster than 4, 2
+// was 14 % slower, PERF.md) and two for k > 4 (sixteen slots a cell take the
+// registers); one (32x8) otherwise.  One kernel launch, nothing else on the
+// stream.
+int auvtpu_topk_full(const void* elev, int pe, const void* valid, int pv, const void* tab, int m, int H, int W,
+                     int R, int k, void* out, void* stream) {
+  if (k < 1 || k > 16 || R < 0 || m < 1 || m > 65535) return (int)cudaErrorInvalidValue;
+  if (H <= 0 || W <= 0) return (int)cudaSuccess;
+  int dev = 0, sms = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  const int cpx = k <= 4 ? 8 : 2;
+  const bool wide = (long long)((W + cpx * BX - 1) / (cpx * BX)) * ((H + BY - 1) / BY) >= 2LL * sms;
   cudaStream_t st = (cudaStream_t)stream;
-  const float* p = (const float*)nanp;
+  const float* e = (const float*)elev;
+  const float* va = (const float*)valid;
   const int2* t = (const int2*)tab;
   float* o = (float*)out;
   if (k <= 4)
-    topk_full_kernel<4, false><<<g, b, 0, st>>>(p, t, m, H, W, R, k, o);
-  else
-    topk_full_kernel<16, false><<<g, b, 0, st>>>(p, t, m, H, W, R, k, o);
-  return (int)cudaGetLastError();
+    return wide ? launch_topk_tile<4, 8>(st, e, pe, va, pv, t, m, H, W, R, k, o)
+                : launch_topk_tile<4, 1>(st, e, pe, va, pv, t, m, H, W, R, k, o);
+  return wide ? launch_topk_tile<16, 2>(st, e, pe, va, pv, t, m, H, W, R, k, o)
+              : launch_topk_tile<16, 1>(st, e, pe, va, pv, t, m, H, W, R, k, o);
 }
 
-// nanp, tab as above; out: (1+k, H, W) f32 = cnt, slot table indices (-1 =
-// empty).  1 <= k <= 16.
+// B4.  nanp: (H+2R, W+2R) f32, NaN = invalid; tab: (m, 2) int32 (dx, dy);
+// out: (1+k, H, W) f32 = cnt, slot table indices (-1 = empty).  1 <= k <= 16.
 int auvtpu_topk_idx(const void* nanp, const void* tab, int m, int H, int W, int R, int k,
                     void* out, void* stream) {
   if (k < 1 || k > 16) return (int)cudaErrorInvalidValue;
   const dim3 b(BX, BY);
-  const dim3 g = grid_for(H, W);
+  const dim3 g((W + BX - 1) / BX, (H + BY - 1) / BY);
   cudaStream_t st = (cudaStream_t)stream;
   const float* p = (const float*)nanp;
   const int2* t = (const int2*)tab;
   float* o = (float*)out;
   if (k <= 4)
-    topk_full_kernel<4, true><<<g, b, 0, st>>>(p, t, m, H, W, R, k, o);
+    topk_idx_kernel<4><<<g, b, 0, st>>>(p, t, m, H, W, R, k, o);
   else
-    topk_full_kernel<16, true><<<g, b, 0, st>>>(p, t, m, H, W, R, k, o);
+    topk_idx_kernel<16><<<g, b, 0, st>>>(p, t, m, H, W, R, k, o);
   return (int)cudaGetLastError();
 }
 

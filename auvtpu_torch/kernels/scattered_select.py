@@ -1,11 +1,11 @@
 """The scattered-query selection kernels (B5, B6, B7) and the B7 wrappers
 (counterpart of :mod:`auvtpu.pallas.scattered_select`).
 
-Two CUDA kernels in ``csrc/scattered_select.cu`` replace three TPU kernels:
-per query they read the taps of its centre cell's pack row, take the
-squared distance to each valid tap and extract the k nearest by min-extract
-passes (ties to the lowest table index = collection order).  The modes of
-:func:`select`:
+Three CUDA kernels in ``csrc/scattered_select.cu`` replace three TPU
+kernels: per query they read the taps of its centre cell's pack row, take
+the squared distance to each valid tap and extract the k nearest by
+min-extract passes (ties to the lowest table index = collection order).
+The modes of :func:`select`:
 
 - ``"rows_t"`` (B5, ``valid_select.py::_sel_kernel``): (1+2k[+k][+1], N)
   rows [cnt, k vals, (k d2), k codes, (resolved)], dy-major codes; wrappers
@@ -15,7 +15,8 @@ passes (ties to the lowest table index = collection order).  The modes of
   that scans only the window's real taps and takes them by value (a pack
   that is not 16-byte aligned takes its scalar loads);
 - ``"rows_n"`` (B7, ``scattered_select.py::_make_select_kernel``): (N, 1+3k)
-  rows [cnt, vals, d2s, codes], dx-major codes; wrappers
+  rows [cnt, vals, d2s, codes], dx-major codes, in a kernel on B6's design
+  that also takes each tap's code by value; wrappers
   :func:`window_select_fused`, :func:`packed_kriging_fused` and
   :func:`packed_idw_fused` below, which return the select dict of
   :func:`auvtpu_torch.ops.packs.packed_window_select`.
@@ -49,7 +50,7 @@ from ..ops.scattered import _normalize, centre_cells
 
 # one count per TPU kernel replaced
 LAUNCHES = {"select_rows": 0, "idw_rows": 0, "window_select_fused": 0}
-_MODES = {"rows_t": (0, "select_rows"), "idw": (1, "idw_rows"), "rows_n": (2, "window_select_fused")}
+_MODES = {"rows_t": "select_rows", "idw": "idw_rows", "rows_n": "window_select_fused"}
 KERNEL_P = (16, 32, 64)  # pack widths the kernel is built for (radius <= 3)
 INF = 3e30  # d2 of an invalid tap (valid_select.py:62)
 
@@ -65,10 +66,12 @@ def _lib() -> ctypes.CDLL:
 
     lib = load("scattered_select")
     P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.auvtpu_scattered_select.argtypes = [P, I, P, P, P, I, I, I, I, F, I, F, P, P]
+    lib.auvtpu_scattered_select.argtypes = [P, I, P, P, P, I, I, I, F, I, F, P, P]
     lib.auvtpu_scattered_select.restype = I
     lib.auvtpu_idw_select.argtypes = [P, I, I, P, P, ctypes.POINTER(F), I, I, I, F, F, P, P]
     lib.auvtpu_idw_select.restype = I
+    lib.auvtpu_window_select.argtypes = [P, I, I, P, P, ctypes.POINTER(F), I, I, P, P]
+    lib.auvtpu_window_select.restype = I
     lib.auvtpu_scattered_error_string.argtypes = [I]
     lib.auvtpu_scattered_error_string.restype = ctypes.c_char_p
     return lib
@@ -84,6 +87,7 @@ def build() -> None:
 # ---------------------------------------------------------------------------
 
 IDW_M = (9, 16, 25, 49)  # real taps a row B6 is built for: windows of radius 1-3, valid16
+WINDOW_M = (9, 25, 49)  # real taps a row B7 is built for: windows of radius 1-3
 
 
 def table(offs, P: int, R: int, layout: str, device) -> torch.Tensor:
@@ -95,7 +99,7 @@ def table(offs, P: int, R: int, layout: str, device) -> torch.Tensor:
     dead taps carry offset 1e4 and code -1; code (dx+R)*B + (dy+R).  The
     pack holds the sentinel at dead taps, so their entries are never
     selected.  The tensor carries its host copy as ``.host``, from which B6
-    takes its taps by value."""
+    and B7 take their taps by value."""
     return _table(tuple(offs), P, R, layout, torch.device(device))
 
 
@@ -112,19 +116,22 @@ def _table(offs: tuple, P: int, R: int, layout: str, device: torch.device) -> to
     return out
 
 
+def _host(tab: torch.Tensor) -> np.ndarray:
+    """The host copy a table of :func:`table` carries, or, for another
+    table, one copy back to the host."""
+    host = getattr(tab, "host", None)
+    return tab.detach().cpu().numpy() if host is None else host
+
+
 def _idw_taps(tab: torch.Tensor, P: int, half: float):
     """(M, taps) for B6: the instantiation M that holds the real taps of
     ``tab`` (layout 'dy') and (dx + half, dy + half) of each of its first M
     taps as 2*M host float32, exact sums (dx integer, half 0 or 0.5).  The
-    taps come from the host copy a table of :func:`table` carries, or, for
-    another table, from one copy back to the host.  The real taps run to the
-    last with an offset other than (0, 0): dead taps carry (0, 0) and the
-    windows list the centre tap first, so every window of a build size
-    finds its build.  Taps past the real ones are padding, which the pack
-    marks invalid."""
-    host = getattr(tab, "host", None)
-    if host is None:
-        host = tab.detach().cpu().numpy()
+    real taps run to the last with an offset other than (0, 0): dead taps
+    carry (0, 0) and the windows list the centre tap first, so every window
+    of a build size finds its build.  Taps past the real ones are padding,
+    which the pack marks invalid."""
+    host = _host(tab)
     dx, dy = host[0].astype(np.float32), host[1].astype(np.float32)
     off = np.flatnonzero((dx != 0) | (dy != 0))
     n = int(off[-1]) + 1 if off.size else 1
@@ -133,6 +140,23 @@ def _idw_taps(tab: torch.Tensor, P: int, half: float):
         raise ValueError(f"idw_rows: no build for {n} taps in rows of {P}; built for {IDW_M}")
     h32 = np.float32(half)
     return M, np.ascontiguousarray(np.concatenate([dx[:M] + h32, dy[:M] + h32]), dtype=np.float32)
+
+
+def _window_taps(tab: torch.Tensor, P: int, half: float):
+    """(M, taps) for B7: the M real taps of ``tab`` (layout 'dx': they run
+    to the last tap with a code other than -1, the dead taps' code) and, as
+    3*M host float32, dx + half of each, dy + half of each and the code of
+    each, all exact (integers, half 0 or 0.5)."""
+    host = _host(tab)
+    code = host[2].astype(np.float32)
+    live = np.flatnonzero(code >= 0)
+    M = int(live[-1]) + 1 if live.size else 0
+    if M not in WINDOW_M or pack_width(M) != P or live.size != M:
+        raise ValueError(f"window_select_fused: no build for {M} taps in rows of {P} (a 'dx' table of a window "
+                         f"of radius 1-3, {WINDOW_M} taps)")
+    h32 = np.float32(half)
+    taps = [host[0, :M].astype(np.float32) + h32, host[1, :M].astype(np.float32) + h32, code[:M]]
+    return M, np.ascontiguousarray(np.concatenate(taps), dtype=np.float32)
 
 
 # ---------------------------------------------------------------------------
@@ -224,7 +248,7 @@ def select(pack, P: int, cell, fx, fy, tab, *, mode: str, k: int, emit_d2: bool 
         return select_ref(pack, P, cell, fx, fy, tab, **kw)
     if mode not in _MODES:
         raise ValueError(mode)
-    code, name = _MODES[mode]
+    name = _MODES[mode]
     dev = pack.device
     if pack.dtype != torch.float32 or fx.dtype != torch.float32 or fy.dtype != torch.float32:
         raise TypeError(f"{name}: the kernel is float32 only (pack {pack.dtype}, fx {fx.dtype})")
@@ -235,9 +259,9 @@ def select(pack, P: int, cell, fx, fy, tab, *, mode: str, k: int, emit_d2: bool 
         )
     if not 1 <= k <= P:
         raise ValueError(f"{name}: k={k} outside 1..{P}")
-    if not pack.is_contiguous() or pack.numel() % P or (pack.data_ptr() % 16 and mode != "idw"):
-        raise ValueError(f"{name}: the pack must be contiguous, a whole number of rows and (but for B6, "
-                         "which takes scalar loads there) 16-byte aligned")
+    if not pack.is_contiguous() or pack.numel() % P or (pack.data_ptr() % 16 and mode == "rows_t"):
+        raise ValueError(f"{name}: the pack must be contiguous, a whole number of rows and (but for B6 and "
+                         "B7, which take scalar loads there) 16-byte aligned")
     for t in (cell, fx, fy, tab):
         if t.device != dev:
             raise ValueError(f"{name}: pack on {dev} but an input on {t.device}")
@@ -256,10 +280,16 @@ def select(pack, P: int, cell, fx, fy, tab, *, mode: str, k: int, emit_d2: bool 
                 taps.ctypes.data_as(ctypes.POINTER(ctypes.c_float)), n, k, int(resolve_thresh is not None),
                 thresh, float(eps), out.data_ptr(), _stream(dev),
             )
+        elif mode == "rows_n":
+            M, taps = _window_taps(tab, P, half)
+            err = _lib().auvtpu_window_select(
+                pack.data_ptr(), P, M, cell32.data_ptr(), fxy.data_ptr(),
+                taps.ctypes.data_as(ctypes.POINTER(ctypes.c_float)), n, k, out.data_ptr(), _stream(dev),
+            )
         else:
             tab = tab.to(torch.float32).contiguous()
             err = _lib().auvtpu_scattered_select(
-                pack.data_ptr(), P, cell32.data_ptr(), fxy.data_ptr(), tab.data_ptr(), n, k, code,
+                pack.data_ptr(), P, cell32.data_ptr(), fxy.data_ptr(), tab.data_ptr(), n, k,
                 int(emit_d2), float(half), int(resolve_thresh is not None), thresh,
                 out.data_ptr(), _stream(dev),
             )

@@ -6,7 +6,7 @@ Four kernels, all in ``csrc/window_fill.cu``:
 - :func:`topk_full` (B2, replaces ``_make_topk_full_kernel``): first-k-valid
   selection, returning (cnt, vals, dxs, dys) planes;
 - :func:`topk_idx` (B4, replaces ``_make_topk_kernel``): the same selection
-  as (cnt, slot table-index planes), a mode of B2's kernel;
+  as (cnt, slot table-index planes);
 - :func:`fill_kriging_fused` (B1, replaces ``_make_kriging_fill_kernel``):
   the same selection and the 5x6 ordinary-kriging solve in one pass;
 - :func:`fill_idw_fused` and :func:`fill_mean_fused` (B3, replace
@@ -14,12 +14,12 @@ Four kernels, all in ``csrc/window_fill.cu``:
   grid's planes as they are (a window view of a larger mosaic included),
   optionally keeping observed cells' own values (``keep_observed``).
 
-B2 and B4 read a NaN-padded copy of the plane that the wrapper builds
-(:func:`_nan_padded`); B1 and B3 build their halo tiles themselves, from
-the grid's planes as they are, and a B1 call is one launch and nothing
-else.  Each has a plain torch version beside it (``<wrapper>_ref``).  A
-wrapper runs the plain version only for a grid on the CPU; for a CUDA grid
-it launches its kernel or raises.  Each launch adds one to
+B4 reads a NaN-padded copy of the plane that the wrapper builds
+(:func:`_nan_padded`); B1, B2 and B3 build their halo tiles themselves,
+from the grid's planes as they are, and a B1 or B2 call is one launch and
+nothing else.  Each has a plain torch version beside it
+(``<wrapper>_ref``).  A wrapper runs the plain version only for a grid on
+the CPU; for a CUDA grid it launches its kernel or raises.  Each launch adds one to
 ``LAUNCHES[<wrapper name>]``, so a run can show that it went through the
 kernels.
 """
@@ -68,7 +68,7 @@ def _lib() -> ctypes.CDLL:
 
     lib = load("window_fill")
     P, I = ctypes.c_void_p, ctypes.c_int
-    lib.auvtpu_topk_full.argtypes = [P, P, I, I, I, I, I, P, P]
+    lib.auvtpu_topk_full.argtypes = [P, I, P, I, P, I, I, I, I, I, P, P]
     lib.auvtpu_topk_full.restype = I
     lib.auvtpu_topk_idx.argtypes = [P, P, I, I, I, I, I, P, P]
     lib.auvtpu_topk_idx.restype = I
@@ -100,6 +100,14 @@ def _device_table(max_radius: int, convention: str, device: torch.device) -> tor
     return torch.from_numpy(np.stack([dxs, dys], axis=1).astype(np.int32)).to(device)
 
 
+def _check_f32(grid: RegularGrid, what: str) -> None:
+    if grid.elev.dtype != torch.float32 or grid.valid.dtype != torch.float32:
+        raise TypeError(
+            f"{what}: the kernel is float32 only (got {grid.elev.dtype}/"
+            f"{grid.valid.dtype}); float64 callers use the plain path on the CPU"
+        )
+
+
 def _check_cuda_grid(grid: RegularGrid, what: str) -> torch.device:
     dev = grid.elev.device
     if dev.type != "cuda":
@@ -109,16 +117,21 @@ def _check_cuda_grid(grid: RegularGrid, what: str) -> torch.device:
         )
     if grid.valid.device != dev:
         raise ValueError(f"{what}: elev on {dev} but valid on {grid.valid.device}")
-    if grid.elev.dtype != torch.float32 or grid.valid.dtype != torch.float32:
-        raise TypeError(
-            f"{what}: the kernel is float32 only (got {grid.elev.dtype}/"
-            f"{grid.valid.dtype}); float64 callers use the plain path on the CPU"
-        )
+    _check_f32(grid, what)
     return dev
 
 
+def _pitch(t: torch.Tensor, what: str) -> int:
+    """Row pitch, in elements, of a 2-D plane whose columns are adjacent."""
+    if t.dim() != 2 or (t.shape[1] > 1 and t.stride(1) != 1):
+        raise ValueError(f"{what}: the kernel takes (H, W) planes with unit column stride (got strides "
+                         f"{tuple(t.stride())}); copy the plane first if that is what you mean")
+    return t.stride(0)
+
+
 def _nan_padded(grid: RegularGrid, radius: int) -> torch.Tensor:
-    """(H+2R, W+2R) f32 plane, NaN at invalid and out-of-grid cells."""
+    """(H+2R, W+2R) f32 plane, NaN at invalid and out-of-grid cells: B4's
+    input."""
     H, W = grid.shape
     out = torch.full((H + 2 * radius, W + 2 * radius), float("nan"), dtype=torch.float32, device=grid.device)
     out[radius:radius + H, radius:radius + W] = torch.where(grid.valid > 0.5, grid.elev, float("nan"))
@@ -144,24 +157,34 @@ def topk_full_ref(grid: RegularGrid, *, k: int = 4, max_radius: int = 10, conven
     return cnt, vals, dxs, dys
 
 
+def _topk_full_args(grid: RegularGrid, k: int) -> tuple[int, int]:
+    """The row pitches (elements) B2 reads ``grid``'s planes with, after the
+    checks its kernel needs: float32 planes with unit column stride (a
+    window view of a larger plane is read in place) and 1 <= k <= MAX_K."""
+    _check_f32(grid, "topk_full")
+    if not 1 <= k <= MAX_K:
+        raise ValueError(f"topk_full: k={k} outside 1..{MAX_K}")
+    return _pitch(grid.elev, "topk_full"), _pitch(grid.valid, "topk_full")
+
+
 def topk_full(grid: RegularGrid, *, k: int = 4, max_radius: int = 10, convention: str = "reference"):
     """First-k-valid selection (B2): (cnt, vals[k], dxs[k], dys[k]) planes,
     as ``pallas_topk_full`` returns them: empty slots hold value 0 and
-    offset (-R, -R), so consumers must mask slots >= cnt."""
+    offset (-R, -R), so consumers must mask slots >= cnt.  The planes may be
+    views with any row stride, as for :func:`fill_idw_fused`; a call is one
+    kernel launch."""
     if grid.elev.device.type == "cpu":
         return topk_full_ref(grid, k=k, max_radius=max_radius, convention=convention)
     dev = _check_cuda_grid(grid, "topk_full")
-    if not 1 <= k <= MAX_K:
-        raise ValueError(f"topk_full: k={k} outside 1..{MAX_K}")
+    pe, pv = _topk_full_args(grid, k)
     H, W = grid.shape
     R = max_radius
     out = torch.empty((1 + 3 * k, H, W), dtype=torch.float32, device=dev)
     if H * W > 0:
-        nanp = _nan_padded(grid, R)
         tab = _device_table(R, convention, dev)
         with torch.cuda.device(dev):
             err = _lib().auvtpu_topk_full(
-                nanp.data_ptr(), tab.data_ptr(), tab.shape[0], H, W, R, k,
+                grid.elev.data_ptr(), pe, grid.valid.data_ptr(), pv, tab.data_ptr(), tab.shape[0], H, W, R, k,
                 out.data_ptr(), _stream(dev),
             )
         _raise_on(err, "topk_full")
@@ -175,7 +198,7 @@ def topk_full(grid: RegularGrid, *, k: int = 4, max_radius: int = 10, convention
 
 
 # ---------------------------------------------------------------------------
-# B4: first-k-valid selection as slot table indices (a mode of B2's kernel)
+# B4: first-k-valid selection as slot table indices
 # ---------------------------------------------------------------------------
 
 def topk_idx_ref(grid: RegularGrid, *, k: int = 4, max_radius: int = 10, convention: str = "reference"):
@@ -219,14 +242,6 @@ def _device_weights(max_radius: int, power: float, convention: str, device: torc
     m = len(sorted_offsets(max_radius, convention)[0])
     w = np.float32(1.0) / idw_denominators(max_radius, power, convention)[:m]
     return torch.from_numpy(w.astype(np.float32)).to(device)
-
-
-def _pitch(t: torch.Tensor, what: str) -> int:
-    """Row pitch, in elements, of a 2-D plane whose columns are adjacent."""
-    if t.dim() != 2 or (t.shape[1] > 1 and t.stride(1) != 1):
-        raise ValueError(f"{what}: the kernel takes (H, W) planes with unit column stride (got strides "
-                         f"{tuple(t.stride())}); copy the plane first if that is what you mean")
-    return t.stride(0)
 
 
 def _fill(grid: RegularGrid, kind: int, name: str, *, k: int, power: float, max_radius: int, convention: str, keep_observed: bool):

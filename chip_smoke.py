@@ -9,7 +9,11 @@ streaming mosaic and scattered queries on the 3200x4000 Grid A, in phases:
 
 1. device   torch sees a CUDA card; its name and power limit; TF32 off
 2. build    nvcc builds the kernels from csrc/ (seconds, ptxas registers)
-3. B2       selection kernel vs its plain torch version: exactly equal
+3. B2       selection kernel vs its plain torch version: exactly equal at
+            the bench workload and on a 1024x2048 window view of the
+            stand-in read in place (k=4 R=10, k=16 R=5); a call is one
+            kernel launch and no memory copy (the profiler's device records
+            of 20 calls)
 4. B1       fused kriging kernel vs its plain version, bit for bit, at the
             bench workload (gj and lu), on a 256x320 grid (every model,
             both solvers, centered, variance and a sub-plane origin) and on
@@ -24,8 +28,9 @@ streaming mosaic and scattered queries on the 3200x4000 Grid A, in phases:
             vs plain again under the fitted parameters (bit for bit; read on
             the device: one launch, no copy)
 7. timing   CUDA events, 3 warm-up calls then the median of 20, kernels and
-            plain versions side by side; B1 alone by its device duration,
-            back to back and cold
+            plain versions side by side; B1 and B2 alone by their device
+            duration, back to back and cold, and B2's call by the device
+            duration of all its records
 8. B3, B4   the IDW/mean fill kernel vs its plain version at the stand-in
             r0.20 (IDW k=8, mean k=4), on the 256x320 grid (both
             conventions, R 5 and 10) and on window views of the stand-in
@@ -54,9 +59,10 @@ streaming mosaic and scattered queries on the 3200x4000 Grid A, in phases:
             and cold (a 128 MB write before each launch), its wrapper and
             plain version, B4 vs plain at r0.20, the Grid B
             methods, streaming ingest and window refresh (fused and torch)
-12. B5-B7   the scattered select kernel vs its plain version on Grid A
+12. B5-B7   the scattered select kernels vs their plain version on Grid A
             (3200x4000 shelf + seamount, fully valid: valid16 and radius-2
-            packs) and on the stand-in r0.10, 1M numpy-seeded queries plus
+            packs, B7 also at radius 1 and 3, k=4 and k=8) and on the
+            stand-in r0.10, 1M numpy-seeded queries plus
             the tie queries and NaN, +-inf, +-1e30 and out-of-grid ones
             each: rows, codes, d2, the resolved row and the IDW sums exactly
             equal (NaN where plain has NaN); the kernel paths' predictions
@@ -73,8 +79,9 @@ streaming mosaic and scattered queries on the 3200x4000 Grid A, in phases:
             bars), the escalated fraction, B5/B6 launched; 4096 queries plus
             escalating hole queries vs GoldenV2 on the stand-in with unit
             steps
-15. timing  the select kernels alone (B6 also cold) and plain, their
-            wrappers and the torch paths at 1M Grid A queries, two-tier
+15. timing  the select kernels alone (B6 and B7 also cold) and plain,
+            their wrappers, B7's library call (torch.topk of the d2
+            matrix) and the torch paths at 1M Grid A queries, two-tier
             calls, the Grid A steady state per method and batch
 16. B8      the band/atlas resample kernel vs its plain version on the
             stand-in r0.10, on lon/lat through the kernel's coordinate
@@ -326,11 +333,12 @@ def device_ms(fn, match: str | None, reps: int = 30, cold: bool = False, attempt
     kernel records (CUPTI), with no host time in it, back to back (the
     inputs warm in the L2) or ``cold`` (a 128 MB write before each call):
     the median duration of the kernels whose name holds ``match``, one a
-    call, or, with no ``match``, the sum over the call's kernels of each
-    one's median.  The tracer may drop records, the last of a session and
-    now and then all of them; a median of the ones it keeps is not biased by
-    that, and a session that keeps fewer than 5 is profiled again, up to
-    ``attempts`` times."""
+    call, or, with no ``match``, the sum over the call's kernels (cold,
+    torch's fills aside) of each one's median times its launches a call.
+    The tracer may drop records, the last of a session and now and then all
+    of them; a median of the ones it keeps is not biased by that, and a
+    session that keeps fewer than 5 is profiled again, up to ``attempts``
+    times."""
     import torch
 
     scratch = torch.empty(128 << 18, dtype=torch.float32, device="cuda")
@@ -346,13 +354,17 @@ def device_ms(fn, match: str | None, reps: int = 30, cold: bool = False, attempt
             torch.cuda.synchronize()
         kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA
                    and not e.name.lower().startswith(("memcpy", "memset"))]
-        names = {e.name for e in kernels if "FillFunctor" not in e.name} if match is None else {
-            e.name for e in kernels if match in e.name}  # the scratch writes are torch's fill
+        # cold, the scratch writes are torch's fill: a call's own fills are
+        # not told apart from them and are left out
+        names = {e.name for e in kernels if not (cold and "FillFunctor" in e.name)} if match is None else {
+            e.name for e in kernels if match in e.name}
         durs = {name: [e.time_range.elapsed_us() for e in kernels if e.name == name] for name in names}
-        if any(len(d) > reps for d in durs.values()):
+        if match is not None and any(len(d) > reps for d in durs.values()):
             raise RuntimeError(f"{match!r}: more kernel records than calls: { {k: len(d) for k, d in durs.items()} }")
         if names and all(len(d) >= 5 for d in durs.values()):
-            return sum(float(np.median(d)) for d in durs.values()) / 1e3
+            # a kernel a call launches j times leaves more than (j - 1) * reps
+            # records where the tracer keeps most
+            return sum(float(np.median(d)) * -(-len(d) // reps) for d in durs.values()) / 1e3
     raise RuntimeError(f"{match!r}: kernel records { {k: len(d) for k, d in durs.items()} } of {reps} calls in "
                        f"each of {attempts} sessions")
 
@@ -473,6 +485,57 @@ def b1_launcher(grid, R: int = 10, lib=None, vparams=None):
     return launch
 
 
+def b2_launcher(grid, k: int = 4, R: int = 10, lib=None):
+    """A closure launching B2 on ``grid`` straight through its library
+    (``lib``, or the checkout's), output allocated once (the kernel
+    alone)."""
+    import torch
+
+    from auvtpu_torch.kernels import window_fill as wf
+
+    H, W = grid.shape
+    dev = grid.device
+    tab = wf._device_table(R, "reference", dev)
+    out = torch.empty((1 + 3 * k, H, W), dtype=torch.float32, device=dev)
+    lib, stream = lib or wf._lib(), wf._stream(dev)
+
+    def launch():
+        err = lib.auvtpu_topk_full(grid.elev.data_ptr(), grid.elev.stride(0), grid.valid.data_ptr(),
+                                   grid.valid.stride(0), tab.data_ptr(), tab.shape[0], H, W, R, k, out.data_ptr(),
+                                   stream)
+        if err:
+            raise RuntimeError(f"B2 launch failed ({err})")
+
+    return launch
+
+
+def b7_launcher(pack, P: int, cell, fx, fy, tab, k: int, half: float = 0.5, lib=None):
+    """A closure launching B7 straight through its library (``lib``, or the
+    checkout's) on these inputs, output allocated once (the kernel alone)."""
+    import ctypes
+
+    import torch
+
+    from auvtpu_torch.kernels import scattered_select as ss
+
+    n = cell.numel()
+    cell32 = cell.to(torch.int32).contiguous()
+    fxy = torch.stack([fx, fy]).contiguous()
+    M, taps = ss._window_taps(tab, P, half)
+    out = torch.empty((n, 1 + 3 * k), dtype=torch.float32, device=pack.device)
+    lib, stream = lib or ss._lib(), ss._stream(pack.device)
+    tp_ = taps.ctypes.data_as(ctypes.POINTER(ctypes.c_float))
+
+    def launch():
+        err = lib.auvtpu_window_select(pack.data_ptr(), P, M, cell32.data_ptr(), fxy.data_ptr(), tp_, n, k,
+                                       out.data_ptr(), stream)
+        if err:
+            raise RuntimeError(f"B7 launch failed ({err})")
+
+    launch.keep = (taps, cell32, fxy)
+    return launch
+
+
 def b6_launcher(pack, P: int, cell, fx, fy, tab, k: int, half: float = 0.5, lib=None):
     """A closure launching B6 straight through its library (``lib``, or the
     checkout's) on these inputs, output allocated once (the kernel alone)."""
@@ -583,22 +646,22 @@ def scattered_queries(ext, H: int, W: int, n: int, seed: int, device):
 
 
 def select_cases(g, p16=None):
-    """(kernel, pack, P, offsets, mode, table layout, options) of the select
-    kernel at the main paths' settings: B5 as valid16 kriging (d2 rows too)
-    and as the two-tier window kriging (resolved row), B6 as the window IDW
-    k=8 with the resolved row, B7 at k=4 and k=8."""
+    """(kernel, pack, P, offsets, radius, mode, table layout, options) of the
+    select kernels at the main paths' settings: B5 as valid16 kriging (d2
+    rows too) and as the two-tier window kriging (resolved row), B6 as the
+    window IDW k=8 with the resolved row, B7 at k=4 and k=8 at window radius
+    1, 2 and 3.  Returns the radius-2 pack too."""
     from auvtpu_torch.ops import packs as tp
 
-    offs = tp.window_offsets(2)
-    win, P = tp.build_pack(g, offs, clamp=False)
+    packs = {r: (tp.window_offsets(r), *tp.build_pack(g, tp.window_offsets(r), clamp=False)) for r in (1, 2, 3)}
+    offs, win, P = packs[2]
     cases = [
-        ("select_rows", win, P, offs, "rows_t", "dy", dict(k=4, resolve_thresh=4.0)),
-        ("idw_rows", win, P, offs, "idw", "dy", dict(k=8, resolve_thresh=4.0)),
-        ("window_select_fused", win, P, offs, "rows_n", "dx", dict(k=4)),
-        ("window_select_fused", win, P, offs, "rows_n", "dx", dict(k=8)),
-    ]
+        ("select_rows", win, P, offs, 2, "rows_t", "dy", dict(k=4, resolve_thresh=4.0)),
+        ("idw_rows", win, P, offs, 2, "idw", "dy", dict(k=8, resolve_thresh=4.0)),
+    ] + [("window_select_fused", packs[r][1], packs[r][2], packs[r][0], r, "rows_n", "dx", dict(k=k))
+         for r in (2, 1, 3) for k in (4, 8)]
     if p16 is not None:
-        cases.insert(0, ("select_rows", p16, 16, tp.VALID16_OFFSETS, "rows_t", "dy", dict(k=4, emit_d2=True)))
+        cases.insert(0, ("select_rows", p16, 16, tp.VALID16_OFFSETS, 2, "rows_t", "dy", dict(k=4, emit_d2=True)))
     return win, cases
 
 
@@ -869,7 +932,8 @@ def main() -> int:
     n_pts = truth.numel()
     say("data", f"{SHAPE[0]}x{SHAPE[1]} grid, {n_pts} masked cells on {dev}")
 
-    # ---- 3. B2 vs plain
+    # ---- 3. B2 vs plain, on the bench plane and on a window view read in
+    # place, and one launch a call
     sel_k = wf.topk_full(grid, k=4, max_radius=10)
     sel_p = wf.topk_full_ref(grid, k=4, max_radius=10)
     torch.cuda.synchronize()
@@ -878,6 +942,17 @@ def main() -> int:
     say("B2", f"selection exactly equal to plain at {SHAPE} (cnt, values, dx, dy); "
         f"cells with 4 found: {float((sel_k[0] == 4).float().mean()):.6f}")
     del sel_k, sel_p
+    gw = RegularGrid(grid.elev[600:1624, 200:2248], grid.valid[600:1624, 200:2248], grid.min_lon, grid.max_lon,
+                     grid.min_lat, grid.max_lat)
+    for k, R in ((4, 10), (16, 5)):
+        selection_equal(wf.topk_full(gw, k=k, max_radius=R), wf.topk_full_ref(gw, k=k, max_radius=R),
+                        f"B2 topk_full vs plain, window view k={k} R={R}")
+    say("B2", f"1024x2048 window view (row stride {gw.elev.stride(0)}) at (600, 200), k=4 R=10 and k=16 R=5: "
+        f"exactly equal to plain")
+    del gw
+    seen = only_kernel(lambda: wf.topk_full(grid, k=4, max_radius=10), "topk_tile_kernel", "B2 call", copies=True)
+    say("B2", f"one kernel launch a call and no memory copy; the device records of 20 calls the profiler "
+        f"kept: {seen}")
 
     # ---- 4. B1 vs plain (bit for bit), and one launch a call
     plane_k = wf.fill_kriging_fused(grid)
@@ -961,7 +1036,9 @@ def main() -> int:
         "B1 plain": time_ms(lambda: wf.fill_kriging_fused_ref(grid)),
         "select (B2 + torch solve)": time_ms(lambda: fill_kriging(grid, backend="select")),
         "torch (plain)": time_ms(lambda: fill_kriging(grid, backend="torch")),
-        "B2 kernel alone": device_ms(lambda: wf.topk_full(grid, k=4, max_radius=10), "topk_full_kernel"),
+        "B2 kernel alone": device_ms(b2_launcher(grid), "topk_tile_kernel"),
+        "B2 kernel alone cold": device_ms(b2_launcher(grid), "topk_tile_kernel", cold=True),
+        "B2 call": device_ms(lambda: wf.topk_full(grid, k=4, max_radius=10), None),
         "B2 wrapper": time_ms(lambda: wf.topk_full(grid, k=4, max_radius=10)),
         "B2 plain": time_ms(lambda: wf.topk_full_ref(grid, k=4, max_radius=10)),
         "torch solve": time_ms(lambda: krige_planes(grid, sel)),
@@ -1201,7 +1278,7 @@ def main() -> int:
         "B3 mean k=4 cold": device_ms(b3_launcher(grid2, 1, 4), "fill_tile_kernel", cold=True),
         "B3 mean k=4 wrapper": time_ms(lambda: wf.fill_mean_fused(grid2, k=4)),
         "B3 mean k=4 plain": time_ms(lambda: wf.fill_mean_fused_ref(grid2, k=4)),
-        "B4 k=4": device_ms(lambda: wf.topk_idx(grid2, k=4), "topk_full_kernel"),
+        "B4 k=4": device_ms(lambda: wf.topk_idx(grid2, k=4), "topk_idx_kernel"),
         "B4 k=4 wrapper": time_ms(lambda: wf.topk_idx(grid2, k=4)),
         "B4 k=4 plain": time_ms(lambda: wf.topk_idx_ref(grid2, k=4)),
         "window refresh fused": refresh_ms("fused"),
@@ -1248,14 +1325,15 @@ def main() -> int:
         # out-of-grid ones (on a NaN query no slot is taken; B7's d2 row is NaN)
         odd = odd_queries(ext, *shape, dev)
         _, _, _, _, _, cell, fx, fy = ss.prologue(g, torch.cat([lo, odd[0]]), torch.cat([la, odd[1]]))
-        for kname, pack, P, offs, mode, layout, kw in cases:
-            tab = ss.table(offs, P, 2, layout, dev)
+        for kname, pack, P, offs, radius, mode, layout, kw in cases:
+            tab = ss.table(offs, P, radius, layout, dev)
             a = ss.select(pack, P, cell, fx, fy, tab, mode=mode, **kw)
             b = ss.select_ref(pack, P, cell, fx, fy, tab, mode=mode, **kw)
             torch.cuda.synchronize()
-            sc_err[kname] = max(sc_err[kname], same_planes(a, b, f"{kname} {mode} {kw} at {label}"))
-            say("B5-B7", f"{label} P={P} {kname} ({mode}, {kw}): {tuple(a.shape)} exactly equal to plain, "
-                f"{odd[0].numel()} NaN/inf/1e30/out-of-grid queries included")
+            sc_err[kname] = max(sc_err[kname], same_planes(a, b, f"{kname} {mode} {kw} radius {radius} at {label}"))
+            say("B5-B7", f"{label} radius {radius} P={P} {kname} ({mode}, {kw}): {tuple(a.shape)} exactly equal "
+                f"to plain, {odd[0].numel()} NaN/inf/1e30/out-of-grid queries included")
+            del a, b
         pairs = [
             ("B5 packed_kriging_t", vs.packed_kriging_t(win, g, lo, la), tp.packed_kriging(win, g, lo, la)),
             ("B6 packed_idw_t", vs.packed_idw_t(win, g, lo, la), tp.packed_idw(win, g, lo, la)),
@@ -1385,16 +1463,30 @@ def main() -> int:
         "idw_rows": (winA, 32, cellA, fxA, fyA, tab32, dict(mode="idw", k=8)),
         "window_select_fused": (winA, 32, cellA, fxA, fyA, tab32n, dict(mode="rows_n", k=4)),
     }
+    names = {"select_rows": "select_kernel", "idw_rows": "idw_select_kernel",
+             "window_select_fused": "window_select_kernel"}
+    launchers = {"idw_rows": b6_launcher, "window_select_fused": b7_launcher}
     for kname, (pk, P, c_, x_, y_, t_, kw) in sel_args.items():
-        ms[f"{kname} alone"] = device_ms(lambda: ss.select(pk, P, c_, x_, y_, t_, **kw), "select_kernel")
-        if kname == "idw_rows":
-            ms["idw_rows alone cold"] = device_ms(b6_launcher(pk, P, c_, x_, y_, t_, kw["k"]), "idw_select_kernel",
+        ms[f"{kname} alone"] = device_ms(lambda: ss.select(pk, P, c_, x_, y_, t_, **kw), names[kname])
+        if kname in launchers:
+            ms[f"{kname} alone cold"] = device_ms(launchers[kname](pk, P, c_, x_, y_, t_, kw["k"]), names[kname],
                                                   cold=True)
         ms[f"{kname} wrapper"] = time_ms(lambda: ss.select(pk, P, c_, x_, y_, t_, **kw))
         ms[f"{kname} plain"] = time_ms(lambda: ss.select_ref(pk, P, c_, x_, y_, t_, **kw), reps=5)
-        cold = f" ({ms['idw_rows alone cold']:.4f} cold)" if kname == "idw_rows" else ""
+        cold = f" ({ms[kname + ' alone cold']:.4f} cold)" if kname in launchers else ""
         say("timing", f"Grid A {N_SCATTER} queries {kname:20s} kernel alone {ms[kname + ' alone']:.4f} ms{cold}, "
             f"wrapper {ms[kname + ' wrapper']:.4f} ms, plain {ms[kname + ' plain']:.4f} ms  [{card}]")
+    # B7's library call: torch.topk of the (n, P) d2 matrix, made
+    # beforehand as select_ref makes it (the selection alone, with no tie
+    # order, no values and no codes)
+    st_ = winA.view(-1, 32)[cellA.long()]
+    di_, dj_ = (tab32n[0] + 0.5)[None, :] - fxA[:, None], (tab32n[1] + 0.5)[None, :] - fyA[:, None]
+    d2A = torch.where(st_ < 0.5 * tp.SENTINEL, di_ * di_ + dj_ * dj_, torch.full_like(st_, ss.INF))
+    del st_, di_, dj_
+    ms["B7 library topk"] = device_ms(lambda: torch.topk(d2A, 4, dim=1, largest=False), None)
+    say("timing", f"Grid A {N_SCATTER} queries torch.topk(d2, 4, largest=False) on the (n, 32) d2 matrix "
+        f"(B7's library call: the selection alone) {ms['B7 library topk']:.4f} ms  [{card}]")
+    del d2A
     wrappers = {
         "kriging_valid_t (B5)": lambda: vs.kriging_valid_t(p16, gA, *qA),
         "packed_kriging_valid (torch)": lambda: tp.packed_kriging_valid(p16, gA, *qA),
@@ -1694,7 +1786,8 @@ def main() -> int:
         "select_rows": bound(nq * (16 * 4 + 12 + (1 + 2 * 4) * 4), nq * (8 * 16 + 2 * 4 * 16)),
         # B6 reads 25 taps of each 32-float row: 112 B, four 32-byte sectors
         "idw_rows": bound(nq * (32 * 4 + 12 + 2 * 4), nq * (8 * 25 + 2 * 8 * 25 + 4 * 8)),
-        "window_select_fused": bound(nq * (32 * 4 + 12 + (1 + 3 * 4) * 4), nq * (8 * 32 + 2 * 4 * 32)),
+        # B7 likewise reads 25 taps of each row and scans them
+        "window_select_fused": bound(nq * (32 * 4 + 12 + (1 + 3 * 4) * 4), nq * (8 * 25 + 2 * 4 * 25)),
     })
     # B8, per ping of the band weave: lon and lat read, z and ok written; the
     # plane read once: a window a chunk, but no more than the whole band;
@@ -1742,7 +1835,8 @@ def main() -> int:
     rows_.append(("band_resample", "auvtpu/pallas/band_resample.py:43", launches_m["band_resample"],
                   b8_err, ms["B8 band"], ms["B8 band wrapper"], ms["B8 band plain"]))
     src["band_resample"] = "auvtpu_torch/csrc/band_resample.cu"
-    library = {"band_resample": ms["grid_sample"]}  # values only, no resolved mask
+    # B8: values only, no resolved mask; B7: the selection alone, no tie order
+    library = {"band_resample": ms["grid_sample"], "window_select_fused": ms["B7 library topk"]}
     kernels = [
         {"name": k, "route": "cuda", "source": src[k], "replaces": rep, "launches": n,
          "max_abs_err": err, "ms": t, "wrapper_ms": tw, "plain_ms": tp, "bound_ms": bounds[k][0],

@@ -1,5 +1,5 @@
-"""B1, B3, B5, B6, B7 and B8 of this checkout against another version of
-their sources, on one NVIDIA GPU.
+"""B1, B2, B3, B5, B6, B7 and B8 of this checkout against another version
+of their sources, on one NVIDIA GPU.
 
 Run from the root of a checkout:
 
@@ -9,16 +9,18 @@ where DIR holds the other version (``git archive <commit> auvtpu_torch/csrc
 | tar -x -C DIR``, into a directory .gitignore lists).  Its
 ``csrc/window_fill.cu``, ``csrc/scattered_select.cu`` and
 ``csrc/band_resample.cu`` are built with the same nvcc flags and called
-through their C interfaces.  The script knows three interfaces and reads
+through their C interfaces.  The script knows four interfaces and reads
 which one the other version has from its sources: this checkout's; commit
-91269b4's (B1 on a NaN-padded plane with its parameters in a device tensor,
-B6 as mode 1 of ``auvtpu_scattered_select``, which then took an eps); and
-commit 9ff8bad's and before (also B3 on a NaN-padded plane, B8 on band-frame
+c5e5ecf's (B2 on a NaN-padded plane, B7 as mode 2 of
+``auvtpu_scattered_select``, which then took a mode); commit 91269b4's (also
+B1 on a NaN-padded plane with its parameters in a device tensor, B6 as mode
+1 of ``auvtpu_scattered_select``, which then also took an eps); and commit
+9ff8bad's and before (also B3 on a NaN-padded plane, B8 on band-frame
 coordinates padded to whole chunks, as that version's wrappers fed them).
 Any other interface stops it before a launch.
 
 The inputs are chip_smoke.py's: the Kerguelen stand-in r0.10 (B1,
-exponential, gj, R=10) and r0.20 (B3 idw k=8 and mean k=4 at R=10; a
+exponential, gj, R=10; B2 k=4 R=10) and r0.20 (B3 idw k=8 and mean k=4 at R=10; a
 256x256 window view as the streaming refresh reads it, B3 idw k=8 at R=5,
 B1 at R=5 and R=10); 1M queries on Grid A (B5 valid16 k=4, B6 radius 2 k=8, B7 radius
 2 k=4); the 5M-ping band weave on the B1-filled band of the stand-in r0.10
@@ -26,7 +28,9 @@ B1 at R=5 and R=10); 1M queries on Grid A (B5 valid16 k=4, B6 radius 2 k=8, B7 r
 kernel is timed by its device duration in the profiler's kernel records
 (CUPTI), so no host time enters: back to back (inputs warm in the L2) and
 cold (a 128 MB write before each launch), in the order other, this, this,
-other.  Then the static SASS instruction mix (``cuobjdump -sass``) of the
+other.  B2's call is timed too, by the device duration of all its records:
+a NaN-padded plane's launches are part of the call in a version whose
+wrapper builds one.  Then the static SASS instruction mix (``cuobjdump -sass``) of the
 timed kernels of both versions, by class.  Prints the card's name and power
 limit beside the numbers.
 """
@@ -70,10 +74,18 @@ EARLIER = {
     "auvtpu_kriging_fill": {"91269b4": (
         "const void* nanp, const void* tab, int m, int H, int W, int R, const void* par, int model, int solver, "
         "int with_variance, void* out, void* stream", [P, P, I, I, I, I, P, I, I, I, P, P])},
-    "auvtpu_scattered_select": {"91269b4": (
-        "const void* pack, int P, const void* cell, const void* fxy, const void* tab, int n, int k, int mode, "
-        "int emit_d2, float half, int has_resolve, float resolve_thresh, float eps, void* out, void* stream",
-        [P, I, P, P, P, I, I, I, I, F, I, F, F, P, P])},
+    "auvtpu_scattered_select": {
+        "c5e5ecf": (
+            "const void* pack, int P, const void* cell, const void* fxy, const void* tab, int n, int k, int mode, "
+            "int emit_d2, float half, int has_resolve, float resolve_thresh, void* out, void* stream",
+            [P, I, P, P, P, I, I, I, I, F, I, F, P, P]),
+        "91269b4": (
+            "const void* pack, int P, const void* cell, const void* fxy, const void* tab, int n, int k, int mode, "
+            "int emit_d2, float half, int has_resolve, float resolve_thresh, float eps, void* out, void* stream",
+            [P, I, P, P, P, I, I, I, I, F, I, F, F, P, P])},
+    "auvtpu_topk_full": {"c5e5ecf": (
+        "const void* nanp, const void* tab, int m, int H, int W, int R, int k, void* out, void* stream",
+        [P, P, I, I, I, I, I, P, P])},
 }
 THIS_LIB = {"window_fill": wf._lib, "scattered_select": ss._lib, "band_resample": kb._lib}
 
@@ -129,20 +141,36 @@ def b1_earlier(lib, grid, R: int, stream):
     return launch
 
 
-def select_launcher(lib, earlier: bool, pack, P: int, cell, fx, fy, tab, mode: int, k: int, stream):
-    """B5 (mode 0), B7 (mode 2) or, for 91269b4, B6 (mode 1) through
-    auvtpu_scattered_select, output allocated once."""
+def select_launcher(lib, ifc: str, pack, P: int, cell, fx, fy, tab, mode: int, k: int, stream):
+    """B5 (mode 0) through auvtpu_scattered_select, or, for the earlier
+    interfaces, B7 (mode 2) and, for 91269b4, B6 (mode 1) too; output
+    allocated once."""
     n = cell.numel()
     rows = {0: 1 + 2 * k, 1: 2, 2: 1 + 3 * k}[mode]
     out = torch.empty(rows * n, device=pack.device)
     cell32, fxy = cell.to(torch.int32).contiguous(), torch.stack([fx, fy]).contiguous()
-    eps = [IDWConfig(k=k).eps] if earlier else []
+    mode_ = [] if ifc == "this" else [mode]
+    eps = [IDWConfig(k=k).eps] if ifc == "91269b4" else []
 
     def launch():
         lib.auvtpu_scattered_select(pack.data_ptr(), P, cell32.data_ptr(), fxy.data_ptr(), tab.data_ptr(), n, k,
-                                    mode, 0, 0.5, 0, 0.0, *eps, out.data_ptr(), stream)
+                                    *mode_, 0, 0.5, 0, 0.0, *eps, out.data_ptr(), stream)
 
     return launch
+
+
+def b2_earlier(lib, grid, R: int, stream):
+    """B2 of c5e5ecf: (the kernel on a NaN-padded plane made once here, the
+    call: that version's wrapper, the padded plane made, then the kernel)."""
+    H, W = grid.shape
+    tab = wf._device_table(R, "reference", grid.device)
+    out = torch.empty((13, H, W), device=grid.device)
+    nanp = wf._nan_padded(grid, R)
+
+    def launch(nanp=nanp):
+        lib.auvtpu_topk_full(nanp.data_ptr(), tab.data_ptr(), tab.shape[0], H, W, R, 4, out.data_ptr(), stream)
+
+    return launch, lambda: launch(wf._nan_padded(grid, R))
 
 
 SASS_CLASSES = {
@@ -183,7 +211,7 @@ def sass_mix(lib_path: str, matches: list[str]) -> dict:
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--parent", required=True, help="root of the other version's checkout")
-    ap.add_argument("--only", default="B1,B3,B5,B6,B7,B8", help="the kernels to time, e.g. B1,B6")
+    ap.add_argument("--only", default="B1,B2,B3,B5,B6,B7,B8", help="the kernels to time, e.g. B2,B7")
     args = ap.parse_args()
     only = set(args.only.split(","))
     if not torch.cuda.is_available():
@@ -196,16 +224,20 @@ def main() -> int:
     lib_wf, lib_ss, lib_kb = (other[n][0] for n in ("window_fill", "scattered_select", "band_resample"))
     ifc = {
         "B1": interface(args.parent, "window_fill", lib_wf, "auvtpu_kriging_fill"),
+        "B2": interface(args.parent, "window_fill", lib_wf, "auvtpu_topk_full"),
         "B3": interface(args.parent, "window_fill", lib_wf, "auvtpu_fill"),
-        "B5/B7": interface(args.parent, "scattered_select", lib_ss, "auvtpu_scattered_select"),
+        "B5": interface(args.parent, "scattered_select", lib_ss, "auvtpu_scattered_select"),
         "B6": interface(args.parent, "scattered_select", lib_ss, "auvtpu_idw_select"),
+        "B7": interface(args.parent, "scattered_select", lib_ss, "auvtpu_window_select"),
         "B8": interface(args.parent, "band_resample", lib_kb, "auvtpu_band_resample"),
     }
-    if ifc["B6"] is None and ifc["B5/B7"] != "91269b4":
+    if ifc["B6"] is None and ifc["B5"] != "91269b4":
         raise SystemExit("the other version has neither auvtpu_idw_select nor 91269b4's B6 mode")
-    if ifc["B1"] is None:
-        raise SystemExit("the other version has no auvtpu_kriging_fill")
-    print("other version's interfaces: " + ", ".join(f"{k} {v or 'B5/B7 mode 1'}" for k, v in ifc.items()),
+    if ifc["B7"] is None and ifc["B5"] == "this":
+        raise SystemExit("the other version has neither auvtpu_window_select nor an earlier B7 mode")
+    if ifc["B1"] is None or ifc["B2"] is None:
+        raise SystemExit("the other version has no auvtpu_kriging_fill or no auvtpu_topk_full")
+    print("other version's interfaces: " + ", ".join(f"{k} {v or 'a mode of B5'}" for k, v in ifc.items()),
           flush=True)
     stream = wf._stream(dev)
     cases = []
@@ -222,6 +254,19 @@ def main() -> int:
         old_b1 = cs.b1_launcher(g, R, lib=lib_wf) if ifc["B1"] == "this" else b1_earlier(lib_wf, g, R, stream)
         cases.append((f"{label} B1 exponential gj", old_b1, "kriging_fill_kernel", cs.b1_launcher(g, R),
                       "kriging_fill_kernel"))
+
+    # B2 on the stand-in r0.10, k=4 R=10 (the select backend's workload):
+    # the kernel alone, and the call with what it launches besides
+    calls = []
+    if "B2" in only:
+        if ifc["B2"] == "this":
+            old_b2, old_call = cs.b2_launcher(grid, lib=lib_wf), None
+        else:
+            old_b2, old_call = b2_earlier(lib_wf, grid, 10, stream)
+        cases.append(("stand-in r0.10 B2 k=4 R=10", old_b2, "topk_", cs.b2_launcher(grid), "topk_tile_kernel"))
+        if old_call is not None:
+            calls.append(("stand-in r0.10 B2 k=4 R=10 call (all device records)", old_call,
+                          lambda: wf.topk_full(grid, k=4, max_radius=10)))
 
     # B3 on the stand-in r0.20 and on the 256x256 window view at R=5
     for label, g, R, kind, k in (("stand-in r0.20 idw k=8 R=10", grid2, 10, 0, 8),
@@ -253,19 +298,21 @@ def main() -> int:
     tab16 = ss.table(tp.VALID16_OFFSETS, 16, 2, "dy", dev)
     tab32 = ss.table(tp.window_offsets(2), 32, 2, "dy", dev)
     tab32n = ss.table(tp.window_offsets(2), 32, 2, "dx", dev)
-    earlier_ss = ifc["B5/B7"] == "91269b4"
-    for label, pk, P_, tab, mode, k in (("Grid A 1M B5 valid16 k=4", p16, 16, tab16, 0, 4),
-                                        ("Grid A 1M B7 radius 2 k=4", winA, 32, tab32n, 2, 4)):
-        if label.split()[3] not in only:
-            continue
-        cases.append((label, select_launcher(lib_ss, earlier_ss, pk, P_, cellA, fxA, fyA, tab, mode, k, stream),
-                      "select_kernel", select_launcher(ss._lib(), False, pk, P_, cellA, fxA, fyA, tab, mode, k, stream),
+    if "B5" in only:
+        cases.append(("Grid A 1M B5 valid16 k=4",
+                      select_launcher(lib_ss, ifc["B5"], p16, 16, cellA, fxA, fyA, tab16, 0, 4, stream), "select_kernel",
+                      select_launcher(ss._lib(), "this", p16, 16, cellA, fxA, fyA, tab16, 0, 4, stream),
                       "select_kernel"))
     if "B6" in only:
         old_b6 = (cs.b6_launcher(winA, 32, cellA, fxA, fyA, tab32, 8, lib=lib_ss) if ifc["B6"] == "this"
-                  else select_launcher(lib_ss, True, winA, 32, cellA, fxA, fyA, tab32, 1, 8, stream))
+                  else select_launcher(lib_ss, ifc["B5"], winA, 32, cellA, fxA, fyA, tab32, 1, 8, stream))
         cases.append(("Grid A 1M B6 radius 2 k=8", old_b6, "select_kernel",
                       cs.b6_launcher(winA, 32, cellA, fxA, fyA, tab32, 8), "idw_select_kernel"))
+    for k in (4, 8) if "B7" in only else ():
+        old_b7 = (cs.b7_launcher(winA, 32, cellA, fxA, fyA, tab32n, k, lib=lib_ss) if ifc["B7"] == "this"
+                  else select_launcher(lib_ss, ifc["B5"], winA, 32, cellA, fxA, fyA, tab32n, 2, k, stream))
+        cases.append((f"Grid A 1M B7 radius 2 k={k}", old_b7, "select_kernel",
+                      cs.b7_launcher(winA, 32, cellA, fxA, fyA, tab32n, k), "window_select_kernel"))
 
     # B8 on the 5M band weave
     tracks = cs.band_tracks(grid, cs.N_BAND)
@@ -301,9 +348,17 @@ def main() -> int:
             print(f"{label:56s} {'cold' if cold else 'back to back':12s} other {t[0]:.4f} / {t[3]:.4f} ms, "
                   f"this {t[1]:.4f} / {t[2]:.4f} ms  [{card}]", flush=True)
 
+    for label, old, new in calls:
+        t = [cs.device_ms(old, None), cs.device_ms(new, None), cs.device_ms(new, None), cs.device_ms(old, None)]
+        print(f"{label:56s} {'back to back':12s} other {t[0]:.4f} / {t[3]:.4f} ms, "
+              f"this {t[1]:.4f} / {t[2]:.4f} ms  [{card}]", flush=True)
+        print(f"{'':56s} other's records {cs.device_kernels(old)}; this {cs.device_kernels(new)}", flush=True)
+
     # the static SASS mix of the timed kernels (the instantiations above)
-    matches = ["kriging_fill_kernel<0, 0, false", "select_kernel<32, 1>", "select_kernel<16, 0>",
-               "select_kernel<32, 2>", "idw_select_kernel<25, 32, true>", "fill_tile_kernel<0, 4>"]
+    matches = ["kriging_fill_kernel<0, 0, false", "select_kernel<32, 1>", "select_kernel<16, 0>", "select_kernel<16>",
+               "select_kernel<32, 2>", "idw_select_kernel<25, 32, true>", "window_select_kernel<25, 4, true>",
+               "window_select_kernel<25, 8, true>", "fill_tile_kernel<0, 4>", "topk_full_kernel<4, false>",
+               "topk_tile_kernel<4, 8>"]
     for who, paths in (("other", [other[n][1] for n in ("window_fill", "scattered_select")]),
                        ("this", [str(kbuild.library_path(n)) for n in ("window_fill", "scattered_select")])):
         for path in paths:

@@ -7,7 +7,7 @@ kriging fill, 20 % for the IDW/mean fills and the slot-index selection; a
 4096x4096 streaming mosaic):
 
 - CUDA-event medians of the pieces of each fused path: the NaN-padded plane
-  the B2 and B4 wrappers build, each kernel launched alone on ready inputs
+  the B4 wrapper builds, each kernel launched alone on ready inputs
   (B1 and B3 also by their device duration in the profiler's kernel
   records, back to back and with the L2 cold), and its whole wrapper; the
   variogram fit
@@ -179,16 +179,11 @@ def main() -> int:
     grid, rows, cols, truth = cs.bench_workload(dev)
     R = 10
     H, W = grid.shape
-    nanp = wf._nan_padded(grid, R)
     tab = wf._device_table(R, "reference", dev)
-    sel_out = torch.empty((13, H, W), device=dev)
     lib = wf._lib()
     stream = wf._stream(dev)
     b1_kernel = cs.b1_launcher(grid, R)
-
-    def b2_kernel():
-        lib.auvtpu_topk_full(nanp.data_ptr(), tab.data_ptr(), tab.shape[0], H, W, R, 4,
-                             sel_out.data_ptr(), stream)
+    b2_kernel = cs.b2_launcher(grid, 4, R)
 
     grid2, rows2, cols2, _ = cs.bench_workload(dev, 0.20)
     nanp2 = wf._nan_padded(grid2, R)
@@ -209,7 +204,7 @@ def main() -> int:
         t = cs.device_ms(b1_kernel, "kriging_fill_kernel", cold=cold)
         print(f"{'B1 kernel alone (' + ('cold' if cold else 'back to back') + ', device)':44s} {t:9.4f} ms  [{card}]")
     pieces = {
-        "NaN-padded plane (B2, B4 wrappers)": lambda: wf._nan_padded(grid, R),
+        "NaN-padded plane (B4 wrapper)": lambda: wf._nan_padded(grid, R),
         "B1 kernel alone": b1_kernel,
         "B1 wrapper (fused fill)": lambda: wf.fill_kriging_fused(grid),
         "B2 kernel alone": b2_kernel,

@@ -1,8 +1,9 @@
-"""What the B1 and B6 wrappers hand their kernels, checked on the CPU: B6's
-tap table by value (the real taps of the window and their offsets plus the
-half-cell shift) and B1's parameters by value or by device address, and the
-divisor rule that keeps the plain kriging solve's division a division on a
-card."""
+"""What the B1, B2, B6 and B7 wrappers hand their kernels, checked on the
+CPU: B6's and B7's tap tables by value (the real taps of the window, their
+offsets plus the half-cell shift and B7's codes, against the JAX package's
+lane tables), B1's parameters by value or by device address, B2's checks
+and row pitches, and the divisor rule that keeps the plain kriging solve's
+division a division on a card."""
 
 import ctypes
 
@@ -10,6 +11,7 @@ import numpy as np
 import pytest
 import torch
 
+from auvtpu.pallas.scattered_select import _lane_tables
 from auvtpu_torch.config import Extent, KrigingConfig
 from auvtpu_torch.grid import RegularGrid, divisor
 from auvtpu_torch.kernels import scattered_select as ss
@@ -46,6 +48,77 @@ def test_idw_taps_refuse_a_row_too_wide_for_a_build():
     tab[0, 31] = 1.0  # a 32nd real tap: rows of 32 are built for 25
     with pytest.raises(ValueError, match="no build"):
         ss._idw_taps(tab, 32, 0.5)
+
+
+@pytest.mark.parametrize("radius", [1, 2, 3])
+@pytest.mark.parametrize("convention,half", [("reference", 0.5), ("centered", 0.0)])
+@pytest.mark.parametrize("copied", [False, True], ids=["table", "copy"])
+def test_window_taps_match_the_lane_tables(radius, convention, half, copied):
+    # B7's by-value operands: (dx + half, dy + half, code) of each real tap,
+    # as pallas_window_select's lane tables hold them (the TPU kernel adds
+    # its half-cell shift in the kernel)
+    offs = window_offsets(radius, convention)
+    P = pack_width(len(offs))
+    tab = ss.table(offs, P, radius, "dx", "cpu")
+    if copied:
+        tab = tab.clone()
+    M, taps = ss._window_taps(tab, P, half)
+    assert M == len(offs) == (2 * radius + 1) ** 2 and taps.dtype == np.float32 and taps.shape == (3 * M,)
+    dy, dx, code, _ = _lane_tables(radius, P)
+    h = np.float32(half)
+    np.testing.assert_array_equal(taps[:M], dx[0, :M] + h)
+    np.testing.assert_array_equal(taps[M:2 * M], dy[0, :M] + h)
+    np.testing.assert_array_equal(taps[2 * M:], code[0, :M])
+    assert (code[0, M:P] == -1).all()  # the padding lanes B7 no longer reads
+
+
+@pytest.mark.parametrize("offs,R,P,layout", [
+    (window_offsets(2), 2, 32, "dy"),  # B6's layout: every code is a real one
+    (VALID16_OFFSETS, 2, 16, "dx"),  # 16 taps: no build
+    (window_offsets(2), 2, 64, "dx"),  # rows of 64 are built for 49 taps
+])
+def test_window_taps_refuse_a_table_without_a_build(offs, R, P, layout):
+    with pytest.raises(ValueError, match="no build"):
+        ss._window_taps(ss.table(offs, P, R, layout, "cpu"), P, 0.5)
+
+
+def _planes(h=6, w=8, dtype=torch.float32):
+    elev = torch.arange(float(h * w), dtype=dtype).reshape(h, w)
+    return elev, torch.ones_like(elev)
+
+
+@pytest.mark.parametrize("k", [1, 4, 16])
+def test_topk_full_args_take_the_planes_pitches(k):
+    elev, valid = _planes()
+    g = RegularGrid(elev, valid, 0.0, 7.0, 0.0, 5.0)
+    assert wf._topk_full_args(g, k) == (8, 8)
+    # a window view of a larger mosaic is read in place, with its own pitch
+    big_e, big_v = torch.zeros(20, 30), torch.zeros(20, 24)
+    view = RegularGrid(big_e[3:9, 5:13], big_v[2:8, 1:9], 0.0, 7.0, 0.0, 5.0)
+    assert wf._topk_full_args(view, k) == (30, 24)
+
+
+@pytest.mark.parametrize("k", [0, 17, -1])
+def test_topk_full_args_refuse_k_outside_the_slots(k):
+    g = RegularGrid(*_planes(), 0.0, 7.0, 0.0, 5.0)
+    with pytest.raises(ValueError, match="outside 1..16"):
+        wf._topk_full_args(g, k)
+
+
+@pytest.mark.parametrize("which", ["elev", "valid", "both"])
+def test_topk_full_args_refuse_planes_not_float32(which):
+    e32, v32 = _planes()
+    e64, v64 = _planes(dtype=torch.float64)
+    elev, valid = {"elev": (e64, v32), "valid": (e32, v64), "both": (e64, v64)}[which]
+    with pytest.raises(TypeError, match="float32"):
+        wf._topk_full_args(RegularGrid(elev, valid, 0.0, 7.0, 0.0, 5.0), 4)
+
+
+def test_topk_full_args_refuse_a_column_stride():
+    elev, valid = _planes()
+    g = RegularGrid(elev.t().contiguous().t(), valid, 0.0, 7.0, 0.0, 5.0)
+    with pytest.raises(ValueError, match="unit column stride"):
+        wf._topk_full_args(g, 4)
 
 
 def _grid():
