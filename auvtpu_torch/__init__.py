@@ -1,6 +1,7 @@
-"""auvtpu_torch: the dense (Grid B) fills, the streaming mosaic and the
-scattered (Grid A) serving of :mod:`auvtpu` in PyTorch, with hand-written
-CUDA kernels for NVIDIA Hopper (sm_90a).
+"""auvtpu_torch: the dense (Grid B) fills, the streaming mosaic, the
+scattered (Grid A) serving, mission serving, exact mode and the learned
+baseline of :mod:`auvtpu` in PyTorch, with hand-written CUDA kernels for
+NVIDIA Hopper (sm_90a).
 
 Imports torch, numpy and the standard library only (scipy and pandas for
 file I/O), never jax or auvtpu.
@@ -12,14 +13,17 @@ file I/O), never jax or auvtpu.
 - :mod:`auvtpu_torch.synthetic`  synthetic bathymetry (Kerguelen stand-in)
 - :mod:`auvtpu_torch.variogram`  empirical variogram + Gauss-Newton fit
 - :mod:`auvtpu_torch.ops`        kriging solve; bilinear, mean, IDW, kriging fills;
-                                 scattered ops, stencil packs, TwoTierInterpolator
+                                 scattered ops, stencil packs, TwoTierInterpolator;
+                                 the band router; exact mode (f64)
+- :mod:`auvtpu_torch.learned`    the masked-convolution inpainting baseline
 - :mod:`auvtpu_torch.golden`     f64 numpy oracles (GoldenGrid, GoldenV2)
 - :mod:`auvtpu_torch.kernels`    CUDA kernels, their wrappers, the nvcc build
 - :mod:`auvtpu_torch.streaming`  StreamingInterpolator: staged ingest, window fills
 - :mod:`auvtpu_torch.metrics`    the reference's error metrics
 - :mod:`auvtpu_torch.io`         GEBCO tiles, grid/point CSVs, the results CSV
 - :mod:`auvtpu_torch.utils`      end-to-end and steady-state timing
-- :mod:`auvtpu_torch.cli`        bench_grid_a, bench_grid_b, stream_demo
+- :mod:`auvtpu_torch.cli`        bench_grid_a, bench_grid_b, stream_demo, mission,
+                                 learned_eval
 - :mod:`auvtpu_torch.convert`    state from the JAX package, numpy in
 - :mod:`auvtpu_torch.entry`      fit_fill: fit, fill, keep observed cells
 """

@@ -8,7 +8,8 @@ Workflow (test_interpolation.cpp:115-322):
    bilinear / bicubic / kriging / IDW on the device;
 3. cross-validate the first 10 points against the float64 golden engine
    (GoldenGrid for bilinear and bicubic, GoldenV2 for kriging and IDW) at
-   5e-5 x scale, the f32 bar of the JAX CLI;
+   5e-5 x scale, the f32 bar of the JAX CLI (exact mode: GoldenGrid for
+   all three at 1e-9);
 4. append reference-schema rows (GridType=A, error columns 'nan');
 5. optionally (--expanded) the 2x-densified grid pass, written as grid CSVs
    (test_interpolation.cpp:283-306).
@@ -18,9 +19,12 @@ float32 CUDA grid with window radius <= 2, ``--backend auto`` runs Kriging
 through the valid16 B5 kernel and IDW through B6, where the JAX CLI runs
 its Pallas kernels; ``--backend fused`` runs both through B7; elsewhere,
 and with ``--backend torch``, they are the torch packed paths.  Bilinear
-and Cubic have no kernel.  The exact-selection mode (``--selection
-exact``) and the ``--debug`` modes of the JAX CLI are not in the port yet:
-they wait for exact mode.
+and Cubic have no kernel.  ``--selection exact`` reproduces the reference
+CPU engine digit for digit at arbitrary coordinates: the f64 ring selection
+with swap tie-breaks of ``ops/exact.py`` on an f64 grid for Bilinear, Cubic
+and Kriging (IDW is dropped: the reference has no scattered IDW), validated
+against GoldenGrid at 1e-9 x scale.  The ``--debug`` modes of the JAX CLI
+are not in the port yet.
 
 Run: ``python3 -m auvtpu_torch.cli.bench_grid_a --batch-sizes 1000000``
 """
@@ -47,6 +51,7 @@ from ..ops import (
     upsample2x_bicubic,
     upsample2x_bilinear,
 )
+from ..ops.exact import exact_bilinear_scattered, exact_cubic_scattered, exact_kriging_scattered
 from ..ops.packs import (
     StencilPack,
     build_valid16_pack,
@@ -60,6 +65,7 @@ from ..synthetic import shelf_seamount
 from ..utils import steady_state_ms, time_once_ms, warm_e2e_ms
 
 VALIDATION_TOL = 5e-5  # x max(1, |golden|): the f32 bar of the JAX CLI
+EXACT_VALIDATION_TOL = 1e-9  # the f64 exact mode's bar
 
 
 def log(*a):
@@ -161,8 +167,16 @@ def main(argv=None):
         help="candidate window radius for kriging/IDW; 2 is exact on fully "
         "valid grids (the k<=8 nearest cells always lie within Chebyshev 2)",
     )
+    p.add_argument(
+        "--selection", choices=["v2", "exact"], default="v2",
+        help="exact = reproduce the reference CPU engine digit for digit at "
+        "arbitrary coordinates (f64 ring selection with swap tie-breaks, "
+        "ops/exact.py, on an f64 grid; Bilinear, Cubic and Kriging). v2 = "
+        "true-k-nearest production semantics.",
+    )
     p.add_argument("--device", default="cuda", help="torch device of the grid (default: the card)")
     args = p.parse_args(argv)
+    exact = args.selection == "exact"
 
     if args.grid_csv:
         elev = np.load(args.grid_csv) if args.grid_csv.endswith(".npy") else read_grid_csv(args.grid_csv)
@@ -172,19 +186,43 @@ def main(argv=None):
     ext = GRID_A_EXTENT
     log(f"grid dimensions: {elev.shape[1]} x {elev.shape[0]}")
 
-    grid = RegularGrid.dense(elev, ext, device=args.device)
+    if exact:
+        grid = RegularGrid.from_nan_array(elev, ext, dtype=torch.float64, device=args.device)
+    else:
+        grid = RegularGrid.dense(elev, ext, device=args.device)
     golden = GoldenGrid(elev, ext.min_lon, ext.max_lon, ext.min_lat, ext.max_lat)
     # kriging/IDW follow the v2 selection (true k nearest): the v2 oracle
     golden_v2 = GoldenV2(elev, ext.min_lon, ext.max_lon, ext.min_lat, ext.max_lat)
     goldens = {
         "Bilinear": golden.bilinear,
         "Cubic": golden.cubic,
-        "Kriging": golden_v2.kriging,
+        # exact mode targets the reference engine itself, v2 its
+        # true-k-nearest semantics (docs/SEMANTICS.md)
+        "Kriging": golden.kriging if exact else golden_v2.kriging,
         "IDW": lambda lo, la: golden_v2.idw(lo, la, k=8),
     }
     results = ResultsWriter(args.results, with_region=True, with_cold=True)
-    ops, label = make_ops(grid, elev, packed=args.packed, backend=args.backend, window_radius=args.window_radius)
+    if exact:
+        R = args.window_radius if args.window_radius > 2 else 10
+        ops = {
+            "Bilinear": exact_bilinear_scattered,
+            "Cubic": lambda g, lo, la: exact_cubic_scattered(g, lo, la, max_radius=R),
+            "Kriging": lambda g, lo, la: exact_kriging_scattered(g, lo, la, max_radius=R),
+        }
+        dropped = [m for m in args.methods if m not in ops]
+        if dropped:
+            log(f"exact mode: dropping unsupported methods {dropped} "
+                "(the reference engine has no scattered IDW to be exact against)")
+        args.methods = [m for m in args.methods if m in ops]
+        if args.backend == "fused":
+            log("exact mode: ignoring --backend fused (exact selection is the f64 parity path; the kernels are "
+                "f32-only)")
+        label = "the exact f64 ring selection"
+    else:
+        ops, label = make_ops(grid, elev, packed=args.packed, backend=args.backend,
+                              window_radius=args.window_radius)
     log(f"grid on {grid.device}, backend {args.backend}: kriging/IDW by {label}")
+    tol = EXACT_VALIDATION_TOL if exact else VALIDATION_TOL
 
     gen = torch.Generator(device=grid.device).manual_seed(args.seed)
     overall_ok = True
@@ -195,11 +233,16 @@ def main(argv=None):
         lats_h = lats.cpu().numpy().astype(np.float64)
         # enough queued calls that small batches report device time
         iters = int(np.clip(2_000_000 // max(n, 1), 5, 100))
+        qlo, qla = lons, lats
+        if exact:
+            # the parity path takes raw f64 coordinates (host-prepared)
+            qlo, qla = lons_h, lats_h
+            iters = 2
         for method in args.methods:
             fn = ops[method]
-            first_ms, _ = time_once_ms(fn, grid, lons, lats)  # kernel build, caches; log only
-            e2e_ms, out = warm_e2e_ms(fn, grid, lons, lats)
-            warm_ms = steady_state_ms(fn, grid, lons, lats, iters=iters)
+            first_ms, _ = time_once_ms(fn, grid, qlo, qla)  # kernel build, caches; log only
+            e2e_ms, out = warm_e2e_ms(fn, grid, qlo, qla)
+            warm_ms = steady_state_ms(fn, grid, qlo, qla, iters=iters)
             log(
                 f"[A n={n:>9}] {method:8s} end-to-end {e2e_ms:8.2f} ms   "
                 f"steady {warm_ms:8.3f} ms  ({n / warm_ms * 1e3 / 1e6:8.2f} M pts/s)"
@@ -213,9 +256,9 @@ def main(argv=None):
             if args.validate and n <= 1_000_000:
                 m = min(VALIDATION_POINTS, n)
                 want = goldens[method](lons_h[:m], lats_h[:m])
-                got = out[:m].detach().cpu().numpy().astype(np.float64)
+                got = np.asarray(out[:m].cpu() if torch.is_tensor(out) else out[:m], np.float64)
                 scale = max(1.0, float(np.nanmax(np.abs(want))))
-                validated = bool(np.allclose(got, want, atol=VALIDATION_TOL * scale, equal_nan=True))
+                validated = bool(np.allclose(got, want, atol=tol * scale, equal_nan=True))
                 overall_ok &= validated
                 log(f"          validation vs golden ({m} pts): {'PASSED' if validated else 'FAILED'}")
             summary[(method, n)] = dict(steady_ms=warm_ms, e2e_ms=e2e_ms, validated=validated)

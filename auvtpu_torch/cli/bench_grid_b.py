@@ -11,9 +11,12 @@ Workflow (test_gebco.cpp:100-308):
 
 On a CUDA grid ``--backend auto`` runs Cubic and IDW through the B3 fill
 kernel and Kriging through the fused B1 kernel; Bilinear has no kernel and
-is plain torch.  The exact-selection mode (``--selection exact``,
-``--exact-tier``) and the ``--debug`` modes of the JAX CLI are not in the
-port yet.
+is plain torch.  ``--selection exact`` reproduces the reference's own
+selection (ring-segment cutoff and swap tie-breaks, ``ops/exact.py``) on an
+f64 grid for Bilinear, Cubic and Kriging, with Kriging by the two-tier
+engine (``--exact-tier two``, ``ops/exact_fast.py``) or the strict one; it
+implies ``--convention reference``.  The ``--debug`` modes of the JAX CLI
+are not in the port yet.
 
 Run: ``python3 -m auvtpu_torch.cli.bench_grid_b --region kerguelen``
 """
@@ -37,7 +40,17 @@ from ..io import (
 )
 from ..masking import mask_grid
 from ..metrics import all_reference_metrics, coverage
-from ..ops import fill_bilinear, fill_idw, fill_window_mean, kriging_at_cells, resolve_backend
+from ..ops import (
+    exact_bilinear_at_cells,
+    exact_cubic_at_cells,
+    exact_kriging_at_cells,
+    fill_bilinear,
+    fill_idw,
+    fill_window_mean,
+    kriging_at_cells,
+    resolve_backend,
+)
+from ..ops.exact_fast import exact_kriging_at_cells_fast
 from ..synthetic import kerguelen_standin
 from ..utils import steady_state_ms, time_once_ms, warm_e2e_ms
 
@@ -93,6 +106,20 @@ def main(argv=None):
         "symmetric metric (docs/SEMANTICS.md)",
     )
     p.add_argument(
+        "--selection", choices=["v2", "exact"], default="v2",
+        help="neighbour selection: 'v2' = true-k-nearest dense ops; 'exact' = the "
+        "reference's selection (ring-segment cutoff + swap tie-breaks, "
+        "GridH.cpp:24-140) on an f64 grid, solves in f64: reproduces the "
+        "published error tables (Bilinear, Cubic and Kriging only)",
+    )
+    p.add_argument(
+        "--exact-tier", choices=["strict", "two"], default="two",
+        help="exact-mode kriging engine: 'two' = dense whole-plane selection + "
+        "boundary-tie escalation + lattice-gamma f64 solve (ops/exact_fast.py); "
+        "'strict' = the (N, 441)-lane selection with full swap-order emulation "
+        "(Bilinear and Cubic always use it)",
+    )
+    p.add_argument(
         "--variogram-model", default="exponential",
         choices=["exponential", "linear", "spherical", "gaussian", "best"],
         help="kriging variogram model; non-exponential models FIT their "
@@ -103,6 +130,9 @@ def main(argv=None):
     )
     p.add_argument("--device", default="cuda", help="torch device of the grid (default: the card)")
     args = p.parse_args(argv)
+    exact = args.selection == "exact"
+    if exact and args.convention != "reference":
+        p.error("--selection exact implies --convention reference")
 
     if args.reduced_csv:
         reduced = read_grid_csv(args.reduced_csv)
@@ -116,13 +146,14 @@ def main(argv=None):
     n_pts = len(truth)
     log(f"masked grid {reduced.shape[1]} x {reduced.shape[0]}, {n_pts} held-out points")
 
-    grid = RegularGrid.from_nan_array(reduced, ext, device=args.device)
+    grid = RegularGrid.from_nan_array(reduced, ext, dtype=torch.float64 if exact else torch.float32,
+                                      device=args.device)
     rows = torch.as_tensor(rc[:, 0], dtype=torch.int64).to(grid.device)
     cols = torch.as_tensor(rc[:, 1], dtype=torch.int64).to(grid.device)
     flat = rows * grid.num_lon + cols
     results = ResultsWriter(args.results, with_region=True, with_cold=True)
     backend = resolve_backend(args.backend, grid.elev)
-    log(f"grid on {grid.device}, backend {args.backend} -> {backend}")
+    log(f"grid on {grid.device}, " + ("exact selection, f64" if exact else f"backend {args.backend} -> {backend}"))
 
     def at_cells(plane):
         return plane.reshape(-1)[flat]
@@ -131,34 +162,45 @@ def main(argv=None):
     machine = args.machine if conv == "reference" else f"{args.machine}-centered"
     vmodel = args.variogram_model
     vparams = None
-    if vmodel != "exponential":
-        # the reference constants are exponential-only: fit this model to
-        # the masked grid's own empirical variogram
-        from ..variogram import empirical_variogram, fit_best_model, fit_model
+    if exact:
+        machine = f"{args.machine}-exact"
+        krig = exact_kriging_at_cells_fast if args.exact_tier == "two" else exact_kriging_at_cells
+        ops = {
+            "Bilinear": lambda: exact_bilinear_at_cells(grid, rc[:, 0], rc[:, 1]),
+            "Cubic": lambda: exact_cubic_at_cells(grid, rc[:, 0], rc[:, 1]),
+            "Kriging": lambda: krig(grid, rc[:, 0], rc[:, 1]),
+        }
+        args.methods = [m for m in args.methods if m in ops]
+    else:
+        if vmodel != "exponential":
+            # the reference constants are exponential-only: fit this model
+            # to the masked grid's own empirical variogram
+            from ..variogram import empirical_variogram, fit_best_model, fit_model
 
-        lags_e, gamma_e, counts_e = empirical_variogram(grid)
-        step = 0.5 * (abs(grid.lat_step) + abs(grid.lon_step))
-        if vmodel == "best":
-            vmodel, vparams, sse = fit_best_model(lags_e * step, gamma_e, counts_e)
-            log(f"best-fit model: {vmodel} (weighted SSE {sse:.4g})")
-        else:
-            vparams = fit_model(lags_e * step, gamma_e, counts_e, model=vmodel)
-        machine = f"{machine}-{vmodel}"
-        log(f"fitted {vmodel} variogram: " + " ".join(f"{float(v):.4g}" for v in vparams))
-
-    ops = {
-        "Bilinear": lambda: at_cells(fill_bilinear(grid)),
-        "Cubic": lambda: at_cells(fill_window_mean(grid, k=4, convention=conv, backend=backend)),
-        "Kriging": lambda: kriging_at_cells(
-            grid, rows, cols, convention=conv, backend=backend,
-            vparams=vparams, model=vmodel,
-        ),
-        "IDW": lambda: at_cells(fill_idw(grid, k=args.idw_k, convention=conv, backend=backend)),
-    }
+            lags_e, gamma_e, counts_e = empirical_variogram(grid)
+            step = 0.5 * (abs(grid.lat_step) + abs(grid.lon_step))
+            if vmodel == "best":
+                vmodel, vparams, sse = fit_best_model(lags_e * step, gamma_e, counts_e)
+                log(f"best-fit model: {vmodel} (weighted SSE {sse:.4g})")
+            else:
+                vparams = fit_model(lags_e * step, gamma_e, counts_e, model=vmodel)
+            machine = f"{machine}-{vmodel}"
+            log(f"fitted {vmodel} variogram: " + " ".join(f"{float(v):.4g}" for v in vparams))
+        ops = {
+            "Bilinear": lambda: at_cells(fill_bilinear(grid)),
+            "Cubic": lambda: at_cells(fill_window_mean(grid, k=4, convention=conv, backend=backend)),
+            "Kriging": lambda: kriging_at_cells(
+                grid, rows, cols, convention=conv, backend=backend,
+                vparams=vparams, model=vmodel,
+            ),
+            "IDW": lambda: at_cells(fill_idw(grid, k=args.idw_k, convention=conv, backend=backend)),
+        }
 
     # steady-state iteration count scales inversely with batch size, so
     # small batches still report device time rather than host overhead
     iters = int(np.clip(2_000_000 // max(n_pts, 1), 5, 100))
+    if exact:
+        iters = 3  # the parity mode: correctness is the product, not throughput
 
     summary = {}
     for method in args.methods:
@@ -166,7 +208,7 @@ def main(argv=None):
         first_ms, _ = time_once_ms(fn)  # kernel build + warm-up; log-only, never CSV
         e2e_ms, out = warm_e2e_ms(fn)
         warm_ms = steady_state_ms(fn, iters=iters)
-        pred = out.detach().cpu().numpy().astype(np.float64)
+        pred = np.asarray(out.detach().cpu() if torch.is_tensor(out) else out, np.float64)
         m = all_reference_metrics(truth, pred)
         cov = float(coverage(pred))
         log(

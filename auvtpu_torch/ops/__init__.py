@@ -1,7 +1,8 @@
 """Torch interpolation ops: the dense (cell-aligned) fills of Grid B and the
 2x upsampling of Grid A, the scattered-query ops (plain windowed and packed)
 of Grid A and the two-tier scattered engine, the kriging solve core, and
-the trajectory-band router of mission serving."""
+the trajectory-band router of mission serving, and exact mode (the
+reference's ring-segment selection with swap tie-breaks, in f64)."""
 
 from .band import (
     COST_NS,
@@ -29,6 +30,13 @@ from .dense import (
     upsample2x_bilinear,
     window_topk_idx,
     window_topk_planes,
+)
+from .exact import (
+    exact_bilinear_at_cells,
+    exact_cubic_at_cells,
+    exact_kriging_at_cells,
+    exact_select_at_cells,
+    prepare_exact_queries,
 )
 from .packs import (
     StencilPack,
@@ -78,6 +86,11 @@ __all__ = [
     "upsample2x_bilinear",
     "window_topk_idx",
     "window_topk_planes",
+    "exact_bilinear_at_cells",
+    "exact_cubic_at_cells",
+    "exact_kriging_at_cells",
+    "exact_select_at_cells",
+    "prepare_exact_queries",
     "StencilPack",
     "build_valid16_pack",
     "packed_bicubic",

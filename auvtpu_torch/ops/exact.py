@@ -1,0 +1,509 @@
+"""Exact-reference neighbour selection (``--selection exact``): counterpart
+of :mod:`auvtpu.ops.exact`.
+
+The v2 ops (:mod:`.dense`, :mod:`.window`) select the true k nearest cells.
+The reference's observable selection differs in two ways that the published
+Grid B error tables depend on (docs/SEMANTICS.md):
+
+1. **Ring-segment cutoff** (GridH.cpp:49-116): candidates are collected in
+   ring order and collection stops at the end of the first *segment* (a
+   ring's top/bottom edge pass or its left/right edge pass) where >= 4 valid
+   candidates are held.
+2. **Selection sort with swaps** (GridH.cpp:123-140): 4 passes of
+   first-minimum selection over f64 distances, *swapping* the displaced
+   element into the minimum's slot, which reorders equal-distance
+   candidates.
+
+Both are reproduced exactly.  For cell-aligned queries (Grid B: the masked
+cells themselves) the harness's f64 index -> geo -> grid round-trip leaves a
+residue ``eps = x - anchor`` of ~1e-12 that breaks distance ties.  For a
+candidate at offset (dx, dy) from an integer anchor the exact squared
+distance is ``d2_static - u*T + (eps_x^2 + eps_y^2)`` with
+
+    d2_static = (dx+ax+0.5)^2 + (dy+ay+0.5)^2,
+    T = eps_x*(2(dx+ax)+1) + eps_y*(2(dy+ay)+1),
+
+so the keys are (d2_static ascending, T descending, compacted position
+ascending): a static f32 table, an f32 T that is exact by construction (eps
+scaled by 2^41 keeps every product and sum under 24 significand bits;
+:func:`prepare_exact_queries` refuses a residue that is not) and an integer
+position plane that the 4 swap passes mutate.  Arbitrary (Grid A) queries
+have no such decomposition: their keys are the reference's own f64
+``sqrt(di*di + dj*dj)``, computed here op for op as separate tensor ops (no
+``hypot``, no fused multiply-add), because the reference resolves f64
+rounding merges of distinct distances by position.
+
+Precision: torch has no global x64 switch, and none is needed.  Distances,
+the 5x6 kriging solve, the Catmull-Rom and bilinear arithmetic and the
+fallback means run in ``torch.float64`` always (the JAX package under
+``jax_enable_x64``, which both of its CLIs switch on for exact mode), on the
+grid's device, so the JAX package's ``_require_x64`` check has no
+counterpart and its f32 variant of exact mode is not ported; an f32 solve
+would shift regional MAE by ~2e-3 m, above the published tables' 5e-5.  Query preparation is host numpy, as in the JAX
+package; every function returns host numpy arrays.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from functools import lru_cache
+
+import numpy as np
+import torch
+
+from ..config import KrigingConfig
+from ..grid import RegularGrid
+from ..tables import ring_offsets
+from .scattered import _catmull_rom, krige_solve
+
+# eps scale: a power of two, so scaling is exact; chosen so |eps|*SCALE stays
+# in a few-bit f32 range (|eps| <~ 2.5e-12 => scaled <~ 5.5)
+EPS_SCALE = float(2**41)
+_BIG = 1 << 20  # position of a lane that is not (or no longer) a candidate
+_F64 = torch.float64
+
+
+@lru_cache(maxsize=8)
+def exact_tables(max_radius: int = 10):
+    """Static per-lane tables in exact reference collection order.
+
+    Returns numpy arrays (M = (2R+1)^2 lanes):
+      dx, dy       (M,)  int32 offsets (collection order, ring_offsets);
+      prev_end     (M,)  int32 lane index of the last lane of the *previous*
+                         segment (-1 for segment 0): the cutoff test
+                         ``count >= 4`` happens at segment ends (GridH.cpp:82,115);
+      d2           (4,M) f32 static squared distance per anchor variant;
+      cfx, cfy     (4,M) f32 first-order tie coefficients per variant.
+
+    Anchor variants encode the f64 floor-anchoring of the query: variant
+    v = 2*ex_int + ey_int where ex_int = round(x - anchor_x) in {0, 1}
+    (1 when eps < 0 pushed floor(x) one cell left/down).
+    """
+    offs, seg_id = ring_offsets(max_radius)
+    dx = offs[:, 0].astype(np.int64)
+    dy = offs[:, 1].astype(np.int64)
+    m = len(offs)
+    nseg = int(seg_id[-1]) + 1
+    seg_end = np.searchsorted(seg_id, np.arange(nseg), side="right") - 1
+    prev_end = np.where(seg_id > 0, seg_end[np.maximum(seg_id - 1, 0)], -1)
+
+    d2 = np.empty((4, m), np.float32)
+    cfx = np.empty((4, m), np.float32)
+    cfy = np.empty((4, m), np.float32)
+    for v in range(4):
+        ax = -(v >> 1)  # 0 or -1
+        ay = -(v & 1)
+        ddx = dx + ax + 0.5
+        ddy = dy + ay + 0.5
+        d2[v] = (ddx * ddx + ddy * ddy).astype(np.float32)  # quarter-integers: f32-exact
+        cfx[v] = (2 * (dx + ax) + 1).astype(np.float32)
+        cfy[v] = (2 * (dy + ay) + 1).astype(np.float32)
+    return dict(
+        dx=dx.astype(np.int32),
+        dy=dy.astype(np.int32),
+        prev_end=prev_end.astype(np.int32),
+        d2=d2,
+        cfx=cfx,
+        cfy=cfy,
+    )
+
+
+@lru_cache(maxsize=16)
+def _device_tables(max_radius: int, device: torch.device):
+    """:func:`exact_tables` as tensors on ``device`` (offsets and the
+    previous segment's last lane, clamped at 0, as int64 indices)."""
+    tb = exact_tables(max_radius)
+    as_t = lambda a, dt: torch.as_tensor(a, dtype=dt, device=device)
+    return dict(
+        dx=as_t(tb["dx"], torch.int64),
+        dy=as_t(tb["dy"], torch.int64),
+        prev_end=as_t(np.maximum(tb["prev_end"], 0), torch.int64),
+        first_seg=as_t(tb["prev_end"] < 0, torch.bool),
+        d2=as_t(tb["d2"], torch.float32),
+        cfx=as_t(tb["cfx"], torch.float32),
+        cfy=as_t(tb["cfy"], torch.float32),
+    )
+
+
+@dataclasses.dataclass(frozen=True)
+class ExactQueries:
+    """Host-prepared exact cell-aligned query features (all numpy)."""
+
+    ci: np.ndarray  # (N,) int32 anchor column
+    cj: np.ndarray  # (N,) int32 anchor row
+    variant: np.ndarray  # (N,) int32 in 0..3
+    ex_key: np.ndarray  # (N,) f32 eps_x * EPS_SCALE (exact)
+    ey_key: np.ndarray  # (N,) f32
+    qlon: np.ndarray  # (N,) f64 raw query lon (reference round-trip)
+    qlat: np.ndarray  # (N,) f64
+    x: np.ndarray  # (N,) f64 grid coords
+    y: np.ndarray  # (N,) f64
+    oob: np.ndarray  # (N,) bool
+
+
+def _anchors(x, y, H: int, W: int, anchor: str):
+    """Integer anchors of f64 grid coordinates: 'round' is the kriging
+    centre (half away from zero, clamped; GridH.cpp:333-336), 'floor' the
+    bilinear/bicubic cell (GridH.cpp:170-173, 231-234)."""
+    if anchor == "round":
+        return (np.clip(np.floor(x + 0.5).astype(np.int64), 0, W - 1),
+                np.clip(np.floor(y + 0.5).astype(np.int64), 0, H - 1))
+    if anchor == "floor":
+        return np.floor(x).astype(np.int64), np.floor(y).astype(np.int64)
+    raise ValueError(anchor)
+
+
+def prepare_exact_queries(grid: RegularGrid, rows, cols, *, anchor: str = "round") -> ExactQueries:
+    """Reproduce the reference harness's index->geo->grid-coord round-trip in
+    f64 (gridIndexToGeo, test_gebco.cpp:72-81 + GridH.cpp:166-167) and split
+    each coordinate into (integer anchor, exact scaled residue)."""
+    rows = np.asarray(rows, np.int64)
+    cols = np.asarray(cols, np.int64)
+    H, W = grid.shape
+    lon_step = (grid.max_lon - grid.min_lon) / (W - 1)
+    lat_step = (grid.max_lat - grid.min_lat) / (H - 1)
+    qlon = grid.min_lon + cols * lon_step
+    qlat = grid.min_lat + rows * lat_step
+    oob = (qlon < grid.min_lon) | (qlon > grid.max_lon) | (qlat < grid.min_lat) | (qlat > grid.max_lat)
+    x = np.where(oob, 0.0, (qlon - grid.min_lon) / lon_step)
+    y = np.where(oob, 0.0, (qlat - grid.min_lat) / lat_step)
+    ci, cj = _anchors(x, y, H, W, anchor)
+    exi = np.rint(x - ci).astype(np.int64)  # 0 or 1
+    eyi = np.rint(y - cj).astype(np.int64)
+    ex_key = ((x - ci) - exi) * EPS_SCALE  # the residue is exact in f64 (|.| ~ 1e-12)
+    ey_key = ((y - cj) - eyi) * EPS_SCALE
+    if not (np.float64(np.float32(ex_key)) == ex_key).all() or not (
+        np.float64(np.float32(ey_key)) == ey_key
+    ).all():
+        # an f32 key that is not exact would silently mis-order ties
+        raise ValueError("coordinate residue not exactly representable in f32 keys")
+    return ExactQueries(
+        ci=ci.astype(np.int32),
+        cj=cj.astype(np.int32),
+        variant=(2 * exi + eyi).astype(np.int32),
+        ex_key=ex_key.astype(np.float32),
+        ey_key=ey_key.astype(np.float32),
+        qlon=qlon,
+        qlat=qlat,
+        x=x,
+        y=y,
+        oob=oob,
+    )
+
+
+# ---------------------------------------------------------------------------
+# the strict (N, M) selection
+# ---------------------------------------------------------------------------
+
+def _on(grid: RegularGrid, a, dtype=None):
+    """A host array (or tensor) as a tensor on the grid's device."""
+    return torch.as_tensor(a, dtype=dtype).to(grid.device)
+
+
+def _chunked(fn, n: int, chunk: int, *arrays):
+    """``fn`` over row chunks of the (N, ...) tensors ``arrays``, each output
+    concatenated: the chunk bounds the (chunk, M) temporaries' memory.  No
+    rows is one empty chunk."""
+    outs = [fn(*(a[s:s + chunk] for a in arrays)) for s in range(0, max(n, 1), chunk)]
+    return [torch.cat(parts) for parts in zip(*outs)]
+
+
+def _candidates(grid: RegularGrid, tb, ci, cj):
+    """Lanes of (N,) anchors: (gi, gj, val, eligible, cum) over the (N, M)
+    lanes, ``eligible`` the candidates of the segments that started before 4
+    were held, ``cum`` the running candidate count."""
+    H, W = grid.shape
+    gi = ci.long()[:, None] + tb["dx"]
+    gj = cj.long()[:, None] + tb["dy"]
+    inb = (gi >= 0) & (gi < W) & (gj >= 0) & (gj < H)
+    flat = gj.clamp(0, H - 1) * W + gi.clamp(0, W - 1)
+    val = grid.elev.reshape(-1)[flat]
+    cand = inb & (grid.valid.reshape(-1)[flat] > 0.5)
+    cum = torch.cumsum(cand, dim=1, dtype=torch.int32)
+    cum_prev = torch.where(tb["first_seg"], 0, cum[:, tb["prev_end"]])
+    return gi, gj, val, cand & (cum_prev < 4), cum
+
+
+def _swap_passes(gi, gj, val, eligible, cum, pick):
+    """The reference's 4 selection passes with swaps (GridH.cpp:123-140) over
+    compacted positions: ``pick(active)`` gives each row's candidate lanes
+    of the pass (the minimum key among ``active``), the lowest position
+    among them wins, and the lane at position m moves to the winner's.
+    Returns (found (N,) int32, sel_val (N, 4), sel_gi (N, 4) int32,
+    sel_gj)."""
+    found = eligible.sum(dim=1, dtype=torch.int32)
+    pos = torch.where(eligible, cum - 1, _BIG)
+    sel_val, sel_gi, sel_gj = [], [], []
+    for m in range(4):
+        best = pick(eligible & (pos >= m))
+        kpos = torch.where(best, pos, _BIG).amin(dim=1, keepdim=True)  # position of the pass-m pick
+        sel = eligible & (pos == kpos) & (kpos < _BIG)
+        sel_val.append(torch.where(sel, val, 0).sum(dim=1, dtype=val.dtype))
+        sel_gi.append(torch.where(sel, gi, 0).sum(dim=1))
+        sel_gj.append(torch.where(sel, gj, 0).sum(dim=1))
+        # swap: the lane at position m moves to kpos; the picked lane takes m
+        pos = torch.where(eligible & (pos == m), kpos, torch.where(sel, m, pos))
+    ints = lambda xs: torch.stack(xs, dim=1).to(torch.int32)
+    return found, torch.stack(sel_val, dim=1), ints(sel_gi), ints(sel_gj)
+
+
+def _select_chunk(grid: RegularGrid, tb, ci, cj, variant, ex_key, ey_key):
+    """Exact cell-aligned selection for one chunk of (N,) queries: keys
+    (static d2 ascending, T descending), then position."""
+    gi, gj, val, eligible, cum = _candidates(grid, tb, ci, cj)
+    v = variant.long()
+    d2 = tb["d2"][v]  # (N, M)
+    tkey = ex_key[:, None] * tb["cfx"][v] + ey_key[:, None] * tb["cfy"][v]  # exact in f32
+
+    def pick(active):
+        key1 = torch.where(active, d2, torch.inf)
+        c1 = active & (key1 == key1.amin(dim=1, keepdim=True))
+        t2 = torch.where(c1, tkey, -torch.inf)
+        return c1 & (t2 == t2.amax(dim=1, keepdim=True))
+
+    return _swap_passes(gi, gj, val, eligible, cum, pick)
+
+
+def _select_cells(grid: RegularGrid, q: ExactQueries, idx, max_radius: int, chunk: int):
+    """The strict selection of queries ``q`` (at host indices ``idx``, all if
+    None) on the grid's device: (found, sel_val, sel_gi, sel_gj) tensors."""
+    tb = _device_tables(max_radius, grid.device)
+    cols = [q.ci, q.cj, q.variant, q.ex_key, q.ey_key]
+    if idx is not None:
+        cols = [a[idx] for a in cols]
+    args = [_on(grid, a) for a in cols]
+    return _chunked(lambda *a: _select_chunk(grid, tb, *a), len(cols[0]), chunk, *args)
+
+
+def exact_select_at_cells(grid: RegularGrid, rows, cols, *, max_radius: int = 10, chunk: int = 16384, anchor: str = "round"):
+    """Exact-reference selection at cell-aligned queries, on the grid's
+    device in chunks of ``chunk`` queries.
+
+    Returns numpy (found (N,), sel_val (N,4), sel_gi (N,4), sel_gj (N,4),
+    ExactQueries).  When found < 4 the ``found`` passes selected *all*
+    eligible candidates (slots >= found are zero), so the reference's
+    partial-fallback mean is sel_val.sum() / found.
+    """
+    q = prepare_exact_queries(grid, rows, cols, anchor=anchor)
+    out = _select_cells(grid, q, None, max_radius, chunk)
+    return (*(t.cpu().numpy() for t in out), q)
+
+
+# ---------------------------------------------------------------------------
+# exact method ops (Grid B)
+# ---------------------------------------------------------------------------
+
+def _sum4(v):
+    """Row sums of (N, 4) values in f64, left to right."""
+    v = v.to(_F64)
+    return ((v[:, 0] + v[:, 1]) + v[:, 2]) + v[:, 3]
+
+
+def _fallback_mean(found, sel_val):
+    """Reference fallback mean: found>=4 -> mean of the 4 selected
+    (GridH.cpp:10-18); 0<found<4 -> mean of all found (GridH.cpp:291-298);
+    found==0 -> NaN.  Slots >= found are zero, so one sum serves all cases."""
+    k = found.clamp(max=4)
+    return torch.where(k > 0, _sum4(sel_val) / k.clamp(min=1), torch.nan)
+
+
+def _krige_at(grid: RegularGrid, qlon, qlat, found, sel_val, sel_gi, sel_gj):
+    """The reference's kriging of each query from its selection, in f64
+    (GridH.cpp:326-420): neighbours at cell centres, the query at its raw
+    (f64) coordinate; the 4-neighbour mean where the solve is singular, the
+    fallback mean where fewer than 4 were found."""
+    cx = grid.min_lon + (sel_gi.to(_F64) + 0.5) * grid.lon_step
+    cy = grid.min_lat + (sel_gj.to(_F64) + 0.5) * grid.lat_step
+    vals = sel_val.to(_F64)
+    pred, singular = krige_solve(qlon, qlat, vals, cx, cy, KrigingConfig())
+    solved = torch.where(singular, _sum4(vals) / 4.0, pred)
+    return torch.where(found >= 4, solved, _fallback_mean(found, sel_val))
+
+
+def _host(out, oob):
+    """Predictions to the host, NaN out of bounds."""
+    out = out.cpu().numpy()
+    return np.where(oob, np.nan, out)
+
+
+def exact_kriging_at_cells(grid: RegularGrid, rows, cols, *, max_radius: int = 10, chunk: int = 16384):
+    """Ordinary kriging with exact reference selection (GridH.cpp:326-420),
+    the solve in f64.  Returns (N,) numpy f64 predictions."""
+    q = prepare_exact_queries(grid, rows, cols, anchor="round")
+    found, sel_val, sel_gi, sel_gj = _select_cells(grid, q, None, max_radius, chunk)
+    out = _krige_at(grid, _on(grid, q.qlon), _on(grid, q.qlat), found, sel_val, sel_gi, sel_gj)
+    return _host(out, q.oob)
+
+
+def exact_cubic_at_cells(grid: RegularGrid, rows, cols, *, max_radius: int = 10, chunk: int = 16384):
+    """Bicubic with exact reference fallback (GridH.cpp:223-319).
+
+    For Grid B queries (the masked cells themselves) the floor-anchored 4x4
+    Catmull-Rom patch always contains the (invalid) query cell, so the
+    reference always takes the ring-fallback path: the mean of the 4
+    exact-selected neighbours around the floor anchor.  Cells whose patch is
+    fully valid get the f64 Catmull-Rom value instead.
+    """
+    q = prepare_exact_queries(grid, rows, cols, anchor="floor")
+    found, sel_val, _, _ = _select_cells(grid, q, None, max_radius, chunk)
+    out = _fallback_mean(found, sel_val)
+
+    H, W = grid.shape
+    xi, yi = _on(grid, q.ci, torch.int64), _on(grid, q.cj, torch.int64)
+    rel = torch.arange(-1, 3, device=grid.device)
+    jj = (yi[:, None] + rel).clamp(0, H - 1)
+    ii = (xi[:, None] + rel).clamp(0, W - 1)
+    flat = jj[:, :, None] * W + ii[:, None, :]
+    patch_ok = (grid.valid.reshape(-1)[flat] > 0.5).flatten(1).all(dim=1)
+    patch = grid.elev.reshape(-1)[flat].to(_F64)
+    tx = _on(grid, q.x) - xi
+    ty = _on(grid, q.y) - yi
+    col = _catmull_rom(patch[:, :, 0], patch[:, :, 1], patch[:, :, 2], patch[:, :, 3], tx[:, None])
+    smooth = _catmull_rom(col[:, 0], col[:, 1], col[:, 2], col[:, 3], ty)
+    return _host(torch.where(patch_ok, smooth, out), q.oob)
+
+
+def _bilinear(grid: RegularGrid, x0, y0, x1, y1, wx, wy, z_dtype=None):
+    """Bilinear from the corners (x0, y0) (clamped here) and (x1, y1), with
+    the mean of the valid corners where any is invalid (GridH.cpp:160-210);
+    corner values in ``z_dtype`` (the grid's by default)."""
+    H, W = grid.shape
+    x0c = x0.clamp(0, W - 1)
+    y0c = y0.clamp(0, H - 1)
+    ev = grid.elev.reshape(-1)
+    vv = grid.valid.reshape(-1)
+    idx = [y0c * W + x0c, y0c * W + x1, y1 * W + x0c, y1 * W + x1]
+    z = [ev[i] if z_dtype is None else ev[i].to(z_dtype) for i in idx]
+    m = [vv[i] > 0.5 for i in idx]
+    cnt = ((m[0].int() + m[1].int()) + m[2].int()) + m[3].int()
+    s = ((torch.where(m[0], z[0], 0) + torch.where(m[1], z[1], 0)) + torch.where(m[2], z[2], 0)) + torch.where(
+        m[3], z[3], 0)
+    fb = torch.where(cnt > 0, s / cnt.clamp(min=1), torch.nan)
+    z0 = (1 - wx) * z[0] + wx * z[1]
+    z1 = (1 - wx) * z[2] + wx * z[3]
+    smooth = (1 - wy) * z0 + wy * z1
+    return torch.where(cnt >= 4, smooth, fb)
+
+
+def exact_bilinear_at_cells(grid: RegularGrid, rows, cols):
+    """Bilinear with the reference's floor anchoring (GridH.cpp:160-210), in
+    f64.  The f64 eps sign decides the anchor cell (x0 = c-1 when eps < 0),
+    which changes which four corners feed the valid-corner-mean fallback;
+    the lerp weights round to 0/1 within ~1e-12."""
+    q = prepare_exact_queries(grid, rows, cols, anchor="floor")
+    H, W = grid.shape
+    x0, y0 = _on(grid, q.ci, torch.int64), _on(grid, q.cj, torch.int64)
+    # the +1 corners clamp the unclamped anchor (x0 is -1 where eps < 0 at
+    # column 0): the JAX package's host arithmetic, GridH.cpp:170-173
+    x1, y1 = (x0 + 1).clamp(max=W - 1), (y0 + 1).clamp(max=H - 1)
+    out = _bilinear(grid, x0, y0, x1, y1, _on(grid, q.x) - x0, _on(grid, q.y) - y0, z_dtype=_F64)
+    return _host(out, q.oob)
+
+
+# ---------------------------------------------------------------------------
+# exact selection for arbitrary scattered queries (Grid A)
+# ---------------------------------------------------------------------------
+
+def _select_chunk_scattered(grid: RegularGrid, tb, ci, cj, x, y):
+    """Exact ring selection for arbitrary (non-cell-aligned) f64 queries,
+    the Grid A regime (test_interpolation.cpp:120-160).  The keys are the
+    reference's own f64 ``sqrt(di*di + dj*dj)`` (GridH.cpp:95-99), each
+    operation a tensor op of its own; equal keys (exact ties, or distinct d2
+    that f64 sqrt rounding merges) break by the swap-mutated position, as
+    the reference's ``dist < minDist`` scan does."""
+    gi, gj, val, eligible, cum = _candidates(grid, tb, ci, cj)
+    di = (gi.to(_F64) + 0.5) - x[:, None]
+    dj = (gj.to(_F64) + 0.5) - y[:, None]
+    dist = torch.sqrt(di * di + dj * dj)  # three rounded ops, as the reference's
+
+    def pick(active):
+        key = torch.where(active, dist, torch.inf)
+        return active & (key == key.amin(dim=1, keepdim=True))
+
+    return _swap_passes(gi, gj, val, eligible, cum, pick)
+
+
+def _host_f64(a) -> np.ndarray:
+    if torch.is_tensor(a):
+        a = a.detach().cpu()
+    return np.asarray(a, np.float64).ravel()
+
+
+def _prepare_scattered(grid: RegularGrid, lons, lats, anchor: str):
+    """f64 normalization for raw scattered coordinates (golden.engine
+    _normalize semantics: oob outside the extent, anchors clamped for
+    'round').  Parallel to :func:`prepare_exact_queries`: a change to the
+    oob/clamp convention applies to both."""
+    lons = _host_f64(lons)
+    lats = _host_f64(lats)
+    H, W = grid.shape
+    lon_step = (grid.max_lon - grid.min_lon) / (W - 1)
+    lat_step = (grid.max_lat - grid.min_lat) / (H - 1)
+    oob = (lons < grid.min_lon) | (lons > grid.max_lon) | (lats < grid.min_lat) | (lats > grid.max_lat)
+    x = np.where(oob, 0.0, (lons - grid.min_lon) / lon_step)
+    y = np.where(oob, 0.0, (lats - grid.min_lat) / lat_step)
+    ci, cj = _anchors(x, y, H, W, anchor)
+    return lons, lats, x, y, ci, cj, oob
+
+
+def _select_scattered(grid: RegularGrid, ci, cj, x, y, max_radius: int, chunk: int):
+    tb = _device_tables(max_radius, grid.device)
+    args = [_on(grid, ci), _on(grid, cj), _on(grid, x), _on(grid, y)]
+    return _chunked(lambda *a: _select_chunk_scattered(grid, tb, *a), len(ci), chunk, *args)
+
+
+def exact_kriging_scattered(grid: RegularGrid, lons, lats, *, max_radius: int = 10, chunk: int = 16384):
+    """Ordinary kriging at arbitrary coordinates with exact reference
+    selection (GridH.cpp:326-420 for continuous queries, the Grid A
+    workload), in f64.  Returns (N,) numpy f64."""
+    lons, lats, x, y, ci, cj, oob = _prepare_scattered(grid, lons, lats, "round")
+    found, sel_val, sel_gi, sel_gj = _select_scattered(grid, ci, cj, x, y, max_radius, chunk)
+    out = _krige_at(grid, _on(grid, lons), _on(grid, lats), found, sel_val, sel_gi, sel_gj)
+    return _host(out, oob)
+
+
+def _cubic_smooth(grid: RegularGrid, xi, yi, x, y):
+    """Catmull-Rom over the clamped 4x4 patch at f64 coordinates, and
+    whether the patch is fully valid (GridH.cpp:223-319 smooth path)."""
+    H, W = grid.shape
+    rel = torch.arange(-1, 3, device=grid.device)
+    jj = (yi[:, None] + rel).clamp(0, H - 1)
+    ii = (xi[:, None] + rel).clamp(0, W - 1)
+    flat = jj[:, :, None] * W + ii[:, None, :]
+    patch = grid.elev.reshape(-1)[flat]  # (N, 4, 4)
+    all_ok = (grid.valid.reshape(-1)[flat] > 0.5).flatten(1).all(dim=1)
+    tx = x - xi
+    ty = y - yi
+    col = _catmull_rom(patch[:, :, 0], patch[:, :, 1], patch[:, :, 2], patch[:, :, 3], tx[:, None])
+    return _catmull_rom(col[:, 0], col[:, 1], col[:, 2], col[:, 3], ty), all_ok
+
+
+def exact_cubic_scattered(grid: RegularGrid, lons, lats, *, max_radius: int = 10, chunk: int = 16384):
+    """Bicubic at arbitrary coordinates: the Catmull-Rom value when the 4x4
+    patch is fully valid, else the exact ring-fallback mean at the floor
+    anchor (GridH.cpp:223-319).  Returns (N,) numpy f64."""
+    lons, lats, x, y, ci, cj, oob = _prepare_scattered(grid, lons, lats, "floor")
+    n = len(x)
+    args = [_on(grid, ci), _on(grid, cj), _on(grid, x), _on(grid, y)]
+    smooth, all_ok = _chunked(lambda *a: _cubic_smooth(grid, *a), n, chunk, *args)
+    out = smooth.to(_F64)
+    need = ~all_ok.cpu().numpy() & ~oob
+    if need.any():
+        found, sel_val, _, _ = _select_scattered(grid, ci[need], cj[need], x[need], y[need], max_radius, chunk)
+        out[_on(grid, np.nonzero(need)[0])] = _fallback_mean(found, sel_val)
+    return _host(out, oob)
+
+
+def exact_bilinear_scattered(grid: RegularGrid, lons, lats, *, chunk: int = 16384):
+    """Bilinear at arbitrary coordinates in f64 (GridH.cpp:160-210).
+    Returns (N,) numpy f64."""
+    lons, lats, x, y, ci, cj, oob = _prepare_scattered(grid, lons, lats, "floor")
+    H, W = grid.shape
+
+    def chunk_fn(x0, y0, xs, ys):
+        x1, y1 = (x0.clamp(0, W - 1) + 1).clamp(max=W - 1), (y0.clamp(0, H - 1) + 1).clamp(max=H - 1)
+        return (_bilinear(grid, x0, y0, x1, y1, xs - x0, ys - y0),)
+
+    args = [_on(grid, ci), _on(grid, cj), _on(grid, x), _on(grid, y)]
+    (out,) = _chunked(chunk_fn, len(x), chunk, *args)
+    return _host(out.to(_F64), oob)

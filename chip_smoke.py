@@ -80,8 +80,8 @@ streaming mosaic and scattered queries on the 3200x4000 Grid A, in phases:
             escalating hole queries vs GoldenV2 on the stand-in with unit
             steps
 15. timing  the select kernels alone (B6 and B7 also cold) and plain,
-            their wrappers, B7's library call (torch.topk of the d2
-            matrix) and the torch paths at 1M Grid A queries, two-tier
+            their wrappers, B7's and B5's library call (torch.topk of the
+            d2 matrix) and the torch paths at 1M Grid A queries, two-tier
             calls, the Grid A steady state per method and batch
 16. B8      the band/atlas resample kernel vs its plain version on the
             stand-in r0.10, on lon/lat through the kernel's coordinate
@@ -116,6 +116,29 @@ streaming mosaic and scattered queries on the 3200x4000 Grid A, in phases:
             tick (scripts/mission_replay.py's loop); the calibration of the
             router's COST_NS, and the calibrated router's decisions on a
             4096-query random batch (packed) and the prepared 5M band (band)
+
+19. exact  exact mode, f64 (no kernel: plain torch on the card): on the
+            stand-in r0.10 two-tier kriging (table solve), cubic and
+            bilinear at the JAX package's pins (tools/jax_reference_pins.py:
+            metrics within 1e-9 m, the prediction sum within 1e-9 m a cell,
+            the finite count and two-tier's escalated count equal), strict
+            kriging within 1e-8 m of two-tier with NaN in the same places;
+            on 256x320 shelf + seamount grids with awkward decimals at
+            removal 0.1/0.5/0.9 the strict selection equal to
+            GoldenGrid._ring_select (found, values, ordered gi/gj) and every
+            exact prediction within 1e-9 m of the golden engine; bench_grid_b
+            --selection exact (tiers two and strict) at the pinned RMSEs and
+            bench_grid_a --selection exact at 1e3 and 1e5 queries, every
+            golden validation passed at 1e-9; each call timed on the host
+            clock and by its device records, the dense pass alone
+20. learned the committed w16 d2 checkpoint
+            (results/learned_mid_atlantic_w16d2.npz) fills the stand-in
+            r0.10 at f32 and bf16 compute: held-out metrics and nansum at the
+            JAX package's pins within the CPU tests' per-cell bounds; the
+            window-mean baseline is one B3 (fill_tile_kernel, kMean) launch a
+            fill (launch counts, profiler); learned_eval --synthetic 512 512
+            --steps 20 trains on the card and its loss falls; the fills and
+            one training step alone timed
 
 then one JSON line of the kernels and, last, the device JSON line.  Any
 failure raises and the script exits non-zero; without a CUDA device it exits
@@ -229,6 +252,34 @@ MAX_BANDS = {"band": 1, "diagonal": 8}
 TICK, N_TICKS, WARMUP_TICKS, REFRESH_EVERY, TICK_OBS, SWATH_HALF_ROWS = 512, 256, 4, 32, 8192, 24
 # band shapes of the fill-cost line (0.16M-5M cells, the JAX probe's span)
 FILL_SHAPES = ((64, 2441), (256, 2441), (1024, 2441), (2053, 2441))
+
+
+# Exact mode and the learned baseline (phases 19-20) on the stand-in r0.10:
+# the JAX package's figures on XLA:CPU (tools/jax_reference_pins.py, x64 on):
+# the reference metrics over the 501,137 masked cells, the f64 sum and count
+# of the finite predictions, and two-tier kriging's escalated count
+EXACT_PINS = {
+    "kriging_two": {"MAE": 4.095604296279312, "RMSE": 5.2336484537525445, "MaxError": 30.02827475803133,
+        "sum": -1241793802.2739522, "finite": 501137, "escalated": 19403},
+    "cubic": {"MAE": 5.31303865010965, "RMSE": 7.2755194190706085, "MaxError": 50.75, "sum": -1241780924.25,
+        "finite": 501137},
+    "bilinear": {"MAE": 5.308272322072939, "RMSE": 6.768888992329159, "MaxError": 41.0,
+        "sum": -1240518870.6666667, "finite": 500579},
+}
+EXACT_TOL = 1e-9  # m: a metric, and the sum's difference a cell (f64 on both sides)
+EXACT_STRICT_TOL = 1e-8  # m a cell: strict vs two-tier kriging (lattice-gamma tables)
+# results/learned_mid_atlantic_w16d2.npz filling the stand-in r0.10, f32 and
+# bf16 compute: the reference metrics over the masked cells, the plane's nansum
+LEARNED_PINS = {
+    "f32": {"MAE": 18.47689959879379, "RMSE": 22.885500988445738, "MaxError": 127.44131469726562,
+        "nansum": -12415156500.020905},
+    "bf16": {"MAE": 18.701150502184547, "RMSE": 23.22829263895688, "MaxError": 127.37408447265625,
+        "nansum": -12415116372.744522},
+}
+# per-cell bounds of tests/test_torch_learned.py: f32 1e-5 x max |elev|, bf16
+# 0.01 x the observed cells' std (a few bf16 ulps of the normalised residual)
+LEARNED_F32_REL = 1e-5
+LEARNED_BF16_STD = 0.01
 
 
 def say(phase: str, msg: str) -> None:
@@ -367,6 +418,65 @@ def device_ms(fn, match: str | None, reps: int = 30, cold: bool = False, attempt
             return sum(float(np.median(d)) * -(-len(d) // reps) for d in durs.values()) / 1e3
     raise RuntimeError(f"{match!r}: kernel records { {k: len(d) for k, d in durs.items()} } of {reps} calls in "
                        f"each of {attempts} sessions")
+
+
+def exact_pin(key: str, pred: np.ndarray, truth: np.ndarray, escalated: int | None = None) -> None:
+    """Hold an exact-mode prediction at the stand-in's masked cells to the
+    JAX package's pins: metrics within EXACT_TOL, the f64 sum within
+    EXACT_TOL a cell, the finite count and the escalated count equal."""
+    from auvtpu_torch.metrics import all_reference_metrics
+
+    want = EXACT_PINS[key]
+    m = all_reference_metrics(truth, pred)
+    bad = [k for k in ("MAE", "RMSE", "MaxError") if not abs(float(m[k]) - want[k]) <= EXACT_TOL]
+    if not abs(float(np.nansum(pred)) - want["sum"]) <= EXACT_TOL * len(pred):
+        bad.append("sum")
+    if int(np.isfinite(pred).sum()) != want["finite"]:
+        bad.append("finite")
+    if escalated is not None and escalated != want["escalated"]:
+        bad.append("escalated")
+    if bad:
+        raise AssertionError(f"exact {key}: {bad} differ from the JAX package's pins: got {dict(m)}, sum "
+                             f"{float(np.nansum(pred))}, finite {int(np.isfinite(pred).sum())}, escalated "
+                             f"{escalated}; want {want}")
+
+
+def device_busy_ms(fn, reps: int = 2, attempts: int = 3) -> float:
+    """Device time (ms) of one call of ``fn`` that launches many kernels:
+    the sum of the durations of all its device records (kernels, memory
+    copies and sets) in torch.profiler's trace of ``reps`` calls, divided by
+    ``reps``.  The tracer now and then keeps no record of a session: such a
+    session is profiled again, up to ``attempts`` times."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    for _ in range(attempts):
+        with torch.profiler.profile(activities=acts) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        durs = [e.time_range.elapsed_us() for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+        if durs:
+            return sum(durs) / reps / 1e3
+    raise RuntimeError(f"the profiler kept no device record of {reps} calls in {attempts} sessions")
+
+
+def host_ms(fn, warmup: int = 1, reps: int = 5) -> float:
+    """Median host clock of one call ending in a device sync."""
+    import torch
+
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        t0_ = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0_) * 1e3)
+    return float(np.median(times))
 
 
 def device_kernels(fn, reps: int = 20, attempts: int = 3, copies: bool = False) -> dict:
@@ -1487,6 +1597,17 @@ def main() -> int:
     say("timing", f"Grid A {N_SCATTER} queries torch.topk(d2, 4, largest=False) on the (n, 32) d2 matrix "
         f"(B7's library call: the selection alone) {ms['B7 library topk']:.4f} ms  [{card}]")
     del d2A
+    # B5's library call likewise: torch.topk over the taps of its (P, n) d2
+    # stencil (valid16, P=16, the lanes-major layout of its rows), made
+    # beforehand
+    st_ = p16.view(-1, 16)[cellA.long()]
+    di_, dj_ = (tab16[0] + 0.5)[None, :] - fxA[:, None], (tab16[1] + 0.5)[None, :] - fyA[:, None]
+    d2B = torch.where(st_ < 0.5 * tp.SENTINEL, di_ * di_ + dj_ * dj_, torch.full_like(st_, ss.INF)).T.contiguous()
+    del st_, di_, dj_
+    ms["B5 library topk"] = device_ms(lambda: torch.topk(d2B, 4, dim=0, largest=False), None)
+    say("timing", f"Grid A {N_SCATTER} queries torch.topk(d2, 4, dim=0, largest=False) on the (16, n) d2 stencil "
+        f"(B5's library call: the selection alone) {ms['B5 library topk']:.4f} ms  [{card}]")
+    del d2B
     wrappers = {
         "kriging_valid_t (B5)": lambda: vs.kriging_valid_t(p16, gA, *qA),
         "packed_kriging_valid (torch)": lambda: tp.packed_kriging_valid(p16, gA, *qA),
@@ -1656,19 +1777,6 @@ def main() -> int:
             raise AssertionError(f"kernel {k} was not launched on the mission path")
 
     # ---- 18. timing of the band slice and the router's COST_NS
-    def host_ms(fn, warmup: int = 1, reps: int = 5) -> float:
-        """Median host clock of one call ending in a device sync."""
-        for _ in range(warmup):
-            fn()
-        torch.cuda.synchronize()
-        times = []
-        for _ in range(reps):
-            t0_ = time.perf_counter()
-            fn()
-            torch.cuda.synchronize()
-            times.append((time.perf_counter() - t0_) * 1e3)
-        return float(np.median(times))
-
     ms["B8 band"] = device_ms(b8_launcher(band_args, band_kw), "band_resample_")
     ms["B8 band cold"] = device_ms(b8_launcher(band_args, band_kw), "band_resample_", cold=True)
     ms["B8 band wrapper"] = time_ms(lambda: kb.band_resample(*band_args, **band_kw))
@@ -1764,6 +1872,206 @@ def main() -> int:
     torch.cuda.empty_cache()
     say("timing", f"peak device memory {torch.cuda.max_memory_allocated(dev) / 2**20:.0f} MiB")
 
+    # ---- 19. exact mode (f64): the bench workload against the JAX
+    # package's pins, strict against two-tier, synthetic grids against the
+    # golden engine, and both CLIs' exact modes
+    from auvtpu_torch.cli import learned_eval
+    from auvtpu_torch.config import KERGUELEN_EXTENT as KEXT
+    from auvtpu_torch.golden import GoldenGrid
+    from auvtpu_torch.masking import mask_grid
+    from auvtpu_torch.metrics import all_reference_metrics
+    from auvtpu_torch.ops import exact as texact
+    from auvtpu_torch.ops import fill_window_mean
+    from auvtpu_torch.ops import exact_fast as tfast
+    from auvtpu_torch.synthetic import kerguelen_standin
+
+    t_ex = time.perf_counter()
+    reduced_k, rc_k, truth_k = mask_grid(kerguelen_standin(SHAPE), REMOVAL)
+    g64 = RegularGrid.from_nan_array(reduced_k, KEXT, dtype=torch.float64, device=dev)
+    rk, ck = rc_k[:, 0], rc_k[:, 1]
+    exact_fns = {
+        "kriging_two": lambda: tfast.exact_kriging_at_cells_fast(g64, rk, ck),
+        "kriging_strict": lambda: texact.exact_kriging_at_cells(g64, rk, ck),
+        "cubic": lambda: texact.exact_cubic_at_cells(g64, rk, ck),
+        "bilinear": lambda: texact.exact_bilinear_at_cells(g64, rk, ck),
+    }
+    preds = {k: fn() for k, fn in exact_fns.items()}
+    esc_k = tfast.exact_select_at_cells_fast(g64, rk, ck)[5]
+    for key in ("kriging_two", "cubic", "bilinear"):
+        exact_pin(key, preds[key], truth_k, int(esc_k.sum()) if key == "kriging_two" else None)
+    two, strict = preds["kriging_two"], preds["kriging_strict"]
+    if not np.array_equal(np.isnan(two), np.isnan(strict)):
+        raise AssertionError("exact kriging: strict and two-tier NaN in different places")
+    d_ts = float(np.nanmax(np.abs(two - strict)))
+    if not d_ts <= EXACT_STRICT_TOL:
+        raise AssertionError(f"exact kriging: strict vs two-tier max |diff| {d_ts} > {EXACT_STRICT_TOL}")
+    say("exact", f"stand-in r0.10 f64, {len(truth_k)} cells: two-tier kriging RMSE "
+        f"{all_reference_metrics(truth_k, two)['RMSE']:.9f}, {int(esc_k.sum())} escalated ({esc_k.mean():.6f}); "
+        f"cubic, bilinear and two-tier kriging at the JAX package's pins (metrics within {EXACT_TOL} m, "
+        f"sums within {EXACT_TOL} m a cell); strict vs two-tier max |diff| {d_ts:.3g} m")
+
+    # synthetic grids with awkward decimals: the strict selection against
+    # the golden engine's ring selection, the predictions against its own
+    awkward = Extent(74.615, 84.785, -58.2508, -49.6982)
+    for removal, seed in ((0.1, 2), (0.5, 3), (0.9, 4)):
+        red_s, rc_s, _ = mask_grid(shelf_seamount(256, 320), removal, seed=seed)
+        g_s = RegularGrid.from_nan_array(red_s, awkward, dtype=torch.float64, device=dev)
+        gold = GoldenGrid(red_s, awkward.min_lon, awkward.max_lon, awkward.min_lat, awkward.max_lat)
+        qlon = gold.min_lon + rc_s[:, 1] * gold.lon_step
+        qlat = gold.min_lat + rc_s[:, 0] * gold.lat_step
+        x_s, y_s = (qlon - gold.min_lon) / gold.lon_step, (qlat - gold.min_lat) / gold.lat_step
+        ci = np.clip(np.floor(x_s + 0.5).astype(np.int64), 0, gold.num_lon - 1)
+        cj = np.clip(np.floor(y_s + 0.5).astype(np.int64), 0, gold.num_lat - 1)
+        sv, si, sj, f_g = gold._ring_select(x_s, y_s, ci, cj)
+        f_t, v_t, gi_t, gj_t, _ = texact.exact_select_at_cells(g_s, rc_s[:, 0], rc_s[:, 1])
+        full = f_g >= 4
+        if not (np.array_equal(f_t, f_g) and np.array_equal(gi_t[full], si[full, :4])
+                and np.array_equal(gj_t[full], sj[full, :4]) and np.array_equal(v_t[full], sv[full, :4])):
+            raise AssertionError(f"exact selection r{removal}: differs from GoldenGrid._ring_select")
+        worst = 0.0
+        for label, got, want in (
+            ("strict kriging", texact.exact_kriging_at_cells(g_s, rc_s[:, 0], rc_s[:, 1]), gold.kriging(qlon, qlat)),
+            ("two-tier kriging", tfast.exact_kriging_at_cells_fast(g_s, rc_s[:, 0], rc_s[:, 1]),
+             gold.kriging(qlon, qlat)),
+            ("cubic", texact.exact_cubic_at_cells(g_s, rc_s[:, 0], rc_s[:, 1]), gold.cubic(qlon, qlat)),
+            ("bilinear", texact.exact_bilinear_at_cells(g_s, rc_s[:, 0], rc_s[:, 1]), gold.bilinear(qlon, qlat)),
+        ):
+            if not np.array_equal(np.isnan(got), np.isnan(want)):
+                raise AssertionError(f"exact {label} r{removal}: NaN placement differs from the golden engine")
+            ok_ = ~np.isnan(want)
+            d_ = float(np.abs(got[ok_] - want[ok_]).max())
+            if not d_ <= EXACT_TOL:
+                raise AssertionError(f"exact {label} r{removal}: max |diff| from the golden engine {d_} > {EXACT_TOL}")
+            worst = max(worst, d_)
+        say("exact", f"256x320 shelf+seamount r{removal} (awkward extent), {len(rc_s)} cells ({int(full.sum())} "
+            f"with 4 found): found, values and ordered gi/gj equal to GoldenGrid._ring_select; strict and two-tier "
+            f"kriging, cubic and bilinear within {worst:.3g} m of the golden engine")
+
+    # both CLIs' exact modes
+    res_x = os.path.join(REPO, "results_local", "chip_smoke_exact.csv")
+    if os.path.exists(res_x):
+        os.remove(res_x)
+    pin_of = {"Kriging": "kriging_two", "Cubic": "cubic", "Bilinear": "bilinear"}
+    for tier in ("two", "strict"):
+        summary_x = bench_grid_b.main(["--region", "kerguelen", "--removal", str(REMOVAL), "--selection", "exact",
+                                       "--exact-tier", tier, "--results", res_x, "--machine", "H100"])
+        for method, m in summary_x.items():
+            tol = EXACT_STRICT_TOL if (method == "Kriging" and tier == "strict") else EXACT_TOL
+            want = EXACT_PINS[pin_of[method]]["RMSE"]
+            if not abs(m["RMSE"] - want) <= tol:
+                raise AssertionError(f"bench_grid_b exact ({tier}) {method}: RMSE {m['RMSE']} != {want} +- {tol}")
+        say("exact", f"bench_grid_b --selection exact --exact-tier {tier}: " + ", ".join(
+            f"{k} RMSE {v['RMSE']:.9f} steady {v['steady_ms']:.2f} ms, end-to-end {v['e2e_ms']:.2f} ms"
+            for k, v in summary_x.items()) + f"  [{card}]")
+    summary_ax = bench_grid_a.main(["--selection", "exact", "--batch-sizes", "1000", "100000", "--results", res_x,
+                                    "--machine", "H100"])
+    if sorted(summary_ax) != sorted((m, n) for m in ("Bilinear", "Cubic", "Kriging") for n in (1000, 100000)) or \
+            not all(v["validated"] for v in summary_ax.values()):
+        raise AssertionError(f"bench_grid_a --selection exact: {summary_ax}")
+    say("exact", "bench_grid_a --selection exact: every golden validation PASSED (1e-9 x scale); " + ", ".join(
+        f"{m} n={n} steady {v['steady_ms']:.2f} ms" for (m, n), v in summary_ax.items()) + f"  [{card}]")
+
+    # timing: each call on the device (the profiler's device records) and
+    # on the host clock, and the dense pass alone
+    q_k = texact.prepare_exact_queries(g64, rk, ck)
+    al = tfast._aligned(q_k, rk.astype(np.int64), ck.astype(np.int64))
+    dense_args = (g64.valid, torch.as_tensor((rk * SHAPE[1] + ck)[al], device=dev),
+                  torch.as_tensor(q_k.ex_key[al], device=dev), torch.as_tensor(q_k.ey_key[al], device=dev))
+    exact_fns["dense pass"] = lambda: tfast._dense_select(*dense_args, max_radius=10)
+    for label, fn in exact_fns.items():
+        ms[f"exact {label}"] = host_ms(fn, reps=3)
+        ms[f"exact {label} device"] = device_busy_ms(fn)
+        say("timing", f"exact {label:14s} at {len(rk)} cells: {ms[f'exact {label}']:.2f} ms host, "
+            f"{ms[f'exact {label} device']:.2f} ms device busy "
+            f"(idle {1 - ms[f'exact {label} device'] / ms[f'exact {label}']:.1%})  [{card}]")
+    say("exact", f"escalated share {esc_k.mean():.6f}; phase took {time.perf_counter() - t_ex:.1f} s")
+    del g64, preds, exact_fns, dense_args, two, strict
+    torch.cuda.empty_cache()
+
+    # ---- 20. the learned baseline at full width: the committed w16 d2
+    # checkpoint fills the stand-in r0.10 (launch counts from here to the
+    # end of the training run)
+    from auvtpu_torch import learned
+
+    t_ln = time.perf_counter()
+    lparams, lw, ld = learned.load_params(os.path.join(REPO, "results", "learned_mid_atlantic_w16d2.npz"))
+    wf.reset_launches()
+    planes_l = {
+        "f32": learned.fill_learned(grid, lparams, width=lw, depth=ld, compute_dtype=torch.float32),
+        "bf16": learned.fill_learned(grid, lparams, width=lw, depth=ld),
+    }
+    launches_fill_l = wf.LAUNCHES["fill_mean_fused"]
+    if launches_fill_l != 2:
+        raise AssertionError(f"learned fills: {launches_fill_l} B3 mean launches for two fills, want one each")
+    obs = grid.elev[grid.valid > 0.5].double()
+    cell_tol = {"f32": LEARNED_F32_REL * float(obs.abs().max()), "bf16": LEARNED_BF16_STD * float(obs.std())}
+    for name, plane_l in planes_l.items():
+        pred_l = plane_l[rows, cols].double().cpu().numpy()
+        got = dict(all_reference_metrics(truth_k, pred_l), nansum=float(torch.nansum(plane_l.double())))
+        want, tol = LEARNED_PINS[name], cell_tol[name]
+        for key in ("MAE", "RMSE", "MaxError", "nansum"):
+            bar = tol * len(truth_k) if key == "nansum" else tol
+            if not abs(got[key] - want[key]) <= bar:
+                raise AssertionError(f"learned fill {name}: {key} {got[key]} != the JAX package's {want[key]} +- {bar}")
+        if int(torch.isnan(plane_l).sum()) != 0:
+            raise AssertionError(f"learned fill {name}: NaN cells on the stand-in")
+        say("learned", f"{name} compute: held-out RMSE {got['RMSE']:.6f} (JAX {want['RMSE']:.6f}), MAE "
+            f"{got['MAE']:.6f} (JAX {want['MAE']:.6f}), max {got['MaxError']:.4f}, nansum {got['nansum']:.6f} "
+            f"(JAX {want['nansum']:.6f}, {abs(got['nansum'] - want['nansum']) / len(truth_k):.3g} m a masked "
+            f"cell); bar {tol:.4g} m a cell")
+    res_l = os.path.join(REPO, "results_local", "chip_smoke_learned.csv")
+    if os.path.exists(res_l):
+        os.remove(res_l)
+    summary_l = learned_eval.main(["--synthetic", "512", "512", "--steps", "20", "--results", res_l,
+                                   "--machine", "H100"])
+    launches_l = dict(wf.LAUNCHES)
+    losses = summary_l["losses"]
+    if not (len(losses) == 20 and np.isfinite(losses).all() and losses[-1] < losses[0]):
+        raise AssertionError(f"learned_eval on the card: losses {losses}")
+    say("learned", f"learned_eval --synthetic 512 512 --steps 20: masked-crop MSE {losses[0]:.3f} -> "
+        f"{losses[-1]:.3f}, {summary_l['train_s'] / 20 * 1e3:.2f} ms a step (host clock, batches made on the "
+        f"host), held-out RMSE {summary_l['RMSE']:.4f}; launches {launches_l}  [{card}]")
+    if launches_l["fill_mean_fused"] < 1:
+        raise AssertionError("kernel fill_mean_fused was not launched on the learned path")
+    seen = only_kernel(lambda: fill_window_mean(grid), "fill_tile_kernel", "the window-mean baseline")
+    say("learned", f"the window-mean baseline is one B3 launch a fill; the device kernels of 20 baseline calls "
+        f"with the records the profiler kept: {seen}")
+    # one training step alone (w16 d2, 4 crops of 48x48 of the stand-in,
+    # bf16), and making its batch: crops on the host, the upload, the
+    # window-mean baselines (4 B3 launches)
+    elev_h, valid_h = grid.elev.cpu().numpy(), grid.valid.cpu().numpy()
+    rng_c = np.random.RandomState(0)
+
+    def crop_batch():
+        planes = [torch.as_tensor(a).to(dev) for a in learned.make_crop_batch(rng_c, elev_h, valid_h, n=4, tile=48)]
+        return planes[0], planes[1], learned.window_mean_batch(planes[0], planes[1]), planes[2], planes[3]
+
+    tparams = learned.init_params(torch.Generator().manual_seed(0), width=16, depth=2)
+    for t_ in tparams.values():
+        t_.requires_grad_(True)
+    topt = torch.optim.Adam(list(tparams.values()), lr=3e-3)
+    tbatch = crop_batch()
+    step = (lambda: learned.train_step(tparams, topt, tbatch, width=16, depth=2))
+    ms["learned step"] = host_ms(step, warmup=3, reps=20)
+    ms["learned step device"] = device_busy_ms(step, reps=5)
+    ms["learned batch"] = host_ms(crop_batch, warmup=1, reps=20)
+    say("timing", f"a training step alone (w16 d2, 4x48x48, bf16): {ms['learned step']:.3f} ms host, "
+        f"{ms['learned step device']:.3f} ms device busy; making its batch (crops, upload, 4 B3 baselines) "
+        f"{ms['learned batch']:.3f} ms host  [{card}]")
+    del tparams, topt, tbatch
+    for name in planes_l:
+        cd = torch.float32 if name == "f32" else torch.bfloat16
+        fn = (lambda cd=cd: learned.fill_learned(grid, lparams, width=lw, depth=ld, compute_dtype=cd))
+        ms[f"learned {name}"] = time_ms(fn, reps=10)
+        ms[f"learned {name} host"] = host_ms(fn)
+        ms[f"learned {name} device"] = device_busy_ms(fn)
+        say("timing", f"fill_learned w{lw} d{ld} {name} at {SHAPE}: {ms[f'learned {name}']:.3f} ms events, "
+            f"{ms[f'learned {name} host']:.3f} ms host, {ms[f'learned {name} device']:.3f} ms device busy  [{card}]")
+    ms["learned baseline"] = time_ms(lambda: fill_window_mean(grid), reps=10)
+    say("timing", f"its window-mean baseline (B3 mean k=4) {ms['learned baseline']:.4f} ms events; phase took "
+        f"{time.perf_counter() - t_ln:.1f} s  [{card}]")
+    del planes_l, lparams
+
     # bounds, from this run's inputs
     # B1/B2 timed on the r0.10 grid, B3/B4 on the r0.20 one (same shape);
     # bytes: each input plane read once, each output plane written once
@@ -1810,7 +2118,7 @@ def main() -> int:
          launches_b["fill_idw_fused"] + launches_s["fill_idw_fused"],
          b3_err["idw"], ms["B3 idw k=8"], ms["B3 idw k=8 wrapper"], ms["B3 idw k=8 plain"]),
         ("fill_mean_fused", "auvtpu/pallas/window_fill.py:230",
-         launches_b["fill_mean_fused"] + launches_s["fill_mean_fused"],
+         launches_b["fill_mean_fused"] + launches_s["fill_mean_fused"] + launches_l["fill_mean_fused"],
          b3_err["mean"], ms["B3 mean k=4"], ms["B3 mean k=4 wrapper"], ms["B3 mean k=4 plain"]),
         ("topk_idx", "auvtpu/pallas/window_fill.py:384", launches_b4["topk_idx"],
          b4_err, ms["B4 k=4"], ms["B4 k=4 wrapper"], ms["B4 k=4 plain"]),
@@ -1835,8 +2143,10 @@ def main() -> int:
     rows_.append(("band_resample", "auvtpu/pallas/band_resample.py:43", launches_m["band_resample"],
                   b8_err, ms["B8 band"], ms["B8 band wrapper"], ms["B8 band plain"]))
     src["band_resample"] = "auvtpu_torch/csrc/band_resample.cu"
-    # B8: values only, no resolved mask; B7: the selection alone, no tie order
-    library = {"band_resample": ms["grid_sample"], "window_select_fused": ms["B7 library topk"]}
+    # B8: values only, no resolved mask; B7 and B5: the selection alone, no
+    # tie order
+    library = {"band_resample": ms["grid_sample"], "window_select_fused": ms["B7 library topk"],
+               "select_rows": ms["B5 library topk"]}
     kernels = [
         {"name": k, "route": "cuda", "source": src[k], "replaces": rep, "launches": n,
          "max_abs_err": err, "ms": t, "wrapper_ms": tw, "plain_ms": tp, "bound_ms": bounds[k][0],

@@ -84,6 +84,35 @@ def test_bench_grid_b_centered_and_variogram_model(csv_pair, tmp_path):
     assert df["Machine"].iloc[-1] == "GPU-gaussian" and np.isfinite(df["RMSE"].iloc[-1])
 
 
+@pytest.fixture
+def jax_x64_restored():
+    """The JAX CLIs switch x64 on for exact mode and leave it on: put the
+    flag back after the test."""
+    import jax
+
+    old = jax.config.jax_enable_x64
+    yield
+    jax.config.update("jax_enable_x64", old)
+
+
+@pytest.mark.parametrize("tier", ["two", "strict"])
+def test_bench_grid_b_exact_matches_jax_cli(csv_pair, tmp_path, tier, jax_x64_restored):
+    args, n = csv_pair
+    extra = ["--selection", "exact", "--exact-tier", tier]
+    out, j_out = str(tmp_path / "res.csv"), str(tmp_path / "jres.csv")
+    summary = bench_grid_b.main(args + extra + ["--results", out, "--device", "cpu"])
+    j_bench_grid_b(args + extra + ["--results", j_out])
+    got, want = pd.read_csv(out), pd.read_csv(j_out)
+    assert list(got["InterpolationType"]) == list(want["InterpolationType"]) == ["Bilinear", "Cubic", "Kriging"]
+    assert (got["Machine"] == "GPU-exact").all() and (got["BatchSize"] == n).all()
+    for col in METRICS:
+        np.testing.assert_allclose(got[col], want[col], rtol=1e-5, atol=0)  # the CSV's 6 digits
+    for m in summary.values():
+        assert np.isfinite(m["RMSE"]) and m["n"] == n
+    with pytest.raises(SystemExit):
+        bench_grid_b.main(args + extra + ["--convention", "centered", "--device", "cpu"])
+
+
 def test_bench_grid_b_help_names_what_is_left_out(capsys):
     with pytest.raises(SystemExit):
         bench_grid_b.main(["--help"])
@@ -162,6 +191,40 @@ def test_bench_grid_a_windowed_and_expanded(tmp_path):
     for name in ("bilin", "cubic", "kriging", "idw"):
         grid = np.loadtxt(f"{prefix}_gpu_{name}.csv", delimiter=",")
         assert grid.shape == (63, 79) and np.isfinite(grid).all()
+
+
+def test_bench_grid_a_exact_cpu(tmp_path, capsys):
+    from auvtpu_torch.cli import bench_grid_a
+
+    out = str(tmp_path / "res.csv")
+    summary = bench_grid_a.main([
+        "--num-lon", "80", "--num-lat", "64", "--batch-sizes", "1000", "--device", "cpu",
+        "--selection", "exact", "--results", out,
+    ])
+    assert sorted(summary) == sorted((m, 1000) for m in ("Bilinear", "Cubic", "Kriging"))
+    assert all(v["validated"] for v in summary.values())  # GoldenGrid at 1e-9 x scale
+    assert "dropping unsupported methods ['IDW']" in capsys.readouterr().out
+    assert list(pd.read_csv(out)["InterpolationType"]) == ["Bilinear", "Cubic", "Kriging"]
+
+
+def test_learned_eval_cpu(tmp_path):
+    from auvtpu.learned import load_params as j_load_params
+
+    from auvtpu_torch.cli import learned_eval
+
+    out, ckpt = str(tmp_path / "res.csv"), str(tmp_path / "p.npz")
+    base = ["--device", "cpu", "--synthetic", "48", "48", "--results", out, "--tile", "16", "--width", "8",
+            "--depth", "1", "--removal", "0.1"]
+    trained = learned_eval.main(base + ["--steps", "2", "--save-params", ckpt])
+    assert len(trained["losses"]) == 2 and np.isfinite(trained["losses"]).all()
+    assert np.isfinite(trained["RMSE"]) and trained["n"] == round(0.1 * 48 * 48)
+    _, w, d = j_load_params(ckpt)  # the JAX package reads the port's checkpoint
+    assert (w, d) == (8, 1)
+    loaded = learned_eval.main(base + ["--load-params", ckpt])
+    assert loaded["losses"] == [] and loaded["RMSE"] == trained["RMSE"]
+    rows = pd.read_csv(out)
+    assert list(rows["InterpolationType"]) == ["Learned", "Learned"] and (rows["Machine"] == "CPU").all()
+    assert (rows["Region"] == "synthetic48x48").all() and (rows["GridType"] == "B").all()
 
 
 def test_bench_grid_a_help_names_what_is_left_out(capsys):

@@ -174,7 +174,8 @@ def test_port_imports_no_jax_or_auvtpu():
         "cli/bench_grid_b.py", "cli/stream_demo.py", "utils/timing.py", "streaming.py", "metrics.py", "io.py",
         "cli/bench_grid_a.py", "golden/engine.py", "golden/v2.py", "ops/window.py", "ops/packs.py",
         "ops/batch.py", "ops/two_tier.py", "kernels/valid_select.py", "kernels/scattered_select.py",
-        "ops/band.py", "kernels/band_resample.py", "cli/mission.py",
+        "ops/band.py", "kernels/band_resample.py", "cli/mission.py", "ops/exact.py", "ops/exact_fast.py",
+        "learned.py", "cli/learned_eval.py",
     ):
         assert new in names
     assert (PORT / "csrc" / "band_resample.cu").exists()
