@@ -8,9 +8,13 @@ B8), serve the batch, and report route, geometry, resolved fraction and
 timings.
 
 Trajectories come from a CSV (``--trajectory-csv``, columns lon,lat) or the
-built-in synthetic missions (``--synthetic band|diagonal``).  The JAX CLI's
-``--export-dir`` (StableHLO serving artifacts) is not in the port: it waits
-for ``serve.py``.
+built-in synthetic missions (``--synthetic band|diagonal``).
+``--export-dir`` also writes the serving pair
+(:func:`~auvtpu_torch.serve.export_mission_fill`,
+:func:`~auvtpu_torch.serve.export_mission_resample`) so that production
+serving traces no Python: ``mission_fill.pt2`` and ``mission_resample.pt2``,
+``torch.export`` programs (the JAX CLI's ``.bin`` files are StableHLO, a
+format of their own).
 
 Run: ``python3 -m auvtpu_torch.cli.mission --synthetic diagonal``
 """
@@ -18,6 +22,7 @@ Run: ``python3 -m auvtpu_torch.cli.mission --synthetic diagonal``
 from __future__ import annotations
 
 import argparse
+import os
 import time
 
 import numpy as np
@@ -86,6 +91,9 @@ def main(argv=None):
                    help="skip the cost router and force a path")
     p.add_argument("--out", default=None, help="predictions CSV (lon,lat,depth)")
     p.add_argument("--device", default="cuda", help="torch device of the grid (default: the card)")
+    p.add_argument("--export-dir", default=None,
+                   help="write mission_fill.pt2/mission_resample.pt2 here (requires the band path: the router's "
+                   "choice or --force band)")
     args = p.parse_args(argv)
 
     from ..ops.band import BandRouter
@@ -120,6 +128,8 @@ def main(argv=None):
     )
     choice = args.force or router.route(lon, lat)
     log(f"route: {choice}" + (" (forced)" if args.force else f" (coherence {router.last_coherence:.4f})"))
+    if args.export_dir and choice != "band":
+        p.error("--export-dir requires the band path (use --force band)")
 
     on_card = grid.device.type == "cuda"
     t0 = time.perf_counter()
@@ -150,7 +160,38 @@ def main(argv=None):
         write_points_csv(args.out, lon, lat, z)
         log(f"wrote {args.out}")
     summary.update(unresolved=unresolved, n=len(z), depth_sum=float(z.astype(np.float64).sum()), wall_ms=wall * 1e3)
+    if args.export_dir:
+        summary["export"] = export_pair(args.export_dir, router, grid, len(lon), args)
     return summary
+
+
+def export_pair(export_dir: str, router, grid: RegularGrid, n_queries: int, args) -> dict:
+    """Write the prepared router's serving pair; returns {fill, resample}:
+    (path, bytes) of each."""
+    from ..serve import export_mission_fill, export_mission_resample
+
+    os.makedirs(export_dir, exist_ok=True)
+    a = router._atlas
+    if a is not None:
+        placed, (_, pr, pc) = a.placed, a.shape
+    else:
+        b = router._band
+        placed, (pr, pc) = ((b.row0, b.col0),), b.shape
+    extent = (grid.min_lon, grid.max_lon, grid.min_lat, grid.max_lat)
+    fp = os.path.join(export_dir, "mission_fill.pt2")
+    rp = os.path.join(export_dir, "mission_resample.pt2")
+    # router.fill_backend is the resolved backend: the artifact reproduces
+    # the live router's fill
+    nf = export_mission_fill(fp, grid.shape, placed, pr, pc, extent=extent, convention=args.convention,
+                             fill_backend=router.fill_backend, device=grid.device)
+    rs = router._resampler  # auto_window may have shrunk wr/wc
+    # masked=True is frozen into the artifact and always correct: a later
+    # refresh may leave page cells undefined even where this build did not
+    nr = export_mission_resample(rp, grid.shape, placed, pr, pc, n_queries, extent=extent, chunk=args.chunk,
+                                 win_rows=rs.wr, win_cols=rs.wc, masked=True, lerp_mode=rs.lerp_mode,
+                                 device=grid.device)
+    log(f"exported serving pair: {fp} ({nf} B), {rp} ({nr} B)")
+    return {"fill": (fp, nf), "resample": (rp, nr)}
 
 
 if __name__ == "__main__":

@@ -26,6 +26,29 @@ def as_dtype(v: float, dtype: torch.dtype) -> float:
     return float(np.float32(v)) if dtype == torch.float32 else float(v)
 
 
+def device_cache(maxsize: int):
+    """``functools.lru_cache`` for a function that makes tensors (or a
+    module) from hashable arguments, bypassed while ``torch.export`` (or
+    ``torch.compile``) traces the caller: a tensor made then is a constant
+    of the traced program, a fake tensor while the trace runs, and must not
+    enter a cache that live calls read.  Every such cache of the package is
+    one of these."""
+
+    def wrap(fn):
+        cached = functools.lru_cache(maxsize=maxsize)(fn)
+
+        @functools.wraps(fn)
+        def call(*args):
+            if torch.compiler.is_compiling() or torch.compiler.is_exporting():
+                return fn(*args)
+            return cached(*args)
+
+        call.cache_clear, call.cache_info = cached.cache_clear, cached.cache_info
+        return call
+
+    return wrap
+
+
 def divisor(v, like: torch.Tensor):
     """``v`` (a python number or a tensor) as a divisor of the tensor
     ``like``.  A python scalar dividing a CUDA tensor is a multiply by its
@@ -37,7 +60,7 @@ def divisor(v, like: torch.Tensor):
     return _scalar_tensor(float(v), like.dtype, like.device)
 
 
-@functools.lru_cache(maxsize=64)
+@device_cache(maxsize=64)
 def _scalar_tensor(v: float, dtype: torch.dtype, device: torch.device) -> torch.Tensor:
     return torch.tensor(v, dtype=dtype, device=device)
 

@@ -31,7 +31,9 @@ both:
 :func:`band_resample_ref` is the plain version: the same prologue, floors,
 four-corner gather and two-term sums in the same order, so the two are
 bit-equal on a card.  :func:`band_resample` runs it only for planes on the
-CPU; for CUDA planes it launches the kernel or raises.  Each launch adds one
+CPU; for CUDA planes it launches the kernel or raises, through the custom
+op ``auvtpu_torch::band_resample`` (:mod:`.library`) whose ``cuda``
+implementation is :func:`resample_launch`.  Each launch adds one
 to ``LAUNCHES["band_resample"]``.
 """
 
@@ -44,6 +46,7 @@ import numpy as np
 import torch
 
 from ..ops.band import _ceil_to
+from . import library
 
 LAUNCHES = {"band_resample": 0}
 # masked queries resolve where the weights on the vmask sum above 1 - 1e-3,
@@ -175,12 +178,20 @@ def _stream(dev: torch.device) -> ctypes.c_void_p:
 
 def band_resample(planes, vmasks, origins, x, y, *, chunk: int, wr: int, wc: int, pick: bool, aligned: bool = False, hat: bool = True, affine=IDENTITY):
     """Chunked windowed bilinear over K pages (B8): (z, ok) as
-    :func:`band_resample_ref` gives them.  For planes on the CPU this is the
+    :func:`band_resample_ref` gives them, through the op
+    ``auvtpu_torch::band_resample``.  For planes on the CPU this is the
     plain version; for CUDA planes it launches the kernel: one launch and
     the two outputs' allocation, whatever the batch."""
-    if planes.device.type == "cpu":
-        return band_resample_ref(planes, vmasks, origins, x, y, chunk=chunk, wr=wr, wc=wc, pick=pick,
-                                 aligned=aligned, hat=hat, affine=affine)
+    if planes.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"band_resample: planes lie on {planes.device}; the kernel takes CUDA planes "
+                         "(CPU planes run the plain version)")
+    return library.band_resample(planes, vmasks, origins, x, y, chunk, wr, wc, pick, aligned, hat,
+                                 [float(v) for v in affine])
+
+
+def resample_launch(planes, vmasks, origins, x, y, *, chunk: int, wr: int, wc: int, pick: bool, aligned: bool, hat: bool, affine):
+    """One B8 launch: the ``cuda`` implementation of
+    ``auvtpu_torch::band_resample``."""
     dev = planes.device
     ins = [planes, x, y] + [t for t in (origins, vmasks) if t is not None]
     if any(t.dtype != torch.float32 for t in ins):

@@ -1,0 +1,228 @@
+"""The kernels on the serving paths as ``torch.library`` custom ops.
+
+A ctypes launch on a raw pointer is opaque to ``torch.export``, so the
+kernels an exported program must launch are registered as operators of the
+``auvtpu_torch`` namespace (a ``torch.library.Library`` definition each,
+with no autograd kernel: a call goes through the C++ dispatcher straight to
+the device's implementation):
+
+- ``auvtpu_torch::kriging_fill`` (B1, ``csrc/window_fill.cu``
+  ``kriging_fill_kernel``);
+- ``auvtpu_torch::window_fill`` (B3, ``fill_tile_kernel``: kind 0 IDW, 1
+  mean);
+- ``auvtpu_torch::window_select`` (B7, ``csrc/scattered_select.cu``
+  ``window_select_kernel``);
+- ``auvtpu_torch::band_resample`` (B8, ``csrc/band_resample.cu``).
+
+Each op takes tensors and python scalars only: a grid is unpacked into its
+``elev`` and ``valid`` planes with its extent as floats, the variogram is
+one tensor, and what the kernel takes by value from the host (B7's taps)
+is a list of floats the wrapper works out before the call.  Its ``CUDA``
+implementation is the ctypes launch (with the launch count, the checks and
+the errors it always had), its ``CPU`` implementation the kernel's plain
+version, and its fake implementation gives the output's shape and dtype for
+tracing.  The wrappers in :mod:`.window_fill`, :mod:`.scattered_select` and
+:mod:`.band_resample` call these ops, so a live call and an exported
+program take one route.  B2, B4, B5 and B6 stay ctypes calls: no exported
+path launches them.
+
+Importing this module registers the ops and builds nothing; a program
+loaded with ``torch.export.load`` needs it imported first.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from ..config import KrigingConfig
+from ..grid import RegularGrid, device_cache
+
+NAMESPACE = "auvtpu_torch"
+
+
+def _grid(elev, valid, extent) -> RegularGrid:
+    return RegularGrid(elev=elev, valid=valid, min_lon=extent[0], max_lon=extent[1], min_lat=extent[2],
+                       max_lat=extent[3])
+
+
+def variogram_tensor(vparams, like: torch.Tensor) -> torch.Tensor:
+    """The variogram's (nugget, sill, range) as one (3,) tensor of ``like``'s
+    dtype, for :func:`kriging_fill`.  ``vparams``: None (the reference's
+    fixed model), three numbers (a constant tensor on ``like``'s device,
+    made once per value), a (3,) tensor, or three 0-d tensors: views of one
+    (3,) tensor, as a fit returns them, are that tensor with no copy and no
+    launch; others are stacked."""
+    if vparams is None:
+        v = KrigingConfig().variogram
+        vparams = (v.nugget, v.sill, v.range)
+    if torch.is_tensor(vparams):
+        if vparams.shape != (3,):
+            raise ValueError(f"variogram parameters: a (3,) tensor, got {tuple(vparams.shape)}")
+        return vparams.to(like.dtype)
+    if len(vparams) != 3:
+        raise ValueError(f"variogram parameters: three values, got {len(vparams)}")
+    if not any(torch.is_tensor(v) for v in vparams):
+        key = (tuple(float(v) for v in vparams), like.dtype, like.device)
+        return _constant(*key)
+    for i, v in enumerate(vparams):
+        if torch.is_tensor(v) and v.numel() != 1:
+            raise ValueError(f"variogram parameter {i} has {v.numel()} elements, want one")
+    base = vparams[0]._base if torch.is_tensor(vparams[0]) else None
+    if (base is not None and base.shape == (3,) and base.dtype == like.dtype and base.device == like.device
+            and all(torch.is_tensor(v) and v._base is base and v.dim() == 0
+                    and v.storage_offset() == base.storage_offset() + i * base.stride(0)
+                    for i, v in enumerate(vparams))):
+        return base
+    return torch.stack([torch.as_tensor(v).reshape(()).to(like.device, like.dtype) for v in vparams])
+
+
+@device_cache(maxsize=32)
+def _constant(values: tuple, dtype: torch.dtype, device: torch.device) -> torch.Tensor:
+    return torch.tensor(values, dtype=dtype, device=device)
+
+
+# ---------------------------------------------------------------------------
+# registration: a schema and the CPU, CUDA and fake implementations, with no
+# autograd kernel (no op here has a gradient), so a call is one trip through
+# the C++ dispatcher to the device's implementation
+# ---------------------------------------------------------------------------
+
+_LIB = torch.library.Library(NAMESPACE, "DEF")
+
+
+def _op(schema: str, *, cpu, cuda, fake):
+    """Define ``auvtpu_torch::<schema>`` with its implementations; returns
+    the overload the wrappers call."""
+    name = schema.split("(", 1)[0]
+    _LIB.define(schema)
+    _LIB.impl(name, cpu, "CPU")
+    _LIB.impl(name, cuda, "CUDA")
+    torch.library.register_fake(f"{NAMESPACE}::{name}", fake, lib=_LIB)
+    return getattr(getattr(torch.ops, NAMESPACE), name).default
+
+
+# ---------------------------------------------------------------------------
+# B1: fused selection + ordinary-kriging solve.  Over the (H, W) planes: the
+# kriging plane, or (2, H, W) with the variance.  vario (3,) (nugget, sill,
+# range); geo (min_lon, max_lon, min_lat, max_lat, lat_step, lon_step, row0,
+# col0).
+# ---------------------------------------------------------------------------
+
+def _kriging_args(elev, valid, geo):
+    return _grid(elev, valid, geo[:4]), dict(steps=(geo[4], geo[5]), row0=geo[6], col0=geo[7])
+
+
+def _kriging_cpu(elev, valid, vario, geo, max_radius, convention, model, solver, with_variance):
+    from .window_fill import fill_kriging_fused_ref
+
+    grid, place = _kriging_args(elev, valid, geo)
+    out = fill_kriging_fused_ref(grid, max_radius=max_radius, convention=convention,
+                                 vparams=tuple(float(v) for v in vario), model=model, solver=solver,
+                                 with_variance=with_variance, **place)
+    return torch.stack(out) if with_variance else out
+
+
+def _kriging_cuda(elev, valid, vario, geo, max_radius, convention, model, solver, with_variance):
+    from .window_fill import kriging_launch
+
+    grid, place = _kriging_args(elev, valid, geo)
+    return kriging_launch(grid, (vario[0], vario[1], vario[2]), max_radius=max_radius, convention=convention,
+                          model=model, solver=solver, with_variance=with_variance, **place)
+
+
+def _kriging_fake(elev, valid, vario, geo, max_radius, convention, model, solver, with_variance):
+    return elev.new_empty(((2,) if with_variance else ()) + tuple(elev.shape))
+
+
+kriging_fill = _op(
+    "kriging_fill(Tensor elev, Tensor valid, Tensor vario, float[] geo, int max_radius, str convention, "
+    "str model, str solver, bool with_variance) -> Tensor",
+    cpu=_kriging_cpu, cuda=_kriging_cuda, fake=_kriging_fake)
+
+
+# ---------------------------------------------------------------------------
+# B3: first-k-valid IDW (kind 0) and mean (kind 1) fills over the (H, W)
+# planes
+# ---------------------------------------------------------------------------
+
+def _fill_cpu(elev, valid, kind, k, power, max_radius, convention, keep_observed):
+    from .window_fill import fill_idw_fused_ref, fill_mean_fused_ref
+
+    grid = _grid(elev, valid, (0.0, 1.0, 0.0, 1.0))  # the fills read no coordinate
+    kw = dict(k=k, max_radius=max_radius, convention=convention, keep_observed=keep_observed)
+    return fill_idw_fused_ref(grid, power=power, **kw) if kind == 0 else fill_mean_fused_ref(grid, **kw)
+
+
+def _fill_cuda(elev, valid, kind, k, power, max_radius, convention, keep_observed):
+    from .window_fill import fill_launch
+
+    return fill_launch(_grid(elev, valid, (0.0, 1.0, 0.0, 1.0)), kind, k=k, power=power, max_radius=max_radius,
+                       convention=convention, keep_observed=keep_observed)
+
+
+def _fill_fake(elev, valid, kind, k, power, max_radius, convention, keep_observed):
+    return elev.new_empty(elev.shape)
+
+
+window_fill = _op(
+    "window_fill(Tensor elev, Tensor valid, int kind, int k, float power, int max_radius, str convention, "
+    "bool keep_observed) -> Tensor",
+    cpu=_fill_cpu, cuda=_fill_cuda, fake=_fill_fake)
+
+
+# ---------------------------------------------------------------------------
+# B7: window top-k from a stencil pack: (N, 1+3k) rows [cnt, vals, d2s,
+# codes] over the pack rows ``cell``.  tab is the (3, P) 'dx' table (the
+# plain version's); taps the kernel's by-value taps
+# (scattered_select._window_taps), empty for a CPU pack.
+# ---------------------------------------------------------------------------
+
+def _select_cpu(pack, cell, fx, fy, tab, taps, P, k, half):
+    from .scattered_select import select_ref
+
+    return select_ref(pack, P, cell, fx, fy, tab, mode="rows_n", k=k, half=half)
+
+
+def _select_cuda(pack, cell, fx, fy, tab, taps, P, k, half):
+    from .scattered_select import window_launch
+
+    return window_launch(pack, P, cell, fx, fy, tab, taps, k)
+
+
+def _select_fake(pack, cell, fx, fy, tab, taps, P, k, half):
+    return pack.new_empty((cell.shape[0], 1 + 3 * k))
+
+
+window_select = _op(
+    "window_select(Tensor pack, Tensor cell, Tensor fx, Tensor fy, Tensor tab, float[] taps, int P, int k, "
+    "float half) -> Tensor",
+    cpu=_select_cpu, cuda=_select_cuda, fake=_select_fake)
+
+
+# ---------------------------------------------------------------------------
+# B8: chunked windowed bilinear over band or atlas pages: (z (N,), ok (N,)
+# bool) as band_resample.band_resample_ref gives them
+# ---------------------------------------------------------------------------
+
+def _resample_cpu(planes, vmasks, origins, x, y, chunk, wr, wc, pick, aligned, hat, affine):
+    from .band_resample import band_resample_ref
+
+    return band_resample_ref(planes, vmasks, origins, x, y, chunk=chunk, wr=wr, wc=wc, pick=pick, aligned=aligned,
+                             hat=hat, affine=tuple(affine))
+
+
+def _resample_cuda(planes, vmasks, origins, x, y, chunk, wr, wc, pick, aligned, hat, affine):
+    from .band_resample import resample_launch
+
+    return resample_launch(planes, vmasks, origins, x, y, chunk=chunk, wr=wr, wc=wc, pick=pick, aligned=aligned,
+                           hat=hat, affine=tuple(affine))
+
+
+def _resample_fake(planes, vmasks, origins, x, y, chunk, wr, wc, pick, aligned, hat, affine):
+    return x.new_empty(x.shape), x.new_empty(x.shape, dtype=torch.bool)
+
+
+band_resample = _op(
+    "band_resample(Tensor planes, Tensor? vmasks, Tensor? origins, Tensor x, Tensor y, int chunk, int wr, "
+    "int wc, bool pick, bool aligned, bool hat, float[] affine) -> (Tensor, Tensor)",
+    cpu=_resample_cpu, cuda=_resample_cuda, fake=_resample_fake)

@@ -26,7 +26,9 @@ one place (:func:`prologue`); the kernel does the fetch and the selection.
 :func:`select_ref` is the kernel's plain version, a transcription of the
 TPU kernels (same d2 op order, sentinels and tie rule).  :func:`select`
 runs it only for a pack on the CPU; for a CUDA pack it launches the kernel
-or raises.  Each launch adds one to ``LAUNCHES[<kernel>]``.
+or raises.  B7 goes through the custom op ``auvtpu_torch::window_select``
+(:mod:`.library`), whose ``cuda`` implementation is :func:`window_launch`.
+Each launch adds one to ``LAUNCHES[<kernel>]``.
 """
 
 from __future__ import annotations
@@ -38,7 +40,7 @@ import numpy as np
 import torch
 
 from ..config import IDWConfig
-from ..grid import RegularGrid
+from ..grid import RegularGrid, device_cache
 from ..ops.packs import (
     SENTINEL,
     idw_from_select,
@@ -47,6 +49,7 @@ from ..ops.packs import (
     window_offsets,
 )
 from ..ops.scattered import _normalize, centre_cells
+from . import library
 
 # one count per TPU kernel replaced
 LAUNCHES = {"select_rows": 0, "idw_rows": 0, "window_select_fused": 0}
@@ -103,7 +106,7 @@ def table(offs, P: int, R: int, layout: str, device) -> torch.Tensor:
     return _table(tuple(offs), P, R, layout, torch.device(device))
 
 
-@lru_cache(maxsize=32)
+@device_cache(maxsize=32)
 def _table(offs: tuple, P: int, R: int, layout: str, device: torch.device) -> torch.Tensor:
     B = 2 * R + 2
     tab = np.full((3, P), 0.0 if layout == "dy" else 1e4, np.float32)
@@ -237,21 +240,13 @@ def _stream(dev: torch.device) -> ctypes.c_void_p:
     return ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream)
 
 
-def select(pack, P: int, cell, fx, fy, tab, *, mode: str, k: int, emit_d2: bool = False, half: float = 0.5, resolve_thresh=None, eps: float = IDWConfig().eps):
-    """k-nearest selection over the pack rows ``cell`` (B5/B6/B7 by ``mode``).
-
-    pack (cells*P,) f32 with the 1e30 sentinel at invalid taps; cell (N,)
-    integer; fx, fy (N,) f32; tab (3, P) f32 (dx, dy, code).  For a CPU pack
-    this is :func:`select_ref`; for a CUDA pack it launches the kernel."""
-    kw = dict(mode=mode, k=k, emit_d2=emit_d2, half=half, resolve_thresh=resolve_thresh, eps=eps)
-    if pack.device.type == "cpu":
-        return select_ref(pack, P, cell, fx, fy, tab, **kw)
-    if mode not in _MODES:
-        raise ValueError(mode)
-    name = _MODES[mode]
+def _check(pack, P: int, k: int, name: str, *inputs) -> None:
+    """What every select kernel takes: float32, a built pack width, 1 <= k
+    <= P, a contiguous pack of whole rows, every input on the pack's
+    device."""
     dev = pack.device
-    if pack.dtype != torch.float32 or fx.dtype != torch.float32 or fy.dtype != torch.float32:
-        raise TypeError(f"{name}: the kernel is float32 only (pack {pack.dtype}, fx {fx.dtype})")
+    if pack.dtype != torch.float32 or any(t.dtype != torch.float32 for t in inputs[1:3]):
+        raise TypeError(f"{name}: the kernel is float32 only (pack {pack.dtype}, fx {inputs[1].dtype})")
     if P not in KERNEL_P:
         raise ValueError(
             f"{name}: pack width P={P} is not built: the kernel keeps P distances in "
@@ -259,12 +254,42 @@ def select(pack, P: int, cell, fx, fy, tab, *, mode: str, k: int, emit_d2: bool 
         )
     if not 1 <= k <= P:
         raise ValueError(f"{name}: k={k} outside 1..{P}")
-    if not pack.is_contiguous() or pack.numel() % P or (pack.data_ptr() % 16 and mode == "rows_t"):
+    if not pack.is_contiguous() or pack.numel() % P or (name == "select_rows" and pack.data_ptr() % 16):
         raise ValueError(f"{name}: the pack must be contiguous, a whole number of rows and (but for B6 and "
                          "B7, which take scalar loads there) 16-byte aligned")
-    for t in (cell, fx, fy, tab):
+    for t in inputs:
         if t.device != dev:
             raise ValueError(f"{name}: pack on {dev} but an input on {t.device}")
+
+
+def _raise_on(err: int, name: str) -> None:
+    if err != 0:
+        msg = _lib().auvtpu_scattered_error_string(err).decode()
+        raise RuntimeError(f"{name}: CUDA launch failed: {msg} ({err})")
+
+
+def select(pack, P: int, cell, fx, fy, tab, *, mode: str, k: int, emit_d2: bool = False, half: float = 0.5, resolve_thresh=None, eps: float = IDWConfig().eps):
+    """k-nearest selection over the pack rows ``cell`` (B5/B6/B7 by ``mode``).
+
+    pack (cells*P,) f32 with the 1e30 sentinel at invalid taps; cell (N,)
+    integer; fx, fy (N,) f32; tab (3, P) f32 (dx, dy, code).  For a CPU pack
+    this is :func:`select_ref`; for a CUDA pack it launches the kernel.  B7
+    (``"rows_n"``) goes through its op, ``auvtpu_torch::window_select``,
+    with its taps worked out here from the table's host copy."""
+    if mode == "rows_n":
+        if pack.device.type == "cpu":
+            return library.window_select(pack, cell, fx, fy, tab, [], P, k, half)
+        _check(pack, P, k, "window_select_fused", cell, fx, fy, tab)
+        taps = _window_taps(tab, P, half)[1].tolist()
+        return library.window_select(pack, cell, fx, fy, tab, taps, P, k, half)
+    kw = dict(mode=mode, k=k, emit_d2=emit_d2, half=half, resolve_thresh=resolve_thresh, eps=eps)
+    if pack.device.type == "cpu":
+        return select_ref(pack, P, cell, fx, fy, tab, **kw)
+    if mode not in _MODES:
+        raise ValueError(mode)
+    name = _MODES[mode]
+    dev = pack.device
+    _check(pack, P, k, name, cell, fx, fy, tab)
     n = int(cell.shape[0])
     out = torch.empty(_out_shape(mode, n, k, emit_d2, resolve_thresh is not None), dtype=torch.float32, device=dev)
     if n == 0:
@@ -280,12 +305,6 @@ def select(pack, P: int, cell, fx, fy, tab, *, mode: str, k: int, emit_d2: bool 
                 taps.ctypes.data_as(ctypes.POINTER(ctypes.c_float)), n, k, int(resolve_thresh is not None),
                 thresh, float(eps), out.data_ptr(), _stream(dev),
             )
-        elif mode == "rows_n":
-            M, taps = _window_taps(tab, P, half)
-            err = _lib().auvtpu_window_select(
-                pack.data_ptr(), P, M, cell32.data_ptr(), fxy.data_ptr(),
-                taps.ctypes.data_as(ctypes.POINTER(ctypes.c_float)), n, k, out.data_ptr(), _stream(dev),
-            )
         else:
             tab = tab.to(torch.float32).contiguous()
             err = _lib().auvtpu_scattered_select(
@@ -293,9 +312,33 @@ def select(pack, P: int, cell, fx, fy, tab, *, mode: str, k: int, emit_d2: bool 
                 int(emit_d2), float(half), int(resolve_thresh is not None), thresh,
                 out.data_ptr(), _stream(dev),
             )
-    if err != 0:
-        msg = _lib().auvtpu_scattered_error_string(err).decode()
-        raise RuntimeError(f"{name}: CUDA launch failed: {msg} ({err})")
+    _raise_on(err, name)
+    LAUNCHES[name] += 1
+    return out
+
+
+def window_launch(pack, P: int, cell, fx, fy, tab, taps, k: int):
+    """One B7 launch: the ``cuda`` implementation of
+    ``auvtpu_torch::window_select``.  ``taps`` are the by-value taps of
+    :func:`_window_taps` (3*M floats)."""
+    name = "window_select_fused"
+    _check(pack, P, k, name, cell, fx, fy, tab)
+    if len(taps) % 3 or len(taps) // 3 not in WINDOW_M:
+        raise ValueError(f"{name}: {len(taps)} tap values; want 3*M, M in {WINDOW_M}")
+    dev = pack.device
+    n = int(cell.shape[0])
+    out = torch.empty((n, 1 + 3 * k), dtype=torch.float32, device=dev)
+    if n == 0:
+        return out
+    cell32 = cell.to(torch.int32).contiguous()
+    fxy = torch.stack([fx, fy]).contiguous()
+    host = np.asarray(taps, dtype=np.float32)
+    with torch.cuda.device(dev):
+        err = _lib().auvtpu_window_select(
+            pack.data_ptr(), P, len(taps) // 3, cell32.data_ptr(), fxy.data_ptr(),
+            host.ctypes.data_as(ctypes.POINTER(ctypes.c_float)), n, k, out.data_ptr(), _stream(dev),
+        )
+    _raise_on(err, name)
     LAUNCHES[name] += 1
     return out
 

@@ -19,7 +19,10 @@ B4 reads a NaN-padded copy of the plane that the wrapper builds
 from the grid's planes as they are, and a B1 or B2 call is one launch and
 nothing else.  Each has a plain torch version beside it
 (``<wrapper>_ref``).  A wrapper runs the plain version only for a grid on
-the CPU; for a CUDA grid it launches its kernel or raises.  Each launch adds one to
+the CPU; for a CUDA grid it launches its kernel or raises.  B1 and B3 go
+through their custom ops (:mod:`.library`: ``auvtpu_torch::kriging_fill``,
+``auvtpu_torch::window_fill``), whose ``cuda`` implementations are
+:func:`kriging_launch` and :func:`fill_launch`.  Each launch adds one to
 ``LAUNCHES[<wrapper name>]``, so a run can show that it went through the
 kernels.
 """
@@ -43,6 +46,7 @@ from ..ops.dense import (
     window_topk_planes,
 )
 from ..tables import sorted_offsets
+from . import library
 
 LAUNCHES = {
     "topk_full": 0,
@@ -244,7 +248,13 @@ def _device_weights(max_radius: int, power: float, convention: str, device: torc
     return torch.from_numpy(w.astype(np.float32)).to(device)
 
 
-def _fill(grid: RegularGrid, kind: int, name: str, *, k: int, power: float, max_radius: int, convention: str, keep_observed: bool):
+_FILL_NAMES = ("fill_idw_fused", "fill_mean_fused")  # by kind
+
+
+def fill_launch(grid: RegularGrid, kind: int, *, k: int, power: float, max_radius: int, convention: str, keep_observed: bool):
+    """One B3 launch over a CUDA grid (kind 0 IDW, 1 mean): the ``cuda``
+    implementation of ``auvtpu_torch::window_fill``."""
+    name = _FILL_NAMES[kind]
     dev = _check_cuda_grid(grid, name)
     H, W = grid.shape
     R = max_radius
@@ -264,6 +274,15 @@ def _fill(grid: RegularGrid, kind: int, name: str, *, k: int, power: float, max_
     return out
 
 
+def _fill(grid: RegularGrid, kind: int, *, k: int, power: float, max_radius: int, convention: str, keep_observed: bool):
+    """B3 through its op: the plain version for a CPU grid, the kernel (or
+    an error) for a CUDA one."""
+    if grid.elev.device.type != "cpu":
+        _check_cuda_grid(grid, _FILL_NAMES[kind])
+    return library.window_fill(grid.elev, grid.valid, kind, k, float(power), max_radius, convention,
+                               keep_observed)
+
+
 def fill_idw_fused_ref(grid: RegularGrid, *, k: int = 8, power: float = 2.0, max_radius: int = 10, convention: str = "reference", keep_observed: bool = False):
     """Plain version of :func:`fill_idw_fused`: :func:`auvtpu_torch.ops.dense.fill_idw`."""
     return fill_idw(grid, k=k, power=power, max_radius=max_radius, convention=convention, backend="torch",
@@ -277,10 +296,7 @@ def fill_idw_fused(grid: RegularGrid, *, k: int = 8, power: float = 2.0, max_rad
     ``keep_observed``: cells with valid > 0.5 keep their own elevation.
     The planes may be views with any row stride (a window of a mosaic); a
     column stride other than 1 raises."""
-    if grid.elev.device.type == "cpu":
-        return fill_idw_fused_ref(grid, k=k, power=power, max_radius=max_radius, convention=convention,
-                                  keep_observed=keep_observed)
-    return _fill(grid, 0, "fill_idw_fused", k=k, power=power, max_radius=max_radius, convention=convention,
+    return _fill(grid, 0, k=k, power=power, max_radius=max_radius, convention=convention,
                  keep_observed=keep_observed)
 
 
@@ -295,10 +311,7 @@ def fill_mean_fused(grid: RegularGrid, *, k: int = 4, max_radius: int = 10, conv
     NaN where none is found; the semantics of ``pallas_fill_mean`` and
     ``ops.dense.fill_window_mean``.  ``keep_observed`` and the planes'
     strides as for :func:`fill_idw_fused`."""
-    if grid.elev.device.type == "cpu":
-        return fill_mean_fused_ref(grid, k=k, max_radius=max_radius, convention=convention,
-                                   keep_observed=keep_observed)
-    return _fill(grid, 1, "fill_mean_fused", k=k, power=0.0, max_radius=max_radius, convention=convention,
+    return _fill(grid, 1, k=k, power=0.0, max_radius=max_radius, convention=convention,
                  keep_observed=keep_observed)
 
 
@@ -361,12 +374,21 @@ def fill_kriging_fused(grid: RegularGrid, *, max_radius: int = 10, convention: s
     may be views with any row stride, as for :func:`fill_idw_fused`;
     fitted variogram parameters (0-d tensors on the card) are read there by
     the kernel."""
-    if grid.elev.device.type == "cpu":
-        return fill_kriging_fused_ref(
-            grid, max_radius=max_radius, convention=convention, vparams=vparams,
-            model=model, solver=solver, with_variance=with_variance,
-            row0=row0, col0=col0, steps=steps,
-        )
+    if grid.elev.device.type != "cpu":
+        _check_cuda_grid(grid, "fill_kriging_fused")
+    lat_step, lon_step = (grid.lat_step, grid.lon_step) if steps is None else steps
+    geo = [float(v) for v in (grid.min_lon, grid.max_lon, grid.min_lat, grid.max_lat, lat_step, lon_step, row0, col0)]
+    out = library.kriging_fill(grid.elev, grid.valid, library.variogram_tensor(vparams, grid.elev), geo, max_radius,
+                               convention, model, solver, with_variance)
+    if with_variance:
+        return out[0], out[1]
+    return out
+
+
+def kriging_launch(grid: RegularGrid, vparams, *, max_radius: int, convention: str, model: str, solver: str, with_variance: bool, row0, col0, steps):
+    """One B1 launch over a CUDA grid: the ``cuda`` implementation of
+    ``auvtpu_torch::kriging_fill``.  Returns the plane, or (2, H, W) with the
+    variance."""
     dev = _check_cuda_grid(grid, "fill_kriging_fused")
     if model not in _MODELS:
         raise ValueError(model)
@@ -388,6 +410,4 @@ def fill_kriging_fused(grid: RegularGrid, *, max_radius: int = 10, convention: s
         del keep
         _raise_on(err, "fill_kriging_fused")
         LAUNCHES["fill_kriging_fused"] += 1
-    if with_variance:
-        return out[0], out[1]
     return out

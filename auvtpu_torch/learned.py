@@ -26,7 +26,6 @@ grid or training tile.
 
 from __future__ import annotations
 
-import functools
 
 import numpy as np
 import torch
@@ -35,7 +34,7 @@ import torch.nn.functional as F
 
 from .config import Extent
 from .convert import learned_params_from_arrays
-from .grid import RegularGrid
+from .grid import RegularGrid, device_cache
 from .ops import fill_window_mean
 
 
@@ -74,7 +73,7 @@ def _apply(params: dict, x, *, width: int, depth: int, compute_dtype):
     return torch.func.functional_call(model, params, (x,))
 
 
-@functools.lru_cache(maxsize=16)
+@device_cache(maxsize=16)
 def _skeleton(width: int, depth: int, compute_dtype):
     """A module without storage (meta device) to call with given parameters."""
     with torch.device("meta"):

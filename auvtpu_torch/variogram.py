@@ -1,11 +1,14 @@
-"""Isotropic variogram estimation and fitting (counterpart of the isotropic
-part of :mod:`auvtpu.variogram`).
+"""Variogram estimation and fitting (counterpart of :mod:`auvtpu.variogram`
+but for ``pair_sums_2d``).
 
 :func:`empirical_variogram` bins the Matheron semivariance of the valid cells
 by integer lag from shifted-plane pair sums; :func:`fit_model` fits
 (nugget, p1, p2) by damped Gauss-Newton in log-parameter space with a fixed
-iteration count.  The parameters stay on the grid's device throughout: no
-value is read back to the host inside the loop.
+iteration count.  :func:`empirical_variogram_directional` bins the same pair
+sums by (azimuth sector, lag) and :func:`fit_anisotropic` fits an ellipse
+(nugget, sill, rx, ry, theta) to them by Levenberg-Marquardt.  The
+parameters stay on the grid's device throughout: no value is read back to
+the host inside a loop.
 
 The fit lands in a nearly linear regime on real bathymetry, where only
 sill/range and the nugget are pinned down, so two frameworks can return
@@ -98,6 +101,154 @@ def empirical_variogram(grid: RegularGrid, *, max_lag: int = 10, n_bins: int = 1
     return torch.as_tensor(centers, dtype=grid.dtype).to(grid.device), gamma, c
 
 
+# ---------------------------------------------------------------------------
+# directional / anisotropic variograms
+# ---------------------------------------------------------------------------
+
+@lru_cache(maxsize=8)
+def _sector_bin_table(max_lag: int, n_bins: int, n_sectors: int, aspect: float = 1.0):
+    """Offset -> (sector, lag-bin) flat table.  Half-plane offsets cover
+    azimuths [0, pi); sector s spans [s, s+1) * pi/n_sectors.  ``aspect`` =
+    lat_step/lon_step turns index offsets into physical geometry (rows are
+    ``aspect`` times as long as columns), so a grid whose steps differ does
+    not report its aspect as anisotropy; lags are in lon-step units."""
+    dys, dxs, _ = _lag_offsets(max_lag)
+    dyp = dys.astype(np.float64) * aspect
+    dxp = dxs.astype(np.float64)
+    hs = np.hypot(dxp, dyp)
+    hmax = float(max_lag) * max(1.0, aspect)
+    edges = np.linspace(0.0, hmax, n_bins + 1)
+    bin_of = np.clip(np.digitize(hs, edges) - 1, 0, n_bins - 1)
+    ang = np.mod(np.arctan2(dyp, dxp), np.pi)
+    sector_of = np.clip(np.floor(ang / (np.pi / n_sectors)).astype(np.int64), 0, n_sectors - 1)
+    flat = (sector_of * n_bins + bin_of).astype(np.int32)
+    centers = 0.5 * (edges[:-1] + edges[1:])
+    angles = (np.arange(n_sectors) + 0.5) * np.pi / n_sectors
+    return dys, dxs, flat, centers, angles
+
+
+def empirical_variogram_directional(grid: RegularGrid, *, max_lag: int = 10, n_bins: int = 10, n_sectors: int = 4, aspect: float = 1.0):
+    """Directional Matheron semivariance, binned by (azimuth sector, lag).
+
+    Returns (lag_centers (n_bins,), sector_angles (n_sectors,), gamma
+    (n_sectors, n_bins), counts (n_sectors, n_bins)) on the grid's device,
+    lags in lon-step units under the physical ``aspect`` = lat_step/lon_step
+    (1.0 = index space).  :func:`empirical_variogram` is its n_sectors=1
+    marginal."""
+    H, W = grid.shape
+    R = max_lag
+    dys, dxs, flat, centers, angles = _sector_bin_table(max_lag, n_bins, n_sectors, aspect)
+    elev = F.pad(grid.elev, (0, 0, 0, R))
+    valid = F.pad(grid.valid, (0, 0, 0, R))
+    s, c = _pair_sums_binned(elev, valid, H, dys, dxs, flat, n_sectors * n_bins, R)
+    s = s.reshape(n_sectors, n_bins)
+    c = c.reshape(n_sectors, n_bins)
+    gamma = torch.where(c > 0, s / (2.0 * torch.clamp(c, min=1.0)), torch.zeros_like(s))
+    as_grid = dict(dtype=grid.dtype, device=grid.device)
+    return torch.as_tensor(centers, **as_grid), torch.as_tensor(angles, **as_grid), gamma, c
+
+
+def _aniso_h(h, ang, rx, ry, theta):
+    """Reduced (dimensionless) lag: the ellipse metric ||T h_vec|| with
+    principal ranges (rx, ry) and major-axis azimuth theta."""
+    ca = torch.cos(ang - theta)
+    sa = torch.sin(ang - theta)
+    return h * torch.sqrt((ca / rx) ** 2 + (sa / ry) ** 2)
+
+
+def fit_anisotropic(lags, angles, gamma, counts, *, model: str = "exponential", iters: int = 40, init=None):
+    """Weighted Levenberg-Marquardt fit of (nugget, sill, rx, ry, theta) on
+    the directional empirical variogram: gamma(h, phi) = model(h', 1) with
+    h' the ellipse-reduced lag.  Nugget, sill and the ranges are fit in log
+    space, the ranges boxed to [hmax/50, 3 hmax] (outside the observed lags
+    a misspecified model's optimum is degenerate); theta is free (period
+    pi; :func:`normalize_aniso` gives a canonical form).  Without ``init``
+    it starts from four orientations and keeps the fit of least weighted
+    SSE (the landscape is multimodal in theta).  Returns five 0-d tensors
+    on the device of ``gamma``."""
+    dt, dev = gamma.dtype, gamma.device
+    S, B = gamma.shape
+    hh = lags[None, :].expand(S, B).reshape(-1)
+    aa = angles[:, None].expand(S, B).reshape(-1)
+    gg = gamma.reshape(-1)
+    w = counts.reshape(-1)
+    w = w / torch.clamp(w.sum(), min=1.0)
+    if init is None:
+        sill0 = torch.clamp(torch.max(gg), min=1e-3)
+        maxlag = torch.clamp(torch.max(lags), min=1e-9)
+        init_log = torch.log(torch.stack([0.01 * sill0, sill0, maxlag / 3.0, maxlag / 6.0]).to(dt))
+        theta0s = [0.0, np.pi / 4, np.pi / 2, 3 * np.pi / 4]
+    else:
+        nug0, sill0, rx0, ry0, th0 = (torch.as_tensor(v, dtype=dt, device=dev) for v in init)
+        init_log = torch.log(torch.stack([nug0, sill0, rx0, ry0]))
+        theta0s = [th0]
+    sw = torch.sqrt(w)
+    one = torch.ones((), dtype=dt, device=dev)
+
+    def resid(tv):
+        nugget, sill, rx, ry = torch.exp(tv[0]), torch.exp(tv[1]), torch.exp(tv[2]), torch.exp(tv[3])
+        hp = _aniso_h(hh, aa, rx, ry, tv[4])
+        return (variogram_model(hp, (nugget, sill, one), model) - gg) * sw
+
+    jac = torch.func.jacfwd(resid)
+    hmax = torch.clamp(torch.max(lags), min=1e-9)
+    lr_lo = torch.log(hmax / 50.0)
+    lr_hi = torch.log(3.0 * hmax)
+
+    def fit_from(theta0):
+        tv = torch.cat([init_log, torch.as_tensor(theta0, dtype=dt, device=dev).reshape(1)])
+        lam = torch.tensor(1e-3, dtype=dt, device=dev)
+        for _ in range(iters):
+            r = resid(tv)
+            J = jac(tv)
+            A = J.T @ J
+            g = J.T @ r
+            dA = torch.diag(torch.clamp(torch.diag(A), min=1e-12))
+            # solve_ex: no error check, so no device-to-host sync in the loop
+            delta, _ = torch.linalg.solve_ex(A + lam * dA, g)
+            delta = torch.clamp(delta, -1.0, 1.0)
+            new = tv - delta
+            new = torch.cat([new[:2], torch.clamp(new[2:4], lr_lo, lr_hi), new[4:5]])
+            better = torch.sum(resid(new) ** 2) <= torch.sum(r**2)
+            tv = torch.where(better, new, tv)
+            lam = torch.where(better, torch.clamp(lam / 3.0, min=1e-9), torch.clamp(lam * 10.0, max=1e9))
+        return tv, torch.sum(resid(tv) ** 2)
+
+    fits = [fit_from(t0) for t0 in theta0s]
+    tvs = torch.stack([f[0] for f in fits])
+    tv = tvs[torch.argmin(torch.stack([f[1] for f in fits]))]
+    return torch.exp(tv[0]), torch.exp(tv[1]), torch.exp(tv[2]), torch.exp(tv[3]), tv[4]
+
+
+def normalize_aniso(params):
+    """Canonical host form of (nugget, sill, rx, ry, theta): rx >= ry (major
+    axis first) and theta in [0, pi), as python floats."""
+    nugget, sill, rx, ry, theta = (float(v) for v in params)
+    if ry > rx:
+        rx, ry = ry, rx
+        theta += np.pi / 2.0
+    return nugget, sill, rx, ry, float(np.mod(theta, np.pi))
+
+
+def anisotropy_matrix(rx, ry, theta, dtype=np.float64):
+    """Host 2x2 T with ||T h_vec|| = reduced lag: rotate azimuth theta onto
+    +x, then scale the axes by (1/rx, 1/ry).  Coordinates transformed by T
+    turn anisotropic kriging into isotropic kriging with unit range."""
+    c, s = np.cos(theta), np.sin(theta)
+    return np.asarray([[c / rx, s / rx], [-s / ry, c / ry]], dtype)
+
+
+def fit_variogram_directional(grid: RegularGrid, *, max_lag: int = 10, n_bins: int = 10, n_sectors: int = 4, model: str = "exponential", iters: int = 40):
+    """Directional empirical variogram + anisotropic fit in physical
+    geometry (per-axis grid steps, so a non-square cell cannot pass for
+    anisotropy).  Returns (nugget, sill, rx, ry, theta) as 0-d tensors,
+    ranges in degrees, theta from the lon axis."""
+    aspect = float(round(abs(grid.lat_step) / max(abs(grid.lon_step), 1e-300), 6))
+    lags, angles, gamma, counts = empirical_variogram_directional(
+        grid, max_lag=max_lag, n_bins=n_bins, n_sectors=n_sectors, aspect=aspect)
+    return fit_anisotropic(lags * abs(grid.lon_step), angles, gamma, counts, model=model, iters=iters)
+
+
 def variogram_model(h, params, model: str = "exponential"):
     """Model zoo; ``params`` is always (nugget, p1, p2), p2 clamped >= 1e-6:
       exponential: gamma = nugget + p1 (1 - e^(-h/p2))   (GridH.cpp:371-376)
@@ -119,21 +270,26 @@ def variogram_model(h, params, model: str = "exponential"):
     raise ValueError(model)
 
 
-def fit_model(lags, gamma, counts, *, model: str = "exponential", iters: int = 30):
+def fit_model(lags, gamma, counts, *, model: str = "exponential", iters: int = 30, init=None):
     """Weighted Gauss-Newton fit of a variogram model in log-parameter space
     (positive by construction), Levenberg-damped, for a fixed ``iters``
     steps; a step is kept only if it does not raise the weighted SSE.
-    Weights are the pair counts.  Returns (nugget, p1, p2) as 0-d tensors on
-    the device of ``gamma``."""
+    Weights are the pair counts.  ``init``: the (nugget, p1, p2) to start
+    from, else a data-driven start.  Returns (nugget, p1, p2) as 0-d tensors
+    on the device of ``gamma``."""
     dt = gamma.dtype
     dev = gamma.device
     w = counts / torch.clamp(counts.sum(), min=1.0)
-    # data-driven init: sill ~ max gamma, range ~ a third of max lag, nugget
-    # ~ 1% of sill
-    sill0 = torch.clamp(torch.max(gamma), min=1e-3)
-    maxlag = torch.clamp(torch.max(lags), min=1e-9)
-    p1_0 = sill0 / maxlag if model == "linear" else sill0
-    theta = torch.log(torch.stack([0.01 * sill0, p1_0, maxlag / 3.0]).to(dt))
+    if init is None:
+        # data-driven init: sill ~ max gamma, range ~ a third of max lag,
+        # nugget ~ 1% of sill
+        sill0 = torch.clamp(torch.max(gamma), min=1e-3)
+        maxlag = torch.clamp(torch.max(lags), min=1e-9)
+        p1_0 = sill0 / maxlag if model == "linear" else sill0
+        init = torch.stack([0.01 * sill0, p1_0, maxlag / 3.0])
+    else:
+        init = torch.stack([torch.as_tensor(v, dtype=dt, device=dev).reshape(()) for v in init])
+    theta = torch.log(init.to(dt))
     sw = torch.sqrt(w)
 
     def resid(th):
@@ -158,9 +314,9 @@ def fit_model(lags, gamma, counts, *, model: str = "exponential", iters: int = 3
     return p[0], p[1], p[2]
 
 
-def fit_exponential(lags, gamma, counts, *, iters: int = 30):
+def fit_exponential(lags, gamma, counts, *, iters: int = 30, init=None):
     """Exponential-model fit (the reference's model); see :func:`fit_model`."""
-    return fit_model(lags, gamma, counts, model="exponential", iters=iters)
+    return fit_model(lags, gamma, counts, model="exponential", iters=iters, init=init)
 
 
 def fit_best_model(lags, gamma, counts, *, models=("exponential", "linear", "spherical", "gaussian"), iters: int = 30):

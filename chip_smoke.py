@@ -139,6 +139,33 @@ streaming mosaic and scattered queries on the 3200x4000 Grid A, in phases:
             fill (launch counts, profiler); learned_eval --synthetic 512 512
             --steps 20 trains on the card and its loss falls; the fills and
             one training step alone timed
+21. serve   the serving artifacts (auvtpu_torch.serve, torch.export with
+            the kernels as auvtpu_torch:: custom ops), each exported on the
+            card and loaded fresh: the kriging fill at r0.10 (B1), IDW k=8
+            at r0.20 (B3), the packed engine at 1M stand-in queries, kriging
+            and IDW (B7), the learned fill with the committed w16 d2
+            checkpoint (B3 mean), and the mission pair at 5M pings of the
+            band weave and of the 8-page diagonal atlas (B1 a page, B8):
+            each loaded call bit-equal to the live call, its kernel
+            launched from the loaded program (launch counts zeroed before
+            it, and the profiler's device records), the loaded and live
+            calls' host and device ms; then auvtpu_torch.cli.mission
+            --export-dir (the diagonal mission forced onto the band path)
+            writes a pair that reloads and serves the CLI's pings as it
+            served them
+22. proto   the prototype (auvtpu_torch.scattered, plain torch: no TPU
+            kernel) through auvtpu_torch.cli.prototype on the stand-in
+            cropped to 746x1086 (810,156 cells, the US-East-Coast tile the
+            reference sampled) at 1 % (8,101 samples): linear, idw, aidw and
+            kriging at --k 16 and --k 50, and kriging with --aniso, each
+            method's RMSE and wall time, every prediction finite; the knn of
+            one 65,536-target chunk on the card held to the same function
+            on the CPU (d2 within rtol 1e-5 plus 4 f32 ulps of |a|^2+|b|^2,
+            indices equal wherever the 16th and 17th distances differ by
+            more than 1e-5 relative plus both sides' rounding); and at the
+            120x160 crop every method's
+            RMSE within 0.5 % of the JAX package's
+            (tools/jax_prototype_pins.py)
 
 then one JSON line of the kernels and, last, the device JSON line.  Any
 failure raises and the script exits non-zero; without a CUDA device it exits
@@ -280,6 +307,20 @@ LEARNED_PINS = {
 # 0.01 x the observed cells' std (a few bf16 ulps of the normalised residual)
 LEARNED_F32_REL = 1e-5
 LEARNED_BF16_STD = 0.01
+
+# The prototype (phase 22): auvtpu.scattered.sample_and_reconstruct on the
+# stand-in's top-left 120x160 cells at 1 %, k=16, XLA:CPU
+# (tools/jax_prototype_pins.py); the port's RMSE is held within PROTO_RTOL
+# (grid-aligned samples tie, and the frameworks break ties by the last ulp)
+PROTO_PINS = {
+    "linear": {"RMSE": 34.498778202301814, "MAE": 25.358173884125268},
+    "idw": {"RMSE": 28.871620047382248, "MAE": 20.722320261226358},
+    "aidw": {"RMSE": 25.286222696246224, "MAE": 18.486532603048715},
+    "kriging": {"RMSE": 25.744661026059198, "MAE": 17.467218020146944},
+    "kriging aniso": {"RMSE": 21.76223355230942, "MAE": 14.990175805910669},
+}
+PROTO_RTOL = 5e-3
+PROTO_CROP = ("746", "1086")  # 810,156 cells: the US-East-Coast tile's size
 
 
 def say(phase: str, msg: str) -> None:
@@ -2072,6 +2113,211 @@ def main() -> int:
         f"{time.perf_counter() - t_ln:.1f} s  [{card}]")
     del planes_l, lparams
 
+    # ---- 21. serving artifacts: each exported on the card and loaded fresh;
+    # the launch counts are zeroed just before each loaded call and read just
+    # after it
+    from auvtpu_torch import serve
+    from auvtpu_torch.cli import mission as mission_cli
+    from auvtpu_torch.config import KERGUELEN_EXTENT
+    from auvtpu_torch.ops import band as tband
+    from auvtpu_torch.masking import mask_grid
+    from auvtpu_torch.ops import fill_idw
+    from auvtpu_torch.ops import packs as tp
+    from auvtpu_torch.synthetic import kerguelen_standin
+
+    t_sv = time.perf_counter()
+    art = os.path.join(REPO, "results_local", "chip_smoke_serve")
+    os.makedirs(art, exist_ok=True)
+    ext_k = (grid.min_lon, grid.max_lon, grid.min_lat, grid.max_lat)
+    counts_of = {"fill_kriging_fused": wf.LAUNCHES, "fill_idw_fused": wf.LAUNCHES, "fill_mean_fused": wf.LAUNCHES,
+                 "window_select_fused": ss.LAUNCHES, "band_resample": kb.LAUNCHES}
+    kernel_of = {"fill_kriging_fused": "kriging_fill_kernel", "fill_idw_fused": "fill_tile_kernel",
+                 "fill_mean_fused": "fill_tile_kernel", "window_select_fused": "window_select_kernel",
+                 "band_resample": "band_resample_"}
+    launches_sv = dict.fromkeys(counts_of, 0)
+
+    def served(label, path, export, load, args, live, counter, want_launches):
+        """Export, load fresh, hold the loaded call to the live one; returns
+        the loaded call's outputs."""
+        t0_ = time.perf_counter()
+        nbytes = export(path)
+        t_exp = time.perf_counter() - t0_
+        run = load(path)
+        meta = serve.read_meta(path)
+        for mod in (wf, ss, kb):
+            mod.reset_launches()
+        got = run(*args)
+        torch.cuda.synchronize()
+        n_ = counts_of[counter][counter]
+        if n_ != want_launches:
+            raise AssertionError(f"{label}: the loaded program launched {counter} {n_} times, want {want_launches}")
+        launches_sv[counter] += n_
+        want = live()
+        got_t, want_t = (got, want) if isinstance(got, tuple) else ((got,), (want,))
+        for a, b in zip(got_t, want_t):
+            if a.dtype == torch.bool:
+                if not torch.equal(a, b):
+                    raise AssertionError(f"{label}: the loaded call's flags differ from the live call's")
+            else:
+                same_planes(a, b, f"{label}: loaded vs live")
+        seen = device_kernels(lambda: run(*args))
+        ours = {k: v for k, v in seen.items() if kernel_of[counter] in k}
+        if not ours:
+            raise AssertionError(f"{label}: no {kernel_of[counter]} record in the loaded program's device kernels {seen}")
+        tms = {"exported host": host_ms(lambda: run(*args)), "live host": host_ms(live),
+               # many calls: the tracer drops a session's last records
+               "exported device": device_busy_ms(lambda: run(*args), reps=20),
+               "live device": device_busy_ms(live, reps=20)}
+        for key, v in tms.items():
+            ms[f"serve {label} {key}"] = v
+        say("serve", f"{label}: {nbytes} B, exported in {t_exp:.1f} s, ops {meta['ops']}; loaded call bit-equal to "
+            f"the live call; {n_} {counter} launch(es) from the loaded program; its records in 20 profiled calls "
+            f"{sum(ours.values())} ({kernel_of[counter]}), beside {sum(seen.values()) - sum(ours.values())} of "
+            f"{len(seen) - len(ours)} torch kernels; "
+            f"host {tms['exported host']:.3f} / {tms['live host']:.3f} ms, device busy {tms['exported device']:.3f} "
+            f"/ {tms['live device']:.3f} ms (exported / live)  [{card}]")
+        return got
+
+    served("fill kriging r0.10", os.path.join(art, "fill_kriging.pt2"),
+           lambda p: serve.export_fill(p, SHAPE, extent=ext_k, method="kriging"), serve.load_exported,
+           (grid.elev, grid.valid), lambda: fill_kriging(grid), "fill_kriging_fused", 1)
+    served("fill idw r0.20", os.path.join(art, "fill_idw.pt2"),
+           lambda p: serve.export_fill(p, SHAPE, extent=ext_k, method="idw"), serve.load_exported,
+           (grid2.elev, grid2.valid), lambda: fill_idw(grid2), "fill_idw_fused", 1)
+    qK = scattered_queries(KERGUELEN_EXTENT, *SHAPE, N_SCATTER, 8, dev)
+    win = tp.build_pack(grid, tp.window_offsets(2), clamp=False)[0]
+    for method, live_fn in (("kriging", lambda: ss.packed_kriging_fused(win, grid, *qK)),
+                            ("idw", lambda: ss.packed_idw_fused(win, grid, *qK, k=8))):
+        served(f"scattered {method} 1M", os.path.join(art, f"scattered_{method}.pt2"),
+               lambda p, m=method: serve.export_scattered(p, SHAPE, qK[0].numel(), extent=ext_k, method=m),
+               serve.load_exported_scattered, (win, grid.elev, grid.valid, *qK), live_fn, "window_select_fused", 1)
+    del win
+    lparams, lw, ld = learned.load_params(os.path.join(REPO, "results", "learned_mid_atlantic_w16d2.npz"))
+    served("learned w16 d2 bf16", os.path.join(art, "learned.pt2"),
+           lambda p: serve.export_learned(p, SHAPE, lparams, extent=ext_k, width=lw, depth=ld), serve.load_exported,
+           (grid.elev, grid.valid), lambda: learned.fill_learned(grid, lparams, width=lw, depth=ld), "fill_mean_fused", 1)
+    del lparams
+    tracks = band_tracks(grid, N_BAND)
+    for kind, mb in (("band", 1), ("diagonal", 8)):
+        r_sv = tband.BandRouter(grid, max_bands=mb)
+        out_sv = r_sv.prepare(*tracks[kind])
+        rs_sv = r_sv._resampler
+        if mb > 1:
+            placed, (_, pr_, pc_) = out_sv.placed, out_sv.shape
+        else:
+            placed, (pr_, pc_) = ((out_sv.row0, out_sv.col0),), out_sv.shape
+        live_fill = (lambda placed=placed, pr_=pr_, pc_=pc_, r_sv=r_sv: tband._fill_pages(
+            grid, None, placed=placed, pr=pr_, pc=pc_, method="kriging", margin=r_sv.margin,
+            fill_backend=r_sv.fill_backend, convention=r_sv.convention, model="exponential"))
+        planes_sv, vmasks_sv = served(
+            f"mission fill {kind} ({len(placed)} pages)", os.path.join(art, f"mission_fill_{kind}.pt2"),
+            lambda p, placed=placed, pr_=pr_, pc_=pc_, r_sv=r_sv: serve.export_mission_fill(
+                p, SHAPE, placed, pr_, pc_, extent=ext_k, fill_backend=r_sv.fill_backend),
+            lambda p: serve.load_exported_mission(p, p)[0], (grid.elev, grid.valid), live_fill,
+            "fill_kriging_fused", len(placed))
+        served(f"mission resample {kind} 5M", os.path.join(art, f"mission_resample_{kind}.pt2"),
+               lambda p, placed=placed, pr_=pr_, pc_=pc_, rs_sv=rs_sv, out_sv=out_sv: serve.export_mission_resample(
+                   p, SHAPE, placed, pr_, pc_, N_BAND, extent=ext_k, chunk=rs_sv.chunk, win_rows=rs_sv.wr,
+                   win_cols=rs_sv.wc, masked=out_sv.masked, lerp_mode=rs_sv.lerp_mode),
+               lambda p: serve.load_exported_mission(p, p)[1], (planes_sv, vmasks_sv, *tracks[kind]),
+               lambda rs_sv=rs_sv, kind=kind: rs_sv.resample(*tracks[kind]), "band_resample", 1)
+        del r_sv, out_sv, rs_sv, planes_sv, vmasks_sv
+    del tracks
+    torch.cuda.empty_cache()
+    # the mission CLI's --export-dir: the diagonal mission at its defaults
+    # forced onto the band path; the pair reloads and serves its pings
+    exp_dir = os.path.join(art, "mission_cli")
+    csv_m = os.path.join(art, "mission_cli.csv")
+    summary_x = mission_cli.main(["--synthetic", "diagonal", "--force", "band", "--export-dir", exp_dir,
+                                  "--out", csv_m])
+    (fp_x, nf_x), (rp_x, nr_x) = summary_x["export"]["fill"], summary_x["export"]["resample"]
+    fill_x, run_x = serve.load_exported_mission(fp_x, rp_x)
+    red_x, _, _ = mask_grid(shelf_seamount(512, 640), 0.10, 42)
+    g_x = RegularGrid.from_nan_array(np.asarray(red_x, np.float32), Extent(0.0, 639.0, 0.0, 511.0), device=dev)
+    pts_x = np.genfromtxt(csv_m, delimiter=",", names=True)
+    lon_x = torch.from_numpy(np.asarray(pts_x["lon"], np.float32)).to(dev)
+    lat_x = torch.from_numpy(np.asarray(pts_x["lat"], np.float32)).to(dev)
+    for mod in (wf, ss, kb):
+        mod.reset_launches()
+    z_x, ok_x = run_x(*fill_x(g_x.elev, g_x.valid), lon_x, lat_x)
+    torch.cuda.synchronize()
+    launches_x = {k: counts_of[k][k] for k in ("fill_kriging_fused", "band_resample")}
+    for k, v in launches_x.items():
+        launches_sv[k] += v
+    served_x = torch.from_numpy(np.asarray(pts_x["interpolated_value"], np.float32)).to(dev)
+    if int((~ok_x).sum()) != summary_x["unresolved"] or not torch.equal(z_x[ok_x], served_x[ok_x]):
+        raise AssertionError(f"mission --export-dir: the reloaded pair leaves {int((~ok_x).sum())} pings unresolved "
+                             f"(the CLI {summary_x['unresolved']}) or serves other depths")
+    say("serve", f"cli.mission --export-dir (diagonal, {summary_x['pages']} pages, {summary_x['n']} pings): "
+        f"{os.path.basename(fp_x)} {nf_x} B, {os.path.basename(rp_x)} {nr_x} B; reloaded, the pair serves the "
+        f"CLI's {summary_x['n'] - summary_x['unresolved']} resolved pings bit for bit; launches {launches_x}; "
+        f"phase took {time.perf_counter() - t_sv:.1f} s  [{card}]")
+
+    # ---- 22. the prototype (plain torch: the JAX package's is XLA)
+    from auvtpu_torch import scattered as tsc
+    from auvtpu_torch.cli import prototype
+    from auvtpu_torch.config import GEBCO_TILES
+
+    t_pr = time.perf_counter()
+    methods_p = ["linear", "idw", "aidw", "kriging"]
+    small = prototype.main(["--region", "kerguelen", "--crop", "120", "160", "--methods", *methods_p])
+    small["kriging aniso"] = prototype.main(["--region", "kerguelen", "--crop", "120", "160", "--methods",
+                                             "kriging", "--aniso"])["kriging"]
+    for name, got in small.items():
+        want = PROTO_PINS[name]["RMSE"]
+        if not abs(got["rmse"] - want) <= PROTO_RTOL * want:
+            raise AssertionError(f"prototype {name} at 120x160: RMSE {got['rmse']} vs the JAX package's {want}")
+    say("proto", "120x160 crop, 1 %: RMSE " + ", ".join(
+        f"{n} {v['rmse']:.4f} (JAX {PROTO_PINS[n]['RMSE']:.4f})" for n, v in small.items()))
+    res_p = os.path.join(REPO, "results_local", "chip_smoke_prototype.csv")
+    if os.path.exists(res_p):
+        os.remove(res_p)
+    base_p = ["--region", "kerguelen", "--crop", *PROTO_CROP, "--subset", "0.01", "--results", res_p]
+    proto = {f"k={k}": prototype.main(base_p + ["--k", str(k), "--methods", *methods_p]) for k in (16, 50)}
+    proto["aniso k=16"] = prototype.main(base_p + ["--methods", "kriging", "--aniso"])
+    for run_name, summary_p in proto.items():
+        for name, v in summary_p.items():
+            if not (np.isfinite(v["rmse"]) and 0 < v["rmse"] < 200.0 and v["n"] == 810_156 - 8_101):
+                raise AssertionError(f"prototype {run_name} {name}: {v}")
+            ms[f"proto {run_name} {name} wall"] = v["wall_s"] * 1e3
+    say("proto", f"{'x'.join(PROTO_CROP)} crop (810,156 cells), 1 % (8,101 samples): " + "; ".join(
+        f"{run_name} " + ", ".join(f"{n} RMSE {v['rmse']:.4f} m in {v['wall_s']:.2f} s" for n, v in s_.items())
+        for run_name, s_ in proto.items()) + f"  [{card}]")
+    # the knn of one target chunk on the card against the same function on the CPU
+    tile = GEBCO_TILES["kerguelen"]
+    elev_p = kerguelen_standin(tile["shape"])[:int(PROTO_CROP[0]), :int(PROTO_CROP[1])]
+    e_ = tile["extent"]
+    dlat_, dlon_ = (e_.max_lat - e_.min_lat) / (SHAPE[0] - 1), (e_.max_lon - e_.min_lon) / (SHAPE[1] - 1)
+    ext_p = Extent(e_.min_lon, e_.min_lon + dlon_ * (elev_p.shape[1] - 1), e_.min_lat,
+                   e_.min_lat + dlat_ * (elev_p.shape[0] - 1))
+    pts_p, _, tgt_p, _ = tsc.sample_cells(elev_p, ext_p, subset_fraction=0.01)
+    tgt_p = tgt_p[:1 << 16]
+    d_card, i_card = tsc.knn_search(torch.from_numpy(tgt_p).to(dev), torch.from_numpy(pts_p).to(dev), k=17)
+    d_card, i_card = d_card.cpu().numpy(), i_card.cpu().numpy()
+    d_cpu, i_cpu = (t.numpy() for t in tsc.knn_search(torch.from_numpy(tgt_p), torch.from_numpy(pts_p), k=17))
+    c_ = pts_p.mean(axis=0)
+    scale_p = float(((tgt_p - c_) ** 2).sum(1).max() + ((pts_p - c_) ** 2).sum(1).max())
+    atol_p = 4 * float(np.finfo(np.float32).eps) * scale_p
+    bad_d = int((np.abs(d_card - d_cpu) > 1e-5 * np.abs(d_cpu) + atol_p).sum())
+    # slots before a row's first near-tie are decided; the 16 chosen are a
+    # set wherever the 16th and 17th distances are apart.  Apart is beyond
+    # both sides' rounding: the samples sit on grid cells, so many
+    # distances tie exactly, and the f32 cancellation leaves each d2 off by
+    # up to atol_p, far above 1e-5 relative at one cell's distance
+    gap = np.diff(d_cpu, axis=1) > 1e-5 * d_cpu[:, 1:] + 2 * atol_p
+    lead = np.where(gap.all(axis=1), 16, np.argmin(gap, axis=1))
+    decided = np.arange(16)[None, :] < lead[:, None]
+    bad_i = int(((i_card[:, :16] != i_cpu[:, :16]) & decided).sum())
+    apart = gap[:, 15]
+    same_set = (np.sort(i_card[apart, :16], axis=1) == np.sort(i_cpu[apart, :16], axis=1)).all()
+    if bad_d or bad_i or not same_set:
+        raise AssertionError(f"prototype knn on the card vs the CPU: {bad_d} distances and {bad_i} decided indices "
+                             f"differ, sets equal where apart: {same_set}")
+    say("proto", f"knn of {tgt_p.shape[0]} targets x {pts_p.shape[0]} samples, k=16 (+1): card equal to the CPU "
+        f"(d2 max |diff| {float(np.abs(d_card - d_cpu).max()):.3g}, bar rtol 1e-5 + {atol_p:.3g}; indices equal at "
+        f"{int(decided.sum())} decided slots, sets equal in {int(apart.sum())} rows); phase took "
+        f"{time.perf_counter() - t_pr:.1f} s  [{card}]")
+
     # bounds, from this run's inputs
     # B1/B2 timed on the r0.10 grid, B3/B4 on the r0.20 one (same shape);
     # bytes: each input plane read once, each output plane written once
@@ -2110,15 +2356,17 @@ def main() -> int:
 
     rows_ = [
         ("fill_kriging_fused", "auvtpu/pallas/window_fill.py:648",
-         launches["fill_kriging_fused"] + launches_b["fill_kriging_fused"] + launches_s["fill_kriging_fused"],
+         launches["fill_kriging_fused"] + launches_b["fill_kriging_fused"] + launches_s["fill_kriging_fused"]
+         + launches_sv["fill_kriging_fused"],
          b1_err, ms["B1 kernel alone"], ms["B1 wrapper"], ms["B1 plain"]),
         ("topk_full", "auvtpu/pallas/window_fill.py:501", launches["topk_full"],
          b2_err, ms["B2 kernel alone"], ms["B2 wrapper"], ms["B2 plain"]),
         ("fill_idw_fused", "auvtpu/pallas/window_fill.py:230",
-         launches_b["fill_idw_fused"] + launches_s["fill_idw_fused"],
+         launches_b["fill_idw_fused"] + launches_s["fill_idw_fused"] + launches_sv["fill_idw_fused"],
          b3_err["idw"], ms["B3 idw k=8"], ms["B3 idw k=8 wrapper"], ms["B3 idw k=8 plain"]),
         ("fill_mean_fused", "auvtpu/pallas/window_fill.py:230",
-         launches_b["fill_mean_fused"] + launches_s["fill_mean_fused"] + launches_l["fill_mean_fused"],
+         launches_b["fill_mean_fused"] + launches_s["fill_mean_fused"] + launches_l["fill_mean_fused"]
+         + launches_sv["fill_mean_fused"],
          b3_err["mean"], ms["B3 mean k=4"], ms["B3 mean k=4 wrapper"], ms["B3 mean k=4 plain"]),
         ("topk_idx", "auvtpu/pallas/window_fill.py:384", launches_b4["topk_idx"],
          b4_err, ms["B4 k=4"], ms["B4 k=4 wrapper"], ms["B4 k=4 plain"]),
@@ -2134,13 +2382,14 @@ def main() -> int:
          sc_err["idw_rows"], ms["idw_rows alone"], ms["idw_rows wrapper"],
          ms["idw_rows plain"]),
         ("window_select_fused", "auvtpu/pallas/scattered_select.py:70",
-         launches_af["window_select_fused"],
+         launches_af["window_select_fused"] + launches_sv["window_select_fused"],
          sc_err["window_select_fused"], ms["window_select_fused alone"], ms["window_select_fused wrapper"],
          ms["window_select_fused plain"]),
     ]
     for k in ("select_rows", "idw_rows", "window_select_fused"):
         src[k] = "auvtpu_torch/csrc/scattered_select.cu"
-    rows_.append(("band_resample", "auvtpu/pallas/band_resample.py:43", launches_m["band_resample"],
+    rows_.append(("band_resample", "auvtpu/pallas/band_resample.py:43",
+                  launches_m["band_resample"] + launches_sv["band_resample"],
                   b8_err, ms["B8 band"], ms["B8 band wrapper"], ms["B8 band plain"]))
     src["band_resample"] = "auvtpu_torch/csrc/band_resample.cu"
     # B8: values only, no resolved mask; B7 and B5: the selection alone, no

@@ -1,0 +1,136 @@
+"""Host cost of the kernel wrappers of a checkout of auvtpu_torch, on one
+NVIDIA GPU: the time a call takes to return on the host (the checks, the
+allocation, the dispatch and the launch, not the kernel's run), for the
+four kernels that are ``torch.library`` custom ops in this checkout; and
+the two small calls they decide end to end: the streaming window refresh
+and the mission tick.
+
+Run from the root of a checkout:
+
+    python3 scripts/op_overhead.py [--repo DIR] [--label NAME]
+
+``--repo`` imports ``auvtpu_torch`` from DIR instead (another version
+unpacked with ``git archive``, into a directory .gitignore lists), so two
+versions are timed with one script on one card: run them in turns (other,
+this, this, other) in one call.  The inputs are chip_smoke.py's: B1
+(``fill_kriging_fused``) on the Kerguelen stand-in r0.10, B3
+(``fill_idw_fused``, k=8) on r0.20, B7 (``window_select_fused``, k=4) at 1M
+stand-in queries, B8 (``BandResampler.resample``) at 5M pings of the band
+weave.  Each call is timed alone on the host clock, with a device sync
+every 8 calls so the queue never fills.  The window refresh is
+``StreamingInterpolator.window_fill`` (256x256 IDW, R=5, one B3 launch) on a
+mosaic of the r0.20 stand-in's observed cells, its plane copied to the host
+each call; the tick is chip_smoke.py's ``tick_latency`` loop (this
+checkout's loop driving the timed checkout's package: 512-ping ticks of
+``BandRouter.kriging``, a refresh every 32).  Prints the quartiles (wrapper
+calls and refreshes) or p50/p99 (ticks) as one JSON line, with the card's
+name and power limit.
+"""
+
+import argparse
+import importlib.util
+import json
+import os
+import subprocess
+import sys
+import time
+
+import numpy as np
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def host_us(fn, reps: int = 400, sync_every: int = 8):
+    import torch
+
+    for _ in range(10):
+        fn()
+    torch.cuda.synchronize()
+    times = []
+    for i in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        times.append((time.perf_counter() - t0) * 1e6)
+        if i % sync_every == sync_every - 1:
+            torch.cuda.synchronize()
+    torch.cuda.synchronize()
+    return [float(np.percentile(times, q)) for q in (25, 50, 75)]
+
+
+def refresh_us(si, reps: int = 200):
+    """Host microseconds of one window refresh with its plane on the host."""
+    for _ in range(10):
+        si.window_fill(1000, 1200)[0].cpu()
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        si.window_fill(1000, 1200)[0].cpu()
+        times.append((time.perf_counter() - t0) * 1e6)
+    return [float(np.percentile(times, q)) for q in (25, 50, 75)]
+
+
+def smoke_module():
+    """This checkout's chip_smoke.py as a module (its functions import
+    ``auvtpu_torch`` when called, so they drive the timed checkout)."""
+    spec = importlib.util.spec_from_file_location("chip_smoke", os.path.join(ROOT, "chip_smoke.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def main() -> int:
+    p = argparse.ArgumentParser(description=__doc__, formatter_class=argparse.RawDescriptionHelpFormatter)
+    p.add_argument("--repo", default=ROOT, help="the checkout whose auvtpu_torch is timed")
+    p.add_argument("--label", default=None)
+    args = p.parse_args()
+    sys.path.insert(0, os.path.abspath(args.repo))
+    import torch
+
+    if not torch.cuda.is_available():
+        print("op_overhead: torch sees no CUDA device", file=sys.stderr)
+        return 1
+    from auvtpu_torch.cli.mission import synthetic_trajectory
+    from auvtpu_torch.config import KERGUELEN_EXTENT as EXT
+    from auvtpu_torch.grid import RegularGrid
+    from auvtpu_torch.kernels import scattered_select as ss
+    from auvtpu_torch.kernels import window_fill as wf
+    from auvtpu_torch.masking import mask_grid
+    from auvtpu_torch.ops import band as tband
+    from auvtpu_torch.ops import packs as tp
+    from auvtpu_torch.streaming import StreamingInterpolator
+    from auvtpu_torch.synthetic import kerguelen_standin
+
+    card = subprocess.run(["nvidia-smi", "-i", "0", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                          capture_output=True, text=True, check=True).stdout.strip()
+    dev = torch.device("cuda", 0)
+    elev = kerguelen_standin((2053, 2441))
+    grid, grid2 = (RegularGrid.from_nan_array(mask_grid(elev, r)[0], EXT, device=dev) for r in (0.10, 0.20))
+    rng = np.random.default_rng(8)
+    lons = torch.from_numpy(rng.uniform(EXT.min_lon, EXT.max_lon, 1_000_000).astype(np.float32)).to(dev)
+    lats = torch.from_numpy(rng.uniform(EXT.min_lat, EXT.max_lat, 1_000_000).astype(np.float32)).to(dev)
+    win = tp.build_pack(grid, tp.window_offsets(2), clamp=False)[0]
+    tlon, tlat = (torch.from_numpy(t).to(dev) for t in synthetic_trajectory("band", grid, 5_000_000, 0))
+    router = tband.BandRouter(grid)
+    router.prepare(tlon, tlat)
+    rs = router._resampler
+    calls = {
+        "B1 fill_kriging_fused r0.10": lambda: wf.fill_kriging_fused(grid),
+        "B3 fill_idw_fused r0.20": lambda: wf.fill_idw_fused(grid2),
+        "B7 window_select_fused 1M": lambda: ss.window_select_fused(win, grid, lons, lats, k=4),
+        "B8 BandResampler.resample 5M": lambda: rs.resample(tlon, tlat),
+    }
+    out = {name: host_us(fn) for name, fn in calls.items()}
+    si = StreamingInterpolator(grid2.shape, EXT, window=(256, 256), method="idw", max_radius=5, device=dev)
+    prior = grid2.to_nan_array()
+    rr, cc = np.nonzero(~np.isnan(prior))
+    si.ingest(rr, cc, prior[rr, cc])
+    si.flush()
+    out["window refresh 256x256 idw"] = refresh_us(si)
+    tick = smoke_module().tick_latency(grid, dev)
+    print(json.dumps({"label": args.label or os.path.abspath(args.repo), "card": card, "host_us_q25_q50_q75": out,
+                      "tick_ms": {k: tick[k] for k in ("p50", "p99", "post_p50", "refresh_p50", "n")}}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

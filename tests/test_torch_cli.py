@@ -294,3 +294,55 @@ def test_mission_help_names_what_is_left_out(capsys):
         mission.main(["--help"])
     text = capsys.readouterr().out
     assert "--export-dir" in text and "--device" in text and "--fill-backend" in text
+
+
+def test_prototype_cli_matches_jax_cli(tmp_path, capsys):
+    # the Kerguelen stand-in cropped to 120x160 at 1 % (192 samples): every
+    # method's MAE and RMSE within 0.5 % of the JAX CLI's (rows of the same
+    # results schema; grid-aligned samples tie, which the two frameworks
+    # break by the last ulp of their distances)
+    from auvtpu.cli.prototype import main as j_prototype
+
+    from auvtpu_torch.cli import prototype
+
+    argv = ["--region", "kerguelen", "--crop", "120", "160", "--methods", "linear", "idw", "aidw", "kriging"]
+    out, j_out = str(tmp_path / "port.csv"), str(tmp_path / "jax.csv")
+    summary = prototype.main(argv + ["--device", "cpu", "--results", out])
+    j_prototype(argv + ["--results", j_out])
+    assert "160 x 120 cells, sampling 1.0% (uniform) on cpu" in capsys.readouterr().out
+    got, want = pd.read_csv(out), pd.read_csv(j_out)
+    assert list(got.columns) == list(want.columns)
+    assert (got["Machine"] == "GPU-proto-uniform").all() and (want["Machine"] == "TPU-proto-uniform").all()
+    assert list(got["InterpolationType"]) == list(want["InterpolationType"]) == list(summary)
+    assert (got["BatchSize"] == want["BatchSize"]).all() and (got["BatchSize"] == 120 * 160 - 192).all()
+    np.testing.assert_allclose(got[["MAE", "RMSE"]].to_numpy(), want[["MAE", "RMSE"]].to_numpy(), rtol=5e-3)
+    assert all(np.isclose(summary[m]["rmse"], r, rtol=1e-5) for m, r in zip(got["InterpolationType"], got["RMSE"]))
+
+
+def test_mission_export_dir_writes_a_pair_that_reloads(tmp_path):
+    # --export-dir on the band path: the pair reloads and serves the pings
+    # as the live router did (its fill bit-equal to the band, the resample's
+    # resolved pings equal to the served depths)
+    from auvtpu_torch.serve import load_exported_mission, read_meta
+
+    argv = ["--device", "cpu", "--grid-shape", "64", "160", "--pings", "4000", "--force", "band",
+            "--export-dir", str(tmp_path / "exp"), "--out", str(tmp_path / "port.csv")]
+    summary = mission.main(argv)
+    (fp, nf), (rp, nr) = summary["export"]["fill"], summary["export"]["resample"]
+    assert fp.endswith("mission_fill.pt2") and rp.endswith("mission_resample.pt2") and nf > 0 and nr > 0
+    assert read_meta(fp)["ops"] == ["auvtpu_torch::kriging_fill"]
+    assert read_meta(rp)["ops"] == ["auvtpu_torch::band_resample"] and read_meta(rp)["masked"] is True
+    from auvtpu_torch.grid import RegularGrid
+    from auvtpu_torch.config import Extent
+
+    reduced, _, _ = mask_grid(shelf_seamount(64, 160), 0.10, 42)
+    g = RegularGrid.from_nan_array(np.asarray(reduced, np.float32), Extent(0.0, 159.0, 0.0, 63.0), device="cpu")
+    fill, run = load_exported_mission(fp, rp)
+    planes, vmasks = fill(g.elev, g.valid)
+    served = pd.read_csv(str(tmp_path / "port.csv"))
+    z, ok = run(planes, vmasks, served["lon"].to_numpy(np.float32), served["lat"].to_numpy(np.float32))
+    assert summary["unresolved"] == int((~ok).sum())
+    np.testing.assert_array_equal(z.numpy()[ok.numpy()], served["interpolated_value"].to_numpy(np.float32)[ok.numpy()])
+    with pytest.raises(SystemExit):  # the packed route has no pair to export
+        mission.main(["--device", "cpu", "--grid-shape", "64", "160", "--pings", "4000", "--force", "packed",
+                      "--export-dir", str(tmp_path / "no")])

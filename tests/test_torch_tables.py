@@ -175,13 +175,31 @@ def test_port_imports_no_jax_or_auvtpu():
         "cli/bench_grid_a.py", "golden/engine.py", "golden/v2.py", "ops/window.py", "ops/packs.py",
         "ops/batch.py", "ops/two_tier.py", "kernels/valid_select.py", "kernels/scattered_select.py",
         "ops/band.py", "kernels/band_resample.py", "cli/mission.py", "ops/exact.py", "ops/exact_fast.py",
-        "learned.py", "cli/learned_eval.py",
+        "learned.py", "cli/learned_eval.py", "serve.py", "scattered.py", "cli/prototype.py", "kernels/library.py",
     ):
         assert new in names
     assert (PORT / "csrc" / "band_resample.cu").exists()
-    assert len(files) >= 36
+    assert len(files) >= 40
     bad = {
         str(f.relative_to(PORT.parent)): sorted(set(_imported_roots(f)) & _BANNED)
         for f in files
     }
     assert not {k: v for k, v in bad.items() if v}, bad
+
+
+def test_package_data_holds_every_source_the_kernels_include():
+    # a non-editable install ships csrc/ through package data: every file a
+    # .cu or .cuh includes by "name" (and every source kernels/build.py
+    # hashes) must match one of its globs
+    import fnmatch
+    import re
+    import tomllib
+
+    conf = tomllib.loads((PORT.parent / "pyproject.toml").read_text())
+    globs = conf["tool"]["setuptools"]["package-data"]["auvtpu_torch"]
+    sources = sorted((PORT / "csrc").glob("*.cu")) + sorted((PORT / "csrc").glob("*.cuh"))
+    included = {m for f in sources for m in re.findall(r'#include\s+"([^"]+)"', f.read_text())}
+    assert included >= {"halo_tile.cuh", "exact_div.cuh"}
+    for name in included | {f.name for f in sources}:
+        assert (PORT / "csrc" / name).exists(), name
+        assert any(fnmatch.fnmatch(f"csrc/{name}", g) for g in globs), (name, globs)

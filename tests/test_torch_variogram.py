@@ -137,3 +137,92 @@ def test_pair_sums_count_each_pair_once():
                     b = min(int(np.digitize(h, np.linspace(0, L, L + 1))) - 1, L - 1)
                     want_c[b] += valid[r0, c0] * valid[r0 + dy, c0 + dx]
     np.testing.assert_array_equal(c.numpy(), want_c.astype(np.float32))
+
+
+# ---------------------------------------------------------------------------
+# the directional variogram and the anisotropic fit: the binned table equal,
+# gamma at rtol 1e-5 (f32 round-off, as the isotropic one), fits through the
+# fitted gamma at every sector's bin lags (rtol 1e-3), the known ellipse
+# recovered as tests/test_scattered.py:208 recovers it
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("aspect", [1.0, 0.5])
+def test_sector_table_and_directional_variogram_match(grids, aspect):
+    jg, tg = grids
+    for a, b in zip(tv._sector_bin_table(6, 6, 4, aspect), jv._sector_bin_table(6, 6, 4, aspect)):
+        np.testing.assert_array_equal(a, b)
+    want = jv.empirical_variogram_directional(jg, max_lag=6, n_bins=6, n_sectors=4, aspect=aspect)
+    got = tv.empirical_variogram_directional(tg, max_lag=6, n_bins=6, n_sectors=4, aspect=aspect)
+    for name, a, b in zip(("lags", "angles", "gamma", "counts"), got, want):
+        assert a.dtype == torch.float32 and a.device == tg.device
+        if name == "gamma":
+            np.testing.assert_allclose(a.numpy(), np.asarray(b), rtol=1e-5, err_msg=name)
+        else:
+            np.testing.assert_array_equal(a.numpy(), np.asarray(b), err_msg=name)
+    # its n_sectors=1 marginal is the isotropic variogram
+    _, _, g1, c1 = tv.empirical_variogram_directional(tg, max_lag=6, n_bins=6, n_sectors=1)
+    _, gi, ci = tv.empirical_variogram(tg, max_lag=6, n_bins=6)
+    np.testing.assert_array_equal(c1[0].numpy(), ci.numpy())
+    np.testing.assert_allclose(g1[0].numpy(), gi.numpy(), rtol=1e-5)
+
+
+def _aniso_gamma(lags, angles, p):
+    hh, aa = np.meshgrid(np.asarray(lags, np.float64), np.asarray(angles, np.float64))
+    hp = tv._aniso_h(torch.from_numpy(hh), torch.from_numpy(aa), float(p[2]), float(p[3]), float(p[4]))
+    return tv.variogram_model(hp, (float(p[0]), float(p[1]), 1.0), "exponential").numpy()
+
+
+def test_fit_anisotropic_recovers_a_known_ellipse():
+    true = (0.3, 12.0, 6.0, 2.0, 0.6)
+    S, B = 6, 10
+    lags = torch.linspace(0.5, 10.0, B)
+    angles = torch.as_tensor((np.arange(S) + 0.5) * np.pi / S, dtype=torch.float32)
+    hp = tv._aniso_h(lags[None, :].expand(S, B), angles[:, None].expand(S, B), true[2], true[3], true[4])
+    gamma = tv.variogram_model(hp, (true[0], true[1], 1.0), "exponential")
+    fit = tv.fit_anisotropic(lags, angles, gamma, torch.full((S, B), 500.0), iters=60)
+    assert all(torch.is_tensor(p) and p.ndim == 0 for p in fit)
+    nug, sill, rx, ry, th = tv.normalize_aniso(fit)
+    assert sill == pytest.approx(true[1], rel=0.15)
+    assert rx == pytest.approx(true[2], rel=0.2)
+    assert ry == pytest.approx(true[3], rel=0.2)
+    assert th == pytest.approx(true[4], abs=0.15)
+    jfit = jv.fit_anisotropic(jnp.asarray(lags.numpy()), jnp.asarray(angles.numpy()), jnp.asarray(gamma.numpy()),
+                              jnp.full((S, B), 500.0), iters=60)
+    np.testing.assert_allclose(_aniso_gamma(lags, angles, fit), _aniso_gamma(lags, angles, jfit), rtol=1e-3)
+    # a start given as init= runs that start alone
+    one = tv.fit_anisotropic(lags, angles, gamma, torch.full((S, B), 500.0), iters=60, init=(0.2, 10.0, 5.0, 2.5, 0.5))
+    jone = jv.fit_anisotropic(jnp.asarray(lags.numpy()), jnp.asarray(angles.numpy()), jnp.asarray(gamma.numpy()),
+                              jnp.full((S, B), 500.0), iters=60, init=(0.2, 10.0, 5.0, 2.5, 0.5))
+    np.testing.assert_allclose(_aniso_gamma(lags, angles, one), _aniso_gamma(lags, angles, jone), rtol=1e-3)
+
+
+def test_fit_variogram_directional_matches_through_gamma():
+    jg, tg = _grids("kerguelen")
+    jp = jv.fit_variogram_directional(jg, max_lag=6, n_bins=6)
+    tp = tv.fit_variogram_directional(tg, max_lag=6, n_bins=6)
+    aspect = float(round(abs(tg.lat_step) / abs(tg.lon_step), 6))
+    lags, angles, _, _ = tv.empirical_variogram_directional(tg, max_lag=6, n_bins=6, aspect=aspect)
+    lags = lags * abs(tg.lon_step)
+    np.testing.assert_allclose(_aniso_gamma(lags, angles, tp), _aniso_gamma(lags, angles, jp), rtol=1e-3)
+
+
+def test_anisotropy_matrix_and_normalize_match():
+    for p in ((0.1, 5.0, 2.0, 3.0, 0.4), (0.1, 5.0, 3.0, 2.0, 2.9)):
+        assert tv.normalize_aniso(p) == jv.normalize_aniso(p)
+        np.testing.assert_array_equal(tv.anisotropy_matrix(*p[2:]), jv.anisotropy_matrix(*p[2:]))
+
+
+@pytest.mark.parametrize("model", ["exponential", "spherical"])
+def test_fit_model_from_an_init_matches(model):
+    jg, _ = _grids("shelf")
+    lags, gam, cnt = (np.array(a) for a in jv.empirical_variogram(jg))
+    init = (2.0, 150.0, 4.0)
+    jp = jv.fit_model(jnp.asarray(lags), jnp.asarray(gam), jnp.asarray(cnt), model=model, init=init)
+    tp = tv.fit_model(torch.from_numpy(lags), torch.from_numpy(gam), torch.from_numpy(cnt), model=model, init=init)
+    h = torch.from_numpy(lags.astype(np.float64))
+    want = tv.variogram_model(h, tuple(float(p) for p in jp), model).numpy()
+    got = tv.variogram_model(h, tuple(float(p) for p in tp), model).numpy()
+    np.testing.assert_allclose(got[1:], want[1:], rtol=1e-3)
+    # zero iterations return the init
+    p0 = tv.fit_exponential(torch.from_numpy(lags), torch.from_numpy(gam), torch.from_numpy(cnt), iters=0, init=init)
+    np.testing.assert_allclose([float(p) for p in p0], init, rtol=1e-6)
