@@ -1,7 +1,7 @@
 """auvtpu_torch: the dense (Grid B) fills, the streaming mosaic, the
 scattered (Grid A) serving, mission serving, exact mode, the learned
-baseline, the serving artifacts and the scattered prototype of
-:mod:`auvtpu` in PyTorch, with hand-written CUDA kernels for NVIDIA Hopper
+baseline, the serving artifacts, the scattered prototype and the parallel
+layer of :mod:`auvtpu` in PyTorch, with hand-written CUDA kernels for NVIDIA Hopper
 (sm_90a).
 
 Imports torch, numpy and the standard library only (scipy and pandas for
@@ -26,13 +26,17 @@ file I/O), never jax or auvtpu.
 - :mod:`auvtpu_torch.scattered`  the prototype: kNN search, IDW/AIDW/plane/kriging
                                  over the k nearest samples, sample_and_reconstruct
 - :mod:`auvtpu_torch.streaming`  StreamingInterpolator: staged ingest, window fills
+- :mod:`auvtpu_torch.parallel`   the parallel layer over torch.distributed: meshes,
+                                 sharded fills and fit+fill, sharded streaming
+                                 mosaics, sharded atlases, torchrun bootstrap
 - :mod:`auvtpu_torch.metrics`    the reference's error metrics
 - :mod:`auvtpu_torch.io`         GEBCO tiles, grid/point CSVs, the results CSV
 - :mod:`auvtpu_torch.utils`      end-to-end and steady-state timing
 - :mod:`auvtpu_torch.cli`        bench_grid_a, bench_grid_b, stream_demo, mission,
                                  learned_eval, prototype
 - :mod:`auvtpu_torch.convert`    state from the JAX package, numpy in
-- :mod:`auvtpu_torch.entry`      fit_fill: fit, fill, keep observed cells
+- :mod:`auvtpu_torch.entry`      fit_fill: fit, fill, keep observed cells;
+                                 dryrun_multichip: the distributed steps on n ranks
 """
 
 __version__ = "0.1.0"

@@ -1,5 +1,5 @@
 """Real-time AUV swath streaming demo (counterpart of
-:mod:`auvtpu.cli.stream_demo`, one device).
+:mod:`auvtpu.cli.stream_demo`).
 
 A vehicle flies a lawnmower survey while sonar swaths arrive and the local
 map must stay filled.  This demo drives
@@ -15,10 +15,12 @@ reports the real-time budget:
 4. at the end, score the mosaic against the truth at the observed cells and
    print ingest/fill throughput.
 
-The sharded mosaics of the JAX demo (``--shard``, ``--shard2d``) are not in
-the port yet.
+``--shard N`` runs the same loop with the mosaic as row bands over N ranks
+started on this machine, ``--shard2d NY NX`` as 2-D blocks (the results
+are bit-equal to one device's; the first rank prints).
 
 Run: ``python3 -m auvtpu_torch.cli.stream_demo --steps 400``
+(``--shard 4``: four ranks; on one card they share it over gloo)
 """
 
 from __future__ import annotations
@@ -126,17 +128,65 @@ def main(argv=None):
         "here next' surface)",
     )
     p.add_argument("--device", default="cuda", help="torch device of the mosaic (default: the card)")
+    p.add_argument(
+        "--shard", type=int, default=1, metavar="N",
+        help="run the mosaic as row bands over N ranks started on this machine "
+        "(parallel.ShardedStreamingInterpolator): the scale-out path for mosaics "
+        "larger than one device; same results bit for bit.  On one card every "
+        "rank shares it over gloo",
+    )
+    p.add_argument(
+        "--shard2d", type=int, nargs=2, default=None, metavar=("NY", "NX"),
+        help="run the mosaic as 2-D blocks over an (NY, NX) mesh of NY*NX ranks "
+        "(parallel.ShardedStreamingInterpolator2D): for mosaics too wide for "
+        "row bands; same results bit for bit",
+    )
     args = p.parse_args(argv)
+    if args.shard2d is not None or args.shard > 1:
+        from ..parallel.launch import spawn
 
+        n = args.shard if args.shard2d is None else args.shard2d[0] * args.shard2d[1]
+        return spawn(_sharded_rank, n, vars(args), device=args.device, timeout=3600.0)[0]
     H, W = args.mosaic
-    truth = shelf_seamount(H, W)
-    ext = Extent(0.0, float(W - 1), 0.0, float(H - 1))
     si = StreamingInterpolator(
-        (H, W), ext, window=(args.window, args.window), method=args.method,
-        max_radius=5, device=args.device,
+        (H, W), Extent(0.0, float(W - 1), 0.0, float(H - 1)), window=(args.window, args.window),
+        method=args.method, max_radius=5, device=args.device,
     )
     log(f"mosaic {H}x{W} on {si.device}, window backend {si.backend}")
+    return _demo(args, si, log)
 
+
+def _sharded_rank(opts: dict):
+    """One rank of ``--shard`` / ``--shard2d``: the same loop on this rank's
+    share of the mosaic; the mesh's first rank prints and writes."""
+    from ..parallel import ShardedStreamingInterpolator, ShardedStreamingInterpolator2D, make_mesh, make_mesh2d
+
+    args = argparse.Namespace(**opts)
+    H, W = args.mosaic
+    ext = Extent(0.0, float(W - 1), 0.0, float(H - 1))
+    kw = dict(window=(args.window, args.window), method=args.method, max_radius=5)
+    if args.shard2d is not None:
+        mesh = make_mesh2d(tuple(args.shard2d), device=args.device)
+        si = ShardedStreamingInterpolator2D((H, W), ext, mesh, **kw)
+        layout = f"2-D blocks over a {tuple(args.shard2d)} mesh"
+    else:
+        mesh = make_mesh(args.shard, device=args.device)
+        si = ShardedStreamingInterpolator((H, W), ext, mesh, **kw)
+        layout = f"row bands over {args.shard} ranks"
+    first = mesh.index == 0
+    say = log if first else (lambda *a: None)
+    say(f"mosaic {H}x{W} as {layout} on {si.device} (transport {mesh.transport}), window backend {si.backend}")
+    if not first:
+        args.out_npy = None
+    return _demo(args, si, say)
+
+
+def _demo(args, si, say):
+    """The survey, its score against the truth and the report; every rank
+    of a sharded mosaic runs it (its reads are collectives) and ``say``
+    prints on one."""
+    H, W = si.shape
+    truth = shelf_seamount(H, W)
     st = survey(
         si, truth, steps=args.steps, beams=args.beams, swath_width=args.swath_width,
         line_spacing=args.line_spacing, noise=args.noise, fill_every=args.fill_every,
@@ -150,24 +200,24 @@ def main(argv=None):
     rmse = float(np.sqrt(np.mean(err * err)))
     span = float(truth.max() - truth.min())
 
-    log(f"track steps          : {args.steps} ({n_obs} soundings)")
-    log(f"observed cells       : {observed.sum()} ({100*observed.mean():.1f}% of mosaic)")
-    log(f"ingest               : {1e3*t_ingest/args.steps:.3f} ms/swath "
+    say(f"track steps          : {args.steps} ({n_obs} soundings)")
+    say(f"observed cells       : {observed.sum()} ({100*observed.mean():.1f}% of mosaic)")
+    say(f"ingest               : {1e3*t_ingest/args.steps:.3f} ms/swath "
         f"({n_obs/max(t_ingest,1e-9)/1e6:.2f} M obs/s incl. staged flushes)")
     if n_fills:
-        log(f"window_fill ({args.window}x{args.window}) : {1e3*t_fill/n_fills:.2f} ms/refresh "
+        say(f"window_fill ({args.window}x{args.window}) : {1e3*t_fill/n_fills:.2f} ms/refresh "
             f"({n_fills} refreshes)")
-    log(f"mosaic RMSE at observed cells: {rmse:.3f} m ({100*rmse/span:.2f}% of range; "
+    say(f"mosaic RMSE at observed cells: {rmse:.3f} m ({100*rmse/span:.2f}% of range; "
         f"sounding noise {args.noise} m)")
     if args.uncertainty:
         vp = si.fit_variogram()
         vmap_, _ = si.window_uncertainty(*st["last"])
         vmap_ = vmap_.cpu().numpy()
         gaps = np.isfinite(vmap_) & (vmap_ > 0)
-        log("fitted variogram (nugget, sill, range): " + " ".join(f"{float(v):.4g}" for v in vp))
+        say("fitted variogram (nugget, sill, range): " + " ".join(f"{float(v):.4g}" for v in vp))
         if gaps.any():
             sig = np.sqrt(vmap_[gaps])
-            log(
+            say(
                 f"uncertainty around vehicle: mean sigma {sig.mean():.2f} m, "
                 f"max sigma {sig.max():.2f} m over {gaps.sum()} unsurveyed cells"
             )
@@ -175,7 +225,7 @@ def main(argv=None):
             np.save(args.out_npy + ".var.npy", vmap_)
     if args.out_npy:
         np.save(args.out_npy, snap)
-        log(f"mosaic -> {args.out_npy}")
+        say(f"mosaic -> {args.out_npy}")
     return rmse, span
 
 

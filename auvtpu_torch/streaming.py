@@ -30,19 +30,25 @@ def _ingest_batch(ebuf: torch.Tensor, vbuf: torch.Tensor, obs: torch.Tensor, wid
 
     ``ebuf``/``vbuf`` are the (H*W + 1,) elevation and validity buffers whose
     last element is a scrap slot; ``obs`` is the (m, 3) [row, col, value]
-    batch on their device.  Duplicate cells resolve to the LAST observation
-    in arrival order, whatever the device's scatter order: a stable sort by
-    cell keeps arrival order within each cell, only each group's last lane
-    writes its cell, and every other lane writes the scrap slot, as does an
-    observation whose flat index falls outside the mosaic.  A negative flat
-    index counts from the end of the mosaic once, as the JAX package's
-    ``.at[f]`` scatter normalises it.  No value is read back to the host.
+    batch on their device.  A negative flat index counts from the end of
+    the mosaic once, as the JAX package's ``.at[f]`` scatter normalises it;
+    see :func:`_scatter_last_wins` for the rest.  No value is read back to
+    the host.
     """
     n = ebuf.shape[0] - 1
     flat = obs[:, 0].long() * width + obs[:, 1].long()
-    flat = torch.where(flat < 0, flat + n, flat)
+    _scatter_last_wins(ebuf, vbuf, torch.where(flat < 0, flat + n, flat), obs[:, 2])
+
+
+def _scatter_last_wins(ebuf: torch.Tensor, vbuf: torch.Tensor, flat: torch.Tensor, vals: torch.Tensor) -> None:
+    """Write ``vals`` at the flat indices ``flat`` of the buffers, in place.
+    Duplicate cells resolve to the LAST value in arrival order, whatever the
+    device's scatter order: a stable sort by cell keeps arrival order within
+    each cell, only each group's last lane writes its cell, and every other
+    lane writes the scrap slot, as does an index outside [0, H*W)."""
+    n = ebuf.shape[0] - 1
     sf, order = torch.sort(flat, stable=True)
-    sv = obs[:, 2][order].to(ebuf.dtype)
+    sv = vals[order].to(ebuf.dtype)
     nxt = torch.cat([sf[1:], sf.new_full((1,), -1)])
     winner = (sf != nxt) & (sf >= 0) & (sf < n)  # last lane of each cell group
     f = torch.where(winner, sf, n)
@@ -127,13 +133,7 @@ class StreamingInterpolator:
         device="cuda",
     ):
         H, W = (int(v) for v in shape)
-        n = H * W
-        # flat (n + 1,) buffers: the planes are views of the first n
-        # elements, the last one is the scatter's scrap slot
-        self._ebuf = torch.zeros(n + 1, dtype=dtype, device=device)
-        self._vbuf = torch.zeros(n + 1, dtype=dtype, device=device)
-        self.elev = self._ebuf[:n].view(H, W)
-        self.valid = self._vbuf[:n].view(H, W)
+        self._allocate(H, W, dtype, device)
         self.extent = extent
         self.swath_cap = int(swath_cap)
         self.stage_cap = int(swath_cap) * int(stage_slots)
@@ -155,6 +155,16 @@ class StreamingInterpolator:
             (self._meta[3] - self._meta[2]) / max(H - 1, 1),
             (self._meta[1] - self._meta[0]) / max(W - 1, 1),
         )
+
+    def _allocate(self, H: int, W: int, dtype, device) -> None:
+        """The mosaic planes: flat (H*W + 1,) buffers whose first H*W
+        elements are the planes and whose last one is the scatter's scrap
+        slot (a sharded mosaic allocates only its own block)."""
+        n = H * W
+        self._ebuf = torch.zeros(n + 1, dtype=dtype, device=device)
+        self._vbuf = torch.zeros(n + 1, dtype=dtype, device=device)
+        self.elev = self._ebuf[:n].view(H, W)
+        self.valid = self._vbuf[:n].view(H, W)
 
     @property
     def shape(self):

@@ -1,5 +1,4 @@
-"""Variogram estimation and fitting (counterpart of :mod:`auvtpu.variogram`
-but for ``pair_sums_2d``).
+"""Variogram estimation and fitting (counterpart of :mod:`auvtpu.variogram`).
 
 :func:`empirical_variogram` bins the Matheron semivariance of the valid cells
 by integer lag from shifted-plane pair sums; :func:`fit_model` fits
@@ -57,32 +56,63 @@ def _bin_table(max_lag: int, n_bins: int):
 
 def _pair_sums_binned(elev, valid, n_base_rows: int, dys, dxs, bin_of, n_out: int, max_lag: int):
     """Pair accumulator over an offset -> bin table: base cells are the first
-    ``n_base_rows`` rows; offsets add into their bins in table order."""
+    ``n_base_rows`` rows; offsets add into their bins in table order.
+    Returns float64 sums (see :func:`_binned_sums`)."""
     H = n_base_rows
     W = elev.shape[1]
     R = max_lag
     pe = F.pad(elev, (R, R))
     pv = F.pad(valid, (R, R))
-    base_e = elev[:H]
-    base_v = valid[:H]
-    s = torch.zeros(n_out, dtype=elev.dtype, device=elev.device)
-    c = torch.zeros(n_out, dtype=elev.dtype, device=elev.device)
+    return _binned_sums(elev[:H], valid[:H], lambda dy, dx: (pe[dy:dy + H, R + dx:R + dx + W],
+                                                            pv[dy:dy + H, R + dx:R + dx + W]),
+                        dys, dxs, bin_of, n_out)
+
+
+def _binned_sums(base_e, base_v, shifted, dys, dxs, bin_of, n_out: int):
+    """The pair sums of the base cells against ``shifted(dy, dx)``'s planes.
+    The squared differences are taken in the planes' dtype and summed in
+    float64: the pair counts are exact (a float32 count stops at 2**24) and
+    the sums, rounded once by the caller, do not depend on how a grid is
+    split into blocks, so a sharded fit sums what the one-device fit
+    sums."""
+    s = torch.zeros(n_out, dtype=torch.float64, device=base_e.device)
+    c = torch.zeros(n_out, dtype=torch.float64, device=base_e.device)
     for dy, dx, b in zip(dys.tolist(), dxs.tolist(), bin_of.tolist()):
-        zv = pe[dy:dy + H, R + dx:R + dx + W]
-        mv = pv[dy:dy + H, R + dx:R + dx + W]
+        zv, mv = shifted(dy, dx)
         both = base_v * mv
         d = (base_e - zv) * both
-        s[b] += torch.sum(d * d)
-        c[b] += torch.sum(both)
+        s[b] += torch.sum(d * d, dtype=torch.float64)
+        c[b] += torch.sum(both, dtype=torch.float64)
     return s, c
 
 
 def pair_sums(elev, valid, n_base_rows: int, *, max_lag: int = 10, n_bins: int = 10):
     """Binned (sum of squared differences, pair counts) with base cells in the
     first ``n_base_rows`` rows of ``elev``/``valid`` ((n_base_rows + max_lag,
-    W) planes) and half-plane offsets, so every pair counts once."""
+    W) planes) and half-plane offsets, so every pair counts once.  The sums
+    are float64: a caller rounds them once, after adding any blocks' sums."""
     dys, dxs, bin_of, _ = _bin_table(max_lag, n_bins)
     return _pair_sums_binned(elev, valid, n_base_rows, dys, dxs, bin_of, n_bins, max_lag)
+
+
+def pair_sums_2d(elev, valid, n_base_rows: int, n_base_cols: int, *, max_lag: int = 10, n_bins: int = 10):
+    """:func:`pair_sums` for a 2-D block of a larger grid.
+
+    The half-plane offsets have dy >= 0 but dx in [-max_lag, max_lag], so a
+    block that does not own whole rows needs column halos on both sides.
+    Layout, as ``auvtpu.variogram.pair_sums_2d``::
+
+        elev/valid: (n_base_rows + max_lag, n_base_cols + 2*max_lag)
+        base cells: [:n_base_rows, max_lag : max_lag + n_base_cols]
+
+    with the bottom strip (and its corners) from the neighbours' halos; the
+    block owning a pair's first point counts it, so every pair counts once
+    over the mesh.  The sums are float64, as :func:`pair_sums`'s."""
+    dys, dxs, bin_of, _ = _bin_table(max_lag, n_bins)
+    H, Wb, R = n_base_rows, n_base_cols, max_lag
+    return _binned_sums(elev[:H, R:R + Wb], valid[:H, R:R + Wb],
+                        lambda dy, dx: (elev[dy:dy + H, R + dx:R + dx + Wb], valid[dy:dy + H, R + dx:R + dx + Wb]),
+                        dys, dxs, bin_of, n_bins)
 
 
 def empirical_variogram(grid: RegularGrid, *, max_lag: int = 10, n_bins: int = 10):
@@ -96,6 +126,7 @@ def empirical_variogram(grid: RegularGrid, *, max_lag: int = 10, n_bins: int = 1
     elev = F.pad(grid.elev, (0, 0, 0, R))
     valid = F.pad(grid.valid, (0, 0, 0, R))
     s, c = pair_sums(elev, valid, H, max_lag=max_lag, n_bins=n_bins)
+    s, c = s.to(grid.dtype), c.to(grid.dtype)
     gamma = torch.where(c > 0, s / (2.0 * torch.clamp(c, min=1.0)), torch.zeros_like(s))
     _, _, _, centers = _bin_table(max_lag, n_bins)
     return torch.as_tensor(centers, dtype=grid.dtype).to(grid.device), gamma, c
@@ -141,8 +172,8 @@ def empirical_variogram_directional(grid: RegularGrid, *, max_lag: int = 10, n_b
     elev = F.pad(grid.elev, (0, 0, 0, R))
     valid = F.pad(grid.valid, (0, 0, 0, R))
     s, c = _pair_sums_binned(elev, valid, H, dys, dxs, flat, n_sectors * n_bins, R)
-    s = s.reshape(n_sectors, n_bins)
-    c = c.reshape(n_sectors, n_bins)
+    s = s.to(grid.dtype).reshape(n_sectors, n_bins)
+    c = c.to(grid.dtype).reshape(n_sectors, n_bins)
     gamma = torch.where(c > 0, s / (2.0 * torch.clamp(c, min=1.0)), torch.zeros_like(s))
     as_grid = dict(dtype=grid.dtype, device=grid.device)
     return torch.as_tensor(centers, **as_grid), torch.as_tensor(angles, **as_grid), gamma, c

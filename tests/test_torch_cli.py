@@ -132,6 +132,18 @@ def test_stream_demo_matches_jax_demo(tmp_path):
     assert rmse < 1.0  # observed-cell error is bounded by the sounding noise
 
 
+@pytest.mark.parametrize("shard", [["--shard", "2"], ["--shard2d", "2", "1"]])
+def test_stream_demo_sharded_matches_one_device(tmp_path, shard):
+    # the same survey with the mosaic over two gloo ranks on the CPU: the
+    # mosaic bit-equal to the one-device demo's, so the score is equal
+    argv = ["--mosaic", "128", "128", "--steps", "60", "--beams", "96",
+            "--fill-every", "20", "--window", "64", "--device", "cpu"]
+    one, sharded = str(tmp_path / "one.npy"), str(tmp_path / "sharded.npy")
+    want = stream_demo.main(argv + ["--out-npy", one])
+    assert stream_demo.main(argv + shard + ["--out-npy", sharded]) == want
+    np.testing.assert_array_equal(np.load(sharded), np.load(one))
+
+
 def test_stream_demo_uncertainty_and_methods(tmp_path):
     out = str(tmp_path / "mosaic.npy")
     for method in ("mean", "kriging"):

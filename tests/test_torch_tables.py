@@ -176,6 +176,8 @@ def test_port_imports_no_jax_or_auvtpu():
         "ops/batch.py", "ops/two_tier.py", "kernels/valid_select.py", "kernels/scattered_select.py",
         "ops/band.py", "kernels/band_resample.py", "cli/mission.py", "ops/exact.py", "ops/exact_fast.py",
         "learned.py", "cli/learned_eval.py", "serve.py", "scattered.py", "cli/prototype.py", "kernels/library.py",
+        "parallel/mesh.py", "parallel/launch.py", "parallel/spatial.py", "parallel/streaming.py",
+        "parallel/mission.py", "parallel/multihost.py",
     ):
         assert new in names
     assert (PORT / "csrc" / "band_resample.cu").exists()

@@ -226,3 +226,27 @@ def test_fit_model_from_an_init_matches(model):
     # zero iterations return the init
     p0 = tv.fit_exponential(torch.from_numpy(lags), torch.from_numpy(gam), torch.from_numpy(cnt), iters=0, init=init)
     np.testing.assert_allclose([float(p) for p in p0], init, rtol=1e-6)
+
+
+def test_pair_sums_are_exact_and_do_not_depend_on_the_split():
+    # 2048x2048 cells, every one valid: 25,154,560 pairs in the one bin,
+    # past float32's 2**24, where a float32 count stops being exact; the
+    # float64 sums hold it, and four row bands (each with its 2-row halo
+    # below) sum to the same values, once rounded to float32, as the whole
+    # plane
+    from auvtpu_torch.variogram import pair_sums
+
+    n, L = 2048, 2
+    rng = np.random.default_rng(0)
+    e = torch.from_numpy(rng.normal(0.0, 10.0, (n + L, n)).astype(np.float32))
+    v = torch.ones(n + L, n)
+    v[n:] = 0.0
+    s, c = pair_sums(e, v, n, max_lag=L, n_bins=1)
+    assert s.dtype == c.dtype == torch.float64
+    pairs = sum((n - dy) * (n - abs(dx)) for dy, dx in ((0, 1), (0, 2), (1, -1), (1, 0), (1, 1), (2, 0)))
+    assert float(c[0]) == pairs and pairs > 2**24
+    blk = n // 4
+    parts = [pair_sums(e[i * blk:(i + 1) * blk + L], v[i * blk:(i + 1) * blk + L], blk, max_lag=L, n_bins=1)
+             for i in range(4)]
+    assert torch.equal(sum(p[0] for p in parts).float(), s.float())
+    assert torch.equal(sum(p[1] for p in parts), c)
