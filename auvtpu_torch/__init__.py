@@ -16,7 +16,8 @@ file I/O), never jax or auvtpu.
                                  directional variogram + anisotropic fit
 - :mod:`auvtpu_torch.ops`        kriging solve; bilinear, mean, IDW, kriging fills;
                                  scattered ops, stencil packs, TwoTierInterpolator;
-                                 the band router; exact mode (f64)
+                                 the band router; exact mode (f64); tile-streaming
+                                 scattered ops
 - :mod:`auvtpu_torch.learned`    the masked-convolution inpainting baseline
 - :mod:`auvtpu_torch.golden`     f64 numpy oracles (GoldenGrid, GoldenV2)
 - :mod:`auvtpu_torch.kernels`    CUDA kernels, their wrappers, the nvcc build, and
@@ -31,9 +32,11 @@ file I/O), never jax or auvtpu.
                                  mosaics, sharded atlases, torchrun bootstrap
 - :mod:`auvtpu_torch.metrics`    the reference's error metrics
 - :mod:`auvtpu_torch.io`         GEBCO tiles, grid/point CSVs, the results CSV
-- :mod:`auvtpu_torch.utils`      end-to-end and steady-state timing
+- :mod:`auvtpu_torch.utils`      end-to-end and steady-state timing; debug_mode
+                                 (raise at the op that makes a NaN); trace
 - :mod:`auvtpu_torch.cli`        bench_grid_a, bench_grid_b, stream_demo, mission,
-                                 learned_eval, prototype
+                                 learned_eval, prototype, demo, gen_grid, subset,
+                                 analyze, plots, figures
 - :mod:`auvtpu_torch.convert`    state from the JAX package, numpy in
 - :mod:`auvtpu_torch.entry`      fit_fill: fit, fill, keep observed cells;
                                  dryrun_multichip: the distributed steps on n ranks
@@ -41,10 +44,12 @@ file I/O), never jax or auvtpu.
 
 __version__ = "0.1.0"
 
-from .config import Extent, FallbackConfig, IDWConfig, KERGUELEN_EXTENT, KrigingConfig, VariogramConfig
+from .config import (EngineConfig, Extent, FallbackConfig, IDWConfig, KERGUELEN_EXTENT, KrigingConfig,
+                     VariogramConfig)
 from .grid import RegularGrid
 
 __all__ = [
+    "EngineConfig",
     "Extent",
     "FallbackConfig",
     "IDWConfig",

@@ -23,8 +23,9 @@ and Cubic have no kernel.  ``--selection exact`` reproduces the reference
 CPU engine digit for digit at arbitrary coordinates: the f64 ring selection
 with swap tie-breaks of ``ops/exact.py`` on an f64 grid for Bilinear, Cubic
 and Kriging (IDW is dropped: the reference has no scattered IDW), validated
-against GoldenGrid at 1e-9 x scale.  The ``--debug`` modes of the JAX CLI
-are not in the port yet.
+against GoldenGrid at 1e-9 x scale.  ``--debug`` raises at the op that
+makes a NaN and ``--debug-eager`` also synchronises after every op
+(:mod:`auvtpu_torch.utils.debug`), for the run alone.
 
 Run: ``python3 -m auvtpu_torch.cli.bench_grid_a --batch-sizes 1000000``
 """
@@ -62,7 +63,7 @@ from ..ops.packs import (
     packed_kriging_valid,
 )
 from ..synthetic import shelf_seamount
-from ..utils import steady_state_ms, time_once_ms, warm_e2e_ms
+from ..utils import debug_mode, steady_state_ms, time_once_ms, warm_e2e_ms
 
 VALIDATION_TOL = 5e-5  # x max(1, |golden|): the f32 bar of the JAX CLI
 EXACT_VALIDATION_TOL = 1e-9  # the f64 exact mode's bar
@@ -175,7 +176,18 @@ def main(argv=None):
         "true-k-nearest production semantics.",
     )
     p.add_argument("--device", default="cuda", help="torch device of the grid (default: the card)")
+    p.add_argument("--debug", action="store_true",
+                   help="sanitizer mode: raise at the op that makes a NaN (utils.debug)")
+    p.add_argument("--debug-eager", action="store_true",
+                   help="NaN checking + a device synchronisation after every op")
     args = p.parse_args(argv)
+    if args.debug or args.debug_eager:
+        with debug_mode(nans=True, disable_jit=args.debug_eager):
+            return _run(p, args)
+    return _run(p, args)
+
+
+def _run(p, args):
     exact = args.selection == "exact"
 
     if args.grid_csv:

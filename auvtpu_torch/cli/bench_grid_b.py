@@ -15,8 +15,9 @@ is plain torch.  ``--selection exact`` reproduces the reference's own
 selection (ring-segment cutoff and swap tie-breaks, ``ops/exact.py``) on an
 f64 grid for Bilinear, Cubic and Kriging, with Kriging by the two-tier
 engine (``--exact-tier two``, ``ops/exact_fast.py``) or the strict one; it
-implies ``--convention reference``.  The ``--debug`` modes of the JAX CLI
-are not in the port yet.
+implies ``--convention reference``.  ``--debug`` raises at the op that
+makes a NaN and ``--debug-eager`` also synchronises after every op
+(:mod:`auvtpu_torch.utils.debug`), for the run alone.
 
 Run: ``python3 -m auvtpu_torch.cli.bench_grid_b --region kerguelen``
 """
@@ -52,7 +53,7 @@ from ..ops import (
 )
 from ..ops.exact_fast import exact_kriging_at_cells_fast
 from ..synthetic import kerguelen_standin
-from ..utils import steady_state_ms, time_once_ms, warm_e2e_ms
+from ..utils import debug_mode, steady_state_ms, time_once_ms, warm_e2e_ms
 
 # GEBCO tiles are looked up under the checkout's data_local/ (gitignored)
 GEBCO_ROOT_DEFAULT = os.path.join(
@@ -129,7 +130,18 @@ def main(argv=None):
         "lowest weighted-SSE model",
     )
     p.add_argument("--device", default="cuda", help="torch device of the grid (default: the card)")
+    p.add_argument("--debug", action="store_true",
+                   help="sanitizer mode: raise at the op that makes a NaN (utils.debug)")
+    p.add_argument("--debug-eager", action="store_true",
+                   help="NaN checking + a device synchronisation after every op")
     args = p.parse_args(argv)
+    if args.debug or args.debug_eager:
+        with debug_mode(nans=True, disable_jit=args.debug_eager):
+            return _run(p, args)
+    return _run(p, args)
+
+
+def _run(p, args):
     exact = args.selection == "exact"
     if exact and args.convention != "reference":
         p.error("--selection exact implies --convention reference")

@@ -130,3 +130,16 @@ GRID_A_SHAPE = (3200, 4000)  # (num_lat, num_lon)
 # Cross-engine validation (test_interpolation.cpp:214-249).
 VALIDATION_POINTS = 10
 VALIDATION_ATOL = 1e-6
+
+
+@dataclasses.dataclass(frozen=True)
+class EngineConfig:
+    """Top-level knobs of the engine (``auvtpu.config.EngineConfig``)."""
+
+    kriging: KrigingConfig = KrigingConfig()
+    fallback: FallbackConfig = FallbackConfig()
+    idw: IDWConfig = IDWConfig()
+    # dtype for device compute; the golden model is always float64 on host.
+    dtype: str = "float32"
+    # queries are processed in chunks of this many points to bound memory.
+    query_chunk: int = 1 << 20

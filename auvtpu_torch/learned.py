@@ -38,6 +38,13 @@ from .grid import RegularGrid, device_cache
 from .ops import fill_window_mean
 
 
+def learned_available() -> bool:
+    """Whether the learned baseline can run.  The JAX package's checks that
+    flax and optax import; this module needs only ``torch.nn`` and
+    ``torch.optim``, which it has imported already, so it is always true."""
+    return True
+
+
 class MaskedConvInpainter(nn.Module):
     """Small residual CNN: (normed elev*valid, valid, normed mean fill), NCHW
     -> residual (B, H, W) float32."""

@@ -1,8 +1,9 @@
 """Torch interpolation ops: the dense (cell-aligned) fills of Grid B and the
 2x upsampling of Grid A, the scattered-query ops (plain windowed and packed)
 of Grid A and the two-tier scattered engine, the kriging solve core, and
-the trajectory-band router of mission serving, and exact mode (the
-reference's ring-segment selection with swap tie-breaks, in f64)."""
+the trajectory-band router of mission serving, exact mode (the
+reference's ring-segment selection with swap tie-breaks, in f64), and the
+tile-streaming scattered ops (queries sorted by grid tile)."""
 
 from .band import (
     COST_NS,
@@ -59,6 +60,7 @@ from .scattered import (
     scattered_kriging,
     variogram,
 )
+from .tiled import tiled_bicubic, tiled_bilinear, tiled_idw, tiled_kriging
 from .two_tier import TwoTierInterpolator
 from .window import ring_tables, window_select
 
@@ -108,6 +110,10 @@ __all__ = [
     "scattered_idw",
     "scattered_kriging",
     "variogram",
+    "tiled_bicubic",
+    "tiled_bilinear",
+    "tiled_idw",
+    "tiled_kriging",
     "TwoTierInterpolator",
     "ring_tables",
     "window_select",

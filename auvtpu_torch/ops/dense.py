@@ -21,7 +21,7 @@ import torch.nn.functional as F
 
 from ..config import IDWConfig, KrigingConfig
 from ..grid import RegularGrid
-from ..tables import CHUNK, padded_tables, sorted_offsets
+from ..tables import CHUNK, padded_tables, ring_offsets, sorted_offsets  # noqa: F401 (re-exported, as the JAX module has them)
 from .scattered import krige_solve
 
 

@@ -12,7 +12,10 @@ reference's ctor-time grid upload (GridD.cu:65-83).
 
 The JAX package fetches rows of 128 lanes and picks the sub-block with a
 one-hot einsum (the TPU's gather unit wants whole rows); plain indexing
-returns the same values.  The selection kernels B5-B7
+returns the same values.  The ``*_from_stencil`` epilogues finish a
+stencil however it was read (:mod:`auvtpu_torch.ops.tiled` reads it from a
+tile's slab); ``packed_bilinear`` and ``packed_bicubic`` keep the JAX
+package's one weighted sum over the row, as its packed ops do.  The selection kernels B5-B7
 (:mod:`auvtpu_torch.kernels.valid_select`,
 :mod:`auvtpu_torch.kernels.scattered_select`) read the same packs.
 """
@@ -24,6 +27,7 @@ import torch
 from ..config import IDWConfig, KrigingConfig
 from ..grid import RegularGrid
 from .scattered import (
+    _catmull_rom,
     _nan_like,
     _normalize,
     cell_centres,
@@ -38,6 +42,11 @@ MAX_PACK = 128
 # invalid taps are a finite sentinel inside packs, as in the JAX package
 # (whose one-hot pick would turn a NaN into NaN * 0 = NaN)
 SENTINEL = 1e30
+
+
+def _sentinel_plane(grid: RegularGrid) -> torch.Tensor:
+    """The grid's elevations with invalid cells set to the sentinel."""
+    return torch.where(grid.valid > 0.5, grid.elev, torch.full_like(grid.elev, SENTINEL))
 
 
 def pack_width(n_offsets: int) -> int:
@@ -59,7 +68,7 @@ def build_pack(grid: RegularGrid, offsets, clamp: bool):
     if P > MAX_PACK:
         raise ValueError(f"{len(offsets)} offsets need P={P} > {MAX_PACK}")
     dev = grid.device
-    src = torch.where(grid.valid > 0.5, grid.elev, torch.full_like(grid.elev, SENTINEL))
+    src = _sentinel_plane(grid)
     out = torch.full((H, W, P), SENTINEL, dtype=grid.dtype, device=dev)
     rows = torch.arange(H, device=dev)
     cols = torch.arange(W, device=dev)
@@ -113,6 +122,29 @@ class StencilPack:
         self.window, self.p_window = build_pack(grid, window_offsets(window_radius), clamp=False)
 
 
+def bilinear_from_stencil(st, x, y, oob):
+    """Bilinear from a (N, 4) corner stencil (NaN = invalid tap), the mean
+    of the valid corners where any is invalid; the tile-streaming path's
+    epilogue.  The same operations in the same order as
+    :func:`~auvtpu_torch.ops.scattered.scattered_bilinear`."""
+    x0 = torch.floor(x).to(torch.int32)
+    y0 = torch.floor(y).to(torch.int32)
+    wx = x - x0
+    wy = y - y0
+    z00, z01, z10, z11 = st[:, 0], st[:, 1], st[:, 2], st[:, 3]
+    z0 = (1 - wx) * z00 + wx * z01
+    z1 = (1 - wx) * z10 + wx * z11
+    z = (1 - wy) * z0 + wy * z1
+    ok = ~torch.isnan(st)
+    zero = torch.where(ok, st, torch.zeros_like(st))
+    okf = ok.to(st.dtype)
+    cnt = okf[:, 0] + okf[:, 1] + okf[:, 2] + okf[:, 3]
+    s = zero[:, 0] + zero[:, 1] + zero[:, 2] + zero[:, 3]
+    fb = torch.where(cnt > 0, s / torch.clamp(cnt, min=1.0), _nan_like(s))
+    out = torch.where(cnt < 4, fb, z)
+    return torch.where(oob, _nan_like(out), out)
+
+
 def packed_bilinear(pack: torch.Tensor, grid: RegularGrid, lons, lats, *, assume_valid: bool = False):
     """Bilinear from the 4-corner pack (the +1 taps are clamped at build
     time, matching min(x0+1, W-1)); the mean of the valid corners where any
@@ -151,6 +183,19 @@ def _cr_basis(t, i):
     return 0.5 * (-t2 + t3)
 
 
+def bicubic_from_stencil(st, x, y, oob):
+    """Catmull-Rom from a (N, 16) stencil (rows m=-1..2, cols n=-1..2); a
+    NaN tap makes the result NaN (no fallback).  The same operations in the
+    same order as :func:`~auvtpu_torch.ops.scattered.scattered_bicubic`."""
+    xi = torch.floor(x).to(torch.int32)
+    yi = torch.floor(y).to(torch.int32)
+    tx = x - xi
+    ty = y - yi
+    rows = [_catmull_rom(st[:, 4 * m], st[:, 4 * m + 1], st[:, 4 * m + 2], st[:, 4 * m + 3], tx) for m in range(4)]
+    out = _catmull_rom(rows[0], rows[1], rows[2], rows[3], ty)
+    return torch.where(oob, _nan_like(out), out)
+
+
 def packed_bicubic(pack: torch.Tensor, grid: RegularGrid, lons, lats, *, assume_valid: bool = False):
     """Clean-stencil bicubic for fully valid grids: a NaN tap makes the
     result NaN (no fallback; masked grids take the window path).
@@ -170,6 +215,12 @@ def packed_bicubic(pack: torch.Tensor, grid: RegularGrid, lons, lats, *, assume_
         bad = st.max(dim=1).values >= 0.5 * SENTINEL
         z = torch.where(bad, _nan_like(z), z)
     return torch.where(oob, _nan_like(z), z)
+
+
+def window_select_from_stencil(st, x, y, oob, ci, cj, *, k, window_radius, convention="reference"):
+    """v2 top-k selection from a window stencil in collection order (NaN =
+    invalid tap); shared by the pack and tile-streaming paths."""
+    return select_from_stencil(st, window_offsets(window_radius), x, y, oob, ci, cj, k=k, convention=convention)
 
 
 def select_from_stencil(st, offs, x, y, oob, ci, cj, *, k, convention="reference"):
@@ -211,9 +262,8 @@ def packed_window_select(pack, grid: RegularGrid, lons, lats, *, k, window_radiu
     selection, v2 semantics."""
     x, y, oob = _normalize(grid, lons, lats)
     ci, cj = centre_cells(grid, x, y)
-    offs = window_offsets(window_radius)
-    st = fetch_pack(pack, pack_width(len(offs)), cj * grid.num_lon + ci)
-    return select_from_stencil(st, offs, x, y, oob, ci, cj, k=k, convention=convention)
+    st = fetch_pack(pack, pack_width(len(window_offsets(window_radius))), cj * grid.num_lon + ci)
+    return window_select_from_stencil(st, x, y, oob, ci, cj, k=k, window_radius=window_radius, convention=convention)
 
 
 def kriging_from_select(grid: RegularGrid, lons, lats, sel, *, vparams=None, convention: str = "reference", model: str = "exponential", with_variance: bool = False):

@@ -280,6 +280,12 @@ def fit_variogram_directional(grid: RegularGrid, *, max_lag: int = 10, n_bins: i
     return fit_anisotropic(lags * abs(grid.lon_step), angles, gamma, counts, model=model, iters=iters)
 
 
+def exponential_model(h, params):
+    """The exponential model, gamma = nugget + sill (1 - e^(-h / range)),
+    ``params`` = (nugget, sill, range); :func:`variogram_model`'s."""
+    return variogram_model(h, params, "exponential")
+
+
 def variogram_model(h, params, model: str = "exponential"):
     """Model zoo; ``params`` is always (nugget, p1, p2), p2 clamped >= 1e-6:
       exponential: gamma = nugget + p1 (1 - e^(-h/p2))   (GridH.cpp:371-376)

@@ -26,7 +26,13 @@ streaming mosaic and scattered queries on the 3200x4000 Grid A, in phases:
             of masked cells finite, RMSE within 5.7156 +- 2e-3 m.  The launch
             counts, zeroed before phase 5, must show both kernels ran.  B1
             vs plain again under the fitted parameters (bit for bit; read on
-            the device: one launch, no copy)
+            the device: one launch, no copy).  ROADMAP C1: the exponential
+            fit's landing on the card and on the host, by the package's
+            float32 loop and by the same loop in float64 (the float64
+            landings equal within 1e-6); under the float64 landing B1 bit
+            for bit against its plain twin, and the RMSEs of B1, the card's
+            plain fill, the host's plain fill and B1's plain twin on the
+            host (printed, not gated)
 7. timing   CUDA events, 3 warm-up calls then the median of 20, kernels and
             plain versions side by side; B1 and B2 alone by their device
             duration, back to back and cold, and B2's call by the device
@@ -186,6 +192,25 @@ streaming mosaic and scattered queries on the 3200x4000 Grid A, in phases:
             profiler B1, B3 and B8 records of its block fills and resample;
             per rank the block fills' device ms, the halo exchange and
             gather ms, and each path's wall against one device
+24. quick   the quickstart, the figure CLIs' fills, the tiled ops and the
+            checking modes: cli.demo's benchmark (800x1000 sinusoid,
+            bilinear at 1e3-1e6 queries) against GoldenGrid, the first 10
+            points and the whole batch within 0.05 m; cli.plots.reconstruct
+            on the stand-in r0.10 for all four methods at phase 9's RMSEs,
+            launch counts zeroed before it showing B1 and both B3 kinds;
+            cli.figures.coverage_table at the seven JAX removals on the
+            stand-in, launch counts showing B3 mean at each, its bilinear
+            hole counts equal to the host's fill; tiled_bilinear, _bicubic,
+            _kriging and _idw (plain torch: the JAX path has no Pallas
+            kernel) on Grid A at 1e5 and 1e6 queries against the scattered
+            ops (tests/test_tiled.py's bars) and 4096 of them against
+            GoldenGrid/GoldenV2 (5e-5 x max(1, |golden|)), both timed;
+            utils.debug_mode passing B1 and B3 on a covered grid (with a
+            synchronisation after every op) and raising at B3's custom op on
+            the NaN it makes from +inf beside -inf (a missing raise fails
+            the run), its cost on the stand-in on the host clock (kept out
+            of every other timing); utils.profiling.trace writing one
+            Chrome trace that holds all 20 records of 20 B1 calls
 
 then one JSON line of the kernels and, last, the device JSON line.  Any
 failure raises and the script exits non-zero; without a CUDA device it exits
@@ -451,10 +476,11 @@ def device_ms(fn, match: str | None, reps: int = 30, cold: bool = False, attempt
     the median duration of the kernels whose name holds ``match``, one a
     call, or, with no ``match``, the sum over the call's kernels (cold,
     torch's fills aside) of each one's median times its launches a call.
-    The tracer may drop records, the last of a session and now and then all
-    of them; a median of the ones it keeps is not biased by that, and a
-    session that keeps fewer than 5 is profiled again, up to ``attempts``
-    times."""
+    The tracer may drop records: those its clock skew puts before the
+    session opened, the first of a session and now and then all of them
+    (``utils.profiling.WINDOW_MARGIN_S``); a median of the ones it keeps is
+    not biased by that, and a session that keeps fewer than 5 is profiled
+    again, up to ``attempts`` times."""
     import torch
 
     scratch = torch.empty(128 << 18, dtype=torch.float32, device="cuda")
@@ -547,10 +573,11 @@ def host_ms(fn, warmup: int = 1, reps: int = 5) -> float:
 def device_kernels(fn, reps: int = 20, attempts: int = 3, copies: bool = False) -> dict:
     """{name: records} of the device kernels that ``reps`` calls of ``fn``
     launch, from torch.profiler's kernel records (memory copies and sets are
-    not kernels; ``copies`` counts their records too).  The tracer drops the
-    last records of a session, and now and then all of them: the calls are
-    many, and a session that keeps no kernel record is profiled again, up to
-    ``attempts`` times; raises where none keeps one."""
+    not kernels; ``copies`` counts their records too).  The tracer may drop
+    the first records of a session, and now and then all of them
+    (``utils.profiling.WINDOW_MARGIN_S``): the calls are many, and a session
+    that keeps no kernel record is profiled again, up to ``attempts`` times;
+    raises where none keeps one."""
     import collections
 
     import torch
@@ -1426,6 +1453,48 @@ def main() -> int:
                        "B1 call, fitted parameters", copies=True)
     say("entry", f"B1 vs plain under the fitted parameters (read on the device): bit-equal; one kernel launch "
         f"a call and no memory copy, device records of 20 calls kept: {seen}")
+    # ROADMAP section C1 (open): the float32 Gauss-Newton loop stops on the
+    # flat sill/range ridge where its last-bit noise first rejects a step,
+    # so the card's landing is not the host's; the same loop in float64
+    # (fit_model on float64 inputs) lands at one place on both, but its
+    # parameters fill the card's plane outside RMSE_FITTED's gate, so the
+    # package keeps the float32 loop.  Recorded here, gated where a claim is
+    # made: the float64 landing equal on card and host, and B1 under it
+    # bit-equal to its plain twin on the card.  The card's plain fill and
+    # the host's show whether the fill's gap to the host is B1's or the
+    # device's.
+    from auvtpu_torch.variogram import fit_exponential
+
+    grid_h, rows_h, cols_h, truth_h = bench_workload("cpu")
+    step = 0.5 * (abs(grid.lat_step) + abs(grid.lon_step))
+    landing = {}
+    for where, g in (("card", grid), ("host", grid_h)):
+        lags, gam, cnt = empirical_variogram(g)
+        landing[where, "float32"] = [float(p) for p in fit_exponential(lags * step, gam, cnt, iters=25)]
+        landing[where, "float64"] = [float(p) for p in fit_exponential((lags * step).double(), gam.double(),
+                                                                       cnt.double(), iters=25)]
+    rel = {d: max(abs(a - b) / abs(b) for a, b in zip(landing["card", d], landing["host", d]))
+           for d in ("float32", "float64")}
+    vp64 = tuple(torch.tensor(p, device=dev) for p in landing["card", "float64"])
+    vp64_h = tuple(p.cpu() for p in vp64)
+    b1_64 = fill_kriging(grid, vparams=vp64, backend="fused")
+    r_64, _ = rmse(b1_64, rows, cols, truth)
+    e_64 = same_planes(b1_64, wf.fill_kriging_fused_ref(grid, vparams=vp64), "B1 vs plain, float64 landing")
+    b1_err = max(b1_err, e_64)
+    del b1_64
+    r_64_plain, _ = rmse(fill_kriging(grid, vparams=vp64, backend="torch"), rows, cols, truth)
+    r_64_host, _ = rmse(fill_kriging(grid_h, vparams=vp64_h, backend="torch"), rows_h, cols_h, truth_h)
+    r_64_host_b1, _ = rmse(fill_kriging(grid_h, vparams=vp64_h, backend="fused"), rows_h, cols_h, truth_h)
+    del grid_h, rows_h, cols_h, truth_h
+    say("entry", f"C1: float32 loop (the package's) card {landing['card', 'float32']} host "
+        f"{landing['host', 'float32']}, max rel {rel['float32']:.3g}; float64 loop card "
+        f"{landing['card', 'float64']} host {landing['host', 'float64']}, max rel {rel['float64']:.3g}; "
+        f"fills with the card's float64 landing: B1 RMSE {r_64:.6f} m (bit-equal to its plain twin on "
+        f"the card), the card's plain fill {r_64_plain:.6f} m, the host's plain fill {r_64_host:.6f} m and "
+        f"B1's plain twin on the host {r_64_host_b1:.6f} m (not gated: ROADMAP C1; the gate is "
+        f"{RMSE_FITTED} +- {RMSE_TOL})  [{card}]")
+    if not rel["float64"] <= 1e-6:
+        raise AssertionError(f"the float64 fit lands {rel['float64']} apart on card and host")
 
     # ---- 7. timing
     sel = wf.topk_full(grid, k=4, max_radius=10)
@@ -2418,7 +2487,7 @@ def main() -> int:
         if not ours:
             raise AssertionError(f"{label}: no {kernel_of[counter]} record in the loaded program's device kernels {seen}")
         tms = {"exported host": host_ms(lambda: run(*args)), "live host": host_ms(live),
-               # many calls: the tracer drops a session's last records
+               # many calls: the tracer may drop a session's first records
                "exported device": device_busy_ms(lambda: run(*args), reps=20),
                "live device": device_busy_ms(live, reps=20)}
         for key, v in tms.items():
@@ -2599,6 +2668,136 @@ def main() -> int:
     say("parallel", f"launches over the ranks {launches_p}; phase took {time.perf_counter() - t_par:.1f} s  "
         f"[{card}, gloo]")
 
+    # ---- 24. the quickstart, the figure CLIs' fills, the tiled ops and the
+    # checking modes
+    import glob
+    import tempfile
+
+    from auvtpu_torch.cli import demo, figures, plots
+    from auvtpu_torch.metrics import all_reference_metrics
+    from auvtpu_torch.ops import (scattered_bicubic, scattered_bilinear, scattered_idw, scattered_kriging,
+                                  tiled_bicubic, tiled_bilinear, tiled_idw, tiled_kriging)
+    from auvtpu_torch.synthetic import kerguelen_standin, sinusoid
+    from auvtpu_torch.utils import debug_mode
+    from auvtpu_torch.utils.profiling import trace
+
+    t_q = time.perf_counter()
+    res_d = demo.benchmark(batches=(1_000, 10_000, 100_000, 1_000_000), device=dev)
+    if not all(r["ok"] and r["max_err"] <= demo.VALIDATION_ATOL for r in res_d.values()):
+        raise AssertionError(f"demo.benchmark disagrees with GoldenGrid: {res_d}")
+    say("quick", "demo.benchmark (800x1000 sinusoid, bilinear): " + "; ".join(
+        f"n={n} device {r['device_ms']:.3f} ms, golden host {r['host_ms']:.1f} ms, max |got - golden| "
+        f"{r['max_err']:.3g} m" for n, r in res_d.items()) + f"  [{card}]")
+    # plots.reconstruct on the stand-in r0.10 (launch counts around the four
+    # methods): the Grid B RMSEs of phase 9
+    s_elev = kerguelen_standin(SHAPE)
+    wf.reset_launches()
+    rec = {m: plots.reconstruct(s_elev, KERGUELEN_EXTENT, REMOVAL, m, device=dev) for m in plots.METHODS}
+    launches_pl = dict(wf.LAUNCHES)
+    for m, (_, pred_m, _, truth_m) in rec.items():
+        r_m = all_reference_metrics(truth_m, pred_m)["RMSE"]
+        want, tol = GRID_B_RMSE[REMOVAL][m], GRID_B_TOL[m]
+        if not abs(r_m - want) <= tol:
+            raise AssertionError(f"plots.reconstruct {m}: RMSE {r_m} outside {want} +- {tol}")
+        say("quick", f"plots.reconstruct {m:8s} RMSE {r_m:.6f} m (phase 9's {want} +- {tol})")
+    del rec
+    if launches_pl["fill_kriging_fused"] < 1 or launches_pl["fill_idw_fused"] < 1 or launches_pl["fill_mean_fused"] < 1:
+        raise AssertionError(f"plots.reconstruct did not launch B1 and both B3 kinds: {launches_pl}")
+    # figures.coverage_table at the JAX removals (launch counts around it);
+    # the bilinear holes counted again by the host's fill
+    wf.reset_launches()
+    cov = figures.coverage_table(s_elev, KERGUELEN_EXTENT, figures.REMOVALS, device=dev)
+    launches_cv = dict(wf.LAUNCHES)
+    if launches_cv["fill_mean_fused"] < len(figures.REMOVALS):
+        raise AssertionError(f"coverage_table did not launch B3 mean a removal: {launches_cv}")
+    from auvtpu_torch.masking import mask_grid
+    from auvtpu_torch.ops import fill_bilinear
+
+    for row in cov:
+        red_h, rc_h, _ = mask_grid(s_elev, row["removal"])
+        pb = fill_bilinear(RegularGrid.from_nan_array(red_h, KERGUELEN_EXTENT, device="cpu")).numpy()
+        holes = int(np.isnan(pb[rc_h[:, 0], rc_h[:, 1]]).sum())
+        if holes != row["bilinear_holes"] or row["cubic_fallback_coverage"] != 1.0:
+            raise AssertionError(f"coverage_table at {row['removal']}: {row} (host holes {holes})")
+    say("quick", "figures.coverage_table on the card: " + ", ".join(
+        f"r{r['removal']:g} {r['bilinear_holes']} holes of {r['masked_pts']}" for r in cov)
+        + "; the host's bilinear holes equal; window mean covers every cell")
+    del s_elev, cov
+    # the tile-streaming ops on Grid A (plain torch: the JAX path has no
+    # Pallas kernel) against the scattered ops and the golden engines
+    a_elev = shelf_seamount(*GRID_A_SHAPE)
+    gA = RegularGrid.dense(a_elev, GRID_A_EXTENT, device=dev)
+    golden_a, golden_v2 = (cls(a_elev, GRID_A_EXTENT.min_lon, GRID_A_EXTENT.max_lon, GRID_A_EXTENT.min_lat,
+                               GRID_A_EXTENT.max_lat) for cls in (GoldenGrid, GoldenV2))
+    tiled_ops = {
+        "bilinear": (tiled_bilinear, scattered_bilinear, 1e-3, golden_a.bilinear),
+        "bicubic": (tiled_bicubic, lambda g, x, y: scattered_bicubic(g, x, y, fallback="never"), 1e-3, golden_a.cubic),
+        "kriging": (lambda g, x, y: tiled_kriging(g, x, y, window_radius=2),
+                    lambda g, x, y: scattered_kriging(g, x, y, max_radius=2), 0.05, golden_v2.kriging),
+        "idw": (lambda g, x, y: tiled_idw(g, x, y, k=8, window_radius=2),
+                lambda g, x, y: scattered_idw(g, x, y, k=8, max_radius=2), 0.01,
+                lambda x, y: golden_v2.idw(x, y, k=8)),
+    }
+    for n in (100_000, 1_000_000):
+        qT = scattered_queries(GRID_A_EXTENT, *GRID_A_SHAPE, n, 24, dev)
+        q_h = [q[:N_GOLDEN].double().cpu().numpy() for q in qT]
+        for name, (tfn, sfn, atol, gfn) in tiled_ops.items():
+            got = tfn(gA, *qT)
+            close_planes(got, sfn(gA, *qT), f"tiled_{name} vs scattered_{name}, {n} Grid A queries", 1e-5, atol)
+            e_g = golden_check(got[:N_GOLDEN], gfn(*q_h), f"tiled_{name} vs the golden engine")
+            ms[f"tiled_{name} {n}"] = time_ms(lambda: tfn(gA, *qT))
+            ms[f"scattered_{name} {n}"] = time_ms(lambda: sfn(gA, *qT))
+            say("quick", f"tiled_{name} at {n} Grid A queries: at scattered_{name}'s bar (rtol 1e-5, atol {atol}), "
+                f"{N_GOLDEN} vs golden max |diff| {e_g:.3g} m; {ms[f'tiled_{name} {n}']:.4f} ms against "
+                f"scattered {ms[f'scattered_{name} {n}']:.4f} ms (events)  [{card}]")
+    del gA, qT, golden_a, golden_v2
+    torch.cuda.empty_cache()
+    # debug_mode on a covered grid (B1 and B3 through their custom ops), then
+    # a NaN made inside B3 (+inf beside -inf): the raise is the pass
+    cov_g = RegularGrid.dense(sinusoid(800, 1000), Extent(-180.0, -160.0, 20.0, 30.0), device=dev)
+    with debug_mode(disable_jit=True):
+        planes = [fill_kriging(cov_g), wf.fill_idw_fused(cov_g, k=8), wf.fill_mean_fused(cov_g, k=4)]
+    if not all(bool(torch.isfinite(p_).all()) for p_ in planes):
+        raise AssertionError("debug_mode: the covered grid's fills are not finite")
+    e_inf = sinusoid(800, 1000)
+    e_inf[400, 500], e_inf[400, 501] = np.inf, -np.inf
+    inf_g = RegularGrid.dense(e_inf, Extent(-180.0, -160.0, 20.0, 30.0), device=dev)
+    try:
+        with debug_mode():
+            wf.fill_idw_fused(inf_g, k=8)
+    except FloatingPointError as exc:
+        caught = str(exc)
+    else:
+        raise AssertionError("debug_mode did not raise on the NaN that B3 made")
+    if "auvtpu_torch" not in caught:
+        raise AssertionError(f"debug_mode raised at another op than B3's: {caught}")
+    del planes, cov_g, inf_g
+    # its cost on the 5M-cell stand-in r0.10 (host clock, outside every timed
+    # figure above)
+    for label, fn in (("fill_kriging (B1)", lambda: fill_kriging(grid)), ("fill_bilinear", lambda: fill_bilinear(grid))):
+        plain_ms = host_ms(fn)
+        with debug_mode():
+            checked_ms = host_ms(fn)
+        ms[f"debug_mode {label}"] = checked_ms
+        say("quick", f"debug_mode on the stand-in r0.10: {label} {plain_ms:.3f} ms, checked {checked_ms:.3f} ms "
+            f"(host clock)  [{card}]")
+    say("quick", f"debug_mode: covered fills pass, the NaN B3 made raised: {caught}")
+    # one trace of 20 B1 calls, as a user would take it: trace() opens and
+    # closes its window WINDOW_MARGIN_S away from the calls, so the tracer's
+    # clock skew drops none of their records
+    with tempfile.TemporaryDirectory() as tdir:
+        with trace(tdir):
+            for _ in range(20):
+                fill_kriging(grid)
+        tfiles = glob.glob(os.path.join(tdir, "trace.*.json"))
+        n_b1 = sum("kriging_fill_kernel" in str(e.get("name", ""))
+                   for f in tfiles for e in json.load(open(f)).get("traceEvents", []))
+    if len(tfiles) != 1 or n_b1 != 20:
+        raise AssertionError(f"utils.profiling.trace wrote {len(tfiles)} files holding {n_b1} of 20 B1 records")
+    say("quick", f"utils.profiling.trace wrote one Chrome trace holding all 20 B1 kriging_fill_kernel records; "
+        f"launches plots {launches_pl}, coverage {launches_cv}; phase took {time.perf_counter() - t_q:.1f} s  "
+        f"[{card}]")
+
     # bounds, from this run's inputs
     # B1/B2 timed on the r0.10 grid, B3/B4 on the r0.20 one (same shape);
     # bytes: each input plane read once, each output plane written once
@@ -2638,17 +2837,17 @@ def main() -> int:
     rows_ = [
         ("fill_kriging_fused", "auvtpu/pallas/window_fill.py:648",
          launches["fill_kriging_fused"] + launches_b["fill_kriging_fused"] + launches_s["fill_kriging_fused"]
-         + launches_sv["fill_kriging_fused"] + launches_p["fill_kriging_fused"],
+         + launches_sv["fill_kriging_fused"] + launches_p["fill_kriging_fused"] + launches_pl["fill_kriging_fused"],
          b1_err, ms["B1 kernel alone"], ms["B1 wrapper"], ms["B1 plain"]),
         ("topk_full", "auvtpu/pallas/window_fill.py:501", launches["topk_full"],
          b2_err, ms["B2 kernel alone"], ms["B2 wrapper"], ms["B2 plain"]),
         ("fill_idw_fused", "auvtpu/pallas/window_fill.py:230",
          launches_b["fill_idw_fused"] + launches_s["fill_idw_fused"] + launches_sv["fill_idw_fused"]
-         + launches_p["fill_idw_fused"],
+         + launches_p["fill_idw_fused"] + launches_pl["fill_idw_fused"],
          b3_err["idw"], ms["B3 idw k=8"], ms["B3 idw k=8 wrapper"], ms["B3 idw k=8 plain"]),
         ("fill_mean_fused", "auvtpu/pallas/window_fill.py:230",
          launches_b["fill_mean_fused"] + launches_s["fill_mean_fused"] + launches_l["fill_mean_fused"]
-         + launches_sv["fill_mean_fused"],
+         + launches_sv["fill_mean_fused"] + launches_pl["fill_mean_fused"] + launches_cv["fill_mean_fused"],
          b3_err["mean"], ms["B3 mean k=4"], ms["B3 mean k=4 wrapper"], ms["B3 mean k=4 plain"]),
         ("topk_idx", "auvtpu/pallas/window_fill.py:384", launches_b4["topk_idx"],
          b4_err, ms["B4 k=4"], ms["B4 k=4 wrapper"], ms["B4 k=4 plain"]),
