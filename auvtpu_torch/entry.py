@@ -60,8 +60,9 @@ def _dryrun_rank(n: int, device) -> dict:
     dev = rank_device(device)
     mesh = make_mesh(n, device=dev)
     g = tiny_masked_grid(h=16 * n, w=64, device=dev)
-    plane, vparams = sharded_fit_fill(mesh, g, max_radius=10, max_lag=10)
-    assert plane.shape == g.shape
+    sharded, vparams = sharded_fit_fill(mesh, g, max_radius=10, max_lag=10)
+    assert sharded.shape == g.shape and sharded.to_local().shape[0] == -(-g.shape[0] // n)
+    plane = sharded.full_tensor()
     assert all(bool(torch.isfinite(v)) for v in vparams)
     # the fill must predict something finite for the vast majority of gaps
     gaps = g.valid < 0.5
@@ -71,7 +72,7 @@ def _dryrun_rank(n: int, device) -> dict:
     # than the radius-10 window in either axis)
     mesh2 = make_mesh2d(device=dev)
     assert mesh2.size == n
-    plane2 = sharded_fill2d(mesh2, g, "kriging", max_radius=10)
+    plane2 = sharded_fill2d(mesh2, g, "kriging", max_radius=10).full_tensor()
     assert plane2.shape == g.shape
     assert float(torch.isfinite(plane2[gaps]).float().mean()) > 0.99
 

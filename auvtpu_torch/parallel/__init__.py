@@ -4,8 +4,9 @@ small.
 
 The port is SPMD over processes: every rank of the default process group
 calls the same function with the same arguments, holds only its own band
-or block, and gets back what the JAX function returns (a plane is gathered
-where the JAX function returns the global plane).
+or block, and gets back what the JAX function returns.  A sharded plane
+stays sharded, as JAX's global array does: a :class:`ShardedPlane` holds
+this rank's band or block, and its ``full_tensor()`` gathers the plane.
 
 - **query data parallelism**: :func:`shard_queries` splits a query batch
   over the ranks, the grid replicated (:func:`gather_queries` joins the
@@ -25,7 +26,7 @@ where the JAX function returns the global plane).
 
 from .mesh import Mesh, gather_queries, make_mesh, make_mesh2d, replicated, shard_queries
 from .mission import build_atlas_sharded, fill_page_dynamic
-from .spatial import sharded_fill, sharded_fill2d, sharded_fit_fill
+from .spatial import ShardedPlane, sharded_fill, sharded_fill2d, sharded_fit_fill
 from .streaming import ShardedStreamingInterpolator, ShardedStreamingInterpolator2D
 
 __all__ = [
@@ -37,6 +38,7 @@ __all__ = [
     "make_mesh2d",
     "replicated",
     "shard_queries",
+    "ShardedPlane",
     "sharded_fill",
     "sharded_fill2d",
     "sharded_fit_fill",

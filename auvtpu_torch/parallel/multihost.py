@@ -54,8 +54,10 @@ def global_mesh(axis: str = "dp", *, device=None):
 def fit_fill_multihost(elev_np, extent, *, max_radius: int = 10, max_lag: int = 10, n_bins: int = 10, device=None):
     """SPMD fit+fill: every process calls this with the SAME full-grid numpy
     plane (NaN gaps); each rank copies only its band to its device.
-    Returns (plane (H, W) on this rank's device, (nugget, sill, range)),
-    the same on every rank."""
+    Returns (the :class:`~.spatial.ShardedPlane` of the (H, W) plane, this
+    rank's band on its device; (nugget, sill, range), the same on every
+    rank).  ``full_tensor()`` on every rank gathers the plane, as
+    ``process_allgather`` does for the JAX package's."""
     from ..grid import RegularGrid
     from .spatial import sharded_fit_fill
 
@@ -83,7 +85,7 @@ def _child_main(argv=None):
         elev, _, _ = mask_grid(shelf_seamount(H, W), 0.2, seed=7)
         ext = Extent(0.0, float(W - 1), 0.0, float(H - 1))
         plane, vparams = fit_fill_multihost(elev, ext, max_radius=5, max_lag=5, n_bins=5, device=args.device)
-        chk = float(torch.nansum(plane.double()))
+        chk = float(torch.nansum(plane.full_tensor().double()))
         n, s, r = (float(v) for v in vparams)
         print(f"MH {n:.9g} {s:.9g} {r:.9g} {chk:.17g}", flush=True)
         print(f"rank {dist.get_rank() if joined else 0} on {rank_device(args.device)}, transport "

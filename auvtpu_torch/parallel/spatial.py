@@ -8,8 +8,12 @@ the grid, receives the halo strips from its neighbours by point-to-point
 exchange (a rank with no neighbour at a hop receives zeros: invalid cells,
 the global edge's convention, as ``ppermute`` gives), runs the unchanged
 one-device fill on the halo-extended block (B1 for kriging, B3 for idw and
-mean on a CUDA float32 block) and crops the halo off.  The planes are then
-gathered, so every rank returns the global plane, as the JAX function does.
+mean on a CUDA float32 block) and crops the halo off.  The result stays
+sharded, as the JAX function's global array does (``out_specs`` ``P("dp",
+None)`` or ``P("dy", "dx")``): a :class:`ShardedPlane` holding this rank's
+band or block, whose ``full_tensor()`` gathers the plane where a caller
+needs all of it (JAX's ``process_allgather``).  So no rank holds more than
+its share of a grid bigger than one device.
 
 - **Multi-hop halos**: a halo deeper than a block is assembled from the
   blocks up to ceil(R / blk) hops away, so blocks may be shorter than R.
@@ -130,6 +134,47 @@ def _gather_blocks(mesh: Mesh, block: torch.Tensor, n_rows: int, n_cols: int) ->
     return torch.cat(rows)[:n_rows, :n_cols]
 
 
+class ShardedPlane:
+    """An (H, W) plane split over a mesh, each rank holding its own part:
+    the row band ``[i*blk, (i+1)*blk)`` on a 1-D mesh, the block of its
+    (row, col) coordinates on a 2-D mesh, with ``blk = ceil(H / n)`` (and
+    ``ceil(W / nx)``), torch's chunk sizes; the parts past the plane's edge
+    are cropped, so the last band may be shorter, or empty.
+
+    torch's ``DTensor`` with ``Shard`` placements is the closest
+    counterpart, but its gather of CUDA local tensors over gloo (the
+    transport of ranks that share a card) crashes the process; this class
+    gathers through :func:`.mesh.all_gather`, which stages CUDA tensors
+    through the host under gloo."""
+
+    def __init__(self, mesh: Mesh, local: torch.Tensor, shape: tuple[int, int], block: tuple[int, int]):
+        self._mesh = mesh
+        self._local = local
+        self._block = block
+        self.shape = torch.Size(shape)
+
+    def to_local(self) -> torch.Tensor:
+        """This rank's band or block, on its device."""
+        return self._local
+
+    def full_tensor(self) -> torch.Tensor:
+        """The whole plane on this rank's device.  A collective: every rank
+        of the mesh calls it."""
+        (br, bc), (h, w) = self._block, self._local.shape
+        part = torch.nn.functional.pad(self._local, (0, bc - w, 0, br - h))
+        return _gather_blocks(self._mesh, part, *self.shape)
+
+
+def _own(mesh: Mesh, block: torch.Tensor, shape: tuple[int, int]) -> ShardedPlane:
+    """The ShardedPlane of this rank's filled ``block`` (its halo cropped),
+    the rows and columns past the plane dropped."""
+    H, W = shape
+    br, bc = block.shape
+    iy, ix = mesh.coords if len(mesh.shape) == 2 else (mesh.index, 0)
+    rows, cols = max(0, min(br, H - iy * br)), max(0, min(bc, W - ix * bc))
+    return ShardedPlane(mesh, block[:rows, :cols].contiguous(), shape, (br, bc))
+
+
 def _fit_1d(mesh: Mesh, axis: str, e, v, blk: int, steps, max_lag: int, n_bins: int):
     """The distributed exponential fit on row bands: each band's pair sums
     with its 'after' halo of max_lag rows (pairs count once by the
@@ -163,9 +208,10 @@ def sharded_fit_fill(mesh: Mesh, grid: RegularGrid, *, max_radius: int = 10, max
                      backend: str = "auto"):
     """The distributed fit-then-fill: fit the exponential variogram from the
     observed cells (pair sums over row bands, summed over the mesh) and
-    krige-fill the grid with the fitted parameters.  Returns (plane (H, W),
-    (nugget, sill, range)) on every rank, the plane the raw fill (observed
-    cells not kept), as ``auvtpu.parallel.sharded_fit_fill``."""
+    krige-fill the grid with the fitted parameters.  Returns (the
+    :class:`ShardedPlane` of the (H, W) raw fill (observed cells not kept),
+    (nugget, sill, range) on every rank), as
+    ``auvtpu.parallel.sharded_fit_fill``."""
     axis = _axis_1d(mesh, "sharded_fit_fill")
     n, i = mesh.size, mesh.index
     H, W = grid.shape
@@ -178,14 +224,15 @@ def sharded_fit_fill(mesh: Mesh, grid: RegularGrid, *, max_radius: int = 10, max
     be, bv = _halo_extend(e, v, R, mesh, axis)
     out = _fill_block(_like(grid, be, bv), "kriging", k=4, power=2.0, R=max_radius, row0=i * blk - R, steps=steps,
                       vparams=vparams, backend=backend)
-    return _gather_blocks(mesh, out[R:R + blk], H, W), vparams
+    return _own(mesh, out[R:R + blk], (H, W)), vparams
 
 
 def sharded_fill(mesh: Mesh, grid: RegularGrid, method: str = "idw", *, k: int = 8, power: float = 2.0,
                  max_radius: int = 10, backend: str = "auto"):
-    """Dense fill over row bands of a 1-D mesh; returns the (H, W) plane on
-    every rank.  The grid is padded with invalid rows to a multiple of the
-    mesh size; bands may be shorter than ``max_radius`` (multi-hop halos).
+    """Dense fill over row bands of a 1-D mesh; returns the
+    :class:`ShardedPlane` of the (H, W) plane, this rank's band on its
+    device.  The grid is padded with invalid rows to a multiple of the mesh
+    size; bands may be shorter than ``max_radius`` (multi-hop halos).
     ``grid`` may lie on any device: each rank copies only its band to its
     own."""
     axis = _axis_1d(mesh, "sharded_fill")
@@ -198,13 +245,14 @@ def sharded_fill(mesh: Mesh, grid: RegularGrid, method: str = "idw", *, k: int =
     be, bv = _halo_extend(e, v, R, mesh, axis)
     out = _fill_block(_like(grid, be, bv), method, k=k, power=power, R=R, row0=i * blk - R,
                       steps=(grid.lat_step, grid.lon_step), backend=backend)
-    return _gather_blocks(mesh, out[R:R + blk], H, W)
+    return _own(mesh, out[R:R + blk], (H, W))
 
 
 def sharded_fill2d(mesh: Mesh, grid: RegularGrid, method: str = "idw", *, k: int = 8, power: float = 2.0,
                    max_radius: int = 10, backend: str = "auto"):
     """Dense fill over the blocks of a 2-D (rows, cols) mesh; returns the
-    (H, W) plane on every rank.  Row halos first, then column halos of the
+    :class:`ShardedPlane` of the (H, W) plane, this rank's block on its
+    device.  Row halos first, then column halos of the
     row-extended block (the corners ride along); blocks smaller than
     ``max_radius`` in either axis take multi-hop halos.  The layout for a
     grid too wide for row bands: a block's halo grows with its perimeter."""
@@ -223,4 +271,4 @@ def sharded_fill2d(mesh: Mesh, grid: RegularGrid, method: str = "idw", *, k: int
     be, bv = _halo_extend(e2, v2, R, mesh, ax, dim=1)
     out = _fill_block(_like(grid, be, bv), method, k=k, power=power, R=R, row0=iy * blk_r - R,
                       col0=ix * blk_c - R, steps=(grid.lat_step, grid.lon_step), backend=backend)
-    return _gather_blocks(mesh, out[R:R + blk_r, R:R + blk_c].contiguous(), H, W)
+    return _own(mesh, out[R:R + blk_r, R:R + blk_c], (H, W))

@@ -10,9 +10,13 @@ parameters stay on the grid's device throughout: no value is read back to
 the host inside a loop.
 
 The fit lands in a nearly linear regime on real bathymetry, where only
-sill/range and the nugget are pinned down, so two frameworks can return
-parameters 15-21 % apart whose fitted gamma curves agree to 3e-4; compare
-fits through gamma and through the fill, never through the raw parameters.
+sill/range and the nugget are pinned down: the weighted SSE then has no
+finite minimum, and a loop walks along the sill/range ridge until its
+last-bit noise rejects a step, which depends on the device.  So
+:func:`fit_model` runs in float64 and stops where the data stop pinning
+the walk (:data:`STOP_DGAMMA`), and two fits land in one place; fits from
+another framework are compared through gamma and through the fill, never
+through the raw parameters.
 """
 
 from __future__ import annotations
@@ -307,15 +311,35 @@ def variogram_model(h, params, model: str = "exponential"):
     raise ValueError(model)
 
 
+# The walk's stop: the first kept step that moves the fitted gamma by less
+# than this (largest relative change over the bins with pairs) is the last.
+# On the Kerguelen stand-in r0.10 the ridge's steps move gamma by 1.55e-4
+# (step 7) and 8.6e-5 (step 8), against float64 noise of ~1e-10 between
+# devices, so every device stops after step 8.  A fit with a true minimum
+# stops within a few such steps of it (the damping makes the last ones
+# short): its gamma within ~1e-3.
+STOP_DGAMMA = 1e-4
+
+
 def fit_model(lags, gamma, counts, *, model: str = "exponential", iters: int = 30, init=None):
     """Weighted Gauss-Newton fit of a variogram model in log-parameter space
-    (positive by construction), Levenberg-damped, for a fixed ``iters``
+    (positive by construction), Levenberg-damped, for at most ``iters``
     steps; a step is kept only if it does not raise the weighted SSE.
     Weights are the pair counts.  ``init``: the (nugget, p1, p2) to start
-    from, else a data-driven start.  Returns (nugget, p1, p2) as 0-d tensors
-    on the device of ``gamma``."""
+    from, else a data-driven start.
+
+    The loop runs in float64 whatever the inputs' dtype, and freezes the
+    parameters after the first kept step that moves the fitted gamma by
+    less than :data:`STOP_DGAMMA` at every bin with pairs: where the SSE
+    has no finite minimum (a linear-looking gamma, the exponential's range
+    free to grow) the walk stops where the data stop pinning it, in the
+    same place on every device.  The freeze is a flag, not a break: the
+    step count is fixed and nothing is read back to the host.  Returns
+    (nugget, p1, p2) as 0-d tensors in the dtype and on the device of
+    ``gamma``."""
     dt = gamma.dtype
     dev = gamma.device
+    lags, gamma, counts = (torch.as_tensor(a, device=dev).to(torch.float64) for a in (lags, gamma, counts))
     w = counts / torch.clamp(counts.sum(), min=1.0)
     if init is None:
         # data-driven init: sill ~ max gamma, range ~ a third of max lag,
@@ -325,17 +349,23 @@ def fit_model(lags, gamma, counts, *, model: str = "exponential", iters: int = 3
         p1_0 = sill0 / maxlag if model == "linear" else sill0
         init = torch.stack([0.01 * sill0, p1_0, maxlag / 3.0])
     else:
-        init = torch.stack([torch.as_tensor(v, dtype=dt, device=dev).reshape(()) for v in init])
-    theta = torch.log(init.to(dt))
+        init = torch.stack([torch.as_tensor(v, dtype=torch.float64, device=dev).reshape(()) for v in init])
+    theta = torch.log(init)
     sw = torch.sqrt(w)
+    pairs = counts > 0
+
+    def curve(th):
+        return variogram_model(lags, torch.exp(th), model)
 
     def resid(th):
-        return (variogram_model(lags, torch.exp(th), model) - gamma) * sw
+        return (curve(th) - gamma) * sw
 
     jac = torch.func.jacfwd(resid)
-    eye = torch.eye(3, dtype=dt, device=dev)
+    eye = torch.eye(3, dtype=torch.float64, device=dev)
+    frozen = torch.zeros((), dtype=torch.bool, device=dev)
     for _ in range(iters):
-        r = resid(theta)
+        now = curve(theta)
+        r = (now - gamma) * sw
         J = jac(theta)
         A = J.T @ J
         damp = 1e-4 * torch.clamp(torch.trace(A) / 3.0, min=1e-12)
@@ -345,9 +375,12 @@ def fit_model(lags, gamma, counts, *, model: str = "exponential", iters: int = 3
         # trust region on the log step keeps early iterations stable
         delta = torch.clamp(delta, -2.0, 2.0)
         new = theta - delta
-        better = torch.sum(resid(new) ** 2) <= torch.sum(r**2)
-        theta = torch.where(better, new, theta)
-    p = torch.exp(theta)
+        nxt = curve(new)
+        keep = ~frozen & (torch.sum(((nxt - gamma) * sw) ** 2) <= torch.sum(r**2))
+        moved = torch.max(torch.where(pairs, (nxt - now).abs() / now.abs(), torch.zeros_like(now)))
+        theta = torch.where(keep, new, theta)
+        frozen = frozen | (keep & (moved < STOP_DGAMMA))
+    p = torch.exp(theta).to(dt)
     return p[0], p[1], p[2]
 
 

@@ -1,10 +1,19 @@
 """The port's kriging solve core against auvtpu.ops.scattered and the model
 zoo against auvtpu.variogram, on random systems made by numpy from a seed.
 
-Singular flags must be equal exactly; values within rtol 1e-5 (f32 exp and
-the elimination agree to a few ulps between XLA:CPU and torch).  The value
-checks use ranges comparable to the neighbour spacing, where the 5x6
-systems are well conditioned; under the reference's range of 10 degrees at
+Singular flags must be equal exactly.  The elimination alone (gj56) is the
+same f32 arithmetic in both packages and agrees bit for bit; the solves
+that build their systems from the variogram (krige_solve, krige_solve_cols)
+do not agree to a few ulps: f32 exp and sqrt are each framework's own
+approximation, and XLA:CPU's code for them depends on the host's CPU.  On
+one host (AMD EPYC) the two f32 predictions are 3.3e-5 apart (spherical)
+and each as far from the float64 solve of the same systems (port 3.7e-5,
+JAX 3.0e-5); on another the earlier bar of 1e-5 held.  So each f32 result
+is held to the float64 solve (the port's own solve on float64 tensors):
+the port no further from it than F64_FACTOR times the JAX package's f32
+result, and the two within JAX_RTOL of each other.  The value checks use
+ranges comparable to the neighbour spacing, where the 5x6 systems are
+well conditioned; under the reference's range of 10 degrees at
 0.004-degree spacing the variogram is nearly linear and a few-ulp
 difference in exp grows to ~1e-5 of the prediction, which the plane tests
 of test_torch_window_fill.py cover at their stated tolerance."""
@@ -23,6 +32,15 @@ from auvtpu_torch import variogram as tvg
 torch.set_num_threads(1)
 
 MODELS = ["exponential", "linear", "spherical", "gaussian"]
+
+# The port's f32 solve may be at most this many times as far from the
+# float64 solve (largest relative error over the non-singular rows) as the
+# JAX package's f32 solve: one bit of the f32 result.  Measured 0.96-1.22x.
+F64_FACTOR = 2.0
+# Port against JAX, relative: 3x the largest spread measured between the two
+# f32 solves (3.3e-5 prediction, 3.5e-5 variance; AMD EPYC, XLA:CPU), each
+# of which is up to 5.7e-5 from the float64 solve.
+JAX_RTOL = 1e-4
 
 
 def _systems(n=512, seed=5):
@@ -75,17 +93,34 @@ def test_variogram_matches():
     np.testing.assert_allclose(got, want, rtol=1e-6, atol=1e-5)
 
 
+def _rel_err(x, ref) -> float:
+    x, ref = np.asarray(x, np.float64), np.asarray(ref, np.float64)
+    return float(np.max(np.abs(x - ref) / np.abs(ref)))
+
+
+def _held_to_f64(got, want, f64, what: str, atol: float = 0.0) -> None:
+    """The port's f32 values ``got`` against the JAX package's ``want`` and
+    the float64 solve ``f64`` of the same systems (rows already taken)."""
+    port, jax_ = _rel_err(got, f64), _rel_err(want, f64)
+    assert port <= F64_FACTOR * jax_, f"{what}: port {port:.3g} from float64, JAX {jax_:.3g}"
+    np.testing.assert_allclose(got, want, rtol=JAX_RTOL, atol=atol, err_msg=what)
+
+
+def _cols(a, dtype):
+    return [torch.from_numpy(a[:, i]).to(dtype) for i in range(4)]
+
+
 @pytest.mark.parametrize("with_variance", [False, True])
 @pytest.mark.parametrize("model", ["exponential", "spherical"])
 def test_krige_solve_cols_matches(model, with_variance):
     qlon, qlat, vals, cx, cy, dup = _systems()
     vp = (1.0, 100.0, 0.02) if model == "exponential" else (0.5, 120.0, 0.02)
-    got = tsc.krige_solve_cols(
-        torch.from_numpy(qlon), torch.from_numpy(qlat),
-        [torch.from_numpy(vals[:, a]) for a in range(4)],
-        [torch.from_numpy(cx[:, a]) for a in range(4)],
-        [torch.from_numpy(cy[:, a]) for a in range(4)],
-        vparams=vp, model=model, with_variance=with_variance,
+    got, f64 = (
+        tsc.krige_solve_cols(
+            torch.from_numpy(qlon).to(dt), torch.from_numpy(qlat).to(dt), _cols(vals, dt), _cols(cx, dt),
+            _cols(cy, dt), vparams=vp, model=model, with_variance=with_variance,
+        )
+        for dt in (torch.float32, torch.float64)
     )
     want = jsc.krige_solve_cols(
         jnp.asarray(qlon), jnp.asarray(qlat),
@@ -94,26 +129,26 @@ def test_krige_solve_cols_matches(model, with_variance):
         [jnp.asarray(cy[:, a]) for a in range(4)],
         vparams=vp, model=model, with_variance=with_variance,
     )
-    assert len(got) == len(want) == (3 if with_variance else 2)
+    assert len(got) == len(want) == len(f64) == (3 if with_variance else 2)
     sing = got[1].numpy()
     np.testing.assert_array_equal(sing, np.asarray(want[1]))
     assert sing[dup].all() and not sing[~dup].all()
     ok = ~sing
-    np.testing.assert_allclose(got[0].numpy()[ok], np.asarray(want[0])[ok], rtol=1e-5)
+    _held_to_f64(got[0].numpy()[ok], np.asarray(want[0])[ok], f64[0].numpy()[ok], "prediction")
     if with_variance:
-        np.testing.assert_allclose(got[2].numpy()[ok], np.asarray(want[2])[ok], rtol=1e-5, atol=1e-5)
+        _held_to_f64(got[2].numpy()[ok], np.asarray(want[2])[ok], f64[2].numpy()[ok], "variance", atol=1e-5)
         assert (got[2].numpy()[ok] >= 0).all()
 
 
 def test_krige_solve_matches():
     qlon, qlat, vals, cx, cy, _ = _systems(n=300, seed=8)
-    t = [torch.from_numpy(a) for a in (qlon, qlat, vals, cx, cy)]
     vp = (1.0, 100.0, 0.03)
-    pred, sing = tsc.krige_solve(*t, vparams=vp)
+    pred, sing = tsc.krige_solve(*(torch.from_numpy(a) for a in (qlon, qlat, vals, cx, cy)), vparams=vp)
+    pred64, _ = tsc.krige_solve(*(torch.from_numpy(a).double() for a in (qlon, qlat, vals, cx, cy)), vparams=vp)
     jpred, jsing = jsc.krige_solve(*(jnp.asarray(a) for a in (qlon, qlat, vals, cx, cy)), vparams=vp)
     np.testing.assert_array_equal(sing.numpy(), np.asarray(jsing))
     ok = ~sing.numpy()
-    np.testing.assert_allclose(pred.numpy()[ok], np.asarray(jpred)[ok], rtol=1e-5)
+    _held_to_f64(pred.numpy()[ok], np.asarray(jpred)[ok], pred64.numpy()[ok], "prediction")
 
 
 def test_gj56_matches_on_random_systems():

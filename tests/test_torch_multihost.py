@@ -125,7 +125,9 @@ def test_two_processes_against_one_process(two_ranks):
     # process's: the same fit, and (the printed parameters are float32
     # exactly, 9 digits) the same plane
     np.testing.assert_array_equal(np.float32(got[:3]), np.float32([float(v) for v in vp]))
-    assert got[3] == float(torch.nansum(plane.double()))
+    # one process holds the whole plane as its one band
+    assert plane.to_local().shape == plane.shape == (H, W)
+    assert got[3] == float(torch.nansum(plane.full_tensor().double()))
     g = RegularGrid.from_nan_array(elev, ext, device="cpu")
     aligned = fill_kriging(g, max_radius=5, vparams=tuple(torch.tensor(v, dtype=torch.float32) for v in got[:3]))
     assert float(torch.nansum(aligned.double())) == got[3]

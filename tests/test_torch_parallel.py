@@ -2,7 +2,9 @@
 on the CPU, held two ways:
 
 - bit for bit against the port's one-device result: the sharded fills, the
-  2-D fills, the query shards and the sharded atlas;
+  2-D fills, the query shards and the sharded atlas; a sharded fill keeps
+  each rank's band or block (``to_local()``, torch's chunk sizes, the last
+  band cropped) and ``full_tensor()`` gathers the plane;
 - against the JAX package's sharded functions on the 8-device virtual mesh
   (tests/conftest.py) at the bars of the port's one-device tests of the
   same fills: idw and mean rtol 1e-5 / atol 1e-3
@@ -45,12 +47,14 @@ GRIDS = {
     "short16": (16, 64, 0.3, 12),    # bands of 4 rows under a radius-10 halo
     "sweep93": (93, 47, 0.12, 9),    # the mesh-size sweep
     "small15": (15, 13, 0.15, 10),   # 2-D blocks under the radius in both axes
+    "tiny9": (9, 13, 0.2, 13),       # four bands of 3 rows: the last one empty
 }
 CASES_1D = [("g96", m, 4) for m in ("idw", "window_mean", "kriging")] + [
     ("pad91", "idw", 4), ("short16", "idw", 4), ("short16", "kriging", 4),
     ("sweep93", "kriging", 2), ("sweep93", "kriging", 4),
 ]
 CASES_2D = [("g96", m) for m in ("idw", "window_mean", "kriging")] + [("small15", "kriging")]
+BAND_ONLY_1D = [("tiny9", "idw", 4)]
 
 
 def _grid(name, device="cpu"):
@@ -89,10 +93,11 @@ def _scenarios():
     out = {}
     meshes = {n: make_mesh(n, device="cpu") for n in (2, N_RANKS)}
     out["replicated"] = replicated(meshes[N_RANKS], np.full(3, float(meshes[N_RANKS].index))).tolist()
-    for name, method, n in CASES_1D:
+    for name, method, n in CASES_1D + BAND_ONLY_1D:
         if meshes[n].member:
-            out[("1d", name, method, n)] = sharded_fill(meshes[n], _grid(name), method, max_radius=10,
-                                                        **KW[method]).numpy()
+            p = sharded_fill(meshes[n], _grid(name), method, max_radius=10, **KW[method])
+            out[("1d", name, method, n)] = p.full_tensor().numpy()
+            out[("1d local", name, method, n)] = (tuple(p.shape), p.to_local().numpy())
     if not meshes[2].member:
         try:
             sharded_fill(meshes[2], _grid("g96"), "idw")
@@ -101,9 +106,12 @@ def _scenarios():
     mesh2 = make_mesh2d((2, 2), device="cpu")
     out["mesh2 coords"] = mesh2.coords
     for name, method in CASES_2D:
-        out[("2d", name, method)] = sharded_fill2d(mesh2, _grid(name), method, max_radius=10, **KW[method]).numpy()
+        p = sharded_fill2d(mesh2, _grid(name), method, max_radius=10, **KW[method])
+        out[("2d", name, method)] = p.full_tensor().numpy()
+        out[("2d local", name, method)] = (tuple(p.shape), p.to_local().numpy())
     plane, vp = sharded_fit_fill(meshes[N_RANKS], _grid("g96"), max_radius=5)
-    out["fit_fill"] = (plane.numpy(), [float(v) for v in vp])
+    out["fit_fill"] = (plane.full_tensor().numpy(), [float(v) for v in vp])
+    out[("fit_fill local",)] = (tuple(plane.shape), plane.to_local().numpy())
     lons, lats = _queries()
     (slon, slat), n_valid = shard_queries(meshes[N_RANKS], lons, lats)
     out["queries local"] = slon.shape[0]
@@ -156,7 +164,7 @@ def _jax_grid(name):
 
 def test_every_rank_returns_the_same_planes(ranks):
     for r in ranks[1:]:
-        for key in [k for k in ranks[0] if isinstance(k, tuple) and k in r]:
+        for key in [k for k in ranks[0] if isinstance(k, tuple) and k in r and "local" not in k[0]]:
             _same(r[key], ranks[0][key])
         _same(r["fit_fill"][0], ranks[0]["fit_fill"][0])
         assert r["fit_fill"][1] == ranks[0]["fit_fill"][1]
@@ -179,6 +187,37 @@ def test_sharded_fill_bit_equal_to_one_device(ranks, name, method, n):
 @pytest.mark.parametrize("name,method", CASES_2D)
 def test_sharded_fill2d_bit_equal_to_one_device(ranks, name, method):
     _same(ranks[0][("2d", name, method)], _one_device(method, _grid(name)))
+
+
+def _own_part(plane, index, n_rows, n_cols=1):
+    """The part of ``plane`` that mesh member ``index`` of an (n_rows,
+    n_cols) mesh holds: ceil-sized bands and blocks, cropped at the edge."""
+    H, W = plane.shape
+    br, bc = -(-H // n_rows), -(-W // n_cols)
+    iy, ix = divmod(index, n_cols)
+    return plane[iy * br:(iy + 1) * br, ix * bc:(ix + 1) * bc]
+
+
+@pytest.mark.parametrize("case", [("1d local", *c) for c in CASES_1D + BAND_ONLY_1D] + [
+    ("2d local", *c) for c in CASES_2D] + [("fit_fill local",)], ids=lambda c: "-".join(map(str, c)))
+def test_each_rank_holds_only_its_band(ranks, case):
+    mesh_shape = (2, 2) if case[0] == "2d local" else (case[3] if case[0] == "1d local" else N_RANKS, 1)
+    name = case[1] if len(case) > 1 else "g96"
+    if case[0] == "fit_fill local":
+        from auvtpu_torch.ops import fill_kriging
+
+        whole = fill_kriging(_grid(name), max_radius=5, vparams=tuple(ranks[0]["fit_fill"][1])).numpy()
+    else:
+        whole = _one_device(case[2], _grid(name))
+    held = [r[case] for r in ranks if case in r]
+    assert len(held) == mesh_shape[0] * mesh_shape[1]
+    for index, (shape, local) in enumerate(held):
+        assert shape == whole.shape
+        want = _own_part(whole, index, *mesh_shape)
+        assert local.shape == want.shape and local.shape[0] <= -(-whole.shape[0] // mesh_shape[0])
+        _same(local, want)
+    if case[1:2] == ("tiny9",):
+        assert [local.shape[0] for _, local in held] == [3, 3, 3, 0]
 
 
 @pytest.mark.parametrize("name,method,n", [c for c in CASES_1D if c[0] != "sweep93" or c[2] == 4])
@@ -317,8 +356,8 @@ def test_one_rank_mesh_needs_no_process_group():
     want = _one_device("kriging", g)
     mesh, mesh2 = make_mesh(device="cpu"), make_mesh2d(device="cpu")
     assert (mesh.shape, mesh2.shape, mesh.transport) == ((1,), (1, 1), "none")
-    _same(sharded_fill(mesh, g, "kriging").numpy(), want)
-    _same(sharded_fill2d(mesh2, g, "kriging").numpy(), want)
+    _same(sharded_fill(mesh, g, "kriging").full_tensor().numpy(), want)
+    _same(sharded_fill2d(mesh2, g, "kriging").to_local().numpy(), want)
 
 
 def test_pair_sums_2d_matches_jax_and_counts_each_pair_once():
