@@ -12,7 +12,11 @@ the device's implementation):
   mean);
 - ``auvtpu_torch::window_select`` (B7, ``csrc/scattered_select.cu``
   ``window_select_kernel``);
-- ``auvtpu_torch::band_resample`` (B8, ``csrc/band_resample.cu``).
+- ``auvtpu_torch::band_resample`` (B8, ``csrc/band_resample.cu``);
+- ``auvtpu_torch::pair_sums`` (B9, ``csrc/variogram.cu``, the binned
+  variogram pair sums) and ``auvtpu_torch::fit_model`` (B10, the
+  Gauss-Newton variogram fit), so a fit-then-fill runs through the
+  dispatcher as a fill does.
 
 Each op takes tensors and python scalars only: a grid is unpacked into its
 ``elev`` and ``valid`` planes with its extent as floats, the variogram is
@@ -21,9 +25,9 @@ is a list of floats the wrapper works out before the call.  Its ``CUDA``
 implementation is the ctypes launch (with the launch count, the checks and
 the errors it always had), its ``CPU`` implementation the kernel's plain
 version, and its fake implementation gives the output's shape and dtype for
-tracing.  The wrappers in :mod:`.window_fill`, :mod:`.scattered_select` and
-:mod:`.band_resample` call these ops, so a live call and an exported
-program take one route.  B2, B4, B5 and B6 stay ctypes calls: no exported
+tracing.  The wrappers in :mod:`.window_fill`, :mod:`.scattered_select`,
+:mod:`.band_resample` and :mod:`.variogram` call these ops, so a live call
+and an exported program take one route.  B2, B4, B5 and B6 stay ctypes calls: no exported
 path launches them.
 
 Importing this module registers the ops and builds nothing; a program
@@ -226,3 +230,65 @@ band_resample = _op(
     "band_resample(Tensor planes, Tensor? vmasks, Tensor? origins, Tensor x, Tensor y, int chunk, int wr, "
     "int wc, bool pick, bool aligned, bool hat, float[] affine) -> (Tensor, Tensor)",
     cpu=_resample_cpu, cuda=_resample_cuda, fake=_resample_fake)
+
+
+# ---------------------------------------------------------------------------
+# B9: binned float64 pair sums, (2, n_out) (sums, counts), of the base block
+# elev[:n_rows, col0:col0 + n_cols] against its partners at the grouped
+# offset table's (dy, dx) (variogram.grouped_table)
+# ---------------------------------------------------------------------------
+
+def _pair_sums_cpu(elev, valid, table, n_rows, n_cols, col0, max_lag, n_out):
+    from .variogram import pair_sums_ref, split_table
+
+    s, c = pair_sums_ref(elev, valid, n_rows, n_cols, col0, *split_table(table, n_out), n_out, max_lag)
+    return torch.stack([s, c])
+
+
+def _pair_sums_cuda(elev, valid, table, n_rows, n_cols, col0, max_lag, n_out):
+    from .variogram import pair_sums_launch
+
+    return pair_sums_launch(elev, valid, table, n_rows, n_cols, col0, max_lag, n_out)
+
+
+def _pair_sums_fake(elev, valid, table, n_rows, n_cols, col0, max_lag, n_out):
+    return elev.new_empty((2, n_out), dtype=torch.float64)
+
+
+pair_sums = _op(
+    "pair_sums(Tensor elev, Tensor valid, Tensor table, int n_rows, int n_cols, int col0, int max_lag, "
+    "int n_out) -> Tensor",
+    cpu=_pair_sums_cpu, cuda=_pair_sums_cuda, fake=_pair_sums_fake)
+
+
+# ---------------------------------------------------------------------------
+# B10: the float64 Gauss-Newton variogram fit: ((3,) (nugget, p1, p2) in
+# gamma's dtype, (iters, 2) int8 per-step (kept, frozen)); init None (the
+# data-driven start) or (3,) float64
+# ---------------------------------------------------------------------------
+
+def _fit_cpu(lags, gamma, counts, init, model, iters, stop):
+    from .variogram import fit_model_ref
+
+    record = []
+    p = fit_model_ref(lags, gamma, counts, model=model, iters=iters, init=None if init is None else init.unbind(),
+                      stop=stop, record=record)
+    flags = (torch.stack([torch.stack(kf) for kf in record]).to(torch.int8) if record
+             else torch.empty((0, 2), dtype=torch.int8))
+    return torch.stack(p), flags
+
+
+def _fit_cuda(lags, gamma, counts, init, model, iters, stop):
+    from .variogram import fit_launch
+
+    return fit_launch(lags, gamma, counts, init, model, iters, stop)
+
+
+def _fit_fake(lags, gamma, counts, init, model, iters, stop):
+    return gamma.new_empty(3), gamma.new_empty((iters, 2), dtype=torch.int8)
+
+
+fit_model = _op(
+    "fit_model(Tensor lags, Tensor gamma, Tensor counts, Tensor? init, str model, int iters, float stop) "
+    "-> (Tensor, Tensor)",
+    cpu=_fit_cpu, cuda=_fit_cuda, fake=_fit_fake)

@@ -7,7 +7,9 @@ iteration count.  :func:`empirical_variogram_directional` bins the same pair
 sums by (azimuth sector, lag) and :func:`fit_anisotropic` fits an ellipse
 (nugget, sill, rx, ry, theta) to them by Levenberg-Marquardt.  The
 parameters stay on the grid's device throughout: no value is read back to
-the host inside a loop.
+the host inside a loop.  On the card the pair sums are one call of B9 and
+the Gauss-Newton loop one launch of B10 (:mod:`auvtpu_torch.kernels.variogram`,
+``csrc/variogram.cu``); on the CPU they run the kernels' plain twins.
 
 The fit lands in a nearly linear regime on real bathymetry, where only
 sill/range and the nugget are pinned down: the weighted SSE then has no
@@ -25,9 +27,9 @@ from functools import lru_cache
 
 import numpy as np
 import torch
-import torch.nn.functional as F
 
 from .grid import RegularGrid, divisor
+from .kernels import variogram as kv
 
 
 @lru_cache(maxsize=8)
@@ -58,45 +60,16 @@ def _bin_table(max_lag: int, n_bins: int):
     return dys, dxs, bin_of, centers
 
 
-def _pair_sums_binned(elev, valid, n_base_rows: int, dys, dxs, bin_of, n_out: int, max_lag: int):
-    """Pair accumulator over an offset -> bin table: base cells are the first
-    ``n_base_rows`` rows; offsets add into their bins in table order.
-    Returns float64 sums (see :func:`_binned_sums`)."""
-    H = n_base_rows
-    W = elev.shape[1]
-    R = max_lag
-    pe = F.pad(elev, (R, R))
-    pv = F.pad(valid, (R, R))
-    return _binned_sums(elev[:H], valid[:H], lambda dy, dx: (pe[dy:dy + H, R + dx:R + dx + W],
-                                                            pv[dy:dy + H, R + dx:R + dx + W]),
-                        dys, dxs, bin_of, n_out)
-
-
-def _binned_sums(base_e, base_v, shifted, dys, dxs, bin_of, n_out: int):
-    """The pair sums of the base cells against ``shifted(dy, dx)``'s planes.
-    The squared differences are taken in the planes' dtype and summed in
-    float64: the pair counts are exact (a float32 count stops at 2**24) and
-    the sums, rounded once by the caller, do not depend on how a grid is
-    split into blocks, so a sharded fit sums what the one-device fit
-    sums."""
-    s = torch.zeros(n_out, dtype=torch.float64, device=base_e.device)
-    c = torch.zeros(n_out, dtype=torch.float64, device=base_e.device)
-    for dy, dx, b in zip(dys.tolist(), dxs.tolist(), bin_of.tolist()):
-        zv, mv = shifted(dy, dx)
-        both = base_v * mv
-        d = (base_e - zv) * both
-        s[b] += torch.sum(d * d, dtype=torch.float64)
-        c[b] += torch.sum(both, dtype=torch.float64)
-    return s, c
-
-
 def pair_sums(elev, valid, n_base_rows: int, *, max_lag: int = 10, n_bins: int = 10):
     """Binned (sum of squared differences, pair counts) with base cells in the
     first ``n_base_rows`` rows of ``elev``/``valid`` ((n_base_rows + max_lag,
-    W) planes) and half-plane offsets, so every pair counts once.  The sums
-    are float64: a caller rounds them once, after adding any blocks' sums."""
+    W) planes; partners below the plane or past its columns read as zero)
+    and half-plane offsets, so every pair counts once.  The sums are
+    float64 (squared differences in the planes' dtype, counts exact): a
+    caller rounds them once, after adding any blocks' sums.  On the card:
+    B9 (:func:`auvtpu_torch.kernels.variogram.pair_sums`)."""
     dys, dxs, bin_of, _ = _bin_table(max_lag, n_bins)
-    return _pair_sums_binned(elev, valid, n_base_rows, dys, dxs, bin_of, n_bins, max_lag)
+    return kv.pair_sums(elev, valid, n_base_rows, elev.shape[1], 0, dys, dxs, bin_of, n_bins, max_lag)
 
 
 def pair_sums_2d(elev, valid, n_base_rows: int, n_base_cols: int, *, max_lag: int = 10, n_bins: int = 10):
@@ -113,10 +86,7 @@ def pair_sums_2d(elev, valid, n_base_rows: int, n_base_cols: int, *, max_lag: in
     block owning a pair's first point counts it, so every pair counts once
     over the mesh.  The sums are float64, as :func:`pair_sums`'s."""
     dys, dxs, bin_of, _ = _bin_table(max_lag, n_bins)
-    H, Wb, R = n_base_rows, n_base_cols, max_lag
-    return _binned_sums(elev[:H, R:R + Wb], valid[:H, R:R + Wb],
-                        lambda dy, dx: (elev[dy:dy + H, R + dx:R + dx + Wb], valid[dy:dy + H, R + dx:R + dx + Wb]),
-                        dys, dxs, bin_of, n_bins)
+    return kv.pair_sums(elev, valid, n_base_rows, n_base_cols, max_lag, dys, dxs, bin_of, n_bins, max_lag)
 
 
 def empirical_variogram(grid: RegularGrid, *, max_lag: int = 10, n_bins: int = 10):
@@ -125,11 +95,7 @@ def empirical_variogram(grid: RegularGrid, *, max_lag: int = 10, n_bins: int = 1
     Returns (lag_centers (n_bins,), gamma (n_bins,), counts (n_bins,)) on the
     grid's device, lags in index space; gamma(h) = sum (z_i - z_j)^2 / (2 N_h).
     """
-    H, W = grid.shape
-    R = max_lag
-    elev = F.pad(grid.elev, (0, 0, 0, R))
-    valid = F.pad(grid.valid, (0, 0, 0, R))
-    s, c = pair_sums(elev, valid, H, max_lag=max_lag, n_bins=n_bins)
+    s, c = pair_sums(grid.elev, grid.valid, grid.shape[0], max_lag=max_lag, n_bins=n_bins)
     s, c = s.to(grid.dtype), c.to(grid.dtype)
     gamma = torch.where(c > 0, s / (2.0 * torch.clamp(c, min=1.0)), torch.zeros_like(s))
     _, _, _, centers = _bin_table(max_lag, n_bins)
@@ -170,12 +136,9 @@ def empirical_variogram_directional(grid: RegularGrid, *, max_lag: int = 10, n_b
     lags in lon-step units under the physical ``aspect`` = lat_step/lon_step
     (1.0 = index space).  :func:`empirical_variogram` is its n_sectors=1
     marginal."""
-    H, W = grid.shape
-    R = max_lag
     dys, dxs, flat, centers, angles = _sector_bin_table(max_lag, n_bins, n_sectors, aspect)
-    elev = F.pad(grid.elev, (0, 0, 0, R))
-    valid = F.pad(grid.valid, (0, 0, 0, R))
-    s, c = _pair_sums_binned(elev, valid, H, dys, dxs, flat, n_sectors * n_bins, R)
+    H, W = grid.shape
+    s, c = kv.pair_sums(grid.elev, grid.valid, H, W, 0, dys, dxs, flat, n_sectors * n_bins, max_lag)
     s = s.to(grid.dtype).reshape(n_sectors, n_bins)
     c = c.to(grid.dtype).reshape(n_sectors, n_bins)
     gamma = torch.where(c > 0, s / (2.0 * torch.clamp(c, min=1.0)), torch.zeros_like(s))
@@ -337,51 +300,7 @@ def fit_model(lags, gamma, counts, *, model: str = "exponential", iters: int = 3
     step count is fixed and nothing is read back to the host.  Returns
     (nugget, p1, p2) as 0-d tensors in the dtype and on the device of
     ``gamma``."""
-    dt = gamma.dtype
-    dev = gamma.device
-    lags, gamma, counts = (torch.as_tensor(a, device=dev).to(torch.float64) for a in (lags, gamma, counts))
-    w = counts / torch.clamp(counts.sum(), min=1.0)
-    if init is None:
-        # data-driven init: sill ~ max gamma, range ~ a third of max lag,
-        # nugget ~ 1% of sill
-        sill0 = torch.clamp(torch.max(gamma), min=1e-3)
-        maxlag = torch.clamp(torch.max(lags), min=1e-9)
-        p1_0 = sill0 / maxlag if model == "linear" else sill0
-        init = torch.stack([0.01 * sill0, p1_0, maxlag / 3.0])
-    else:
-        init = torch.stack([torch.as_tensor(v, dtype=torch.float64, device=dev).reshape(()) for v in init])
-    theta = torch.log(init)
-    sw = torch.sqrt(w)
-    pairs = counts > 0
-
-    def curve(th):
-        return variogram_model(lags, torch.exp(th), model)
-
-    def resid(th):
-        return (curve(th) - gamma) * sw
-
-    jac = torch.func.jacfwd(resid)
-    eye = torch.eye(3, dtype=torch.float64, device=dev)
-    frozen = torch.zeros((), dtype=torch.bool, device=dev)
-    for _ in range(iters):
-        now = curve(theta)
-        r = (now - gamma) * sw
-        J = jac(theta)
-        A = J.T @ J
-        damp = 1e-4 * torch.clamp(torch.trace(A) / 3.0, min=1e-12)
-        g = J.T @ r
-        # solve_ex: no error check, so no device-to-host sync in the loop
-        delta, _ = torch.linalg.solve_ex(A + damp * eye, g)
-        # trust region on the log step keeps early iterations stable
-        delta = torch.clamp(delta, -2.0, 2.0)
-        new = theta - delta
-        nxt = curve(new)
-        keep = ~frozen & (torch.sum(((nxt - gamma) * sw) ** 2) <= torch.sum(r**2))
-        moved = torch.max(torch.where(pairs, (nxt - now).abs() / now.abs(), torch.zeros_like(now)))
-        theta = torch.where(keep, new, theta)
-        frozen = frozen | (keep & (moved < STOP_DGAMMA))
-    p = torch.exp(theta).to(dt)
-    return p[0], p[1], p[2]
+    return kv.fit_model(lags, gamma, counts, model=model, iters=iters, init=init, stop=STOP_DGAMMA)
 
 
 def fit_exponential(lags, gamma, counts, *, iters: int = 30, init=None):

@@ -8,7 +8,8 @@ Drives the port's main paths on the 2053x2441 Kerguelen stand-in (10 % or
 streaming mosaic and scattered queries on the 3200x4000 Grid A, in phases:
 
 1. device   torch sees a CUDA card; its name and power limit; TF32 off
-2. build    nvcc builds the kernels from csrc/ (seconds, ptxas registers)
+2. build    nvcc builds the kernels from csrc/, one nvcc a source, all
+            started together (seconds, ptxas registers)
 3. B2       selection kernel vs its plain torch version: exactly equal at
             the bench workload and on a 1024x2048 window view of the
             stand-in read in place (k=4 R=10, k=16 R=5); a call is one
@@ -24,17 +25,29 @@ streaming mosaic and scattered queries on the 3200x4000 Grid A, in phases:
             the masked cells: RMSE within 5.7149 +- 2e-3 m
 6. entry    entry.fit_fill: fitted parameters finite and positive, > 99 %
             of masked cells finite, RMSE within 5.7156 +- 2e-3 m.  The launch
-            counts, zeroed before phase 5, must show both kernels ran.  B1
+            counts, zeroed before phase 5, must show B1 and B2 ran; zeroed
+            just before fit_fill and read just after it, one B9 (pair sums),
+            one B10 (the fit) and one B1 launch and nothing else.  B1
             vs plain again under the fitted parameters (bit for bit; read on
             the device: one launch, no copy).  ROADMAP C1: the package's
             fit (fit_variogram, a float64 loop with a stop) lands on the
             card within 1e-6 relative of the host's landing, its gamma at
             the bins with pairs within 3e-4 of the JAX package's landing;
-            the float64 plane's RMSE under it printed, not gated
+            the float64 plane's RMSE under it printed, not gated.  B9 vs
+            its plain twin on the stand-in read in place, as the whole grid,
+            a 1024-row band with its 10 rows below and a 1024x1024 block
+            inside its halo-extended block, with the 10 lag and the 40
+            (sector, lag) bins: counts equal, sums within 1e-12 relative and
+            equal once rounded to f32, a second call bit-equal.  B10 vs the
+            plain float64 loop under the stand-in's gamma, every model, 25
+            steps: landing within 1e-9 relative, per-step (kept, frozen)
+            flags equal
 7. timing   CUDA events, 3 warm-up calls then the median of 20, kernels and
             plain versions side by side; B1 and B2 alone by their device
             duration, back to back and cold, and B2's call by the device
-            duration of all its records
+            duration of all its records; B9 and B10 alone (device duration),
+            their wrappers and plain twins beside the pair sums, the fit and
+            fit_fill (events and device-busy)
 8. B3, B4   the IDW/mean fill kernel vs its plain version at the stand-in
             r0.20 (IDW k=8, mean k=4), on the 256x320 grid (both
             conventions, R 5 and 10) and on window views of the stand-in
@@ -56,7 +69,7 @@ streaming mosaic and scattered queries on the 3200x4000 Grid A, in phases:
             JAX package's, window RMSEs within 1e-3 m, fused windows vs
             backend "torch" at the B3/B1 bars, the fitted variogram and the
             uncertainty window; launch counts zeroed before the phase show
-            B1 and B3 ran
+            B1, B3, B9 and B10 (the streaming fit) ran
 11. timing  the idw and mean window refresh is one B3 launch (launch counts,
             and the profiler's device kernels of one refresh); B3 alone
             by its device duration (profiler kernel records) back to back
@@ -186,7 +199,7 @@ streaming mosaic and scattered queries on the 3200x4000 Grid A, in phases:
             over the ranks, bit-equal to build_atlas, and AtlasResampler
             over it at 5M pings (B8) equal to over build_atlas.  Launch
             counts zeroed just before each sharded call and read just after
-            it must show B1, B3 and B8 on every rank, and every rank's
+            it must show B1, B3, B8, B9 and B10 on every rank, and every rank's
             profiler B1, B3 and B8 records of its block fills and resample;
             per rank the block fills' device ms, the halo exchange and
             gather ms, and each path's wall against one device.  A sharded
@@ -275,14 +288,20 @@ STREAM_LAST = ((3840, 3840), 52_190, 0.298887)  # window at the last position, I
 STREAM_VAR_FINITE = 65_335
 STREAM_TOL = 1e-3
 
-# H100 SXM peaks for bounds (NVIDIA data sheet): HBM bytes/s, f32 FLOP/s
-# outside the tensor cores
+# H100 SXM peaks for bounds (NVIDIA data sheet): HBM bytes/s, f32 and f64
+# FLOP/s outside the tensor cores
 HBM_BPS = 3.35e12
 F32_FLOPS = 67e12
+F64_FLOPS = 34e12  # outside the tensor cores
 # f32 operations of B1's solve per cell: 10 gammas (~11 each), slot
 # coordinates (~32), the 5x6 Gauss-Jordan (180), prediction and variance
 # (~20); sqrt, exp and divide counted as one each
 B1_SOLVE_OPS = 340
+# f64 operations of B10 (exponential): ~53 a bin a step (the curve, its
+# Jacobian row, the normal-equation sums, the candidate's curve, SSE and
+# gamma move) and ~100 a step (six exps, the damped 3x3 LU solve, the clip,
+# the warp sums); exp and divide counted as one each
+B10_BIN_OPS, B10_STEP_OPS = 53, 100
 
 # fitted-scale parameters per model for the small-grid sweep (unit steps)
 MODEL_VPARAMS = {
@@ -294,7 +313,7 @@ MODEL_VPARAMS = {
 
 
 # Scattered serving (phases 12-14)
-SOURCES = ("window_fill", "scattered_select", "band_resample")  # csrc/<name>.cu, built together
+SOURCES = ("window_fill", "scattered_select", "band_resample", "variogram")  # csrc/<name>.cu, built together
 N_SCATTER = 1_000_000
 SCATTER_RTOL, SCATTER_ATOL = 1e-5, 1e-4  # kernel paths vs torch (tests/test_pallas.py:300)
 TT_BARS = {"kriging": (1e-4, 0.1), "idw": (1e-4, 0.05)}  # two-tier vs torch (tests/test_packs.py:116-120)
@@ -716,6 +735,57 @@ def b2_launcher(grid, k: int = 4, R: int = 10, lib=None):
     return launch
 
 
+def b9_launcher(grid, R: int = 10, n_bins: int = 10, lib=None):
+    """A closure launching B9 on the whole of ``grid`` (the isotropic lag
+    bins of empirical_variogram) straight through its library (``lib``, or
+    the checkout's), table, scratch and output made once (the kernel
+    alone: its tile and finish kernels)."""
+    import torch
+
+    from auvtpu_torch.kernels import variogram as kv
+    from auvtpu_torch.variogram import _bin_table
+
+    H, W = grid.shape
+    dev = grid.device
+    dys, dxs, bins, _ = _bin_table(R, n_bins)
+    table = torch.from_numpy(kv.grouped_table(dys, dxs, bins, n_bins)).to(dev)
+    partials = torch.empty((-(-H // kv.TILE) * -(-W // kv.TILE), n_bins, 2), dtype=torch.float64, device=dev)
+    out = torch.empty((2, n_bins), dtype=torch.float64, device=dev)
+    lib, stream = lib or kv._lib(), kv._stream(dev)
+
+    def launch():
+        err = lib.auvtpu_pair_sums(grid.elev.data_ptr(), grid.elev.stride(0), grid.valid.data_ptr(),
+                                   grid.valid.stride(0), 0, H, W, H, W, 0, R, table.data_ptr(), len(dys), n_bins,
+                                   partials.data_ptr(), out.data_ptr(), stream)
+        if err:
+            raise RuntimeError(f"B9 launch failed ({err})")
+
+    return launch
+
+
+def b10_launcher(lags, gamma, counts, iters: int = 25, lib=None):
+    """A closure launching B10 (exponential, the data-driven start) on
+    float32 (lags, gamma, counts) straight through its library (``lib``,
+    or the checkout's), outputs allocated once (the kernel alone)."""
+    import torch
+
+    from auvtpu_torch.kernels import variogram as kv
+    from auvtpu_torch.variogram import STOP_DGAMMA
+
+    dev = gamma.device
+    out = torch.empty(3, dtype=torch.float32, device=dev)
+    flags = torch.empty((iters, 2), dtype=torch.int8, device=dev)
+    lib, stream = lib or kv._lib(), kv._stream(dev)
+
+    def launch():
+        err = lib.auvtpu_fit_model(lags.data_ptr(), 0, gamma.data_ptr(), 0, counts.data_ptr(), 0, gamma.numel(), None,
+                                   0, iters, STOP_DGAMMA, out.data_ptr(), 0, flags.data_ptr(), stream)
+        if err:
+            raise RuntimeError(f"B10 launch failed ({err})")
+
+    return launch
+
+
 def b7_launcher(pack, P: int, cell, fx, fy, tab, k: int, half: float = 0.5, lib=None):
     """A closure launching B7 straight through its library (``lib``, or the
     checkout's) on these inputs, output allocated once (the kernel alone)."""
@@ -787,10 +857,12 @@ def odd_queries(ext, H: int, W: int, device):
             torch.tensor(lats, dtype=torch.float32, device=device))
 
 
-def bound(nbytes: float, ops: float) -> tuple[float, str]:
+def bound(nbytes: float, ops: float, ops64: float = 0.0) -> tuple[float, str]:
     """Least time (ms) the card could take: the larger of the bytes over
-    the HBM rate and the f32 operations over the f32 peak."""
-    t_b, t_o = nbytes / HBM_BPS * 1e3, ops / F32_FLOPS * 1e3
+    the HBM rate and the operations over their peak (f32 operations over
+    the f32 peak, f64 ones over the f64 peak, the two pipes side by
+    side)."""
+    t_b, t_o = nbytes / HBM_BPS * 1e3, max(ops / F32_FLOPS, ops64 / F64_FLOPS) * 1e3
     return (t_b, "bytes") if t_b >= t_o else (t_o, "operations")
 
 
@@ -1107,6 +1179,7 @@ def phase23_rank(card: str) -> dict:
     from auvtpu_torch import entry
     from auvtpu_torch.config import Extent
     from auvtpu_torch.kernels import band_resample as kb
+    from auvtpu_torch.kernels import variogram as kv
     from auvtpu_torch.kernels import window_fill as wf
     from auvtpu_torch.metrics import all_reference_metrics
     from auvtpu_torch.ops import band as tband
@@ -1125,19 +1198,22 @@ def phase23_rank(card: str) -> dict:
     torch.backends.cudnn.allow_tf32 = False
     wf.build()
     kb.build()
+    kv.build()
     mesh, mesh2 = make_mesh(device=dev), make_mesh2d((2, 2), device=dev)
     first = mesh.index == 0
-    launches = {"fill_kriging_fused": 0, "fill_idw_fused": 0, "band_resample": 0}
+    counters = {"fill_kriging_fused": wf.LAUNCHES, "fill_idw_fused": wf.LAUNCHES, "band_resample": kb.LAUNCHES,
+                "pair_sums": kv.LAUNCHES, "fit_model": kv.LAUNCHES}
+    launches = dict.fromkeys(counters, 0)
 
     def counted(fn):
         """``fn()`` with the launch counts zeroed just before it and read
         just after it, added to this rank's main-path counts."""
-        wf.reset_launches()
-        kb.reset_launches()
+        for mod in (wf, kb, kv):
+            mod.reset_launches()
         got = fn()
         torch.cuda.synchronize()
-        for k in launches:
-            launches[k] += (kb.LAUNCHES if k == "band_resample" else wf.LAUNCHES)[k]
+        for k, counts in counters.items():
+            launches[k] += counts[k]
         return got
 
     out = {"rank": mesh.index, "device": f"{dev} ({torch.cuda.get_device_name(dev)})", "transport": mesh.transport,
@@ -1359,6 +1435,7 @@ def main() -> int:
 
     from auvtpu_torch.kernels import band_resample as kb
     from auvtpu_torch.kernels import scattered_select as ss
+    from auvtpu_torch.kernels import variogram as kv
 
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(SOURCES)) as ex:  # one nvcc per source, all started together
@@ -1366,6 +1443,7 @@ def main() -> int:
     wf.build()
     ss.build()
     kb.build()
+    kv.build()
     say("build", f"{', '.join(s + '.cu' for s in SOURCES)} built and loaded in {time.perf_counter() - t0:.1f} s")
     for src in SOURCES:
         log = kbuild.library_path(src).with_suffix(".log")
@@ -1447,13 +1525,21 @@ def main() -> int:
             raise AssertionError(f"{label} RMSE {r} outside {RMSE_FIXED} +- {RMSE_TOL}")
     del plane_sel
 
-    # ---- 6. entry
+    # ---- 6. entry (the launch counts zeroed just before fit_fill and read
+    # just after it, then added to phase 5's)
+    launches = dict(wf.LAUNCHES)
+    wf.reset_launches()
+    kv.reset_launches()
     filled, vparams = entry.fit_fill(grid)
+    torch.cuda.synchronize()
+    launches_fit = {**wf.LAUNCHES, **kv.LAUNCHES}
+    launches = {k: launches.get(k, 0) + v for k, v in launches_fit.items()}
     pv = [float(p) for p in vparams]
     r_fit, n_fin = rmse(filled, rows, cols, truth)
-    launches = dict(wf.LAUNCHES)
     say("entry", f"fit_fill: nugget={pv[0]:.6g} sill={pv[1]:.6g} range={pv[2]:.6g}; "
-        f"RMSE={r_fit:.6f} m; {n_fin}/{n_pts} masked cells finite; launches {launches}")
+        f"RMSE={r_fit:.6f} m; {n_fin}/{n_pts} masked cells finite; launches in fit_fill {launches_fit}")
+    if {k: v for k, v in launches_fit.items() if v} != {"pair_sums": 1, "fit_model": 1, "fill_kriging_fused": 1}:
+        raise AssertionError(f"fit_fill launched {launches_fit}, want B9, B10 and B1 once each")
     if not all(np.isfinite(p) and p > 0 for p in pv):
         raise AssertionError(f"fitted parameters not finite and positive: {pv}")
     if n_fin <= 0.99 * n_pts:
@@ -1500,8 +1586,62 @@ def main() -> int:
     if not rel_g <= 3e-4:
         raise AssertionError(f"the fitted gamma is {rel_g} from the JAX package's landing")
 
+    # B9 against its plain twin on the stand-in in its three layouts (the
+    # whole grid, a row band with max_lag rows below it, a 2-D block inside
+    # its halo-extended block), isotropic and (sector, lag) bins, read in
+    # place: counts equal, sums within 1e-12 relative and equal once rounded
+    # to f32, a second call bit-equal
+    from auvtpu_torch.variogram import STOP_DGAMMA, _bin_table, _sector_bin_table
+
+    H, W = grid.shape
+    b9_err = 0.0
+    layouts = {"whole grid": (grid.elev, grid.valid, H, W, 0),
+               "row band": (grid.elev[600:1624 + 10], grid.valid[600:1624 + 10], 1024, W, 0),
+               "2-D block": (grid.elev[600:1624 + 10, 500:1524 + 20], grid.valid[600:1624 + 10, 500:1524 + 20],
+                             1024, 1024, 10)}
+    tables = (("lag", _bin_table(10, 10)[:3] + (10,)), ("sector x lag", _sector_bin_table(10, 10, 4)[:3] + (40,)))
+    for bins_name, tab in tables:
+        for lay, args in layouts.items():
+            got = kv.pair_sums(*args, *tab, 10)
+            want = kv.pair_sums_ref(*args, *tab, 10)
+            again = kv.pair_sums(*args, *tab, 10)
+            if not torch.equal(got[1], want[1]):
+                raise AssertionError(f"B9 {lay}, {bins_name} bins: counts differ from the twin's: {got[1]} {want[1]}")
+            rel9 = float(((got[0] - want[0]).abs() / want[0].abs().clamp(min=1e-300)).max())
+            if not (rel9 <= 1e-12 and torch.equal(got[0].float(), want[0].float())):
+                raise AssertionError(f"B9 {lay}, {bins_name} bins: sums {rel9} relative from the twin's, or not "
+                                     f"equal once rounded to f32")
+            if not (torch.equal(got[0], again[0]) and torch.equal(got[1], again[1])):
+                raise AssertionError(f"B9 {lay}, {bins_name} bins: two calls differ")
+            b9_err = max(b9_err, float((got[0] - want[0]).abs().max()))
+            say("B9", f"{lay} ({args[2]}x{args[3]} base cells at column {args[4]}, row stride {args[0].stride(0)}), "
+                f"{tab[3]} {bins_name} bins: counts equal, sums {rel9:.3g} relative from the twin's, equal in f32; "
+                f"a second call bit-equal")
+    # B10 against the plain loop under the stand-in's gamma (float64 in, as
+    # the loop computes): every model, 25 steps; landing within 1e-9
+    # relative, the per-step (kept, frozen) flags equal
+    lags_s, gam_s, cnt_s = empirical_variogram(grid)
+    h_s = lags_s * (0.5 * (abs(grid.lat_step) + abs(grid.lon_step)))
+    fit_in = (h_s.double(), gam_s.double(), cnt_s.double())
+    b10_err = 0.0
+    for model in ("exponential", "linear", "spherical", "gaussian"):
+        p_k, flags_k = kv.fit_walk(*fit_in, model=model, iters=25, stop=STOP_DGAMMA)
+        rec = []
+        p_p = torch.stack(kv.fit_model_ref(*fit_in, model=model, iters=25, stop=STOP_DGAMMA, record=rec))
+        flags_p = [[int(a), int(b)] for a, b in rec]
+        rel10 = float(((p_k - p_p).abs() / p_p.abs()).max())
+        if not (rel10 <= 1e-9 and flags_k.cpu().tolist() == flags_p):
+            raise AssertionError(f"B10 {model}: landing {p_k.tolist()} against the plain loop's {p_p.tolist()} "
+                                 f"({rel10} relative), flags {flags_k.cpu().tolist()} against {flags_p}")
+        b10_err = max(b10_err, float((p_k - p_p).abs().max()))
+        kept = [i + 1 for i, (k, _) in enumerate(flags_p) if k]
+        stop_at = next((i + 1 for i, (_, f) in enumerate(flags_p) if f), None)
+        say("B10", f"{model:11s} 25 steps: landing {p_k.tolist()}, {rel10:.3g} relative from the plain loop's; "
+            f"per-step flags equal (kept steps {kept}, frozen after step {stop_at})")
+
     # ---- 7. timing
     sel = wf.topk_full(grid, k=4, max_radius=10)
+    iso = tables[0][1]
     ms = {
         "fused (B1)": time_ms(lambda: fill_kriging(grid, backend="fused")),
         "B1 kernel alone": device_ms(b1_launcher(grid), "kriging_fill_kernel"),
@@ -1518,7 +1658,13 @@ def main() -> int:
         "torch solve": time_ms(lambda: krige_planes(grid, sel)),
         "pair sums": time_ms(lambda: empirical_variogram(grid)),
         "pair sums device-busy": device_busy_ms(lambda: empirical_variogram(grid)),
+        "B9 kernel alone": device_ms(b9_launcher(grid), "pair_sums_"),
+        "B9 wrapper": time_ms(lambda: kv.pair_sums(grid.elev, grid.valid, H, W, 0, *iso, 10)),
+        "pair sums plain": time_ms(lambda: kv.pair_sums_ref(grid.elev, grid.valid, H, W, 0, *iso, 10)),
         "variogram fit": time_ms(lambda: fit_variogram(grid)),
+        "B10 kernel alone": device_ms(b10_launcher(h_s, gam_s, cnt_s), "fit_model_kernel"),
+        "B10 wrapper": time_ms(lambda: kv.fit_model(h_s, gam_s, cnt_s, iters=25, stop=STOP_DGAMMA)),
+        "variogram fit plain": time_ms(lambda: kv.fit_model_ref(h_s, gam_s, cnt_s, iters=25, stop=STOP_DGAMMA)),
         "fit_fill": time_ms(lambda: entry.fit_fill(grid)),
         "fit_fill device-busy": device_busy_ms(lambda: entry.fit_fill(grid)),
     }
@@ -1665,6 +1811,7 @@ def main() -> int:
 
     t_stream = time.perf_counter()
     wf.reset_launches()
+    kv.reset_launches()
     si = StreamingInterpolator((H, W), Extent(0.0, W - 1.0, 0.0, H - 1.0), window=(256, 256),
                                method="idw", max_radius=5)
     if si.backend != "fused":
@@ -1704,7 +1851,7 @@ def main() -> int:
         raise AssertionError(f"last window: origin {origin}, {n_fin} finite, RMSE {r} (want {STREAM_LAST})")
     vp = [float(v) for v in si.fit_variogram()]
     var, _ = si.window_uncertainty(2048, 2048)
-    launches_s = dict(wf.LAUNCHES)
+    launches_s = {**wf.LAUNCHES, **kv.LAUNCHES}
     fin = torch.isfinite(var)
     n_var = int(fin.sum())
     say("stream", f"fitted variogram {vp}; uncertainty window: {n_var} finite, min {float(var[fin].min()):.6g}; "
@@ -1713,7 +1860,7 @@ def main() -> int:
         raise AssertionError(f"streaming fit not finite and positive: {vp}")
     if n_var < 0.99 * STREAM_VAR_FINITE or not bool((var[fin] >= 0).all()):
         raise AssertionError(f"uncertainty window: {n_var} finite cells (want >= 99 % of {STREAM_VAR_FINITE}), all >= 0")
-    for k in ("fill_idw_fused", "fill_mean_fused", "fill_kriging_fused"):
+    for k in ("fill_idw_fused", "fill_mean_fused", "fill_kriging_fused", "pair_sums", "fit_model"):
         if launches_s[k] < 1:
             raise AssertionError(f"kernel {k} was not launched on the streaming path")
     si.backend = "torch"
@@ -2834,6 +2981,15 @@ def main() -> int:
     wh_, ww_ = kb.geometry(*band.shape, band_kw["wr"], band_kw["wc"], False)[:2]
     plane_cells = min(-(-N_BAND // band_kw["chunk"]) * wh_ * ww_, band.shape[0] * band.shape[1])
     bounds["band_resample"] = bound(nq_b * 13 + plane_cells * 4, nq_b * 31)
+    # B9 over the whole r0.10 plane: the two planes read once, per pair 4
+    # f32 operations (two products, a difference, a square) and 2 f64 adds
+    # (every cell, every offset: the kernel skips none); B10: its ~25 steps'
+    # f64 arithmetic at the stand-in's bins (latency-bound serial work, far
+    # from either bound)
+    n_pairs = float(n) * len(iso[0])
+    bounds["pair_sums"] = bound(4.0 * n * 2 + 16.0 * 10, 4 * n_pairs, 2 * n_pairs)
+    bounds["fit_model"] = bound(4.0 * 3 * gam_s.numel() + 4.0 * 3, 0.0,
+                                25 * (B10_BIN_OPS * gam_s.numel() + B10_STEP_OPS))
     say("bounds", "; ".join(f"{k} {v[0] * 1e3:.2f} us ({v[1]})" for k, v in bounds.items())
         + f"; rows scanned per cell: k=4 {s4 / n:.3f}, k=8 {s8 / n:.3f} (r0.20), k=4 {s4_bench / n:.3f} (r0.10); "
         f"select kernels at {int(nq)} Grid A queries")
@@ -2877,6 +3033,15 @@ def main() -> int:
                   launches_m["band_resample"] + launches_sv["band_resample"] + launches_p["band_resample"],
                   b8_err, ms["B8 band"], ms["B8 band wrapper"], ms["B8 band plain"]))
     src["band_resample"] = "auvtpu_torch/csrc/band_resample.cu"
+    # B9 and B10 replace no Pallas kernel: the XLA scans of auvtpu/variogram.py
+    # (the offset scan of its _pair_sums_binned, the Gauss-Newton scan of its
+    # fit_model); main paths: fit_fill (phase 6), the streaming fit (phase
+    # 10), the sharded fit+fill on every rank (phase 23)
+    for k, rep_, err, tag in (("pair_sums", "auvtpu/variogram.py:60", b9_err, "B9"),
+                              ("fit_model", "auvtpu/variogram.py:337", b10_err, "B10")):
+        rows_.append((k, rep_, launches[k] + launches_s[k] + launches_p[k], err, ms[f"{tag} kernel alone"],
+                      ms[f"{tag} wrapper"], ms["pair sums plain" if tag == "B9" else "variogram fit plain"]))
+        src[k] = "auvtpu_torch/csrc/variogram.cu"
     # B8: values only, no resolved mask; B7 and B5: the selection alone, no
     # tie order
     library = {"band_resample": ms["grid_sample"], "window_select_fused": ms["B7 library topk"],
