@@ -27,22 +27,56 @@
 //
 // B9's shape.  A block of 32 x 8 threads takes a 32 x 32 tile of base cells
 // (four rows a thread, its lanes on adjacent columns) and stages the tile's
-// partner halo, (32 + R) x (32 + 2R) cells of (elevation, validity) pairs,
-// in shared memory; the offset table, grouped by bin (a stable sort: within
-// a bin the table's own order), sits beside it.  A thread keeps one f64 sum
-// and one f64 count, runs over one bin's offsets, and at the bin's end the
-// block sums them in a fixed order (warp shuffles, then the warps in order)
-// into its (bin) partial, written to an (n_blocks, n_out, 2) buffer.  A
-// second kernel sums each bin's partials over the blocks, again in a fixed
-// order.  No atomics: a call gives the same bits every time, which the
-// fit's one landing needs (ROADMAP section C1).
+// partner halo, (32 + R) x (32 + 2R) cells, in shared memory; the offset
+// table, grouped by bin (a stable sort: within a bin the table's own order),
+// sits beside it.  A thread keeps one f64 sum and one count, runs over one
+// bin's offsets, and at the bin's end the block sums them in a fixed order
+// (warp shuffles, then the warps in order) into its (bin) partial, written to
+// an (n_blocks, n_out, 2) buffer.  A second kernel sums each bin's partials
+// over the blocks, again in a fixed order.  No atomics: a call gives the same
+// bits every time, which the fit's one landing needs (ROADMAP section C1).
 //
-// What bounds B9 on the H100.  Per pair 4 f32 operations and 2 f64 adds, two
-// f32 -> f64 conversions and one 8-byte shared load: at the Kerguelen
-// stand-in's 5.01 M cells x 158 offsets (792 M pairs) the f32 and f64 pipes'
-// bound is ~0.05 ms, the two 20 MB planes' read 0.012 ms; the conversions
-// (16 a clock an SM) and the shared loads are what this simple kernel waits
-// on.
+// Two paths, chosen per block from the data.  While staging its halo each
+// thread notes whether a cell has a validity outside {0, 1} or an elevation
+// of magnitude above 2**126 (2**1022 in f64; inf and NaN among them), so that
+// no difference of two elevations overflows; cells outside the plane read
+// (0, 0) and qualify.  A block-wide vote picks the path.
+//   general  (a cell outside the identity): the halo staged as (elevation,
+//            validity) pairs and the formula above, pair for pair.
+//   fast     (every cell qualifies): the halo staged as one word a cell, the
+//            elevation where the validity is 1 and NaN elsewhere (and outside
+//            the plane), at a fixed row pitch, and a 64-bit validity mask a
+//            halo row.  A pair adds (double)fmax(d * d, 0) with d = e0 - p:
+//            d * d where d is a number, +0 where either end is NaN.  The
+//            counts are popcounts of the masks, a tile row and an offset at a
+//            time, summed in a 32-bit integer a thread and converted once at
+//            the bin's end.
+// Why the fast path gives the general path's bits.  With v in {0, 1} and e
+// bounded so, both is 1 or a zero; where it is 1, (e0 - p) * 1 is e0 - p
+// exactly and d * d the same f32 (f64) value, added to s in the same order.
+// Where it is a zero, (e0 - p) * both is +-0 (e0 - p is finite: no inf * 0),
+// d * d is +0, and the general path adds +0.0 to s, as the fast path does.
+// So each thread's s is the general path's, bit for bit.  The general path's
+// c is a sum of 1.0s and zeros; every partial sum of the block's counts, in
+// block_sum2's order, is an integer far below 2**53 (at most 1,024 x 158 at
+// max_lag 10), so the block's total is the exact count of its pairs with
+// both ends valid however the counting is split among its threads, and the
+// fast path's popcounts give that count.  block_sum2 and the finish kernel
+// then add the same values in the same order: the output is bit-equal
+// whichever path each block took.  A validity of 0.5, an inf under an
+// invalid cell (inf * 0 is NaN), or two huge elevations whose difference
+// overflows, breaks the identity, and such a block takes the general path.
+//
+// What bounds B9 on the H100.  At the Kerguelen stand-in's 5.01 M cells x 158
+// offsets (792 M pairs) the f32 and f64 pipes' operations take ~0.05 ms and
+// the two 20 MB planes' read 0.012 ms.  The general path does per pair two
+// f32 -> f64 conversions (16 a clock an SM: ~0.4 ms), two f64 adds and an
+// 8-byte shared load.  The fast path does six instructions a pair (a 4-byte
+// shared load at an immediate offset, a subtract, a square, the fmax, one
+// conversion, one f64 add); a predicated add would not do: the compiler
+// makes it an add and two 32-bit selects, and the count an add and a move.
+// Its floor is the conversions, 792 M / (16 x 132 SMs), ~0.19 ms at 1.98
+// GHz, with the instruction rate close behind.
 //
 // B10 is fit_model's loop (auvtpu_torch/variogram.py) in one launch of one
 // warp, all in float64: the data-driven start (or the given one), log
@@ -55,8 +89,23 @@
 // at the bins with pairs.  A lane takes bins lane, lane + 32, ...; the sums
 // are warp butterflies (every lane holds the same bits), so every lane takes
 // the same decisions.  It is latency-bound serial work (~100 f64 operations
-// a bin a step): its bound is far under a microsecond; the gain is the
-// host loop it replaces.
+// a bin a step, a chain of divisions, exps and shuffles): its bound is far
+// under a microsecond; the gain is the host loop it replaces.
+//
+// What B10 spares of that latency, with the plain loop's bits kept.
+//   It stops at the first step that is not kept or that freezes.  A step
+//   not kept leaves theta as it was, and the damping is fixed, so the next
+//   step computes the same candidate, bit for bit, and rejects it again; a
+//   frozen walk keeps nothing.  From there on (theta, frozen) cannot change,
+//   and a tail writes the remaining steps' flags as (0, frozen).
+//   It evaluates the curve once a bin a step.  A bin's shape terms at the
+//   current parameters (u = h / p2 and the exp term) are kept in shared
+//   memory: the Jacobian pass reads them (no division, no exp) and keeps
+//   the curve's value, ``now``, for the candidate pass; the candidate pass
+//   computes the candidate's shape terms, which become the current ones
+//   when the step is kept (p = q: exp of the same log parameters).  Every
+//   value is the same operation on the same inputs as before, and no float64
+//   sum changes order.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -74,6 +123,10 @@ constexpr int kTH = kTY * kCPT;  // tile rows
 constexpr int kThreads = kTW * kTY;
 constexpr int kMaxLag = 16;
 constexpr int kMaxOut = 1024;
+constexpr int kPitch = kTW + 2 * kMaxLag;  // the fast path's halo row pitch, whatever R
+constexpr int kGroup = 32;                  // bins the fast path sums between two barriers
+constexpr int kStage = (kTH + kMaxLag) * kPitch / kThreads;  // halo cells a thread stages
+static_assert(kThreads % kPitch == 0 && (kTH + kMaxLag) * kPitch % kThreads == 0, "the halo's index space");
 
 template <typename T>
 struct Vec2;
@@ -87,6 +140,12 @@ struct Vec2<double> {
 };
 
 __host__ __device__ constexpr size_t align16(size_t n) { return (n + 15) & ~size_t(15); }
+
+// The fast path's halo words, (kTH + R) rows at pitch kPitch; its row masks
+// follow.
+__host__ __device__ constexpr size_t fast_tile_bytes(int R, size_t elem_bytes) {
+  return align16((size_t)(kTH + R) * kPitch * elem_bytes);
+}
 
 // Sums (s, c) over the block's kThreads threads in a fixed order; thread 0
 // holds the result.  Every thread of the block calls it.
@@ -116,47 +175,28 @@ __device__ __forceinline__ void block_sum2(double& s, double& c, double* red) {
   __syncthreads();
 }
 
-// tab: n_off (dy, dx) int pairs grouped by bin, then n_out + 1 bin starts.
+// The largest elevation magnitude the fast path takes: no difference of two
+// such values overflows.
 template <typename T>
-__global__ void __launch_bounds__(kThreads)
-    pair_sums_tile_kernel(const T* __restrict__ elev, int pe, const T* __restrict__ valid, int pv, int Hs, int Ws,
-                          int H, int Wb, int c0, int R, const int* __restrict__ tab, int n_off, int n_out,
-                          double* __restrict__ partials) {
+__device__ __forceinline__ T fast_limit();
+template <>
+__device__ __forceinline__ float fast_limit<float>() {
+  return 8.50705917e37f;  // 2**126
+}
+template <>
+__device__ __forceinline__ double fast_limit<double>() {
+  return 4.49423283715578977e307;  // 2**1022
+}
+
+// The general path: the halo as (elevation, validity) pairs, the formula of
+// the header pair for pair.
+template <typename T>
+__device__ __forceinline__ void sums_general(const typename Vec2<T>::type* tile, int tw, int R, bool col_in, int r0,
+                                             int H, const int2* offs, const int* starts, int n_out, double* red,
+                                             double* partials, size_t cta, int tid) {
   using V = typename Vec2<T>::type;
-  extern __shared__ __align__(16) unsigned char smem[];
-  int2* offs = reinterpret_cast<int2*>(smem);
-  int* starts = reinterpret_cast<int*>(smem + align16(sizeof(int2) * n_off));
-  double* red = reinterpret_cast<double*>(smem + align16(sizeof(int2) * n_off) + align16(sizeof(int) * (n_out + 1)));
-  V* tile = reinterpret_cast<V*>(red + 2 * kTY);
-
-  const int tid = threadIdx.y * kTW + threadIdx.x;
-  const int2* toffs = reinterpret_cast<const int2*>(tab);
-  for (int i = tid; i < n_off; i += kThreads) offs[i] = toffs[i];
-  for (int i = tid; i <= n_out; i += kThreads) starts[i] = tab[2 * n_off + i];
-
-  // the partner halo: source rows r0 .. r0 + kTH + R - 1, columns
-  // c0 + bc0 - R .. c0 + bc0 + kTW + R - 1; (0, 0) outside the plane
-  const int r0 = blockIdx.y * kTH;
-  const int bc0 = blockIdx.x * kTW;
-  const int th = kTH + R, tw = kTW + 2 * R;
-  for (int i = tid; i < th * tw; i += kThreads) {
-    const int tr = i / tw, tc = i - tr * tw;
-    const int gr = r0 + tr, gc = c0 + bc0 - R + tc;
-    V p;
-    if (gr < Hs && gc >= 0 && gc < Ws) {
-      p.x = __ldg(elev + (size_t)gr * pe + gc);
-      p.y = __ldg(valid + (size_t)gr * pv + gc);
-    } else {
-      p.x = T(0);
-      p.y = T(0);
-    }
-    tile[i] = p;
-  }
-  __syncthreads();
-
   T e0[kCPT], v0[kCPT];
   bool in[kCPT];
-  const bool col_in = bc0 + (int)threadIdx.x < Wb;
 #pragma unroll
   for (int q = 0; q < kCPT; ++q) {
     const int tr = threadIdx.y + q * kTY;
@@ -166,7 +206,6 @@ __global__ void __launch_bounds__(kThreads)
     v0[q] = p.y;
   }
   const V* base = tile + threadIdx.y * tw + threadIdx.x + R;
-  const size_t cta = (size_t)blockIdx.y * gridDim.x + blockIdx.x;
   for (int b = 0; b < n_out; ++b) {
     double s = 0.0, c = 0.0;
     const int k1 = starts[b + 1];
@@ -193,6 +232,168 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
+// The fast path: the halo NaN-coded, one word a cell at row pitch kPitch, so
+// a thread's four rows sit at immediate offsets.  A base cell outside the
+// block's rows or columns reads NaN too.  A pair adds (double)fmax(d * d, 0):
+// d * d where d = e0 - p is a number (d * d >= +0), +0 where it is NaN (fmax
+// returns the number), so no select and no branch.  The counts come from
+// ``rowmask``, one 64-bit validity mask a halo row (bit c: column c is not
+// NaN): for an offset (dy, dx) and a tile row r, the pairs that count are
+// popc(base(r) & (rowmask[r + dy] >> (R + dx))) over the 32 base columns;
+// thread (x, y) takes row x for the bin's offsets y, y + 8, ...  The block's
+// sums are block_sum2's, in its order, for kGroup bins at a time: each warp
+// sums a bin down its lanes as block_sum2 does and keeps the result in
+// ``gs``; after one barrier, thread t adds bin t's warp sums in warp order,
+// as block_sum2's thread 0 does.  The counts are integers, exact in any
+// order.
+template <typename T>
+__device__ __forceinline__ void sums_fast(const T* tile, const unsigned long long* rowmask, int R, bool col_in,
+                                          unsigned base_bits, int r0, int H, const int2* offs, const int* flat,
+                                          const int* starts, int n_out, double* gs, int* gn, double* partials,
+                                          size_t cta, int tid) {
+  T e0[kCPT];
+#pragma unroll
+  for (int q = 0; q < kCPT; ++q) {
+    const int tr = threadIdx.y + q * kTY;
+    e0[q] = (col_in && r0 + tr < H) ? tile[tr * kPitch + threadIdx.x + R] : static_cast<T>(NAN);
+  }
+  const T* base = tile + threadIdx.y * kPitch + threadIdx.x + R;
+  for (int g0 = 0; g0 < n_out; g0 += kGroup) {
+    const int ng = n_out - g0 < kGroup ? n_out - g0 : kGroup;
+    for (int b = g0; b < g0 + ng; ++b) {
+      double s = 0.0;
+      const int k0 = starts[b], k1 = starts[b + 1];
+      for (int k = k0; k < k1; ++k) {
+        const T* row = base + flat[k];  // dy * kPitch + dx
+#pragma unroll
+        for (int q = 0; q < kCPT; ++q) {
+          const T d = e0[q] - row[q * kTY * kPitch];
+          s += (double)fmax(d * d, T(0));
+        }
+      }
+      int n = 0;
+      for (int k = k0 + threadIdx.y; k < k1; k += kTY) {
+        const int2 o = offs[k];
+        n += __popc(base_bits & (unsigned)(rowmask[threadIdx.x + o.x] >> (R + o.y)));
+      }
+#pragma unroll
+      for (int m = 16; m > 0; m >>= 1) s += __shfl_down_sync(0xffffffffu, s, m);
+      n = __reduce_add_sync(0xffffffffu, n);
+      if (threadIdx.x == 0) {
+        gs[(b - g0) * kTY + threadIdx.y] = s;
+        gn[(b - g0) * kTY + threadIdx.y] = n;
+      }
+    }
+    __syncthreads();
+    if (tid < ng) {
+      double S = 0.0;
+      int N = 0;
+#pragma unroll
+      for (int w = 0; w < kTY; ++w) {
+        S += gs[tid * kTY + w];
+        N += gn[tid * kTY + w];
+      }
+      partials[(cta * n_out + g0 + tid) * 2] = S;
+      partials[(cta * n_out + g0 + tid) * 2 + 1] = (double)N;
+    }
+    __syncthreads();
+  }
+}
+
+// tab: n_off (dy, dx) int pairs grouped by bin, then n_out + 1 bin starts.
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+    pair_sums_tile_kernel(const T* __restrict__ elev, int pe, const T* __restrict__ valid, int pv, int Hs, int Ws,
+                          int H, int Wb, int c0, int R, const int* __restrict__ tab, int n_off, int n_out,
+                          double* __restrict__ partials) {
+  using V = typename Vec2<T>::type;
+  extern __shared__ __align__(16) unsigned char smem[];
+  int2* offs = reinterpret_cast<int2*>(smem);
+  int* starts = reinterpret_cast<int*>(smem + align16(sizeof(int2) * n_off));
+  int* flat = reinterpret_cast<int*>(smem + align16(sizeof(int2) * n_off) + align16(sizeof(int) * (n_out + 1)));
+  double* red = reinterpret_cast<double*>(reinterpret_cast<unsigned char*>(flat) + align16(sizeof(int) * n_off));
+  double* gs = red + 2 * kTY;
+  int* gn = reinterpret_cast<int*>(gs + kGroup * kTY);
+  unsigned char* halo = reinterpret_cast<unsigned char*>(gn + kGroup * kTY);
+
+  const int tid = threadIdx.y * kTW + threadIdx.x;
+  const int2* toffs = reinterpret_cast<const int2*>(tab);
+  for (int i = tid; i < n_off; i += kThreads) {
+    const int2 o = toffs[i];
+    offs[i] = o;
+    flat[i] = o.x * kPitch + o.y;
+  }
+  for (int i = tid; i <= n_out; i += kThreads) starts[i] = tab[2 * n_off + i];
+
+  // the partner halo: source rows r0 .. r0 + kTH + R - 1, columns
+  // c0 + bc0 - R .. c0 + bc0 + kTW + R - 1; (0, 0) outside the plane.  A
+  // thread takes the cells (tr, tc) = (j / kPitch, j % kPitch) of the
+  // (kTH + kMaxLag) x kPitch index space, j = tid + k kThreads, that lie in
+  // the (kTH + R) x (kTW + 2R) halo, and holds them in registers until the
+  // vote says how to stage them.
+  const int r0 = blockIdx.y * kTH;
+  const int bc0 = blockIdx.x * kTW;
+  const int th = kTH + R, tw = kTW + 2 * R;
+  T he[kStage], hv[kStage];
+  bool general = false;
+#pragma unroll
+  for (int k = 0; k < kStage; ++k) {
+    const int tr = (tid + k * kThreads) / kPitch, tc = tid % kPitch;  // kThreads is a multiple of kPitch
+    const int gr = r0 + tr, gc = c0 + bc0 - R + tc;
+    T e = T(0), v = T(0);
+    if (tr < th && tc < tw && gr < Hs && gc >= 0 && gc < Ws) {
+      e = __ldg(elev + (size_t)gr * pe + gc);
+      v = __ldg(valid + (size_t)gr * pv + gc);
+    }
+    he[k] = e;
+    hv[k] = v;
+    general |= !((v == T(0) || v == T(1)) && fabs(e) <= fast_limit<T>());
+  }
+  const bool col_in = bc0 + (int)threadIdx.x < Wb;
+  const size_t cta = (size_t)blockIdx.y * gridDim.x + blockIdx.x;
+  if (__syncthreads_or(general)) {
+    V* tile = reinterpret_cast<V*>(halo);
+#pragma unroll
+    for (int k = 0; k < kStage; ++k) {
+      const int tr = (tid + k * kThreads) / kPitch, tc = tid % kPitch;
+      if (tr < th && tc < tw) {
+        V p;
+        p.x = he[k];
+        p.y = hv[k];
+        tile[tr * tw + tc] = p;
+      }
+    }
+    __syncthreads();
+    sums_general<T>(tile, tw, R, col_in, r0, H, offs, starts, n_out, red, partials, cta, tid);
+  } else {
+    T* tile = reinterpret_cast<T*>(halo);
+    unsigned long long* rowmask = reinterpret_cast<unsigned long long*>(halo + fast_tile_bytes(R, sizeof(T)));
+#pragma unroll
+    for (int k = 0; k < kStage; ++k) {
+      const int tr = (tid + k * kThreads) / kPitch, tc = tid % kPitch;
+      if (tr < th && tc < tw) tile[tr * kPitch + tc] = hv[k] == T(1) ? he[k] : static_cast<T>(NAN);
+    }
+    __syncthreads();
+    // warp y builds the masks of halo rows y, y + 8, ... (columns >= tw,
+    // never read, cleared)
+    const unsigned long long cols = tw >= 64 ? ~0ull : (1ull << tw) - 1;
+    for (int r = threadIdx.y; r < th; r += kTY) {
+      const T lo = tile[r * kPitch + threadIdx.x], hi = tile[r * kPitch + 32 + threadIdx.x];
+      const unsigned long long m = __ballot_sync(0xffffffffu, lo == lo) |
+                                   ((unsigned long long)__ballot_sync(0xffffffffu, hi == hi) << 32);
+      if (threadIdx.x == 0) rowmask[r] = m & cols;
+    }
+    __syncthreads();
+    // the base cells of the row this thread counts: its tile row x's 32
+    // columns, those inside the block
+    const int nc = Wb - bc0;
+    const unsigned in_cols = nc >= 32 ? 0xffffffffu : (1u << nc) - 1;
+    const unsigned base_bits =
+        r0 + (int)threadIdx.x < H ? (unsigned)(rowmask[threadIdx.x] >> R) & in_cols : 0u;
+    sums_fast<T>(tile, rowmask, R, col_in, base_bits, r0, H, offs, flat, starts, n_out, gs, gn, partials, cta, tid);
+  }
+}
+
 // Block b sums bin b's partials over the n_cta tile blocks in a fixed order:
 // out[b] = s, out[n_out + b] = c.
 __global__ void __launch_bounds__(kThreads)
@@ -211,9 +412,14 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-size_t pair_sums_smem(int n_off, int n_out, int R, size_t vec_bytes) {
-  return align16(sizeof(int2) * n_off) + align16(sizeof(int) * (n_out + 1)) + 2 * kTY * sizeof(double) +
-         (size_t)(kTH + R) * (kTW + 2 * R) * vec_bytes;
+// The shared memory of a tile block: the table (pairs, bin starts, flat
+// offsets), the reductions' scratch, and the halo as the general path's
+// pairs or the fast path's words and row masks, whichever is larger.
+size_t pair_sums_smem(int n_off, int n_out, int R, size_t elem_bytes) {
+  const size_t general = (size_t)(kTH + R) * (kTW + 2 * R) * 2 * elem_bytes;
+  const size_t fast = fast_tile_bytes(R, elem_bytes) + (kTH + R) * sizeof(unsigned long long);
+  return align16(sizeof(int2) * n_off) + align16(sizeof(int) * (n_out + 1)) + align16(sizeof(int) * n_off) +
+         2 * kTY * sizeof(double) + kGroup * kTY * (sizeof(double) + sizeof(int)) + (general > fast ? general : fast);
 }
 
 template <typename T>
@@ -223,7 +429,7 @@ int launch_pair_sums(const T* e, int pe, const T* v, int pv, int Hs, int Ws, int
   if (grid.y > 65535) return (int)cudaErrorInvalidValue;
   const int n_cta = (H > 0 && Wb > 0) ? (int)(grid.x * grid.y) : 0;
   if (n_cta > 0) {
-    const size_t smem = pair_sums_smem(n_off, n_out, R, sizeof(typename Vec2<T>::type));
+    const size_t smem = pair_sums_smem(n_off, n_out, R, sizeof(T));
     if (smem > 48 * 1024) {
       const cudaError_t err =
           cudaFuncSetAttribute(pair_sums_tile_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -266,12 +472,27 @@ __device__ __forceinline__ double warp_nan_max(double x) {
   return x;
 }
 
-// variogram_model(h, (p0, p1, p2r), model) and, where ``jac``, its
-// derivatives in the log parameters: dc[k] = d curve / d log p_k.
-template <bool kJac>
-__device__ __forceinline__ double curve(int model, double h, double p0, double p1, double p2r, double* dc) {
-  const bool live = p2r >= 1e-6;  // the clamp passes the derivative where it does not bind
+// A bin's shape terms for the parameter p2r: u = h / p2 (p2 = p2r clamped
+// at 1e-6) and the exp term E of the exponential (e^-u) and the gaussian
+// (e^-(u^2)); the linear model has none.
+__device__ __forceinline__ void shape(int model, double h, double p2r, double& u, double& E) {
+  if (model == kLinear) {
+    u = 0.0;
+    E = 0.0;
+    return;
+  }
   const double p2 = p2r < 1e-6 ? 1e-6 : p2r;
+  u = h / p2;
+  E = model == kExponential ? exp(-u) : (model == kGaussian ? exp(-(u * u)) : 0.0);
+}
+
+// variogram_model(h, (p0, p1, p2), model) from the bin's shape terms (u, E)
+// and, where ``jac``, its derivatives in the log parameters: dc[k] = d curve
+// / d log p_k; ``live``: p2 >= 1e-6 (the clamp passes the derivative where
+// it does not bind).
+template <bool kJac>
+__device__ __forceinline__ double curve(int model, double h, double u, double E, double p0, double p1, bool live,
+                                        double* dc) {
   if (kJac) dc[0] = p0;
   if (model == kLinear) {
     if (kJac) {
@@ -281,7 +502,6 @@ __device__ __forceinline__ double curve(int model, double h, double p0, double p
     return p0 + p1 * h;
   }
   if (model == kSpherical) {
-    const double u = h / p2;
     const double m = u > 1.0 ? 1.0 : u;
     const double f = 1.5 * m - 0.5 * (m * m * m);
     if (kJac) {
@@ -290,23 +510,11 @@ __device__ __forceinline__ double curve(int model, double h, double p0, double p
     }
     return p0 + p1 * f;
   }
-  if (model == kGaussian) {
-    const double u = h / p2;
-    const double E = exp(-(u * u));
-    const double f = 1.0 - E;
-    if (kJac) {
-      dc[1] = p1 * f;
-      dc[2] = live ? -(p1 * (E * (2.0 * (u * u)))) : 0.0;
-    }
-    return p0 + p1 * f;
-  }
-  // exponential
-  const double u = h / p2;
-  const double E = exp(-u);
+  // exponential, gaussian
   const double f = 1.0 - E;
   if (kJac) {
     dc[1] = p1 * f;
-    dc[2] = live ? -(p1 * (E * u)) : 0.0;
+    dc[2] = live ? -(p1 * (model == kGaussian ? E * (2.0 * (u * u)) : E * u)) : 0.0;
   }
   return p0 + p1 * f;
 }
@@ -352,6 +560,9 @@ __global__ void __launch_bounds__(32)
                      int counts_f64, int n, const double* init, int model, int iters, double stop, void* out,
                      int out_f64, signed char* flags) {
   __shared__ double sh_h[kFitMaxBins], sh_g[kFitMaxBins], sh_c[kFitMaxBins], sh_sw[kFitMaxBins];
+  // per bin: the curve's value at the current parameters, and the shape
+  // terms (u, E) at the current ([cur]) and the candidate ([cur ^ 1]) ones
+  __shared__ double sh_now[kFitMaxBins], sh_u[2][kFitMaxBins], sh_e[2][kFitMaxBins];
   const int lane = threadIdx.x;
   double csum = 0.0, gmax = -INFINITY, hmax = -INFINITY;
   for (int i = lane; i < n; i += 32) {
@@ -383,16 +594,26 @@ __global__ void __launch_bounds__(32)
     th[1] = log(model == kLinear ? sill0 / maxlag : sill0);
     th[2] = log(maxlag / 3.0);
   }
+  double p[3];
+#pragma unroll
+  for (int k = 0; k < 3; ++k) p[k] = exp(th[k]);
+  int cur = 0;
+  for (int i = lane; i < n; i += 32) shape(model, sh_h[i], p[2], sh_u[cur][i], sh_e[cur][i]);
 
+  // a lane reads and writes only its own bins' entries, so no barrier is
+  // needed between the passes
   bool frozen = false;
-  for (int it = 0; it < iters; ++it) {
-    const double p0 = exp(th[0]), p1 = exp(th[1]), p2 = exp(th[2]);
+  int done = 0;
+  while (done < iters) {
     // the normal equations: A (6), g (3) and the SSE, lane-strided bins
+    const bool live = p[2] >= 1e-6;
     double acc[10] = {0, 0, 0, 0, 0, 0, 0, 0, 0, 0};
     for (int i = lane; i < n; i += 32) {
       double dc[3];
       const double sw = sh_sw[i];
-      const double r = (curve<true>(model, sh_h[i], p0, p1, p2, dc) - sh_g[i]) * sw;
+      const double now = curve<true>(model, sh_h[i], sh_u[cur][i], sh_e[cur][i], p[0], p[1], live, dc);
+      sh_now[i] = now;
+      const double r = (now - sh_g[i]) * sw;
       const double j0 = dc[0] * sw, j1 = dc[1] * sw, j2 = dc[2] * sw;
       acc[0] += j0 * j0;
       acc[1] += j0 * j1;
@@ -413,39 +634,58 @@ __global__ void __launch_bounds__(32)
     double g[3] = {acc[6], acc[7], acc[8]};
     double delta[3];
     solve3(a, g, delta);
-    double nw[3];
+    double nw[3], q[3];
 #pragma unroll
-    for (int k = 0; k < 3; ++k) nw[k] = th[k] - clamp_pm(delta[k], 2.0);
+    for (int k = 0; k < 3; ++k) {
+      nw[k] = th[k] - clamp_pm(delta[k], 2.0);
+      q[k] = exp(nw[k]);
+    }
     // the candidate: its weighted SSE and how far it moves gamma where
     // there are pairs
-    const double q0 = exp(nw[0]), q1 = exp(nw[1]), q2 = exp(nw[2]);
+    const bool qlive = q[2] >= 1e-6;
+    const int nx = cur ^ 1;
     double ssn = 0.0, moved = 0.0;
     for (int i = lane; i < n; i += 32) {
-      const double now = curve<false>(model, sh_h[i], p0, p1, p2, nullptr);
-      const double nxt = curve<false>(model, sh_h[i], q0, q1, q2, nullptr);
+      shape(model, sh_h[i], q[2], sh_u[nx][i], sh_e[nx][i]);
+      const double now = sh_now[i];
+      const double nxt = curve<false>(model, sh_h[i], sh_u[nx][i], sh_e[nx][i], q[0], q[1], qlive, nullptr);
       const double rn = (nxt - sh_g[i]) * sh_sw[i];
       ssn += rn * rn;
       if (sh_c[i] > 0.0) moved = nan_max(moved, fabs(nxt - now) / fabs(now));
     }
     ssn = warp_sum(ssn);
     moved = warp_nan_max(moved);
-    const bool keep = !frozen && ssn <= acc[9];
+    // frozen is false here: the loop ends at the step that freezes
+    const bool keep = ssn <= acc[9];
+    frozen = keep && moved < stop;
+    if (flags != nullptr && lane == 0) {
+      flags[2 * done] = keep ? 1 : 0;
+      flags[2 * done + 1] = frozen ? 1 : 0;
+    }
+    ++done;
     if (keep) {
 #pragma unroll
-      for (int k = 0; k < 3; ++k) th[k] = nw[k];
+      for (int k = 0; k < 3; ++k) {
+        th[k] = nw[k];
+        p[k] = q[k];
+      }
+      cur = nx;
     }
-    frozen = frozen || (keep && moved < stop);
-    if (flags != nullptr && lane == 0) {
-      flags[2 * it] = keep ? 1 : 0;
-      flags[2 * it + 1] = frozen ? 1 : 0;
+    if (!keep || frozen) break;
+  }
+  // the steps after the last one run: (theta, frozen) as they are
+  if (flags != nullptr) {
+    for (int j = done + lane; j < iters; j += 32) {
+      flags[2 * j] = 0;
+      flags[2 * j + 1] = frozen ? 1 : 0;
     }
   }
   if (lane < 3) {
-    const double p = exp(th[lane]);
+    const double v = exp(th[lane]);
     if (out_f64)
-      static_cast<double*>(out)[lane] = p;
+      static_cast<double*>(out)[lane] = v;
     else
-      static_cast<float*>(out)[lane] = (float)p;
+      static_cast<float*>(out)[lane] = (float)v;
   }
 }
 

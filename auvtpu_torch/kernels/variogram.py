@@ -9,11 +9,15 @@ Two kernels, both in ``csrc/variogram.cu``:
   against their partners at an offset table's (dy, dx), partners outside the
   source plane reading as zero.  One layout serves the whole grid, a row
   band with the next band's rows below it and a 2-D block inside its
-  halo-extended block (:func:`pair_sums_ref` states it);
+  halo-extended block (:func:`pair_sums_ref` states it).  A tile block
+  whose cells all have a validity of 0 or 1 and a bounded elevation runs a
+  faster path (NaN-coded halo, integer counts) with the same bits;
 - :func:`fit_model` (B10, ``fit_model_kernel``, replaces the Gauss-Newton
   scan of ``auvtpu/variogram.py:337``): the whole float64 fit loop of
   :func:`fit_model_ref` in one launch of one warp, optionally with its
-  per-step (kept, frozen) record (:func:`fit_walk`).
+  per-step (kept, frozen) record (:func:`fit_walk`); the kernel stops at
+  the first step that is not kept or that freezes, after which the loop's
+  state cannot change, and records the rest as not kept.
 
 Each has its plain torch version beside it (``<wrapper>_ref``, the loops the
 CPU tests hold against the JAX package).  A wrapper runs the plain version
@@ -306,8 +310,8 @@ def fit_walk(lags, gamma, counts, *, model: str = "exponential", iters: int = 30
 
 def fit_model(lags, gamma, counts, *, model: str = "exponential", iters: int = 30, init=None, stop: float = 1e-4):
     """Weighted damped Gauss-Newton fit of a variogram model (B10 on the
-    card): :func:`fit_model_ref`'s loop, all ``iters`` steps in one launch,
-    nothing read back.  Returns (nugget, p1, p2) as 0-d views of one (3,)
+    card): :func:`fit_model_ref`'s loop, up to ``iters`` steps in one
+    launch, nothing read back.  Returns (nugget, p1, p2) as 0-d views of one (3,)
     tensor in the dtype and on the device of ``gamma``."""
     p, _ = fit_walk(lags, gamma, counts, model=model, iters=iters, init=init, stop=stop)
     return p[0], p[1], p[2]

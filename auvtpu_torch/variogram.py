@@ -28,7 +28,7 @@ from functools import lru_cache
 import numpy as np
 import torch
 
-from .grid import RegularGrid, divisor
+from .grid import RegularGrid, device_cache, divisor
 from .kernels import variogram as kv
 
 
@@ -98,8 +98,18 @@ def empirical_variogram(grid: RegularGrid, *, max_lag: int = 10, n_bins: int = 1
     s, c = pair_sums(grid.elev, grid.valid, grid.shape[0], max_lag=max_lag, n_bins=n_bins)
     s, c = s.to(grid.dtype), c.to(grid.dtype)
     gamma = torch.where(c > 0, s / (2.0 * torch.clamp(c, min=1.0)), torch.zeros_like(s))
-    _, _, _, centers = _bin_table(max_lag, n_bins)
-    return torch.as_tensor(centers, dtype=grid.dtype).to(grid.device), gamma, c
+    return _device_centers(max_lag, n_bins, 1, 1.0, grid.dtype, grid.device)[0], gamma, c
+
+
+@device_cache(maxsize=16)
+def _device_centers(max_lag: int, n_bins: int, n_sectors: int, aspect: float, dtype: torch.dtype,
+                    device: torch.device):
+    """The lag centres and sector angles of the (sector, lag) bins as tensors
+    on ``device``, made once: a copy from host memory would make the host
+    wait for the card (a pageable copy synchronises the stream) between the
+    pair sums and the fit."""
+    _, _, _, centers, angles = _sector_bin_table(max_lag, n_bins, n_sectors, aspect)
+    return torch.as_tensor(centers, dtype=dtype).to(device), torch.as_tensor(angles, dtype=dtype).to(device)
 
 
 # ---------------------------------------------------------------------------
@@ -142,8 +152,8 @@ def empirical_variogram_directional(grid: RegularGrid, *, max_lag: int = 10, n_b
     s = s.to(grid.dtype).reshape(n_sectors, n_bins)
     c = c.to(grid.dtype).reshape(n_sectors, n_bins)
     gamma = torch.where(c > 0, s / (2.0 * torch.clamp(c, min=1.0)), torch.zeros_like(s))
-    as_grid = dict(dtype=grid.dtype, device=grid.device)
-    return torch.as_tensor(centers, **as_grid), torch.as_tensor(angles, **as_grid), gamma, c
+    centers, angles = _device_centers(max_lag, n_bins, n_sectors, aspect, grid.dtype, grid.device)
+    return centers, angles, gamma, c
 
 
 def _aniso_h(h, ang, rx, ry, theta):
@@ -296,10 +306,12 @@ def fit_model(lags, gamma, counts, *, model: str = "exponential", iters: int = 3
     less than :data:`STOP_DGAMMA` at every bin with pairs: where the SSE
     has no finite minimum (a linear-looking gamma, the exponential's range
     free to grow) the walk stops where the data stop pinning it, in the
-    same place on every device.  The freeze is a flag, not a break: the
-    step count is fixed and nothing is read back to the host.  Returns
-    (nugget, p1, p2) as 0-d tensors in the dtype and on the device of
-    ``gamma``."""
+    same place on every device.  Nothing is read back to the host: the
+    decision stays on the device (B10 ends its walk at the first step that
+    is not kept or that freezes, after which the parameters cannot change;
+    the plain loop runs all ``iters`` steps with the freeze as a flag).
+    Returns (nugget, p1, p2) as 0-d tensors in the dtype and on the device
+    of ``gamma``."""
     return kv.fit_model(lags, gamma, counts, model=model, iters=iters, init=init, stop=STOP_DGAMMA)
 
 

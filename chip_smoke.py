@@ -238,6 +238,7 @@ import os
 import subprocess
 import sys
 import time
+import warnings
 
 import numpy as np
 
@@ -560,19 +561,32 @@ def device_busy_ms(fn, reps: int = 2, attempts: int = 3) -> float:
     """Device time (ms) of one call of ``fn`` that launches many kernels:
     the sum of the durations of all its device records (kernels, memory
     copies and sets) in torch.profiler's trace of ``reps`` calls, divided by
-    ``reps``.  The tracer now and then keeps no record of a session: such a
-    session is profiled again, up to ``attempts`` times."""
+    ``reps``.  The window opens as ``utils.profiling.trace``'s does, so the
+    tracer's loss of a session's first records falls on
+    ``WARMUP_KERNELS`` spin kernels (left out of the sum) and not on the
+    calls': then a synchronisation and ``WINDOW_MARGIN_S`` of idle card
+    before the calls, and as much after them.  The tracer now and then
+    keeps no record of a session: such a session is profiled again, up to
+    ``attempts`` times."""
     import torch
+
+    from auvtpu_torch.utils.profiling import WARMUP_KERNELS, WINDOW_MARGIN_S
 
     fn()
     torch.cuda.synchronize()
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     for _ in range(attempts):
         with torch.profiler.profile(activities=acts) as prof:
+            for _ in range(WARMUP_KERNELS):
+                torch.cuda._sleep(1000)
+            torch.cuda.synchronize()
+            time.sleep(WINDOW_MARGIN_S)
             for _ in range(reps):
                 fn()
             torch.cuda.synchronize()
-        durs = [e.time_range.elapsed_us() for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+            time.sleep(WINDOW_MARGIN_S)
+        durs = [e.time_range.elapsed_us() for e in prof.events()
+                if e.device_type == torch.autograd.DeviceType.CUDA and "spin_kernel" not in e.name]
         if durs:
             return sum(durs) / reps / 1e3
     raise RuntimeError(f"the profiler kept no device record of {reps} calls in {attempts} sessions")
@@ -735,55 +749,59 @@ def b2_launcher(grid, k: int = 4, R: int = 10, lib=None):
     return launch
 
 
-def b9_launcher(grid, R: int = 10, n_bins: int = 10, lib=None):
-    """A closure launching B9 on the whole of ``grid`` (the isotropic lag
-    bins of empirical_variogram) straight through its library (``lib``, or
-    the checkout's), table, scratch and output made once (the kernel
-    alone: its tile and finish kernels)."""
+def b9_launcher(elev, valid, n_rows: int, n_cols: int, col0: int, dys, dxs, bins, n_out: int, R: int = 10,
+                lib=None):
+    """(A closure launching B9 on the base block ``elev[:n_rows, col0:col0 +
+    n_cols]`` (``pair_sums_ref``'s layout) with the offset table (dys, dxs,
+    bins) straight through its library (``lib``, or the checkout's), its
+    (2, n_out) float64 output): table, scratch and output made once (the
+    kernel alone: its tile and finish kernels)."""
     import torch
 
     from auvtpu_torch.kernels import variogram as kv
-    from auvtpu_torch.variogram import _bin_table
 
-    H, W = grid.shape
-    dev = grid.device
-    dys, dxs, bins, _ = _bin_table(R, n_bins)
-    table = torch.from_numpy(kv.grouped_table(dys, dxs, bins, n_bins)).to(dev)
-    partials = torch.empty((-(-H // kv.TILE) * -(-W // kv.TILE), n_bins, 2), dtype=torch.float64, device=dev)
-    out = torch.empty((2, n_bins), dtype=torch.float64, device=dev)
+    dev = elev.device
+    table = torch.from_numpy(kv.grouped_table(dys, dxs, bins, n_out)).to(dev)
+    partials = torch.empty((-(-n_rows // kv.TILE) * -(-n_cols // kv.TILE), n_out, 2), dtype=torch.float64,
+                           device=dev)
+    out = torch.full((2, n_out), float("nan"), dtype=torch.float64, device=dev)
     lib, stream = lib or kv._lib(), kv._stream(dev)
 
     def launch():
-        err = lib.auvtpu_pair_sums(grid.elev.data_ptr(), grid.elev.stride(0), grid.valid.data_ptr(),
-                                   grid.valid.stride(0), 0, H, W, H, W, 0, R, table.data_ptr(), len(dys), n_bins,
-                                   partials.data_ptr(), out.data_ptr(), stream)
+        err = lib.auvtpu_pair_sums(elev.data_ptr(), elev.stride(0), valid.data_ptr(), valid.stride(0),
+                                   int(elev.dtype == torch.float64), *elev.shape, n_rows, n_cols, col0, R,
+                                   table.data_ptr(), len(dys), n_out, partials.data_ptr(), out.data_ptr(), stream)
         if err:
             raise RuntimeError(f"B9 launch failed ({err})")
 
-    return launch
+    return launch, out
 
 
-def b10_launcher(lags, gamma, counts, iters: int = 25, lib=None):
-    """A closure launching B10 (exponential, the data-driven start) on
-    float32 (lags, gamma, counts) straight through its library (``lib``,
-    or the checkout's), outputs allocated once (the kernel alone)."""
+def b10_launcher(lags, gamma, counts, model: int = 0, iters: int = 25, lib=None):
+    """(A closure launching B10 (``model`` 0..3: exponential, linear,
+    spherical, gaussian; the data-driven start, the package's stop) on
+    (lags, gamma, counts) of one dtype straight through its library
+    (``lib``, or the checkout's), its (3,) parameters in gamma's dtype, its
+    (iters, 2) flags): outputs made once (the kernel alone)."""
     import torch
 
     from auvtpu_torch.kernels import variogram as kv
     from auvtpu_torch.variogram import STOP_DGAMMA
 
     dev = gamma.device
-    out = torch.empty(3, dtype=torch.float32, device=dev)
-    flags = torch.empty((iters, 2), dtype=torch.int8, device=dev)
+    f64 = int(gamma.dtype == torch.float64)
+    out = torch.full((3,), float("nan"), dtype=gamma.dtype, device=dev)
+    flags = torch.full((iters, 2), -1, dtype=torch.int8, device=dev)
     lib, stream = lib or kv._lib(), kv._stream(dev)
 
     def launch():
-        err = lib.auvtpu_fit_model(lags.data_ptr(), 0, gamma.data_ptr(), 0, counts.data_ptr(), 0, gamma.numel(), None,
-                                   0, iters, STOP_DGAMMA, out.data_ptr(), 0, flags.data_ptr(), stream)
+        err = lib.auvtpu_fit_model(lags.data_ptr(), f64, gamma.data_ptr(), f64, counts.data_ptr(), f64,
+                                   gamma.numel(), None, model, iters, STOP_DGAMMA, out.data_ptr(), f64,
+                                   flags.data_ptr(), stream)
         if err:
             raise RuntimeError(f"B10 launch failed ({err})")
 
-    return launch
+    return launch, out, flags
 
 
 def b7_launcher(pack, P: int, cell, fx, fy, tab, k: int, half: float = 0.5, lib=None):
@@ -1585,6 +1603,28 @@ def main() -> int:
         raise AssertionError(f"the fit lands {rel} apart on card and host: {pv} against {host}")
     if not rel_g <= 3e-4:
         raise AssertionError(f"the fitted gamma is {rel_g} from the JAX package's landing")
+    # the fit part of fit_fill (B9 with its cached table, the lag centres
+    # cached on the card, B10) makes the host wait for nothing: under the
+    # "error" sync debug mode a synchronising copy or readback raises.  The
+    # whole of fit_fill runs under "warn", and any synchronising call of its
+    # fill part is named.
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        vp_ns = fit_variogram(grid)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            entry.fit_fill(grid)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    syncs = [f"{os.path.relpath(w.filename, REPO)}:{w.lineno}" for w in caught if "synchroniz" in str(w.message)]
+    if [float(p) for p in vp_ns] != pv:
+        raise AssertionError(f"fit_variogram under the sync debug mode landed at {vp_ns}, not at {pv}")
+    say("entry", f"fit_variogram ran under torch.cuda.set_sync_debug_mode('error'): no synchronising call; "
+        f"fit_fill under 'warn': {len(syncs)} synchronising calls {syncs}")
 
     # B9 against its plain twin on the stand-in in its three layouts (the
     # whole grid, a row band with max_lag rows below it, a 2-D block inside
@@ -1599,6 +1639,21 @@ def main() -> int:
                "row band": (grid.elev[600:1624 + 10], grid.valid[600:1624 + 10], 1024, W, 0),
                "2-D block": (grid.elev[600:1624 + 10, 500:1524 + 20], grid.valid[600:1624 + 10, 500:1524 + 20],
                              1024, 1024, 10)}
+    # the mixed-path grid: the stand-in with a validity of 0.5 in one 32x32
+    # tile block and an inf under an invalid cell in another send those
+    # blocks down B9's general path, the rest down its fast one.  The inf sits
+    # in row 1633, which the band and the 2-D block reach only as partners at
+    # dy = 10, so only the bins holding such offsets are NaN (inf * 0), as in
+    # the twin; the whole grid, where it is a base cell, is held without it
+    e_mix, v_mix = grid.elev.clone(), grid.valid.clone()
+    v_mix[700, 700] = 0.5
+    v_mix[1633, 1000] = 0.0
+    e_inf = e_mix.clone()
+    e_inf[1633, 1000] = float("inf")
+    layouts.update({
+        "mixed-path whole grid": (e_mix, v_mix, H, W, 0),
+        "mixed-path row band": (e_inf[600:1634], v_mix[600:1634], 1024, W, 0),
+        "mixed-path 2-D block": (e_inf[600:1634, 500:1544], v_mix[600:1634, 500:1544], 1024, 1024, 10)})
     tables = (("lag", _bin_table(10, 10)[:3] + (10,)), ("sector x lag", _sector_bin_table(10, 10, 4)[:3] + (40,)))
     for bins_name, tab in tables:
         for lay, args in layouts.items():
@@ -1607,23 +1662,32 @@ def main() -> int:
             again = kv.pair_sums(*args, *tab, 10)
             if not torch.equal(got[1], want[1]):
                 raise AssertionError(f"B9 {lay}, {bins_name} bins: counts differ from the twin's: {got[1]} {want[1]}")
-            rel9 = float(((got[0] - want[0]).abs() / want[0].abs().clamp(min=1e-300)).max())
-            if not (rel9 <= 1e-12 and torch.equal(got[0].float(), want[0].float())):
+            nan = torch.isnan(want[0])
+            inf_layout = lay in ("mixed-path row band", "mixed-path 2-D block")
+            if not torch.equal(torch.isnan(got[0]), nan) or bool(nan.any()) != inf_layout or bool(nan.all()):
+                raise AssertionError(f"B9 {lay}, {bins_name} bins: NaN sums {torch.isnan(got[0]).tolist()} against "
+                                     f"the twin's {nan.tolist()}")
+            g9, w9 = got[0][~nan], want[0][~nan]
+            rel9 = float(((g9 - w9).abs() / w9.abs().clamp(min=1e-300)).max())
+            if not (rel9 <= 1e-12 and torch.equal(g9.float(), w9.float())):
                 raise AssertionError(f"B9 {lay}, {bins_name} bins: sums {rel9} relative from the twin's, or not "
                                      f"equal once rounded to f32")
-            if not (torch.equal(got[0], again[0]) and torch.equal(got[1], again[1])):
+            if not (torch.equal(got[0].view(torch.int64), again[0].view(torch.int64))
+                    and torch.equal(got[1], again[1])):
                 raise AssertionError(f"B9 {lay}, {bins_name} bins: two calls differ")
-            b9_err = max(b9_err, float((got[0] - want[0]).abs().max()))
+            b9_err = max(b9_err, float((g9 - w9).abs().max()))
             say("B9", f"{lay} ({args[2]}x{args[3]} base cells at column {args[4]}, row stride {args[0].stride(0)}), "
-                f"{tab[3]} {bins_name} bins: counts equal, sums {rel9:.3g} relative from the twin's, equal in f32; "
-                f"a second call bit-equal")
+                f"{tab[3]} {bins_name} bins: counts equal, sums {rel9:.3g} relative from the twin's, equal in f32"
+                + (f", {int(nan.sum())} NaN bins as the twin's" if bool(nan.any()) else "")
+                + "; a second call bit-equal")
+    del e_mix, v_mix, e_inf
     # B10 against the plain loop under the stand-in's gamma (float64 in, as
     # the loop computes): every model, 25 steps; landing within 1e-9
     # relative, the per-step (kept, frozen) flags equal
     lags_s, gam_s, cnt_s = empirical_variogram(grid)
     h_s = lags_s * (0.5 * (abs(grid.lat_step) + abs(grid.lon_step)))
     fit_in = (h_s.double(), gam_s.double(), cnt_s.double())
-    b10_err = 0.0
+    b10_err, b10_steps = 0.0, {}
     for model in ("exponential", "linear", "spherical", "gaussian"):
         p_k, flags_k = kv.fit_walk(*fit_in, model=model, iters=25, stop=STOP_DGAMMA)
         rec = []
@@ -1636,8 +1700,11 @@ def main() -> int:
         b10_err = max(b10_err, float((p_k - p_p).abs().max()))
         kept = [i + 1 for i, (k, _) in enumerate(flags_p) if k]
         stop_at = next((i + 1 for i, (_, f) in enumerate(flags_p) if f), None)
+        # the kernel ends its walk at the first step not kept or frozen
+        b10_steps[model] = next((i + 1 for i, (k, f) in enumerate(flags_p) if not k or f), 25)
         say("B10", f"{model:11s} 25 steps: landing {p_k.tolist()}, {rel10:.3g} relative from the plain loop's; "
-            f"per-step flags equal (kept steps {kept}, frozen after step {stop_at})")
+            f"per-step flags equal (kept steps {kept}, frozen after step {stop_at}); the kernel ran "
+            f"{b10_steps[model]} of the 25 steps")
 
     # ---- 7. timing
     sel = wf.topk_full(grid, k=4, max_radius=10)
@@ -1658,11 +1725,11 @@ def main() -> int:
         "torch solve": time_ms(lambda: krige_planes(grid, sel)),
         "pair sums": time_ms(lambda: empirical_variogram(grid)),
         "pair sums device-busy": device_busy_ms(lambda: empirical_variogram(grid)),
-        "B9 kernel alone": device_ms(b9_launcher(grid), "pair_sums_"),
+        "B9 kernel alone": device_ms(b9_launcher(grid.elev, grid.valid, H, W, 0, *iso)[0], "pair_sums_"),
         "B9 wrapper": time_ms(lambda: kv.pair_sums(grid.elev, grid.valid, H, W, 0, *iso, 10)),
         "pair sums plain": time_ms(lambda: kv.pair_sums_ref(grid.elev, grid.valid, H, W, 0, *iso, 10)),
         "variogram fit": time_ms(lambda: fit_variogram(grid)),
-        "B10 kernel alone": device_ms(b10_launcher(h_s, gam_s, cnt_s), "fit_model_kernel"),
+        "B10 kernel alone": device_ms(b10_launcher(h_s, gam_s, cnt_s)[0], "fit_model_kernel"),
         "B10 wrapper": time_ms(lambda: kv.fit_model(h_s, gam_s, cnt_s, iters=25, stop=STOP_DGAMMA)),
         "variogram fit plain": time_ms(lambda: kv.fit_model_ref(h_s, gam_s, cnt_s, iters=25, stop=STOP_DGAMMA)),
         "fit_fill": time_ms(lambda: entry.fit_fill(grid)),
@@ -1673,6 +1740,20 @@ def main() -> int:
             "fused (B1)", "select (B2 + torch solve)", "torch (plain)", "fit_fill") else ""
         say("timing", f"{label:26s} {t:.4f} ms{rate}  [{card}]")
     say("timing", f"peak device memory {torch.cuda.max_memory_allocated(dev) / 2**20:.0f} MiB")
+    # B9's bound (as in the kernels line) and the floor of its design: one
+    # f32 -> f64 conversion a pair, 16 a clock an SM, at the card's largest
+    # SM clock
+    n_pairs9 = float(grid.shape[0] * grid.shape[1] * len(iso[0]))
+    bound9 = bound(4.0 * n_pairs9 / len(iso[0]) * 2 + 16.0 * 10, 4 * n_pairs9, 2 * n_pairs9)
+    counted9 = float(kv.pair_sums(grid.elev, grid.valid, H, W, 0, *iso, 10)[1].sum())
+    sm_mhz = float(subprocess.run(["nvidia-smi", "-i", "0", "--query-gpu=clocks.max.sm",
+                                   "--format=csv,noheader,nounits"],
+                                  capture_output=True, text=True, timeout=60, check=True).stdout.split()[0])
+    n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
+    floor9 = n_pairs9 / (16.0 * n_sm * sm_mhz * 1e6) * 1e3
+    say("timing", f"B9 kernel alone {ms['B9 kernel alone']:.4f} ms against its bound {bound9[0]:.4f} ms ({bound9[1]}) "
+        f"and its conversion floor {floor9:.4f} ms ({n_pairs9:.0f} pairs, {counted9:.0f} of them counted, one "
+        f"f32 -> f64 conversion each, 16 a clock on each of {n_sm} SMs at {sm_mhz:.0f} MHz)  [{card}]")
 
     # ---- 8. B3 and B4 vs their plain versions
     from auvtpu_torch.grid import RegularGrid
@@ -2983,13 +3064,13 @@ def main() -> int:
     bounds["band_resample"] = bound(nq_b * 13 + plane_cells * 4, nq_b * 31)
     # B9 over the whole r0.10 plane: the two planes read once, per pair 4
     # f32 operations (two products, a difference, a square) and 2 f64 adds
-    # (every cell, every offset: the kernel skips none); B10: its ~25 steps'
-    # f64 arithmetic at the stand-in's bins (latency-bound serial work, far
-    # from either bound)
+    # (every cell, every offset, as the function's formula has them); B10:
+    # the f64 arithmetic of the steps its walk runs at the stand-in's bins
+    # (latency-bound serial work, far from either bound)
     n_pairs = float(n) * len(iso[0])
     bounds["pair_sums"] = bound(4.0 * n * 2 + 16.0 * 10, 4 * n_pairs, 2 * n_pairs)
     bounds["fit_model"] = bound(4.0 * 3 * gam_s.numel() + 4.0 * 3, 0.0,
-                                25 * (B10_BIN_OPS * gam_s.numel() + B10_STEP_OPS))
+                                b10_steps["exponential"] * (B10_BIN_OPS * gam_s.numel() + B10_STEP_OPS))
     say("bounds", "; ".join(f"{k} {v[0] * 1e3:.2f} us ({v[1]})" for k, v in bounds.items())
         + f"; rows scanned per cell: k=4 {s4 / n:.3f}, k=8 {s8 / n:.3f} (r0.20), k=4 {s4_bench / n:.3f} (r0.10); "
         f"select kernels at {int(nq)} Grid A queries")

@@ -1,5 +1,5 @@
-"""B1, B2, B3, B5, B6, B7 and B8 of this checkout against another version
-of their sources, on one NVIDIA GPU.
+"""B1, B2, B3, B5, B6, B7, B8, B9 and B10 of this checkout against another
+version of their sources, on one NVIDIA GPU.
 
 Run from the root of a checkout:
 
@@ -7,8 +7,9 @@ Run from the root of a checkout:
 
 where DIR holds the other version (``git archive <commit> auvtpu_torch/csrc
 | tar -x -C DIR``, into a directory .gitignore lists).  Its
-``csrc/window_fill.cu``, ``csrc/scattered_select.cu`` and
-``csrc/band_resample.cu`` are built with the same nvcc flags and called
+``csrc/window_fill.cu``, ``csrc/scattered_select.cu``,
+``csrc/band_resample.cu`` and ``csrc/variogram.cu`` (the ones the kernels
+named by ``--only`` need) are built with the same nvcc flags and called
 through their C interfaces.  The script knows four interfaces and reads
 which one the other version has from its sources: this checkout's; commit
 c5e5ecf's (B2 on a NaN-padded plane, B7 as mode 2 of
@@ -24,15 +25,22 @@ exponential, gj, R=10; B2 k=4 R=10) and r0.20 (B3 idw k=8 and mean k=4 at R=10; 
 256x256 window view as the streaming refresh reads it, B3 idw k=8 at R=5,
 B1 at R=5 and R=10); 1M queries on Grid A (B5 valid16 k=4, B6 radius 2 k=8, B7 radius
 2 k=4); the 5M-ping band weave on the B1-filled band of the stand-in r0.10
-(B8 with hat weights and the default window, at chunks 2048 and 512).  Each
-kernel is timed by its device duration in the profiler's kernel records
-(CUPTI), so no host time enters: back to back (inputs warm in the L2) and
-cold (a 128 MB write before each launch), in the order other, this, this,
-other.  B2's call is timed too, by the device duration of all its records:
-a NaN-padded plane's launches are part of the call in a version whose
-wrapper builds one.  Then the static SASS instruction mix (``cuobjdump -sass``) of the
-timed kernels of both versions, by class.  Prints the card's name and power
-limit beside the numbers.
+(B8 with hat weights and the default window, at chunks 2048 and 512); B9
+on the stand-in r0.10 in chip_smoke's three layouts (the whole grid, a
+1024-row band, a 1024x1024 2-D block) with the lag and the (sector, lag)
+bins, and B10 for the four models on that grid's variogram (25 steps, the
+package's stop), float32 inputs as the fit takes them and float64.  B9's
+and B10's outputs (B10's per-step flags too) are held bit-equal to the
+other version's before they are timed.  Each kernel is timed by its device
+duration in the profiler's kernel records (CUPTI), so no host time enters:
+back to back (inputs warm in the L2) and cold (a 128 MB write before each
+launch), in the order other, this, this, other.  B2's call is timed too,
+by the device duration of all its records: a NaN-padded plane's launches
+are part of the call in a version whose wrapper builds one.  Then the
+static SASS instruction mix (``cuobjdump -sass``) of the timed kernels of
+both versions, by class, and for B9's and B10's kernels each innermost
+loop's instructions, ``F2F.F64.F32`` conversions, shared loads (LDS) and
+float64 adds.  Prints the card's name and power limit beside the numbers.
 """
 
 import argparse
@@ -55,10 +63,12 @@ from auvtpu_torch.grid import RegularGrid  # noqa: E402
 from auvtpu_torch.kernels import band_resample as kb  # noqa: E402
 from auvtpu_torch.kernels import build as kbuild  # noqa: E402
 from auvtpu_torch.kernels import scattered_select as ss  # noqa: E402
+from auvtpu_torch.kernels import variogram as kv  # noqa: E402
 from auvtpu_torch.kernels import window_fill as wf  # noqa: E402
 from auvtpu_torch.ops import band as tband  # noqa: E402
 from auvtpu_torch.ops import packs as tp  # noqa: E402
 from auvtpu_torch.synthetic import shelf_seamount  # noqa: E402
+from auvtpu_torch.variogram import _bin_table, _sector_bin_table, empirical_variogram  # noqa: E402
 
 P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # the earlier interfaces: {C function: {commit: (parameter list, ctypes argument types)}}
@@ -87,7 +97,10 @@ EARLIER = {
         "const void* nanp, const void* tab, int m, int H, int W, int R, int k, void* out, void* stream",
         [P, P, I, I, I, I, I, P, P])},
 }
-THIS_LIB = {"window_fill": wf._lib, "scattered_select": ss._lib, "band_resample": kb._lib}
+THIS_LIB = {"window_fill": wf._lib, "scattered_select": ss._lib, "band_resample": kb._lib, "variogram": kv._lib}
+# the kernels each source holds
+KERNELS_OF = {"window_fill": {"B1", "B2", "B3"}, "scattered_select": {"B5", "B6", "B7"}, "band_resample": {"B8"},
+              "variogram": {"B9", "B10"}}
 
 
 def signature(src: str, fn: str) -> str | None:
@@ -173,6 +186,14 @@ def b2_earlier(lib, grid, R: int, stream):
     return launch, lambda: launch(wf._nan_padded(grid, R))
 
 
+def same_bits(a, b) -> bool:
+    """Equal bit for bit (NaN included)."""
+    if a.dtype.is_floating_point:
+        ints = {8: torch.int64, 4: torch.int32}[a.element_size()]
+        a, b = a.view(ints), b.view(ints)
+    return torch.equal(a, b)
+
+
 SASS_CLASSES = {
     "compare/select": ("FSETP", "ISETP", "FSEL", "SEL", "FMNMX", "IMNMX", "VIMNMX", "PLOP3", "PSETP", "FCHK"),
     "FFMA/FADD/FMUL": ("FFMA", "FADD", "FMUL"),
@@ -182,36 +203,66 @@ SASS_CLASSES = {
 }
 
 
-def sass_mix(lib_path: str, matches: list[str]) -> dict:
-    """{demangled kernel name: {class: static instruction count}} of the
-    kernels in the library whose name, demangled with its template
-    arguments as plain numbers and true/false, holds one of ``matches``."""
+def sass_functions(lib_path: str, matches: list[str]):
+    """(demangled kernel name, SASS text) of the kernels in the library whose
+    name, demangled with its template arguments as plain numbers and
+    true/false, holds one of ``matches``."""
     cuobjdump = os.path.join(os.path.dirname(kbuild.nvcc_path()), "cuobjdump")
     filt = shutil.which("cu++filt", path=os.path.dirname(kbuild.nvcc_path())) or shutil.which("c++filt")
     text = subprocess.run([cuobjdump, "-sass", lib_path], capture_output=True, text=True, check=True).stdout
     blocks = re.split(r"\n\s*Function : ", text)[1:]
-    out = {}
+    found = []
     for block in blocks:
         name = block.split("\n", 1)[0].strip()
         if filt:
             name = subprocess.run([filt, name], capture_output=True, text=True).stdout.strip() or name
         name = re.sub(r"\((?:unsigned )?int\)", "", name.replace("(bool)1", "true").replace("(bool)0", "false"))
-        if not any(m in name for m in matches):
-            continue
+        if any(m in name for m in matches):
+            found.append((name, block))
+    if not found:
+        print(f"SASS {lib_path}: {len(blocks)} functions, none named {matches} (demangler {filt})", flush=True)
+    return found
+
+
+def sass_mix(lib_path: str, matches: list[str]) -> dict:
+    """{demangled kernel name: {class: static instruction count}} of the
+    kernels of :func:`sass_functions`."""
+    out = {}
+    for name, block in sass_functions(lib_path, matches):
         ops = re.findall(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P[T0-9]+\s+)?([A-Z][A-Z0-9_]*)", block)
         counts = collections.Counter(op for op in ops)
         mix = {cls: sum(v for op, v in counts.items() if op in names) for cls, names in SASS_CLASSES.items()}
         mix["total"] = sum(counts.values())
         out[name] = mix
-    if not out:
-        print(f"SASS {lib_path}: {len(blocks)} functions, none named {matches} (demangler {filt})", flush=True)
+    return out
+
+
+def loop_mix(lib_path: str, matches: list[str]) -> dict:
+    """{demangled kernel name: [(instructions, F2F.F64.F32, LDS, DADD) of
+    each innermost loop]}: a loop is the span from a backward branch's
+    target to the branch, innermost where it holds no other such span."""
+    out = {}
+    for name, block in sass_functions(lib_path, matches):
+        ins = [(int(a, 16), op) for a, op in re.findall(r"/\*([0-9a-f]{4,})\*/\s+([^;]*);", block)]
+        loops = []
+        for addr, op in ins:
+            m = re.search(r"\bBRA\b[^;]*?0x([0-9a-f]+)", op)
+            if m and int(m.group(1), 16) < addr:
+                loops.append((int(m.group(1), 16), addr))
+        inner = [(t, a) for t, a in loops if not any(t <= t2 and a2 <= a and (t2, a2) != (t, a) for t2, a2 in loops)]
+        out[name] = []
+        for t, a in inner:
+            body = [op for addr, op in ins if t <= addr <= a]
+            out[name].append((len(body), sum("F2F.F64.F32" in op for op in body),
+                              sum(bool(re.search(r"\bLDS\b", op)) for op in body),
+                              sum(bool(re.search(r"\bDADD\b", op)) for op in body)))
     return out
 
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--parent", required=True, help="root of the other version's checkout")
-    ap.add_argument("--only", default="B1,B2,B3,B5,B6,B7,B8", help="the kernels to time, e.g. B2,B7")
+    ap.add_argument("--only", default="B1,B2,B3,B5,B6,B7,B8,B9,B10", help="the kernels to time, e.g. B2,B7")
     args = ap.parse_args()
     only = set(args.only.split(","))
     if not torch.cuda.is_available():
@@ -220,23 +271,26 @@ def main() -> int:
     dev = torch.device("cuda", 0)
     card = cs.card_line()
     print(card)
-    other = {name: build_other(args.parent, name) for name in THIS_LIB}
-    lib_wf, lib_ss, lib_kb = (other[n][0] for n in ("window_fill", "scattered_select", "band_resample"))
-    ifc = {
-        "B1": interface(args.parent, "window_fill", lib_wf, "auvtpu_kriging_fill"),
-        "B2": interface(args.parent, "window_fill", lib_wf, "auvtpu_topk_full"),
-        "B3": interface(args.parent, "window_fill", lib_wf, "auvtpu_fill"),
-        "B5": interface(args.parent, "scattered_select", lib_ss, "auvtpu_scattered_select"),
-        "B6": interface(args.parent, "scattered_select", lib_ss, "auvtpu_idw_select"),
-        "B7": interface(args.parent, "scattered_select", lib_ss, "auvtpu_window_select"),
-        "B8": interface(args.parent, "band_resample", lib_kb, "auvtpu_band_resample"),
-    }
-    if ifc["B6"] is None and ifc["B5"] != "91269b4":
+    other = {name: build_other(args.parent, name) for name, ks in KERNELS_OF.items() if ks & only}
+    lib_wf, lib_ss, lib_kb, lib_kv = (other.get(n, (None,))[0] for n in KERNELS_OF)
+    ifc = {}
+    for name, lib, fns in (("window_fill", lib_wf, (("B1", "auvtpu_kriging_fill"), ("B2", "auvtpu_topk_full"),
+                                                     ("B3", "auvtpu_fill"))),
+                           ("scattered_select", lib_ss, (("B5", "auvtpu_scattered_select"),
+                                                         ("B6", "auvtpu_idw_select"),
+                                                         ("B7", "auvtpu_window_select"))),
+                           ("band_resample", lib_kb, (("B8", "auvtpu_band_resample"),)),
+                           ("variogram", lib_kv, (("B9", "auvtpu_pair_sums"), ("B10", "auvtpu_fit_model")))):
+        if lib is not None:
+            ifc.update({k: interface(args.parent, name, lib, fn) for k, fn in fns})
+    if lib_ss is not None and ifc["B6"] is None and ifc["B5"] != "91269b4":
         raise SystemExit("the other version has neither auvtpu_idw_select nor 91269b4's B6 mode")
-    if ifc["B7"] is None and ifc["B5"] == "this":
+    if lib_ss is not None and ifc["B7"] is None and ifc["B5"] == "this":
         raise SystemExit("the other version has neither auvtpu_window_select nor an earlier B7 mode")
-    if ifc["B1"] is None or ifc["B2"] is None:
+    if lib_wf is not None and (ifc["B1"] is None or ifc["B2"] is None):
         raise SystemExit("the other version has no auvtpu_kriging_fill or no auvtpu_topk_full")
+    if lib_kv is not None and (ifc["B9"] != "this" or ifc["B10"] != "this"):
+        raise SystemExit("the other version's B9 or B10 has another interface than this checkout's")
     print("other version's interfaces: " + ", ".join(f"{k} {v or 'a mode of B5'}" for k, v in ifc.items()),
           flush=True)
     stream = wf._stream(dev)
@@ -289,15 +343,60 @@ def main() -> int:
                           cs.b3_launcher(g, kind, k, R), "fill_tile_kernel"))
     del grid2, win
 
+    # B9 on the stand-in r0.10 in chip_smoke's three layouts, both bin
+    # tables, and B10 for the four models on its variogram: outputs bit-equal
+    # to the other version's, then timed
+    if "B9" in only:
+        H, W = grid.shape
+        layouts = {"whole grid": (grid.elev, grid.valid, H, W, 0),
+                   "row band": (grid.elev[600:1634], grid.valid[600:1634], 1024, W, 0),
+                   "2-D block": (grid.elev[600:1634, 500:1544], grid.valid[600:1634, 500:1544], 1024, 1024, 10)}
+        for bins_name, (dys, dxs, bins, n_out) in (("lag", _bin_table(10, 10)[:3] + (10,)),
+                                                   ("sector x lag", _sector_bin_table(10, 10, 4)[:3] + (40,))):
+            for lay, lay_args in layouts.items():
+                old_fn, old_out = cs.b9_launcher(*lay_args, dys, dxs, bins, n_out, lib=lib_kv)
+                new_fn, new_out = cs.b9_launcher(*lay_args, dys, dxs, bins, n_out)
+                old_fn()
+                new_fn()
+                torch.cuda.synchronize()
+                if not same_bits(old_out, new_out):
+                    raise SystemExit(f"B9 {lay}, {bins_name} bins: this version's sums {new_out.tolist()} are not the "
+                                     f"other's {old_out.tolist()} bit for bit")
+                print(f"B9 {lay}, {bins_name} bins: (2, {n_out}) float64 output bit-equal to the other version's",
+                      flush=True)
+                cases.append((f"stand-in r0.10 B9 {lay}, {bins_name} bins", old_fn, "pair_sums_", new_fn,
+                              "pair_sums_"))
+    if "B10" in only:
+        lags, gam, cnt = empirical_variogram(grid)
+        lags = lags * (0.5 * (abs(grid.lat_step) + abs(grid.lon_step)))
+        for model_i, model in enumerate(("exponential", "linear", "spherical", "gaussian")):
+            for dt in (torch.float32, torch.float64):
+                fit_in = (lags.to(dt), gam.to(dt), cnt.to(dt))
+                old_fn, o_p, o_f = cs.b10_launcher(*fit_in, model=model_i, lib=lib_kv)
+                new_fn, n_p, n_f = cs.b10_launcher(*fit_in, model=model_i)
+                old_fn()
+                new_fn()
+                torch.cuda.synchronize()
+                if not (same_bits(o_p, n_p) and torch.equal(o_f, n_f)):
+                    raise SystemExit(f"B10 {model} {dt}: parameters {n_p.tolist()} and flags {n_f.tolist()} against "
+                                     f"the other version's {o_p.tolist()}, {o_f.tolist()}")
+                steps = next((i + 1 for i, (k, f) in enumerate(n_f.tolist()) if not k or f), 25)
+                print(f"B10 {model} {str(dt)[6:]}: parameters {n_p.tolist()} and the 25 steps' flags bit-equal to the "
+                      f"other version's; the walk ends at step {steps}", flush=True)
+                if dt == torch.float32:
+                    cases.append((f"stand-in r0.10 B10 {model} 25 steps", old_fn, "fit_model_kernel", new_fn,
+                                  "fit_model_kernel"))
+
     # B5, B6, B7 at 1M Grid A queries (chip_smoke phase 15)
-    gA = RegularGrid.dense(shelf_seamount(*GRID_A_SHAPE), GRID_A_EXTENT, device=dev)
-    qA = cs.scattered_queries(GRID_A_EXTENT, *GRID_A_SHAPE, cs.N_SCATTER, 7, dev)
-    _, _, _, _, _, cellA, fxA, fyA = ss.prologue(gA, *qA)
-    p16 = tp.build_valid16_pack(gA)
-    winA, _ = tp.build_pack(gA, tp.window_offsets(2), clamp=False)
-    tab16 = ss.table(tp.VALID16_OFFSETS, 16, 2, "dy", dev)
-    tab32 = ss.table(tp.window_offsets(2), 32, 2, "dy", dev)
-    tab32n = ss.table(tp.window_offsets(2), 32, 2, "dx", dev)
+    if only & KERNELS_OF["scattered_select"]:
+        gA = RegularGrid.dense(shelf_seamount(*GRID_A_SHAPE), GRID_A_EXTENT, device=dev)
+        qA = cs.scattered_queries(GRID_A_EXTENT, *GRID_A_SHAPE, cs.N_SCATTER, 7, dev)
+        _, _, _, _, _, cellA, fxA, fyA = ss.prologue(gA, *qA)
+        p16 = tp.build_valid16_pack(gA)
+        winA, _ = tp.build_pack(gA, tp.window_offsets(2), clamp=False)
+        tab16 = ss.table(tp.VALID16_OFFSETS, 16, 2, "dy", dev)
+        tab32 = ss.table(tp.window_offsets(2), 32, 2, "dy", dev)
+        tab32n = ss.table(tp.window_offsets(2), 32, 2, "dx", dev)
     if "B5" in only:
         cases.append(("Grid A 1M B5 valid16 k=4",
                       select_launcher(lib_ss, ifc["B5"], p16, 16, cellA, fxA, fyA, tab16, 0, 4, stream), "select_kernel",
@@ -315,31 +414,32 @@ def main() -> int:
                       cs.b7_launcher(winA, 32, cellA, fxA, fyA, tab32n, k), "window_select_kernel"))
 
     # B8 on the 5M band weave
-    tracks = cs.band_tracks(grid, cs.N_BAND)
-    rb = tband.BandRouter(grid)
-    band = rb.prepare(*tracks["band"])
-    rs = rb._resampler
-    b_args, b_kw = cs.b8_call(rs, *tracks["band"])
-    # the band-frame coordinates, padded to whole chunks of 2048 (and so of 512)
-    _, x, y, _ = tband.BandResampler(grid, band, chunk=2048, win_rows=rs.wr, win_cols=rs.wc,
-                                     lerp_mode=rs.lerp_mode).coords(*tracks["band"])
-    x, y = x.contiguous(), y.contiguous()
-    K, R_, C_ = 1, *band.shape
-    geo = kb.geometry(R_, C_, rs.wr, rs.wc, False)
-    zo = torch.empty(x.numel(), device=dev)
-    oko = torch.empty(x.numel(), dtype=torch.bool, device=dev)
-    org = torch.zeros((1, 2), device=dev)
-    for chunk in (2048, 512) if "B8" in only else ():
-        kw = dict(b_kw, chunk=chunk)
-        if ifc["B8"] == "9ff8bad":
-            def old(chunk=chunk, kw=kw):
-                lib_kb.auvtpu_band_resample(band.plane.data_ptr(), None, org.data_ptr(), K, R_, C_, x.data_ptr(),
-                                            y.data_ptr(), x.numel(), chunk, *geo, 0, 0, int(kw["hat"]),
-                                            kb.WSUM_THRESH, zo.data_ptr(), oko.data_ptr(), stream)
-        else:
-            old = cs.b8_launcher(b_args, kw, lib=lib_kb)
-        cases.append((f"band weave {cs.N_BAND} pings chunk {chunk}", old, "band_resample_",
-                      cs.b8_launcher(b_args, kw), "band_resample_"))
+    if "B8" in only:
+        tracks = cs.band_tracks(grid, cs.N_BAND)
+        rb = tband.BandRouter(grid)
+        band = rb.prepare(*tracks["band"])
+        rs = rb._resampler
+        b_args, b_kw = cs.b8_call(rs, *tracks["band"])
+        # the band-frame coordinates, padded to whole chunks of 2048 (and so of 512)
+        _, x, y, _ = tband.BandResampler(grid, band, chunk=2048, win_rows=rs.wr, win_cols=rs.wc,
+                                         lerp_mode=rs.lerp_mode).coords(*tracks["band"])
+        x, y = x.contiguous(), y.contiguous()
+        K, R_, C_ = 1, *band.shape
+        geo = kb.geometry(R_, C_, rs.wr, rs.wc, False)
+        zo = torch.empty(x.numel(), device=dev)
+        oko = torch.empty(x.numel(), dtype=torch.bool, device=dev)
+        org = torch.zeros((1, 2), device=dev)
+        for chunk in (2048, 512):
+            kw = dict(b_kw, chunk=chunk)
+            if ifc["B8"] == "9ff8bad":
+                def old(chunk=chunk, kw=kw):
+                    lib_kb.auvtpu_band_resample(band.plane.data_ptr(), None, org.data_ptr(), K, R_, C_, x.data_ptr(),
+                                                y.data_ptr(), x.numel(), chunk, *geo, 0, 0, int(kw["hat"]),
+                                                kb.WSUM_THRESH, zo.data_ptr(), oko.data_ptr(), stream)
+            else:
+                old = cs.b8_launcher(b_args, kw, lib=lib_kb)
+            cases.append((f"band weave {cs.N_BAND} pings chunk {chunk}", old, "band_resample_",
+                          cs.b8_launcher(b_args, kw), "band_resample_"))
 
     for label, old, old_name, new, new_name in cases:
         for cold in (False, True):
@@ -359,11 +459,17 @@ def main() -> int:
                "select_kernel<32, 2>", "idw_select_kernel<25, 32, true>", "window_select_kernel<25, 4, true>",
                "window_select_kernel<25, 8, true>", "fill_tile_kernel<0, 4>", "topk_full_kernel<4, false>",
                "topk_tile_kernel<4, 8>"]
-    for who, paths in (("other", [other[n][1] for n in ("window_fill", "scattered_select")]),
-                       ("this", [str(kbuild.library_path(n)) for n in ("window_fill", "scattered_select")])):
+    matches += ["pair_sums_tile_kernel<float>", "pair_sums_finish_kernel", "fit_model_kernel"]
+    names = [n for n in ("window_fill", "scattered_select", "variogram") if n in other]
+    for who, paths in (("other", [other[n][1] for n in names]),
+                       ("this", [str(kbuild.library_path(n)) for n in names])):
         for path in paths:
             for name, mix in sass_mix(path, matches).items():
                 print(f"SASS {who:5s} {name[:90]:90s} " + ", ".join(f"{c} {v}" for c, v in mix.items()), flush=True)
+            if "variogram" in os.path.basename(path):
+                for name, loops in loop_mix(path, ["pair_sums_tile_kernel<float>", "fit_model_kernel"]).items():
+                    print(f"SASS {who:5s} {name[:60]:60s} innermost loops (instructions, F2F.F64.F32, LDS, DADD): "
+                          f"{loops}", flush=True)
     return 0
 
 

@@ -3,11 +3,11 @@ NVIDIA GPU: the time a call takes to return on the host (the checks, the
 allocation, the dispatch and the launch, not the kernel's run), for the
 four kernels that are ``torch.library`` custom ops in this checkout; and
 the two small calls they decide end to end: the streaming window refresh
-and the mission tick.
+and the mission tick; and the flagship fit-then-fill, ``entry.fit_fill``.
 
 Run from the root of a checkout:
 
-    python3 scripts/op_overhead.py [--repo DIR] [--label NAME]
+    python3 scripts/op_overhead.py [--repo DIR] [--label NAME] [--only PARTS]
 
 ``--repo`` imports ``auvtpu_torch`` from DIR instead (another version
 unpacked with ``git archive``, into a directory .gitignore lists), so two
@@ -22,9 +22,13 @@ every 8 calls so the queue never fills.  The window refresh is
 mosaic of the r0.20 stand-in's observed cells, its plane copied to the host
 each call; the tick is chip_smoke.py's ``tick_latency`` loop (this
 checkout's loop driving the timed checkout's package: 512-ping ticks of
-``BandRouter.kriging``, a refresh every 32).  Prints the quartiles (wrapper
-calls and refreshes) or p50/p99 (ticks) as one JSON line, with the card's
-name and power limit.
+``BandRouter.kriging``, a refresh every 32).  ``fit_fill`` runs on the
+r0.10 stand-in: CUDA events around back-to-back calls, its device-busy time
+(this checkout's ``chip_smoke.device_busy_ms``) and its host time a call.
+``--only`` takes a comma list of ``wrappers``, ``refresh``, ``tick`` and
+``fit_fill`` (all by default).  Prints the quartiles (wrapper calls,
+refreshes, fit_fill's host time) or p50/p99 (ticks) as one JSON line, with
+the card's name and power limit.
 """
 
 import argparse
@@ -82,13 +86,16 @@ def main() -> int:
     p = argparse.ArgumentParser(description=__doc__, formatter_class=argparse.RawDescriptionHelpFormatter)
     p.add_argument("--repo", default=ROOT, help="the checkout whose auvtpu_torch is timed")
     p.add_argument("--label", default=None)
+    p.add_argument("--only", default="wrappers,refresh,tick,fit_fill", help="the parts to time")
     args = p.parse_args()
+    only = set(args.only.split(","))
     sys.path.insert(0, os.path.abspath(args.repo))
     import torch
 
     if not torch.cuda.is_available():
         print("op_overhead: torch sees no CUDA device", file=sys.stderr)
         return 1
+    from auvtpu_torch import entry
     from auvtpu_torch.cli.mission import synthetic_trajectory
     from auvtpu_torch.config import KERGUELEN_EXTENT as EXT
     from auvtpu_torch.grid import RegularGrid
@@ -105,30 +112,40 @@ def main() -> int:
     dev = torch.device("cuda", 0)
     elev = kerguelen_standin((2053, 2441))
     grid, grid2 = (RegularGrid.from_nan_array(mask_grid(elev, r)[0], EXT, device=dev) for r in (0.10, 0.20))
-    rng = np.random.default_rng(8)
-    lons = torch.from_numpy(rng.uniform(EXT.min_lon, EXT.max_lon, 1_000_000).astype(np.float32)).to(dev)
-    lats = torch.from_numpy(rng.uniform(EXT.min_lat, EXT.max_lat, 1_000_000).astype(np.float32)).to(dev)
-    win = tp.build_pack(grid, tp.window_offsets(2), clamp=False)[0]
-    tlon, tlat = (torch.from_numpy(t).to(dev) for t in synthetic_trajectory("band", grid, 5_000_000, 0))
-    router = tband.BandRouter(grid)
-    router.prepare(tlon, tlat)
-    rs = router._resampler
-    calls = {
-        "B1 fill_kriging_fused r0.10": lambda: wf.fill_kriging_fused(grid),
-        "B3 fill_idw_fused r0.20": lambda: wf.fill_idw_fused(grid2),
-        "B7 window_select_fused 1M": lambda: ss.window_select_fused(win, grid, lons, lats, k=4),
-        "B8 BandResampler.resample 5M": lambda: rs.resample(tlon, tlat),
-    }
-    out = {name: host_us(fn) for name, fn in calls.items()}
-    si = StreamingInterpolator(grid2.shape, EXT, window=(256, 256), method="idw", max_radius=5, device=dev)
-    prior = grid2.to_nan_array()
-    rr, cc = np.nonzero(~np.isnan(prior))
-    si.ingest(rr, cc, prior[rr, cc])
-    si.flush()
-    out["window refresh 256x256 idw"] = refresh_us(si)
-    tick = smoke_module().tick_latency(grid, dev)
-    print(json.dumps({"label": args.label or os.path.abspath(args.repo), "card": card, "host_us_q25_q50_q75": out,
-                      "tick_ms": {k: tick[k] for k in ("p50", "p99", "post_p50", "refresh_p50", "n")}}), flush=True)
+    out, res = {}, {"label": args.label or os.path.abspath(args.repo), "card": card}
+    if "wrappers" in only:
+        rng = np.random.default_rng(8)
+        lons = torch.from_numpy(rng.uniform(EXT.min_lon, EXT.max_lon, 1_000_000).astype(np.float32)).to(dev)
+        lats = torch.from_numpy(rng.uniform(EXT.min_lat, EXT.max_lat, 1_000_000).astype(np.float32)).to(dev)
+        win = tp.build_pack(grid, tp.window_offsets(2), clamp=False)[0]
+        tlon, tlat = (torch.from_numpy(t).to(dev) for t in synthetic_trajectory("band", grid, 5_000_000, 0))
+        router = tband.BandRouter(grid)
+        router.prepare(tlon, tlat)
+        rs = router._resampler
+        calls = {
+            "B1 fill_kriging_fused r0.10": lambda: wf.fill_kriging_fused(grid),
+            "B3 fill_idw_fused r0.20": lambda: wf.fill_idw_fused(grid2),
+            "B7 window_select_fused 1M": lambda: ss.window_select_fused(win, grid, lons, lats, k=4),
+            "B8 BandResampler.resample 5M": lambda: rs.resample(tlon, tlat),
+        }
+        out.update({name: host_us(fn) for name, fn in calls.items()})
+    if "refresh" in only:
+        si = StreamingInterpolator(grid2.shape, EXT, window=(256, 256), method="idw", max_radius=5, device=dev)
+        prior = grid2.to_nan_array()
+        rr, cc = np.nonzero(~np.isnan(prior))
+        si.ingest(rr, cc, prior[rr, cc])
+        si.flush()
+        out["window refresh 256x256 idw"] = refresh_us(si)
+    if "fit_fill" in only:
+        cs = smoke_module()
+        out["fit_fill r0.10"] = host_us(lambda: entry.fit_fill(grid), reps=100)
+        res["fit_fill_ms"] = {"events": cs.time_ms(lambda: entry.fit_fill(grid)),
+                              "device_busy": cs.device_busy_ms(lambda: entry.fit_fill(grid))}
+    res["host_us_q25_q50_q75"] = out
+    if "tick" in only:
+        tick = smoke_module().tick_latency(grid, dev)
+        res["tick_ms"] = {k: tick[k] for k in ("p50", "p99", "post_p50", "refresh_p50", "n")}
+    print(json.dumps(res), flush=True)
     return 0
 
 

@@ -6,13 +6,17 @@ On the CPU a wrapper runs its plain twin (the loops that
 the wrappers must give the twins' results bit for bit and launch nothing.
 B9's bin-grouped offset table must hold the plain tables' offsets once
 each; B10's arithmetic (its analytic Jacobian, LU solve and walk), written
-out in Python as the kernel computes it, must walk as the plain loop walks;
-and the fit must land in one place under the float64 noise a different
-summation order gives (B9 sums in another order than torch).  The tests
-marked ``cuda`` hold the kernels to their twins on a card and skip here:
-B9 counts equal, sums within 1e-12 relative and equal once rounded to
-float32, two calls bit-equal; B10 within 1e-9 relative with the same
-per-step (kept, frozen) flags.
+out in Python as the kernel computes it (each curve evaluated once a bin a
+step, the walk ended at the first step not kept or frozen), must walk as
+the plain loop walks, and the plain loop's own record must show that
+nothing changes after that step; B9's fast path, rendered in torch, must
+give the plain sums bit for bit where its identity holds; and the fit must
+land in one place under the float64 noise a different summation order
+gives (B9 sums in another order than torch).  The tests marked ``cuda``
+hold the kernels to their twins on a card and skip here: B9 counts equal,
+sums within 1e-12 relative and equal once rounded to float32, two calls
+bit-equal; B10 within 1e-9 relative with the same per-step (kept, frozen)
+flags; the fit's launches make the host wait for nothing.
 """
 
 import math
@@ -154,22 +158,117 @@ def test_the_launches_refuse_cpu_tensors():
 
 
 # ---------------------------------------------------------------------------
+# B9's fast path, rendered in torch: the NaN-coded plane (the elevation where
+# the validity is 1, NaN elsewhere and outside the plane), each pair adding
+# fmax(d * d, 0) with d = e0 - p (+0 where either end is NaN, so invalid
+# bases add nothing), the counts integers (both ends not NaN: the kernel's
+# popcounts of row masks).  Where every cell has a validity of 0 or 1 and
+# |elevation| <= 2**126 (2**1022 in f64) it gives pair_sums_ref's float64
+# sums and counts bit for bit; a tile block that breaks that takes the
+# kernel's general path
+# ---------------------------------------------------------------------------
+
+FAST_LIMIT = {torch.float32: 2.0 ** 126, torch.float64: 2.0 ** 1022}
+
+
+def _fast_path_qualifies(elev, valid):
+    """The kernel's vote over a block's halo, for a whole plane."""
+    return bool((((valid == 0) | (valid == 1)) & (elev.abs() <= FAST_LIMIT[elev.dtype])).all())
+
+
+def _fast_path_sums(elev, valid, n_rows, n_cols, col0, dys, dxs, bin_of, n_out, max_lag):
+    H, Wb, R = n_rows, n_cols, max_lag
+    word = torch.where(valid == 1, elev, torch.full_like(elev, float("nan")))
+    wp = torch.nn.functional.pad(word, (R, R, 0, R), value=float("nan"))
+    base = word[:H, col0:col0 + Wb]
+    s = torch.zeros(n_out, dtype=torch.float64)
+    n = torch.zeros(n_out, dtype=torch.int64)
+    for dy, dx, b in zip(*(np.asarray(a).tolist() for a in (dys, dxs, bin_of))):
+        p = wp[dy:dy + H, R + col0 + dx:R + col0 + dx + Wb]
+        d = base - p
+        s[b] += torch.sum(torch.fmax(d * d, torch.zeros_like(d)), dtype=torch.float64)
+        n[b] += ((base == base) & (p == p)).sum()
+    return s, n.to(torch.float64)
+
+
+def _identity_planes(dtype, seed=3, h=41, w=53):
+    """Seeded planes with all-invalid rows, -0.0 elevations at valid cells
+    and non-zero elevations under invalid cells."""
+    rng = np.random.default_rng(seed)
+    valid = (rng.random((h, w)) > 0.3).astype(np.float64)
+    valid[[4, 17, 18]] = 0.0
+    elev = rng.normal(-500.0, 80.0, (h, w))
+    elev[rng.random((h, w)) < 0.05] = -0.0
+    return torch.from_numpy(elev).to(dtype), torch.from_numpy(valid).to(dtype)
+
+
+def _layouts(e, v, R):
+    h, w = e.shape
+    return {"whole grid": (e, v, h, w, 0), "row band": (e, v, h - R, w, 0),
+            "2-D block": (e, v, h - R, w - 2 * R, R)}
+
+
+@pytest.mark.parametrize("layout", ["whole grid", "row band", "2-D block"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_b9_fast_path_is_bit_equal_to_the_plain_sums(dtype, layout):
+    R = 6
+    e, v = _identity_planes(dtype)
+    assert bool((e[v == 0] != 0).any()) and bool((torch.signbit(e) & (e == 0) & (v == 1)).any())
+    assert _fast_path_qualifies(e, v)
+    args = _layouts(e, v, R)[layout]
+    for dys, dxs, bins, n_out in (tv._bin_table(R, 6)[:3] + (6,), tv._sector_bin_table(R, 6, 4)[:3] + (24,)):
+        table = kv.split_table(kv.grouped_table(dys, dxs, bins, n_out), n_out)  # the kernel's order
+        s, c = _fast_path_sums(*args, *table, n_out, R)
+        ws, wc = kv.pair_sums_ref(*args, dys, dxs, bins, n_out, R)
+        _same(s, ws)
+        _same(c, wc)
+        assert float(c.sum()) > 0
+
+
+@pytest.mark.parametrize("case", ["validity 0.5", "inf under an invalid cell", "overflowing difference"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_b9_fast_path_identity_fails_off_its_domain(dtype, case):
+    # each grid breaks the identity, so the kernel's vote must send its
+    # blocks down the general path
+    R = 6
+    e, v = _identity_planes(dtype)
+    if case == "validity 0.5":
+        v[20, 20] = 0.5
+    elif case == "inf under an invalid cell":
+        e[4, 30] = float("inf")
+    else:  # a huge elevation under an invalid cell beside a valid one
+        big = 3e38 if dtype == torch.float32 else 1.7e308
+        e[4, 30], e[5, 30], v[5, 30] = big, -big, 1.0
+    assert not _fast_path_qualifies(e, v)
+    dys, dxs, bins, _ = tv._bin_table(R, 6)
+    args = _layouts(e, v, R)["whole grid"]
+    s, c = _fast_path_sums(*args, *kv.split_table(kv.grouped_table(dys, dxs, bins, 6), 6), 6, R)
+    ws, wc = kv.pair_sums_ref(*args, dys, dxs, bins, 6, R)
+    assert not (torch.equal(s, ws) and torch.equal(c, wc))
+
+
+# ---------------------------------------------------------------------------
 # B10's arithmetic, written out as fit_model_kernel computes it (analytic
 # Jacobian in the log parameters, LU with partial pivoting, the walk)
 # ---------------------------------------------------------------------------
 
-def _curve(model, h, p0, p1, p2r):
-    """(value, d value / d log p) as fit_model_kernel's curve<true>."""
-    live = p2r >= 1e-6
-    p2 = 1e-6 if p2r < 1e-6 else p2r
+def _shape(model, h, p2r):
+    """(u, E) as fit_model_kernel's shape: u = h / p2, the exp term."""
+    if model == "linear":
+        return 0.0, 0.0
+    u = h / (1e-6 if p2r < 1e-6 else p2r)
+    return u, math.exp(-(u * u)) if model == "gaussian" else math.exp(-u) if model == "exponential" else 0.0
+
+
+def _curve(model, h, u, E, p0, p1, live):
+    """(value, d value / d log p) as fit_model_kernel's curve<true>, from the
+    bin's shape terms."""
     if model == "linear":
         return p0 + p1 * h, (p0, p1 * h, 0.0)
-    u = h / p2
     if model == "spherical":
         m = 1.0 if u > 1.0 else u
         f = 1.5 * m - 0.5 * (m * m * m)
         return p0 + p1 * f, (p0, p1 * f, -(p1 * ((1.5 - 1.5 * (m * m)) * m)) if live and u <= 1.0 else 0.0)
-    E = math.exp(-(u * u)) if model == "gaussian" else math.exp(-u)
     f = 1.0 - E
     d2 = -(p1 * (E * (2.0 * (u * u)))) if model == "gaussian" else -(p1 * (E * u))
     return p0 + p1 * f, (p0, p1 * f, d2 if live else 0.0)
@@ -190,17 +289,24 @@ def _solve3(a, b):
 
 
 def _kernel_walk(h, g, c, model, iters, init, stop):
+    """fit_model_kernel's walk: each bin's curve evaluated once a step (the
+    Jacobian pass reads the shape terms the last kept candidate left), and
+    the walk ended at the first step not kept or frozen, the rest recorded
+    as (0, frozen)."""
     tot = max(sum(c), 1.0)
     sw = [math.sqrt(x / tot) for x in c]
     if init is None:
         sill0, maxlag = max(max(g), 1e-3), max(max(h), 1e-9)
         init = (0.01 * sill0, sill0 / maxlag if model == "linear" else sill0, maxlag / 3.0)
-    th, frozen, flags = [math.log(x) for x in init], False, []
-    for _ in range(iters):
-        p = [math.exp(x) for x in th]
-        acc = [0.0] * 10
-        for hi, gi, si in zip(h, g, sw):
-            val, dc = _curve(model, hi, *p)
+    th = [math.log(x) for x in init]
+    p = [math.exp(x) for x in th]
+    shapes = [_shape(model, hi, p[2]) for hi in h]
+    frozen, flags = False, []
+    while len(flags) < iters:
+        acc, now = [0.0] * 10, []
+        for hi, gi, si, (u, E) in zip(h, g, sw, shapes):
+            val, dc = _curve(model, hi, u, E, p[0], p[1], p[2] >= 1e-6)
+            now.append(val)
             r = (val - gi) * si
             j = [d * si for d in dc]
             for k, t in enumerate((j[0] * j[0], j[0] * j[1], j[0] * j[2], j[1] * j[1], j[1] * j[2], j[2] * j[2],
@@ -210,16 +316,21 @@ def _kernel_walk(h, g, c, model, iters, init, stop):
         A = [[acc[0] + damp, acc[1], acc[2]], [acc[1], acc[3] + damp, acc[4]], [acc[2], acc[4], acc[5] + damp]]
         new = [t - min(max(d, -2.0), 2.0) for t, d in zip(th, _solve3(A, acc[6:9]))]
         q = [math.exp(x) for x in new]
+        q_shapes = [_shape(model, hi, q[2]) for hi in h]
         ssn, moved = 0.0, 0.0
-        for hi, gi, si, ci in zip(h, g, sw, c):
-            now, nxt = _curve(model, hi, *p)[0], _curve(model, hi, *q)[0]
+        for hi, gi, si, ci, nv, (u, E) in zip(h, g, sw, c, now, q_shapes):
+            nxt = _curve(model, hi, u, E, q[0], q[1], q[2] >= 1e-6)[0]
             ssn += ((nxt - gi) * si) ** 2
             if ci > 0:
-                moved = max(moved, abs(nxt - now) / abs(now))
-        keep = not frozen and ssn <= acc[9]
-        th = new if keep else th
-        frozen = frozen or (keep and moved < stop)
+                moved = max(moved, abs(nxt - nv) / abs(nv))
+        keep = ssn <= acc[9]
+        frozen = keep and moved < stop
         flags.append([int(keep), int(frozen)])
+        if keep:
+            th, p, shapes = new, q, q_shapes
+        if not keep or frozen:
+            break
+    flags += [[0, int(frozen)]] * (iters - len(flags))
     return [math.exp(x) for x in th], flags
 
 
@@ -230,7 +341,8 @@ def test_b10_jacobian_is_jacfwds(model):
         t = torch.tensor(th, dtype=torch.float64)
         want = torch.func.jacfwd(lambda x: tv.variogram_model(h, torch.exp(x), model))(t)
         p = [math.exp(x) for x in th]
-        got = torch.tensor([_curve(model, float(x), *p)[1] for x in h], dtype=torch.float64)
+        got = torch.tensor([_curve(model, float(x), *_shape(model, float(x), p[2]), p[0], p[1], p[2] >= 1e-6)[1]
+                            for x in h], dtype=torch.float64)
         torch.testing.assert_close(got, want, rtol=1e-13, atol=1e-300)
 
 
@@ -263,6 +375,44 @@ def test_b10_arithmetic_walks_as_the_plain_loop(standin_sums, model, iters, give
     got, flags = _kernel_walk(h.tolist(), gam.tolist(), cnt.tolist(), model, iters, init, tv.STOP_DGAMMA)
     assert flags == [[int(k), int(f)] for k, f in rec]
     np.testing.assert_allclose(got, [float(p) for p in want], rtol=1e-9)
+
+
+def _linear_gamma():
+    """test_stop_rule_freezes_on_a_linear_variogram's data: 0.1 + 36,530 h
+    with a 1e-3 sampling noise, 500 pairs a bin."""
+    rng = np.random.default_rng(0)
+    h = torch.linspace(0.002, 0.038, 10)
+    gam = ((0.1 + 36530.0 * h.double()) * torch.from_numpy(1 + 1e-3 * rng.standard_normal(10))).float()
+    return h, gam, torch.full((10,), 500.0)
+
+
+@pytest.mark.parametrize("stop", ["STOP_DGAMMA", "0"])
+@pytest.mark.parametrize("data", ["stand-in", "linear"])
+@pytest.mark.parametrize("model", MODELS)
+def test_plain_loop_changes_nothing_after_its_first_rejection_or_freeze(standin_sums, model, data, stop):
+    # what lets B10 stop early: in fit_model_ref's record every step after
+    # the first one that is not kept or that freezes is (False, frozen), and
+    # the landing is that of the loop cut at that step; a walk with no such
+    # step keeps every step
+    iters, stop_ = 120, tv.STOP_DGAMMA if stop == "STOP_DGAMMA" else 0.0
+    if data == "stand-in":
+        _, s, c, step = standin_sums
+        gam, cnt = _gamma(s, c)
+        h = torch.as_tensor(tv._bin_table(10, 10)[3], dtype=torch.float32) * step
+    else:
+        h, gam, cnt = _linear_gamma()
+    rec = []
+    full = kv.fit_model_ref(h, gam, cnt, model=model, iters=iters, stop=stop_, record=rec)
+    flags = [(bool(k), bool(f)) for k, f in rec]
+    first = next((i for i, (k, f) in enumerate(flags) if not k or f), None)
+    if first is None:
+        assert flags == [(True, False)] * iters
+        return
+    frozen = flags[first][1]
+    assert flags[first + 1:] == [(False, frozen)] * (iters - first - 1)
+    cut = kv.fit_model_ref(h, gam, cnt, model=model, iters=first + 1, stop=stop_)
+    for a, b in zip(full, cut):
+        _same(a, b)
 
 
 # ---------------------------------------------------------------------------
@@ -340,6 +490,70 @@ def test_b9_matches_its_twin_in_every_layout(card, dtype):
         assert torch.equal(a.cpu(), b)
     with pytest.raises(ValueError, match="above the kernel"):
         tv.pair_sums(e, v, 20, max_lag=17, n_bins=4)
+
+
+@pytest.mark.cuda
+def test_b9_matches_its_twin_on_a_grid_mixing_both_paths(card):
+    # a validity of 0.5 in one 32x32 tile block and an inf under an invalid
+    # cell in another send those blocks down the general path, the rest down
+    # the fast one; the inf sits in the last row, which the band and the 2-D
+    # block reach only as partners at dy = 10, so only the bins holding such
+    # offsets are NaN (inf * 0), as in the twin
+    R = 10
+    e, v = _planes(150, 170, 11)
+    e = torch.where(v > 0, e, torch.from_numpy(np.random.default_rng(2).normal(0.0, 9.0, e.shape)).float())
+    v[40, 45] = 0.5
+    v[149, 120] = 0.0
+    e, v = e.cuda(), v.cuda()
+    e_inf = e.clone()
+    e_inf[149, 120] = float("inf")
+    tables = (tv._bin_table(R, 10)[:3] + (10,), tv._sector_bin_table(R, 10, 4)[:3] + (40,))
+    for dys, dxs, bins, n_out in tables:
+        for args in ((e, v, 150, 170, 0), (e, v, 140, 170, 0), (e, v, 140, 150, R)):
+            _b9_equal(kv.pair_sums(*args, dys, dxs, bins, n_out, R), kv.pair_sums_ref(*args, dys, dxs, bins, n_out, R))
+        for args in ((e_inf, v, 140, 170, 0), (e_inf, v, 140, 150, R)):
+            got = kv.pair_sums(*args, dys, dxs, bins, n_out, R)
+            want = kv.pair_sums_ref(*args, dys, dxs, bins, n_out, R)
+            nan = torch.isnan(want[0])
+            assert bool(nan.any()) and not bool(nan.all())
+            assert torch.equal(torch.isnan(got[0]), nan)
+            _b9_equal((got[0][~nan], got[1]), (want[0][~nan], want[1]))
+            again = kv.pair_sums(*args, dys, dxs, bins, n_out, R)
+            assert torch.equal(got[0].view(torch.int64), again[0].view(torch.int64))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("model", MODELS)
+def test_b10_without_a_stop_matches_the_plain_loop(card, model):
+    # stop = 0 never freezes: the walk ends at its first rejected step, or
+    # runs all 60
+    elev, _, _ = mask_grid(shelf_seamount(96, 80), 0.2, seed=9)
+    g = RegularGrid.from_nan_array(elev, Extent(0.0, 79.0, 0.0, 95.0), device="cuda")
+    args = tuple(t.double() for t in tv.empirical_variogram(g))
+    p, flags = kv.fit_walk(*args, model=model, iters=60, stop=0.0)
+    rec = []
+    want = kv.fit_model_ref(*args, model=model, iters=60, stop=0.0, record=rec)
+    assert flags.cpu().tolist() == [[int(k), int(f)] for k, f in rec]
+    assert not flags[:, 1].any()
+    torch.testing.assert_close(p, torch.stack(want), rtol=1e-9, atol=0.0)
+
+
+@pytest.mark.cuda
+def test_the_fit_makes_the_host_wait_for_nothing(card):
+    # the lag centres and B9's table are cached on the card after a first
+    # call, so the pair sums and the fit launch with no synchronising copy
+    elev, _, _ = mask_grid(shelf_seamount(96, 80), 0.2, seed=9)
+    g = RegularGrid.from_nan_array(elev, Extent(0.0, 79.0, 0.0, 95.0), device="cuda")
+    want = [tv.empirical_variogram(g), tv.fit_variogram(g), tv.empirical_variogram_directional(g)]
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = [tv.empirical_variogram(g), tv.fit_variogram(g), tv.empirical_variogram_directional(g)]
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    for a, b in zip(got, want):
+        for x, y in zip(a, b):
+            assert torch.equal(x, y)
 
 
 @pytest.mark.cuda
