@@ -16,10 +16,10 @@ Workflow (test_interpolation.cpp:115-322):
 
 Stencil packs (one row read per query) are the default.  On a fully valid
 float32 CUDA grid with window radius <= 2, ``--backend auto`` runs Kriging
-through the valid16 B5 kernel and IDW through B6, where the JAX CLI runs
-its Pallas kernels; ``--backend fused`` runs both through B7; elsewhere,
-and with ``--backend torch``, they are the torch packed paths.  Bilinear
-and Cubic have no kernel.  ``--selection exact`` reproduces the reference
+through the valid16 B11 kernel (top-4 and solve) and IDW through B6, where
+the JAX CLI runs its Pallas kernels; ``--backend fused`` runs both through
+B7; elsewhere, and with ``--backend torch``, they are the torch packed
+paths.  Bilinear and Cubic have no kernel.  ``--selection exact`` reproduces the reference
 CPU engine digit for digit at arbitrary coordinates: the f64 ring selection
 with swap tie-breaks of ``ops/exact.py`` on an f64 grid for Bilinear, Cubic
 and Kriging (IDW is dropped: the reference has no scattered IDW), validated
@@ -103,7 +103,7 @@ def make_ops(grid: RegularGrid, elev: np.ndarray, *, packed: bool, backend: str,
 
             krig = lambda g, lo, la: kriging_valid_t(p16, g, lo, la)
             idw = lambda g, lo, la: packed_idw_t(sp.window, g, lo, la, window_radius=wr)
-            label = "valid16 B5 (Kriging) and B6 (IDW)"
+            label = "valid16 B11 (Kriging) and B6 (IDW)"
         else:
             krig = lambda g, lo, la: packed_kriging_valid(p16, g, lo, la)
             idw = lambda g, lo, la: packed_idw(sp.window, g, lo, la, window_radius=wr)
@@ -158,7 +158,7 @@ def main(argv=None):
     p.add_argument("--no-packed", dest="packed", action="store_false")
     p.add_argument(
         "--backend", choices=["auto", "torch", "fused"], default="auto",
-        help="kriging/IDW selection of the packed path: auto = the B5 (valid16 "
+        help="kriging/IDW selection of the packed path: auto = the B11 (valid16 "
         "kriging) and B6 (IDW) kernels on a fully valid float32 CUDA grid with "
         "window radius <= 2, torch otherwise; torch = the plain packed path; "
         "fused = the B7 kernel",

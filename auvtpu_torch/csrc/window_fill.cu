@@ -13,8 +13,9 @@
 // sorted by (distance^2, collection order) and keep the first k cells that
 // are valid.  B2 writes (cnt, values, offsets); B4 writes (cnt, table
 // indices), the slim form of the same selection; B1 goes on to build and
-// solve the 5x6 ordinary-kriging system in registers and writes the
-// prediction (and optionally the kriging variance); B3 folds each found cell
+// solve the 5x6 ordinary-kriging system in registers (krige_solve.cuh, the
+// solve B11 shares) and writes the prediction (and optionally the kriging
+// variance); B3 folds each found cell
 // into an inverse-distance-weighted sum (weights from a host table) or a
 // plain mean, keeping no slots at all.  First-k-valid in a static order is a
 // per-cell rule, so each thread stops as soon as its own cell is full and the
@@ -55,6 +56,7 @@
 #include <stdint.h>
 
 #include "halo_tile.cuh"
+#include "krige_solve.cuh"
 
 namespace {
 
@@ -248,23 +250,6 @@ int launch_topk_tile(cudaStream_t st, const float* e, int pe, const float* va, i
   return (int)cudaGetLastError();
 }
 
-enum Model { kExponential = 0, kLinear = 1, kSpherical = 2, kGaussian = 3 };
-enum Solver { kGJ = 0, kLU = 1 };
-
-// The Pallas kernel's gamma (window_fill.py:746-759): no clamp on the range.
-template <int MODEL>
-__device__ __forceinline__ float gamma_fn(float h, float nugget, float sill, float vrange) {
-  if (MODEL == kExponential) return nugget + sill * (1.f - expf(-h / vrange));
-  if (MODEL == kLinear) return nugget + sill * h;
-  if (MODEL == kSpherical) {
-    float m = h / vrange;
-    m = m > 1.f ? 1.f : m;  // jnp.minimum: a NaN stays NaN
-    return nugget + sill * (1.5f * m - 0.5f * m * m * m);
-  }
-  const float hr = h / vrange;
-  return nugget + sill * (1.f - expf(-(hr * hr)));
-}
-
 // The fixed parameters of a B1 launch, by value (window_fill.py:884-891).
 // The variogram's (nugget, sill, range) are read through p_vario where it is
 // not null (fitted parameters: three f32 on the device, which never travel
@@ -284,92 +269,19 @@ struct CellIn {
   int cnt;
 };
 
-// The 5x6 ordinary-kriging system of one cell, solved unpivoted with IEEE
-// divisions in the order of ops/scattered.py: the prediction (the neighbour
-// mean where fewer than 4 were found or a pivot fell below pivot_tol) and,
-// with VAR, the variance into var.
+// One cell's kriging (krige_solve.cuh): the prediction (the neighbour mean
+// where fewer than 4 were found or a pivot fell below pivot_tol; NaN where
+// none was found) and, with VAR, the variance into var.  The diagonal is
+// the nugget, as the Pallas kernel writes it.
 template <int MODEL, int SOLVER, bool VAR>
 __device__ __forceinline__ float krige_cell(const CellIn& in, float nugget, float sill, float vrange,
                                             float pivot_tol, float& var) {
-  const float qlon = in.qlon, qlat = in.qlat;
   const int cnt = in.cnt;
   const float(&vz)[4] = in.vz;
-  const float(&cx)[4] = in.cx;
-  const float(&cy)[4] = in.cy;
-  float M[5][6];
-#pragma unroll
-  for (int a = 0; a < 4; ++a) {
-#pragma unroll
-    for (int b = 0; b < 4; ++b) {
-      if (b < a) {
-        M[a][b] = M[b][a];
-      } else if (b == a) {
-        M[a][b] = nugget;  // gamma(0) is exactly the nugget for every model
-      } else {
-        const float ddx = cx[a] - cx[b];
-        const float ddy = cy[a] - cy[b];
-        M[a][b] = gamma_fn<MODEL>(sqrtf(ddx * ddx + ddy * ddy), nugget, sill, vrange);
-      }
-    }
-    M[a][4] = 1.f;
-    const float ddx = cx[a] - qlon;
-    const float ddy = cy[a] - qlat;
-    M[a][5] = gamma_fn<MODEL>(sqrtf(ddx * ddx + ddy * ddy), nugget, sill, vrange);
-  }
-  M[4][0] = 1.f;
-  M[4][1] = 1.f;
-  M[4][2] = 1.f;
-  M[4][3] = 1.f;
-  M[4][4] = 0.f;
-  M[4][5] = 1.f;
-  float gamma0[4];
-#pragma unroll
-  for (int a = 0; a < 4; ++a) gamma0[a] = M[a][5];
-
-  bool singular = false;
-  float lam[5];
-  if (SOLVER == kGJ) {
-    // unpivoted Gauss-Jordan in the order of ops/scattered.py::gj56
-#pragma unroll
-    for (int p = 0; p < 5; ++p) {
-      const float pivot = M[p][p];
-      singular = singular || (fabsf(pivot) < pivot_tol);
-      const float safe = singular ? 1.f : pivot;
-#pragma unroll
-      for (int q = p; q < 6; ++q) M[p][q] = M[p][q] / safe;
-#pragma unroll
-      for (int rr = 0; rr < 5; ++rr) {
-        if (rr == p) continue;
-        const float f = M[rr][p];
-#pragma unroll
-        for (int q = p; q < 6; ++q) M[rr][q] = M[rr][q] - f * M[p][q];
-      }
-    }
-#pragma unroll
-    for (int a = 0; a < 5; ++a) lam[a] = M[a][5];
-  } else {
-    // forward elimination + back substitution, same unpivoted pivots
-    float rp[5];
-#pragma unroll
-    for (int p = 0; p < 5; ++p) {
-      const float pivot = M[p][p];
-      singular = singular || (fabsf(pivot) < pivot_tol);
-      rp[p] = 1.f / (singular ? 1.f : pivot);
-#pragma unroll
-      for (int rr = p + 1; rr < 5; ++rr) {
-        const float f = M[rr][p] * rp[p];
-#pragma unroll
-        for (int q = p + 1; q < 6; ++q) M[rr][q] = M[rr][q] - f * M[p][q];
-      }
-    }
-#pragma unroll
-    for (int p = 4; p >= 0; --p) {
-      float acc = M[p][5];
-#pragma unroll
-      for (int q = p + 1; q < 5; ++q) acc = acc - M[p][q] * lam[q];
-      lam[p] = acc * rp[p];
-    }
-  }
+  float lam[5], gamma0[4];
+  const bool singular = krige_solve<SOLVER>(
+      in.cx, in.cy, in.qlon, in.qlat, nugget,
+      [&](float h) { return gamma_fn<MODEL>(h, nugget, sill, vrange); }, pivot_tol, lam, gamma0);
 
   const float pr = lam[0] * vz[0] + lam[1] * vz[1] + lam[2] * vz[2] + lam[3] * vz[3];
   const float fbs = vz[0] + vz[1] + vz[2] + vz[3];

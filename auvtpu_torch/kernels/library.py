@@ -27,8 +27,8 @@ the errors it always had), its ``CPU`` implementation the kernel's plain
 version, and its fake implementation gives the output's shape and dtype for
 tracing.  The wrappers in :mod:`.window_fill`, :mod:`.scattered_select`,
 :mod:`.band_resample` and :mod:`.variogram` call these ops, so a live call
-and an exported program take one route.  B2, B4, B5 and B6 stay ctypes calls: no exported
-path launches them.
+and an exported program take one route.  B2, B4, B5, B6 and B11 stay ctypes calls: no
+exported path launches them.
 
 Importing this module registers the ops and builds nothing; a program
 loaded with ``torch.export.load`` needs it imported first.

@@ -1,11 +1,11 @@
-"""The scattered-query selection kernels (B5, B6, B7) and the B7 wrappers
-(counterpart of :mod:`auvtpu.pallas.scattered_select`).
+"""The scattered-query selection kernels (B5, B6, B7, B11) and the B7
+wrappers (counterpart of :mod:`auvtpu.pallas.scattered_select`).
 
-Three CUDA kernels in ``csrc/scattered_select.cu`` replace three TPU
-kernels: per query they read the taps of its centre cell's pack row, take
-the squared distance to each valid tap and extract the k nearest by
-min-extract passes (ties to the lowest table index = collection order).
-The modes of :func:`select`:
+Four CUDA kernels in ``csrc/scattered_select.cu`` replace three TPU
+kernels and one XLA epilogue: per query they read the taps of its centre
+cell's pack row, take the squared distance to each valid tap and extract
+the k nearest by min-extract passes (ties to the lowest table index =
+collection order).  The modes of :func:`select`:
 
 - ``"rows_t"`` (B5, ``valid_select.py::_sel_kernel``): (1+2k[+k][+1], N)
   rows [cnt, k vals, (k d2), k codes, (resolved)], dy-major codes; wrappers
@@ -20,6 +20,13 @@ The modes of :func:`select`:
   :func:`window_select_fused`, :func:`packed_kriging_fused` and
   :func:`packed_idw_fused` below, which return the select dict of
   :func:`auvtpu_torch.ops.packs.packed_window_select`.
+
+:func:`select_krige` (B11) is B5's top-4 with the ordinary-kriging solve
+and its fallbacks fused in (``valid_select.py::_sel_kernel`` and the XLA
+row epilogue ``_kriging_rows_epilogue`` after it): (1[+1], N) rows
+[prediction, (resolved)], for the wrappers ``kriging_valid_t`` and
+``packed_kriging_t``; its plain version is :func:`select_krige_ref`, B5's
+plain rows and the row epilogue in torch.
 
 The normalisation (x, y, oob, centre cell, fractional offsets) is torch, in
 one place (:func:`prologue`); the kernel does the fetch and the selection.
@@ -39,8 +46,8 @@ from functools import lru_cache
 import numpy as np
 import torch
 
-from ..config import IDWConfig
-from ..grid import RegularGrid, device_cache
+from ..config import IDWConfig, KrigingConfig
+from ..grid import RegularGrid, as_dtype, device_cache
 from ..ops.packs import (
     SENTINEL,
     idw_from_select,
@@ -48,11 +55,12 @@ from ..ops.packs import (
     pack_width,
     window_offsets,
 )
-from ..ops.scattered import _normalize, centre_cells
+from ..ops.scattered import _nan_like, _normalize, centre_cells, krige_solve_cols, queries
 from . import library
+from .window_fill import _MODELS, _kriging_params
 
 # one count per TPU kernel replaced
-LAUNCHES = {"select_rows": 0, "idw_rows": 0, "window_select_fused": 0}
+LAUNCHES = {"select_rows": 0, "idw_rows": 0, "window_select_fused": 0, "select_krige": 0}
 _MODES = {"rows_t": "select_rows", "idw": "idw_rows", "rows_n": "window_select_fused"}
 KERNEL_P = (16, 32, 64)  # pack widths the kernel is built for (radius <= 3)
 INF = 3e30  # d2 of an invalid tap (valid_select.py:62)
@@ -75,6 +83,9 @@ def _lib() -> ctypes.CDLL:
     lib.auvtpu_idw_select.restype = I
     lib.auvtpu_window_select.argtypes = [P, I, I, P, P, ctypes.POINTER(F), I, I, P, P]
     lib.auvtpu_window_select.restype = I
+    FP = ctypes.POINTER(F)
+    lib.auvtpu_select_krige.argtypes = [P, I, I, P, P, P, P, P, P, FP, I, I, FP, FP, P, P, P, I, I, F, P, P]
+    lib.auvtpu_select_krige.restype = I
     lib.auvtpu_scattered_error_string.argtypes = [I]
     lib.auvtpu_scattered_error_string.restype = ctypes.c_char_p
     return lib
@@ -89,7 +100,7 @@ def build() -> None:
 # offset tables: (3, P) f32 rows dx, dy, code
 # ---------------------------------------------------------------------------
 
-IDW_M = (9, 16, 25, 49)  # real taps a row B6 is built for: windows of radius 1-3, valid16
+IDW_M = (9, 16, 25, 49)  # real taps a row B6 and B11 are built for: windows of radius 1-3, valid16
 WINDOW_M = (9, 25, 49)  # real taps a row B7 is built for: windows of radius 1-3
 
 
@@ -126,23 +137,29 @@ def _host(tab: torch.Tensor) -> np.ndarray:
     return tab.detach().cpu().numpy() if host is None else host
 
 
-def _idw_taps(tab: torch.Tensor, P: int, half: float):
-    """(M, taps) for B6: the instantiation M that holds the real taps of
-    ``tab`` (layout 'dy') and (dx + half, dy + half) of each of its first M
-    taps as 2*M host float32, exact sums (dx integer, half 0 or 0.5).  The
-    real taps run to the last with an offset other than (0, 0): dead taps
-    carry (0, 0) and the windows list the centre tap first, so every window
-    of a build size finds its build.  Taps past the real ones are padding,
-    which the pack marks invalid."""
+def _real_taps(tab: torch.Tensor, P: int, name: str):
+    """(M, dx, dy) for B6 and B11: the instantiation M that holds the real
+    taps of ``tab`` (layout 'dy') and the offsets of its first M taps as
+    host float32.  The real taps run to the last with an offset other than
+    (0, 0): dead taps carry (0, 0) and the windows list the centre tap
+    first, so every window of a build size finds its build.  Taps past the
+    real ones are padding, which the pack marks invalid."""
     host = _host(tab)
     dx, dy = host[0].astype(np.float32), host[1].astype(np.float32)
     off = np.flatnonzero((dx != 0) | (dy != 0))
     n = int(off[-1]) + 1 if off.size else 1
     M = next((m for m in IDW_M if m >= n and pack_width(m) == P), None)
     if M is None:
-        raise ValueError(f"idw_rows: no build for {n} taps in rows of {P}; built for {IDW_M}")
+        raise ValueError(f"{name}: no build for {n} taps in rows of {P}; built for {IDW_M}")
+    return M, dx[:M], dy[:M]
+
+
+def _idw_taps(tab: torch.Tensor, P: int, half: float):
+    """(M, taps) for B6: :func:`_real_taps` as (dx + half, dy + half) of
+    each, 2*M host float32, exact sums (dx integer, half 0 or 0.5)."""
+    M, dx, dy = _real_taps(tab, P, "idw_rows")
     h32 = np.float32(half)
-    return M, np.ascontiguousarray(np.concatenate([dx[:M] + h32, dy[:M] + h32]), dtype=np.float32)
+    return M, np.ascontiguousarray(np.concatenate([dx + h32, dy + h32]), dtype=np.float32)
 
 
 def _window_taps(tab: torch.Tensor, P: int, half: float):
@@ -254,7 +271,8 @@ def _check(pack, P: int, k: int, name: str, *inputs) -> None:
         )
     if not 1 <= k <= P:
         raise ValueError(f"{name}: k={k} outside 1..{P}")
-    if not pack.is_contiguous() or pack.numel() % P or (name == "select_rows" and pack.data_ptr() % 16):
+    if not pack.is_contiguous() or pack.numel() % P or (name in ("select_rows", "select_krige")
+                                                         and pack.data_ptr() % 16):
         raise ValueError(f"{name}: the pack must be contiguous, a whole number of rows and (but for B6 and "
                          "B7, which take scalar loads there) 16-byte aligned")
     for t in inputs:
@@ -338,6 +356,93 @@ def window_launch(pack, P: int, cell, fx, fy, tab, taps, k: int):
             pack.data_ptr(), P, len(taps) // 3, cell32.data_ptr(), fxy.data_ptr(),
             host.ctypes.data_as(ctypes.POINTER(ctypes.c_float)), n, k, out.data_ptr(), _stream(dev),
         )
+    _raise_on(err, name)
+    LAUNCHES[name] += 1
+    return out
+
+
+# ---------------------------------------------------------------------------
+# B11: the top-4 and the kriging solve in one kernel, with its plain version
+# ---------------------------------------------------------------------------
+
+def _kriging_rows_epilogue(grid, lons, lats, out, oob, ci, cj, R, *, vparams, model, half=0.5):
+    """Kriging from B5's rows [cnt, 4 vals, 4 codes]: decode the dy-major
+    codes, solve in column form, fall back to the mean of the found
+    neighbours (empty slots hold 0, so sum/count is the masked mean); the
+    XLA epilogue ``valid_select.py::_kriging_rows_epilogue``."""
+    B = 2 * R + 2
+    dt = grid.dtype
+    found = out[0]
+    vals_c = [out[1 + a] for a in range(4)]
+    lon_step = as_dtype(grid.lon_step, dt)
+    lat_step = as_dtype(grid.lat_step, dt)
+    min_lon, min_lat = as_dtype(grid.min_lon, dt), as_dtype(grid.min_lat, dt)
+    ci_f = ci.to(dt)
+    cj_f = cj.to(dt)
+    cx_c, cy_c = [], []
+    for a in range(4):
+        code = torch.clamp(out[5 + a], min=0.0)
+        sdy = torch.floor(code / B) - R
+        sdx = code - (sdy + R) * B - R
+        cx_c.append(min_lon + (ci_f + sdx + half) * lon_step)
+        cy_c.append(min_lat + (cj_f + sdy + half) * lat_step)
+    qlon, qlat = queries(grid, lons, lats)
+    pred, singular = krige_solve_cols(qlon, qlat, vals_c, cx_c, cy_c, KrigingConfig(), vparams=vparams, model=model)
+    fb = (vals_c[0] + vals_c[1] + vals_c[2] + vals_c[3]) / torch.clamp(found, min=1.0)
+    res = torch.where(singular | (found < 3.5), fb, pred)
+    return torch.where(oob, _nan_like(res), res)
+
+
+def select_krige_ref(pack, P: int, offs, R: int, grid: RegularGrid, lons, lats, *, convention: str = "reference", vparams=None, model: str = "exponential", resolve_thresh=None):
+    """Plain version of :func:`select_krige`: B5's plain rows
+    (:func:`select_ref`, k=4, with the resolved row where asked) and the
+    torch row epilogue.  (1[+1], N) rows [prediction, (resolved)]."""
+    half = 0.5 if convention == "reference" else 0.0
+    _, _, oob, ci, cj, cell, fx, fy = prologue(grid, lons, lats)
+    rows = select_ref(pack, P, cell, fx, fy, table(offs, P, R, "dy", grid.device), mode="rows_t", k=4, half=half,
+                      resolve_thresh=resolve_thresh)
+    res = _kriging_rows_epilogue(grid, lons, lats, rows, oob, ci, cj, R, vparams=vparams, model=model, half=half)
+    return torch.stack([res] + ([rows[9]] if resolve_thresh is not None else []))
+
+
+def select_krige(pack, P: int, offs, R: int, grid: RegularGrid, lons, lats, *, convention: str = "reference", vparams=None, model: str = "exponential", resolve_thresh=None):
+    """Ordinary kriging from the k=4 selection over the pack rows of
+    ``offs`` (B11): (1[+1], N) f32 rows [prediction, (resolved)].  The
+    prediction is the 5x6 solve of the four nearest valid taps, the mean of
+    the found ones (0 where none was found) where fewer than four were
+    found or a pivot fell below ``KrigingConfig().pivot_tol``, NaN out of
+    the grid; the resolved row (two-tier, ``resolve_thresh``) is B5's.
+    For a CPU pack this is :func:`select_krige_ref`; for a CUDA pack it
+    launches the kernel once (the prologue stays torch) or raises.  Fitted
+    ``vparams`` (0-d tensors on the card) are read there by the kernel."""
+    if pack.device.type == "cpu":
+        return select_krige_ref(pack, P, offs, R, grid, lons, lats, convention=convention, vparams=vparams,
+                                model=model, resolve_thresh=resolve_thresh)
+    name = "select_krige"
+    if model not in _MODELS:
+        raise ValueError(model)
+    dev = pack.device
+    _, _, oob, _, _, cell, fx, fy = prologue(grid, lons, lats)
+    qlon, qlat = (q.contiguous() for q in queries(grid, lons, lats))
+    tab = table(offs, P, R, "dy", grid.device)
+    _check(pack, P, 4, name, cell, fx, fy, qlon, qlat, oob)
+    M, dx, dy = _real_taps(tab, P, name)
+    offs_h = np.ascontiguousarray(np.concatenate([dx, dy]), dtype=np.float32)
+    n = int(cell.shape[0])
+    resolve = resolve_thresh is not None
+    out = torch.empty((1 + int(resolve), n), dtype=torch.float32, device=dev)
+    if n == 0:
+        return out
+    cell32, fx, fy, oob = cell.to(torch.int32).contiguous(), fx.contiguous(), fy.contiguous(), oob.contiguous()
+    geo, vario, ptrs, keep = _kriging_params(grid, vparams, convention, 0, 0, None, dev, name)
+    with torch.cuda.device(dev):
+        err = _lib().auvtpu_select_krige(
+            pack.data_ptr(), P, M, cell32.data_ptr(), fx.data_ptr(), fy.data_ptr(), qlon.data_ptr(),
+            qlat.data_ptr(), oob.data_ptr(), offs_h.ctypes.data_as(ctypes.POINTER(ctypes.c_float)), n,
+            grid.num_lon, geo, vario, *ptrs, _MODELS[model], int(resolve),
+            float(resolve_thresh) if resolve else 0.0, out.data_ptr(), _stream(dev),
+        )
+    del keep
     _raise_on(err, name)
     LAUNCHES[name] += 1
     return out

@@ -1,34 +1,34 @@
-"""Wrappers of the transposed-row selection modes B5 and B6 (counterpart of
-:mod:`auvtpu.pallas.valid_select`).
+"""Wrappers of the transposed-row selection kernels B5, B6 and B11
+(counterpart of :mod:`auvtpu.pallas.valid_select`).
 
-B5 writes lanes-major rows [cnt, k vals, (k d2), k codes, (resolved)] whose
-rows are the per-slot vectors the column-form kriging solve takes; B6 folds
-the power-2 IDW sums into the selection and writes [sum w*v, sum w,
-(resolved)].  Both are modes of the kernel in
+B5 writes lanes-major rows [cnt, k vals, (k d2), k codes, (resolved)]; B6
+folds the power-2 IDW sums into the selection and writes [sum w*v, sum w,
+(resolved)]; B11 is B5's top-4 with the 5x6 ordinary-kriging solve and its
+fallbacks fused in, where the JAX package runs the XLA row epilogue after
+B5, and writes [prediction, (resolved)].  All three are kernels of
 :mod:`auvtpu_torch.kernels.scattered_select` (``csrc/scattered_select.cu``):
 
 - :func:`valid_select_t` (``valid_select_t``): the select dict over the
-  16-tap valid pack;
+  16-tap valid pack, through B5;
 - :func:`kriging_valid_t` (``pallas_kriging_valid``): kriging on FULLY VALID
   grids from the 16-tap pack (containment proof in
-  :func:`auvtpu_torch.ops.packs.packed_kriging_valid`);
+  :func:`auvtpu_torch.ops.packs.packed_kriging_valid`), through B11;
 - :func:`packed_kriging_t` / :func:`packed_idw_t` (``pallas_packed_*_t``):
-  kriging / IDW over the full radius-R window pack, any grid, optionally
-  with the two-tier "resolved" row (``resolve_thresh``).
+  kriging (B11) / IDW (B6) over the full radius-R window pack, any grid,
+  optionally with the two-tier "resolved" row (``resolve_thresh``).
 
-The row epilogue (decode, 5x6 solve, fallbacks) stays plain torch, as it
-stays XLA in the JAX package.
+On a CPU pack each runs its kernel's plain version.
 """
 
 from __future__ import annotations
 
 import torch
 
-from ..config import IDWConfig, KrigingConfig
+from ..config import IDWConfig
 from ..grid import RegularGrid
 from ..ops.packs import VALID16_OFFSETS, pack_width, window_offsets
-from ..ops.scattered import _nan_like, as_dtype, krige_solve_cols, queries
-from .scattered_select import prologue, select, table
+from ..ops.scattered import _nan_like
+from .scattered_select import prologue, select, select_krige, table
 
 
 def _select_rows(pack, P, offs, R, grid, lons, lats, *, emit_d2, k=4, half=0.5, resolve_thresh=None):
@@ -40,33 +40,6 @@ def _select_rows(pack, P, offs, R, grid, lons, lats, *, emit_d2, k=4, half=0.5, 
         emit_d2=emit_d2, half=half, resolve_thresh=resolve_thresh,
     )
     return out, x, y, oob, ci, cj
-
-
-def _kriging_rows_epilogue(grid, lons, lats, out, oob, ci, cj, R, *, vparams, model, half=0.5):
-    """Kriging from rows [cnt, 4 vals, 4 codes]: decode the dy-major codes,
-    solve in column form, fall back to the mean of the found neighbours
-    (empty slots hold 0, so sum/count is the masked mean)."""
-    B = 2 * R + 2
-    dt = grid.dtype
-    found = out[0]
-    vals_c = [out[1 + a] for a in range(4)]
-    lon_step = as_dtype(grid.lon_step, dt)
-    lat_step = as_dtype(grid.lat_step, dt)
-    min_lon, min_lat = as_dtype(grid.min_lon, dt), as_dtype(grid.min_lat, dt)
-    ci_f = ci.to(dt)
-    cj_f = cj.to(dt)
-    cx_c, cy_c = [], []
-    for a in range(4):
-        code = torch.clamp(out[5 + a], min=0.0)
-        sdy = torch.floor(code / B) - R
-        sdx = code - (sdy + R) * B - R
-        cx_c.append(min_lon + (ci_f + sdx + half) * lon_step)
-        cy_c.append(min_lat + (cj_f + sdy + half) * lat_step)
-    qlon, qlat = queries(grid, lons, lats)
-    pred, singular = krige_solve_cols(qlon, qlat, vals_c, cx_c, cy_c, KrigingConfig(), vparams=vparams, model=model)
-    fb = (vals_c[0] + vals_c[1] + vals_c[2] + vals_c[3]) / torch.clamp(found, min=1.0)
-    res = torch.where(singular | (found < 3.5), fb, pred)
-    return torch.where(oob, _nan_like(res), res)
 
 
 def valid_select_t(pack16, grid: RegularGrid, lons, lats):
@@ -88,30 +61,27 @@ def valid_select_t(pack16, grid: RegularGrid, lons, lats):
 
 def kriging_valid_t(pack16, grid: RegularGrid, lons, lats, *, vparams=None, model: str = "exponential"):
     """Kriging on a FULLY VALID grid (reference convention) with the valid16
-    selection in B5 and the torch row epilogue (``pallas_kriging_valid``)."""
-    out, x, y, oob, ci, cj = _select_rows(pack16, 16, VALID16_OFFSETS, 2, grid, lons, lats, emit_d2=False)
-    return _kriging_rows_epilogue(grid, lons, lats, out, oob, ci, cj, 2, vparams=vparams, model=model)
+    selection and the solve in B11 (``pallas_kriging_valid``)."""
+    return select_krige(pack16, 16, VALID16_OFFSETS, 2, grid, lons, lats, vparams=vparams, model=model)[0]
 
 
 def packed_kriging_t(pack, grid: RegularGrid, lons, lats, *, window_radius: int = 2, vparams=None, model: str = "exponential", convention: str = "reference", resolve_thresh=None):
-    """Kriging over the full radius-R window pack with the selection in B5:
-    correct on masked grids and at edges (``pallas_packed_kriging_t``).
-    With ``resolve_thresh`` also returns the two-tier resolved mask and the
-    number of unresolved queries (a 0-d tensor)."""
-    half = 0.5 if convention == "reference" else 0.0
+    """Kriging over the full radius-R window pack with the selection and the
+    solve in B11: correct on masked grids and at edges
+    (``pallas_packed_kriging_t``).  With ``resolve_thresh`` also returns the
+    two-tier resolved mask and the number of unresolved queries (a 0-d
+    tensor)."""
     offs = window_offsets(window_radius)
-    P = pack_width(len(offs))
-    out, x, y, oob, ci, cj = _select_rows(
-        pack, P, offs, window_radius, grid, lons, lats, emit_d2=False, half=half,
-        resolve_thresh=resolve_thresh,
+    out = select_krige(
+        pack, pack_width(len(offs)), offs, window_radius, grid, lons, lats, convention=convention,
+        vparams=vparams, model=model, resolve_thresh=resolve_thresh,
     )
-    res = _kriging_rows_epilogue(grid, lons, lats, out, oob, ci, cj, window_radius, vparams=vparams, model=model, half=half)
     if resolve_thresh is None:
-        return res
+        return out[0]
     # no oob term: an out-of-bounds query resolves through its clipped
     # centre, as the torch path's resolved mask does (both tiers give NaN)
-    resolved = out[9] > 0.5
-    return res, resolved, (~resolved).sum()
+    resolved = out[1] > 0.5
+    return out[0], resolved, (~resolved).sum()
 
 
 def packed_idw_t(pack, grid: RegularGrid, lons, lats, *, k: int = 8, window_radius: int = 2, convention: str = "reference", resolve_thresh=None):

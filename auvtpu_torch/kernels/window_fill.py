@@ -333,13 +333,14 @@ def fill_kriging_fused_ref(grid: RegularGrid, *, max_radius: int = 10, conventio
     )
 
 
-def _kriging_params(grid: RegularGrid, vparams, convention: str, row0, col0, steps, dev):
-    """B1's parameters for one launch: the 8 fixed ones (min_lon, min_lat,
-    lon_step, lat_step, half, pivot_tol, row0, col0) and the variogram's 3
-    as host float32, passed by value, and for each variogram parameter that
-    is a tensor (fitted parameters, 0-d on the device) its device address,
-    so it never travels to the host.  Returns (geo, vario, pointers, keep):
-    ``keep`` holds the tensors the pointers point into until the launch."""
+def _kriging_params(grid: RegularGrid, vparams, convention: str, row0, col0, steps, dev, name: str = "fill_kriging_fused"):
+    """The parameters of one B1 (or B11) launch: the 8 fixed ones (min_lon,
+    min_lat, lon_step, lat_step, half, pivot_tol, row0, col0) and the
+    variogram's 3 as host float32, passed by value, and for each variogram
+    parameter that is a tensor (fitted parameters, 0-d on the device) its
+    device address, so it never travels to the host.  Returns (geo, vario,
+    pointers, keep): ``keep`` holds the tensors the pointers point into
+    until the launch."""
     cfg = KrigingConfig()
     if vparams is None:
         vparams = (cfg.variogram.nugget, cfg.variogram.sill, cfg.variogram.range)
@@ -352,7 +353,7 @@ def _kriging_params(grid: RegularGrid, vparams, convention: str, row0, col0, ste
     for i, v in enumerate(vparams):
         if torch.is_tensor(v):
             if v.numel() != 1:
-                raise ValueError(f"fill_kriging_fused: variogram parameter {i} has {v.numel()} elements, want one")
+                raise ValueError(f"{name}: variogram parameter {i} has {v.numel()} elements, want one")
             if v.device != dev or v.dtype != torch.float32:
                 v = v.to(dev, torch.float32)  # a copy, where the caller's tensor is not float32 on the card
             keep.append(v)

@@ -15,7 +15,7 @@ one-hot einsum (the TPU's gather unit wants whole rows); plain indexing
 returns the same values.  The ``*_from_stencil`` epilogues finish a
 stencil however it was read (:mod:`auvtpu_torch.ops.tiled` reads it from a
 tile's slab); ``packed_bilinear`` and ``packed_bicubic`` keep the JAX
-package's one weighted sum over the row, as its packed ops do.  The selection kernels B5-B7
+package's one weighted sum over the row, as its packed ops do.  The selection kernels B5-B7 and B11
 (:mod:`auvtpu_torch.kernels.valid_select`,
 :mod:`auvtpu_torch.kernels.scattered_select`) read the same packs.
 """

@@ -28,7 +28,7 @@ class TwoTierInterpolator:
 
     def __init__(self, grid: RegularGrid, *, convention: str = "reference", escalate_cap: int = 1 << 14, backend: str = "auto"):
         """backend: 'transposed' runs the fast path's selection through the
-        B5 (kriging) and B6 (IDW) kernels with the resolution test folded
+        B11 (kriging) and B6 (IDW) kernels with the resolution test folded
         into the selection; 'fused' through B7; 'torch' is the packed stable
         sort; 'auto' (default) is 'transposed' on a CUDA float32 grid and
         'torch' otherwise.  Escalation and the resolved mask are the same

@@ -18,7 +18,7 @@ flags; their counterpart is a dispatch mode that sees every op:
 
 What the mode sees: every aten op and the ``auvtpu_torch::`` custom ops
 (B1, B3, B7, B8, B9, B10: :mod:`auvtpu_torch.kernels.library`), which pass through
-the dispatcher.  B2, B4, B5 and B6 are ctypes launches writing into
+the dispatcher.  B2, B4, B5, B6 and B11 are ctypes launches writing into
 ``torch.empty`` outputs, which the dispatcher does not see: a NaN one of
 them makes goes on unnamed (the next op that reads it did not make it).
 Outputs of ``empty`` ops hold whatever the memory held and are not

@@ -76,30 +76,37 @@ streaming mosaic and scattered queries on the 3200x4000 Grid A, in phases:
             and cold (a 128 MB write before each launch), its wrapper and
             plain version, B4 vs plain at r0.20, the Grid B
             methods, streaming ingest and window refresh (fused and torch)
-12. B5-B7   the scattered select kernels vs their plain version on Grid A
+12. B5-B11 the scattered select kernels vs their plain version on Grid A
             (3200x4000 shelf + seamount, fully valid: valid16 and radius-2
             packs, B7 also at radius 1 and 3, k=4 and k=8) and on the
             stand-in r0.10, 1M numpy-seeded queries plus
             the tie queries and NaN, +-inf, +-1e30 and out-of-grid ones
             each: rows, codes, d2, the resolved row and the IDW sums exactly
-            equal (NaN where plain has NaN); the kernel paths' predictions
-            vs the torch packed paths at rtol=1e-5, atol=1e-4
+            equal (NaN where plain has NaN); B11 (top-4 and kriging solve)
+            bit for bit on the same queries: valid16 and radius 2 with the
+            resolved row, the four models with fitted parameters on the
+            card; the kernel paths' predictions vs the torch packed paths
+            at rtol=1e-5, atol=1e-4
 13. grid A  auvtpu_torch.cli.bench_grid_a on the default grid at 1e3, 1e5,
             1e6 and 5e6 queries (all four methods, --backend auto), then 1e6
             with --backend fused: every validation PASSED (5e-5 x scale);
-            launch counts show B5 and B6 under auto, B7 under fused;
+            launch counts show B11 and B6 (and no B5) under auto, B7 under
+            fused; valid_select_t (B5's entry point) at the 1M Grid A
+            queries, launch counts zeroed around it;
             _normalize and lonlat_to_xy on the card equal to the CPU's bit
             for bit at the 1M phase-12 queries; 4096
             queries per method vs GoldenGrid/GoldenV2 at the same bar
-14. twotier TwoTierInterpolator (auto = the B5/B6 kernels) on the stand-in
+14. twotier TwoTierInterpolator (auto = the B11/B6 kernels) on the stand-in
             r0.10 with 1M queries vs backend "torch" (tests/test_packs.py
-            bars), the escalated fraction, B5/B6 launched; 4096 queries plus
-            escalating hole queries vs GoldenV2 on the stand-in with unit
-            steps
+            bars), the escalated fraction, B11/B6 launched and no B5; 4096
+            queries plus escalating hole queries vs GoldenV2 on the stand-in
+            with unit steps
 15. timing  the select kernels alone (B6 and B7 also cold) and plain,
             their wrappers, B7's and B5's library call (torch.topk of the
-            d2 matrix) and the torch paths at 1M Grid A queries, two-tier
-            calls, the Grid A steady state per method and batch
+            d2 matrix) and the torch paths at 1M Grid A queries, B11 alone
+            (valid16 and radius 2), its wrapper and plain version, the CUDA
+            kernels one kriging_valid_t call launches, two-tier calls, the
+            Grid A steady state per method and batch
 16. B8      the band/atlas resample kernel vs its plain version on the
             stand-in r0.10, on lon/lat through the kernel's coordinate
             prologue, with a ragged last chunk: 5M pings of the band weave
@@ -121,7 +128,7 @@ streaming mosaic and scattered queries on the 3200x4000 Grid A, in phases:
             equal to the JAX package's and the f64 depth sum within 1e-3 m
             a ping of it (scripts/band_reference_pins.py); launch counts
             zeroed before the phase show B1, B3, B8 and, where queries
-            escalated, B5/B6; then the real-time loop of
+            escalated, B11/B6; then the real-time loop of
             tests/test_band.py:451-497 (streaming ingest, refresh, serve)
 18. timing  B8 alone (launched through its library; device duration back
             to back and cold after a 128 MB write), its wrapper, its plain
@@ -2022,7 +2029,7 @@ def main() -> int:
     qA = scattered_queries(GRID_A_EXTENT, *GRID_A_SHAPE, N_SCATTER, 7, dev)
     qK = scattered_queries(KERGUELEN_EXTENT, *SHAPE, N_SCATTER, 8, dev)
     p16 = tp.build_valid16_pack(gA)
-    sc_err = {"select_rows": 0.0, "idw_rows": 0.0, "window_select_fused": 0.0}
+    sc_err = {"select_rows": 0.0, "idw_rows": 0.0, "window_select_fused": 0.0, "select_krige": 0.0}
     for label, g, (lo, la), p16_, ext, shape in (("Grid A", gA, qA, p16, GRID_A_EXTENT, GRID_A_SHAPE),
                                                  ("stand-in r0.10", grid, qK, None, KERGUELEN_EXTENT, SHAPE)):
         win, cases = select_cases(g, p16_)
@@ -2039,18 +2046,37 @@ def main() -> int:
             say("B5-B7", f"{label} radius {radius} P={P} {kname} ({mode}, {kw}): {tuple(a.shape)} exactly equal "
                 f"to plain, {odd[0].numel()} NaN/inf/1e30/out-of-grid queries included")
             del a, b
+        # B11 on the same queries: the valid16 pack (Grid A's auto path), the
+        # radius-2 pack with the resolved row (two-tier's), and the four
+        # models with fitted parameters on the card
+        lo_o, la_o = torch.cat([lo, odd[0]]), torch.cat([la, odd[1]])
+        offs2 = tp.window_offsets(2)
+        krige_cases = [("radius 2", win, 32, offs2, dict(resolve_thresh=4.0))]
+        if p16_ is not None:
+            krige_cases.insert(0, ("valid16", p16_, 16, tp.VALID16_OFFSETS, {}))
+            krige_cases += [(f"radius 2 {m}", win, 32, offs2, dict(model=m, vparams=tuple(
+                torch.tensor(v, device=dev) for v in MODEL_VPARAMS[m]))) for m in MODEL_VPARAMS]
+        for what, pack, P, offs, kw in krige_cases:
+            a = ss.select_krige(pack, P, offs, 2, g, lo_o, la_o, **kw)
+            b = ss.select_krige_ref(pack, P, offs, 2, g, lo_o, la_o, **kw)
+            torch.cuda.synchronize()
+            sc_err["select_krige"] = max(sc_err["select_krige"], same_planes(a, b, f"select_krige {what} at {label}"))
+            say("B11", f"{label} {what} select_krige ({ {k: v for k, v in kw.items() if k != 'vparams'} }): "
+                f"{tuple(a.shape)} bit-equal to plain, {odd[0].numel()} NaN/inf/1e30/out-of-grid queries "
+                f"included ({int(torch.isnan(a[0]).sum())} NaN)")
+            del a, b
         pairs = [
-            ("B5 packed_kriging_t", vs.packed_kriging_t(win, g, lo, la), tp.packed_kriging(win, g, lo, la)),
+            ("B11 packed_kriging_t", vs.packed_kriging_t(win, g, lo, la), tp.packed_kriging(win, g, lo, la)),
             ("B6 packed_idw_t", vs.packed_idw_t(win, g, lo, la), tp.packed_idw(win, g, lo, la)),
             ("B7 packed_kriging_fused", ss.packed_kriging_fused(win, g, lo, la), tp.packed_kriging(win, g, lo, la)),
             ("B7 packed_idw_fused", ss.packed_idw_fused(win, g, lo, la), tp.packed_idw(win, g, lo, la)),
         ]
         if p16_ is not None:
-            pairs.insert(0, ("B5 kriging_valid_t", vs.kriging_valid_t(p16_, g, lo, la),
+            pairs.insert(0, ("B11 kriging_valid_t", vs.kriging_valid_t(p16_, g, lo, la),
                              tp.packed_kriging_valid(p16_, g, lo, la)))
         for what, got, want in pairs:
             e = close_planes(got, want, f"{what} vs torch at {label}", SCATTER_RTOL, SCATTER_ATOL)
-            say("B5-B7", f"{label} {what} vs the torch packed path: max |diff| {e:.6g} m "
+            say("B5-B11", f"{label} {what} vs the torch packed path: max |diff| {e:.6g} m "
                 f"({int(torch.isnan(got).sum())} NaN)")
         del win, cases, pairs
     del p16
@@ -2074,10 +2100,20 @@ def main() -> int:
         raise AssertionError("a Grid A validation failed")
     say("gridA", f"{n_valid} validations against the golden engines PASSED; launches auto {launches_a}, "
         f"fused {launches_af}")
-    if launches_a["select_rows"] < 1 or launches_a["idw_rows"] < 1:
-        raise AssertionError("B5 and B6 were not both launched on the Grid A auto path")
+    if launches_a["select_krige"] < 1 or launches_a["idw_rows"] < 1 or launches_a["select_rows"]:
+        raise AssertionError(f"B11 and B6 (and no B5) were not launched on the Grid A auto path: {launches_a}")
     if launches_af["window_select_fused"] < 1:
         raise AssertionError("B7 was not launched on the Grid A fused path")
+    # B5's entry point: the valid16 select dict at the 1M Grid A queries
+    p16 = tp.build_valid16_pack(gA)
+    ss.reset_launches()
+    sel_v = vs.valid_select_t(p16, gA, *qA)
+    torch.cuda.synchronize()
+    launches_v = dict(ss.LAUNCHES)
+    if launches_v["select_rows"] != 1 or not bool((sel_v["found"] == 4).all()):
+        raise AssertionError(f"valid_select_t: {launches_v}, {int((sel_v['found'] != 4).sum())} queries short of 4")
+    say("gridA", f"valid_select_t at {qA[0].numel()} Grid A queries: 4 found at each; launches {launches_v}")
+    del p16, sel_v
     # query coordinates divide by the grid's 0-d step tensors: on the card
     # they equal the CPU's bit for bit (a python-scalar divisor would be a
     # reciprocal multiply here)
@@ -2116,8 +2152,8 @@ def main() -> int:
     tt_i = tt.idw(*qK)
     torch.cuda.synchronize()
     launches_t = dict(ss.LAUNCHES)
-    if launches_t["select_rows"] < 1 or launches_t["idw_rows"] < 1:
-        raise AssertionError(f"B5 and B6 were not both launched on the two-tier path: {launches_t}")
+    if launches_t["select_krige"] < 1 or launches_t["idw_rows"] < 1 or launches_t["select_rows"]:
+        raise AssertionError(f"B11 and B6 (and no B5) were not launched on the two-tier path: {launches_t}")
     ref_tt = TwoTierInterpolator(grid, backend="torch")
     e_k = close_planes(tt_k, ref_tt.kriging(*qK), "two-tier kriging vs torch", *TT_BARS["kriging"])
     e_i = close_planes(tt_i, ref_tt.idw(*qK), "two-tier idw vs torch", *TT_BARS["idw"])
@@ -2157,10 +2193,12 @@ def main() -> int:
 
     # ---- 15. timing of the scattered slice: kernel alone and plain on the
     # phase-12 inputs, the wrappers, the Grid A CLI's steady state
-    _, _, _, _, _, cellA, fxA, fyA = ss.prologue(gA, *qA)
+    _, _, oobA, _, _, cellA, fxA, fyA = ss.prologue(gA, *qA)
     p16 = tp.build_valid16_pack(gA)
     winA, _ = tp.build_pack(gA, tp.window_offsets(2), clamp=False)
     tab16 = ss.table(tp.VALID16_OFFSETS, 16, 2, "dy", dev)
+    # the queries B11 solves: four found (the plain selection) in the grid
+    n_solved = float(((ss.select_ref(p16, 16, cellA, fxA, fyA, tab16, mode="rows_t", k=4)[0] == 4) & ~oobA).sum())
     tab32 = ss.table(tp.window_offsets(2), 32, 2, "dy", dev)
     tab32n = ss.table(tp.window_offsets(2), 32, 2, "dx", dev)
     sel_args = {
@@ -2181,6 +2219,30 @@ def main() -> int:
         cold = f" ({ms[kname + ' alone cold']:.4f} cold)" if kname in launchers else ""
         say("timing", f"Grid A {N_SCATTER} queries {kname:20s} kernel alone {ms[kname + ' alone']:.4f} ms{cold}, "
             f"wrapper {ms[kname + ' wrapper']:.4f} ms, plain {ms[kname + ' plain']:.4f} ms  [{card}]")
+    # B11 alone (device duration), its wrapper (the torch prologue and the
+    # launch) and its plain version: valid16, Grid A's auto path, and radius
+    # 2 with the resolved row, two-tier's
+    krige_args = {"select_krige": (p16, 16, tp.VALID16_OFFSETS, {}),
+                  "select_krige r2": (winA, 32, tp.window_offsets(2), dict(resolve_thresh=4.0))}
+    for kname, (pk, P, offs, kw) in krige_args.items():
+        ms[f"{kname} alone"] = device_ms(lambda: ss.select_krige(pk, P, offs, 2, gA, *qA, **kw),
+                                         "select_krige_kernel")
+        ms[f"{kname} wrapper"] = time_ms(lambda: ss.select_krige(pk, P, offs, 2, gA, *qA, **kw))
+        ms[f"{kname} plain"] = time_ms(lambda: ss.select_krige_ref(pk, P, offs, 2, gA, *qA, **kw), reps=5)
+        say("timing", f"Grid A {N_SCATTER} queries {kname:20s} kernel alone {ms[kname + ' alone']:.4f} ms, "
+            f"wrapper {ms[kname + ' wrapper']:.4f} ms, plain {ms[kname + ' plain']:.4f} ms  [{card}]")
+    # the CUDA kernels of one kriging_valid_t call: B11 with the torch
+    # prologue, against B5 with the torch row epilogue (the path before B11)
+    def b5_path():
+        out, _, _, oob, ci, cj = vs._select_rows(p16, 16, tp.VALID16_OFFSETS, 2, gA, *qA, emit_d2=False)
+        return ss._kriging_rows_epilogue(gA, *qA, out, oob, ci, cj, 2, vparams=None, model="exponential")
+
+    n_k = {what: sum(device_kernels(fn, reps=10).values()) / 10
+           for what, fn in (("B11", lambda: vs.kriging_valid_t(p16, gA, *qA)), ("B5 + epilogue", b5_path))}
+    ms["B5 + epilogue"] = time_ms(b5_path, reps=10)
+    say("timing", f"one kriging_valid_t call launches {n_k['B11']:.1f} CUDA kernels (B11 and the prologue); B5 "
+        f"with the torch row epilogue {n_k['B5 + epilogue']:.1f}, {ms['B5 + epilogue']:.4f} ms at {N_SCATTER} "
+        f"queries  [{card}]")
     # B7's library call: torch.topk of the (n, P) d2 matrix, made
     # beforehand as select_ref makes it (the selection alone, with no tie
     # order, no values and no codes)
@@ -2204,7 +2266,7 @@ def main() -> int:
         f"(B5's library call: the selection alone) {ms['B5 library topk']:.4f} ms  [{card}]")
     del d2B
     wrappers = {
-        "kriging_valid_t (B5)": lambda: vs.kriging_valid_t(p16, gA, *qA),
+        "kriging_valid_t (B11)": lambda: vs.kriging_valid_t(p16, gA, *qA),
         "packed_kriging_valid (torch)": lambda: tp.packed_kriging_valid(p16, gA, *qA),
         "packed_idw_t (B6)": lambda: vs.packed_idw_t(winA, gA, *qA),
         "packed_idw (torch)": lambda: tp.packed_idw(winA, gA, *qA),
@@ -2212,7 +2274,7 @@ def main() -> int:
         "packed_idw_fused (B7)": lambda: ss.packed_idw_fused(winA, gA, *qA),
         "packed_kriging (torch)": lambda: tp.packed_kriging(winA, gA, *qA),
         "prologue (_normalize, centre, fx, fy)": lambda: ss.prologue(gA, *qA),
-        "two-tier kriging r0.10 (B5)": lambda: tt.kriging(*qK),
+        "two-tier kriging r0.10 (B11)": lambda: tt.kriging(*qK),
         "two-tier idw r0.10 (B6)": lambda: tt.idw(*qK),
         "two-tier kriging r0.10 (torch)": lambda: ref_tt.kriging(*qK),
     }
@@ -2227,7 +2289,7 @@ def main() -> int:
         say("timing", f"Grid A fused n={n:>9} {method:8s} steady {v['steady_ms']:.4f} ms "
             f"({n / v['steady_ms'] / 1e3:.2f} M pts/s)  [{card}]")
     say("timing", f"peak device memory {torch.cuda.max_memory_allocated(dev) / 2**20:.0f} MiB")
-    del p16, winA, fxA, fyA, qA, gA, sel_args, wrappers
+    del p16, winA, fxA, fyA, oobA, qA, gA, sel_args, wrappers
     torch.cuda.empty_cache()
 
     # ---- 16. B8 vs its plain version: the band weave on the B1-filled band
@@ -2364,7 +2426,7 @@ def main() -> int:
         f"{time.perf_counter() - t_m:.1f} s")
     need = ["fill_kriging_fused", "fill_idw_fused", "band_resample"]
     if any(v["unresolved"] for (k, _), v in serving.items() if k.endswith("kriging")):
-        need.append("select_rows")
+        need.append("select_krige")
     if any(v["unresolved"] for (k, _), v in serving.items() if k.endswith("idw")):
         need.append("idw_rows")
     for k in need:
@@ -3050,6 +3112,11 @@ def main() -> int:
     nq = float(cellA.numel())
     bounds.update({
         "select_rows": bound(nq * (16 * 4 + 12 + (1 + 2 * 4) * 4), nq * (8 * 16 + 2 * 4 * 16)),
+        # B11 (valid16): the row, cell, fx, fy, lon, lat and oob read, the
+        # prediction written; B5's selection and, where four were found in
+        # the grid (every query of this fully valid grid), B1's solve
+        "select_krige": bound(nq * (16 * 4 + 12 + 8 + 1 + 4),
+                              nq * (8 * 16 + 2 * 4 * 16) + n_solved * B1_SOLVE_OPS),
         # B6 reads 25 taps of each 32-float row: 112 B, four 32-byte sectors
         "idw_rows": bound(nq * (32 * 4 + 12 + 2 * 4), nq * (8 * 25 + 2 * 8 * 25 + 4 * 8)),
         # B7 likewise reads 25 taps of each row and scans them
@@ -3073,7 +3140,7 @@ def main() -> int:
                                 b10_steps["exponential"] * (B10_BIN_OPS * gam_s.numel() + B10_STEP_OPS))
     say("bounds", "; ".join(f"{k} {v[0] * 1e3:.2f} us ({v[1]})" for k, v in bounds.items())
         + f"; rows scanned per cell: k=4 {s4 / n:.3f}, k=8 {s8 / n:.3f} (r0.20), k=4 {s4_bench / n:.3f} (r0.10); "
-        f"select kernels at {int(nq)} Grid A queries")
+        f"select kernels at {int(nq)} Grid A queries, {int(n_solved)} of them solved by B11")
 
     rows_ = [
         ("fill_kriging_fused", "auvtpu/pallas/window_fill.py:648",
@@ -3096,9 +3163,15 @@ def main() -> int:
     src = {k: "auvtpu_torch/csrc/window_fill.cu" for k, *_ in rows_}
     rows_ += [
         ("select_rows", "auvtpu/pallas/valid_select.py:79",
-         launches_a["select_rows"] + launches_t["select_rows"],
+         launches_a["select_rows"] + launches_v["select_rows"] + launches_t["select_rows"]
+         + launches_m["select_rows"],
          sc_err["select_rows"], ms["select_rows alone"], ms["select_rows wrapper"],
          ms["select_rows plain"]),
+        # B11 replaces B5 with the XLA row epilogue after it
+        ("select_krige", "auvtpu/pallas/valid_select.py:203",
+         launches_a["select_krige"] + launches_t["select_krige"] + launches_m["select_krige"],
+         sc_err["select_krige"], ms["select_krige alone"], ms["select_krige wrapper"],
+         ms["select_krige plain"]),
         ("idw_rows", "auvtpu/pallas/valid_select.py:113",
          launches_a["idw_rows"] + launches_t["idw_rows"],
          sc_err["idw_rows"], ms["idw_rows alone"], ms["idw_rows wrapper"],
@@ -3108,7 +3181,7 @@ def main() -> int:
          sc_err["window_select_fused"], ms["window_select_fused alone"], ms["window_select_fused wrapper"],
          ms["window_select_fused plain"]),
     ]
-    for k in ("select_rows", "idw_rows", "window_select_fused"):
+    for k in ("select_rows", "idw_rows", "window_select_fused", "select_krige"):
         src[k] = "auvtpu_torch/csrc/scattered_select.cu"
     rows_.append(("band_resample", "auvtpu/pallas/band_resample.py:43",
                   launches_m["band_resample"] + launches_sv["band_resample"] + launches_p["band_resample"],

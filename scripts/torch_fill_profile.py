@@ -20,11 +20,14 @@ kriging fill, 20 % for the IDW/mean fills and the slot-index selection; a
   backend of fill_kriging, of fit_fill, of the Grid B IDW and Kriging
   methods at r0.20 and of a streaming window refresh, with the host-clock time per
   call beside it (their ratio is the device's busy share);
-- Grid A scattered kriging at 5M queries through the valid16 B5 kernel
-  (``kriging_valid_t``, the CLI's --backend auto path): ``_normalize``, the
-  whole prologue, the B5 kernel alone, the torch row epilogue (decode and
-  5x6 solve) and the wrapper, then the profiler table and the device's idle
-  share for it and for B6 IDW;
+- Grid A scattered kriging at 5M queries through the valid16 B11 kernel
+  (``kriging_valid_t``, the CLI's --backend auto path: the top-4 and the
+  5x6 solve in one kernel): ``_normalize``, the whole prologue, B11 alone,
+  the wrapper, and the path before B11 (the B5 kernel alone, the torch row
+  epilogue, both together); the CUDA kernels one ``kriging_valid_t`` call
+  launches, against B5 with the torch epilogue and against B11's plain
+  version on the card; then the profiler table and the device's idle share
+  for it and for B6 IDW;
 - band serving at 5M pings of the stand-in (chip_smoke.py's phase 16-17
   workloads: the band weave on one band, the diagonal on the 8-page atlas):
   the B8 kernel alone (device duration, back to back and cold, its
@@ -99,8 +102,8 @@ def profile(label, fn, reps, card):
 
 
 def grid_a_breakdown(dev, card, n=5_000_000):
-    """Grid A kriging through the valid16 B5 kernel at n queries, piece by
-    piece."""
+    """Grid A kriging through the valid16 B11 kernel at n queries, piece by
+    piece, beside the path before it (B5 and the torch row epilogue)."""
     from auvtpu_torch.cli.bench_grid_a import random_queries
     from auvtpu_torch.config import GRID_A_EXTENT, GRID_A_SHAPE
     from auvtpu_torch.grid import RegularGrid
@@ -117,20 +120,33 @@ def grid_a_breakdown(dev, card, n=5_000_000):
     x, y, oob, ci, cj, cell, fx, fy = ss.prologue(g, lons, lats)
     tab = ss.table(tp.VALID16_OFFSETS, 16, 2, "dy", dev)
     rows = ss.select(p16, 16, cell, fx, fy, tab, mode="rows_t", k=4)
+
+    def b5_path():
+        out, _, _, oob_, ci_, cj_ = vs._select_rows(p16, 16, tp.VALID16_OFFSETS, 2, g, lons, lats, emit_d2=False)
+        return ss._kriging_rows_epilogue(g, lons, lats, out, oob_, ci_, cj_, 2, vparams=None, model="exponential")
+
+    twin = lambda: ss.select_krige_ref(p16, 16, tp.VALID16_OFFSETS, 2, g, lons, lats)
     pieces = {
         "_normalize": lambda: _normalize(g, lons, lats),
         "prologue (normalize, centre, fx, fy)": lambda: ss.prologue(g, lons, lats),
-        "B5 kernel alone": lambda: ss.select(p16, 16, cell, fx, fy, tab, mode="rows_t", k=4),
-        "row epilogue (decode + torch solve)": lambda: vs._kriging_rows_epilogue(
+        "kriging_valid_t (B11 and the prologue)": lambda: vs.kriging_valid_t(p16, g, lons, lats),
+        "before B11: B5 kernel alone": lambda: ss.select(p16, 16, cell, fx, fy, tab, mode="rows_t", k=4),
+        "before B11: row epilogue (torch solve)": lambda: ss._kriging_rows_epilogue(
             g, lons, lats, rows, oob, ci, cj, 2, vparams=None, model="exponential"),
-        "kriging_valid_t (whole)": lambda: vs.kriging_valid_t(p16, g, lons, lats),
+        "before B11: B5 + epilogue (whole)": b5_path,
         "packed_idw_t k=8 (whole)": lambda: vs.packed_idw_t(win, g, lons, lats),
     }
     print(f"\nGrid A {GRID_A_SHAPE[1]}x{GRID_A_SHAPE[0]}, {n} queries")
+    t = cs.device_ms(lambda: vs.kriging_valid_t(p16, g, lons, lats), "select_krige_kernel")
+    print(f"{'B11 alone (device duration)':38s} {t:9.4f} ms  [{card}]")
     for label, fn in pieces.items():
         t = cs.time_ms(fn, reps=10)
         print(f"{label:38s} {t:9.4f} ms  ({n / t / 1e3:.1f} M pts/s)  [{card}]")
-    profile(f"Grid A kriging {n} queries (B5 valid16 + torch epilogue)", lambda: vs.kriging_valid_t(p16, g, lons, lats), 5, card)
+    for label, fn in (("B11", lambda: vs.kriging_valid_t(p16, g, lons, lats)), ("B5 + the torch epilogue", b5_path),
+                      ("B11's plain version on the card", twin)):
+        launched = sum(cs.device_kernels(fn, reps=5).values()) / 5
+        print(f"one kriging_valid_t call through {label}: {launched:.1f} CUDA kernels  [{card}]")
+    profile(f"Grid A kriging {n} queries (B11 valid16)", lambda: vs.kriging_valid_t(p16, g, lons, lats), 5, card)
     profile(f"Grid A IDW {n} queries (B6)", lambda: vs.packed_idw_t(win, g, lons, lats), 5, card)
 
 
