@@ -17,7 +17,11 @@
 //   0. the prologue: x = (u - u0) / du - su and y = (v - v0) / dv - sv, each
 //      operation rounded once (IEEE '/', -fmad=false): with the grid's
 //      origin and step and a band's (col0, row0) this is ops/band.py's _xy
-//      and band shift bit for bit, with (0, 1, 0) it is the identity;
+//      and band shift bit for bit, with (0, 1, 0) it is the identity.  It
+//      divides, where the scattered ops' prologue multiplies by the
+//      reciprocal step: its JAX callers (the resamplers and the router of
+//      auvtpu/ops/band.py) run lonlat_to_xy outside any jit, so no constant
+//      step is folded there;
 //   1. block-wide min/max of the chunk's x and y over its real queries (the
 //      last chunk may be ragged: the JAX package pads it with its last
 //      query, which changes neither the min nor the max);

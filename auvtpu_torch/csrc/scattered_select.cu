@@ -40,6 +40,9 @@
 //       NaN query.
 //   B11: rows (1[+1], N) = the kriging prediction, (resolved): B5's
 //       first four slots and the 5x6 solve of krige_solve.cuh (below).
+//       B11 takes the queries' (lon, lat) and computes the query prologue
+//       itself (query_prologue.cuh); B5-B7 take the torch prologue's cell
+//       index and (fx, fy).
 // "resolved" (two-tier) is written at slot k-1 only: found & (d2 <
 // resolve_thresh).
 //
@@ -71,6 +74,7 @@
 #include <stdint.h>
 
 #include "krige_solve.cuh"
+#include "query_prologue.cuh"
 
 namespace {
 
@@ -283,32 +287,46 @@ int launch_idw(bool vec, dim3 g, cudaStream_t st, const float* pack, const int* 
   return (int)cudaGetLastError();
 }
 
-// B11: B5's first four slots and the ordinary-kriging solve per query, in
-// one kernel, where B5 wrote 9 rows that an epilogue of ~300 elementwise
-// torch kernels read back (the XLA epilogue's transcription).  On B6's
-// design: one thread a query, kSelThreads a block; the M real taps of the
+// B11: B5's first four slots and the ordinary-kriging solve per query, with
+// the query prologue, in one kernel (redesigned; the first B11 took the
+// torch prologue's cell, fx, fy, query and oob planes, ~28 torch kernels
+// before it, and the XLA row epilogue's ~300 came down to it).  On B6's
+// design: a thread a query, kSelThreads a block; the M real taps of the
 // row by value (dx + half, dy + half, and the tap's offsets packed as the
-// tag (dx + 8) | (dy + 8) << 4); values and d2 in registers; four
-// tournaments (tree_min), each winner knocked out by its tag; passes stop
-// at the first that finds no tap below 1.5e30.  Then, per query:
+// tag (dx + 8) | (dy + 8) << 4).
+// Per query:
+//   - the prologue of query_prologue.cuh from its (lon, lat) and the grid's
+//     scalars: oob, the centre (ci, cj) and (fx, fy), as the torch prologue
+//     computes them op for op;
+//   - its row's M values and d2 in registers; four tournaments (tree_min),
+//     each winner knocked out by its tag; passes stop at the first that
+//     finds no tap below 1.5e30;
 //   - fb = (v0 + v1 + v2 + v3) / max(found, 1), empty slots holding 0 (so
 //     0 where nothing was found, on a NaN query too);
 //   - where four were found and the query lies in the grid, the centres
-//     min + ((c + d) + half) * step of the four slots (ci = cell % W, cj =
-//     cell / W; d from the slot's tag, exact) and the 5x6 system with
-//     gamma(0) on its diagonal, solved by krige_solve.cuh's Gauss-Jordan
-//     with the column-form gamma of each model (gamma_cols): the prediction
-//     sum lam_a v_a, or fb where a pivot fell below pivot_tol.  Elsewhere
-//     the plain version discards the solve, so it is not run;
+//     min + ((c + d) + half) * step of the four slots (d from the slot's
+//     tag, exact) and the 5x6 system with gamma(0) on its diagonal, solved
+//     by krige_solve.cuh's Gauss-Jordan with the column-form gamma of each
+//     model (gamma_cols): the prediction sum lam_a v_a, or fb where a pivot
+//     fell below pivot_tol.  Elsewhere the plain version discards the
+//     solve, so it is not run;
 //   - NaN out of the grid; the resolved row (two-tier) at slot 4: found
 //     and d2 < resolve_thresh, out of the grid too (through the clipped
 //     centre, as the plain version has it).
 // The fitted variogram's parameters are read through device pointers where
 // they are set (KrigeParams.p_vario), so nothing travels to the host.
-// What bounds it on the H100: per query 64-196 bytes of pack row (M taps),
-// 21 bytes of cell, fx, fy, query and oob read, 4 or 8 bytes written:
-// ~0.03 ms at 1M queries; ~10 operations a tap for d2 and the tournaments
-// and ~340 for the solve: issue, not memory.
+// What bounds it on the H100: per query 8 bytes of (lon, lat) and a random
+// 64-196 byte pack row (M taps) read, 4 or 8 bytes written: 76 bytes at
+// valid16, 0.0227 ms at 1M queries; random 64-byte rows reach no more than
+// ~58 % of the HBM rate (scripts/row_gather_probe.py: 0.039 ms).  The
+// valid16 build has ~1,700 SASS instructions (static count, code a query
+// may not run included; the solve's IEEE divisions, square roots and expf
+// without FMA, as the plain version rounds).  The builds of at most 16
+// taps ask for 8 resident blocks of 128 threads: that takes the valid16
+// build from 78 to 57 registers, 6 to 8 blocks an SM, and 6-7 % off its
+// time; two queries a thread (both rows loaded before either tournament)
+// were 25 % slower (scripts/b11_variant_probe.py, PERF.md).
+
 template <int M>
 struct KrigeTaps {
   float x[M];
@@ -319,32 +337,23 @@ struct KrigeTaps {
 // The fixed parameters of a B11 launch, by value; the variogram's (nugget,
 // p1, p2) read through p_vario where it is not null, else from vario.
 struct KrigeParams {
-  float min_lon, min_lat, lon_step, lat_step, half, pivot_tol, resolve_thresh;
-  int W, has_resolve;
+  QueryGeom geo;
+  float lon_step, lat_step, half, pivot_tol, resolve_thresh;
+  int has_resolve;
   float vario[3];
   const float* p_vario[3];
 };
 
-template <int M, int P, int MODEL>
-__global__ void __launch_bounds__(kSelThreads)
-select_krige_kernel(const float* __restrict__ pack, const int* __restrict__ cell, const float* __restrict__ fxs,
-                    const float* __restrict__ fys, const float* __restrict__ qlons,
-                    const float* __restrict__ qlats, const unsigned char* __restrict__ oobs,
-                    const __grid_constant__ KrigeTaps<M> taps, const KrigeParams par, int n,
-                    float* __restrict__ out) {
-  static_assert(M <= P, "a pack row holds its taps");
-  const int q = blockIdx.x * kSelThreads + threadIdx.x;
-  if (q >= n) return;
-  const int c = __ldg(cell + q);
-  const float fx = __ldg(fxs + q);
-  const float fy = __ldg(fys + q);
-  float val[M];
-  load_row<M, true>(pack + (size_t)c * P, val);
+// One query after its row is loaded: the top-4, the solve, the stores.
+template <int M, int MODEL>
+__device__ __forceinline__ void krige_query(const float (&val)[M], const QueryCell& qc, float lon, float lat,
+                                            const KrigeTaps<M>& taps, const KrigeParams& par, int n, int q,
+                                            float* __restrict__ out) {
   float d2[M];
 #pragma unroll
   for (int t = 0; t < M; ++t) {
-    const float di = taps.x[t] - fx;
-    const float dj = taps.y[t] - fy;
+    const float di = taps.x[t] - qc.fx;
+    const float dj = taps.y[t] - qc.fy;
     d2[t] = val[t] < kHalfSentinel ? di * di + dj * dj : kInf;
   }
 
@@ -369,34 +378,59 @@ select_krige_kernel(const float* __restrict__ pack, const int* __restrict__ cell
     for (int t = 0; t < M; ++t) d2[t] = id == taps.tag[t] ? kInf : d2[t];
   }
 
-  const bool oob = __ldg(oobs + q) != 0;
   float res = (((vz[0] + vz[1]) + vz[2]) + vz[3]) / fmaxf((float)cnt, 1.f);
-  if (cnt == 4 && !oob) {
-    const float cif = (float)(c % par.W);
-    const float cjf = (float)(c / par.W);
+  if (cnt == 4 && !qc.oob) {
+    const float cif = (float)qc.ci;
+    const float cjf = (float)qc.cj;
     float cx[4], cy[4];
 #pragma unroll
     for (int s = 0; s < 4; ++s) {
-      cx[s] = par.min_lon + ((cif + (float)((tag[s] & 15) - 8)) + par.half) * par.lon_step;
-      cy[s] = par.min_lat + ((cjf + (float)((tag[s] >> 4) - 8)) + par.half) * par.lat_step;
+      cx[s] = par.geo.min_lon + ((cif + (float)((tag[s] & 15) - 8)) + par.half) * par.lon_step;
+      cy[s] = par.geo.min_lat + ((cjf + (float)((tag[s] >> 4) - 8)) + par.half) * par.lat_step;
     }
     const float nugget = par.p_vario[0] ? __ldg(par.p_vario[0]) : par.vario[0];
     const float p1 = par.p_vario[1] ? __ldg(par.p_vario[1]) : par.vario[1];
     const float p2 = par.p_vario[2] ? __ldg(par.p_vario[2]) : par.vario[2];
     const auto gamma = [&](float h) { return gamma_cols<MODEL>(h, nugget, p1, p2); };
     float lam[5], gamma0[4];
-    const bool singular = krige_solve<kGJ>(cx, cy, __ldg(qlons + q), __ldg(qlats + q), gamma(0.f), gamma,
-                                           par.pivot_tol, lam, gamma0);
+    const bool singular = krige_solve<kGJ>(cx, cy, lon, lat, gamma(0.f), gamma, par.pivot_tol, lam, gamma0);
     if (!singular) res = lam[0] * vz[0] + lam[1] * vz[1] + lam[2] * vz[2] + lam[3] * vz[3];
   }
-  out[q] = oob ? NAN : res;
+  out[q] = qc.oob ? NAN : res;
   if (par.has_resolve) out[(size_t)n + q] = resolved;
 }
 
+// lons, lats: (n,) f32 queries; pack: (cells, P) f32, 16-byte aligned.
+template <int M, int P, int MODEL>
+__global__ void __launch_bounds__(kSelThreads, M <= 16 ? 8 : 1)
+select_krige_kernel(const float* __restrict__ pack, const float* __restrict__ lons,
+                    const float* __restrict__ lats, const __grid_constant__ KrigeTaps<M> taps,
+                    const KrigeParams par, int n, float* __restrict__ out) {
+  static_assert(M <= P, "a pack row holds its taps");
+  const int q = blockIdx.x * kSelThreads + threadIdx.x;
+  if (q >= n) return;
+  const float lon = __ldg(lons + q);
+  const float lat = __ldg(lats + q);
+  const QueryCell qc = query_cell(lon, lat, par.geo);
+  float val[M];
+  load_row<M, true>(pack + (size_t)(qc.cj * par.geo.W + qc.ci) * P, val);
+  krige_query<M, MODEL>(val, qc, lon, lat, taps, par, n, q, out);
+}
+
+// The build a launch of M taps and this model runs.
 template <int M, int P>
-int launch_krige(dim3 g, cudaStream_t st, const float* pack, const int* cell, const float* fx, const float* fy,
-                 const float* qlon, const float* qlat, const unsigned char* oob, const float* offs,
-                 const KrigeParams& par, int model, int n, float* out) {
+const void* krige_kernel(int model) {
+  switch (model) {
+    case kExponential: return (const void*)select_krige_kernel<M, P, kExponential>;
+    case kLinear: return (const void*)select_krige_kernel<M, P, kLinear>;
+    case kSpherical: return (const void*)select_krige_kernel<M, P, kSpherical>;
+    default: return (const void*)select_krige_kernel<M, P, kGaussian>;
+  }
+}
+
+template <int M, int P>
+int launch_krige(cudaStream_t st, const float* pack, const float* lons, const float* lats, const float* offs,
+                 KrigeParams par, int model, int n, float* out) {
   KrigeTaps<M> tv;
   for (int t = 0; t < M; ++t) {
     const float dx = offs[t], dy = offs[M + t];
@@ -405,24 +439,9 @@ int launch_krige(dim3 g, cudaStream_t st, const float* pack, const int* cell, co
     tv.y[t] = dy + par.half;
     tv.tag[t] = ((int)dx + 8) | (((int)dy + 8) << 4);
   }
-  switch (model) {
-    case kExponential:
-      select_krige_kernel<M, P, kExponential><<<g, kSelThreads, 0, st>>>(pack, cell, fx, fy, qlon, qlat, oob, tv,
-                                                                          par, n, out);
-      break;
-    case kLinear:
-      select_krige_kernel<M, P, kLinear><<<g, kSelThreads, 0, st>>>(pack, cell, fx, fy, qlon, qlat, oob, tv,
-                                                                     par, n, out);
-      break;
-    case kSpherical:
-      select_krige_kernel<M, P, kSpherical><<<g, kSelThreads, 0, st>>>(pack, cell, fx, fy, qlon, qlat, oob, tv,
-                                                                        par, n, out);
-      break;
-    default:
-      select_krige_kernel<M, P, kGaussian><<<g, kSelThreads, 0, st>>>(pack, cell, fx, fy, qlon, qlat, oob, tv,
-                                                                       par, n, out);
-  }
-  return (int)cudaGetLastError();
+  const dim3 g((unsigned)((n + kSelThreads - 1) / kSelThreads));
+  void* args[] = {&pack, &lons, &lats, &tv, &par, &n, &out};
+  return (int)cudaLaunchKernel(krige_kernel<M, P>(model), g, dim3(kSelThreads), args, 0, st);
 }
 
 // B7: window top-k over the M real taps of a pack row, as B6 selects them,
@@ -628,56 +647,75 @@ int auvtpu_idw_select(const void* pack, int P, int M, const void* cell, const vo
 
 // B11.  pack: (cells, P) f32, 16-byte aligned, P the smallest of 16, 32,
 // 64 that holds M; M, the real taps a row, in {9, 16, 25, 49} (windows of
-// radius 1-3, the valid16 stencil); cell: (n,) int32 = cj * W + ci; fx, fy,
-// qlon, qlat: (n,) f32; oob: (n,) bool (a byte each); offs: 2*M f32 on the
-// host, dx of each tap, then dy (integers, |dx|, |dy| <= 7); geo: min_lon,
-// min_lat, lon_step, lat_step, half, pivot_tol (f32 on the host, passed by
-// value; auvtpu_kriging_fill's geo, whose last two are not read here);
+// radius 1-3, the valid16 stencil); lons, lats: (n,) f32 queries; offs: 2*M
+// f32 on the host, dx of each tap, then dy (integers, |dx|, |dy| <= 7);
+// geo: min_lon, max_lon, min_lat, max_lat, inv_lon, inv_lat, lon_step,
+// lat_step, half, pivot_tol (f32 on the host, passed by value; inv_* the
+// reciprocals of grid.py's inv_steps); W, H the grid's columns and rows;
 // vario, p_nugget, p_sill, p_range as for auvtpu_kriging_fill; model 0..3
 // (exponential, linear, spherical, gaussian); out: (1[+1], n) f32 =
 // prediction (, resolved).  One kernel launch, nothing else on the stream.
-int auvtpu_select_krige(const void* pack, int P, int M, const void* cell, const void* fx, const void* fy,
-                        const void* qlon, const void* qlat, const void* oob, const float* offs, int n, int W,
-                        const float* geo, const float* vario, const void* p_nugget, const void* p_sill,
-                        const void* p_range, int model, int has_resolve, float resolve_thresh, void* out,
-                        void* stream) {
-  if (P != pitch_for(M) || model < 0 || model > 3 || n < 0 || W < 1 || ((uintptr_t)pack & 15))
+int auvtpu_select_krige(const void* pack, int P, int M, const void* lons, const void* lats, const float* offs,
+                        int n, int W, int H, const float* geo, const float* vario, const void* p_nugget,
+                        const void* p_sill, const void* p_range, int model, int has_resolve, float resolve_thresh,
+                        void* out, void* stream) {
+  if (P != pitch_for(M) || model < 0 || model > 3 || n < 0 || W < 1 || H < 1 || ((uintptr_t)pack & 15))
     return (int)cudaErrorInvalidValue;
   if (n == 0) return (int)cudaSuccess;
   KrigeParams par;
-  par.min_lon = geo[0];
-  par.min_lat = geo[1];
-  par.lon_step = geo[2];
-  par.lat_step = geo[3];
-  par.half = geo[4];
-  par.pivot_tol = geo[5];
+  par.geo = QueryGeom{geo[0], geo[1], geo[2], geo[3], geo[4], geo[5], W, H};
+  par.lon_step = geo[6];
+  par.lat_step = geo[7];
+  par.half = geo[8];
+  par.pivot_tol = geo[9];
   par.resolve_thresh = resolve_thresh;
-  par.W = W;
   par.has_resolve = has_resolve != 0;
   const void* ptrs[3] = {p_nugget, p_sill, p_range};
   for (int i = 0; i < 3; ++i) {
     par.vario[i] = vario[i];
     par.p_vario[i] = (const float*)ptrs[i];
   }
-  const dim3 g((unsigned)((n + kSelThreads - 1) / kSelThreads));
   cudaStream_t st = (cudaStream_t)stream;
   const float* p = (const float*)pack;
-  const int* c = (const int*)cell;
-  const float *x = (const float*)fx, *y = (const float*)fy, *lo = (const float*)qlon, *la = (const float*)qlat;
-  const unsigned char* ob = (const unsigned char*)oob;
+  const float *lo = (const float*)lons, *la = (const float*)lats;
   float* o = (float*)out;
   switch (M) {
     case 9:
-      return launch_krige<9, 16>(g, st, p, c, x, y, lo, la, ob, offs, par, model, n, o);
+      return launch_krige<9, 16>(st, p, lo, la, offs, par, model, n, o);
     case 16:
-      return launch_krige<16, 16>(g, st, p, c, x, y, lo, la, ob, offs, par, model, n, o);
+      return launch_krige<16, 16>(st, p, lo, la, offs, par, model, n, o);
     case 25:
-      return launch_krige<25, 32>(g, st, p, c, x, y, lo, la, ob, offs, par, model, n, o);
+      return launch_krige<25, 32>(st, p, lo, la, offs, par, model, n, o);
     case 49:
-      return launch_krige<49, 64>(g, st, p, c, x, y, lo, la, ob, offs, par, model, n, o);
+      return launch_krige<49, 64>(st, p, lo, la, offs, par, model, n, o);
     default:
       return (int)cudaErrorInvalidValue;
   }
+}
+
+// B11's build for M taps and a model: out[0..3] = registers a thread, local
+// (spill) bytes a thread, resident blocks an SM (the occupancy calculator's,
+// at kSelThreads a block).  For the resource report of chip_smoke.py.
+int auvtpu_select_krige_attributes(int M, int model, int* out) {
+  if (model < 0 || model > 3) return (int)cudaErrorInvalidValue;
+  const void* fn;
+  switch (M) {
+    case 9: fn = krige_kernel<9, 16>(model); break;
+    case 16: fn = krige_kernel<16, 16>(model); break;
+    case 25: fn = krige_kernel<25, 32>(model); break;
+    case 49: fn = krige_kernel<49, 64>(model); break;
+    default: return (int)cudaErrorInvalidValue;
+  }
+  cudaFuncAttributes attr;
+  cudaError_t err = cudaFuncGetAttributes(&attr, fn);
+  if (err != cudaSuccess) return (int)err;
+  int blocks = 0;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, fn, kSelThreads, 0);
+  if (err != cudaSuccess) return (int)err;
+  out[0] = attr.numRegs;
+  out[1] = (int)attr.localSizeBytes;
+  out[2] = blocks;
+  return 0;
 }
 
 // B7.  pack: (cells, P) f32 with P the smallest of 16, 32, 64 that holds M;

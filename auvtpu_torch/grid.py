@@ -114,12 +114,28 @@ class RegularGrid:
     def extent(self) -> Extent:
         return Extent(self.min_lon, self.max_lon, self.min_lat, self.max_lat)
 
+    def inv_steps(self, dtype: torch.dtype | None = None) -> tuple[float, float]:
+        """(1 / lon_step, 1 / lat_step) as the compiled JAX ops use them:
+        each step rounded to ``dtype`` (the grid's by default), then one
+        divided by it in ``dtype``, as python floats exact in ``dtype``.
+        The JAX ops are jitted with the extent as static metadata, so XLA
+        folds ``(lon - min_lon) / lon_step`` into a multiply by the
+        reciprocal of the constant step; the scattered queries' coordinates
+        are that product (:func:`auvtpu_torch.ops.scattered._normalize`).
+        A python scalar factor is exact on the CPU and the card alike."""
+        dtype = self.dtype if dtype is None else dtype
+        if dtype == torch.float32:
+            return tuple(float(np.float32(1.0) / np.float32(s)) for s in (self.lon_step, self.lat_step))
+        return 1.0 / self.lon_step, 1.0 / self.lat_step
+
     def step_tensors(self, dtype: torch.dtype | None = None, device=None):
         """(lon_step, lat_step) rounded to ``dtype`` as 0-d tensors on
-        ``device`` (the grid's by default), made once per grid.  Query
-        coordinates divide by these: a python-scalar divisor of a CUDA tensor
-        is a multiply by its reciprocal, which can move a quotient by an ulp
-        from the division JAX computes."""
+        ``device`` (the grid's by default), made once per grid.  The mission
+        path's coordinates divide by these (:meth:`lonlat_to_xy`,
+        ``ops.band._xy``): its JAX callers compute them outside any jit, as a
+        division.  A python-scalar divisor of a CUDA tensor is a multiply by
+        its reciprocal, which can move a quotient by an ulp from that
+        division."""
         dtype = self.dtype if dtype is None else dtype
         device = self.device if device is None else torch.device(device)
         cache = self.__dict__.setdefault("_step_tensors", {})  # frozen: no setattr
@@ -186,7 +202,9 @@ class RegularGrid:
         """Geographic coords -> continuous grid coords (x = col, y = row), in
         the queries' floating dtype: ``(lon - min_lon) / lon_step`` with both
         scalars rounded to it, the step divided as a 0-d tensor (exact
-        division on a card too)."""
+        division on a card too).  This is the JAX package's
+        ``lonlat_to_xy`` as its callers (the mission resamplers and
+        router, ``auvtpu/ops/band.py``) run it: eagerly, a division."""
         out = []
         for i, (q, lo) in enumerate(((lons, self.min_lon), (lats, self.min_lat))):
             q = torch.as_tensor(q)

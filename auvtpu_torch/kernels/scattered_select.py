@@ -28,8 +28,11 @@ row epilogue ``_kriging_rows_epilogue`` after it): (1[+1], N) rows
 ``packed_kriging_t``; its plain version is :func:`select_krige_ref`, B5's
 plain rows and the row epilogue in torch.
 
-The normalisation (x, y, oob, centre cell, fractional offsets) is torch, in
-one place (:func:`prologue`); the kernel does the fetch and the selection.
+For B5, B6 and B7 the normalisation (x, y, oob, centre cell, fractional
+offsets) is torch, in one place (:func:`prologue`), and the kernels do the
+fetch and the selection; B11 takes the queries and the grid's scalars and
+computes the same prologue itself (``csrc/query_prologue.cuh``), so a
+kriging call is one launch.
 :func:`select_ref` is the kernel's plain version, a transcription of the
 TPU kernels (same d2 op order, sentinels and tie rule).  :func:`select`
 runs it only for a pack on the CPU; for a CUDA pack it launches the kernel
@@ -57,7 +60,7 @@ from ..ops.packs import (
 )
 from ..ops.scattered import _nan_like, _normalize, centre_cells, krige_solve_cols, queries
 from . import library
-from .window_fill import _MODELS, _kriging_params
+from .window_fill import _MODELS, _vario_params
 
 # one count per TPU kernel replaced
 LAUNCHES = {"select_rows": 0, "idw_rows": 0, "window_select_fused": 0, "select_krige": 0}
@@ -84,8 +87,10 @@ def _lib() -> ctypes.CDLL:
     lib.auvtpu_window_select.argtypes = [P, I, I, P, P, ctypes.POINTER(F), I, I, P, P]
     lib.auvtpu_window_select.restype = I
     FP = ctypes.POINTER(F)
-    lib.auvtpu_select_krige.argtypes = [P, I, I, P, P, P, P, P, P, FP, I, I, FP, FP, P, P, P, I, I, F, P, P]
+    lib.auvtpu_select_krige.argtypes = [P, I, I, P, P, FP, I, I, I, FP, FP, P, P, P, I, I, F, P, P]
     lib.auvtpu_select_krige.restype = I
+    lib.auvtpu_select_krige_attributes.argtypes = [I, I, ctypes.POINTER(I)]
+    lib.auvtpu_select_krige_attributes.restype = I
     lib.auvtpu_scattered_error_string.argtypes = [I]
     lib.auvtpu_scattered_error_string.restype = ctypes.c_char_p
     return lib
@@ -184,10 +189,11 @@ def _window_taps(tab: torch.Tensor, P: int, half: float):
 # ---------------------------------------------------------------------------
 
 def prologue(grid: RegularGrid, lons, lats):
-    """The query geometry both the kernel and the epilogues use: x, y, oob
-    (:func:`auvtpu_torch.ops.scattered._normalize`), the clamped centre
-    (ci, cj), its cell index cj*W + ci (int32) and the fractional offsets
-    fx = x - ci, fy = y - cj (valid_select.py:146-173)."""
+    """The query geometry the kernels B5-B7, the plain versions and the
+    epilogues use: x, y, oob (:func:`auvtpu_torch.ops.scattered._normalize`),
+    the clamped centre (ci, cj), its cell index cj*W + ci (int32) and the
+    fractional offsets fx = x - ci, fy = y - cj (valid_select.py:146-173).
+    B11 computes it in the kernel, op for op."""
     if grid.dtype != torch.float32:
         raise TypeError(
             f"the scattered select kernels are float32 (grid is {grid.dtype}); "
@@ -258,12 +264,13 @@ def _stream(dev: torch.device) -> ctypes.c_void_p:
 
 
 def _check(pack, P: int, k: int, name: str, *inputs) -> None:
-    """What every select kernel takes: float32, a built pack width, 1 <= k
-    <= P, a contiguous pack of whole rows, every input on the pack's
-    device."""
+    """What every select kernel takes: float32 (the pack and every floating
+    input), a built pack width, 1 <= k <= P, a contiguous pack of whole
+    rows, every input on the pack's device."""
     dev = pack.device
-    if pack.dtype != torch.float32 or any(t.dtype != torch.float32 for t in inputs[1:3]):
-        raise TypeError(f"{name}: the kernel is float32 only (pack {pack.dtype}, fx {inputs[1].dtype})")
+    dtypes = [t.dtype for t in inputs if t.is_floating_point()]
+    if pack.dtype != torch.float32 or any(d != torch.float32 for d in dtypes):
+        raise TypeError(f"{name}: the kernel is float32 only (pack {pack.dtype}, inputs {dtypes})")
     if P not in KERNEL_P:
         raise ValueError(
             f"{name}: pack width P={P} is not built: the kernel keeps P distances in "
@@ -413,8 +420,9 @@ def select_krige(pack, P: int, offs, R: int, grid: RegularGrid, lons, lats, *, c
     found or a pivot fell below ``KrigingConfig().pivot_tol``, NaN out of
     the grid; the resolved row (two-tier, ``resolve_thresh``) is B5's.
     For a CPU pack this is :func:`select_krige_ref`; for a CUDA pack it
-    launches the kernel once (the prologue stays torch) or raises.  Fitted
-    ``vparams`` (0-d tensors on the card) are read there by the kernel."""
+    launches the kernel once, which computes the query prologue from the
+    queries and the grid's scalars itself, or raises.  Fitted ``vparams``
+    (0-d tensors on the card) are read there by the kernel."""
     if pack.device.type == "cpu":
         return select_krige_ref(pack, P, offs, R, grid, lons, lats, convention=convention, vparams=vparams,
                                 model=model, resolve_thresh=resolve_thresh)
@@ -422,30 +430,57 @@ def select_krige(pack, P: int, offs, R: int, grid: RegularGrid, lons, lats, *, c
     if model not in _MODELS:
         raise ValueError(model)
     dev = pack.device
-    _, _, oob, _, _, cell, fx, fy = prologue(grid, lons, lats)
     qlon, qlat = (q.contiguous() for q in queries(grid, lons, lats))
-    tab = table(offs, P, R, "dy", grid.device)
-    _check(pack, P, 4, name, cell, fx, fy, qlon, qlat, oob)
-    M, dx, dy = _real_taps(tab, P, name)
-    offs_h = np.ascontiguousarray(np.concatenate([dx, dy]), dtype=np.float32)
-    n = int(cell.shape[0])
+    _check(pack, P, 4, name, qlon, qlat)
+    M, taps = _krige_taps(tuple(map(tuple, offs)), P, R)
+    n = int(qlon.shape[0])
     resolve = resolve_thresh is not None
     out = torch.empty((1 + int(resolve), n), dtype=torch.float32, device=dev)
     if n == 0:
         return out
-    cell32, fx, fy, oob = cell.to(torch.int32).contiguous(), fx.contiguous(), fy.contiguous(), oob.contiguous()
-    geo, vario, ptrs, keep = _kriging_params(grid, vparams, convention, 0, 0, None, dev, name)
+    vario, ptrs, keep = _vario_params(vparams, dev, name)
     with torch.cuda.device(dev):
         err = _lib().auvtpu_select_krige(
-            pack.data_ptr(), P, M, cell32.data_ptr(), fx.data_ptr(), fy.data_ptr(), qlon.data_ptr(),
-            qlat.data_ptr(), oob.data_ptr(), offs_h.ctypes.data_as(ctypes.POINTER(ctypes.c_float)), n,
-            grid.num_lon, geo, vario, *ptrs, _MODELS[model], int(resolve),
+            pack.data_ptr(), P, M, qlon.data_ptr(), qlat.data_ptr(), taps, n, grid.num_lon, grid.num_lat,
+            _krige_geo(grid, convention), vario, *ptrs, _MODELS[model], int(resolve),
             float(resolve_thresh) if resolve else 0.0, out.data_ptr(), _stream(dev),
         )
     del keep
     _raise_on(err, name)
     LAUNCHES[name] += 1
     return out
+
+
+@lru_cache(maxsize=32)
+def _krige_taps(offs: tuple, P: int, R: int):
+    """(M, taps) for B11: :func:`_real_taps` of the pack's table, the M
+    taps' dx then dy as a host float32 array for the launch."""
+    M, dx, dy = _real_taps(table(offs, P, R, "dy", "cpu"), P, "select_krige")
+    return M, (ctypes.c_float * (2 * M))(*np.concatenate([dx, dy]).tolist())
+
+
+def _krige_geo(grid: RegularGrid, convention: str):
+    """B11's grid scalars, f32 by value: the bounds and the reciprocal
+    steps of :meth:`RegularGrid.inv_steps` (the query prologue), the steps
+    (the neighbours' centres), half and the pivot tolerance."""
+    inv_lon, inv_lat = grid.inv_steps(torch.float32)
+    half = 0.5 if convention == "reference" else 0.0
+    return _c_floats((grid.min_lon, grid.max_lon, grid.min_lat, grid.max_lat, inv_lon, inv_lat, grid.lon_step,
+                      grid.lat_step, half, KrigingConfig().pivot_tol))
+
+
+@lru_cache(maxsize=32)
+def _c_floats(vals: tuple):
+    return (ctypes.c_float * len(vals))(*vals)
+
+
+def krige_attributes(M: int, model: str = "exponential") -> dict:
+    """The resources of B11's build for M taps and ``model`` on the current
+    card: registers a thread, spill (local) bytes a thread, resident blocks
+    an SM by the occupancy calculator."""
+    out = (ctypes.c_int * 3)()
+    _raise_on(_lib().auvtpu_select_krige_attributes(M, _MODELS[model], out), "select_krige")
+    return dict(zip(("registers", "spill_bytes", "blocks_per_sm"), out))
 
 
 # ---------------------------------------------------------------------------

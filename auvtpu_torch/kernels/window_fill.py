@@ -333,21 +333,28 @@ def fill_kriging_fused_ref(grid: RegularGrid, *, max_radius: int = 10, conventio
     )
 
 
-def _kriging_params(grid: RegularGrid, vparams, convention: str, row0, col0, steps, dev, name: str = "fill_kriging_fused"):
-    """The parameters of one B1 (or B11) launch: the 8 fixed ones (min_lon,
-    min_lat, lon_step, lat_step, half, pivot_tol, row0, col0) and the
-    variogram's 3 as host float32, passed by value, and for each variogram
-    parameter that is a tensor (fitted parameters, 0-d on the device) its
-    device address, so it never travels to the host.  Returns (geo, vario,
-    pointers, keep): ``keep`` holds the tensors the pointers point into
-    until the launch."""
+def _kriging_params(grid: RegularGrid, vparams, convention: str, row0, col0, steps, dev):
+    """The parameters of one B1 launch: the 8 fixed ones (min_lon, min_lat,
+    lon_step, lat_step, half, pivot_tol, row0, col0) as host float32,
+    passed by value, and the variogram's of :func:`_vario_params`.  Returns
+    (geo, vario, pointers, keep)."""
     cfg = KrigingConfig()
-    if vparams is None:
-        vparams = (cfg.variogram.nugget, cfg.variogram.sill, cfg.variogram.range)
     lat_step, lon_step = (grid.lat_step, grid.lon_step) if steps is None else steps
     half = 0.5 if convention == "reference" else 0.0
     geo = (ctypes.c_float * 8)(*(float(v) for v in (grid.min_lon, grid.min_lat, lon_step, lat_step, half,
                                                      cfg.pivot_tol, row0, col0)))
+    return (geo, *_vario_params(vparams, dev, "fill_kriging_fused"))
+
+
+def _vario_params(vparams, dev, name: str):
+    """The variogram's 3 parameters of a B1 or B11 launch as host float32,
+    passed by value, and for each that is a tensor (fitted parameters, 0-d
+    on the device) its device address, so it never travels to the host.
+    Returns (vario, pointers, keep): ``keep`` holds the tensors the
+    pointers point into until the launch."""
+    if vparams is None:
+        cfg = KrigingConfig()
+        vparams = (cfg.variogram.nugget, cfg.variogram.sill, cfg.variogram.range)
     vario = (ctypes.c_float * 3)()
     ptrs, keep = [None] * 3, []
     for i, v in enumerate(vparams):
@@ -360,7 +367,7 @@ def _kriging_params(grid: RegularGrid, vparams, convention: str, row0, col0, ste
             ptrs[i] = v.data_ptr()
         else:
             vario[i] = float(v)
-    return geo, vario, ptrs, keep
+    return vario, ptrs, keep
 
 
 def fill_kriging_fused(grid: RegularGrid, *, max_radius: int = 10, convention: str = "reference", vparams=None, model: str = "exponential", solver: str = "gj", with_variance: bool = False, row0=0, col0=0, steps=None):

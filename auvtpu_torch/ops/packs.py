@@ -30,6 +30,7 @@ from .scattered import (
     _catmull_rom,
     _nan_like,
     _normalize,
+    as_index,
     cell_centres,
     centre_cells,
     krige_solve,
@@ -127,8 +128,8 @@ def bilinear_from_stencil(st, x, y, oob):
     of the valid corners where any is invalid; the tile-streaming path's
     epilogue.  The same operations in the same order as
     :func:`~auvtpu_torch.ops.scattered.scattered_bilinear`."""
-    x0 = torch.floor(x).to(torch.int32)
-    y0 = torch.floor(y).to(torch.int32)
+    x0 = as_index(torch.floor(x))
+    y0 = as_index(torch.floor(y))
     wx = x - x0
     wy = y - y0
     z00, z01, z10, z11 = st[:, 0], st[:, 1], st[:, 2], st[:, 3]
@@ -151,8 +152,8 @@ def packed_bilinear(pack: torch.Tensor, grid: RegularGrid, lons, lats, *, assume
     is invalid.  assume_valid=True (fully observed grids, e.g. Grid A) skips
     the fallback."""
     x, y, oob = _normalize(grid, lons, lats)
-    x0 = torch.floor(x).to(torch.int32)
-    y0 = torch.floor(y).to(torch.int32)
+    x0 = as_index(torch.floor(x))
+    y0 = as_index(torch.floor(y))
     wx = x - x0
     wy = y - y0
     st = fetch_pack(pack, 4, y0 * grid.num_lon + x0, nan_invalid=False)
@@ -187,8 +188,8 @@ def bicubic_from_stencil(st, x, y, oob):
     """Catmull-Rom from a (N, 16) stencil (rows m=-1..2, cols n=-1..2); a
     NaN tap makes the result NaN (no fallback).  The same operations in the
     same order as :func:`~auvtpu_torch.ops.scattered.scattered_bicubic`."""
-    xi = torch.floor(x).to(torch.int32)
-    yi = torch.floor(y).to(torch.int32)
+    xi = as_index(torch.floor(x))
+    yi = as_index(torch.floor(y))
     tx = x - xi
     ty = y - yi
     rows = [_catmull_rom(st[:, 4 * m], st[:, 4 * m + 1], st[:, 4 * m + 2], st[:, 4 * m + 3], tx) for m in range(4)]
@@ -202,8 +203,8 @@ def packed_bicubic(pack: torch.Tensor, grid: RegularGrid, lons, lats, *, assume_
     Catmull-Rom is linear in its 16 taps, so this is one weighted sum with
     separable basis weights; assume_valid skips the invalid-tap check."""
     x, y, oob = _normalize(grid, lons, lats)
-    xi = torch.floor(x).to(torch.int32)
-    yi = torch.floor(y).to(torch.int32)
+    xi = as_index(torch.floor(x))
+    yi = as_index(torch.floor(y))
     tx = x - xi
     ty = y - yi
     st = fetch_pack(pack, 16, yi * grid.num_lon + xi, nan_invalid=False)  # rows m, cols n

@@ -38,27 +38,39 @@ def queries(grid: RegularGrid, lons, lats):
 
 def _normalize(grid: RegularGrid, lons, lats):
     """lon/lat -> grid coords + strict out-of-bounds mask (GridH.cpp:162-168),
-    in the grid's dtype: ``(lon - min_lon) / lon_step`` with both scalars
-    rounded to that dtype, as JAX computes it; the steps divide as the
-    grid's 0-d tensors (:meth:`RegularGrid.step_tensors`), so the division
-    is exact on a card too.  OOB coords are zeroed so downstream indices
+    in the grid's dtype, as the compiled JAX ops compute them:
+    ``(lon - min_lon) * inv_step`` with ``min_lon`` rounded to that dtype and
+    ``inv_step`` the reciprocal of the rounded step in it
+    (:meth:`RegularGrid.inv_steps`; XLA folds the division by the static
+    step into that multiply).  OOB coords are zeroed so downstream indices
     stay in range."""
     lons, lats = queries(grid, lons, lats)
     dt = grid.dtype
     min_lon, max_lon = as_dtype(grid.min_lon, dt), as_dtype(grid.max_lon, dt)
     min_lat, max_lat = as_dtype(grid.min_lat, dt), as_dtype(grid.max_lat, dt)
     oob = (lons < min_lon) | (lons > max_lon) | (lats < min_lat) | (lats > max_lat)
-    lon_step, lat_step = grid.step_tensors()
-    x = (lons - min_lon) / lon_step
-    y = (lats - min_lat) / lat_step
+    inv_lon, inv_lat = grid.inv_steps()
+    x = (lons - min_lon) * inv_lon
+    y = (lats - min_lat) * inv_lat
     zero = torch.zeros_like(x)
     return torch.where(oob, zero, x), torch.where(oob, zero, y), oob
 
 
+def as_index(v, dtype: torch.dtype = torch.int32):
+    """A float coordinate cast to an integer as XLA casts it: NaN to 0.  A
+    NaN query is not out of bounds (every comparison with NaN is false), so
+    it reaches the casts; torch's CPU cast would give the most negative
+    integer (CUDA's ``cvt`` gives 0).  Every float -> int cast of a query
+    coordinate goes through here, and the kernels that cast in place (B11)
+    follow the same rule."""
+    return torch.where(torch.isnan(v), torch.zeros_like(v), v).to(dtype)
+
+
 def centre_cells(grid: RegularGrid, x, y):
-    """Window centre: round half away from zero, clamped (kernels.cu:425-432)."""
-    ci = torch.floor(x + 0.5).to(torch.int32).clamp(0, grid.num_lon - 1)
-    cj = torch.floor(y + 0.5).to(torch.int32).clamp(0, grid.num_lat - 1)
+    """Window centre: round half away from zero, clamped (kernels.cu:425-432);
+    a NaN coordinate takes cell 0 (:func:`as_index`)."""
+    ci = as_index(torch.floor(x + 0.5)).clamp(0, grid.num_lon - 1)
+    cj = as_index(torch.floor(y + 0.5)).clamp(0, grid.num_lat - 1)
     return ci, cj
 
 
@@ -74,8 +86,8 @@ def scattered_bilinear(grid: RegularGrid, lons, lats):
     """Bilinear at scattered points; the mean of the valid corners where any
     corner is invalid, NaN out of bounds (kernels.cu:173-234)."""
     x, y, oob = _normalize(grid, lons, lats)
-    x0 = torch.floor(x).to(torch.int32)
-    y0 = torch.floor(y).to(torch.int32)
+    x0 = as_index(torch.floor(x))
+    y0 = as_index(torch.floor(y))
     x1 = torch.clamp(x0 + 1, max=grid.num_lon - 1)
     y1 = torch.clamp(y0 + 1, max=grid.num_lat - 1)
     wx = x - x0
@@ -123,8 +135,8 @@ def scattered_bicubic(grid: RegularGrid, lons, lats, *, fallback: str = "auto", 
     if fallback not in ("auto", "never"):
         raise ValueError(fallback)
     x, y, oob = _normalize(grid, lons, lats)
-    xi = torch.floor(x).to(torch.int32)
-    yi = torch.floor(y).to(torch.int32)
+    xi = as_index(torch.floor(x))
+    yi = as_index(torch.floor(y))
     tx = x - xi
     ty = y - yi
 

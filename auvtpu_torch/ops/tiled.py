@@ -44,7 +44,7 @@ from .packs import (
     window_offsets,
     window_select_from_stencil,
 )
-from .scattered import _nan_like, _normalize, centre_cells
+from .scattered import _nan_like, _normalize, as_index, centre_cells
 
 TILE = (128, 256)
 QBLK = 2048
@@ -68,11 +68,11 @@ def _partition(x, y, H: int, W: int, *, anchor: str, tile, qblk: int):
     n = x.shape[0]
     dev = x.device
     if anchor == "round":
-        ax = torch.floor(x + 0.5).to(torch.int32).clamp(0, W - 1)
-        ay = torch.floor(y + 0.5).to(torch.int32).clamp(0, H - 1)
+        ax = as_index(torch.floor(x + 0.5)).clamp(0, W - 1)
+        ay = as_index(torch.floor(y + 0.5)).clamp(0, H - 1)
     else:
-        ax = torch.floor(x).to(torch.int32).clamp(0, W - 1)
-        ay = torch.floor(y).to(torch.int32).clamp(0, H - 1)
+        ax = as_index(torch.floor(x)).clamp(0, W - 1)
+        ay = as_index(torch.floor(y)).clamp(0, H - 1)
     tid = (ay // th) * n_tx + (ax // tw)
 
     order = torch.argsort(tid, stable=True)
@@ -156,8 +156,8 @@ def _scatter_back(n: int, vals, src, oob):
 def tiled_bilinear_run(grid: RegularGrid, tb):
     """Bilinear (kernels.cu:173-234 semantics) over a prebuilt partition."""
     bx, by, src = _live_lanes(tb)
-    st = _stencil(grid, torch.floor(by).long(), torch.floor(bx).long(), ((0, 0), (0, 1), (1, 0), (1, 1)),
-                  clamp=True)
+    st = _stencil(grid, as_index(torch.floor(by), torch.long), as_index(torch.floor(bx), torch.long),
+                  ((0, 0), (0, 1), (1, 0), (1, 1)), clamp=True)
     vals = bilinear_from_stencil(st, bx, by, torch.zeros_like(bx, dtype=torch.bool))
     return _scatter_back(tb["oob"].shape[0], vals, src, tb["oob"])
 
@@ -169,7 +169,7 @@ def tiled_bilinear(grid: RegularGrid, lons, lats, *, tile=TILE, qblk: int = QBLK
 def tiled_bicubic_run(grid: RegularGrid, tb):
     """Clean-stencil Catmull-Rom (kernels.cu:246-254; NaN taps propagate)."""
     bx, by, src = _live_lanes(tb)
-    st = _stencil(grid, torch.floor(by).long() - 1, torch.floor(bx).long() - 1,
+    st = _stencil(grid, as_index(torch.floor(by), torch.long) - 1, as_index(torch.floor(bx), torch.long) - 1,
                   [(m, n) for m in range(4) for n in range(4)], clamp=True)
     vals = bicubic_from_stencil(st, bx, by, torch.zeros_like(bx, dtype=torch.bool))
     return _scatter_back(tb["oob"].shape[0], vals, src, tb["oob"])

@@ -34,6 +34,7 @@ import torch
 
 from ..config import Extent
 from ..grid import RegularGrid
+from ..ops.scattered import as_index
 from ..streaming import StreamingInterpolator, _fill_window_planes, _scatter_last_wins
 from ..variogram import pair_sums_2d
 from .mesh import Mesh, _check_member, barrier, broadcast
@@ -187,8 +188,8 @@ class ShardedStreamingInterpolator(_BlockMosaic):
         # end, as its scatter normalises it)
         br, W = self._blk
         n = br * W
-        rows = obs[:, 0].long() - self._origin[0]
-        flat = rows * W + obs[:, 1].long()
+        rows = as_index(obs[:, 0], torch.long) - self._origin[0]
+        flat = rows * W + as_index(obs[:, 1], torch.long)
         flat = torch.where(flat < 0, flat + n, flat)
         return torch.where((rows >= 0) & (rows < br), flat, n)
 
@@ -213,8 +214,8 @@ class ShardedStreamingInterpolator2D(_BlockMosaic):
 
     def _local_flat(self, obs):
         br, bc = self._blk
-        rows = obs[:, 0].long() - self._origin[0]
-        cols = obs[:, 1].long() - self._origin[1]
+        rows = as_index(obs[:, 0], torch.long) - self._origin[0]
+        cols = as_index(obs[:, 1], torch.long) - self._origin[1]
         own = (rows >= 0) & (rows < br) & (cols >= 0) & (cols < bc)
         return torch.where(own, rows * bc + cols, br * bc)
 

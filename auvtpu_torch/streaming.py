@@ -21,6 +21,7 @@ import torch
 from .config import Extent
 from .grid import RegularGrid
 from .ops import fill_idw, fill_kriging, fill_window_mean, resolve_backend
+from .ops.scattered import as_index
 from .variogram import fit_variogram
 
 
@@ -31,12 +32,13 @@ def _ingest_batch(ebuf: torch.Tensor, vbuf: torch.Tensor, obs: torch.Tensor, wid
     ``ebuf``/``vbuf`` are the (H*W + 1,) elevation and validity buffers whose
     last element is a scrap slot; ``obs`` is the (m, 3) [row, col, value]
     batch on their device.  A negative flat index counts from the end of
-    the mosaic once, as the JAX package's ``.at[f]`` scatter normalises it;
+    the mosaic once, as the JAX package's ``.at[f]`` scatter normalises it,
+    and a NaN row or column is 0, as XLA casts it;
     see :func:`_scatter_last_wins` for the rest.  No value is read back to
     the host.
     """
     n = ebuf.shape[0] - 1
-    flat = obs[:, 0].long() * width + obs[:, 1].long()
+    flat = as_index(obs[:, 0], torch.long) * width + as_index(obs[:, 1], torch.long)
     _scatter_last_wins(ebuf, vbuf, torch.where(flat < 0, flat + n, flat), obs[:, 2])
 
 

@@ -80,21 +80,23 @@ streaming mosaic and scattered queries on the 3200x4000 Grid A, in phases:
             (3200x4000 shelf + seamount, fully valid: valid16 and radius-2
             packs, B7 also at radius 1 and 3, k=4 and k=8) and on the
             stand-in r0.10, 1M numpy-seeded queries plus
-            the tie queries and NaN, +-inf, +-1e30 and out-of-grid ones
-            each: rows, codes, d2, the resolved row and the IDW sums exactly
-            equal (NaN where plain has NaN); B11 (top-4 and kriging solve)
-            bit for bit on the same queries: valid16 and radius 2 with the
-            resolved row, the four models with fitted parameters on the
-            card; the kernel paths' predictions vs the torch packed paths
-            at rtol=1e-5, atol=1e-4
+            the tie queries, NaN, +-inf, +-1e30 and out-of-grid ones and
+            the nodes and half-nodes of a 200x200-node corner, each:
+            rows, codes, d2, the resolved row and the IDW sums exactly
+            equal (NaN where plain has NaN); B11 (query prologue, top-4 and
+            kriging solve) bit for bit on the same queries: valid16 and
+            radius 2 with the resolved row, the four models with fitted
+            parameters on the card; the kernel paths' predictions vs the
+            torch packed paths at rtol=1e-5, atol=1e-4
 13. grid A  auvtpu_torch.cli.bench_grid_a on the default grid at 1e3, 1e5,
             1e6 and 5e6 queries (all four methods, --backend auto), then 1e6
             with --backend fused: every validation PASSED (5e-5 x scale);
             launch counts show B11 and B6 (and no B5) under auto, B7 under
             fused; valid_select_t (B5's entry point) at the 1M Grid A
             queries, launch counts zeroed around it;
-            _normalize and lonlat_to_xy on the card equal to the CPU's bit
-            for bit at the 1M phase-12 queries; 4096
+            _normalize, lonlat_to_xy and ops.band._xy on the card equal to
+            the CPU's bit for bit at the 1M phase-12 queries and the
+            corner's nodes and half-nodes; 4096
             queries per method vs GoldenGrid/GoldenV2 at the same bar
 14. twotier TwoTierInterpolator (auto = the B11/B6 kernels) on the stand-in
             r0.10 with 1M queries vs backend "torch" (tests/test_packs.py
@@ -103,10 +105,18 @@ streaming mosaic and scattered queries on the 3200x4000 Grid A, in phases:
             with unit steps
 15. timing  the select kernels alone (B6 and B7 also cold) and plain,
             their wrappers, B7's and B5's library call (torch.topk of the
-            d2 matrix) and the torch paths at 1M Grid A queries, B11 alone
-            (valid16 and radius 2), its wrapper and plain version, the CUDA
-            kernels one kriging_valid_t call launches, two-tier calls, the
-            Grid A steady state per method and batch
+            d2 matrix) and the torch paths at 1M Grid A queries; B11 bit
+            for bit at 5M Grid A queries (valid16, radius 2 with the
+            resolved row; odd, node and half-node queries included), B11
+            alone at 1M and 5M (valid16 and radius 2), its bound, the
+            row-gather floor (scripts/row_gather_probe.py) and the issue
+            floor from its SASS instruction count, the resources of its
+            builds on the main paths (registers, spills, resident blocks),
+            its wrapper and plain version; kriging_valid_t's events and
+            CUDA kernels a call at 1M and 5M beside the torch prologue it
+            no longer runs (B5-B7 still do); B1's SASS against its pinned
+            fingerprint; two-tier calls, the Grid A steady state per method
+            and batch
 16. B8      the band/atlas resample kernel vs its plain version on the
             stand-in r0.10, on lon/lat through the kernel's coordinate
             prologue, with a ragged last chunk: 5M pings of the band weave
@@ -305,6 +315,13 @@ F64_FLOPS = 34e12  # outside the tensor cores
 # coordinates (~32), the 5x6 Gauss-Jordan (180), prediction and variance
 # (~20); sqrt, exp and divide counted as one each
 B1_SOLVE_OPS = 340
+# B1's SASS by nvcc release, from a build on the H100: (kriging_fill_kernel
+# builds, their static instructions, sass_digest of their fingerprints).
+# krige_solve.cuh is B1's and B11's, and a change there must leave B1's
+# instructions as they are
+# (scripts/kernel_ab.py --only B1 holds its bits and SASS against another
+# version of the sources)
+B1_SASS_PIN = {"Build cuda_12.9.r12.9/compiler.36037853_0": (32, 52704, "3086def90a658781")}
 # f64 operations of B10 (exponential): ~53 a bin a step (the curve, its
 # Jacobian row, the normal-equation sums, the candidate's curve, SSE and
 # gamma move) and ~100 a step (six exps, the damped 3x3 LU solve, the clip,
@@ -947,6 +964,33 @@ def scattered_queries(ext, H: int, W: int, n: int, seed: int, device):
                            ext.min_lat + ys * (ext.max_lat - ext.min_lat) / (H - 1)])
     return (torch.from_numpy(lons.astype(np.float32)).to(device),
             torch.from_numpy(lats.astype(np.float32)).to(device))
+
+
+def line_queries(ext, H: int, W: int, device, half_lines: int = 400):
+    """The nodes and half-nodes of the grid's first ``half_lines`` half-node
+    rows and columns (a corner of half_lines/2 x half_lines/2 nodes), on
+    this extent: min + (i / 2) * step in float64, as float32 tensors.  Where
+    the steps are not 1 these are the queries on which a division by the
+    step and a multiply by its reciprocal part (ROADMAP C3)."""
+    import torch
+
+    lon_step, lat_step = (ext.max_lon - ext.min_lon) / (W - 1), (ext.max_lat - ext.min_lat) / (H - 1)
+    cols = np.arange(min(2 * W - 1, half_lines)) / 2.0
+    rows = np.arange(min(2 * H - 1, half_lines)) / 2.0
+    lons = (ext.min_lon + cols[None, :] * lon_step + 0 * rows[:, None]).ravel()
+    lats = (ext.min_lat + rows[:, None] * lat_step + 0 * cols[None, :]).ravel()
+    return (torch.from_numpy(lons.astype(np.float32)).to(device),
+            torch.from_numpy(lats.astype(np.float32)).to(device))
+
+
+def load_script(name: str):
+    """scripts/<name>.py of this checkout as a module."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(name, os.path.join(REPO, "scripts", f"{name}.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
 
 
 def select_cases(g, p16=None):
@@ -2036,6 +2080,8 @@ def main() -> int:
         # the phase's queries and, for the kernels alone, NaN/inf/1e30 and
         # out-of-grid ones (on a NaN query no slot is taken; B7's d2 row is NaN)
         odd = odd_queries(ext, *shape, dev)
+        lines = line_queries(ext, *shape, dev)
+        odd = (torch.cat([odd[0], lines[0]]), torch.cat([odd[1], lines[1]]))
         _, _, _, _, _, cell, fx, fy = ss.prologue(g, torch.cat([lo, odd[0]]), torch.cat([la, odd[1]]))
         for kname, pack, P, offs, radius, mode, layout, kw in cases:
             tab = ss.table(offs, P, radius, layout, dev)
@@ -2044,7 +2090,7 @@ def main() -> int:
             torch.cuda.synchronize()
             sc_err[kname] = max(sc_err[kname], same_planes(a, b, f"{kname} {mode} {kw} radius {radius} at {label}"))
             say("B5-B7", f"{label} radius {radius} P={P} {kname} ({mode}, {kw}): {tuple(a.shape)} exactly equal "
-                f"to plain, {odd[0].numel()} NaN/inf/1e30/out-of-grid queries included")
+                f"to plain, {odd[0].numel()} NaN/inf/1e30/out-of-grid/node/half-node queries included")
             del a, b
         # B11 on the same queries: the valid16 pack (Grid A's auto path), the
         # radius-2 pack with the resolved row (two-tier's), and the four
@@ -2062,8 +2108,8 @@ def main() -> int:
             torch.cuda.synchronize()
             sc_err["select_krige"] = max(sc_err["select_krige"], same_planes(a, b, f"select_krige {what} at {label}"))
             say("B11", f"{label} {what} select_krige ({ {k: v for k, v in kw.items() if k != 'vparams'} }): "
-                f"{tuple(a.shape)} bit-equal to plain, {odd[0].numel()} NaN/inf/1e30/out-of-grid queries "
-                f"included ({int(torch.isnan(a[0]).sum())} NaN)")
+                f"{tuple(a.shape)} bit-equal to plain, {odd[0].numel()} NaN/inf/1e30/out-of-grid/node/half-node "
+                f"queries included ({int(torch.isnan(a[0]).sum())} NaN)")
             del a, b
         pairs = [
             ("B11 packed_kriging_t", vs.packed_kriging_t(win, g, lo, la), tp.packed_kriging(win, g, lo, la)),
@@ -2114,20 +2160,23 @@ def main() -> int:
         raise AssertionError(f"valid_select_t: {launches_v}, {int((sel_v['found'] != 4).sum())} queries short of 4")
     say("gridA", f"valid_select_t at {qA[0].numel()} Grid A queries: 4 found at each; launches {launches_v}")
     del p16, sel_v
-    # query coordinates divide by the grid's 0-d step tensors: on the card
-    # they equal the CPU's bit for bit (a python-scalar divisor would be a
-    # reciprocal multiply here)
+    # query coordinates: the scattered ops' multiply by the reciprocal
+    # steps (as the jitted JAX ops), the mission path's division by the
+    # grid's 0-d step tensors (as its JAX callers, outside any jit): on the
+    # card they equal the CPU's bit for bit
+    from auvtpu_torch.ops.band import _xy
     from auvtpu_torch.ops.scattered import _normalize
 
     gA_cpu = RegularGrid.dense(a_elev, GRID_A_EXTENT, device="cpu")
-    qA_cpu = tuple(q.cpu() for q in qA)
-    for what, got, want in (("_normalize", _normalize(gA, *qA), _normalize(gA_cpu, *qA_cpu)),
-                            ("lonlat_to_xy", gA.lonlat_to_xy(*qA), gA_cpu.lonlat_to_xy(*qA_cpu))):
-        if not all(torch.equal(a.cpu(), b) for a, b in zip(got, want)):
+    lines = line_queries(GRID_A_EXTENT, *GRID_A_SHAPE, dev)
+    qL = tuple(torch.cat([q, l_]) for q, l_ in zip(qA, lines))
+    qL_cpu = tuple(q.cpu() for q in qL)
+    for what, fn in (("_normalize", _normalize), ("lonlat_to_xy", RegularGrid.lonlat_to_xy), ("_xy", _xy)):
+        if not all(torch.equal(a.cpu(), b) for a, b in zip(fn(gA, *qL), fn(gA_cpu, *qL_cpu))):
             raise AssertionError(f"{what}: the card's Grid A coordinates differ from the CPU's")
-    say("gridA", f"_normalize and lonlat_to_xy at {qA[0].numel()} Grid A queries: the card's coordinates equal "
-        f"the CPU's bit for bit")
-    del gA_cpu, qA_cpu
+    say("gridA", f"_normalize, lonlat_to_xy and _xy at {qL[0].numel()} Grid A queries (nodes and half-nodes "
+        f"included): the card's coordinates equal the CPU's bit for bit")
+    del gA_cpu, qL, qL_cpu, lines
     golden_a, golden_v2 = (cls(a_elev, GRID_A_EXTENT.min_lon, GRID_A_EXTENT.max_lon, GRID_A_EXTENT.min_lat,
                                GRID_A_EXTENT.max_lat) for cls in (GoldenGrid, GoldenV2))
     lo_h, la_h = (q[:N_GOLDEN].double().cpu().numpy() for q in qA)
@@ -2219,30 +2268,104 @@ def main() -> int:
         cold = f" ({ms[kname + ' alone cold']:.4f} cold)" if kname in launchers else ""
         say("timing", f"Grid A {N_SCATTER} queries {kname:20s} kernel alone {ms[kname + ' alone']:.4f} ms{cold}, "
             f"wrapper {ms[kname + ' wrapper']:.4f} ms, plain {ms[kname + ' plain']:.4f} ms  [{card}]")
-    # B11 alone (device duration), its wrapper (the torch prologue and the
-    # launch) and its plain version: valid16, Grid A's auto path, and radius
-    # 2 with the resolved row, two-tier's
-    krige_args = {"select_krige": (p16, 16, tp.VALID16_OFFSETS, {}),
-                  "select_krige r2": (winA, 32, tp.window_offsets(2), dict(resolve_thresh=4.0))}
-    for kname, (pk, P, offs, kw) in krige_args.items():
-        ms[f"{kname} alone"] = device_ms(lambda: ss.select_krige(pk, P, offs, 2, gA, *qA, **kw),
+    # B11 at 5M Grid A queries, the odd, node and half-node ones included:
+    # bit for bit (valid16; radius 2 with the resolved row)
+    qA5 = scattered_queries(GRID_A_EXTENT, *GRID_A_SHAPE, 5 * N_SCATTER, 9, dev)
+    odd5 = [torch.cat(t) for t in zip(odd_queries(GRID_A_EXTENT, *GRID_A_SHAPE, dev),
+                                       line_queries(GRID_A_EXTENT, *GRID_A_SHAPE, dev))]
+    q5 = tuple(torch.cat([q, o]) for q, o in zip(qA5, odd5))
+    for what, pk, P, offs, kw in (("valid16", p16, 16, tp.VALID16_OFFSETS, {}),
+                                  ("radius 2", winA, 32, tp.window_offsets(2), dict(resolve_thresh=4.0))):
+        a_ = ss.select_krige(pk, P, offs, 2, gA, *q5, **kw)
+        b_ = ss.select_krige_ref(pk, P, offs, 2, gA, *q5, **kw)
+        torch.cuda.synchronize()
+        sc_err["select_krige"] = max(sc_err["select_krige"], same_planes(a_, b_, f"select_krige {what} at 5M"))
+        say("B11", f"Grid A {q5[0].numel()} queries {what} select_krige ({kw}): {tuple(a_.shape)} bit-equal to "
+            f"plain, {odd5[0].numel()} NaN/inf/1e30/out-of-grid/node/half-node queries included")
+        del a_, b_
+    del q5, odd5
+    # B11 alone (device duration), its wrapper (the whole call: the kernel
+    # computes the query prologue) and its plain version: valid16, Grid A's
+    # auto path, and radius 2 with the resolved row, two-tier's; at 1M and 5M
+    krige_args = {"select_krige": (p16, 16, tp.VALID16_OFFSETS, qA, {}),
+                  "select_krige r2": (winA, 32, tp.window_offsets(2), qA, dict(resolve_thresh=4.0)),
+                  "select_krige 5M": (p16, 16, tp.VALID16_OFFSETS, qA5, {})}
+    for kname, (pk, P, offs, q_, kw) in krige_args.items():
+        ms[f"{kname} alone"] = device_ms(lambda: ss.select_krige(pk, P, offs, 2, gA, *q_, **kw),
                                          "select_krige_kernel")
-        ms[f"{kname} wrapper"] = time_ms(lambda: ss.select_krige(pk, P, offs, 2, gA, *qA, **kw))
-        ms[f"{kname} plain"] = time_ms(lambda: ss.select_krige_ref(pk, P, offs, 2, gA, *qA, **kw), reps=5)
-        say("timing", f"Grid A {N_SCATTER} queries {kname:20s} kernel alone {ms[kname + ' alone']:.4f} ms, "
+        ms[f"{kname} wrapper"] = time_ms(lambda: ss.select_krige(pk, P, offs, 2, gA, *q_, **kw))
+        ms[f"{kname} plain"] = time_ms(lambda: ss.select_krige_ref(pk, P, offs, 2, gA, *q_, **kw), reps=5)
+        say("timing", f"Grid A {q_[0].numel()} queries {kname:20s} kernel alone {ms[kname + ' alone']:.4f} ms, "
             f"wrapper {ms[kname + ' wrapper']:.4f} ms, plain {ms[kname + ' plain']:.4f} ms  [{card}]")
-    # the CUDA kernels of one kriging_valid_t call: B11 with the torch
-    # prologue, against B5 with the torch row epilogue (the path before B11)
+    # the resources of B11's builds on the main paths: valid16 (Grid A),
+    # radius 2 (two-tier, the mission's escalation) for the four models
+    for M, models in ((16, ("exponential",)), (25, tuple(MODEL_VPARAMS))):
+        for model in models:
+            at = ss.krige_attributes(M, model)
+            say("B11", f"build M={M} {model}: {at['registers']} registers, {at['spill_bytes']} spill bytes, "
+                f"{at['blocks_per_sm']} resident blocks of 128 threads an SM "
+                f"({at['blocks_per_sm'] * 128 / 2048:.0%} of the SM's threads)  [{card}]")
+    # B11 at 1M and 5M valid16 queries against its byte bound (8 bytes of
+    # query, the 64-byte row, 4 written, at 3.35 TB/s), the row-gather probe
+    # (the same reads and write, nothing else), and an issue estimate from
+    # the build's static SASS count (one warp instruction a query a thread,
+    # 4 an SM a clock): code a query may not run is counted, so it is not a
+    # floor
+    gather = load_script("row_gather_probe")
+    sass = load_script("sass_tools")
+    sass_n = sass.sass_instructions(kbuild.library_path("scattered_select"), "select_krige_kernel<16, 16, 0>")
+    clock_hz = float(subprocess.run(["nvidia-smi", "-i", "0", "--query-gpu=clocks.max.sm",
+                                     "--format=csv,noheader,nounits"], capture_output=True, text=True,
+                                    timeout=60, check=True).stdout.split()[0]) * 1e6
+    n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
+    for tag, q_, key in (("1M", qA, "select_krige"), ("5M", qA5, "select_krige 5M")):
+        nq_ = float(q_[0].numel())
+        cell_ = ss.prologue(gA, *q_)[5].to(torch.int32).contiguous()
+        ms[f"B11 row floor {tag}"] = gather.floor_ms(sys.modules[__name__], p16, 16, 1, cell_, *q_, gA)
+        ms[f"B11 byte bound {tag}"] = nq_ * (8 + 64 + 4) / HBM_BPS * 1e3
+        ms[f"B11 static issue estimate {tag}"] = nq_ * sass_n / 32 / (n_sm * 4 * clock_hz) * 1e3
+        t_ = ms[f"{key} alone"]
+        est = ms[f"B11 static issue estimate {tag}"]
+        say("timing", f"B11 valid16 at {int(nq_)} queries: alone {t_:.4f} ms; byte bound "
+            f"{ms[f'B11 byte bound {tag}']:.4f} ms ({ms[f'B11 byte bound {tag}'] / t_:.0%}); row-gather floor "
+            f"{ms[f'B11 row floor {tag}']:.4f} ms ({ms[f'B11 row floor {tag}'] / t_:.0%}); static-count issue "
+            f"estimate {est:.4f} ms ({est / t_:.0%}; {sass_n} SASS instructions in the build, run or not, at "
+            f"{clock_hz / 1e6:.0f} MHz)  [{card}]")
+        del cell_
+    # the CUDA kernels and the events of one kriging_valid_t call, beside
+    # the torch prologue it no longer runs (B5-B7's wrappers still do) and
+    # B5 with the torch row epilogue (the path before B11)
     def b5_path():
         out, _, _, oob, ci, cj = vs._select_rows(p16, 16, tp.VALID16_OFFSETS, 2, gA, *qA, emit_d2=False)
         return ss._kriging_rows_epilogue(gA, *qA, out, oob, ci, cj, 2, vparams=None, model="exponential")
 
-    n_k = {what: sum(device_kernels(fn, reps=10).values()) / 10
-           for what, fn in (("B11", lambda: vs.kriging_valid_t(p16, gA, *qA)), ("B5 + epilogue", b5_path))}
+    for tag, q_ in (("1M", qA), ("5M", qA5)):
+        calls = {"kriging_valid_t": lambda: vs.kriging_valid_t(p16, gA, *q_),
+                 "torch prologue": lambda: ss.prologue(gA, *q_)}
+        # B11 alone, once a call (the tracer may drop a record or two)
+        kept = only_kernel(calls["kriging_valid_t"], "select_krige_kernel", f"kriging_valid_t at {tag}")
+        n_pro = sum(device_kernels(calls["torch prologue"], reps=10).values()) / 10
+        ev = {what: time_ms(fn, reps=20) for what, fn in calls.items()}
+        ms[f"kriging_valid_t {tag} events"] = ev["kriging_valid_t"]
+        say("timing", f"one kriging_valid_t call at {q_[0].numel()} queries: {ev['kriging_valid_t']:.4f} ms events, "
+            f"one CUDA kernel, B11 ({sum(kept.values())} records of 20 calls kept); the torch prologue it no "
+            f"longer runs: {ev['torch prologue']:.4f} ms, {n_pro:.1f} kernels  [{card}]")
+    n_b5 = sum(device_kernels(b5_path, reps=10).values()) / 10
     ms["B5 + epilogue"] = time_ms(b5_path, reps=10)
-    say("timing", f"one kriging_valid_t call launches {n_k['B11']:.1f} CUDA kernels (B11 and the prologue); B5 "
-        f"with the torch row epilogue {n_k['B5 + epilogue']:.1f}, {ms['B5 + epilogue']:.4f} ms at {N_SCATTER} "
-        f"queries  [{card}]")
+    say("timing", f"B5 with the torch row epilogue (the path before B11): {n_b5:.1f} CUDA kernels, "
+        f"{ms['B5 + epilogue']:.4f} ms at {N_SCATTER} queries  [{card}]")
+    # B1 shares krige_solve.cuh: its SASS must not move
+    b1_sass = sass.sass_fingerprint(kbuild.library_path("window_fill"), "kriging_fill_kernel")
+    b1_digest = sass.sass_digest(b1_sass)
+    nvcc_v = subprocess.run([kbuild.nvcc_path(), "--version"], capture_output=True, text=True).stdout.strip()
+    nvcc_v = nvcc_v.splitlines()[-1] if nvcc_v else "unknown"
+    pin = B1_SASS_PIN.get(nvcc_v)
+    if pin is not None and b1_digest != pin:
+        raise AssertionError(f"B1's SASS moved under {nvcc_v}: {b1_digest}, pinned {pin}; {b1_sass}")
+    say("B1", f"SASS of {b1_digest[0]} kriging_fill_kernel builds, {b1_digest[1]} instructions, digest "
+        f"{b1_digest[2]}: " + ("equal to the pin" if pin is not None else f"no pin for {nvcc_v}, not compared")
+        + "; bench builds: " + "; ".join(f"{k} {n_} instructions" for k, (n_, _) in sorted(b1_sass.items())
+                                         if k.startswith("kriging_fill_kernel<0, 0, false")))
     # B7's library call: torch.topk of the (n, P) d2 matrix, made
     # beforehand as select_ref makes it (the selection alone, with no tie
     # order, no values and no codes)
@@ -2289,7 +2412,7 @@ def main() -> int:
         say("timing", f"Grid A fused n={n:>9} {method:8s} steady {v['steady_ms']:.4f} ms "
             f"({n / v['steady_ms'] / 1e3:.2f} M pts/s)  [{card}]")
     say("timing", f"peak device memory {torch.cuda.max_memory_allocated(dev) / 2**20:.0f} MiB")
-    del p16, winA, fxA, fyA, oobA, qA, gA, sel_args, wrappers
+    del p16, winA, fxA, fyA, oobA, qA, qA5, gA, sel_args, wrappers
     torch.cuda.empty_cache()
 
     # ---- 16. B8 vs its plain version: the band weave on the B1-filled band
@@ -3112,10 +3235,11 @@ def main() -> int:
     nq = float(cellA.numel())
     bounds.update({
         "select_rows": bound(nq * (16 * 4 + 12 + (1 + 2 * 4) * 4), nq * (8 * 16 + 2 * 4 * 16)),
-        # B11 (valid16): the row, cell, fx, fy, lon, lat and oob read, the
-        # prediction written; B5's selection and, where four were found in
-        # the grid (every query of this fully valid grid), B1's solve
-        "select_krige": bound(nq * (16 * 4 + 12 + 8 + 1 + 4),
+        # B11 (valid16): the query's lon and lat and its row read, the
+        # prediction written (the query prologue is in the kernel); B5's
+        # selection and, where four were found in the grid (every query of
+        # this fully valid grid), B1's solve
+        "select_krige": bound(nq * (8 + 16 * 4 + 4),
                               nq * (8 * 16 + 2 * 4 * 16) + n_solved * B1_SOLVE_OPS),
         # B6 reads 25 taps of each 32-float row: 112 B, four 32-byte sectors
         "idw_rows": bound(nq * (32 * 4 + 12 + 2 * 4), nq * (8 * 25 + 2 * 8 * 25 + 4 * 8)),

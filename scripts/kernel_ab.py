@@ -48,7 +48,6 @@ import collections
 import ctypes
 import os
 import re
-import shutil
 import subprocess
 import sys
 
@@ -69,6 +68,7 @@ from auvtpu_torch.ops import band as tband  # noqa: E402
 from auvtpu_torch.ops import packs as tp  # noqa: E402
 from auvtpu_torch.synthetic import shelf_seamount  # noqa: E402
 from auvtpu_torch.variogram import _bin_table, _sector_bin_table, empirical_variogram  # noqa: E402
+from sass_tools import sass_functions  # noqa: E402
 
 P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # the earlier interfaces: {C function: {commit: (parameter list, ctypes argument types)}}
@@ -201,27 +201,6 @@ SASS_CLASSES = {
     "loads/stores": ("LDG", "LDS", "LDC", "LDL", "STG", "STS", "STL", "ULDC"),
     "branch/call": ("BRA", "CALL", "RET", "BSSY", "BSYNC", "EXIT"),
 }
-
-
-def sass_functions(lib_path: str, matches: list[str]):
-    """(demangled kernel name, SASS text) of the kernels in the library whose
-    name, demangled with its template arguments as plain numbers and
-    true/false, holds one of ``matches``."""
-    cuobjdump = os.path.join(os.path.dirname(kbuild.nvcc_path()), "cuobjdump")
-    filt = shutil.which("cu++filt", path=os.path.dirname(kbuild.nvcc_path())) or shutil.which("c++filt")
-    text = subprocess.run([cuobjdump, "-sass", lib_path], capture_output=True, text=True, check=True).stdout
-    blocks = re.split(r"\n\s*Function : ", text)[1:]
-    found = []
-    for block in blocks:
-        name = block.split("\n", 1)[0].strip()
-        if filt:
-            name = subprocess.run([filt, name], capture_output=True, text=True).stdout.strip() or name
-        name = re.sub(r"\((?:unsigned )?int\)", "", name.replace("(bool)1", "true").replace("(bool)0", "false"))
-        if any(m in name for m in matches):
-            found.append((name, block))
-    if not found:
-        print(f"SASS {lib_path}: {len(blocks)} functions, none named {matches} (demangler {filt})", flush=True)
-    return found
 
 
 def sass_mix(lib_path: str, matches: list[str]) -> dict:

@@ -25,8 +25,14 @@ checkout's loop driving the timed checkout's package: 512-ping ticks of
 ``BandRouter.kriging``, a refresh every 32).  ``fit_fill`` runs on the
 r0.10 stand-in: CUDA events around back-to-back calls, its device-busy time
 (this checkout's ``chip_smoke.device_busy_ms``) and its host time a call.
-``--only`` takes a comma list of ``wrappers``, ``refresh``, ``tick`` and
-``fit_fill`` (all by default).  Prints the quartiles (wrapper calls,
+``kriging`` is Grid A kriging through B11 (``kriging_valid_t``, valid16)
+on chip_smoke.py's Grid A grid at its 1M and 5M uniform queries: events,
+device-busy time, host time a call and the CUDA kernels a call; the Grid A
+CLI's steady kriging at 5M (``bench_grid_a``, no validation); and two-tier
+kriging (``TwoTierInterpolator.kriging``, its auto backend) at 1M stand-in
+queries on r0.10, by events.  ``--only`` takes a comma list of
+``wrappers``, ``refresh``, ``tick``, ``fit_fill`` and ``kriging`` (all but
+``kriging`` by default).  Prints the quartiles (wrapper calls,
 refreshes, fit_fill's host time) or p50/p99 (ticks) as one JSON line, with
 the card's name and power limit.
 """
@@ -82,11 +88,48 @@ def smoke_module():
     return mod
 
 
+def kriging_ms(dev, grid) -> dict:
+    """Grid A kriging through B11 at 1M and 5M queries, the CLI's steady
+    kriging at 5M and two-tier kriging at 1M stand-in queries."""
+    import torch
+
+    from auvtpu_torch.cli import bench_grid_a
+    from auvtpu_torch.config import GRID_A_EXTENT, GRID_A_SHAPE, KERGUELEN_EXTENT
+    from auvtpu_torch.grid import RegularGrid
+    from auvtpu_torch.kernels import valid_select as vs
+    from auvtpu_torch.ops import TwoTierInterpolator
+    from auvtpu_torch.ops import packs as tp
+    from auvtpu_torch.synthetic import shelf_seamount
+
+    cs = smoke_module()
+    gA = RegularGrid.dense(shelf_seamount(*GRID_A_SHAPE), GRID_A_EXTENT, device=dev)
+    p16 = tp.build_valid16_pack(gA)
+    out = {}
+    for n, seed in ((1_000_000, 7), (5_000_000, 9)):
+        q = cs.scattered_queries(GRID_A_EXTENT, *GRID_A_SHAPE, n, seed, dev)
+        call = lambda: vs.kriging_valid_t(p16, gA, *q)  # noqa: E731
+        out[f"kriging_valid_t {n}"] = {
+            "events_ms": cs.time_ms(call, reps=50), "device_busy_ms": cs.device_busy_ms(call, reps=5),
+            "host_us_q25_q50_q75": host_us(call, reps=200),
+            "kernels_a_call": sum(cs.device_kernels(call, reps=10).values()) / 10}
+    results = os.path.join(ROOT, "results_local", "op_overhead_grid_a.csv")
+    os.makedirs(os.path.dirname(results), exist_ok=True)
+    cli = bench_grid_a.main(["--results", results, "--machine", "H100", "--methods", "Kriging", "--batch-sizes",
+                             "5000000", "--no-validate"])
+    out["cli kriging 5000000 steady_ms"] = next(v["steady_ms"] for v in cli.values())
+    tt = TwoTierInterpolator(grid)
+    qK = cs.scattered_queries(KERGUELEN_EXTENT, *grid.shape, 1_000_000, 8, dev)
+    out["two-tier kriging 1000000 events_ms"] = cs.time_ms(lambda: tt.kriging(*qK), reps=10)
+    del gA, p16
+    torch.cuda.empty_cache()
+    return out
+
+
 def main() -> int:
     p = argparse.ArgumentParser(description=__doc__, formatter_class=argparse.RawDescriptionHelpFormatter)
     p.add_argument("--repo", default=ROOT, help="the checkout whose auvtpu_torch is timed")
     p.add_argument("--label", default=None)
-    p.add_argument("--only", default="wrappers,refresh,tick,fit_fill", help="the parts to time")
+    p.add_argument("--only", default="wrappers,refresh,tick,fit_fill", help="the parts to time (or kriging)")
     args = p.parse_args()
     only = set(args.only.split(","))
     sys.path.insert(0, os.path.abspath(args.repo))
@@ -142,6 +185,8 @@ def main() -> int:
         res["fit_fill_ms"] = {"events": cs.time_ms(lambda: entry.fit_fill(grid)),
                               "device_busy": cs.device_busy_ms(lambda: entry.fit_fill(grid))}
     res["host_us_q25_q50_q75"] = out
+    if "kriging" in only:
+        res["kriging"] = kriging_ms(dev, grid)
     if "tick" in only:
         tick = smoke_module().tick_latency(grid, dev)
         res["tick_ms"] = {k: tick[k] for k in ("p50", "p99", "post_p50", "refresh_p50", "n")}

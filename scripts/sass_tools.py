@@ -1,0 +1,69 @@
+"""Static SASS of the kernels in a built library, read with the toolkit's
+``cuobjdump``: the instructions of a kernel, their count, and a fingerprint
+that moves with any of them.  Used by ``chip_smoke.py`` (B1's SASS pin, B11's
+static instruction count) and ``scripts/kernel_ab.py`` (instruction mixes).
+Needs the CUDA toolkit.
+"""
+
+import hashlib
+import json
+import os
+import re
+import shutil
+import subprocess
+
+from auvtpu_torch.kernels import build as kbuild
+
+_INSTRUCTION = re.compile(r"/\*[0-9a-f]{4,}\*/\s+([^;]*);")
+
+
+def sass_functions(lib_path: str, matches: list[str]):
+    """(demangled kernel name, SASS text) of the kernels in the library whose
+    name, demangled with its template arguments as plain numbers and
+    true/false, holds one of ``matches``."""
+    cuobjdump = os.path.join(os.path.dirname(kbuild.nvcc_path()), "cuobjdump")
+    filt = shutil.which("cu++filt", path=os.path.dirname(kbuild.nvcc_path())) or shutil.which("c++filt")
+    text = subprocess.run([cuobjdump, "-sass", lib_path], capture_output=True, text=True, check=True).stdout
+    blocks = re.split(r"\n\s*Function : ", text)[1:]
+    found = []
+    for block in blocks:
+        name = block.split("\n", 1)[0].strip()
+        if filt:
+            name = subprocess.run([filt, name], capture_output=True, text=True).stdout.strip() or name
+        name = re.sub(r"\((?:unsigned )?int\)", "", name.replace("(bool)1", "true").replace("(bool)0", "false"))
+        if any(m in name for m in matches):
+            found.append((name, block))
+    if not found:
+        print(f"SASS {lib_path}: {len(blocks)} functions, none named {matches} (demangler {filt})", flush=True)
+    return found
+
+
+def sass_instructions(lib_path, match: str) -> int:
+    """The static SASS instruction count of the one kernel of the library
+    whose demangled name holds ``match``: every instruction of the build,
+    whether a given launch runs it or not."""
+    found = sass_functions(str(lib_path), [match])
+    if len(found) != 1:
+        raise AssertionError(f"SASS of {lib_path}: {len(found)} kernels named {match!r}")
+    return len(_INSTRUCTION.findall(found[0][1]))
+
+
+def sass_fingerprint(lib_path, match: str) -> dict:
+    """{kernel<template arguments>: (static instruction count, sha256 of
+    the instructions' text, 16 hex digits)} of the library's kernels whose
+    demangled name holds ``match``: equal fingerprints are the same SASS
+    instruction for instruction."""
+    out = {}
+    for name, block in sass_functions(str(lib_path), [match]):
+        ins = _INSTRUCTION.findall(block)
+        key = re.search(re.escape(match) + r"<[^>]*>", name)
+        out[key.group(0) if key else name] = (len(ins), hashlib.sha256("\n".join(ins).encode()).hexdigest()[:16])
+    return out
+
+
+def sass_digest(fingerprint: dict) -> tuple[int, int, str]:
+    """(kernels, static instructions, 16 hex digits of sha256) of a
+    :func:`sass_fingerprint`: one value that moves with any of its
+    kernels."""
+    digest = hashlib.sha256(json.dumps(sorted(fingerprint.items())).encode()).hexdigest()[:16]
+    return len(fingerprint), sum(n for n, _ in fingerprint.values()), digest

@@ -21,9 +21,10 @@ kriging fill, 20 % for the IDW/mean fills and the slot-index selection; a
   methods at r0.20 and of a streaming window refresh, with the host-clock time per
   call beside it (their ratio is the device's busy share);
 - Grid A scattered kriging at 5M queries through the valid16 B11 kernel
-  (``kriging_valid_t``, the CLI's --backend auto path: the top-4 and the
-  5x6 solve in one kernel): ``_normalize``, the whole prologue, B11 alone,
-  the wrapper, and the path before B11 (the B5 kernel alone, the torch row
+  (``kriging_valid_t``, the CLI's --backend auto path: the query prologue,
+  the top-4 and the 5x6 solve in one kernel): B11 alone, the wrapper, the
+  torch prologue that B5-B7 still run (``_normalize``, the whole
+  prologue), and the path before B11 (the B5 kernel alone, the torch row
   epilogue, both together); the CUDA kernels one ``kriging_valid_t`` call
   launches, against B5 with the torch epilogue and against B11's plain
   version on the card; then the profiler table and the device's idle share
@@ -129,7 +130,7 @@ def grid_a_breakdown(dev, card, n=5_000_000):
     pieces = {
         "_normalize": lambda: _normalize(g, lons, lats),
         "prologue (normalize, centre, fx, fy)": lambda: ss.prologue(g, lons, lats),
-        "kriging_valid_t (B11 and the prologue)": lambda: vs.kriging_valid_t(p16, g, lons, lats),
+        "kriging_valid_t (B11, prologue inside)": lambda: vs.kriging_valid_t(p16, g, lons, lats),
         "before B11: B5 kernel alone": lambda: ss.select(p16, 16, cell, fx, fy, tab, mode="rows_t", k=4),
         "before B11: row epilogue (torch solve)": lambda: ss._kriging_rows_epilogue(
             g, lons, lats, rows, oob, ci, cj, 2, vparams=None, model="exponential"),

@@ -1,10 +1,12 @@
 """The port's scattered-query ops against the JAX package's, on the CPU:
-the f32 normalisation bit for bit, the radius-10 window selection exactly
+the f32 normalisation bit for bit (against the jitted ``_normalize``, as
+every JAX op that reads it compiles it), the radius-10 window selection exactly
 (found, slot_ok, ii, jj; val and d2 at rtol 1e-6), and the scattered
 bilinear, bicubic, kriging and IDW at the bars of tests/test_packs.py
 (kriging rtol 1e-4 / atol 0.1, IDW 1e-5 / 1e-2, bilinear and bicubic
 1e-5 / 1e-3), with equal NaN placement."""
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -75,7 +77,7 @@ def test_normalize_bit_equal(grids, queries):
     klons = np.linspace(kerg.min_lon - 1e-3, kerg.max_lon + 1e-3, 997).astype(np.float32)
     klats = np.linspace(kerg.max_lat + 1e-3, kerg.min_lat - 1e-3, 997).astype(np.float32)
     for jgrid, grid, lo, la in ((jg, g, lons, lats), (jk, k, klons, klats)):
-        for a, b in zip(_normalize(grid, lo, la), js._normalize(jgrid, lo, la)):
+        for a, b in zip(_normalize(grid, lo, la), jax.jit(js._normalize)(jgrid, lo, la)):
             np.testing.assert_array_equal(a.numpy(), np.asarray(b))
 
 

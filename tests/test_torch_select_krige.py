@@ -7,8 +7,10 @@ Fully valid, masked and sparse grids (where many queries find fewer than
 four neighbours), window radius 2 and 3 and the valid16 pack, both
 conventions, the four variogram models with their parameters as floats and
 as 0-d tensors, the two-tier resolved row, and NaN, +-inf, +-1e30 and
-out-of-grid queries.  Predictions at tests/test_pallas.py's bars (rtol 1e-5,
-atol 1e-4); the resolved mask and the unresolved count exactly equal.
+out-of-grid queries, on unit-step grids and (their nodes and half-nodes
+too) on the Kerguelen extent.  Predictions at tests/test_pallas.py's bars
+(rtol 1e-5, atol 1e-4); the resolved mask and the unresolved count exactly
+equal.
 
 The kernel takes each slot's (dx, dy) from its tap table where the plain
 version decodes the slot's code: the tap tables pin that the two agree,
@@ -19,6 +21,7 @@ import numpy as np
 import pytest
 import torch
 
+from auvtpu.config import KERGUELEN_EXTENT
 from auvtpu.config import Extent as JExtent
 from auvtpu.grid import RegularGrid as JGrid
 from auvtpu.masking import mask_grid
@@ -129,6 +132,102 @@ def test_plain_version_matches_pallas_kriging_valid(queries, model, vp):
                                    model=model)
         assert rows.shape == (1, len(lons))
         assert torch.equal(torch.nan_to_num(rows[0], nan=-1.0), torch.nan_to_num(got, nan=-1.0))
+
+
+def _kerguelen(kind):
+    """The planes of :func:`_grids` over the Kerguelen extent (steps of
+    0.2608 and 0.1820 degrees, neither a float32)."""
+    jg, _ = _grids(kind)
+    E = KERGUELEN_EXTENT
+    jk = JGrid(jg.elev, jg.valid, E.min_lon, E.max_lon, E.min_lat, E.max_lat)
+    g = grid_from_arrays(np.asarray(jk.elev), np.asarray(jk.valid), E.min_lon, E.max_lon, E.min_lat, E.max_lat, "cpu")
+    return jk, g
+
+
+def _line_queries(jg):
+    """Every node and half-node of the grid, then ODD and a few random
+    points in grid units, all mapped onto its extent (f32)."""
+    cols, rows = np.arange(2 * W - 1) / 2.0, np.arange(2 * H - 1) / 2.0
+    gx = np.concatenate([(cols[None, :] + 0 * rows[:, None]).ravel(), [q[0] for q in ODD],
+                         np.random.default_rng(4).uniform(-1.0, W, 100)])
+    gy = np.concatenate([(rows[:, None] + 0 * cols[None, :]).ravel(), [q[1] for q in ODD],
+                         np.random.default_rng(5).uniform(-1.0, H, 100)])
+    return ((jg.min_lon + gx * jg.lon_step).astype(np.float32), (jg.min_lat + gy * jg.lat_step).astype(np.float32))
+
+
+@pytest.mark.parametrize("radius", [2, 3])
+def test_plain_version_matches_pallas_on_grid_lines(radius):
+    # a grid whose steps are not 1: its nodes and half-nodes, NaN, +-inf,
+    # +-1e30 and out-of-grid queries; the selection through the resolved
+    # row and the count exactly, the predictions at the bars above
+    jg, g = _kerguelen("masked")
+    lons, lats = _line_queries(jg)
+    offs = tp.window_offsets(radius)
+    P = tp.pack_width(len(offs))
+    pack, jpack = tp.build_pack(g, offs, clamp=False)[0], jp.build_pack(jg, offs, clamp=False)[0]
+    kw = dict(window_radius=radius, vparams=(1.0, 100.0, 10.0), resolve_thresh=4.0)
+    res, mask, bad = vs.packed_kriging_t(pack, g, lons, lats, **kw)
+    with pltpu.force_tpu_interpret_mode():
+        jres, jmask, jbad = pallas_packed_kriging_t(jpack, jg, lons, lats, tile_n=TILE, **kw)
+    np.testing.assert_array_equal(mask.numpy(), np.asarray(jmask))
+    assert int(bad) == int(jbad)
+    _close(res.numpy(), jres)
+    odd = slice(len(lons) - 100 - len(ODD), len(lons) - 100)
+    assert bool((res[odd][:3] == 0).all()) and bool(torch.isnan(res[odd][3:10]).all())
+    if radius == 2:
+        jv, v = _kerguelen("valid")
+        p16, jp16 = tp.build_valid16_pack(v), jp.build_valid16_pack(jv)
+        with pltpu.force_tpu_interpret_mode():
+            want = pallas_kriging_valid(jp16, jv, lons, lats, tile_n=TILE)
+        _close(vs.kriging_valid_t(p16, v, lons, lats).numpy(), want)
+
+
+def _query_cell(lons, lats, geo, W, H):
+    """csrc/query_prologue.cuh's query_cell in numpy float32, op for op:
+    (oob, ci, cj, fx, fy) from the kernel's by-value grid scalars."""
+    f = np.float32
+    lo_min, lo_max, la_min, la_max, inv_lon, inv_lat = (f(v) for v in geo[:6])
+    with np.errstate(invalid="ignore"):
+        oob = (lons < lo_min) | (lons > lo_max) | (lats < la_min) | (lats > la_max)
+        x = np.where(oob, f(0), (lons - lo_min) * inv_lon).astype(f)
+        y = np.where(oob, f(0), (lats - la_min) * inv_lat).astype(f)
+        fl = [np.floor(v + f(0.5)) for v in (x, y)]
+        ci, cj = (np.clip(np.where(np.isnan(v), 0, v), 0, hi).astype(np.int32) for v, hi in zip(fl, (W - 1, H - 1)))
+    return oob, ci, cj, x - ci.astype(f), y - cj.astype(f)
+
+
+@pytest.mark.parametrize("convention", ["reference", "centered"])
+def test_kernel_prologue_scalars_give_the_jitted_jax_cells(convention):
+    # the grid scalars B11 takes by value, and its in-kernel query prologue
+    # written out in numpy float32: the jitted JAX prologue's oob, centre
+    # cells and offsets, at every node and half-node of a grid whose steps
+    # are not 1 and at NaN, +-inf and +-1e30 queries
+    import jax
+    import jax.numpy as jnp
+    from auvtpu.ops.scattered import _normalize as j_normalize
+
+    from auvtpu_torch.config import KrigingConfig
+
+    jg, g = _kerguelen("masked")
+    geo = np.ctypeslib.as_array(ss._krige_geo(g, convention))
+    f = np.float32
+    want = [g.min_lon, g.max_lon, g.min_lat, g.max_lat, *g.inv_steps(torch.float32), g.lon_step, g.lat_step,
+            0.5 if convention == "reference" else 0.0, KrigingConfig().pivot_tol]
+    np.testing.assert_array_equal(geo, np.asarray(want, f))
+    assert geo[4] == f(1) / f(g.lon_step) and geo[5] == f(1) / f(g.lat_step)
+    lons, lats = _line_queries(jg)
+
+    @jax.jit
+    def j_cells(lo, la):
+        x, y, oob = j_normalize(jg, lo, la)
+        ci = jnp.clip(jnp.floor(x + 0.5).astype(jnp.int32), 0, W - 1)
+        cj = jnp.clip(jnp.floor(y + 0.5).astype(jnp.int32), 0, H - 1)
+        return oob, ci, cj, x - ci.astype(x.dtype), y - cj.astype(y.dtype)
+
+    for got, ref in zip(_query_cell(lons, lats, geo, W, H), j_cells(lons, lats)):
+        np.testing.assert_array_equal(got, np.asarray(ref))
+    M, taps = ss._krige_taps(tuple(map(tuple, tp.VALID16_OFFSETS)), 16, 2)
+    assert M == 16 and list(taps) == [o[1] for o in tp.VALID16_OFFSETS] + [o[0] for o in tp.VALID16_OFFSETS]
 
 
 @pytest.mark.parametrize("name,offs,R", [
