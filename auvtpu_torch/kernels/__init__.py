@@ -1,8 +1,7 @@
 """Hand-written CUDA kernels for Hopper, built from ``csrc/`` with nvcc at
-first use and bound with ctypes; B1, B3, B7, B8 and the variogram kernels
-B9 and B10 (:mod:`.variogram`) are also registered as ``torch.library``
-custom ops (:mod:`.library`), which their wrappers call.  Importing this
-package builds nothing."""
+first use and bound with ctypes; every kernel (B1-B11) is registered as a
+``torch.library`` custom op (:mod:`.library`), through which its wrappers
+launch it.  Importing this package builds nothing."""
 
 from .scattered_select import packed_idw_fused, packed_kriging_fused, window_select_fused
 from .valid_select import kriging_valid_t, packed_idw_t, packed_kriging_t, valid_select_t

@@ -1,17 +1,24 @@
-"""The kernels on the serving paths as ``torch.library`` custom ops.
+"""Every hand-written kernel as a ``torch.library`` custom op.
 
-A ctypes launch on a raw pointer is opaque to ``torch.export``, so the
-kernels an exported program must launch are registered as operators of the
+A ctypes launch on a raw pointer is opaque to the dispatcher, so to
+``torch.export`` and to :func:`auvtpu_torch.utils.debug_mode`; every kernel
+of the package is therefore registered as an operator of the
 ``auvtpu_torch`` namespace (a ``torch.library.Library`` definition each,
 with no autograd kernel: a call goes through the C++ dispatcher straight to
 the device's implementation):
 
 - ``auvtpu_torch::kriging_fill`` (B1, ``csrc/window_fill.cu``
   ``kriging_fill_kernel``);
+- ``auvtpu_torch::topk_full`` (B2, ``topk_tile_kernel``) and
+  ``auvtpu_torch::topk_idx`` (B4, ``topk_idx_kernel``), the first-k-valid
+  selections;
 - ``auvtpu_torch::window_fill`` (B3, ``fill_tile_kernel``: kind 0 IDW, 1
   mean);
-- ``auvtpu_torch::window_select`` (B7, ``csrc/scattered_select.cu``
-  ``window_select_kernel``);
+- ``auvtpu_torch::valid_select`` (B5, ``csrc/scattered_select.cu``
+  ``select_kernel``), ``auvtpu_torch::idw_select`` (B6,
+  ``idw_select_kernel``), ``auvtpu_torch::window_select`` (B7,
+  ``window_select_kernel``) and ``auvtpu_torch::select_krige`` (B11,
+  ``select_krige_kernel``), the scattered-query selections;
 - ``auvtpu_torch::band_resample`` (B8, ``csrc/band_resample.cu``);
 - ``auvtpu_torch::pair_sums`` (B9, ``csrc/variogram.cu``, the binned
   variogram pair sums) and ``auvtpu_torch::fit_model`` (B10, the
@@ -20,15 +27,18 @@ the device's implementation):
 
 Each op takes tensors and python scalars only: a grid is unpacked into its
 ``elev`` and ``valid`` planes with its extent as floats, the variogram is
-one tensor, and what the kernel takes by value from the host (B7's taps)
-is a list of floats the wrapper works out before the call.  Its ``CUDA``
-implementation is the ctypes launch (with the launch count, the checks and
-the errors it always had), its ``CPU`` implementation the kernel's plain
-version, and its fake implementation gives the output's shape and dtype for
-tracing.  The wrappers in :mod:`.window_fill`, :mod:`.scattered_select`,
-:mod:`.band_resample` and :mod:`.variogram` call these ops, so a live call
-and an exported program take one route.  B2, B4, B5, B6 and B11 stay ctypes calls: no
-exported path launches them.
+one tensor (B11: a list of one (3,) tensor or three 0-d ones), and what a
+kernel takes by value from the host (the taps of B6, B7 and B11, B11's grid
+scalars) is worked out by the wrapper, once, before the call: B7's taps a
+list of floats, the others CPU tensors the launch reads on the host (a
+list costs the dispatcher a conversion a value, each call).
+Its ``CUDA`` implementation is the ctypes launch (with the launch count,
+the checks and the errors it always had), its ``CPU`` implementation the
+kernel's plain version, and its fake implementation gives the output's
+shape and dtype for tracing.  The wrappers in :mod:`.window_fill`,
+:mod:`.scattered_select`, :mod:`.valid_select`, :mod:`.band_resample` and
+:mod:`.variogram` call these ops and launch no kernel themselves, so a live
+call, an exported program and a call under debug mode take one route.
 
 Importing this module registers the ops and builds nothing; a program
 loaded with ``torch.export.load`` needs it imported first.
@@ -57,8 +67,7 @@ def variogram_tensor(vparams, like: torch.Tensor) -> torch.Tensor:
     (3,) tensor, as a fit returns them, are that tensor with no copy and no
     launch; others are stacked."""
     if vparams is None:
-        v = KrigingConfig().variogram
-        vparams = (v.nugget, v.sill, v.range)
+        return _default_variogram(like.dtype, like.device)
     if torch.is_tensor(vparams):
         if vparams.shape != (3,):
             raise ValueError(f"variogram parameters: a (3,) tensor, got {tuple(vparams.shape)}")
@@ -78,6 +87,23 @@ def variogram_tensor(vparams, like: torch.Tensor) -> torch.Tensor:
                     for i, v in enumerate(vparams))):
         return base
     return torch.stack([torch.as_tensor(v).reshape(()).to(like.device, like.dtype) for v in vparams])
+
+
+def variogram_tensors(vparams, like: torch.Tensor) -> list[torch.Tensor]:
+    """B11's variogram operand: three 0-d tensors on ``like``'s device that
+    are not views of one (3,) tensor, as they are (stacking them would be a
+    kernel a call); else ``[variogram_tensor(vparams, like)]``."""
+    if (isinstance(vparams, (tuple, list)) and len(vparams) == 3
+            and all(torch.is_tensor(v) and v.dim() == 0 and v.device == like.device for v in vparams)
+            and (vparams[0]._base is None or vparams[0]._base.shape != (3,))):
+        return list(vparams)
+    return [variogram_tensor(vparams, like)]
+
+
+@device_cache(maxsize=8)
+def _default_variogram(dtype: torch.dtype, device: torch.device) -> torch.Tensor:
+    v = KrigingConfig().variogram
+    return _constant((float(v.nugget), float(v.sill), float(v.range)), dtype, device)
 
 
 @device_cache(maxsize=32)
@@ -145,6 +171,57 @@ kriging_fill = _op(
 
 
 # ---------------------------------------------------------------------------
+# B2 and B4: first-k-valid selection over the (H, W) planes, as (1+3k, H, W)
+# planes [cnt, k vals, k dxs, k dys] (B2) or (1+k, H, W) [cnt, k table
+# rows] (B4).  B2 reads the planes as they are (views with any row stride);
+# B4's NaN-padded plane is built inside its CUDA implementation.
+# ---------------------------------------------------------------------------
+
+def _topk_full_cpu(elev, valid, k, max_radius, convention):
+    from .window_fill import topk_full_ref
+
+    cnt, vals, dxs, dys = topk_full_ref(_grid(elev, valid, (0.0, 1.0, 0.0, 1.0)), k=k, max_radius=max_radius,
+                                        convention=convention)  # the selection reads no coordinate
+    return torch.stack([cnt, *vals, *dxs, *dys])
+
+
+def _topk_full_fake(elev, valid, k, max_radius, convention):
+    return elev.new_empty((1 + 3 * k, *elev.shape))
+
+
+def _topk_full_cuda(elev, valid, k, max_radius, convention):
+    from .window_fill import topk_full_launch
+
+    return topk_full_launch(elev, valid, k, max_radius, convention)
+
+
+topk_full = _op("topk_full(Tensor elev, Tensor valid, int k, int max_radius, str convention) -> Tensor",
+                cpu=_topk_full_cpu, cuda=_topk_full_cuda, fake=_topk_full_fake)
+
+
+def _topk_idx_cpu(elev, valid, k, max_radius, convention):
+    from .window_fill import topk_idx_ref
+
+    cnt, idx = topk_idx_ref(_grid(elev, valid, (0.0, 1.0, 0.0, 1.0)), k=k, max_radius=max_radius,
+                            convention=convention)
+    return torch.stack([cnt, *idx])
+
+
+def _topk_idx_fake(elev, valid, k, max_radius, convention):
+    return elev.new_empty((1 + k, *elev.shape))
+
+
+def _topk_idx_cuda(elev, valid, k, max_radius, convention):
+    from .window_fill import topk_idx_launch
+
+    return topk_idx_launch(elev, valid, k, max_radius, convention)
+
+
+topk_idx = _op("topk_idx(Tensor elev, Tensor valid, int k, int max_radius, str convention) -> Tensor",
+               cpu=_topk_idx_cpu, cuda=_topk_idx_cuda, fake=_topk_idx_fake)
+
+
+# ---------------------------------------------------------------------------
 # B3: first-k-valid IDW (kind 0) and mean (kind 1) fills over the (H, W)
 # planes
 # ---------------------------------------------------------------------------
@@ -201,6 +278,98 @@ window_select = _op(
     "window_select(Tensor pack, Tensor cell, Tensor fx, Tensor fy, Tensor tab, float[] taps, int P, int k, "
     "float half) -> Tensor",
     cpu=_select_cpu, cuda=_select_cuda, fake=_select_fake)
+
+
+# ---------------------------------------------------------------------------
+# B5: transposed top-k rows (1+2k[+k][+1], N) [cnt, k vals, (k d2), k codes,
+# (resolved)] over the pack rows ``cell``, with the (3, P) 'dy' table; and
+# B6: the power-2 IDW sums (2[+1], N) [sum w*v, sum w, (resolved)], its taps
+# by value (scattered_select._idw_taps) in a CPU float32 tensor, empty for a
+# CPU pack
+# ---------------------------------------------------------------------------
+
+def _rows_cpu(pack, cell, fx, fy, tab, P, k, emit_d2, half, resolve_thresh):
+    from .scattered_select import select_ref
+
+    return select_ref(pack, P, cell, fx, fy, tab, mode="rows_t", k=k, emit_d2=emit_d2, half=half,
+                      resolve_thresh=resolve_thresh)
+
+
+def _rows_cuda(pack, cell, fx, fy, tab, P, k, emit_d2, half, resolve_thresh):
+    from .scattered_select import rows_launch
+
+    return rows_launch(pack, P, cell, fx, fy, tab, k, emit_d2, half, resolve_thresh)
+
+
+def _rows_fake(pack, cell, fx, fy, tab, P, k, emit_d2, half, resolve_thresh):
+    return pack.new_empty((1 + (3 if emit_d2 else 2) * k + int(resolve_thresh is not None), cell.shape[0]))
+
+
+valid_select = _op(
+    "valid_select(Tensor pack, Tensor cell, Tensor fx, Tensor fy, Tensor tab, int P, int k, bool emit_d2, "
+    "float half, float? resolve_thresh) -> Tensor",
+    cpu=_rows_cpu, cuda=_rows_cuda, fake=_rows_fake)
+
+
+def _idw_cpu(pack, cell, fx, fy, tab, taps, P, k, half, resolve_thresh, eps):
+    from .scattered_select import select_ref
+
+    return select_ref(pack, P, cell, fx, fy, tab, mode="idw", k=k, half=half, resolve_thresh=resolve_thresh, eps=eps)
+
+
+def _idw_cuda(pack, cell, fx, fy, tab, taps, P, k, half, resolve_thresh, eps):
+    from .scattered_select import idw_launch
+
+    return idw_launch(pack, P, cell, fx, fy, taps, k, resolve_thresh, eps)
+
+
+def _idw_fake(pack, cell, fx, fy, tab, taps, P, k, half, resolve_thresh, eps):
+    return pack.new_empty((2 + int(resolve_thresh is not None), cell.shape[0]))
+
+
+idw_select = _op(
+    "idw_select(Tensor pack, Tensor cell, Tensor fx, Tensor fy, Tensor tab, Tensor taps, int P, int k, "
+    "float half, float? resolve_thresh, float eps) -> Tensor",
+    cpu=_idw_cpu, cuda=_idw_cuda, fake=_idw_fake)
+
+
+# ---------------------------------------------------------------------------
+# B11: the valid top-4 and the ordinary-kriging solve, (1[+1], N) rows
+# [prediction, (resolved)] at the queries (qlon, qlat) (the grid's dtype,
+# contiguous).  tab is the (3, P) 'dy' table (the plain version's); taps
+# the kernel's by-value taps (scattered_select._krige_taps), a CPU float32
+# tensor, empty for a CPU pack; geo the grid's scalars, a (10,) float64 CPU
+# tensor (scattered_select._krige_geo: bounds, reciprocal steps, steps,
+# half, pivot tolerance); vario one (3,) tensor or three 0-d tensors
+# (library.variogram_tensors), read on the device.  Taps and scalars travel
+# as tensors: one operand through the dispatcher each, where a list of
+# floats is one a value.
+# ---------------------------------------------------------------------------
+
+def _krige_cpu(pack, tab, qlon, qlat, vario, taps, geo, P, R, num_lon, num_lat, model, resolve_thresh):
+    from .scattered_select import select_krige_plain
+
+    plane = qlon.new_empty(()).expand(num_lat, num_lon)  # the plain version reads the grid's shape, not its cells
+    vparams = tuple(float(v) for v in (vario[0] if len(vario) == 1 else vario))
+    g = geo.tolist()
+    return select_krige_plain(pack, P, tab, R, _grid(plane, plane, g[:4]), qlon, qlat, half=g[8], vparams=vparams,
+                              model=model, resolve_thresh=resolve_thresh)
+
+
+def _krige_cuda(pack, tab, qlon, qlat, vario, taps, geo, P, R, num_lon, num_lat, model, resolve_thresh):
+    from .scattered_select import krige_launch
+
+    return krige_launch(pack, P, qlon, qlat, vario, taps, geo, num_lon, num_lat, model, resolve_thresh)
+
+
+def _krige_fake(pack, tab, qlon, qlat, vario, taps, geo, P, R, num_lon, num_lat, model, resolve_thresh):
+    return qlon.new_empty((1 + int(resolve_thresh is not None), qlon.shape[0]))
+
+
+select_krige = _op(
+    "select_krige(Tensor pack, Tensor tab, Tensor qlon, Tensor qlat, Tensor[] vario, Tensor taps, Tensor geo, "
+    "int P, int R, int num_lon, int num_lat, str model, float? resolve_thresh) -> Tensor",
+    cpu=_krige_cpu, cuda=_krige_cuda, fake=_krige_fake)
 
 
 # ---------------------------------------------------------------------------

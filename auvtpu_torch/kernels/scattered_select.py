@@ -60,7 +60,7 @@ from ..ops.packs import (
 )
 from ..ops.scattered import _nan_like, _normalize, centre_cells, krige_solve_cols, queries
 from . import library
-from .window_fill import _MODELS, _vario_params
+from .window_fill import _MODELS
 
 # one count per TPU kernel replaced
 LAUNCHES = {"select_rows": 0, "idw_rows": 0, "window_select_fused": 0, "select_krige": 0}
@@ -82,12 +82,12 @@ def _lib() -> ctypes.CDLL:
     P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     lib.auvtpu_scattered_select.argtypes = [P, I, P, P, P, I, I, I, F, I, F, P, P]
     lib.auvtpu_scattered_select.restype = I
-    lib.auvtpu_idw_select.argtypes = [P, I, I, P, P, ctypes.POINTER(F), I, I, I, F, F, P, P]
+    lib.auvtpu_idw_select.argtypes = [P, I, I, P, P, P, I, I, I, F, F, P, P]  # taps: host float32
     lib.auvtpu_idw_select.restype = I
     lib.auvtpu_window_select.argtypes = [P, I, I, P, P, ctypes.POINTER(F), I, I, P, P]
     lib.auvtpu_window_select.restype = I
     FP = ctypes.POINTER(F)
-    lib.auvtpu_select_krige.argtypes = [P, I, I, P, P, FP, I, I, I, FP, FP, P, P, P, I, I, F, P, P]
+    lib.auvtpu_select_krige.argtypes = [P, I, I, P, P, P, I, I, I, P, FP, P, P, P, I, I, F, P, P]  # taps, geo: host
     lib.auvtpu_select_krige.restype = I
     lib.auvtpu_select_krige_attributes.argtypes = [I, I, ctypes.POINTER(I)]
     lib.auvtpu_select_krige_attributes.restype = I
@@ -272,10 +272,7 @@ def _check(pack, P: int, k: int, name: str, *inputs) -> None:
     if pack.dtype != torch.float32 or any(d != torch.float32 for d in dtypes):
         raise TypeError(f"{name}: the kernel is float32 only (pack {pack.dtype}, inputs {dtypes})")
     if P not in KERNEL_P:
-        raise ValueError(
-            f"{name}: pack width P={P} is not built: the kernel keeps P distances in "
-            f"registers and takes P in {KERNEL_P}, window radius <= 3 (radius 4 needs P=128)"
-        )
+        raise ValueError(_width_message(name, P))
     if not 1 <= k <= P:
         raise ValueError(f"{name}: k={k} outside 1..{P}")
     if not pack.is_contiguous() or pack.numel() % P or (name in ("select_rows", "select_krige")
@@ -285,6 +282,19 @@ def _check(pack, P: int, k: int, name: str, *inputs) -> None:
     for t in inputs:
         if t.device != dev:
             raise ValueError(f"{name}: pack on {dev} but an input on {t.device}")
+
+
+def _check_device(pack, name: str) -> None:
+    """A pack off the CPU must be on a card: one elsewhere (meta) would
+    reach the op's fake implementation and launch nothing."""
+    if pack.device.type != "cuda":
+        raise ValueError(f"{name}: pack lies on {pack.device}; the kernel takes a CUDA pack (a CPU pack runs the "
+                         "plain version)")
+
+
+def _width_message(name: str, P: int) -> str:
+    return (f"{name}: pack width P={P} is not built: the kernel keeps P distances in registers and takes P in "
+            f"{KERNEL_P}, window radius <= 3 (radius 4 needs P=128)")
 
 
 def _raise_on(err: int, name: str) -> None:
@@ -297,46 +307,107 @@ def select(pack, P: int, cell, fx, fy, tab, *, mode: str, k: int, emit_d2: bool 
     """k-nearest selection over the pack rows ``cell`` (B5/B6/B7 by ``mode``).
 
     pack (cells*P,) f32 with the 1e30 sentinel at invalid taps; cell (N,)
-    integer; fx, fy (N,) f32; tab (3, P) f32 (dx, dy, code).  For a CPU pack
-    this is :func:`select_ref`; for a CUDA pack it launches the kernel.  B7
-    (``"rows_n"``) goes through its op, ``auvtpu_torch::window_select``,
-    with its taps worked out here from the table's host copy."""
+    integer; fx, fy (N,) f32; tab (3, P) f32 (dx, dy, code).  Each mode is a
+    custom op (``auvtpu_torch::valid_select``, ``::idw_select``,
+    ``::window_select``): for a CPU pack it runs :func:`select_ref`, for a
+    CUDA pack it launches the kernel or raises.  B6's and B7's taps are
+    worked out here from the table's host copy, once a table."""
+    cpu = pack.device.type == "cpu"
+    if not cpu:
+        _check_device(pack, _MODES.get(mode, mode))
     if mode == "rows_n":
-        if pack.device.type == "cpu":
-            return library.window_select(pack, cell, fx, fy, tab, [], P, k, half)
-        _check(pack, P, k, "window_select_fused", cell, fx, fy, tab)
-        taps = _window_taps(tab, P, half)[1].tolist()
-        return library.window_select(pack, cell, fx, fy, tab, taps, P, k, half)
-    kw = dict(mode=mode, k=k, emit_d2=emit_d2, half=half, resolve_thresh=resolve_thresh, eps=eps)
-    if pack.device.type == "cpu":
-        return select_ref(pack, P, cell, fx, fy, tab, **kw)
-    if mode not in _MODES:
-        raise ValueError(mode)
-    name = _MODES[mode]
-    dev = pack.device
+        return library.window_select(pack, cell, fx, fy, tab, [] if cpu else _taps(tab, P, half, "dx"), P, k,
+                                     half)
+    if mode == "rows_t":
+        return library.valid_select(pack, cell, fx, fy, tab, P, k, emit_d2, half, resolve_thresh)
+    if mode == "idw":
+        return library.idw_select(pack, cell, fx, fy, tab, _NO_TAPS if cpu else _taps(tab, P, half, "dy"), P, k,
+                                  half, resolve_thresh, eps)
+    raise ValueError(mode)
+
+
+# a CPU pack's taps: the plain versions read the table
+_NO_TAPS = torch.empty(0)
+
+
+def _taps(tab: torch.Tensor, P: int, half: float, layout: str):
+    """The by-value taps of B7 (layout 'dx', :func:`_window_taps`) as a list
+    of floats, its op's schema; of B6 ('dy', :func:`_idw_taps`) as a CPU
+    float32 tensor whose memory the launch reads (one operand through the
+    dispatcher where a list of 2*M floats is 2*M).  Kept on a table of
+    :func:`table` (a cached constant), so a table's are worked out once.  A
+    pack width the kernels are not built for raises here, before the taps
+    are read."""
+    if P not in KERNEL_P:
+        raise ValueError(_width_message("idw_rows" if layout == "dy" else "window_select_fused", P))
+    memo = tab.__dict__.setdefault("_taps", {}) if hasattr(tab, "host") else {}
+    taps = memo.get((P, half, layout))
+    if taps is None:
+        vals = (_idw_taps if layout == "dy" else _window_taps)(tab, P, half)[1]
+        taps = torch.from_numpy(vals) if layout == "dy" else vals.tolist()
+        memo[(P, half, layout)] = taps
+    return taps
+
+
+def _host_floats(t: torch.Tensor, name: str, what: str) -> int:
+    """The address of a contiguous CPU float32 tensor, for a launch that
+    reads it on the host."""
+    if t.device.type != "cpu" or t.dtype != torch.float32 or not t.is_contiguous():
+        raise ValueError(f"{name}: the {what} are a contiguous CPU float32 tensor (got {t.dtype} on {t.device})")
+    return t.data_ptr()
+
+
+def _inputs_of(cell, fx, fy):
+    """The (N,) int32 cell indices and the (2, N) f32 (fx, fy) the select
+    kernels read."""
+    return cell.to(torch.int32).contiguous(), torch.stack([fx, fy]).contiguous()
+
+
+def rows_launch(pack, P: int, cell, fx, fy, tab, k: int, emit_d2: bool, half: float, resolve_thresh):
+    """One B5 launch: the ``cuda`` implementation of
+    ``auvtpu_torch::valid_select``."""
+    name = "select_rows"
     _check(pack, P, k, name, cell, fx, fy, tab)
     n = int(cell.shape[0])
-    out = torch.empty(_out_shape(mode, n, k, emit_d2, resolve_thresh is not None), dtype=torch.float32, device=dev)
+    out = torch.empty(_out_shape("rows_t", n, k, emit_d2, resolve_thresh is not None), dtype=torch.float32,
+                      device=pack.device)
     if n == 0:
         return out
-    cell32 = cell.to(torch.int32).contiguous()
-    fxy = torch.stack([fx, fy]).contiguous()
-    thresh = float(resolve_thresh) if resolve_thresh is not None else 0.0
-    with torch.cuda.device(dev):
-        if mode == "idw":
-            M, taps = _idw_taps(tab, P, half)
-            err = _lib().auvtpu_idw_select(
-                pack.data_ptr(), P, M, cell32.data_ptr(), fxy.data_ptr(),
-                taps.ctypes.data_as(ctypes.POINTER(ctypes.c_float)), n, k, int(resolve_thresh is not None),
-                thresh, float(eps), out.data_ptr(), _stream(dev),
-            )
-        else:
-            tab = tab.to(torch.float32).contiguous()
-            err = _lib().auvtpu_scattered_select(
-                pack.data_ptr(), P, cell32.data_ptr(), fxy.data_ptr(), tab.data_ptr(), n, k,
-                int(emit_d2), float(half), int(resolve_thresh is not None), thresh,
-                out.data_ptr(), _stream(dev),
-            )
+    cell32, fxy = _inputs_of(cell, fx, fy)
+    tab = tab.to(torch.float32).contiguous()
+    with torch.cuda.device(pack.device):
+        err = _lib().auvtpu_scattered_select(
+            pack.data_ptr(), P, cell32.data_ptr(), fxy.data_ptr(), tab.data_ptr(), n, k,
+            int(emit_d2), float(half), int(resolve_thresh is not None),
+            0.0 if resolve_thresh is None else float(resolve_thresh), out.data_ptr(), _stream(pack.device),
+        )
+    _raise_on(err, name)
+    LAUNCHES[name] += 1
+    return out
+
+
+def idw_launch(pack, P: int, cell, fx, fy, taps, k: int, resolve_thresh, eps: float):
+    """One B6 launch: the ``cuda`` implementation of
+    ``auvtpu_torch::idw_select``.  ``taps`` are the by-value taps of
+    :func:`_idw_taps` (2*M floats: dx + half of each real tap, then dy +
+    half) in a CPU float32 tensor."""
+    name = "idw_rows"
+    _check(pack, P, k, name, cell, fx, fy)
+    M = taps.numel() // 2
+    if taps.numel() % 2 or M not in IDW_M or pack_width(M) != P:
+        raise ValueError(f"{name}: {taps.numel()} tap values for rows of {P}; want 2*M, M in {IDW_M}")
+    host_taps = _host_floats(taps, name, "taps")
+    n = int(cell.shape[0])
+    out = torch.empty((2 + int(resolve_thresh is not None), n), dtype=torch.float32, device=pack.device)
+    if n == 0:
+        return out
+    cell32, fxy = _inputs_of(cell, fx, fy)
+    with torch.cuda.device(pack.device):
+        err = _lib().auvtpu_idw_select(
+            pack.data_ptr(), P, M, cell32.data_ptr(), fxy.data_ptr(), host_taps, n, k,
+            int(resolve_thresh is not None), 0.0 if resolve_thresh is None else float(resolve_thresh), float(eps),
+            out.data_ptr(), _stream(pack.device),
+        )
     _raise_on(err, name)
     LAUNCHES[name] += 1
     return out
@@ -355,13 +426,11 @@ def window_launch(pack, P: int, cell, fx, fy, tab, taps, k: int):
     out = torch.empty((n, 1 + 3 * k), dtype=torch.float32, device=dev)
     if n == 0:
         return out
-    cell32 = cell.to(torch.int32).contiguous()
-    fxy = torch.stack([fx, fy]).contiguous()
-    host = np.asarray(taps, dtype=np.float32)
+    cell32, fxy = _inputs_of(cell, fx, fy)
     with torch.cuda.device(dev):
         err = _lib().auvtpu_window_select(
-            pack.data_ptr(), P, len(taps) // 3, cell32.data_ptr(), fxy.data_ptr(),
-            host.ctypes.data_as(ctypes.POINTER(ctypes.c_float)), n, k, out.data_ptr(), _stream(dev),
+            pack.data_ptr(), P, len(taps) // 3, cell32.data_ptr(), fxy.data_ptr(), _c_floats(tuple(taps)), n, k,
+            out.data_ptr(), _stream(dev),
         )
     _raise_on(err, name)
     LAUNCHES[name] += 1
@@ -404,10 +473,16 @@ def select_krige_ref(pack, P: int, offs, R: int, grid: RegularGrid, lons, lats, 
     """Plain version of :func:`select_krige`: B5's plain rows
     (:func:`select_ref`, k=4, with the resolved row where asked) and the
     torch row epilogue.  (1[+1], N) rows [prediction, (resolved)]."""
-    half = 0.5 if convention == "reference" else 0.0
+    return select_krige_plain(pack, P, table(offs, P, R, "dy", grid.device), R, grid, lons, lats,
+                              half=0.5 if convention == "reference" else 0.0, vparams=vparams, model=model,
+                              resolve_thresh=resolve_thresh)
+
+
+def select_krige_plain(pack, P: int, tab, R: int, grid: RegularGrid, lons, lats, *, half: float, vparams, model: str, resolve_thresh):
+    """:func:`select_krige_ref` over the pack's (3, P) 'dy' table: the
+    ``cpu`` implementation of ``auvtpu_torch::select_krige``."""
     _, _, oob, ci, cj, cell, fx, fy = prologue(grid, lons, lats)
-    rows = select_ref(pack, P, cell, fx, fy, table(offs, P, R, "dy", grid.device), mode="rows_t", k=4, half=half,
-                      resolve_thresh=resolve_thresh)
+    rows = select_ref(pack, P, cell, fx, fy, tab, mode="rows_t", k=4, half=half, resolve_thresh=resolve_thresh)
     res = _kriging_rows_epilogue(grid, lons, lats, rows, oob, ci, cj, R, vparams=vparams, model=model, half=half)
     return torch.stack([res] + ([rows[9]] if resolve_thresh is not None else []))
 
@@ -419,30 +494,49 @@ def select_krige(pack, P: int, offs, R: int, grid: RegularGrid, lons, lats, *, c
     the found ones (0 where none was found) where fewer than four were
     found or a pivot fell below ``KrigingConfig().pivot_tol``, NaN out of
     the grid; the resolved row (two-tier, ``resolve_thresh``) is B5's.
-    For a CPU pack this is :func:`select_krige_ref`; for a CUDA pack it
-    launches the kernel once, which computes the query prologue from the
-    queries and the grid's scalars itself, or raises.  Fitted ``vparams``
-    (0-d tensors on the card) are read there by the kernel."""
-    if pack.device.type == "cpu":
-        return select_krige_ref(pack, P, offs, R, grid, lons, lats, convention=convention, vparams=vparams,
-                                model=model, resolve_thresh=resolve_thresh)
+    Through the op ``auvtpu_torch::select_krige``: for a CPU pack it runs
+    :func:`select_krige_ref`; for a CUDA pack it launches the kernel once,
+    which computes the query prologue from the queries and the grid's
+    scalars itself, or raises.  Fitted ``vparams`` (0-d tensors on the
+    card) are read there by the kernel."""
+    if pack.device.type != "cpu":
+        _check_device(pack, "select_krige")
+    qlon, qlat = (q.contiguous() for q in queries(grid, lons, lats))
+    key = _offs_key(offs)
+    tab = table(key, P, R, "dy", grid.device)
+    taps = _NO_TAPS if pack.device.type == "cpu" else _krige_taps(key, P, R)[1]
+    return library.select_krige(pack, tab, qlon, qlat, library.variogram_tensors(vparams, qlon), taps,
+                                _krige_geo(grid, convention), P, R, grid.num_lon, grid.num_lat, model, resolve_thresh)
+
+
+def krige_launch(pack, P: int, qlon, qlat, vario, taps, geo, num_lon: int, num_lat: int, model: str, resolve_thresh):
+    """One B11 launch: the ``cuda`` implementation of
+    ``auvtpu_torch::select_krige``.  ``taps`` are :func:`_krige_taps`'s and
+    ``geo`` :func:`_krige_geo`'s (CPU tensors read on the host), ``vario``
+    one (3,) tensor or three 0-d tensors whose device addresses the kernel
+    reads (a copy first where one is not float32 on the pack's card)."""
     name = "select_krige"
     if model not in _MODELS:
         raise ValueError(model)
     dev = pack.device
-    qlon, qlat = (q.contiguous() for q in queries(grid, lons, lats))
     _check(pack, P, 4, name, qlon, qlat)
-    M, taps = _krige_taps(tuple(map(tuple, offs)), P, R)
+    M = taps.numel() // 2
+    if taps.numel() % 2 or M not in IDW_M or pack_width(M) != P or geo.numel() != 10:
+        raise ValueError(f"{name}: {taps.numel()} tap values for rows of {P} and {geo.numel()} grid scalars; want "
+                         f"2*M, M in {IDW_M}, and 10")
+    geo32 = getattr(geo, "f32", None)  # made beside a geometry of _krige_geo; a loaded program's is converted
+    geo32 = geo.to(torch.float32) if geo32 is None else geo32
+    host_taps, host_geo = _host_floats(taps, name, "taps"), _host_floats(geo32, name, "grid scalars")
     n = int(qlon.shape[0])
     resolve = resolve_thresh is not None
     out = torch.empty((1 + int(resolve), n), dtype=torch.float32, device=dev)
     if n == 0:
         return out
-    vario, ptrs, keep = _vario_params(vparams, dev, name)
+    ptrs, keep = _vario_pointers(vario, dev, name)
     with torch.cuda.device(dev):
         err = _lib().auvtpu_select_krige(
-            pack.data_ptr(), P, M, qlon.data_ptr(), qlat.data_ptr(), taps, n, grid.num_lon, grid.num_lat,
-            _krige_geo(grid, convention), vario, *ptrs, _MODELS[model], int(resolve),
+            pack.data_ptr(), P, M, qlon.data_ptr(), qlat.data_ptr(), host_taps, n, num_lon, num_lat,
+            host_geo, _NO_VARIO, *ptrs, _MODELS[model], int(resolve),
             float(resolve_thresh) if resolve else 0.0, out.data_ptr(), _stream(dev),
         )
     del keep
@@ -451,22 +545,59 @@ def select_krige(pack, P: int, offs, R: int, grid: RegularGrid, lons, lats, *, c
     return out
 
 
-@lru_cache(maxsize=32)
+_NO_VARIO = (ctypes.c_float * 3)()  # the by-value parameters: unused, every one is read through its address
+
+
+def _vario_pointers(vario, dev, name: str):
+    """The device addresses of the variogram's three parameters, from one
+    (3,) tensor or three 0-d tensors; (pointers, keep): ``keep`` holds the
+    tensors they point into until the launch."""
+    keep = [v if v.device == dev and v.dtype == torch.float32 else v.to(dev, torch.float32) for v in vario]
+    if len(keep) == 1 and keep[0].shape == (3,):
+        base, step = keep[0].data_ptr(), 4 * keep[0].stride(0)
+        return (base, base + step, base + 2 * step), keep
+    if len(keep) != 3 or any(v.numel() != 1 for v in keep):
+        raise ValueError(f"{name}: the variogram is one (3,) tensor or three one-element tensors")
+    return tuple(v.data_ptr() for v in keep), keep
+
+
+def _offs_key(offs) -> tuple:
+    """``offs`` as the hashable tuple of (dy, dx) pairs the caches take."""
+    return offs if isinstance(offs, tuple) else tuple(map(tuple, offs))
+
+
+@device_cache(maxsize=32)
 def _krige_taps(offs: tuple, P: int, R: int):
     """(M, taps) for B11: :func:`_real_taps` of the pack's table, the M
-    taps' dx then dy as a host float32 array for the launch."""
+    taps' dx then dy in a CPU float32 tensor that the launch reads.  A pack
+    width the kernel is not built for raises here, before the taps are
+    read."""
+    if P not in KERNEL_P:
+        raise ValueError(_width_message("select_krige", P))
     M, dx, dy = _real_taps(table(offs, P, R, "dy", "cpu"), P, "select_krige")
-    return M, (ctypes.c_float * (2 * M))(*np.concatenate([dx, dy]).tolist())
+    return M, torch.from_numpy(np.concatenate([dx, dy]))
 
 
-def _krige_geo(grid: RegularGrid, convention: str):
-    """B11's grid scalars, f32 by value: the bounds and the reciprocal
-    steps of :meth:`RegularGrid.inv_steps` (the query prologue), the steps
-    (the neighbours' centres), half and the pivot tolerance."""
+def _krige_geo(grid: RegularGrid, convention: str) -> torch.Tensor:
+    """B11's grid scalars as a (10,) float64 CPU tensor: the bounds and
+    the reciprocal steps of :meth:`RegularGrid.inv_steps` (the query
+    prologue), the steps (the neighbours' centres), half and the pivot
+    tolerance.  The bounds are the grid's python floats, the plain
+    version's extent; ``.f32`` holds the float32 values the kernel takes
+    by value."""
+    return _geo(grid.min_lon, grid.max_lon, grid.min_lat, grid.max_lat, grid.num_lon, grid.num_lat, convention)
+
+
+@device_cache(maxsize=32)
+def _geo(min_lon: float, max_lon: float, min_lat: float, max_lat: float, num_lon: int, num_lat: int, convention: str):
+    plane = torch.empty(()).expand(num_lat, num_lon)
+    grid = RegularGrid(plane, plane, min_lon, max_lon, min_lat, max_lat)
     inv_lon, inv_lat = grid.inv_steps(torch.float32)
     half = 0.5 if convention == "reference" else 0.0
-    return _c_floats((grid.min_lon, grid.max_lon, grid.min_lat, grid.max_lat, inv_lon, inv_lat, grid.lon_step,
-                      grid.lat_step, half, KrigingConfig().pivot_tol))
+    geo = torch.tensor([min_lon, max_lon, min_lat, max_lat, inv_lon, inv_lat, grid.lon_step, grid.lat_step, half,
+                        KrigingConfig().pivot_tol], dtype=torch.float64)
+    geo.f32 = geo.to(torch.float32)
+    return geo
 
 
 @lru_cache(maxsize=32)

@@ -17,10 +17,14 @@ B5, and writes [prediction, (resolved)].  All three are kernels of
   kriging (B11) / IDW (B6) over the full radius-R window pack, any grid,
   optionally with the two-tier "resolved" row (``resolve_thresh``).
 
-On a CPU pack each runs its kernel's plain version.
+Each goes through its kernel's custom op (``auvtpu_torch::valid_select``,
+``::select_krige``, ``::idw_select``: :mod:`.library`), which on a CPU pack
+runs the kernel's plain version.
 """
 
 from __future__ import annotations
+
+from functools import lru_cache
 
 import torch
 
@@ -29,6 +33,15 @@ from ..grid import RegularGrid
 from ..ops.packs import VALID16_OFFSETS, pack_width, window_offsets
 from ..ops.scattered import _nan_like
 from .scattered_select import prologue, select, select_krige, table
+
+_VALID16 = tuple(VALID16_OFFSETS)
+
+
+@lru_cache(maxsize=8)
+def _window(radius: int) -> tuple:
+    """``window_offsets(radius)`` as a tuple, made once: the per-call key of
+    the tap tables' caches."""
+    return tuple(window_offsets(radius))
 
 
 def _select_rows(pack, P, offs, R, grid, lons, lats, *, emit_d2, k=4, half=0.5, resolve_thresh=None):
@@ -62,7 +75,7 @@ def valid_select_t(pack16, grid: RegularGrid, lons, lats):
 def kriging_valid_t(pack16, grid: RegularGrid, lons, lats, *, vparams=None, model: str = "exponential"):
     """Kriging on a FULLY VALID grid (reference convention) with the valid16
     selection and the solve in B11 (``pallas_kriging_valid``)."""
-    return select_krige(pack16, 16, VALID16_OFFSETS, 2, grid, lons, lats, vparams=vparams, model=model)[0]
+    return select_krige(pack16, 16, _VALID16, 2, grid, lons, lats, vparams=vparams, model=model)[0]
 
 
 def packed_kriging_t(pack, grid: RegularGrid, lons, lats, *, window_radius: int = 2, vparams=None, model: str = "exponential", convention: str = "reference", resolve_thresh=None):
@@ -71,7 +84,7 @@ def packed_kriging_t(pack, grid: RegularGrid, lons, lats, *, window_radius: int 
     (``pallas_packed_kriging_t``).  With ``resolve_thresh`` also returns the
     two-tier resolved mask and the number of unresolved queries (a 0-d
     tensor)."""
-    offs = window_offsets(window_radius)
+    offs = _window(window_radius)
     out = select_krige(
         pack, pack_width(len(offs)), offs, window_radius, grid, lons, lats, convention=convention,
         vparams=vparams, model=model, resolve_thresh=resolve_thresh,
@@ -90,7 +103,7 @@ def packed_idw_t(pack, grid: RegularGrid, lons, lats, *, k: int = 8, window_radi
     other powers take the torch packed path.  ``resolve_thresh`` as for
     :func:`packed_kriging_t`."""
     half = 0.5 if convention == "reference" else 0.0
-    offs = window_offsets(window_radius)
+    offs = _window(window_radius)
     P = pack_width(len(offs))
     if not 1 <= k <= P:
         raise ValueError(f"k must be in 1..{P}")

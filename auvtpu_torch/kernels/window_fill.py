@@ -14,15 +14,16 @@ Four kernels, all in ``csrc/window_fill.cu``:
   grid's planes as they are (a window view of a larger mosaic included),
   optionally keeping observed cells' own values (``keep_observed``).
 
-B4 reads a NaN-padded copy of the plane that the wrapper builds
+B4 reads a NaN-padded copy of the plane that its launch builds first
 (:func:`_nan_padded`); B1, B2 and B3 build their halo tiles themselves,
 from the grid's planes as they are, and a B1 or B2 call is one launch and
 nothing else.  Each has a plain torch version beside it
-(``<wrapper>_ref``).  A wrapper runs the plain version only for a grid on
-the CPU; for a CUDA grid it launches its kernel or raises.  B1 and B3 go
-through their custom ops (:mod:`.library`: ``auvtpu_torch::kriging_fill``,
-``auvtpu_torch::window_fill``), whose ``cuda`` implementations are
-:func:`kriging_launch` and :func:`fill_launch`.  Each launch adds one to
+(``<wrapper>_ref``).  Every wrapper goes through its custom op
+(:mod:`.library`: ``auvtpu_torch::kriging_fill``, ``::topk_full``,
+``::window_fill``, ``::topk_idx``), whose ``cpu`` implementation is the
+plain version and whose ``cuda`` implementation (:func:`kriging_launch`,
+:func:`topk_full_launch`, :func:`fill_launch`, :func:`topk_idx_launch`)
+launches the kernel or raises.  Each launch adds one to
 ``LAUNCHES[<wrapper name>]``, so a run can show that it went through the
 kernels.
 """
@@ -104,25 +105,29 @@ def _device_table(max_radius: int, convention: str, device: torch.device) -> tor
     return torch.from_numpy(np.stack([dxs, dys], axis=1).astype(np.int32)).to(device)
 
 
-def _check_f32(grid: RegularGrid, what: str) -> None:
-    if grid.elev.dtype != torch.float32 or grid.valid.dtype != torch.float32:
+def _check_f32_planes(elev: torch.Tensor, valid: torch.Tensor, what: str) -> None:
+    if elev.dtype != torch.float32 or valid.dtype != torch.float32:
         raise TypeError(
-            f"{what}: the kernel is float32 only (got {grid.elev.dtype}/"
-            f"{grid.valid.dtype}); float64 callers use the plain path on the CPU"
+            f"{what}: the kernel is float32 only (got {elev.dtype}/"
+            f"{valid.dtype}); float64 callers use the plain path on the CPU"
         )
 
 
-def _check_cuda_grid(grid: RegularGrid, what: str) -> torch.device:
-    dev = grid.elev.device
+def _check_cuda_planes(elev: torch.Tensor, valid: torch.Tensor, what: str) -> torch.device:
+    dev = elev.device
     if dev.type != "cuda":
         raise ValueError(
             f"{what}: grid lies on {dev}; the kernel takes a CUDA grid "
             "(a CPU grid runs the plain version)"
         )
-    if grid.valid.device != dev:
-        raise ValueError(f"{what}: elev on {dev} but valid on {grid.valid.device}")
-    _check_f32(grid, what)
+    if valid.device != dev:
+        raise ValueError(f"{what}: elev on {dev} but valid on {valid.device}")
+    _check_f32_planes(elev, valid, what)
     return dev
+
+
+def _check_cuda_grid(grid: RegularGrid, what: str) -> torch.device:
+    return _check_cuda_planes(grid.elev, grid.valid, what)
 
 
 def _pitch(t: torch.Tensor, what: str) -> int:
@@ -136,9 +141,13 @@ def _pitch(t: torch.Tensor, what: str) -> int:
 def _nan_padded(grid: RegularGrid, radius: int) -> torch.Tensor:
     """(H+2R, W+2R) f32 plane, NaN at invalid and out-of-grid cells: B4's
     input."""
-    H, W = grid.shape
-    out = torch.full((H + 2 * radius, W + 2 * radius), float("nan"), dtype=torch.float32, device=grid.device)
-    out[radius:radius + H, radius:radius + W] = torch.where(grid.valid > 0.5, grid.elev, float("nan"))
+    return _nan_padded_planes(grid.elev, grid.valid, radius)
+
+
+def _nan_padded_planes(elev: torch.Tensor, valid: torch.Tensor, radius: int) -> torch.Tensor:
+    H, W = elev.shape
+    out = torch.full((H + 2 * radius, W + 2 * radius), float("nan"), dtype=torch.float32, device=elev.device)
+    out[radius:radius + H, radius:radius + W] = torch.where(valid > 0.5, elev, float("nan"))
     return out
 
 
@@ -161,14 +170,14 @@ def topk_full_ref(grid: RegularGrid, *, k: int = 4, max_radius: int = 10, conven
     return cnt, vals, dxs, dys
 
 
-def _topk_full_args(grid: RegularGrid, k: int) -> tuple[int, int]:
-    """The row pitches (elements) B2 reads ``grid``'s planes with, after the
+def _topk_full_args(elev: torch.Tensor, valid: torch.Tensor, k: int) -> tuple[int, int]:
+    """The row pitches (elements) B2 reads a grid's planes with, after the
     checks its kernel needs: float32 planes with unit column stride (a
     window view of a larger plane is read in place) and 1 <= k <= MAX_K."""
-    _check_f32(grid, "topk_full")
+    _check_f32_planes(elev, valid, "topk_full")
     if not 1 <= k <= MAX_K:
         raise ValueError(f"topk_full: k={k} outside 1..{MAX_K}")
-    return _pitch(grid.elev, "topk_full"), _pitch(grid.valid, "topk_full")
+    return _pitch(elev, "topk_full"), _pitch(valid, "topk_full")
 
 
 def topk_full(grid: RegularGrid, *, k: int = 4, max_radius: int = 10, convention: str = "reference"):
@@ -176,29 +185,31 @@ def topk_full(grid: RegularGrid, *, k: int = 4, max_radius: int = 10, convention
     as ``pallas_topk_full`` returns them: empty slots hold value 0 and
     offset (-R, -R), so consumers must mask slots >= cnt.  The planes may be
     views with any row stride, as for :func:`fill_idw_fused`; a call is one
-    kernel launch."""
-    if grid.elev.device.type == "cpu":
-        return topk_full_ref(grid, k=k, max_radius=max_radius, convention=convention)
-    dev = _check_cuda_grid(grid, "topk_full")
-    pe, pv = _topk_full_args(grid, k)
-    H, W = grid.shape
+    kernel launch, through the op ``auvtpu_torch::topk_full``."""
+    if grid.elev.device.type not in ("cpu", "cuda"):
+        _check_cuda_grid(grid, "topk_full")  # raises: a meta grid would reach the fake implementation
+    planes = library.topk_full(grid.elev, grid.valid, k, max_radius, convention).unbind(0)  # one view op
+    return planes[0], list(planes[1:1 + k]), list(planes[1 + k:1 + 2 * k]), list(planes[1 + 2 * k:])
+
+
+def topk_full_launch(elev: torch.Tensor, valid: torch.Tensor, k: int, max_radius: int, convention: str):
+    """One B2 launch over CUDA planes: the ``cuda`` implementation of
+    ``auvtpu_torch::topk_full``.  Returns the (1+3k, H, W) planes."""
+    dev = _check_cuda_planes(elev, valid, "topk_full")
+    pe, pv = _topk_full_args(elev, valid, k)
+    H, W = elev.shape
     R = max_radius
     out = torch.empty((1 + 3 * k, H, W), dtype=torch.float32, device=dev)
     if H * W > 0:
         tab = _device_table(R, convention, dev)
         with torch.cuda.device(dev):
             err = _lib().auvtpu_topk_full(
-                grid.elev.data_ptr(), pe, grid.valid.data_ptr(), pv, tab.data_ptr(), tab.shape[0], H, W, R, k,
+                elev.data_ptr(), pe, valid.data_ptr(), pv, tab.data_ptr(), tab.shape[0], H, W, R, k,
                 out.data_ptr(), _stream(dev),
             )
         _raise_on(err, "topk_full")
         LAUNCHES["topk_full"] += 1
-    return (
-        out[0],
-        [out[1 + s] for s in range(k)],
-        [out[1 + k + s] for s in range(k)],
-        [out[1 + 2 * k + s] for s in range(k)],
-    )
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -213,17 +224,26 @@ def topk_idx_ref(grid: RegularGrid, *, k: int = 4, max_radius: int = 10, convent
 def topk_idx(grid: RegularGrid, *, k: int = 4, max_radius: int = 10, convention: str = "reference"):
     """First-k-valid selection (B4) as (cnt, [k index planes]), f32: each
     plane holds the sorted-table row of the slot's cell, -1 at an empty
-    slot, as ``pallas_topk_idx`` returns them."""
-    if grid.elev.device.type == "cpu":
-        return topk_idx_ref(grid, k=k, max_radius=max_radius, convention=convention)
-    dev = _check_cuda_grid(grid, "topk_idx")
+    slot, as ``pallas_topk_idx`` returns them; through the op
+    ``auvtpu_torch::topk_idx``."""
+    if grid.elev.device.type not in ("cpu", "cuda"):
+        _check_cuda_grid(grid, "topk_idx")
+    planes = library.topk_idx(grid.elev, grid.valid, k, max_radius, convention).unbind(0)
+    return planes[0], list(planes[1:])
+
+
+def topk_idx_launch(elev: torch.Tensor, valid: torch.Tensor, k: int, max_radius: int, convention: str):
+    """One B4 launch over CUDA planes, on the NaN-padded plane it builds
+    first (:func:`_nan_padded`): the ``cuda`` implementation of
+    ``auvtpu_torch::topk_idx``.  Returns the (1+k, H, W) planes."""
+    dev = _check_cuda_planes(elev, valid, "topk_idx")
     if not 1 <= k <= MAX_K:
         raise ValueError(f"topk_idx: k={k} outside 1..{MAX_K}")
-    H, W = grid.shape
+    H, W = elev.shape
     R = max_radius
     out = torch.empty((1 + k, H, W), dtype=torch.float32, device=dev)
     if H * W > 0:
-        nanp = _nan_padded(grid, R)
+        nanp = _nan_padded_planes(elev, valid, R)
         tab = _device_table(R, convention, dev)
         with torch.cuda.device(dev):
             err = _lib().auvtpu_topk_idx(
@@ -232,7 +252,7 @@ def topk_idx(grid: RegularGrid, *, k: int = 4, max_radius: int = 10, convention:
             )
         _raise_on(err, "topk_idx")
         LAUNCHES["topk_idx"] += 1
-    return out[0], [out[1 + s] for s in range(k)]
+    return out
 
 
 # ---------------------------------------------------------------------------

@@ -16,22 +16,34 @@ flags; their counterpart is a dispatch mode that sees every op:
 - *x64*: torch always has float64 (no switch to turn on), so the argument
   is accepted and changes nothing.
 
-What the mode sees: every aten op and the ``auvtpu_torch::`` custom ops
-(B1, B3, B7, B8, B9, B10: :mod:`auvtpu_torch.kernels.library`), which pass through
-the dispatcher.  B2, B4, B5, B6 and B11 are ctypes launches writing into
-``torch.empty`` outputs, which the dispatcher does not see: a NaN one of
-them makes goes on unnamed (the next op that reads it did not make it).
-Outputs of ``empty`` ops hold whatever the memory held and are not
-checked.
+What the mode sees: every aten op and every hand-written kernel, each an
+``auvtpu_torch::`` custom op that passes through the dispatcher
+(:mod:`auvtpu_torch.kernels.library`: B1 ``kriging_fill``, B2
+``topk_full``, B3 ``window_fill``, B4 ``topk_idx``, B5 ``valid_select``,
+B6 ``idw_select``, B7 ``window_select``, B8 ``band_resample``, B9
+``pair_sums``, B10 ``fit_model``, B11 ``select_krige``), so a NaN that a
+kernel makes raises naming its op, and *disable_jit* synchronises right
+after each launch.  Outputs of ``empty`` ops hold whatever the memory held
+and are not checked.
 
 NaN caveat (the JAX package's, narrowed): the reference encodes "no data"
-as NaN.  The port's fills write such cells from a NaN constant (a ``where``
-against ``full_like(x, nan)``), which holds a NaN, so they pass; a NaN that
-arithmetic makes (0/0, inf - inf, log of a negative) raises, legitimate or
-not.  Run debug mode on fully covered workloads where that matters, or
-catch the ``FloatingPointError`` and read the op it names.  Each check
-reads a flag back from the device, so the mode costs a synchronisation an
-op.
+as NaN.  The port's plain fills write such cells from a NaN constant (a
+``where`` against ``full_like(x, nan)``), which holds a NaN, so they pass;
+a NaN that arithmetic makes (0/0, inf - inf, log of a negative) raises,
+legitimate or not.  So does a kernel that writes NaN as "no data" from no
+NaN input, as the JAX package's ``pallas_call`` does under
+``jax_debug_nans``:
+
+- B11 (``select_krige``) at a query outside the grid;
+- B1 (``kriging_fill``) and B3 (``window_fill``) at a cell with no valid
+  neighbour in the window (and B1's variance plane at every fallback
+  cell);
+- B8 (``band_resample``) at a ping that is not resolved (outside its
+  window or page, or on a masked band too little of it valid).
+
+Run debug mode on fully covered workloads where that matters, or catch the
+``FloatingPointError`` and read the op it names.  Each check reads a flag
+back from the device, so the mode costs a synchronisation an op.
 
 Use as a context manager or process-wide::
 

@@ -239,8 +239,15 @@ streaming mosaic and scattered queries on the 3200x4000 Grid A, in phases:
             utils.debug_mode passing B1 and B3 on a covered grid (with a
             synchronisation after every op) and raising at B3's custom op on
             the NaN it makes from +inf beside -inf (a missing raise fails
-            the run), its cost on the stand-in on the host clock (kept out
-            of every other timing); utils.profiling.trace writing one
+            the run); B11, B6, B5, B2 and B4 through their entry points on
+            the covered Grid A grid under debug_mode(disable_jit=True),
+            finite, a logging dispatch mode seeing each op once; the NaN
+            B11 writes at an out-of-grid query raising at
+            auvtpu_torch.select_krige and the one B6 makes (w*v = +inf
+            beside a -inf tap) at auvtpu_torch.idw_select; the five
+            wrappers' host microseconds a call; debug_mode's cost on the
+            stand-in on the host clock (kept out of every other timing);
+            utils.profiling.trace writing one
             Chrome trace that holds all 20 records of 20 B1 calls
 
 then one JSON line of the kernels and, last, the device JSON line.  Any
@@ -1472,6 +1479,108 @@ def phase23_rank(card: str) -> dict:
         if launches[k] < 1:
             raise AssertionError(f"rank {mesh.index}: {k} was never launched on the sharded paths: {launches}")
     return out
+
+
+def call_us(fn, reps: int = 200, sync_every: int = 8) -> list:
+    """Host microseconds of one call (the checks, the dispatch and the
+    launch, not the kernel's run): quartiles over ``reps`` calls, a device
+    sync every ``sync_every`` so the queue never fills."""
+    import torch
+
+    for _ in range(10):
+        fn()
+    torch.cuda.synchronize()
+    times = []
+    for i in range(reps):
+        t0_ = time.perf_counter()
+        fn()
+        times.append((time.perf_counter() - t0_) * 1e6)
+        if i % sync_every == sync_every - 1:
+            torch.cuda.synchronize()
+    torch.cuda.synchronize()
+    return [float(np.percentile(times, q)) for q in (25, 50, 75)]
+
+
+def debug_mode_ops(dev, card: str) -> dict:
+    """Phase 24's check of B2, B4, B5, B6 and B11 as custom ops: on the
+    covered Grid A grid at 1M queries, each public entry under
+    ``debug_mode(disable_jit=True)`` gives finite values and a logging
+    dispatch mode sees each op once; under ``debug_mode()`` the NaN B11
+    writes at an out-of-grid query raises at ``auvtpu_torch.select_krige``
+    and the one B6 makes (w*v = +inf beside a -inf tap) at
+    ``auvtpu_torch.idw_select``; then each wrapper's host microseconds a
+    call.  Returns the two messages."""
+    import torch
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    from auvtpu_torch.config import GRID_A_EXTENT, GRID_A_SHAPE, Extent
+    from auvtpu_torch.grid import RegularGrid
+    from auvtpu_torch.kernels import valid_select as vs
+    from auvtpu_torch.kernels import window_fill as wf
+    from auvtpu_torch.ops import fill_kriging
+    from auvtpu_torch.ops import packs as tp
+    from auvtpu_torch.synthetic import shelf_seamount
+    from auvtpu_torch.utils import debug_mode
+
+    class Log(TorchDispatchMode):
+        def __init__(self):
+            super().__init__()
+            self.ops = []
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            if func.namespace == "auvtpu_torch":
+                self.ops.append(func.__name__.split(".")[0])
+            return func(*args, **(kwargs or {}))
+
+    gA = RegularGrid.dense(shelf_seamount(*GRID_A_SHAPE), GRID_A_EXTENT, device=dev)
+    p16, win = tp.build_valid16_pack(gA), tp.StencilPack(gA).window
+    lo, la = scattered_queries(GRID_A_EXTENT, *GRID_A_SHAPE, 1_000_000, 31, dev)
+    calls = {
+        "kriging_valid_t (B11)": lambda: vs.kriging_valid_t(p16, gA, lo, la),
+        "packed_idw_t (B6)": lambda: vs.packed_idw_t(win, gA, lo, la),
+        "valid_select_t (B5)": lambda: vs.valid_select_t(p16, gA, lo, la)["val"],
+        "fill_kriging select (B2)": lambda: fill_kriging(gA, backend="select"),
+        "topk_idx (B4)": lambda: wf.topk_idx(gA, k=4, max_radius=10)[1][3],
+    }
+    with debug_mode(disable_jit=True), Log() as log:
+        outs = {k: fn() for k, fn in calls.items()}
+    bad = [k for k, o in outs.items() if not bool(torch.isfinite(o).all())]
+    if bad or sorted(log.ops) != ["idw_select", "select_krige", "topk_full", "topk_idx", "valid_select"]:
+        raise AssertionError(f"debug_mode on the covered Grid A grid: not finite {bad}, ops seen {log.ops}")
+    del outs
+    say("quick", f"debug_mode(disable_jit=True) on the covered Grid A grid, 1M queries: B11, B6, B5, B2 and B4 "
+        f"finite, each op seen once: {sorted(log.ops)}")
+    caught = {}
+    span = GRID_A_EXTENT.max_lon - GRID_A_EXTENT.min_lon
+    oob = (torch.tensor([GRID_A_EXTENT.min_lon + 0.3 * span, GRID_A_EXTENT.max_lon + 1.0], device=dev),
+           torch.tensor([25.0, 25.0], device=dev))
+    # a unit-step grid, so the query at (6.5, 5.5) is the centre of tap
+    # (-1, -1) of cell (6, 7): w = 1/(0 + eps) = 1e12, and 1e27 * 1e12 is
+    # +inf beside the -inf tap at (5, 7)
+    e_u = shelf_seamount(64, 80)
+    e_u[5, 6], e_u[5, 7] = 1e27, -np.inf
+    g_u = RegularGrid.dense(e_u, Extent(0.0, 79.0, 0.0, 63.0), device=dev)
+    nan_calls = {
+        "select_krige": lambda: vs.kriging_valid_t(p16, gA, *oob),
+        "idw_select": lambda: vs.packed_idw_t(tp.StencilPack(g_u).window, g_u, torch.tensor([6.5], device=dev),
+                                              torch.tensor([5.5], device=dev)),
+    }
+    for op, fn in nan_calls.items():
+        try:
+            with debug_mode():
+                fn()
+        except FloatingPointError as exc:
+            caught[op] = str(exc)
+        else:
+            raise AssertionError(f"debug_mode did not raise on the NaN that {op} made")
+        if f"auvtpu_torch.{op}" not in caught[op]:
+            raise AssertionError(f"debug_mode raised at another op than {op}: {caught[op]}")
+    us = {k: call_us(fn) for k, fn in calls.items()}
+    say("quick", "host us a call (q25/q50/q75), the custom-op wrappers: " + "; ".join(
+        f"{k} {v[0]:.1f}/{v[1]:.1f}/{v[2]:.1f}" for k, v in us.items()) + f"  [{card}]")
+    del gA, p16, win, lo, la
+    torch.cuda.empty_cache()
+    return caught
 
 
 def main() -> int:
@@ -3189,6 +3298,7 @@ def main() -> int:
     if "auvtpu_torch" not in caught:
         raise AssertionError(f"debug_mode raised at another op than B3's: {caught}")
     del planes, cov_g, inf_g
+    caught_ops = debug_mode_ops(dev, card)
     # its cost on the 5M-cell stand-in r0.10 (host clock, outside every timed
     # figure above)
     for label, fn in (("fill_kriging (B1)", lambda: fill_kriging(grid)), ("fill_bilinear", lambda: fill_bilinear(grid))):
@@ -3198,7 +3308,8 @@ def main() -> int:
         ms[f"debug_mode {label}"] = checked_ms
         say("quick", f"debug_mode on the stand-in r0.10: {label} {plain_ms:.3f} ms, checked {checked_ms:.3f} ms "
             f"(host clock)  [{card}]")
-    say("quick", f"debug_mode: covered fills pass, the NaN B3 made raised: {caught}")
+    say("quick", f"debug_mode: covered fills pass, the NaN B3 made raised: {caught}; B11's and B6's NaNs raised: "
+        f"{caught_ops}")
     # one trace of 20 B1 calls, as a user would take it: trace() opens and
     # closes its window WINDOW_MARGIN_S away from the calls, so the tracer's
     # clock skew drops none of their records

@@ -91,18 +91,18 @@ def _planes(h=6, w=8, dtype=torch.float32):
 def test_topk_full_args_take_the_planes_pitches(k):
     elev, valid = _planes()
     g = RegularGrid(elev, valid, 0.0, 7.0, 0.0, 5.0)
-    assert wf._topk_full_args(g, k) == (8, 8)
+    assert wf._topk_full_args(g.elev, g.valid, k) == (8, 8)
     # a window view of a larger mosaic is read in place, with its own pitch
     big_e, big_v = torch.zeros(20, 30), torch.zeros(20, 24)
     view = RegularGrid(big_e[3:9, 5:13], big_v[2:8, 1:9], 0.0, 7.0, 0.0, 5.0)
-    assert wf._topk_full_args(view, k) == (30, 24)
+    assert wf._topk_full_args(view.elev, view.valid, k) == (30, 24)
 
 
 @pytest.mark.parametrize("k", [0, 17, -1])
 def test_topk_full_args_refuse_k_outside_the_slots(k):
     g = RegularGrid(*_planes(), 0.0, 7.0, 0.0, 5.0)
     with pytest.raises(ValueError, match="outside 1..16"):
-        wf._topk_full_args(g, k)
+        wf._topk_full_args(g.elev, g.valid, k)
 
 
 @pytest.mark.parametrize("which", ["elev", "valid", "both"])
@@ -111,14 +111,14 @@ def test_topk_full_args_refuse_planes_not_float32(which):
     e64, v64 = _planes(dtype=torch.float64)
     elev, valid = {"elev": (e64, v32), "valid": (e32, v64), "both": (e64, v64)}[which]
     with pytest.raises(TypeError, match="float32"):
-        wf._topk_full_args(RegularGrid(elev, valid, 0.0, 7.0, 0.0, 5.0), 4)
+        wf._topk_full_args(elev, valid, 4)
 
 
 def test_topk_full_args_refuse_a_column_stride():
     elev, valid = _planes()
     g = RegularGrid(elev.t().contiguous().t(), valid, 0.0, 7.0, 0.0, 5.0)
     with pytest.raises(ValueError, match="unit column stride"):
-        wf._topk_full_args(g, 4)
+        wf._topk_full_args(g.elev, g.valid, 4)
 
 
 def _grid():

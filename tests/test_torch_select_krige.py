@@ -209,7 +209,7 @@ def test_kernel_prologue_scalars_give_the_jitted_jax_cells(convention):
     from auvtpu_torch.config import KrigingConfig
 
     jg, g = _kerguelen("masked")
-    geo = np.ctypeslib.as_array(ss._krige_geo(g, convention))
+    geo = ss._krige_geo(g, convention).f32.numpy()
     f = np.float32
     want = [g.min_lon, g.max_lon, g.min_lat, g.max_lat, *g.inv_steps(torch.float32), g.lon_step, g.lat_step,
             0.5 if convention == "reference" else 0.0, KrigingConfig().pivot_tol]
