@@ -2,8 +2,9 @@
 // (sm_90a): the variogram models and the 5x6 system of four neighbours and
 // the query point, solved unpivoted with IEEE divisions in the order of
 // ops/scattered.py (gj56, lu56).  Included by window_fill.cu (B1,
-// kriging_fill_kernel) and scattered_select.cu (B11,
-// select_krige_kernel), so that the solve exists once.
+// kriging_fill_kernel) and scattered_select.cu (B11, select_krige_kernel,
+// and B12, window_krige_kernel, which follow B11's plain version), so that
+// the solve exists once.
 //
 // The two kernels' plain versions differ in two places, and the callers
 // say which they follow:

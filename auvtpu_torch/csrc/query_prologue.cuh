@@ -1,9 +1,10 @@
 // The query prologue of the scattered select kernels, in registers, for
 // Hopper (sm_90a): a query's (lon, lat) to its grid coordinates, its
 // out-of-bounds flag, its centre cell and its offsets from that cell.
-// Included by scattered_select.cu (B11, select_krige_kernel); B5, B6 and B7
-// still take the torch prologue's planes (kernels/scattered_select.py
-// prologue) and can adopt this one.
+// Included by scattered_select.cu (B6, idw_select_kernel; B11,
+// select_krige_kernel; B12, window_krige_kernel); B5 and B7 still take the
+// torch prologue's planes (kernels/scattered_select.py prologue) and can
+// adopt this one.
 //
 // It computes what the torch prologue computes, op for op (the build keeps
 // -fmad=false, so the subtract and the multiply are two roundings, as in

@@ -2,8 +2,8 @@
 // (sm_90a).  Plain C interface, loaded with ctypes by
 // auvtpu_torch/kernels/scattered_select.py.
 //
-// Replaces three TPU kernels, and one of them with the XLA epilogue after
-// it, with four kernels:
+// Replaces three TPU kernels, two of them with the XLA epilogue after them,
+// with five kernels:
 //   select_kernel<P>                 <- pallas/valid_select.py::_sel_kernel
 //                                       (B5: valid_select_t)
 //   select_krige_kernel<M, P, MODEL> <- _sel_kernel + the XLA row epilogue
@@ -11,9 +11,13 @@
 //                                       (B11: pallas_kriging_valid,
 //                                       pallas_packed_kriging_t)
 //   idw_select_kernel<M, P, VEC>     <- pallas/valid_select.py::_idw_kernel
-//                                       (B6: pallas_packed_idw_t)
+//                                       with _prologue and the epilogue of
+//                                       _idw_launch (B6: pallas_packed_idw_t)
 //   window_select_kernel<M, K, VEC>  <- pallas/scattered_select.py::_make_select_kernel
 //                                       (B7: pallas_window_select)
+//   window_krige_kernel<M, P, MODEL> <- _make_select_kernel + the XLA solve
+//                                       ops/packs.py::kriging_from_select
+//                                       (B12: pallas_packed_kriging)
 // The TPU kernels differ in layout only: (P, N) transposed stencils and
 // (N, 128) pack rows with a one-hot sub-block pick are the TPU's ways around
 // its gather unit.  On Hopper each query is one thread that reads its own
@@ -32,23 +36,27 @@
 // (fb = sum(vals)/max(found,1)).
 //   B5: rows (1+2k[+k][+1], N) = cnt, k values, (k d2), k codes,
 //       (resolved).  The code table is dy-major (valid_select.py:74).
-//   B6: rows (2[+1], N) = sum w*v, sum w with w = 1/(d2+eps) per found slot
-//       (power 2, valid_select.py:126-138), (resolved).
+//   B6: rows (1[+1], N) = sum w*v / max(sum w, eps) with w = 1/(d2+eps) per
+//       found slot (power 2, valid_select.py:126-138; NaN where none was
+//       found or out of the grid), (resolved).
 //   B7: rows (N, 1+3k) = cnt, k values, k d2, k codes, the code dx-major
 //       (scattered_select.py:66); the d2 of a slot is the pass's minimum
 //       over all P lanes as jnp.min gives it: 3e30 at an empty slot, NaN on a
 //       NaN query.
 //   B11: rows (1[+1], N) = the kriging prediction, (resolved): B5's
 //       first four slots and the 5x6 solve of krige_solve.cuh (below).
-//       B11 takes the queries' (lon, lat) and computes the query prologue
-//       itself (query_prologue.cuh); B5-B7 take the torch prologue's cell
-//       index and (fx, fy).
+//   B12: (N,) the kriging prediction: B7's first four slots and the same
+//       solve, NaN where no tap was found.
+//   B6, B11 and B12 take the queries' (lon, lat) and compute the query
+//   prologue themselves (query_prologue.cuh); B5 and B7 take the torch
+//   prologue's cell index and (fx, fy).
 // "resolved" (two-tier) is written at slot k-1 only: found & (d2 <
 // resolve_thresh).
 //
 // What bounds them on the H100.  Per query a kernel reads its pack row
 // (64 B valid16, 128 B radius 2), 12 bytes of cell index and fractional
-// offsets, and writes rows*4 bytes (8-52 B); it does ~7 operations a tap for
+// offsets (B6, B11, B12: 8 bytes of lon and lat), and writes rows*4 bytes
+// (4-52 B); it does ~7 operations a tap for
 // the distances and a few compare-selects a tap and slot.  The pack rows are
 // random reads (one 64-128 B segment each), not streams.  select_kernel
 // (B5) does the simple thing: one thread per query in 1-D blocks of 256; the
@@ -207,8 +215,12 @@ __device__ __forceinline__ void tree_min(const float (&d2)[M], const float (&val
 }
 
 // B6: k-nearest IDW over the M real taps of a pack row (the pack's row pitch
-// is P >= M; its P - M padding taps are never read).  One thread a query,
-// kSelThreads a block.
+// is P >= M; its P - M padding taps are never read), with the query
+// prologue and the IDW epilogue in the kernel, so that a call is one launch.
+// One thread a query, kSelThreads a block.
+//   - the prologue of query_prologue.cuh from the query's (lon, lat): oob,
+//     the centre (ci, cj) and (fx, fy), as the torch prologue computes them
+//     op for op; the row at cj * W + ci;
 //   - the row's M values and each tap's d2 (3e30 at an invalid tap) in
 //     registers;
 //   - per slot, the lowest-index minimum and its value by a tournament over
@@ -220,29 +232,32 @@ __device__ __forceinline__ void tree_min(const float (&d2)[M], const float (&val
 //     out-of-range query: every later pass would find none either; on a NaN
 //     query every valid tap's d2 is NaN, and no min of them is below 1.5e30);
 //   - w = 1/(m + eps) as an IEEE divide, num += w*v and den += w in slot
-//     order, each op rounded once (-fmad=false): bit-equal to select_ref;
-//   - resolved (two-tier) at slot k - 1: found and m < resolve_thresh.
+//     order, each op rounded once (-fmad=false);
+//   - the epilogue of the plain version: num / max(den, eps) where den > 0,
+//     NaN where not and out of the grid;
+//   - resolved (two-tier) at slot k - 1: found and m < resolve_thresh, out
+//     of the grid too (through the clipped centre, as the plain version has
+//     it).
+// Bit-equal to idw_select_ref.
 constexpr int kSelThreads = 128;
 
 template <int M, int P, bool VEC>
 __global__ void __launch_bounds__(kSelThreads)
-idw_select_kernel(const float* __restrict__ pack, const int* __restrict__ cell,
-                  const float* __restrict__ fxy, const Taps<M> taps, int n, int k, int has_resolve,
-                  float resolve_thresh, float eps, float* __restrict__ out) {
+idw_select_kernel(const float* __restrict__ pack, const float* __restrict__ lons,
+                  const float* __restrict__ lats, const Taps<M> taps, const QueryGeom geo, int n, int k,
+                  int has_resolve, float resolve_thresh, float eps, float* __restrict__ out) {
   static_assert(M <= P, "a pack row holds its taps");
   const int q = blockIdx.x * kSelThreads + threadIdx.x;
   if (q >= n) return;
-  const float* row = pack + (size_t)__ldg(cell + q) * P;
-  const float fx = __ldg(fxy + q);
-  const float fy = __ldg(fxy + n + q);
+  const QueryCell qc = query_cell(__ldg(lons + q), __ldg(lats + q), geo);
 
   float val[M];
-  load_row<M, VEC>(row, val);
+  load_row<M, VEC>(pack + (size_t)(qc.cj * geo.W + qc.ci) * P, val);
   float d2[M];
 #pragma unroll
   for (int t = 0; t < M; ++t) {
-    const float di = taps.x[t] - fx;
-    const float dj = taps.y[t] - fy;
+    const float di = taps.x[t] - qc.fx;
+    const float dj = taps.y[t] - qc.fy;
     d2[t] = val[t] < kHalfSentinel ? di * di + dj * dj : kInf;
   }
 
@@ -264,26 +279,30 @@ idw_select_kernel(const float* __restrict__ pack, const int* __restrict__ cell,
 #pragma unroll
     for (int t = 0; t < M; ++t) d2[t] = t == idx ? kInf : d2[t];
   }
-  const size_t N = (size_t)n;
-  out[q] = num;
-  out[N + q] = den;
-  if (has_resolve) out[2 * N + q] = resolved;
+  // The quotient only under den > 0, which a NaN den fails: fmaxf(NaN, eps)
+  // is eps, where torch.clamp and jnp.maximum keep the NaN, so a NaN den
+  // must not reach it.  (den is a sum of positive weights, never NaN; this
+  // keeps the plain version's answer whatever it holds.)
+  const float res = den > 0.f ? num / fmaxf(den, eps) : NAN;
+  out[q] = qc.oob ? NAN : res;
+  if (has_resolve) out[(size_t)n + q] = resolved;
 }
 
 template <int M, int P>
-int launch_idw(bool vec, dim3 g, cudaStream_t st, const float* pack, const int* cell, const float* fxy,
-               const float* taps, int n, int k, int has_resolve, float thresh, float eps, float* out) {
+int launch_idw(bool vec, dim3 g, cudaStream_t st, const float* pack, const float* lons, const float* lats,
+               const float* taps, const QueryGeom& geo, int n, int k, int has_resolve, float thresh, float eps,
+               float* out) {
   Taps<M> tv;
   for (int t = 0; t < M; ++t) {
     tv.x[t] = taps[t];
     tv.y[t] = taps[M + t];
   }
   if (vec)
-    idw_select_kernel<M, P, true><<<g, kSelThreads, 0, st>>>(pack, cell, fxy, tv, n, k, has_resolve, thresh,
+    idw_select_kernel<M, P, true><<<g, kSelThreads, 0, st>>>(pack, lons, lats, tv, geo, n, k, has_resolve, thresh,
                                                             eps, out);
   else
-    idw_select_kernel<M, P, false><<<g, kSelThreads, 0, st>>>(pack, cell, fxy, tv, n, k, has_resolve, thresh,
-                                                             eps, out);
+    idw_select_kernel<M, P, false><<<g, kSelThreads, 0, st>>>(pack, lons, lats, tv, geo, n, k, has_resolve,
+                                                             thresh, eps, out);
   return (int)cudaGetLastError();
 }
 
@@ -344,8 +363,14 @@ struct KrigeParams {
   const float* p_vario[3];
 };
 
+// The fallback where fewer than four were found or a pivot fell below
+// pivot_tol: the mean of the found slots, with empty slots holding 0; where
+// none was found, 0 (B11: valid_select.py's row epilogue) or NaN (B12:
+// ops/window.py masked_mean, under kriging_from_select).
+enum Fallback { kMeanOrZero = 0, kMeanOrNaN = 1 };
+
 // One query after its row is loaded: the top-4, the solve, the stores.
-template <int M, int MODEL>
+template <int M, int MODEL, int FB = kMeanOrZero>
 __device__ __forceinline__ void krige_query(const float (&val)[M], const QueryCell& qc, float lon, float lat,
                                             const KrigeTaps<M>& taps, const KrigeParams& par, int n, int q,
                                             float* __restrict__ out) {
@@ -378,7 +403,11 @@ __device__ __forceinline__ void krige_query(const float (&val)[M], const QueryCe
     for (int t = 0; t < M; ++t) d2[t] = id == taps.tag[t] ? kInf : d2[t];
   }
 
-  float res = (((vz[0] + vz[1]) + vz[2]) + vz[3]) / fmaxf((float)cnt, 1.f);
+  float res;
+  if (FB == kMeanOrZero)
+    res = (((vz[0] + vz[1]) + vz[2]) + vz[3]) / fmaxf((float)cnt, 1.f);
+  else
+    res = cnt > 0 ? (((vz[0] + vz[1]) + vz[2]) + vz[3]) / (float)cnt : NAN;
   if (cnt == 4 && !qc.oob) {
     const float cif = (float)qc.ci;
     const float cjf = (float)qc.cj;
@@ -428,20 +457,80 @@ const void* krige_kernel(int model) {
   }
 }
 
+// The by-value taps of B11 and B12 from the offsets (dx of each tap, then
+// dy; integers, |dx|, |dy| <= 7): false where one is out of that range.
+template <int M>
+bool krige_taps(const float* offs, float half, KrigeTaps<M>& tv) {
+  for (int t = 0; t < M; ++t) {
+    const float dx = offs[t], dy = offs[M + t];
+    if (!(fabsf(dx) <= 7.f && fabsf(dy) <= 7.f)) return false;
+    tv.x[t] = dx + half;
+    tv.y[t] = dy + half;
+    tv.tag[t] = ((int)dx + 8) | (((int)dy + 8) << 4);
+  }
+  return true;
+}
+
 template <int M, int P>
 int launch_krige(cudaStream_t st, const float* pack, const float* lons, const float* lats, const float* offs,
                  KrigeParams par, int model, int n, float* out) {
   KrigeTaps<M> tv;
-  for (int t = 0; t < M; ++t) {
-    const float dx = offs[t], dy = offs[M + t];
-    if (!(fabsf(dx) <= 7.f && fabsf(dy) <= 7.f)) return (int)cudaErrorInvalidValue;
-    tv.x[t] = dx + par.half;
-    tv.y[t] = dy + par.half;
-    tv.tag[t] = ((int)dx + 8) | (((int)dy + 8) << 4);
-  }
+  if (!krige_taps(offs, par.half, tv)) return (int)cudaErrorInvalidValue;
   const dim3 g((unsigned)((n + kSelThreads - 1) / kSelThreads));
   void* args[] = {&pack, &lons, &lats, &tv, &par, &n, &out};
   return (int)cudaLaunchKernel(krige_kernel<M, P>(model), g, dim3(kSelThreads), args, 0, st);
+}
+
+// B12: B7's top-4 over the radius-R window pack and the kriging solve of
+// ops/packs.py kriging_from_select after it, with the query prologue, in
+// one kernel (pallas_packed_kriging: pallas_window_select's selection, then
+// the solve in XLA).  B11's kernel but for the fallback: B7's selection is B5's over the same taps in the same
+// collection order (the tie to the lowest table index; only the code each
+// writes differs, and B12 keeps the taps' offsets as B11 does), and
+// kriging_from_select's solve is B11's (the column-form gamma, gamma(0) on
+// the diagonal, Gauss-Jordan, the centres min + ((c + d) + half) * step).
+// Where nothing was found (a NaN query, a row of sentinels) the fallback is
+// masked_mean's NaN, where B11's is 0.  No resolved row.  A pack that is
+// not 16-byte aligned takes scalar loads (vec = 0), as B7 does.
+template <int M, int P, int MODEL>
+__global__ void __launch_bounds__(kSelThreads, M <= 16 ? 8 : 1)
+window_krige_kernel(const float* __restrict__ pack, const float* __restrict__ lons,
+                    const float* __restrict__ lats, const __grid_constant__ KrigeTaps<M> taps,
+                    const KrigeParams par, int n, int vec, float* __restrict__ out) {
+  static_assert(M <= P, "a pack row holds its taps");
+  const int q = blockIdx.x * kSelThreads + threadIdx.x;
+  if (q >= n) return;
+  const float lon = __ldg(lons + q);
+  const float lat = __ldg(lats + q);
+  const QueryCell qc = query_cell(lon, lat, par.geo);
+  const float* row = pack + (size_t)(qc.cj * par.geo.W + qc.ci) * P;
+  float val[M];
+  if (vec)
+    load_row<M, true>(row, val);
+  else
+    load_row<M, false>(row, val);
+  krige_query<M, MODEL, kMeanOrNaN>(val, qc, lon, lat, taps, par, n, q, out);
+}
+
+template <int M, int P>
+const void* window_krige_fn(int model) {
+  switch (model) {
+    case kExponential: return (const void*)window_krige_kernel<M, P, kExponential>;
+    case kLinear: return (const void*)window_krige_kernel<M, P, kLinear>;
+    case kSpherical: return (const void*)window_krige_kernel<M, P, kSpherical>;
+    default: return (const void*)window_krige_kernel<M, P, kGaussian>;
+  }
+}
+
+template <int M, int P>
+int launch_window_krige(cudaStream_t st, const float* pack, const float* lons, const float* lats,
+                        const float* offs, KrigeParams par, int model, int n, float* out) {
+  KrigeTaps<M> tv;
+  if (!krige_taps(offs, par.half, tv)) return (int)cudaErrorInvalidValue;
+  int vec = ((uintptr_t)pack & 15) == 0;
+  const dim3 g((unsigned)((n + kSelThreads - 1) / kSelThreads));
+  void* args[] = {&pack, &lons, &lats, &tv, &par, &n, &vec, &out};
+  return (int)cudaLaunchKernel(window_krige_fn<M, P>(model), g, dim3(kSelThreads), args, 0, st);
 }
 
 // B7: window top-k over the M real taps of a pack row, as B6 selects them,
@@ -578,6 +667,27 @@ int launch_window(bool vec, dim3 g, cudaStream_t st, const float* pack, const in
 
 int pitch_for(int M) { return M <= 16 ? 16 : (M <= 32 ? 32 : 64); }
 
+// B11's and B12's launch parameters: the grid's scalars (geo, as for
+// auvtpu_select_krige), the variogram's by value (vario) or through device
+// addresses where they are not null, the resolved row's threshold.
+KrigeParams krige_params(int W, int H, const float* geo, const float* vario, const void* p_nugget,
+                         const void* p_sill, const void* p_range, int has_resolve, float resolve_thresh) {
+  KrigeParams par;
+  par.geo = QueryGeom{geo[0], geo[1], geo[2], geo[3], geo[4], geo[5], W, H};
+  par.lon_step = geo[6];
+  par.lat_step = geo[7];
+  par.half = geo[8];
+  par.pivot_tol = geo[9];
+  par.resolve_thresh = resolve_thresh;
+  par.has_resolve = has_resolve != 0;
+  const void* ptrs[3] = {p_nugget, p_sill, p_range};
+  for (int i = 0; i < 3; ++i) {
+    par.vario[i] = vario[i];
+    par.p_vario[i] = (const float*)ptrs[i];
+  }
+  return par;
+}
+
 }  // namespace
 
 extern "C" {
@@ -615,31 +725,34 @@ int auvtpu_scattered_select(const void* pack, int P, const void* cell, const voi
 
 // B6.  pack: (cells, P) f32 with P the smallest of 16, 32, 64 that holds M;
 // M, the real taps a row, in {9, 16, 25, 49} (windows of radius 1-3, the
-// valid16 stencil); taps: 2*M f32 on the
-// host, dx + half of each tap then dy + half; cell: (n,) int32; fxy: (2, n)
-// f32; 1 <= k <= P; out: (2[+1], n) f32 = sum w*v, sum w (, resolved).
-// A pack that is not 16-byte aligned takes scalar loads.
-int auvtpu_idw_select(const void* pack, int P, int M, const void* cell, const void* fxy, const float* taps,
-                      int n, int k, int has_resolve, float resolve_thresh, float eps, void* out,
-                      void* stream) {
-  if (P != pitch_for(M) || k < 1 || k > P || n < 0) return (int)cudaErrorInvalidValue;
+// valid16 stencil); lons, lats: (n,) f32 queries; taps: 2*M f32 on the
+// host, dx + half of each tap then dy + half; W, H the grid's columns and
+// rows; geo: min_lon, max_lon, min_lat, max_lat, inv_lon, inv_lat (f32 on
+// the host, passed by value, as for auvtpu_select_krige); 1 <= k <= P;
+// out: (1[+1], n) f32 = the IDW value (, resolved).  A pack that is not
+// 16-byte aligned takes scalar loads.  One kernel launch, nothing else on
+// the stream.
+int auvtpu_idw_select(const void* pack, int P, int M, const void* lons, const void* lats, const float* taps,
+                      int n, int W, int H, const float* geo, int k, int has_resolve, float resolve_thresh,
+                      float eps, void* out, void* stream) {
+  if (P != pitch_for(M) || k < 1 || k > P || n < 0 || W < 1 || H < 1) return (int)cudaErrorInvalidValue;
   if (n == 0) return (int)cudaSuccess;
   const dim3 g((unsigned)((n + kSelThreads - 1) / kSelThreads));
   cudaStream_t st = (cudaStream_t)stream;
   const float* p = (const float*)pack;
-  const int* c = (const int*)cell;
-  const float* f = (const float*)fxy;
+  const float *lo = (const float*)lons, *la = (const float*)lats;
+  const QueryGeom gm{geo[0], geo[1], geo[2], geo[3], geo[4], geo[5], W, H};
   float* o = (float*)out;
   const bool vec = ((uintptr_t)pack & 15) == 0;
   switch (M) {
     case 9:
-      return launch_idw<9, 16>(vec, g, st, p, c, f, taps, n, k, has_resolve, resolve_thresh, eps, o);
+      return launch_idw<9, 16>(vec, g, st, p, lo, la, taps, gm, n, k, has_resolve, resolve_thresh, eps, o);
     case 16:
-      return launch_idw<16, 16>(vec, g, st, p, c, f, taps, n, k, has_resolve, resolve_thresh, eps, o);
+      return launch_idw<16, 16>(vec, g, st, p, lo, la, taps, gm, n, k, has_resolve, resolve_thresh, eps, o);
     case 25:
-      return launch_idw<25, 32>(vec, g, st, p, c, f, taps, n, k, has_resolve, resolve_thresh, eps, o);
+      return launch_idw<25, 32>(vec, g, st, p, lo, la, taps, gm, n, k, has_resolve, resolve_thresh, eps, o);
     case 49:
-      return launch_idw<49, 64>(vec, g, st, p, c, f, taps, n, k, has_resolve, resolve_thresh, eps, o);
+      return launch_idw<49, 64>(vec, g, st, p, lo, la, taps, gm, n, k, has_resolve, resolve_thresh, eps, o);
     default:
       return (int)cudaErrorInvalidValue;
   }
@@ -662,19 +775,7 @@ int auvtpu_select_krige(const void* pack, int P, int M, const void* lons, const 
   if (P != pitch_for(M) || model < 0 || model > 3 || n < 0 || W < 1 || H < 1 || ((uintptr_t)pack & 15))
     return (int)cudaErrorInvalidValue;
   if (n == 0) return (int)cudaSuccess;
-  KrigeParams par;
-  par.geo = QueryGeom{geo[0], geo[1], geo[2], geo[3], geo[4], geo[5], W, H};
-  par.lon_step = geo[6];
-  par.lat_step = geo[7];
-  par.half = geo[8];
-  par.pivot_tol = geo[9];
-  par.resolve_thresh = resolve_thresh;
-  par.has_resolve = has_resolve != 0;
-  const void* ptrs[3] = {p_nugget, p_sill, p_range};
-  for (int i = 0; i < 3; ++i) {
-    par.vario[i] = vario[i];
-    par.p_vario[i] = (const float*)ptrs[i];
-  }
+  const KrigeParams par = krige_params(W, H, geo, vario, p_nugget, p_sill, p_range, has_resolve, resolve_thresh);
   cudaStream_t st = (cudaStream_t)stream;
   const float* p = (const float*)pack;
   const float *lo = (const float*)lons, *la = (const float*)lats;
@@ -688,6 +789,34 @@ int auvtpu_select_krige(const void* pack, int P, int M, const void* lons, const 
       return launch_krige<25, 32>(st, p, lo, la, offs, par, model, n, o);
     case 49:
       return launch_krige<49, 64>(st, p, lo, la, offs, par, model, n, o);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+}
+
+// B12.  pack: (cells, P) f32, P the smallest of 16, 32, 64 that holds M;
+// M, the real taps a row, in {9, 25, 49} (windows of radius 1-3); lons,
+// lats, offs, W, H, geo, vario, p_nugget, p_sill, p_range and model as for
+// auvtpu_select_krige; out: (n,) f32 = the prediction.  A pack that is not
+// 16-byte aligned takes scalar loads.  One kernel launch, nothing else on
+// the stream.
+int auvtpu_window_krige(const void* pack, int P, int M, const void* lons, const void* lats, const float* offs,
+                        int n, int W, int H, const float* geo, const float* vario, const void* p_nugget,
+                        const void* p_sill, const void* p_range, int model, void* out, void* stream) {
+  if (P != pitch_for(M) || model < 0 || model > 3 || n < 0 || W < 1 || H < 1) return (int)cudaErrorInvalidValue;
+  if (n == 0) return (int)cudaSuccess;
+  const KrigeParams par = krige_params(W, H, geo, vario, p_nugget, p_sill, p_range, 0, 0.f);
+  cudaStream_t st = (cudaStream_t)stream;
+  const float* p = (const float*)pack;
+  const float *lo = (const float*)lons, *la = (const float*)lats;
+  float* o = (float*)out;
+  switch (M) {
+    case 9:
+      return launch_window_krige<9, 16>(st, p, lo, la, offs, par, model, n, o);
+    case 25:
+      return launch_window_krige<25, 32>(st, p, lo, la, offs, par, model, n, o);
+    case 49:
+      return launch_window_krige<49, 64>(st, p, lo, la, offs, par, model, n, o);
     default:
       return (int)cudaErrorInvalidValue;
   }

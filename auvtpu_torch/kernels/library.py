@@ -17,8 +17,9 @@ the device's implementation):
 - ``auvtpu_torch::valid_select`` (B5, ``csrc/scattered_select.cu``
   ``select_kernel``), ``auvtpu_torch::idw_select`` (B6,
   ``idw_select_kernel``), ``auvtpu_torch::window_select`` (B7,
-  ``window_select_kernel``) and ``auvtpu_torch::select_krige`` (B11,
-  ``select_krige_kernel``), the scattered-query selections;
+  ``window_select_kernel``), ``auvtpu_torch::select_krige`` (B11,
+  ``select_krige_kernel``) and ``auvtpu_torch::window_krige`` (B12,
+  ``window_krige_kernel``), the scattered-query selections;
 - ``auvtpu_torch::band_resample`` (B8, ``csrc/band_resample.cu``);
 - ``auvtpu_torch::pair_sums`` (B9, ``csrc/variogram.cu``, the binned
   variogram pair sums) and ``auvtpu_torch::fit_model`` (B10, the
@@ -27,9 +28,10 @@ the device's implementation):
 
 Each op takes tensors and python scalars only: a grid is unpacked into its
 ``elev`` and ``valid`` planes with its extent as floats, the variogram is
-one tensor (B11: a list of one (3,) tensor or three 0-d ones), and what a
-kernel takes by value from the host (the taps of B6, B7 and B11, B11's grid
-scalars) is worked out by the wrapper, once, before the call: B7's taps a
+one tensor (B11, B12: a list of one (3,) tensor or three 0-d ones), and
+what a kernel takes by value from the host (the taps of B6, B7, B11 and
+B12, the grid scalars of B6, B11 and B12) is worked out by the wrapper,
+once, before the call: B7's taps a
 list of floats, the others CPU tensors the launch reads on the host (a
 list costs the dispatcher a conversion a value, each call).
 Its ``CUDA`` implementation is the ctypes launch (with the launch count,
@@ -282,10 +284,7 @@ window_select = _op(
 
 # ---------------------------------------------------------------------------
 # B5: transposed top-k rows (1+2k[+k][+1], N) [cnt, k vals, (k d2), k codes,
-# (resolved)] over the pack rows ``cell``, with the (3, P) 'dy' table; and
-# B6: the power-2 IDW sums (2[+1], N) [sum w*v, sum w, (resolved)], its taps
-# by value (scattered_select._idw_taps) in a CPU float32 tensor, empty for a
-# CPU pack
+# (resolved)] over the pack rows ``cell``, with the (3, P) 'dy' table
 # ---------------------------------------------------------------------------
 
 def _rows_cpu(pack, cell, fx, fy, tab, P, k, emit_d2, half, resolve_thresh):
@@ -311,49 +310,60 @@ valid_select = _op(
     cpu=_rows_cpu, cuda=_rows_cuda, fake=_rows_fake)
 
 
-def _idw_cpu(pack, cell, fx, fy, tab, taps, P, k, half, resolve_thresh, eps):
-    from .scattered_select import select_ref
+# ---------------------------------------------------------------------------
+# The scattered kernels that compute the query prologue themselves, at the
+# queries (qlon, qlat) (the grid's dtype, contiguous), with geo the grid's
+# scalars, a (10,) float64 CPU tensor (scattered_select._krige_geo: bounds,
+# reciprocal steps, steps, half, pivot tolerance), and taps the kernel's
+# by-value taps, a CPU float32 tensor, empty for a CPU pack.  Taps and
+# scalars travel as tensors: one operand through the dispatcher each, where
+# a list of floats is one a value.  The plain versions read the grid's
+# shape, not its cells: a 0-d plane expanded to (H, W) stands for it.
+# ---------------------------------------------------------------------------
 
-    return select_ref(pack, P, cell, fx, fy, tab, mode="idw", k=k, half=half, resolve_thresh=resolve_thresh, eps=eps)
+def _geo_grid(qlon, geo, num_lon, num_lat) -> RegularGrid:
+    plane = qlon.new_empty(()).expand(num_lat, num_lon)
+    return _grid(plane, plane, geo.tolist()[:4])
 
 
-def _idw_cuda(pack, cell, fx, fy, tab, taps, P, k, half, resolve_thresh, eps):
+def _vparams(vario) -> tuple:
+    return tuple(float(v) for v in (vario[0] if len(vario) == 1 else vario))
+
+
+# B6: the power-2 IDW value (1[+1], N) [value, (resolved)]; tab the (3, P)
+# 'dy' table, taps scattered_select._idw_taps's
+def _idw_cpu(pack, tab, qlon, qlat, taps, geo, P, num_lon, num_lat, k, resolve_thresh, eps):
+    from .scattered_select import idw_select_plain
+
+    return idw_select_plain(pack, P, tab, _geo_grid(qlon, geo, num_lon, num_lat), qlon, qlat, k=k,
+                            half=float(geo[8]), resolve_thresh=resolve_thresh, eps=eps)
+
+
+def _idw_cuda(pack, tab, qlon, qlat, taps, geo, P, num_lon, num_lat, k, resolve_thresh, eps):
     from .scattered_select import idw_launch
 
-    return idw_launch(pack, P, cell, fx, fy, taps, k, resolve_thresh, eps)
+    return idw_launch(pack, P, qlon, qlat, taps, geo, num_lon, num_lat, k, resolve_thresh, eps)
 
 
-def _idw_fake(pack, cell, fx, fy, tab, taps, P, k, half, resolve_thresh, eps):
-    return pack.new_empty((2 + int(resolve_thresh is not None), cell.shape[0]))
+def _idw_fake(pack, tab, qlon, qlat, taps, geo, P, num_lon, num_lat, k, resolve_thresh, eps):
+    return qlon.new_empty((1 + int(resolve_thresh is not None), qlon.shape[0]))
 
 
 idw_select = _op(
-    "idw_select(Tensor pack, Tensor cell, Tensor fx, Tensor fy, Tensor tab, Tensor taps, int P, int k, "
-    "float half, float? resolve_thresh, float eps) -> Tensor",
+    "idw_select(Tensor pack, Tensor tab, Tensor qlon, Tensor qlat, Tensor taps, Tensor geo, int P, int num_lon, "
+    "int num_lat, int k, float? resolve_thresh, float eps) -> Tensor",
     cpu=_idw_cpu, cuda=_idw_cuda, fake=_idw_fake)
 
 
-# ---------------------------------------------------------------------------
 # B11: the valid top-4 and the ordinary-kriging solve, (1[+1], N) rows
-# [prediction, (resolved)] at the queries (qlon, qlat) (the grid's dtype,
-# contiguous).  tab is the (3, P) 'dy' table (the plain version's); taps
-# the kernel's by-value taps (scattered_select._krige_taps), a CPU float32
-# tensor, empty for a CPU pack; geo the grid's scalars, a (10,) float64 CPU
-# tensor (scattered_select._krige_geo: bounds, reciprocal steps, steps,
-# half, pivot tolerance); vario one (3,) tensor or three 0-d tensors
-# (library.variogram_tensors), read on the device.  Taps and scalars travel
-# as tensors: one operand through the dispatcher each, where a list of
-# floats is one a value.
-# ---------------------------------------------------------------------------
-
+# [prediction, (resolved)]; tab the (3, P) 'dy' table, taps
+# scattered_select._krige_taps's; vario one (3,) tensor or three 0-d
+# tensors (library.variogram_tensors), read on the device
 def _krige_cpu(pack, tab, qlon, qlat, vario, taps, geo, P, R, num_lon, num_lat, model, resolve_thresh):
     from .scattered_select import select_krige_plain
 
-    plane = qlon.new_empty(()).expand(num_lat, num_lon)  # the plain version reads the grid's shape, not its cells
-    vparams = tuple(float(v) for v in (vario[0] if len(vario) == 1 else vario))
-    g = geo.tolist()
-    return select_krige_plain(pack, P, tab, R, _grid(plane, plane, g[:4]), qlon, qlat, half=g[8], vparams=vparams,
-                              model=model, resolve_thresh=resolve_thresh)
+    return select_krige_plain(pack, P, tab, R, _geo_grid(qlon, geo, num_lon, num_lat), qlon, qlat,
+                              half=float(geo[8]), vparams=_vparams(vario), model=model, resolve_thresh=resolve_thresh)
 
 
 def _krige_cuda(pack, tab, qlon, qlat, vario, taps, geo, P, R, num_lon, num_lat, model, resolve_thresh):
@@ -370,6 +380,32 @@ select_krige = _op(
     "select_krige(Tensor pack, Tensor tab, Tensor qlon, Tensor qlat, Tensor[] vario, Tensor taps, Tensor geo, "
     "int P, int R, int num_lon, int num_lat, str model, float? resolve_thresh) -> Tensor",
     cpu=_krige_cpu, cuda=_krige_cuda, fake=_krige_fake)
+
+
+# B12: B7's window top-4 and the same solve, (N,) predictions (NaN where no
+# tap was found); tab the (3, P) 'dx' table, taps
+# scattered_select._window_krige_taps's, vario as for B11
+def _window_krige_cpu(pack, tab, qlon, qlat, vario, taps, geo, P, R, num_lon, num_lat, model):
+    from .scattered_select import window_krige_plain
+
+    return window_krige_plain(pack, P, tab, R, _geo_grid(qlon, geo, num_lon, num_lat), qlon, qlat,
+                              half=float(geo[8]), vparams=_vparams(vario), model=model)
+
+
+def _window_krige_cuda(pack, tab, qlon, qlat, vario, taps, geo, P, R, num_lon, num_lat, model):
+    from .scattered_select import window_krige_launch
+
+    return window_krige_launch(pack, P, qlon, qlat, vario, taps, geo, num_lon, num_lat, model)
+
+
+def _window_krige_fake(pack, tab, qlon, qlat, vario, taps, geo, P, R, num_lon, num_lat, model):
+    return qlon.new_empty(qlon.shape)
+
+
+window_krige = _op(
+    "window_krige(Tensor pack, Tensor tab, Tensor qlon, Tensor qlat, Tensor[] vario, Tensor taps, Tensor geo, "
+    "int P, int R, int num_lon, int num_lat, str model) -> Tensor",
+    cpu=_window_krige_cpu, cuda=_window_krige_cuda, fake=_window_krige_fake)
 
 
 # ---------------------------------------------------------------------------

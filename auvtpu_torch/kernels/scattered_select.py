@@ -1,8 +1,8 @@
-"""The scattered-query selection kernels (B5, B6, B7, B11) and the B7
+"""The scattered-query selection kernels (B5, B6, B7, B11, B12) and the B7
 wrappers (counterpart of :mod:`auvtpu.pallas.scattered_select`).
 
-Four CUDA kernels in ``csrc/scattered_select.cu`` replace three TPU
-kernels and one XLA epilogue: per query they read the taps of its centre
+Five CUDA kernels in ``csrc/scattered_select.cu`` replace three TPU
+kernels and two XLA epilogues: per query they read the taps of its centre
 cell's pack row, take the squared distance to each valid tap and extract
 the k nearest by min-extract passes (ties to the lowest table index =
 collection order).  The modes of :func:`select`:
@@ -10,35 +10,41 @@ collection order).  The modes of :func:`select`:
 - ``"rows_t"`` (B5, ``valid_select.py::_sel_kernel``): (1+2k[+k][+1], N)
   rows [cnt, k vals, (k d2), k codes, (resolved)], dy-major codes; wrappers
   in :mod:`auvtpu_torch.kernels.valid_select`;
-- ``"idw"`` (B6, ``valid_select.py::_idw_kernel``): (2[+1], N) rows
-  [sum w*v, sum w, (resolved)], power-2 weights, in a kernel of its own
-  that scans only the window's real taps and takes them by value (a pack
-  that is not 16-byte aligned takes its scalar loads);
 - ``"rows_n"`` (B7, ``scattered_select.py::_make_select_kernel``): (N, 1+3k)
-  rows [cnt, vals, d2s, codes], dx-major codes, in a kernel on B6's design
-  that also takes each tap's code by value; wrappers
-  :func:`window_select_fused`, :func:`packed_kriging_fused` and
-  :func:`packed_idw_fused` below, which return the select dict of
+  rows [cnt, vals, d2s, codes], dx-major codes, in a kernel that scans only
+  the window's real taps and takes them, with each tap's code, by value (a
+  pack that is not 16-byte aligned takes its scalar loads); wrappers
+  :func:`window_select_fused` and :func:`packed_idw_fused` below, which
+  return or use the select dict of
   :func:`auvtpu_torch.ops.packs.packed_window_select`.
 
-:func:`select_krige` (B11) is B5's top-4 with the ordinary-kriging solve
-and its fallbacks fused in (``valid_select.py::_sel_kernel`` and the XLA
-row epilogue ``_kriging_rows_epilogue`` after it): (1[+1], N) rows
-[prediction, (resolved)], for the wrappers ``kriging_valid_t`` and
-``packed_kriging_t``; its plain version is :func:`select_krige_ref`, B5's
-plain rows and the row epilogue in torch.
+Three kernels take the queries and the grid's scalars and compute the
+query prologue themselves (``csrc/query_prologue.cuh``), so that a call is
+one launch:
 
-For B5, B6 and B7 the normalisation (x, y, oob, centre cell, fractional
+- :func:`idw_select` (B6, ``valid_select.py::_idw_kernel`` with the
+  ``_prologue`` before it and ``_idw_launch``'s epilogue after it): the
+  power-2 IDW value and the resolved row, (1[+1], N), for ``packed_idw_t``;
+  its plain version is :func:`idw_select_ref`, the torch prologue, B6's
+  plain sums (:func:`select_ref`, mode ``"idw"``) and the epilogue;
+- :func:`select_krige` (B11): B5's top-4 with the ordinary-kriging solve
+  and its fallbacks fused in (``valid_select.py::_sel_kernel`` and the XLA
+  row epilogue ``_kriging_rows_epilogue`` after it): (1[+1], N) rows
+  [prediction, (resolved)], for ``kriging_valid_t`` and
+  ``packed_kriging_t``; its plain version is :func:`select_krige_ref`;
+- :func:`window_krige` (B12): B7's top-4 with the same solve
+  (``pallas_packed_kriging``: ``pallas_window_select`` and the XLA
+  ``kriging_from_select`` after it), (N,) predictions, for
+  :func:`packed_kriging_fused`; its plain version is
+  :func:`window_krige_ref`.
+
+For B5 and B7 the normalisation (x, y, oob, centre cell, fractional
 offsets) is torch, in one place (:func:`prologue`), and the kernels do the
-fetch and the selection; B11 takes the queries and the grid's scalars and
-computes the same prologue itself (``csrc/query_prologue.cuh``), so a
-kriging call is one launch.
-:func:`select_ref` is the kernel's plain version, a transcription of the
-TPU kernels (same d2 op order, sentinels and tie rule).  :func:`select`
-runs it only for a pack on the CPU; for a CUDA pack it launches the kernel
-or raises.  B7 goes through the custom op ``auvtpu_torch::window_select``
-(:mod:`.library`), whose ``cuda`` implementation is :func:`window_launch`.
-Each launch adds one to ``LAUNCHES[<kernel>]``.
+fetch and the selection.  :func:`select_ref` is the selection's plain
+version, a transcription of the TPU kernels (same d2 op order, sentinels
+and tie rule).  Each kernel is a custom op of :mod:`.library`: for a CPU
+pack it runs the plain version; for a CUDA pack it launches the kernel or
+raises.  Each launch adds one to ``LAUNCHES[<kernel>]``.
 """
 
 from __future__ import annotations
@@ -51,19 +57,13 @@ import torch
 
 from ..config import IDWConfig, KrigingConfig
 from ..grid import RegularGrid, as_dtype, device_cache
-from ..ops.packs import (
-    SENTINEL,
-    idw_from_select,
-    kriging_from_select,
-    pack_width,
-    window_offsets,
-)
-from ..ops.scattered import _nan_like, _normalize, centre_cells, krige_solve_cols, queries
+from ..ops.packs import SENTINEL, idw_from_select, pack_width, window_offsets
+from ..ops.scattered import _nan_like, _normalize, cell_centres, centre_cells, krige_solve_cols, queries
 from . import library
 from .window_fill import _MODELS
 
 # one count per TPU kernel replaced
-LAUNCHES = {"select_rows": 0, "idw_rows": 0, "window_select_fused": 0, "select_krige": 0}
+LAUNCHES = {"select_rows": 0, "idw_rows": 0, "window_select_fused": 0, "select_krige": 0, "window_krige": 0}
 _MODES = {"rows_t": "select_rows", "idw": "idw_rows", "rows_n": "window_select_fused"}
 KERNEL_P = (16, 32, 64)  # pack widths the kernel is built for (radius <= 3)
 INF = 3e30  # d2 of an invalid tap (valid_select.py:62)
@@ -82,13 +82,15 @@ def _lib() -> ctypes.CDLL:
     P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     lib.auvtpu_scattered_select.argtypes = [P, I, P, P, P, I, I, I, F, I, F, P, P]
     lib.auvtpu_scattered_select.restype = I
-    lib.auvtpu_idw_select.argtypes = [P, I, I, P, P, P, I, I, I, F, F, P, P]  # taps: host float32
+    FP = ctypes.POINTER(F)
+    lib.auvtpu_idw_select.argtypes = [P, I, I, P, P, P, I, I, I, P, I, I, F, F, P, P]  # taps, geo: host float32
     lib.auvtpu_idw_select.restype = I
     lib.auvtpu_window_select.argtypes = [P, I, I, P, P, ctypes.POINTER(F), I, I, P, P]
     lib.auvtpu_window_select.restype = I
-    FP = ctypes.POINTER(F)
     lib.auvtpu_select_krige.argtypes = [P, I, I, P, P, P, I, I, I, P, FP, P, P, P, I, I, F, P, P]  # taps, geo: host
     lib.auvtpu_select_krige.restype = I
+    lib.auvtpu_window_krige.argtypes = [P, I, I, P, P, P, I, I, I, P, FP, P, P, P, I, P, P]  # taps, geo: host
+    lib.auvtpu_window_krige.restype = I
     lib.auvtpu_select_krige_attributes.argtypes = [I, I, ctypes.POINTER(I)]
     lib.auvtpu_select_krige_attributes.restype = I
     lib.auvtpu_scattered_error_string.argtypes = [I]
@@ -189,11 +191,11 @@ def _window_taps(tab: torch.Tensor, P: int, half: float):
 # ---------------------------------------------------------------------------
 
 def prologue(grid: RegularGrid, lons, lats):
-    """The query geometry the kernels B5-B7, the plain versions and the
+    """The query geometry the kernels B5 and B7, the plain versions and the
     epilogues use: x, y, oob (:func:`auvtpu_torch.ops.scattered._normalize`),
     the clamped centre (ci, cj), its cell index cj*W + ci (int32) and the
     fractional offsets fx = x - ci, fy = y - cj (valid_select.py:146-173).
-    B11 computes it in the kernel, op for op."""
+    B6, B11 and B12 compute it in the kernel, op for op."""
     if grid.dtype != torch.float32:
         raise TypeError(
             f"the scattered select kernels are float32 (grid is {grid.dtype}); "
@@ -303,27 +305,26 @@ def _raise_on(err: int, name: str) -> None:
         raise RuntimeError(f"{name}: CUDA launch failed: {msg} ({err})")
 
 
-def select(pack, P: int, cell, fx, fy, tab, *, mode: str, k: int, emit_d2: bool = False, half: float = 0.5, resolve_thresh=None, eps: float = IDWConfig().eps):
-    """k-nearest selection over the pack rows ``cell`` (B5/B6/B7 by ``mode``).
+def select(pack, P: int, cell, fx, fy, tab, *, mode: str, k: int, emit_d2: bool = False, half: float = 0.5, resolve_thresh=None):
+    """k-nearest selection over the pack rows ``cell`` (B5 or B7 by
+    ``mode``).
 
     pack (cells*P,) f32 with the 1e30 sentinel at invalid taps; cell (N,)
     integer; fx, fy (N,) f32; tab (3, P) f32 (dx, dy, code).  Each mode is a
-    custom op (``auvtpu_torch::valid_select``, ``::idw_select``,
-    ``::window_select``): for a CPU pack it runs :func:`select_ref`, for a
-    CUDA pack it launches the kernel or raises.  B6's and B7's taps are
-    worked out here from the table's host copy, once a table."""
+    custom op (``auvtpu_torch::valid_select``, ``::window_select``): for a
+    CPU pack it runs :func:`select_ref`, for a CUDA pack it launches the
+    kernel or raises.  B7's taps are worked out here from the table's host
+    copy, once a table.  B6 (IDW) takes the queries, not their cells:
+    :func:`idw_select`."""
     cpu = pack.device.type == "cpu"
+    if mode not in ("rows_t", "rows_n"):
+        raise ValueError(f"select: mode {mode!r}; 'rows_t' (B5) or 'rows_n' (B7); B6 is idw_select")
     if not cpu:
-        _check_device(pack, _MODES.get(mode, mode))
+        _check_device(pack, _MODES[mode])
     if mode == "rows_n":
         return library.window_select(pack, cell, fx, fy, tab, [] if cpu else _taps(tab, P, half, "dx"), P, k,
                                      half)
-    if mode == "rows_t":
-        return library.valid_select(pack, cell, fx, fy, tab, P, k, emit_d2, half, resolve_thresh)
-    if mode == "idw":
-        return library.idw_select(pack, cell, fx, fy, tab, _NO_TAPS if cpu else _taps(tab, P, half, "dy"), P, k,
-                                  half, resolve_thresh, eps)
-    raise ValueError(mode)
+    return library.valid_select(pack, cell, fx, fy, tab, P, k, emit_d2, half, resolve_thresh)
 
 
 # a CPU pack's taps: the plain versions read the table
@@ -386,25 +387,26 @@ def rows_launch(pack, P: int, cell, fx, fy, tab, k: int, emit_d2: bool, half: fl
     return out
 
 
-def idw_launch(pack, P: int, cell, fx, fy, taps, k: int, resolve_thresh, eps: float):
+def idw_launch(pack, P: int, qlon, qlat, taps, geo, num_lon: int, num_lat: int, k: int, resolve_thresh, eps: float):
     """One B6 launch: the ``cuda`` implementation of
     ``auvtpu_torch::idw_select``.  ``taps`` are the by-value taps of
     :func:`_idw_taps` (2*M floats: dx + half of each real tap, then dy +
-    half) in a CPU float32 tensor."""
+    half) and ``geo`` :func:`_krige_geo`'s, CPU tensors read on the host."""
     name = "idw_rows"
-    _check(pack, P, k, name, cell, fx, fy)
+    _check(pack, P, k, name, qlon, qlat)
     M = taps.numel() // 2
-    if taps.numel() % 2 or M not in IDW_M or pack_width(M) != P:
-        raise ValueError(f"{name}: {taps.numel()} tap values for rows of {P}; want 2*M, M in {IDW_M}")
-    host_taps = _host_floats(taps, name, "taps")
-    n = int(cell.shape[0])
-    out = torch.empty((2 + int(resolve_thresh is not None), n), dtype=torch.float32, device=pack.device)
+    if taps.numel() % 2 or M not in IDW_M or pack_width(M) != P or geo.numel() != 10:
+        raise ValueError(f"{name}: {taps.numel()} tap values for rows of {P} and {geo.numel()} grid scalars; want "
+                         f"2*M, M in {IDW_M}, and 10")
+    geo32 = _geo32(geo)  # held until the launch has read it
+    host_taps, host_geo = _host_floats(taps, name, "taps"), _host_floats(geo32, name, "grid scalars")
+    n = int(qlon.shape[0])
+    out = torch.empty((1 + int(resolve_thresh is not None), n), dtype=torch.float32, device=pack.device)
     if n == 0:
         return out
-    cell32, fxy = _inputs_of(cell, fx, fy)
     with torch.cuda.device(pack.device):
         err = _lib().auvtpu_idw_select(
-            pack.data_ptr(), P, M, cell32.data_ptr(), fxy.data_ptr(), host_taps, n, k,
+            pack.data_ptr(), P, M, qlon.data_ptr(), qlat.data_ptr(), host_taps, n, num_lon, num_lat, host_geo, k,
             int(resolve_thresh is not None), 0.0 if resolve_thresh is None else float(resolve_thresh), float(eps),
             out.data_ptr(), _stream(pack.device),
         )
@@ -435,6 +437,55 @@ def window_launch(pack, P: int, cell, fx, fy, tab, taps, k: int):
     _raise_on(err, name)
     LAUNCHES[name] += 1
     return out
+
+
+# ---------------------------------------------------------------------------
+# B6: the query prologue, the k-nearest IDW sums and the epilogue in one
+# kernel, with its plain version
+# ---------------------------------------------------------------------------
+
+def idw_select(pack, P: int, offs, R: int, grid: RegularGrid, lons, lats, *, k: int = 8, convention: str = "reference", resolve_thresh=None):
+    """k-nearest IDW with power 2 over the pack rows of ``offs`` (B6):
+    (1[+1], N) f32 rows [value, (resolved)].  The value is sum w*v /
+    max(sum w, eps) over the k nearest valid taps, w = 1/(d2 + eps) and eps
+    ``IDWConfig(k=k).eps``, NaN where no tap was found and out of the grid;
+    the resolved row (two-tier, ``resolve_thresh``) is found & d2 <
+    resolve_thresh at slot k.  Through the op ``auvtpu_torch::idw_select``:
+    for a CPU pack it runs :func:`idw_select_ref`; for a CUDA pack it
+    launches the kernel once, which computes the query prologue from the
+    queries and the grid's scalars and the quotient itself, or raises."""
+    cpu = pack.device.type == "cpu"
+    if not cpu:
+        _check_device(pack, "idw_rows")
+    if not 1 <= k <= P:
+        raise ValueError(f"k must be in 1..{P}")
+    qlon, qlat = (q.contiguous() for q in queries(grid, lons, lats))
+    tab = table(_offs_key(offs), P, R, "dy", grid.device)
+    half = 0.5 if convention == "reference" else 0.0
+    return library.idw_select(pack, tab, qlon, qlat, _NO_TAPS if cpu else _taps(tab, P, half, "dy"),
+                              _krige_geo(grid, convention), P, grid.num_lon, grid.num_lat, k, resolve_thresh,
+                              IDWConfig(k=k).eps)
+
+
+def idw_select_ref(pack, P: int, offs, R: int, grid: RegularGrid, lons, lats, *, k: int = 8, convention: str = "reference", resolve_thresh=None):
+    """Plain version of :func:`idw_select`: the torch prologue, B6's plain
+    sums (:func:`select_ref`, mode ``"idw"``) and the epilogue of
+    ``_idw_launch`` in torch."""
+    return idw_select_plain(pack, P, table(offs, P, R, "dy", grid.device), grid, lons, lats, k=k,
+                            half=0.5 if convention == "reference" else 0.0, resolve_thresh=resolve_thresh,
+                            eps=IDWConfig(k=k).eps)
+
+
+def idw_select_plain(pack, P: int, tab, grid: RegularGrid, lons, lats, *, k: int, half: float, resolve_thresh, eps: float):
+    """:func:`idw_select_ref` over the pack's (3, P) 'dy' table: the ``cpu``
+    implementation of ``auvtpu_torch::idw_select``, in the kernel's op
+    order."""
+    _, _, oob, _, _, cell, fx, fy = prologue(grid, lons, lats)
+    rows = select_ref(pack, P, cell, fx, fy, tab, mode="idw", k=k, half=half, resolve_thresh=resolve_thresh, eps=eps)
+    num, den = rows[0], rows[1]
+    res = torch.where(den > 0, num / torch.clamp(den, min=eps), _nan_like(num))
+    res = torch.where(oob, _nan_like(res), res)
+    return torch.stack([res] + ([rows[2]] if resolve_thresh is not None else []))
 
 
 # ---------------------------------------------------------------------------
@@ -524,8 +575,7 @@ def krige_launch(pack, P: int, qlon, qlat, vario, taps, geo, num_lon: int, num_l
     if taps.numel() % 2 or M not in IDW_M or pack_width(M) != P or geo.numel() != 10:
         raise ValueError(f"{name}: {taps.numel()} tap values for rows of {P} and {geo.numel()} grid scalars; want "
                          f"2*M, M in {IDW_M}, and 10")
-    geo32 = getattr(geo, "f32", None)  # made beside a geometry of _krige_geo; a loaded program's is converted
-    geo32 = geo.to(torch.float32) if geo32 is None else geo32
+    geo32 = _geo32(geo)  # held until the launch has read it
     host_taps, host_geo = _host_floats(taps, name, "taps"), _host_floats(geo32, name, "grid scalars")
     n = int(qlon.shape[0])
     resolve = resolve_thresh is not None
@@ -543,6 +593,13 @@ def krige_launch(pack, P: int, qlon, qlat, vario, taps, geo, num_lon: int, num_l
     _raise_on(err, name)
     LAUNCHES[name] += 1
     return out
+
+
+def _geo32(geo: torch.Tensor) -> torch.Tensor:
+    """The float32 grid scalars a launch takes by value: made beside a
+    geometry of :func:`_krige_geo`; a loaded program's are converted."""
+    geo32 = getattr(geo, "f32", None)
+    return geo.to(torch.float32) if geo32 is None else geo32
 
 
 _NO_VARIO = (ctypes.c_float * 3)()  # the by-value parameters: unused, every one is read through its address
@@ -567,24 +624,24 @@ def _offs_key(offs) -> tuple:
 
 
 @device_cache(maxsize=32)
-def _krige_taps(offs: tuple, P: int, R: int):
-    """(M, taps) for B11: :func:`_real_taps` of the pack's table, the M
-    taps' dx then dy in a CPU float32 tensor that the launch reads.  A pack
-    width the kernel is not built for raises here, before the taps are
-    read."""
+def _krige_taps(offs: tuple, P: int, R: int, name: str = "select_krige"):
+    """(M, taps) for B11 and B12: :func:`_real_taps` of the pack's table,
+    the M taps' dx then dy in a CPU float32 tensor that the launch reads.
+    A pack width the kernel is not built for raises here, before the taps
+    are read."""
     if P not in KERNEL_P:
-        raise ValueError(_width_message("select_krige", P))
-    M, dx, dy = _real_taps(table(offs, P, R, "dy", "cpu"), P, "select_krige")
+        raise ValueError(_width_message(name, P))
+    M, dx, dy = _real_taps(table(offs, P, R, "dy", "cpu"), P, name)
     return M, torch.from_numpy(np.concatenate([dx, dy]))
 
 
 def _krige_geo(grid: RegularGrid, convention: str) -> torch.Tensor:
-    """B11's grid scalars as a (10,) float64 CPU tensor: the bounds and
-    the reciprocal steps of :meth:`RegularGrid.inv_steps` (the query
-    prologue), the steps (the neighbours' centres), half and the pivot
-    tolerance.  The bounds are the grid's python floats, the plain
-    version's extent; ``.f32`` holds the float32 values the kernel takes
-    by value."""
+    """The grid scalars of B6, B11 and B12 as a (10,) float64 CPU tensor:
+    the bounds and the reciprocal steps of :meth:`RegularGrid.inv_steps`
+    (the query prologue, all B6 reads), the steps (the neighbours'
+    centres), half and the pivot tolerance.  The bounds are the grid's
+    python floats, the plain version's extent; ``.f32`` holds the float32
+    values the kernel takes by value."""
     return _geo(grid.min_lon, grid.max_lon, grid.min_lat, grid.max_lat, grid.num_lon, grid.num_lat, convention)
 
 
@@ -615,21 +672,109 @@ def krige_attributes(M: int, model: str = "exponential") -> dict:
 
 
 # ---------------------------------------------------------------------------
+# B12: B7's top-4 and the kriging solve in one kernel, with its plain version
+# ---------------------------------------------------------------------------
+
+def window_krige(pack, P: int, offs, R: int, grid: RegularGrid, lons, lats, *, convention: str = "reference", vparams=None, model: str = "exponential"):
+    """Ordinary kriging from B7's k=4 window selection over the pack rows of
+    ``offs`` (B12): (N,) f32 predictions.  The prediction is the 5x6 solve
+    of the four nearest valid taps, the mean of the found ones where fewer
+    than four were found or a pivot fell below ``KrigingConfig().pivot_tol``
+    (NaN where none was found), NaN out of the grid: ``kriging_from_select``
+    after ``pallas_window_select``.  Through the op
+    ``auvtpu_torch::window_krige``: for a CPU pack it runs
+    :func:`window_krige_ref`; for a CUDA pack it launches the kernel once,
+    which computes the query prologue itself, or raises.  Fitted
+    ``vparams`` (0-d tensors on the card) are read there by the kernel."""
+    cpu = pack.device.type == "cpu"
+    if not cpu:
+        _check_device(pack, "window_krige")
+    qlon, qlat = (q.contiguous() for q in queries(grid, lons, lats))
+    key = _offs_key(offs)
+    tab = table(key, P, R, "dx", grid.device)
+    taps = _NO_TAPS if cpu else _window_krige_taps(key, P, R)
+    return library.window_krige(pack, tab, qlon, qlat, library.variogram_tensors(vparams, qlon), taps,
+                                _krige_geo(grid, convention), P, R, grid.num_lon, grid.num_lat, model)
+
+
+def _window_krige_taps(offs: tuple, P: int, R: int) -> torch.Tensor:
+    """B12's taps, :func:`_krige_taps`'s, for a window of B7's builds."""
+    M, taps = _krige_taps(offs, P, R, "window_krige")
+    if M not in WINDOW_M:
+        raise ValueError(f"window_krige: no build for {M} taps; built for the windows of radius 1-3, {WINDOW_M}")
+    return taps
+
+
+def window_krige_ref(pack, P: int, offs, R: int, grid: RegularGrid, lons, lats, *, convention: str = "reference", vparams=None, model: str = "exponential"):
+    """Plain version of :func:`window_krige`: :func:`window_select_fused`'s
+    plain path (the torch prologue, :func:`select_ref` in mode ``"rows_n"``
+    over the 'dx' table, the select dict) and ``kriging_from_select``."""
+    return window_krige_plain(pack, P, table(offs, P, R, "dx", grid.device), R, grid, lons, lats,
+                              half=0.5 if convention == "reference" else 0.0, vparams=vparams, model=model)
+
+
+def window_krige_plain(pack, P: int, tab, R: int, grid: RegularGrid, lons, lats, *, half: float, vparams, model: str):
+    """:func:`window_krige_ref` over the pack's (3, P) 'dx' table: the
+    ``cpu`` implementation of ``auvtpu_torch::window_krige``.  The solve is
+    ``ops.packs.kriging_from_select``'s; its fallback, ``masked_mean``,
+    with the sum of the four slots spelled out in the kernel's order."""
+    x, y, oob, ci, cj, cell, fx, fy = prologue(grid, lons, lats)
+    sel = _window_dict(select_ref(pack, P, cell, fx, fy, tab, mode="rows_n", k=4, half=half), x, y, oob, ci, cj, 4, R)
+    cx, cy = cell_centres(grid, ci, cj, sel["dx"], sel["dy"], half)
+    qlon, qlat = queries(grid, lons, lats)
+    val = sel["val"]
+    pred, singular = krige_solve_cols(qlon, qlat, [val[:, a] for a in range(4)], [cx[:, a] for a in range(4)],
+                                      [cy[:, a] for a in range(4)], KrigingConfig(), vparams=vparams, model=model)
+    ok = sel["slot_ok"]
+    v = torch.where(ok, val, torch.zeros_like(val))
+    total = ((v[:, 0] + v[:, 1]) + v[:, 2]) + v[:, 3]
+    cnt = ok.sum(dim=1)
+    fb = torch.where(cnt > 0, total / cnt.clamp(min=1), _nan_like(total))
+    res = torch.where(singular | (sel["found"] < 4), fb, pred)
+    return torch.where(oob, _nan_like(res), res)
+
+
+def window_krige_launch(pack, P: int, qlon, qlat, vario, taps, geo, num_lon: int, num_lat: int, model: str):
+    """One B12 launch: the ``cuda`` implementation of
+    ``auvtpu_torch::window_krige``.  ``taps`` (:func:`_window_krige_taps`)
+    and ``geo`` (:func:`_krige_geo`) are CPU tensors read on the host,
+    ``vario`` as for :func:`krige_launch`."""
+    name = "window_krige"
+    if model not in _MODELS:
+        raise ValueError(model)
+    dev = pack.device
+    _check(pack, P, 4, name, qlon, qlat)
+    M = taps.numel() // 2
+    if taps.numel() % 2 or M not in WINDOW_M or pack_width(M) != P or geo.numel() != 10:
+        raise ValueError(f"{name}: {taps.numel()} tap values for rows of {P} and {geo.numel()} grid scalars; want "
+                         f"2*M, M in {WINDOW_M}, and 10")
+    geo32 = _geo32(geo)  # held until the launch has read it
+    host_taps, host_geo = _host_floats(taps, name, "taps"), _host_floats(geo32, name, "grid scalars")
+    n = int(qlon.shape[0])
+    out = torch.empty((n,), dtype=torch.float32, device=dev)
+    if n == 0:
+        return out
+    ptrs, keep = _vario_pointers(vario, dev, name)
+    with torch.cuda.device(dev):
+        err = _lib().auvtpu_window_krige(
+            pack.data_ptr(), P, M, qlon.data_ptr(), qlat.data_ptr(), host_taps, n, num_lon, num_lat, host_geo,
+            _NO_VARIO, *ptrs, _MODELS[model], out.data_ptr(), _stream(dev),
+        )
+    del keep
+    _raise_on(err, name)
+    LAUNCHES[name] += 1
+    return out
+
+
+# ---------------------------------------------------------------------------
 # B7 wrappers: the select dict of ops.packs.packed_window_select
 # ---------------------------------------------------------------------------
 
-def window_select_fused(pack, grid: RegularGrid, lons, lats, *, k: int, window_radius: int = 2, convention: str = "reference"):
-    """Window top-k from a pack through the B7 mode of the kernel (drop-in
-    for ``ops.packs.packed_window_select``; ``pallas_window_select``).
-    Returns the same select dict: x, y, oob, ci, cj, val, d2, slot_ok,
-    found, dy, dx."""
-    offs = window_offsets(window_radius)
-    P = pack_width(len(offs))
-    R = window_radius
+def _window_dict(out, x, y, oob, ci, cj, k: int, R: int) -> dict:
+    """The select dict of ``ops.packs.packed_window_select`` from B7's
+    (N, 1+3k) rows, the dx-major codes decoded as
+    ``pallas_window_select`` decodes them."""
     B = 2 * R + 2
-    x, y, oob, ci, cj, cell, fx, fy = prologue(grid, lons, lats)
-    half = 0.5 if convention == "reference" else 0.0
-    out = select(pack, P, cell, fx, fy, table(offs, P, R, "dx", grid.device), mode="rows_n", k=k, half=half)
     found = out[:, 0].to(torch.int32)
     slot_ok = torch.arange(k, device=out.device)[None, :] < found[:, None]
     c_ = torch.clamp(out[:, 1 + 2 * k:1 + 3 * k], min=0.0)
@@ -642,11 +787,27 @@ def window_select_fused(pack, grid: RegularGrid, lons, lats, *, k: int, window_r
     }
 
 
+def window_select_fused(pack, grid: RegularGrid, lons, lats, *, k: int, window_radius: int = 2, convention: str = "reference"):
+    """Window top-k from a pack through the B7 mode of the kernel (drop-in
+    for ``ops.packs.packed_window_select``; ``pallas_window_select``).
+    Returns the same select dict: x, y, oob, ci, cj, val, d2, slot_ok,
+    found, dy, dx."""
+    offs = window_offsets(window_radius)
+    P = pack_width(len(offs))
+    R = window_radius
+    x, y, oob, ci, cj, cell, fx, fy = prologue(grid, lons, lats)
+    half = 0.5 if convention == "reference" else 0.0
+    out = select(pack, P, cell, fx, fy, table(offs, P, R, "dx", grid.device), mode="rows_n", k=k, half=half)
+    return _window_dict(out, x, y, oob, ci, cj, k, R)
+
+
 def packed_kriging_fused(pack, grid: RegularGrid, lons, lats, *, window_radius: int = 2, vparams=None, convention: str = "reference", model: str = "exponential"):
-    """Ordinary kriging with the selection in B7 (``pallas_packed_kriging``);
-    the 5x6 solve is the shared torch epilogue."""
-    sel = window_select_fused(pack, grid, lons, lats, k=4, window_radius=window_radius, convention=convention)
-    return kriging_from_select(grid, lons, lats, sel, vparams=vparams, convention=convention, model=model)
+    """Ordinary kriging over the radius-R window pack with B7's selection
+    and the solve in one kernel, B12 (``pallas_packed_kriging``): one launch
+    a call on the card."""
+    offs = _window(window_radius)
+    return window_krige(pack, pack_width(len(offs)), offs, window_radius, grid, lons, lats, convention=convention,
+                        vparams=vparams, model=model)
 
 
 def packed_idw_fused(pack, grid: RegularGrid, lons, lats, *, k: int = 8, power: float = 2.0, window_radius: int = 2, convention: str = "reference"):
@@ -654,3 +815,9 @@ def packed_idw_fused(pack, grid: RegularGrid, lons, lats, *, k: int = 8, power: 
     sel = window_select_fused(pack, grid, lons, lats, k=k, window_radius=window_radius, convention=convention)
     return idw_from_select(sel, power=power, eps=IDWConfig(k=k, power=power).eps)
 
+
+@lru_cache(maxsize=8)
+def _window(radius: int) -> tuple:
+    """``window_offsets(radius)`` as a tuple, made once: the per-call key of
+    the tap tables' caches."""
+    return tuple(window_offsets(radius))

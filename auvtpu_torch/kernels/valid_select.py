@@ -2,10 +2,12 @@
 (counterpart of :mod:`auvtpu.pallas.valid_select`).
 
 B5 writes lanes-major rows [cnt, k vals, (k d2), k codes, (resolved)]; B6
-folds the power-2 IDW sums into the selection and writes [sum w*v, sum w,
-(resolved)]; B11 is B5's top-4 with the 5x6 ordinary-kriging solve and its
+folds the power-2 IDW sums and their quotient into the selection and writes
+[value, (resolved)], where the JAX package runs an XLA epilogue after its
+kernel; B11 is B5's top-4 with the 5x6 ordinary-kriging solve and its
 fallbacks fused in, where the JAX package runs the XLA row epilogue after
-B5, and writes [prediction, (resolved)].  All three are kernels of
+B5, and writes [prediction, (resolved)].  B6 and B11 compute the query
+prologue in the kernel.  All three are kernels of
 :mod:`auvtpu_torch.kernels.scattered_select` (``csrc/scattered_select.cu``):
 
 - :func:`valid_select_t` (``valid_select_t``): the select dict over the
@@ -24,24 +26,13 @@ runs the kernel's plain version.
 
 from __future__ import annotations
 
-from functools import lru_cache
-
 import torch
 
-from ..config import IDWConfig
 from ..grid import RegularGrid
-from ..ops.packs import VALID16_OFFSETS, pack_width, window_offsets
-from ..ops.scattered import _nan_like
-from .scattered_select import prologue, select, select_krige, table
+from ..ops.packs import VALID16_OFFSETS, pack_width
+from .scattered_select import _window, idw_select, prologue, select, select_krige, table
 
 _VALID16 = tuple(VALID16_OFFSETS)
-
-
-@lru_cache(maxsize=8)
-def _window(radius: int) -> tuple:
-    """``window_offsets(radius)`` as a tuple, made once: the per-call key of
-    the tap tables' caches."""
-    return tuple(window_offsets(radius))
 
 
 def _select_rows(pack, P, offs, R, grid, lons, lats, *, emit_d2, k=4, half=0.5, resolve_thresh=None):
@@ -99,24 +90,13 @@ def packed_kriging_t(pack, grid: RegularGrid, lons, lats, *, window_radius: int 
 
 def packed_idw_t(pack, grid: RegularGrid, lons, lats, *, k: int = 8, window_radius: int = 2, convention: str = "reference", resolve_thresh=None):
     """k-nearest IDW with power 2 (w = 1/(d2+eps)) over the full radius-R
-    window pack, selection and weighted sums in B6 (``pallas_packed_idw_t``);
-    other powers take the torch packed path.  ``resolve_thresh`` as for
-    :func:`packed_kriging_t`."""
-    half = 0.5 if convention == "reference" else 0.0
+    window pack, the query prologue, the selection, the weighted sums and
+    their quotient in B6 (``pallas_packed_idw_t``); other powers take the
+    torch packed path.  ``resolve_thresh`` as for :func:`packed_kriging_t`."""
     offs = _window(window_radius)
-    P = pack_width(len(offs))
-    if not 1 <= k <= P:
-        raise ValueError(f"k must be in 1..{P}")
-    eps = IDWConfig(k=k).eps
-    x, y, oob, ci, cj, cell, fx, fy = prologue(grid, lons, lats)
-    out = select(
-        pack, P, cell, fx, fy, table(offs, P, window_radius, "dy", grid.device), mode="idw", k=k,
-        half=half, resolve_thresh=resolve_thresh, eps=eps,
-    )
-    num, den = out[0], out[1]
-    res = torch.where(den > 0, num / torch.clamp(den, min=eps), _nan_like(num))
-    res = torch.where(oob, _nan_like(res), res)
+    out = idw_select(pack, pack_width(len(offs)), offs, window_radius, grid, lons, lats, k=k, convention=convention,
+                     resolve_thresh=resolve_thresh)
     if resolve_thresh is None:
-        return res
-    resolved = out[2] > 0.5
-    return res, resolved, (~resolved).sum()
+        return out[0]
+    resolved = out[1] > 0.5
+    return out[0], resolved, (~resolved).sum()

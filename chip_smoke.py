@@ -76,23 +76,25 @@ streaming mosaic and scattered queries on the 3200x4000 Grid A, in phases:
             and cold (a 128 MB write before each launch), its wrapper and
             plain version, B4 vs plain at r0.20, the Grid B
             methods, streaming ingest and window refresh (fused and torch)
-12. B5-B11 the scattered select kernels vs their plain version on Grid A
+12. B5-B12 the scattered select kernels vs their plain version on Grid A
             (3200x4000 shelf + seamount, fully valid: valid16 and radius-2
             packs, B7 also at radius 1 and 3, k=4 and k=8) and on the
             stand-in r0.10, 1M numpy-seeded queries plus
             the tie queries, NaN, +-inf, +-1e30 and out-of-grid ones and
             the nodes and half-nodes of a 200x200-node corner, each:
-            rows, codes, d2, the resolved row and the IDW sums exactly
-            equal (NaN where plain has NaN); B11 (query prologue, top-4 and
-            kriging solve) bit for bit on the same queries: valid16 and
-            radius 2 with the resolved row, the four models with fitted
-            parameters on the card; the kernel paths' predictions vs the
-            torch packed paths at rtol=1e-5, atol=1e-4
+            rows, codes, d2 and the resolved row exactly equal (NaN where
+            plain has NaN); B6 (query prologue, IDW sums and quotient), B11
+            and B12 (query prologue, top-4 and kriging solve) bit for bit
+            on the same queries: B6 with and without the resolved row, B11
+            valid16 and radius 2 with the resolved row, B11 and B12 for the
+            four models with fitted parameters on the card; the kernel
+            paths' predictions vs the torch packed paths at rtol=1e-5,
+            atol=1e-4
 13. grid A  auvtpu_torch.cli.bench_grid_a on the default grid at 1e3, 1e5,
             1e6 and 5e6 queries (all four methods, --backend auto), then 1e6
             with --backend fused: every validation PASSED (5e-5 x scale);
-            launch counts show B11 and B6 (and no B5) under auto, B7 under
-            fused; valid_select_t (B5's entry point) at the 1M Grid A
+            launch counts show B11 and B6 (and no B5) under auto, B12 and
+            B7 under fused; valid_select_t (B5's entry point) at the 1M Grid A
             queries, launch counts zeroed around it;
             _normalize, lonlat_to_xy and ops.band._xy on the card equal to
             the CPU's bit for bit at the 1M phase-12 queries and the
@@ -105,18 +107,22 @@ streaming mosaic and scattered queries on the 3200x4000 Grid A, in phases:
             with unit steps
 15. timing  the select kernels alone (B6 and B7 also cold) and plain,
             their wrappers, B7's and B5's library call (torch.topk of the
-            d2 matrix) and the torch paths at 1M Grid A queries; B11 bit
-            for bit at 5M Grid A queries (valid16, radius 2 with the
-            resolved row; odd, node and half-node queries included), B11
+            d2 matrix) and the torch paths at 1M Grid A queries; B6, B11
+            and B12 bit for bit at 5M Grid A queries (B6 with and without
+            the resolved row, B11 valid16 and radius 2 with it, B12; odd,
+            node and half-node queries included); each packed_idw_t and
+            packed_kriging_fused call one CUDA kernel and no synchronising
+            call, their events and the torch prologue, epilogue and solve
+            they no longer run; B6 and B12 alone at 5M; B11
             alone at 1M and 5M (valid16 and radius 2), its bound, the
             row-gather floor (scripts/row_gather_probe.py) and the issue
             floor from its SASS instruction count, the resources of its
             builds on the main paths (registers, spills, resident blocks),
             its wrapper and plain version; kriging_valid_t's events and
             CUDA kernels a call at 1M and 5M beside the torch prologue it
-            no longer runs (B5-B7 still do); B1's SASS against its pinned
-            fingerprint; two-tier calls, the Grid A steady state per method
-            and batch
+            no longer runs (B5 and B7 still do); B1's and B11's SASS against
+            their pinned fingerprints; two-tier calls, the Grid A steady
+            state per method and batch
 16. B8      the band/atlas resample kernel vs its plain version on the
             stand-in r0.10, on lon/lat through the kernel's coordinate
             prologue, with a ragged last chunk: 5M pings of the band weave
@@ -329,6 +335,9 @@ B1_SOLVE_OPS = 340
 # (scripts/kernel_ab.py --only B1 holds its bits and SASS against another
 # version of the sources)
 B1_SASS_PIN = {"Build cuda_12.9.r12.9/compiler.36037853_0": (32, 52704, "3086def90a658781")}
+# B11's (kernels, instructions, digest) under that nvcc, as the commit
+# before B12 (700e4e5) built it
+B11_SASS_PIN = {"Build cuda_12.9.r12.9/compiler.36037853_0": (16, 30056, "4a3b70f0c40baa0a")}
 # f64 operations of B10 (exponential): ~53 a bin a step (the curve, its
 # Jacobian row, the normal-equation sums, the candidate's curve, SSE and
 # gamma move) and ~100 a step (six exps, the damped 3x3 LU solve, the clip,
@@ -862,9 +871,10 @@ def b7_launcher(pack, P: int, cell, fx, fy, tab, k: int, half: float = 0.5, lib=
     return launch
 
 
-def b6_launcher(pack, P: int, cell, fx, fy, tab, k: int, half: float = 0.5, lib=None):
+def b6_launcher(pack, P: int, tab, grid, lons, lats, k: int, half: float = 0.5, lib=None):
     """A closure launching B6 straight through its library (``lib``, or the
-    checkout's) on these inputs, output allocated once (the kernel alone)."""
+    checkout's) on these queries, output allocated once (the kernel alone,
+    the query prologue and the epilogue inside)."""
     import ctypes
 
     import torch
@@ -872,21 +882,21 @@ def b6_launcher(pack, P: int, cell, fx, fy, tab, k: int, half: float = 0.5, lib=
     from auvtpu_torch.config import IDWConfig
     from auvtpu_torch.kernels import scattered_select as ss
 
-    n = cell.numel()
-    cell32 = cell.to(torch.int32).contiguous()
-    fxy = torch.stack([fx, fy]).contiguous()
+    n = lons.numel()
     M, taps = ss._idw_taps(tab, P, half)
-    out = torch.empty((2, n), dtype=torch.float32, device=pack.device)
+    geo = ss._krige_geo(grid, "reference" if half else "centered").f32
+    out = torch.empty((1, n), dtype=torch.float32, device=pack.device)
     lib, stream = lib or ss._lib(), ss._stream(pack.device)
     tp_ = taps.ctypes.data_as(ctypes.POINTER(ctypes.c_float))
 
     def launch():
-        err = lib.auvtpu_idw_select(pack.data_ptr(), P, M, cell32.data_ptr(), fxy.data_ptr(), tp_, n, k, 0, 0.0,
-                                    IDWConfig(k=k).eps, out.data_ptr(), stream)
+        err = lib.auvtpu_idw_select(pack.data_ptr(), P, M, lons.data_ptr(), lats.data_ptr(), tp_, n, grid.num_lon,
+                                    grid.num_lat, geo.data_ptr(), k, 0, 0.0, IDWConfig(k=k).eps, out.data_ptr(),
+                                    stream)
         if err:
             raise RuntimeError(f"B6 launch failed ({err})")
 
-    launch.keep = (taps, cell32, fxy)
+    launch.keep = (taps, geo)
     return launch
 
 
@@ -1002,17 +1012,16 @@ def load_script(name: str):
 
 def select_cases(g, p16=None):
     """(kernel, pack, P, offsets, radius, mode, table layout, options) of the
-    select kernels at the main paths' settings: B5 as valid16 kriging (d2
-    rows too) and as the two-tier window kriging (resolved row), B6 as the
-    window IDW k=8 with the resolved row, B7 at k=4 and k=8 at window radius
-    1, 2 and 3.  Returns the radius-2 pack too."""
+    (cell, fx, fy) select kernels at the main paths' settings: B5 as valid16
+    kriging (d2 rows too) and as the two-tier window kriging (resolved
+    row), B7 at k=4 and k=8 at window radius 1, 2 and 3.  Returns the
+    radius-2 pack too."""
     from auvtpu_torch.ops import packs as tp
 
     packs = {r: (tp.window_offsets(r), *tp.build_pack(g, tp.window_offsets(r), clamp=False)) for r in (1, 2, 3)}
     offs, win, P = packs[2]
     cases = [
         ("select_rows", win, P, offs, 2, "rows_t", "dy", dict(k=4, resolve_thresh=4.0)),
-        ("idw_rows", win, P, offs, 2, "idw", "dy", dict(k=8, resolve_thresh=4.0)),
     ] + [("window_select_fused", packs[r][1], packs[r][2], packs[r][0], r, "rows_n", "dx", dict(k=k))
          for r in (2, 1, 3) for k in (4, 8)]
     if p16 is not None:
@@ -2169,7 +2178,7 @@ def main() -> int:
 
     # ---- 12. B5/B6/B7 vs their plain versions on Grid A and the stand-in
     from auvtpu_torch.cli import bench_grid_a
-    from auvtpu_torch.config import GRID_A_EXTENT, GRID_A_SHAPE, KERGUELEN_EXTENT
+    from auvtpu_torch.config import GRID_A_EXTENT, GRID_A_SHAPE, KERGUELEN_EXTENT, IDWConfig
     from auvtpu_torch.golden import GoldenGrid, GoldenV2
     from auvtpu_torch.grid import RegularGrid
     from auvtpu_torch.kernels import valid_select as vs
@@ -2182,7 +2191,8 @@ def main() -> int:
     qA = scattered_queries(GRID_A_EXTENT, *GRID_A_SHAPE, N_SCATTER, 7, dev)
     qK = scattered_queries(KERGUELEN_EXTENT, *SHAPE, N_SCATTER, 8, dev)
     p16 = tp.build_valid16_pack(gA)
-    sc_err = {"select_rows": 0.0, "idw_rows": 0.0, "window_select_fused": 0.0, "select_krige": 0.0}
+    sc_err = {"select_rows": 0.0, "idw_rows": 0.0, "window_select_fused": 0.0, "select_krige": 0.0,
+              "window_krige": 0.0}
     for label, g, (lo, la), p16_, ext, shape in (("Grid A", gA, qA, p16, GRID_A_EXTENT, GRID_A_SHAPE),
                                                  ("stand-in r0.10", grid, qK, None, KERGUELEN_EXTENT, SHAPE)):
         win, cases = select_cases(g, p16_)
@@ -2198,7 +2208,7 @@ def main() -> int:
             b = ss.select_ref(pack, P, cell, fx, fy, tab, mode=mode, **kw)
             torch.cuda.synchronize()
             sc_err[kname] = max(sc_err[kname], same_planes(a, b, f"{kname} {mode} {kw} radius {radius} at {label}"))
-            say("B5-B7", f"{label} radius {radius} P={P} {kname} ({mode}, {kw}): {tuple(a.shape)} exactly equal "
+            say("B5 B7", f"{label} radius {radius} P={P} {kname} ({mode}, {kw}): {tuple(a.shape)} exactly equal "
                 f"to plain, {odd[0].numel()} NaN/inf/1e30/out-of-grid/node/half-node queries included")
             del a, b
         # B11 on the same queries: the valid16 pack (Grid A's auto path), the
@@ -2220,10 +2230,34 @@ def main() -> int:
                 f"{tuple(a.shape)} bit-equal to plain, {odd[0].numel()} NaN/inf/1e30/out-of-grid/node/half-node "
                 f"queries included ({int(torch.isnan(a[0]).sum())} NaN)")
             del a, b
+        # B6 and B12 on the same queries: the window IDW (Grid A's and
+        # two-tier's, k=8, with and without the resolved row; every tap,
+        # centered) and the fused window kriging (the four models with
+        # fitted parameters on Grid A, the default on the stand-in)
+        for what, kw in (("k=8", dict(k=8)), ("k=8 resolved", dict(k=8, resolve_thresh=4.0)),
+                         ("k=25 centered", dict(k=25, convention="centered"))):
+            a = ss.idw_select(win, 32, offs2, 2, g, lo_o, la_o, **kw)
+            b = ss.idw_select_ref(win, 32, offs2, 2, g, lo_o, la_o, **kw)
+            torch.cuda.synchronize()
+            sc_err["idw_rows"] = max(sc_err["idw_rows"], same_planes(a, b, f"idw_select {what} at {label}"))
+            say("B6", f"{label} radius 2 idw_select {what}: {tuple(a.shape)} bit-equal to plain, {odd[0].numel()} "
+                f"NaN/inf/1e30/out-of-grid/node/half-node queries included ({int(torch.isnan(a[0]).sum())} NaN)")
+            del a, b
+        models = [(m, tuple(torch.tensor(v, device=dev) for v in MODEL_VPARAMS[m])) for m in MODEL_VPARAMS]
+        for model, vp in ([("exponential", None)] + (models if p16_ is not None else [])):
+            a = ss.window_krige(win, 32, offs2, 2, g, lo_o, la_o, model=model, vparams=vp)
+            b = ss.window_krige_ref(win, 32, offs2, 2, g, lo_o, la_o, model=model, vparams=vp)
+            torch.cuda.synchronize()
+            what = model + (" fitted" if vp is not None else "")
+            sc_err["window_krige"] = max(sc_err["window_krige"], same_planes(a, b, f"window_krige {what} at {label}"))
+            say("B12", f"{label} radius 2 window_krige {what}: {tuple(a.shape)} bit-equal to plain, "
+                f"{odd[0].numel()} NaN/inf/1e30/out-of-grid/node/half-node queries included "
+                f"({int(torch.isnan(a).sum())} NaN)")
+            del a, b
         pairs = [
             ("B11 packed_kriging_t", vs.packed_kriging_t(win, g, lo, la), tp.packed_kriging(win, g, lo, la)),
             ("B6 packed_idw_t", vs.packed_idw_t(win, g, lo, la), tp.packed_idw(win, g, lo, la)),
-            ("B7 packed_kriging_fused", ss.packed_kriging_fused(win, g, lo, la), tp.packed_kriging(win, g, lo, la)),
+            ("B12 packed_kriging_fused", ss.packed_kriging_fused(win, g, lo, la), tp.packed_kriging(win, g, lo, la)),
             ("B7 packed_idw_fused", ss.packed_idw_fused(win, g, lo, la), tp.packed_idw(win, g, lo, la)),
         ]
         if p16_ is not None:
@@ -2257,8 +2291,8 @@ def main() -> int:
         f"fused {launches_af}")
     if launches_a["select_krige"] < 1 or launches_a["idw_rows"] < 1 or launches_a["select_rows"]:
         raise AssertionError(f"B11 and B6 (and no B5) were not launched on the Grid A auto path: {launches_a}")
-    if launches_af["window_select_fused"] < 1:
-        raise AssertionError("B7 was not launched on the Grid A fused path")
+    if launches_af["window_select_fused"] < 1 or launches_af["window_krige"] < 1:
+        raise AssertionError(f"B7 (IDW) and B12 (kriging) were not launched on the Grid A fused path: {launches_af}")
     # B5's entry point: the valid16 select dict at the 1M Grid A queries
     p16 = tp.build_valid16_pack(gA)
     ss.reset_launches()
@@ -2352,6 +2386,7 @@ def main() -> int:
     # ---- 15. timing of the scattered slice: kernel alone and plain on the
     # phase-12 inputs, the wrappers, the Grid A CLI's steady state
     _, _, oobA, _, _, cellA, fxA, fyA = ss.prologue(gA, *qA)
+    offs2 = tp.window_offsets(2)
     p16 = tp.build_valid16_pack(gA)
     winA, _ = tp.build_pack(gA, tp.window_offsets(2), clamp=False)
     tab16 = ss.table(tp.VALID16_OFFSETS, 16, 2, "dy", dev)
@@ -2359,14 +2394,15 @@ def main() -> int:
     n_solved = float(((ss.select_ref(p16, 16, cellA, fxA, fyA, tab16, mode="rows_t", k=4)[0] == 4) & ~oobA).sum())
     tab32 = ss.table(tp.window_offsets(2), 32, 2, "dy", dev)
     tab32n = ss.table(tp.window_offsets(2), 32, 2, "dx", dev)
+    # the queries B12 solves: four found by B7's plain selection, in the grid
+    n_solved_w = float(((ss.select_ref(winA, 32, cellA, fxA, fyA, tab32n, mode="rows_n", k=4)[:, 0] == 4)
+                        & ~oobA).sum())
     sel_args = {
         "select_rows": (p16, 16, cellA, fxA, fyA, tab16, dict(mode="rows_t", k=4)),
-        "idw_rows": (winA, 32, cellA, fxA, fyA, tab32, dict(mode="idw", k=8)),
         "window_select_fused": (winA, 32, cellA, fxA, fyA, tab32n, dict(mode="rows_n", k=4)),
     }
-    names = {"select_rows": "select_kernel", "idw_rows": "idw_select_kernel",
-             "window_select_fused": "window_select_kernel"}
-    launchers = {"idw_rows": b6_launcher, "window_select_fused": b7_launcher}
+    names = {"select_rows": "select_kernel", "window_select_fused": "window_select_kernel"}
+    launchers = {"window_select_fused": b7_launcher}
     for kname, (pk, P, c_, x_, y_, t_, kw) in sel_args.items():
         ms[f"{kname} alone"] = device_ms(lambda: ss.select(pk, P, c_, x_, y_, t_, **kw), names[kname])
         if kname in launchers:
@@ -2392,7 +2428,65 @@ def main() -> int:
         say("B11", f"Grid A {q5[0].numel()} queries {what} select_krige ({kw}): {tuple(a_.shape)} bit-equal to "
             f"plain, {odd5[0].numel()} NaN/inf/1e30/out-of-grid/node/half-node queries included")
         del a_, b_
+    # B6 (with and without the resolved row) and B12 on the same queries
+    for kname, fn, ref, kw in (("idw_rows", ss.idw_select, ss.idw_select_ref, dict(k=8)),
+                               ("idw_rows", ss.idw_select, ss.idw_select_ref, dict(k=8, resolve_thresh=4.0)),
+                               ("window_krige", ss.window_krige, ss.window_krige_ref, {})):
+        a_ = fn(winA, 32, offs2, 2, gA, *q5, **kw)
+        b_ = ref(winA, 32, offs2, 2, gA, *q5, **kw)
+        torch.cuda.synchronize()
+        sc_err[kname] = max(sc_err[kname], same_planes(a_, b_, f"{fn.__name__} {kw} at 5M"))
+        say("B6 B12", f"Grid A {q5[0].numel()} queries radius 2 {fn.__name__} ({kw}): {tuple(a_.shape)} bit-equal "
+            f"to plain, {odd5[0].numel()} NaN/inf/1e30/out-of-grid/node/half-node queries included")
+        del a_, b_
     del q5, odd5
+    # B6 and B12 alone (device duration) at 1M and 5M, B6 also cold, their
+    # wrappers (the whole call: the kernel computes the query prologue) and
+    # plain versions at 1M
+    for kname, fn, ref, kern, kw in (("idw_rows", ss.idw_select, ss.idw_select_ref, "idw_select_kernel", dict(k=8)),
+                                     ("window_krige", ss.window_krige, ss.window_krige_ref, "window_krige_kernel",
+                                      {})):
+        for tag, q_ in (("", qA), (" 5M", qA5)):
+            ms[f"{kname}{tag} alone"] = device_ms(lambda: fn(winA, 32, offs2, 2, gA, *q_, **kw), kern)
+        ms[f"{kname} wrapper"] = time_ms(lambda: fn(winA, 32, offs2, 2, gA, *qA, **kw))
+        ms[f"{kname} plain"] = time_ms(lambda: ref(winA, 32, offs2, 2, gA, *qA, **kw), reps=5)
+        if kname == "idw_rows":
+            ms["idw_rows alone cold"] = device_ms(b6_launcher(winA, 32, tab32, gA, *qA, 8), kern, cold=True)
+        cold = f" ({ms['idw_rows alone cold']:.4f} cold)" if kname == "idw_rows" else ""
+        say("timing", f"Grid A {N_SCATTER} queries {kname:20s} kernel alone {ms[kname + ' alone']:.4f} ms{cold}, "
+            f"at 5M {ms[kname + ' 5M alone']:.4f} ms; wrapper {ms[kname + ' wrapper']:.4f} ms, plain "
+            f"{ms[kname + ' plain']:.4f} ms  [{card}]")
+    # each packed_idw_t and packed_kriging_fused call: one CUDA kernel
+    # (every record of 20 profiled calls its kernel's) and no synchronising
+    # call; its events, beside the torch prologue, B6's torch epilogue and
+    # the torch solve after B7 that they no longer run
+    nd = ss.select_ref(winA, 32, cellA, fxA, fyA, tab32, mode="idw", k=8)
+    eps8 = IDWConfig(k=8).eps
+    selA = ss.window_select_fused(winA, gA, *qA, k=4)
+    gone = {"the torch prologue": lambda: ss.prologue(gA, *qA),
+            "B6's torch epilogue": lambda: torch.where(oobA, float("nan"), torch.where(
+                nd[1] > 0, nd[0] / torch.clamp(nd[1], min=eps8), float("nan"))),
+            "the torch solve after B7 (kriging_from_select)": lambda: tp.kriging_from_select(gA, *qA, selA)}
+    for what, fn in gone.items():
+        n_k = sum(device_kernels(fn, reps=10).values()) / 10
+        ms[f"no longer run: {what}"] = time_ms(fn, reps=10)
+        say("timing", f"{N_SCATTER} Grid A queries, no longer run: {what} {ms[f'no longer run: {what}']:.4f} ms, "
+            f"{n_k:.1f} CUDA kernels  [{card}]")
+    del nd, selA
+    for name, kern in (("packed_idw_t", "idw_select_kernel"), ("packed_kriging_fused", "window_krige_kernel")):
+        for tag, q_ in (("1M", qA), ("5M", qA5)):
+            call = ((lambda: vs.packed_idw_t(winA, gA, *q_)) if name == "packed_idw_t"
+                    else (lambda: ss.packed_kriging_fused(winA, gA, *q_)))
+            kept = only_kernel(call, kern, f"{name} at {tag}")
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                call()
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+            ms[f"{name} {tag} events"] = time_ms(call, reps=20)
+            say("timing", f"one {name} call at {q_[0].numel()} queries: {ms[f'{name} {tag} events']:.4f} ms events, "
+                f"one CUDA kernel ({sum(kept.values())} {kern} records of 20 calls kept), no synchronising call  "
+                f"[{card}]")
     # B11 alone (device duration), its wrapper (the whole call: the kernel
     # computes the query prologue) and its plain version: valid16, Grid A's
     # auto path, and radius 2 with the resolved row, two-tier's; at 1M and 5M
@@ -2475,6 +2569,18 @@ def main() -> int:
         f"{b1_digest[2]}: " + ("equal to the pin" if pin is not None else f"no pin for {nvcc_v}, not compared")
         + "; bench builds: " + "; ".join(f"{k} {n_} instructions" for k, (n_, _) in sorted(b1_sass.items())
                                          if k.startswith("kriging_fill_kernel<0, 0, false")))
+    # B11 shares krige_solve.cuh and its query function with B12: its SASS
+    # must not move either
+    b11_sass = sass.sass_fingerprint(kbuild.library_path("scattered_select"), "select_krige_kernel")
+    b11_digest = sass.sass_digest(b11_sass)
+    pin = B11_SASS_PIN.get(nvcc_v)
+    if pin is not None and b11_digest != pin:
+        raise AssertionError(f"B11's SASS moved under {nvcc_v}: {b11_digest}, pinned {pin}; {b11_sass}")
+    say("B11", f"SASS of {b11_digest[0]} select_krige_kernel builds, {b11_digest[1]} instructions, digest "
+        f"{b11_digest[2]}: " + ("equal to the pin" if pin is not None else f"no pin for {nvcc_v}, not compared")
+        + "; B12's exponential builds: " + "; ".join(
+            f"{k} {n_} instructions" for k, (n_, _) in sorted(sass.sass_fingerprint(
+                kbuild.library_path("scattered_select"), "window_krige_kernel").items()) if k.endswith(", 0>")))
     # B7's library call: torch.topk of the (n, P) d2 matrix, made
     # beforehand as select_ref makes it (the selection alone, with no tie
     # order, no values and no codes)
@@ -2502,7 +2608,7 @@ def main() -> int:
         "packed_kriging_valid (torch)": lambda: tp.packed_kriging_valid(p16, gA, *qA),
         "packed_idw_t (B6)": lambda: vs.packed_idw_t(winA, gA, *qA),
         "packed_idw (torch)": lambda: tp.packed_idw(winA, gA, *qA),
-        "packed_kriging_fused (B7)": lambda: ss.packed_kriging_fused(winA, gA, *qA),
+        "packed_kriging_fused (B12)": lambda: ss.packed_kriging_fused(winA, gA, *qA),
         "packed_idw_fused (B7)": lambda: ss.packed_idw_fused(winA, gA, *qA),
         "packed_kriging (torch)": lambda: tp.packed_kriging(winA, gA, *qA),
         "prologue (_normalize, centre, fx, fy)": lambda: ss.prologue(gA, *qA),
@@ -2978,10 +3084,10 @@ def main() -> int:
     os.makedirs(art, exist_ok=True)
     ext_k = (grid.min_lon, grid.max_lon, grid.min_lat, grid.max_lat)
     counts_of = {"fill_kriging_fused": wf.LAUNCHES, "fill_idw_fused": wf.LAUNCHES, "fill_mean_fused": wf.LAUNCHES,
-                 "window_select_fused": ss.LAUNCHES, "band_resample": kb.LAUNCHES}
+                 "window_select_fused": ss.LAUNCHES, "window_krige": ss.LAUNCHES, "band_resample": kb.LAUNCHES}
     kernel_of = {"fill_kriging_fused": "kriging_fill_kernel", "fill_idw_fused": "fill_tile_kernel",
                  "fill_mean_fused": "fill_tile_kernel", "window_select_fused": "window_select_kernel",
-                 "band_resample": "band_resample_"}
+                 "window_krige": "window_krige_kernel", "band_resample": "band_resample_"}
     launches_sv = dict.fromkeys(counts_of, 0)
 
     def served(label, path, export, load, args, live, counter, want_launches):
@@ -3034,11 +3140,12 @@ def main() -> int:
            (grid2.elev, grid2.valid), lambda: fill_idw(grid2), "fill_idw_fused", 1)
     qK = scattered_queries(KERGUELEN_EXTENT, *SHAPE, N_SCATTER, 8, dev)
     win = tp.build_pack(grid, tp.window_offsets(2), clamp=False)[0]
-    for method, live_fn in (("kriging", lambda: ss.packed_kriging_fused(win, grid, *qK)),
-                            ("idw", lambda: ss.packed_idw_fused(win, grid, *qK, k=8))):
+    for method, live_fn, counter in (("kriging", lambda: ss.packed_kriging_fused(win, grid, *qK), "window_krige"),
+                                     ("idw", lambda: ss.packed_idw_fused(win, grid, *qK, k=8),
+                                      "window_select_fused")):
         served(f"scattered {method} 1M", os.path.join(art, f"scattered_{method}.pt2"),
                lambda p, m=method: serve.export_scattered(p, SHAPE, qK[0].numel(), extent=ext_k, method=m),
-               serve.load_exported_scattered, (win, grid.elev, grid.valid, *qK), live_fn, "window_select_fused", 1)
+               serve.load_exported_scattered, (win, grid.elev, grid.valid, *qK), live_fn, counter, 1)
     del win
     lparams, lw, ld = learned.load_params(os.path.join(REPO, "results", "learned_mid_atlantic_w16d2.npz"))
     served("learned w16 d2 bf16", os.path.join(art, "learned.pt2"),
@@ -3352,8 +3459,14 @@ def main() -> int:
         # this fully valid grid), B1's solve
         "select_krige": bound(nq * (8 + 16 * 4 + 4),
                               nq * (8 * 16 + 2 * 4 * 16) + n_solved * B1_SOLVE_OPS),
-        # B6 reads 25 taps of each 32-float row: 112 B, four 32-byte sectors
-        "idw_rows": bound(nq * (32 * 4 + 12 + 2 * 4), nq * (8 * 25 + 2 * 8 * 25 + 4 * 8)),
+        # B6 reads the query's lon and lat and 25 taps of each 32-float row
+        # (112 B, four 32-byte sectors), writes the value (the prologue and
+        # the quotient are in the kernel)
+        "idw_rows": bound(nq * (8 + 32 * 4 + 4), nq * (8 * 25 + 2 * 8 * 25 + 4 * 8)),
+        # B12 likewise reads the lon and lat and the row, writes the
+        # prediction; B7's selection at k=4 and, where four were found in
+        # the grid, B1's solve
+        "window_krige": bound(nq * (8 + 32 * 4 + 4), nq * (8 * 25 + 2 * 4 * 25) + n_solved_w * B1_SOLVE_OPS),
         # B7 likewise reads 25 taps of each row and scans them
         "window_select_fused": bound(nq * (32 * 4 + 12 + (1 + 3 * 4) * 4), nq * (8 * 25 + 2 * 4 * 25)),
     })
@@ -3375,7 +3488,8 @@ def main() -> int:
                                 b10_steps["exponential"] * (B10_BIN_OPS * gam_s.numel() + B10_STEP_OPS))
     say("bounds", "; ".join(f"{k} {v[0] * 1e3:.2f} us ({v[1]})" for k, v in bounds.items())
         + f"; rows scanned per cell: k=4 {s4 / n:.3f}, k=8 {s8 / n:.3f} (r0.20), k=4 {s4_bench / n:.3f} (r0.10); "
-        f"select kernels at {int(nq)} Grid A queries, {int(n_solved)} of them solved by B11")
+        f"select kernels at {int(nq)} Grid A queries, {int(n_solved)} of them solved by B11, {int(n_solved_w)} by "
+        f"B12")
 
     rows_ = [
         ("fill_kriging_fused", "auvtpu/pallas/window_fill.py:648",
@@ -3415,8 +3529,13 @@ def main() -> int:
          launches_af["window_select_fused"] + launches_sv["window_select_fused"],
          sc_err["window_select_fused"], ms["window_select_fused alone"], ms["window_select_fused wrapper"],
          ms["window_select_fused plain"]),
+        # B12 replaces B7 with the XLA kriging_from_select after it
+        ("window_krige", "auvtpu/pallas/scattered_select.py:212",
+         launches_af["window_krige"] + launches_sv["window_krige"],
+         sc_err["window_krige"], ms["window_krige alone"], ms["window_krige wrapper"],
+         ms["window_krige plain"]),
     ]
-    for k in ("select_rows", "idw_rows", "window_select_fused", "select_krige"):
+    for k in ("select_rows", "idw_rows", "window_select_fused", "select_krige", "window_krige"):
         src[k] = "auvtpu_torch/csrc/scattered_select.cu"
     rows_.append(("band_resample", "auvtpu/pallas/band_resample.py:43",
                   launches_m["band_resample"] + launches_sv["band_resample"] + launches_p["band_resample"],

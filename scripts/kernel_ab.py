@@ -93,6 +93,10 @@ EARLIER = {
             "const void* pack, int P, const void* cell, const void* fxy, const void* tab, int n, int k, int mode, "
             "int emit_d2, float half, int has_resolve, float resolve_thresh, float eps, void* out, void* stream",
             [P, I, P, P, P, I, I, I, I, F, I, F, F, P, P])},
+    "auvtpu_idw_select": {"700e4e5": (
+        "const void* pack, int P, int M, const void* cell, const void* fxy, const float* taps, int n, int k, "
+        "int has_resolve, float resolve_thresh, float eps, void* out, void* stream",
+        [P, I, I, P, P, P, I, I, I, F, F, P, P])},
     "auvtpu_topk_full": {"c5e5ecf": (
         "const void* nanp, const void* tab, int m, int H, int W, int R, int k, void* out, void* stream",
         [P, P, I, I, I, I, I, P, P])},
@@ -151,6 +155,26 @@ def b1_earlier(lib, grid, R: int, stream):
         lib.auvtpu_kriging_fill(nanp.data_ptr(), tab.data_ptr(), tab.shape[0], H, W, R, par.data_ptr(), 0, 0, 0,
                                 out.data_ptr(), stream)
 
+    return launch
+
+
+def b6_cells_launcher(lib, pack, P: int, cell, fx, fy, tab, k: int, stream):
+    """B6 of 700e4e5 and before, which took the torch prologue's cell
+    index and (fx, fy) and wrote the sums (2, n); output allocated once."""
+    n = cell.numel()
+    cell32 = cell.to(torch.int32).contiguous()
+    fxy = torch.stack([fx, fy]).contiguous()
+    M, taps = ss._idw_taps(tab, P, 0.5)
+    out = torch.empty((2, n), dtype=torch.float32, device=pack.device)
+    tp_ = taps.ctypes.data_as(ctypes.POINTER(ctypes.c_float))
+
+    def launch():
+        err = lib.auvtpu_idw_select(pack.data_ptr(), P, M, cell32.data_ptr(), fxy.data_ptr(), tp_, n, k, 0, 0.0,
+                                    1e-12, out.data_ptr(), stream)
+        if err:
+            raise RuntimeError(f"B6 launch failed ({err})")
+
+    launch.keep = (taps, cell32, fxy)
     return launch
 
 
@@ -382,10 +406,13 @@ def main() -> int:
                       select_launcher(ss._lib(), "this", p16, 16, cellA, fxA, fyA, tab16, 0, 4, stream),
                       "select_kernel"))
     if "B6" in only:
-        old_b6 = (cs.b6_launcher(winA, 32, cellA, fxA, fyA, tab32, 8, lib=lib_ss) if ifc["B6"] == "this"
+        # since the commit after 700e4e5 B6 takes the queries (the prologue
+        # in the kernel); before, the torch prologue's planes
+        old_b6 = (cs.b6_launcher(winA, 32, tab32, gA, *qA, 8, lib=lib_ss) if ifc["B6"] == "this"
+                  else b6_cells_launcher(lib_ss, winA, 32, cellA, fxA, fyA, tab32, 8, stream) if ifc["B6"] == "700e4e5"
                   else select_launcher(lib_ss, ifc["B5"], winA, 32, cellA, fxA, fyA, tab32, 1, 8, stream))
         cases.append(("Grid A 1M B6 radius 2 k=8", old_b6, "select_kernel",
-                      cs.b6_launcher(winA, 32, cellA, fxA, fyA, tab32, 8), "idw_select_kernel"))
+                      cs.b6_launcher(winA, 32, tab32, gA, *qA, 8), "idw_select_kernel"))
     for k in (4, 8) if "B7" in only else ():
         old_b7 = (cs.b7_launcher(winA, 32, cellA, fxA, fyA, tab32n, k, lib=lib_ss) if ifc["B7"] == "this"
                   else select_launcher(lib_ss, ifc["B5"], winA, 32, cellA, fxA, fyA, tab32n, 2, k, stream))

@@ -17,10 +17,13 @@ this, this, other) in one call.  The inputs are chip_smoke.py's: B1
 (``fill_idw_fused``, k=8) on r0.20, B7 (``window_select_fused``, k=4) at 1M
 stand-in queries, B8 (``BandResampler.resample``) at 5M pings of the band
 weave, B2 (``topk_full``, k=4) on r0.10, B4 (``topk_idx``, k=4) on r0.20;
-B5 (``valid_select_t``), B6 (``packed_idw_t``) and B11
-(``kriging_valid_t``, ``packed_kriging_t`` with the resolved row) at 1M
-uniform queries on the Grid A grid, and B5's and B6's ``select`` call alone
-on the prologue's cells and offsets.  Each call is timed alone on the host clock, with a device sync
+B5 (``valid_select_t``), B6 (``packed_idw_t``), B11
+(``kriging_valid_t``, ``packed_kriging_t`` with the resolved row) and B12
+(``packed_kriging_fused``; B7 and the torch solve in a checkout before
+B12) at 1M uniform queries on the Grid A grid, B5's ``select`` call alone
+on the prologue's cells and offsets, and B6's kernel call alone (on the
+queries, ``idw_select``, where B6 computes the prologue; else ``select``
+on the prologue's cells and offsets).  Each call is timed alone on the host clock, with a device sync
 every 8 calls so the queue never fills.  The window refresh is
 ``StreamingInterpolator.window_fill`` (256x256 IDW, R=5, one B3 launch) on a
 mosaic of the r0.20 stand-in's observed cells, its plane copied to the host
@@ -34,13 +37,18 @@ on chip_smoke.py's Grid A grid at 1e3 and its 1M and 5M uniform queries: events,
 device-busy time, host time a call and the CUDA kernels a call; the Grid A
 CLI's steady kriging at 5M (``bench_grid_a``, no validation); and two-tier
 kriging (``TwoTierInterpolator.kriging``, its auto backend) at 1M stand-in
-queries on r0.10, by events.  ``--only`` takes a comma list of
-``wrappers``, ``refresh``, ``tick``, ``fit_fill`` and ``kriging`` (all but
-``kriging`` by default), ``hostprof``: with ``wrappers``, a ``cProfile``
-of B5's, B6's and B11's calls to stderr, and ``dispatch``: the op layer's
-own cost, each of B2, B4, B5, B6 and B11 through its op against its
-ctypes launch called directly, in one process (:func:`dispatch_us`; a
-checkout whose five kernels are ops).  Prints the quartiles (wrapper calls,
+queries on r0.10, by events.  ``scattered`` is the same for Grid A IDW
+through B6 (``packed_idw_t``) and fused kriging (``packed_kriging_fused``)
+at 1e3, 1M and 5M queries, the CLI's steady IDW (``--backend auto``) at
+1e3 and 5M and fused kriging (``--backend fused``) at 1M, and two-tier IDW
+at 1M stand-in queries.  ``--only`` takes a comma list of
+``wrappers``, ``refresh``, ``tick``, ``fit_fill``, ``kriging`` and
+``scattered`` (all but the last two by default), ``hostprof``: with
+``wrappers``, a ``cProfile`` of B5's, B6's and B11's calls to stderr, and
+``dispatch``: the op layer's own cost, each of B2, B4, B5, B6 and B11 (and
+B12 where the checkout has it) through its op against its ctypes launch
+called directly, in one process (:func:`dispatch_us`; a checkout whose
+five kernels are ops).  Prints the quartiles (wrapper calls,
 refreshes, fit_fill's host time) or p50/p99 (ticks) as one JSON line, with
 the card's name and power limit.
 """
@@ -133,6 +141,50 @@ def kriging_ms(dev, grid) -> dict:
     return out
 
 
+def scattered_ms(dev, grid) -> dict:
+    """Grid A IDW through B6 and fused kriging at 1e3, 1M and 5M queries
+    (events, device-busy time, host time a call, CUDA kernels a call), the
+    CLI's steady IDW at 1e3 and 5M and fused kriging at 1M, and two-tier
+    IDW at 1M stand-in queries on r0.10 (events)."""
+    import torch
+
+    from auvtpu_torch.cli import bench_grid_a
+    from auvtpu_torch.config import GRID_A_EXTENT, GRID_A_SHAPE, KERGUELEN_EXTENT
+    from auvtpu_torch.grid import RegularGrid
+    from auvtpu_torch.kernels import scattered_select as ss
+    from auvtpu_torch.kernels import valid_select as vs
+    from auvtpu_torch.ops import TwoTierInterpolator
+    from auvtpu_torch.ops import packs as tp
+    from auvtpu_torch.synthetic import shelf_seamount
+
+    cs = smoke_module()
+    gA = RegularGrid.dense(shelf_seamount(*GRID_A_SHAPE), GRID_A_EXTENT, device=dev)
+    win = tp.StencilPack(gA).window
+    out = {}
+    for n, seed in ((1_000, 5), (1_000_000, 7), (5_000_000, 9)):
+        q = cs.scattered_queries(GRID_A_EXTENT, *GRID_A_SHAPE, n, seed, dev)
+        for name, call in (("packed_idw_t", lambda: vs.packed_idw_t(win, gA, *q)),
+                           ("packed_kriging_fused", lambda: ss.packed_kriging_fused(win, gA, *q))):
+            out[f"{name} {n}"] = {
+                "events_ms": cs.time_ms(call, reps=50), "device_busy_ms": cs.device_busy_ms(call, reps=5),
+                "host_us_q25_q50_q75": host_us(call, reps=200),
+                "kernels_a_call": sum(cs.device_kernels(call, reps=10).values()) / 10}
+    results = os.path.join(ROOT, "results_local", "op_overhead_grid_a.csv")
+    os.makedirs(os.path.dirname(results), exist_ok=True)
+    base = ["--results", results, "--machine", "H100", "--no-validate"]
+    cli = bench_grid_a.main(base + ["--methods", "IDW", "--batch-sizes", "1000", "5000000"])
+    for (_, n), v in cli.items():
+        out[f"cli idw {n} steady_ms"] = v["steady_ms"]
+    cli = bench_grid_a.main(base + ["--methods", "Kriging", "--backend", "fused", "--batch-sizes", "1000000"])
+    out["cli fused kriging 1000000 steady_ms"] = next(v["steady_ms"] for v in cli.values())
+    tt = TwoTierInterpolator(grid)
+    qK = cs.scattered_queries(KERGUELEN_EXTENT, *grid.shape, 1_000_000, 8, dev)
+    out["two-tier idw 1000000 events_ms"] = cs.time_ms(lambda: tt.idw(*qK), reps=10)
+    del gA, win
+    torch.cuda.empty_cache()
+    return out
+
+
 def select_wrappers_us(dev, profile: bool = False) -> dict:
     """Host microseconds a call of B5, B6 and B11 on chip_smoke.py's Grid A
     grid at its 1M uniform queries: the public wrappers (B5's and B6's
@@ -160,10 +212,14 @@ def select_wrappers_us(dev, profile: bool = False) -> dict:
         "B11 kriging_valid_t 1M": lambda: vs.kriging_valid_t(p16, gA, *q),
         "B11 packed_kriging_t resolve 1M": lambda: vs.packed_kriging_t(win, gA, *q, resolve_thresh=4.0),
         "B6 packed_idw_t 1M": lambda: vs.packed_idw_t(win, gA, *q),
+        "B12 packed_kriging_fused 1M": lambda: ss.packed_kriging_fused(win, gA, *q),
         "B5 valid_select_t 1M": lambda: vs.valid_select_t(p16, gA, *q),
         "B5 select rows_t 1M": lambda: ss.select(p16, 16, cell, fx, fy, t16, mode="rows_t", k=4, emit_d2=True),
-        "B6 select idw 1M": lambda: ss.select(win, 32, cell, fx, fy, t32, mode="idw", k=8, eps=eps),
     }
+    if hasattr(ss, "idw_select"):  # B6 on the queries, the prologue in the kernel
+        calls["B6 idw_select 1M"] = lambda: ss.idw_select(win, 32, offs, 2, gA, *q, k=8)
+    else:
+        calls["B6 select idw 1M"] = lambda: ss.select(win, 32, cell, fx, fy, t32, mode="idw", k=8, eps=eps)
     out = {name: host_us(fn) for name, fn in calls.items()}
     if profile:
         for name, fn in calls.items():
@@ -202,6 +258,8 @@ def dispatch_us(dev, blocks: int = 40, per_block: int = 100) -> dict:
     offs = tuple(tp.window_offsets(2))
     t16, t32 = ss.table(tp.VALID16_OFFSETS, 16, 2, "dy", dev), ss.table(offs, 32, 2, "dy", dev)
     idw_taps = ss._taps(t32, 32, 0.5, "dy")
+    queries_in = hasattr(ss, "idw_select")  # B6 (and B12) on the queries, the prologue in the kernel
+    geo = ss._krige_geo(gA, "reference")
     krige = (p16, t16, q[0], q[1], library.variogram_tensors(None, q[0]),
              ss._krige_taps(tuple(map(tuple, tp.VALID16_OFFSETS)), 16, 2)[1], ss._krige_geo(gA, "reference"))
     routes = {
@@ -211,13 +269,23 @@ def dispatch_us(dev, blocks: int = 40, per_block: int = 100) -> dict:
                         lambda: wf.topk_idx_launch(g.elev, g.valid, 4, 10, "reference")),
         "B5 valid_select": (lambda: library.valid_select(p16, cell, fx, fy, t16, 16, 4, True, 0.5, None),
                             lambda: ss.rows_launch(p16, 16, cell, fx, fy, t16, 4, True, 0.5, None)),
-        "B6 idw_select": (lambda: library.idw_select(win, cell, fx, fy, t32, idw_taps, 32, 8, 0.5, None, 1e-12),
-                          lambda: ss.idw_launch(win, 32, cell, fx, fy, idw_taps, 8, None, 1e-12)),
+        "B6 idw_select": ((lambda: library.idw_select(win, t32, *q, idw_taps, geo, 32, gA.num_lon, gA.num_lat, 8,
+                                                      None, 1e-12),
+                           lambda: ss.idw_launch(win, 32, *q, idw_taps, geo, gA.num_lon, gA.num_lat, 8, None, 1e-12))
+                          if queries_in else
+                          (lambda: library.idw_select(win, cell, fx, fy, t32, idw_taps, 32, 8, 0.5, None, 1e-12),
+                           lambda: ss.idw_launch(win, 32, cell, fx, fy, idw_taps, 8, None, 1e-12))),
         "B11 select_krige": (lambda: library.select_krige(*krige, 16, 2, gA.num_lon, gA.num_lat, "exponential",
                                                           None),
                              lambda: ss.krige_launch(krige[0], 16, *krige[2:], gA.num_lon, gA.num_lat,
                                                      "exponential", None)),
     }
+    if queries_in:  # B12, in a checkout that has it
+        wk = (win, ss.table(offs, 32, 2, "dx", dev), q[0], q[1], library.variogram_tensors(None, q[0]),
+              ss._window_krige_taps(offs, 32, 2), geo)
+        routes["B12 window_krige"] = (
+            lambda: library.window_krige(*wk, 32, 2, gA.num_lon, gA.num_lat, "exponential"),
+            lambda: ss.window_krige_launch(wk[0], 32, *wk[2:], gA.num_lon, gA.num_lat, "exponential"))
 
     def block(fn) -> float:
         # each call alone on the host clock, the syncs outside it: the
@@ -278,7 +346,7 @@ def main() -> int:
     p = argparse.ArgumentParser(description=__doc__, formatter_class=argparse.RawDescriptionHelpFormatter)
     p.add_argument("--repo", default=ROOT, help="the checkout whose auvtpu_torch is timed")
     p.add_argument("--label", default=None)
-    p.add_argument("--only", default="wrappers,refresh,tick,fit_fill", help="the parts to time (or kriging)")
+    p.add_argument("--only", default="wrappers,refresh,tick,fit_fill", help="the parts to time (also kriging, scattered, dispatch, hostprof)")
     args = p.parse_args()
     only = set(args.only.split(","))
     sys.path.insert(0, os.path.abspath(args.repo))
@@ -340,6 +408,8 @@ def main() -> int:
     res["host_us_q25_q50_q75"] = out
     if "kriging" in only:
         res["kriging"] = kriging_ms(dev, grid)
+    if "scattered" in only:
+        res["scattered"] = scattered_ms(dev, grid)
     if "dispatch" in only:
         res["dispatch"] = dispatch_us(dev)
     if "tick" in only:

@@ -1,7 +1,8 @@
-"""B2, B4, B5, B6 and B11 as ``torch.library`` custom ops, on the CPU.
+"""B2, B4, B5, B6, B11 and B12 as ``torch.library`` custom ops, on the CPU.
 
 Each op (``auvtpu_torch::topk_full``, ``::topk_idx``, ``::valid_select``,
-``::idw_select``, ``::select_krige``) passes ``torch.library.opcheck``
+``::idw_select``, ``::select_krige``, ``::window_krige``) passes
+``torch.library.opcheck``
 (schema, fake tensor, AOT dispatch) on small inputs; every public entry
 that launches one of these kernels on a card goes through its op (a
 logging dispatch mode sees it once) and returns, bit for bit and NaN where
@@ -40,6 +41,7 @@ H, W = 24, 20
 EXT = Extent(0.0, W - 1.0, 0.0, H - 1.0)
 KERNELS = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "auvtpu_torch", "kernels")
 OPS = ("topk_full", "topk_idx", "valid_select", "idw_select", "select_krige")
+CHECKED = OPS + ("window_krige",)
 
 
 def _grid(kind: str = "masked") -> RegularGrid:
@@ -99,30 +101,37 @@ def _op_args(name: str):
     offs = tp.window_offsets(2)
     pack = tp.StencilPack(g).window
     tab = ss.table(offs, 32, 2, "dy", "cpu")
-    if name == "idw_select":
-        return (pack, cell, fx, fy, tab, ss._NO_TAPS, 32, 8, 0.5, 4.0, IDWConfig().eps)
-    # queries inside the grid: opcheck holds NaN unequal to NaN, and B11
-    # writes NaN outside it
+    # queries inside the grid: opcheck holds NaN unequal to NaN, and B6, B11
+    # and B12 write NaN outside it (B6 and B12 also where no tap is found:
+    # the grid's fill keeps a tap in every window of these queries)
     qlon, qlat = lons[6:].clamp(0.0, W - 1.0).contiguous(), lats[6:].clamp(0.0, H - 1.0).contiguous()
-    return (pack, tab, qlon, qlat, [library.variogram_tensor((0.5, 80.0, 12.0), qlon)], ss._NO_TAPS,
-            ss._krige_geo(g, "reference"), 32, 2, W, H, "spherical", 4.0)
+    geo = ss._krige_geo(g, "reference")
+    if name == "idw_select":
+        return (pack, tab, qlon, qlat, ss._NO_TAPS, geo, 32, W, H, 8, 4.0, IDWConfig().eps)
+    vario = [library.variogram_tensor((0.5, 80.0, 12.0), qlon)]
+    if name == "window_krige":
+        return (pack, ss.table(offs, 32, 2, "dx", "cpu"), qlon, qlat, vario, ss._NO_TAPS, geo, 32, 2, W, H,
+                "spherical")
+    return (pack, tab, qlon, qlat, vario, ss._NO_TAPS, geo, 32, 2, W, H, "spherical", 4.0)
 
 
-@pytest.mark.parametrize("name", OPS)
+@pytest.mark.parametrize("name", CHECKED)
 def test_opcheck(name):
-    torch.library.opcheck(getattr(library, name), _op_args(name))
+    args = _op_args(name)
+    if name in ("idw_select", "window_krige"):
+        assert not bool(torch.isnan(getattr(library, name)(*args)).any())
+    torch.library.opcheck(getattr(library, name), args)
 
 
 def _entries():
     """(entry name, op it must run, call, the plain version called
-    directly): each public entry of the five kernels on one CPU grid."""
+    directly): each public entry of the six kernels on one CPU grid."""
     g, gv = _grid(), _grid("valid")
     lons, lats = _queries()
     p16 = tp.build_valid16_pack(gv)
     win = tp.StencilPack(g).window
     offs, thresh = tp.window_offsets(2), 4.0
     vp = tuple(torch.tensor(v) for v in (0.5, 80.0, 12.0))  # fitted parameters, three 0-d tensors
-    eps = IDWConfig(k=8).eps
 
     return [
         ("kriging_valid_t", "select_krige", lambda: vs.kriging_valid_t(p16, gv, lons, lats),
@@ -142,9 +151,15 @@ def _entries():
          lambda: (lambda o: (o[0], o[1] > 0.5))(
              ss.select_krige_ref(win, 32, offs, 2, g, lons, lats, convention="centered", resolve_thresh=thresh))),
         ("packed_idw_t resolve", "idw_select",
-         lambda: vs.packed_idw_t(win, g, lons, lats, k=8, resolve_thresh=thresh),
-         lambda cell, fx, fy, tab, taps, P, k, half, resolve, e: ss.select_ref(
-             win, P, cell, fx, fy, tab, mode="idw", k=k, half=half, resolve_thresh=resolve, eps=eps)),
+         lambda: vs.packed_idw_t(win, g, lons, lats, k=8, resolve_thresh=thresh)[:2],
+         lambda: (lambda o: (o[0], o[1] > 0.5))(ss.idw_select_ref(win, 32, offs, 2, g, lons, lats, k=8,
+                                                                  resolve_thresh=thresh))),
+        ("packed_idw_t centered k=3", "idw_select",
+         lambda: vs.packed_idw_t(win, g, lons, lats, k=3, convention="centered"),
+         lambda: ss.idw_select_ref(win, 32, offs, 2, g, lons, lats, k=3, convention="centered")[0]),
+        ("packed_kriging_fused fitted gaussian", "window_krige",
+         lambda: ss.packed_kriging_fused(win, g, lons, lats, vparams=vp, model="gaussian"),
+         lambda: ss.window_krige_ref(win, 32, offs, 2, g, lons, lats, vparams=vp, model="gaussian")),
         ("valid_select_t", "valid_select", lambda: vs.valid_select_t(p16, gv, lons, lats),
          lambda cell, fx, fy, tab, P, k, emit_d2, half, resolve: ss.select_ref(
              p16, P, cell, fx, fy, tab, mode="rows_t", k=k, emit_d2=emit_d2, half=half, resolve_thresh=resolve)),
@@ -165,7 +180,7 @@ def _flat(x) -> list:
     return [t for v in x for t in _flat(v)]
 
 
-@pytest.mark.parametrize("entry", range(10), ids=[e[0] for e in _entries()])
+@pytest.mark.parametrize("entry", range(12), ids=[e[0] for e in _entries()])
 def test_entry_runs_its_op_and_equals_the_plain_version(entry):
     label, op, call, plain = _entries()[entry]
     wf.reset_launches()
@@ -173,7 +188,7 @@ def test_entry_runs_its_op_and_equals_the_plain_version(entry):
     with _Log() as log:
         got = call()
     assert [c[0] for c in log.calls] == [op], (label, log.calls)
-    if op in ("idw_select", "valid_select"):
+    if op == "valid_select":
         # the op's rows against the kernel's plain version on the same inputs
         _, args, out = log.calls[0]
         got, want = out, plain(*args[1:])
@@ -231,8 +246,8 @@ INF_LONS, INF_LATS = [6.5, 3.25], [5.5, 9.75]
 
 
 def _nan_cases():
-    """The two NaNs a kernel makes from no NaN: B11 at a query outside the
-    grid (it writes NaN as 'no data'), and B6 at a query on the centre of a
+    """The NaNs a kernel makes from no NaN: B11 and B12 at a query outside
+    the grid (they write NaN as 'no data'), and B6 at a query on the centre of a
     tap holding 1e27 beside a tap holding -inf: w = 1/(0 + eps) = 1e12, so
     w*v overflows to +inf, and +inf - inf is NaN.  (A +inf in the pack
     itself reads as the sentinel, no tap, so +inf enters the sums only as
@@ -244,10 +259,12 @@ def _nan_cases():
                                                      torch.tensor([4.5, 2.0]))),
         ("idw_select", lambda: vs.packed_idw_t(tp.StencilPack(gi).window, gi, torch.tensor(INF_LONS),
                                                torch.tensor(INF_LATS), k=8)),
+        ("window_krige", lambda: ss.packed_kriging_fused(tp.StencilPack(g).window, g, torch.tensor([3.25, W + 5.0]),
+                                                         torch.tensor([4.5, 2.0]))),
     ]
 
 
-@pytest.mark.parametrize("case", [0, 1], ids=["select_krige", "idw_select"])
+@pytest.mark.parametrize("case", [0, 1, 2], ids=["select_krige", "idw_select", "window_krige"])
 def test_debug_mode_names_the_op_that_made_a_nan(case):
     op, call = _nan_cases()[case]
     out = call()
@@ -330,7 +347,7 @@ def test_every_launch_lies_in_an_ops_cuda_implementation():
     # each launching function is called from one place: the CUDA
     # implementation (a function registered with _op) in library.py
     sites = _launch_sites()
-    assert len({s[2] for s in sites}) == 11, sites  # B1-B11, one C entry each
+    assert len({s[2] for s in sites}) == 12, sites  # B1-B12, one C entry each
     lib_tree = ast.parse(open(os.path.join(KERNELS, "library.py")).read())
     cuda_impls = {kw.value.id for node in ast.walk(lib_tree)
                   if isinstance(node, ast.Call) and getattr(node.func, "id", "") == "_op"

@@ -109,7 +109,9 @@ def test_export_scattered_equals_live(tmp_path, method):
     ext = (0.0, 47.0, 0.0, 39.0)
     path = str(tmp_path / "s.pt2")
     assert serve.export_scattered(path, (40, 48), 500, extent=ext, method=method, device="cpu") > 0
-    assert serve.read_meta(path)["ops"] == ["auvtpu_torch::window_select"]
+    # kriging: B12, B7's selection and the solve in one op; idw: B7
+    op = "window_krige" if method == "kriging" else "window_select"
+    assert serve.read_meta(path)["ops"] == [f"auvtpu_torch::{op}"]
     got = serve.load_exported_scattered(path)(sp.window, g.elev, g.valid, lons, lats)
     if method == "kriging":
         want = ss.packed_kriging_fused(sp.window, g, lons, lats)

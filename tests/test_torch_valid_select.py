@@ -1,9 +1,13 @@
-"""The CPU wrappers of the scattered select kernel (its plain version)
+"""The CPU wrappers of the scattered select kernels (their plain versions)
 against the JAX package's Pallas kernels in interpret mode: B5
 (``valid_select_t``, ``pallas_kriging_valid``, ``pallas_packed_kriging_t``),
-B6 (``pallas_packed_idw_t``) and B7 (``pallas_window_select``), on masked
-and fully valid grids, window radius 2 and 3, both conventions, fitted
-variogram parameters and the two-tier resolved row.
+B6 (``pallas_packed_idw_t``), B7 (``pallas_window_select``) and B12
+(``pallas_packed_kriging``), on masked and fully valid grids, window radius
+2 and 3, both conventions, fitted variogram parameters and the two-tier
+resolved row.  B6's and B12's plain versions, which the kernels with the
+query prologue inside follow op for op, are also held bit for bit to the
+compositions they replace (the torch prologue, the selection, the torch
+epilogue or solve).
 
 Selection decisions (counts, values, codes, offsets, the resolved mask)
 are exactly equal.  d2 and the IDW sums agree at rtol 1e-6: XLA:CPU may
@@ -19,7 +23,7 @@ from auvtpu.config import Extent as JExtent
 from auvtpu.grid import RegularGrid as JGrid
 from auvtpu.masking import mask_grid
 from auvtpu.ops import packs as jp
-from auvtpu.pallas import pallas_kriging_valid, pallas_packed_idw_t, pallas_packed_kriging_t, pallas_window_select, valid_select_t as j_valid_select_t
+from auvtpu.pallas import pallas_kriging_valid, pallas_packed_idw_t, pallas_packed_kriging, pallas_packed_kriging_t, pallas_window_select, valid_select_t as j_valid_select_t
 from auvtpu.pallas.valid_select import _select_rows as j_select_rows
 from auvtpu.synthetic import shelf_seamount
 from jax.experimental.pallas import tpu as pltpu
@@ -104,21 +108,123 @@ def test_b5_b6_rows_and_predictions(queries, masked, radius, convention):
     assert torch.equal(torch.nan_to_num(plain, nan=-1.0), torch.nan_to_num(k_res, nan=-1.0))
 
 
+def _nan_equal(got, want):
+    assert got.shape == want.shape and got.dtype == want.dtype
+    assert torch.equal(torch.nan_to_num(got, nan=-7.0), torch.nan_to_num(want, nan=-7.0))
+
+
+def _idw_composition(pack, P, offs, R, g, lons, lats, *, k, half, resolve_thresh):
+    """B6 as the port ran it before the kernel took the prologue and the
+    epilogue: the torch prologue, the (cell, fx, fy) selection's plain sums,
+    the torch quotient and NaNs."""
+    _, _, oob, _, _, cell, fx, fy = ss.prologue(g, lons, lats)
+    eps = 1e-12
+    rows = ss.select_ref(pack, P, cell, fx, fy, ss.table(offs, P, R, "dy", "cpu"), mode="idw", k=k, half=half,
+                         resolve_thresh=resolve_thresh, eps=eps)
+    res = torch.where(rows[1] > 0, rows[0] / torch.clamp(rows[1], min=eps), float("nan"))
+    res = torch.where(oob, float("nan"), res)
+    return torch.stack([res] + ([rows[2]] if resolve_thresh is not None else []))
+
+
 @pytest.mark.parametrize("masked", [True, False], ids=["masked", "valid"])
 def test_b6_sums_match_pallas(queries, masked):
+    # B6's op (the kernel's plain version on the CPU) at k 1, 8 and 32:
+    # bit-equal to the composition it replaces, within the bars of
+    # pallas_packed_idw_t
     jg, g = _grids(masked)
     lons, lats = queries
     offs = tp.window_offsets(2)
     pack = tp.build_pack(g, offs, clamp=False)[0]
-    _, _, _, _, _, cell, fx, fy = ss.prologue(g, lons, lats)
     for k in (1, 8, 32):
-        got = ss.select(pack, 32, cell, fx, fy, ss.table(offs, 32, 2, "dy", "cpu"), mode="idw", k=k)
+        got = ss.idw_select(pack, 32, offs, 2, g, lons, lats, k=k)
+        _nan_equal(got, _idw_composition(pack, 32, offs, 2, g, lons, lats, k=k, half=0.5, resolve_thresh=None))
         with _interp():
             want = pallas_packed_idw_t(jp.build_pack(jg, offs, clamp=False)[0], jg, lons, lats, k=k, tile_n=TILE)
-        num, den = got
-        res = torch.where(den > 0, num / torch.clamp(den, min=1e-12), float("nan"))
-        res = torch.where(ss.prologue(g, lons, lats)[2], float("nan"), res)
-        _close(res, want)
+        _close(got[0], want)
+
+
+@pytest.fixture(scope="module")
+def odd_queries(queries):
+    """The module's queries after NaN, +-inf and out-of-grid ones."""
+    nan, inf = float("nan"), float("inf")
+    lo = np.array([nan, 4.0, nan, inf, -inf, 4.0, 4.0, -5.0, W + 5.0, -0.6, W - 0.4], np.float32)
+    la = np.array([4.0, nan, nan, 4.0, 4.0, inf, -inf, 7.0, 9.0, -0.6, H - 0.4], np.float32)
+    return np.concatenate([lo, queries[0]]), np.concatenate([la, queries[1]])
+
+
+@pytest.mark.parametrize("masked", [True, False], ids=["masked", "valid"])
+@pytest.mark.parametrize("radius,convention", [(2, "reference"), (2, "centered"), (3, "reference")])
+@pytest.mark.parametrize("thresh", [None, 4.0], ids=["plain", "resolve"])
+def test_b6_idw_select_matches_its_composition_and_pallas(odd_queries, masked, radius, convention, thresh):
+    # idw_select (the op's plain version, in the kernel's op order) on
+    # grid-line, NaN, +-inf and out-of-grid queries, k 1, 8 and 32: bit-equal
+    # to the torch composition before it; against pallas_packed_idw_t the
+    # resolved masks, the unresolved counts and the NaN patterns exactly
+    # equal, values within the bars
+    jg, g = _grids(masked)
+    lons, lats = odd_queries
+    offs = tp.window_offsets(radius)
+    P = tp.pack_width(len(offs))
+    pack, jpack = tp.build_pack(g, offs, clamp=False)[0], jp.build_pack(jg, offs, clamp=False)[0]
+    half = 0.5 if convention == "reference" else 0.0
+    for k in (1, 8, 32):
+        got = ss.idw_select(pack, P, offs, radius, g, lons, lats, k=k, convention=convention, resolve_thresh=thresh)
+        assert got.shape == (1 + int(thresh is not None), len(lons))
+        _nan_equal(got, _idw_composition(pack, P, offs, radius, g, lons, lats, k=k, half=half, resolve_thresh=thresh))
+        _nan_equal(got, ss.idw_select_ref(pack, P, offs, radius, g, lons, lats, k=k, convention=convention,
+                                          resolve_thresh=thresh))
+        assert bool(torch.isnan(got[0, :7]).all())  # NaN and +-inf queries: no slot, or out of the grid
+        kw = dict(k=k, window_radius=radius, convention=convention, resolve_thresh=thresh)
+        wrapped = vs.packed_idw_t(pack, g, lons, lats, **kw)
+        with _interp():
+            want = pallas_packed_idw_t(jpack, jg, lons, lats, tile_n=TILE, **kw)
+        if thresh is None:
+            _nan_equal(wrapped, got[0])
+            _close(wrapped, want)
+        else:
+            _nan_equal(wrapped[0], got[0])
+            np.testing.assert_array_equal(wrapped[1].numpy(), np.asarray(want[1]))
+            assert int(wrapped[2]) == int(want[2])
+            _close(wrapped[0], want[0])
+
+
+B12_MODELS = [("exponential", (1.0, 100.0, 10.0)), ("linear", (1.0, 5.0, 10.0)),
+              ("spherical", (0.5, 80.0, 12.0)), ("gaussian", (2.0, 150.0, 6.0))]
+
+
+@pytest.mark.parametrize("masked", [True, False], ids=["masked", "valid"])
+@pytest.mark.parametrize("radius,convention", [(2, "reference"), (2, "centered"), (3, "reference")])
+def test_b12_window_krige_matches_its_composition_and_pallas(odd_queries, masked, radius, convention):
+    # window_krige (B12's op, its plain version on the CPU) for the four
+    # models with fitted parameters (0-d tensors, as a fit returns them):
+    # bit-equal to kriging_from_select over window_select_fused, the torch
+    # path it replaces; against pallas_packed_kriging the NaN pattern
+    # exactly equal (a NaN query answers NaN: no tap found), values within
+    # the bars
+    jg, g = _grids(masked)
+    lons, lats = odd_queries
+    offs = tp.window_offsets(radius)
+    P = tp.pack_width(len(offs))
+    sp, jsp = tp.StencilPack(g, window_radius=radius), jp.StencilPack(jg, window_radius=radius)
+    sel = ss.window_select_fused(sp.window, g, lons, lats, k=4, window_radius=radius, convention=convention)
+    with _interp():
+        jsel = pallas_window_select(jsp.window, jg, lons, lats, k=4, window_radius=radius, convention=convention,
+                                    tile_n=TILE)
+    np.testing.assert_array_equal(sel["found"].numpy(), np.asarray(jsel["found"]))
+    for model, vp in B12_MODELS:
+        vpt = tuple(torch.tensor(v) for v in vp)
+        got = ss.window_krige(sp.window, P, offs, radius, g, lons, lats, convention=convention, vparams=vpt,
+                              model=model)
+        _nan_equal(got, tp.kriging_from_select(g, lons, lats, sel, vparams=vpt, convention=convention, model=model))
+        _nan_equal(got, ss.window_krige_ref(sp.window, P, offs, radius, g, lons, lats, convention=convention,
+                                            vparams=vp, model=model))
+        _nan_equal(ss.packed_kriging_fused(sp.window, g, lons, lats, window_radius=radius, vparams=vpt,
+                                           convention=convention, model=model), got)
+        assert bool(torch.isnan(got[:7]).all())  # NaN and +-inf queries
+        with _interp():
+            want = pallas_packed_kriging(jsp.window, jg, lons, lats, window_radius=radius, vparams=vp,
+                                         convention=convention, model=model, tile_n=TILE)
+        _close(got, want)
 
 
 def test_b5_valid16(queries):
