@@ -20,6 +20,11 @@ the device's implementation):
   ``window_select_kernel``), ``auvtpu_torch::select_krige`` (B11,
   ``select_krige_kernel``) and ``auvtpu_torch::window_krige`` (B12,
   ``window_krige_kernel``), the scattered-query selections;
+- ``auvtpu_torch::exact_dense`` and ``::exact_dense_krige`` (B13,
+  ``csrc/exact_select.cu`` ``dense_kernel``: the two-tier dense pass, with
+  the table solve) and ``auvtpu_torch::exact_ring`` and
+  ``::exact_ring_krige`` (B14, ``ring_kernel``: the strict selection, with
+  the table solve), exact mode's selections;
 - ``auvtpu_torch::band_resample`` (B8, ``csrc/band_resample.cu``);
 - ``auvtpu_torch::pair_sums`` (B9, ``csrc/variogram.cu``, the binned
   variogram pair sums) and ``auvtpu_torch::fit_model`` (B10, the
@@ -38,9 +43,10 @@ Its ``CUDA`` implementation is the ctypes launch (with the launch count,
 the checks and the errors it always had), its ``CPU`` implementation the
 kernel's plain version, and its fake implementation gives the output's
 shape and dtype for tracing.  The wrappers in :mod:`.window_fill`,
-:mod:`.scattered_select`, :mod:`.valid_select`, :mod:`.band_resample` and
-:mod:`.variogram` call these ops and launch no kernel themselves, so a live
-call, an exported program and a call under debug mode take one route.
+:mod:`.scattered_select`, :mod:`.valid_select`, :mod:`.band_resample`,
+:mod:`.variogram` and :mod:`.exact_select` call these ops and launch no
+kernel themselves, so a live call, an exported program and a call under
+debug mode take one route.
 
 Importing this module registers the ops and builds nothing; a program
 loaded with ``torch.export.load`` needs it imported first.
@@ -406,6 +412,111 @@ window_krige = _op(
     "window_krige(Tensor pack, Tensor tab, Tensor qlon, Tensor qlat, Tensor[] vario, Tensor taps, Tensor geo, "
     "int P, int R, int num_lon, int num_lat, str model) -> Tensor",
     cpu=_window_krige_cpu, cuda=_window_krige_cuda, fake=_window_krige_fake)
+
+
+# ---------------------------------------------------------------------------
+# B13: exact mode's two-tier dense pass at the query cells flat_q, with the
+# aligned queries' cells flat_a and (2, P_a) float32 residue keys:
+# exact_dense gives (found, tie, vals (4, P), dgi, dgj (4, P) int64),
+# exact_dense_krige (pred (P,) float64, tie) with the lattice tables gpair
+# and gq.  B14: the strict ring selection of (N,) int64 anchors, keyed by
+# (variant, f32 ex, ey) or, with no variant, the f64 coordinates (x, y):
+# exact_ring gives (found, sel_val (N, 4), sel_gi, sel_gj), exact_ring_krige
+# the (N,) float64 table-solve predictions with offsets from (qcol, qrow).
+# chunk bounds the plain versions' temporaries; the kernels ignore it.
+# ---------------------------------------------------------------------------
+
+def _dense_cpu(elev, valid, flat_a, keys, flat_q, max_radius):
+    from .exact_select import dense_select_ref
+
+    return dense_select_ref(elev, valid, flat_a, keys, flat_q, max_radius)
+
+
+def _dense_cuda(elev, valid, flat_a, keys, flat_q, max_radius):
+    from .exact_select import dense_launch
+
+    return dense_launch(elev, valid, flat_a, keys, flat_q, None, None, max_radius)
+
+
+def _dense_fake(elev, valid, flat_a, keys, flat_q, max_radius):
+    n = flat_q.shape[0]
+    return (flat_q.new_empty(n, dtype=torch.int32), flat_q.new_empty(n, dtype=torch.bool), elev.new_empty((4, n)),
+            flat_q.new_empty((4, n), dtype=torch.int64), flat_q.new_empty((4, n), dtype=torch.int64))
+
+
+exact_dense = _op(
+    "exact_dense(Tensor elev, Tensor valid, Tensor flat_a, Tensor keys, Tensor flat_q, int max_radius) "
+    "-> (Tensor, Tensor, Tensor, Tensor, Tensor)",
+    cpu=_dense_cpu, cuda=_dense_cuda, fake=_dense_fake)
+
+
+def _dense_krige_cpu(elev, valid, flat_a, keys, flat_q, gpair, gq, max_radius):
+    from .exact_select import dense_krige_ref
+
+    return dense_krige_ref(elev, valid, flat_a, keys, flat_q, gpair, gq, max_radius)
+
+
+def _dense_krige_cuda(elev, valid, flat_a, keys, flat_q, gpair, gq, max_radius):
+    from .exact_select import dense_launch
+
+    return dense_launch(elev, valid, flat_a, keys, flat_q, gpair, gq, max_radius)
+
+
+def _dense_krige_fake(elev, valid, flat_a, keys, flat_q, gpair, gq, max_radius):
+    n = flat_q.shape[0]
+    return flat_q.new_empty(n, dtype=torch.float64), flat_q.new_empty(n, dtype=torch.bool)
+
+
+exact_dense_krige = _op(
+    "exact_dense_krige(Tensor elev, Tensor valid, Tensor flat_a, Tensor keys, Tensor flat_q, Tensor gpair, "
+    "Tensor gq, int max_radius) -> (Tensor, Tensor)",
+    cpu=_dense_krige_cpu, cuda=_dense_krige_cuda, fake=_dense_krige_fake)
+
+
+def _ring_cpu(elev, valid, ci, cj, k0, k1, variant, max_radius, chunk):
+    from .exact_select import ring_select_ref
+
+    return ring_select_ref(elev, valid, ci, cj, k0, k1, variant, max_radius, chunk)
+
+
+def _ring_cuda(elev, valid, ci, cj, k0, k1, variant, max_radius, chunk):
+    from .exact_select import ring_launch
+
+    return ring_launch(elev, valid, ci, cj, k0, k1, variant, None, None, None, None, max_radius)
+
+
+def _ring_fake(elev, valid, ci, cj, k0, k1, variant, max_radius, chunk):
+    n = ci.shape[0]
+    return (ci.new_empty(n, dtype=torch.int32), elev.new_empty((n, 4)), ci.new_empty((n, 4), dtype=torch.int32),
+            ci.new_empty((n, 4), dtype=torch.int32))
+
+
+exact_ring = _op(
+    "exact_ring(Tensor elev, Tensor valid, Tensor ci, Tensor cj, Tensor k0, Tensor k1, Tensor? variant, "
+    "int max_radius, int chunk) -> (Tensor, Tensor, Tensor, Tensor)",
+    cpu=_ring_cpu, cuda=_ring_cuda, fake=_ring_fake)
+
+
+def _ring_krige_cpu(elev, valid, ci, cj, variant, ex, ey, qcol, qrow, gpair, gq, max_radius, chunk):
+    from .exact_select import ring_krige_ref
+
+    return ring_krige_ref(elev, valid, ci, cj, variant, ex, ey, qcol, qrow, gpair, gq, max_radius, chunk)
+
+
+def _ring_krige_cuda(elev, valid, ci, cj, variant, ex, ey, qcol, qrow, gpair, gq, max_radius, chunk):
+    from .exact_select import ring_launch
+
+    return ring_launch(elev, valid, ci, cj, ex, ey, variant, qcol, qrow, gpair, gq, max_radius)
+
+
+def _ring_krige_fake(elev, valid, ci, cj, variant, ex, ey, qcol, qrow, gpair, gq, max_radius, chunk):
+    return ci.new_empty(ci.shape[0], dtype=torch.float64)
+
+
+exact_ring_krige = _op(
+    "exact_ring_krige(Tensor elev, Tensor valid, Tensor ci, Tensor cj, Tensor variant, Tensor ex, Tensor ey, "
+    "Tensor qcol, Tensor qrow, Tensor gpair, Tensor gq, int max_radius, int chunk) -> Tensor",
+    cpu=_ring_krige_cpu, cuda=_ring_krige_cuda, fake=_ring_krige_fake)
 
 
 # ---------------------------------------------------------------------------

@@ -41,6 +41,13 @@ grid's device, so the JAX package's ``_require_x64`` check has no
 counterpart and its f32 variant of exact mode is not ported; an f32 solve
 would shift regional MAE by ~2e-3 m, above the published tables' 5e-5.  Query preparation is host numpy, as in the JAX
 package; every function returns host numpy arrays.
+
+On the card the strict selection (both key families) is one launch of B14
+(:mod:`auvtpu_torch.kernels.exact_select`, one thread per query); the
+(N, M) torch functions here (:func:`_select_chunk`,
+:func:`_select_chunk_scattered`, :func:`_swap_passes`) are its plain
+version, which the CPU runs in chunks.  The coordinate-form solve, the
+Catmull-Rom and the bilinear stay torch on every device.
 """
 
 from __future__ import annotations
@@ -266,13 +273,21 @@ def _select_chunk(grid: RegularGrid, tb, ci, cj, variant, ex_key, ey_key):
 
 def _select_cells(grid: RegularGrid, q: ExactQueries, idx, max_radius: int, chunk: int):
     """The strict selection of queries ``q`` (at host indices ``idx``, all if
-    None) on the grid's device: (found, sel_val, sel_gi, sel_gj) tensors."""
-    tb = _device_tables(max_radius, grid.device)
+    None) on the grid's device, through B14 (:func:`_select_chunk` in chunks
+    of ``chunk`` on the CPU): (found, sel_val, sel_gi, sel_gj) tensors."""
+    from ..kernels.exact_select import ring_select
+
+    ci, cj, variant, ex, ey = _cell_keys(grid, q, idx)
+    return ring_select(grid, ci, cj, ex, ey, variant, max_radius=max_radius, chunk=chunk)
+
+
+def _cell_keys(grid: RegularGrid, q: ExactQueries, idx):
+    """(ci, cj int64, variant int32, ex_key, ey_key f32) of queries ``q`` (at
+    host indices ``idx``, all if None) on the grid's device."""
     cols = [q.ci, q.cj, q.variant, q.ex_key, q.ey_key]
     if idx is not None:
         cols = [a[idx] for a in cols]
-    args = [_on(grid, a) for a in cols]
-    return _chunked(lambda *a: _select_chunk(grid, tb, *a), len(cols[0]), chunk, *args)
+    return (_on(grid, cols[0], torch.int64), _on(grid, cols[1], torch.int64), *(_on(grid, a) for a in cols[2:]))
 
 
 def exact_select_at_cells(grid: RegularGrid, rows, cols, *, max_radius: int = 10, chunk: int = 16384, anchor: str = "round"):
@@ -447,9 +462,14 @@ def _prepare_scattered(grid: RegularGrid, lons, lats, anchor: str):
 
 
 def _select_scattered(grid: RegularGrid, ci, cj, x, y, max_radius: int, chunk: int):
-    tb = _device_tables(max_radius, grid.device)
-    args = [_on(grid, ci), _on(grid, cj), _on(grid, x), _on(grid, y)]
-    return _chunked(lambda *a: _select_chunk_scattered(grid, tb, *a), len(ci), chunk, *args)
+    """The strict selection of scattered queries at f64 grid coordinates
+    (x, y) with anchors (ci, cj), through B14 (:func:`_select_chunk_scattered`
+    in chunks of ``chunk`` on the CPU): (found, sel_val, sel_gi, sel_gj)
+    tensors."""
+    from ..kernels.exact_select import ring_select
+
+    return ring_select(grid, _on(grid, ci, torch.int64), _on(grid, cj, torch.int64), _on(grid, x, _F64),
+                       _on(grid, y, _F64), None, max_radius=max_radius, chunk=chunk)
 
 
 def exact_kriging_scattered(grid: RegularGrid, lons, lats, *, max_radius: int = 10, chunk: int = 16384):

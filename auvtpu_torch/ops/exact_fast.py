@@ -29,8 +29,14 @@ f64 tables over the selection lattice (41x41 pairwise, 21x21 query): every
 distance of a cell-aligned query is a lattice quantity, so the solve needs
 no exp or sqrt.  The table ignores the ~1e-12 coordinate residue inside
 gamma (~1e-9 m); the residue still decides the selection through T.
-The table solve runs on the device's (P,) arrays in one pass, with only
-the (N,) predictions (and the tie flags) read back.
+
+On the card the dense pass, its extraction and the table solve are one
+launch of B13 (:mod:`auvtpu_torch.kernels.exact_select`, one thread per
+query cell: the planes are only ever read there), and the escalated cells
+one launch of B14 with the same solve; the host reads back the tie flags
+(to choose the escalated cells) and the (N,) predictions.  The torch
+functions here (:func:`_dense_select`, :func:`_extract_q`,
+:func:`_solve_table`) are the kernels' plain versions, which the CPU runs.
 """
 
 from __future__ import annotations
@@ -45,6 +51,7 @@ from ..config import KrigingConfig
 from ..grid import RegularGrid
 from .exact import (
     _F64,
+    _cell_keys,
     _device_tables,
     _fallback_mean,
     _krige_at,
@@ -185,17 +192,25 @@ def _aligned(q, rows, cols):
     return (q.ci == cols) & (q.cj == rows) & (q.variant == 0) & ~q.oob
 
 
-def _dense_at(grid: RegularGrid, q, rows, cols, max_radius: int):
-    """The dense pass over the grid and its planes at the query cells:
-    (found, tie, vals, dgi, dgj) tensors and the host ``aligned`` mask."""
+def _dense_inputs(grid: RegularGrid, q, rows, cols):
+    """The dense pass's operands on the grid's device: the aligned queries'
+    cells (P_a,) and residue keys (2, P_a), every query's cell clipped to
+    the plane (P,), and the host ``aligned`` mask."""
     H, W = grid.shape
     aligned = _aligned(q, rows, cols)
     flat_np = rows * W + cols
-    count_p, tie_p, ln_p = _dense_select(
-        grid.valid, _on(grid, flat_np[aligned]), _on(grid, q.ex_key[aligned]), _on(grid, q.ey_key[aligned]),
-        max_radius=max_radius)
-    flat_q = _on(grid, np.clip(flat_np, 0, H * W - 1))
-    return (*_extract_q(count_p, tie_p, ln_p, grid.elev, flat_q, max_radius=max_radius), aligned)
+    keys = np.stack([q.ex_key[aligned], q.ey_key[aligned]])
+    return _on(grid, flat_np[aligned]), _on(grid, keys), _on(grid, np.clip(flat_np, 0, H * W - 1)), aligned
+
+
+def _dense_at(grid: RegularGrid, q, rows, cols, max_radius: int):
+    """The dense pass at the query cells through B13 (:func:`_dense_select`
+    and :func:`_extract_q` on the CPU): (found, tie, vals, dgi, dgj) tensors
+    and the host ``aligned`` mask."""
+    from ..kernels.exact_select import dense_select
+
+    flat_a, keys, flat_q, aligned = _dense_inputs(grid, q, rows, cols)
+    return (*dense_select(grid, flat_a, keys, flat_q, max_radius=max_radius), aligned)
 
 
 def exact_select_at_cells_fast(grid: RegularGrid, rows, cols, *, max_radius: int = 10, chunk: int = 16384):
@@ -248,6 +263,14 @@ def _gamma_tables(lon_step: float, lat_step: float, vg: tuple, model: str, max_r
     dq = np.arange(-r, r + 1, dtype=np.float64) + 0.5
     gq = vf(np.hypot(dq[None, :] * lon_step, dq[:, None] * lat_step))
     return np.asarray(gpair, np.float64), np.asarray(gq, np.float64)
+
+
+def _reference_tables(grid: RegularGrid, max_radius: int):
+    """:func:`_gamma_tables` of the reference's variogram at the grid's
+    steps, on the grid's device."""
+    v = KrigingConfig().variogram
+    tabs = _gamma_tables(grid.lon_step, grid.lat_step, (v.nugget, v.sill, v.range), "exponential", max_radius)
+    return tuple(_on(grid, t) for t in tabs)
 
 
 def _krige_rows_table(vals, dgi, dgj, gpair, gq, max_radius: int):
@@ -313,23 +336,21 @@ def exact_kriging_at_cells_fast(
         return _exact_kriging_coords(grid, rows, cols, max_radius=max_radius, chunk=chunk)
     if solve != "table":
         raise ValueError(solve)
+    from ..kernels.exact_select import dense_krige, ring_krige
+
     q = prepare_exact_queries(grid, rows, cols, anchor="round")
     rows = np.asarray(rows, np.int64)
     cols = np.asarray(cols, np.int64)
-    found, tie, vals, dgi, dgj, aligned = _dense_at(grid, q, rows, cols, max_radius)
-    cfg = KrigingConfig()
-    vg = (cfg.variogram.nugget, cfg.variogram.sill, cfg.variogram.range)
-    gpair, gq = (_on(grid, t) for t in _gamma_tables(grid.lon_step, grid.lat_step, vg, "exponential", max_radius))
-    out = _solve_table(found, vals, dgi, dgj, gpair, gq, max_radius)
+    flat_a, keys, flat_q, aligned = _dense_inputs(grid, q, rows, cols)
+    gpair, gq = _reference_tables(grid, max_radius)
+    out, tie = dense_krige(grid, flat_a, keys, flat_q, gpair, gq, max_radius=max_radius)
 
     esc = (tie.cpu().numpy() | ~aligned) & ~q.oob
     if esc.any():
         idx = np.nonzero(esc)[0]
-        f2, v2, gi2, gj2 = _select_cells(grid, q, idx, max_radius, chunk)
-        filled = torch.arange(4, device=grid.device)[None, :] < f2.clamp(max=4)[:, None]
-        dgi2 = torch.where(filled, gi2.long() - _on(grid, cols[idx])[:, None], 0).T
-        dgj2 = torch.where(filled, gj2.long() - _on(grid, rows[idx])[:, None], 0).T
-        out[_on(grid, idx)] = _solve_table(f2, v2.T, dgi2, dgj2, gpair, gq, max_radius)
+        qcol, qrow = _on(grid, cols[idx]), _on(grid, rows[idx])
+        out[_on(grid, idx)] = ring_krige(grid, *_cell_keys(grid, q, idx), qcol, qrow, gpair, gq,
+                                         max_radius=max_radius, chunk=chunk)
     out = out.cpu().numpy()
     return np.where(q.oob, np.nan, out)
 

@@ -157,20 +157,29 @@ streaming mosaic and scattered queries on the 3200x4000 Grid A, in phases:
             router's COST_NS, and the calibrated router's decisions on a
             4096-query random batch (packed) and the prepared 5M band (band)
 
-19. exact  exact mode, f64 (no kernel: plain torch on the card): on the
+19. exact  exact mode, f64, through B13 (the two-tier dense pass with its
+            table solve) and B14 (the strict ring selection): on the
             stand-in r0.10 two-tier kriging (table solve), cubic and
             bilinear at the JAX package's pins (tools/jax_reference_pins.py:
             metrics within 1e-9 m, the prediction sum within 1e-9 m a cell,
             the finite count and two-tier's escalated count equal), strict
             kriging within 1e-8 m of two-tier with NaN in the same places;
+            launch counts zeroed before these calls show B13 and B14 ran,
+            and one B13 launch a dense call; B13 (both builds) and B14
+            (cell-aligned at both anchors, scattered, and with the solve)
+            bit-equal to their plain versions on the 501,137 stand-in cells,
+            a 256x320 grid with 0.5 % of cells observed (no cell stops
+            before ring 10) and 1e5 scattered Grid A queries;
             on 256x320 shelf + seamount grids with awkward decimals at
-            removal 0.1/0.5/0.9 the strict selection equal to
+            removal 0.1/0.5/0.9 the same, the strict selection equal to
             GoldenGrid._ring_select (found, values, ordered gi/gj) and every
             exact prediction within 1e-9 m of the golden engine; bench_grid_b
             --selection exact (tiers two and strict) at the pinned RMSEs and
             bench_grid_a --selection exact at 1e3 and 1e5 queries, every
             golden validation passed at 1e-9; each call timed on the host
-            clock and by its device records, the dense pass alone
+            clock (prepare_exact_queries, dispatch and readbacks apart) and
+            by its device records; B13 and B14 alone, through their
+            wrappers and as plain, beside their byte bounds
 20. learned the committed w16 d2 checkpoint
             (results/learned_mid_atlantic_w16d2.npz) fills the stand-in
             r0.10 at f32 and bf16 compute: held-out metrics and nansum at the
@@ -354,7 +363,7 @@ MODEL_VPARAMS = {
 
 
 # Scattered serving (phases 12-14)
-SOURCES = ("window_fill", "scattered_select", "band_resample", "variogram")  # csrc/<name>.cu, built together
+SOURCES = ("window_fill", "scattered_select", "band_resample", "variogram", "exact_select")  # csrc/<name>.cu, built together
 N_SCATTER = 1_000_000
 SCATTER_RTOL, SCATTER_ATOL = 1e-5, 1e-4  # kernel paths vs torch (tests/test_pallas.py:300)
 TT_BARS = {"kriging": (1e-4, 0.1), "idw": (1e-4, 0.05)}  # two-tier vs torch (tests/test_packs.py:116-120)
@@ -595,6 +604,87 @@ def exact_pin(key: str, pred: np.ndarray, truth: np.ndarray, escalated: int | No
         raise AssertionError(f"exact {key}: {bad} differ from the JAX package's pins: got {dict(m)}, sum "
                              f"{float(np.nansum(pred))}, finite {int(np.isfinite(pred).sum())}, escalated "
                              f"{escalated}; want {want}")
+
+
+def exact_equal(got, want, what: str) -> float:
+    """B13's or B14's outputs against their plain version's: integer and
+    boolean outputs equal, float ones bit-equal with NaN in the same places;
+    returns the largest difference, 0."""
+    import torch
+
+    got, want = (t if isinstance(t, tuple) else (t,) for t in (got, want))
+    for i, (a, b) in enumerate(zip(got, want)):
+        if a.shape != b.shape or a.dtype != b.dtype:
+            raise AssertionError(f"{what}: output {i} is {a.dtype} {tuple(a.shape)}, plain {b.dtype} {tuple(b.shape)}")
+        if a.is_floating_point():
+            same_planes(a, b, f"{what} output {i}")
+        elif not torch.equal(a, b):
+            raise AssertionError(f"{what}: output {i} differs from plain at {int((a != b).sum())} entries")
+    return 0.0
+
+
+def exact_walk(grid, ci, cj, sel_gi=None, sel_gj=None, found=None, chunk: int = 16384) -> dict:
+    """What the exact ring walk of anchors (ci, cj) reads, from the plain
+    version's candidate tables (no kernel launch): lanes walked (to the
+    first segment end holding 4, else all 441), the distinct cells whose
+    validity those lanes read, and, given a selection, the distinct cells
+    its filled slots read."""
+    import torch
+
+    from auvtpu_torch.ops import exact as texact
+    from auvtpu_torch.ops import exact_fast as tfast
+
+    H, W = grid.shape
+    tb = texact._device_tables(10, grid.device)
+    m = len(texact.exact_tables(10)["dx"])
+    seg_end = torch.as_tensor(tfast._collection_tables(10)["seg_end"][:m] > 0.5, device=grid.device)
+    lane = torch.arange(m, device=grid.device)
+    touched = torch.zeros(H * W, dtype=torch.bool, device=grid.device)
+    lanes = 0
+    for s0 in range(0, ci.shape[0], chunk):
+        gi, gj, _, _, cum = texact._candidates(grid, tb, ci[s0:s0 + chunk], cj[s0:s0 + chunk])
+        stop = seg_end[None, :] & (cum >= 4)
+        n_walk = torch.where(stop.any(dim=1), stop.int().argmax(dim=1) + 1, m)
+        lanes += int(n_walk.sum())
+        read = (lane[None, :] < n_walk[:, None]) & (gi >= 0) & (gi < W) & (gj >= 0) & (gj < H)
+        touched[(gj * W + gi)[read]] = True
+    out = {"queries": int(ci.shape[0]), "lanes": lanes, "valid_cells": int(touched.sum())}
+    if sel_gi is not None:
+        filled = torch.arange(4, device=grid.device)[None, :] < found.clamp(max=4)[:, None]
+        sel = torch.zeros(H * W, dtype=torch.bool, device=grid.device)
+        sel[(sel_gj.long() * W + sel_gi.long())[filled]] = True
+        out["value_cells"], out["solved"] = int(sel.sum()), int((found >= 4).sum())
+    return out
+
+
+def host_split_ms(fn, reps: int = 3) -> dict:
+    """Host time of one exact-mode call split by cProfile: in
+    prepare_exact_queries (host numpy), in the readbacks (Tensor.cpu, which
+    wait for the device), and the rest (uploads, dispatch, host glue); the
+    medians of ``reps`` calls, each ending in a sync."""
+    import cProfile
+    import pstats
+
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    parts = {"total": [], "prepare": [], "readbacks": []}
+    for _ in range(reps):
+        prof = cProfile.Profile()
+        t0_ = time.perf_counter()
+        prof.enable()
+        fn()
+        torch.cuda.synchronize()
+        prof.disable()
+        parts["total"].append((time.perf_counter() - t0_) * 1e3)
+        stats = pstats.Stats(prof).stats
+        cum = lambda pred: sum(v[3] for k, v in stats.items() if pred(k)) * 1e3
+        parts["prepare"].append(cum(lambda k: k[2] in ("prepare_exact_queries", "_prepare_scattered")))
+        parts["readbacks"].append(cum(lambda k: k[2].startswith("<method 'cpu' of")))
+    out = {k: float(np.median(v)) for k, v in parts.items()}
+    out["dispatch"] = out["total"] - out["prepare"] - out["readbacks"]
+    return out
 
 
 def device_busy_ms(fn, reps: int = 2, attempts: int = 3) -> float:
@@ -1621,6 +1711,7 @@ def main() -> int:
     from concurrent.futures import ThreadPoolExecutor
 
     from auvtpu_torch.kernels import band_resample as kb
+    from auvtpu_torch.kernels import exact_select as es
     from auvtpu_torch.kernels import scattered_select as ss
     from auvtpu_torch.kernels import variogram as kv
 
@@ -1631,6 +1722,7 @@ def main() -> int:
     ss.build()
     kb.build()
     kv.build()
+    es.build()
     say("build", f"{', '.join(s + '.cu' for s in SOURCES)} built and loaded in {time.perf_counter() - t0:.1f} s")
     for src in SOURCES:
         log = kbuild.library_path(src).with_suffix(".log")
@@ -2890,8 +2982,15 @@ def main() -> int:
         "cubic": lambda: texact.exact_cubic_at_cells(g64, rk, ck),
         "bilinear": lambda: texact.exact_bilinear_at_cells(g64, rk, ck),
     }
+    es.reset_launches()
     preds = {k: fn() for k, fn in exact_fns.items()}
     esc_k = tfast.exact_select_at_cells_fast(g64, rk, ck)[5]
+    launches_ex = dict(es.LAUNCHES)
+    # two-tier kriging and the selection: a B13 launch each and a B14
+    # launch each for the escalated cells; strict kriging and cubic a B14
+    # launch each
+    if launches_ex != {"exact_dense": 2, "exact_ring": 4}:
+        raise AssertionError(f"exact mode's launches {launches_ex}, want two of B13 and four of B14")
     for key in ("kriging_two", "cubic", "bilinear"):
         exact_pin(key, preds[key], truth_k, int(esc_k.sum()) if key == "kriging_two" else None)
     two, strict = preds["kriging_two"], preds["kriging_strict"]
@@ -2905,12 +3004,71 @@ def main() -> int:
         f"cubic, bilinear and two-tier kriging at the JAX package's pins (metrics within {EXACT_TOL} m, "
         f"sums within {EXACT_TOL} m a cell); strict vs two-tier max |diff| {d_ts:.3g} m")
 
+    # B13 and B14 against their plain versions at full width: the stand-in's
+    # cells (two-tier's operands, strict's anchors at both anchors), then a
+    # sparse grid no cell of which stops before ring 10, then scattered
+    # Grid A queries
+    def exact_kernels_equal(g, rows_, cols_, label: str) -> dict:
+        rows_, cols_ = np.asarray(rows_, np.int64), np.asarray(cols_, np.int64)
+        q_ = texact.prepare_exact_queries(g, rows_, cols_)
+        dense_in = tfast._dense_inputs(g, q_, rows_, cols_)[:3]
+        tabs = tfast._reference_tables(g, 10)
+        exact_equal(es.dense_select(g, *dense_in), es.dense_select_ref(g.elev, g.valid, *dense_in, 10),
+                    f"B13 {label}")
+        exact_equal(es.dense_krige(g, *dense_in, *tabs), es.dense_krige_ref(g.elev, g.valid, *dense_in, *tabs, 10),
+                    f"B13 solve {label}")
+        for anchor in ("round", "floor"):
+            keys_ = texact._cell_keys(g, texact.prepare_exact_queries(g, rows_, cols_, anchor=anchor), None)
+            ref = es.ring_select_ref(g.elev, g.valid, *keys_[:2], *keys_[3:], keys_[2], 10, 16384)
+            exact_equal(es.ring_select(g, *keys_[:2], *keys_[3:], keys_[2]), ref, f"B14 {anchor} {label}")
+        inside = np.nonzero(~q_.oob)[0]
+        keys_ = texact._cell_keys(g, q_, inside)
+        qc_ = (texact._on(g, cols_[inside]), texact._on(g, rows_[inside]))
+        exact_equal(es.ring_krige(g, *keys_, *qc_, *tabs),
+                    es.ring_krige_ref(g.elev, g.valid, *keys_, *qc_, *tabs, 10, 16384), f"B14 solve {label}")
+        return {"dense_in": dense_in, "tabs": tabs, "q": q_}
+
+    ex_in = exact_kernels_equal(g64, rk, ck, "stand-in")
+    say("exact", f"B13 (selection, table solve) and B14 (cell-aligned at the round and floor anchors, with the "
+        f"table solve) bit-equal to their plain versions at the stand-in's {len(rk)} cells")
+    red_sp, rc_sp, _ = mask_grid(shelf_seamount(256, 320), 0.995, seed=6)
+    g_sp = RegularGrid.from_nan_array(red_sp, Extent(74.615, 84.785, -58.2508, -49.6982), dtype=torch.float64,
+                                      device=dev)
+    exact_kernels_equal(g_sp, rc_sp[:, 0], rc_sp[:, 1], "sparse 256x320")
+    found_sp = es.dense_select(g_sp, *tfast._dense_inputs(
+        g_sp, texact.prepare_exact_queries(g_sp, rc_sp[:, 0], rc_sp[:, 1]), rc_sp[:, 0].astype(np.int64),
+        rc_sp[:, 1].astype(np.int64))[:3])[0]
+    say("exact", f"sparse 256x320 ({int(g_sp.valid.sum())} observed cells, {len(rc_sp)} queries, "
+        f"{int((found_sp < 4).sum())} of them never holding 4): B13 and B14 bit-equal to plain")
+    gA64 = RegularGrid.from_nan_array(shelf_seamount(*GRID_A_SHAPE), GRID_A_EXTENT, dtype=torch.float64, device=dev)
+    qlo_a, qla_a = (t.cpu().numpy().astype(np.float64) for t in scattered_queries(
+        GRID_A_EXTENT, GRID_A_SHAPE[0], GRID_A_SHAPE[1], 100_000, 19, dev))
+    sc_in = {}
+    for anchor in ("round", "floor"):
+        _, _, xa, ya, cia, cja, _ = texact._prepare_scattered(gA64, qlo_a, qla_a, anchor)
+        sc_in[anchor] = [texact._on(gA64, a, t) for a, t in ((cia, torch.int64), (cja, torch.int64),
+                                                              (xa, torch.float64), (ya, torch.float64))]
+        exact_equal(es.ring_select(gA64, *sc_in[anchor]),
+                    es.ring_select_ref(gA64.elev, gA64.valid, *sc_in[anchor], None, 10, 16384),
+                    f"B14 scattered {anchor}")
+    say("exact", f"B14 scattered (f64 distances) bit-equal to plain at {len(qlo_a)} Grid A queries, round and floor "
+        f"anchors")
+    # one B13 launch a dense call
+    es.reset_launches()
+    seen = device_kernels(lambda: tfast._dense_at(g64, ex_in["q"], rk.astype(np.int64), ck.astype(np.int64), 10))
+    n_dense = sum(v for k, v in seen.items() if "dense_kernel" in k)
+    if es.LAUNCHES["exact_dense"] != 21 or not 0 < n_dense <= 20:
+        raise AssertionError(f"_dense_at: {es.LAUNCHES} launches over 21 calls, device records {seen}")
+    say("exact", f"one B13 launch a dense call (_dense_at): 21 launches over 21 calls; the device records of 20 "
+        f"profiled calls {seen}")
+
     # synthetic grids with awkward decimals: the strict selection against
     # the golden engine's ring selection, the predictions against its own
     awkward = Extent(74.615, 84.785, -58.2508, -49.6982)
     for removal, seed in ((0.1, 2), (0.5, 3), (0.9, 4)):
         red_s, rc_s, _ = mask_grid(shelf_seamount(256, 320), removal, seed=seed)
         g_s = RegularGrid.from_nan_array(red_s, awkward, dtype=torch.float64, device=dev)
+        exact_kernels_equal(g_s, rc_s[:, 0], rc_s[:, 1], f"awkward r{removal}")
         gold = GoldenGrid(red_s, awkward.min_lon, awkward.max_lon, awkward.min_lat, awkward.max_lat)
         qlon = gold.min_lon + rc_s[:, 1] * gold.lon_step
         qlat = gold.min_lat + rc_s[:, 0] * gold.lat_step
@@ -2939,14 +3097,16 @@ def main() -> int:
                 raise AssertionError(f"exact {label} r{removal}: max |diff| from the golden engine {d_} > {EXACT_TOL}")
             worst = max(worst, d_)
         say("exact", f"256x320 shelf+seamount r{removal} (awkward extent), {len(rc_s)} cells ({int(full.sum())} "
-            f"with 4 found): found, values and ordered gi/gj equal to GoldenGrid._ring_select; strict and two-tier "
-            f"kriging, cubic and bilinear within {worst:.3g} m of the golden engine")
+            f"with 4 found): B13 and B14 bit-equal to plain; found, values and ordered gi/gj equal to "
+            f"GoldenGrid._ring_select; strict and two-tier kriging, cubic and bilinear within {worst:.3g} m of the "
+            f"golden engine")
 
     # both CLIs' exact modes
     res_x = os.path.join(REPO, "results_local", "chip_smoke_exact.csv")
     if os.path.exists(res_x):
         os.remove(res_x)
     pin_of = {"Kriging": "kriging_two", "Cubic": "cubic", "Bilinear": "bilinear"}
+    es.reset_launches()
     for tier in ("two", "strict"):
         summary_x = bench_grid_b.main(["--region", "kerguelen", "--removal", str(REMOVAL), "--selection", "exact",
                                        "--exact-tier", tier, "--results", res_x, "--machine", "H100"])
@@ -2965,22 +3125,75 @@ def main() -> int:
         raise AssertionError(f"bench_grid_a --selection exact: {summary_ax}")
     say("exact", "bench_grid_a --selection exact: every golden validation PASSED (1e-9 x scale); " + ", ".join(
         f"{m} n={n} steady {v['steady_ms']:.2f} ms" for (m, n), v in summary_ax.items()) + f"  [{card}]")
+    launches_exc = dict(es.LAUNCHES)
+    if not (launches_exc["exact_dense"] > 0 and launches_exc["exact_ring"] > 0):
+        raise AssertionError(f"the exact CLIs' launches {launches_exc}: B13 and B14 must both run")
 
     # timing: each call on the device (the profiler's device records) and
-    # on the host clock, and the dense pass alone
-    q_k = texact.prepare_exact_queries(g64, rk, ck)
-    al = tfast._aligned(q_k, rk.astype(np.int64), ck.astype(np.int64))
-    dense_args = (g64.valid, torch.as_tensor((rk * SHAPE[1] + ck)[al], device=dev),
-                  torch.as_tensor(q_k.ex_key[al], device=dev), torch.as_tensor(q_k.ey_key[al], device=dev))
-    exact_fns["dense pass"] = lambda: tfast._dense_select(*dense_args, max_radius=10)
+    # on the host clock (apart: prepare_exact_queries, the readbacks, the
+    # rest), the dense pass through B13 and as the plain loop
+    dense_in, tabs = ex_in["dense_in"], ex_in["tabs"]
+    dense_plain_args = (g64.valid, dense_in[0], dense_in[1][0], dense_in[1][1])
+    exact_fns["dense pass"] = lambda: es.dense_select(g64, *dense_in)
+    exact_fns["dense pass plain"] = lambda: tfast._dense_select(*dense_plain_args, max_radius=10)
     for label, fn in exact_fns.items():
         ms[f"exact {label}"] = host_ms(fn, reps=3)
         ms[f"exact {label} device"] = device_busy_ms(fn)
-        say("timing", f"exact {label:14s} at {len(rk)} cells: {ms[f'exact {label}']:.2f} ms host, "
+        say("timing", f"exact {label:16s} at {len(rk)} cells: {ms[f'exact {label}']:.2f} ms host, "
             f"{ms[f'exact {label} device']:.2f} ms device busy "
             f"(idle {1 - ms[f'exact {label} device'] / ms[f'exact {label}']:.1%})  [{card}]")
-    say("exact", f"escalated share {esc_k.mean():.6f}; phase took {time.perf_counter() - t_ex:.1f} s")
-    del g64, preds, exact_fns, dense_args, two, strict
+    for label in ("kriging_two", "kriging_strict"):
+        sp = host_split_ms(exact_fns[label])
+        say("timing", f"exact {label} host split (cProfile on): {sp['total']:.2f} ms = prepare_exact_queries "
+            f"{sp['prepare']:.2f} + readbacks (waiting for the card included) {sp['readbacks']:.2f} + uploads, "
+            f"dispatch and glue {sp['dispatch']:.2f}  [{card}]")
+
+    # B13 and B14 alone (kernel records), through their wrappers (events)
+    # and as plain, at the stand-in's cells: B13 with the solve (two-tier
+    # kriging's launch) and without, B14 at the round anchor (strict
+    # kriging's selection), with the solve and scattered (1e5 Grid A)
+    keys_k = texact._cell_keys(g64, ex_in["q"], None)
+    ring_in = (*keys_k[:2], *keys_k[3:], keys_k[2])
+    b13 = {"solve": lambda: es.dense_krige(g64, *dense_in, *tabs), "select": lambda: es.dense_select(g64, *dense_in)}
+    b13_plain = {"solve": lambda: es.dense_krige_ref(g64.elev, g64.valid, *dense_in, *tabs, 10),
+                 "select": lambda: es.dense_select_ref(g64.elev, g64.valid, *dense_in, 10)}
+    for b in ("solve", "select"):
+        ms[f"B13 {b} alone"] = device_ms(b13[b], "dense_kernel")
+        ms[f"B13 {b} wrapper"] = time_ms(b13[b])
+        ms[f"B13 {b} plain"] = time_ms(b13_plain[b], warmup=1, reps=5)
+    b14 = {"round": lambda: es.ring_select(g64, *ring_in),
+           "scattered": lambda: es.ring_select(gA64, *sc_in["round"])}
+    b14_plain = {"round": lambda: es.ring_select_ref(g64.elev, g64.valid, *ring_in, 10, 16384),
+                 "scattered": lambda: es.ring_select_ref(gA64.elev, gA64.valid, *sc_in["round"], None, 10, 16384)}
+    for b in ("round", "scattered"):
+        ms[f"B14 {b} alone"] = device_ms(b14[b], "ring_kernel")
+        ms[f"B14 {b} wrapper"] = time_ms(b14[b])
+        ms[f"B14 {b} plain"] = time_ms(b14_plain[b], warmup=1, reps=5)
+    # bounds from what this run's data reads (exact_walk): per query the
+    # index, keys and outputs; each distinct validity cell the walks read
+    # and value cell the selections take once, 8 bytes (f64); ~20 f32
+    # operations a lane walked, ~200 f64 ones a table solve
+    sel_k = es.ring_select_ref(g64.elev, g64.valid, *ring_in, 10, 16384)
+    walk = exact_walk(g64, keys_k[0], keys_k[1], sel_k[2], sel_k[3], sel_k[0])
+    nq_x = float(walk["queries"])
+    cells_b = 8.0 * (walk["valid_cells"] + walk["value_cells"])
+    bounds_x = {
+        "exact_dense": bound(nq_x * (8 + 8 + 8 + 1) + cells_b, 20.0 * walk["lanes"], 200.0 * walk["solved"]),
+        "exact_dense select": bound(nq_x * (8 + 8 + 4 + 1 + 4 * 8 * 3) + cells_b, 20.0 * walk["lanes"]),
+        "exact_ring": bound(nq_x * (8 + 8 + 4 + 8 + 4 + 4 * (8 + 4 + 4)) + cells_b, 20.0 * walk["lanes"]),
+    }
+    for label, key in (("B13 solve", "exact_dense"), ("B13 select", "exact_dense select"),
+                       ("B14 round", "exact_ring")):
+        say("timing", f"{label:10s} at {len(rk)} stand-in cells: alone {ms[f'{label} alone']:.4f} ms, wrapper "
+            f"{ms[f'{label} wrapper']:.4f} ms, plain {ms[f'{label} plain']:.2f} ms; bound {bounds_x[key][0]:.4f} ms "
+            f"({bounds_x[key][1]}; {bounds_x[key][0] / ms[f'{label} alone']:.0%} of it)  [{card}]")
+    say("timing", f"B14 scattered at {len(qlo_a)} Grid A queries: alone {ms['B14 scattered alone']:.4f} ms, wrapper "
+        f"{ms['B14 scattered wrapper']:.4f} ms, plain {ms['B14 scattered plain']:.2f} ms  [{card}]")
+    say("bounds", f"exact walk at the stand-in's cells: {walk['lanes'] / nq_x:.3f} lanes a query, "
+        f"{walk['valid_cells']} validity and {walk['value_cells']} value cells read, {walk['solved']} solved")
+    say("exact", f"escalated share {esc_k.mean():.6f}; launches: main path {launches_ex}, CLIs {launches_exc}; "
+        f"phase took {time.perf_counter() - t_ex:.1f} s")
+    del g64, preds, exact_fns, dense_in, dense_plain_args, two, strict, gA64, sc_in, ex_in, sel_k, g_sp
     torch.cuda.empty_cache()
 
     # ---- 20. the learned baseline at full width: the committed w16 d2
@@ -3550,6 +3763,18 @@ def main() -> int:
         rows_.append((k, rep_, launches[k] + launches_s[k] + launches_p[k], err, ms[f"{tag} kernel alone"],
                       ms[f"{tag} wrapper"], ms["pair sums plain" if tag == "B9" else "variogram fit plain"]))
         src[k] = "auvtpu_torch/csrc/variogram.cu"
+    # B13 and B14 replace no Pallas kernel: the jitted XLA programs of exact
+    # mode (the dense pass's lax.while_loop with its extraction and table
+    # solve; the strict selection's (N, 441) gathers and swap passes); main
+    # paths: phase 19's stand-in calls and both CLIs' --selection exact.
+    # Their times: B13 with the solve (two-tier kriging's launch), B14 at
+    # the round anchor (strict kriging's selection); bit-equal (phase 19)
+    for k, rep_, tag in (("exact_dense", "auvtpu/ops/exact_fast.py:121", "B13 solve"),
+                         ("exact_ring", "auvtpu/ops/exact.py:197", "B14 round")):
+        rows_.append((k, rep_, launches_ex[k] + launches_exc[k], 0.0, ms[f"{tag} alone"], ms[f"{tag} wrapper"],
+                      ms[f"{tag} plain"]))
+        src[k] = "auvtpu_torch/csrc/exact_select.cu"
+        bounds[k] = bounds_x[k]
     # B8: values only, no resolved mask; B7 and B5: the selection alone, no
     # tie order
     library = {"band_resample": ms["grid_sample"], "window_select_fused": ms["B7 library topk"],

@@ -1,0 +1,328 @@
+"""Exact mode's kernels B13 (the two-tier dense pass at the query cells,
+with its f64 table solve) and B14 (the strict ring selection, with the
+table solve of the escalated cells), through their wrappers on CPU tensors,
+where each op (``auvtpu_torch::exact_dense``, ``::exact_dense_krige``,
+``::exact_ring``, ``::exact_ring_krige``) runs the kernel's plain version:
+held exactly to the JAX package's jitted programs (``_dense_select`` with
+``_extract_q``, ``_select_chunk``, ``_select_chunk_scattered``: found, tie,
+values, offsets and gi/gj equal) and within 1e-9 m of its f64 solves
+(``_extract_solve_table``, the escalation's ``_krige_chunk_table``), under
+x64, on float32 and float64 grids.  The queries are the held-out cells of
+sparse, degenerate and awkward-extent grids, queries on cells no aligned
+query holds and on cells one does, and cells and anchors past the grid's
+edges.  The ops' fake implementations give the real outputs' shapes and
+dtypes.  The kernels themselves are held to these plain versions bit for
+bit on a card (tests/test_torch_cuda.py)."""
+
+import numpy as np
+import pytest
+import torch
+
+import jax
+
+from auvtpu.config import Extent
+from auvtpu.grid import RegularGrid as JGrid
+from auvtpu.masking import mask_grid
+from auvtpu.ops import exact as jexact
+from auvtpu.ops import exact_fast as jfast
+from auvtpu.synthetic import shelf_seamount
+
+from auvtpu_torch.convert import grid_from_arrays
+from auvtpu_torch.kernels import exact_select as es
+from auvtpu_torch.kernels import library
+from auvtpu_torch.ops import exact as texact
+from auvtpu_torch.ops import exact_fast as tfast
+
+torch.set_num_threads(1)
+
+AWKWARD = Extent(74.615, 84.785, -58.2508, -49.6982)  # residues break distance ties
+DEGENERATE = Extent(0.0, 79.0, -32.0, 31.0)  # binary-exact steps: every distance tie exact
+PRED_TOL = 1e-9  # m
+R = 10
+
+GRIDS = {
+    "awkward_r0.1": (64, 80, 0.1, 2, AWKWARD),
+    "awkward_r0.5": (64, 80, 0.5, 3, AWKWARD),
+    "awkward_r0.9": (64, 80, 0.9, 4, AWKWARD),
+    "degenerate": (48, 64, 0.3, 1, DEGENERATE),
+    "sparse": (40, 56, 0.97, 4, AWKWARD),  # many cells never hold 4: the walk reaches ring 10
+}
+DTYPES = [np.float32, np.float64]
+
+
+@pytest.fixture(scope="module", autouse=True)
+def x64():
+    old = jax.config.jax_enable_x64
+    jax.config.update("jax_enable_x64", True)
+    yield
+    jax.config.update("jax_enable_x64", old)
+
+
+_PAIRS = {}
+
+
+def pair(name, dtype):
+    """(JAX grid, port CPU grid, held-out rows/cols) of one synthetic grid."""
+    key = (name, dtype)
+    if key not in _PAIRS:
+        h, w, removal, seed, ext = GRIDS[name]
+        reduced, rc, _ = mask_grid(shelf_seamount(h, w), removal, seed=seed)
+        jg = JGrid.from_nan_array(reduced, ext, dtype=dtype)
+        tg = grid_from_arrays(np.asarray(jg.elev), np.asarray(jg.valid), ext.min_lon, ext.max_lon,
+                              ext.min_lat, ext.max_lat, "cpu")
+        _PAIRS[key] = (jg, tg, rc)
+    return _PAIRS[key]
+
+
+def queries(tg, rc):
+    """Rows and cols: the held-out cells, observed cells, held-out cells
+    again, and cells past each edge."""
+    H, W = tg.shape
+    rows = np.concatenate([rc[:, 0], np.arange(0, H, 5), rc[:30, 0], [-1, 0, H, H + 3, 3]])
+    cols = np.concatenate([rc[:, 1], (np.arange(0, H, 5) * 7) % W, rc[:30, 1], [2, -1, 5, W + 2, W]])
+    return rows.astype(np.int64), cols.astype(np.int64)
+
+
+def dense_operands(tg, rc):
+    """B13's operands: only the first len(rc) queries (the held-out cells)
+    scatter their residues, so the rest read the planes at cells no aligned
+    query holds (0) or at cells one does; every query's cell is clipped to
+    the plane."""
+    H, W = tg.shape
+    rows, cols = queries(tg, rc)
+    q = texact.prepare_exact_queries(tg, rows, cols)
+    aligned = tfast._aligned(q, rows, cols)
+    aligned[len(rc):] = False
+    flat = rows * W + cols
+    keys = np.stack([q.ex_key[aligned], q.ey_key[aligned]])
+    return torch.as_tensor(flat[aligned]), torch.as_tensor(keys), torch.as_tensor(np.clip(flat, 0, H * W - 1))
+
+
+def jax_dense_planes(jg, flat_a, keys):
+    H, W = jg.shape
+    fa = jfast._pad_bucket(flat_a.numpy().astype(np.int32), H * W)
+    ex = jfast._pad_bucket(keys[0].numpy(), np.float32(0.0))
+    ey = jfast._pad_bucket(keys[1].numpy(), np.float32(0.0))
+    return jfast._dense_select(jg.elev, jg.valid, fa, ex, ey, max_radius=R)
+
+
+def jax_tables(jg):
+    v = jexact.KrigingConfig().variogram
+    lon_step = (jg.max_lon - jg.min_lon) / (jg.num_lon - 1)
+    lat_step = (jg.max_lat - jg.min_lat) / (jg.num_lat - 1)
+    return jfast._gamma_tables(lon_step, lat_step, (v.nugget, v.sill, v.range), "exponential", R)
+
+
+def equal(got, want):
+    assert len(got) == len(want)
+    for a, b in zip(got, want):
+        np.testing.assert_array_equal(a.numpy(), np.asarray(b))
+
+
+def close(got, want, tol=PRED_TOL):
+    got, want = got.numpy(), np.asarray(want, np.float64)
+    assert got.dtype == np.float64 and got.shape == want.shape
+    np.testing.assert_array_equal(np.isnan(got), np.isnan(want))
+    ok = ~np.isnan(want)
+    assert ok.any()
+    np.testing.assert_allclose(got[ok], want[ok], rtol=0, atol=tol)
+
+
+# ---------------------------------------------------------------------------
+# B13
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=["f32", "f64"])
+@pytest.mark.parametrize("name", list(GRIDS))
+def test_dense_select_equals_the_jax_dense_pass(name, dtype):
+    jg, tg, rc = pair(name, dtype)
+    flat_a, keys, flat_q = dense_operands(tg, rc)
+    got = es.dense_select(tg, flat_a, keys, flat_q)
+    want = jfast._extract_q(*jax_dense_planes(jg, flat_a, keys), jg.elev, flat_q.numpy().astype(np.int32),
+                            max_radius=R)
+    equal(got, want)
+    found, tie, vals, dgi, dgj = got
+    assert found.dtype == torch.int32 and tie.dtype == torch.bool and vals.dtype == tg.elev.dtype
+    assert dgi.dtype == dgj.dtype == torch.int64 and vals.shape == (4, len(flat_q))
+    assert (found >= 4).any() and (name != "sparse" or (found < 4).any())
+    assert name != "degenerate" or tie.any()
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=["f32", "f64"])
+@pytest.mark.parametrize("name", list(GRIDS))
+def test_dense_krige_within_1e9_of_the_jax_table_solve(name, dtype):
+    jg, tg, rc = pair(name, dtype)
+    flat_a, keys, flat_q = dense_operands(tg, rc)
+    gpair, gq = tfast._reference_tables(tg, R)
+    np.testing.assert_array_equal(gpair.numpy(), jax_tables(jg)[0])
+    pred, tie = es.dense_krige(tg, flat_a, keys, flat_q, gpair, gq)
+    jp, jq = (np.asarray(t) for t in jax_tables(jg))
+    want, want_tie, _ = jfast._extract_solve_table(*jax_dense_planes(jg, flat_a, keys), jg.elev,
+                                                   flat_q.numpy().astype(np.int32), jp, jq, max_radius=R)
+    equal([tie], [want_tie])
+    close(pred, want)
+
+
+# ---------------------------------------------------------------------------
+# B14
+# ---------------------------------------------------------------------------
+
+def _far_anchors(tg):
+    """Anchors past each edge, with variant 0 and zero keys; the last is
+    farther than the radius from every cell."""
+    H, W = tg.shape
+    ci = np.array([-3, W + 2, 5, -12, W - 1, -30], np.int64)
+    cj = np.array([4, 2, -12, H + 9, H + 1, H + 40], np.int64)
+    return ci, cj
+
+
+@pytest.mark.parametrize("anchor", ["round", "floor"])
+@pytest.mark.parametrize("dtype", DTYPES, ids=["f32", "f64"])
+@pytest.mark.parametrize("name", list(GRIDS))
+def test_ring_select_equals_the_jax_strict_selection(name, dtype, anchor):
+    jg, tg, rc = pair(name, dtype)
+    rows, cols = queries(tg, rc)
+    q = texact.prepare_exact_queries(tg, rows, cols, anchor=anchor)
+    fci, fcj = _far_anchors(tg)
+    z = np.zeros(len(fci))
+    ci, cj = np.concatenate([q.ci, fci]), np.concatenate([q.cj, fcj])
+    variant = np.concatenate([q.variant, z]).astype(np.int32)
+    ex, ey = (np.concatenate([k, z]).astype(np.float32) for k in (q.ex_key, q.ey_key))
+    got = es.ring_select(tg, *(torch.as_tensor(a) for a in (ci, cj, ex, ey, variant)), chunk=700)
+    want = jexact._select_chunk(jg.elev, jg.valid, ci.astype(np.int32), cj.astype(np.int32), variant, ex, ey,
+                                max_radius=R)
+    equal(got, want)
+    found, sel_val, gi, gj = got
+    assert sel_val.dtype == tg.elev.dtype and gi.dtype == gj.dtype == torch.int32 and sel_val.shape == (len(ci), 4)
+    assert found[-1] == 0 and (found >= 4).any()
+
+
+def _scattered_queries(ext, n=1500, seed=0):
+    """Uniform points over the extent and 5 % past it, and cell centres and
+    half lines (exact distance ties)."""
+    rng = np.random.default_rng(seed)
+    w, h = ext.max_lon - ext.min_lon, ext.max_lat - ext.min_lat
+    u = np.arange(0, 40, 0.25) / 40
+    return (np.concatenate([rng.uniform(ext.min_lon - 0.05 * w, ext.max_lon + 0.05 * w, n), ext.min_lon + u * w]),
+            np.concatenate([rng.uniform(ext.min_lat - 0.05 * h, ext.max_lat + 0.05 * h, n), ext.min_lat + u * h]))
+
+
+@pytest.mark.parametrize("anchor", ["round", "floor"])
+@pytest.mark.parametrize("dtype", DTYPES, ids=["f32", "f64"])
+@pytest.mark.parametrize("name", ["awkward_r0.5", "degenerate", "sparse"])
+def test_ring_select_scattered_equals_the_jax_selection(name, dtype, anchor):
+    jg, tg, _ = pair(name, dtype)
+    lons, lats = _scattered_queries(GRIDS[name][4])
+    _, _, x, y, ci, cj, _ = texact._prepare_scattered(tg, lons, lats, anchor)
+    got = es.ring_select(tg, *(torch.as_tensor(a) for a in (ci, cj, x, y)), chunk=600)
+    equal(got, jexact._select_chunk_scattered(jg.elev, jg.valid, ci, cj, x, y, max_radius=R))
+    assert (got[0] >= 4).any()
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=["f32", "f64"])
+@pytest.mark.parametrize("name", list(GRIDS))
+def test_ring_krige_within_1e9_of_the_jax_escalation_solve(name, dtype):
+    jg, tg, rc = pair(name, dtype)
+    rows, cols = queries(tg, rc)
+    q = texact.prepare_exact_queries(tg, rows, cols)
+    idx = np.nonzero(~q.oob)[0]  # the two-tier path escalates no query outside the grid
+    gpair, gq = tfast._reference_tables(tg, R)
+    got = es.ring_krige(tg, *texact._cell_keys(tg, q, idx), torch.as_tensor(cols[idx]),
+                        torch.as_tensor(rows[idx]), gpair, gq, chunk=500)
+    # the JAX package's escalation (exact_fast.py:486-505): the strict
+    # selection, the fallback mean where fewer than 4, the table solve else
+    f2, v2, gi2, gj2 = (np.asarray(a) for a in jexact._select_chunk(
+        jg.elev, jg.valid, q.ci[idx], q.cj[idx], q.variant[idx], q.ex_key[idx], q.ey_key[idx], max_radius=R))
+    want = jexact._fallback_mean_np(f2, v2)
+    okm = f2 >= 4
+    jp, jq = (np.asarray(t) for t in jax_tables(jg))
+    vals = v2[okm].astype(np.float64)
+    pred, singular = (np.asarray(a) for a in jfast._krige_chunk_table(
+        vals, (gi2[okm] - cols[idx][okm, None]).astype(np.int32), (gj2[okm] - rows[idx][okm, None]).astype(np.int32),
+        jp, jq, max_radius=R))
+    want[okm] = np.where(singular.astype(bool), vals.mean(axis=1), pred)
+    close(got, want)
+
+
+# ---------------------------------------------------------------------------
+# the public entry points on float32 grids (float64: tests/test_torch_exact.py)
+# ---------------------------------------------------------------------------
+
+ENTRIES = {
+    "two_tier_kriging": (tfast.exact_kriging_at_cells_fast, jfast.exact_kriging_at_cells_fast),
+    "strict_kriging": (texact.exact_kriging_at_cells, jexact.exact_kriging_at_cells),
+    "cubic": (texact.exact_cubic_at_cells, jexact.exact_cubic_at_cells),
+}
+
+
+@pytest.mark.parametrize("entry", list(ENTRIES))
+@pytest.mark.parametrize("name", ["awkward_r0.5", "degenerate", "sparse"])
+def test_entries_on_float32_grids_within_1e9(name, entry):
+    jg, tg, rc = pair(name, np.float32)
+    rows, cols = queries(tg, rc)
+    tfn, jfn = ENTRIES[entry]
+    close(torch.as_tensor(tfn(tg, rows, cols)), jfn(jg, rows, cols))
+    if entry == "two_tier_kriging":
+        got, want = tfast.exact_select_at_cells_fast(tg, rows, cols), jfast.exact_select_at_cells_fast(jg, rows, cols)
+        for a, b in zip(got[:4] + (got[5],), want[:4] + (want[5],)):
+            np.testing.assert_array_equal(a, b)
+
+
+# ---------------------------------------------------------------------------
+# the ops: opcheck, and the fake implementations' shapes and dtypes
+# ---------------------------------------------------------------------------
+
+def _op_args(op_name, dtype=np.float64):
+    _, tg, rc = pair("awkward_r0.1", dtype)
+    rows, cols = queries(tg, rc)
+    inside = (rows >= 0) & (rows < tg.num_lat) & (cols >= 0) & (cols < tg.num_lon)
+    rows, cols = rows[inside], cols[inside]  # no NaN prediction (opcheck holds NaN unequal to NaN)
+    gpair, gq = tfast._reference_tables(tg, R)
+    if op_name.startswith("exact_dense"):
+        flat_a, keys, flat_q = dense_operands(tg, np.stack([rows, cols], axis=1))
+        tabs = (gpair, gq) if op_name == "exact_dense_krige" else ()
+        return (tg.elev, tg.valid, flat_a, keys, flat_q, *tabs, R)
+    q = texact.prepare_exact_queries(tg, rows, cols)
+    ci, cj, variant, ex, ey = texact._cell_keys(tg, q, None)
+    if op_name == "exact_ring":
+        return (tg.elev, tg.valid, ci, cj, ex, ey, variant, R, 300)
+    if op_name == "exact_ring_scattered":
+        x, y = (torch.as_tensor(a) for a in (q.x + 0.3, q.y - 0.2))
+        return (tg.elev, tg.valid, ci, cj, x, y, None, R, 300)
+    return (tg.elev, tg.valid, ci, cj, variant, ex, ey, torch.as_tensor(cols), torch.as_tensor(rows), gpair, gq, R, 300)
+
+
+OPS = ["exact_dense", "exact_dense_krige", "exact_ring", "exact_ring_scattered", "exact_ring_krige"]
+
+
+def _op(op_name):
+    return getattr(library, "exact_ring" if op_name == "exact_ring_scattered" else op_name)
+
+
+@pytest.mark.parametrize("op_name", OPS)
+def test_opcheck(op_name):
+    torch.library.opcheck(_op(op_name), _op_args(op_name))
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=["f32", "f64"])
+@pytest.mark.parametrize("op_name", OPS)
+def test_fake_implementations_give_the_outputs_shapes_and_dtypes(op_name, dtype):
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    args = _op_args(op_name, dtype)
+    real = _op(op_name)(*args)
+    with FakeTensorMode() as mode:
+        fake = _op(op_name)(*(mode.from_tensor(a) if torch.is_tensor(a) else a for a in args))
+    real, fake = (t if isinstance(t, tuple) else (t,) for t in (real, fake))
+    assert len(real) == len(fake)
+    for r, f in zip(real, fake):
+        assert (tuple(f.shape), f.dtype, f.device) == (tuple(r.shape), r.dtype, r.device)
+
+
+def test_the_wrappers_count_no_launch_on_the_cpu():
+    _, tg, rc = pair("awkward_r0.1", np.float64)
+    es.reset_launches()
+    rows, cols = queries(tg, rc)
+    tfast.exact_kriging_at_cells_fast(tg, rows, cols)
+    texact.exact_kriging_at_cells(tg, rows, cols)
+    assert es.LAUNCHES == {"exact_dense": 0, "exact_ring": 0}

@@ -179,7 +179,7 @@ def test_port_imports_no_jax_or_auvtpu():
         "parallel/mesh.py", "parallel/launch.py", "parallel/spatial.py", "parallel/streaming.py",
         "parallel/mission.py", "parallel/multihost.py", "ops/tiled.py", "utils/debug.py", "utils/profiling.py",
         "cli/demo.py", "cli/gen_grid.py", "cli/subset.py", "cli/analyze.py", "cli/plots.py", "cli/figures.py",
-        "cli/scripts.py", "kernels/variogram.py",
+        "cli/scripts.py", "kernels/variogram.py", "kernels/exact_select.py",
     ):
         assert new in names
     assert (PORT / "csrc" / "band_resample.cu").exists() and (PORT / "csrc" / "variogram.cu").exists()
