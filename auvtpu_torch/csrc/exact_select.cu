@@ -21,6 +21,11 @@
 //                                 plain versions are ops/exact.py
 //                                 _select_chunk, _select_chunk_scattered
 //                                 and _swap_passes, then _solve_table)
+//   bits_kernel<T>             the validity plane as one bit a cell, built
+//                                 before a B13 or B14 launch with many
+//                                 queries (part of both; no plain
+//                                 counterpart: the plain versions test
+//                                 valid > 0.5 lane by lane)
 //
 // What they compute.  Both walk the candidate lanes of one anchor cell in
 // the reference's collection order (tables.ring_offsets, GridH.cpp:24-118):
@@ -30,42 +35,54 @@
 // the grid and valid > 0.5; the walk ends at the first segment end where 4
 // or more candidates are held (GridH.cpp:82,115), so a candidate is taken
 // exactly while its segment started with fewer than 4 held (the plain
-// versions' `cum_prev < 4`, the dense pass's `stopped`).  The lanes are
-// generated by the walk itself, not read from a table: the order is three
-// nested loops, and no thread reads memory for it.
+// versions' `cum_prev < 4`, the dense pass's `stopped`).  A thread reads a
+// segment's validity as two bit masks (the top and bottom rows' spans, or
+// the left and right columns' bits), interleaves them into collection order
+// and visits only the set bits, lowest first.
 //
 // B13, per query cell (the query's row * W + col, clipped to the plane, as
-// the plain version reads its planes): the residues (ex, ey) of the cell
-// from the two f32 planes that the wrapper scatters the aligned queries'
-// keys into (zero elsewhere: a query on a cell no aligned query holds reads
-// 0, as in the plain version); per candidate the variant-0 key d2 = (dx +
-// 0.5)^2 + (dy + 0.5)^2 (exact in f32) and T = ex (2 dx + 1) + ey (2 dy + 1)
-// (two products and a sum, each rounded once: -fmad=false); a top-5 list in
-// registers kept sorted by (d2 ascending, T descending) with the plain
-// version's insert: a candidate strictly better than slot s takes the first
-// such slot, the ones below shift down, the fifth falls out; an equal key
-// files below the earlier one.  The count is every candidate taken.  Then
-// tie = key(4th) == key(5th) with a finite 5th, and the first min(count,
-// 4) slots as offsets (dgi, dgj) from the cell and values (zero on unfilled
-// slots), as _extract_q gives them; with SOLVE instead the f64 prediction of
-// _solve_table (below).
+// the plain version reads its planes): the residues (ex, ey) of the cell:
+// where every query of the call is aligned (each cell holds its own
+// query's keys; duplicated cells carry equal ones) read with the query from
+// the (2, n) keys, else from the two f32 planes that the wrapper scatters
+// the aligned queries' keys into (zero elsewhere: a query on a cell no
+// aligned query holds reads 0, as in the plain version); per candidate the
+// variant-0 key d2 = (dx + 0.5)^2 + (dy + 0.5)^2 (exact in f32) and T = ex
+// (2 dx + 1) + ey (2 dy + 1) (two products and a sum, each rounded once:
+// -fmad=false); a top-5 list in registers kept sorted by (d2 ascending, T
+// descending) with the plain version's insert: a candidate strictly better
+// than slot s takes the first such slot, the ones below shift down, the
+// fifth falls out; an equal key files below the earlier one.  The count is
+// every candidate taken.  Then tie = key(4th) == key(5th) with a finite
+// 5th, and the first min(count, 4) slots as offsets (dgi, dgj) from the
+// cell and values (zero on unfilled slots), as _extract_q gives them; with
+// SOLVE instead the f64 prediction of _solve_table (below).
 //
-// B14, per query: its anchor (ci, cj) (int64, the plain version's
-// arithmetic: an anchor far outside the grid wraps as torch's int64 adds
-// do) and the candidates in collection order into a thread-local list: at
-// most 3 held before the last segment and that segment's lanes, 2 (2R + 1)
-// = 42 at R = 10, so 45 entries.  Keys: KEY 0 the variant's d2 and T (the
-// anchor variant v shifts the lane by (-(v >> 1), -(v & 1)); d2 and T as in
-// B13); KEY 1 the f64 distance sqrt(di*di + dj*dj) with di = (gi + 0.5) - x,
-// three rounded operations and IEEE sqrt, as the reference computes it.
-// Then GridH.cpp:123-140's four passes over the list: pass m takes the
-// minimum key among positions >= m (KEY 0: the least d2, then the largest
-// T among those), the lowest position on a tie, and swaps positions m and
-// that one (the plain version's swap of the position plane).  A NaN among
-// the keys a pass compares makes its minimum NaN in the plain version's
-// amin/amax, so that pass takes nothing; so does the kernel.  Slot m holds
-// the pick's value + 0 (the plain version's one-hot sum, which turns -0
-// into +0) and its (gi, gj) as int32, zeros where nothing was picked;
+// B14, per query: its anchor (ci, cj) (int64; no lane of an anchor more
+// than R cells off the grid lies in it, also where torch's int64 adds
+// wrap) and the candidates in collection order, the list of the plain
+// version.  Keys: KEY 0 the variant's d2 and T (the anchor variant v
+// shifts the lane by (-(v >> 1), -(v & 1)); d2 and T as in B13); KEY 1 the
+// f64 distance sqrt(di*di + dj*dj) with di = (gi + 0.5) - x, three rounded
+// operations and IEEE sqrt, as the reference computes it.  GridH.cpp:123-
+// 140's four passes: pass m takes the least key among positions >= m
+// (KEY 0: the least d2, then the largest T among those), the lowest
+// position on a tie, and swaps positions m and that one.  The list itself
+// is not kept.  An entry at position 4 or later moves only when a pass
+// takes it, and a pass that takes one from there takes the least of them
+// by (key, position); so the four passes need the list's first four
+// entries and, of the rest, the four least by (key, position): a top-4
+// kept with B13's insert.  The passes run on these eight in registers,
+// each entry with its current position.  A NaN: the plain version's pass
+// finds its amin/amax NaN where a NaN key is among those it compares, takes
+// nothing and moves the entry at position m past every other, so the same
+// keys are compared again and every later pass takes nothing too.  KEY 1:
+// a NaN distance is never taken, so any NaN in the list empties every
+// slot.  KEY 0 (d2 is never NaN): a pass compares T only among the entries
+// of the least d2, so the kernel keeps the least d2 of an entry with a NaN
+// T, and the passes stop at the first whose least d2 reaches it.  Slot m
+// holds the pick's value + 0 (the plain version's one-hot sum, which turns
+// -0 into +0) and its (gi, gj) as int32, zeros where nothing was picked;
 // found is the list's length.  With SOLVE (KEY 0 only) the slots become
 // offsets from the query's own cell (qcol, qrow) and go through the table
 // solve.
@@ -82,19 +99,23 @@
 // version's flat ones; they lie in the table for every query whose anchor
 // is its cell, and are wrapped and clamped into it for any other.
 //
-// What bounds them on the H100.  B13 reads per query its cell index (8 B),
+// What bounds them on the H100.  Per query B13 reads its cell index (8 B),
 // its two residues (8 B), the validity of the lanes it walks (9-25 at the
 // stand-in's 10 % removal, 441 where a cell never holds 4) and 4 values,
-// and writes 45 B (select) or 9 B (solve): bytes, not operations (~10 f32
-// operations a lane; ~200 f64 ones for the solve).  Against the plain
-// version's ~20 whole-plane torch ops a lane on (5, H, W) slot planes, it
-// reads the planes only at the query cells (501,137 threads, not 5M
-// cells), keeps the top-5 in registers and ends each thread at its own
-// stop.  B14 reads the same lanes per query and no (N, 441) temporaries;
-// the 45-entry list is in local memory (L1), and its 4 passes compare at
-// most 4 x 45 keys.  The tables of the solve go through the read-only
-// cache (__ldg, 17 KB).  One thread per query in blocks of 256; threads of
-// a warp walk the same lane together until they stop.
+// and writes 45 B (select) or 9 B (solve): bytes, not operations.  The
+// queries come in random order, so each lane read is a sector of its own:
+// as an f64 plane the validity (40 MB at the stand-in) and the elevation
+// do not stay in the 50 MB L2 together.  Where the queries number at least 1/32 of
+// the grid's cells the launch first builds the bit plane (one bit a cell,
+// flat, 627 KB at the stand-in: bits_kernel, one coalesced pass over the
+// validity plane, its launch counted in the kernels' time), which stays in
+// the L2, and a span of a segment is one or two words; fewer queries read
+// the validity plane itself, a span's cells loaded together (the pass
+// over the whole plane would cost more than it saves).  Either way the
+// 3x3 block's three rows are fetched together before the first test.  A
+// 45-entry list would take 456 B of local memory a thread; B14's eight
+// entries live in registers.  The tables of the solve go through the
+// read-only cache (__ldg, 17 KB).  One thread per query in blocks of 256.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -103,34 +124,155 @@
 namespace {
 
 constexpr int kR = 10;            // the callers' radius; the wrapper refuses any other
-constexpr int kMaxList = 45;      // 3 held + the longest segment, 2 (2 kR + 1)
 constexpr int kWp = 4 * kR + 1;   // gpair's side
 constexpr int kWq = 2 * kR + 1;   // gq's side
 constexpr int kThreads = 256;
 
-// The lanes of one anchor in collection order: lane(dx, dy) for each,
-// seg_end() after the last lane of each segment; the walk ends where
-// seg_end() returns true.
-template <class Lane, class SegEnd>
-__device__ __forceinline__ void ring_walk(Lane& lane, SegEnd& seg_end) {
-  lane(0, 0);
-  if (seg_end()) return;
-#pragma unroll 1
-  for (int r = 1; r <= kR; ++r) {
-#pragma unroll 1
-    for (int dx = -r; dx <= r; ++dx) {
-      lane(dx, -r);
-      lane(dx, r);
+// ---------------------------------------------------------------------------
+// the validity bit plane and the walk over it
+// ---------------------------------------------------------------------------
+
+// Four cells a thread, a warp's 128 cells as 4 words: bit c % 32 of word
+// c / 32 is flat cell c's, set where valid > 0.5 (a NaN is 0); the bits
+// past the last cell are 0.  vec: valid lies on 16 bytes, so a thread's
+// four cells are one (f32) or two (f64) 16-byte loads.
+template <typename T>
+__global__ void __launch_bounds__(kThreads) bits_kernel(const T* __restrict__ valid, long long cells, bool vec,
+                                                        uint32_t* __restrict__ bits) {
+  const long long t = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if ((t & ~31LL) * 4 >= cells) return;  // whole warps: the warp's first cell lies past the plane
+  const long long c = t * 4;
+  T v[4];
+  if (vec && c + 3 < cells) {
+    if constexpr (sizeof(T) == 4) {
+      const float4 q = __ldg(reinterpret_cast<const float4*>(valid + c));
+      v[0] = q.x, v[1] = q.y, v[2] = q.z, v[3] = q.w;
+    } else {
+      const double2 q0 = __ldg(reinterpret_cast<const double2*>(valid + c));
+      const double2 q1 = __ldg(reinterpret_cast<const double2*>(valid + c) + 1);
+      v[0] = q0.x, v[1] = q0.y, v[2] = q1.x, v[3] = q1.y;
     }
-    if (seg_end()) return;
+  } else {
+#pragma unroll
+    for (int k = 0; k < 4; ++k) v[k] = c + k < cells ? valid[c + k] : (T)0;
+  }
+  uint32_t w = 0u;
+#pragma unroll
+  for (int k = 0; k < 4; ++k) w |= (uint32_t)(v[k] > (T)0.5) << k;
+  w <<= 4 * (threadIdx.x & 7);
+  w |= __shfl_xor_sync(0xffffffffu, w, 1);
+  w |= __shfl_xor_sync(0xffffffffu, w, 2);
+  w |= __shfl_xor_sync(0xffffffffu, w, 4);
+  if ((threadIdx.x & 7) == 0 && c < cells) bits[c >> 5] = w;
+}
+
+// The validity as the walk reads it.  span(gj, c0, n): cells c0 .. c0 +
+// n - 1 (n <= 21) of row gj as bits 0 .. n - 1, set where the cell lies in
+// the grid and is valid; ends(gj, c0, n): bits 0 and n - 1 of it (a
+// left/right segment's two cells in that row).
+struct BitPlane {
+  const uint32_t* __restrict__ p;  // the flat bit plane of bits_kernel
+  int H, W;
+
+  // the one or two words a span touches, both loaded before either is used
+  __device__ __forceinline__ uint32_t span(int gj, int c0, int n) const {
+    if ((unsigned)gj >= (unsigned)H) return 0u;
+    const int lo = max(c0, 0), hi = min(c0 + n, W);
+    if (lo >= hi) return 0u;
+    const long long f0 = (long long)gj * W + lo, f1 = (long long)gj * W + hi - 1;
+    const uint32_t a = __ldg(p + (f0 >> 5)), b = __ldg(p + (f1 >> 5));
+    const uint64_t v = (uint64_t)a | ((f1 >> 5) != (f0 >> 5) ? (uint64_t)b << 32 : 0ull);
+    return (uint32_t)(((v >> (f0 & 31)) & ((1ull << (hi - lo)) - 1ull)) << (lo - c0));
+  }
+  __device__ __forceinline__ uint32_t ends(int gj, int c0, int n) const { return span(gj, c0, n); }
+};
+
+template <typename T>
+struct ValuePlane {
+  const T* __restrict__ p;  // the (H, W) validity plane
+  int H, W;
+
+  // a span's cells, loaded together
+  __device__ __forceinline__ uint32_t span(int gj, int c0, int n) const {
+    if ((unsigned)gj >= (unsigned)H) return 0u;
+    const int lo = max(c0, 0), hi = min(c0 + n, W);
+    const T* r = p + (long long)gj * W;
+    uint32_t m = 0u;
+#pragma unroll 3
+    for (int c = lo; c < hi; ++c) m |= (uint32_t)(__ldg(r + c) > (T)0.5) << (c - c0);
+    return m;
+  }
+  __device__ __forceinline__ uint32_t ends(int gj, int c0, int n) const {
+    if ((unsigned)gj >= (unsigned)H) return 0u;
+    const T* r = p + (long long)gj * W;
+    const int c1 = c0 + n - 1;
+    const bool a = c0 >= 0 && c0 < W && __ldg(r + c0) > (T)0.5;
+    const bool b = c1 >= 0 && c1 < W && __ldg(r + c1) > (T)0.5;
+    return (uint32_t)a | ((uint32_t)b << (n - 1));
+  }
+};
+
+// bit k of x to bit 2k
+__device__ __forceinline__ uint64_t spread(uint32_t x) {
+  uint64_t v = x;
+  v = (v | (v << 16)) & 0x0000FFFF0000FFFFull;
+  v = (v | (v << 8)) & 0x00FF00FF00FF00FFull;
+  v = (v | (v << 4)) & 0x0F0F0F0F0F0F0F0Full;
+  v = (v | (v << 2)) & 0x3333333333333333ull;
+  v = (v | (v << 1)) & 0x5555555555555555ull;
+  return v;
+}
+
+// A segment's two masks in collection order: bit 2k the first's bit k,
+// bit 2k + 1 the second's.
+__device__ __forceinline__ uint64_t interleave(uint32_t first, uint32_t second) {
+  return spread(first) | (spread(second) << 1);
+}
+
+// The candidates of anchor (ci, cj) in collection order: take(dx, dy) for
+// each valid lane in the grid, held() after each segment; the walk ends
+// where held() is true.
+template <class Plane, class Take, class Held>
+__device__ __forceinline__ void ring_walk(const Plane& bp, int ci, int cj, Take& take, Held& held) {
+  // ring 0 and ring 1 from the 3x3 block's rows, fetched together
+  const uint32_t up = bp.span(cj - 1, ci - 1, 3), mid = bp.span(cj, ci - 1, 3), dn = bp.span(cj + 1, ci - 1, 3);
+  if (mid & 2u) take(0, 0);
+  if (held()) return;
+  for (uint64_t m = interleave(up, dn); m != 0ull; m &= m - 1ull) {
+    const int b = __ffsll((long long)m) - 1;
+    take((b >> 1) - 1, (b & 1) ? 1 : -1);
+  }
+  if (held()) return;
+  if (mid & 1u) take(-1, 0);
+  if (mid & 4u) take(1, 0);
+  if (held()) return;
 #pragma unroll 1
-    for (int dy = -r + 1; dy < r; ++dy) {
-      lane(-r, dy);
-      lane(r, dy);
+  for (int r = 2; r <= kR; ++r) {
+    const int n = 2 * r + 1;
+    const uint32_t top = bp.span(cj - r, ci - r, n), bot = bp.span(cj + r, ci - r, n);
+    for (uint64_t m = interleave(top, bot); m != 0ull; m &= m - 1ull) {
+      const int b = __ffsll((long long)m) - 1;
+      take((b >> 1) - r, (b & 1) ? r : -r);
     }
-    if (seg_end()) return;
+    if (held()) return;
+    uint32_t left = 0u, right = 0u;
+#pragma unroll 4
+    for (int k = 0; k < n - 2; ++k) {
+      const uint32_t w = bp.ends(cj - r + 1 + k, ci - r, n);
+      left |= (w & 1u) << k;
+      right |= ((w >> (n - 1)) & 1u) << k;
+    }
+    for (uint64_t m = interleave(left, right); m != 0ull; m &= m - 1ull) {
+      const int b = __ffsll((long long)m) - 1;
+      take((b & 1) ? r : -r, (b >> 1) - r + 1);
+    }
+    if (held()) return;
   }
 }
+
+// ---------------------------------------------------------------------------
+// the table solve
+// ---------------------------------------------------------------------------
 
 // A flat index of a lattice table as the plain version's gather takes it:
 // a negative index counts from the end (torch indexing); clamped into the
@@ -206,9 +348,11 @@ __device__ double table_solve(int found, const double (&v)[4], const long long (
 template <typename T>
 struct DenseArgs {
   const T* elev;
-  const T* valid;
+  const T* valid;         // !BITS: the walk reads it
+  const uint32_t* bits;   // BITS: the walk reads bits_kernel's plane
   int H, W;
-  const float* res;       // (2, H*W): the ex plane, then the ey plane
+  const float* res;       // aligned: (2, n) keys, ex then ey; else (2, H*W) planes
+  bool aligned;
   const int64_t* flat;    // (n,) query cells, in the plane
   int n;
   const double* gpair;    // SOLVE
@@ -222,17 +366,19 @@ struct DenseArgs {
   double* pred;           // SOLVE: (n,)
 };
 
-template <typename T, bool SOLVE>
+template <typename T, bool SOLVE, bool BITS>
 __global__ void __launch_bounds__(kThreads) dense_kernel(const DenseArgs<T> a) {
   const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= a.n) return;
-  const long long hw = (long long)a.H * a.W;
+  const int W = a.W;
+  const long long hw = (long long)a.H * W;
   // the callers pass cells in the plane; the clamp only keeps reads in it
   const long long cell = min(max((long long)a.flat[i], 0LL), hw - 1);
-  const int row = (int)(cell / a.W);
-  const int col = (int)(cell - (long long)row * a.W);
-  const float ex = a.res[cell];
-  const float ey = a.res[hw + cell];
+  const int row = (int)(cell / W);
+  const int col = (int)(cell - (long long)row * W);
+  const long long at = a.aligned ? i : cell;
+  const float ex = a.res[at];
+  const float ey = a.res[(a.aligned ? (long long)a.n : hw) + at];
 
   float d2[5], tk[5];
   int sx[5], sy[5];
@@ -244,11 +390,7 @@ __global__ void __launch_bounds__(kThreads) dense_kernel(const DenseArgs<T> a) {
     sy[s] = 0;
   }
   int count = 0;
-  auto lane = [&](int dx, int dy) {
-    const int gi = col + dx;
-    const int gj = row + dy;
-    if (gi < 0 || gi >= a.W || gj < 0 || gj >= a.H) return;
-    if (!(a.valid[(long long)gj * a.W + gi] > (T)0.5)) return;
+  auto take = [&](int dx, int dy) {
     const float fx = (float)dx + 0.5f;
     const float fy = (float)dy + 0.5f;
     const float kd = fx * fx + fy * fy;
@@ -281,8 +423,11 @@ __global__ void __launch_bounds__(kThreads) dense_kernel(const DenseArgs<T> a) {
     }
     ++count;
   };
-  auto seg_end = [&]() { return count >= 4; };
-  ring_walk(lane, seg_end);
+  auto held = [&]() { return count >= 4; };
+  if constexpr (BITS)
+    ring_walk(BitPlane{a.bits, a.H, W}, col, row, take, held);
+  else
+    ring_walk(ValuePlane<T>{a.valid, a.H, W}, col, row, take, held);
 
   a.tie[i] = (d2[3] == d2[4]) && (tk[3] == tk[4]) && isfinite(d2[4]);
   const int k = count < 4 ? count : 4;
@@ -294,7 +439,7 @@ __global__ void __launch_bounds__(kThreads) dense_kernel(const DenseArgs<T> a) {
     dgi[s] = filled ? sx[s] : 0;
     dgj[s] = filled ? sy[s] : 0;
     // a filled slot lies in the grid: the plain version's clamp is a no-op
-    v[s] = filled ? a.elev[(long long)(row + sy[s]) * a.W + (col + sx[s])] : (T)0;
+    v[s] = filled ? a.elev[(long long)(row + sy[s]) * W + (col + sx[s])] : (T)0;
   }
   if constexpr (SOLVE) {
     double v64[4];
@@ -319,7 +464,8 @@ __global__ void __launch_bounds__(kThreads) dense_kernel(const DenseArgs<T> a) {
 template <typename T>
 struct RingArgs {
   const T* elev;
-  const T* valid;
+  const T* valid;         // !BITS: the walk reads it
+  const uint32_t* bits;   // BITS: the walk reads bits_kernel's plane
   int H, W;
   const int64_t* ci;      // (n,) anchors
   const int64_t* cj;
@@ -339,7 +485,26 @@ struct RingArgs {
   double* pred;           // SOLVE: (n,)
 };
 
-template <typename T, int KEY, bool SOLVE>
+// An entry's key: KEY 0 (d2, T), KEY 1 the f64 distance in q.
+template <int KEY>
+struct Key {
+  float d, t;
+};
+template <>
+struct Key<1> {
+  double q;
+};
+
+// a strictly before b in the passes' order (KEY 0: d2 ascending, then T
+// descending; KEY 1: the distance ascending); neither a NaN
+__device__ __forceinline__ bool before(const Key<0>& a, const Key<0>& b) {
+  return a.d < b.d || (a.d == b.d && a.t > b.t);
+}
+__device__ __forceinline__ bool before(const Key<1>& a, const Key<1>& b) { return a.q < b.q; }
+__device__ __forceinline__ bool same(const Key<0>& a, const Key<0>& b) { return a.d == b.d && a.t == b.t; }
+__device__ __forceinline__ bool same(const Key<1>& a, const Key<1>& b) { return a.q == b.q; }
+
+template <typename T, int KEY, bool SOLVE, bool BITS>
 __global__ void __launch_bounds__(kThreads) ring_kernel(const RingArgs<T> a) {
   const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= a.n) return;
@@ -359,104 +524,130 @@ __global__ void __launch_bounds__(kThreads) ring_kernel(const RingArgs<T> a) {
     y = ((const double*)a.k1)[i];
   }
 
-  // the list, in position order: KEY 0 keys (kd, kt), KEY 1 key kq
-  float kd[KEY == 0 ? kMaxList : 1], kt[KEY == 0 ? kMaxList : 1];
-  double kq[KEY == 1 ? kMaxList : 1];
-  int8_t lx[kMaxList], ly[kMaxList];
-  int len = 0;
-  auto lane = [&](int dx, int dy) {
-    // int64 as the plain version adds (two's complement wrap)
-    const long long gi = (long long)((unsigned long long)ci + (unsigned long long)(long long)dx);
-    const long long gj = (long long)((unsigned long long)cj + (unsigned long long)(long long)dy);
-    if (gi < 0 || gi >= a.W || gj < 0 || gj >= a.H) return;
-    if (!(a.valid[gj * a.W + gi] > (T)0.5)) return;
-    if (len >= kMaxList) return;  // unreachable: the cutoff bounds the list
+  // Entries 0-3: the list's positions 0-3.  Entries 4-7: of the positions
+  // from 4 on, the non-NaN ones least by (key, position), sorted, nrest of
+  // them.  pos: an entry's current position (the swaps move them).
+  Key<KEY> key[8];
+  int8_t lx[8], ly[8];
+  int pos[8];
+  bool nan0[4];             // a front entry whose key is NaN (never picked)
+  int len = 0, nrest = 0;
+  bool any_nan = false;     // KEY 1: a NaN distance in the list
+  float nan_d2 = __int_as_float(0x7f800000);  // KEY 0: the least d2 of an entry with a NaN T
+#pragma unroll
+  for (int e = 0; e < 8; ++e) {
+    lx[e] = 0;
+    ly[e] = 0;
+    pos[e] = e;
+    if constexpr (KEY == 0) {
+      key[e].d = 0.f;
+      key[e].t = 0.f;
+    } else {
+      key[e].q = 0.0;
+    }
+  }
+#pragma unroll
+  for (int e = 0; e < 4; ++e) nan0[e] = false;
+
+  auto take = [&](int dx, int dy) {
+    Key<KEY> k;
+    bool is_nan;
     if constexpr (KEY == 0) {
       const float fx = (float)(dx + ax) + 0.5f;
       const float fy = (float)(dy + ay) + 0.5f;
-      kd[len] = fx * fx + fy * fy;
-      kt[len] = ex * (float)(2 * (dx + ax) + 1) + ey * (float)(2 * (dy + ay) + 1);
+      k.d = fx * fx + fy * fy;  // quarter-integers: never NaN
+      k.t = ex * (float)(2 * (dx + ax) + 1) + ey * (float)(2 * (dy + ay) + 1);
+      is_nan = k.t != k.t;
+      if (is_nan) nan_d2 = fminf(nan_d2, k.d);
     } else {
-      const double di = ((double)gi + 0.5) - x;
-      const double dj = ((double)gj + 0.5) - y;
-      kq[len] = sqrt(di * di + dj * dj);
+      const double di = ((double)(ci + dx) + 0.5) - x;
+      const double dj = ((double)(cj + dy) + 0.5) - y;
+      k.q = sqrt(di * di + dj * dj);
+      is_nan = k.q != k.q;
+      any_nan = any_nan || is_nan;
     }
-    lx[len] = (int8_t)dx;
-    ly[len] = (int8_t)dy;
+    if (len < 4) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        if (len == e) {
+          key[e] = k;
+          lx[e] = (int8_t)dx;
+          ly[e] = (int8_t)dy;
+          nan0[e] = is_nan;
+        }
+      }
+    } else if (!is_nan) {
+      // B13's insert over entries 4-7: an empty slot takes anything, an
+      // equal key files below the earlier one
+      bool lt[4];
+#pragma unroll
+      for (int s = 0; s < 4; ++s) lt[s] = s >= nrest || before(k, key[4 + s]);
+#pragma unroll
+      for (int s = 3; s >= 0; --s) {
+        if (s > 0 && lt[s - 1]) {
+          key[4 + s] = key[3 + s];
+          lx[4 + s] = lx[3 + s];
+          ly[4 + s] = ly[3 + s];
+          pos[4 + s] = pos[3 + s];
+        } else if (lt[s]) {
+          key[4 + s] = k;
+          lx[4 + s] = (int8_t)dx;
+          ly[4 + s] = (int8_t)dy;
+          pos[4 + s] = len;
+        }
+      }
+      nrest = nrest < 4 ? nrest + 1 : 4;
+    }
     ++len;
   };
-  auto seg_end = [&]() { return len >= 4; };
-  ring_walk(lane, seg_end);
+  auto held = [&]() { return len >= 4; };
+  // a lane (ci + dx, cj + dy), |dx|, |dy| <= R, lies in the grid only for
+  // an anchor within R of it, where the int64 adds cannot wrap
+  if (ci >= -kR && ci <= (long long)a.W - 1 + kR && cj >= -kR && cj <= (long long)a.H - 1 + kR) {
+    if constexpr (BITS)
+      ring_walk(BitPlane{a.bits, a.H, a.W}, (int)ci, (int)cj, take, held);
+    else
+      ring_walk(ValuePlane<T>{a.valid, a.H, a.W}, (int)ci, (int)cj, take, held);
+  }
 
   T v[4];
   long long gi[4], gj[4];
+  bool stop = KEY == 1 && any_nan;
 #pragma unroll
   for (int m = 0; m < 4; ++m) {
-    int kpos = -1;
-    if constexpr (KEY == 0) {
-      // the least d2 among positions >= m (a NaN makes it NaN: no pick)
-      float mn = 0.f;
-      bool any = false, nan = false;
-      for (int p = m; p < len; ++p) {
-        const float d = kd[p];
-        if (d != d) {
-          nan = true;
-        } else if (!any || d < mn) {
-          mn = d;
-          any = true;
-        }
+    // the least entry by (key, current position) among positions >= m
+    int best = -1, bpos = 0, bx = 0, by = 0;
+    Key<KEY> bk = key[0];
+#pragma unroll
+    for (int e = 0; e < 8; ++e) {
+      const bool live = e < 4 ? (e < len && !nan0[e]) : (e - 4 < nrest);
+      if (live && pos[e] >= m &&
+          (best < 0 || before(key[e], bk) || (same(key[e], bk) && pos[e] < bpos))) {
+        best = e;
+        bk = key[e];
+        bpos = pos[e];
+        bx = lx[e];
+        by = ly[e];
       }
-      // then the largest T among those, the lowest position on a tie
-      float mx = 0.f;
-      bool nan2 = false;
-      if (!nan) {
-        for (int p = m; p < len; ++p) {
-          if (!(kd[p] == mn)) continue;
-          const float t = kt[p];
-          if (t != t) {
-            nan2 = true;
-          } else if (kpos < 0 || t > mx) {
-            mx = t;
-            kpos = p;
-          }
-        }
-      }
-      if (nan || nan2) kpos = -1;
-    } else {
-      double mn = 0.0;
-      bool nan = false;
-      for (int p = m; p < len; ++p) {
-        const double d = kq[p];
-        if (d != d) {
-          nan = true;
-        } else if (kpos < 0 || d < mn) {
-          mn = d;
-          kpos = p;
-        }
-      }
-      if (nan) kpos = -1;
     }
-    if (kpos >= 0) {
-      gi[m] = ci + lx[kpos];
-      gj[m] = cj + ly[kpos];
+    if constexpr (KEY == 0) {
+      // an entry with a NaN T among the least d2 compared: no pick
+      stop = stop || best < 0 || nan_d2 <= bk.d;
+    } else {
+      stop = stop || best < 0;
+    }
+    if (!stop) {
+      gi[m] = ci + bx;
+      gj[m] = cj + by;
       v[m] = a.elev[gj[m] * a.W + gi[m]] + (T)0;
-      // swap positions m and kpos
-      if constexpr (KEY == 0) {
-        const float td = kd[m], tt = kt[m];
-        kd[m] = kd[kpos];
-        kt[m] = kt[kpos];
-        kd[kpos] = td;
-        kt[kpos] = tt;
-      } else {
-        const double tq = kq[m];
-        kq[m] = kq[kpos];
-        kq[kpos] = tq;
+      // swap positions m and bpos
+#pragma unroll
+      for (int e = 0; e < 8; ++e) {
+        if (e == best)
+          pos[e] = m;
+        else if (pos[e] == m)
+          pos[e] = bpos;
       }
-      const int8_t tx = lx[m], ty = ly[m];
-      lx[m] = lx[kpos];
-      ly[m] = ly[kpos];
-      lx[kpos] = tx;
-      ly[kpos] = ty;
     } else {
       gi[m] = 0;
       gj[m] = 0;
@@ -488,18 +679,39 @@ __global__ void __launch_bounds__(kThreads) ring_kernel(const RingArgs<T> a) {
   }
 }
 
-unsigned blocks_for(int n) { return (unsigned)((n + kThreads - 1) / kThreads); }
+unsigned blocks_for(long long n) { return (unsigned)((n + kThreads - 1) / kThreads); }
+
+// bits null: the walk reads valid; else bits_kernel's plane of valid into
+// bits (ceil(H * W / 32) words) first
+template <typename T>
+void launch_bits(const void* valid, int H, int W, void* bits, cudaStream_t st) {
+  if (bits == nullptr) return;
+  const long long cells = (long long)H * W;
+  const bool vec = reinterpret_cast<uintptr_t>(valid) % 16 == 0;
+  bits_kernel<T><<<blocks_for((cells + 3) / 4), kThreads, 0, st>>>((const T*)valid, cells, vec, (uint32_t*)bits);
+}
+
+template <typename T, bool SOLVE>
+void dense_on(const DenseArgs<T>& a, cudaStream_t st) {
+  if (a.bits != nullptr)
+    dense_kernel<T, SOLVE, true><<<blocks_for(a.n), kThreads, 0, st>>>(a);
+  else
+    dense_kernel<T, SOLVE, false><<<blocks_for(a.n), kThreads, 0, st>>>(a);
+}
 
 template <typename T>
-int launch_dense(const void* elev, const void* valid, int H, int W, const void* res, const void* flat, int n,
-                 const void* gpair, const void* gq, double pivot_tol, void* found, void* tie, void* vals,
-                 void* dgi, void* dgj, void* pred, cudaStream_t st) {
+int launch_dense(const void* elev, const void* valid, int H, int W, const void* res, int aligned, const void* flat,
+                 int n, const void* gpair, const void* gq, double pivot_tol, void* found, void* tie, void* vals,
+                 void* dgi, void* dgj, void* pred, void* bits, cudaStream_t st) {
+  launch_bits<T>(valid, H, W, bits, st);
   DenseArgs<T> a;
   a.elev = (const T*)elev;
   a.valid = (const T*)valid;
+  a.bits = (const uint32_t*)bits;
   a.H = H;
   a.W = W;
   a.res = (const float*)res;
+  a.aligned = aligned != 0;
   a.flat = (const int64_t*)flat;
   a.n = n;
   a.gpair = (const double*)gpair;
@@ -512,20 +724,30 @@ int launch_dense(const void* elev, const void* valid, int H, int W, const void* 
   a.dgj = (int64_t*)dgj;
   a.pred = (double*)pred;
   if (pred != nullptr)
-    dense_kernel<T, true><<<blocks_for(n), kThreads, 0, st>>>(a);
+    dense_on<T, true>(a, st);
   else
-    dense_kernel<T, false><<<blocks_for(n), kThreads, 0, st>>>(a);
+    dense_on<T, false>(a, st);
   return (int)cudaGetLastError();
+}
+
+template <typename T, int KEY, bool SOLVE>
+void ring_on(const RingArgs<T>& a, cudaStream_t st) {
+  if (a.bits != nullptr)
+    ring_kernel<T, KEY, SOLVE, true><<<blocks_for(a.n), kThreads, 0, st>>>(a);
+  else
+    ring_kernel<T, KEY, SOLVE, false><<<blocks_for(a.n), kThreads, 0, st>>>(a);
 }
 
 template <typename T>
 int launch_ring(const void* elev, const void* valid, int H, int W, const void* ci, const void* cj, int n, int key,
                 const void* variant, const void* k0, const void* k1, const void* qcol, const void* qrow,
                 const void* gpair, const void* gq, double pivot_tol, void* found, void* sel_val, void* sel_gi,
-                void* sel_gj, void* pred, cudaStream_t st) {
+                void* sel_gj, void* pred, void* bits, cudaStream_t st) {
+  launch_bits<T>(valid, H, W, bits, st);
   RingArgs<T> a;
   a.elev = (const T*)elev;
   a.valid = (const T*)valid;
+  a.bits = (const uint32_t*)bits;
   a.H = H;
   a.W = W;
   a.ci = (const int64_t*)ci;
@@ -545,49 +767,79 @@ int launch_ring(const void* elev, const void* valid, int H, int W, const void* c
   a.sel_gj = (int32_t*)sel_gj;
   a.pred = (double*)pred;
   if (key == 1)
-    ring_kernel<T, 1, false><<<blocks_for(n), kThreads, 0, st>>>(a);
+    ring_on<T, 1, false>(a, st);
   else if (pred != nullptr)
-    ring_kernel<T, 0, true><<<blocks_for(n), kThreads, 0, st>>>(a);
+    ring_on<T, 0, true>(a, st);
   else
-    ring_kernel<T, 0, false><<<blocks_for(n), kThreads, 0, st>>>(a);
+    ring_on<T, 0, false>(a, st);
   return (int)cudaGetLastError();
 }
+
+// every build the wrappers launch, in auvtpu_exact_attributes' order
+const void* const kBuilds[] = {
+    (const void*)bits_kernel<float>,
+    (const void*)bits_kernel<double>,
+    // per grid dtype B13 (select, solve) and B14 (KEY 0, KEY 0 with the
+    // solve, KEY 1), walking the bit plane, then reading valid
+    (const void*)dense_kernel<float, false, true>,
+    (const void*)dense_kernel<float, true, true>,
+    (const void*)ring_kernel<float, 0, false, true>,
+    (const void*)ring_kernel<float, 0, true, true>,
+    (const void*)ring_kernel<float, 1, false, true>,
+    (const void*)dense_kernel<double, false, true>,
+    (const void*)dense_kernel<double, true, true>,
+    (const void*)ring_kernel<double, 0, false, true>,
+    (const void*)ring_kernel<double, 0, true, true>,
+    (const void*)ring_kernel<double, 1, false, true>,
+    (const void*)dense_kernel<float, false, false>,
+    (const void*)dense_kernel<float, true, false>,
+    (const void*)ring_kernel<float, 0, false, false>,
+    (const void*)ring_kernel<float, 0, true, false>,
+    (const void*)ring_kernel<float, 1, false, false>,
+    (const void*)dense_kernel<double, false, false>,
+    (const void*)dense_kernel<double, true, false>,
+    (const void*)ring_kernel<double, 0, false, false>,
+    (const void*)ring_kernel<double, 0, true, false>,
+    (const void*)ring_kernel<double, 1, false, false>,
+};
 
 }  // namespace
 
 extern "C" {
 
 // B13.  elev, valid: (H, W) f32 (f64 = 0) or f64 (f64 = 1), contiguous;
-// res: (2, H*W) f32 residue planes; flat: (n,) int64 query cells in
-// [0, H*W).  pred null: the selection, found (n,) int32, tie (n,) uint8,
-// vals (4, n) in the grid's dtype, dgi and dgj (4, n) int64.  pred (n,)
-// f64: the table solve with gpair ((4R+1)^2 f64) and gq ((2R+1)^2 f64),
-// and tie; found, vals, dgi and dgj unused.  Returns the launch's
-// cudaError_t.
-int auvtpu_exact_dense(int f64, const void* elev, const void* valid, int H, int W, const void* res,
+// res: aligned 1, the (2, n) f32 keys of the queries, every query aligned
+// on its own cell; aligned 0, the (2, H*W) f32 residue planes; flat: (n,)
+// int64 query cells in [0, H*W); bits: null (the walk reads valid) or
+// ceil(H * W / 32) int32 scratch for the bit plane (built first).  pred
+// null: the selection, found (n,) int32, tie (n,) uint8, vals (4, n) in
+// the grid's dtype, dgi and dgj (4, n) int64.  pred (n,) f64: the table
+// solve with gpair ((4R+1)^2 f64) and gq ((2R+1)^2 f64), and tie; found,
+// vals, dgi and dgj unused.  Returns the launches' cudaError_t.
+int auvtpu_exact_dense(int f64, const void* elev, const void* valid, int H, int W, const void* res, int aligned,
                        const void* flat, int n, const void* gpair, const void* gq, double pivot_tol, void* found,
-                       void* tie, void* vals, void* dgi, void* dgj, void* pred, void* stream) {
+                       void* tie, void* vals, void* dgi, void* dgj, void* pred, void* bits, void* stream) {
   if (H < 1 || W < 1 || n < 0 || (pred != nullptr && (gpair == nullptr || gq == nullptr)) ||
       (pred == nullptr && (found == nullptr || vals == nullptr || dgi == nullptr || dgj == nullptr)))
     return (int)cudaErrorInvalidValue;
   if (n == 0) return (int)cudaSuccess;
   cudaStream_t st = (cudaStream_t)stream;
-  return f64 ? launch_dense<double>(elev, valid, H, W, res, flat, n, gpair, gq, pivot_tol, found, tie, vals, dgi,
-                                    dgj, pred, st)
-             : launch_dense<float>(elev, valid, H, W, res, flat, n, gpair, gq, pivot_tol, found, tie, vals, dgi,
-                                   dgj, pred, st);
+  return f64 ? launch_dense<double>(elev, valid, H, W, res, aligned, flat, n, gpair, gq, pivot_tol, found, tie,
+                                    vals, dgi, dgj, pred, bits, st)
+             : launch_dense<float>(elev, valid, H, W, res, aligned, flat, n, gpair, gq, pivot_tol, found, tie, vals,
+                                   dgi, dgj, pred, bits, st);
 }
 
-// B14.  elev, valid as for B13; ci, cj: (n,) int64 anchors.  key 0:
+// B14.  elev, valid, bits as for B13; ci, cj: (n,) int64 anchors.  key 0:
 // variant (n,) int32 and k0, k1 the f32 keys (ex, ey); key 1: k0, k1 the
 // f64 grid coordinates (x, y).  pred null: found (n,) int32, sel_val
 // (n, 4) in the grid's dtype, sel_gi and sel_gj (n, 4) int32.  pred (n,)
 // f64 (key 0 only): the table solve with offsets from the query cells
-// (qcol, qrow) (n,) int64.  Returns the launch's cudaError_t.
+// (qcol, qrow) (n,) int64.  Returns the launches' cudaError_t.
 int auvtpu_exact_ring(int f64, const void* elev, const void* valid, int H, int W, const void* ci, const void* cj,
                       int n, int key, const void* variant, const void* k0, const void* k1, const void* qcol,
                       const void* qrow, const void* gpair, const void* gq, double pivot_tol, void* found,
-                      void* sel_val, void* sel_gi, void* sel_gj, void* pred, void* stream) {
+                      void* sel_val, void* sel_gi, void* sel_gj, void* pred, void* bits, void* stream) {
   if (H < 1 || W < 1 || n < 0 || (key != 0 && key != 1) || (key == 0 && variant == nullptr) ||
       (pred != nullptr && (key != 0 || qcol == nullptr || qrow == nullptr || gpair == nullptr || gq == nullptr)) ||
       (pred == nullptr && (found == nullptr || sel_val == nullptr || sel_gi == nullptr || sel_gj == nullptr)))
@@ -595,9 +847,26 @@ int auvtpu_exact_ring(int f64, const void* elev, const void* valid, int H, int W
   if (n == 0) return (int)cudaSuccess;
   cudaStream_t st = (cudaStream_t)stream;
   return f64 ? launch_ring<double>(elev, valid, H, W, ci, cj, n, key, variant, k0, k1, qcol, qrow, gpair, gq,
-                                   pivot_tol, found, sel_val, sel_gi, sel_gj, pred, st)
+                                   pivot_tol, found, sel_val, sel_gi, sel_gj, pred, bits, st)
              : launch_ring<float>(elev, valid, H, W, ci, cj, n, key, variant, k0, k1, qcol, qrow, gpair, gq,
-                                  pivot_tol, found, sel_val, sel_gi, sel_gj, pred, st);
+                                  pivot_tol, found, sel_val, sel_gi, sel_gj, pred, bits, st);
+}
+
+// The resources of build `which` (kBuilds' order) on the current card:
+// registers a thread, local bytes a thread, resident blocks an SM at
+// kThreads a block.  For the resource report of chip_smoke.py.
+int auvtpu_exact_attributes(int which, int* out) {
+  if (which < 0 || which >= (int)(sizeof(kBuilds) / sizeof(kBuilds[0]))) return (int)cudaErrorInvalidValue;
+  cudaFuncAttributes attr;
+  cudaError_t err = cudaFuncGetAttributes(&attr, kBuilds[which]);
+  if (err != cudaSuccess) return (int)err;
+  int blocks = 0;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kBuilds[which], kThreads, 0);
+  if (err != cudaSuccess) return (int)err;
+  out[0] = attr.numRegs;
+  out[1] = (int)attr.localSizeBytes;
+  out[2] = blocks;
+  return 0;
 }
 
 const char* auvtpu_exact_error_string(int err) { return cudaGetErrorString((cudaError_t)err); }

@@ -8,13 +8,22 @@ jitted programs of :mod:`auvtpu.ops.exact_fast` and :mod:`auvtpu.ops.exact`).
   ``ops.exact_fast._dense_select`` with ``_extract_q`` (and
   ``_solve_table``).  :func:`dense_select` serves
   ``exact_select_at_cells_fast``, :func:`dense_krige`
-  ``exact_kriging_at_cells_fast``.
-- B14 (``ring_kernel``): the strict ring selection, one thread per query;
-  replaces the (N, 441) gathers of ``ops.exact._select_chunk`` (cell-aligned
-  keys, :func:`ring_select` with a ``variant``) and
+  ``exact_kriging_at_cells_fast``.  Where every query is aligned
+  (``flat_a`` None) each query's residues are read with it; else from two
+  residue planes the launch scatters the aligned queries' keys into.
+- B14 (``ring_kernel``): the strict ring selection, one thread per query,
+  the list's first four entries and the best four of the rest in
+  registers; replaces the (N, 441) gathers of ``ops.exact._select_chunk``
+  (cell-aligned keys, :func:`ring_select` with a ``variant``) and
   ``_select_chunk_scattered`` (f64 distances, no ``variant``), and in
   :func:`ring_krige` adds the table solve for the two-tier path's escalated
   cells.
+
+Where a call's queries number at least 1 / ``BIT_PLANE_CELLS`` of the
+grid's cells, both walk the grid's validity as a bit plane (one bit a
+cell, ceil(H * W / 32) int32 words) that the launch builds first from
+``valid`` (``bits_kernel``, a second kernel of the same call); fewer
+queries read ``valid`` itself.
 
 Each wrapper goes through its custom op (``auvtpu_torch::exact_dense``,
 ``::exact_dense_krige``, ``::exact_ring``, ``::exact_ring_krige``:
@@ -22,14 +31,16 @@ Each wrapper goes through its custom op (``auvtpu_torch::exact_dense``,
 (``<wrapper>_ref``, the torch functions of :mod:`..ops.exact` and
 :mod:`..ops.exact_fast` as they were before the kernels); on CUDA tensors
 its CUDA implementation (:func:`dense_launch`, :func:`ring_launch`)
-launches the kernel or raises: the kernels are built for radius 10 and
-float32 or float64 grids only.  Each launch adds one to
-``LAUNCHES["exact_dense"]`` or ``LAUNCHES["exact_ring"]``.
+launches the kernel (after the bit plane's build, where it is made) or
+raises: the kernels are built for radius 10 and float32 or float64 grids
+only.  Each launch adds one to ``LAUNCHES["exact_dense"]`` or
+``LAUNCHES["exact_ring"]``.
 """
 
 from __future__ import annotations
 
 import ctypes
+import re
 from functools import lru_cache
 
 import torch
@@ -39,6 +50,11 @@ from . import library
 
 LAUNCHES = {"exact_dense": 0, "exact_ring": 0}
 RADIUS = 10  # the radius the kernels are built for (kR in csrc/exact_select.cu)
+# A launch builds the bit plane where its queries number at least H * W /
+# BIT_PLANE_CELLS: the build reads the whole validity plane once, a walk
+# reads ~7-9 lanes a query at the stand-in's 10 % removal, each a sector of
+# its own (scripts/exact_variant_probe.py times both walks).
+BIT_PLANE_CELLS = 32
 _GRID_DTYPES = (torch.float32, torch.float64)
 
 
@@ -53,10 +69,12 @@ def _lib() -> ctypes.CDLL:
 
     lib = load("exact_select")
     P, I, D = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
-    lib.auvtpu_exact_dense.argtypes = [I, P, P, I, I, P, P, I, P, P, D, P, P, P, P, P, P, P]
+    lib.auvtpu_exact_dense.argtypes = [I, P, P, I, I, P, I, P, I, P, P, D, P, P, P, P, P, P, P, P]
     lib.auvtpu_exact_dense.restype = I
-    lib.auvtpu_exact_ring.argtypes = [I, P, P, I, I, P, P, I, I, P, P, P, P, P, P, P, D, P, P, P, P, P, P]
+    lib.auvtpu_exact_ring.argtypes = [I, P, P, I, I, P, P, I, I, P, P, P, P, P, P, P, D, P, P, P, P, P, P, P]
     lib.auvtpu_exact_ring.restype = I
+    lib.auvtpu_exact_attributes.argtypes = [I, ctypes.POINTER(I)]
+    lib.auvtpu_exact_attributes.restype = I
     lib.auvtpu_exact_error_string.argtypes = [I]
     lib.auvtpu_exact_error_string.restype = ctypes.c_char_p
     return lib
@@ -65,6 +83,59 @@ def _lib() -> ctypes.CDLL:
 def build() -> None:
     """Compile and load the kernels now rather than at the first launch."""
     _lib()
+
+
+def _build_name(kind: str, dtype: str, solve: bool = False, key: int = 0, bits: bool = True) -> str:
+    if kind == "bits":
+        return f"bits_kernel<{dtype}>"
+    walk = "bit plane" if bits else "valid"
+    if kind == "dense":
+        return f"dense_kernel<{dtype}, {'solve' if solve else 'select'}, {walk}>"
+    return f"ring_kernel<{dtype}, KEY {key}{', solve' if solve else ''}, {walk}>"
+
+
+# every build the wrappers launch, in auvtpu_exact_attributes' order
+BUILDS = (_build_name("bits", "float"), _build_name("bits", "double"), *(
+    name for bits in (True, False) for dtype in ("float", "double") for name in (
+        _build_name("dense", dtype, False, bits=bits), _build_name("dense", dtype, True, bits=bits),
+        _build_name("ring", dtype, False, 0, bits), _build_name("ring", dtype, True, 0, bits),
+        _build_name("ring", dtype, False, 1, bits))))
+
+# ptxas's mangled kernel names: the kernel, its dtype, then its int and
+# bool template arguments
+_MANGLED = re.compile(r"(bits|dense|ring)_kernelI([fd])((?:L[ib]\d+E)*)E")
+
+
+def attributes() -> dict:
+    """{build: {registers, local_bytes, blocks_per_sm, spill_bytes}} of
+    every build on the current card: registers and local bytes a thread and
+    resident blocks an SM (at 256 threads a block) from the runtime, spill
+    stores and loads a thread from ptxas's report in the build log."""
+    from .build import library_path
+
+    out = (ctypes.c_int * 3)()
+    res = {}
+    for which, name in enumerate(BUILDS):
+        _raise_on("exact_attributes", _lib().auvtpu_exact_attributes(which, out))
+        res[name] = dict(zip(("registers", "local_bytes", "blocks_per_sm"), out))
+    log = library_path("exact_select").with_suffix(".log").read_text()
+    for m in re.finditer(r"Function properties for (\S+)\n\s*\d+ bytes stack frame, (\d+) bytes spill stores, "
+                         r"(\d+) bytes spill loads", log):
+        k = _MANGLED.search(m.group(1))
+        if k is None:
+            continue
+        kind, t, targs = k.groups()
+        targs = [int(v) for v in re.findall(r"L[ib](\d+)E", targs)]
+        dtype = "float" if t == "f" else "double"
+        if kind == "bits":
+            name = _build_name(kind, dtype)
+        elif kind == "dense":
+            name = _build_name(kind, dtype, bool(targs[0]), bits=bool(targs[1]))
+        else:
+            name = _build_name(kind, dtype, bool(targs[1]), targs[0], bool(targs[2]))
+        if name in res:
+            res[name]["spill_bytes"] = int(m.group(2)) + int(m.group(3))
+    return res
 
 
 # ---------------------------------------------------------------------------
@@ -76,9 +147,11 @@ def dense_select(grid, flat_a, keys, flat_q, *, max_radius: int = RADIUS):
     anchor at the query cells ``flat_q`` ((P,) int64 row * W + col, in the
     plane), with the aligned queries' cells ``flat_a`` ((P_a,) int64) and
     scaled residues ``keys`` ((2, P_a) float32, ex then ey) scattered into
-    the residue planes.  Returns (found (P,) int32, tie (P,) bool, vals (4,
-    P) in the grid's dtype, dgi, dgj (4, P) int64 offsets from the cell),
-    zero on unfilled slots."""
+    the residue planes.  ``flat_a`` None: every query is aligned, ``keys``
+    are the queries' own ((2, P); duplicated cells carry equal ones), the
+    same as ``flat_a`` = ``flat_q``.  Returns (found (P,) int32, tie (P,)
+    bool, vals (4, P) in the grid's dtype, dgi, dgj (4, P) int64 offsets
+    from the cell), zero on unfilled slots."""
     return library.exact_dense(grid.elev, grid.valid, flat_a, keys, flat_q, max_radius)
 
 
@@ -118,9 +191,10 @@ def ring_krige(grid, ci, cj, variant, ex, ey, qcol, qrow, gpair, gq, *, max_radi
 
 def dense_select_ref(elev, valid, flat_a, keys, flat_q, max_radius: int):
     """Plain version of :func:`dense_select`: the whole-plane pass, then its
-    planes at the query cells."""
+    planes at the query cells (``flat_a`` None: the query cells)."""
     from ..ops.exact_fast import _dense_select, _extract_q
 
+    flat_a = flat_q if flat_a is None else flat_a
     count, tie, ln = _dense_select(valid, flat_a, keys[0], keys[1], max_radius=max_radius)
     return _extract_q(count, tie, ln, elev, flat_q, max_radius=max_radius)
 
@@ -187,18 +261,29 @@ def _raise_on(what: str, err: int) -> None:
         raise RuntimeError(f"{what}: CUDA launch failed: {_lib().auvtpu_exact_error_string(err).decode()} ({err})")
 
 
+def _bit_plane(elev, n: int):
+    """Scratch for the bit plane a launch of ``n`` queries builds,
+    ceil(H * W / 32) words, or None where it reads ``valid`` itself."""
+    H, W = elev.shape
+    if n * BIT_PLANE_CELLS < H * W:
+        return None
+    return torch.empty((H * W + 31) // 32, dtype=torch.int32, device=elev.device)
+
+
 def dense_launch(elev, valid, flat_a, keys, flat_q, gpair, gq, max_radius: int):
     """One B13 launch (with the solve where ``gpair`` is given): the CUDA
     implementation of ``auvtpu_torch::exact_dense`` and
-    ``::exact_dense_krige``.  The aligned queries' residues are scattered
-    into two zero planes first (as the plain version and the JAX package
-    do), so a query on any cell reads what the plain version's planes hold
-    there."""
+    ``::exact_dense_krige``.  With ``flat_a`` None every query reads its
+    own keys.  Else the aligned queries' residues are scattered into two
+    zero planes first (as the plain version and the JAX package do), so a
+    query on any cell reads what the plain version's planes hold there."""
     what = "exact_dense_krige" if gpair is not None else "exact_dense"
-    n, n_a = flat_q.shape[0], flat_a.shape[0]
+    n = flat_q.shape[0]
+    n_a = n if flat_a is None else flat_a.shape[0]
     r = max_radius
-    ops = dict(flat_a=(flat_a, torch.int64, (n_a,)), keys=(keys, torch.float32, (2, n_a)),
-               flat_q=(flat_q, torch.int64, (n,)))
+    ops = dict(keys=(keys, torch.float32, (2, n_a)), flat_q=(flat_q, torch.int64, (n,)))
+    if flat_a is not None:
+        ops["flat_a"] = (flat_a, torch.int64, (n_a,))
     if gpair is not None:
         ops.update(gpair=(gpair, torch.float64, (4 * r + 1, 4 * r + 1)), gq=(gq, torch.float64, (2 * r + 1, 2 * r + 1)))
     _check(what, elev, valid, max_radius, **ops)
@@ -218,14 +303,18 @@ def dense_launch(elev, valid, flat_a, keys, flat_q, gpair, gq, max_radius: int):
     if n == 0:
         return outs
     elev, valid, flat_q = elev.contiguous(), valid.contiguous(), flat_q.contiguous()
-    res = torch.zeros((2, H * W), dtype=torch.float32, device=dev)
-    res[:, flat_a] = keys  # an aligned query's residues on its cell (duplicated cells carry equal ones)
+    if flat_a is None:
+        res = keys.contiguous()
+    else:
+        res = torch.zeros((2, H * W), dtype=torch.float32, device=dev)
+        res[:, flat_a] = keys  # an aligned query's residues on its cell (duplicated cells carry equal ones)
     tabs = (gpair.contiguous(), gq.contiguous()) if gpair is not None else (None, None)
+    bits = _bit_plane(elev, n)
     with torch.cuda.device(dev):
         err = _lib().auvtpu_exact_dense(
             int(elev.dtype == torch.float64), elev.data_ptr(), valid.data_ptr(), H, W, res.data_ptr(),
-            flat_q.data_ptr(), n, *(t.data_ptr() if t is not None else None for t in tabs),
-            KrigingConfig().pivot_tol, *ptrs, _stream(dev))
+            int(flat_a is None), flat_q.data_ptr(), n, *(t.data_ptr() if t is not None else None for t in tabs),
+            KrigingConfig().pivot_tol, *ptrs, bits.data_ptr() if bits is not None else None, _stream(dev))
     _raise_on(what, err)
     LAUNCHES["exact_dense"] += 1
     return outs
@@ -263,12 +352,13 @@ def ring_launch(elev, valid, ci, cj, k0, k1, variant, qcol, qrow, gpair, gq, max
         return outs
     elev, valid, ci, cj, k0, k1 = (t.contiguous() for t in (elev, valid, ci, cj, k0, k1))
     opt = [t.contiguous() if t is not None else None for t in (variant, qcol, qrow, gpair, gq)]
+    bits = _bit_plane(elev, n)
     with torch.cuda.device(dev):
         err = _lib().auvtpu_exact_ring(
             int(elev.dtype == torch.float64), elev.data_ptr(), valid.data_ptr(), H, W, ci.data_ptr(),
             cj.data_ptr(), n, int(variant is None), opt[0].data_ptr() if opt[0] is not None else None,
             k0.data_ptr(), k1.data_ptr(), *(t.data_ptr() if t is not None else None for t in opt[1:]),
-            KrigingConfig().pivot_tol, *ptrs, _stream(dev))
+            KrigingConfig().pivot_tol, *ptrs, bits.data_ptr() if bits is not None else None, _stream(dev))
     _raise_on(what, err)
     LAUNCHES["exact_ring"] += 1
     return outs

@@ -416,7 +416,8 @@ window_krige = _op(
 
 # ---------------------------------------------------------------------------
 # B13: exact mode's two-tier dense pass at the query cells flat_q, with the
-# aligned queries' cells flat_a and (2, P_a) float32 residue keys:
+# aligned queries' cells flat_a and (2, P_a) float32 residue keys (flat_a
+# None: every query aligned, (2, P) keys of its own):
 # exact_dense gives (found, tie, vals (4, P), dgi, dgj (4, P) int64),
 # exact_dense_krige (pred (P,) float64, tie) with the lattice tables gpair
 # and gq.  B14: the strict ring selection of (N,) int64 anchors, keyed by
@@ -445,7 +446,7 @@ def _dense_fake(elev, valid, flat_a, keys, flat_q, max_radius):
 
 
 exact_dense = _op(
-    "exact_dense(Tensor elev, Tensor valid, Tensor flat_a, Tensor keys, Tensor flat_q, int max_radius) "
+    "exact_dense(Tensor elev, Tensor valid, Tensor? flat_a, Tensor keys, Tensor flat_q, int max_radius) "
     "-> (Tensor, Tensor, Tensor, Tensor, Tensor)",
     cpu=_dense_cpu, cuda=_dense_cuda, fake=_dense_fake)
 
@@ -468,7 +469,7 @@ def _dense_krige_fake(elev, valid, flat_a, keys, flat_q, gpair, gq, max_radius):
 
 
 exact_dense_krige = _op(
-    "exact_dense_krige(Tensor elev, Tensor valid, Tensor flat_a, Tensor keys, Tensor flat_q, Tensor gpair, "
+    "exact_dense_krige(Tensor elev, Tensor valid, Tensor? flat_a, Tensor keys, Tensor flat_q, Tensor gpair, "
     "Tensor gq, int max_radius) -> (Tensor, Tensor)",
     cpu=_dense_krige_cpu, cuda=_dense_krige_cuda, fake=_dense_krige_fake)
 

@@ -32,8 +32,9 @@ gamma (~1e-9 m); the residue still decides the selection through T.
 
 On the card the dense pass, its extraction and the table solve are one
 launch of B13 (:mod:`auvtpu_torch.kernels.exact_select`, one thread per
-query cell: the planes are only ever read there), and the escalated cells
-one launch of B14 with the same solve; the host reads back the tie flags
+query cell: the planes are only ever read there; where every query is
+aligned no residue plane is made), and the escalated cells one launch of
+B14 with the same solve; the host reads back the tie flags
 (to choose the escalated cells) and the (N,) predictions.  The torch
 functions here (:func:`_dense_select`, :func:`_extract_q`,
 :func:`_solve_table`) are the kernels' plain versions, which the CPU runs.
@@ -194,13 +195,15 @@ def _aligned(q, rows, cols):
 
 def _dense_inputs(grid: RegularGrid, q, rows, cols):
     """The dense pass's operands on the grid's device: the aligned queries'
-    cells (P_a,) and residue keys (2, P_a), every query's cell clipped to
-    the plane (P,), and the host ``aligned`` mask."""
+    cells (P_a,) (None where every query is aligned: each cell then holds
+    its own query's keys) and residue keys (2, P_a), every query's cell
+    clipped to the plane (P,), and the host ``aligned`` mask."""
     H, W = grid.shape
     aligned = _aligned(q, rows, cols)
     flat_np = rows * W + cols
     keys = np.stack([q.ex_key[aligned], q.ey_key[aligned]])
-    return _on(grid, flat_np[aligned]), _on(grid, keys), _on(grid, np.clip(flat_np, 0, H * W - 1)), aligned
+    flat_a = None if aligned.all() else _on(grid, flat_np[aligned])
+    return flat_a, _on(grid, keys), _on(grid, np.clip(flat_np, 0, H * W - 1)), aligned
 
 
 def _dense_at(grid: RegularGrid, q, rows, cols, max_radius: int):

@@ -165,11 +165,19 @@ streaming mosaic and scattered queries on the 3200x4000 Grid A, in phases:
             the finite count and two-tier's escalated count equal), strict
             kriging within 1e-8 m of two-tier with NaN in the same places;
             launch counts zeroed before these calls show B13 and B14 ran,
-            and one B13 launch a dense call; B13 (both builds) and B14
-            (cell-aligned at both anchors, scattered, and with the solve)
-            bit-equal to their plain versions on the 501,137 stand-in cells,
-            a 256x320 grid with 0.5 % of cells observed (no cell stops
-            before ring 10) and 1e5 scattered Grid A queries;
+            and one B13 launch a dense call (the bit plane's build and B13,
+            nothing else, on the aligned path); every build's registers,
+            local bytes, spills and resident blocks; B13 (both builds, on
+            the aligned path and on the residue planes with duplicated
+            cells and non-aligned queries reading another's residue) and
+            B14 (cell-aligned at both anchors with anchors past the grid to
+            the ends of int64, keys that overflow to inf or NaN on some
+            lanes, scattered with NaN and inf coordinates, and with the
+            solve) bit-equal to their plain versions on the 501,137
+            stand-in cells, a 256x320 grid with 0.5 % of cells observed (no
+            cell stops before ring 10), 1e5 scattered Grid A queries and
+            tests/test_torch_cuda.py's edge grids (20 and 45 columns wide,
+            reordered ties, a 45-entry list);
             on 256x320 shelf + seamount grids with awkward decimals at
             removal 0.1/0.5/0.9 the same, the strict selection equal to
             GoldenGrid._ring_select (found, values, ordered gi/gj) and every
@@ -178,8 +186,9 @@ streaming mosaic and scattered queries on the 3200x4000 Grid A, in phases:
             bench_grid_a --selection exact at 1e3 and 1e5 queries, every
             golden validation passed at 1e-9; each call timed on the host
             clock (prepare_exact_queries, dispatch and readbacks apart) and
-            by its device records; B13 and B14 alone, through their
-            wrappers and as plain, beside their byte bounds
+            by its device records; B13 and B14 alone (the bit plane's
+            build included, and apart), through their wrappers (B13 also on
+            the residue planes) and as plain, beside their byte bounds
 20. learned the committed w16 d2 checkpoint
             (results/learned_mid_atlantic_w16d2.npz) fills the stand-in
             r0.10 at f32 and bf16 compute: held-out metrics and nansum at the
@@ -543,12 +552,12 @@ def time_ms(fn, warmup: int = 3, reps: int = 20) -> float:
     return float(np.median(times))
 
 
-def device_ms(fn, match: str | None, reps: int = 30, cold: bool = False, attempts: int = 3) -> float:
+def device_ms(fn, match: str | tuple | None, reps: int = 30, cold: bool = False, attempts: int = 3) -> float:
     """Device duration (ms) of one call of ``fn`` from torch.profiler's
     kernel records (CUPTI), with no host time in it, back to back (the
     inputs warm in the L2) or ``cold`` (a 128 MB write before each call):
     the median duration of the kernels whose name holds ``match``, one a
-    call, or, with no ``match``, the sum over the call's kernels (cold,
+    call (a tuple of names: the sum of each one's), or, with no ``match``, the sum over the call's kernels (cold,
     torch's fills aside) of each one's median times its launches a call.
     The tracer may drop records: those its clock skew puts before the
     session opened, the first of a session and now and then all of them
@@ -572,8 +581,9 @@ def device_ms(fn, match: str | None, reps: int = 30, cold: bool = False, attempt
                    and not e.name.lower().startswith(("memcpy", "memset"))]
         # cold, the scratch writes are torch's fill: a call's own fills are
         # not told apart from them and are left out
+        matches = (match,) if isinstance(match, str) else match
         names = {e.name for e in kernels if not (cold and "FillFunctor" in e.name)} if match is None else {
-            e.name for e in kernels if match in e.name}
+            e.name for e in kernels if any(m in e.name for m in matches)}
         durs = {name: [e.time_range.elapsed_us() for e in kernels if e.name == name] for name in names}
         if match is not None and any(len(d) > reps for d in durs.values()):
             raise RuntimeError(f"{match!r}: more kernel records than calls: { {k: len(d) for k, d in durs.items()} }")
@@ -1090,11 +1100,11 @@ def line_queries(ext, H: int, W: int, device, half_lines: int = 400):
             torch.from_numpy(lats.astype(np.float32)).to(device))
 
 
-def load_script(name: str):
-    """scripts/<name>.py of this checkout as a module."""
+def load_script(name: str, folder: str = "scripts"):
+    """<folder>/<name>.py of this checkout as a module."""
     import importlib.util
 
-    spec = importlib.util.spec_from_file_location(name, os.path.join(REPO, "scripts", f"{name}.py"))
+    spec = importlib.util.spec_from_file_location(name, os.path.join(REPO, folder, f"{name}.py"))
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
     return mod
@@ -3006,21 +3016,64 @@ def main() -> int:
 
     # B13 and B14 against their plain versions at full width: the stand-in's
     # cells (two-tier's operands, strict's anchors at both anchors), then a
-    # sparse grid no cell of which stops before ring 10, then scattered
-    # Grid A queries
+    # sparse grid no cell of which stops before ring 10, the card tests'
+    # edge grids, then scattered Grid A queries; each with B13 on the
+    # residue planes (duplicated cells, non-aligned queries), B14's anchors
+    # past the grid and keys that overflow on some lanes
+    tcuda = load_script("test_torch_cuda", "tests")  # the edge grids and odd keys of the card tests
+
+    def mixed_dense_operands(g, rows_, cols_):
+        """B13's operands for every query's cell, then the first 1000 again
+        and cells past the edges, only the first len(rows_) aligned: on the
+        residue planes, duplicated cells and non-aligned queries reading
+        another query's residue (or 0)."""
+        H, W = g.shape
+        k = min(len(rows_), 1000)
+        rows2 = np.concatenate([rows_, rows_[:k], [-1, 0, H, H + 3]])
+        cols2 = np.concatenate([cols_, cols_[:k], [2, -1, 5, W + 2]])
+        q2 = texact.prepare_exact_queries(g, rows2, cols2)
+        al = tfast._aligned(q2, rows2, cols2)
+        al[len(rows_):] = False
+        flat = rows2 * W + cols2
+        return (texact._on(g, flat[al]), texact._on(g, np.stack([q2.ex_key[al], q2.ey_key[al]])),
+                texact._on(g, np.clip(flat, 0, H * W - 1)))
+
     def exact_kernels_equal(g, rows_, cols_, label: str) -> dict:
         rows_, cols_ = np.asarray(rows_, np.int64), np.asarray(cols_, np.int64)
+        H, W = g.shape
         q_ = texact.prepare_exact_queries(g, rows_, cols_)
         dense_in = tfast._dense_inputs(g, q_, rows_, cols_)[:3]
         tabs = tfast._reference_tables(g, 10)
-        exact_equal(es.dense_select(g, *dense_in), es.dense_select_ref(g.elev, g.valid, *dense_in, 10),
-                    f"B13 {label}")
-        exact_equal(es.dense_krige(g, *dense_in, *tabs), es.dense_krige_ref(g.elev, g.valid, *dense_in, *tabs, 10),
-                    f"B13 solve {label}")
+        for path, d_in in (("aligned" if dense_in[0] is None else "planes", dense_in),
+                           ("planes, mixed", mixed_dense_operands(g, rows_, cols_))):
+            exact_equal(es.dense_select(g, *d_in), es.dense_select_ref(g.elev, g.valid, *d_in, 10),
+                        f"B13 {label} ({path})")
+            exact_equal(es.dense_krige(g, *d_in, *tabs), es.dense_krige_ref(g.elev, g.valid, *d_in, *tabs, 10),
+                        f"B13 solve {label} ({path})")
+        far_i = torch.tensor([-3, W + 2, -11, 2**62, -2**62, 2**63 - 3, -2**63 + 2, 5], device=g.device)
+        far_j = torch.tensor([4, 2, -11, 3, 5, 1, 2, 2**63 - 4], device=g.device)
+        z8 = torch.zeros(8, device=g.device)
         for anchor in ("round", "floor"):
-            keys_ = texact._cell_keys(g, texact.prepare_exact_queries(g, rows_, cols_, anchor=anchor), None)
-            ref = es.ring_select_ref(g.elev, g.valid, *keys_[:2], *keys_[3:], keys_[2], 10, 16384)
-            exact_equal(es.ring_select(g, *keys_[:2], *keys_[3:], keys_[2]), ref, f"B14 {anchor} {label}")
+            ci_, cj_, var_, ex_, ey_ = texact._cell_keys(g, texact.prepare_exact_queries(g, rows_, cols_,
+                                                                                        anchor=anchor), None)
+            keys_ = (torch.cat([ci_, far_i]), torch.cat([cj_, far_j]), torch.cat([ex_, z8]), torch.cat([ey_, z8]),
+                     torch.cat([var_, z8.int()]))
+            exact_equal(es.ring_select(g, *keys_), es.ring_select_ref(g.elev, g.valid, *keys_, 10, 16384),
+                        f"B14 {anchor} {label}")
+        rng_ = np.random.default_rng(19)
+        n_ = min(len(rows_), 100_000)
+        odd = [texact._on(g, a) for a in (rng_.integers(-3, W + 3, n_), rng_.integers(-3, H + 3, n_),
+                                          *(tcuda._ODD_KEYS[rng_.integers(0, len(tcuda._ODD_KEYS), n_)]
+                                            for _ in range(2)), rng_.integers(0, 4, n_).astype(np.int32))]
+        exact_equal(es.ring_select(g, *odd), es.ring_select_ref(g.elev, g.valid, *odd, 10, 16384),
+                    f"B14 odd keys {label}")
+        # 16 queries, fewer than one a BIT_PLANE_CELLS cells: the walks read valid
+        few = (slice(0, 16),)
+        exact_equal(es.ring_select(g, *(t[few] for t in odd)),
+                    es.ring_select_ref(g.elev, g.valid, *(t[few] for t in odd), 10, 16384), f"B14 few {label}")
+        d_few = (dense_in[2] if dense_in[0] is None else dense_in[0], dense_in[1], dense_in[2][:16])
+        exact_equal(es.dense_krige(g, *d_few, *tabs), es.dense_krige_ref(g.elev, g.valid, *d_few, *tabs, 10),
+                    f"B13 solve few {label}")
         inside = np.nonzero(~q_.oob)[0]
         keys_ = texact._cell_keys(g, q_, inside)
         qc_ = (texact._on(g, cols_[inside]), texact._on(g, rows_[inside]))
@@ -3028,9 +3081,22 @@ def main() -> int:
                     es.ring_krige_ref(g.elev, g.valid, *keys_, *qc_, *tabs, 10, 16384), f"B14 solve {label}")
         return {"dense_in": dense_in, "tabs": tabs, "q": q_}
 
+    attrs_x = es.attributes()
+    say("exact", "builds (registers, local bytes, spill bytes, resident blocks an SM at 256 threads): " + "; ".join(
+        f"{k} {v['registers']}, {v['local_bytes']}, {v.get('spill_bytes')}, {v['blocks_per_sm']}"
+        for k, v in attrs_x.items()) + f"  [{card}]")
+    # a 45-entry candidate list takes 456 bytes a thread; ptxas may spill a
+    # register or two of a build that reads valid, but no list
+    if any(v["local_bytes"] > 16 for k, v in attrs_x.items() if k.startswith("ring_kernel")):
+        raise AssertionError(f"a B14 build keeps more local memory than a spill: {attrs_x}")
     ex_in = exact_kernels_equal(g64, rk, ck, "stand-in")
-    say("exact", f"B13 (selection, table solve) and B14 (cell-aligned at the round and floor anchors, with the "
-        f"table solve) bit-equal to their plain versions at the stand-in's {len(rk)} cells")
+    g32_k = RegularGrid.from_nan_array(reduced_k, KEXT, dtype=torch.float32, device=dev)
+    exact_kernels_equal(g32_k, rk, ck, "stand-in f32")
+    del g32_k
+    say("exact", f"B13 (selection, table solve; aligned, and on the residue planes with duplicated cells and "
+        f"non-aligned queries) and B14 (cell-aligned at the round and floor anchors with anchors past the grid to "
+        f"the ends of int64, odd keys at 1e5 anchors, with the table solve) bit-equal to their plain versions at "
+        f"the stand-in's {len(rk)} cells, f64 and f32 grids")
     red_sp, rc_sp, _ = mask_grid(shelf_seamount(256, 320), 0.995, seed=6)
     g_sp = RegularGrid.from_nan_array(red_sp, Extent(74.615, 84.785, -58.2508, -49.6982), dtype=torch.float64,
                                       device=dev)
@@ -3040,6 +3106,13 @@ def main() -> int:
         rc_sp[:, 1].astype(np.int64))[:3])[0]
     say("exact", f"sparse 256x320 ({int(g_sp.valid.sum())} observed cells, {len(rc_sp)} queries, "
         f"{int((found_sp < 4).sum())} of them never holding 4): B13 and B14 bit-equal to plain")
+    for case in tcuda.EXACT_EDGE_CASES:
+        red_e, rc_e, ext_e = tcuda._edge_plane(case)
+        for dt in (torch.float32, torch.float64):
+            exact_kernels_equal(RegularGrid.from_nan_array(red_e, ext_e, dtype=dt, device=dev), rc_e[:, 0],
+                                rc_e[:, 1], f"{case} {dt}")
+    say("exact", f"the card tests' edge grids {list(tcuda.EXACT_EDGE_CASES)}, f32 and f64: B13 and B14 bit-equal "
+        f"to plain")
     gA64 = RegularGrid.from_nan_array(shelf_seamount(*GRID_A_SHAPE), GRID_A_EXTENT, dtype=torch.float64, device=dev)
     qlo_a, qla_a = (t.cpu().numpy().astype(np.float64) for t in scattered_queries(
         GRID_A_EXTENT, GRID_A_SHAPE[0], GRID_A_SHAPE[1], 100_000, 19, dev))
@@ -3051,16 +3124,23 @@ def main() -> int:
         exact_equal(es.ring_select(gA64, *sc_in[anchor]),
                     es.ring_select_ref(gA64.elev, gA64.valid, *sc_in[anchor], None, 10, 16384),
                     f"B14 scattered {anchor}")
+        odd_sc = [t.clone() for t in sc_in[anchor]]
+        odd_sc[2][::13], odd_sc[3][::17], odd_sc[2][::29] = float("nan"), float("inf"), -1e308
+        exact_equal(es.ring_select(gA64, *odd_sc), es.ring_select_ref(gA64.elev, gA64.valid, *odd_sc, None, 10, 16384),
+                    f"B14 scattered {anchor}, NaN and inf coordinates")
     say("exact", f"B14 scattered (f64 distances) bit-equal to plain at {len(qlo_a)} Grid A queries, round and floor "
-        f"anchors")
-    # one B13 launch a dense call
+        f"anchors, and with NaN and inf coordinates")
+    # one B13 launch a dense call: on the aligned path the bit plane's build
+    # and B13, and no other kernel (no residue planes)
     es.reset_launches()
     seen = device_kernels(lambda: tfast._dense_at(g64, ex_in["q"], rk.astype(np.int64), ck.astype(np.int64), 10))
     n_dense = sum(v for k, v in seen.items() if "dense_kernel" in k)
-    if es.LAUNCHES["exact_dense"] != 21 or not 0 < n_dense <= 20:
+    n_bits = sum(v for k, v in seen.items() if "bits_kernel" in k)
+    if es.LAUNCHES["exact_dense"] != 21 or not 0 < n_dense <= 20 or not 0 < n_bits <= 20 or \
+            any("dense_kernel" not in k and "bits_kernel" not in k for k in seen):
         raise AssertionError(f"_dense_at: {es.LAUNCHES} launches over 21 calls, device records {seen}")
     say("exact", f"one B13 launch a dense call (_dense_at): 21 launches over 21 calls; the device records of 20 "
-        f"profiled calls {seen}")
+        f"profiled calls {seen} (the bit plane's build and B13 alone)")
 
     # synthetic grids with awkward decimals: the strict selection against
     # the golden engine's ring selection, the predictions against its own
@@ -3133,7 +3213,7 @@ def main() -> int:
     # on the host clock (apart: prepare_exact_queries, the readbacks, the
     # rest), the dense pass through B13 and as the plain loop
     dense_in, tabs = ex_in["dense_in"], ex_in["tabs"]
-    dense_plain_args = (g64.valid, dense_in[0], dense_in[1][0], dense_in[1][1])
+    dense_plain_args = (g64.valid, dense_in[2], dense_in[1][0], dense_in[1][1])  # aligned: flat_a is flat_q
     exact_fns["dense pass"] = lambda: es.dense_select(g64, *dense_in)
     exact_fns["dense pass plain"] = lambda: tfast._dense_select(*dense_plain_args, max_radius=10)
     for label, fn in exact_fns.items():
@@ -3157,16 +3237,23 @@ def main() -> int:
     b13 = {"solve": lambda: es.dense_krige(g64, *dense_in, *tabs), "select": lambda: es.dense_select(g64, *dense_in)}
     b13_plain = {"solve": lambda: es.dense_krige_ref(g64.elev, g64.valid, *dense_in, *tabs, 10),
                  "select": lambda: es.dense_select_ref(g64.elev, g64.valid, *dense_in, 10)}
+    on_planes = (dense_in[2], *dense_in[1:])  # the same queries through the residue planes
+    b13_planes = {"solve": lambda: es.dense_krige(g64, *on_planes, *tabs),
+                  "select": lambda: es.dense_select(g64, *on_planes)}
     for b in ("solve", "select"):
-        ms[f"B13 {b} alone"] = device_ms(b13[b], "dense_kernel")
+        ms[f"B13 {b} alone"] = device_ms(b13[b], ("dense_kernel", "bits_kernel"))
+        ms[f"B13 {b} bit plane"] = device_ms(b13[b], "bits_kernel")
         ms[f"B13 {b} wrapper"] = time_ms(b13[b])
+        ms[f"B13 {b} wrapper planes"] = time_ms(b13_planes[b])
         ms[f"B13 {b} plain"] = time_ms(b13_plain[b], warmup=1, reps=5)
     b14 = {"round": lambda: es.ring_select(g64, *ring_in),
            "scattered": lambda: es.ring_select(gA64, *sc_in["round"])}
     b14_plain = {"round": lambda: es.ring_select_ref(g64.elev, g64.valid, *ring_in, 10, 16384),
                  "scattered": lambda: es.ring_select_ref(gA64.elev, gA64.valid, *sc_in["round"], None, 10, 16384)}
     for b in ("round", "scattered"):
-        ms[f"B14 {b} alone"] = device_ms(b14[b], "ring_kernel")
+        ms[f"B14 {b} alone"] = device_ms(b14[b], ("ring_kernel", "bits_kernel"))
+        if b == "round":  # 1e5 queries on Grid A's 12.8M cells read valid: no bit plane
+            ms["B14 round bit plane"] = device_ms(b14[b], "bits_kernel")
         ms[f"B14 {b} wrapper"] = time_ms(b14[b])
         ms[f"B14 {b} plain"] = time_ms(b14_plain[b], warmup=1, reps=5)
     # bounds from what this run's data reads (exact_walk): per query the
@@ -3184,11 +3271,14 @@ def main() -> int:
     }
     for label, key in (("B13 solve", "exact_dense"), ("B13 select", "exact_dense select"),
                        ("B14 round", "exact_ring")):
-        say("timing", f"{label:10s} at {len(rk)} stand-in cells: alone {ms[f'{label} alone']:.4f} ms, wrapper "
-            f"{ms[f'{label} wrapper']:.4f} ms, plain {ms[f'{label} plain']:.2f} ms; bound {bounds_x[key][0]:.4f} ms "
-            f"({bounds_x[key][1]}; {bounds_x[key][0] / ms[f'{label} alone']:.0%} of it)  [{card}]")
-    say("timing", f"B14 scattered at {len(qlo_a)} Grid A queries: alone {ms['B14 scattered alone']:.4f} ms, wrapper "
-        f"{ms['B14 scattered wrapper']:.4f} ms, plain {ms['B14 scattered plain']:.2f} ms  [{card}]")
+        planes = f" ({ms[f'{label} wrapper planes']:.4f} on the residue planes)" if label.startswith("B13") else ""
+        say("timing", f"{label:10s} at {len(rk)} stand-in cells: alone {ms[f'{label} alone']:.4f} ms (the bit "
+            f"plane's build {ms[f'{label} bit plane']:.4f} of it), wrapper {ms[f'{label} wrapper']:.4f} ms{planes}, "
+            f"plain {ms[f'{label} plain']:.2f} ms; bound {bounds_x[key][0]:.4f} ms ({bounds_x[key][1]}; "
+            f"{bounds_x[key][0] / ms[f'{label} alone']:.0%} of it)  [{card}]")
+    say("timing", f"B14 scattered at {len(qlo_a)} Grid A queries: alone {ms['B14 scattered alone']:.4f} ms (the walk "
+        f"reads valid, no bit plane), wrapper {ms['B14 scattered wrapper']:.4f} ms, plain "
+        f"{ms['B14 scattered plain']:.2f} ms  [{card}]")
     say("bounds", f"exact walk at the stand-in's cells: {walk['lanes'] / nq_x:.3f} lanes a query, "
         f"{walk['valid_cells']} validity and {walk['value_cells']} value cells read, {walk['solved']} solved")
     say("exact", f"escalated share {esc_k.mean():.6f}; launches: main path {launches_ex}, CLIs {launches_exc}; "

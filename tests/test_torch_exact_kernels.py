@@ -8,10 +8,18 @@ held exactly to the JAX package's jitted programs (``_dense_select`` with
 values, offsets and gi/gj equal) and within 1e-9 m of its f64 solves
 (``_extract_solve_table``, the escalation's ``_krige_chunk_table``), under
 x64, on float32 and float64 grids.  The queries are the held-out cells of
-sparse, degenerate and awkward-extent grids, queries on cells no aligned
-query holds and on cells one does, and cells and anchors past the grid's
-edges.  The ops' fake implementations give the real outputs' shapes and
-dtypes.  The kernels themselves are held to these plain versions bit for
+sparse, degenerate and awkward-extent grids, grids 20 and 45 columns wide
+(a validity bit plane's rows end inside a word), a grid whose one query
+holds 3 candidates before ring 10 and then a full top/bottom segment (the
+strict list's 45 entries), a degenerate grid whose swap passes reorder
+equal keys, queries on cells no aligned query holds and on cells one does,
+duplicated cells, and cells and anchors past the grid's edges (as far as
+int32 goes).  Every query aligned, B13 reads each query's own keys: equal
+to the residue planes' result.  The kernels' walk and four passes written
+out in Python (the bit plane, its spans in collection order, the first
+four entries and the best four of the rest) equal the plain versions,
+also where NaN and inf keys overflow on some lanes only.  The ops' fake
+implementations give the real outputs' shapes and dtypes.  The kernels themselves are held to these plain versions bit for
 bit on a card (tests/test_torch_cuda.py)."""
 
 import numpy as np
@@ -32,6 +40,7 @@ from auvtpu_torch.kernels import exact_select as es
 from auvtpu_torch.kernels import library
 from auvtpu_torch.ops import exact as texact
 from auvtpu_torch.ops import exact_fast as tfast
+from test_torch_cuda import _ODD_KEYS, EXACT_EDGE_CASES, FULL_LIST_QUERY, _edge_plane
 
 torch.set_num_threads(1)
 
@@ -45,7 +54,11 @@ GRIDS = {
     "awkward_r0.5": (64, 80, 0.5, 3, AWKWARD),
     "awkward_r0.9": (64, 80, 0.9, 4, AWKWARD),
     "degenerate": (48, 64, 0.3, 1, DEGENERATE),
-    "sparse": (40, 56, 0.97, 4, AWKWARD),  # many cells never hold 4: the walk reaches ring 10
+    # many cells never hold 4 (sparse: the walk reaches ring 10); rows of
+    # 20 and 45 cells start and end inside the flat bit plane's words
+    # (narrow_w20, odd_w45); the swaps reorder equal keys (swapped_ties,
+    # test below); one query's list reaches 45 entries (full_list)
+    **EXACT_EDGE_CASES,
 }
 DTYPES = [np.float32, np.float64]
 
@@ -66,7 +79,10 @@ def pair(name, dtype):
     key = (name, dtype)
     if key not in _PAIRS:
         h, w, removal, seed, ext = GRIDS[name]
-        reduced, rc, _ = mask_grid(shelf_seamount(h, w), removal, seed=seed)
+        if name in EXACT_EDGE_CASES:
+            reduced, rc, _ = _edge_plane(name)
+        else:
+            reduced, rc, _ = mask_grid(shelf_seamount(h, w), removal, seed=seed)
         jg = JGrid.from_nan_array(reduced, ext, dtype=dtype)
         tg = grid_from_arrays(np.asarray(jg.elev), np.asarray(jg.valid), ext.min_lon, ext.max_lon,
                               ext.min_lat, ext.max_lat, "cpu")
@@ -168,11 +184,12 @@ def test_dense_krige_within_1e9_of_the_jax_table_solve(name, dtype):
 # ---------------------------------------------------------------------------
 
 def _far_anchors(tg):
-    """Anchors past each edge, with variant 0 and zero keys; the last is
-    farther than the radius from every cell."""
+    """Anchors past each edge, with variant 0 and zero keys, then some near
+    the ends of int32 (a lane's int32 add wraps in the JAX package); the
+    last is farther than the radius from every cell."""
     H, W = tg.shape
-    ci = np.array([-3, W + 2, 5, -12, W - 1, -30], np.int64)
-    cj = np.array([4, 2, -12, H + 9, H + 1, H + 40], np.int64)
+    ci = np.array([-3, W + 2, 5, -12, W - 1, 2**31 - 4, 3, -2**31 + 2, -30], np.int64)
+    cj = np.array([4, 2, -12, H + 9, H + 1, 5, 2**31 - 3, -2**31 + 5, H + 40], np.int64)
     return ci, cj
 
 
@@ -245,6 +262,224 @@ def test_ring_krige_within_1e9_of_the_jax_escalation_solve(name, dtype):
 
 
 # ---------------------------------------------------------------------------
+# what the cases are for, and B13's aligned path
+# ---------------------------------------------------------------------------
+
+def test_the_full_list_case_holds_45_candidates():
+    _, tg, _ = pair("full_list", np.float64)
+    r0, c0 = FULL_LIST_QUERY
+    q = texact.prepare_exact_queries(tg, np.array([r0]), np.array([c0]))
+    assert (q.ci[0], q.cj[0], q.variant[0]) == (c0, r0, 0)
+    found = es.ring_select(tg, *texact._cell_keys(tg, q, None)[:2], *texact._cell_keys(tg, q, None)[3:],
+                           texact._cell_keys(tg, q, None)[2])[0]
+    flat = torch.tensor([r0 * tg.shape[1] + c0])
+    assert int(found[0]) == 45 and int(es.dense_select(tg, None, texact._on(tg, np.stack([q.ex_key, q.ey_key])),
+                                                       flat)[0][0]) == 45
+
+
+def test_the_swap_passes_reorder_equal_keys_in_the_swapped_ties_case():
+    """Some query's selection differs from a stable top-4 of its list by
+    (d2, -T), original position: the swaps moved an entry past an equal one
+    (in the order, or in the set where the tie is at the 4th)."""
+    _, tg, rc = pair("swapped_ties", np.float64)
+    q = texact.prepare_exact_queries(tg, rc[:, 0], rc[:, 1])
+    ci, cj, variant, ex, ey = texact._cell_keys(tg, q, None)
+    tb = texact._device_tables(R, torch.device("cpu"))
+    gi, gj, _, eligible, _ = texact._candidates(tg, tb, ci, cj)
+    d2 = tb["d2"][variant.long()]
+    t = ex[:, None] * tb["cfx"][variant.long()] + ey[:, None] * tb["cfy"][variant.long()]
+    _, _, sel_gi, sel_gj = es.ring_select(tg, ci, cj, ex, ey, variant)
+    reordered = 0
+    for i in range(len(ci)):
+        lanes = np.nonzero(eligible[i].numpy())[0]
+        order = sorted(lanes, key=lambda j: (float(d2[i, j]), -float(t[i, j])))[:4]
+        stable = [(int(gi[i, j]), int(gj[i, j])) for j in order]
+        got = list(zip(sel_gi[i, :len(order)].tolist(), sel_gj[i, :len(order)].tolist()))
+        reordered += stable != got
+    assert reordered > 0
+
+
+def _aligned_operands(tg, rc):
+    """Every held-out cell twice (duplicated cells), all aligned: B13's
+    operands for the residue planes (flat_a) and for the aligned path."""
+    H, W = tg.shape
+    rows, cols = np.tile(rc[:, 0], 2).astype(np.int64), np.tile(rc[:, 1], 2).astype(np.int64)
+    q = texact.prepare_exact_queries(tg, rows, cols)
+    flat_a, keys, flat_q, aligned = tfast._dense_inputs(tg, q, rows, cols)
+    assert aligned.all() and flat_a is None and torch.equal(flat_q, torch.as_tensor(rows * W + cols))
+    return keys, flat_q
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=["f32", "f64"])
+@pytest.mark.parametrize("name", list(GRIDS))
+def test_dense_aligned_path_equals_the_residue_planes_and_jax(name, dtype):
+    jg, tg, rc = pair(name, dtype)
+    keys, flat_q = _aligned_operands(tg, rc)
+    got = es.dense_select(tg, None, keys, flat_q)
+    equal(got, es.dense_select(tg, flat_q, keys, flat_q))
+    want = jfast._extract_q(*jax_dense_planes(jg, flat_q, keys), jg.elev, flat_q.numpy().astype(np.int32),
+                            max_radius=R)
+    equal(got, want)
+    gpair, gq = tfast._reference_tables(tg, R)
+    equal(es.dense_krige(tg, None, keys, flat_q, gpair, gq), es.dense_krige(tg, flat_q, keys, flat_q, gpair, gq))
+
+
+def test_dense_inputs_keep_the_planes_where_any_query_is_not_aligned():
+    _, tg, rc = pair("awkward_r0.5", np.float64)
+    rows, cols = queries(tg, rc)
+    q = texact.prepare_exact_queries(tg, rows, cols)
+    flat_a, keys, flat_q, aligned = tfast._dense_inputs(tg, q, rows, cols)
+    assert not aligned.all() and aligned.any()
+    np.testing.assert_array_equal(flat_a.numpy(), (rows * tg.shape[1] + cols)[aligned])
+    assert keys.shape == (2, int(aligned.sum())) and flat_q.shape == (len(rows),)
+
+
+# ---------------------------------------------------------------------------
+# the kernels' walk and B14's passes written out, against the plain version
+# ---------------------------------------------------------------------------
+
+def _bit_plane(valid):
+    """(words, H, W): the bit plane as csrc/exact_select.cu's bits_kernel
+    lays it out, flat: bit c % 32 of word c // 32 is cell c's (row * W +
+    col), set where valid > 0.5; a row ends inside a word unless 32
+    divides W."""
+    H, W = valid.shape
+    flat = np.concatenate([(valid.reshape(-1) > 0.5), np.zeros(-(H * W) % 32, bool)])
+    return (flat.reshape(-1, 32).astype(np.int64) << np.arange(32)).sum(axis=1), H, W
+
+
+def _span(plane, gj, c0, n):
+    """BitPlane::span: cells c0 .. c0 + n - 1 of row gj as bits 0 .. n - 1."""
+    words, H, W = plane
+    if not 0 <= gj < H:
+        return 0
+    lo, hi = max(c0, 0), min(c0 + n, W)
+    if lo >= hi:
+        return 0
+    f0, f1 = gj * W + lo, gj * W + hi - 1
+    v = int(words[f0 >> 5]) | (int(words[f1 >> 5]) << 32 if f1 >> 5 != f0 >> 5 else 0)
+    return ((v >> (f0 & 31)) & ((1 << (hi - lo)) - 1)) << (lo - c0)
+
+
+def _interleaved(first, second):
+    """The set bits of interleave(first, second), lowest first, as (bit k,
+    from the second mask)."""
+    for b in range(64):
+        if ((second if b & 1 else first) >> (b >> 1)) & 1:
+            yield b >> 1, bool(b & 1)
+
+
+def _walk(plane, ci, cj):
+    """ring_walk over the bit plane: the candidate lanes (dx, dy) of anchor
+    (ci, cj) in the kernel's order, to the first segment end holding 4."""
+    out = []
+    if not (-R <= ci < plane[2] + R and -R <= cj < plane[1] + R):
+        return out
+    up, mid, dn = (_span(plane, cj + d, ci - 1, 3) for d in (-1, 0, 1))
+    segments = [[(0, 0)] if mid & 2 else [],
+                [(k - 1, 1 if b else -1) for k, b in _interleaved(up, dn)],
+                [(d, 0) for d, bit in ((-1, 1), (1, 4)) if mid & bit]]
+    for r in range(2, R + 1):
+        n = 2 * r + 1
+        top, bot = _span(plane, cj - r, ci - r, n), _span(plane, cj + r, ci - r, n)
+        side = [_span(plane, cj - r + 1 + k, ci - r, n) for k in range(n - 2)]
+        left = sum((w & 1) << k for k, w in enumerate(side))
+        right = sum(((w >> (n - 1)) & 1) << k for k, w in enumerate(side))
+        segments.append([(k - r, r if b else -r) for k, b in _interleaved(top, bot)])
+        segments.append([(r if b else -r, k - r + 1) for k, b in _interleaved(left, right)])
+    for seg in segments:
+        out += seg
+        if len(out) >= 4:
+            break
+    return out
+
+
+def _eight_entry_passes(keys, before, is_nan, nan_stops):
+    """ring_kernel's passes: the list's first four entries and the best four
+    of the rest by (key, position), each with its current position; returns
+    the list positions picked (None where a pass takes nothing)."""
+    best4 = []
+    for p in (p for p in range(4, len(keys)) if not is_nan(keys[p])):  # B13's insert, in collection order
+        s = next((s for s, e in enumerate(best4) if before(keys[p], keys[e])), len(best4))
+        best4.insert(s, p)
+        del best4[4:]
+    entries = [p for p in range(min(len(keys), 4))] + best4
+    pos = {p: p for p in entries}
+    picks, stop = [], False
+    for m in range(4):
+        live = [p for p in entries if pos[p] >= m and not is_nan(keys[p])]
+        best = None
+        for p in live:
+            if best is None or before(keys[p], keys[best]) or (
+                    not before(keys[best], keys[p]) and pos[p] < pos[best]):
+                best = p
+        stop = stop or best is None or nan_stops(keys, best)
+        if stop:
+            picks.append(None)
+            continue
+        at_m = next((p for p in entries if pos[p] == m and p != best), None)
+        if at_m is not None:
+            pos[at_m] = pos[best]
+        pos[best] = m
+        picks.append(best)
+    return picks
+
+
+def _model_select(elev, plane, ci, cj, key, k0, k1, variant):
+    """B14 for one query through _walk and _eight_entry_passes: (found,
+    values, gi, gj)."""
+    lanes = _walk(plane, ci, cj)
+    with np.errstate(all="ignore"):
+        if key == 0:
+            ax, ay = -(variant >> 1), -(variant & 1)
+            keys = []
+            for dx, dy in lanes:
+                fx, fy = np.float32(dx + ax) + np.float32(0.5), np.float32(dy + ay) + np.float32(0.5)
+                keys.append((fx * fx + fy * fy, k0 * np.float32(2 * (dx + ax) + 1) + k1 * np.float32(2 * (dy + ay) + 1)))
+            nan_d2 = min((k[0] for k in keys if k[1] != k[1]), default=np.inf)
+            picks = _eight_entry_passes(keys, lambda a, b: a[0] < b[0] or (a[0] == b[0] and a[1] > b[1]),
+                                        lambda k: k[1] != k[1], lambda ks, b: nan_d2 <= ks[b][0])
+        else:
+            keys = [float(np.sqrt(((ci + dx + 0.5) - k0) ** 2 + ((cj + dy + 0.5) - k1) ** 2)) for dx, dy in lanes]
+            any_nan = any(k != k for k in keys)
+            picks = _eight_entry_passes(keys, lambda a, b: a < b, lambda k: k != k, lambda ks, b: any_nan)
+    gi = [ci + lanes[p][0] if p is not None else 0 for p in picks]
+    gj = [cj + lanes[p][1] if p is not None else 0 for p in picks]
+    vals = [elev[gj[m], gi[m]] + elev.dtype.type(0) if p is not None else 0 for m, p in enumerate(picks)]
+    return len(lanes), vals, gi, gj
+
+
+@pytest.mark.parametrize("key", [0, 1], ids=["cell_aligned", "scattered"])
+@pytest.mark.parametrize("name", ["awkward_r0.5", "swapped_ties", "sparse", "narrow_w20", "odd_w45", "full_list"])
+def test_the_kernels_walk_and_passes_written_out_equal_the_plain_selection(name, key):
+    """Random anchors on and past the grid, with the tests' keys and with
+    keys that overflow to inf or NaN on some lanes only (a NaN pass takes
+    nothing, and every later one)."""
+    _, tg, _ = pair(name, np.float32)
+    H, W = tg.shape
+    rng = np.random.default_rng(len(name))
+    n = 700
+    ci, cj = rng.integers(-3, W + 3, n), rng.integers(-3, H + 3, n)
+    if key == 0:
+        variant = rng.integers(0, 4, n).astype(np.int32)
+        k0, k1 = (_ODD_KEYS[rng.integers(0, len(_ODD_KEYS), n)] for _ in range(2))
+        args = (ci, cj, k0, k1, variant)
+    else:
+        variant = np.zeros(n, np.int32)
+        k0, k1 = ci + rng.uniform(-0.5, 0.5, n), cj + rng.uniform(-0.5, 0.5, n)
+        k0[::13], k1[::17], k0[::29] = np.nan, np.inf, -1e308
+        args = (ci, cj, k0, k1, None)
+    want = es.ring_select(tg, *(torch.as_tensor(a) if a is not None else None for a in args))
+    plane = _bit_plane(tg.valid.numpy())
+    elev = tg.elev.numpy()
+    for i in range(n):
+        f, v, gi, gj = _model_select(elev, plane, int(ci[i]), int(cj[i]), key, k0[i], k1[i], int(variant[i]))
+        assert f == int(want[0][i]), i
+        np.testing.assert_array_equal(np.array(v, elev.dtype), want[1][i].numpy(), err_msg=str(i))
+        assert gi == want[2][i].tolist() and gj == want[3][i].tolist(), i
+
+
+# ---------------------------------------------------------------------------
 # the public entry points on float32 grids (float64: tests/test_torch_exact.py)
 # ---------------------------------------------------------------------------
 
@@ -278,6 +513,8 @@ def _op_args(op_name, dtype=np.float64):
     inside = (rows >= 0) & (rows < tg.num_lat) & (cols >= 0) & (cols < tg.num_lon)
     rows, cols = rows[inside], cols[inside]  # no NaN prediction (opcheck holds NaN unequal to NaN)
     gpair, gq = tfast._reference_tables(tg, R)
+    if op_name == "exact_dense_aligned":
+        return (tg.elev, tg.valid, None, *_aligned_operands(tg, rc), R)
     if op_name.startswith("exact_dense"):
         flat_a, keys, flat_q = dense_operands(tg, np.stack([rows, cols], axis=1))
         tabs = (gpair, gq) if op_name == "exact_dense_krige" else ()
@@ -292,11 +529,13 @@ def _op_args(op_name, dtype=np.float64):
     return (tg.elev, tg.valid, ci, cj, variant, ex, ey, torch.as_tensor(cols), torch.as_tensor(rows), gpair, gq, R, 300)
 
 
-OPS = ["exact_dense", "exact_dense_krige", "exact_ring", "exact_ring_scattered", "exact_ring_krige"]
+OPS = ["exact_dense", "exact_dense_aligned", "exact_dense_krige", "exact_ring", "exact_ring_scattered",
+       "exact_ring_krige"]
 
 
 def _op(op_name):
-    return getattr(library, "exact_ring" if op_name == "exact_ring_scattered" else op_name)
+    return getattr(library, {"exact_ring_scattered": "exact_ring", "exact_dense_aligned": "exact_dense"}.get(
+        op_name, op_name))
 
 
 @pytest.mark.parametrize("op_name", OPS)
