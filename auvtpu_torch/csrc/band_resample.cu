@@ -24,13 +24,19 @@
 //      step is folded there;
 //   1. block-wide min/max of the chunk's x and y over its real queries (the
 //      last chunk may be ragged: the JAX package pads it with its last
-//      query, which changes neither the min nor the max);
+//      query, which changes neither the min nor the max).  The min carries
+//      a NaN (min.NaN, as jnp.min; fminf would drop it), the max need not:
+//      a NaN min makes the bbox centre NaN, which fits no page (step 2),
+//      and the window base 0 (step 3);
 //   2. with `pick`, the bbox centre c = 0.5*(min+max) and the FIRST page k
 //      whose [c0, c0+C-1] x [r0, r0+R-1] holds it (argmax of `fits`,
-//      ops/band.py:450-460); a chunk no page holds resolves nothing.
+//      ops/band.py:450-460); a chunk no page holds resolves nothing, nor
+//      does a chunk with a NaN coordinate (jnp.min/jnp.max carry it).
 //      Without `pick` the page is 0; without origins every page is at (0, 0);
 //   3. the page origin subtracted in f32 (xb = x - c0, band.py:465-466), and
-//      the window base from floor(min xb): clamp(floordiv(m, a)*a, 0, lim),
+//      the window base from m, the min of the chunk's int32 casts of
+//      floor(xb) as XLA casts (band.py:100-101, :468-469: NaN to 0, ±inf
+//      saturated): clamp(floordiv(m, a)*a, 0, lim),
 //      with a = 1 for the default geometry and a = 8 (rows) / 128 (cols)
 //      for the aligned one of pallas_band_resample (_window_bases,
 //      band_resample.py:153-171).  floordiv floors, as Python's // does:
@@ -134,6 +140,14 @@ __device__ __forceinline__ int floordiv(int a, int b) {
 
 __device__ __forceinline__ int clampi(int v, int lo, int hi) { return v < lo ? lo : (v > hi ? hi : v); }
 
+// The min of a and b, NaN if either is NaN, as jnp.min (fminf returns the
+// other operand).
+__device__ __forceinline__ float min_nan(float a, float b) {
+  float d;
+  asm("min.NaN.f32 %0, %1, %2;" : "=f"(d) : "f"(a), "f"(b));
+  return d;
+}
+
 // Step 0 for one coordinate: (u - u0) / du - su, the division by quotient()
 // (r = RN(1 / du), dok = divisor_ok(du)) where that is exact, by IEEE '/'
 // elsewhere.
@@ -154,9 +168,9 @@ __device__ __forceinline__ Geo chunk_geometry(const Params& P, float xmin, float
   float(&red)[4][kMaxWarps] = red_bufs[buf];
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) {
-    xmin = fminf(xmin, __shfl_xor_sync(0xffffffffu, xmin, o));
+    xmin = min_nan(xmin, __shfl_xor_sync(0xffffffffu, xmin, o));
     xmax = fmaxf(xmax, __shfl_xor_sync(0xffffffffu, xmax, o));
-    ymin = fminf(ymin, __shfl_xor_sync(0xffffffffu, ymin, o));
+    ymin = min_nan(ymin, __shfl_xor_sync(0xffffffffu, ymin, o));
     ymax = fmaxf(ymax, __shfl_xor_sync(0xffffffffu, ymax, o));
   }
   const int warp = threadIdx.x >> 5;
@@ -173,9 +187,9 @@ __device__ __forceinline__ Geo chunk_geometry(const Params& P, float xmin, float
   ymin = red[2][0];
   ymax = red[3][0];
   for (int w = 1; w < nw; ++w) {
-    xmin = fminf(xmin, red[0][w]);
+    xmin = min_nan(xmin, red[0][w]);
     xmax = fmaxf(xmax, red[1][w]);
-    ymin = fminf(ymin, red[2][w]);
+    ymin = min_nan(ymin, red[2][w]);
     ymax = fmaxf(ymax, red[3][w]);
   }
   Geo g;
@@ -198,7 +212,9 @@ __device__ __forceinline__ Geo chunk_geometry(const Params& P, float xmin, float
   g.org_r = P.origins ? __ldg(P.origins + 2 * page) : 0.f;
   g.org_c = P.origins ? __ldg(P.origins + 2 * page + 1) : 0.f;
   // min over floor(x - c0) == floor(min(x) - c0): the f32 subtraction and
-  // floor are both monotone
+  // floor are both monotone, and so is the cast, which saturates ±inf as
+  // XLA's does.  A NaN min casts to 0, and a NaN ping's cast is 0 in the
+  // reference's min over the casts: the clamp at 0 makes either base 0.
   const int mx0 = (int)floorf(xmin - g.org_c);
   const int my0 = (int)floorf(ymin - g.org_r);
   g.bx = clampi(floordiv(mx0, P.ac) * P.ac, 0, P.lim_c);
@@ -346,9 +362,9 @@ __global__ void __launch_bounds__(NT, MINB) band_resample_tiled(Params P, int ve
 #pragma unroll
     for (int j = 0; j < PPT; ++j) {
       if (live[j]) {
-        xmin = fminf(xmin, x[j]);
+        xmin = min_nan(xmin, x[j]);
         xmax = fmaxf(xmax, x[j]);
-        ymin = fminf(ymin, y[j]);
+        ymin = min_nan(ymin, y[j]);
         ymax = fmaxf(ymax, y[j]);
       }
     }
@@ -423,9 +439,9 @@ __global__ void __launch_bounds__(kThreads) band_resample_generic(Params P) {
   for (int i = threadIdx.x; i < cnt; i += blockDim.x) {
     const float xi = to_frame(__ldg(uc + i), P.u0, P.du, ru, uok, P.su);
     const float yi = to_frame(__ldg(vc + i), P.v0, P.dv, rv, vok, P.sv);
-    xmin = fminf(xmin, xi);
+    xmin = min_nan(xmin, xi);
     xmax = fmaxf(xmax, xi);
-    ymin = fminf(ymin, yi);
+    ymin = min_nan(ymin, yi);
     ymax = fmaxf(ymax, yi);
   }
   const Geo geo = chunk_geometry(P, xmin, xmax, ymin, ymax, 0);

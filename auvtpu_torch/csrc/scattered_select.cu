@@ -75,11 +75,15 @@
 // pass's knock-out and run 128-thread blocks.  B7 also stages its block's
 // (N, 1+3k) rows in shared memory and writes them as one contiguous span of
 // 16-byte stores: a thread's own 1+3k stores, 4(1+3k) bytes apart from the
-// next thread's, would touch a line each.
+// next thread's, would touch a line each.  B12 copies each warp's 32 rows
+// into shared memory by cp.async, the next chunk's while this one is solved
+// (below).
 
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include <atomic>
 
 #include "krige_solve.cuh"
 #include "query_prologue.cuh"
@@ -484,32 +488,176 @@ int launch_krige(cudaStream_t st, const float* pack, const float* lons, const fl
 // B12: B7's top-4 over the radius-R window pack and the kriging solve of
 // ops/packs.py kriging_from_select after it, with the query prologue, in
 // one kernel (pallas_packed_kriging: pallas_window_select's selection, then
-// the solve in XLA).  B11's kernel but for the fallback: B7's selection is B5's over the same taps in the same
-// collection order (the tie to the lowest table index; only the code each
-// writes differs, and B12 keeps the taps' offsets as B11 does), and
-// kriging_from_select's solve is B11's (the column-form gamma, gamma(0) on
-// the diagonal, Gauss-Jordan, the centres min + ((c + d) + half) * step).
-// Where nothing was found (a NaN query, a row of sentinels) the fallback is
-// masked_mean's NaN, where B11's is 0.  No resolved row.  A pack that is
-// not 16-byte aligned takes scalar loads (vec = 0), as B7 does.
+// the solve in XLA).  B11's query function but for the fallback: B7's
+// selection is B5's over the same taps in the same collection order (the
+// tie to the lowest table index; only the code each writes differs, and
+// B12 keeps the taps' offsets as B11 does), and kriging_from_select's solve
+// is B11's (the column-form gamma, gamma(0) on the diagonal, Gauss-Jordan,
+// the centres min + ((c + d) + half) * step).  Where nothing was found (a
+// NaN query, a row of sentinels) the fallback is masked_mean's NaN, where
+// B11's is 0.  No resolved row.
+//
+// Redesigned for Hopper at radius 2, the fused path's (the first design
+// read each row straight into registers, 7 16-byte loads a thread, so each
+// warp-wide load touched 32 random lines): a warp serves 32 queries at a
+// time, and their pack rows reach shared memory by asynchronous copies
+// (cp.async, LDGSTS) before the register-heavy selection and solve:
+//   - each lane computes its query's prologue (query_prologue.cuh) and the
+//     warp shares the row indices by __shfl_sync; each lane then copies 16
+//     bytes a row piece, RowCopy<M>::kPieces pieces a row (the taps' 32-byte
+//     sectors: 8 at radius 2, so 4 whole rows a warp instruction), into the
+//     warp's stage of shared memory, bypassing L1 (.cg: a row is read once);
+//   - a row lands at a stride of kStride 16-byte units, an odd number, so
+//     the 8 threads of each phase of a warp's 16-byte shared loads (tap t of
+//     their own rows) meet no bank conflict; the thread copies its row into
+//     its val[M] registers and runs krige_query<M, MODEL, kMeanOrNaN>, the
+//     function B11 instantiates, unchanged, so the arithmetic is the plain
+//     version's op for op and B11's SASS does not move;
+//   - the grid is persistent (as many blocks as fit), each warp walking
+//     chunks of 32 queries, w, w + warps, ...; the rows of the next chunk
+//     are copied into the other stage while this chunk is selected and
+//     solved;
+//   - the radius-2 builds ask for 4 resident blocks (no spill; 3 blocks
+//     without); 2 stages x 4 warps x 32 rows x kStride x 16 B of shared
+//     memory, 36 KB a block.
+// Radius 1, radius 3 and a pack that is not 16-byte aligned keep the first
+// design, one query a thread, a grid of all the queries: staged, radius 1
+// was 17 % slower (64-byte rows, 8 blocks an SM), radius 3 within 2 %
+// either way for 60 KB of shared memory a block, and an unaligned pack by
+// 4-byte copies 10-20 % slower than its scalar loads.
+// What bounds it (scripts/b12_variant_probe.py, which also builds the
+// rejected designs from scripts/b12_variants.cu; PERF.md): the random
+// 128-byte rows, whose reads alone (scripts/row_gather_probe.py) take 87 %
+// of the first design's time at 1M Grid A queries; the second stage hides
+// part of the solve behind them.
+constexpr int kWarpsPerBlock = kSelThreads / 32;
+
+template <int M>
+constexpr bool kStagedBuild = M > 16 && M <= 32;
+
+// The 16-byte pieces of a row that B12 copies (ceil(M / 4), rounded up to
+// whole 32-byte sectors) and its stride in shared memory (odd, in 16-byte
+// units).
+template <int M>
+struct RowCopy {
+  static constexpr int kPieces = ((M + 3) / 4 + 1) & ~1;
+  static constexpr int kStride = kPieces + 1;
+};
+
+__device__ __forceinline__ unsigned smem_addr(const void* p) { return (unsigned)__cvta_generic_to_shared(p); }
+
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(smem_addr(smem)), "l"(gmem) : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::: "memory"); }
+
+template <int PENDING>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(PENDING) : "memory");
+}
+
+// The warp's 32 rows into `stage` by 16-byte cp.async: lane l's row index
+// `cell` (-1 past n: not copied) reaches the lanes that copy its pieces by
+// __shfl_sync; piece i of the warp's 32 * kPieces is row i / kPieces, piece
+// i % kPieces.
+template <int M, int P>
+__device__ __forceinline__ void stage_rows(const float* __restrict__ pack, int cell, float4* stage, int lane) {
+  constexpr int C = RowCopy<M>::kPieces, S = RowCopy<M>::kStride;
+  static_assert(4 * C <= P, "the copied pieces lie inside the pack row");
+#pragma unroll
+  for (int it = 0; it < C; ++it) {
+    const int i = it * 32 + lane;
+    const int r = i / C, c = i % C;
+    const int rc = __shfl_sync(0xffffffffu, cell, r);
+    if (rc >= 0) cp_async16(stage + r * S + c, pack + (size_t)rc * P + 4 * c);
+  }
+}
+
+// A staged row's M values into registers, ceil(M / 4) 16-byte shared loads.
+template <int M>
+__device__ __forceinline__ void unstage_row(const float4* row, float (&val)[M]) {
+#pragma unroll
+  for (int t4 = 0; t4 < (M + 3) / 4; ++t4) {
+    const float4 v = row[t4];
+    const float vv[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+      if (4 * t4 + j < M) val[4 * t4 + j] = vv[j];
+  }
+}
+
+__device__ __forceinline__ int row_of(const QueryCell& qc, int W) { return qc.cj * W + qc.ci; }
+
 template <int M, int P, int MODEL>
-__global__ void __launch_bounds__(kSelThreads, M <= 16 ? 8 : 1)
+__global__ void __launch_bounds__(kSelThreads, M <= 16 ? 8 : (M <= 32 ? 4 : 1))
 window_krige_kernel(const float* __restrict__ pack, const float* __restrict__ lons,
                     const float* __restrict__ lats, const __grid_constant__ KrigeTaps<M> taps,
                     const KrigeParams par, int n, int vec, float* __restrict__ out) {
   static_assert(M <= P, "a pack row holds its taps");
-  const int q = blockIdx.x * kSelThreads + threadIdx.x;
-  if (q >= n) return;
-  const float lon = __ldg(lons + q);
-  const float lat = __ldg(lats + q);
-  const QueryCell qc = query_cell(lon, lat, par.geo);
-  const float* row = pack + (size_t)(qc.cj * par.geo.W + qc.ci) * P;
-  float val[M];
-  if (vec)
-    load_row<M, true>(row, val);
-  else
-    load_row<M, false>(row, val);
-  krige_query<M, MODEL, kMeanOrNaN>(val, qc, lon, lat, taps, par, n, q, out);
+  if (!kStagedBuild<M> || !vec) {  // the rows straight into registers, one query a thread
+    const int q = blockIdx.x * kSelThreads + threadIdx.x;
+    if (q >= n) return;
+    const float lon = __ldg(lons + q);
+    const float lat = __ldg(lats + q);
+    const QueryCell qc = query_cell(lon, lat, par.geo);
+    const float* row = pack + (size_t)row_of(qc, par.geo.W) * P;
+    float val[M];
+    if (vec)
+      load_row<M, true>(row, val);
+    else
+      load_row<M, false>(row, val);
+    krige_query<M, MODEL, kMeanOrNaN>(val, qc, lon, lat, taps, par, n, q, out);
+    return;
+  }
+  constexpr int S = RowCopy<M>::kStride;
+  extern __shared__ float4 b12_stages[];
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  float4* stages = b12_stages + warp * (2 * 32 * S);
+  const long long chunks = ((long long)n + 31) / 32;
+  const long long step = (long long)gridDim.x * kWarpsPerBlock;
+  long long w = (long long)blockIdx.x * kWarpsPerBlock + warp;
+  // this lane's query of chunk c: its (lon, lat) (0 past n), and its row's
+  // copy into stage st issued
+  const auto issue = [&](long long c, int st, float& lon, float& lat) {
+    const int q = (int)(c * 32) + lane;
+    lon = q < n ? __ldg(lons + q) : 0.f;
+    lat = q < n ? __ldg(lats + q) : 0.f;
+    const int cell = q < n ? row_of(query_cell(lon, lat, par.geo), par.geo.W) : -1;
+    stage_rows<M, P>(pack, cell, stages + st * 32 * S, lane);
+    cp_async_commit();
+  };
+  // chunk c's rows have been issued into stage st (and, if `pending`, the
+  // next chunk's after them): wait for them, then select and solve c's
+  // queries
+  const auto solve = [&](long long c, int st, float lon, float lat, bool pending) {
+    if (pending)
+      cp_async_wait<1>();
+    else
+      cp_async_wait<0>();
+    __syncwarp();
+    float val[M];
+    unstage_row<M>(stages + st * 32 * S + lane * S, val);
+    __syncwarp();  // every lane holds its row before the stage is copied into again
+    const int q = (int)(c * 32) + lane;
+    if (q < n) {
+      // the prologue again from (lon, lat): the same bits, and no registers
+      // held across the copy
+      const QueryCell qc = query_cell(lon, lat, par.geo);
+      krige_query<M, MODEL, kMeanOrNaN>(val, qc, lon, lat, taps, par, n, q, out);
+    }
+  };
+  float lon = 0.f, lat = 0.f;
+  if (w < chunks) issue(w, 0, lon, lat);
+  for (int st = 0; w < chunks; w += step, st ^= 1) {
+    float lon_n = 0.f, lat_n = 0.f;
+    const bool more = w + step < chunks;
+    if (more) issue(w + step, st ^ 1, lon_n, lat_n);  // the next chunk's rows, while this one is solved
+    solve(w, st, lon, lat, more);
+    lon = lon_n;
+    lat = lat_n;
+  }
 }
 
 template <int M, int P>
@@ -522,15 +670,67 @@ const void* window_krige_fn(int model) {
   }
 }
 
+// A B12 build's dynamic shared memory: the staged build's two stages.
+template <int M>
+constexpr int window_krige_smem() {
+  return kStagedBuild<M> ? 2 * kSelThreads * RowCopy<M>::kStride * 16 : 0;
+}
+
+// The blocks an SM holds of a kernel at `smem` bytes of dynamic shared
+// memory (at most the 48 KB default), and the device's SMs, for the
+// current device.  The answers are a device's, so each (kernel, device) is
+// asked once and cached (a device past kMaxDevices is asked every call).
+constexpr int kMaxDevices = 16;
+
+struct Residency {
+  std::atomic<int> per_sm{0};  // written last: nonzero once sms holds
+  std::atomic<int> sms{0};
+};
+
+inline int residency(const void* fn, int smem, Residency* cache, int* per_sm, int* sms) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return (int)err;
+  Residency* c = dev < kMaxDevices ? cache + dev : nullptr;
+  if (c && c->per_sm.load() > 0) {
+    *sms = c->sms.load();
+    *per_sm = c->per_sm.load();
+    return 0;
+  }
+  err = cudaDeviceGetAttribute(sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err == cudaSuccess) err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(per_sm, fn, kSelThreads, smem);
+  if (err != cudaSuccess) return (int)err;
+  if (c) {
+    c->sms.store(*sms);
+    c->per_sm.store(*per_sm);
+  }
+  return 0;
+}
+
+template <int M, int P>
+int window_krige_resident(int model, int* per_sm, int* sms) {
+  static Residency cache[4][kMaxDevices];
+  return residency(window_krige_fn<M, P>(model), window_krige_smem<M>(), cache[model], per_sm, sms);
+}
+
 template <int M, int P>
 int launch_window_krige(cudaStream_t st, const float* pack, const float* lons, const float* lats,
                         const float* offs, KrigeParams par, int model, int n, float* out) {
   KrigeTaps<M> tv;
   if (!krige_taps(offs, par.half, tv)) return (int)cudaErrorInvalidValue;
   int vec = ((uintptr_t)pack & 15) == 0;
-  const dim3 g((unsigned)((n + kSelThreads - 1) / kSelThreads));
+  const bool staged = kStagedBuild<M> && vec;
+  long long blocks = ((long long)n + kSelThreads - 1) / kSelThreads;
+  if (staged) {  // persistent: as many blocks as fit, at most one a block of queries
+    int per_sm = 0, sms = 0;
+    const int err = window_krige_resident<M, P>(model, &per_sm, &sms);
+    if (err) return err;
+    const long long resident = (long long)sms * (per_sm > 0 ? per_sm : 1);
+    blocks = blocks < resident ? blocks : resident;
+  }
   void* args[] = {&pack, &lons, &lats, &tv, &par, &n, &vec, &out};
-  return (int)cudaLaunchKernel(window_krige_fn<M, P>(model), g, dim3(kSelThreads), args, 0, st);
+  return (int)cudaLaunchKernel(window_krige_fn<M, P>(model), dim3((unsigned)blocks), dim3(kSelThreads), args,
+                               staged ? (size_t)window_krige_smem<M>() : 0, st);
 }
 
 // B7: window top-k over the M real taps of a pack row, as B6 selects them,
@@ -844,6 +1044,34 @@ int auvtpu_select_krige_attributes(int M, int model, int* out) {
   out[0] = attr.numRegs;
   out[1] = (int)attr.localSizeBytes;
   out[2] = blocks;
+  return 0;
+}
+
+// B12's build for M taps and a model: out[0..3] = registers a thread, local
+// (spill) bytes a thread, resident blocks an SM at its shared memory,
+// dynamic shared memory bytes a block.  For the resource report of
+// chip_smoke.py and scripts/b12_variant_probe.py.
+int auvtpu_window_krige_attributes(int M, int model, int* out) {
+  if (model < 0 || model > 3) return (int)cudaErrorInvalidValue;
+  const void* fn;
+  int per_sm = 0, sms = 0, err, smem;
+  switch (M) {
+    case 9: fn = window_krige_fn<9, 16>(model); err = window_krige_resident<9, 16>(model, &per_sm, &sms);
+      smem = window_krige_smem<9>(); break;
+    case 25: fn = window_krige_fn<25, 32>(model); err = window_krige_resident<25, 32>(model, &per_sm, &sms);
+      smem = window_krige_smem<25>(); break;
+    case 49: fn = window_krige_fn<49, 64>(model); err = window_krige_resident<49, 64>(model, &per_sm, &sms);
+      smem = window_krige_smem<49>(); break;
+    default: return (int)cudaErrorInvalidValue;
+  }
+  if (err) return err;
+  cudaFuncAttributes attr;
+  const cudaError_t e = cudaFuncGetAttributes(&attr, fn);
+  if (e != cudaSuccess) return (int)e;
+  out[0] = attr.numRegs;
+  out[1] = (int)attr.localSizeBytes;
+  out[2] = per_sm;
+  out[3] = smem;
   return 0;
 }
 

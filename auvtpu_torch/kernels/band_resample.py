@@ -46,6 +46,7 @@ import numpy as np
 import torch
 
 from ..ops.band import _ceil_to
+from ..ops.scattered import saturating_index
 from . import library
 
 LAUNCHES = {"band_resample": 0}
@@ -140,8 +141,10 @@ def band_resample_ref(planes, vmasks, origins, x, y, *, chunk: int, wr: int, wc:
     yb = yc - org[:, 0:1]
     fx0 = torch.floor(xb)
     fy0 = torch.floor(yb)
-    x0 = fx0.to(torch.int32)
-    y0 = fy0.to(torch.int32)
+    # cast as XLA does (jnp.floor(x).astype(jnp.int32), ops/band.py:100-101,
+    # :468-469): a NaN ping is cell 0 in the window base, +inf 2**31 - 1
+    x0 = saturating_index(fx0)
+    y0 = saturating_index(fy0)
     bx = torch.clamp(torch.div(x0.amin(dim=1), ac, rounding_mode="floor") * ac, 0, lim_c)
     by = torch.clamp(torch.div(y0.amin(dim=1), ar, rounding_mode="floor") * ar, 0, lim_r)
     lx0 = x0 - bx[:, None]

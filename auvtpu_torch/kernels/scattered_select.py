@@ -93,6 +93,8 @@ def _lib() -> ctypes.CDLL:
     lib.auvtpu_window_krige.restype = I
     lib.auvtpu_select_krige_attributes.argtypes = [I, I, ctypes.POINTER(I)]
     lib.auvtpu_select_krige_attributes.restype = I
+    lib.auvtpu_window_krige_attributes.argtypes = [I, I, ctypes.POINTER(I)]
+    lib.auvtpu_window_krige_attributes.restype = I
     lib.auvtpu_scattered_error_string.argtypes = [I]
     lib.auvtpu_scattered_error_string.restype = ctypes.c_char_p
     return lib
@@ -695,6 +697,16 @@ def window_krige(pack, P: int, offs, R: int, grid: RegularGrid, lons, lats, *, c
     taps = _NO_TAPS if cpu else _window_krige_taps(key, P, R)
     return library.window_krige(pack, tab, qlon, qlat, library.variogram_tensors(vparams, qlon), taps,
                                 _krige_geo(grid, convention), P, R, grid.num_lon, grid.num_lat, model)
+
+
+def window_krige_attributes(M: int, model: str = "exponential") -> dict:
+    """The resources of B12's build for M taps and ``model`` on the current
+    card: registers a thread, spill (local) bytes a thread, resident blocks
+    an SM by the occupancy calculator at the build's shared memory, and that
+    shared memory (bytes a block: the rows' stages)."""
+    out = (ctypes.c_int * 4)()
+    _raise_on(_lib().auvtpu_window_krige_attributes(M, _MODELS[model], out), "window_krige")
+    return dict(zip(("registers", "spill_bytes", "blocks_per_sm", "shared_bytes"), out))
 
 
 def _window_krige_taps(offs: tuple, P: int, R: int) -> torch.Tensor:

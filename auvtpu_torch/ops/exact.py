@@ -457,8 +457,12 @@ def _prepare_scattered(grid: RegularGrid, lons, lats, anchor: str):
     oob = (lons < grid.min_lon) | (lons > grid.max_lon) | (lats < grid.min_lat) | (lats > grid.max_lat)
     x = np.where(oob, 0.0, (lons - grid.min_lon) / lon_step)
     y = np.where(oob, 0.0, (lats - grid.min_lat) / lat_step)
-    ci, cj = _anchors(x, y, H, W, anchor)
-    return lons, lats, x, y, ci, cj, oob
+    with np.errstate(invalid="ignore"):  # a NaN query's anchor: see below
+        ci, cj = _anchors(x, y, H, W, anchor)
+    # int32 as the JAX package returns them (auvtpu/ops/exact.py:475): numpy's
+    # floor anchor of a NaN, -2**63, wraps to 0, so a NaN query's ring walk
+    # starts at cell 0
+    return lons, lats, x, y, ci.astype(np.int32), cj.astype(np.int32), oob
 
 
 def _select_scattered(grid: RegularGrid, ci, cj, x, y, max_radius: int, chunk: int):

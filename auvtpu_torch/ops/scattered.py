@@ -66,6 +66,19 @@ def as_index(v, dtype: torch.dtype = torch.int32):
     return torch.where(torch.isnan(v), torch.zeros_like(v), v).to(dtype)
 
 
+def saturating_index(v, dtype: torch.dtype = torch.int32):
+    """A float cast to an integer as XLA casts it everywhere: NaN to 0, and
+    ±inf and values beyond the integer's range to its limits (torch's CPU
+    cast gives the most negative integer for all three).  For coordinates
+    that nothing bounds before the cast, such as B8's pings; in range it is
+    :func:`as_index` bit for bit."""
+    info = torch.iinfo(dtype)
+    hi = v >= -float(info.min)  # 2**31 (2**63): exact in f32 and f64
+    lo = v < float(info.min)
+    idx = as_index(torch.where(hi | lo, torch.zeros_like(v), v), dtype)
+    return torch.where(hi, info.max, torch.where(lo, info.min, idx))
+
+
 def centre_cells(grid: RegularGrid, x, y):
     """Window centre: round half away from zero, clamped (kernels.cu:425-432);
     a NaN coordinate takes cell 0 (:func:`as_index`)."""

@@ -118,7 +118,11 @@ streaming mosaic and scattered queries on the 3200x4000 Grid A, in phases:
             row-gather floor (scripts/row_gather_probe.py) and the issue
             floor from its SASS instruction count, the resources of its
             builds on the main paths (registers, spills, resident blocks),
-            its wrapper and plain version; kriging_valid_t's events and
+            its wrapper and plain version; B12's builds (radius 1-3, the
+            four models: registers, spills, shared memory, resident
+            blocks; no spill at radius 2) and, at 1M and 5M, its bound, its
+            row-gather floor (128-byte rows) and its issue estimate;
+            kriging_valid_t's events and
             CUDA kernels a call at 1M and 5M beside the torch prologue it
             no longer runs (B5 and B7 still do); B1's and B11's SASS against
             their pinned fingerprints; two-tier calls, the Grid A steady
@@ -129,8 +133,10 @@ streaming mosaic and scattered queries on the 3200x4000 Grid A, in phases:
             on the B1-filled band and of the diagonal on the 8-page atlas
             (chunk 2048, hat_t, auto windows), a 512-ping tick, a masked
             band (a hole in vmask), the "aligned" geometry with one-hot
-            weights, and one-hot and hat weights at 64x160
-            (tests/test_band.py:86-119): ok exactly equal and z bit-equal;
+            weights, one-hot and hat weights at 64x160
+            (tests/test_band.py:86-119), and both tracks with a NaN
+            latitude, a NaN longitude or a +inf longitude ping in the
+            middle and last: ok exactly equal and z bit-equal;
             the band weave also equal to the kernel on the torch prologue's
             coordinates (_xy, shift, pad); the band's resolved share > 0.9
             and its values within 5e-3 m of an f64 bilinear of the band
@@ -2610,6 +2616,17 @@ def main() -> int:
             say("B11", f"build M={M} {model}: {at['registers']} registers, {at['spill_bytes']} spill bytes, "
                 f"{at['blocks_per_sm']} resident blocks of 128 threads an SM "
                 f"({at['blocks_per_sm'] * 128 / 2048:.0%} of the SM's threads)  [{card}]")
+    # and of every B12 build (radius 1-3, the four models), with the rows'
+    # stages in shared memory of the radius-2 builds (the fused path's),
+    # which spill nothing
+    for M in (9, 25, 49):
+        for model in MODEL_VPARAMS:
+            at = ss.window_krige_attributes(M, model)
+            say("B12", f"build M={M} {model}: {at['registers']} registers, {at['spill_bytes']} spill bytes, "
+                f"{at['shared_bytes']} B of shared memory, {at['blocks_per_sm']} resident blocks of 128 threads an "
+                f"SM ({at['blocks_per_sm'] * 128 / 2048:.0%} of the SM's threads)  [{card}]")
+            if M == 25 and at["spill_bytes"]:
+                raise AssertionError(f"B12's radius-2 {model} build spills {at['spill_bytes']} bytes")
     # B11 at 1M and 5M valid16 queries against its byte bound (8 bytes of
     # query, the 64-byte row, 4 written, at 3.35 TB/s), the row-gather probe
     # (the same reads and write, nothing else), and an issue estimate from
@@ -2636,6 +2653,23 @@ def main() -> int:
             f"{ms[f'B11 row floor {tag}']:.4f} ms ({ms[f'B11 row floor {tag}'] / t_:.0%}); static-count issue "
             f"estimate {est:.4f} ms ({est / t_:.0%}; {sass_n} SASS instructions in the build, run or not, at "
             f"{clock_hz / 1e6:.0f} MHz)  [{card}]")
+        del cell_
+    # B12 likewise at radius 2: 8 bytes of query, the 128-byte row, 4
+    # written; its row-gather floor reads the same rows (P = 32)
+    sass_w = sass.sass_instructions(kbuild.library_path("scattered_select"), "window_krige_kernel<25, 32, 0>")
+    for tag, q_, key in (("1M", qA, "window_krige alone"), ("5M", qA5, "window_krige 5M alone")):
+        nq_ = float(q_[0].numel())
+        cell_ = ss.prologue(gA, *q_)[5].to(torch.int32).contiguous()
+        ms[f"B12 row floor {tag}"] = gather.floor_ms(sys.modules[__name__], winA, 32, 1, cell_, *q_, gA)
+        ms[f"B12 byte bound {tag}"] = nq_ * (8 + 128 + 4) / HBM_BPS * 1e3
+        ms[f"B12 static issue estimate {tag}"] = nq_ * sass_w / 32 / (n_sm * 4 * clock_hz) * 1e3
+        t_ = ms[key]
+        est = ms[f"B12 static issue estimate {tag}"]
+        say("timing", f"B12 radius 2 at {int(nq_)} queries: alone {t_:.4f} ms; byte bound "
+            f"{ms[f'B12 byte bound {tag}']:.4f} ms ({ms[f'B12 byte bound {tag}'] / t_:.0%}); row-gather floor "
+            f"{ms[f'B12 row floor {tag}']:.4f} ms ({ms[f'B12 row floor {tag}'] / t_:.0%}); static-count issue "
+            f"estimate {est:.4f} ms ({est / t_:.0%}; {sass_w} SASS instructions in window_krige_kernel<25, 32, 0>, "
+            f"run or not, at {clock_hz / 1e6:.0f} MHz)  [{card}]")
         del cell_
     # the CUDA kernels and the events of one kriging_valid_t call, beside
     # the torch prologue it no longer runs (B5-B7's wrappers still do) and
@@ -2799,6 +2833,27 @@ def main() -> int:
         b8_err = max(b8_err, e)
         say("B8", f"{label} aligned geometry (one-hot weights): ok and z equal to plain; resolved "
             f"{float(ok_al.float().mean()):.6f}")
+    # non-finite pings (ROADMAP C6): a NaN latitude, a NaN longitude or a
+    # +inf longitude in the track's middle and as its last ping: the window
+    # base takes the ping's saturating int32 cast (NaN as cell 0) and the
+    # atlas's page pick its NaN, as the reference's jnp.min/jnp.max do; ok
+    # equal and z bit-equal with its NaN pattern (a NaN ping that the
+    # window holds resolves to NaN, as in the reference)
+    for label, rs_, tr in (("band", rs_b, tracks["band"]), ("atlas", rs_a, tracks["diagonal"])):
+        for which, v in (("lat", float("nan")), ("lon", float("nan")), ("lon", float("inf"))):
+            lo_, la_ = (t.clone() for t in tr)
+            for at_ in (N_BAND // 2, N_BAND - 1):
+                (la_ if which == "lat" else lo_)[at_] = v
+            args, kw = b8_call(rs_, lo_, la_)
+            z_o, ok_o = kb.band_resample(*args, **kw)
+            zp_o, okp_o = kb.band_resample_ref(*args, **kw)
+            torch.cuda.synchronize()
+            nan_o = torch.isnan(zp_o)
+            if not (torch.equal(ok_o, okp_o) and torch.equal(torch.isnan(z_o), nan_o)
+                    and torch.equal(z_o[~nan_o], zp_o[~nan_o])):
+                raise AssertionError(f"B8 {label} with a {v} {which} ping: differs from plain")
+            say("B8", f"{label} with a {v} {which} ping at {N_BAND // 2} and {N_BAND - 1}: ok and z equal to "
+                f"plain; {int((~ok_o).sum())} unresolved, {int((ok_o & nan_o).sum())} resolved to NaN")
     # tests/test_band.py:86-119 on the card: a 48x160 IDW band (B3) of a
     # 96x160 dense grid, 1000 pings, chunk 64, 32x128 windows
     EXT_T = Extent(-74.0, -70.0, 35.0, 38.0)

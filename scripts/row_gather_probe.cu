@@ -5,7 +5,9 @@
 // selection and solve.
 //   mode 0: the row's cell index is read (4 bytes a query);
 //   mode 1: the query's (lon, lat) are read (8 bytes) and the cell computed
-//           by query_prologue.cuh, as B11 computes it.
+//           by query_prologue.cuh, as B11 computes it;
+//   mode 2: as mode 1, each load asking L2 for the whole 128-byte line
+//           (ld.global.nc.L2::128B).
 // The rows are read as P/4 16-byte loads through the read-only cache, one
 // thread a query, kThreads a block, as B11 reads them.
 
@@ -34,7 +36,13 @@ row_gather_kernel(const float* __restrict__ pack, const int* __restrict__ cell, 
   float s = 0.f;
 #pragma unroll
   for (int t = 0; t < P / 4; ++t) {
-    const float4 v = __ldg(row + t);
+    float4 v;
+    if (MODE == 2)
+      asm volatile("ld.global.nc.L2::128B.v4.f32 {%0, %1, %2, %3}, [%4];\n"
+                   : "=f"(v.x), "=f"(v.y), "=f"(v.z), "=f"(v.w)
+                   : "l"(row + t));
+    else
+      v = __ldg(row + t);
     s += (v.x + v.y) + (v.z + v.w);
   }
   out[q] = s;
@@ -46,8 +54,10 @@ int launch(int mode, const float* pack, const int* cell, const float* lons, cons
   const dim3 g((unsigned)((n + kThreads - 1) / kThreads));
   if (mode == 0)
     row_gather_kernel<P, 0><<<g, kThreads, 0, st>>>(pack, cell, lons, lats, geo, n, out);
-  else
+  else if (mode == 1)
     row_gather_kernel<P, 1><<<g, kThreads, 0, st>>>(pack, cell, lons, lats, geo, n, out);
+  else
+    row_gather_kernel<P, 2><<<g, kThreads, 0, st>>>(pack, cell, lons, lats, geo, n, out);
   return (int)cudaGetLastError();
 }
 
@@ -56,11 +66,11 @@ int launch(int mode, const float* pack, const int* cell, const float* lons, cons
 extern "C" {
 
 // pack: (cells, P) f32, 16-byte aligned, P 16 or 32; cell: (n,) int32
-// (mode 0); lons, lats: (n,) f32 (mode 1); geo: min_lon, max_lon, min_lat,
+// (mode 0); lons, lats: (n,) f32 (modes 1 and 2); geo: min_lon, max_lon, min_lat,
 // max_lat, inv_lon, inv_lat; W, H the grid's columns and rows; out: (n,) f32.
 int row_gather(const void* pack, int P, int mode, const void* cell, const void* lons, const void* lats,
                const float* geo, int W, int H, int n, void* out, void* stream) {
-  if ((P != 16 && P != 32) || (mode != 0 && mode != 1) || n < 0) return (int)cudaErrorInvalidValue;
+  if ((P != 16 && P != 32) || mode < 0 || mode > 2 || n < 0) return (int)cudaErrorInvalidValue;
   if (n == 0) return (int)cudaSuccess;
   const QueryGeom g{geo[0], geo[1], geo[2], geo[3], geo[4], geo[5], W, H};
   const float* p = (const float*)pack;

@@ -11,7 +11,8 @@ chip_smoke.py's 1M and 5M uniform Grid A queries: the valid16 pack (64-byte
 rows, P=16) and the radius-2 pack (128-byte rows, P=32), each with the row's
 cell read as an int32 index (mode 0) and computed from the query's (lon,
 lat) by the query prologue of ``csrc/query_prologue.cuh`` (mode 1, B11's
-reads exactly).  Each is timed by its device duration in the profiler's
+reads exactly; mode 2, the same with each load asking L2 for its whole
+128-byte line, which ``scripts/b12_variant_probe.py`` times).  Each is timed by its device duration in the profiler's
 kernel records (``chip_smoke.device_ms``, back to back), beside its byte
 bound at 3.35 TB/s (each input byte read once, each output written once).
 Prints one line a case and one JSON line, with the card's name and power
@@ -83,9 +84,9 @@ def bytes_a_query(P: int, mode: int) -> int:
 def floor_ms(cs, pack, P: int, mode: int, cell, lons, lats, grid) -> float:
     """The probe's device duration (``chip_smoke.device_ms``), after one
     check that the lon/lat mode reads the rows the index mode reads."""
-    if mode == 1:
+    if mode:
         a = gather(pack, P, 0, cell, lons, lats, grid)
-        b = gather(pack, P, 1, cell, lons, lats, grid)
+        b = gather(pack, P, mode, cell, lons, lats, grid)
         if not torch.equal(a, b):
             raise AssertionError("row_gather: the in-kernel prologue reads other rows than the torch prologue's cells")
     return cs.device_ms(lambda: gather(pack, P, mode, cell, lons, lats, grid), "row_gather_kernel")

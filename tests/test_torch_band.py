@@ -602,3 +602,61 @@ def test_refresh_lossy_grid_recomputes_masked():
     assert ra.refresh().placed == atlas.placed
     with pytest.raises(RuntimeError):
         tb.BandRouter(grid).refresh()
+
+
+# ---------------------------------------------------------------------------
+# non-finite pings (ROADMAP C6): the casts and bounding boxes of XLA
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+def test_saturating_index_casts_as_xla(dtype):
+    from auvtpu_torch.ops.scattered import as_index, saturating_index
+
+    v = np.array([np.nan, np.inf, -np.inf, 2.0 ** 31, -(2.0 ** 31), 2.0 ** 31 + 2 ** 8, -(2.0 ** 31) - 2 ** 8,
+                  3e9, -3e9, 1e30, -1e30, 0.0, -0.0, 0.5, -0.5, 1.0, -1.0, 2.7, -2.7, 255.0, 2.0 ** 24, 2147483520.0],
+                 dtype)
+    want = np.asarray(jnp.floor(jnp.asarray(v)).astype(jnp.int32))
+    got = saturating_index(torch.floor(torch.from_numpy(v)))
+    assert got.dtype == torch.int32
+    np.testing.assert_array_equal(got.numpy(), want)
+    # in range it is as_index bit for bit (NaN to 0)
+    inr = np.isnan(v) | (np.abs(v) < 2.0 ** 31)
+    np.testing.assert_array_equal(got.numpy()[inr], as_index(torch.floor(torch.from_numpy(v[inr]))).numpy())
+
+
+ODD_PINGS = {"nan_lat": ("lat", np.nan), "nan_lon": ("lon", np.nan), "inf_lon": ("lon", np.inf)}
+
+
+@pytest.mark.parametrize("last", [False, True], ids=["middle", "last"])
+@pytest.mark.parametrize("ping", list(ODD_PINGS))
+@pytest.mark.parametrize("route", ["band", "atlas"])
+def test_router_on_nan_and_inf_pings_matches_jax(masked_grids, route, ping, last):
+    # one odd ping in the 2,000-ping track (at 1000, or as the last ping of
+    # the ragged last chunk): the resolved masks, the unresolved count and
+    # the served NaN pattern equal to JAX's router, the depths at the file's
+    # bars.  The band route is the fixed 16-row window of
+    # test_router_serving_matches_jax, the atlas the diagonal on 6 pages.
+    jg, g = masked_grids
+    if route == "band":
+        lon, lat = _trajectory(192, 256, 2000, seed=2)
+    else:
+        lon, lat = _diagonal(192, 256, 2000)
+    kw = dict(chunk=128, win_rows=16, win_cols=128, auto_window=False, max_bands=1 if route == "band" else 6)
+    r = tb.BandRouter(g, **kw)
+    jr = jb.BandRouter(jg, fill_backend="xla", **kw)
+    r.prepare(lon, lat, method="kriging")
+    jr.prepare(lon, lat, method="kriging")
+    assert (r._atlas is not None) == (jr._atlas is not None) == (route == "atlas")
+    which, val = ODD_PINGS[ping]
+    at = len(lon) - 1 if last else 1000
+    lon, lat = lon.copy(), lat.copy()
+    (lon if which == "lon" else lat)[at] = val
+    _, ok = r._resampler.resample(lon, lat)
+    _, okj = jr._resampler.resample(lon, lat)
+    np.testing.assert_array_equal(_np(ok), _np(okj))
+    got = r.kriging(lon, lat, force="band")
+    want = jr.kriging(lon, lat, force="band")
+    assert r.last_unresolved == jr.last_unresolved
+    _values_close(got, want, *BARS["kriging"])
+    assert np.isnan(_np(got)[at])
+    assert kb.LAUNCHES["band_resample"] == 0  # a CPU plane runs the plain version
