@@ -17,8 +17,9 @@ Workflow (test_interpolation.cpp:115-322):
 Stencil packs (one row read per query) are the default.  On a fully valid
 float32 CUDA grid with window radius <= 2, ``--backend auto`` runs Kriging
 through the valid16 B11 kernel (top-4 and solve) and IDW through B6, where
-the JAX CLI runs its Pallas kernels; ``--backend fused`` runs both through
-B7; elsewhere, and with ``--backend torch``, they are the torch packed
+the JAX CLI runs its Pallas kernels; ``--backend fused`` runs Kriging
+through B12 and IDW through B15 (B7's window selection, each with its
+epilogue, one launch a call); elsewhere, and with ``--backend torch``, they are the torch packed
 paths.  Bilinear and Cubic have no kernel.  ``--selection exact`` reproduces the reference
 CPU engine digit for digit at arbitrary coordinates: the f64 ring selection
 with swap tie-breaks of ``ops/exact.py`` on an f64 grid for Bilinear, Cubic
@@ -113,7 +114,7 @@ def make_ops(grid: RegularGrid, elev: np.ndarray, *, packed: bool, backend: str,
 
         krig = lambda g, lo, la: packed_kriging_fused(sp.window, g, lo, la, window_radius=wr)
         idw = lambda g, lo, la: packed_idw_fused(sp.window, g, lo, la, window_radius=wr)
-        label = "B7 (Kriging and IDW)"
+        label = "B12 (Kriging) and B15 (IDW)"
     else:
         krig = lambda g, lo, la: packed_kriging(sp.window, g, lo, la, window_radius=wr)
         idw = lambda g, lo, la: packed_idw(sp.window, g, lo, la, window_radius=wr)
@@ -161,7 +162,8 @@ def main(argv=None):
         help="kriging/IDW selection of the packed path: auto = the B11 (valid16 "
         "kriging) and B6 (IDW) kernels on a fully valid float32 CUDA grid with "
         "window radius <= 2, torch otherwise; torch = the plain packed path; "
-        "fused = the B7 kernel",
+        "fused = the B12 (kriging) and B15 (IDW) kernels, B7's window selection with the solve or the "
+        "IDW quotient",
     )
     p.add_argument(
         "--window-radius", type=int, default=2,

@@ -2,9 +2,9 @@
 // Hopper (sm_90a): a query's (lon, lat) to its grid coordinates, its
 // out-of-bounds flag, its centre cell and its offsets from that cell.
 // Included by scattered_select.cu (B6, idw_select_kernel; B11,
-// select_krige_kernel; B12, window_krige_kernel); B5 and B7 still take the
-// torch prologue's planes (kernels/scattered_select.py prologue) and can
-// adopt this one.
+// select_krige_kernel; B12, window_krige_kernel; B15, window_idw_kernel);
+// B5 and B7 still take the torch prologue's planes
+// (kernels/scattered_select.py prologue) and can adopt this one.
 //
 // It computes what the torch prologue computes, op for op (the build keeps
 // -fmad=false, so the subtract and the multiply are two roundings, as in

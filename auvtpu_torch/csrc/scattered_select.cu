@@ -2,8 +2,8 @@
 // (sm_90a).  Plain C interface, loaded with ctypes by
 // auvtpu_torch/kernels/scattered_select.py.
 //
-// Replaces three TPU kernels, two of them with the XLA epilogue after them,
-// with five kernels:
+// Replaces three TPU kernels, two of them with the XLA epilogues after them,
+// with six kernels:
 //   select_kernel<P>                 <- pallas/valid_select.py::_sel_kernel
 //                                       (B5: valid_select_t)
 //   select_krige_kernel<M, P, MODEL> <- _sel_kernel + the XLA row epilogue
@@ -18,6 +18,9 @@
 //   window_krige_kernel<M, P, MODEL> <- _make_select_kernel + the XLA solve
 //                                       ops/packs.py::kriging_from_select
 //                                       (B12: pallas_packed_kriging)
+//   window_idw_kernel<M, P, K>       <- _make_select_kernel + the XLA IDW
+//                                       ops/packs.py::idw_from_select
+//                                       (B15: pallas_packed_idw)
 // The TPU kernels differ in layout only: (P, N) transposed stencils and
 // (N, 128) pack rows with a one-hot sub-block pick are the TPU's ways around
 // its gather unit.  On Hopper each query is one thread that reads its own
@@ -47,7 +50,10 @@
 //       first four slots and the 5x6 solve of krige_solve.cuh (below).
 //   B12: (N,) the kriging prediction: B7's first four slots and the same
 //       solve, NaN where no tap was found.
-//   B6, B11 and B12 take the queries' (lon, lat) and compute the query
+//   B15: (N,) sum w*v / max(sum w, eps) over B7's k slots, w = 1/(d2 **
+//       (power/2) + eps) (any power, as torch computes it), NaN where none
+//       was found and out of the grid.
+//   B6, B11, B12 and B15 take the queries' (lon, lat) and compute the query
 //   prologue themselves (query_prologue.cuh); B5 and B7 take the torch
 //   prologue's cell index and (fx, fy).
 // "resolved" (two-tier) is written at slot k-1 only: found & (d2 <
@@ -589,32 +595,39 @@ __device__ __forceinline__ void unstage_row(const float4* row, float (&val)[M]) 
 
 __device__ __forceinline__ int row_of(const QueryCell& qc, int W) { return qc.cj * W + qc.ci; }
 
-template <int M, int P, int MODEL>
-__global__ void __launch_bounds__(kSelThreads, M <= 16 ? 8 : (M <= 32 ? 4 : 1))
-window_krige_kernel(const float* __restrict__ pack, const float* __restrict__ lons,
-                    const float* __restrict__ lats, const __grid_constant__ KrigeTaps<M> taps,
-                    const KrigeParams par, int n, int vec, float* __restrict__ out) {
+// The row loop of B12 and B15 (window_idw_kernel, below), with the
+// per-query epilogue `query(val, qc, lon, lat, q)` a template parameter:
+// each query's prologue, its pack row's M values into registers, then the
+// epilogue.  STAGED (B12's radius-2 builds; B15 never) with an aligned
+// pack (vec) takes the staged rows (the persistent grid of warps, the next
+// chunk's rows copied by cp.async while this one is served); otherwise one
+// query a thread, a grid of all the queries, its row straight into
+// registers (16-byte loads where vec, else scalar).
+template <int M, int P, bool STAGED, class Query>
+__device__ __forceinline__ void window_rows(const float* __restrict__ pack, const float* __restrict__ lons,
+                                            const float* __restrict__ lats, const QueryGeom& geo, int n, int vec,
+                                            const Query& query) {
   static_assert(M <= P, "a pack row holds its taps");
-  if (!kStagedBuild<M> || !vec) {  // the rows straight into registers, one query a thread
+  if (!STAGED || !vec) {  // the rows straight into registers, one query a thread
     const int q = blockIdx.x * kSelThreads + threadIdx.x;
     if (q >= n) return;
     const float lon = __ldg(lons + q);
     const float lat = __ldg(lats + q);
-    const QueryCell qc = query_cell(lon, lat, par.geo);
-    const float* row = pack + (size_t)row_of(qc, par.geo.W) * P;
+    const QueryCell qc = query_cell(lon, lat, geo);
+    const float* row = pack + (size_t)row_of(qc, geo.W) * P;
     float val[M];
     if (vec)
       load_row<M, true>(row, val);
     else
       load_row<M, false>(row, val);
-    krige_query<M, MODEL, kMeanOrNaN>(val, qc, lon, lat, taps, par, n, q, out);
+    query(val, qc, lon, lat, q);
     return;
   }
   constexpr int S = RowCopy<M>::kStride;
-  extern __shared__ float4 b12_stages[];
+  extern __shared__ float4 row_stages[];
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
-  float4* stages = b12_stages + warp * (2 * 32 * S);
+  float4* stages = row_stages + warp * (2 * 32 * S);
   const long long chunks = ((long long)n + 31) / 32;
   const long long step = (long long)gridDim.x * kWarpsPerBlock;
   long long w = (long long)blockIdx.x * kWarpsPerBlock + warp;
@@ -624,14 +637,13 @@ window_krige_kernel(const float* __restrict__ pack, const float* __restrict__ lo
     const int q = (int)(c * 32) + lane;
     lon = q < n ? __ldg(lons + q) : 0.f;
     lat = q < n ? __ldg(lats + q) : 0.f;
-    const int cell = q < n ? row_of(query_cell(lon, lat, par.geo), par.geo.W) : -1;
+    const int cell = q < n ? row_of(query_cell(lon, lat, geo), geo.W) : -1;
     stage_rows<M, P>(pack, cell, stages + st * 32 * S, lane);
     cp_async_commit();
   };
   // chunk c's rows have been issued into stage st (and, if `pending`, the
-  // next chunk's after them): wait for them, then select and solve c's
-  // queries
-  const auto solve = [&](long long c, int st, float lon, float lat, bool pending) {
+  // next chunk's after them): wait for them, then serve c's queries
+  const auto serve = [&](long long c, int st, float lon, float lat, bool pending) {
     if (pending)
       cp_async_wait<1>();
     else
@@ -644,8 +656,7 @@ window_krige_kernel(const float* __restrict__ pack, const float* __restrict__ lo
     if (q < n) {
       // the prologue again from (lon, lat): the same bits, and no registers
       // held across the copy
-      const QueryCell qc = query_cell(lon, lat, par.geo);
-      krige_query<M, MODEL, kMeanOrNaN>(val, qc, lon, lat, taps, par, n, q, out);
+      query(val, query_cell(lon, lat, geo), lon, lat, q);
     }
   };
   float lon = 0.f, lat = 0.f;
@@ -653,11 +664,22 @@ window_krige_kernel(const float* __restrict__ pack, const float* __restrict__ lo
   for (int st = 0; w < chunks; w += step, st ^= 1) {
     float lon_n = 0.f, lat_n = 0.f;
     const bool more = w + step < chunks;
-    if (more) issue(w + step, st ^ 1, lon_n, lat_n);  // the next chunk's rows, while this one is solved
-    solve(w, st, lon, lat, more);
+    if (more) issue(w + step, st ^ 1, lon_n, lat_n);  // the next chunk's rows, while this one is served
+    serve(w, st, lon, lat, more);
     lon = lon_n;
     lat = lat_n;
   }
+}
+
+template <int M, int P, int MODEL>
+__global__ void __launch_bounds__(kSelThreads, M <= 16 ? 8 : (M <= 32 ? 4 : 1))
+window_krige_kernel(const float* __restrict__ pack, const float* __restrict__ lons,
+                    const float* __restrict__ lats, const __grid_constant__ KrigeTaps<M> taps,
+                    const KrigeParams par, int n, int vec, float* __restrict__ out) {
+  window_rows<M, P, kStagedBuild<M>>(
+      pack, lons, lats, par.geo, n, vec, [&](const float(&val)[M], const QueryCell& qc, float lon, float lat, int q) {
+        krige_query<M, MODEL, kMeanOrNaN>(val, qc, lon, lat, taps, par, n, q, out);
+      });
 }
 
 template <int M, int P>
@@ -731,6 +753,139 @@ int launch_window_krige(cudaStream_t st, const float* pack, const float* lons, c
   void* args[] = {&pack, &lons, &lats, &tv, &par, &n, &vec, &out};
   return (int)cudaLaunchKernel(window_krige_fn<M, P>(model), dim3((unsigned)blocks), dim3(kSelThreads), args,
                                staged ? (size_t)window_krige_smem<M>() : 0, st);
+}
+
+// B15: B7's window top-k and the IDW of ops/packs.py idw_from_select after
+// it, with the query prologue, in one kernel (pallas_packed_idw:
+// pallas_window_select's selection, then the weights and the quotient in
+// XLA).  B12's row loop (window_rows) with the IDW epilogue in place of the
+// solve; per query:
+//   - the prologue of query_prologue.cuh and the centre cell's row;
+//   - d2 per live tap as B7 computes it, 3e30 at a sentinel;
+//   - k min-extract passes (tree_min: the lowest-index minimum, B7's tie,
+//     the winner knocked out by its index); passes stop at the first whose
+//     minimum is not below 1.5e30, so a NaN query takes no slot;
+//   - per found slot w = 1 / (d2 ** (power / 2) + eps), the power as
+//     torch's pow(Tensor, Scalar) computes it on the card (IdwPow below),
+//     then num += w * v and den += w in slot order, each op rounded once
+//     (-fmad=false);
+//   - num / max(den, eps) where den > 0, NaN where not and out of the grid.
+// K is k where the main paths' k (4, 8) is built, 0 for the build that
+// takes any k (1 <= k <= P); the passes stay a loop, as B7's.
+// Bit-equal to window_idw_ref, whose weights are torch's and whose two sums
+// run in the same slot order.
+
+// How torch's CUDA pow(Tensor, Scalar) computes d2 ** e (e = power / 2):
+// e 0 fills 1 and e 1 copies the input (its structured kernel, before the
+// stub); 0.5, -0.5 and -1 go to sqrt, rsqrt and reciprocal; 2, 3 and -2 to
+// x*x, x*x*x and 1.0 / (x*x) (a double quotient); any other e to powf.
+// The wrapper picks the mode from e (scattered_select._pow_mode).
+enum IdwPow {
+  kPowOne = 0,
+  kPowCopy = 1,
+  kPowSqrt = 2,
+  kPowRsqrt = 3,
+  kPowRecip = 4,
+  kPowSquare = 5,
+  kPowCube = 6,
+  kPowRecipSquare = 7,
+  kPowGeneral = 8,
+};
+
+__device__ __forceinline__ float idw_pow(float d2, int mode, float e) {
+  switch (mode) {
+    case kPowOne: return 1.f;
+    case kPowCopy: return d2;
+    case kPowSqrt: return sqrtf(d2);
+    case kPowRsqrt: return rsqrtf(d2);
+    case kPowRecip: return 1.f / d2;
+    case kPowSquare: return d2 * d2;
+    case kPowCube: return d2 * d2 * d2;
+    case kPowRecipSquare: return (float)(1.0 / (double)(d2 * d2));
+    default: return powf(d2, e);
+  }
+}
+
+// The fixed parameters of a B15 launch, by value.
+struct IdwParams {
+  QueryGeom geo;
+  int k, pow_mode;
+  float pow_e, eps;
+};
+
+// One query after its row is loaded: the top-k, the weights, the quotient.
+template <int M, int K>
+__device__ __forceinline__ void idw_query(const float (&val)[M], const QueryCell& qc, const Taps<M>& taps,
+                                          const IdwParams& par, int q, float* __restrict__ out) {
+  float d2[M];
+#pragma unroll
+  for (int t = 0; t < M; ++t) {
+    const float di = taps.x[t] - qc.fx;
+    const float dj = taps.y[t] - qc.fy;
+    d2[t] = val[t] < kHalfSentinel ? di * di + dj * dj : kInf;
+  }
+  const int kk = K > 0 ? K : par.k;
+  float num = 0.f;
+  float den = 0.f;
+#pragma unroll 1
+  for (int s = 0; s < kk; ++s) {
+    float m, v;
+    int idx;
+    tree_min<0, M, M>(d2, val, [](int t) { return t; }, m, idx, v);
+    if (!(m < kHalfInf)) break;
+    const float w = 1.f / (idw_pow(m, par.pow_mode, par.pow_e) + par.eps);
+    num = num + w * v;
+    den = den + w;
+    if (s == kk - 1) break;
+#pragma unroll
+    for (int t = 0; t < M; ++t) d2[t] = t == idx ? kInf : d2[t];
+  }
+  // the quotient only under den > 0 (fmaxf(NaN, eps) is eps, where
+  // torch.clamp keeps the NaN; see idw_select_kernel)
+  const float res = den > 0.f ? num / fmaxf(den, par.eps) : NAN;
+  out[q] = qc.oob ? NAN : res;
+}
+
+// B15 takes the rows straight into registers in every build: at 1M Grid A
+// queries, radius 2, k = 8 (the main paths' k), B12's staged rows took it
+// from 0.089 to 0.102 ms (PERF.md; scripts/b15_variants.cu).
+template <int M, int P, int K>
+__global__ void __launch_bounds__(kSelThreads, M <= 16 ? 8 : (M <= 32 ? 4 : 1))
+window_idw_kernel(const float* __restrict__ pack, const float* __restrict__ lons, const float* __restrict__ lats,
+                  const __grid_constant__ Taps<M> taps, const IdwParams par, int n, int vec,
+                  float* __restrict__ out) {
+  window_rows<M, P, false>(pack, lons, lats, par.geo, n, vec,
+                           [&](const float(&val)[M], const QueryCell& qc, float, float, int q) {
+                             idw_query<M, K>(val, qc, taps, par, q, out);
+                           });
+}
+
+template <int M, int P, int K>
+int launch_window_idw_k(cudaStream_t st, const float* pack, const float* lons, const float* lats,
+                        const Taps<M>& tv, const IdwParams& par, int n, float* out) {
+  int vec = ((uintptr_t)pack & 15) == 0;
+  const long long blocks = ((long long)n + kSelThreads - 1) / kSelThreads;
+  void* args[] = {(void*)&pack, (void*)&lons, (void*)&lats, (void*)&tv, (void*)&par, &n, &vec, &out};
+  return (int)cudaLaunchKernel((const void*)window_idw_kernel<M, P, K>, dim3((unsigned)blocks), dim3(kSelThreads),
+                               args, 0, st);
+}
+
+template <int M, int P>
+int launch_window_idw(cudaStream_t st, const float* pack, const float* lons, const float* lats, const float* offs,
+                      const IdwParams& par, float half, int n, float* out) {
+  Taps<M> tv;
+  for (int t = 0; t < M; ++t) {
+    tv.x[t] = offs[t] + half;
+    tv.y[t] = offs[M + t] + half;
+  }
+  switch (par.k) {
+    case 4:
+      return launch_window_idw_k<M, P, 4>(st, pack, lons, lats, tv, par, n, out);
+    case 8:
+      return launch_window_idw_k<M, P, 8>(st, pack, lons, lats, tv, par, n, out);
+    default:
+      return launch_window_idw_k<M, P, 0>(st, pack, lons, lats, tv, par, n, out);
+  }
 }
 
 // B7: window top-k over the M real taps of a pack row, as B6 selects them,
@@ -1072,6 +1227,71 @@ int auvtpu_window_krige_attributes(int M, int model, int* out) {
   out[1] = (int)attr.localSizeBytes;
   out[2] = per_sm;
   out[3] = smem;
+  return 0;
+}
+
+// B15.  pack, P, M, lons, lats, offs, n, W, H and geo as for
+// auvtpu_window_krige (geo[8] the half of the convention); 1 <= k <= P;
+// pow_mode (IdwPow) and pow_e = power / 2 the weights' power; eps
+// IDWConfig(k, power).eps; out: (n,) f32 = the IDW value.  A pack that is
+// not 16-byte aligned takes scalar loads.  One kernel launch, nothing else
+// on the stream.
+int auvtpu_window_idw(const void* pack, int P, int M, const void* lons, const void* lats, const float* offs, int n,
+                      int W, int H, const float* geo, int k, int pow_mode, float pow_e, float eps, void* out,
+                      void* stream) {
+  if (P != pitch_for(M) || k < 1 || k > P || pow_mode < kPowOne || pow_mode > kPowGeneral || n < 0 || W < 1 ||
+      H < 1)
+    return (int)cudaErrorInvalidValue;
+  if (n == 0) return (int)cudaSuccess;
+  IdwParams par;
+  par.geo = QueryGeom{geo[0], geo[1], geo[2], geo[3], geo[4], geo[5], W, H};
+  par.k = k;
+  par.pow_mode = pow_mode;
+  par.pow_e = pow_e;
+  par.eps = eps;
+  const float half = geo[8];
+  cudaStream_t st = (cudaStream_t)stream;
+  const float* p = (const float*)pack;
+  const float *lo = (const float*)lons, *la = (const float*)lats;
+  float* o = (float*)out;
+  switch (M) {
+    case 9:
+      return launch_window_idw<9, 16>(st, p, lo, la, offs, par, half, n, o);
+    case 25:
+      return launch_window_idw<25, 32>(st, p, lo, la, offs, par, half, n, o);
+    case 49:
+      return launch_window_idw<49, 64>(st, p, lo, la, offs, par, half, n, o);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+}
+
+// B15's build for M taps and k (4, 8, or any other for the general build):
+// out[0..3] as for auvtpu_window_krige_attributes.
+int auvtpu_window_idw_attributes(int M, int k, int* out) {
+  const void* fn;
+  switch (M * 100 + (k == 4 || k == 8 ? k : 0)) {
+    case 904: fn = (const void*)window_idw_kernel<9, 16, 4>; break;
+    case 908: fn = (const void*)window_idw_kernel<9, 16, 8>; break;
+    case 900: fn = (const void*)window_idw_kernel<9, 16, 0>; break;
+    case 2504: fn = (const void*)window_idw_kernel<25, 32, 4>; break;
+    case 2508: fn = (const void*)window_idw_kernel<25, 32, 8>; break;
+    case 2500: fn = (const void*)window_idw_kernel<25, 32, 0>; break;
+    case 4904: fn = (const void*)window_idw_kernel<49, 64, 4>; break;
+    case 4908: fn = (const void*)window_idw_kernel<49, 64, 8>; break;
+    case 4900: fn = (const void*)window_idw_kernel<49, 64, 0>; break;
+    default: return (int)cudaErrorInvalidValue;
+  }
+  cudaFuncAttributes attr;
+  cudaError_t err = cudaFuncGetAttributes(&attr, fn);
+  if (err != cudaSuccess) return (int)err;
+  int blocks = 0;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, fn, kSelThreads, 0);
+  if (err != cudaSuccess) return (int)err;
+  out[0] = attr.numRegs;
+  out[1] = (int)attr.localSizeBytes;
+  out[2] = blocks;
+  out[3] = 0;
   return 0;
 }
 

@@ -18,8 +18,9 @@ the device's implementation):
   ``select_kernel``), ``auvtpu_torch::idw_select`` (B6,
   ``idw_select_kernel``), ``auvtpu_torch::window_select`` (B7,
   ``window_select_kernel``), ``auvtpu_torch::select_krige`` (B11,
-  ``select_krige_kernel``) and ``auvtpu_torch::window_krige`` (B12,
-  ``window_krige_kernel``), the scattered-query selections;
+  ``select_krige_kernel``), ``auvtpu_torch::window_krige`` (B12,
+  ``window_krige_kernel``) and ``auvtpu_torch::window_idw`` (B15,
+  ``window_idw_kernel``), the scattered-query selections;
 - ``auvtpu_torch::exact_dense`` and ``::exact_dense_krige`` (B13,
   ``csrc/exact_select.cu`` ``dense_kernel``: the two-tier dense pass, with
   the table solve) and ``auvtpu_torch::exact_ring`` and
@@ -34,8 +35,8 @@ the device's implementation):
 Each op takes tensors and python scalars only: a grid is unpacked into its
 ``elev`` and ``valid`` planes with its extent as floats, the variogram is
 one tensor (B11, B12: a list of one (3,) tensor or three 0-d ones), and
-what a kernel takes by value from the host (the taps of B6, B7, B11 and
-B12, the grid scalars of B6, B11 and B12) is worked out by the wrapper,
+what a kernel takes by value from the host (the taps of B6, B7, B11, B12
+and B15, the grid scalars of B6, B11, B12 and B15) is worked out by the wrapper,
 once, before the call: B7's taps a
 list of floats, the others CPU tensors the launch reads on the host (a
 list costs the dispatcher a conversion a value, each call).
@@ -412,6 +413,33 @@ window_krige = _op(
     "window_krige(Tensor pack, Tensor tab, Tensor qlon, Tensor qlat, Tensor[] vario, Tensor taps, Tensor geo, "
     "int P, int R, int num_lon, int num_lat, str model) -> Tensor",
     cpu=_window_krige_cpu, cuda=_window_krige_cuda, fake=_window_krige_fake)
+
+
+# B15: B7's window top-k and the IDW weights and quotient, (N,) values (NaN
+# where no tap was found and out of the grid); tab the (3, P) 'dx' table,
+# taps scattered_select._window_krige_taps's; power any float, eps
+# IDWConfig(k, power).eps
+def _window_idw_cpu(pack, tab, qlon, qlat, taps, geo, P, R, num_lon, num_lat, k, power, eps):
+    from .scattered_select import window_idw_plain
+
+    return window_idw_plain(pack, P, tab, R, _geo_grid(qlon, geo, num_lon, num_lat), qlon, qlat, k=k,
+                            half=float(geo[8]), power=power, eps=eps)
+
+
+def _window_idw_cuda(pack, tab, qlon, qlat, taps, geo, P, R, num_lon, num_lat, k, power, eps):
+    from .scattered_select import window_idw_launch
+
+    return window_idw_launch(pack, P, qlon, qlat, taps, geo, num_lon, num_lat, k, power, eps)
+
+
+def _window_idw_fake(pack, tab, qlon, qlat, taps, geo, P, R, num_lon, num_lat, k, power, eps):
+    return qlon.new_empty(qlon.shape)
+
+
+window_idw = _op(
+    "window_idw(Tensor pack, Tensor tab, Tensor qlon, Tensor qlat, Tensor taps, Tensor geo, int P, int R, "
+    "int num_lon, int num_lat, int k, float power, float eps) -> Tensor",
+    cpu=_window_idw_cpu, cuda=_window_idw_cuda, fake=_window_idw_fake)
 
 
 # ---------------------------------------------------------------------------

@@ -1,8 +1,8 @@
-"""The scattered-query selection kernels (B5, B6, B7, B11, B12) and the B7
-wrappers (counterpart of :mod:`auvtpu.pallas.scattered_select`).
+"""The scattered-query selection kernels (B5, B6, B7, B11, B12, B15) and
+the B7 wrappers (counterpart of :mod:`auvtpu.pallas.scattered_select`).
 
-Five CUDA kernels in ``csrc/scattered_select.cu`` replace three TPU
-kernels and two XLA epilogues: per query they read the taps of its centre
+Six CUDA kernels in ``csrc/scattered_select.cu`` replace three TPU
+kernels and three XLA epilogues: per query they read the taps of its centre
 cell's pack row, take the squared distance to each valid tap and extract
 the k nearest by min-extract passes (ties to the lowest table index =
 collection order).  The modes of :func:`select`:
@@ -14,11 +14,10 @@ collection order).  The modes of :func:`select`:
   rows [cnt, vals, d2s, codes], dx-major codes, in a kernel that scans only
   the window's real taps and takes them, with each tap's code, by value (a
   pack that is not 16-byte aligned takes its scalar loads); wrappers
-  :func:`window_select_fused` and :func:`packed_idw_fused` below, which
-  return or use the select dict of
+  :func:`window_select_fused` below, which returns the select dict of
   :func:`auvtpu_torch.ops.packs.packed_window_select`.
 
-Three kernels take the queries and the grid's scalars and compute the
+Four kernels take the queries and the grid's scalars and compute the
 query prologue themselves (``csrc/query_prologue.cuh``), so that a call is
 one launch:
 
@@ -36,7 +35,11 @@ one launch:
   (``pallas_packed_kriging``: ``pallas_window_select`` and the XLA
   ``kriging_from_select`` after it), (N,) predictions, for
   :func:`packed_kriging_fused`; its plain version is
-  :func:`window_krige_ref`.
+  :func:`window_krige_ref`;
+- :func:`window_idw` (B15): B7's top-k with the IDW weights and quotient
+  of any power (``pallas_packed_idw``: ``pallas_window_select`` and the XLA
+  ``idw_from_select`` after it), (N,) values, for :func:`packed_idw_fused`;
+  its plain version is :func:`window_idw_ref`.
 
 For B5 and B7 the normalisation (x, y, oob, centre cell, fractional
 offsets) is torch, in one place (:func:`prologue`), and the kernels do the
@@ -57,13 +60,14 @@ import torch
 
 from ..config import IDWConfig, KrigingConfig
 from ..grid import RegularGrid, as_dtype, device_cache
-from ..ops.packs import SENTINEL, idw_from_select, pack_width, window_offsets
+from ..ops.packs import SENTINEL, pack_width, window_offsets
 from ..ops.scattered import _nan_like, _normalize, cell_centres, centre_cells, krige_solve_cols, queries
 from . import library
 from .window_fill import _MODELS
 
 # one count per TPU kernel replaced
-LAUNCHES = {"select_rows": 0, "idw_rows": 0, "window_select_fused": 0, "select_krige": 0, "window_krige": 0}
+LAUNCHES = {"select_rows": 0, "idw_rows": 0, "window_select_fused": 0, "select_krige": 0, "window_krige": 0,
+            "window_idw": 0}
 _MODES = {"rows_t": "select_rows", "idw": "idw_rows", "rows_n": "window_select_fused"}
 KERNEL_P = (16, 32, 64)  # pack widths the kernel is built for (radius <= 3)
 INF = 3e30  # d2 of an invalid tap (valid_select.py:62)
@@ -91,6 +95,10 @@ def _lib() -> ctypes.CDLL:
     lib.auvtpu_select_krige.restype = I
     lib.auvtpu_window_krige.argtypes = [P, I, I, P, P, P, I, I, I, P, FP, P, P, P, I, P, P]  # taps, geo: host
     lib.auvtpu_window_krige.restype = I
+    lib.auvtpu_window_idw.argtypes = [P, I, I, P, P, P, I, I, I, P, I, I, F, F, P, P]  # taps, geo: host
+    lib.auvtpu_window_idw.restype = I
+    lib.auvtpu_window_idw_attributes.argtypes = [I, I, ctypes.POINTER(I)]
+    lib.auvtpu_window_idw_attributes.restype = I
     lib.auvtpu_select_krige_attributes.argtypes = [I, I, ctypes.POINTER(I)]
     lib.auvtpu_select_krige_attributes.restype = I
     lib.auvtpu_window_krige_attributes.argtypes = [I, I, ctypes.POINTER(I)]
@@ -709,11 +717,12 @@ def window_krige_attributes(M: int, model: str = "exponential") -> dict:
     return dict(zip(("registers", "spill_bytes", "blocks_per_sm", "shared_bytes"), out))
 
 
-def _window_krige_taps(offs: tuple, P: int, R: int) -> torch.Tensor:
-    """B12's taps, :func:`_krige_taps`'s, for a window of B7's builds."""
-    M, taps = _krige_taps(offs, P, R, "window_krige")
+def _window_krige_taps(offs: tuple, P: int, R: int, name: str = "window_krige") -> torch.Tensor:
+    """B12's and B15's taps, :func:`_krige_taps`'s, for a window of B7's
+    builds."""
+    M, taps = _krige_taps(offs, P, R, name)
     if M not in WINDOW_M:
-        raise ValueError(f"window_krige: no build for {M} taps; built for the windows of radius 1-3, {WINDOW_M}")
+        raise ValueError(f"{name}: no build for {M} taps; built for the windows of radius 1-3, {WINDOW_M}")
     return taps
 
 
@@ -779,6 +788,110 @@ def window_krige_launch(pack, P: int, qlon, qlat, vario, taps, geo, num_lon: int
 
 
 # ---------------------------------------------------------------------------
+# B15: B7's top-k and the IDW weights and quotient in one kernel, with its
+# plain version
+# ---------------------------------------------------------------------------
+
+def window_idw(pack, P: int, offs, R: int, grid: RegularGrid, lons, lats, *, k: int = 8, power: float = 2.0, convention: str = "reference"):
+    """k-nearest IDW from B7's window selection over the pack rows of
+    ``offs`` (B15): (N,) f32 values.  The value is sum w*v / max(sum w,
+    eps) over the k nearest valid taps, w = 1/(d2 ** (power/2) + eps) and
+    eps ``IDWConfig(k, power).eps``, NaN where no tap was found and out of
+    the grid: ``idw_from_select`` after ``pallas_window_select``.  Through
+    the op ``auvtpu_torch::window_idw``: for a CPU pack it runs
+    :func:`window_idw_ref`; for a CUDA pack it launches the kernel once,
+    which computes the query prologue itself, or raises."""
+    cpu = pack.device.type == "cpu"
+    if not cpu:
+        _check_device(pack, "window_idw")
+    if not 1 <= k <= P:
+        raise ValueError(f"window_idw: k={k} outside 1..{P}")
+    qlon, qlat = (q.contiguous() for q in queries(grid, lons, lats))
+    key = _offs_key(offs)
+    tab = table(key, P, R, "dx", grid.device)
+    taps = _NO_TAPS if cpu else _window_krige_taps(key, P, R, "window_idw")
+    return library.window_idw(pack, tab, qlon, qlat, taps, _krige_geo(grid, convention), P, R, grid.num_lon,
+                              grid.num_lat, k, float(power), IDWConfig(k=k, power=power).eps)
+
+
+def window_idw_ref(pack, P: int, offs, R: int, grid: RegularGrid, lons, lats, *, k: int = 8, power: float = 2.0, convention: str = "reference"):
+    """Plain version of :func:`window_idw`: :func:`window_select_fused`'s
+    plain path (the torch prologue, :func:`select_ref` in mode ``"rows_n"``
+    over the 'dx' table, the select dict) and ``idw_from_select``'s weights,
+    with its two sums in the kernel's slot order."""
+    return window_idw_plain(pack, P, table(offs, P, R, "dx", grid.device), R, grid, lons, lats, k=k,
+                            half=0.5 if convention == "reference" else 0.0, power=power,
+                            eps=IDWConfig(k=k, power=power).eps)
+
+
+def window_idw_plain(pack, P: int, tab, R: int, grid: RegularGrid, lons, lats, *, k: int, half: float, power: float, eps: float):
+    """:func:`window_idw_ref` over the pack's (3, P) 'dx' table: the ``cpu``
+    implementation of ``auvtpu_torch::window_idw``.  The weights are
+    ``ops.packs.idw_from_select``'s, over the same (N, k) select rows; its
+    sums over k are spelled out slot by slot, as the kernel adds."""
+    x, y, oob, ci, cj, cell, fx, fy = prologue(grid, lons, lats)
+    sel = _window_dict(select_ref(pack, P, cell, fx, fy, tab, mode="rows_n", k=k, half=half), x, y, oob, ci, cj, k, R)
+    d2, val = sel["d2"], sel["val"]
+    w = torch.where(sel["slot_ok"], 1.0 / (d2 ** (power / 2.0) + eps), torch.zeros_like(d2))
+    num = den = torch.zeros_like(w[:, 0])
+    for s in range(k):
+        num = num + w[:, s] * val[:, s]
+        den = den + w[:, s]
+    res = torch.where(den > 0, num / torch.clamp(den, min=eps), _nan_like(den))
+    return torch.where(oob, _nan_like(res), res)
+
+
+# torch's CUDA pow(Tensor, Scalar) by exponent: the kernel's IdwPow mode
+# (any other exponent: 8, powf)
+_POW_MODES = {0.0: 0, 1.0: 1, 0.5: 2, -0.5: 3, -1.0: 4, 2.0: 5, 3.0: 6, -2.0: 7}
+
+
+def _pow_mode(power: float) -> tuple[int, float]:
+    """(mode, e) of B15's weights for ``power``: e = power / 2, as the plain
+    version's ``d2 ** (power / 2.0)``, and the way torch computes that power
+    on the card (``IdwPow`` in ``csrc/scattered_select.cu``)."""
+    e = float(power) / 2.0
+    return _POW_MODES.get(e, 8), e
+
+
+def window_idw_launch(pack, P: int, qlon, qlat, taps, geo, num_lon: int, num_lat: int, k: int, power: float, eps: float):
+    """One B15 launch: the ``cuda`` implementation of
+    ``auvtpu_torch::window_idw``.  ``taps`` (:func:`_window_krige_taps`)
+    and ``geo`` (:func:`_krige_geo`) are CPU tensors read on the host."""
+    name = "window_idw"
+    dev = pack.device
+    _check(pack, P, k, name, qlon, qlat)
+    M = taps.numel() // 2
+    if taps.numel() % 2 or M not in WINDOW_M or pack_width(M) != P or geo.numel() != 10:
+        raise ValueError(f"{name}: {taps.numel()} tap values for rows of {P} and {geo.numel()} grid scalars; want "
+                         f"2*M, M in {WINDOW_M}, and 10")
+    geo32 = _geo32(geo)  # held until the launch has read it
+    host_taps, host_geo = _host_floats(taps, name, "taps"), _host_floats(geo32, name, "grid scalars")
+    n = int(qlon.shape[0])
+    out = torch.empty((n,), dtype=torch.float32, device=dev)
+    if n == 0:
+        return out
+    mode, e = _pow_mode(power)
+    with torch.cuda.device(dev):
+        err = _lib().auvtpu_window_idw(
+            pack.data_ptr(), P, M, qlon.data_ptr(), qlat.data_ptr(), host_taps, n, num_lon, num_lat, host_geo, k,
+            mode, e, float(eps), out.data_ptr(), _stream(dev),
+        )
+    _raise_on(err, name)
+    LAUNCHES[name] += 1
+    return out
+
+
+def window_idw_attributes(M: int, k: int = 8) -> dict:
+    """The resources of B15's build for M taps and ``k`` (4 and 8 have
+    builds of their own, any other k the general one) on the current card,
+    as :func:`window_krige_attributes` gives them."""
+    out = (ctypes.c_int * 4)()
+    _raise_on(_lib().auvtpu_window_idw_attributes(M, k, out), "window_idw")
+    return dict(zip(("registers", "spill_bytes", "blocks_per_sm", "shared_bytes"), out))
+
+
+# ---------------------------------------------------------------------------
 # B7 wrappers: the select dict of ops.packs.packed_window_select
 # ---------------------------------------------------------------------------
 
@@ -823,9 +936,12 @@ def packed_kriging_fused(pack, grid: RegularGrid, lons, lats, *, window_radius: 
 
 
 def packed_idw_fused(pack, grid: RegularGrid, lons, lats, *, k: int = 8, power: float = 2.0, window_radius: int = 2, convention: str = "reference"):
-    """k-nearest IDW with the selection in B7 (``pallas_packed_idw``)."""
-    sel = window_select_fused(pack, grid, lons, lats, k=k, window_radius=window_radius, convention=convention)
-    return idw_from_select(sel, power=power, eps=IDWConfig(k=k, power=power).eps)
+    """k-nearest IDW over the radius-R window pack with B7's selection, the
+    weights and the quotient in one kernel, B15 (``pallas_packed_idw``):
+    one launch a call on the card."""
+    offs = _window(window_radius)
+    return window_idw(pack, pack_width(len(offs)), offs, window_radius, grid, lons, lats, k=k, power=power,
+                      convention=convention)
 
 
 @lru_cache(maxsize=8)

@@ -29,7 +29,8 @@ class TwoTierInterpolator:
     def __init__(self, grid: RegularGrid, *, convention: str = "reference", escalate_cap: int = 1 << 14, backend: str = "auto"):
         """backend: 'transposed' runs the fast path's selection through the
         B11 (kriging) and B6 (IDW) kernels with the resolution test folded
-        into the selection; 'fused' through B7; 'torch' is the packed stable
+        into the selection; 'fused' through B12 (kriging) and B15 (IDW),
+        B7's window selection with its epilogue; 'torch' is the packed stable
         sort; 'auto' (default) is 'transposed' on a CUDA float32 grid and
         'torch' otherwise.  Escalation and the resolved mask are the same
         for every backend."""

@@ -17,7 +17,8 @@ fill in the path.  The CUDA kernels are ``torch.library`` custom ops
 Shapes are static: export one artifact per tile geometry (and query batch
 size).  An artifact is for one device, ``device`` at export (the card by
 default), and its loader raises on an input that lies elsewhere: it never
-moves data.  On the card the fills reach the kernels (B1, B3, B7, B8);
+moves data.  On the card the fills reach the kernels (B1, B3, B8) and the
+scattered engine B12 (kriging) or B15 (IDW);
 on the CPU the same ops run their plain versions.  The plain whole-plane
 paths cannot be traced (they read counts back to stop their scans early),
 so no artifact holds one.  Each artifact carries its metadata as an extra
@@ -173,7 +174,8 @@ def load_exported(path: str):
 
 
 # ---------------------------------------------------------------------------
-# scattered serving from a stencil pack (B7)
+# scattered serving from a stencil pack (B12, B15: B7's selection with the
+# kriging solve or the IDW quotient)
 # ---------------------------------------------------------------------------
 
 def _scattered_fn(extent, method, window_radius, vparams, convention, k, power):
@@ -193,7 +195,8 @@ def _scattered_fn(extent, method, window_radius, vparams, convention, k, power):
 
 
 def export_scattered(path: str, shape, n_queries: int, *, extent=(0.0, 1.0, 0.0, 1.0), method: str = "kriging", window_radius: int = 2, vparams=None, convention: str = "reference", k: int = 8, power: float = 2.0, device="cuda"):
-    """Write the packed scattered-query engine (B7's selection) for a fixed
+    """Write the packed scattered-query engine (B7's selection with the
+    kriging solve, B12, or the IDW quotient, B15, in one op) for a fixed
     grid geometry and batch size: ``run(pack, elev, valid, lons, lats) ->
     preds``.  The stencil pack is an argument (build it once per grid with
     ``ops.packs.StencilPack``; ``.window`` is the flat (H*W*P,) layout), so

@@ -76,7 +76,7 @@ streaming mosaic and scattered queries on the 3200x4000 Grid A, in phases:
             and cold (a 128 MB write before each launch), its wrapper and
             plain version, B4 vs plain at r0.20, the Grid B
             methods, streaming ingest and window refresh (fused and torch)
-12. B5-B12 the scattered select kernels vs their plain version on Grid A
+12. B5-B15 the scattered select kernels vs their plain version on Grid A
             (3200x4000 shelf + seamount, fully valid: valid16 and radius-2
             packs, B7 also at radius 1 and 3, k=4 and k=8) and on the
             stand-in r0.10, 1M numpy-seeded queries plus
@@ -87,15 +87,19 @@ streaming mosaic and scattered queries on the 3200x4000 Grid A, in phases:
             and B12 (query prologue, top-4 and kriging solve) bit for bit
             on the same queries: B6 with and without the resolved row, B11
             valid16 and radius 2 with the resolved row, B11 and B12 for the
-            four models with fitted parameters on the card; the kernel
-            paths' predictions vs the torch packed paths at rtol=1e-5,
-            atol=1e-4
+            four models with fitted parameters on the card; B15 (query
+            prologue, B7's top-k, IDW weights and quotient) bit for bit on
+            the same queries, on the stand-in at radius 1-3, an aligned pack
+            and one 4 bytes off, k 1, 4, 8 and P, powers 2, 1 and 3 (Grid
+            A: radius 2, k 8); the kernel paths' predictions vs the torch
+            packed paths at rtol=1e-5, atol=1e-4
 13. grid A  auvtpu_torch.cli.bench_grid_a on the default grid at 1e3, 1e5,
             1e6 and 5e6 queries (all four methods, --backend auto), then 1e6
             with --backend fused: every validation PASSED (5e-5 x scale);
             launch counts show B11 and B6 (and no B5) under auto, B12 and
-            B7 under fused; valid_select_t (B5's entry point) at the 1M Grid A
-            queries, launch counts zeroed around it;
+            B15 (and no B7) under fused; valid_select_t (B5's entry point)
+            and window_select_fused (B7's) at the 1M Grid A queries, launch
+            counts zeroed around each;
             _normalize, lonlat_to_xy and ops.band._xy on the card equal to
             the CPU's bit for bit at the 1M phase-12 queries and the
             corner's nodes and half-nodes; 4096
@@ -109,19 +113,28 @@ streaming mosaic and scattered queries on the 3200x4000 Grid A, in phases:
             their wrappers, B7's and B5's library call (torch.topk of the
             d2 matrix) and the torch paths at 1M Grid A queries; B6, B11
             and B12 bit for bit at 5M Grid A queries (B6 with and without
-            the resolved row, B11 valid16 and radius 2 with it, B12; odd,
-            node and half-node queries included); each packed_idw_t and
-            packed_kriging_fused call one CUDA kernel and no synchronising
+            the resolved row, B11 valid16 and radius 2 with it, B12, B15
+            at radius 2, k 8, both packs and powers 2, 1 and 3; odd, node
+            and half-node queries included); B15 at 5M stand-in queries
+            (radius 1-3, the pack 4 bytes off, k 1, 4, 8 and P, powers 2, 1
+            and 3); each packed_idw_t, packed_kriging_fused and
+            packed_idw_fused call one CUDA kernel and no synchronising
             call, their events and the torch prologue, epilogue and solve
-            they no longer run; B6 and B12 alone at 5M; B11
-            alone at 1M and 5M (valid16 and radius 2), its bound, the
-            row-gather floor (scripts/row_gather_probe.py) and the issue
-            floor from its SASS instruction count, the resources of its
+            they no longer run; packed_idw_fused's events against the old
+            composition (window_select_fused, idw_from_select: old, new,
+            new, old); B6, B12 and B15 alone at 1M and 5M, their wrappers
+            and plain versions, B15 beside B12's bound and
+            rows-in-registers probe, B15's builds' resources (no spill at
+            radius 2); B11 alone at 1M and 5M (valid16 and radius 2), its
+            bound, the rows-in-registers probe
+            (scripts/row_gather_probe.py: the same rows loaded straight
+            into registers, not a floor) and the issue estimate from its
+            SASS instruction count, the resources of its
             builds on the main paths (registers, spills, resident blocks),
             its wrapper and plain version; B12's builds (radius 1-3, the
             four models: registers, spills, shared memory, resident
             blocks; no spill at radius 2) and, at 1M and 5M, its bound, its
-            row-gather floor (128-byte rows) and its issue estimate;
+            rows-in-registers probe (128-byte rows) and its issue estimate;
             kriging_valid_t's events and
             CUDA kernels a call at 1M and 5M beside the torch prologue it
             no longer runs (B5 and B7 still do); B1's and B11's SASS against
@@ -207,7 +220,7 @@ streaming mosaic and scattered queries on the 3200x4000 Grid A, in phases:
             the kernels as auvtpu_torch:: custom ops), each exported on the
             card and loaded fresh: the kriging fill at r0.10 (B1), IDW k=8
             at r0.20 (B3), the packed engine at 1M stand-in queries, kriging
-            and IDW (B7), the learned fill with the committed w16 d2
+            (B12) and IDW (B15), the learned fill with the committed w16 d2
             checkpoint (B3 mean), and the mission pair at 5M pings of the
             band weave and of the 8-page diagonal atlas (B1 a page, B8):
             each loaded call bit-equal to the live call, its kernel
@@ -382,6 +395,8 @@ SOURCES = ("window_fill", "scattered_select", "band_resample", "variogram", "exa
 N_SCATTER = 1_000_000
 SCATTER_RTOL, SCATTER_ATOL = 1e-5, 1e-4  # kernel paths vs torch (tests/test_pallas.py:300)
 TT_BARS = {"kriging": (1e-4, 0.1), "idw": (1e-4, 0.05)}  # two-tier vs torch (tests/test_packs.py:116-120)
+# B15 (window_idw) is bit-equal to its plain version at these powers (PERF.md)
+B15_POWERS = (2.0, 1.0, 3.0)
 GRID_A_BATCHES = (1_000, 100_000, 1_000_000, 5_000_000)
 GOLDEN_TOL = 5e-5  # x max(1, |golden|): the Grid A CLI's f32 bar
 N_GOLDEN = 4096
@@ -1133,6 +1148,40 @@ def select_cases(g, p16=None):
     if p16 is not None:
         cases.insert(0, ("select_rows", p16, 16, tp.VALID16_OFFSETS, 2, "rows_t", "dy", dict(k=4, emit_d2=True)))
     return win, cases
+
+
+def b15_cases(full: bool) -> list:
+    """(radius, aligned, k, power) of B15's checks: with ``full`` every
+    radius (1-3), an aligned pack and one 4 bytes off, k 1, 4, 8 and P
+    ("P"), every power of B15_POWERS; else radius 2, both packs, k 8."""
+    if not full:
+        return [(2, aligned, 8, power) for aligned in (True, False) for power in B15_POWERS]
+    return [(r, aligned, k, power) for r in (1, 2, 3) for aligned in (True, False) for k in (1, 4, 8, "P")
+            for power in B15_POWERS]
+
+
+def b15_equal(g, packs_r: dict, lons, lats, cases: list, label: str) -> float:
+    """B15 held bit for bit to window_idw_ref on these queries for each
+    (radius, aligned, k, power) case; ``packs_r`` maps a radius to its
+    (pack, P, offsets), the pack 4 bytes off is a copy.  Returns 0."""
+    import torch
+
+    from auvtpu_torch.kernels import scattered_select as ss
+
+    err, shifted = 0.0, {}
+    for r, aligned, k, power in cases:
+        pk, P, offs = packs_r[r]
+        if not aligned:
+            shifted.setdefault(r, torch.cat([pk.new_zeros(1), pk])[1:])
+            pk = shifted[r]
+        kk = P if k == "P" else k
+        a = ss.window_idw(pk, P, offs, r, g, lons, lats, k=kk, power=power)
+        b = ss.window_idw_ref(pk, P, offs, r, g, lons, lats, k=kk, power=power)
+        torch.cuda.synchronize()
+        what = f"window_idw radius {r} {'aligned' if aligned else '4 bytes off'} k={kk} power {power:g} at {label}"
+        err = max(err, same_planes(a, b, what))
+        del a, b
+    return err
 
 
 def golden_check(got, want, what: str) -> float:
@@ -2300,7 +2349,7 @@ def main() -> int:
     qK = scattered_queries(KERGUELEN_EXTENT, *SHAPE, N_SCATTER, 8, dev)
     p16 = tp.build_valid16_pack(gA)
     sc_err = {"select_rows": 0.0, "idw_rows": 0.0, "window_select_fused": 0.0, "select_krige": 0.0,
-              "window_krige": 0.0}
+              "window_krige": 0.0, "window_idw": 0.0}
     for label, g, (lo, la), p16_, ext, shape in (("Grid A", gA, qA, p16, GRID_A_EXTENT, GRID_A_SHAPE),
                                                  ("stand-in r0.10", grid, qK, None, KERGUELEN_EXTENT, SHAPE)):
         win, cases = select_cases(g, p16_)
@@ -2362,11 +2411,22 @@ def main() -> int:
                 f"{odd[0].numel()} NaN/inf/1e30/out-of-grid/node/half-node queries included "
                 f"({int(torch.isnan(a).sum())} NaN)")
             del a, b
+        # B15 on the same queries: B7's top-k with the IDW weights and the
+        # quotient (the fused path's IDW); on the stand-in radius 1-3, an
+        # aligned pack and one 4 bytes off, k 1, 4, 8 and P, powers 2, 1
+        # and 3; on Grid A radius 2, k 8, both packs and those powers
+        packs_r = {c[4]: (c[1], c[2], c[3]) for c in cases if c[0] == "window_select_fused"}
+        idw_cases = b15_cases(full=p16_ is None)
+        sc_err["window_idw"] = max(sc_err["window_idw"], b15_equal(g, packs_r, lo_o, la_o, idw_cases, label))
+        say("B15", f"{label} window_idw: {len(idw_cases)} cases (radius, aligned or 4 bytes off, k, power "
+            f"{'/'.join(f'{p:g}' for p in B15_POWERS)}) bit-equal to plain, {odd[0].numel()} "
+            f"NaN/inf/1e30/out-of-grid/node/half-node queries included")
+        del packs_r
         pairs = [
             ("B11 packed_kriging_t", vs.packed_kriging_t(win, g, lo, la), tp.packed_kriging(win, g, lo, la)),
             ("B6 packed_idw_t", vs.packed_idw_t(win, g, lo, la), tp.packed_idw(win, g, lo, la)),
             ("B12 packed_kriging_fused", ss.packed_kriging_fused(win, g, lo, la), tp.packed_kriging(win, g, lo, la)),
-            ("B7 packed_idw_fused", ss.packed_idw_fused(win, g, lo, la), tp.packed_idw(win, g, lo, la)),
+            ("B15 packed_idw_fused", ss.packed_idw_fused(win, g, lo, la), tp.packed_idw(win, g, lo, la)),
         ]
         if p16_ is not None:
             pairs.insert(0, ("B11 kriging_valid_t", vs.kriging_valid_t(p16_, g, lo, la),
@@ -2399,8 +2459,9 @@ def main() -> int:
         f"fused {launches_af}")
     if launches_a["select_krige"] < 1 or launches_a["idw_rows"] < 1 or launches_a["select_rows"]:
         raise AssertionError(f"B11 and B6 (and no B5) were not launched on the Grid A auto path: {launches_a}")
-    if launches_af["window_select_fused"] < 1 or launches_af["window_krige"] < 1:
-        raise AssertionError(f"B7 (IDW) and B12 (kriging) were not launched on the Grid A fused path: {launches_af}")
+    if launches_af["window_idw"] < 1 or launches_af["window_krige"] < 1 or launches_af["window_select_fused"]:
+        raise AssertionError(f"B15 (IDW) and B12 (kriging) (and no B7) were not launched on the Grid A fused path: "
+                             f"{launches_af}")
     # B5's entry point: the valid16 select dict at the 1M Grid A queries
     p16 = tp.build_valid16_pack(gA)
     ss.reset_launches()
@@ -2411,6 +2472,17 @@ def main() -> int:
         raise AssertionError(f"valid_select_t: {launches_v}, {int((sel_v['found'] != 4).sum())} queries short of 4")
     say("gridA", f"valid_select_t at {qA[0].numel()} Grid A queries: 4 found at each; launches {launches_v}")
     del p16, sel_v
+    # B7's entry point: the radius-2 window select dict at the same queries
+    win_v = tp.build_pack(gA, tp.window_offsets(2), clamp=False)[0]
+    ss.reset_launches()
+    sel_w = ss.window_select_fused(win_v, gA, *qA, k=8)
+    torch.cuda.synchronize()
+    launches_w7 = dict(ss.LAUNCHES)
+    if launches_w7["window_select_fused"] != 1 or not bool((sel_w["found"] == 8).all()):
+        raise AssertionError(f"window_select_fused: {launches_w7}, {int((sel_w['found'] != 8).sum())} queries "
+                             f"short of 8")
+    say("gridA", f"window_select_fused at {qA[0].numel()} Grid A queries: 8 found at each; launches {launches_w7}")
+    del win_v, sel_w
     # query coordinates: the scattered ops' multiply by the reciprocal
     # steps (as the jitted JAX ops), the mission path's division by the
     # grid's 0-d step tensors (as its JAX callers, outside any jit): on the
@@ -2547,13 +2619,33 @@ def main() -> int:
         say("B6 B12", f"Grid A {q5[0].numel()} queries radius 2 {fn.__name__} ({kw}): {tuple(a_.shape)} bit-equal "
             f"to plain, {odd5[0].numel()} NaN/inf/1e30/out-of-grid/node/half-node queries included")
         del a_, b_
-    del q5, odd5
+    # B15 likewise: on Grid A radius 2, k 8, both packs and every power; on
+    # the stand-in r0.10 at 5M queries radius 1-3 (k 8, power 2), the pack
+    # 4 bytes off, and k 1, 4 and P at every power
+    packs2 = {2: (winA, 32, offs2)}
+    sc_err["window_idw"] = max(sc_err["window_idw"], b15_equal(gA, packs2, *q5, b15_cases(full=False), "Grid A 5M"))
+    oddK5 = [torch.cat(t) for t in zip(odd_queries(KERGUELEN_EXTENT, *SHAPE, dev),
+                                        line_queries(KERGUELEN_EXTENT, *SHAPE, dev))]
+    qK5 = tuple(torch.cat([q, o]) for q, o in zip(scattered_queries(KERGUELEN_EXTENT, *SHAPE, 5 * N_SCATTER, 10, dev),
+                                                  oddK5))
+    packsK = {r: (tp.build_pack(grid, tp.window_offsets(r), clamp=False)[0], tp.pack_width(len(tp.window_offsets(r))),
+                  tp.window_offsets(r)) for r in (1, 2, 3)}
+    casesK5 = ([(r, True, 8, 2.0) for r in (1, 2, 3)] + [(2, False, 8, 2.0)]
+               + [(2, True, k, p) for k in (1, 4, "P") for p in B15_POWERS])
+    sc_err["window_idw"] = max(sc_err["window_idw"], b15_equal(grid, packsK, *qK5, casesK5, "stand-in 5M"))
+    say("B15", f"window_idw at {q5[0].numel()} Grid A queries ({len(b15_cases(full=False))} cases) and "
+        f"{qK5[0].numel()} stand-in r0.10 queries ({len(casesK5)} cases: radius 1-3, 4 bytes off, k 1, 4, 8 and P, "
+        f"powers {'/'.join(f'{p:g}' for p in B15_POWERS)}) bit-equal to plain, NaN/inf/1e30/out-of-grid/node/"
+        f"half-node queries included")
+    del q5, odd5, qK5, oddK5, packsK
     # B6 and B12 alone (device duration) at 1M and 5M, B6 also cold, their
     # wrappers (the whole call: the kernel computes the query prologue) and
     # plain versions at 1M
     for kname, fn, ref, kern, kw in (("idw_rows", ss.idw_select, ss.idw_select_ref, "idw_select_kernel", dict(k=8)),
                                      ("window_krige", ss.window_krige, ss.window_krige_ref, "window_krige_kernel",
-                                      {})):
+                                      {}),
+                                     ("window_idw", ss.window_idw, ss.window_idw_ref, "window_idw_kernel",
+                                      dict(k=8))):
         for tag, q_ in (("", qA), (" 5M", qA5)):
             ms[f"{kname}{tag} alone"] = device_ms(lambda: fn(winA, 32, offs2, 2, gA, *q_, **kw), kern)
         ms[f"{kname} wrapper"] = time_ms(lambda: fn(winA, 32, offs2, 2, gA, *qA, **kw))
@@ -2581,10 +2673,12 @@ def main() -> int:
         say("timing", f"{N_SCATTER} Grid A queries, no longer run: {what} {ms[f'no longer run: {what}']:.4f} ms, "
             f"{n_k:.1f} CUDA kernels  [{card}]")
     del nd, selA
-    for name, kern in (("packed_idw_t", "idw_select_kernel"), ("packed_kriging_fused", "window_krige_kernel")):
+    entries = {"packed_idw_t": vs.packed_idw_t, "packed_kriging_fused": ss.packed_kriging_fused,
+               "packed_idw_fused": ss.packed_idw_fused}
+    for name, kern in (("packed_idw_t", "idw_select_kernel"), ("packed_kriging_fused", "window_krige_kernel"),
+                       ("packed_idw_fused", "window_idw_kernel")):
         for tag, q_ in (("1M", qA), ("5M", qA5)):
-            call = ((lambda: vs.packed_idw_t(winA, gA, *q_)) if name == "packed_idw_t"
-                    else (lambda: ss.packed_kriging_fused(winA, gA, *q_)))
+            call = (lambda: entries[name](winA, gA, *q_))
             kept = only_kernel(call, kern, f"{name} at {tag}")
             torch.cuda.set_sync_debug_mode("error")
             try:
@@ -2595,6 +2689,16 @@ def main() -> int:
             say("timing", f"one {name} call at {q_[0].numel()} queries: {ms[f'{name} {tag} events']:.4f} ms events, "
                 f"one CUDA kernel ({sum(kept.values())} {kern} records of 20 calls kept), no synchronising call  "
                 f"[{card}]")
+    # packed_idw_fused's events at 1M against the composition B15 replaced
+    # (B7's select dict, then idw_from_select), in the same process: old,
+    # new, new, old
+    idw_calls = {"B15": lambda: ss.packed_idw_fused(winA, gA, *qA),
+                 "old": lambda: tp.idw_from_select(ss.window_select_fused(winA, gA, *qA, k=8), power=2.0, eps=eps8)}
+    idw_ev = [(name, time_ms(idw_calls[name], reps=20)) for name in ("old", "B15", "B15", "old")]
+    n_old = sum(device_kernels(idw_calls["old"], reps=10).values()) / 10
+    say("timing", f"packed_idw_fused at {N_SCATTER} queries, events (old, B15, B15, old): "
+        + ", ".join(f"{t:.4f}" for _, t in idw_ev) + f" ms; the old composition (window_select_fused, "
+        f"idw_from_select) ran {n_old:.1f} CUDA kernels a call  [{card}]")
     # B11 alone (device duration), its wrapper (the whole call: the kernel
     # computes the query prologue) and its plain version: valid16, Grid A's
     # auto path, and radius 2 with the resolved row, two-tier's; at 1M and 5M
@@ -2627,9 +2731,20 @@ def main() -> int:
                 f"SM ({at['blocks_per_sm'] * 128 / 2048:.0%} of the SM's threads)  [{card}]")
             if M == 25 and at["spill_bytes"]:
                 raise AssertionError(f"B12's radius-2 {model} build spills {at['spill_bytes']} bytes")
+    # and of every B15 build (radius 1-3; k 4, 8 and the general build)
+    for M in (9, 25, 49):
+        for k in (4, 8, 3):
+            at = ss.window_idw_attributes(M, k)
+            say("B15", f"build M={M} k={k if k in (4, 8) else 'any'}: {at['registers']} registers, "
+                f"{at['spill_bytes']} spill bytes, {at['shared_bytes']} B of shared memory, {at['blocks_per_sm']} "
+                f"resident blocks of 128 threads an SM  [{card}]")
+            if M == 25 and at["spill_bytes"]:
+                raise AssertionError(f"B15's radius-2 k={k} build spills {at['spill_bytes']} bytes")
     # B11 at 1M and 5M valid16 queries against its byte bound (8 bytes of
     # query, the 64-byte row, 4 written, at 3.35 TB/s), the row-gather probe
-    # (the same reads and write, nothing else), and an issue estimate from
+    # (the same reads and write, nothing else, each row loaded straight into
+    # registers: not a floor, since rows staged by cp.async read faster at
+    # radius 2, PERF.md), and an issue estimate from
     # the build's static SASS count (one warp instruction a query a thread,
     # 4 an SM a clock): code a query may not run is counted, so it is not a
     # floor
@@ -2643,33 +2758,38 @@ def main() -> int:
     for tag, q_, key in (("1M", qA, "select_krige"), ("5M", qA5, "select_krige 5M")):
         nq_ = float(q_[0].numel())
         cell_ = ss.prologue(gA, *q_)[5].to(torch.int32).contiguous()
-        ms[f"B11 row floor {tag}"] = gather.floor_ms(sys.modules[__name__], p16, 16, 1, cell_, *q_, gA)
+        ms[f"B11 row probe {tag}"] = gather.floor_ms(sys.modules[__name__], p16, 16, 1, cell_, *q_, gA)
         ms[f"B11 byte bound {tag}"] = nq_ * (8 + 64 + 4) / HBM_BPS * 1e3
         ms[f"B11 static issue estimate {tag}"] = nq_ * sass_n / 32 / (n_sm * 4 * clock_hz) * 1e3
         t_ = ms[f"{key} alone"]
         est = ms[f"B11 static issue estimate {tag}"]
         say("timing", f"B11 valid16 at {int(nq_)} queries: alone {t_:.4f} ms; byte bound "
-            f"{ms[f'B11 byte bound {tag}']:.4f} ms ({ms[f'B11 byte bound {tag}'] / t_:.0%}); row-gather floor "
-            f"{ms[f'B11 row floor {tag}']:.4f} ms ({ms[f'B11 row floor {tag}'] / t_:.0%}); static-count issue "
+            f"{ms[f'B11 byte bound {tag}']:.4f} ms ({ms[f'B11 byte bound {tag}'] / t_:.0%}); rows-in-registers probe "
+            f"{ms[f'B11 row probe {tag}']:.4f} ms ({ms[f'B11 row probe {tag}'] / t_:.0%}); static-count issue "
             f"estimate {est:.4f} ms ({est / t_:.0%}; {sass_n} SASS instructions in the build, run or not, at "
             f"{clock_hz / 1e6:.0f} MHz)  [{card}]")
         del cell_
     # B12 likewise at radius 2: 8 bytes of query, the 128-byte row, 4
-    # written; its row-gather floor reads the same rows (P = 32)
+    # written; its rows-in-registers probe reads the same rows (P = 32)
     sass_w = sass.sass_instructions(kbuild.library_path("scattered_select"), "window_krige_kernel<25, 32, 0>")
     for tag, q_, key in (("1M", qA, "window_krige alone"), ("5M", qA5, "window_krige 5M alone")):
         nq_ = float(q_[0].numel())
         cell_ = ss.prologue(gA, *q_)[5].to(torch.int32).contiguous()
-        ms[f"B12 row floor {tag}"] = gather.floor_ms(sys.modules[__name__], winA, 32, 1, cell_, *q_, gA)
+        ms[f"B12 row probe {tag}"] = gather.floor_ms(sys.modules[__name__], winA, 32, 1, cell_, *q_, gA)
         ms[f"B12 byte bound {tag}"] = nq_ * (8 + 128 + 4) / HBM_BPS * 1e3
         ms[f"B12 static issue estimate {tag}"] = nq_ * sass_w / 32 / (n_sm * 4 * clock_hz) * 1e3
         t_ = ms[key]
         est = ms[f"B12 static issue estimate {tag}"]
         say("timing", f"B12 radius 2 at {int(nq_)} queries: alone {t_:.4f} ms; byte bound "
-            f"{ms[f'B12 byte bound {tag}']:.4f} ms ({ms[f'B12 byte bound {tag}'] / t_:.0%}); row-gather floor "
-            f"{ms[f'B12 row floor {tag}']:.4f} ms ({ms[f'B12 row floor {tag}'] / t_:.0%}); static-count issue "
+            f"{ms[f'B12 byte bound {tag}']:.4f} ms ({ms[f'B12 byte bound {tag}'] / t_:.0%}); rows-in-registers probe "
+            f"{ms[f'B12 row probe {tag}']:.4f} ms ({ms[f'B12 row probe {tag}'] / t_:.0%}); static-count issue "
             f"estimate {est:.4f} ms ({est / t_:.0%}; {sass_w} SASS instructions in window_krige_kernel<25, 32, 0>, "
             f"run or not, at {clock_hz / 1e6:.0f} MHz)  [{card}]")
+        # B15 reads the same bytes and rows (k 8, power 2)
+        t_ = ms["window_idw alone" if tag == "1M" else "window_idw 5M alone"]
+        say("timing", f"B15 radius 2 k=8 at {int(nq_)} queries: alone {t_:.4f} ms; byte bound "
+            f"{ms[f'B12 byte bound {tag}']:.4f} ms ({ms[f'B12 byte bound {tag}'] / t_:.0%}); rows-in-registers probe "
+            f"{ms[f'B12 row probe {tag}']:.4f} ms ({ms[f'B12 row probe {tag}'] / t_:.0%})  [{card}]")
         del cell_
     # the CUDA kernels and the events of one kriging_valid_t call, beside
     # the torch prologue it no longer runs (B5-B7's wrappers still do) and
@@ -2745,7 +2865,7 @@ def main() -> int:
         "packed_idw_t (B6)": lambda: vs.packed_idw_t(winA, gA, *qA),
         "packed_idw (torch)": lambda: tp.packed_idw(winA, gA, *qA),
         "packed_kriging_fused (B12)": lambda: ss.packed_kriging_fused(winA, gA, *qA),
-        "packed_idw_fused (B7)": lambda: ss.packed_idw_fused(winA, gA, *qA),
+        "packed_idw_fused (B15)": lambda: ss.packed_idw_fused(winA, gA, *qA),
         "packed_kriging (torch)": lambda: tp.packed_kriging(winA, gA, *qA),
         "prologue (_normalize, centre, fx, fy)": lambda: ss.prologue(gA, *qA),
         "two-tier kriging r0.10 (B11)": lambda: tt.kriging(*qK),
@@ -3442,9 +3562,9 @@ def main() -> int:
     os.makedirs(art, exist_ok=True)
     ext_k = (grid.min_lon, grid.max_lon, grid.min_lat, grid.max_lat)
     counts_of = {"fill_kriging_fused": wf.LAUNCHES, "fill_idw_fused": wf.LAUNCHES, "fill_mean_fused": wf.LAUNCHES,
-                 "window_select_fused": ss.LAUNCHES, "window_krige": ss.LAUNCHES, "band_resample": kb.LAUNCHES}
+                 "window_idw": ss.LAUNCHES, "window_krige": ss.LAUNCHES, "band_resample": kb.LAUNCHES}
     kernel_of = {"fill_kriging_fused": "kriging_fill_kernel", "fill_idw_fused": "fill_tile_kernel",
-                 "fill_mean_fused": "fill_tile_kernel", "window_select_fused": "window_select_kernel",
+                 "fill_mean_fused": "fill_tile_kernel", "window_idw": "window_idw_kernel",
                  "window_krige": "window_krige_kernel", "band_resample": "band_resample_"}
     launches_sv = dict.fromkeys(counts_of, 0)
 
@@ -3499,8 +3619,7 @@ def main() -> int:
     qK = scattered_queries(KERGUELEN_EXTENT, *SHAPE, N_SCATTER, 8, dev)
     win = tp.build_pack(grid, tp.window_offsets(2), clamp=False)[0]
     for method, live_fn, counter in (("kriging", lambda: ss.packed_kriging_fused(win, grid, *qK), "window_krige"),
-                                     ("idw", lambda: ss.packed_idw_fused(win, grid, *qK, k=8),
-                                      "window_select_fused")):
+                                     ("idw", lambda: ss.packed_idw_fused(win, grid, *qK, k=8), "window_idw")):
         served(f"scattered {method} 1M", os.path.join(art, f"scattered_{method}.pt2"),
                lambda p, m=method: serve.export_scattered(p, SHAPE, qK[0].numel(), extent=ext_k, method=m),
                serve.load_exported_scattered, (win, grid.elev, grid.valid, *qK), live_fn, counter, 1)
@@ -3827,6 +3946,9 @@ def main() -> int:
         "window_krige": bound(nq * (8 + 32 * 4 + 4), nq * (8 * 25 + 2 * 4 * 25) + n_solved_w * B1_SOLVE_OPS),
         # B7 likewise reads 25 taps of each row and scans them
         "window_select_fused": bound(nq * (32 * 4 + 12 + (1 + 3 * 4) * 4), nq * (8 * 25 + 2 * 4 * 25)),
+        # B15 reads what B12 reads and writes the value; B7's selection at
+        # k=8 and B6's weights (every query of this fully valid grid finds 8)
+        "window_idw": bound(nq * (8 + 32 * 4 + 4), nq * (8 * 25 + 2 * 8 * 25 + 4 * 8)),
     })
     # B8, per ping of the band weave: lon and lat read, z and ok written; the
     # plane read once: a window a chunk, but no more than the whole band;
@@ -3883,8 +4005,10 @@ def main() -> int:
          launches_a["idw_rows"] + launches_t["idw_rows"],
          sc_err["idw_rows"], ms["idw_rows alone"], ms["idw_rows wrapper"],
          ms["idw_rows plain"]),
+        # B7's entry point (window_select_fused, phase 13): the fused paths
+        # take B12 and B15
         ("window_select_fused", "auvtpu/pallas/scattered_select.py:70",
-         launches_af["window_select_fused"] + launches_sv["window_select_fused"],
+         launches_w7["window_select_fused"],
          sc_err["window_select_fused"], ms["window_select_fused alone"], ms["window_select_fused wrapper"],
          ms["window_select_fused plain"]),
         # B12 replaces B7 with the XLA kriging_from_select after it
@@ -3892,8 +4016,13 @@ def main() -> int:
          launches_af["window_krige"] + launches_sv["window_krige"],
          sc_err["window_krige"], ms["window_krige alone"], ms["window_krige wrapper"],
          ms["window_krige plain"]),
+        # B15 replaces B7 with the XLA idw_from_select after it
+        ("window_idw", "auvtpu/pallas/scattered_select.py:237",
+         launches_af["window_idw"] + launches_sv["window_idw"],
+         sc_err["window_idw"], ms["window_idw alone"], ms["window_idw wrapper"],
+         ms["window_idw plain"]),
     ]
-    for k in ("select_rows", "idw_rows", "window_select_fused", "select_krige", "window_krige"):
+    for k in ("select_rows", "idw_rows", "window_select_fused", "select_krige", "window_krige", "window_idw"):
         src[k] = "auvtpu_torch/csrc/scattered_select.cu"
     rows_.append(("band_resample", "auvtpu/pallas/band_resample.py:43",
                   launches_m["band_resample"] + launches_sv["band_resample"] + launches_p["band_resample"],

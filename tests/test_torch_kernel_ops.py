@@ -1,7 +1,9 @@
-"""B2, B4, B5, B6, B11 and B12 as ``torch.library`` custom ops, on the CPU.
+"""B2, B4, B5, B6, B11, B12 and B15 as ``torch.library`` custom ops, on the
+CPU.
 
 Each op (``auvtpu_torch::topk_full``, ``::topk_idx``, ``::valid_select``,
-``::idw_select``, ``::select_krige``, ``::window_krige``) passes
+``::idw_select``, ``::select_krige``, ``::window_krige``, ``::window_idw``)
+passes
 ``torch.library.opcheck``
 (schema, fake tensor, AOT dispatch) on small inputs; every public entry
 that launches one of these kernels on a card goes through its op (a
@@ -41,7 +43,7 @@ H, W = 24, 20
 EXT = Extent(0.0, W - 1.0, 0.0, H - 1.0)
 KERNELS = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "auvtpu_torch", "kernels")
 OPS = ("topk_full", "topk_idx", "valid_select", "idw_select", "select_krige")
-CHECKED = OPS + ("window_krige",)
+CHECKED = OPS + ("window_krige", "window_idw")
 
 
 def _grid(kind: str = "masked") -> RegularGrid:
@@ -101,13 +103,17 @@ def _op_args(name: str):
     offs = tp.window_offsets(2)
     pack = tp.StencilPack(g).window
     tab = ss.table(offs, 32, 2, "dy", "cpu")
-    # queries inside the grid: opcheck holds NaN unequal to NaN, and B6, B11
-    # and B12 write NaN outside it (B6 and B12 also where no tap is found:
-    # the grid's fill keeps a tap in every window of these queries)
+    # queries inside the grid: opcheck holds NaN unequal to NaN, and B6,
+    # B11, B12 and B15 write NaN outside it (B6, B12 and B15 also where no
+    # tap is found: the grid's fill keeps a tap in every window of these
+    # queries)
     qlon, qlat = lons[6:].clamp(0.0, W - 1.0).contiguous(), lats[6:].clamp(0.0, H - 1.0).contiguous()
     geo = ss._krige_geo(g, "reference")
     if name == "idw_select":
         return (pack, tab, qlon, qlat, ss._NO_TAPS, geo, 32, W, H, 8, 4.0, IDWConfig().eps)
+    if name == "window_idw":
+        return (pack, ss.table(offs, 32, 2, "dx", "cpu"), qlon, qlat, ss._NO_TAPS, geo, 32, 2, W, H, 8, 3.0,
+                IDWConfig(k=8, power=3.0).eps)
     vario = [library.variogram_tensor((0.5, 80.0, 12.0), qlon)]
     if name == "window_krige":
         return (pack, ss.table(offs, 32, 2, "dx", "cpu"), qlon, qlat, vario, ss._NO_TAPS, geo, 32, 2, W, H,
@@ -118,14 +124,14 @@ def _op_args(name: str):
 @pytest.mark.parametrize("name", CHECKED)
 def test_opcheck(name):
     args = _op_args(name)
-    if name in ("idw_select", "window_krige"):
+    if name in ("idw_select", "window_krige", "window_idw"):
         assert not bool(torch.isnan(getattr(library, name)(*args)).any())
     torch.library.opcheck(getattr(library, name), args)
 
 
 def _entries():
     """(entry name, op it must run, call, the plain version called
-    directly): each public entry of the six kernels on one CPU grid."""
+    directly): each public entry of the seven kernels on one CPU grid."""
     g, gv = _grid(), _grid("valid")
     lons, lats = _queries()
     p16 = tp.build_valid16_pack(gv)
@@ -157,6 +163,9 @@ def _entries():
         ("packed_idw_t centered k=3", "idw_select",
          lambda: vs.packed_idw_t(win, g, lons, lats, k=3, convention="centered"),
          lambda: ss.idw_select_ref(win, 32, offs, 2, g, lons, lats, k=3, convention="centered")[0]),
+        ("packed_idw_fused power 3 centered", "window_idw",
+         lambda: ss.packed_idw_fused(win, g, lons, lats, k=8, power=3.0, convention="centered"),
+         lambda: ss.window_idw_ref(win, 32, offs, 2, g, lons, lats, k=8, power=3.0, convention="centered")),
         ("packed_kriging_fused fitted gaussian", "window_krige",
          lambda: ss.packed_kriging_fused(win, g, lons, lats, vparams=vp, model="gaussian"),
          lambda: ss.window_krige_ref(win, 32, offs, 2, g, lons, lats, vparams=vp, model="gaussian")),
@@ -180,7 +189,7 @@ def _flat(x) -> list:
     return [t for v in x for t in _flat(v)]
 
 
-@pytest.mark.parametrize("entry", range(12), ids=[e[0] for e in _entries()])
+@pytest.mark.parametrize("entry", range(13), ids=[e[0] for e in _entries()])
 def test_entry_runs_its_op_and_equals_the_plain_version(entry):
     label, op, call, plain = _entries()[entry]
     wf.reset_launches()
@@ -347,7 +356,7 @@ def test_every_launch_lies_in_an_ops_cuda_implementation():
     # each launching function is called from one place: the CUDA
     # implementation (a function registered with _op) in library.py
     sites = _launch_sites()
-    assert len({s[2] for s in sites}) == 14, sites  # B1-B14, one C entry each
+    assert len({s[2] for s in sites}) == 15, sites  # B1-B15, one C entry each
     lib_tree = ast.parse(open(os.path.join(KERNELS, "library.py")).read())
     cuda_impls = {kw.value.id for node in ast.walk(lib_tree)
                   if isinstance(node, ast.Call) and getattr(node.func, "id", "") == "_op"

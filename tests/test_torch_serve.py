@@ -107,19 +107,25 @@ def test_export_scattered_equals_live(tmp_path, method):
     lons = rng.uniform(-1.0, 48.0, 500).astype(np.float32)
     lats = rng.uniform(-1.0, 40.0, 500).astype(np.float32)
     ext = (0.0, 47.0, 0.0, 39.0)
-    path = str(tmp_path / "s.pt2")
-    assert serve.export_scattered(path, (40, 48), 500, extent=ext, method=method, device="cpu") > 0
-    # kriging: B12, B7's selection and the solve in one op; idw: B7
-    op = "window_krige" if method == "kriging" else "window_select"
-    assert serve.read_meta(path)["ops"] == [f"auvtpu_torch::{op}"]
-    got = serve.load_exported_scattered(path)(sp.window, g.elev, g.valid, lons, lats)
-    if method == "kriging":
-        want = ss.packed_kriging_fused(sp.window, g, lons, lats)
-        _close(want, jp.packed_kriging(jsp.window, jg, lons, lats), 1e-4, 0.1)
-    else:
-        want = ss.packed_idw_fused(sp.window, g, lons, lats, k=8)
-        _close(want, jp.packed_idw(jsp.window, jg, lons, lats, k=8), 1e-5, 1e-2)
-    assert _nan_equal(got, want)
+    # kriging: B12, B7's selection and the solve in one op; idw: B15, B7's
+    # selection, the weights and the quotient in one op, at power 2 and 3
+    for power in (2.0,) if method == "kriging" else (2.0, 3.0):
+        path = str(tmp_path / f"s{power:g}.pt2")
+        assert serve.export_scattered(path, (40, 48), 500, extent=ext, method=method, power=power,
+                                      device="cpu") > 0
+        op = "window_krige" if method == "kriging" else "window_idw"
+        assert serve.read_meta(path)["ops"] == [f"auvtpu_torch::{op}"]
+        graph = torch.export.load(path).graph
+        assert sum(n.op == "call_function" and str(n.target) == f"auvtpu_torch.{op}.default"
+                   for n in graph.nodes) == 1
+        got = serve.load_exported_scattered(path)(sp.window, g.elev, g.valid, lons, lats)
+        if method == "kriging":
+            want = ss.packed_kriging_fused(sp.window, g, lons, lats)
+            _close(want, jp.packed_kriging(jsp.window, jg, lons, lats), 1e-4, 0.1)
+        else:
+            want = ss.packed_idw_fused(sp.window, g, lons, lats, k=8, power=power)
+            _close(want, jp.packed_idw(jsp.window, jg, lons, lats, k=8, power=power), 1e-5, 1e-2)
+        assert _nan_equal(got, want)
 
 
 @pytest.mark.parametrize("compute", ["f32", "bf16"])

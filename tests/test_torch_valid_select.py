@@ -1,13 +1,15 @@
 """The CPU wrappers of the scattered select kernels (their plain versions)
 against the JAX package's Pallas kernels in interpret mode: B5
 (``valid_select_t``, ``pallas_kriging_valid``, ``pallas_packed_kriging_t``),
-B6 (``pallas_packed_idw_t``), B7 (``pallas_window_select``) and B12
-(``pallas_packed_kriging``), on masked and fully valid grids, window radius
-2 and 3, both conventions, fitted variogram parameters and the two-tier
-resolved row.  B6's and B12's plain versions, which the kernels with the
-query prologue inside follow op for op, are also held bit for bit to the
-compositions they replace (the torch prologue, the selection, the torch
-epilogue or solve).
+B6 (``pallas_packed_idw_t``), B7 (``pallas_window_select``), B12
+(``pallas_packed_kriging``) and B15 (``pallas_packed_idw``), on masked and
+fully valid grids, window radius 2 and 3, both conventions, fitted
+variogram parameters and the two-tier resolved row.  B6's, B12's and B15's
+plain versions, which the kernels with the query prologue inside follow op
+for op, are also held to the compositions they replace (the torch
+prologue, the selection, the torch epilogue or solve): bit for bit, but
+where torch's CPU sum over 16 or more IDW slots adds them out of slot
+order (B15 at k = P: rtol 1e-6).
 
 Selection decisions (counts, values, codes, offsets, the resolved mask)
 are exactly equal.  d2 and the IDW sums agree at rtol 1e-6: XLA:CPU may
@@ -23,11 +25,12 @@ from auvtpu.config import Extent as JExtent
 from auvtpu.grid import RegularGrid as JGrid
 from auvtpu.masking import mask_grid
 from auvtpu.ops import packs as jp
-from auvtpu.pallas import pallas_kriging_valid, pallas_packed_idw_t, pallas_packed_kriging, pallas_packed_kriging_t, pallas_window_select, valid_select_t as j_valid_select_t
+from auvtpu.pallas import pallas_kriging_valid, pallas_packed_idw, pallas_packed_idw_t, pallas_packed_kriging, pallas_packed_kriging_t, pallas_window_select, valid_select_t as j_valid_select_t
 from auvtpu.pallas.valid_select import _select_rows as j_select_rows
 from auvtpu.synthetic import shelf_seamount
 from jax.experimental.pallas import tpu as pltpu
 
+from auvtpu_torch.config import IDWConfig
 from auvtpu_torch.convert import grid_from_arrays
 from auvtpu_torch.kernels import scattered_select as ss
 from auvtpu_torch.kernels import valid_select as vs
@@ -225,6 +228,59 @@ def test_b12_window_krige_matches_its_composition_and_pallas(odd_queries, masked
             want = pallas_packed_kriging(jsp.window, jg, lons, lats, window_radius=radius, vparams=vp,
                                          convention=convention, model=model, tile_n=TILE)
         _close(got, want)
+
+
+@pytest.mark.parametrize("masked", [True, False], ids=["masked", "valid"])
+@pytest.mark.parametrize("radius,convention", [(2, "reference"), (2, "centered"), (3, "reference")])
+def test_b15_window_idw_matches_its_composition_and_pallas(odd_queries, masked, radius, convention):
+    # window_idw (B15's op, its plain version on the CPU) for k 1, 8 and P
+    # and powers 2, 1 and 3.  Against idw_from_select over
+    # window_select_fused, the torch path it replaces: the weights are the
+    # same torch ops on the same select rows, and the two sums run slot by
+    # slot (bit-equal to a float32 numpy loop over those weights in slot
+    # order); torch's CPU sum over k adds slot by slot up to 8 slots, so
+    # k 1 and 8 are bit-equal to the composition, while over k = P (32, 64)
+    # it adds vector lanes apart: rtol 1e-6 there, NaN pattern exactly
+    # equal.  Against pallas_packed_idw the NaN pattern exactly equal (NaN
+    # and +-inf queries answer NaN), values within the bars; packed_idw_fused
+    # equals the op
+    jg, g = _grids(masked)
+    lons, lats = odd_queries
+    offs = tp.window_offsets(radius)
+    P = tp.pack_width(len(offs))
+    sp, jsp = tp.StencilPack(g, window_radius=radius), jp.StencilPack(jg, window_radius=radius)
+    for k in (1, 8, P):
+        sel = ss.window_select_fused(sp.window, g, lons, lats, k=k, window_radius=radius, convention=convention)
+        for power in (2.0, 1.0, 3.0):
+            eps = IDWConfig(k=k, power=power).eps
+            got = ss.window_idw(sp.window, P, offs, radius, g, lons, lats, k=k, power=power, convention=convention)
+            assert got.shape == (len(lons),) and got.dtype == torch.float32
+            comp = tp.idw_from_select(sel, power=power, eps=eps)
+            if k <= 8:
+                _nan_equal(got, comp)
+            else:
+                _close(got, comp, rtol=1e-6, atol=0.0)
+            # the sums in slot order, over the composition's weights
+            w = torch.where(sel["slot_ok"], 1.0 / (sel["d2"] ** (power / 2.0) + eps),
+                            torch.zeros_like(sel["d2"])).numpy()
+            val = sel["val"].numpy()
+            num = den = np.zeros(len(lons), np.float32)
+            for s in range(k):
+                num = num + w[:, s] * val[:, s]
+                den = den + w[:, s]
+            with np.errstate(divide="ignore", invalid="ignore"):
+                loop = np.where(den > 0, num / np.maximum(den, np.float32(eps)), np.nan).astype(np.float32)
+            loop[sel["oob"].numpy()] = np.nan
+            _nan_equal(got, torch.from_numpy(loop))
+            _nan_equal(got, ss.window_idw_ref(sp.window, P, offs, radius, g, lons, lats, k=k, power=power,
+                                              convention=convention))
+            _nan_equal(ss.packed_idw_fused(sp.window, g, lons, lats, k=k, power=power, window_radius=radius,
+                                           convention=convention), got)
+            assert bool(torch.isnan(got[:7]).all())  # NaN and +-inf queries
+            with _interp():
+                want = pallas_packed_idw(jsp.window, jg, lons, lats, k=k, power=power, window_radius=radius,
+                                         convention=convention, tile_n=TILE)
+            _close(got, want)
 
 
 def test_b5_valid16(queries):
