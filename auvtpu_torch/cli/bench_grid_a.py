@@ -249,8 +249,9 @@ def _run(p, args):
         iters = int(np.clip(2_000_000 // max(n, 1), 5, 100))
         qlo, qla = lons, lats
         if exact:
-            # the parity path takes raw f64 coordinates (host-prepared)
-            qlo, qla = lons_h, lats_h
+            # the parity path takes f64 coordinates, prepared on the grid's
+            # device (B16)
+            qlo, qla = lons.double(), lats.double()
             iters = 2
         for method in args.methods:
             fn = ops[method]

@@ -177,10 +177,12 @@ def _run(p, args):
     if exact:
         machine = f"{args.machine}-exact"
         krig = exact_kriging_at_cells_fast if args.exact_tier == "two" else exact_kriging_at_cells
+        # the held-out cells as they already lie on the grid's device: exact
+        # mode prepares them there (B16) and reads back only its result
         ops = {
-            "Bilinear": lambda: exact_bilinear_at_cells(grid, rc[:, 0], rc[:, 1]),
-            "Cubic": lambda: exact_cubic_at_cells(grid, rc[:, 0], rc[:, 1]),
-            "Kriging": lambda: krig(grid, rc[:, 0], rc[:, 1]),
+            "Bilinear": lambda: exact_bilinear_at_cells(grid, rows, cols),
+            "Cubic": lambda: exact_cubic_at_cells(grid, rows, cols),
+            "Kriging": lambda: krig(grid, rows, cols),
         }
         args.methods = [m for m in args.methods if m in ops]
     else:

@@ -25,7 +25,9 @@ the device's implementation):
   ``csrc/exact_select.cu`` ``dense_kernel``: the two-tier dense pass, with
   the table solve) and ``auvtpu_torch::exact_ring`` and
   ``::exact_ring_krige`` (B14, ``ring_kernel``: the strict selection, with
-  the table solve), exact mode's selections;
+  the table solve), exact mode's selections, and
+  ``auvtpu_torch::exact_prologue`` (B16, ``csrc/exact_prologue.cu``
+  ``prologue_kernel``), its query preparation;
 - ``auvtpu_torch::band_resample`` (B8, ``csrc/band_resample.cu``);
 - ``auvtpu_torch::pair_sums`` (B9, ``csrc/variogram.cu``, the binned
   variogram pair sums) and ``auvtpu_torch::fit_model`` (B10, the
@@ -45,7 +47,7 @@ the checks and the errors it always had), its ``CPU`` implementation the
 kernel's plain version, and its fake implementation gives the output's
 shape and dtype for tracing.  The wrappers in :mod:`.window_fill`,
 :mod:`.scattered_select`, :mod:`.valid_select`, :mod:`.band_resample`,
-:mod:`.variogram` and :mod:`.exact_select` call these ops and launch no
+:mod:`.variogram`, :mod:`.exact_select` and :mod:`.exact_prologue` call these ops and launch no
 kernel themselves, so a live call, an exported program and a call under
 debug mode take one route.
 
@@ -546,6 +548,40 @@ exact_ring_krige = _op(
     "exact_ring_krige(Tensor elev, Tensor valid, Tensor ci, Tensor cj, Tensor variant, Tensor ex, Tensor ey, "
     "Tensor qcol, Tensor qrow, Tensor gpair, Tensor gq, int max_radius, int chunk) -> Tensor",
     cpu=_ring_krige_cpu, cuda=_ring_krige_cuda, fake=_ring_krige_fake)
+
+
+# ---------------------------------------------------------------------------
+# B16: exact mode's query preparation at (N,) queries (a, b): int32 or int64
+# columns and rows, or float64 longitudes and latitudes; geo the grid's
+# (min_lon, max_lon, min_lat, max_lat, lon_step, lat_step); fields the
+# outputs to write (exact_prologue.KEYS ...).  Gives (anchors (2, N) int64,
+# oob, counts (2,) int32, keys (2, N) f32, variant, geo (2, N) f64, xy (2, N)
+# f64, aligned, flat), each output fields leaves out empty
+# ---------------------------------------------------------------------------
+
+def _prologue_cpu(a, b, geo, num_lon, num_lat, round_anchor, fields, eps_scale):
+    from .exact_prologue import prologue_ref
+
+    return prologue_ref(a, b, geo, num_lon, num_lat, round_anchor, fields, eps_scale)
+
+
+def _prologue_cuda(a, b, geo, num_lon, num_lat, round_anchor, fields, eps_scale):
+    from .exact_prologue import prologue_launch
+
+    return prologue_launch(a, b, geo, num_lon, num_lat, round_anchor, fields, eps_scale)
+
+
+def _prologue_fake(a, b, geo, num_lon, num_lat, round_anchor, fields, eps_scale):
+    from .exact_prologue import _check, _outputs
+
+    _check(a, b, fields)
+    return tuple(_outputs(a, fields))
+
+
+exact_prologue = _op(
+    "exact_prologue(Tensor a, Tensor b, float[] geo, int num_lon, int num_lat, bool round_anchor, int fields, "
+    "float eps_scale) -> (Tensor, Tensor, Tensor, Tensor, Tensor, Tensor, Tensor, Tensor, Tensor)",
+    cpu=_prologue_cpu, cuda=_prologue_cuda, fake=_prologue_fake)
 
 
 # ---------------------------------------------------------------------------

@@ -39,8 +39,19 @@ fallback means run in ``torch.float64`` always (the JAX package under
 ``jax_enable_x64``, which both of its CLIs switch on for exact mode), on the
 grid's device, so the JAX package's ``_require_x64`` check has no
 counterpart and its f32 variant of exact mode is not ported; an f32 solve
-would shift regional MAE by ~2e-3 m, above the published tables' 5e-5.  Query preparation is host numpy, as in the JAX
-package; every function returns host numpy arrays.
+would shift regional MAE by ~2e-3 m, above the published tables' 5e-5.
+
+Query preparation runs on the grid's device: the float64 round-trip, the
+anchors, the residue keys and the checks are B16
+(:mod:`auvtpu_torch.kernels.exact_prologue`, one thread a query; its plain
+torch version on the CPU), bit for bit the JAX package's host numpy.  The
+entry points take the queries as numpy (uploaded once) or as tensors on the
+grid's device (taken as they are), keep every step between on the device,
+and read back the inexact-key count (they raise before any result where a
+key is not exact in f32), an escalated or fallback count where the path has
+one, and the (N,) float64 result, which they return as numpy as the JAX
+functions do.  :func:`prepare_exact_queries` and :func:`_prepare_scattered`
+are host views of the device form (one readback a field).
 
 On the card the strict selection (both key families) is one launch of B14
 (:mod:`auvtpu_torch.kernels.exact_select`, one thread per query); the
@@ -60,6 +71,7 @@ import torch
 
 from ..config import KrigingConfig
 from ..grid import RegularGrid
+from ..kernels.exact_prologue import ALIGNED, FLAT, GEO, GRID, KEYS
 from ..tables import ring_offsets
 from .scattered import _catmull_rom, krige_solve
 
@@ -134,7 +146,9 @@ def _device_tables(max_radius: int, device: torch.device):
 
 @dataclasses.dataclass(frozen=True)
 class ExactQueries:
-    """Host-prepared exact cell-aligned query features (all numpy)."""
+    """Exact cell-aligned query features on the host (all numpy): the host
+    view of :class:`QueryTensors` that :func:`prepare_exact_queries`
+    returns."""
 
     ci: np.ndarray  # (N,) int32 anchor column
     cj: np.ndarray  # (N,) int32 anchor row
@@ -148,54 +162,101 @@ class ExactQueries:
     oob: np.ndarray  # (N,) bool
 
 
-def _anchors(x, y, H: int, W: int, anchor: str):
-    """Integer anchors of f64 grid coordinates: 'round' is the kriging
-    centre (half away from zero, clamped; GridH.cpp:333-336), 'floor' the
-    bilinear/bicubic cell (GridH.cpp:170-173, 231-234)."""
-    if anchor == "round":
-        return (np.clip(np.floor(x + 0.5).astype(np.int64), 0, W - 1),
-                np.clip(np.floor(y + 0.5).astype(np.int64), 0, H - 1))
-    if anchor == "floor":
-        return np.floor(x).astype(np.int64), np.floor(y).astype(np.int64)
-    raise ValueError(anchor)
+@dataclasses.dataclass(frozen=True)
+class QueryTensors:
+    """Exact-mode query features on the grid's device, as B16 writes them
+    (:func:`query_tensors`, :func:`scattered_tensors`): the fields of
+    :class:`ExactQueries` that the caller asked for (None for the others),
+    the anchors as int64 (the selections' index type), and ``counts``, (2,)
+    int32 on the device: the queries whose keys are not exact in f32, and
+    with ``aligned`` the queries the dense pass does not serve.  ``cols``
+    and ``rows`` (cell form) are the queries themselves on the device;
+    ``qlon``/``qlat`` of the scattered form are its coordinates."""
+
+    ci: torch.Tensor
+    cj: torch.Tensor
+    oob: torch.Tensor
+    counts: torch.Tensor
+    variant: torch.Tensor | None = None
+    ex_key: torch.Tensor | None = None
+    ey_key: torch.Tensor | None = None
+    qlon: torch.Tensor | None = None
+    qlat: torch.Tensor | None = None
+    x: torch.Tensor | None = None
+    y: torch.Tensor | None = None
+    aligned: torch.Tensor | None = None  # the dense pass serves the query (round anchor)
+    flat: torch.Tensor | None = None  # row * W + col, clipped to the plane
+    cols: torch.Tensor | None = None
+    rows: torch.Tensor | None = None
+
+    def host(self) -> ExactQueries:
+        """The host view, one readback a field (every field of
+        :class:`ExactQueries` must have been asked for)."""
+        np_ = lambda t, dt=None: (t if dt is None else t.to(dt)).cpu().numpy()
+        return ExactQueries(ci=np_(self.ci, torch.int32), cj=np_(self.cj, torch.int32), variant=np_(self.variant),
+                            ex_key=np_(self.ex_key), ey_key=np_(self.ey_key), qlon=np_(self.qlon),
+                            qlat=np_(self.qlat), x=np_(self.x), y=np_(self.y), oob=np_(self.oob))
+
+
+def _index_tensor(grid: RegularGrid, a) -> torch.Tensor:
+    """Query rows or columns as an (N,) tensor on the grid's device: an
+    int32 or int64 tensor there as it is, anything else as int64."""
+    if torch.is_tensor(a):
+        a = a.reshape(-1).to(grid.device)
+        return a if a.dtype in (torch.int32, torch.int64) else a.long()
+    return torch.as_tensor(np.asarray(a, np.int64).reshape(-1)).to(grid.device)
+
+
+def _coord_tensor(grid: RegularGrid, a) -> torch.Tensor:
+    """Query coordinates as an (N,) float64 tensor on the grid's device."""
+    if torch.is_tensor(a):
+        return a.reshape(-1).to(grid.device, _F64)
+    return torch.as_tensor(np.asarray(a, np.float64).reshape(-1)).to(grid.device)
+
+
+def query_tensors(grid: RegularGrid, rows, cols, *, anchor: str = "round",
+                  fields: int = KEYS | GEO | GRID) -> QueryTensors:
+    """Reproduce the reference harness's index->geo->grid-coord round-trip in
+    f64 (gridIndexToGeo, test_gebco.cpp:72-81 + GridH.cpp:166-167) and split
+    each coordinate into (integer anchor, exact scaled residue), on the
+    grid's device (B16; its plain version on the CPU).  ``anchor`` 'round'
+    is the kriging centre (half away from zero, clamped; GridH.cpp:333-336),
+    'floor' the bilinear/bicubic cell (GridH.cpp:170-173, 231-234);
+    ``fields`` (``kernels.exact_prologue`` KEYS, GEO, GRID, ALIGNED, FLAT)
+    what to compute beyond the anchors and the out-of-grid flag.  The keys'
+    check is counted, not raised: :func:`_checked` reads it."""
+    from ..kernels.exact_prologue import prologue
+
+    if anchor not in ("round", "floor"):
+        raise ValueError(anchor)
+    r, c = _index_tensor(grid, rows), _index_tensor(grid, cols)
+    if r.dtype != c.dtype:
+        r, c = r.long(), c.long()
+    anchors, oob, counts, keys, variant, geo, xy, aligned, flat = prologue(
+        grid, c, r, round_anchor=anchor == "round", fields=fields, eps_scale=EPS_SCALE)
+    opt = lambda flag, t: t if fields & flag else None
+    return QueryTensors(ci=anchors[0], cj=anchors[1], oob=oob, counts=counts, variant=opt(KEYS, variant),
+                        ex_key=opt(KEYS, keys[0]), ey_key=opt(KEYS, keys[1]), qlon=opt(GEO, geo[0]),
+                        qlat=opt(GEO, geo[1]), x=opt(GRID, xy[0]), y=opt(GRID, xy[1]), aligned=opt(ALIGNED, aligned),
+                        flat=opt(FLAT, flat), cols=c, rows=r)
+
+
+def _checked(q: QueryTensors) -> int:
+    """Read ``q``'s counts back (one readback); raise where a key is not
+    exact in f32 (it would silently mis-order ties); return the count of
+    queries not aligned."""
+    inexact, not_aligned = q.counts.cpu().tolist()
+    if inexact:
+        raise ValueError("coordinate residue not exactly representable in f32 keys")
+    return not_aligned
 
 
 def prepare_exact_queries(grid: RegularGrid, rows, cols, *, anchor: str = "round") -> ExactQueries:
-    """Reproduce the reference harness's index->geo->grid-coord round-trip in
-    f64 (gridIndexToGeo, test_gebco.cpp:72-81 + GridH.cpp:166-167) and split
-    each coordinate into (integer anchor, exact scaled residue)."""
-    rows = np.asarray(rows, np.int64)
-    cols = np.asarray(cols, np.int64)
-    H, W = grid.shape
-    lon_step = (grid.max_lon - grid.min_lon) / (W - 1)
-    lat_step = (grid.max_lat - grid.min_lat) / (H - 1)
-    qlon = grid.min_lon + cols * lon_step
-    qlat = grid.min_lat + rows * lat_step
-    oob = (qlon < grid.min_lon) | (qlon > grid.max_lon) | (qlat < grid.min_lat) | (qlat > grid.max_lat)
-    x = np.where(oob, 0.0, (qlon - grid.min_lon) / lon_step)
-    y = np.where(oob, 0.0, (qlat - grid.min_lat) / lat_step)
-    ci, cj = _anchors(x, y, H, W, anchor)
-    exi = np.rint(x - ci).astype(np.int64)  # 0 or 1
-    eyi = np.rint(y - cj).astype(np.int64)
-    ex_key = ((x - ci) - exi) * EPS_SCALE  # the residue is exact in f64 (|.| ~ 1e-12)
-    ey_key = ((y - cj) - eyi) * EPS_SCALE
-    if not (np.float64(np.float32(ex_key)) == ex_key).all() or not (
-        np.float64(np.float32(ey_key)) == ey_key
-    ).all():
-        # an f32 key that is not exact would silently mis-order ties
-        raise ValueError("coordinate residue not exactly representable in f32 keys")
-    return ExactQueries(
-        ci=ci.astype(np.int32),
-        cj=cj.astype(np.int32),
-        variant=(2 * exi + eyi).astype(np.int32),
-        ex_key=ex_key.astype(np.float32),
-        ey_key=ey_key.astype(np.float32),
-        qlon=qlon,
-        qlat=qlat,
-        x=x,
-        y=y,
-        oob=oob,
-    )
+    """:func:`query_tensors` with every field, checked, as host numpy: the
+    JAX package's function, bit for bit."""
+    q = query_tensors(grid, rows, cols, anchor=anchor)
+    _checked(q)
+    return q.host()
 
 
 # ---------------------------------------------------------------------------
@@ -271,26 +332,42 @@ def _select_chunk(grid: RegularGrid, tb, ci, cj, variant, ex_key, ey_key):
     return _swap_passes(gi, gj, val, eligible, cum, pick)
 
 
-def _select_cells(grid: RegularGrid, q: ExactQueries, idx, max_radius: int, chunk: int):
-    """The strict selection of queries ``q`` (at host indices ``idx``, all if
-    None) on the grid's device, through B14 (:func:`_select_chunk` in chunks
-    of ``chunk`` on the CPU): (found, sel_val, sel_gi, sel_gj) tensors."""
+def _select_cells(grid: RegularGrid, q, idx, max_radius: int, chunk: int):
+    """The strict selection of queries ``q`` (:class:`QueryTensors` with
+    keys, or :class:`ExactQueries`; at indices ``idx``, all if None) on the
+    grid's device, through B14 (:func:`_select_chunk` in chunks of
+    ``chunk`` on the CPU): (found, sel_val, sel_gi, sel_gj) tensors."""
     from ..kernels.exact_select import ring_select
 
     ci, cj, variant, ex, ey = _cell_keys(grid, q, idx)
     return ring_select(grid, ci, cj, ex, ey, variant, max_radius=max_radius, chunk=chunk)
 
 
-def _cell_keys(grid: RegularGrid, q: ExactQueries, idx):
-    """(ci, cj int64, variant int32, ex_key, ey_key f32) of queries ``q`` (at
-    host indices ``idx``, all if None) on the grid's device."""
-    cols = [q.ci, q.cj, q.variant, q.ex_key, q.ey_key]
+def _cell_keys(grid: RegularGrid, q, idx):
+    """(ci, cj int64, variant int32, ex_key, ey_key f32) of queries ``q``
+    (:class:`QueryTensors` or :class:`ExactQueries`; at indices ``idx``, a
+    tensor or host array, all if None) on the grid's device."""
+    dts = (torch.int64, torch.int64, torch.int32, torch.float32, torch.float32)
+    keys = [_on(grid, a, dt) for a, dt in zip((q.ci, q.cj, q.variant, q.ex_key, q.ey_key), dts)]
     if idx is not None:
-        cols = [a[idx] for a in cols]
-    return (_on(grid, cols[0], torch.int64), _on(grid, cols[1], torch.int64), *(_on(grid, a) for a in cols[2:]))
+        idx = _on(grid, idx)
+        keys = [k[idx] for k in keys]
+    return tuple(keys)
 
 
-def exact_select_at_cells(grid: RegularGrid, rows, cols, *, max_radius: int = 10, chunk: int = 16384, anchor: str = "round"):
+def _where(mask, n: int):
+    """The (n,) int64 indices of ``mask``'s ``n`` true entries, on its
+    device, with no synchronisation (``n`` read back before)."""
+    return torch.nonzero_static(mask, size=n)[:, 0]
+
+
+def _result(out, oob) -> np.ndarray:
+    """(N,) predictions, NaN out of bounds, to the host as numpy f64."""
+    return torch.where(oob, torch.nan, out.to(_F64)).cpu().numpy()
+
+
+def exact_select_at_cells(grid: RegularGrid, rows, cols, *, max_radius: int = 10, chunk: int = 16384,
+                          anchor: str = "round"):
     """Exact-reference selection at cell-aligned queries, on the grid's
     device in chunks of ``chunk`` queries.
 
@@ -299,9 +376,10 @@ def exact_select_at_cells(grid: RegularGrid, rows, cols, *, max_radius: int = 10
     eligible candidates (slots >= found are zero), so the reference's
     partial-fallback mean is sel_val.sum() / found.
     """
-    q = prepare_exact_queries(grid, rows, cols, anchor=anchor)
+    q = query_tensors(grid, rows, cols, anchor=anchor)
+    _checked(q)
     out = _select_cells(grid, q, None, max_radius, chunk)
-    return (*(t.cpu().numpy() for t in out), q)
+    return (*(t.cpu().numpy() for t in out), q.host())
 
 
 # ---------------------------------------------------------------------------
@@ -335,19 +413,13 @@ def _krige_at(grid: RegularGrid, qlon, qlat, found, sel_val, sel_gi, sel_gj):
     return torch.where(found >= 4, solved, _fallback_mean(found, sel_val))
 
 
-def _host(out, oob):
-    """Predictions to the host, NaN out of bounds."""
-    out = out.cpu().numpy()
-    return np.where(oob, np.nan, out)
-
-
 def exact_kriging_at_cells(grid: RegularGrid, rows, cols, *, max_radius: int = 10, chunk: int = 16384):
     """Ordinary kriging with exact reference selection (GridH.cpp:326-420),
     the solve in f64.  Returns (N,) numpy f64 predictions."""
-    q = prepare_exact_queries(grid, rows, cols, anchor="round")
+    q = query_tensors(grid, rows, cols, anchor="round", fields=KEYS | GEO)
+    _checked(q)
     found, sel_val, sel_gi, sel_gj = _select_cells(grid, q, None, max_radius, chunk)
-    out = _krige_at(grid, _on(grid, q.qlon), _on(grid, q.qlat), found, sel_val, sel_gi, sel_gj)
-    return _host(out, q.oob)
+    return _result(_krige_at(grid, q.qlon, q.qlat, found, sel_val, sel_gi, sel_gj), q.oob)
 
 
 def exact_cubic_at_cells(grid: RegularGrid, rows, cols, *, max_radius: int = 10, chunk: int = 16384):
@@ -359,23 +431,24 @@ def exact_cubic_at_cells(grid: RegularGrid, rows, cols, *, max_radius: int = 10,
     exact-selected neighbours around the floor anchor.  Cells whose patch is
     fully valid get the f64 Catmull-Rom value instead.
     """
-    q = prepare_exact_queries(grid, rows, cols, anchor="floor")
+    q = query_tensors(grid, rows, cols, anchor="floor", fields=KEYS | GRID)
+    _checked(q)
     found, sel_val, _, _ = _select_cells(grid, q, None, max_radius, chunk)
     out = _fallback_mean(found, sel_val)
 
     H, W = grid.shape
-    xi, yi = _on(grid, q.ci, torch.int64), _on(grid, q.cj, torch.int64)
+    xi, yi = q.ci, q.cj
     rel = torch.arange(-1, 3, device=grid.device)
     jj = (yi[:, None] + rel).clamp(0, H - 1)
     ii = (xi[:, None] + rel).clamp(0, W - 1)
     flat = jj[:, :, None] * W + ii[:, None, :]
     patch_ok = (grid.valid.reshape(-1)[flat] > 0.5).flatten(1).all(dim=1)
     patch = grid.elev.reshape(-1)[flat].to(_F64)
-    tx = _on(grid, q.x) - xi
-    ty = _on(grid, q.y) - yi
+    tx = q.x - xi
+    ty = q.y - yi
     col = _catmull_rom(patch[:, :, 0], patch[:, :, 1], patch[:, :, 2], patch[:, :, 3], tx[:, None])
     smooth = _catmull_rom(col[:, 0], col[:, 1], col[:, 2], col[:, 3], ty)
-    return _host(torch.where(patch_ok, smooth, out), q.oob)
+    return _result(torch.where(patch_ok, smooth, out), q.oob)
 
 
 def _bilinear(grid: RegularGrid, x0, y0, x1, y1, wx, wy, z_dtype=None):
@@ -405,14 +478,15 @@ def exact_bilinear_at_cells(grid: RegularGrid, rows, cols):
     f64.  The f64 eps sign decides the anchor cell (x0 = c-1 when eps < 0),
     which changes which four corners feed the valid-corner-mean fallback;
     the lerp weights round to 0/1 within ~1e-12."""
-    q = prepare_exact_queries(grid, rows, cols, anchor="floor")
+    q = query_tensors(grid, rows, cols, anchor="floor", fields=GRID)
+    _checked(q)
     H, W = grid.shape
-    x0, y0 = _on(grid, q.ci, torch.int64), _on(grid, q.cj, torch.int64)
+    x0, y0 = q.ci, q.cj
     # the +1 corners clamp the unclamped anchor (x0 is -1 where eps < 0 at
     # column 0): the JAX package's host arithmetic, GridH.cpp:170-173
     x1, y1 = (x0 + 1).clamp(max=W - 1), (y0 + 1).clamp(max=H - 1)
-    out = _bilinear(grid, x0, y0, x1, y1, _on(grid, q.x) - x0, _on(grid, q.y) - y0, z_dtype=_F64)
-    return _host(out, q.oob)
+    out = _bilinear(grid, x0, y0, x1, y1, q.x - x0, q.y - y0, z_dtype=_F64)
+    return _result(out, q.oob)
 
 
 # ---------------------------------------------------------------------------
@@ -438,31 +512,32 @@ def _select_chunk_scattered(grid: RegularGrid, tb, ci, cj, x, y):
     return _swap_passes(gi, gj, val, eligible, cum, pick)
 
 
-def _host_f64(a) -> np.ndarray:
-    if torch.is_tensor(a):
-        a = a.detach().cpu()
-    return np.asarray(a, np.float64).ravel()
+def scattered_tensors(grid: RegularGrid, lons, lats, anchor: str) -> QueryTensors:
+    """f64 normalization for raw scattered coordinates (golden.engine
+    _normalize semantics: oob outside the extent, anchors clamped for
+    'round') on the grid's device (B16, as :func:`query_tensors`): the
+    anchors, oob, the grid coordinates (x, y) and the coordinates
+    themselves (qlon, qlat).  A NaN coordinate's anchor is 0, as the JAX
+    package's int32 anchors hold it (auvtpu/ops/exact.py:475: numpy's floor
+    anchor of a NaN, -2**63, wraps to 0 there), so a NaN query's ring walk
+    starts at cell 0."""
+    from ..kernels.exact_prologue import prologue
+
+    if anchor not in ("round", "floor"):
+        raise ValueError(anchor)
+    lo, la = _coord_tensor(grid, lons), _coord_tensor(grid, lats)
+    anchors, oob, counts, _, _, _, xy, _, _ = prologue(grid, lo, la, round_anchor=anchor == "round", fields=GRID,
+                                                       eps_scale=EPS_SCALE)
+    return QueryTensors(ci=anchors[0], cj=anchors[1], oob=oob, counts=counts, qlon=lo, qlat=la, x=xy[0], y=xy[1])
 
 
 def _prepare_scattered(grid: RegularGrid, lons, lats, anchor: str):
-    """f64 normalization for raw scattered coordinates (golden.engine
-    _normalize semantics: oob outside the extent, anchors clamped for
-    'round').  Parallel to :func:`prepare_exact_queries`: a change to the
-    oob/clamp convention applies to both."""
-    lons = _host_f64(lons)
-    lats = _host_f64(lats)
-    H, W = grid.shape
-    lon_step = (grid.max_lon - grid.min_lon) / (W - 1)
-    lat_step = (grid.max_lat - grid.min_lat) / (H - 1)
-    oob = (lons < grid.min_lon) | (lons > grid.max_lon) | (lats < grid.min_lat) | (lats > grid.max_lat)
-    x = np.where(oob, 0.0, (lons - grid.min_lon) / lon_step)
-    y = np.where(oob, 0.0, (lats - grid.min_lat) / lat_step)
-    with np.errstate(invalid="ignore"):  # a NaN query's anchor: see below
-        ci, cj = _anchors(x, y, H, W, anchor)
-    # int32 as the JAX package returns them (auvtpu/ops/exact.py:475): numpy's
-    # floor anchor of a NaN, -2**63, wraps to 0, so a NaN query's ring walk
-    # starts at cell 0
-    return lons, lats, x, y, ci.astype(np.int32), cj.astype(np.int32), oob
+    """The host view of :func:`scattered_tensors`: numpy (lons, lats, x, y,
+    ci int32, cj int32, oob), the JAX package's ``_prepare_scattered``,
+    bit for bit."""
+    q = scattered_tensors(grid, lons, lats, anchor)
+    return (*(t.cpu().numpy() for t in (q.qlon, q.qlat, q.x, q.y, q.ci.int(), q.cj.int())),
+            q.oob.cpu().numpy())
 
 
 def _select_scattered(grid: RegularGrid, ci, cj, x, y, max_radius: int, chunk: int):
@@ -480,10 +555,9 @@ def exact_kriging_scattered(grid: RegularGrid, lons, lats, *, max_radius: int = 
     """Ordinary kriging at arbitrary coordinates with exact reference
     selection (GridH.cpp:326-420 for continuous queries, the Grid A
     workload), in f64.  Returns (N,) numpy f64."""
-    lons, lats, x, y, ci, cj, oob = _prepare_scattered(grid, lons, lats, "round")
-    found, sel_val, sel_gi, sel_gj = _select_scattered(grid, ci, cj, x, y, max_radius, chunk)
-    out = _krige_at(grid, _on(grid, lons), _on(grid, lats), found, sel_val, sel_gi, sel_gj)
-    return _host(out, oob)
+    q = scattered_tensors(grid, lons, lats, "round")
+    found, sel_val, sel_gi, sel_gj = _select_scattered(grid, q.ci, q.cj, q.x, q.y, max_radius, chunk)
+    return _result(_krige_at(grid, q.qlon, q.qlat, found, sel_val, sel_gi, sel_gj), q.oob)
 
 
 def _cubic_smooth(grid: RegularGrid, xi, yi, x, y):
@@ -506,28 +580,28 @@ def exact_cubic_scattered(grid: RegularGrid, lons, lats, *, max_radius: int = 10
     """Bicubic at arbitrary coordinates: the Catmull-Rom value when the 4x4
     patch is fully valid, else the exact ring-fallback mean at the floor
     anchor (GridH.cpp:223-319).  Returns (N,) numpy f64."""
-    lons, lats, x, y, ci, cj, oob = _prepare_scattered(grid, lons, lats, "floor")
-    n = len(x)
-    args = [_on(grid, ci), _on(grid, cj), _on(grid, x), _on(grid, y)]
-    smooth, all_ok = _chunked(lambda *a: _cubic_smooth(grid, *a), n, chunk, *args)
+    q = scattered_tensors(grid, lons, lats, "floor")
+    args = [q.ci, q.cj, q.x, q.y]
+    smooth, all_ok = _chunked(lambda *a: _cubic_smooth(grid, *a), q.ci.shape[0], chunk, *args)
     out = smooth.to(_F64)
-    need = ~all_ok.cpu().numpy() & ~oob
-    if need.any():
-        found, sel_val, _, _ = _select_scattered(grid, ci[need], cj[need], x[need], y[need], max_radius, chunk)
-        out[_on(grid, np.nonzero(need)[0])] = _fallback_mean(found, sel_val)
-    return _host(out, oob)
+    need = ~all_ok & ~q.oob
+    n_need = int(need.sum().cpu())
+    if n_need:
+        idx = _where(need, n_need)
+        found, sel_val, _, _ = _select_scattered(grid, *(a[idx] for a in args), max_radius, chunk)
+        out[idx] = _fallback_mean(found, sel_val)
+    return _result(out, q.oob)
 
 
 def exact_bilinear_scattered(grid: RegularGrid, lons, lats, *, chunk: int = 16384):
     """Bilinear at arbitrary coordinates in f64 (GridH.cpp:160-210).
     Returns (N,) numpy f64."""
-    lons, lats, x, y, ci, cj, oob = _prepare_scattered(grid, lons, lats, "floor")
+    q = scattered_tensors(grid, lons, lats, "floor")
     H, W = grid.shape
 
     def chunk_fn(x0, y0, xs, ys):
         x1, y1 = (x0.clamp(0, W - 1) + 1).clamp(max=W - 1), (y0.clamp(0, H - 1) + 1).clamp(max=H - 1)
         return (_bilinear(grid, x0, y0, x1, y1, xs - x0, ys - y0),)
 
-    args = [_on(grid, ci), _on(grid, cj), _on(grid, x), _on(grid, y)]
-    (out,) = _chunked(chunk_fn, len(x), chunk, *args)
-    return _host(out.to(_F64), oob)
+    (out,) = _chunked(chunk_fn, q.ci.shape[0], chunk, q.ci, q.cj, q.x, q.y)
+    return _result(out, q.oob)

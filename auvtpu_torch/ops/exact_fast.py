@@ -34,8 +34,12 @@ On the card the dense pass, its extraction and the table solve are one
 launch of B13 (:mod:`auvtpu_torch.kernels.exact_select`, one thread per
 query cell: the planes are only ever read there; where every query is
 aligned no residue plane is made), and the escalated cells one launch of
-B14 with the same solve; the host reads back the tie flags
-(to choose the escalated cells) and the (N,) predictions.  The torch
+B14 with the same solve.  The queries are prepared on the device by B16
+(``ops.exact.query_tensors``: keys, the aligned mask, the clipped cells),
+the escalation mask and its indices are device tensors, and the host reads
+back three things: B16's counts (an inexact key raises; a query not
+aligned sends the launch to the residue planes), the escalated count, and
+the (N,) predictions.  The torch
 functions here (:func:`_dense_select`, :func:`_extract_q`,
 :func:`_solve_table`) are the kernels' plain versions, which the CPU runs.
 """
@@ -49,18 +53,21 @@ import torch
 import torch.nn.functional as F
 
 from ..config import KrigingConfig
-from ..grid import RegularGrid
+from ..grid import RegularGrid, device_cache
+from ..kernels.exact_prologue import ALIGNED, FLAT, GEO, GRID, KEYS
 from .exact import (
     _F64,
     _cell_keys,
+    _checked,
     _device_tables,
     _fallback_mean,
     _krige_at,
-    _on,
+    _result,
     _select_cells,
     _sum4,
+    _where,
     exact_tables,
-    prepare_exact_queries,
+    query_tensors,
 )
 from .scattered import gj56
 
@@ -189,31 +196,48 @@ def _extract_q(count_p, tie_p, ln_p, elev, flat, *, max_radius: int):
 def _aligned(q, rows, cols):
     """Queries the dense pass serves: the round anchor is the query cell
     itself, variant 0, in bounds (anything else means a pathological extent
-    and escalates rather than being mis-served)."""
+    and escalates rather than being mis-served).  B16 computes this mask
+    (``aligned``); this is its plain form, on tensors or host arrays."""
     return (q.ci == cols) & (q.cj == rows) & (q.variant == 0) & ~q.oob
 
 
-def _dense_inputs(grid: RegularGrid, q, rows, cols):
-    """The dense pass's operands on the grid's device: the aligned queries'
-    cells (P_a,) (None where every query is aligned: each cell then holds
-    its own query's keys) and residue keys (2, P_a), every query's cell
-    clipped to the plane (P,), and the host ``aligned`` mask."""
-    H, W = grid.shape
-    aligned = _aligned(q, rows, cols)
-    flat_np = rows * W + cols
-    keys = np.stack([q.ex_key[aligned], q.ey_key[aligned]])
-    flat_a = None if aligned.all() else _on(grid, flat_np[aligned])
-    return flat_a, _on(grid, keys), _on(grid, np.clip(flat_np, 0, H * W - 1)), aligned
+def _round_queries(grid: RegularGrid, rows, cols, fields: int = 0):
+    """The round-anchor queries on the grid's device with what the dense
+    pass needs (keys, ``aligned``, the clipped cells) and ``fields`` more,
+    checked (one readback: raises where a key is not exact in f32), and the
+    dense pass's operands: the aligned queries' cells (P_a,) (None where
+    every query is aligned: each cell then holds its own query's keys), the
+    residue keys (2, P_a), every query's cell clipped to the plane (P,)."""
+    q = query_tensors(grid, rows, cols, anchor="round", fields=KEYS | ALIGNED | FLAT | fields)
+    not_aligned = _checked(q)
+    keys = torch.stack([q.ex_key, q.ey_key])
+    if not not_aligned:
+        return q, (None, keys, q.flat)
+    idx = _where(q.aligned, q.flat.shape[0] - not_aligned)
+    return q, (q.flat[idx], keys[:, idx], q.flat)
 
 
-def _dense_at(grid: RegularGrid, q, rows, cols, max_radius: int):
-    """The dense pass at the query cells through B13 (:func:`_dense_select`
-    and :func:`_extract_q` on the CPU): (found, tie, vals, dgi, dgj) tensors
-    and the host ``aligned`` mask."""
+def _select_fast(grid: RegularGrid, q, dense_in, max_radius: int, chunk: int):
+    """The two-tier selection of round-anchor queries ``q`` with the dense
+    pass's operands ``dense_in`` on the grid's device: B13 (:func:`_dense_select`
+    and :func:`_extract_q` on the CPU), then the escalated cells (the
+    boundary ties, the queries not aligned; none out of the grid) through
+    B14.  Returns tensors (found (N,), sel_val (N, 4), sel_gi, sel_gj (N, 4)
+    int32, escalated (N,) bool)."""
     from ..kernels.exact_select import dense_select
 
-    flat_a, keys, flat_q, aligned = _dense_inputs(grid, q, rows, cols)
-    return (*dense_select(grid, flat_a, keys, flat_q, max_radius=max_radius), aligned)
+    found, tie, vals, dgi, dgj = dense_select(grid, *dense_in, max_radius=max_radius)
+    filled = torch.arange(4, device=grid.device)[:, None] < found.clamp(max=4)[None, :]
+    # unfilled slots read as 0, the strict selection's empty-slot convention
+    sel_gi = torch.where(filled, dgi + q.cols, 0).T.to(torch.int32)
+    sel_gj = torch.where(filled, dgj + q.rows, 0).T.to(torch.int32)
+    sel_val = vals.T.contiguous()
+    esc = (tie | ~q.aligned) & ~q.oob
+    n_esc = int(esc.sum().cpu())
+    if n_esc:
+        idx = _where(esc, n_esc)
+        found[idx], sel_val[idx], sel_gi[idx], sel_gj[idx] = _select_cells(grid, q, idx, max_radius, chunk)
+    return found, sel_val, sel_gi, sel_gj, esc
 
 
 def exact_select_at_cells_fast(grid: RegularGrid, rows, cols, *, max_radius: int = 10, chunk: int = 16384):
@@ -222,21 +246,10 @@ def exact_select_at_cells_fast(grid: RegularGrid, rows, cols, *, max_radius: int
     selection.  Returns numpy (found, sel_val (N,4), sel_gi, sel_gj, q,
     escalated) with the strict selection's selected SET everywhere and its
     slot order except inside exact-key ties."""
-    q = prepare_exact_queries(grid, rows, cols, anchor="round")
-    rows = np.asarray(rows, np.int64)
-    cols = np.asarray(cols, np.int64)
-    found, tie, vals, dgi, dgj, aligned = _dense_at(grid, q, rows, cols, max_radius)
-    filled = torch.arange(4, device=grid.device)[:, None] < found.clamp(max=4)[None, :]
-    # unfilled slots read as 0, the strict selection's empty-slot convention
-    sel_gi = torch.where(filled, dgi + _on(grid, cols), 0).T.to(torch.int32)
-    sel_gj = torch.where(filled, dgj + _on(grid, rows), 0).T.to(torch.int32)
-    found, sel_val, sel_gi, sel_gj = (t.cpu().numpy() for t in (found, vals.T.contiguous(), sel_gi, sel_gj))
-    esc = (tie.cpu().numpy() | ~aligned) & ~q.oob
-    if esc.any():
-        idx = np.nonzero(esc)[0]
-        f2, v2, gi2, gj2 = (t.cpu().numpy() for t in _select_cells(grid, q, idx, max_radius, chunk))
-        found[idx], sel_val[idx], sel_gi[idx], sel_gj[idx] = f2, v2, gi2, gj2
-    return found, sel_val, sel_gi, sel_gj, q, esc
+    q, dense_in = _round_queries(grid, rows, cols, GEO | GRID)
+    out = _select_fast(grid, q, dense_in, max_radius, chunk)
+    found, sel_val, sel_gi, sel_gj, esc = (t.cpu().numpy() for t in out)
+    return found, sel_val, sel_gi, sel_gj, q.host(), esc
 
 
 # ---------------------------------------------------------------------------
@@ -270,10 +283,15 @@ def _gamma_tables(lon_step: float, lat_step: float, vg: tuple, model: str, max_r
 
 def _reference_tables(grid: RegularGrid, max_radius: int):
     """:func:`_gamma_tables` of the reference's variogram at the grid's
-    steps, on the grid's device."""
+    steps, on the grid's device (uploaded once a grid geometry)."""
+    return _device_reference_tables(grid.lon_step, grid.lat_step, max_radius, grid.device)
+
+
+@device_cache(maxsize=8)
+def _device_reference_tables(lon_step: float, lat_step: float, max_radius: int, device: torch.device):
     v = KrigingConfig().variogram
-    tabs = _gamma_tables(grid.lon_step, grid.lat_step, (v.nugget, v.sill, v.range), "exponential", max_radius)
-    return tuple(_on(grid, t) for t in tabs)
+    tabs = _gamma_tables(lon_step, lat_step, (v.nugget, v.sill, v.range), "exponential", max_radius)
+    return tuple(torch.as_tensor(t).to(device) for t in tabs)
 
 
 def _krige_rows_table(vals, dgi, dgj, gpair, gq, max_radius: int):
@@ -341,28 +359,21 @@ def exact_kriging_at_cells_fast(
         raise ValueError(solve)
     from ..kernels.exact_select import dense_krige, ring_krige
 
-    q = prepare_exact_queries(grid, rows, cols, anchor="round")
-    rows = np.asarray(rows, np.int64)
-    cols = np.asarray(cols, np.int64)
-    flat_a, keys, flat_q, aligned = _dense_inputs(grid, q, rows, cols)
+    q, dense_in = _round_queries(grid, rows, cols)
     gpair, gq = _reference_tables(grid, max_radius)
-    out, tie = dense_krige(grid, flat_a, keys, flat_q, gpair, gq, max_radius=max_radius)
-
-    esc = (tie.cpu().numpy() | ~aligned) & ~q.oob
-    if esc.any():
-        idx = np.nonzero(esc)[0]
-        qcol, qrow = _on(grid, cols[idx]), _on(grid, rows[idx])
-        out[_on(grid, idx)] = ring_krige(grid, *_cell_keys(grid, q, idx), qcol, qrow, gpair, gq,
-                                         max_radius=max_radius, chunk=chunk)
-    out = out.cpu().numpy()
-    return np.where(q.oob, np.nan, out)
+    out, tie = dense_krige(grid, *dense_in, gpair, gq, max_radius=max_radius)
+    esc = (tie | ~q.aligned) & ~q.oob
+    n_esc = int(esc.sum().cpu())
+    if n_esc:
+        idx = _where(esc, n_esc)
+        out[idx] = ring_krige(grid, *_cell_keys(grid, q, idx), q.cols[idx].long(), q.rows[idx].long(), gpair, gq,
+                              max_radius=max_radius, chunk=chunk)
+    return _result(out, q.oob)
 
 
 def _exact_kriging_coords(grid: RegularGrid, rows, cols, *, max_radius: int, chunk: int):
     """The coordinate-form f64 solve of :func:`.exact.exact_kriging_at_cells`
     on the two-tier selection (parity diagnostics)."""
-    found, sel_val, sel_gi, sel_gj, q, _ = exact_select_at_cells_fast(grid, rows, cols, max_radius=max_radius,
-                                                                        chunk=chunk)
-    out = _krige_at(grid, _on(grid, q.qlon), _on(grid, q.qlat), *(_on(grid, a) for a in (found, sel_val, sel_gi,
-                                                                                          sel_gj)))
-    return np.where(q.oob, np.nan, out.cpu().numpy())
+    q, dense_in = _round_queries(grid, rows, cols, GEO)
+    found, sel_val, sel_gi, sel_gj, _ = _select_fast(grid, q, dense_in, max_radius, chunk)
+    return _result(_krige_at(grid, q.qlon, q.qlat, found, sel_val, sel_gi, sel_gj), q.oob)

@@ -176,17 +176,25 @@ streaming mosaic and scattered queries on the 3200x4000 Grid A, in phases:
             router's COST_NS, and the calibrated router's decisions on a
             4096-query random batch (packed) and the prepared 5M band (band)
 
-19. exact  exact mode, f64, through B13 (the two-tier dense pass with its
-            table solve) and B14 (the strict ring selection): on the
+19. exact  exact mode, f64, through B16 (the query preparation), B13
+            (the two-tier dense pass with its table solve) and B14 (the
+            strict ring selection), its queries on the card (the held-out
+            cells as device tensors, as bench_grid_b passes them) and the
+            host views prepare_exact_queries and _prepare_scattered made to
+            raise for the phase's main path and both CLIs: on the
             stand-in r0.10 two-tier kriging (table solve), cubic and
             bilinear at the JAX package's pins (tools/jax_reference_pins.py:
             metrics within 1e-9 m, the prediction sum within 1e-9 m a cell,
             the finite count and two-tier's escalated count equal), strict
             kriging within 1e-8 m of two-tier with NaN in the same places;
-            launch counts zeroed before these calls show B13 and B14 ran,
-            and one B13 launch a dense call (the bit plane's build and B13,
+            launch counts zeroed before these calls show B16, B13 and B14
+            ran (one B16 launch a call), and one B13 launch a dense call (the bit plane's build and B13,
             nothing else, on the aligned path); every build's registers,
-            local bytes, spills and resident blocks; B13 (both builds, on
+            local bytes, spills and resident blocks (B16's too); B16
+            bit-equal to its plain version at the stand-in's cells (both
+            anchors, every field, and keys EPS_SCALE 2**41 + 1 makes
+            inexact) and at the 1e5 Grid A queries with NaN and ±inf
+            added; B13 (both builds, on
             the aligned path and on the residue planes with duplicated
             cells and non-aligned queries reading another's residue) and
             B14 (cell-aligned at both anchors with anchors past the grid to
@@ -203,9 +211,14 @@ streaming mosaic and scattered queries on the 3200x4000 Grid A, in phases:
             exact prediction within 1e-9 m of the golden engine; bench_grid_b
             --selection exact (tiers two and strict) at the pinned RMSEs and
             bench_grid_a --selection exact at 1e3 and 1e5 queries, every
-            golden validation passed at 1e-9; each call timed on the host
-            clock (prepare_exact_queries, dispatch and readbacks apart) and
-            by its device records; B13 and B14 alone (the bit plane's
+            golden validation passed at 1e-9; each of the seven entry
+            points (four on the stand-in's cells, three at the 1e5 Grid A
+            queries) before (scripts/exact_host_prologue.py: the host numpy
+            prologue and glue) and after, in turns, on the host clock, by
+            its device records (idle share) and by its synchronising calls
+            (sync debug mode; after: pinned to EXACT_SYNCS), the answers
+            equal; the two krigings' host split (the prologue, readbacks,
+            the rest; cProfile); B16 (also cold), B13 and B14 alone (the bit plane's
             build included, and apart), through their wrappers (B13 also on
             the residue planes) and as plain, beside their byte bounds
 20. learned the committed w16 d2 checkpoint
@@ -391,7 +404,8 @@ MODEL_VPARAMS = {
 
 
 # Scattered serving (phases 12-14)
-SOURCES = ("window_fill", "scattered_select", "band_resample", "variogram", "exact_select")  # csrc/<name>.cu, built together
+SOURCES = ("window_fill", "scattered_select", "band_resample", "variogram", "exact_select",
+           "exact_prologue")  # csrc/<name>.cu, built together
 N_SCATTER = 1_000_000
 SCATTER_RTOL, SCATTER_ATOL = 1e-5, 1e-4  # kernel paths vs torch (tests/test_pallas.py:300)
 TT_BARS = {"kriging": (1e-4, 0.1), "idw": (1e-4, 0.05)}  # two-tier vs torch (tests/test_packs.py:116-120)
@@ -448,6 +462,11 @@ EXACT_PINS = {
 }
 EXACT_TOL = 1e-9  # m: a metric, and the sum's difference a cell (f64 on both sides)
 EXACT_STRICT_TOL = 1e-8  # m a cell: strict vs two-tier kriging (lattice-gamma tables)
+# synchronising calls one call of each exact entry point makes on queries
+# already on the card (torch.cuda.set_sync_debug_mode: B16's counts, an
+# escalated or fallback count, the result), measured on an H100
+EXACT_SYNCS = {"kriging_two": 3, "kriging_strict": 2, "cubic": 2, "bilinear": 2, "kriging scattered": 1,
+               "cubic scattered": 2, "bilinear scattered": 1}
 # results/learned_mid_atlantic_w16d2.npz filling the stand-in r0.10, f32 and
 # bf16 compute: the reference metrics over the masked cells, the plane's nansum
 LEARNED_PINS = {
@@ -688,11 +707,53 @@ def exact_walk(grid, ci, cj, sel_gi=None, sel_gj=None, found=None, chunk: int = 
     return out
 
 
+class host_views_refused:
+    """While the block runs, exact mode's host views of its query
+    preparation (ops.exact.prepare_exact_queries, _prepare_scattered)
+    raise: no entry point may call them when its grid is on the card."""
+
+    def __init__(self, texact):
+        self.texact = texact
+
+    def __enter__(self):
+        def refuse(*args, **kwargs):
+            raise AssertionError("an exact entry point called a host view of the query preparation")
+
+        self.saved = self.texact.prepare_exact_queries, self.texact._prepare_scattered
+        self.texact.prepare_exact_queries = self.texact._prepare_scattered = refuse
+        return self
+
+    def __exit__(self, *exc):
+        self.texact.prepare_exact_queries, self.texact._prepare_scattered = self.saved
+        return False
+
+
+def sync_calls(fn) -> int:
+    """The synchronising CUDA calls one call of ``fn`` makes, as
+    torch.cuda.set_sync_debug_mode("warn") reports them (a readback, a
+    blocking upload from pageable memory, torch.nonzero)."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as seen:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    return sum("synchroniz" in str(m.message) for m in seen)
+
+
 def host_split_ms(fn, reps: int = 3) -> dict:
-    """Host time of one exact-mode call split by cProfile: in
-    prepare_exact_queries (host numpy), in the readbacks (Tensor.cpu, which
-    wait for the device), and the rest (uploads, dispatch, host glue); the
-    medians of ``reps`` calls, each ending in a sync."""
+    """Host time of one exact-mode call split by cProfile: in the query
+    preparation (ops.exact.query_tensors and scattered_tensors, B16's
+    wrapper and the queries' upload; or the host numpy prepare_exact_queries
+    and _prepare_scattered of scripts/exact_host_prologue.py), in the
+    readbacks (Tensor.cpu, .tolist, .item, which wait for the device), and
+    the rest (uploads, dispatch, host glue); the medians of ``reps`` calls,
+    each ending in a sync."""
     import cProfile
     import pstats
 
@@ -711,8 +772,10 @@ def host_split_ms(fn, reps: int = 3) -> dict:
         parts["total"].append((time.perf_counter() - t0_) * 1e3)
         stats = pstats.Stats(prof).stats
         cum = lambda pred: sum(v[3] for k, v in stats.items() if pred(k)) * 1e3
-        parts["prepare"].append(cum(lambda k: k[2] in ("prepare_exact_queries", "_prepare_scattered")))
-        parts["readbacks"].append(cum(lambda k: k[2].startswith("<method 'cpu' of")))
+        parts["prepare"].append(cum(lambda k: k[2] in ("query_tensors", "scattered_tensors", "prepare_exact_queries",
+                                                       "_prepare_scattered")))
+        parts["readbacks"].append(cum(lambda k: k[2].startswith(("<method 'cpu' of", "<method 'tolist' of",
+                                                                 "<method 'item' of"))))
     out = {k: float(np.median(v)) for k, v in parts.items()}
     out["dispatch"] = out["total"] - out["prepare"] - out["readbacks"]
     return out
@@ -1776,6 +1839,7 @@ def main() -> int:
     from concurrent.futures import ThreadPoolExecutor
 
     from auvtpu_torch.kernels import band_resample as kb
+    from auvtpu_torch.kernels import exact_prologue as ep
     from auvtpu_torch.kernels import exact_select as es
     from auvtpu_torch.kernels import scattered_select as ss
     from auvtpu_torch.kernels import variogram as kv
@@ -1788,6 +1852,7 @@ def main() -> int:
     kb.build()
     kv.build()
     es.build()
+    ep.build()
     say("build", f"{', '.join(s + '.cu' for s in SOURCES)} built and loaded in {time.perf_counter() - t0:.1f} s")
     for src in SOURCES:
         log = kbuild.library_path(src).with_suffix(".log")
@@ -3161,21 +3226,25 @@ def main() -> int:
     reduced_k, rc_k, truth_k = mask_grid(kerguelen_standin(SHAPE), REMOVAL)
     g64 = RegularGrid.from_nan_array(reduced_k, KEXT, dtype=torch.float64, device=dev)
     rk, ck = rc_k[:, 0], rc_k[:, 1]
+    # the held-out cells on the card, as bench_grid_b passes them
+    rk_t, ck_t = (torch.as_tensor(a, device=dev) for a in (rk, ck))
     exact_fns = {
-        "kriging_two": lambda: tfast.exact_kriging_at_cells_fast(g64, rk, ck),
-        "kriging_strict": lambda: texact.exact_kriging_at_cells(g64, rk, ck),
-        "cubic": lambda: texact.exact_cubic_at_cells(g64, rk, ck),
-        "bilinear": lambda: texact.exact_bilinear_at_cells(g64, rk, ck),
+        "kriging_two": lambda: tfast.exact_kriging_at_cells_fast(g64, rk_t, ck_t),
+        "kriging_strict": lambda: texact.exact_kriging_at_cells(g64, rk_t, ck_t),
+        "cubic": lambda: texact.exact_cubic_at_cells(g64, rk_t, ck_t),
+        "bilinear": lambda: texact.exact_bilinear_at_cells(g64, rk_t, ck_t),
     }
     es.reset_launches()
-    preds = {k: fn() for k, fn in exact_fns.items()}
-    esc_k = tfast.exact_select_at_cells_fast(g64, rk, ck)[5]
-    launches_ex = dict(es.LAUNCHES)
-    # two-tier kriging and the selection: a B13 launch each and a B14
-    # launch each for the escalated cells; strict kriging and cubic a B14
-    # launch each
-    if launches_ex != {"exact_dense": 2, "exact_ring": 4}:
-        raise AssertionError(f"exact mode's launches {launches_ex}, want two of B13 and four of B14")
+    ep.reset_launches()
+    with host_views_refused(texact):
+        preds = {k: fn() for k, fn in exact_fns.items()}
+        esc_k = tfast.exact_select_at_cells_fast(g64, rk_t, ck_t)[5]
+    launches_ex = {**es.LAUNCHES, **ep.LAUNCHES}
+    # each call a B16 launch; two-tier kriging and the selection a B13
+    # launch each and a B14 launch each for the escalated cells; strict
+    # kriging and cubic a B14 launch each
+    if launches_ex != {"exact_dense": 2, "exact_ring": 4, "exact_prologue": 5}:
+        raise AssertionError(f"exact mode's launches {launches_ex}, want five of B16, two of B13 and four of B14")
     for key in ("kriging_two", "cubic", "bilinear"):
         exact_pin(key, preds[key], truth_k, int(esc_k.sum()) if key == "kriging_two" else None)
     two, strict = preds["kriging_two"], preds["kriging_strict"]
@@ -3187,7 +3256,8 @@ def main() -> int:
     say("exact", f"stand-in r0.10 f64, {len(truth_k)} cells: two-tier kriging RMSE "
         f"{all_reference_metrics(truth_k, two)['RMSE']:.9f}, {int(esc_k.sum())} escalated ({esc_k.mean():.6f}); "
         f"cubic, bilinear and two-tier kriging at the JAX package's pins (metrics within {EXACT_TOL} m, "
-        f"sums within {EXACT_TOL} m a cell); strict vs two-tier max |diff| {d_ts:.3g} m")
+        f"sums within {EXACT_TOL} m a cell); strict vs two-tier max |diff| {d_ts:.3g} m; the queries prepared on "
+        f"the card (one B16 launch a call), the host views refused")
 
     # B13 and B14 against their plain versions at full width: the stand-in's
     # cells (two-tier's operands, strict's anchors at both anchors), then a
@@ -3217,7 +3287,7 @@ def main() -> int:
         rows_, cols_ = np.asarray(rows_, np.int64), np.asarray(cols_, np.int64)
         H, W = g.shape
         q_ = texact.prepare_exact_queries(g, rows_, cols_)
-        dense_in = tfast._dense_inputs(g, q_, rows_, cols_)[:3]
+        dense_in = tfast._round_queries(g, rows_, cols_)[1]
         tabs = tfast._reference_tables(g, 10)
         for path, d_in in (("aligned" if dense_in[0] is None else "planes", dense_in),
                            ("planes, mixed", mixed_dense_operands(g, rows_, cols_))):
@@ -3264,6 +3334,34 @@ def main() -> int:
     # register or two of a build that reads valid, but no list
     if any(v["local_bytes"] > 16 for k, v in attrs_x.items() if k.startswith("ring_kernel")):
         raise AssertionError(f"a B14 build keeps more local memory than a spill: {attrs_x}")
+    attrs_p = ep.attributes()
+    say("exact", "B16 builds (registers, local bytes, spill bytes, resident blocks an SM at 256 threads): " + "; ".join(
+        f"{k} {v['registers']}, {v['local_bytes']}, {v.get('spill_bytes')}, {v['blocks_per_sm']}"
+        for k, v in attrs_p.items()) + f"  [{card}]")
+    if any(v["local_bytes"] or v.get("spill_bytes") for v in attrs_p.values()):
+        raise AssertionError(f"a B16 build keeps local memory: {attrs_p}")
+
+    def prologue_equal(g, a, b, label: str, **kw) -> None:
+        """B16 at queries (a, b) on the card bit-equal to its plain version
+        on the same queries on the host."""
+        want = ep.prologue_ref(a.cpu(), b.cpu(), ep.geo_of(g), g.num_lon, g.num_lat, kw["round_anchor"],
+                               kw["fields"], kw["eps_scale"])
+        exact_equal(tuple(t.cpu() for t in ep.prologue(g, a, b, **kw)), want, f"B16 {label}")
+
+    n_b16 = 0
+    for rnd in (True, False):
+        for dt in (torch.int64, torch.int32):
+            for eps in (texact.EPS_SCALE, 2.0**41 + 1.0):  # the second makes keys inexact: counted alike
+                prologue_equal(g64, ck_t.to(dt), rk_t.to(dt), f"stand-in {'round' if rnd else 'floor'} {dt} {eps}",
+                               round_anchor=rnd, fields=ep.CELL_FIELDS, eps_scale=eps)
+                n_b16 += 1
+        for fields in (ep.KEYS | ep.ALIGNED | ep.FLAT, ep.KEYS | ep.GEO, ep.KEYS | ep.GRID, ep.GRID):
+            prologue_equal(g64, ck_t, rk_t, f"stand-in fields {fields}", round_anchor=rnd, fields=fields,
+                           eps_scale=texact.EPS_SCALE)
+            n_b16 += 1
+    say("exact", f"B16 bit-equal to its plain version at the stand-in's {len(rk)} cells: round and floor anchors, "
+        f"int64 and int32 cells, every field and each entry point's fields, and with EPS_SCALE 2**41 + 1 (inexact "
+        f"keys counted alike); {n_b16} cases")
     ex_in = exact_kernels_equal(g64, rk, ck, "stand-in")
     g32_k = RegularGrid.from_nan_array(reduced_k, KEXT, dtype=torch.float32, device=dev)
     exact_kernels_equal(g32_k, rk, ck, "stand-in f32")
@@ -3276,9 +3374,7 @@ def main() -> int:
     g_sp = RegularGrid.from_nan_array(red_sp, Extent(74.615, 84.785, -58.2508, -49.6982), dtype=torch.float64,
                                       device=dev)
     exact_kernels_equal(g_sp, rc_sp[:, 0], rc_sp[:, 1], "sparse 256x320")
-    found_sp = es.dense_select(g_sp, *tfast._dense_inputs(
-        g_sp, texact.prepare_exact_queries(g_sp, rc_sp[:, 0], rc_sp[:, 1]), rc_sp[:, 0].astype(np.int64),
-        rc_sp[:, 1].astype(np.int64))[:3])[0]
+    found_sp = es.dense_select(g_sp, *tfast._round_queries(g_sp, rc_sp[:, 0], rc_sp[:, 1])[1])[0]
     say("exact", f"sparse 256x320 ({int(g_sp.valid.sum())} observed cells, {len(rc_sp)} queries, "
         f"{int((found_sp < 4).sum())} of them never holding 4): B13 and B14 bit-equal to plain")
     for case in tcuda.EXACT_EDGE_CASES:
@@ -3291,6 +3387,15 @@ def main() -> int:
     gA64 = RegularGrid.from_nan_array(shelf_seamount(*GRID_A_SHAPE), GRID_A_EXTENT, dtype=torch.float64, device=dev)
     qlo_a, qla_a = (t.cpu().numpy().astype(np.float64) for t in scattered_queries(
         GRID_A_EXTENT, GRID_A_SHAPE[0], GRID_A_SHAPE[1], 100_000, 19, dev))
+    lo_odd, la_odd = qlo_a.copy(), qla_a.copy()
+    lo_odd[::13], la_odd[::17], lo_odd[::29], la_odd[::31] = np.nan, np.inf, -np.inf, np.nan
+    lo_odd[5::41] = GRID_A_EXTENT.max_lon + 1e-3  # past the edge
+    for rnd in (True, False):
+        prologue_equal(gA64, torch.as_tensor(lo_odd, device=dev), torch.as_tensor(la_odd, device=dev),
+                       f"Grid A scattered {'round' if rnd else 'floor'}", round_anchor=rnd, fields=ep.GRID,
+                       eps_scale=texact.EPS_SCALE)
+    say("exact", f"B16 bit-equal to its plain version at {len(qlo_a)} Grid A exact queries with NaN, ±inf and "
+        f"out-of-grid coordinates added, round and floor anchors")
     sc_in = {}
     for anchor in ("round", "floor"):
         _, _, xa, ya, cia, cja, _ = texact._prepare_scattered(gA64, qlo_a, qla_a, anchor)
@@ -3308,14 +3413,14 @@ def main() -> int:
     # one B13 launch a dense call: on the aligned path the bit plane's build
     # and B13, and no other kernel (no residue planes)
     es.reset_launches()
-    seen = device_kernels(lambda: tfast._dense_at(g64, ex_in["q"], rk.astype(np.int64), ck.astype(np.int64), 10))
+    seen = device_kernels(lambda: es.dense_select(g64, *ex_in["dense_in"]))
     n_dense = sum(v for k, v in seen.items() if "dense_kernel" in k)
     n_bits = sum(v for k, v in seen.items() if "bits_kernel" in k)
     if es.LAUNCHES["exact_dense"] != 21 or not 0 < n_dense <= 20 or not 0 < n_bits <= 20 or \
             any("dense_kernel" not in k and "bits_kernel" not in k for k in seen):
-        raise AssertionError(f"_dense_at: {es.LAUNCHES} launches over 21 calls, device records {seen}")
-    say("exact", f"one B13 launch a dense call (_dense_at): 21 launches over 21 calls; the device records of 20 "
-        f"profiled calls {seen} (the bit plane's build and B13 alone)")
+        raise AssertionError(f"dense_select: {es.LAUNCHES} launches over 21 calls, device records {seen}")
+    say("exact", f"one B13 launch a dense call (dense_select on the aligned path): 21 launches over 21 calls; the "
+        f"device records of 20 profiled calls {seen} (the bit plane's build and B13 alone)")
 
     # synthetic grids with awkward decimals: the strict selection against
     # the golden engine's ring selection, the predictions against its own
@@ -3362,46 +3467,109 @@ def main() -> int:
         os.remove(res_x)
     pin_of = {"Kriging": "kriging_two", "Cubic": "cubic", "Bilinear": "bilinear"}
     es.reset_launches()
-    for tier in ("two", "strict"):
-        summary_x = bench_grid_b.main(["--region", "kerguelen", "--removal", str(REMOVAL), "--selection", "exact",
-                                       "--exact-tier", tier, "--results", res_x, "--machine", "H100"])
-        for method, m in summary_x.items():
-            tol = EXACT_STRICT_TOL if (method == "Kriging" and tier == "strict") else EXACT_TOL
-            want = EXACT_PINS[pin_of[method]]["RMSE"]
-            if not abs(m["RMSE"] - want) <= tol:
-                raise AssertionError(f"bench_grid_b exact ({tier}) {method}: RMSE {m['RMSE']} != {want} +- {tol}")
-        say("exact", f"bench_grid_b --selection exact --exact-tier {tier}: " + ", ".join(
-            f"{k} RMSE {v['RMSE']:.9f} steady {v['steady_ms']:.2f} ms, end-to-end {v['e2e_ms']:.2f} ms"
-            for k, v in summary_x.items()) + f"  [{card}]")
-    summary_ax = bench_grid_a.main(["--selection", "exact", "--batch-sizes", "1000", "100000", "--results", res_x,
-                                    "--machine", "H100"])
-    if sorted(summary_ax) != sorted((m, n) for m in ("Bilinear", "Cubic", "Kriging") for n in (1000, 100000)) or \
-            not all(v["validated"] for v in summary_ax.values()):
-        raise AssertionError(f"bench_grid_a --selection exact: {summary_ax}")
-    say("exact", "bench_grid_a --selection exact: every golden validation PASSED (1e-9 x scale); " + ", ".join(
-        f"{m} n={n} steady {v['steady_ms']:.2f} ms" for (m, n), v in summary_ax.items()) + f"  [{card}]")
-    launches_exc = dict(es.LAUNCHES)
-    if not (launches_exc["exact_dense"] > 0 and launches_exc["exact_ring"] > 0):
-        raise AssertionError(f"the exact CLIs' launches {launches_exc}: B13 and B14 must both run")
+    ep.reset_launches()
+    with host_views_refused(texact):
+        for tier in ("two", "strict"):
+            summary_x = bench_grid_b.main(["--region", "kerguelen", "--removal", str(REMOVAL), "--selection", "exact",
+                                           "--exact-tier", tier, "--results", res_x, "--machine", "H100"])
+            for method, m in summary_x.items():
+                tol = EXACT_STRICT_TOL if (method == "Kriging" and tier == "strict") else EXACT_TOL
+                want = EXACT_PINS[pin_of[method]]["RMSE"]
+                if not abs(m["RMSE"] - want) <= tol:
+                    raise AssertionError(f"bench_grid_b exact ({tier}) {method}: RMSE {m['RMSE']} != {want} +- {tol}")
+            say("exact", f"bench_grid_b --selection exact --exact-tier {tier}: " + ", ".join(
+                f"{k} RMSE {v['RMSE']:.9f} steady {v['steady_ms']:.2f} ms, end-to-end {v['e2e_ms']:.2f} ms"
+                for k, v in summary_x.items()) + f"  [{card}]")
+        summary_ax = bench_grid_a.main(["--selection", "exact", "--batch-sizes", "1000", "100000", "--results", res_x,
+                                        "--machine", "H100"])
+        if sorted(summary_ax) != sorted((m, n) for m in ("Bilinear", "Cubic", "Kriging") for n in (1000, 100000)) or \
+                not all(v["validated"] for v in summary_ax.values()):
+            raise AssertionError(f"bench_grid_a --selection exact: {summary_ax}")
+        say("exact", "bench_grid_a --selection exact: every golden validation PASSED (1e-9 x scale); " + ", ".join(
+            f"{m} n={n} steady {v['steady_ms']:.2f} ms" for (m, n), v in summary_ax.items()) + f"  [{card}]")
+    launches_exc = {**es.LAUNCHES, **ep.LAUNCHES}
+    if not (launches_exc["exact_dense"] > 0 and launches_exc["exact_ring"] > 0 and launches_exc["exact_prologue"] > 0):
+        raise AssertionError(f"the exact CLIs' launches {launches_exc}: B16, B13 and B14 must all run")
 
-    # timing: each call on the device (the profiler's device records) and
-    # on the host clock (apart: prepare_exact_queries, the readbacks, the
-    # rest), the dense pass through B13 and as the plain loop
+    # timing: each entry point before (scripts/exact_host_prologue.py: the
+    # host numpy prologue and glue) and after (B16, device glue), in turns
+    # (before, after, after, before): on the host clock, by its device
+    # records (idle share) and by its synchronising calls; the answers
+    # equal.  The cell-aligned entries at the stand-in's cells (after: the
+    # device tensors bench_grid_b passes; before: numpy), the scattered ones
+    # at the 1e5 Grid A queries (after: f64 tensors on the card, as
+    # bench_grid_a passes them; before: numpy)
+    hostp = load_script("exact_host_prologue")
+    qlo_t, qla_t = (torch.as_tensor(a, device=dev) for a in (qlo_a, qla_a))
+    ab = {
+        "kriging_two": (lambda: hostp.exact_kriging_at_cells_fast(g64, rk, ck), exact_fns["kriging_two"]),
+        "kriging_strict": (lambda: hostp.exact_kriging_at_cells(g64, rk, ck), exact_fns["kriging_strict"]),
+        "cubic": (lambda: hostp.exact_cubic_at_cells(g64, rk, ck), exact_fns["cubic"]),
+        "bilinear": (lambda: hostp.exact_bilinear_at_cells(g64, rk, ck), exact_fns["bilinear"]),
+        "kriging scattered": (lambda: hostp.exact_kriging_scattered(gA64, qlo_a, qla_a),
+                              lambda: texact.exact_kriging_scattered(gA64, qlo_t, qla_t)),
+        "cubic scattered": (lambda: hostp.exact_cubic_scattered(gA64, qlo_a, qla_a),
+                            lambda: texact.exact_cubic_scattered(gA64, qlo_t, qla_t)),
+        "bilinear scattered": (lambda: hostp.exact_bilinear_scattered(gA64, qlo_a, qla_a),
+                               lambda: texact.exact_bilinear_scattered(gA64, qlo_t, qla_t)),
+    }
+    syncs_x = {}
+    for label, (before, after) in ab.items():
+        if not np.array_equal(before(), after(), equal_nan=True):
+            raise AssertionError(f"exact {label}: the answers before and after B16 differ")
+        runs = {"before": [], "after": []}
+        for which in ("before", "after", "after", "before"):
+            fn = before if which == "before" else after
+            runs[which].append((host_ms(fn, reps=3), device_busy_ms(fn)))
+        syncs_x[label] = {which: sync_calls(before if which == "before" else after) for which in runs}
+        for which, r in runs.items():
+            ms[f"exact {label} host {which}"] = float(np.median([h for h, _ in r]))
+            ms[f"exact {label} device {which}"] = float(np.median([d for _, d in r]))
+        n_q = len(rk) if "scattered" not in label else len(qlo_a)
+        say("timing", f"exact {label:18s} at {n_q} queries, before | after: host " + ", ".join(
+            f"{h:.2f}" for h, _ in runs["before"]) + " | " + ", ".join(f"{h:.2f}" for h, _ in runs["after"])
+            + " ms; device busy " + ", ".join(f"{d:.2f}" for _, d in runs["before"]) + " | " + ", ".join(
+            f"{d:.2f}" for _, d in runs["after"]) + " ms; idle " + " | ".join(
+            f"{1 - ms[f'exact {label} device {w}'] / ms[f'exact {label} host {w}']:.1%}" for w in runs)
+            + f"; synchronising calls {syncs_x[label]['before']} | {syncs_x[label]['after']}  [{card}]")
+    after_syncs = {k: v["after"] for k, v in syncs_x.items()}
+    if after_syncs != EXACT_SYNCS:
+        raise AssertionError(f"exact mode's synchronising calls a call {after_syncs}, pinned {EXACT_SYNCS}")
+    for label in ("kriging_two", "kriging_strict"):
+        for which, fn in zip(("before", "after"), ab[label]):
+            sp = host_split_ms(fn)
+            say("timing", f"exact {label} {which} host split (cProfile on): {sp['total']:.2f} ms = the prologue "
+                f"{sp['prepare']:.2f} + readbacks (waiting for the card included) {sp['readbacks']:.2f} + uploads, "
+                f"dispatch and glue {sp['dispatch']:.2f}  [{card}]")
     dense_in, tabs = ex_in["dense_in"], ex_in["tabs"]
     dense_plain_args = (g64.valid, dense_in[2], dense_in[1][0], dense_in[1][1])  # aligned: flat_a is flat_q
-    exact_fns["dense pass"] = lambda: es.dense_select(g64, *dense_in)
-    exact_fns["dense pass plain"] = lambda: tfast._dense_select(*dense_plain_args, max_radius=10)
-    for label, fn in exact_fns.items():
+    for label, fn in (("dense pass", lambda: es.dense_select(g64, *dense_in)),
+                      ("dense pass plain", lambda: tfast._dense_select(*dense_plain_args, max_radius=10))):
         ms[f"exact {label}"] = host_ms(fn, reps=3)
         ms[f"exact {label} device"] = device_busy_ms(fn)
         say("timing", f"exact {label:16s} at {len(rk)} cells: {ms[f'exact {label}']:.2f} ms host, "
-            f"{ms[f'exact {label} device']:.2f} ms device busy "
-            f"(idle {1 - ms[f'exact {label} device'] / ms[f'exact {label}']:.1%})  [{card}]")
-    for label in ("kriging_two", "kriging_strict"):
-        sp = host_split_ms(exact_fns[label])
-        say("timing", f"exact {label} host split (cProfile on): {sp['total']:.2f} ms = prepare_exact_queries "
-            f"{sp['prepare']:.2f} + readbacks (waiting for the card included) {sp['readbacks']:.2f} + uploads, "
-            f"dispatch and glue {sp['dispatch']:.2f}  [{card}]")
+            f"{ms[f'exact {label} device']:.2f} ms device busy  [{card}]")
+
+    # B16 alone (kernel records), through its wrapper (events) and as
+    # plain (torch ops on the card), at the stand-in's cells with two-tier
+    # kriging's fields (keys, aligned, the clipped cell)
+    b16_kw = dict(round_anchor=True, fields=ep.KEYS | ep.ALIGNED | ep.FLAT, eps_scale=texact.EPS_SCALE)
+    b16_geo = ep.geo_of(g64)
+    ms["B16 alone"] = device_ms(lambda: ep.prologue(g64, ck_t, rk_t, **b16_kw), "prologue_kernel")
+    # back to back its 8 MB of queries stay in the 50 MB L2 and its outputs
+    # land there: cold, a 128 MB write before each call evicts them
+    ms["B16 cold"] = device_ms(lambda: ep.prologue(g64, ck_t, rk_t, **b16_kw), "prologue_kernel", cold=True)
+    ms["B16 wrapper"] = time_ms(lambda: ep.prologue(g64, ck_t, rk_t, **b16_kw))
+    ms["B16 plain"] = time_ms(lambda: ep.prologue_ref(ck_t, rk_t, b16_geo, g64.num_lon, g64.num_lat,
+                                                      *b16_kw.values()), warmup=1, reps=5)
+    # per query: the int64 column and row read, the anchors (16), oob (1),
+    # keys (8), variant (4), aligned (1) and cell (8) written; ~30 f64
+    # operations (the round-trip, the anchors, two residues, the checks)
+    bounds_b16 = bound(len(rk) * (16.0 + 16 + 1 + 8 + 4 + 1 + 8) + 8, 0.0, 30.0 * len(rk))
+    say("timing", f"B16 at {len(rk)} stand-in cells (two-tier's fields): alone {ms['B16 alone']:.4f} ms (cold "
+        f"{ms['B16 cold']:.4f}), wrapper "
+        f"{ms['B16 wrapper']:.4f} ms, plain {ms['B16 plain']:.2f} ms; bound {bounds_b16[0]:.4f} ms ({bounds_b16[1]}; "
+        f"{bounds_b16[0] / ms['B16 alone']:.0%} of it; cold {bounds_b16[0] / ms['B16 cold']:.0%})  [{card}]")
 
     # B13 and B14 alone (kernel records), through their wrappers (events)
     # and as plain, at the stand-in's cells: B13 with the solve (two-tier
@@ -3458,7 +3626,8 @@ def main() -> int:
         f"{walk['valid_cells']} validity and {walk['value_cells']} value cells read, {walk['solved']} solved")
     say("exact", f"escalated share {esc_k.mean():.6f}; launches: main path {launches_ex}, CLIs {launches_exc}; "
         f"phase took {time.perf_counter() - t_ex:.1f} s")
-    del g64, preds, exact_fns, dense_in, dense_plain_args, two, strict, gA64, sc_in, ex_in, sel_k, g_sp
+    del g64, preds, exact_fns, dense_in, dense_plain_args, two, strict, gA64, sc_in, ex_in, sel_k, g_sp, ab
+    del qlo_t, qla_t, rk_t, ck_t
     torch.cuda.empty_cache()
 
     # ---- 20. the learned baseline at full width: the committed w16 d2
@@ -4049,6 +4218,15 @@ def main() -> int:
                       ms[f"{tag} plain"]))
         src[k] = "auvtpu_torch/csrc/exact_select.cu"
         bounds[k] = bounds_x[k]
+    # B16 replaces no Pallas kernel: exact mode's host numpy query
+    # preparation (prepare_exact_queries, and _prepare_scattered at
+    # auvtpu/ops/exact.py:449); main paths as B13's; its time with two-tier
+    # kriging's fields; bit-equal (phase 19)
+    rows_.append(("exact_prologue", "auvtpu/ops/exact.py:139",
+                  launches_ex["exact_prologue"] + launches_exc["exact_prologue"], 0.0, ms["B16 alone"],
+                  ms["B16 wrapper"], ms["B16 plain"]))
+    src["exact_prologue"] = "auvtpu_torch/csrc/exact_prologue.cu"
+    bounds["exact_prologue"] = bounds_b16
     # B8: values only, no resolved mask; B7 and B5: the selection alone, no
     # tie order
     library = {"band_resample": ms["grid_sample"], "window_select_fused": ms["B7 library topk"],

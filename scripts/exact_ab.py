@@ -16,7 +16,7 @@ A turn builds the f64 stand-in (2053x2441, 10 % masked with seed 42:
 clock of a call ending in a sync (median of 3 after one warm-up), its
 device-busy time (this checkout's ``chip_smoke.device_busy_ms``: every
 device record of 2 profiled calls) and, for the two krigings, the host
-split of ``chip_smoke.host_split_ms`` (cProfile: ``prepare_exact_queries``,
+split of ``chip_smoke.host_split_ms`` (cProfile: the query preparation,
 the readbacks, the rest); each prediction's nansum is printed, so the two
 versions' answers can be compared.  Prints one JSON line a turn and, last,
 the card's name and power limit.

@@ -304,9 +304,8 @@ def _aligned_operands(tg, rc):
     operands for the residue planes (flat_a) and for the aligned path."""
     H, W = tg.shape
     rows, cols = np.tile(rc[:, 0], 2).astype(np.int64), np.tile(rc[:, 1], 2).astype(np.int64)
-    q = texact.prepare_exact_queries(tg, rows, cols)
-    flat_a, keys, flat_q, aligned = tfast._dense_inputs(tg, q, rows, cols)
-    assert aligned.all() and flat_a is None and torch.equal(flat_q, torch.as_tensor(rows * W + cols))
+    q, (flat_a, keys, flat_q) = tfast._round_queries(tg, rows, cols)
+    assert q.aligned.all() and flat_a is None and torch.equal(flat_q, torch.as_tensor(rows * W + cols))
     return keys, flat_q
 
 
@@ -327,10 +326,13 @@ def test_dense_aligned_path_equals_the_residue_planes_and_jax(name, dtype):
 def test_dense_inputs_keep_the_planes_where_any_query_is_not_aligned():
     _, tg, rc = pair("awkward_r0.5", np.float64)
     rows, cols = queries(tg, rc)
-    q = texact.prepare_exact_queries(tg, rows, cols)
-    flat_a, keys, flat_q, aligned = tfast._dense_inputs(tg, q, rows, cols)
+    q, (flat_a, keys, flat_q) = tfast._round_queries(tg, rows, cols)
+    aligned = q.aligned.numpy()
     assert not aligned.all() and aligned.any()
     np.testing.assert_array_equal(flat_a.numpy(), (rows * tg.shape[1] + cols)[aligned])
+    host = texact.prepare_exact_queries(tg, rows, cols)
+    np.testing.assert_array_equal(aligned, tfast._aligned(host, rows, cols))
+    np.testing.assert_array_equal(keys.numpy(), np.stack([host.ex_key[aligned], host.ey_key[aligned]]))
     assert keys.shape == (2, int(aligned.sum())) and flat_q.shape == (len(rows),)
 
 
