@@ -27,7 +27,12 @@ the device's implementation):
   ``::exact_ring_krige`` (B14, ``ring_kernel``: the strict selection, with
   the table solve), exact mode's selections, and
   ``auvtpu_torch::exact_prologue`` (B16, ``csrc/exact_prologue.cu``
-  ``prologue_kernel``), its query preparation;
+  ``prologue_kernel``), its query preparation, and
+  ``auvtpu_torch::exact_krige`` with its overload ``::exact_krige.mean_into``
+  (B17, ``csrc/exact_epilogue.cu`` ``krige_kernel``: the coordinate-form
+  f64 solve, or the fallback mean alone scattered into an output) and
+  ``auvtpu_torch::exact_patch`` (B18, ``patch_kernel``: the bilinear and
+  Catmull-Rom patch), its epilogues;
 - ``auvtpu_torch::band_resample`` (B8, ``csrc/band_resample.cu``);
 - ``auvtpu_torch::pair_sums`` (B9, ``csrc/variogram.cu``, the binned
   variogram pair sums) and ``auvtpu_torch::fit_model`` (B10, the
@@ -47,7 +52,7 @@ the checks and the errors it always had), its ``CPU`` implementation the
 kernel's plain version, and its fake implementation gives the output's
 shape and dtype for tracing.  The wrappers in :mod:`.window_fill`,
 :mod:`.scattered_select`, :mod:`.valid_select`, :mod:`.band_resample`,
-:mod:`.variogram`, :mod:`.exact_select` and :mod:`.exact_prologue` call these ops and launch no
+:mod:`.variogram`, :mod:`.exact_select`, :mod:`.exact_prologue` and :mod:`.exact_epilogue` call these ops and launch no
 kernel themselves, so a live call, an exported program and a call under
 debug mode take one route.
 
@@ -132,14 +137,16 @@ _LIB = torch.library.Library(NAMESPACE, "DEF")
 
 
 def _op(schema: str, *, cpu, cuda, fake):
-    """Define ``auvtpu_torch::<schema>`` with its implementations; returns
-    the overload the wrappers call."""
+    """Define ``auvtpu_torch::<schema>`` (``name.overload(...)`` for an
+    overload) with its implementations; returns the overload the wrappers
+    call."""
     name = schema.split("(", 1)[0]
     _LIB.define(schema)
     _LIB.impl(name, cpu, "CPU")
     _LIB.impl(name, cuda, "CUDA")
     torch.library.register_fake(f"{NAMESPACE}::{name}", fake, lib=_LIB)
-    return getattr(getattr(torch.ops, NAMESPACE), name).default
+    base, _, overload = name.partition(".")
+    return getattr(getattr(getattr(torch.ops, NAMESPACE), base), overload or "default")
 
 
 # ---------------------------------------------------------------------------
@@ -582,6 +589,93 @@ exact_prologue = _op(
     "exact_prologue(Tensor a, Tensor b, float[] geo, int num_lon, int num_lat, bool round_anchor, int fields, "
     "float eps_scale) -> (Tensor, Tensor, Tensor, Tensor, Tensor, Tensor, Tensor, Tensor, Tensor)",
     cpu=_prologue_cpu, cuda=_prologue_cuda, fake=_prologue_fake)
+
+
+# ---------------------------------------------------------------------------
+# B17: exact mode's coordinate-form kriging of (N,) selections (found int32,
+# sel_val (N, 4), sel_gi, sel_gj (N, 4) int32 or int64) at f64 (qlon, qlat);
+# scalars (min_lon, min_lat, lon_step, lat_step, nugget, sill, range,
+# pivot_tol): the (N,) float64 predictions.  mean_into: the fallback mean
+# alone written to out[idx].  B18: the bilinear (kind 0) or Catmull-Rom
+# (kind 1) patch at (N,) int64 floor anchors and f64 grid coordinates, at
+# cells (the cubic with the selection's found, sel_val) or scattered (the
+# cubic with oob): (out (N,) float64, need (N,) bool or (0,)).  chunk
+# bounds the plain version's temporaries; the kernel ignores it.
+# ---------------------------------------------------------------------------
+
+def _exact_krige_cpu(found, sel_val, sel_gi, sel_gj, qlon, qlat, scalars):
+    from .exact_epilogue import _check_krige, krige_ref
+
+    _check_krige(found, sel_val, sel_gi, sel_gj, qlon, qlat)
+    return krige_ref(found, sel_val, sel_gi, sel_gj, qlon, qlat, scalars)
+
+
+def _exact_krige_cuda(found, sel_val, sel_gi, sel_gj, qlon, qlat, scalars):
+    from .exact_epilogue import krige_launch
+
+    return krige_launch(found, sel_val, sel_gi, sel_gj, qlon, qlat, scalars)
+
+
+def _exact_krige_fake(found, sel_val, sel_gi, sel_gj, qlon, qlat, scalars):
+    from .exact_epilogue import _check_krige
+
+    _check_krige(found, sel_val, sel_gi, sel_gj, qlon, qlat)
+    return found.new_empty(found.shape[0], dtype=torch.float64)
+
+
+exact_krige = _op(
+    "exact_krige(Tensor found, Tensor sel_val, Tensor sel_gi, Tensor sel_gj, Tensor qlon, Tensor qlat, "
+    "float[] scalars) -> Tensor",
+    cpu=_exact_krige_cpu, cuda=_exact_krige_cuda, fake=_exact_krige_fake)
+
+
+def _mean_into_cpu(found, sel_val, idx, out):
+    from .exact_epilogue import _check_krige, mean_into_ref
+
+    _check_krige(found, sel_val, idx=idx, out=out)
+    mean_into_ref(found, sel_val, idx, out)
+
+
+def _mean_into_cuda(found, sel_val, idx, out):
+    from .exact_epilogue import krige_launch
+
+    krige_launch(found, sel_val, None, None, None, None, [0.0] * 8, idx, out)
+
+
+def _mean_into_fake(found, sel_val, idx, out):
+    from .exact_epilogue import _check_krige
+
+    _check_krige(found, sel_val, idx=idx, out=out)
+
+
+exact_krige_mean_into = _op(
+    "exact_krige.mean_into(Tensor found, Tensor sel_val, Tensor idx, Tensor(a!) out) -> ()",
+    cpu=_mean_into_cpu, cuda=_mean_into_cuda, fake=_mean_into_fake)
+
+
+def _patch_cpu(elev, valid, ci, cj, x, y, found, sel_val, oob, kind, at_cells, chunk):
+    from .exact_epilogue import patch_ref
+
+    return patch_ref(elev, valid, ci, cj, x, y, found, sel_val, oob, kind, at_cells, chunk)
+
+
+def _patch_cuda(elev, valid, ci, cj, x, y, found, sel_val, oob, kind, at_cells, chunk):
+    from .exact_epilogue import patch_launch
+
+    return patch_launch(elev, valid, ci, cj, x, y, found, sel_val, oob, kind, at_cells)
+
+
+def _patch_fake(elev, valid, ci, cj, x, y, found, sel_val, oob, kind, at_cells, chunk):
+    from .exact_epilogue import _check_patch, patch_outputs
+
+    _check_patch(elev, valid, ci, cj, x, y, found, sel_val, oob, kind, at_cells)
+    return patch_outputs(elev, ci, kind, at_cells)
+
+
+exact_patch = _op(
+    "exact_patch(Tensor elev, Tensor valid, Tensor ci, Tensor cj, Tensor x, Tensor y, Tensor? found, "
+    "Tensor? sel_val, Tensor? oob, int kind, bool at_cells, int chunk) -> (Tensor, Tensor)",
+    cpu=_patch_cpu, cuda=_patch_cuda, fake=_patch_fake)
 
 
 # ---------------------------------------------------------------------------

@@ -57,8 +57,13 @@ On the card the strict selection (both key families) is one launch of B14
 (:mod:`auvtpu_torch.kernels.exact_select`, one thread per query); the
 (N, M) torch functions here (:func:`_select_chunk`,
 :func:`_select_chunk_scattered`, :func:`_swap_passes`) are its plain
-version, which the CPU runs in chunks.  The coordinate-form solve, the
-Catmull-Rom and the bilinear stay torch on every device.
+version, which the CPU runs in chunks.  The epilogues are one launch each
+(:mod:`auvtpu_torch.kernels.exact_epilogue`, one thread a query; their
+plain torch versions on the CPU): the coordinate-form f64 kriging solve
+with its fallbacks (B17) and the bilinear and Catmull-Rom patch (B18), so
+each entry point is B16, its selection and one epilogue launch (scattered
+cubic: B16, B18, the strict selection of the queries whose patch is not
+all valid, and B17's fallback mean written into the output).
 """
 
 from __future__ import annotations
@@ -69,11 +74,10 @@ from functools import lru_cache
 import numpy as np
 import torch
 
-from ..config import KrigingConfig
 from ..grid import RegularGrid
+from ..kernels.exact_epilogue import krige, krige_mean_into, patch
 from ..kernels.exact_prologue import ALIGNED, FLAT, GEO, GRID, KEYS
 from ..tables import ring_offsets
-from .scattered import _catmull_rom, krige_solve
 
 # eps scale: a power of two, so scaling is exact; chosen so |eps|*SCALE stays
 # in a few-bit f32 range (|eps| <~ 2.5e-12 => scaled <~ 5.5)
@@ -386,40 +390,13 @@ def exact_select_at_cells(grid: RegularGrid, rows, cols, *, max_radius: int = 10
 # exact method ops (Grid B)
 # ---------------------------------------------------------------------------
 
-def _sum4(v):
-    """Row sums of (N, 4) values in f64, left to right."""
-    v = v.to(_F64)
-    return ((v[:, 0] + v[:, 1]) + v[:, 2]) + v[:, 3]
-
-
-def _fallback_mean(found, sel_val):
-    """Reference fallback mean: found>=4 -> mean of the 4 selected
-    (GridH.cpp:10-18); 0<found<4 -> mean of all found (GridH.cpp:291-298);
-    found==0 -> NaN.  Slots >= found are zero, so one sum serves all cases."""
-    k = found.clamp(max=4)
-    return torch.where(k > 0, _sum4(sel_val) / k.clamp(min=1), torch.nan)
-
-
-def _krige_at(grid: RegularGrid, qlon, qlat, found, sel_val, sel_gi, sel_gj):
-    """The reference's kriging of each query from its selection, in f64
-    (GridH.cpp:326-420): neighbours at cell centres, the query at its raw
-    (f64) coordinate; the 4-neighbour mean where the solve is singular, the
-    fallback mean where fewer than 4 were found."""
-    cx = grid.min_lon + (sel_gi.to(_F64) + 0.5) * grid.lon_step
-    cy = grid.min_lat + (sel_gj.to(_F64) + 0.5) * grid.lat_step
-    vals = sel_val.to(_F64)
-    pred, singular = krige_solve(qlon, qlat, vals, cx, cy, KrigingConfig())
-    solved = torch.where(singular, _sum4(vals) / 4.0, pred)
-    return torch.where(found >= 4, solved, _fallback_mean(found, sel_val))
-
-
 def exact_kriging_at_cells(grid: RegularGrid, rows, cols, *, max_radius: int = 10, chunk: int = 16384):
     """Ordinary kriging with exact reference selection (GridH.cpp:326-420),
     the solve in f64.  Returns (N,) numpy f64 predictions."""
     q = query_tensors(grid, rows, cols, anchor="round", fields=KEYS | GEO)
     _checked(q)
     found, sel_val, sel_gi, sel_gj = _select_cells(grid, q, None, max_radius, chunk)
-    return _result(_krige_at(grid, q.qlon, q.qlat, found, sel_val, sel_gi, sel_gj), q.oob)
+    return _result(krige(grid, found, sel_val, sel_gi, sel_gj, q.qlon, q.qlat), q.oob)
 
 
 def exact_cubic_at_cells(grid: RegularGrid, rows, cols, *, max_radius: int = 10, chunk: int = 16384):
@@ -434,43 +411,8 @@ def exact_cubic_at_cells(grid: RegularGrid, rows, cols, *, max_radius: int = 10,
     q = query_tensors(grid, rows, cols, anchor="floor", fields=KEYS | GRID)
     _checked(q)
     found, sel_val, _, _ = _select_cells(grid, q, None, max_radius, chunk)
-    out = _fallback_mean(found, sel_val)
-
-    H, W = grid.shape
-    xi, yi = q.ci, q.cj
-    rel = torch.arange(-1, 3, device=grid.device)
-    jj = (yi[:, None] + rel).clamp(0, H - 1)
-    ii = (xi[:, None] + rel).clamp(0, W - 1)
-    flat = jj[:, :, None] * W + ii[:, None, :]
-    patch_ok = (grid.valid.reshape(-1)[flat] > 0.5).flatten(1).all(dim=1)
-    patch = grid.elev.reshape(-1)[flat].to(_F64)
-    tx = q.x - xi
-    ty = q.y - yi
-    col = _catmull_rom(patch[:, :, 0], patch[:, :, 1], patch[:, :, 2], patch[:, :, 3], tx[:, None])
-    smooth = _catmull_rom(col[:, 0], col[:, 1], col[:, 2], col[:, 3], ty)
-    return _result(torch.where(patch_ok, smooth, out), q.oob)
-
-
-def _bilinear(grid: RegularGrid, x0, y0, x1, y1, wx, wy, z_dtype=None):
-    """Bilinear from the corners (x0, y0) (clamped here) and (x1, y1), with
-    the mean of the valid corners where any is invalid (GridH.cpp:160-210);
-    corner values in ``z_dtype`` (the grid's by default)."""
-    H, W = grid.shape
-    x0c = x0.clamp(0, W - 1)
-    y0c = y0.clamp(0, H - 1)
-    ev = grid.elev.reshape(-1)
-    vv = grid.valid.reshape(-1)
-    idx = [y0c * W + x0c, y0c * W + x1, y1 * W + x0c, y1 * W + x1]
-    z = [ev[i] if z_dtype is None else ev[i].to(z_dtype) for i in idx]
-    m = [vv[i] > 0.5 for i in idx]
-    cnt = ((m[0].int() + m[1].int()) + m[2].int()) + m[3].int()
-    s = ((torch.where(m[0], z[0], 0) + torch.where(m[1], z[1], 0)) + torch.where(m[2], z[2], 0)) + torch.where(
-        m[3], z[3], 0)
-    fb = torch.where(cnt > 0, s / cnt.clamp(min=1), torch.nan)
-    z0 = (1 - wx) * z[0] + wx * z[1]
-    z1 = (1 - wx) * z[2] + wx * z[3]
-    smooth = (1 - wy) * z0 + wy * z1
-    return torch.where(cnt >= 4, smooth, fb)
+    out, _ = patch(grid, "cubic", q.ci, q.cj, q.x, q.y, at_cells=True, found=found, sel_val=sel_val, chunk=chunk)
+    return _result(out, q.oob)
 
 
 def exact_bilinear_at_cells(grid: RegularGrid, rows, cols):
@@ -480,12 +422,7 @@ def exact_bilinear_at_cells(grid: RegularGrid, rows, cols):
     the lerp weights round to 0/1 within ~1e-12."""
     q = query_tensors(grid, rows, cols, anchor="floor", fields=GRID)
     _checked(q)
-    H, W = grid.shape
-    x0, y0 = q.ci, q.cj
-    # the +1 corners clamp the unclamped anchor (x0 is -1 where eps < 0 at
-    # column 0): the JAX package's host arithmetic, GridH.cpp:170-173
-    x1, y1 = (x0 + 1).clamp(max=W - 1), (y0 + 1).clamp(max=H - 1)
-    out = _bilinear(grid, x0, y0, x1, y1, q.x - x0, q.y - y0, z_dtype=_F64)
+    out, _ = patch(grid, "bilinear", q.ci, q.cj, q.x, q.y, at_cells=True)
     return _result(out, q.oob)
 
 
@@ -557,23 +494,7 @@ def exact_kriging_scattered(grid: RegularGrid, lons, lats, *, max_radius: int = 
     workload), in f64.  Returns (N,) numpy f64."""
     q = scattered_tensors(grid, lons, lats, "round")
     found, sel_val, sel_gi, sel_gj = _select_scattered(grid, q.ci, q.cj, q.x, q.y, max_radius, chunk)
-    return _result(_krige_at(grid, q.qlon, q.qlat, found, sel_val, sel_gi, sel_gj), q.oob)
-
-
-def _cubic_smooth(grid: RegularGrid, xi, yi, x, y):
-    """Catmull-Rom over the clamped 4x4 patch at f64 coordinates, and
-    whether the patch is fully valid (GridH.cpp:223-319 smooth path)."""
-    H, W = grid.shape
-    rel = torch.arange(-1, 3, device=grid.device)
-    jj = (yi[:, None] + rel).clamp(0, H - 1)
-    ii = (xi[:, None] + rel).clamp(0, W - 1)
-    flat = jj[:, :, None] * W + ii[:, None, :]
-    patch = grid.elev.reshape(-1)[flat]  # (N, 4, 4)
-    all_ok = (grid.valid.reshape(-1)[flat] > 0.5).flatten(1).all(dim=1)
-    tx = x - xi
-    ty = y - yi
-    col = _catmull_rom(patch[:, :, 0], patch[:, :, 1], patch[:, :, 2], patch[:, :, 3], tx[:, None])
-    return _catmull_rom(col[:, 0], col[:, 1], col[:, 2], col[:, 3], ty), all_ok
+    return _result(krige(grid, found, sel_val, sel_gi, sel_gj, q.qlon, q.qlat), q.oob)
 
 
 def exact_cubic_scattered(grid: RegularGrid, lons, lats, *, max_radius: int = 10, chunk: int = 16384):
@@ -581,15 +502,13 @@ def exact_cubic_scattered(grid: RegularGrid, lons, lats, *, max_radius: int = 10
     patch is fully valid, else the exact ring-fallback mean at the floor
     anchor (GridH.cpp:223-319).  Returns (N,) numpy f64."""
     q = scattered_tensors(grid, lons, lats, "floor")
-    args = [q.ci, q.cj, q.x, q.y]
-    smooth, all_ok = _chunked(lambda *a: _cubic_smooth(grid, *a), q.ci.shape[0], chunk, *args)
-    out = smooth.to(_F64)
-    need = ~all_ok & ~q.oob
+    out, need = patch(grid, "cubic", q.ci, q.cj, q.x, q.y, at_cells=False, oob=q.oob, chunk=chunk)
     n_need = int(need.sum().cpu())
     if n_need:
         idx = _where(need, n_need)
-        found, sel_val, _, _ = _select_scattered(grid, *(a[idx] for a in args), max_radius, chunk)
-        out[idx] = _fallback_mean(found, sel_val)
+        found, sel_val, _, _ = _select_scattered(grid, *(a[idx] for a in (q.ci, q.cj, q.x, q.y)), max_radius,
+                                                 chunk)
+        krige_mean_into(out, idx, found, sel_val)
     return _result(out, q.oob)
 
 
@@ -597,11 +516,5 @@ def exact_bilinear_scattered(grid: RegularGrid, lons, lats, *, chunk: int = 1638
     """Bilinear at arbitrary coordinates in f64 (GridH.cpp:160-210).
     Returns (N,) numpy f64."""
     q = scattered_tensors(grid, lons, lats, "floor")
-    H, W = grid.shape
-
-    def chunk_fn(x0, y0, xs, ys):
-        x1, y1 = (x0.clamp(0, W - 1) + 1).clamp(max=W - 1), (y0.clamp(0, H - 1) + 1).clamp(max=H - 1)
-        return (_bilinear(grid, x0, y0, x1, y1, xs - x0, ys - y0),)
-
-    (out,) = _chunked(chunk_fn, q.ci.shape[0], chunk, q.ci, q.cj, q.x, q.y)
+    out, _ = patch(grid, "bilinear", q.ci, q.cj, q.x, q.y, at_cells=False, chunk=chunk)
     return _result(out, q.oob)

@@ -54,17 +54,15 @@ import torch.nn.functional as F
 
 from ..config import KrigingConfig
 from ..grid import RegularGrid, device_cache
+from ..kernels.exact_epilogue import fallback_mean, krige, sum4
 from ..kernels.exact_prologue import ALIGNED, FLAT, GEO, GRID, KEYS
 from .exact import (
     _F64,
     _cell_keys,
     _checked,
     _device_tables,
-    _fallback_mean,
-    _krige_at,
     _result,
     _select_cells,
-    _sum4,
     _where,
     exact_tables,
     query_tensors,
@@ -331,8 +329,8 @@ def _solve_table(found, vals, dgi, dgj, gpair, gq, max_radius: int):
     is singular and the fallback mean where fewer than 4 were found."""
     vals64 = vals.to(_F64)
     pred, singular = _krige_rows_table(vals64, dgi, dgj, gpair, gq, max_radius)
-    solved = torch.where(singular, _sum4(vals64.T) / 4.0, pred)
-    return torch.where(found >= 4, solved, _fallback_mean(found, vals.T))
+    solved = torch.where(singular, sum4(vals64.T) / 4.0, pred)
+    return torch.where(found >= 4, solved, fallback_mean(found, vals.T))
 
 
 def exact_kriging_at_cells_fast(
@@ -376,4 +374,4 @@ def _exact_kriging_coords(grid: RegularGrid, rows, cols, *, max_radius: int, chu
     on the two-tier selection (parity diagnostics)."""
     q, dense_in = _round_queries(grid, rows, cols, GEO)
     found, sel_val, sel_gi, sel_gj, _ = _select_fast(grid, q, dense_in, max_radius, chunk)
-    return _result(_krige_at(grid, q.qlon, q.qlat, found, sel_val, sel_gi, sel_gj), q.oob)
+    return _result(krige(grid, found, sel_val, sel_gi, sel_gj, q.qlon, q.qlat), q.oob)

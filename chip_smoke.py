@@ -177,8 +177,10 @@ streaming mosaic and scattered queries on the 3200x4000 Grid A, in phases:
             4096-query random batch (packed) and the prepared 5M band (band)
 
 19. exact  exact mode, f64, through B16 (the query preparation), B13
-            (the two-tier dense pass with its table solve) and B14 (the
-            strict ring selection), its queries on the card (the held-out
+            (the two-tier dense pass with its table solve), B14 (the
+            strict ring selection), B17 (the coordinate-form kriging solve)
+            and B18 (the bilinear and Catmull-Rom patch), its queries on
+            the card (the held-out
             cells as device tensors, as bench_grid_b passes them) and the
             host views prepare_exact_queries and _prepare_scattered made to
             raise for the phase's main path and both CLIs: on the
@@ -188,9 +190,17 @@ streaming mosaic and scattered queries on the 3200x4000 Grid A, in phases:
             the finite count and two-tier's escalated count equal), strict
             kriging within 1e-8 m of two-tier with NaN in the same places;
             launch counts zeroed before these calls show B16, B13 and B14
-            ran (one B16 launch a call), and one B13 launch a dense call (the bit plane's build and B13,
+            ran (one B16 launch a call, one epilogue launch a call), and
+            one B13 launch a dense call (the bit plane's build and B13,
             nothing else, on the aligned path); every build's registers,
-            local bytes, spills and resident blocks (B16's too); B16
+            local bytes, spills and resident blocks (B16's, B17's and
+            B18's too); B17 and B18 bit-equal to their plain versions (the
+            torch ops on the card) at the stand-in's cells, f64 and f32
+            (B17 also on rows made singular, with found 0-3 and at NaN and
+            ±inf coordinates, int32 and int64 cells, and its fallback mean
+            into an output; B18's four builds, scattered at 1e5 stand-in
+            queries with NaN, ±inf and out-of-grid ones) and at the 1e5
+            Grid A queries with theirs; B16
             bit-equal to its plain version at the stand-in's cells (both
             anchors, every field, and keys EPS_SCALE 2**41 + 1 makes
             inexact) and at the 1e5 Grid A queries with NaN and ±inf
@@ -213,12 +223,15 @@ streaming mosaic and scattered queries on the 3200x4000 Grid A, in phases:
             bench_grid_a --selection exact at 1e3 and 1e5 queries, every
             golden validation passed at 1e-9; each of the seven entry
             points (four on the stand-in's cells, three at the 1e5 Grid A
-            queries) before (scripts/exact_host_prologue.py: the host numpy
-            prologue and glue) and after, in turns, on the host clock, by
-            its device records (idle share) and by its synchronising calls
-            (sync debug mode; after: pinned to EXACT_SYNCS), the answers
-            equal; the two krigings' host split (the prologue, readbacks,
-            the rest; cProfile); B16 (also cold), B13 and B14 alone (the bit plane's
+            queries, all on the card) before (scripts/exact_torch_epilogue.py:
+            the epilogues as torch ops) and after, in turns, on the host
+            clock, by its device records (idle share), by its synchronising
+            calls (sync debug mode; after: pinned to EXACT_SYNCS) and by
+            the CUDA kernels a call (after: pinned to EXACT_KERNELS), the
+            answers equal; strict kriging's, cubic's and scattered
+            kriging's host split (the prologue, the epilogue, readbacks,
+            the rest; cProfile); B17 and B18 (every build) alone, through
+            their wrappers and as plain; B16 (also cold), B13 and B14 alone (the bit plane's
             build included, and apart), through their wrappers (B13 also on
             the residue planes) and as plain, beside their byte bounds
 20. learned the committed w16 d2 checkpoint
@@ -405,7 +418,7 @@ MODEL_VPARAMS = {
 
 # Scattered serving (phases 12-14)
 SOURCES = ("window_fill", "scattered_select", "band_resample", "variogram", "exact_select",
-           "exact_prologue")  # csrc/<name>.cu, built together
+           "exact_prologue", "exact_epilogue")  # csrc/<name>.cu, built together
 N_SCATTER = 1_000_000
 SCATTER_RTOL, SCATTER_ATOL = 1e-5, 1e-4  # kernel paths vs torch (tests/test_pallas.py:300)
 TT_BARS = {"kriging": (1e-4, 0.1), "idw": (1e-4, 0.05)}  # two-tier vs torch (tests/test_packs.py:116-120)
@@ -467,6 +480,10 @@ EXACT_STRICT_TOL = 1e-8  # m a cell: strict vs two-tier kriging (lattice-gamma t
 # escalated or fallback count, the result), measured on an H100
 EXACT_SYNCS = {"kriging_two": 3, "kriging_strict": 2, "cubic": 2, "bilinear": 2, "kriging scattered": 1,
                "cubic scattered": 2, "bilinear scattered": 1}
+# CUDA kernels one call of each launches there (torch.profiler's kernel
+# records; copies and sets aside), measured on an H100
+EXACT_KERNELS = {"kriging_two": 26, "kriging_strict": 7, "cubic": 7, "bilinear": 5, "kriging scattered": 6,
+                 "cubic scattered": 7, "bilinear scattered": 5}
 # results/learned_mid_atlantic_w16d2.npz filling the stand-in r0.10, f32 and
 # bf16 compute: the reference metrics over the masked cells, the plane's nansum
 LEARNED_PINS = {
@@ -631,8 +648,9 @@ def device_ms(fn, match: str | tuple | None, reps: int = 30, cold: bool = False,
             # a kernel a call launches j times leaves more than (j - 1) * reps
             # records where the tracer keeps most
             return sum(float(np.median(d)) * -(-len(d) // reps) for d in durs.values()) / 1e3
+    seen = sorted({e.name[:80] for e in kernels})
     raise RuntimeError(f"{match!r}: kernel records { {k: len(d) for k, d in durs.items()} } of {reps} calls in "
-                       f"each of {attempts} sessions")
+                       f"each of {attempts} sessions; the last kept {seen}")
 
 
 def exact_pin(key: str, pred: np.ndarray, truth: np.ndarray, escalated: int | None = None) -> None:
@@ -731,7 +749,8 @@ class host_views_refused:
 def sync_calls(fn) -> int:
     """The synchronising CUDA calls one call of ``fn`` makes, as
     torch.cuda.set_sync_debug_mode("warn") reports them (a readback, a
-    blocking upload from pageable memory, torch.nonzero)."""
+    blocking upload from pageable memory, torch.nonzero; the mode's own
+    once-a-process notice is not a call)."""
     import torch
 
     fn()
@@ -743,17 +762,23 @@ def sync_calls(fn) -> int:
             fn()
         finally:
             torch.cuda.set_sync_debug_mode("default")
-    return sum("synchroniz" in str(m.message) for m in seen)
+    return sum("called a synchronizing CUDA operation" in str(m.message) for m in seen)
+
+
+# the epilogues' top-level functions: the package's (B17, B18) and those of
+# scripts/exact_torch_epilogue.py (the torch ops they replace)
+EPILOGUE_FNS = ("krige", "patch", "krige_mean_into", "_krige_epilogue", "_cubic_cells_epilogue",
+                "_bilinear_cells_epilogue", "_cubic_scattered_epilogue", "_mean_epilogue",
+                "_bilinear_scattered_epilogue")
 
 
 def host_split_ms(fn, reps: int = 3) -> dict:
     """Host time of one exact-mode call split by cProfile: in the query
     preparation (ops.exact.query_tensors and scattered_tensors, B16's
-    wrapper and the queries' upload; or the host numpy prepare_exact_queries
-    and _prepare_scattered of scripts/exact_host_prologue.py), in the
-    readbacks (Tensor.cpu, .tolist, .item, which wait for the device), and
-    the rest (uploads, dispatch, host glue); the medians of ``reps`` calls,
-    each ending in a sync."""
+    wrapper and the queries' upload), in the epilogue (``EPILOGUE_FNS``),
+    in the readbacks (Tensor.cpu, .tolist, .item, which wait for the
+    device), and the rest (the selections' dispatch, host glue); the
+    medians of ``reps`` calls, each ending in a sync."""
     import cProfile
     import pstats
 
@@ -761,7 +786,7 @@ def host_split_ms(fn, reps: int = 3) -> dict:
 
     fn()
     torch.cuda.synchronize()
-    parts = {"total": [], "prepare": [], "readbacks": []}
+    parts = {"total": [], "prepare": [], "epilogue": [], "readbacks": []}
     for _ in range(reps):
         prof = cProfile.Profile()
         t0_ = time.perf_counter()
@@ -774,10 +799,11 @@ def host_split_ms(fn, reps: int = 3) -> dict:
         cum = lambda pred: sum(v[3] for k, v in stats.items() if pred(k)) * 1e3
         parts["prepare"].append(cum(lambda k: k[2] in ("query_tensors", "scattered_tensors", "prepare_exact_queries",
                                                        "_prepare_scattered")))
+        parts["epilogue"].append(cum(lambda k: k[2] in EPILOGUE_FNS))
         parts["readbacks"].append(cum(lambda k: k[2].startswith(("<method 'cpu' of", "<method 'tolist' of",
                                                                  "<method 'item' of"))))
     out = {k: float(np.median(v)) for k, v in parts.items()}
-    out["dispatch"] = out["total"] - out["prepare"] - out["readbacks"]
+    out["dispatch"] = out["total"] - out["prepare"] - out["epilogue"] - out["readbacks"]
     return out
 
 
@@ -857,6 +883,13 @@ def device_kernels(fn, reps: int = 20, attempts: int = 3, copies: bool = False) 
         if any(not n.lower().startswith(("memcpy", "memset")) for n in names):
             return dict(names)
     raise RuntimeError(f"the profiler kept no kernel record of {reps} calls in {attempts} sessions")
+
+
+def kernels_a_call(fn, reps: int = 20) -> int:
+    """The device kernels one call of ``fn`` launches: over the kernels'
+    names, the records of ``reps`` calls a name, rounded up to whole calls
+    (the tracer may drop a session's first records), summed."""
+    return sum(-(-n // reps) for n in device_kernels(fn, reps).values())
 
 
 def only_kernel(fn, match: str, what: str, reps: int = 20, copies: bool = False) -> dict:
@@ -1839,6 +1872,7 @@ def main() -> int:
     from concurrent.futures import ThreadPoolExecutor
 
     from auvtpu_torch.kernels import band_resample as kb
+    from auvtpu_torch.kernels import exact_epilogue as ee
     from auvtpu_torch.kernels import exact_prologue as ep
     from auvtpu_torch.kernels import exact_select as es
     from auvtpu_torch.kernels import scattered_select as ss
@@ -1853,6 +1887,7 @@ def main() -> int:
     kv.build()
     es.build()
     ep.build()
+    ee.build()
     say("build", f"{', '.join(s + '.cu' for s in SOURCES)} built and loaded in {time.perf_counter() - t0:.1f} s")
     for src in SOURCES:
         log = kbuild.library_path(src).with_suffix(".log")
@@ -3236,15 +3271,18 @@ def main() -> int:
     }
     es.reset_launches()
     ep.reset_launches()
+    ee.reset_launches()
     with host_views_refused(texact):
         preds = {k: fn() for k, fn in exact_fns.items()}
         esc_k = tfast.exact_select_at_cells_fast(g64, rk_t, ck_t)[5]
-    launches_ex = {**es.LAUNCHES, **ep.LAUNCHES}
+    launches_ex = {**es.LAUNCHES, **ep.LAUNCHES, **ee.LAUNCHES}
     # each call a B16 launch; two-tier kriging and the selection a B13
     # launch each and a B14 launch each for the escalated cells; strict
-    # kriging and cubic a B14 launch each
-    if launches_ex != {"exact_dense": 2, "exact_ring": 4, "exact_prologue": 5}:
-        raise AssertionError(f"exact mode's launches {launches_ex}, want five of B16, two of B13 and four of B14")
+    # kriging and cubic a B14 launch each; strict kriging a B17 launch,
+    # cubic and bilinear a B18 launch each
+    if launches_ex != {"exact_dense": 2, "exact_ring": 4, "exact_prologue": 5, "exact_krige": 1, "exact_patch": 2}:
+        raise AssertionError(f"exact mode's launches {launches_ex}, want five of B16, two of B13, four of B14, "
+                             f"one of B17 and two of B18")
     for key in ("kriging_two", "cubic", "bilinear"):
         exact_pin(key, preds[key], truth_k, int(esc_k.sum()) if key == "kriging_two" else None)
     two, strict = preds["kriging_two"], preds["kriging_strict"]
@@ -3257,7 +3295,8 @@ def main() -> int:
         f"{all_reference_metrics(truth_k, two)['RMSE']:.9f}, {int(esc_k.sum())} escalated ({esc_k.mean():.6f}); "
         f"cubic, bilinear and two-tier kriging at the JAX package's pins (metrics within {EXACT_TOL} m, "
         f"sums within {EXACT_TOL} m a cell); strict vs two-tier max |diff| {d_ts:.3g} m; the queries prepared on "
-        f"the card (one B16 launch a call), the host views refused")
+        f"the card (one B16 launch a call), the host views refused; one epilogue launch a call (B17: strict "
+        f"kriging; B18: cubic, bilinear)")
 
     # B13 and B14 against their plain versions at full width: the stand-in's
     # cells (two-tier's operands, strict's anchors at both anchors), then a
@@ -3340,6 +3379,12 @@ def main() -> int:
         for k, v in attrs_p.items()) + f"  [{card}]")
     if any(v["local_bytes"] or v.get("spill_bytes") for v in attrs_p.values()):
         raise AssertionError(f"a B16 build keeps local memory: {attrs_p}")
+    attrs_e = ee.attributes()
+    say("exact", "B17 and B18 builds (registers, local bytes, spill bytes, resident blocks an SM at 256 threads): "
+        + "; ".join(f"{k} {v['registers']}, {v['local_bytes']}, {v.get('spill_bytes')}, {v['blocks_per_sm']}"
+                    for k, v in attrs_e.items()) + f"  [{card}]")
+    if any(v["local_bytes"] > 16 for v in attrs_e.values()):
+        raise AssertionError(f"a B17 or B18 build keeps more local memory than a spill: {attrs_e}")
 
     def prologue_equal(g, a, b, label: str, **kw) -> None:
         """B16 at queries (a, b) on the card bit-equal to its plain version
@@ -3410,6 +3455,40 @@ def main() -> int:
                     f"B14 scattered {anchor}, NaN and inf coordinates")
     say("exact", f"B14 scattered (f64 distances) bit-equal to plain at {len(qlo_a)} Grid A queries, round and floor "
         f"anchors, and with NaN and inf coordinates")
+
+    # B17 and B18 against their plain versions (the torch ops on the card)
+    # at full size, bit for bit: at the stand-in's cells (f64 and f32; B17
+    # on strict kriging's selection with rows made singular, with found 0-3
+    # and at NaN and ±inf coordinates added, and its fallback mean into an
+    # output; B18's four builds, scattered at 1e5 stand-in queries with
+    # NaN, ±inf and out-of-grid ones), then at the 1e5 Grid A queries with
+    # theirs (B17 on the scattered selection, B18 scattered)
+    lo_k, la_k = (t.cpu().numpy().astype(np.float64) for t in scattered_queries(KEXT, *SHAPE, 100_000, 24, dev))
+    lo_k[::13], la_k[::17], lo_k[::29], la_k[::31] = np.nan, np.inf, -np.inf, np.nan
+    lo_k[5::41] = KEXT.max_lon + 1e-3
+    lo_kt, la_kt = (torch.as_tensor(a, device=dev) for a in (lo_k, la_k))
+    ee.reset_launches()
+    for g_e in (g64, RegularGrid.from_nan_array(reduced_k, KEXT, dtype=torch.float32, device=dev)):
+        tcuda.epilogue_equal(g_e, tcuda.epilogue_krige_operands(g_e, rk, ck),
+                             *tcuda.epilogue_patch_operands(g_e, rk, ck, lo_kt, la_kt), chunk=16384)
+        del g_e
+    lo_ot, la_ot = (torch.as_tensor(a, device=dev) for a in (lo_odd, la_odd))
+    q_a = texact.scattered_tensors(gA64, lo_ot, la_ot, "round")
+    sel_a = texact._select_scattered(gA64, q_a.ci, q_a.cj, q_a.x, q_a.y, 10, 16384)
+    exact_equal(ee.krige(gA64, *sel_a, q_a.qlon, q_a.qlat),
+                ee.krige_ref(*sel_a, q_a.qlon, q_a.qlat, ee.scalars_of(gA64)), "B17 Grid A")
+    q_f = texact.scattered_tensors(gA64, lo_ot, la_ot, "floor")
+    for kind in ee.KINDS:
+        oob_ = q_f.oob if kind == "cubic" else None
+        exact_equal(ee.patch(gA64, kind, q_f.ci, q_f.cj, q_f.x, q_f.y, at_cells=False, oob=oob_),
+                    ee.patch_ref(gA64.elev, gA64.valid, q_f.ci, q_f.cj, q_f.x, q_f.y, None, None, oob_,
+                                 ee.KINDS[kind], False, 16384), f"B18 {kind} Grid A")
+    if ee.LAUNCHES != {"exact_krige": 7, "exact_patch": 10}:
+        raise AssertionError(f"the epilogues' checks launched {ee.LAUNCHES}")
+    say("exact", f"B17 (the solve at int32 and int64 cells, singular systems, found 0-3, NaN and ±inf coordinates; "
+        f"the fallback mean into an output) and B18 (bilinear and cubic, at cells and scattered) bit-equal to their "
+        f"plain versions at the stand-in's {len(rk)} cells (f64 and f32) and {len(lo_k)} stand-in queries with NaN, "
+        f"±inf and out-of-grid ones, and B17 and B18 scattered at the {len(qlo_a)} Grid A queries with theirs")
     # one B13 launch a dense call: on the aligned path the bit plane's build
     # and B13, and no other kernel (no residue planes)
     es.reset_launches()
@@ -3468,6 +3547,7 @@ def main() -> int:
     pin_of = {"Kriging": "kriging_two", "Cubic": "cubic", "Bilinear": "bilinear"}
     es.reset_launches()
     ep.reset_launches()
+    ee.reset_launches()
     with host_views_refused(texact):
         for tier in ("two", "strict"):
             summary_x = bench_grid_b.main(["--region", "kerguelen", "--removal", str(REMOVAL), "--selection", "exact",
@@ -3487,60 +3567,64 @@ def main() -> int:
             raise AssertionError(f"bench_grid_a --selection exact: {summary_ax}")
         say("exact", "bench_grid_a --selection exact: every golden validation PASSED (1e-9 x scale); " + ", ".join(
             f"{m} n={n} steady {v['steady_ms']:.2f} ms" for (m, n), v in summary_ax.items()) + f"  [{card}]")
-    launches_exc = {**es.LAUNCHES, **ep.LAUNCHES}
-    if not (launches_exc["exact_dense"] > 0 and launches_exc["exact_ring"] > 0 and launches_exc["exact_prologue"] > 0):
-        raise AssertionError(f"the exact CLIs' launches {launches_exc}: B16, B13 and B14 must all run")
+    launches_exc = {**es.LAUNCHES, **ep.LAUNCHES, **ee.LAUNCHES}
+    if not all(n > 0 for n in launches_exc.values()):
+        raise AssertionError(f"the exact CLIs' launches {launches_exc}: B13, B14, B16, B17 and B18 must all run")
 
-    # timing: each entry point before (scripts/exact_host_prologue.py: the
-    # host numpy prologue and glue) and after (B16, device glue), in turns
-    # (before, after, after, before): on the host clock, by its device
-    # records (idle share) and by its synchronising calls; the answers
-    # equal.  The cell-aligned entries at the stand-in's cells (after: the
-    # device tensors bench_grid_b passes; before: numpy), the scattered ones
-    # at the 1e5 Grid A queries (after: f64 tensors on the card, as
-    # bench_grid_a passes them; before: numpy)
-    hostp = load_script("exact_host_prologue")
+    # timing: each entry point before (scripts/exact_torch_epilogue.py: the
+    # epilogues as torch ops) and after (B17, B18), in turns (before, after,
+    # after, before): on the host clock, by its device records (idle
+    # share), by its synchronising calls and by the CUDA kernels a call
+    # launches (after: pinned); the answers equal.  Every call takes its
+    # queries on the card, as the CLIs pass them: the cell-aligned entries
+    # the stand-in's cells, the scattered ones the 1e5 Grid A queries (f64)
+    before_ = load_script("exact_torch_epilogue")
     qlo_t, qla_t = (torch.as_tensor(a, device=dev) for a in (qlo_a, qla_a))
     ab = {
-        "kriging_two": (lambda: hostp.exact_kriging_at_cells_fast(g64, rk, ck), exact_fns["kriging_two"]),
-        "kriging_strict": (lambda: hostp.exact_kriging_at_cells(g64, rk, ck), exact_fns["kriging_strict"]),
-        "cubic": (lambda: hostp.exact_cubic_at_cells(g64, rk, ck), exact_fns["cubic"]),
-        "bilinear": (lambda: hostp.exact_bilinear_at_cells(g64, rk, ck), exact_fns["bilinear"]),
-        "kriging scattered": (lambda: hostp.exact_kriging_scattered(gA64, qlo_a, qla_a),
+        "kriging_two": (lambda: before_.exact_kriging_at_cells_fast(g64, rk_t, ck_t), exact_fns["kriging_two"]),
+        "kriging_strict": (lambda: before_.exact_kriging_at_cells(g64, rk_t, ck_t), exact_fns["kriging_strict"]),
+        "cubic": (lambda: before_.exact_cubic_at_cells(g64, rk_t, ck_t), exact_fns["cubic"]),
+        "bilinear": (lambda: before_.exact_bilinear_at_cells(g64, rk_t, ck_t), exact_fns["bilinear"]),
+        "kriging scattered": (lambda: before_.exact_kriging_scattered(gA64, qlo_t, qla_t),
                               lambda: texact.exact_kriging_scattered(gA64, qlo_t, qla_t)),
-        "cubic scattered": (lambda: hostp.exact_cubic_scattered(gA64, qlo_a, qla_a),
+        "cubic scattered": (lambda: before_.exact_cubic_scattered(gA64, qlo_t, qla_t),
                             lambda: texact.exact_cubic_scattered(gA64, qlo_t, qla_t)),
-        "bilinear scattered": (lambda: hostp.exact_bilinear_scattered(gA64, qlo_a, qla_a),
+        "bilinear scattered": (lambda: before_.exact_bilinear_scattered(gA64, qlo_t, qla_t),
                                lambda: texact.exact_bilinear_scattered(gA64, qlo_t, qla_t)),
     }
-    syncs_x = {}
+    syncs_x, kernels_x = {}, {}
     for label, (before, after) in ab.items():
         if not np.array_equal(before(), after(), equal_nan=True):
-            raise AssertionError(f"exact {label}: the answers before and after B16 differ")
+            raise AssertionError(f"exact {label}: the answers before and after B17 and B18 differ")
         runs = {"before": [], "after": []}
         for which in ("before", "after", "after", "before"):
             fn = before if which == "before" else after
             runs[which].append((host_ms(fn, reps=3), device_busy_ms(fn)))
         syncs_x[label] = {which: sync_calls(before if which == "before" else after) for which in runs}
+        kernels_x[label] = {which: kernels_a_call(before if which == "before" else after) for which in runs}
         for which, r in runs.items():
             ms[f"exact {label} host {which}"] = float(np.median([h for h, _ in r]))
             ms[f"exact {label} device {which}"] = float(np.median([d for _, d in r]))
         n_q = len(rk) if "scattered" not in label else len(qlo_a)
         say("timing", f"exact {label:18s} at {n_q} queries, before | after: host " + ", ".join(
             f"{h:.2f}" for h, _ in runs["before"]) + " | " + ", ".join(f"{h:.2f}" for h, _ in runs["after"])
-            + " ms; device busy " + ", ".join(f"{d:.2f}" for _, d in runs["before"]) + " | " + ", ".join(
-            f"{d:.2f}" for _, d in runs["after"]) + " ms; idle " + " | ".join(
+            + " ms; device busy " + ", ".join(f"{d:.3f}" for _, d in runs["before"]) + " | " + ", ".join(
+            f"{d:.3f}" for _, d in runs["after"]) + " ms; idle " + " | ".join(
             f"{1 - ms[f'exact {label} device {w}'] / ms[f'exact {label} host {w}']:.1%}" for w in runs)
-            + f"; synchronising calls {syncs_x[label]['before']} | {syncs_x[label]['after']}  [{card}]")
+            + f"; synchronising calls {syncs_x[label]['before']} | {syncs_x[label]['after']}; CUDA kernels a call "
+            f"{kernels_x[label]['before']} | {kernels_x[label]['after']}  [{card}]")
     after_syncs = {k: v["after"] for k, v in syncs_x.items()}
     if after_syncs != EXACT_SYNCS:
         raise AssertionError(f"exact mode's synchronising calls a call {after_syncs}, pinned {EXACT_SYNCS}")
-    for label in ("kriging_two", "kriging_strict"):
+    after_kernels = {k: v["after"] for k, v in kernels_x.items()}
+    if after_kernels != EXACT_KERNELS:
+        raise AssertionError(f"exact mode's CUDA kernels a call {after_kernels}, pinned {EXACT_KERNELS}")
+    for label in ("kriging_strict", "cubic", "kriging scattered"):
         for which, fn in zip(("before", "after"), ab[label]):
             sp = host_split_ms(fn)
             say("timing", f"exact {label} {which} host split (cProfile on): {sp['total']:.2f} ms = the prologue "
-                f"{sp['prepare']:.2f} + readbacks (waiting for the card included) {sp['readbacks']:.2f} + uploads, "
-                f"dispatch and glue {sp['dispatch']:.2f}  [{card}]")
+                f"{sp['prepare']:.2f} + the epilogue {sp['epilogue']:.2f} + readbacks (waiting for the card "
+                f"included) {sp['readbacks']:.2f} + the selections' dispatch and glue {sp['dispatch']:.2f}  [{card}]")
     dense_in, tabs = ex_in["dense_in"], ex_in["tabs"]
     dense_plain_args = (g64.valid, dense_in[2], dense_in[1][0], dense_in[1][1])  # aligned: flat_a is flat_q
     for label, fn in (("dense pass", lambda: es.dense_select(g64, *dense_in)),
@@ -3570,6 +3654,93 @@ def main() -> int:
         f"{ms['B16 cold']:.4f}), wrapper "
         f"{ms['B16 wrapper']:.4f} ms, plain {ms['B16 plain']:.2f} ms; bound {bounds_b16[0]:.4f} ms ({bounds_b16[1]}; "
         f"{bounds_b16[0] / ms['B16 alone']:.0%} of it; cold {bounds_b16[0] / ms['B16 cold']:.0%})  [{card}]")
+
+    # B17 and B18 alone (kernel records), through their wrappers (events)
+    # and as plain (the torch ops on the card): B17 on strict kriging's
+    # selection at the stand-in's cells, B18 in every build: cubic and
+    # bilinear at the stand-in's cells, scattered at the 1e5 Grid A queries;
+    # B17's fallback mean alone into the scattered cubic's output at the 1e5
+    # stand-in queries (Grid A's grid is whole: no patch there falls back)
+    from auvtpu_torch.kernels.exact_prologue import GEO as EGEO, GRID as EGRID, KEYS as EKEYS
+
+    q_r = texact.query_tensors(g64, rk_t, ck_t, anchor="round", fields=EKEYS | EGEO)
+    sel_r = texact._select_cells(g64, q_r, None, 10, 16384)
+    q_fl = texact.query_tensors(g64, rk_t, ck_t, anchor="floor", fields=EKEYS | EGRID)
+    sel_fl = texact._select_cells(g64, q_fl, None, 10, 16384)
+    q_g = texact.scattered_tensors(gA64, qlo_t, qla_t, "floor")
+    scal64 = ee.scalars_of(g64)
+    epi = {
+        "B17": (lambda: ee.krige(g64, *sel_r, q_r.qlon, q_r.qlat),
+                lambda: ee.krige_ref(*sel_r, q_r.qlon, q_r.qlat, scal64), "krige_kernel"),
+        "B18 cubic cells": (lambda: ee.patch(g64, "cubic", q_fl.ci, q_fl.cj, q_fl.x, q_fl.y, at_cells=True,
+                                             found=sel_fl[0], sel_val=sel_fl[1]),
+                            lambda: ee.patch_ref(g64.elev, g64.valid, q_fl.ci, q_fl.cj, q_fl.x, q_fl.y, sel_fl[0],
+                                                 sel_fl[1], None, 1, True, len(rk)), "patch_kernel"),
+        "B18 bilinear cells": (lambda: ee.patch(g64, "bilinear", q_fl.ci, q_fl.cj, q_fl.x, q_fl.y, at_cells=True),
+                               lambda: ee.patch_ref(g64.elev, g64.valid, q_fl.ci, q_fl.cj, q_fl.x, q_fl.y, None, None,
+                                                    None, 0, True, len(rk)), "patch_kernel"),
+        "B18 cubic scattered": (lambda: ee.patch(gA64, "cubic", q_g.ci, q_g.cj, q_g.x, q_g.y, at_cells=False,
+                                                 oob=q_g.oob),
+                                lambda: ee.patch_ref(gA64.elev, gA64.valid, q_g.ci, q_g.cj, q_g.x, q_g.y, None, None,
+                                                     q_g.oob, 1, False, 16384), "patch_kernel"),
+        "B18 bilinear scattered": (lambda: ee.patch(gA64, "bilinear", q_g.ci, q_g.cj, q_g.x, q_g.y, at_cells=False),
+                                   lambda: ee.patch_ref(gA64.elev, gA64.valid, q_g.ci, q_g.cj, q_g.x, q_g.y, None,
+                                                        None, None, 0, False, 16384), "patch_kernel"),
+    }
+    q_s = texact.scattered_tensors(g64, lo_kt, la_kt, "floor")
+    need_g = ee.patch(g64, "cubic", q_s.ci, q_s.cj, q_s.x, q_s.y, at_cells=False, oob=q_s.oob)[1]
+    idx_g = torch.nonzero(need_g)[:, 0]
+    if not len(idx_g):
+        raise AssertionError("no stand-in query's patch falls back: B17's fallback mean has nothing to time")
+    sel_g = texact._select_scattered(g64, *(a[idx_g] for a in (q_s.ci, q_s.cj, q_s.x, q_s.y)), 10, 16384)
+    out_g = torch.zeros(len(lo_k), dtype=torch.float64, device=dev)
+    epi["B17 mean"] = (lambda: ee.krige_mean_into(out_g, idx_g, *sel_g[:2]),
+                       lambda: ee.mean_into_ref(*sel_g[:2], idx_g, out_g), "krige_kernel")
+    for label, (fn, plain, name) in epi.items():
+        ms[f"{label} alone"] = device_ms(fn, name)
+        ms[f"{label} wrapper"] = time_ms(fn)
+        ms[f"{label} plain"] = time_ms(plain, warmup=1, reps=5)
+
+    def distinct_cells(flat) -> int:
+        return int(torch.unique(flat.reshape(-1)).numel())
+
+    # bounds from this run's data: per query its operands and output once,
+    # and each distinct grid cell the gathers read once (elev and valid, 8
+    # bytes each on the f64 grids); f64 operations: B17 ~650 a solved
+    # query (14 distances and variogram values, an exp counted as 20, the
+    # centres, the elimination's ~180, the sum) and 5 a fallback; B18 ~25 a
+    # Catmull-Rom pass (five a query) or ~15 a bilinear
+    n_k, n_g = float(len(rk)), float(len(qlo_a))
+    n_solved = float((sel_r[0] >= 4).sum())
+    H64, W64 = g64.shape
+    HA, WA = gA64.shape
+
+    def patch_cells(ci, cj, H, W, offs):
+        rel = torch.tensor(offs, device=dev)
+        jj = (cj[:, None] + rel).clamp(0, H - 1)
+        ii = (ci[:, None] + rel).clamp(0, W - 1)
+        return distinct_cells(jj[:, :, None] * W + ii[:, None, :])
+
+    cells_cc = patch_cells(q_fl.ci, q_fl.cj, H64, W64, (-1, 0, 1, 2))
+    cells_bc = patch_cells(q_fl.ci, q_fl.cj, H64, W64, (0, 1))
+    cells_cs = patch_cells(q_g.ci, q_g.cj, HA, WA, (-1, 0, 1, 2))
+    cells_bs = patch_cells(q_g.ci, q_g.cj, HA, WA, (0, 1))
+    bounds_e = {
+        "B17": bound(n_k * (4 + 32 + 16 + 16 + 8 + 8 + 8), 0.0, 650.0 * n_solved + 5.0 * n_k),
+        "B18 cubic cells": bound(n_k * (16 + 16 + 4 + 32 + 8) + 16.0 * cells_cc, 0.0, 130.0 * n_k),
+        "B18 bilinear cells": bound(n_k * (16 + 16 + 8) + 16.0 * cells_bc, 0.0, 15.0 * n_k),
+        "B18 cubic scattered": bound(n_g * (16 + 16 + 1 + 8 + 1) + 16.0 * cells_cs, 0.0, 130.0 * n_g),
+        "B18 bilinear scattered": bound(n_g * (16 + 16 + 8) + 16.0 * cells_bs, 0.0, 15.0 * n_g),
+        "B17 mean": bound(float(len(idx_g)) * (4 + 32 + 8 + 8), 0.0, 5.0 * len(idx_g)),
+    }
+    for label in epi:
+        b_ = bounds_e[label]
+        say("timing", f"{label:22s}: alone {ms[f'{label} alone']:.4f} ms, wrapper {ms[f'{label} wrapper']:.4f} ms, "
+            f"plain {ms[f'{label} plain']:.3f} ms; bound {b_[0]:.4f} ms ({b_[1]}; {b_[0] / ms[f'{label} alone']:.0%} "
+            f"of it)  [{card}]")
+    say("bounds", f"epilogues: {int(n_solved)} of {len(rk)} stand-in cells solved by B17; distinct cells read: cubic "
+        f"{cells_cc}, bilinear {cells_bc} at the stand-in, {cells_cs} and {cells_bs} at Grid A; B17's fallback mean "
+        f"at {len(idx_g)} of {len(lo_k)} stand-in queries")
 
     # B13 and B14 alone (kernel records), through their wrappers (events)
     # and as plain, at the stand-in's cells: B13 with the solve (two-tier
@@ -3627,7 +3798,8 @@ def main() -> int:
     say("exact", f"escalated share {esc_k.mean():.6f}; launches: main path {launches_ex}, CLIs {launches_exc}; "
         f"phase took {time.perf_counter() - t_ex:.1f} s")
     del g64, preds, exact_fns, dense_in, dense_plain_args, two, strict, gA64, sc_in, ex_in, sel_k, g_sp, ab
-    del qlo_t, qla_t, rk_t, ck_t
+    del qlo_t, qla_t, rk_t, ck_t, epi, q_r, sel_r, q_fl, sel_fl, q_g, q_s, need_g, idx_g, sel_g, out_g, q_a, sel_a, q_f
+    del lo_kt, la_kt, lo_ot, la_ot
     torch.cuda.empty_cache()
 
     # ---- 20. the learned baseline at full width: the committed w16 d2
@@ -4227,6 +4399,18 @@ def main() -> int:
                   ms["B16 wrapper"], ms["B16 plain"]))
     src["exact_prologue"] = "auvtpu_torch/csrc/exact_prologue.cu"
     bounds["exact_prologue"] = bounds_b16
+    # B17 and B18 replace no Pallas kernel: exact mode's jitted epilogues
+    # (_krige_chunk; _cubic_smooth_chunk and _bilinear_chunk, with the host
+    # numpy of the at-cells cubic :344 and bilinear :610); main paths as
+    # B13's; B17's time on strict kriging's selection, B18's the cubic at
+    # the stand-in's cells (the other builds printed in phase 19);
+    # bit-equal (phase 19)
+    for k, rep_, tag in (("exact_krige", "auvtpu/ops/exact.py:303", "B17"),
+                         ("exact_patch", "auvtpu/ops/exact.py:522", "B18 cubic cells")):
+        rows_.append((k, rep_, launches_ex[k] + launches_exc[k], 0.0, ms[f"{tag} alone"], ms[f"{tag} wrapper"],
+                      ms[f"{tag} plain"]))
+        src[k] = "auvtpu_torch/csrc/exact_epilogue.cu"
+        bounds[k] = bounds_e[tag]
     # B8: values only, no resolved mask; B7 and B5: the selection alone, no
     # tie order
     library = {"band_resample": ms["grid_sample"], "window_select_fused": ms["B7 library topk"],
