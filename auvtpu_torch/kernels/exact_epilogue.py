@@ -82,18 +82,21 @@ _MANGLED_KRIGE = re.compile(r"krige_kernelI([fd])([il])Lb([01])E")
 _MANGLED_PATCH = re.compile(r"patch_kernelI([fd])Li([01])ELb([01])E")
 
 
-def attributes() -> dict:
-    """{build: {registers, local_bytes, blocks_per_sm, spill_bytes}} of
-    every build on the current card (at 256 threads a block), spills from
-    ptxas's report in the build log."""
+def attributes(lib=None, log: str | None = None) -> dict:
+    """{build: {registers, local_bytes, blocks_per_sm, threads, spill_bytes}}
+    of every build on the current card (resident blocks at the build's
+    block size), spills from ptxas's report in the build log; ``lib`` and
+    ``log`` another build's library and log text (the package's by
+    default)."""
     from .build import library_path
 
-    out = (ctypes.c_int * 3)()
+    lib = lib if lib is not None else _lib()
+    out = (ctypes.c_int * 4)()
     res = {}
     for which, name in enumerate(BUILDS):
-        _raise_on("exact_epilogue_attributes", _lib().auvtpu_exact_epilogue_attributes(which, out))
-        res[name] = dict(zip(("registers", "local_bytes", "blocks_per_sm"), out))
-    log = library_path("exact_epilogue").with_suffix(".log").read_text()
+        _raise_on("exact_epilogue_attributes", lib.auvtpu_exact_epilogue_attributes(which, out))
+        res[name] = dict(zip(("registers", "local_bytes", "blocks_per_sm", "threads"), out))
+    log = log if log is not None else library_path("exact_epilogue").with_suffix(".log").read_text()
     types = {"f": "float", "d": "double"}
     for m in re.finditer(r"Function properties for (\S+)\n\s*\d+ bytes stack frame, (\d+) bytes spill stores, "
                          r"(\d+) bytes spill loads", log):

@@ -231,7 +231,11 @@ streaming mosaic and scattered queries on the 3200x4000 Grid A, in phases:
             answers equal; strict kriging's, cubic's and scattered
             kriging's host split (the prologue, the epilogue, readbacks,
             the rest; cProfile); B17 and B18 (every build) alone, through
-            their wrappers and as plain; B16 (also cold), B13 and B14 alone (the bit plane's
+            their wrappers and as plain, beside bounds recounted from what
+            each design must read in this run (B18's cubic at cells: the
+            validity up to the first invalid cell in its order, the values
+            of whole patches) and B17's FP64 issue estimate from its SASS;
+            B16 (also cold), B13 and B14 alone (the bit plane's
             build included, and apart), through their wrappers (B13 also on
             the residue planes) and as plain, beside their byte bounds
 20. learned the committed w16 d2 checkpoint
@@ -3380,9 +3384,9 @@ def main() -> int:
     if any(v["local_bytes"] or v.get("spill_bytes") for v in attrs_p.values()):
         raise AssertionError(f"a B16 build keeps local memory: {attrs_p}")
     attrs_e = ee.attributes()
-    say("exact", "B17 and B18 builds (registers, local bytes, spill bytes, resident blocks an SM at 256 threads): "
-        + "; ".join(f"{k} {v['registers']}, {v['local_bytes']}, {v.get('spill_bytes')}, {v['blocks_per_sm']}"
-                    for k, v in attrs_e.items()) + f"  [{card}]")
+    say("exact", "B17 and B18 builds (registers, local bytes, spill bytes, resident blocks an SM of threads): "
+        + "; ".join(f"{k} {v['registers']}, {v['local_bytes']}, {v.get('spill_bytes')}, {v['blocks_per_sm']} of "
+                    f"{v['threads']}" for k, v in attrs_e.items()) + f"  [{card}]")
     if any(v["local_bytes"] > 16 for v in attrs_e.values()):
         raise AssertionError(f"a B17 or B18 build keeps more local memory than a spill: {attrs_e}")
 
@@ -3704,43 +3708,92 @@ def main() -> int:
     def distinct_cells(flat) -> int:
         return int(torch.unique(flat.reshape(-1)).numel())
 
-    # bounds from this run's data: per query its operands and output once,
-    # and each distinct grid cell the gathers read once (elev and valid, 8
-    # bytes each on the f64 grids); f64 operations: B17 ~650 a solved
-    # query (14 distances and variogram values, an exp counted as 20, the
-    # centres, the elimination's ~180, the sum) and 5 a fallback; B18 ~25 a
-    # Catmull-Rom pass (five a query) or ~15 a bilinear
+    # bounds from this run's data, what each design must read: per query
+    # the operands it uses and its output once, and each distinct grid cell
+    # its gathers must read once (8 bytes a cell of elev or valid on the f64
+    # grids); f64 operations: B17 ~650 a solved query (14 distances and
+    # variogram values, an exp counted as 20, the centres, the
+    # elimination's ~180, the sum) and 5 a fallback; B18 ~25 a Catmull-Rom
+    # pass (five a query) or ~15 a bilinear.  B18's cubic at cells reads
+    # ci, cj, x and y, the validity of the centre cell nearest the query,
+    # then the sixteen up to the first invalid one (row-major), the values
+    # of a whole patch, and the selection (found, sel_val) of any other;
+    # the bilinear reads its four corners' validity, the values of the
+    # valid ones, and x and y where all four are valid
     n_k, n_g = float(len(rk)), float(len(qlo_a))
     n_solved = float((sel_r[0] >= 4).sum())
     H64, W64 = g64.shape
     HA, WA = gA64.shape
 
-    def patch_cells(ci, cj, H, W, offs):
+    def patch_flat(ci, cj, H, W, offs):
         rel = torch.tensor(offs, device=dev)
         jj = (cj[:, None] + rel).clamp(0, H - 1)
         ii = (ci[:, None] + rel).clamp(0, W - 1)
-        return distinct_cells(jj[:, :, None] * W + ii[:, None, :])
+        return jj[:, :, None] * W + ii[:, None, :]
 
-    cells_cc = patch_cells(q_fl.ci, q_fl.cj, H64, W64, (-1, 0, 1, 2))
-    cells_bc = patch_cells(q_fl.ci, q_fl.cj, H64, W64, (0, 1))
-    cells_cs = patch_cells(q_g.ci, q_g.cj, HA, WA, (-1, 0, 1, 2))
-    cells_bs = patch_cells(q_g.ci, q_g.cj, HA, WA, (0, 1))
+    def cubic_cells_reads(g, q):
+        """(bytes, validity cells, value cells, whole patches) the cubic at
+        cells must read at queries q."""
+        H, W = g.shape
+        flat = patch_flat(q.ci, q.cj, H, W, (-1, 0, 1, 2)).reshape(-1, 16)
+        ok = g.valid.reshape(-1)[flat] > 0.5
+        near = 4 * (1 + (q.y - q.cj >= 0.5).long()) + 1 + (q.x - q.ci >= 0.5).long()
+        first = ok.gather(1, near[:, None])[:, 0]
+        before = torch.cumprod(torch.cat([torch.ones_like(ok[:, :1]), ok[:, :-1]], 1).int(), 1).bool()
+        read = before & first[:, None]
+        read.scatter_(1, near[:, None], True)
+        whole = ok.all(1)
+        cells_v, cells_z = distinct_cells(flat[read]), distinct_cells(flat[whole])
+        n, nw = float(len(flat)), float(whole.sum())
+        return n * (16 + 16 + 8) + (n - nw) * (4 + 32) + 8.0 * (cells_v + cells_z), cells_v, cells_z, int(nw)
+
+    def bilinear_reads(g, q):
+        """(bytes, validity cells, value cells) the bilinear must read at
+        queries q (corners from the clamped anchor: the same cells at every
+        in-grid query)."""
+        H, W = g.shape
+        flat = patch_flat(q.ci.clamp(0, W - 1), q.cj.clamp(0, H - 1), H, W, (0, 1)).reshape(-1, 4)
+        ok = g.valid.reshape(-1)[flat] > 0.5
+        cells_v, cells_z = distinct_cells(flat), distinct_cells(flat[ok])
+        n, n4 = float(len(flat)), float(ok.all(1).sum())
+        return n * (16 + 8) + n4 * 16 + 8.0 * (cells_v + cells_z), cells_v, cells_z
+
+    cc, bc, bs = cubic_cells_reads(g64, q_fl), bilinear_reads(g64, q_fl), bilinear_reads(gA64, q_g)
+    cells_cs = distinct_cells(patch_flat(q_g.ci, q_g.cj, HA, WA, (-1, 0, 1, 2)))
     bounds_e = {
         "B17": bound(n_k * (4 + 32 + 16 + 16 + 8 + 8 + 8), 0.0, 650.0 * n_solved + 5.0 * n_k),
-        "B18 cubic cells": bound(n_k * (16 + 16 + 4 + 32 + 8) + 16.0 * cells_cc, 0.0, 130.0 * n_k),
-        "B18 bilinear cells": bound(n_k * (16 + 16 + 8) + 16.0 * cells_bc, 0.0, 15.0 * n_k),
+        "B18 cubic cells": bound(cc[0], 0.0, 130.0 * cc[3] + 5.0 * (n_k - cc[3])),
+        "B18 bilinear cells": bound(bc[0], 0.0, 15.0 * n_k),
         "B18 cubic scattered": bound(n_g * (16 + 16 + 1 + 8 + 1) + 16.0 * cells_cs, 0.0, 130.0 * n_g),
-        "B18 bilinear scattered": bound(n_g * (16 + 16 + 8) + 16.0 * cells_bs, 0.0, 15.0 * n_g),
+        "B18 bilinear scattered": bound(bs[0], 0.0, 15.0 * n_g),
         "B17 mean": bound(float(len(idx_g)) * (4 + 32 + 8 + 8), 0.0, 5.0 * len(idx_g)),
     }
+    # B17's FP64 issue: its f64 build's static count of FP64-pipe
+    # instructions (scripts/sass_tools.py) at 64 lanes a clock an SM, a
+    # solved query each; the count holds both solves (the shared
+    # reciprocals' and the IEEE one taken where a quotient leaves their
+    # guard) and the divisions' slow paths, so it is an estimate, not a
+    # floor
+    sass = load_script("sass_tools")
+    f64_ins = sass.fp64_instructions(kbuild.library_path("exact_epilogue"), "krige_kernel<double, int, false>")
+    clock_hz = float(subprocess.run(["nvidia-smi", "-i", "0", "--query-gpu=clocks.max.sm",
+                                     "--format=csv,noheader,nounits"], capture_output=True, text=True,
+                                    timeout=60, check=True).stdout.split()[0]) * 1e6
+    n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
+    ms["B17 FP64 issue estimate"] = n_solved * f64_ins / 64 / (n_sm * clock_hz) * 1e3
     for label in epi:
         b_ = bounds_e[label]
         say("timing", f"{label:22s}: alone {ms[f'{label} alone']:.4f} ms, wrapper {ms[f'{label} wrapper']:.4f} ms, "
             f"plain {ms[f'{label} plain']:.3f} ms; bound {b_[0]:.4f} ms ({b_[1]}; {b_[0] / ms[f'{label} alone']:.0%} "
             f"of it)  [{card}]")
-    say("bounds", f"epilogues: {int(n_solved)} of {len(rk)} stand-in cells solved by B17; distinct cells read: cubic "
-        f"{cells_cc}, bilinear {cells_bc} at the stand-in, {cells_cs} and {cells_bs} at Grid A; B17's fallback mean "
-        f"at {len(idx_g)} of {len(lo_k)} stand-in queries")
+    say("timing", f"B17's FP64 issue estimate {ms['B17 FP64 issue estimate']:.4f} ms "
+        f"({ms['B17 FP64 issue estimate'] / ms['B17 alone']:.0%} of its time; {f64_ins} FP64-pipe SASS instructions "
+        f"in krige_kernel<double, int32, solve>, run or not, both solves, at {clock_hz / 1e6:.0f} MHz on {n_sm} SMs; "
+        f"not a floor)  [{card}]")
+    say("bounds", f"epilogues: {int(n_solved)} of {len(rk)} stand-in cells solved by B17; distinct cells B18 must "
+        f"read (validity, values): cubic at the stand-in's cells {cc[1]}, {cc[2]} ({cc[3]} whole patches), bilinear "
+        f"{bc[1]}, {bc[2]}; at Grid A cubic {cells_cs} each, bilinear {bs[1]}, {bs[2]}; B17's fallback mean at "
+        f"{len(idx_g)} of {len(lo_k)} stand-in queries")
 
     # B13 and B14 alone (kernel records), through their wrappers (events)
     # and as plain, at the stand-in's cells: B13 with the solve (two-tier

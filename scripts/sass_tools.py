@@ -67,3 +67,19 @@ def sass_digest(fingerprint: dict) -> tuple[int, int, str]:
     kernels."""
     digest = hashlib.sha256(json.dumps(sorted(fingerprint.items())).encode()).hexdigest()[:16]
     return len(fingerprint), sum(n for n, _ in fingerprint.values()), digest
+
+
+# the FP64 pipe's instructions: f64 arithmetic, compares and min/max, the
+# conversions to and from f64, and the f64 reciprocal and root seeds
+_FP64 = re.compile(r"^(?:DADD|DMUL|DFMA|DSETP|DSET|DMNMX|MUFU\.(?:RCP|RSQ)64H|[FI]2[FI]\.\S*F64)\b")
+_OPCODE = re.compile(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P[T0-9]+\s+)?([A-Z][A-Z0-9_.]*)")
+
+
+def fp64_instructions(lib_path, match: str) -> int:
+    """The static count of FP64-pipe instructions (:data:`_FP64`) in the one
+    kernel of the library whose demangled name holds ``match``: every one
+    of the build, whether a given launch runs it or not."""
+    found = sass_functions(str(lib_path), [match])
+    if len(found) != 1:
+        raise AssertionError(f"SASS of {lib_path}: {len(found)} kernels named {match!r}")
+    return sum(bool(_FP64.match(op)) for op in _OPCODE.findall(found[0][1]))
