@@ -6,7 +6,7 @@
 // Replaces no Pallas kernel: the JAX package runs exact mode as jitted XLA
 // programs, and the port ran them as eager torch loops:
 //   dense_kernel<T, SOLVE>     <- auvtpu/ops/exact_fast.py::_dense_select
-//                                 (the lax.while_loop over the 441 lanes of
+//                                 (the lax.while_loop over the (2R+1)^2 lanes of
 //                                 the whole plane), ::_extract_q and, with
 //                                 SOLVE, ::_extract_solve_table (B13; the
 //                                 port's plain versions are
@@ -14,7 +14,7 @@
 //                                 _extract_q and _solve_table)
 //   ring_kernel<T, KEY, SOLVE> <- auvtpu/ops/exact.py::_select_chunk (KEY 0,
 //                                 cell-aligned) and ::_select_chunk_scattered
-//                                 (KEY 1), the (N, 441) lane gathers with
+//                                 (KEY 1), the (N, (2R+1)^2) lane gathers with
 //                                 the cumsum cutoff and four amin/amax swap
 //                                 passes; SOLVE adds the table solve of the
 //                                 two-tier path's escalated cells (B14; the
@@ -38,7 +38,11 @@
 // versions' `cum_prev < 4`, the dense pass's `stopped`).  A thread reads a
 // segment's validity as two bit masks (the top and bottom rows' spans, or
 // the left and right columns' bits), interleaves them into collection order
-// and visits only the set bits, lowest first.
+// and visits only the set bits, lowest first.  The radius R is the
+// caller's, taken at run time (the rings 0 .. R, the tables' sides 4R+1
+// and 2R+1): from R = 16 on a pass holds more than 32 cells, and it is
+// read in pieces of 32, in collection order (ring_walk).  A walk stops at
+// the last ring that holds a lane of the grid.
 //
 // B13, per query cell (the query's row * W + col, clipped to the plane, as
 // the plain version reads its planes): the residues (ex, ey) of the cell:
@@ -101,7 +105,7 @@
 //
 // What bounds them on the H100.  Per query B13 reads its cell index (8 B),
 // its two residues (8 B), the validity of the lanes it walks (9-25 at the
-// stand-in's 10 % removal, 441 where a cell never holds 4) and 4 values,
+// stand-in's 10 % removal at R = 10, (2R+1)^2 where a cell never holds 4) and 4 values,
 // and writes 45 B (select) or 9 B (solve): bytes, not operations.  The
 // queries come in random order, so each lane read is a sector of its own:
 // as an f64 plane the validity (40 MB at the stand-in) and the elevation
@@ -115,18 +119,28 @@
 // 3x3 block's three rows are fetched together before the first test.  A
 // 45-entry list would take 456 B of local memory a thread; B14's eight
 // entries live in registers.  The tables of the solve go through the
-// read-only cache (__ldg, 17 KB).  One thread per query in blocks of 256.
+// read-only cache (__ldg, 17 KB at R = 10).  One thread per query in blocks
+// of 256.
 
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 namespace {
 
-constexpr int kR = 10;            // the callers' radius; the wrapper refuses any other
-constexpr int kWp = 4 * kR + 1;   // gpair's side
-constexpr int kWq = 2 * kR + 1;   // gq's side
 constexpr int kThreads = 256;
+constexpr int kPiece = 32;  // the cells of a pass that one 32-bit mask holds
+// The largest radius taken: the walk's int coordinates (an anchor within R
+// of the grid, plus R) stay far from overflow.  The plain versions' and the
+// JAX package's (2R+1)^2-lane tables could not be held at such a radius.
+constexpr int kMaxRadius = 1 << 20;
+// The callers' default radius, which has builds of its own (the template
+// argument RC of dense_kernel and ring_kernel; RC 0 takes the radius at run
+// time): at radius 10 the runtime radius cost B14 17 % (its registers) and
+// B13 7 % where it reads the residue planes (its spills; PERF.md).
+constexpr int kBuiltRadius = 10;
 
 // ---------------------------------------------------------------------------
 // the validity bit plane and the walk over it
@@ -167,9 +181,10 @@ __global__ void __launch_bounds__(kThreads) bits_kernel(const T* __restrict__ va
 }
 
 // The validity as the walk reads it.  span(gj, c0, n): cells c0 .. c0 +
-// n - 1 (n <= 21) of row gj as bits 0 .. n - 1, set where the cell lies in
-// the grid and is valid; ends(gj, c0, n): bits 0 and n - 1 of it (a
-// left/right segment's two cells in that row).
+// n - 1 (n <= kPiece) of row gj as bits 0 .. n - 1, set where the cell lies
+// in the grid and is valid; ends(gj, c0, n): cells c0 and c0 + n - 1 of row
+// gj (a left/right segment's two cells in that row, any n >= 2) as bits 0
+// and 1.
 struct BitPlane {
   const uint32_t* __restrict__ p;  // the flat bit plane of bits_kernel
   int H, W;
@@ -184,7 +199,19 @@ struct BitPlane {
     const uint64_t v = (uint64_t)a | ((f1 >> 5) != (f0 >> 5) ? (uint64_t)b << 32 : 0ull);
     return (uint32_t)(((v >> (f0 & 31)) & ((1ull << (hi - lo)) - 1ull)) << (lo - c0));
   }
-  __device__ __forceinline__ uint32_t ends(int gj, int c0, int n) const { return span(gj, c0, n); }
+  // the words of the row's first and last cell in the grid, as span loads
+  // them, both loaded before either is used
+  __device__ __forceinline__ uint32_t ends(int gj, int c0, int n) const {
+    if ((unsigned)gj >= (unsigned)H) return 0u;
+    const int c1 = c0 + n - 1;
+    const int lo = max(c0, 0), hi = min(c1, W - 1);
+    if (lo > hi) return 0u;
+    const long long f0 = (long long)gj * W + lo, f1 = (long long)gj * W + hi;
+    const uint32_t a = __ldg(p + (f0 >> 5)), b = __ldg(p + (f1 >> 5));
+    const uint32_t first = lo == c0 ? (a >> (f0 & 31)) & 1u : 0u;
+    const uint32_t last = hi == c1 ? (b >> (f1 & 31)) & 1u : 0u;
+    return first | (last << 1);
+  }
 };
 
 template <typename T>
@@ -208,7 +235,7 @@ struct ValuePlane {
     const int c1 = c0 + n - 1;
     const bool a = c0 >= 0 && c0 < W && __ldg(r + c0) > (T)0.5;
     const bool b = c1 >= 0 && c1 < W && __ldg(r + c1) > (T)0.5;
-    return (uint32_t)a | ((uint32_t)b << (n - 1));
+    return (uint32_t)a | ((uint32_t)b << 1);
   }
 };
 
@@ -229,11 +256,27 @@ __device__ __forceinline__ uint64_t interleave(uint32_t first, uint32_t second) 
   return spread(first) | (spread(second) << 1);
 }
 
-// The candidates of anchor (ci, cj) in collection order: take(dx, dy) for
-// each valid lane in the grid, held() after each segment; the walk ends
-// where held() is true.
-template <class Plane, class Take, class Held>
-__device__ __forceinline__ void ring_walk(const Plane& bp, int ci, int cj, Take& take, Held& held) {
+// The rings of anchor (ci, cj) that hold a lane of the grid lie within
+// max(ci, W - 1 - ci, cj, H - 1 - cj) of it: a farther ring's lanes are all
+// off the grid, and its walk would take nothing.
+__device__ __forceinline__ int last_ring(long long ci, long long cj, int H, int W, int R) {
+  const long long reach = max(max(ci, (long long)W - 1 - ci), max(cj, (long long)H - 1 - cj));
+  return (int)min((long long)R, reach);
+}
+
+// The candidates of anchor (ci, cj) in collection order, rings 0 .. rmax:
+// take(dx, dy) for each valid lane in the grid, held() after each segment;
+// the walk ends where held() is true.  A ring's top/bottom pass (2r + 1
+// cells) and its left/right pass (2r - 1 rows) are read in pieces of at
+// most kPiece cells, in collection order (the top and bottom rows by dx
+// ascending, (dx, -r) before (dx, r); the columns by dy ascending, (-r, dy)
+// before (r, dy)); held() is asked only at a segment's end, so the pieces
+// do not change what is taken.  RC > 0: a build whose rings end at RC,
+// whose passes take at most kPieces pieces (one up to radius 15, where
+// the piece loops fold away).
+template <int RC, class Plane, class Take, class Held>
+__device__ __forceinline__ void ring_walk(const Plane& bp, int ci, int cj, int rmax, Take& take, Held& held) {
+  constexpr int kPieces = RC > 0 ? (2 * RC + 1 + kPiece - 1) / kPiece : 1 << 30;
   // ring 0 and ring 1 from the 3x3 block's rows, fetched together
   const uint32_t up = bp.span(cj - 1, ci - 1, 3), mid = bp.span(cj, ci - 1, 3), dn = bp.span(cj + 1, ci - 1, 3);
   if (mid & 2u) take(0, 0);
@@ -247,24 +290,32 @@ __device__ __forceinline__ void ring_walk(const Plane& bp, int ci, int cj, Take&
   if (mid & 4u) take(1, 0);
   if (held()) return;
 #pragma unroll 1
-  for (int r = 2; r <= kR; ++r) {
+  for (int r = 2; r <= rmax; ++r) {
     const int n = 2 * r + 1;
-    const uint32_t top = bp.span(cj - r, ci - r, n), bot = bp.span(cj + r, ci - r, n);
-    for (uint64_t m = interleave(top, bot); m != 0ull; m &= m - 1ull) {
-      const int b = __ffsll((long long)m) - 1;
-      take((b >> 1) - r, (b & 1) ? r : -r);
+    for (int pc = 0; pc < kPieces && pc * kPiece < n; ++pc) {
+      const int p0 = pc * kPiece;
+      const int w = min(kPiece, n - p0);
+      const uint32_t top = bp.span(cj - r, ci - r + p0, w), bot = bp.span(cj + r, ci - r + p0, w);
+      for (uint64_t m = interleave(top, bot); m != 0ull; m &= m - 1ull) {
+        const int b = __ffsll((long long)m) - 1;
+        take(p0 + (b >> 1) - r, (b & 1) ? r : -r);
+      }
     }
     if (held()) return;
-    uint32_t left = 0u, right = 0u;
+    for (int pc = 0; pc < kPieces && pc * kPiece < n - 2; ++pc) {
+      const int p0 = pc * kPiece;
+      const int h = min(kPiece, n - 2 - p0);
+      uint32_t left = 0u, right = 0u;
 #pragma unroll 4
-    for (int k = 0; k < n - 2; ++k) {
-      const uint32_t w = bp.ends(cj - r + 1 + k, ci - r, n);
-      left |= (w & 1u) << k;
-      right |= ((w >> (n - 1)) & 1u) << k;
-    }
-    for (uint64_t m = interleave(left, right); m != 0ull; m &= m - 1ull) {
-      const int b = __ffsll((long long)m) - 1;
-      take((b & 1) ? r : -r, (b >> 1) - r + 1);
+      for (int k = 0; k < h; ++k) {
+        const uint32_t e = bp.ends(cj - r + 1 + p0 + k, ci - r, n);
+        left |= (e & 1u) << k;
+        right |= (e >> 1) << k;
+      }
+      for (uint64_t m = interleave(left, right); m != 0ull; m &= m - 1ull) {
+        const int b = __ffsll((long long)m) - 1;
+        take((b & 1) ? r : -r, p0 + (b >> 1) - r + 1);
+      }
     }
     if (held()) return;
   }
@@ -285,16 +336,21 @@ __device__ __forceinline__ long long table_index(long long idx, long long size) 
 __device__ __forceinline__ double sum4(const double (&v)[4]) { return ((v[0] + v[1]) + v[2]) + v[3]; }
 
 // _solve_table for one query: found candidates, slot values v (f64) and
-// offsets (dgi, dgj) from the query cell, zero on unfilled slots.
+// offsets (dgi, dgj) from the query cell, zero on unfilled slots; the
+// tables of radius R (RC where the build is for one radius), gpair
+// (4R+1)^2 and gq (2R+1)^2.
+template <int RC>
 __device__ double table_solve(int found, const double (&v)[4], const long long (&dgi)[4],
                               const long long (&dgj)[4], const double* __restrict__ gpair,
-                              const double* __restrict__ gq, double pivot_tol) {
+                              const double* __restrict__ gq, int R_run, double pivot_tol) {
+  const int R = RC > 0 ? RC : R_run;
   if (found < 4) {
     const int k = found;  // min(found, 4)
     return k > 0 ? sum4(v) / (double)k : __longlong_as_double(0x7ff8000000000000LL);
   }
   double M[5][6];
-  const double g0 = __ldg(gpair + 2 * kR * kWp + 2 * kR) * 1.0;
+  const long long Wp = 4LL * R + 1, Wq = 2LL * R + 1;  // gpair's and gq's sides
+  const double g0 = __ldg(gpair + 2 * R * Wp + 2 * R) * 1.0;
 #pragma unroll
   for (int a = 0; a < 4; ++a) {
 #pragma unroll
@@ -304,13 +360,13 @@ __device__ double table_solve(int found, const double (&v)[4], const long long (
       } else if (b == a) {
         M[a][b] = g0;
       } else {
-        const long long idx = (dgj[a] - dgj[b] + 2 * kR) * kWp + (dgi[a] - dgi[b] + 2 * kR);
-        M[a][b] = __ldg(gpair + table_index(idx, (long long)kWp * kWp));
+        const long long idx = (dgj[a] - dgj[b] + 2 * R) * Wp + (dgi[a] - dgi[b] + 2 * R);
+        M[a][b] = __ldg(gpair + table_index(idx, Wp * Wp));
       }
     }
     M[a][4] = 1.0;
-    const long long idx = (dgj[a] + kR) * kWq + (dgi[a] + kR);
-    M[a][5] = __ldg(gq + table_index(idx, (long long)kWq * kWq));
+    const long long idx = (dgj[a] + R) * Wq + (dgi[a] + R);
+    M[a][5] = __ldg(gq + table_index(idx, Wq * Wq));
   }
   M[4][0] = 1.0;
   M[4][1] = 1.0;
@@ -351,6 +407,7 @@ struct DenseArgs {
   const T* valid;         // !BITS: the walk reads it
   const uint32_t* bits;   // BITS: the walk reads bits_kernel's plane
   int H, W;
+  int R;                  // the radius: rings 0 .. R, the tables' side
   const float* res;       // aligned: (2, n) keys, ex then ey; else (2, H*W) planes
   bool aligned;
   const int64_t* flat;    // (n,) query cells, in the plane
@@ -366,7 +423,7 @@ struct DenseArgs {
   double* pred;           // SOLVE: (n,)
 };
 
-template <typename T, bool SOLVE, bool BITS>
+template <typename T, bool SOLVE, bool BITS, int RC>
 __global__ void __launch_bounds__(kThreads) dense_kernel(const DenseArgs<T> a) {
   const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= a.n) return;
@@ -424,10 +481,11 @@ __global__ void __launch_bounds__(kThreads) dense_kernel(const DenseArgs<T> a) {
     ++count;
   };
   auto held = [&]() { return count >= 4; };
+  const int rmax = RC > 0 ? RC : last_ring(col, row, a.H, W, a.R);
   if constexpr (BITS)
-    ring_walk(BitPlane{a.bits, a.H, W}, col, row, take, held);
+    ring_walk<RC>(BitPlane{a.bits, a.H, W}, col, row, rmax, take, held);
   else
-    ring_walk(ValuePlane<T>{a.valid, a.H, W}, col, row, take, held);
+    ring_walk<RC>(ValuePlane<T>{a.valid, a.H, W}, col, row, rmax, take, held);
 
   a.tie[i] = (d2[3] == d2[4]) && (tk[3] == tk[4]) && isfinite(d2[4]);
   const int k = count < 4 ? count : 4;
@@ -445,7 +503,7 @@ __global__ void __launch_bounds__(kThreads) dense_kernel(const DenseArgs<T> a) {
     double v64[4];
 #pragma unroll
     for (int s = 0; s < 4; ++s) v64[s] = (double)v[s];
-    a.pred[i] = table_solve(count, v64, dgi, dgj, a.gpair, a.gq, a.pivot_tol);
+    a.pred[i] = table_solve<RC>(count, v64, dgi, dgj, a.gpair, a.gq, a.R, a.pivot_tol);
   } else {
     a.found[i] = count;
 #pragma unroll
@@ -467,6 +525,7 @@ struct RingArgs {
   const T* valid;         // !BITS: the walk reads it
   const uint32_t* bits;   // BITS: the walk reads bits_kernel's plane
   int H, W;
+  int R;                  // the radius: rings 0 .. R, the tables' side
   const int64_t* ci;      // (n,) anchors
   const int64_t* cj;
   int n;
@@ -504,7 +563,11 @@ __device__ __forceinline__ bool before(const Key<1>& a, const Key<1>& b) { retur
 __device__ __forceinline__ bool same(const Key<0>& a, const Key<0>& b) { return a.d == b.d && a.t == b.t; }
 __device__ __forceinline__ bool same(const Key<1>& a, const Key<1>& b) { return a.q == b.q; }
 
-template <typename T, int KEY, bool SOLVE, bool BITS>
+// A lane offset as B14 keeps it: a byte in a build for a radius below 128.
+template <int RC>
+using Offset = typename std::conditional<(RC > 0 && RC < 128), int8_t, int>::type;
+
+template <typename T, int KEY, bool SOLVE, bool BITS, int RC>
 __global__ void __launch_bounds__(kThreads) ring_kernel(const RingArgs<T> a) {
   const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= a.n) return;
@@ -528,7 +591,7 @@ __global__ void __launch_bounds__(kThreads) ring_kernel(const RingArgs<T> a) {
   // from 4 on, the non-NaN ones least by (key, position), sorted, nrest of
   // them.  pos: an entry's current position (the swaps move them).
   Key<KEY> key[8];
-  int8_t lx[8], ly[8];
+  Offset<RC> lx[8], ly[8];  // lane offsets, |dx|, |dy| <= R
   int pos[8];
   bool nan0[4];             // a front entry whose key is NaN (never picked)
   int len = 0, nrest = 0;
@@ -571,8 +634,8 @@ __global__ void __launch_bounds__(kThreads) ring_kernel(const RingArgs<T> a) {
       for (int e = 0; e < 4; ++e) {
         if (len == e) {
           key[e] = k;
-          lx[e] = (int8_t)dx;
-          ly[e] = (int8_t)dy;
+          lx[e] = (Offset<RC>)dx;
+          ly[e] = (Offset<RC>)dy;
           nan0[e] = is_nan;
         }
       }
@@ -591,8 +654,8 @@ __global__ void __launch_bounds__(kThreads) ring_kernel(const RingArgs<T> a) {
           pos[4 + s] = pos[3 + s];
         } else if (lt[s]) {
           key[4 + s] = k;
-          lx[4 + s] = (int8_t)dx;
-          ly[4 + s] = (int8_t)dy;
+          lx[4 + s] = (Offset<RC>)dx;
+          ly[4 + s] = (Offset<RC>)dy;
           pos[4 + s] = len;
         }
       }
@@ -602,12 +665,15 @@ __global__ void __launch_bounds__(kThreads) ring_kernel(const RingArgs<T> a) {
   };
   auto held = [&]() { return len >= 4; };
   // a lane (ci + dx, cj + dy), |dx|, |dy| <= R, lies in the grid only for
-  // an anchor within R of it, where the int64 adds cannot wrap
-  if (ci >= -kR && ci <= (long long)a.W - 1 + kR && cj >= -kR && cj <= (long long)a.H - 1 + kR) {
+  // an anchor within R of it, where the int64 adds cannot wrap (and, R <=
+  // 2^20, neither can the walk's int ones)
+  const long long R = RC > 0 ? RC : a.R;
+  if (ci >= -R && ci <= (long long)a.W - 1 + R && cj >= -R && cj <= (long long)a.H - 1 + R) {
+    const int rmax = RC > 0 ? RC : last_ring(ci, cj, a.H, a.W, a.R);
     if constexpr (BITS)
-      ring_walk(BitPlane{a.bits, a.H, a.W}, (int)ci, (int)cj, take, held);
+      ring_walk<RC>(BitPlane{a.bits, a.H, a.W}, (int)ci, (int)cj, rmax, take, held);
     else
-      ring_walk(ValuePlane<T>{a.valid, a.H, a.W}, (int)ci, (int)cj, take, held);
+      ring_walk<RC>(ValuePlane<T>{a.valid, a.H, a.W}, (int)ci, (int)cj, rmax, take, held);
   }
 
   T v[4];
@@ -667,7 +733,7 @@ __global__ void __launch_bounds__(kThreads) ring_kernel(const RingArgs<T> a) {
       dgi[s] = s < k ? (long long)(int32_t)gi[s] - qc : 0;
       dgj[s] = s < k ? (long long)(int32_t)gj[s] - qr : 0;
     }
-    a.pred[i] = table_solve(len, v64, dgi, dgj, a.gpair, a.gq, a.pivot_tol);
+    a.pred[i] = table_solve<RC>(len, v64, dgi, dgj, a.gpair, a.gq, a.R, a.pivot_tol);
   } else {
     a.found[i] = len;
 #pragma unroll
@@ -691,18 +757,26 @@ void launch_bits(const void* valid, int H, int W, void* bits, cudaStream_t st) {
   bits_kernel<T><<<blocks_for((cells + 3) / 4), kThreads, 0, st>>>((const T*)valid, cells, vec, (uint32_t*)bits);
 }
 
+template <typename T, bool SOLVE, int RC>
+void dense_at(const DenseArgs<T>& a, cudaStream_t st) {
+  if (a.bits != nullptr)
+    dense_kernel<T, SOLVE, true, RC><<<blocks_for(a.n), kThreads, 0, st>>>(a);
+  else
+    dense_kernel<T, SOLVE, false, RC><<<blocks_for(a.n), kThreads, 0, st>>>(a);
+}
+
 template <typename T, bool SOLVE>
 void dense_on(const DenseArgs<T>& a, cudaStream_t st) {
-  if (a.bits != nullptr)
-    dense_kernel<T, SOLVE, true><<<blocks_for(a.n), kThreads, 0, st>>>(a);
+  if (a.R == kBuiltRadius)
+    dense_at<T, SOLVE, kBuiltRadius>(a, st);
   else
-    dense_kernel<T, SOLVE, false><<<blocks_for(a.n), kThreads, 0, st>>>(a);
+    dense_at<T, SOLVE, 0>(a, st);
 }
 
 template <typename T>
-int launch_dense(const void* elev, const void* valid, int H, int W, const void* res, int aligned, const void* flat,
-                 int n, const void* gpair, const void* gq, double pivot_tol, void* found, void* tie, void* vals,
-                 void* dgi, void* dgj, void* pred, void* bits, cudaStream_t st) {
+int launch_dense(const void* elev, const void* valid, int H, int W, int R, const void* res, int aligned,
+                 const void* flat, int n, const void* gpair, const void* gq, double pivot_tol, void* found, void* tie,
+                 void* vals, void* dgi, void* dgj, void* pred, void* bits, cudaStream_t st) {
   launch_bits<T>(valid, H, W, bits, st);
   DenseArgs<T> a;
   a.elev = (const T*)elev;
@@ -710,6 +784,7 @@ int launch_dense(const void* elev, const void* valid, int H, int W, const void* 
   a.bits = (const uint32_t*)bits;
   a.H = H;
   a.W = W;
+  a.R = R;
   a.res = (const float*)res;
   a.aligned = aligned != 0;
   a.flat = (const int64_t*)flat;
@@ -730,17 +805,25 @@ int launch_dense(const void* elev, const void* valid, int H, int W, const void* 
   return (int)cudaGetLastError();
 }
 
+template <typename T, int KEY, bool SOLVE, int RC>
+void ring_at(const RingArgs<T>& a, cudaStream_t st) {
+  if (a.bits != nullptr)
+    ring_kernel<T, KEY, SOLVE, true, RC><<<blocks_for(a.n), kThreads, 0, st>>>(a);
+  else
+    ring_kernel<T, KEY, SOLVE, false, RC><<<blocks_for(a.n), kThreads, 0, st>>>(a);
+}
+
 template <typename T, int KEY, bool SOLVE>
 void ring_on(const RingArgs<T>& a, cudaStream_t st) {
-  if (a.bits != nullptr)
-    ring_kernel<T, KEY, SOLVE, true><<<blocks_for(a.n), kThreads, 0, st>>>(a);
+  if (a.R == kBuiltRadius)
+    ring_at<T, KEY, SOLVE, kBuiltRadius>(a, st);
   else
-    ring_kernel<T, KEY, SOLVE, false><<<blocks_for(a.n), kThreads, 0, st>>>(a);
+    ring_at<T, KEY, SOLVE, 0>(a, st);
 }
 
 template <typename T>
-int launch_ring(const void* elev, const void* valid, int H, int W, const void* ci, const void* cj, int n, int key,
-                const void* variant, const void* k0, const void* k1, const void* qcol, const void* qrow,
+int launch_ring(const void* elev, const void* valid, int H, int W, int R, const void* ci, const void* cj, int n,
+                int key, const void* variant, const void* k0, const void* k1, const void* qcol, const void* qrow,
                 const void* gpair, const void* gq, double pivot_tol, void* found, void* sel_val, void* sel_gi,
                 void* sel_gj, void* pred, void* bits, cudaStream_t st) {
   launch_bits<T>(valid, H, W, bits, st);
@@ -750,6 +833,7 @@ int launch_ring(const void* elev, const void* valid, int H, int W, const void* c
   a.bits = (const uint32_t*)bits;
   a.H = H;
   a.W = W;
+  a.R = R;
   a.ci = (const int64_t*)ci;
   a.cj = (const int64_t*)cj;
   a.n = n;
@@ -776,39 +860,44 @@ int launch_ring(const void* elev, const void* valid, int H, int W, const void* c
 }
 
 // every build the wrappers launch, in auvtpu_exact_attributes' order
+#define AUVTPU_EXACT_BUILDS(RC)                                  \
+  (const void*)dense_kernel<float, false, true, RC>,             \
+  (const void*)dense_kernel<float, true, true, RC>,              \
+  (const void*)ring_kernel<float, 0, false, true, RC>,           \
+  (const void*)ring_kernel<float, 0, true, true, RC>,            \
+  (const void*)ring_kernel<float, 1, false, true, RC>,           \
+  (const void*)dense_kernel<double, false, true, RC>,            \
+  (const void*)dense_kernel<double, true, true, RC>,             \
+  (const void*)ring_kernel<double, 0, false, true, RC>,          \
+  (const void*)ring_kernel<double, 0, true, true, RC>,           \
+  (const void*)ring_kernel<double, 1, false, true, RC>,          \
+  (const void*)dense_kernel<float, false, false, RC>,            \
+  (const void*)dense_kernel<float, true, false, RC>,             \
+  (const void*)ring_kernel<float, 0, false, false, RC>,          \
+  (const void*)ring_kernel<float, 0, true, false, RC>,           \
+  (const void*)ring_kernel<float, 1, false, false, RC>,          \
+  (const void*)dense_kernel<double, false, false, RC>,           \
+  (const void*)dense_kernel<double, true, false, RC>,            \
+  (const void*)ring_kernel<double, 0, false, false, RC>,         \
+  (const void*)ring_kernel<double, 0, true, false, RC>,          \
+  (const void*)ring_kernel<double, 1, false, false, RC>
 const void* const kBuilds[] = {
     (const void*)bits_kernel<float>,
     (const void*)bits_kernel<double>,
-    // per grid dtype B13 (select, solve) and B14 (KEY 0, KEY 0 with the
-    // solve, KEY 1), walking the bit plane, then reading valid
-    (const void*)dense_kernel<float, false, true>,
-    (const void*)dense_kernel<float, true, true>,
-    (const void*)ring_kernel<float, 0, false, true>,
-    (const void*)ring_kernel<float, 0, true, true>,
-    (const void*)ring_kernel<float, 1, false, true>,
-    (const void*)dense_kernel<double, false, true>,
-    (const void*)dense_kernel<double, true, true>,
-    (const void*)ring_kernel<double, 0, false, true>,
-    (const void*)ring_kernel<double, 0, true, true>,
-    (const void*)ring_kernel<double, 1, false, true>,
-    (const void*)dense_kernel<float, false, false>,
-    (const void*)dense_kernel<float, true, false>,
-    (const void*)ring_kernel<float, 0, false, false>,
-    (const void*)ring_kernel<float, 0, true, false>,
-    (const void*)ring_kernel<float, 1, false, false>,
-    (const void*)dense_kernel<double, false, false>,
-    (const void*)dense_kernel<double, true, false>,
-    (const void*)ring_kernel<double, 0, false, false>,
-    (const void*)ring_kernel<double, 0, true, false>,
-    (const void*)ring_kernel<double, 1, false, false>,
+    // per radius build (kBuiltRadius, then the runtime radius), per walk
+    // (the bit plane, then valid) and per grid dtype: B13 (select, solve)
+    // and B14 (KEY 0, KEY 0 with the solve, KEY 1)
+    AUVTPU_EXACT_BUILDS(kBuiltRadius),
+    AUVTPU_EXACT_BUILDS(0),
 };
+#undef AUVTPU_EXACT_BUILDS
 
 }  // namespace
 
 extern "C" {
 
 // B13.  elev, valid: (H, W) f32 (f64 = 0) or f64 (f64 = 1), contiguous;
-// res: aligned 1, the (2, n) f32 keys of the queries, every query aligned
+// R: the radius, 1 <= R <= kMaxRadius; res: aligned 1, the (2, n) f32 keys of the queries, every query aligned
 // on its own cell; aligned 0, the (2, H*W) f32 residue planes; flat: (n,)
 // int64 query cells in [0, H*W); bits: null (the walk reads valid) or
 // ceil(H * W / 32) int32 scratch for the bit plane (built first).  pred
@@ -816,39 +905,42 @@ extern "C" {
 // the grid's dtype, dgi and dgj (4, n) int64.  pred (n,) f64: the table
 // solve with gpair ((4R+1)^2 f64) and gq ((2R+1)^2 f64), and tie; found,
 // vals, dgi and dgj unused.  Returns the launches' cudaError_t.
-int auvtpu_exact_dense(int f64, const void* elev, const void* valid, int H, int W, const void* res, int aligned,
-                       const void* flat, int n, const void* gpair, const void* gq, double pivot_tol, void* found,
-                       void* tie, void* vals, void* dgi, void* dgj, void* pred, void* bits, void* stream) {
-  if (H < 1 || W < 1 || n < 0 || (pred != nullptr && (gpair == nullptr || gq == nullptr)) ||
+int auvtpu_exact_dense(int f64, const void* elev, const void* valid, int H, int W, int R, const void* res,
+                       int aligned, const void* flat, int n, const void* gpair, const void* gq, double pivot_tol,
+                       void* found, void* tie, void* vals, void* dgi, void* dgj, void* pred, void* bits,
+                       void* stream) {
+  if (H < 1 || W < 1 || R < 1 || R > kMaxRadius || n < 0 || (pred != nullptr && (gpair == nullptr || gq == nullptr)) ||
       (pred == nullptr && (found == nullptr || vals == nullptr || dgi == nullptr || dgj == nullptr)))
     return (int)cudaErrorInvalidValue;
   if (n == 0) return (int)cudaSuccess;
   cudaStream_t st = (cudaStream_t)stream;
-  return f64 ? launch_dense<double>(elev, valid, H, W, res, aligned, flat, n, gpair, gq, pivot_tol, found, tie,
+  return f64 ? launch_dense<double>(elev, valid, H, W, R, res, aligned, flat, n, gpair, gq, pivot_tol, found, tie,
                                     vals, dgi, dgj, pred, bits, st)
-             : launch_dense<float>(elev, valid, H, W, res, aligned, flat, n, gpair, gq, pivot_tol, found, tie, vals,
-                                   dgi, dgj, pred, bits, st);
+             : launch_dense<float>(elev, valid, H, W, R, res, aligned, flat, n, gpair, gq, pivot_tol, found, tie,
+                                   vals, dgi, dgj, pred, bits, st);
 }
 
-// B14.  elev, valid, bits as for B13; ci, cj: (n,) int64 anchors.  key 0:
+// B14.  elev, valid, R, bits as for B13; ci, cj: (n,) int64 anchors.  key 0:
 // variant (n,) int32 and k0, k1 the f32 keys (ex, ey); key 1: k0, k1 the
 // f64 grid coordinates (x, y).  pred null: found (n,) int32, sel_val
 // (n, 4) in the grid's dtype, sel_gi and sel_gj (n, 4) int32.  pred (n,)
 // f64 (key 0 only): the table solve with offsets from the query cells
 // (qcol, qrow) (n,) int64.  Returns the launches' cudaError_t.
-int auvtpu_exact_ring(int f64, const void* elev, const void* valid, int H, int W, const void* ci, const void* cj,
-                      int n, int key, const void* variant, const void* k0, const void* k1, const void* qcol,
-                      const void* qrow, const void* gpair, const void* gq, double pivot_tol, void* found,
-                      void* sel_val, void* sel_gi, void* sel_gj, void* pred, void* bits, void* stream) {
-  if (H < 1 || W < 1 || n < 0 || (key != 0 && key != 1) || (key == 0 && variant == nullptr) ||
+int auvtpu_exact_ring(int f64, const void* elev, const void* valid, int H, int W, int R, const void* ci,
+                      const void* cj, int n, int key, const void* variant, const void* k0, const void* k1,
+                      const void* qcol, const void* qrow, const void* gpair, const void* gq, double pivot_tol,
+                      void* found, void* sel_val, void* sel_gi, void* sel_gj, void* pred, void* bits,
+                      void* stream) {
+  if (H < 1 || W < 1 || R < 1 || R > kMaxRadius || n < 0 || (key != 0 && key != 1) ||
+      (key == 0 && variant == nullptr) ||
       (pred != nullptr && (key != 0 || qcol == nullptr || qrow == nullptr || gpair == nullptr || gq == nullptr)) ||
       (pred == nullptr && (found == nullptr || sel_val == nullptr || sel_gi == nullptr || sel_gj == nullptr)))
     return (int)cudaErrorInvalidValue;
   if (n == 0) return (int)cudaSuccess;
   cudaStream_t st = (cudaStream_t)stream;
-  return f64 ? launch_ring<double>(elev, valid, H, W, ci, cj, n, key, variant, k0, k1, qcol, qrow, gpair, gq,
+  return f64 ? launch_ring<double>(elev, valid, H, W, R, ci, cj, n, key, variant, k0, k1, qcol, qrow, gpair, gq,
                                    pivot_tol, found, sel_val, sel_gi, sel_gj, pred, bits, st)
-             : launch_ring<float>(elev, valid, H, W, ci, cj, n, key, variant, k0, k1, qcol, qrow, gpair, gq,
+             : launch_ring<float>(elev, valid, H, W, R, ci, cj, n, key, variant, k0, k1, qcol, qrow, gpair, gq,
                                   pivot_tol, found, sel_val, sel_gi, sel_gj, pred, bits, st);
 }
 

@@ -699,9 +699,12 @@ constexpr int window_krige_smem() {
 }
 
 // The blocks an SM holds of a kernel at `smem` bytes of dynamic shared
-// memory (at most the 48 KB default), and the device's SMs, for the
-// current device.  The answers are a device's, so each (kernel, device) is
-// asked once and cached (a device past kMaxDevices is asked every call).
+// memory, and the device's SMs, for the current device.  Above the 48 KB
+// default the kernel is granted `smem` first; with `max_shared` it also
+// asks for the largest shared-memory carveout, so that the occupancy
+// answered is the one the launches get.  Grants and answers are a
+// device's, so each (kernel, device) is set up and asked once and cached (a
+// device past kMaxDevices every call).
 constexpr int kMaxDevices = 16;
 
 struct Residency {
@@ -709,7 +712,7 @@ struct Residency {
   std::atomic<int> sms{0};
 };
 
-inline int residency(const void* fn, int smem, Residency* cache, int* per_sm, int* sms) {
+inline int residency(const void* fn, int smem, Residency* cache, int* per_sm, int* sms, bool max_shared = false) {
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return (int)err;
@@ -720,6 +723,10 @@ inline int residency(const void* fn, int smem, Residency* cache, int* per_sm, in
     return 0;
   }
   err = cudaDeviceGetAttribute(sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err == cudaSuccess && smem > 48 * 1024)
+    err = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err == cudaSuccess && max_shared)
+    err = cudaFuncSetAttribute(fn, cudaFuncAttributePreferredSharedMemoryCarveout, cudaSharedmemCarveoutMaxShared);
   if (err == cudaSuccess) err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(per_sm, fn, kSelThreads, smem);
   if (err != cudaSuccess) return (int)err;
   if (c) {
@@ -774,6 +781,27 @@ int launch_window_krige(cudaStream_t st, const float* pack, const float* lons, c
 // takes any k (1 <= k <= P); the passes stay a loop, as B7's.
 // Bit-equal to window_idw_ref, whose weights are torch's and whose two sums
 // run in the same slot order.
+//
+// Redesigned for Hopper at radius 2, the fused path's, and at radius 3
+// (the first design read each row straight into val[M] registers, one
+// query a thread, a warp-wide load touching 32 random lines): a persistent
+// grid of warps, each warp's 32 rows copied into shared memory by cp.async
+// (B12's stage_rows), the next chunk's while this one is served; the row
+// stays in shared memory (16-byte loads at B12's odd stride for d2, the
+// validity test on the shared copy, each winner's value one shared load);
+// the prologue runs once a query, its (fx, fy, oob) kept in the row's
+// spare 16 bytes.  What bounds it: staged, the rows arrive faster than the
+// first design's registers take them (k 4), and at k 8 the passes'
+// instruction issue bounds it: the exact tournament is ~120 SASS
+// instructions a pass (a DPX min, a compare and a select a match, a
+// compare and a select a tap to knock the winner out).  So the k 4 and 8
+// builds take their passes on 32-bit keys (keyed_topk: one fused
+// add-and-min, VIADDMNMX, a tap a pass, no knock-out), the exact
+// tournament only where the keys cannot vouch for the order, and the
+// weights after the passes.  Radius 1 (64-byte rows, as fast either way)
+// and a pack that is not 16-byte aligned keep the first design's rows in
+// registers (kIdwStaged; scripts/b15_path_probe.py times every design in
+// one process; PERF.md).
 
 // How torch's CUDA pow(Tensor, Scalar) computes d2 ** e (e = power / 2):
 // e 0 fills 1 and e 1 copies the input (its structured kernel, before the
@@ -846,28 +874,314 @@ __device__ __forceinline__ void idw_query(const float (&val)[M], const QueryCell
   out[q] = qc.oob ? NAN : res;
 }
 
-// B15 takes the rows straight into registers in every build: at 1M Grid A
-// queries, radius 2, k = 8 (the main paths' k), B12's staged rows took it
-// from 0.089 to 0.102 ms (PERF.md; scripts/b15_variants.cu).
+// The lowest-index minimum of d2[LO, LO + N) and its tap's index: tree_min's
+// tournament, each match a DPX integer min of the d2 bits and one select of
+// the index, no value carried.
+template <int LO, int N, int M>
+__device__ __forceinline__ void tree_argmin(const float (&d2)[M], int& m, int& id) {
+  if constexpr (N == 1) {
+    m = __float_as_int(d2[LO]);
+    id = LO;
+  } else {
+    constexpr int L = N / 2;
+    int ml, mr, il, ir;
+    tree_argmin<LO, L, M>(d2, ml, il);
+    tree_argmin<LO + L, N - L, M>(d2, mr, ir);
+    bool left;
+    m = __vibmin_s32(ml, mr, &left);
+    id = left ? il : ir;
+  }
+}
+
+// The B15 builds that stage their rows (on an aligned pack): radius 2 and
+// 3, where staged was faster (radius 1 was not), each warp holding two
+// chunks of rows in shared memory (three cost the radius-2 build its
+// sixth block; PERF.md).
+constexpr int kIdwStages = 2;
+template <int M>
+constexpr bool kIdwStaged = M > 16;
+
+// The resident blocks a B15 build asks for: the staged radius-2 build 6
+// (at most 80 registers, 6 x 37 KB of its stages in an SM's 228 KB); the
+// others as B12's (the radius-3 build: 3, by its 136 registers and 61 KB
+// of stages).
+template <int M>
+constexpr int kIdwMinBlocks = M <= 16 ? 8 : (M <= 32 ? (kIdwStaged<M> ? 6 : 4) : 1);
+
+// The unsigned minimum of key[LO, LO + N) - thr: a key below thr wraps past
+// every other, so the minimum is the least key not below thr, less thr.
+template <int LO, int N, int M>
+__device__ __forceinline__ uint32_t tree_umin(const uint32_t (&key)[M], uint32_t thr) {
+  if constexpr (N == 1) {
+    return key[LO] - thr;
+  } else {
+    constexpr int L = N / 2;
+    return min(tree_umin<LO, L, M>(key, thr), tree_umin<LO + L, N - L, M>(key, thr));
+  }
+}
+
+// A staged query's d2 of tap t from the row's value: 3e30 at a sentinel.
+template <int M>
+__device__ __forceinline__ float tap_d2(float v, const Taps<M>& taps, int t, float fx, float fy) {
+  const float di = taps.x[t] - fx;
+  const float dj = taps.y[t] - fy;
+  return v < kHalfSentinel ? di * di + dj * dj : kInf;
+}
+
+// The first K passes of idw_query's selection, exactly: the tournament on
+// (d2 bits, tap index), each winner knocked out, unrolled; mk, ik the
+// winners' d2 and taps.  Returns how many passes took a slot.
+template <int M, int K>
+__device__ __forceinline__ int exact_topk(const float4* row, const Taps<M>& taps, float fx, float fy,
+                                          float (&mk)[K], int (&ik)[K]) {
+  float d2[M];
+#pragma unroll
+  for (int t4 = 0; t4 < (M + 3) / 4; ++t4) {
+    const float4 v = row[t4];
+    const float vv[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+      if (4 * t4 + j < M) d2[4 * t4 + j] = tap_d2(vv[j], taps, 4 * t4 + j, fx, fy);
+  }
+  int found = K;
+#pragma unroll
+  for (int s = 0; s < K; ++s) {
+    int mb;
+    tree_argmin<0, M, M>(d2, mb, ik[s]);
+    mk[s] = __int_as_float(mb);
+    if (!(mk[s] < kHalfInf)) {
+      found = s;
+      break;
+    }
+    if (s < K - 1) {
+#pragma unroll
+      for (int t = 0; t < M; ++t) d2[t] = t == ik[s] ? kInf : d2[t];
+    }
+  }
+  return found;
+}
+
+// The same K passes on 32-bit keys, ((d2 bits >> (B - 1)) << B) | t with B
+// the bits of a tap index (5 up to 32 taps, 6 up to 64), unique by their
+// tap: the selection by (d2 bits >> (B - 1), t), each pass one unsigned
+// tournament of key - thr (one subtract a tap, one min a match), thr the
+// last winner's key + 1, so no knock-out.  For a query that is not NaN,
+// the first K + 1 winners by (d2 bits >> (B - 1), t) are the exact
+// selection's first K wherever no two consecutive winners among the slots
+// share d2 bits >> (B - 1) but not d2, and the K-th and the (K + 1)-th do
+// not share them: the order then differs from (d2 bits, t) nowhere among
+// the slots, and no tap outside them can come before one
+// (tests/test_torch_window_idw_keys.py writes this out).  Returns the slots
+// taken (mk, ik as exact_topk's; d2 recomputed for each winner), or -1
+// where that does not hold.  A valid tap's d2 (finite, below 64) keys below
+// every sentinel's, so the taps taken are the valid ones, as in idw_query.
+// The caller takes exact_topk for a NaN query, whose d2 bits key nothing.
+template <int M, int K>
+__device__ __forceinline__ int keyed_topk(const float4* row, const Taps<M>& taps, float fx, float fy,
+                                          float (&mk)[K], int (&ik)[K]) {
+  static_assert(M <= 64, "a tap index in 6 bits");
+  constexpr int B = M <= 32 ? 5 : 6;
+  constexpr uint32_t kTap = (1u << B) - 1u;
+  uint32_t key[M];
+#pragma unroll
+  for (int t4 = 0; t4 < (M + 3) / 4; ++t4) {
+    const float4 v = row[t4];
+    const float vv[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int t = 4 * t4 + j;
+      if (t < M) key[t] = ((__float_as_uint(tap_d2(vv[j], taps, t, fx, fy)) >> (B - 1)) << B) | (uint32_t)t;
+    }
+  }
+  uint32_t wk[K + 1];
+  uint32_t thr = 0u;
+#pragma unroll
+  for (int s = 0; s <= K; ++s) {
+    wk[s] = tree_umin<0, M, M>(key, thr) + thr;
+    thr = wk[s] + 1u;
+  }
+  const float* vals = reinterpret_cast<const float*>(row);
+  int found = 0;
+  bool exact = true;
+#pragma unroll
+  for (int s = 0; s < K; ++s) {
+    ik[s] = (int)(wk[s] & kTap);
+    mk[s] = tap_d2(vals[ik[s]], taps, ik[s], fx, fy);
+    found += (found == s) && (mk[s] < kHalfInf);
+    // two slots (both taken) that share d2 bits >> (B - 1) but not d2
+    if (s > 0 && s < found)
+      exact = exact && ((wk[s - 1] >> B) != (wk[s] >> B) || __float_as_uint(mk[s - 1]) == __float_as_uint(mk[s]));
+  }
+  // the last slot and the next winner sharing d2 bits >> (B - 1)
+  exact = exact && (found < K || (wk[K - 1] >> B) != (wk[K] >> B));
+  return exact ? found : -1;
+}
+
+// One query of a staged build: its row and its prologue stay in the warp's
+// stage, d2 from the row's 16-byte shared loads, each winner's value one
+// shared load by its tap.  The k 4 and 8 builds take keyed_topk's slots,
+// exact_topk's where keyed_topk cannot vouch for them (and on a NaN
+// query), then the weights and sums in slot order, power 2's mode (the
+// main paths') as a constant; the general build runs idw_query's loop on
+// the shared row.  The same arithmetic in the same order as
+// idw_query, so the same bits.
+template <int M, int K>
+__device__ __forceinline__ void idw_staged_query(const float4* row, const Taps<M>& taps, const IdwParams& par,
+                                                 int q, float* __restrict__ out) {
+  const float4 pro = row[RowCopy<M>::kPieces];  // fx, fy, oob
+  const float fx = pro.x, fy = pro.y;
+  const float* vals = reinterpret_cast<const float*>(row);
+  float num = 0.f;
+  float den = 0.f;
+  if constexpr (K > 0) {
+    float mk[K];
+    int ik[K];
+    int found = -1;
+    if (fx == fx && fy == fy) found = keyed_topk<M, K>(row, taps, fx, fy, mk, ik);
+    if (found < 0) found = exact_topk<M, K>(row, taps, fx, fy, mk, ik);
+    const auto sums = [&](int mode) {
+#pragma unroll
+      for (int s = 0; s < K; ++s) {
+        if (s < found) {
+          const float w = 1.f / (idw_pow(mk[s], mode, par.pow_e) + par.eps);
+          num = num + w * vals[ik[s]];
+          den = den + w;
+        }
+      }
+    };
+    if (par.pow_mode == kPowCopy)
+      sums(kPowCopy);
+    else
+      sums(par.pow_mode);
+  } else {
+    float d2[M];
+#pragma unroll
+    for (int t4 = 0; t4 < (M + 3) / 4; ++t4) {
+      const float4 v = row[t4];
+      const float vv[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        if (4 * t4 + j < M) d2[4 * t4 + j] = tap_d2(vv[j], taps, 4 * t4 + j, fx, fy);
+    }
+    const int kk = K > 0 ? K : par.k;
+#pragma unroll 1
+    for (int s = 0; s < kk; ++s) {
+      int mb, idx;
+      tree_argmin<0, M, M>(d2, mb, idx);
+      const float m = __int_as_float(mb);
+      if (!(m < kHalfInf)) break;
+      const float w = 1.f / (idw_pow(m, par.pow_mode, par.pow_e) + par.eps);
+      num = num + w * vals[idx];
+      den = den + w;
+      if (s == kk - 1) break;
+#pragma unroll
+      for (int t = 0; t < M; ++t) d2[t] = t == idx ? kInf : d2[t];
+    }
+  }
+  const float res = den > 0.f ? num / fmaxf(den, par.eps) : NAN;
+  out[q] = pro.z != 0.f ? NAN : res;
+}
+
+// The staged builds' row loop.  A persistent grid of warps; a warp serves
+// chunks of 32 queries, w, w + warps, ... .  When it issues a chunk, each
+// lane computes its query's prologue once, writes (fx, fy, oob) into the
+// spare 16 bytes after its row's pieces (the stride's odd unit), and the
+// warp copies the 32 rows into a stage by cp.async (stage_rows, B12's
+// copy); the chunks of the next kIdwStages - 1 stages are in flight while
+// this one is served.  A thread's row stays in shared memory: no row in
+// registers, no second prologue.
 template <int M, int P, int K>
-__global__ void __launch_bounds__(kSelThreads, M <= 16 ? 8 : (M <= 32 ? 4 : 1))
+__device__ __forceinline__ void idw_staged_rows(const float* __restrict__ pack, const float* __restrict__ lons,
+                                                const float* __restrict__ lats, const Taps<M>& taps,
+                                                const IdwParams& par, int n, float* __restrict__ out) {
+  constexpr int C = RowCopy<M>::kPieces, S = RowCopy<M>::kStride, NS = kIdwStages;
+  extern __shared__ float4 row_stages[];
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  float4* stages = row_stages + warp * (NS * 32 * S);
+  const long long chunks = ((long long)n + 31) / 32;
+  const long long step = (long long)gridDim.x * kWarpsPerBlock;
+  long long w = (long long)blockIdx.x * kWarpsPerBlock + warp;
+  // chunk c's rows and prologues into stage st (nothing past the last
+  // chunk), then one commit group either way, so that the groups count the
+  // stages
+  const auto issue = [&](long long c, int st) {
+    float4* stage = stages + st * 32 * S;
+    if (c < chunks) {
+      const int q = (int)(c * 32) + lane;
+      int cell = -1;
+      if (q < n) {
+        const QueryCell qc = query_cell(__ldg(lons + q), __ldg(lats + q), par.geo);
+        cell = row_of(qc, par.geo.W);
+        stage[lane * S + C] = make_float4(qc.fx, qc.fy, qc.oob ? 1.f : 0.f, 0.f);
+      }
+      stage_rows<M, P>(pack, cell, stage, lane);
+    }
+    cp_async_commit();
+  };
+#pragma unroll
+  for (int i = 0; i < NS - 1; ++i) issue(w + i * step, i);
+  for (int st = 0; w < chunks; w += step) {
+    issue(w + (NS - 1) * step, st == 0 ? NS - 1 : st - 1);  // the stage served last
+    cp_async_wait<NS - 1>();  // this chunk's group is complete
+    __syncwarp();
+    const int q = (int)(w * 32) + lane;
+    if (q < n) idw_staged_query<M, K>(stages + st * 32 * S + lane * S, taps, par, q, out);
+    __syncwarp();  // every lane is done with stage st before it is copied into again
+    st = st + 1 == NS ? 0 : st + 1;
+  }
+}
+
+// A staged build on an aligned pack runs idw_staged_rows; any other build,
+// or any pack 4 bytes off, takes B12's loop with rows straight into
+// registers, one query a thread (window_rows<M, P, false>, idw_query).
+template <int M, int P, int K>
+__global__ void __launch_bounds__(kSelThreads, kIdwMinBlocks<M>)
 window_idw_kernel(const float* __restrict__ pack, const float* __restrict__ lons, const float* __restrict__ lats,
                   const __grid_constant__ Taps<M> taps, const IdwParams par, int n, int vec,
                   float* __restrict__ out) {
+  if constexpr (kIdwStaged<M>) {
+    if (vec) {
+      idw_staged_rows<M, P, K>(pack, lons, lats, taps, par, n, out);
+      return;
+    }
+  }
   window_rows<M, P, false>(pack, lons, lats, par.geo, n, vec,
                            [&](const float(&val)[M], const QueryCell& qc, float, float, int q) {
                              idw_query<M, K>(val, qc, taps, par, q, out);
                            });
 }
 
+// A B15 build's dynamic shared memory on an aligned pack: the staged
+// builds' stages, kIdwStages x 32 rows x kStride x 16 bytes a warp.
+template <int M>
+constexpr int window_idw_smem() {
+  return kIdwStaged<M> ? kIdwStages * kSelThreads * RowCopy<M>::kStride * 16 : 0;
+}
+
+template <int M, int P, int K>
+int window_idw_resident(int* per_sm, int* sms) {
+  static Residency cache[kMaxDevices];
+  return residency((const void*)window_idw_kernel<M, P, K>, window_idw_smem<M>(), cache, per_sm, sms,
+                   window_idw_smem<M>() > 0);
+}
+
 template <int M, int P, int K>
 int launch_window_idw_k(cudaStream_t st, const float* pack, const float* lons, const float* lats,
                         const Taps<M>& tv, const IdwParams& par, int n, float* out) {
   int vec = ((uintptr_t)pack & 15) == 0;
-  const long long blocks = ((long long)n + kSelThreads - 1) / kSelThreads;
+  const bool staged = kIdwStaged<M> && vec;
+  long long blocks = ((long long)n + kSelThreads - 1) / kSelThreads;
+  if (staged) {  // persistent: as many blocks as fit, at most one a block of queries
+    int per_sm = 0, sms = 0;
+    const int err = window_idw_resident<M, P, K>(&per_sm, &sms);
+    if (err) return err;
+    const long long resident = (long long)sms * (per_sm > 0 ? per_sm : 1);
+    blocks = blocks < resident ? blocks : resident;
+  }
   void* args[] = {(void*)&pack, (void*)&lons, (void*)&lats, (void*)&tv, (void*)&par, &n, &vec, &out};
   return (int)cudaLaunchKernel((const void*)window_idw_kernel<M, P, K>, dim3((unsigned)blocks), dim3(kSelThreads),
-                               args, 0, st);
+                               args, staged ? (size_t)window_idw_smem<M>() : 0, st);
 }
 
 template <int M, int P>
@@ -1041,6 +1355,23 @@ KrigeParams krige_params(int W, int H, const float* geo, const float* vario, con
     par.p_vario[i] = (const float*)ptrs[i];
   }
   return par;
+}
+
+// B15's resources, for auvtpu_window_idw_attributes.
+template <int M, int P, int K>
+int window_idw_attributes(int* out) {
+  int per_sm = 0, sms = 0;
+  const int err = window_idw_resident<M, P, K>(&per_sm, &sms);
+  if (err) return err;
+  cudaFuncAttributes attr;
+  const cudaError_t e = cudaFuncGetAttributes(&attr, (const void*)window_idw_kernel<M, P, K>);
+  if (e != cudaSuccess) return (int)e;
+  out[0] = attr.numRegs;
+  out[1] = (int)attr.localSizeBytes;
+  out[2] = per_sm;
+  out[3] = window_idw_smem<M>();
+  out[4] = kIdwStaged<M> ? kIdwStages : 0;
+  return 0;
 }
 
 }  // namespace
@@ -1267,32 +1598,22 @@ int auvtpu_window_idw(const void* pack, int P, int M, const void* lons, const vo
 }
 
 // B15's build for M taps and k (4, 8, or any other for the general build):
-// out[0..3] as for auvtpu_window_krige_attributes.
+// out[0..3] as for auvtpu_window_krige_attributes (the blocks an SM at the
+// build's shared memory on an aligned pack), out[4] its stages (0: rows in
+// registers).
 int auvtpu_window_idw_attributes(int M, int k, int* out) {
-  const void* fn;
   switch (M * 100 + (k == 4 || k == 8 ? k : 0)) {
-    case 904: fn = (const void*)window_idw_kernel<9, 16, 4>; break;
-    case 908: fn = (const void*)window_idw_kernel<9, 16, 8>; break;
-    case 900: fn = (const void*)window_idw_kernel<9, 16, 0>; break;
-    case 2504: fn = (const void*)window_idw_kernel<25, 32, 4>; break;
-    case 2508: fn = (const void*)window_idw_kernel<25, 32, 8>; break;
-    case 2500: fn = (const void*)window_idw_kernel<25, 32, 0>; break;
-    case 4904: fn = (const void*)window_idw_kernel<49, 64, 4>; break;
-    case 4908: fn = (const void*)window_idw_kernel<49, 64, 8>; break;
-    case 4900: fn = (const void*)window_idw_kernel<49, 64, 0>; break;
+    case 904: return window_idw_attributes<9, 16, 4>(out);
+    case 908: return window_idw_attributes<9, 16, 8>(out);
+    case 900: return window_idw_attributes<9, 16, 0>(out);
+    case 2504: return window_idw_attributes<25, 32, 4>(out);
+    case 2508: return window_idw_attributes<25, 32, 8>(out);
+    case 2500: return window_idw_attributes<25, 32, 0>(out);
+    case 4904: return window_idw_attributes<49, 64, 4>(out);
+    case 4908: return window_idw_attributes<49, 64, 8>(out);
+    case 4900: return window_idw_attributes<49, 64, 0>(out);
     default: return (int)cudaErrorInvalidValue;
   }
-  cudaFuncAttributes attr;
-  cudaError_t err = cudaFuncGetAttributes(&attr, fn);
-  if (err != cudaSuccess) return (int)err;
-  int blocks = 0;
-  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, fn, kSelThreads, 0);
-  if (err != cudaSuccess) return (int)err;
-  out[0] = attr.numRegs;
-  out[1] = (int)attr.localSizeBytes;
-  out[2] = blocks;
-  out[3] = 0;
-  return 0;
 }
 
 // B7.  pack: (cells, P) f32 with P the smallest of 16, 32, 64 that holds M;

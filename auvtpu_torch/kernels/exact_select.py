@@ -32,9 +32,11 @@ Each wrapper goes through its custom op (``auvtpu_torch::exact_dense``,
 :mod:`..ops.exact_fast` as they were before the kernels); on CUDA tensors
 its CUDA implementation (:func:`dense_launch`, :func:`ring_launch`)
 launches the kernel (after the bit plane's build, where it is made) or
-raises: the kernels are built for radius 10 and float32 or float64 grids
-only.  Each launch adds one to ``LAUNCHES["exact_dense"]`` or
-``LAUNCHES["exact_ring"]``.
+raises: the kernels take float32 or float64 grids and any radius from 1 to
+``MAX_RADIUS``: the callers' default, ``RADIUS`` (10), has builds of its
+own, any other runs the builds that take the radius at run time (a
+pass wider than 32 cells, from radius 16 on, walked in pieces of 32).  Each
+launch adds one to ``LAUNCHES["exact_dense"]`` or ``LAUNCHES["exact_ring"]``.
 """
 
 from __future__ import annotations
@@ -49,7 +51,12 @@ from ..config import KrigingConfig
 from . import library
 
 LAUNCHES = {"exact_dense": 0, "exact_ring": 0}
-RADIUS = 10  # the radius the kernels are built for (kR in csrc/exact_select.cu)
+# the callers' default radius, which has builds of its own (kBuiltRadius of
+# csrc/exact_select.cu); the kernels take any other from 1 to MAX_RADIUS
+RADIUS = 10
+# kMaxRadius of csrc/exact_select.cu: the walks' int coordinates stay far
+# from overflow; no version's (2R+1)^2-lane tables could be held beyond it
+MAX_RADIUS = 1 << 20
 # A launch builds the bit plane where its queries number at least H * W /
 # BIT_PLANE_CELLS: the build reads the whole validity plane once, a walk
 # reads ~7-9 lanes a query at the stand-in's 10 % removal, each a sector of
@@ -69,9 +76,9 @@ def _lib() -> ctypes.CDLL:
 
     lib = load("exact_select")
     P, I, D = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
-    lib.auvtpu_exact_dense.argtypes = [I, P, P, I, I, P, I, P, I, P, P, D, P, P, P, P, P, P, P, P]
+    lib.auvtpu_exact_dense.argtypes = [I, P, P, I, I, I, P, I, P, I, P, P, D, P, P, P, P, P, P, P, P]
     lib.auvtpu_exact_dense.restype = I
-    lib.auvtpu_exact_ring.argtypes = [I, P, P, I, I, P, P, I, I, P, P, P, P, P, P, P, D, P, P, P, P, P, P, P]
+    lib.auvtpu_exact_ring.argtypes = [I, P, P, I, I, I, P, P, I, I, P, P, P, P, P, P, P, D, P, P, P, P, P, P, P]
     lib.auvtpu_exact_ring.restype = I
     lib.auvtpu_exact_attributes.argtypes = [I, ctypes.POINTER(I)]
     lib.auvtpu_exact_attributes.restype = I
@@ -85,21 +92,25 @@ def build() -> None:
     _lib()
 
 
-def _build_name(kind: str, dtype: str, solve: bool = False, key: int = 0, bits: bool = True) -> str:
+def _build_name(kind: str, dtype: str, solve: bool = False, key: int = 0, bits: bool = True,
+                radius: int = RADIUS) -> str:
     if kind == "bits":
         return f"bits_kernel<{dtype}>"
     walk = "bit plane" if bits else "valid"
+    at = "" if radius else ", any radius"
     if kind == "dense":
-        return f"dense_kernel<{dtype}, {'solve' if solve else 'select'}, {walk}>"
-    return f"ring_kernel<{dtype}, KEY {key}{', solve' if solve else ''}, {walk}>"
+        return f"dense_kernel<{dtype}, {'solve' if solve else 'select'}, {walk}{at}>"
+    return f"ring_kernel<{dtype}, KEY {key}{', solve' if solve else ''}, {walk}{at}>"
 
 
-# every build the wrappers launch, in auvtpu_exact_attributes' order
+# every build the wrappers launch, in auvtpu_exact_attributes' order: the
+# radius-10 builds, then those of any radius (0)
 BUILDS = (_build_name("bits", "float"), _build_name("bits", "double"), *(
-    name for bits in (True, False) for dtype in ("float", "double") for name in (
-        _build_name("dense", dtype, False, bits=bits), _build_name("dense", dtype, True, bits=bits),
-        _build_name("ring", dtype, False, 0, bits), _build_name("ring", dtype, True, 0, bits),
-        _build_name("ring", dtype, False, 1, bits))))
+    name for radius in (RADIUS, 0) for bits in (True, False) for dtype in ("float", "double") for name in (
+        _build_name("dense", dtype, False, bits=bits, radius=radius),
+        _build_name("dense", dtype, True, bits=bits, radius=radius),
+        _build_name("ring", dtype, False, 0, bits, radius), _build_name("ring", dtype, True, 0, bits, radius),
+        _build_name("ring", dtype, False, 1, bits, radius))))
 
 # ptxas's mangled kernel names: the kernel, its dtype, then its int and
 # bool template arguments
@@ -130,9 +141,9 @@ def attributes() -> dict:
         if kind == "bits":
             name = _build_name(kind, dtype)
         elif kind == "dense":
-            name = _build_name(kind, dtype, bool(targs[0]), bits=bool(targs[1]))
+            name = _build_name(kind, dtype, bool(targs[0]), bits=bool(targs[1]), radius=targs[2])
         else:
-            name = _build_name(kind, dtype, bool(targs[1]), targs[0], bool(targs[2]))
+            name = _build_name(kind, dtype, bool(targs[1]), targs[0], bool(targs[2]), targs[3])
         if name in res:
             res[name]["spill_bytes"] = int(m.group(2)) + int(m.group(3))
     return res
@@ -240,8 +251,8 @@ def _stream(dev: torch.device) -> ctypes.c_void_p:
 def _check(what: str, elev, valid, max_radius: int, **operands) -> None:
     """Radius, grid dtype, and each operand's (tensor, dtype, shape) on the
     grid's device; raises where the kernel does not take them."""
-    if max_radius != RADIUS:
-        raise ValueError(f"{what}: max_radius={max_radius}; the kernel is built for radius {RADIUS} only")
+    if not 1 <= max_radius <= MAX_RADIUS:
+        raise ValueError(f"{what}: max_radius={max_radius}; the kernel takes a radius from 1 to {MAX_RADIUS}")
     if elev.dtype not in _GRID_DTYPES or valid.dtype != elev.dtype:
         raise TypeError(f"{what}: the kernel takes float32 or float64 grids with valid of elev's dtype "
                         f"(got {elev.dtype}, {valid.dtype})")
@@ -312,7 +323,7 @@ def dense_launch(elev, valid, flat_a, keys, flat_q, gpair, gq, max_radius: int):
     bits = _bit_plane(elev, n)
     with torch.cuda.device(dev):
         err = _lib().auvtpu_exact_dense(
-            int(elev.dtype == torch.float64), elev.data_ptr(), valid.data_ptr(), H, W, res.data_ptr(),
+            int(elev.dtype == torch.float64), elev.data_ptr(), valid.data_ptr(), H, W, max_radius, res.data_ptr(),
             int(flat_a is None), flat_q.data_ptr(), n, *(t.data_ptr() if t is not None else None for t in tabs),
             KrigingConfig().pivot_tol, *ptrs, bits.data_ptr() if bits is not None else None, _stream(dev))
     _raise_on(what, err)
@@ -355,7 +366,7 @@ def ring_launch(elev, valid, ci, cj, k0, k1, variant, qcol, qrow, gpair, gq, max
     bits = _bit_plane(elev, n)
     with torch.cuda.device(dev):
         err = _lib().auvtpu_exact_ring(
-            int(elev.dtype == torch.float64), elev.data_ptr(), valid.data_ptr(), H, W, ci.data_ptr(),
+            int(elev.dtype == torch.float64), elev.data_ptr(), valid.data_ptr(), H, W, max_radius, ci.data_ptr(),
             cj.data_ptr(), n, int(variant is None), opt[0].data_ptr() if opt[0] is not None else None,
             k0.data_ptr(), k1.data_ptr(), *(t.data_ptr() if t is not None else None for t in opt[1:]),
             KrigingConfig().pivot_tol, *ptrs, bits.data_ptr() if bits is not None else None, _stream(dev))

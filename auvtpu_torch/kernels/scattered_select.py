@@ -885,10 +885,13 @@ def window_idw_launch(pack, P: int, qlon, qlat, taps, geo, num_lon: int, num_lat
 def window_idw_attributes(M: int, k: int = 8) -> dict:
     """The resources of B15's build for M taps and ``k`` (4 and 8 have
     builds of their own, any other k the general one) on the current card,
-    as :func:`window_krige_attributes` gives them."""
-    out = (ctypes.c_int * 4)()
+    as :func:`window_krige_attributes` gives them (the shared memory and
+    blocks an SM of its launch on an aligned pack), and ``stages``: the
+    chunks of rows a warp holds in shared memory (0: the rows go straight
+    into registers)."""
+    out = (ctypes.c_int * 5)()
     _raise_on(_lib().auvtpu_window_idw_attributes(M, k, out), "window_idw")
-    return dict(zip(("registers", "spill_bytes", "blocks_per_sm", "shared_bytes"), out))
+    return dict(zip(("registers", "spill_bytes", "blocks_per_sm", "shared_bytes", "stages"), out))
 
 
 # ---------------------------------------------------------------------------

@@ -123,9 +123,10 @@ streaming mosaic and scattered queries on the 3200x4000 Grid A, in phases:
             they no longer run; packed_idw_fused's events against the old
             composition (window_select_fused, idw_from_select: old, new,
             new, old); B6, B12 and B15 alone at 1M and 5M, their wrappers
-            and plain versions, B15 beside B12's bound and
+            and plain versions, B15 at k 8 and 4 beside B12's bound and
             rows-in-registers probe, B15's builds' resources (no spill at
-            radius 2); B11 alone at 1M and 5M (valid16 and radius 2), its
+            radius 2, whose staged build holds 2 stages and 6 blocks an SM
+            or more); B11 alone at 1M and 5M (valid16 and radius 2), its
             bound, the rows-in-registers probe
             (scripts/row_gather_probe.py: the same rows loaded straight
             into registers, not a floor) and the issue estimate from its
@@ -218,10 +219,17 @@ streaming mosaic and scattered queries on the 3200x4000 Grid A, in phases:
             on 256x320 shelf + seamount grids with awkward decimals at
             removal 0.1/0.5/0.9 the same, the strict selection equal to
             GoldenGrid._ring_select (found, values, ordered gi/gj) and every
-            exact prediction within 1e-9 m of the golden engine; bench_grid_b
-            --selection exact (tiers two and strict) at the pinned RMSEs and
-            bench_grid_a --selection exact at 1e3 and 1e5 queries, every
-            golden validation passed at 1e-9; each of the seven entry
+            exact prediction within 1e-9 m of the golden engine; the
+            caller's radius: B13 and B14 (the builds that take it at run
+            time) bit-equal to plain on the stand-in's cells at radius 3 and
+            16 and on the sparse grid at 3, 16 and 40, the stand-in's
+            entry points at radius 16 bit for bit radius 10's (so at its
+            pins) and radius 3's cells that differ counted, every entry
+            point that selects at radius 3 and 16 on a 256x320 grid masked
+            50 % within 1e-9 m of the CPU's; bench_grid_b --selection exact
+            (tiers two and strict) at the pinned RMSEs and bench_grid_a
+            --selection exact (and --window-radius 3) at 1e3 and 1e5
+            queries, every golden validation passed at 1e-9; each of the seven entry
             points (four on the stand-in's cells, three at the 1e5 Grid A
             queries, all on the card) before (scripts/exact_torch_epilogue.py:
             the epilogues as torch ops) and after, in turns, on the host
@@ -2760,6 +2768,8 @@ def main() -> int:
         say("timing", f"Grid A {N_SCATTER} queries {kname:20s} kernel alone {ms[kname + ' alone']:.4f} ms{cold}, "
             f"at 5M {ms[kname + ' 5M alone']:.4f} ms; wrapper {ms[kname + ' wrapper']:.4f} ms, plain "
             f"{ms[kname + ' plain']:.4f} ms  [{card}]")
+    # B15 at k 4 too (its own build)
+    ms["window_idw k4 alone"] = device_ms(lambda: ss.window_idw(winA, 32, offs2, 2, gA, *qA, k=4), "window_idw_kernel")
     # each packed_idw_t and packed_kriging_fused call: one CUDA kernel
     # (every record of 20 profiled calls its kernel's) and no synchronising
     # call; its events, beside the torch prologue, B6's torch epilogue and
@@ -2840,10 +2850,13 @@ def main() -> int:
         for k in (4, 8, 3):
             at = ss.window_idw_attributes(M, k)
             say("B15", f"build M={M} k={k if k in (4, 8) else 'any'}: {at['registers']} registers, "
-                f"{at['spill_bytes']} spill bytes, {at['shared_bytes']} B of shared memory, {at['blocks_per_sm']} "
-                f"resident blocks of 128 threads an SM  [{card}]")
+                f"{at['spill_bytes']} spill bytes, {at['shared_bytes']} B of shared memory in {at['stages']} stages "
+                f"(0: rows in registers), {at['blocks_per_sm']} resident blocks of 128 threads an SM  [{card}]")
             if M == 25 and at["spill_bytes"]:
                 raise AssertionError(f"B15's radius-2 k={k} build spills {at['spill_bytes']} bytes")
+            if M == 25 and not (at["stages"] >= 2 and at["blocks_per_sm"] >= 6):
+                raise AssertionError(f"B15's staged radius-2 k={k} build: {at}, want 2 stages or more and 6 "
+                                     f"resident blocks or more")
     # B11 at 1M and 5M valid16 queries against its byte bound (8 bytes of
     # query, the 64-byte row, 4 written, at 3.35 TB/s), the row-gather probe
     # (the same reads and write, nothing else, each row loaded straight into
@@ -2889,11 +2902,17 @@ def main() -> int:
             f"{ms[f'B12 row probe {tag}']:.4f} ms ({ms[f'B12 row probe {tag}'] / t_:.0%}); static-count issue "
             f"estimate {est:.4f} ms ({est / t_:.0%}; {sass_w} SASS instructions in window_krige_kernel<25, 32, 0>, "
             f"run or not, at {clock_hz / 1e6:.0f} MHz)  [{card}]")
-        # B15 reads the same bytes and rows (k 8, power 2)
-        t_ = ms["window_idw alone" if tag == "1M" else "window_idw 5M alone"]
-        say("timing", f"B15 radius 2 k=8 at {int(nq_)} queries: alone {t_:.4f} ms; byte bound "
-            f"{ms[f'B12 byte bound {tag}']:.4f} ms ({ms[f'B12 byte bound {tag}'] / t_:.0%}); rows-in-registers probe "
-            f"{ms[f'B12 row probe {tag}']:.4f} ms ({ms[f'B12 row probe {tag}'] / t_:.0%})  [{card}]")
+        # B15 reads the same bytes and rows (k 8 and, at 1M, k 4; power 2):
+        # its staged build (registers, blocks, shared memory, stages above)
+        at15 = ss.window_idw_attributes(25, 8)
+        for k_ in (8, 4) if tag == "1M" else (8,):
+            t_ = ms[{("1M", 8): "window_idw alone", ("5M", 8): "window_idw 5M alone",
+                     ("1M", 4): "window_idw k4 alone"}[tag, k_]]
+            say("timing", f"B15 radius 2 k={k_} at {int(nq_)} queries (staged, {at15['stages']} stages, "
+                f"{at15['registers']} registers, {at15['blocks_per_sm']} blocks an SM, {at15['shared_bytes']} B "
+                f"shared): alone {t_:.4f} ms; byte bound {ms[f'B12 byte bound {tag}']:.4f} ms "
+                f"({ms[f'B12 byte bound {tag}'] / t_:.0%}); rows-in-registers probe "
+                f"{ms[f'B12 row probe {tag}']:.4f} ms ({ms[f'B12 row probe {tag}'] / t_:.0%})  [{card}]")
         del cell_
     # the CUDA kernels and the events of one kriging_valid_t call, beside
     # the torch prologue it no longer runs (B5-B7's wrappers still do) and
@@ -3326,17 +3345,19 @@ def main() -> int:
         return (texact._on(g, flat[al]), texact._on(g, np.stack([q2.ex_key[al], q2.ey_key[al]])),
                 texact._on(g, np.clip(flat, 0, H * W - 1)))
 
-    def exact_kernels_equal(g, rows_, cols_, label: str) -> dict:
+    def exact_kernels_equal(g, rows_, cols_, label: str, R: int = 10) -> dict:
+        """B13 and B14 bit-equal to their plain versions at radius R."""
         rows_, cols_ = np.asarray(rows_, np.int64), np.asarray(cols_, np.int64)
         H, W = g.shape
         q_ = texact.prepare_exact_queries(g, rows_, cols_)
         dense_in = tfast._round_queries(g, rows_, cols_)[1]
-        tabs = tfast._reference_tables(g, 10)
+        tabs = tfast._reference_tables(g, R)
         for path, d_in in (("aligned" if dense_in[0] is None else "planes", dense_in),
                            ("planes, mixed", mixed_dense_operands(g, rows_, cols_))):
-            exact_equal(es.dense_select(g, *d_in), es.dense_select_ref(g.elev, g.valid, *d_in, 10),
+            exact_equal(es.dense_select(g, *d_in, max_radius=R), es.dense_select_ref(g.elev, g.valid, *d_in, R),
                         f"B13 {label} ({path})")
-            exact_equal(es.dense_krige(g, *d_in, *tabs), es.dense_krige_ref(g.elev, g.valid, *d_in, *tabs, 10),
+            exact_equal(es.dense_krige(g, *d_in, *tabs, max_radius=R),
+                        es.dense_krige_ref(g.elev, g.valid, *d_in, *tabs, R),
                         f"B13 solve {label} ({path})")
         far_i = torch.tensor([-3, W + 2, -11, 2**62, -2**62, 2**63 - 3, -2**63 + 2, 5], device=g.device)
         far_j = torch.tensor([4, 2, -11, 3, 5, 1, 2, 2**63 - 4], device=g.device)
@@ -3346,27 +3367,28 @@ def main() -> int:
                                                                                         anchor=anchor), None)
             keys_ = (torch.cat([ci_, far_i]), torch.cat([cj_, far_j]), torch.cat([ex_, z8]), torch.cat([ey_, z8]),
                      torch.cat([var_, z8.int()]))
-            exact_equal(es.ring_select(g, *keys_), es.ring_select_ref(g.elev, g.valid, *keys_, 10, 16384),
+            exact_equal(es.ring_select(g, *keys_, max_radius=R), es.ring_select_ref(g.elev, g.valid, *keys_, R, 16384),
                         f"B14 {anchor} {label}")
         rng_ = np.random.default_rng(19)
         n_ = min(len(rows_), 100_000)
         odd = [texact._on(g, a) for a in (rng_.integers(-3, W + 3, n_), rng_.integers(-3, H + 3, n_),
                                           *(tcuda._ODD_KEYS[rng_.integers(0, len(tcuda._ODD_KEYS), n_)]
                                             for _ in range(2)), rng_.integers(0, 4, n_).astype(np.int32))]
-        exact_equal(es.ring_select(g, *odd), es.ring_select_ref(g.elev, g.valid, *odd, 10, 16384),
+        exact_equal(es.ring_select(g, *odd, max_radius=R), es.ring_select_ref(g.elev, g.valid, *odd, R, 16384),
                     f"B14 odd keys {label}")
         # 16 queries, fewer than one a BIT_PLANE_CELLS cells: the walks read valid
         few = (slice(0, 16),)
-        exact_equal(es.ring_select(g, *(t[few] for t in odd)),
-                    es.ring_select_ref(g.elev, g.valid, *(t[few] for t in odd), 10, 16384), f"B14 few {label}")
+        exact_equal(es.ring_select(g, *(t[few] for t in odd), max_radius=R),
+                    es.ring_select_ref(g.elev, g.valid, *(t[few] for t in odd), R, 16384), f"B14 few {label}")
         d_few = (dense_in[2] if dense_in[0] is None else dense_in[0], dense_in[1], dense_in[2][:16])
-        exact_equal(es.dense_krige(g, *d_few, *tabs), es.dense_krige_ref(g.elev, g.valid, *d_few, *tabs, 10),
+        exact_equal(es.dense_krige(g, *d_few, *tabs, max_radius=R),
+                    es.dense_krige_ref(g.elev, g.valid, *d_few, *tabs, R),
                     f"B13 solve few {label}")
         inside = np.nonzero(~q_.oob)[0]
         keys_ = texact._cell_keys(g, q_, inside)
         qc_ = (texact._on(g, cols_[inside]), texact._on(g, rows_[inside]))
-        exact_equal(es.ring_krige(g, *keys_, *qc_, *tabs),
-                    es.ring_krige_ref(g.elev, g.valid, *keys_, *qc_, *tabs, 10, 16384), f"B14 solve {label}")
+        exact_equal(es.ring_krige(g, *keys_, *qc_, *tabs, max_radius=R),
+                    es.ring_krige_ref(g.elev, g.valid, *keys_, *qc_, *tabs, R, 16384), f"B14 solve {label}")
         return {"dense_in": dense_in, "tabs": tabs, "q": q_}
 
     attrs_x = es.attributes()
@@ -3544,6 +3566,62 @@ def main() -> int:
             f"GoldenGrid._ring_select; strict and two-tier kriging, cubic and bilinear within {worst:.3g} m of the "
             f"golden engine")
 
+    # C7: the caller's radius.  B13 and B14 (the builds that take the radius
+    # at run time) bit-equal to plain at the stand-in's cells at radius 3
+    # and 16, and on the sparse grid, whose walks reach the far rings, at 3,
+    # 16 and 40.  Every exact entry point that selects, on the card, at 3
+    # and 16: at the stand-in's cells radius 16 answers as radius 10 bit for
+    # bit (no walk there passes ring 10), so the pins hold, and radius 3's
+    # cells that differ are counted; on a 256x320 grid masked 50 % (at its
+    # cells and at 1e4 scattered queries) each against the CPU's within
+    # EXACT_TOL
+    t_r = time.perf_counter()
+    for R_ in (3, 16):
+        exact_kernels_equal(g64, rk, ck, f"stand-in R={R_}", R_)
+    for R_ in (3, 16, 40):
+        exact_kernels_equal(g_sp, rc_sp[:, 0], rc_sp[:, 1], f"sparse 256x320 R={R_}", R_)
+    at_r = {}
+    with host_views_refused(texact):
+        for R_ in (3, 16):
+            at_r[R_] = {"kriging_two": tfast.exact_kriging_at_cells_fast(g64, rk_t, ck_t, max_radius=R_),
+                        "kriging_strict": texact.exact_kriging_at_cells(g64, rk_t, ck_t, max_radius=R_),
+                        "cubic": texact.exact_cubic_at_cells(g64, rk_t, ck_t, max_radius=R_)}
+    for key, v in at_r[16].items():
+        if not np.array_equal(v, preds[key], equal_nan=True):
+            raise AssertionError(f"exact {key} at radius 16 differs from radius 10 at the stand-in's cells")
+    for key in ("kriging_two", "cubic"):
+        exact_pin(key, at_r[16][key], truth_k)
+    n_r3 = {k: int((v != preds[k]).sum() - (np.isnan(v) & np.isnan(preds[k])).sum()) for k, v in at_r[3].items()}
+    red_c, rc_c, _ = mask_grid(shelf_seamount(256, 320), 0.5, seed=3)
+    g_c, g_h = (RegularGrid.from_nan_array(red_c, awkward, dtype=torch.float64, device=d) for d in (dev, "cpu"))
+    rng_c = np.random.default_rng(27)
+    lo_c = rng_c.uniform(awkward.min_lon, awkward.max_lon, 10_000)
+    la_c = rng_c.uniform(awkward.min_lat, awkward.max_lat, 10_000)
+    worst_r = 0.0
+    for R_ in (3, 16):
+        for label, call in (
+            ("strict kriging", lambda g: texact.exact_kriging_at_cells(g, rc_c[:, 0], rc_c[:, 1], max_radius=R_)),
+            ("two-tier kriging", lambda g: tfast.exact_kriging_at_cells_fast(g, rc_c[:, 0], rc_c[:, 1],
+                                                                            max_radius=R_)),
+            ("two-tier kriging (coords)", lambda g: tfast.exact_kriging_at_cells_fast(
+                g, rc_c[:, 0], rc_c[:, 1], solve="coords", max_radius=R_)),
+            ("cubic", lambda g: texact.exact_cubic_at_cells(g, rc_c[:, 0], rc_c[:, 1], max_radius=R_)),
+            ("scattered kriging", lambda g: texact.exact_kriging_scattered(g, lo_c, la_c, max_radius=R_)),
+            ("scattered cubic", lambda g: texact.exact_cubic_scattered(g, lo_c, la_c, max_radius=R_)),
+        ):
+            got, want = call(g_c), call(g_h)
+            if not np.array_equal(np.isnan(got), np.isnan(want)):
+                raise AssertionError(f"exact {label} at radius {R_}: NaN placement differs from the CPU's")
+            d_ = float(np.nanmax(np.abs(got - want))) if np.isfinite(want).any() else 0.0
+            if not d_ <= EXACT_TOL:
+                raise AssertionError(f"exact {label} at radius {R_}: max |diff| from the CPU {d_} > {EXACT_TOL}")
+            worst_r = max(worst_r, d_)
+    say("exact", f"radius 3, 16 (and 40 on the sparse grid): B13 and B14 bit-equal to plain at the stand-in's "
+        f"{len(rk)} cells and the sparse 256x320 grid; at the stand-in radius 16 answers as radius 10 bit for bit "
+        f"(pins held), radius 3 differs at {n_r3} cells; every entry point that selects on a 256x320 grid masked "
+        f"50 % ({len(rc_c)} cells, {len(lo_c)} scattered queries) within {worst_r:.3g} m of the CPU's, NaN alike "
+        f"({time.perf_counter() - t_r:.1f} s)")
+
     # both CLIs' exact modes
     res_x = os.path.join(REPO, "results_local", "chip_smoke_exact.csv")
     if os.path.exists(res_x):
@@ -3564,13 +3642,16 @@ def main() -> int:
             say("exact", f"bench_grid_b --selection exact --exact-tier {tier}: " + ", ".join(
                 f"{k} RMSE {v['RMSE']:.9f} steady {v['steady_ms']:.2f} ms, end-to-end {v['e2e_ms']:.2f} ms"
                 for k, v in summary_x.items()) + f"  [{card}]")
-        summary_ax = bench_grid_a.main(["--selection", "exact", "--batch-sizes", "1000", "100000", "--results", res_x,
-                                        "--machine", "H100"])
-        if sorted(summary_ax) != sorted((m, n) for m in ("Bilinear", "Cubic", "Kriging") for n in (1000, 100000)) or \
-                not all(v["validated"] for v in summary_ax.values()):
-            raise AssertionError(f"bench_grid_a --selection exact: {summary_ax}")
-        say("exact", "bench_grid_a --selection exact: every golden validation PASSED (1e-9 x scale); " + ", ".join(
-            f"{m} n={n} steady {v['steady_ms']:.2f} ms" for (m, n), v in summary_ax.items()) + f"  [{card}]")
+        for wr in ([], ["--window-radius", "3"]):
+            summary_ax = bench_grid_a.main(["--selection", "exact", "--batch-sizes", "1000", "100000", *wr,
+                                            "--results", res_x, "--machine", "H100"])
+            if sorted(summary_ax) != sorted((m, n) for m in ("Bilinear", "Cubic", "Kriging")
+                                            for n in (1000, 100000)) or \
+                    not all(v["validated"] for v in summary_ax.values()):
+                raise AssertionError(f"bench_grid_a --selection exact {' '.join(wr)}: {summary_ax}")
+            say("exact", f"bench_grid_a --selection exact {' '.join(wr)}: every golden validation PASSED (1e-9 x "
+                "scale); " + ", ".join(f"{m} n={n} steady {v['steady_ms']:.2f} ms"
+                                       for (m, n), v in summary_ax.items()) + f"  [{card}]")
     launches_exc = {**es.LAUNCHES, **ep.LAUNCHES, **ee.LAUNCHES}
     if not all(n > 0 for n in launches_exc.values()):
         raise AssertionError(f"the exact CLIs' launches {launches_exc}: B13, B14, B16, B17 and B18 must all run")

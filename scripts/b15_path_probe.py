@@ -1,21 +1,46 @@
-"""B15 (``window_idw_kernel``) on its two row paths, each held bit-equal to
-the plain version before it is timed, the powers it matches bit for bit,
-and B12 after the row loop it now shares, on one NVIDIA GPU.
+"""B15 (``window_idw_kernel``) in its designs, each held bit-equal to the
+plain version before it is timed, the powers it matches bit for bit, and
+B12 beside it, on one NVIDIA GPU.
 
 Run from the root of a checkout:
 
-    python3 scripts/b15_path_probe.py [--parent DIR]
+    python3 scripts/b15_path_probe.py [--parent DIR] [--sass-dir DIR]
 
-``this`` is the checkout's build, whose rows go straight into registers,
-one query a thread.  ``staged`` is ``scripts/b15_variants.cu`` (the
-checkout's source with B15 on B12's staged rows beside it: at radius 2 on
-an aligned pack, a persistent grid whose warps copy their 32 rows into
-shared memory by cp.async, the next chunk's while this one is served),
-built with the checkout's flags.  ``--parent DIR`` also builds the
-``scattered_select.cu`` of an earlier ``auvtpu_torch/csrc`` (``git archive
-<commit> auvtpu_torch/csrc | tar -x -C DIR``, DIR a git-ignored directory)
-as ``parent``, for B12 before the refactor.  Every nvcc is started at
-once.
+The builds, all started at once, one nvcc each, with the checkout's flags:
+
+- ``this``: the checkout's ``csrc/scattered_select.cu``.  At radius 2 and
+  3 on an aligned pack a persistent grid of warps stages each warp's 32
+  rows in shared memory by cp.async, the next chunk's in flight while this
+  one is served; the row stays there, the prologue runs once a query, the
+  k 4 and 8 builds' passes run on 32-bit keys (the exact tournament where
+  the keys cannot vouch), each winner's value one shared load.  Radius 1
+  and a pack 4 bytes off take the rows straight into registers, one query
+  a thread.
+
+Each of the next is the checkout's source with one line of its B15
+section patched as text (the probe stops if the line is not there once):
+
+- ``registers``: ``kIdwStaged`` false: the first design, rows straight
+  into registers in every build.
+- ``staged_all``: ``kIdwStaged`` true, radius 1 staged too.
+- ``stages3``: ``kIdwStages = 3``, three chunks a warp in shared memory
+  (four blocks an SM where two stages hold six).
+- ``exact_passes``: no ``keyed_topk``: the k 4 and 8 builds' passes as
+  the exact tournament with its knock-out, unrolled, where ``this`` takes
+  them on 32-bit keys (one subtract a tap and one unsigned min a match a
+  pass, no knock-out) and falls back to the tournament where the keys
+  cannot vouch for the order; the weights after the passes in both.
+- ``in_pass``: every staged build on the general build's path, the
+  tournament in a loop, each pass's weight and sums in the pass.
+
+And:
+
+- ``staged_vals``: ``scripts/b15_variants.cu``, the first staged design (B12's
+  row loop: the row unstaged into registers beside d2, the tournament
+  carrying the value, the prologue computed twice).
+- ``parent`` (``--parent DIR``): the ``scattered_select.cu`` of an earlier
+  ``auvtpu_torch/csrc`` (``git archive <commit> auvtpu_torch/csrc | tar -x
+  -C DIR``, DIR a git-ignored directory), for B12 across the change.
 
 The inputs are chip_smoke.py's: the Grid A grid (3200x4000), its window
 packs of radius 1-3, 1M and 5M uniform Grid A queries (seeds 7 and 9)
@@ -27,16 +52,24 @@ queries, and the radius-2 pack 4 bytes off (a copy: not 16-byte aligned).
    Then the powers of torch's special cases and a few others at radius 2,
    k 8: bit-equal or not, the values that differ and their largest
    relative difference.  It exits 1 where power 2 or 1 is not bit-equal.
-2. ``this`` and ``staged`` at radius 2, k 8 and 4, power 2, at 1M and
-   5M, each bit-checked, then timed by the device duration of its kernel
-   records (``chip_smoke.device_ms``), in the order this, staged, staged,
-   this; each build's registers, spill
-   bytes, resident blocks and shared memory (``window_idw_attributes``)
-   and its static SASS count (``scripts/sass_tools.py``).
-3. B12 (``window_krige_kernel``), this build and the parent's, bit-equal
+2. The designs at radius 2, k 8 and 4, power 2, at 1M and 5M, each
+   bit-checked, then timed by the device duration of its kernel records
+   (``chip_smoke.device_ms``), in the order registers, this, the others,
+   this, registers; each build's registers, spill bytes, resident blocks,
+   shared memory and stages (``window_idw_attributes``), its kernel's
+   static SASS count, that of its innermost loops that hold a tournament's
+   VIMNMX (``scripts/sass_tools.py``; a build whose passes are unrolled
+   counts its chunk loop), its commonest opcodes and its min instructions;
+   with ``--sass-dir DIR`` the kernel's SASS is written to
+   ``DIR/b15_sass_<build>.txt``.
+3. Radius 1 and 3: ``registers`` against ``staged_all`` at k 8 and 4, 1M,
+   bit-checked and timed, registers, staged, staged, registers (``this``
+   stages radius 3, which was faster staged, and not radius 1, which was
+   not).
+4. B12 (``window_krige_kernel``), this build and the parent's, bit-equal
    to ``window_krige_ref``, timed this, parent, parent, this at radius 2,
    1M and 5M.
-4. ``packed_idw_fused`` at 1M radius 2 (k 8, power 2) by CUDA events
+5. ``packed_idw_fused`` at 1M radius 2 (k 8, power 2) by CUDA events
    against the composition it replaces, ``idw_from_select`` after
    ``window_select_fused``: old, new, new, old.
 
@@ -45,6 +78,7 @@ limit.
 """
 
 import argparse
+import collections
 import ctypes
 import hashlib
 import json
@@ -62,33 +96,54 @@ from auvtpu_torch.kernels import build as kbuild  # noqa: E402
 from auvtpu_torch.kernels import scattered_select as ss  # noqa: E402
 
 VARIANT_SRC = os.path.join(ROOT, "scripts", "b15_variants.cu")
-KERNEL = {"this": "window_idw_kernel", "staged": "b15_staged_kernel"}  # each build's B15 kernel
+# the shipped source with one line of its B15 section patched: (line, patched)
+STAGED = "constexpr bool kIdwStaged = M > 16;"
+PATCHES = {"registers": (STAGED, "constexpr bool kIdwStaged = false;"),
+           "staged_all": (STAGED, "constexpr bool kIdwStaged = true;"),
+           "stages3": ("constexpr int kIdwStages = 2;", "constexpr int kIdwStages = 3;"),
+           "exact_passes": ("    if (fx == fx && fy == fy) found = keyed_topk<M, K>(row, taps, fx, fy, mk, ik);\n", ""),
+           "in_pass": ("  if constexpr (K > 0) {\n    float mk[K];", "  if constexpr (K < 0) {\n    float mk[K];")}
+DESIGNS = ("registers", "this", "exact_passes", "in_pass", "stages3", "staged_vals", "staged_all", "this", "registers")
+
 C_FNS = ("auvtpu_window_idw", "auvtpu_window_idw_attributes", "auvtpu_window_krige",
          "auvtpu_window_krige_attributes", "auvtpu_scattered_error_string")
 POWERS = (2.0, 1.0, 3.0, 0.0, 4.0, 6.0, -1.0, -2.0, -4.0, 0.5, 2.5, 1.5)
 
 
+def kernel_of(name: str) -> str:
+    """The name of a build's B15 kernel in the profiler's records."""
+    return "b15_staged_kernel" if name == "staged_vals" else "window_idw_kernel"
+
+
 def build_all(parent: str | None) -> dict:
-    """{name: library path}: the checkout's build, the staged variant and
-    the parent's build, every nvcc started at once."""
+    """{name: library path}: the checkout's build, the variants and the
+    parent's build, every nvcc started at once."""
     h = hashlib.sha256()
     for p in [*sorted(kbuild.CSRC.glob("*.cu*")), VARIANT_SRC]:
         h.update(open(p, "rb").read())
     h.update(" ".join(kbuild.NVCC_FLAGS).encode())
     out_dir = kbuild.BUILD_DIR / f"b15_paths-{h.hexdigest()[:12]}"
     out_dir.mkdir(parents=True, exist_ok=True)
-    jobs = {"staged": ([], VARIANT_SRC)}
+    src = (kbuild.CSRC / "scattered_select.cu").read_text()
+    jobs = {"staged_vals": VARIANT_SRC}
+    for name, (old, new) in PATCHES.items():
+        if src.count(old) != 1:
+            raise AssertionError(f"b15_path_probe: {old!r} is {src.count(old)} times in scattered_select.cu, want 1")
+        csrc = out_dir / name
+        shutil.copytree(kbuild.CSRC, csrc, dirs_exist_ok=True)
+        (csrc / "scattered_select.cu").write_text(src.replace(old, new))
+        jobs[name] = str(csrc / "scattered_select.cu")
     if parent:
         dst = os.path.join(out_dir, "parent_csrc")
         nested = os.path.join(parent, "auvtpu_torch", "csrc")
         shutil.copytree(nested if os.path.isdir(nested) else parent, dst, dirs_exist_ok=True)
-        jobs["parent"] = ([], os.path.join(dst, "scattered_select.cu"))
+        jobs["parent"] = os.path.join(dst, "scattered_select.cu")
     procs, paths = {}, {}
-    for name, (flags, src_) in jobs.items():
+    for name, src_ in jobs.items():
         paths[name] = out_dir / f"lib{name}.so"
         if paths[name].exists():
             continue
-        cmd = [kbuild.nvcc_path(), *kbuild.NVCC_FLAGS, *flags, "-o", str(paths[name]), src_]
+        cmd = [kbuild.nvcc_path(), *kbuild.NVCC_FLAGS, "-o", str(paths[name]), src_]
         procs[name] = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
     paths["this"] = kbuild.build("scattered_select")
     for name, proc in procs.items():
@@ -123,7 +178,8 @@ def differ(got, want) -> tuple[int, float]:
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--parent", help="an earlier auvtpu_torch/csrc, built as 'parent' (B12 before the refactor)")
+    ap.add_argument("--parent", help="an earlier auvtpu_torch/csrc, built as 'parent' (B12 across the change)")
+    ap.add_argument("--sass-dir", help="a directory to write each build's B15 SASS into")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("b15_path_probe: torch sees no CUDA device", file=sys.stderr)
@@ -148,7 +204,7 @@ def main() -> int:
     q1 = cs.scattered_queries(GRID_A_EXTENT, *GRID_A_SHAPE, 1_000_000, 7, dev)
     q5 = cs.scattered_queries(GRID_A_EXTENT, *GRID_A_SHAPE, 5_000_000, 9, dev)
     q1o, q5o = ([torch.cat([a, b]) for a, b in zip(q, odd)] for q in (q1, q5))
-    res = {"card": card, "checks": [], "powers": {}, "paths": {}, "b12": {}, "events": {}}
+    res = {"card": card, "checks": [], "powers": {}, "paths": {}, "radii": {}, "b12": {}, "events": {}}
     bad = []
 
     def idw(pk, r, q, **kw):
@@ -185,8 +241,8 @@ def main() -> int:
               f"{'bit-equal' if not n_ else f'{n_} of {q1o[0].numel()} differ, max relative {rel:.3g}'}", flush=True)
     torch.cuda.synchronize()
 
-    # 2. the two row paths at radius 2
-    for name in ("this", "staged", "staged", "this"):
+    # 2. the designs at radius 2
+    for name in DESIGNS:
         lib = use(paths[name], real)
         row = res["paths"].setdefault(name, {"cases": {}})
         for k in (8, 4):
@@ -194,18 +250,44 @@ def main() -> int:
                 n_, _ = differ(idw(packs[2], 2, qo, k=k), idw_ref(packs[2], 2, qo, k=k))
                 if n_:
                     raise AssertionError(f"{name}: radius 2 {tag} k={k} differs from window_idw_ref ({n_} values)")
-                t = cs.device_ms(lambda: idw(packs[2], 2, q, k=k), KERNEL[name])
+                t = cs.device_ms(lambda: idw(packs[2], 2, q, k=k), kernel_of(name))
                 row["cases"].setdefault(f"k={k} {tag}", []).append(t)
-                print(f"{name:7s} radius 2 k={k} {tag}: {t:.4f} ms, bit-equal to plain  [{card}]", flush=True)
+                print(f"{name:11s} radius 2 k={k} {tag}: {t:.4f} ms, bit-equal to plain  [{card}]", flush=True)
         if "resources" not in row:
             at = {f"M={M} k={k}": ss.window_idw_attributes(M, k) for M in (9, 25, 49) for k in (8, 4, 3)}
             row["resources"] = at
-            fn = f"{KERNEL[name]}<25, 32, 8>"
+            fn = f"{kernel_of(name)}<25, 32, 8>"
             row["sass_instructions"] = sass.sass_instructions(str(paths[name]), fn)
-            print(f"{name}: {json.dumps(at)}; {fn}: {row['sass_instructions']} SASS instructions", flush=True)
+            row["pass_loops"] = sass.loop_instructions(str(paths[name]), fn, "VIMNMX")
+            (_, text), = sass.sass_functions(str(paths[name]), [fn])
+            ops = collections.Counter(sass._OPCODE.findall(text))
+            row["opcodes"] = dict(ops.most_common(12))
+            # the tournaments' min instructions (DPX: VIMNMX, VIMNMX3, the
+            # fused add-and-min VIADDMNMX of the keyed passes)
+            row["min_opcodes"] = {op: n for op, n in ops.items() if "MNMX" in op}
+            if args.sass_dir:
+                os.makedirs(args.sass_dir, exist_ok=True)
+                with open(os.path.join(args.sass_dir, f"b15_sass_{name}.txt"), "w") as f:
+                    f.write(text)
+            print(f"{name}: {json.dumps(at)}; {fn}: {row['sass_instructions']} SASS instructions, pass loops "
+                  f"{row['pass_loops']}, opcodes {row['opcodes']}, min instructions {row['min_opcodes']}",
+                  flush=True)
         del lib
 
-    # 3. B12 after the shared row loop, against the parent's build
+    # 3. radius 1 and 3 staged, against their rows in registers
+    for name in ("registers", "staged_all", "staged_all", "registers"):
+        use(paths[name], real)
+        row = res["radii"].setdefault(name, {})
+        for r in (1, 3):
+            for k in (8, 4):
+                n_, _ = differ(idw(packs[r], r, q1o, k=k), idw_ref(packs[r], r, q1o, k=k))
+                if n_:
+                    raise AssertionError(f"{name}: radius {r} k={k} differs from window_idw_ref ({n_} values)")
+                t = cs.device_ms(lambda: idw(packs[r], r, q1, k=k), "window_idw_kernel")
+                row.setdefault(f"radius {r} k={k} 1M", []).append(t)
+                print(f"{name:11s} radius {r} k={k} 1M: {t:.4f} ms, bit-equal to plain  [{card}]", flush=True)
+
+    # 4. B12 across the change, against the parent's build
     offs2 = tp.window_offsets(2)
     for name in ("this", "parent", "parent", "this") if "parent" in paths else ("this",):
         use(paths[name], real)
@@ -218,7 +300,7 @@ def main() -> int:
             res["b12"].setdefault(name, {}).setdefault(tag, []).append(t)
             print(f"B12 {name:6s} radius 2 {tag}: {t:.4f} ms, bit-equal to plain  [{card}]", flush=True)
 
-    # 4. packed_idw_fused's events against the composition it replaces
+    # 5. packed_idw_fused's events against the composition it replaces
     # (B7 too: the checkout's library as the wrappers load it)
     ss._lib = real_lib
     eps = IDWConfig(k=8).eps

@@ -1,9 +1,13 @@
-// B15 (window_idw_kernel of auvtpu_torch/csrc/scattered_select.cu) on B12's
-// staged rows, the design that scripts/b15_path_probe.py times beside the
-// shipped one: in the radius-2 builds on an aligned pack, a persistent grid
-// whose warps copy their 32 rows into shared memory by cp.async, the next
-// chunk's while this one is served (window_rows<M, P, true>).  The shipped
-// builds take the rows straight into registers.
+// B15 (window_idw_kernel of auvtpu_torch/csrc/scattered_select.cu) on
+// B12's staged row loop, the first staged design, which
+// scripts/b15_path_probe.py times beside the shipped one: in the radius-2
+// builds on an aligned pack, a persistent grid whose warps copy their 32
+// rows into shared memory by cp.async, the next chunk's while this one is
+// served (window_rows<M, P, true>); each row unstaged into val[M] registers
+// beside d2, the tournament carrying the value (idw_query), the prologue
+// computed when the chunk is issued and again when it is served.  The
+// shipped radius-2 build keeps the row in shared memory, carries no value
+// and runs the prologue once.
 //
 // It exports the shipped file's C interface but for auvtpu_window_idw and
 // auvtpu_window_idw_attributes, which launch and describe the variant, so

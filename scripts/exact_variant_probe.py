@@ -4,14 +4,19 @@ alone, in one process on one NVIDIA GPU.
 
 Run from the root of a checkout:
 
-    python3 scripts/exact_variant_probe.py [--parent DIR]
+    python3 scripts/exact_variant_probe.py [--parent DIR] [--radii 3,16]
 
 The designs:
 
 - ``this``: the checkout's ``csrc/exact_select.cu`` (B14's eight entries
   in registers, B13's keys read with the query where every query is
-  aligned), each case walking the validity bit plane (built first) and
-  reading the validity plane itself, timed first and last;
+  aligned; radius 10 runs builds of its own, any other the builds that
+  take the radius at run time), each case walking the validity bit plane
+  (built first) and reading the validity plane itself, timed first and
+  last;
+- ``dense_runtime``, ``ring_runtime``: the same with B13's or B14's
+  radius-10 launches sent to the builds that take the radius at run time
+  (what those builds cost at radius 10, in the same process);
 - ``prefetch``: the same with an L1 prefetch (``prefetch.global.L1``) of
   the elevation next to the anchor in the rows above and below it, where
   the picks of a walk that stops in ring 1 lie, issued before the walk;
@@ -20,8 +25,13 @@ The designs:
   blocks an SM for B14 (4) or B13 (5), which caps the registers a thread;
 - ``parent`` (with ``--parent DIR``, a version unpacked with ``git archive
   <commit> auvtpu_torch/csrc | tar -x -C DIR``, whose C interface is
-  commit 22509cc's): the f64 validity plane read lane by lane, B14's
-  45-entry list in local memory, B13's residue planes always.
+  commit 8e214ae's): the kernels built for radius 10 alone (``kR``), the
+  radius not an argument.
+
+Every design runs at radius 10, the callers' default; ``this`` also at
+each radius of ``--radii`` (default 3 and 16: one piece a pass, and the
+top and bottom passes in two pieces from ring 16 on), its cases named
+with the radius.
 
 Each variant is a copy of ``csrc/`` with ``exact_select.cu`` patched as
 text (the probe stops if a patch no longer matches the source), built with
@@ -70,13 +80,15 @@ __device__ __forceinline__ void prefetch_pair(const T* elev, int H, int W, int g
 }
 """
 DENSE_WALK = "  auto held = [&]() { return count >= 4; };\n"
-RING_WALK = "    if constexpr (BITS)\n      ring_walk(BitPlane{a.bits, a.H, a.W}, (int)ci, (int)cj, take, held);"
+RING_WALK = "    if constexpr (BITS)\n      ring_walk<RC>(BitPlane{a.bits, a.H, a.W}, (int)ci, (int)cj, rmax, take, held);"
 PATCHES = {
     "prefetch": [("constexpr int kThreads = 256;\n", "constexpr int kThreads = 256;\n" + PREFETCH),
                  (DENSE_WALK, DENSE_WALK + "  prefetch_pair(a.elev, a.H, W, row - 1, col);\n"
                               "  prefetch_pair(a.elev, a.H, W, row + 1, col);\n"),
                  (RING_WALK, "    prefetch_pair(a.elev, a.H, a.W, (int)cj - 1, (int)ci);\n"
                              "    prefetch_pair(a.elev, a.H, a.W, (int)cj + 1, (int)ci);\n" + RING_WALK)],
+    "dense_runtime": [("  if (a.R == kBuiltRadius)\n    dense_at<", "  if (false)\n    dense_at<")],
+    "ring_runtime": [("  if (a.R == kBuiltRadius)\n    ring_at<", "  if (false)\n    ring_at<")],
     "threads128": [("constexpr int kThreads = 256;", "constexpr int kThreads = 128;")],
     "ring_min4": [("__global__ void __launch_bounds__(kThreads) ring_kernel(",
                    "__global__ void __launch_bounds__(kThreads, 4) ring_kernel(")],
@@ -84,9 +96,9 @@ PATCHES = {
                     "__global__ void __launch_bounds__(kThreads, 5) dense_kernel(")],
 }
 P, I, D = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
-# commit 22509cc's interface: no bit plane scratch, no aligned flag
-PARENT_DENSE = [I, P, P, I, I, P, P, I, P, P, D, P, P, P, P, P, P, P]
-PARENT_RING = [I, P, P, I, I, P, P, I, I, P, P, P, P, P, P, P, D, P, P, P, P, P, P]
+# commit 8e214ae's interface: no radius (the kernels' kR = 10)
+PARENT_DENSE = [I, P, P, I, I, P, I, P, I, P, P, D, P, P, P, P, P, P, P, P]
+PARENT_RING = [I, P, P, I, I, P, P, I, I, P, P, P, P, P, P, P, D, P, P, P, P, P, P, P]
 
 
 def patched(src: str, edits) -> str:
@@ -126,13 +138,11 @@ def build_variants(parent: str | None) -> dict:
 
 def load(path, name: str, real):
     lib = ctypes.CDLL(str(path))
-    if name == "parent":
-        lib.auvtpu_exact_dense.argtypes, lib.auvtpu_exact_ring.argtypes = PARENT_DENSE, PARENT_RING
-        lib.auvtpu_exact_dense.restype = lib.auvtpu_exact_ring.restype = I
-        return lib
     for fn in ("auvtpu_exact_dense", "auvtpu_exact_ring", "auvtpu_exact_attributes"):
         getattr(lib, fn).argtypes = getattr(real, fn).argtypes
         getattr(lib, fn).restype = getattr(real, fn).restype
+    if name == "parent":
+        lib.auvtpu_exact_dense.argtypes, lib.auvtpu_exact_ring.argtypes = PARENT_DENSE, PARENT_RING
     return lib
 
 
@@ -149,9 +159,10 @@ def ptr(t):
     return t.data_ptr() if t is not None else None
 
 
-def launchers(lib, parent: bool, g, dense_in, planes, ring_in, ring_qc, sc_grid, sc_in, tabs):
-    """{case: a function making (launch, outputs)}: each case's launch
-    straight through the library into outputs allocated once."""
+def launchers(lib, parent: bool, g, dense_in, planes, ring_in, ring_qc, sc_grid, sc_in, tabs, R: int = 10):
+    """{case: a function making (launch, outputs)}: each case's launch at
+    radius ``R`` (the parent's: 10) straight through the library into
+    outputs allocated once."""
     from auvtpu_torch.config import KrigingConfig
 
     tol = KrigingConfig().pivot_tol
@@ -180,13 +191,11 @@ def launchers(lib, parent: bool, g, dense_in, planes, ring_in, ring_qc, sc_grid,
         b = bits(g, walk)
         f64 = int(g.elev.dtype == torch.float64)
 
+        head = (f64, ptr(g.elev), ptr(g.valid), H, W) + (() if parent else (R,))
+
         def launch():
-            if parent:
-                err = lib.auvtpu_exact_dense(f64, ptr(g.elev), ptr(g.valid), H, W, ptr(planes), ptr(flat_q), n,
-                                             *map(ptr, tb), tol, *optr, st)
-            else:
-                err = lib.auvtpu_exact_dense(f64, ptr(g.elev), ptr(g.valid), H, W, ptr(res), int(aligned),
-                                             ptr(flat_q), n, *map(ptr, tb), tol, *optr, ptr(b), st)
+            err = lib.auvtpu_exact_dense(*head, ptr(res), int(aligned), ptr(flat_q), n, *map(ptr, tb), tol, *optr,
+                                         ptr(b), st)
             if err:
                 raise RuntimeError(f"B13 launch failed ({err})")
         return launch, outs
@@ -206,30 +215,33 @@ def launchers(lib, parent: bool, g, dense_in, planes, ring_in, ring_qc, sc_grid,
         qcol, qrow = qc if qc is not None else (None, None)
         b = bits(grid, walk)
         f64 = int(grid.elev.dtype == torch.float64)
-        head = (f64, ptr(grid.elev), ptr(grid.valid), H, W, ptr(ci), ptr(cj), n, int(variant is None), ptr(variant),
-                ptr(k0), ptr(k1), ptr(qcol), ptr(qrow), *map(ptr, tb), tol, *optr)
+        head = ((f64, ptr(grid.elev), ptr(grid.valid), H, W) + (() if parent else (R,)) +
+                (ptr(ci), ptr(cj), n, int(variant is None), ptr(variant), ptr(k0), ptr(k1), ptr(qcol), ptr(qrow),
+                 *map(ptr, tb), tol, *optr))
 
         def launch():
-            err = lib.auvtpu_exact_ring(*head, st) if parent else lib.auvtpu_exact_ring(*head, ptr(b), st)
+            err = lib.auvtpu_exact_ring(*head, ptr(b), st)
             if err:
                 raise RuntimeError(f"B14 launch failed ({err})")
         return launch, outs
 
     def cases(walk: str) -> dict:
-        return {f"B13 solve aligned, {walk}": lambda: dense(True, True, walk),
-                f"B13 select aligned, {walk}": lambda: dense(True, False, walk),
-                f"B13 solve planes, {walk}": lambda: dense(False, True, walk),
-                f"B13 select planes, {walk}": lambda: dense(False, False, walk),
-                f"B14 round, {walk}": lambda: ring(walk, g, *ring_in),
-                f"B14 solve, {walk}": lambda: ring(walk, g, *ring_in, qc=ring_qc),
-                f"B14 scattered, {walk}": lambda: ring(walk, sc_grid, *sc_in, None)}
+        at = "" if R == 10 else f"R={R} "
+        return {f"{at}B13 solve aligned, {walk}": lambda: dense(True, True, walk),
+                f"{at}B13 select aligned, {walk}": lambda: dense(True, False, walk),
+                f"{at}B13 solve planes, {walk}": lambda: dense(False, True, walk),
+                f"{at}B13 select planes, {walk}": lambda: dense(False, False, walk),
+                f"{at}B14 round, {walk}": lambda: ring(walk, g, *ring_in),
+                f"{at}B14 solve, {walk}": lambda: ring(walk, g, *ring_in, qc=ring_qc),
+                f"{at}B14 scattered, {walk}": lambda: ring(walk, sc_grid, *sc_in, None)}
 
-    return cases("bits") if parent else {**cases("bits"), **cases("valid")}
+    return {**cases("bits"), **cases("valid")}
 
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--parent", help="a version unpacked with git archive (commit 22509cc's C interface)")
+    ap.add_argument("--parent", help="a version unpacked with git archive (commit 8e214ae's C interface)")
+    ap.add_argument("--radii", default="3,16", help="the radii besides 10 at which this checkout's build runs")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("exact_variant_probe: torch sees no CUDA device", file=sys.stderr)
@@ -250,13 +262,14 @@ def main() -> int:
     g = RegularGrid.from_nan_array(reduced, KERGUELEN_EXTENT, dtype=torch.float64, device=dev)
     rows, cols = rc[:, 0].astype(np.int64), rc[:, 1].astype(np.int64)
     q = texact.prepare_exact_queries(g, rows, cols)
-    flat_a, keys, flat_q, aligned = tfast._dense_inputs(g, q, rows, cols)
+    flat_a, keys, flat_q = tfast._round_queries(g, rows, cols)[1]
     if flat_a is not None:
         raise AssertionError("the stand-in's queries are all aligned")
     H, W = g.shape
     planes = torch.zeros((2, H * W), dtype=torch.float32, device=dev)
     planes[:, flat_q] = keys
-    tabs = tfast._reference_tables(g, 10)
+    radii = [int(r) for r in args.radii.split(",") if r]
+    tabs = {R: tfast._reference_tables(g, R) for R in (10, *radii)}
     ci, cj, variant, ex, ey = texact._cell_keys(g, q, None)
     ring_in = (ci, cj, ex, ey, variant)
     ring_qc = (texact._on(g, cols), texact._on(g, rows))
@@ -266,31 +279,34 @@ def main() -> int:
     _, _, xa, ya, cia, cja, _ = texact._prepare_scattered(gA, lo, la, "round")
     sc_in = [texact._on(gA, a, t) for a, t in ((cia, torch.int64), (cja, torch.int64), (xa, torch.float64),
                                                 (ya, torch.float64))]
-    want = {
-        "B13 solve": es.dense_krige_ref(g.elev, g.valid, None, keys, flat_q, *tabs, 10),
-        "B13 select": es.dense_select_ref(g.elev, g.valid, None, keys, flat_q, 10),
-        "B14 round": es.ring_select_ref(g.elev, g.valid, ci, cj, ex, ey, variant, 10, 16384),
-        "B14 solve": es.ring_krige_ref(g.elev, g.valid, ci, cj, variant, ex, ey, *ring_qc, *tabs, 10, 16384),
-        "B14 scattered": es.ring_select_ref(gA.elev, gA.valid, *sc_in, None, 10, 16384),
-    }
+    want = {}
+    for R in (10, *radii):
+        at = "" if R == 10 else f"R={R} "
+        want.update({
+            f"{at}B13 solve": es.dense_krige_ref(g.elev, g.valid, None, keys, flat_q, *tabs[R], R),
+            f"{at}B13 select": es.dense_select_ref(g.elev, g.valid, None, keys, flat_q, R),
+            f"{at}B14 round": es.ring_select_ref(g.elev, g.valid, ci, cj, ex, ey, variant, R, 16384),
+            f"{at}B14 solve": es.ring_krige_ref(g.elev, g.valid, ci, cj, variant, ex, ey, *ring_qc, *tabs[R], R, 16384),
+            f"{at}B14 scattered": es.ring_select_ref(gA.elev, gA.valid, *sc_in, None, R, 16384),
+        })
     order = ["this", *PATCHES, *(["parent"] if args.parent else []), "this"]
     res = {"card": card, "variants": {}}
     for name in order:
         lib = load(paths[name], name, real)
         row = res["variants"].setdefault(name, {"cases": {}})
-        if name != "parent":
-            row["attributes (registers, local bytes, blocks/SM)"] = attributes(lib)
-        cases = launchers(lib, name == "parent", g, (keys, flat_q), planes, ring_in, ring_qc, gA, sc_in, tabs)
+        row["attributes (registers, local bytes, blocks/SM)"] = attributes(lib)
+        cases = {}
+        for R in (10, *(radii if name == "this" else ())):
+            cases.update(launchers(lib, name == "parent", g, (keys, flat_q), planes, ring_in, ring_qc, gA, sc_in,
+                                   tabs[R], R))
         for case, make in cases.items():
-            if name == "parent" and "aligned" in case:
-                continue  # the parent reads the residue planes always
             launch, outs = make()
             launch()
             torch.cuda.synchronize()
             ref = want[case.split(",")[0].replace(" aligned", "").replace(" planes", "")]
             cs.exact_equal(outs, ref, f"variant {name}: {case}")
             t = cs.device_ms(launch, None)
-            t_bits = cs.device_ms(launch, "bits_kernel") if name != "parent" and case.endswith("bits") else 0.0
+            t_bits = cs.device_ms(launch, "bits_kernel") if case.endswith("bits") else 0.0
             row["cases"].setdefault(case, []).append((t, t_bits))
             print(f"{name:10s} {case:26s} {t:.4f} ms alone (bit plane {t_bits:.4f} of it), bit-equal to plain  "
                   f"[{card}]", flush=True)

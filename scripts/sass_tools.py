@@ -48,6 +48,42 @@ def sass_instructions(lib_path, match: str) -> int:
     return len(_INSTRUCTION.findall(found[0][1]))
 
 
+def loop_instructions(lib_path, match: str, marker: str) -> list[int]:
+    """The static instruction counts of the innermost loops of the one
+    kernel whose demangled name holds ``match`` that hold an instruction
+    whose opcode starts with ``marker`` (a loop: a branch back to an earlier
+    instruction, by address or by label), in address order; a loop that
+    holds another such loop is not counted."""
+    found = sass_functions(str(lib_path), [match])
+    if len(found) != 1:
+        raise AssertionError(f"SASS of {lib_path}: {len(found)} kernels named {match!r}")
+    at, labels, branches, marked, n = {}, {}, [], [], 0
+    for line in found[0][1].splitlines():
+        label = re.match(r"\s*(\.L_x_\d+):", line)
+        if label:
+            labels[label.group(1)] = n
+            continue
+        ins = _INSTRUCTION.search(line)
+        if not ins:
+            continue
+        at[int(re.search(r"/\*([0-9a-f]{4,})\*/", line).group(1), 16)] = n
+        op = _OPCODE.search(line)
+        if op and op.group(1).startswith(marker):
+            marked.append(n)
+        target = re.search(r"\bBRA\S*\s+(?:!?U?P\w+\s*,\s*)?(?:`\((\.L_x_\d+)\)|(0x[0-9a-f]+))", ins.group(1))
+        if target:
+            branches.append((n, target.group(1) or int(target.group(2), 16)))
+        n += 1
+    loops = set()
+    for i, t in branches:
+        j = labels.get(t) if isinstance(t, str) else at.get(t)
+        if j is not None and j <= i:
+            loops.add((j, i))
+    hits = [(lo, hi) for lo, hi in sorted(loops) if any(lo <= m <= hi for m in marked)]
+    inner = [(lo, hi) for lo, hi in hits if not any((a, b) != (lo, hi) and lo <= a and b <= hi for a, b in hits)]
+    return [hi - lo + 1 for lo, hi in inner]
+
+
 def sass_fingerprint(lib_path, match: str) -> dict:
     """{kernel<template arguments>: (static instruction count, sha256 of
     the instructions' text, 16 hex digits)} of the library's kernels whose

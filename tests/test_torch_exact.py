@@ -89,7 +89,7 @@ def _close(got, want, tol=PRED_TOL):
 # tables and query preparation
 # ---------------------------------------------------------------------------
 
-@pytest.mark.parametrize("max_radius", [2, 10])
+@pytest.mark.parametrize("max_radius", [2, 10, 3, 5])
 def test_tables_equal(max_radius):
     _equal(texact.exact_tables(max_radius).values(), jexact.exact_tables(max_radius).values())
     assert texact.exact_tables(max_radius).keys() == jexact.exact_tables(max_radius).keys()
@@ -186,13 +186,34 @@ METHODS = {
     "cubic": (texact.exact_cubic_at_cells, jexact.exact_cubic_at_cells),
     "bilinear": (texact.exact_bilinear_at_cells, jexact.exact_bilinear_at_cells),
 }
+# the entry points that select, at radii other than the default 10 (the
+# kernels take the radius at run time; tests/test_torch_cuda.py holds them
+# to these plain versions on a card)
+RADII = (3, 5)
 
 
-@pytest.mark.parametrize("method", list(METHODS))
+def _at_radius(tfn, jfn, radius, **kw):
+    return (lambda g, r, c: tfn(g, r, c, max_radius=radius, **kw),
+            lambda g, r, c: jfn(g, r, c, max_radius=radius, **kw))
+
+
+AT_RADIUS = {
+    f"{method}_r{radius}": _at_radius(tfn, jfn, radius, **kw)
+    for radius in RADII
+    for method, tfn, jfn, kw in (
+        ("strict", texact.exact_kriging_at_cells, jexact.exact_kriging_at_cells, {}),
+        ("two_tier_table", tfast.exact_kriging_at_cells_fast, jfast.exact_kriging_at_cells_fast, {}),
+        ("two_tier_coords", tfast.exact_kriging_at_cells_fast, jfast.exact_kriging_at_cells_fast,
+         {"solve": "coords"}),
+        ("cubic", texact.exact_cubic_at_cells, jexact.exact_cubic_at_cells, {}))
+}
+
+
+@pytest.mark.parametrize("method", list(METHODS) + list(AT_RADIUS))
 @pytest.mark.parametrize("name", PRED_GRIDS)
 def test_cell_predictions_within_1e9(name, method):
     jg, tg, rc = pair(name, np.float64)
-    tfn, jfn = METHODS[method]
+    tfn, jfn = METHODS.get(method) or AT_RADIUS[method]
     _close(tfn(tg, rc[:, 0], rc[:, 1]), jfn(jg, rc[:, 0], rc[:, 1]))
 
 
@@ -220,15 +241,20 @@ def _scattered_queries(ext, n=2000, seed=0):
             np.concatenate([lats, ext.min_lat + u * h, ext.min_lat + u * h]))
 
 
-@pytest.mark.parametrize("method", ["kriging", "cubic", "bilinear"])
+@pytest.mark.parametrize("method", ["kriging", "cubic", "bilinear"] +
+                         [f"{m}_r{r}" for m in ("kriging", "cubic") for r in RADII])
 @pytest.mark.parametrize("name", ["64x80_r0.5", "sparse_40x56"])
 def test_scattered_predictions_within_1e9(name, method):
+    # kriging_r3 etc.: the entry point at max_radius 3 (cubic: its ring
+    # fallback's radius)
     jg, tg, _ = pair(name, np.float64)
     lons, lats = _scattered_queries(GRIDS[name][4])
-    got = getattr(texact, f"exact_{method}_scattered")(tg, lons, lats)
-    _close(got, getattr(jexact, f"exact_{method}_scattered")(jg, lons, lats))
+    entry, _, radius = method.partition("_r")
+    kw = {"max_radius": int(radius)} if radius else {}
+    got = getattr(texact, f"exact_{entry}_scattered")(tg, lons, lats, **kw)
+    _close(got, getattr(jexact, f"exact_{entry}_scattered")(jg, lons, lats, **kw))
     # tensors on the grid's device are taken as they are
-    again = getattr(texact, f"exact_{method}_scattered")(tg, torch.as_tensor(lons), torch.as_tensor(lats))
+    again = getattr(texact, f"exact_{entry}_scattered")(tg, torch.as_tensor(lons), torch.as_tensor(lats), **kw)
     np.testing.assert_array_equal(again, got)
 
 

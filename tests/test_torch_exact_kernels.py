@@ -22,6 +22,12 @@ also where NaN and inf keys overflow on some lanes only.  The ops' fake
 implementations give the real outputs' shapes and dtypes.  The kernels themselves are held to these plain versions bit for
 bit on a card (tests/test_torch_cuda.py)."""
 
+import contextlib
+import ctypes
+import inspect
+import os
+import re
+
 import numpy as np
 import pytest
 import torch
@@ -351,7 +357,9 @@ def _bit_plane(valid):
 
 
 def _span(plane, gj, c0, n):
-    """BitPlane::span: cells c0 .. c0 + n - 1 of row gj as bits 0 .. n - 1."""
+    """BitPlane::span: cells c0 .. c0 + n - 1 (n <= 32) of row gj as bits
+    0 .. n - 1."""
+    assert n <= 32
     words, H, W = plane
     if not 0 <= gj < H:
         return 0
@@ -363,6 +371,20 @@ def _span(plane, gj, c0, n):
     return ((v >> (f0 & 31)) & ((1 << (hi - lo)) - 1)) << (lo - c0)
 
 
+def _ends(plane, gj, c0, n):
+    """BitPlane::ends: cells c0 and c0 + n - 1 of row gj as bits 0 and 1,
+    from the words of the row's first and last cell in the grid."""
+    words, H, W = plane
+    c1 = c0 + n - 1
+    lo, hi = max(c0, 0), min(c1, W - 1)
+    if not 0 <= gj < H or lo > hi:
+        return 0
+    f0, f1 = gj * W + lo, gj * W + hi
+    first = (int(words[f0 >> 5]) >> (f0 & 31)) & 1 if lo == c0 else 0
+    last = (int(words[f1 >> 5]) >> (f1 & 31)) & 1 if hi == c1 else 0
+    return first | last << 1
+
+
 def _interleaved(first, second):
     """The set bits of interleave(first, second), lowest first, as (bit k,
     from the second mask)."""
@@ -371,24 +393,37 @@ def _interleaved(first, second):
             yield b >> 1, bool(b & 1)
 
 
-def _walk(plane, ci, cj):
-    """ring_walk over the bit plane: the candidate lanes (dx, dy) of anchor
-    (ci, cj) in the kernel's order, to the first segment end holding 4."""
+PIECE = 32  # kPiece: a pass is read in pieces of at most 32 cells
+
+
+def _walk(plane, ci, cj, R=R):
+    """ring_walk over the bit plane at radius R: the candidate lanes (dx,
+    dy) of anchor (ci, cj) in the kernel's order, each pass in pieces of
+    32 cells (the top and bottom rows by dx, the columns by dy), rings up to
+    the last that holds a lane of the grid, to the first segment end
+    holding 4."""
+    _, H, W = plane
     out = []
-    if not (-R <= ci < plane[2] + R and -R <= cj < plane[1] + R):
+    if not (-R <= ci < W + R and -R <= cj < H + R):
         return out
+    rmax = min(R, max(ci, W - 1 - ci, cj, H - 1 - cj))
     up, mid, dn = (_span(plane, cj + d, ci - 1, 3) for d in (-1, 0, 1))
     segments = [[(0, 0)] if mid & 2 else [],
                 [(k - 1, 1 if b else -1) for k, b in _interleaved(up, dn)],
                 [(d, 0) for d, bit in ((-1, 1), (1, 4)) if mid & bit]]
-    for r in range(2, R + 1):
+    for r in range(2, rmax + 1):
         n = 2 * r + 1
-        top, bot = _span(plane, cj - r, ci - r, n), _span(plane, cj + r, ci - r, n)
-        side = [_span(plane, cj - r + 1 + k, ci - r, n) for k in range(n - 2)]
-        left = sum((w & 1) << k for k, w in enumerate(side))
-        right = sum(((w >> (n - 1)) & 1) << k for k, w in enumerate(side))
-        segments.append([(k - r, r if b else -r) for k, b in _interleaved(top, bot)])
-        segments.append([(r if b else -r, k - r + 1) for k, b in _interleaved(left, right)])
+        rows, cols = [], []
+        for p0 in range(0, n, PIECE):
+            w = min(PIECE, n - p0)
+            top, bot = _span(plane, cj - r, ci - r + p0, w), _span(plane, cj + r, ci - r + p0, w)
+            rows += [(p0 + k - r, r if b else -r) for k, b in _interleaved(top, bot)]
+        for p0 in range(0, n - 2, PIECE):
+            side = [_ends(plane, cj - r + 1 + p0 + k, ci - r, n) for k in range(min(PIECE, n - 2 - p0))]
+            left = sum((e & 1) << k for k, e in enumerate(side))
+            right = sum((e >> 1) << k for k, e in enumerate(side))
+            cols += [(r if b else -r, p0 + k - r + 1) for k, b in _interleaved(left, right)]
+        segments += [rows, cols]
     for seg in segments:
         out += seg
         if len(out) >= 4:
@@ -427,10 +462,10 @@ def _eight_entry_passes(keys, before, is_nan, nan_stops):
     return picks
 
 
-def _model_select(elev, plane, ci, cj, key, k0, k1, variant):
-    """B14 for one query through _walk and _eight_entry_passes: (found,
-    values, gi, gj)."""
-    lanes = _walk(plane, ci, cj)
+def _model_select(elev, plane, ci, cj, key, k0, k1, variant, R=R):
+    """B14 for one query through _walk and _eight_entry_passes at radius R:
+    (found, values, gi, gj, the walk's last ring with a candidate)."""
+    lanes = _walk(plane, ci, cj, R)
     with np.errstate(all="ignore"):
         if key == 0:
             ax, ay = -(variant >> 1), -(variant & 1)
@@ -448,20 +483,31 @@ def _model_select(elev, plane, ci, cj, key, k0, k1, variant):
     gi = [ci + lanes[p][0] if p is not None else 0 for p in picks]
     gj = [cj + lanes[p][1] if p is not None else 0 for p in picks]
     vals = [elev[gj[m], gi[m]] + elev.dtype.type(0) if p is not None else 0 for m, p in enumerate(picks)]
-    return len(lanes), vals, gi, gj
+    return len(lanes), vals, gi, gj, max((max(abs(dx), abs(dy)) for dx, dy in lanes), default=0)
+
+
+# the walk's cases: the grids at the default radius, and "grid@R" at radius
+# R (1 and 3: one piece a pass; 16: the top and bottom passes in two pieces
+# from ring 16 on; 40: in three from ring 32 on, the columns in two, and the
+# walk cut at the grid's last ring)
+WALK_CASES = ["awkward_r0.5", "swapped_ties", "sparse", "narrow_w20", "odd_w45", "full_list",
+              "sparse@1", "awkward_r0.5@3", "sparse@16", "odd_w45@16", "sparse@40", "narrow_w20@40"]
 
 
 @pytest.mark.parametrize("key", [0, 1], ids=["cell_aligned", "scattered"])
-@pytest.mark.parametrize("name", ["awkward_r0.5", "swapped_ties", "sparse", "narrow_w20", "odd_w45", "full_list"])
+@pytest.mark.parametrize("name", WALK_CASES)
 def test_the_kernels_walk_and_passes_written_out_equal_the_plain_selection(name, key):
     """Random anchors on and past the grid, with the tests' keys and with
     keys that overflow to inf or NaN on some lanes only (a NaN pass takes
     nothing, and every later one)."""
+    name, _, radius = name.partition("@")
+    radius = int(radius) if radius else R
     _, tg, _ = pair(name, np.float32)
     H, W = tg.shape
-    rng = np.random.default_rng(len(name))
-    n = 700
-    ci, cj = rng.integers(-3, W + 3, n), rng.integers(-3, H + 3, n)
+    rng = np.random.default_rng(len(name) + radius)
+    n = 700 if radius == R else 300
+    margin = 3 if radius == R else radius + 2
+    ci, cj = rng.integers(-margin, W + margin, n), rng.integers(-margin, H + margin, n)
     if key == 0:
         variant = rng.integers(0, 4, n).astype(np.int32)
         k0, k1 = (_ODD_KEYS[rng.integers(0, len(_ODD_KEYS), n)] for _ in range(2))
@@ -471,14 +517,19 @@ def test_the_kernels_walk_and_passes_written_out_equal_the_plain_selection(name,
         k0, k1 = ci + rng.uniform(-0.5, 0.5, n), cj + rng.uniform(-0.5, 0.5, n)
         k0[::13], k1[::17], k0[::29] = np.nan, np.inf, -1e308
         args = (ci, cj, k0, k1, None)
-    want = es.ring_select(tg, *(torch.as_tensor(a) if a is not None else None for a in args))
+    want = es.ring_select(tg, *(torch.as_tensor(a) if a is not None else None for a in args), max_radius=radius)
     plane = _bit_plane(tg.valid.numpy())
     elev = tg.elev.numpy()
+    reach = 0
     for i in range(n):
-        f, v, gi, gj = _model_select(elev, plane, int(ci[i]), int(cj[i]), key, k0[i], k1[i], int(variant[i]))
+        f, v, gi, gj, ring = _model_select(elev, plane, int(ci[i]), int(cj[i]), key, k0[i], k1[i],
+                                           int(variant[i]), radius)
         assert f == int(want[0][i]), i
         np.testing.assert_array_equal(np.array(v, elev.dtype), want[1][i].numpy(), err_msg=str(i))
         assert gi == want[2][i].tolist() and gj == want[3][i].tolist(), i
+        reach = max(reach, ring)
+    # some walk takes a candidate in a pass of more than one piece
+    assert radius < 16 or reach >= 16, reach
 
 
 # ---------------------------------------------------------------------------
@@ -567,3 +618,64 @@ def test_the_wrappers_count_no_launch_on_the_cpu():
     tfast.exact_kriging_at_cells_fast(tg, rows, cols)
     texact.exact_kriging_at_cells(tg, rows, cols)
     assert es.LAUNCHES == {"exact_dense": 0, "exact_ring": 0}
+
+
+# ---------------------------------------------------------------------------
+# the C entries' signatures, and the radius handed to them
+# ---------------------------------------------------------------------------
+
+_CTYPES = {"int": ctypes.c_int, "double": ctypes.c_double, "void*": ctypes.c_void_p}
+_ARGTYPES = {"dense": "[I, P, P, I, I, I, P, I, P, I, P, P, D, P, P, P, P, P, P, P, P]",
+             "ring": "[I, P, P, I, I, I, P, P, I, I, P, P, P, P, P, P, P, D, P, P, P, P, P, P, P]"}
+
+
+@pytest.mark.parametrize("kind", ["dense", "ring"])
+def test_ctypes_arguments_follow_the_c_signature_and_carry_the_radius(kind):
+    """The wrapper's argtypes follow ``auvtpu_exact_<kind>``'s parameters in
+    ``csrc/exact_select.cu``, and a launch hands the caller's radius (and
+    the grid's H, W, the query count) to the parameters of those names."""
+    src = open(os.path.join(os.path.dirname(library.__file__), "..", "csrc", "exact_select.cu")).read()
+    sig = re.search(rf"int auvtpu_exact_{kind}\(([^)]*)\)", src).group(1)
+    params = [re.sub(r"\s+", " ", p.strip()).replace("const ", "").replace(" *", "* ").rsplit(" ", 1)
+              for p in sig.split(",")]
+    names = [name for _, name in params]
+    letter = {ctypes.c_int: "I", ctypes.c_double: "D", ctypes.c_void_p: "P"}
+    want = "[" + ", ".join(letter[_CTYPES[t]] for t, _ in params) + "]"
+    assert want == _ARGTYPES[kind], names
+    assert f"auvtpu_exact_{kind}.argtypes = {_ARGTYPES[kind]}" in inspect.getsource(es._lib.__wrapped__)
+
+    calls = []
+
+    class Fake:
+        def __getattr__(self, attr):
+            return self
+
+        def __call__(self, *args):
+            calls.append(args)
+            return 0
+
+    _, tg, rc = pair("awkward_r0.1", np.float64)
+    radius = 17
+    gpair, gq = tfast._reference_tables(tg, radius)
+    orig = (es._lib, es._stream, torch.cuda.device)
+    try:
+        es._lib, es._stream = (lambda: Fake()), (lambda dev: None)
+        torch.cuda.device = lambda dev: contextlib.nullcontext()
+        if kind == "dense":
+            flat_a, keys, flat_q = dense_operands(tg, rc)
+            es.dense_launch(tg.elev, tg.valid, flat_a, keys, flat_q, gpair, gq, radius)
+            n = len(flat_q)
+        else:
+            q = texact.prepare_exact_queries(tg, rc[:, 0], rc[:, 1])
+            ci, cj, variant, ex, ey = texact._cell_keys(tg, q, None)
+            es.ring_launch(tg.elev, tg.valid, ci, cj, ex, ey, variant, None, None, None, None, radius)
+            n = len(ci)
+    finally:
+        es._lib, es._stream, torch.cuda.device = orig
+    (args,) = calls
+    got = dict(zip(names, args))
+    assert (got["f64"], got["H"], got["W"], got["R"], got["n"]) == (1, *tg.shape, radius, n)
+    es.reset_launches()
+    with pytest.raises(ValueError, match="max_radius=0"):
+        es.dense_launch(tg.elev, tg.valid, None, keys if kind == "dense" else torch.zeros((2, 1)),
+                        torch.zeros(1, dtype=torch.int64), None, None, 0)
