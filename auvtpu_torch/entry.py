@@ -11,6 +11,7 @@ from .grid import RegularGrid
 from .masking import mask_grid
 from .ops.dense import fill_kriging
 from .synthetic import shelf_seamount
+from .utils.profiling import spanned
 from .variogram import fit_variogram
 
 
@@ -24,6 +25,7 @@ def tiny_masked_grid(h: int = 96, w: int = 64, removal: float = 0.2, *, device="
     )
 
 
+@spanned
 def fit_fill(grid: RegularGrid, *, backend: str = "fused"):
     """Fit an exponential variogram to ``grid``, krige-fill every cell with
     it, and keep the observed values.  Returns (filled plane, (nugget, sill,

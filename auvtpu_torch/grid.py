@@ -17,6 +17,7 @@ import numpy as np
 import torch
 
 from .config import Extent
+from .utils.profiling import span
 
 
 def as_dtype(v: float, dtype: torch.dtype) -> float:
@@ -32,10 +33,19 @@ def device_cache(maxsize: int):
     ``torch.compile``) traces the caller: a tensor made then is a constant
     of the traced program, a fake tensor while the trace runs, and must not
     enter a cache that live calls read.  Every such cache of the package is
-    one of these."""
+    one of these.  A miss runs ``fn`` inside the span
+    ``<module>.<function>:miss``, so a constant made again under a profiler
+    shows by name; a hit never opens it."""
 
     def wrap(fn):
-        cached = functools.lru_cache(maxsize=maxsize)(fn)
+        name = f"{fn.__module__}.{fn.__qualname__}:miss"
+
+        @functools.wraps(fn)
+        def miss(*args):
+            with span(name):
+                return fn(*args)
+
+        cached = functools.lru_cache(maxsize=maxsize)(miss)
 
         @functools.wraps(fn)
         def call(*args):

@@ -47,9 +47,10 @@ import torch
 
 from ..ops.band import _ceil_to
 from ..ops.scattered import saturating_index
+from ..utils.profiling import counters, reset
 from . import library
 
-LAUNCHES = {"band_resample": 0}
+LAUNCHES = counters("launches.band_resample", ("band_resample",))
 # masked queries resolve where the weights on the vmask sum above 1 - 1e-3,
 # the python constant JAX rounds to float32 (ops/band.py:217, :246)
 WSUM_THRESH = float(np.float32(1.0 - 1e-3))
@@ -58,7 +59,7 @@ IDENTITY = (0.0, 1.0, 0.0, 0.0, 1.0, 0.0)
 
 
 def reset_launches() -> None:
-    LAUNCHES["band_resample"] = 0
+    reset("launches.band_resample")
 
 
 @lru_cache(maxsize=None)

@@ -20,6 +20,8 @@ import subprocess
 import threading
 from pathlib import Path
 
+from ..utils.profiling import spanned
+
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "auvtpu_torch"
@@ -63,6 +65,7 @@ def library_path(name: str) -> Path:
     return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
 
 
+@spanned
 def build(name: str) -> Path:
     """Compile ``csrc/<name>.cu`` unless the library for these sources and
     flags exists.  Raises with nvcc's messages if the build fails."""
@@ -84,6 +87,7 @@ def build(name: str) -> Path:
     return out
 
 
+@spanned
 def load(name: str) -> ctypes.CDLL:
     """Build (if needed) and load ``csrc/<name>.cu``; one handle per process."""
     with _lock:

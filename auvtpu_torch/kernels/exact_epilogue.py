@@ -37,9 +37,10 @@ from functools import lru_cache
 import torch
 
 from ..config import KrigingConfig, VariogramConfig
+from ..utils.profiling import counters, reset
 from . import library
 
-LAUNCHES = {"exact_krige": 0, "exact_patch": 0}
+LAUNCHES = counters("launches.exact_epilogue", ("exact_krige", "exact_patch"))
 KINDS = {"bilinear": 0, "cubic": 1}
 _F64 = torch.float64
 _GRID_DTYPES = (torch.float32, torch.float64)
@@ -47,8 +48,7 @@ _INDEX_DTYPES = (torch.int32, torch.int64)
 
 
 def reset_launches() -> None:
-    for name in LAUNCHES:
-        LAUNCHES[name] = 0
+    reset("launches.exact_epilogue")
 
 
 @lru_cache(maxsize=None)

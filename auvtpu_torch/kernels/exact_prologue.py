@@ -31,9 +31,10 @@ from types import SimpleNamespace
 
 import torch
 
+from ..utils.profiling import counters, reset
 from . import library
 
-LAUNCHES = {"exact_prologue": 0}
+LAUNCHES = counters("launches.exact_prologue", ("exact_prologue",))
 KEYS, GEO, GRID, ALIGNED, FLAT = 1, 2, 4, 8, 16
 CELL_FIELDS = KEYS | GEO | GRID | ALIGNED | FLAT
 _F64 = torch.float64
@@ -41,8 +42,7 @@ _IN_TYPES = {torch.int32: 0, torch.int64: 1, torch.float64: 2}
 
 
 def reset_launches() -> None:
-    for name in LAUNCHES:
-        LAUNCHES[name] = 0
+    reset("launches.exact_prologue")
 
 
 @lru_cache(maxsize=None)

@@ -48,9 +48,10 @@ from functools import lru_cache
 import torch
 
 from ..config import KrigingConfig
+from ..utils.profiling import counters, reset
 from . import library
 
-LAUNCHES = {"exact_dense": 0, "exact_ring": 0}
+LAUNCHES = counters("launches.exact_select", ("exact_dense", "exact_ring"))
 # the callers' default radius, which has builds of its own (kBuiltRadius of
 # csrc/exact_select.cu); the kernels take any other from 1 to MAX_RADIUS
 RADIUS = 10
@@ -66,8 +67,7 @@ _GRID_DTYPES = (torch.float32, torch.float64)
 
 
 def reset_launches() -> None:
-    for name in LAUNCHES:
-        LAUNCHES[name] = 0
+    reset("launches.exact_select")
 
 
 @lru_cache(maxsize=None)

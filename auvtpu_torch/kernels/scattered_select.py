@@ -62,20 +62,20 @@ from ..config import IDWConfig, KrigingConfig
 from ..grid import RegularGrid, as_dtype, device_cache
 from ..ops.packs import SENTINEL, pack_width, window_offsets
 from ..ops.scattered import _nan_like, _normalize, cell_centres, centre_cells, krige_solve_cols, queries
+from ..utils.profiling import counters, reset, span, spanned
 from . import library
 from .window_fill import _MODELS
 
 # one count per TPU kernel replaced
-LAUNCHES = {"select_rows": 0, "idw_rows": 0, "window_select_fused": 0, "select_krige": 0, "window_krige": 0,
-            "window_idw": 0}
+LAUNCHES = counters("launches.scattered_select", ("select_rows", "idw_rows", "window_select_fused", "select_krige",
+                                                "window_krige", "window_idw"))
 _MODES = {"rows_t": "select_rows", "idw": "idw_rows", "rows_n": "window_select_fused"}
 KERNEL_P = (16, 32, 64)  # pack widths the kernel is built for (radius <= 3)
 INF = 3e30  # d2 of an invalid tap (valid_select.py:62)
 
 
 def reset_launches() -> None:
-    for name in LAUNCHES:
-        LAUNCHES[name] = 0
+    reset("launches.scattered_select")
 
 
 @lru_cache(maxsize=None)
@@ -414,11 +414,12 @@ def idw_launch(pack, P: int, qlon, qlat, taps, geo, num_lon: int, num_lat: int, 
     out = torch.empty((1 + int(resolve_thresh is not None), n), dtype=torch.float32, device=pack.device)
     if n == 0:
         return out
-    with torch.cuda.device(pack.device):
+    resolve = resolve_thresh is not None
+    thresh, stream = float(resolve_thresh) if resolve else 0.0, _stream(pack.device)
+    with torch.cuda.device(pack.device), span("auvtpu_torch.kernels.scattered_select.idw_launch:call"):
         err = _lib().auvtpu_idw_select(
             pack.data_ptr(), P, M, qlon.data_ptr(), qlat.data_ptr(), host_taps, n, num_lon, num_lat, host_geo, k,
-            int(resolve_thresh is not None), 0.0 if resolve_thresh is None else float(resolve_thresh), float(eps),
-            out.data_ptr(), _stream(pack.device),
+            int(resolve), thresh, float(eps), out.data_ptr(), stream,
         )
     _raise_on(err, name)
     LAUNCHES[name] += 1
@@ -454,6 +455,7 @@ def window_launch(pack, P: int, cell, fx, fy, tab, taps, k: int):
 # kernel, with its plain version
 # ---------------------------------------------------------------------------
 
+@spanned
 def idw_select(pack, P: int, offs, R: int, grid: RegularGrid, lons, lats, *, k: int = 8, convention: str = "reference", resolve_thresh=None):
     """k-nearest IDW with power 2 over the pack rows of ``offs`` (B6):
     (1[+1], N) f32 rows [value, (resolved)].  The value is sum w*v /
@@ -548,6 +550,7 @@ def select_krige_plain(pack, P: int, tab, R: int, grid: RegularGrid, lons, lats,
     return torch.stack([res] + ([rows[9]] if resolve_thresh is not None else []))
 
 
+@spanned
 def select_krige(pack, P: int, offs, R: int, grid: RegularGrid, lons, lats, *, convention: str = "reference", vparams=None, model: str = "exponential", resolve_thresh=None):
     """Ordinary kriging from the k=4 selection over the pack rows of
     ``offs`` (B11): (1[+1], N) f32 rows [prediction, (resolved)].  The
@@ -593,11 +596,12 @@ def krige_launch(pack, P: int, qlon, qlat, vario, taps, geo, num_lon: int, num_l
     if n == 0:
         return out
     ptrs, keep = _vario_pointers(vario, dev, name)
-    with torch.cuda.device(dev):
+    stream = _stream(dev)
+    with torch.cuda.device(dev), span("auvtpu_torch.kernels.scattered_select.krige_launch:call"):
         err = _lib().auvtpu_select_krige(
             pack.data_ptr(), P, M, qlon.data_ptr(), qlat.data_ptr(), host_taps, n, num_lon, num_lat,
             host_geo, _NO_VARIO, *ptrs, _MODELS[model], int(resolve),
-            float(resolve_thresh) if resolve else 0.0, out.data_ptr(), _stream(dev),
+            float(resolve_thresh) if resolve else 0.0, out.data_ptr(), stream,
         )
     del keep
     _raise_on(err, name)

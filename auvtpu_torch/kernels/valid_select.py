@@ -30,6 +30,7 @@ import torch
 
 from ..grid import RegularGrid
 from ..ops.packs import VALID16_OFFSETS, pack_width
+from ..utils.profiling import spanned
 from .scattered_select import _window, idw_select, prologue, select, select_krige, table
 
 _VALID16 = tuple(VALID16_OFFSETS)
@@ -63,6 +64,7 @@ def valid_select_t(pack16, grid: RegularGrid, lons, lats):
     }
 
 
+@spanned
 def kriging_valid_t(pack16, grid: RegularGrid, lons, lats, *, vparams=None, model: str = "exponential"):
     """Kriging on a FULLY VALID grid (reference convention) with the valid16
     selection and the solve in B11 (``pallas_kriging_valid``)."""
@@ -88,6 +90,7 @@ def packed_kriging_t(pack, grid: RegularGrid, lons, lats, *, window_radius: int 
     return out[0], resolved, (~resolved).sum()
 
 
+@spanned
 def packed_idw_t(pack, grid: RegularGrid, lons, lats, *, k: int = 8, window_radius: int = 2, convention: str = "reference", resolve_thresh=None):
     """k-nearest IDW with power 2 (w = 1/(d2+eps)) over the full radius-R
     window pack, the query prologue, the selection, the weighted sums and

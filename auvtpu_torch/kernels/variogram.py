@@ -38,9 +38,10 @@ import torch
 import torch.nn.functional as F
 
 from ..grid import device_cache
+from ..utils.profiling import counters, reset, span
 from . import library
 
-LAUNCHES = {"pair_sums": 0, "fit_model": 0}
+LAUNCHES = counters("launches.variogram", ("pair_sums", "fit_model"))
 
 MAX_LAG = 16  # the partner halo B9 stages in shared memory
 MAX_OUT = 1024  # bins B9 takes
@@ -50,8 +51,7 @@ _MODELS = {"exponential": 0, "linear": 1, "spherical": 2, "gaussian": 3}
 
 
 def reset_launches() -> None:
-    for name in LAUNCHES:
-        LAUNCHES[name] = 0
+    reset("launches.variogram")
 
 
 _P, _I, _D = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
@@ -216,10 +216,11 @@ def pair_sums_launch(elev, valid, table, n_rows: int, n_cols: int, col0: int, ma
     partials = torch.empty((max(n_cta, 1), n_out, 2), dtype=torch.float64, device=dev)
     out = torch.empty((2, n_out), dtype=torch.float64, device=dev)
     Hs, Ws = elev.shape
-    with torch.cuda.device(dev):
+    stream = _stream(dev)
+    with torch.cuda.device(dev), span("auvtpu_torch.kernels.variogram.pair_sums_launch:call"):
         err = _lib().auvtpu_pair_sums(
             elev.data_ptr(), pe, valid.data_ptr(), pv, int(elev.dtype == torch.float64), Hs, Ws, n_rows, n_cols,
-            col0, max_lag, table.data_ptr(), n_off, n_out, partials.data_ptr(), out.data_ptr(), _stream(dev),
+            col0, max_lag, table.data_ptr(), n_off, n_out, partials.data_ptr(), out.data_ptr(), stream,
         )
     _raise_on(err, "pair_sums")
     LAUNCHES["pair_sums"] += 1
@@ -346,11 +347,12 @@ def fit_launch(lags, gamma, counts, init, model: str, iters: int, stop: float):
         init = init.to(torch.float64).contiguous()
     out = torch.empty(3, dtype=gamma.dtype, device=dev)
     flags = torch.empty((iters, 2), dtype=torch.int8, device=dev)
-    with torch.cuda.device(dev):
+    stream = _stream(dev)
+    with torch.cuda.device(dev), span("auvtpu_torch.kernels.variogram.fit_launch:call"):
         err = _lib().auvtpu_fit_model(
             lags.data_ptr(), flags_in[0], gamma.data_ptr(), flags_in[1], counts.data_ptr(), flags_in[2], n,
             init.data_ptr() if init is not None else None, _MODELS[model], iters, stop, out.data_ptr(),
-            flags_in[1], flags.data_ptr() if iters else None, _stream(dev),
+            flags_in[1], flags.data_ptr() if iters else None, stream,
         )
     _raise_on(err, "fit_model")
     LAUNCHES["fit_model"] += 1

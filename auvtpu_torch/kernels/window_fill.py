@@ -47,15 +47,11 @@ from ..ops.dense import (
     window_topk_planes,
 )
 from ..tables import sorted_offsets
+from ..utils.profiling import counters, reset, span, spanned
 from . import library
 
-LAUNCHES = {
-    "topk_full": 0,
-    "topk_idx": 0,
-    "fill_kriging_fused": 0,
-    "fill_idw_fused": 0,
-    "fill_mean_fused": 0,
-}
+LAUNCHES = counters("launches.window_fill",
+                    ("topk_full", "topk_idx", "fill_kriging_fused", "fill_idw_fused", "fill_mean_fused"))
 
 MAX_K = 16  # slots the selection kernel keeps in registers
 _MODELS = {"exponential": 0, "linear": 1, "spherical": 2, "gaussian": 3}
@@ -63,8 +59,7 @@ _SOLVERS = {"gj": 0, "lu": 1}
 
 
 def reset_launches() -> None:
-    for name in LAUNCHES:
-        LAUNCHES[name] = 0
+    reset("launches.window_fill")
 
 
 @lru_cache(maxsize=None)
@@ -390,6 +385,7 @@ def _vario_params(vparams, dev, name: str):
     return vario, ptrs, keep
 
 
+@spanned
 def fill_kriging_fused(grid: RegularGrid, *, max_radius: int = 10, convention: str = "reference", vparams=None, model: str = "exponential", solver: str = "gj", with_variance: bool = False, row0=0, col0=0, steps=None):
     """Fused ordinary-kriging fill (B1): first-4-valid selection and the 5x6
     solve per cell in one kernel, one read of the grid and one write of the
@@ -429,11 +425,12 @@ def kriging_launch(grid: RegularGrid, vparams, *, max_radius: int, convention: s
     if H * W > 0:
         tab = _device_table(R, convention, dev)
         geo, vario, ptrs, keep = _kriging_params(grid, vparams, convention, row0, col0, steps, dev)
-        with torch.cuda.device(dev):
+        stream = _stream(dev)
+        with torch.cuda.device(dev), span("auvtpu_torch.kernels.window_fill.kriging_launch:call"):
             err = _lib().auvtpu_kriging_fill(
                 grid.elev.data_ptr(), pe, grid.valid.data_ptr(), pv, tab.data_ptr(), tab.shape[0], H, W, R,
                 geo, vario, *ptrs, _MODELS[model], _SOLVERS[solver], int(with_variance),
-                out.data_ptr(), _stream(dev),
+                out.data_ptr(), stream,
             )
         del keep
         _raise_on(err, "fill_kriging_fused")

@@ -22,7 +22,11 @@ import torch.nn.functional as F
 from ..config import IDWConfig, KrigingConfig
 from ..grid import RegularGrid
 from ..tables import CHUNK, padded_tables, ring_offsets, sorted_offsets  # noqa: F401 (re-exported, as the JAX module has them)
+from ..utils.profiling import counters, span, spanned
 from .scattered import krige_solve
+
+# the cells kriging fills solve and the cells kriging_at_cells returns
+FILL = counters("fill", ("cells_solved", "cells_returned"))
 
 
 def resolve_backend(backend: str, elev: torch.Tensor) -> str:
@@ -303,6 +307,7 @@ def krige_planes(grid: RegularGrid, selection, *, row0=0, col0=0, steps=None, vp
     return out.reshape(H, W)
 
 
+@spanned
 def fill_kriging(grid: RegularGrid, *, max_radius: int = 10, row0=0, col0=0, steps=None, vparams=None, convention: str = "reference", backend: str = "auto", model: str = "exponential", with_variance: bool = False):
     """Ordinary-kriging fill plane: first-4-valid selection, then a batched
     5x5 solve per cell (kernels.cu:478-546).
@@ -319,6 +324,9 @@ def fill_kriging(grid: RegularGrid, *, max_radius: int = 10, row0=0, col0=0, ste
         convention=convention, model=model, with_variance=with_variance,
     )
     backend = resolve_backend(backend, grid.elev)
+    if backend not in ("fused", "select", "torch"):
+        raise ValueError(backend)
+    FILL["cells_solved"] += grid.elev.numel()  # every backend solves the whole plane
     if backend == "fused":
         from ..kernels.window_fill import fill_kriging_fused
 
@@ -327,13 +335,12 @@ def fill_kriging(grid: RegularGrid, *, max_radius: int = 10, row0=0, col0=0, ste
         from ..kernels.window_fill import topk_full
 
         sel = topk_full(grid, k=4, max_radius=max_radius, convention=convention)
-    elif backend == "torch":
-        sel = window_topk_planes(grid, k=4, max_radius=max_radius, convention=convention)
     else:
-        raise ValueError(backend)
+        sel = window_topk_planes(grid, k=4, max_radius=max_radius, convention=convention)
     return krige_planes(grid, sel, **opts)
 
 
+@spanned
 def kriging_at_cells(grid: RegularGrid, rows, cols, *, max_radius: int = 10, vparams=None, convention: str = "reference", backend: str = "auto", model: str = "exponential"):
     """Kriging predictions at an explicit cell list: the dense fill plane,
     then the requested cells."""
@@ -341,9 +348,12 @@ def kriging_at_cells(grid: RegularGrid, rows, cols, *, max_radius: int = 10, vpa
         grid, max_radius=max_radius, vparams=vparams, convention=convention,
         backend=backend, model=model,
     )
-    rows = torch.as_tensor(rows, dtype=torch.int64).to(plane.device)
-    cols = torch.as_tensor(cols, dtype=torch.int64).to(plane.device)
-    return plane.reshape(-1)[rows * grid.num_lon + cols]
+    with span("auvtpu_torch.ops.dense.kriging_at_cells:gather"):
+        rows = torch.as_tensor(rows, dtype=torch.int64).to(plane.device)
+        cols = torch.as_tensor(cols, dtype=torch.int64).to(plane.device)
+        out = plane.reshape(-1)[rows * grid.num_lon + cols]
+    FILL["cells_returned"] += out.numel()
+    return out
 
 
 # ---------------------------------------------------------------------------

@@ -30,6 +30,7 @@ import torch
 
 from .grid import RegularGrid, device_cache, divisor
 from .kernels import variogram as kv
+from .utils.profiling import spanned
 
 
 @lru_cache(maxsize=8)
@@ -341,6 +342,7 @@ def fit_best_model(lags, gamma, counts, *, models=("exponential", "linear", "sph
     return best
 
 
+@spanned
 def fit_variogram(grid: RegularGrid, *, max_lag: int = 10, n_bins: int = 10, iters: int = 25):
     """Empirical variogram + exponential fit, lags scaled from index space to
     degrees by the mean grid step.  Returns (nugget, sill, range) as 0-d

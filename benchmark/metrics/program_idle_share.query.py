@@ -1,0 +1,3 @@
+"""Share of the traced query window with the device idle while the host is inside the program, in %."""
+
+from benchmark.yardstick.spans import program_idle_pct as read  # noqa: F401
