@@ -2,10 +2,11 @@
 // (sm_90a).  Plain C interface, loaded with ctypes by
 // auvtpu_torch/kernels/window_fill.py.
 //
-// Replaces four TPU kernels of auvtpu/pallas/window_fill.py:
+// Replaces four TPU kernels of auvtpu/pallas/window_fill.py, and adds B19:
 //   topk_tile_kernel<KCAP, CPT>  <- _make_topk_full_kernel    (B2, pallas_topk_full)
 //   topk_idx_kernel<KCAP>        <- _make_topk_kernel         (B4, pallas_topk_idx)
 //   kriging_fill_kernel          <- _make_kriging_fill_kernel (B1, pallas_fill_kriging)
+//   kriging_cells_kernel         <- none: B1 at a list of cells (B19, below)
 //   fill_tile_kernel<KIND, CPT>  <- _make_fill_kernel         (B3, pallas_fill_idw /
 //                                                              pallas_fill_mean)
 //
@@ -301,6 +302,38 @@ __device__ __forceinline__ float krige_cell(const CellIn& in, float nugget, floa
   return bail ? fb : pr;
 }
 
+// One cell's kriging at (r, c), row0/col0 placing it in a larger grid,
+// from its cnt <= 4 found neighbours: the table row t of slot s is bits
+// 16s.. of slots, a live slot (s < cnt) lies at offset off(t) with value
+// val(t, s), an empty one at (-R, -R) with value 0.  Returns (prediction,
+// variance).  B1 and B19 both solve through here, so that their answers
+// cannot drift apart.
+template <int MODEL, int SOLVER, bool VAR, class Off, class Val>
+__device__ __forceinline__ float2 krige_at(int r, int c, int cnt, unsigned long long slots, int R,
+                                           const KrigingParams& P, float nugget, float sill, float vrange, Off off,
+                                           Val val) {
+  CellIn in;
+  in.cnt = cnt;
+  // Absolute f32 degrees first, differences after: the cancellation is
+  // part of the reference answer (integers < 2^24 make col + col0 exact).
+  const float colf = (float)c + P.col0;
+  const float rowf = (float)r + P.row0;
+  in.qlon = P.min_lon + colf * P.lon_step;
+  in.qlat = P.min_lat + rowf * P.lat_step;
+#pragma unroll
+  for (int s = 0; s < 4; ++s) {
+    const bool live = s < in.cnt;
+    const int ts = (int)((slots >> (16 * s)) & 0xffffu);
+    const int2 o = live ? off(ts) : make_int2(-R, -R);
+    in.cx[s] = P.min_lon + ((colf + (float)o.x) + P.half) * P.lon_step;
+    in.cy[s] = P.min_lat + ((rowf + (float)o.y) + P.half) * P.lat_step;
+    in.vz[s] = live ? val(ts, s) : 0.f;
+  }
+  float var = 0.f;
+  const float pred = krige_cell<MODEL, SOLVER, VAR>(in, nugget, sill, vrange, P.pivot_tol, var);
+  return make_float2(pred, var);
+}
+
 // B1: first-4-valid selection and the kriging solve per cell, over a halo
 // tile in shared memory (halo_tile.cuh).  One block of BX x KBY threads
 // fills a BX-column, KBY*CPT-row tile of the output, CPT cells a thread
@@ -388,29 +421,116 @@ kriging_fill_kernel(const float* __restrict__ elev, int pe, const float* __restr
     const int cj = scnt[j * NT + tid];
     const int aj = (threadIdx.y + j * KBY + R) * tw + lane + R;
     const unsigned long long sj = sslots[j * NT + tid];
-    CellIn in;
-    in.cnt = cj;
-    // Absolute f32 degrees first, differences after: the cancellation is
-    // part of the reference answer (integers < 2^24 make col + col0 exact).
-    const float colf = (float)c + P.col0;
-    const float rowf = (float)r + P.row0;
-    in.qlon = P.min_lon + colf * P.lon_step;
-    in.qlat = P.min_lat + rowf * P.lat_step;
-#pragma unroll
-    for (int s = 0; s < 4; ++s) {
-      const bool live = s < in.cnt;
-      const int ts = (int)((sj >> (16 * s)) & 0xffffu);
-      const int2 o = live ? stab[ts] : make_int2(-R, -R);
-      in.cx[s] = P.min_lon + ((colf + (float)o.x) + P.half) * P.lon_step;
-      in.cy[s] = P.min_lat + ((rowf + (float)o.y) + P.half) * P.lat_step;
-      in.vz[s] = live ? tile[aj + soff[ts]] : 0.f;
-    }
-    float var = 0.f;
-    const float pred = krige_cell<MODEL, SOLVER, VAR>(in, nugget, sill, vrange, P.pivot_tol, var);
+    const float2 pv = krige_at<MODEL, SOLVER, VAR>(r, c, cj, sj, R, P, nugget, sill, vrange,
+                                                   [&](int t) { return stab[t]; },
+                                                   [&](int t, int) { return tile[aj + soff[t]]; });
     const size_t cell = (size_t)r * W + c;
-    out[cell] = pred;
-    if (VAR) out[plane + cell] = var;
+    out[cell] = pv.x;
+    if (VAR) out[plane + cell] = pv.y;
   }
+}
+
+// B19: B1 at a list of cells, for kriging at the masked cells of a tile
+// (ops.dense.kriging_at_cells), where B1 solves every cell of the plane and
+// the call keeps a tenth of them.  Replaces no Pallas kernel: on the TPU
+// the JAX package takes the whole plane from B1 and gathers the cells (its
+// random take costs ~30 ns an element there, the whole plane less); on the
+// H100 both planes of a tile (40 MB at 2053 x 2441) fit in the 50 MB L2
+// and a thread reads its own cell's neighbourhood at sector grain.
+//
+// One thread a listed cell, in list order, so every lane of a warp solves
+// (the cells of a mask lie all over the tile; a pass in tile order would
+// leave nine lanes in ten idle).  The table is staged once a block in
+// shared memory (each lane reads the same row: a broadcast).  The scan
+// (scan_cell) tests validity alone, with an in-grid test in place of B1's
+// halo; the four found cells' elevations are read after it.  A found
+// elevation that is NaN (a valid cell that B1's halo tile holds as NaN, so
+// no neighbour) sends the cell through the scan again, testing both as B1
+// does.  Then krige_at, as B1 solves; the answer is written at the cell's
+// position in the list (coalesced).  A cell outside the grid reads nothing
+// and gets NaN.  What bounds it is the memory system's service of scattered
+// sectors: a scan that read both planes at every row took 0.077 ms at the
+// stand-in's 501,137 masked cells, this one 0.056; reading the 3 x 3
+// block's validity in 16-byte loads first (4.5 loads for 8) saved 1 % there
+// and cost 13 % at every cell (PERF.md).
+constexpr int CT = 256;  // B19's threads a block
+constexpr int CB = 4;    // table rows a batch of B19's scan
+
+// B19's scan of cell (r, c): the table rows of its first four valid cells
+// in table order into slots, 16 bits each, and their count.  CB rows a
+// batch, every load of a batch issued before the first is tested (they
+// are L2 round trips, and one at a time left the thread waiting on each).
+// ELEV: valid as in B1's halo tile (valid > 0.5 and the elevation not
+// NaN), the found elevations into vz; else valid > 0.5 alone.
+template <bool ELEV>
+__device__ __forceinline__ int scan_cell(const float* __restrict__ elev, int pe, const float* __restrict__ valid,
+                                         int pv, const int2* ctab, int m, int H, int W, int r, int c,
+                                         unsigned long long& slots, float (&vz)[4]) {
+  int cnt = 0;
+  slots = 0ull;
+  for (int t0 = 0; t0 < m && cnt < 4; t0 += CB) {
+    float v[CB];
+#pragma unroll
+    for (int b = 0; b < CB; ++b) {
+      const int t = t0 + b;
+      const int2 o = t < m ? ctab[t] : make_int2(0, 0);
+      const int gr = r + o.y;
+      const int gc = c + o.x;
+      const bool in = t < m && gr >= 0 && gr < H && gc >= 0 && gc < W;
+      const float va = in ? __ldg(valid + (size_t)gr * pv + gc) : 0.f;
+      const float e = ELEV && in ? __ldg(elev + (size_t)gr * pe + gc) : 0.f;
+      v[b] = va > 0.5f ? e : NAN;
+    }
+#pragma unroll
+    for (int b = 0; b < CB; ++b) {
+      if (cnt < 4 && !isnan(v[b])) {
+        slots |= (unsigned long long)(t0 + b) << (16 * cnt);
+#pragma unroll
+        for (int s = 0; s < 4; ++s) vz[s] = s == cnt ? v[b] : vz[s];
+        ++cnt;
+      }
+    }
+  }
+  return cnt;
+}
+
+template <int MODEL, int SOLVER>
+__global__ void __launch_bounds__(CT)
+kriging_cells_kernel(const float* __restrict__ elev, int pe, const float* __restrict__ valid, int pv,
+                     const int2* __restrict__ tab, int m, int H, int W, int R, KrigingParams P,
+                     const long long* __restrict__ rows, const long long* __restrict__ cols, long long n,
+                     float* __restrict__ out) {
+  extern __shared__ int2 ctab[];
+  for (int t = threadIdx.x; t < m; t += CT) ctab[t] = __ldg(tab + t);
+  const long long i = (long long)blockIdx.x * CT + threadIdx.x;
+  const long long r64 = i < n ? __ldg(rows + i) : -1;
+  const long long c64 = i < n ? __ldg(cols + i) : -1;
+  const float nugget = P.p_vario[0] ? __ldg(P.p_vario[0]) : P.vario[0];
+  const float sill = P.p_vario[1] ? __ldg(P.p_vario[1]) : P.vario[1];
+  const float vrange = P.p_vario[2] ? __ldg(P.p_vario[2]) : P.vario[2];
+  __syncthreads();
+  if (i >= n) return;
+  if (r64 < 0 || r64 >= H || c64 < 0 || c64 >= W) {
+    out[i] = NAN;
+    return;
+  }
+  const int r = (int)r64;
+  const int c = (int)c64;
+  unsigned long long slots;
+  float vz[4] = {0.f, 0.f, 0.f, 0.f};
+  int cnt = scan_cell<false>(elev, pe, valid, pv, ctab, m, H, W, r, c, slots, vz);
+  bool nan_value = false;
+#pragma unroll
+  for (int s = 0; s < 4; ++s) {
+    if (s < cnt) {
+      const int2 o = ctab[(slots >> (16 * s)) & 0xffffu];
+      vz[s] = __ldg(elev + (size_t)(r + o.y) * pe + (c + o.x));
+      nan_value = nan_value || isnan(vz[s]);
+    }
+  }
+  if (nan_value) cnt = scan_cell<true>(elev, pe, valid, pv, ctab, m, H, W, r, c, slots, vz);
+  out[i] = krige_at<MODEL, SOLVER, false>(r, c, cnt, slots, R, P, nugget, sill, vrange,
+                                          [&](int t) { return ctab[t]; }, [&](int, int s) { return vz[s]; }).x;
 }
 
 enum FillKind { kIDW = 0, kMean = 1 };
@@ -583,6 +703,51 @@ int launch_kriging_model(int model, int solver, bool var, cudaStream_t st, const
   }
 }
 
+template <int MODEL, int SOLVER>
+int launch_cells(cudaStream_t st, const float* e, int pe, const float* va, int pv, const int2* tab, int m, int H,
+                 int W, int R, const KrigingParams& par, const long long* rows, const long long* cols, long long n,
+                 float* out) {
+  const size_t smem = sizeof(int2) * (size_t)m;
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(kriging_cells_kernel<MODEL, SOLVER>,
+                                                 cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return (int)err;
+  }
+  const unsigned blocks = (unsigned)((n + CT - 1) / CT);
+  kriging_cells_kernel<MODEL, SOLVER><<<blocks, CT, smem, st>>>(e, pe, va, pv, tab, m, H, W, R, par, rows, cols,
+                                                                 n, out);
+  return (int)cudaGetLastError();
+}
+
+template <int MODEL>
+int launch_cells_solver(int solver, cudaStream_t st, const float* e, int pe, const float* va, int pv,
+                        const int2* tab, int m, int H, int W, int R, const KrigingParams& par,
+                        const long long* rows, const long long* cols, long long n, float* out) {
+  return solver == kGJ ? launch_cells<MODEL, kGJ>(st, e, pe, va, pv, tab, m, H, W, R, par, rows, cols, n, out)
+                       : launch_cells<MODEL, kLU>(st, e, pe, va, pv, tab, m, H, W, R, par, rows, cols, n, out);
+}
+
+// B1's and B19's parameters from the C entries' geo and vario arrays and
+// the variogram's device pointers.
+KrigingParams kriging_params(const float* geo, const float* vario, const void* p_nugget, const void* p_sill,
+                             const void* p_range) {
+  KrigingParams par;
+  par.min_lon = geo[0];
+  par.min_lat = geo[1];
+  par.lon_step = geo[2];
+  par.lat_step = geo[3];
+  par.half = geo[4];
+  par.pivot_tol = geo[5];
+  par.row0 = geo[6];
+  par.col0 = geo[7];
+  const void* ptrs[3] = {p_nugget, p_sill, p_range};
+  for (int i = 0; i < 3; ++i) {
+    par.vario[i] = vario[i];
+    par.p_vario[i] = (const float*)ptrs[i];
+  }
+  return par;
+}
+
 }  // namespace
 
 extern "C" {
@@ -688,20 +853,7 @@ int auvtpu_kriging_fill(const void* elev, int pe, const void* valid, int pv, con
   cudaGetDevice(&dev);
   cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   const bool four = (long long)((W + BX - 1) / BX) * ((H + 4 * KBY - 1) / (4 * KBY)) >= 2LL * sms;
-  KrigingParams par;
-  par.min_lon = geo[0];
-  par.min_lat = geo[1];
-  par.lon_step = geo[2];
-  par.lat_step = geo[3];
-  par.half = geo[4];
-  par.pivot_tol = geo[5];
-  par.row0 = geo[6];
-  par.col0 = geo[7];
-  const void* ptrs[3] = {p_nugget, p_sill, p_range};
-  for (int i = 0; i < 3; ++i) {
-    par.vario[i] = vario[i];
-    par.p_vario[i] = (const float*)ptrs[i];
-  }
+  const KrigingParams par = kriging_params(geo, vario, p_nugget, p_sill, p_range);
   cudaStream_t st = (cudaStream_t)stream;
   const float* e = (const float*)elev;
   const float* va = (const float*)valid;
@@ -710,6 +862,41 @@ int auvtpu_kriging_fill(const void* elev, int pe, const void* valid, int pv, con
   const bool var = with_variance != 0;
   return four ? launch_kriging_model<4>(model, solver, var, st, e, pe, va, pv, t, m, H, W, R, par, o)
               : launch_kriging_model<1>(model, solver, var, st, e, pe, va, pv, t, m, H, W, R, par, o);
+}
+
+// B19.  elev, valid, tab, geo, vario, p_nugget, p_sill, p_range, model and
+// solver as for auvtpu_kriging_fill (geo's row0 and col0 place the cells
+// in a larger grid as they place the plane); rows, cols: (n,) int64 cells,
+// read as they come; out: (n,) f32, the kriging plane's value at each cell
+// (bit-equal to auvtpu_kriging_fill's plane there), NaN at a cell outside
+// the (H, W) grid.  Any order, duplicates allowed.  One kernel launch,
+// nothing else on the stream.
+int auvtpu_kriging_cells(const void* elev, int pe, const void* valid, int pv, const void* tab, int m, int H,
+                         int W, int R, const float* geo, const float* vario, const void* p_nugget,
+                         const void* p_sill, const void* p_range, int model, int solver, const void* rows,
+                         const void* cols, long long n, void* out, void* stream) {
+  if (model < 0 || model > 3 || solver < 0 || solver > 1 || R < 0 || m < 1 || m > 65535 || n < 0 ||
+      (n + CT - 1) / CT > 0x7fffffffLL)
+    return (int)cudaErrorInvalidValue;
+  if (n == 0) return (int)cudaSuccess;
+  const KrigingParams par = kriging_params(geo, vario, p_nugget, p_sill, p_range);
+  cudaStream_t st = (cudaStream_t)stream;
+  const float* e = (const float*)elev;
+  const float* va = (const float*)valid;
+  const int2* t = (const int2*)tab;
+  const long long* rs = (const long long*)rows;
+  const long long* cs = (const long long*)cols;
+  float* o = (float*)out;
+  switch (model) {
+    case kExponential:
+      return launch_cells_solver<kExponential>(solver, st, e, pe, va, pv, t, m, H, W, R, par, rs, cs, n, o);
+    case kLinear:
+      return launch_cells_solver<kLinear>(solver, st, e, pe, va, pv, t, m, H, W, R, par, rs, cs, n, o);
+    case kSpherical:
+      return launch_cells_solver<kSpherical>(solver, st, e, pe, va, pv, t, m, H, W, R, par, rs, cs, n, o);
+    default:
+      return launch_cells_solver<kGaussian>(solver, st, e, pe, va, pv, t, m, H, W, R, par, rs, cs, n, o);
+  }
 }
 
 const char* auvtpu_error_string(int err) { return cudaGetErrorString((cudaError_t)err); }

@@ -1,5 +1,5 @@
 """Hand-written CUDA kernels for Hopper, built from ``csrc/`` with nvcc at
-first use and bound with ctypes; every kernel (B1-B18) is registered as a
+first use and bound with ctypes; every kernel (B1-B19) is registered as a
 ``torch.library`` custom op (:mod:`.library`), through which its wrappers
 launch it.  Importing this package builds nothing."""
 

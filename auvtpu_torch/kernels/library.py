@@ -8,7 +8,8 @@ with no autograd kernel: a call goes through the C++ dispatcher straight to
 the device's implementation):
 
 - ``auvtpu_torch::kriging_fill`` (B1, ``csrc/window_fill.cu``
-  ``kriging_fill_kernel``);
+  ``kriging_fill_kernel``) and ``auvtpu_torch::kriging_cells`` (B19,
+  ``kriging_cells_kernel``: B1 at a list of cells);
 - ``auvtpu_torch::topk_full`` (B2, ``topk_tile_kernel``) and
   ``auvtpu_torch::topk_idx`` (B4, ``topk_idx_kernel``), the first-k-valid
   selections;
@@ -174,8 +175,8 @@ def _kriging_cuda(elev, valid, vario, geo, max_radius, convention, model, solver
     from .window_fill import kriging_launch
 
     grid, place = _kriging_args(elev, valid, geo)
-    return kriging_launch(grid, (vario[0], vario[1], vario[2]), max_radius=max_radius, convention=convention,
-                          model=model, solver=solver, with_variance=with_variance, **place)
+    return kriging_launch(grid, vario, max_radius=max_radius, convention=convention, model=model, solver=solver,
+                          with_variance=with_variance, **place)
 
 
 def _kriging_fake(elev, valid, vario, geo, max_radius, convention, model, solver, with_variance):
@@ -186,6 +187,38 @@ kriging_fill = _op(
     "kriging_fill(Tensor elev, Tensor valid, Tensor vario, float[] geo, int max_radius, str convention, "
     "str model, str solver, bool with_variance) -> Tensor",
     cpu=_kriging_cpu, cuda=_kriging_cuda, fake=_kriging_fake)
+
+
+# ---------------------------------------------------------------------------
+# B19: B1 at a list of cells.  rows, cols: int64 cells of one shape; the
+# values there, in that shape, NaN at a cell outside the grid.  vario and
+# geo as for B1.
+# ---------------------------------------------------------------------------
+
+def _cells_cpu(elev, valid, rows, cols, vario, geo, max_radius, convention, model, solver):
+    from .window_fill import kriging_at_cells_fused_ref
+
+    grid, place = _kriging_args(elev, valid, geo)
+    return kriging_at_cells_fused_ref(grid, rows, cols, max_radius=max_radius, convention=convention,
+                                      vparams=tuple(float(v) for v in vario), model=model, solver=solver, **place)
+
+
+def _cells_cuda(elev, valid, rows, cols, vario, geo, max_radius, convention, model, solver):
+    from .window_fill import kriging_cells_launch
+
+    grid, place = _kriging_args(elev, valid, geo)
+    return kriging_cells_launch(grid, rows, cols, vario, max_radius=max_radius, convention=convention, model=model,
+                                solver=solver, **place)
+
+
+def _cells_fake(elev, valid, rows, cols, vario, geo, max_radius, convention, model, solver):
+    return elev.new_empty(rows.shape)
+
+
+kriging_cells = _op(
+    "kriging_cells(Tensor elev, Tensor valid, Tensor rows, Tensor cols, Tensor vario, float[] geo, int max_radius, "
+    "str convention, str model, str solver) -> Tensor",
+    cpu=_cells_cpu, cuda=_cells_cuda, fake=_cells_fake)
 
 
 # ---------------------------------------------------------------------------

@@ -1,7 +1,7 @@
 """Wrappers of the windowed-fill CUDA kernels (counterpart of
 :mod:`auvtpu.pallas.window_fill`).
 
-Four kernels, all in ``csrc/window_fill.cu``:
+Five kernels, all in ``csrc/window_fill.cu``:
 
 - :func:`topk_full` (B2, replaces ``_make_topk_full_kernel``): first-k-valid
   selection, returning (cnt, vals, dxs, dys) planes;
@@ -9,6 +9,9 @@ Four kernels, all in ``csrc/window_fill.cu``:
   as (cnt, slot table-index planes);
 - :func:`fill_kriging_fused` (B1, replaces ``_make_kriging_fill_kernel``):
   the same selection and the 5x6 ordinary-kriging solve in one pass;
+- :func:`kriging_at_cells_fused` (B19, no Pallas counterpart): B1's
+  selection and solve at a list of cells only, the values B1's plane holds
+  there;
 - :func:`fill_idw_fused` and :func:`fill_mean_fused` (B3, replace
   ``_make_fill_kernel``): first-k-valid IDW and mean fills, reading the
   grid's planes as they are (a window view of a larger mosaic included),
@@ -19,9 +22,10 @@ B4 reads a NaN-padded copy of the plane that its launch builds first
 from the grid's planes as they are, and a B1 or B2 call is one launch and
 nothing else.  Each has a plain torch version beside it
 (``<wrapper>_ref``).  Every wrapper goes through its custom op
-(:mod:`.library`: ``auvtpu_torch::kriging_fill``, ``::topk_full``,
-``::window_fill``, ``::topk_idx``), whose ``cpu`` implementation is the
-plain version and whose ``cuda`` implementation (:func:`kriging_launch`,
+(:mod:`.library`: ``auvtpu_torch::kriging_fill``, ``::kriging_cells``,
+``::topk_full``, ``::window_fill``, ``::topk_idx``), whose ``cpu``
+implementation is the plain version and whose ``cuda`` implementation
+(:func:`kriging_launch`, :func:`kriging_cells_launch`,
 :func:`topk_full_launch`, :func:`fill_launch`, :func:`topk_idx_launch`)
 launches the kernel or raises.  Each launch adds one to
 ``LAUNCHES[<wrapper name>]``, so a run can show that it went through the
@@ -39,10 +43,12 @@ import torch
 from ..config import IDWConfig, KrigingConfig
 from ..grid import RegularGrid
 from ..ops.dense import (
+    cell_operands,
     fill_idw,
     fill_window_mean,
     idw_denominators,
     krige_planes,
+    plane_at_cells,
     window_topk_idx,
     window_topk_planes,
 )
@@ -51,7 +57,8 @@ from ..utils.profiling import counters, reset, span, spanned
 from . import library
 
 LAUNCHES = counters("launches.window_fill",
-                    ("topk_full", "topk_idx", "fill_kriging_fused", "fill_idw_fused", "fill_mean_fused"))
+                    ("topk_full", "topk_idx", "fill_kriging_fused", "fill_idw_fused", "fill_mean_fused",
+                     "kriging_at_cells_fused"))
 
 MAX_K = 16  # slots the selection kernel keeps in registers
 _MODELS = {"exponential": 0, "linear": 1, "spherical": 2, "gaussian": 3}
@@ -77,6 +84,9 @@ def _lib() -> ctypes.CDLL:
     FP = ctypes.POINTER(ctypes.c_float)
     lib.auvtpu_kriging_fill.argtypes = [P, I, P, I, P, I, I, I, I, FP, FP, P, P, P, I, I, I, P, P]
     lib.auvtpu_kriging_fill.restype = I
+    L = ctypes.c_longlong
+    lib.auvtpu_kriging_cells.argtypes = [P, I, P, I, P, I, I, I, I, FP, FP, P, P, P, I, I, P, P, L, P, P]
+    lib.auvtpu_kriging_cells.restype = I
     lib.auvtpu_error_string.argtypes = [I]
     lib.auvtpu_error_string.restype = ctypes.c_char_p
     return lib
@@ -349,28 +359,41 @@ def fill_kriging_fused_ref(grid: RegularGrid, *, max_radius: int = 10, conventio
 
 
 def _kriging_params(grid: RegularGrid, vparams, convention: str, row0, col0, steps, dev):
-    """The parameters of one B1 launch: the 8 fixed ones (min_lon, min_lat,
-    lon_step, lat_step, half, pivot_tol, row0, col0) as host float32,
-    passed by value, and the variogram's of :func:`_vario_params`.  Returns
-    (geo, vario, pointers, keep)."""
-    cfg = KrigingConfig()
+    """The parameters of one B1 or B19 launch: the 8 fixed ones (min_lon,
+    min_lat, lon_step, lat_step, half, pivot_tol, row0, col0) as host
+    float32, passed by value (:func:`_fixed_params`), and the variogram's
+    of :func:`_vario_params`.  Returns (geo, vario, pointers, keep)."""
     lat_step, lon_step = (grid.lat_step, grid.lon_step) if steps is None else steps
-    half = 0.5 if convention == "reference" else 0.0
-    geo = (ctypes.c_float * 8)(*(float(v) for v in (grid.min_lon, grid.min_lat, lon_step, lat_step, half,
-                                                     cfg.pivot_tol, row0, col0)))
+    geo = _fixed_params(*(float(v) for v in (grid.min_lon, grid.min_lat, lon_step, lat_step,
+                                             0.5 if convention == "reference" else 0.0, row0, col0)))
     return (geo, *_vario_params(vparams, dev, "fill_kriging_fused"))
 
 
+@lru_cache(maxsize=64)
+def _fixed_params(min_lon: float, min_lat: float, lon_step: float, lat_step: float, half: float, row0: float, col0: float):
+    """B1's and B19's 8 fixed parameters as host float32, made once per
+    grid geometry (the array is shared: nothing writes to it)."""
+    return (ctypes.c_float * 8)(min_lon, min_lat, lon_step, lat_step, half, KrigingConfig().pivot_tol, row0, col0)
+
+
 def _vario_params(vparams, dev, name: str):
-    """The variogram's 3 parameters of a B1 or B11 launch as host float32,
-    passed by value, and for each that is a tensor (fitted parameters, 0-d
-    on the device) its device address, so it never travels to the host.
+    """The variogram's 3 parameters of a B1 or B19 launch as host
+    float32, passed by value, and for each that is a tensor (fitted
+    parameters, 0-d on the device, or all three as one (3,) tensor, the
+    ops' operand) its device address, so it never travels to the host.
     Returns (vario, pointers, keep): ``keep`` holds the tensors the
     pointers point into until the launch."""
     if vparams is None:
         cfg = KrigingConfig()
         vparams = (cfg.variogram.nugget, cfg.variogram.sill, cfg.variogram.range)
     vario = (ctypes.c_float * 3)()
+    if torch.is_tensor(vparams):
+        if vparams.shape != (3,):
+            raise ValueError(f"{name}: variogram parameters: a (3,) tensor, got {tuple(vparams.shape)}")
+        if vparams.device != dev or vparams.dtype != torch.float32 or not vparams.is_contiguous():
+            vparams = vparams.to(dev, torch.float32).contiguous()  # a copy, as for a 0-d tensor below
+        p = vparams.data_ptr()
+        return vario, [p, p + 4, p + 8], [vparams]
     ptrs, keep = [None] * 3, []
     for i, v in enumerate(vparams):
         if torch.is_tensor(v):
@@ -435,4 +458,73 @@ def kriging_launch(grid: RegularGrid, vparams, *, max_radius: int, convention: s
         del keep
         _raise_on(err, "fill_kriging_fused")
         LAUNCHES["fill_kriging_fused"] += 1
+    return out
+
+
+# ---------------------------------------------------------------------------
+# B19: B1's selection and solve at a list of cells
+# ---------------------------------------------------------------------------
+
+def kriging_at_cells_fused_ref(grid: RegularGrid, rows: torch.Tensor, cols: torch.Tensor, *, max_radius: int = 10, convention: str = "reference", vparams=None, model: str = "exponential", solver: str = "gj", row0=0, col0=0, steps=None):
+    """Plain version of :func:`kriging_at_cells_fused`: B1's plain version's
+    whole plane (:func:`fill_kriging_fused_ref`), then the cells, NaN at a
+    cell outside the grid."""
+    plane = fill_kriging_fused_ref(grid, max_radius=max_radius, convention=convention, vparams=vparams,
+                                   model=model, solver=solver, row0=row0, col0=col0, steps=steps)
+    return plane_at_cells(plane, rows, cols)
+
+
+@spanned
+def kriging_at_cells_fused(grid: RegularGrid, rows, cols, *, max_radius: int = 10, convention: str = "reference", vparams=None, model: str = "exponential", solver: str = "gj"):
+    """Ordinary kriging at a list of cells (B19): for each (row, col), B1's
+    first-4-valid selection and 5x6 solve at that cell alone, so the value
+    is the one :func:`fill_kriging_fused`'s plane holds there, bit for bit,
+    with no plane made.  ``rows``, ``cols``: int64 tensors on the grid's
+    device (anything else is converted,
+    :func:`auvtpu_torch.ops.dense.cell_operands`), in any order, duplicates
+    allowed; the result has their shape.  A cell outside the grid reads
+    nothing and gets NaN (nothing is checked on the host).  One kernel
+    launch, through the op ``auvtpu_torch::kriging_cells``, whose arguments
+    are B1's and the cells."""
+    if grid.elev.device.type != "cpu":
+        _check_cuda_grid(grid, "kriging_at_cells_fused")
+    rows, cols = cell_operands(rows, cols, grid.elev.device)
+    geo = [grid.min_lon, grid.max_lon, grid.min_lat, grid.max_lat, grid.lat_step, grid.lon_step, 0.0, 0.0]
+    return library.kriging_cells(grid.elev, grid.valid, rows, cols, library.variogram_tensor(vparams, grid.elev), geo,
+                                 max_radius, convention, model, solver)
+
+
+def kriging_cells_launch(grid: RegularGrid, rows: torch.Tensor, cols: torch.Tensor, vparams, *, max_radius: int, convention: str, model: str, solver: str, row0=0, col0=0, steps=None):
+    """One B19 launch over a CUDA grid: the ``cuda`` implementation of
+    ``auvtpu_torch::kriging_cells``.  ``vparams`` and ``row0``, ``col0``,
+    ``steps`` as for :func:`kriging_launch` (its :func:`_kriging_params`).
+    Returns the values at the cells, in ``rows``' shape."""
+    dev = _check_cuda_grid(grid, "kriging_at_cells_fused")
+    if model not in _MODELS:
+        raise ValueError(model)
+    if solver not in _SOLVERS:
+        raise ValueError(solver)
+    if (rows.dtype != torch.int64 or cols.dtype != torch.int64 or rows.device != dev or cols.device != dev
+            or rows.shape != cols.shape or not rows.is_contiguous() or not cols.is_contiguous()):
+        raise ValueError("kriging_at_cells_fused: rows and cols must be contiguous int64 tensors of one shape on "
+                         f"the grid's device {dev} (got {rows.dtype} {tuple(rows.shape)} on {rows.device}, "
+                         f"{cols.dtype} {tuple(cols.shape)} on {cols.device})")
+    H, W = grid.shape
+    R = max_radius
+    pe, pv = _pitch(grid.elev, "kriging_at_cells_fused"), _pitch(grid.valid, "kriging_at_cells_fused")
+    out = torch.empty(rows.shape, dtype=torch.float32, device=dev)
+    n = out.numel()
+    if n > 0:
+        tab = _device_table(R, convention, dev)
+        geo, vario, ptrs, keep = _kriging_params(grid, vparams, convention, row0, col0, steps, dev)
+        stream = _stream(dev)
+        with torch.cuda.device(dev), span("auvtpu_torch.kernels.window_fill.kriging_cells_launch:call"):
+            err = _lib().auvtpu_kriging_cells(
+                grid.elev.data_ptr(), pe, grid.valid.data_ptr(), pv, tab.data_ptr(), tab.shape[0], H, W, R,
+                geo, vario, *ptrs, _MODELS[model], _SOLVERS[solver], rows.data_ptr(), cols.data_ptr(), n,
+                out.data_ptr(), stream,
+            )
+        del keep
+        _raise_on(err, "kriging_at_cells_fused")
+        LAUNCHES["kriging_at_cells_fused"] += 1
     return out

@@ -28,7 +28,6 @@ from .scattered import krige_solve
 # the cells kriging fills solve and the cells kriging_at_cells returns
 FILL = counters("fill", ("cells_solved", "cells_returned"))
 
-
 def resolve_backend(backend: str, elev: torch.Tensor) -> str:
     """``"auto"`` is ``"fused"`` (the CUDA kernels) for a CUDA float32 plane
     and ``"torch"`` (the plain versions) for a CPU or float64 one, the rule
@@ -326,7 +325,7 @@ def fill_kriging(grid: RegularGrid, *, max_radius: int = 10, row0=0, col0=0, ste
     backend = resolve_backend(backend, grid.elev)
     if backend not in ("fused", "select", "torch"):
         raise ValueError(backend)
-    FILL["cells_solved"] += grid.elev.numel()  # every backend solves the whole plane
+    FILL["cells_solved"] += grid.elev.numel()  # a fill solves the whole plane, whatever its backend
     if backend == "fused":
         from ..kernels.window_fill import fill_kriging_fused
 
@@ -340,18 +339,59 @@ def fill_kriging(grid: RegularGrid, *, max_radius: int = 10, row0=0, col0=0, ste
     return krige_planes(grid, sel, **opts)
 
 
+def cell_operands(rows, cols, device: torch.device) -> tuple[torch.Tensor, torch.Tensor]:
+    """(rows, cols) as the cell lists are read: contiguous int64 tensors of
+    one shape on ``device``.  Tensors that are so already come back as they
+    are; anything else (numpy, lists, other dtypes, shapes that broadcast)
+    is converted as ``torch.as_tensor(x, dtype=torch.int64)`` would."""
+    if not (torch.is_tensor(rows) and rows.dtype == torch.int64 and rows.device == device):
+        rows = torch.as_tensor(rows, dtype=torch.int64).to(device)
+    if not (torch.is_tensor(cols) and cols.dtype == torch.int64 and cols.device == device):
+        cols = torch.as_tensor(cols, dtype=torch.int64).to(device)
+    if rows.shape != cols.shape:
+        rows, cols = torch.broadcast_tensors(rows, cols)
+    if not rows.is_contiguous():
+        rows = rows.contiguous()
+    if not cols.is_contiguous():
+        cols = cols.contiguous()
+    return rows, cols
+
+
+def plane_at_cells(plane: torch.Tensor, rows, cols) -> torch.Tensor:
+    """An (H, W) plane's values at the cells (rows, cols), in their shape;
+    NaN at a cell outside the plane, as the B19 kernel answers there."""
+    H, W = plane.shape
+    rows, cols = cell_operands(rows, cols, plane.device)
+    if H * W == 0:
+        return torch.full(rows.shape, float("nan"), dtype=plane.dtype, device=plane.device)
+    inside = (rows >= 0) & (rows < H) & (cols >= 0) & (cols < W)
+    return torch.where(inside, plane.reshape(-1)[torch.where(inside, rows * W + cols, 0)], float("nan"))
+
+
 @spanned
 def kriging_at_cells(grid: RegularGrid, rows, cols, *, max_radius: int = 10, vparams=None, convention: str = "reference", backend: str = "auto", model: str = "exponential"):
-    """Kriging predictions at an explicit cell list: the dense fill plane,
-    then the requested cells."""
+    """Kriging predictions at an explicit cell list, NaN at a cell outside
+    the grid.
+
+    On a CUDA float32 grid (backend 'fused', which 'auto' resolves to) B19
+    solves the listed cells alone
+    (:func:`auvtpu_torch.kernels.window_fill.kriging_at_cells_fused`: the
+    values of B1's plane there, bit for bit).  Otherwise, and on the CPU:
+    the dense fill plane, then the requested cells."""
+    if grid.elev.is_cuda and resolve_backend(backend, grid.elev) == "fused":
+        from ..kernels.window_fill import kriging_at_cells_fused
+
+        out = kriging_at_cells_fused(grid, rows, cols, max_radius=max_radius, vparams=vparams,
+                                     convention=convention, model=model)
+        FILL["cells_solved"] += out.numel()
+        FILL["cells_returned"] += out.numel()
+        return out
     plane = fill_kriging(
         grid, max_radius=max_radius, vparams=vparams, convention=convention,
         backend=backend, model=model,
     )
     with span("auvtpu_torch.ops.dense.kriging_at_cells:gather"):
-        rows = torch.as_tensor(rows, dtype=torch.int64).to(plane.device)
-        cols = torch.as_tensor(cols, dtype=torch.int64).to(plane.device)
-        out = plane.reshape(-1)[rows * grid.num_lon + cols]
+        out = plane_at_cells(plane, rows, cols)
     FILL["cells_returned"] += out.numel()
     return out
 

@@ -20,8 +20,10 @@ graph that ``torch.compile`` or ``torch.export`` traces.
 ``COUNTERS[section][name]``.  Each kernel module's ``LAUNCHES`` is its
 section ``launches.<module>`` (the same dict object): one a launch of each
 kernel.  Section ``fill``: ``cells_solved``, the cells a kriging fill
-plane solves (H x W of every :func:`auvtpu_torch.ops.dense.fill_kriging`
-call, whatever its backend: each solves the whole plane), and
+solves (H x W of every :func:`auvtpu_torch.ops.dense.fill_kriging`
+call, whatever its backend: each solves the whole plane; the listed cells
+of a :func:`auvtpu_torch.ops.dense.kriging_at_cells` call that B19 solves
+alone), and
 ``cells_returned``, the cells :func:`auvtpu_torch.ops.dense.kriging_at_cells`
 hands back.
 """

@@ -20,7 +20,13 @@ streaming mosaic and scattered queries on the 3200x4000 Grid A, in phases:
             both solvers, centered, variance and a sub-plane origin) and on
             a 1024x2048 window view of the stand-in read in place; lu vs gj
             within 1.5e-3 relative; a call is one kernel launch and no
-            memory copy (the profiler's device records of 20 calls)
+            memory copy (the profiler's device records of 20 calls).  B19
+            (B1 at a list of cells) bit for bit B1's plane and the plain
+            version at the stand-in's masked cells (gj, lu) and at 50 and
+            100 % of the cells in draw order; kriging_at_cells is one B19
+            launch and no copy.  Phase 7 times B19 alone (back to back and
+            cold), its wrapper and plain version, beside its byte bound and
+            B1 and the gather
 5. main     fill_kriging(backend="fused") and (backend="select") scored on
             the masked cells: RMSE within 5.7149 +- 2e-3 m
 6. entry    entry.fit_fill: fitted parameters finite and positive, > 99 %
@@ -61,8 +67,8 @@ streaming mosaic and scattered queries on the 3200x4000 Grid A, in phases:
 9. grid B   auvtpu_torch.cli.bench_grid_b at r0.10 and r0.20 (Bilinear,
             Cubic, Kriging, IDW; --backend auto): RMSE within 1e-3 m (2e-3
             for Kriging) of the JAX package's, bilinear coverage within
-            1e-6; launch counts zeroed before the phase show B1 and B3 (both
-            kinds) ran
+            1e-6; launch counts zeroed before the phase show B19 (Kriging at
+            the masked cells) and B3 (both kinds) ran
 10. stream  the streaming demo's survey (4096x4096 mosaic, 40,000 swaths of
             256 beams, R=5, 256x256 windows) through StreamingInterpolator
             with backend "auto": snapshot count and f64 nansum exactly the
@@ -309,7 +315,7 @@ streaming mosaic and scattered queries on the 3200x4000 Grid A, in phases:
             bilinear at 1e3-1e6 queries) against GoldenGrid, the first 10
             points and the whole batch within 0.05 m; cli.plots.reconstruct
             on the stand-in r0.10 for all four methods at phase 9's RMSEs,
-            launch counts zeroed before it showing B1 and both B3 kinds;
+            launch counts zeroed before it showing B19 and both B3 kinds;
             cli.figures.coverage_table at the seven JAX removals on the
             stand-in, launch counts showing B3 mean at each, its bilinear
             hole counts equal to the host's fill; tiled_bilinear, _bicubic,
@@ -408,8 +414,10 @@ B1_SOLVE_OPS = 340
 # krige_solve.cuh is B1's and B11's, and a change there must leave B1's
 # instructions as they are
 # (scripts/kernel_ab.py --only B1 holds its bits and SASS against another
-# version of the sources)
-B1_SASS_PIN = {"Build cuda_12.9.r12.9/compiler.36037853_0": (32, 52704, "3086def90a658781")}
+# version of the sources).  Since B1 solves through krige_at, shared with
+# B19, its 52,704 instructions come in another order (digest 3086def90a658781
+# before; B1 alone 0.1902 ms against 0.1903, scripts/b19_probe.py)
+B1_SASS_PIN = {"Build cuda_12.9.r12.9/compiler.36037853_0": (32, 52704, "c5c0c12d8466884e")}
 # B11's (kernels, instructions, digest) under that nvcc, as the commit
 # before B12 (700e4e5) built it
 B11_SASS_PIN = {"Build cuda_12.9.r12.9/compiler.36037853_0": (16, 30056, "4a3b70f0c40baa0a")}
@@ -991,6 +999,33 @@ def b1_launcher(grid, R: int = 10, lib=None, vparams=None):
             raise RuntimeError(f"B1 launch failed ({err})")
 
     launch.keep = keep
+    return launch
+
+
+def b19_launcher(grid, rows, cols, R: int = 10, lib=None):
+    """A closure launching B19 (exponential, gj) at ``rows``, ``cols`` of
+    ``grid`` straight through its library (``lib``, or the checkout's),
+    output allocated once (the kernel alone)."""
+    import torch
+
+    from auvtpu_torch.kernels import window_fill as wf
+
+    H, W = grid.shape
+    dev = grid.device
+    tab = wf._device_table(R, "reference", dev)
+    geo, vario, ptrs, keep = wf._kriging_params(grid, None, "reference", 0, 0, None, dev)
+    out = torch.empty(rows.shape, dtype=torch.float32, device=dev)
+    lib, stream = lib or wf._lib(), wf._stream(dev)
+
+    def launch():
+        err = lib.auvtpu_kriging_cells(grid.elev.data_ptr(), grid.elev.stride(0), grid.valid.data_ptr(),
+                                       grid.valid.stride(0), tab.data_ptr(), tab.shape[0], H, W, R, geo, vario,
+                                       *ptrs, 0, 0, rows.data_ptr(), cols.data_ptr(), rows.numel(),
+                                       out.data_ptr(), stream)
+        if err:
+            raise RuntimeError(f"B19 launch failed ({err})")
+
+    launch.keep, launch.out = keep, out
     return launch
 
 
@@ -1867,7 +1902,7 @@ def main() -> int:
     from auvtpu_torch.grid import RegularGrid
     from auvtpu_torch.kernels import build as kbuild
     from auvtpu_torch.kernels import window_fill as wf
-    from auvtpu_torch.ops import fill_kriging, krige_planes
+    from auvtpu_torch.ops import fill_kriging, krige_planes, kriging_at_cells
     from auvtpu_torch.variogram import empirical_variogram, fit_variogram, variogram_model
 
     dev = torch.device("cuda", 0)
@@ -1967,6 +2002,25 @@ def main() -> int:
                 "B1 vs plain, window view")
     say("B1", f"1024x2048 window view (row stride {gw.elev.stride(0)}) at (600, 200): bit-equal to plain")
     del gw
+    # B19: B1 at the stand-in's masked cells (draw order) alone, bit for bit
+    # B1's plane there and its plain version; one kernel a kriging_at_cells
+    b19_err = same_planes(wf.kriging_at_cells_fused(grid, rows, cols), plane_k[rows, cols], "B19 vs B1 at the cells")
+    b19_err = max(b19_err, same_planes(wf.kriging_at_cells_fused(grid, rows, cols),
+                                       wf.kriging_at_cells_fused_ref(grid, rows, cols), "B19 vs plain"))
+    lu_c = wf.kriging_at_cells_fused(grid, rows, cols, solver="lu")
+    b19_err = max(b19_err, same_planes(lu_c, wf.fill_kriging_fused(grid, solver="lu")[rows, cols],
+                                       "B19 lu vs B1 lu at the cells"))
+    perm_ = torch.randperm(SHAPE[0] * SHAPE[1], generator=torch.Generator().manual_seed(7)).to(dev)
+    for share_ in (0.5, 1.0):
+        fl_ = perm_[: int(share_ * perm_.numel())]
+        b19_err = max(b19_err, same_planes(wf.kriging_at_cells_fused(grid, fl_ // SHAPE[1], fl_ % SHAPE[1]),
+                                           plane_k.reshape(-1)[fl_], f"B19 vs B1, {share_:.0%} of the cells"))
+    seen = only_kernel(lambda: kriging_at_cells(grid, rows, cols), "kriging_cells_kernel", "kriging_at_cells call",
+                       copies=True)
+    say("B19", f"the stand-in's {rows.numel()} masked cells, gj and lu, and 50 % and 100 % of the cells in draw "
+        f"order: bit-equal to B1's plane there and to plain; kriging_at_cells is one kernel launch and no memory "
+        f"copy; the device records of 20 calls the profiler kept: {seen}")
+    del plane_k, lu_c, perm_
 
     # ---- 5. main path (launch counts from here to the end of phase 6)
     wf.reset_launches()
@@ -2153,6 +2207,13 @@ def main() -> int:
         "B1 kernel alone cold": device_ms(b1_launcher(grid), "kriging_fill_kernel", cold=True),
         "B1 wrapper": time_ms(lambda: wf.fill_kriging_fused(grid)),
         "B1 plain": time_ms(lambda: wf.fill_kriging_fused_ref(grid)),
+        "B19 kernel alone": device_ms(b19_launcher(grid, rows, cols), "kriging_cells_kernel"),
+        "B19 kernel alone cold": device_ms(b19_launcher(grid, rows, cols), "kriging_cells_kernel", cold=True),
+        "B19 wrapper": time_ms(lambda: wf.kriging_at_cells_fused(grid, rows, cols)),
+        "B19 plain": time_ms(lambda: wf.kriging_at_cells_fused_ref(grid, rows, cols)),
+        "B1 + gather device-busy": device_busy_ms(
+            lambda: wf.fill_kriging_fused(grid).reshape(-1)[rows * SHAPE[1] + cols]),
+        "kriging_at_cells device-busy": device_busy_ms(lambda: kriging_at_cells(grid, rows, cols)),
         "select (B2 + torch solve)": time_ms(lambda: fill_kriging(grid, backend="select")),
         "torch (plain)": time_ms(lambda: fill_kriging(grid, backend="torch")),
         "B2 kernel alone": device_ms(b2_launcher(grid), "topk_tile_kernel"),
@@ -2178,6 +2239,12 @@ def main() -> int:
             "fused (B1)", "select (B2 + torch solve)", "torch (plain)", "fit_fill") else ""
         say("timing", f"{label:26s} {t:.4f} ms{rate}  [{card}]")
     say("timing", f"peak device memory {torch.cuda.max_memory_allocated(dev) / 2**20:.0f} MiB")
+    b19_bound = bound(4.0 * (2 * SHAPE[0] * SHAPE[1] + n_pts), n_pts * (4.0 / (1.0 - REMOVAL) + B1_SOLVE_OPS))
+    say("timing", f"B19 at the {n_pts} masked cells: alone {ms['B19 kernel alone']:.4f} ms (cold "
+        f"{ms['B19 kernel alone cold']:.4f}) against its bound {b19_bound[0]:.4f} ms ({b19_bound[1]}, "
+        f"{b19_bound[0] / ms['B19 kernel alone']:.0%}); B1 alone {ms['B1 kernel alone']:.4f} ms, B1 and the gather "
+        f"{ms['B1 + gather device-busy']:.4f} ms of card, kriging_at_cells {ms['kriging_at_cells device-busy']:.4f} "
+        f"ms of card  [{card}]")
     # B9's bound (as in the kernels line) and the floor of its design: one
     # f32 -> f64 conversion a pair, 16 a clock an SM, at the card's largest
     # SM clock
@@ -2307,7 +2374,8 @@ def main() -> int:
         say("gridB", f"r{r}: " + ", ".join(f"{k} RMSE {v['RMSE']:.6f}" for k, v in summary.items())
             + f"; bilinear coverage {cov:.8f}")
     say("gridB", f"launches {launches_b}")
-    for k in ("fill_idw_fused", "fill_mean_fused", "fill_kriging_fused"):
+    # Kriging at the masked cells (10 and 20 %) is B19's
+    for k in ("fill_idw_fused", "fill_mean_fused", "kriging_at_cells_fused"):
         if launches_b[k] < 1:
             raise AssertionError(f"kernel {k} was not launched on the Grid B path")
 
@@ -4286,8 +4354,9 @@ def main() -> int:
             raise AssertionError(f"plots.reconstruct {m}: RMSE {r_m} outside {want} +- {tol}")
         say("quick", f"plots.reconstruct {m:8s} RMSE {r_m:.6f} m (phase 9's {want} +- {tol})")
     del rec
-    if launches_pl["fill_kriging_fused"] < 1 or launches_pl["fill_idw_fused"] < 1 or launches_pl["fill_mean_fused"] < 1:
-        raise AssertionError(f"plots.reconstruct did not launch B1 and both B3 kinds: {launches_pl}")
+    if (launches_pl["kriging_at_cells_fused"] < 1 or launches_pl["fill_idw_fused"] < 1
+            or launches_pl["fill_mean_fused"] < 1):
+        raise AssertionError(f"plots.reconstruct did not launch B19 and both B3 kinds: {launches_pl}")
     # figures.coverage_table at the JAX removals (launch counts around it);
     # the bilinear holes counted again by the host's fill
     wf.reset_launches()
@@ -4398,6 +4467,10 @@ def main() -> int:
         "fill_idw_fused": bound(4.0 * n * (2 + 1), s8 + 3 * t8 + 2 * n),
         "fill_mean_fused": bound(4.0 * n * (2 + 1), s4 + t4 + 2 * n),
         "topk_idx": bound(4.0 * n * (1 + 1 + 4), s4),  # reads validity only
+        # B19 at the stand-in's masked cells: both planes read once (the
+        # cells lie all over the tile), a value a cell written; the scan's
+        # tests and B1's solve a cell
+        "kriging_at_cells_fused": bound(4.0 * (2 * n + n_pts), n_pts * (4.0 / (1.0 - REMOVAL) + B1_SOLVE_OPS)),
     }
     # the select kernel, per query: its P pack floats, the cell index and
     # (fx, fy) read, its rows written; ~8 operations a tap for d2 and 2 per
@@ -4451,6 +4524,12 @@ def main() -> int:
          launches["fill_kriging_fused"] + launches_b["fill_kriging_fused"] + launches_s["fill_kriging_fused"]
          + launches_sv["fill_kriging_fused"] + launches_p["fill_kriging_fused"] + launches_pl["fill_kriging_fused"],
          b1_err, ms["B1 kernel alone"], ms["B1 wrapper"], ms["B1 plain"]),
+        # B19 replaces no Pallas kernel: the JAX package takes B1's plane and
+        # gathers the cells (auvtpu/ops/dense.py:482-488); main paths: Grid B
+        # kriging through the CLI (phase 9) and plots (phase 24)
+        ("kriging_at_cells_fused", "auvtpu/ops/dense.py:482",
+         launches_b["kriging_at_cells_fused"] + launches_pl["kriging_at_cells_fused"],
+         b19_err, ms["B19 kernel alone"], ms["B19 wrapper"], ms["B19 plain"]),
         ("topk_full", "auvtpu/pallas/window_fill.py:501", launches["topk_full"],
          b2_err, ms["B2 kernel alone"], ms["B2 wrapper"], ms["B2 plain"]),
         ("fill_idw_fused", "auvtpu/pallas/window_fill.py:230",
