@@ -106,6 +106,17 @@
 //   when the step is kept (p = q: exp of the same log parameters).  Every
 //   value is the same operation on the same inputs as before, and no float64
 //   sum changes order.
+//
+// B10 takes its gamma and counts in one of two forms (the template's kIn).
+//   kArrays  (n,) arrays, f32 or f64 by their flags, as a caller hands them.
+//   kBinned  B9's float64 (sums, counts), from which the kernel forms them as
+//            empirical_variogram's torch ops do, in T (float or double, the
+//            lags' dtype): s and c rounded to T, gamma = s / (2 max(c, 1))
+//            where c > 0 and 0 elsewhere, an IEEE division (nvcc's default
+//            -prec-div=true; 2 max(c, 1) is exact), then both widened to
+//            double.  A bin's count passes 2**24 on a large grid, so the
+//            rounding of c to float is kept, not skipped.  The fit-then-fill
+//            launches B9 and then this form, with nothing between them.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -551,14 +562,29 @@ __device__ __forceinline__ void solve3(double a[3][3], double b[3], double x[3])
   x[0] = (b[0] - a[0][1] * x[1] - a[0][2] * x[2]) / a[0][0];
 }
 
-// lags, gamma, counts: (n,) f32 or f64 (f64 flags); init: three f64 on the
-// device, or null for the data-driven start; out: (3,) (nugget, p1, p2) in
-// f32 or f64 (out_f64); flags: (iters, 2) int8 (kept, frozen after the
-// step), or null.
+enum Input { kArrays = 0, kBinnedF32 = 1, kBinnedF64 = 2 };
+
+// A bin's gamma and count as empirical_variogram forms them from B9's
+// float64 sum and count, in T, widened to double.
+template <typename T>
+__device__ __forceinline__ void semivariance(double s64, double c64, double& g, double& c) {
+  const T s = (T)s64, n = (T)c64;
+  const T lo = n < (T)1 ? (T)1 : n;  // torch.clamp(c, min=1): a NaN passes
+  g = n > (T)0 ? (double)(s / ((T)2 * lo)) : 0.0;
+  c = (double)n;
+}
+
+// lags: (n,) f32 or f64 (lags_f64); gamma, counts: (n,) f32 or f64 (their
+// flags) for kArrays, B9's (n,) f64 sums and counts for kBinned*; init:
+// three f64 on the device, or null for the data-driven start; out: (3,)
+// (nugget, p1, p2) in f32 or f64 (out_f64); flags: (iters, 2) int8 (kept,
+// frozen after the step), or null; formed: for kBinned*, null or (2, n)
+// in T, the gamma and counts the kernel formed.
+template <int kIn>
 __global__ void __launch_bounds__(32)
     fit_model_kernel(const void* lags, int lags_f64, const void* gamma, int gamma_f64, const void* counts,
                      int counts_f64, int n, const double* init, int model, int iters, double stop, void* out,
-                     int out_f64, signed char* flags) {
+                     int out_f64, signed char* flags, void* formed) {
   __shared__ double sh_h[kFitMaxBins], sh_g[kFitMaxBins], sh_c[kFitMaxBins], sh_sw[kFitMaxBins];
   // per bin: the curve's value at the current parameters, and the shape
   // terms (u, E) at the current ([cur]) and the candidate ([cur ^ 1]) ones
@@ -567,8 +593,26 @@ __global__ void __launch_bounds__(32)
   double csum = 0.0, gmax = -INFINITY, hmax = -INFINITY;
   for (int i = lane; i < n; i += 32) {
     const double h = load_as_f64(lags, lags_f64, i);
-    const double g = load_as_f64(gamma, gamma_f64, i);
-    const double c = load_as_f64(counts, counts_f64, i);
+    double g, c;
+    if (kIn == kArrays) {
+      g = load_as_f64(gamma, gamma_f64, i);
+      c = load_as_f64(counts, counts_f64, i);
+    } else {
+      const double s64 = static_cast<const double*>(gamma)[i], c64 = static_cast<const double*>(counts)[i];
+      if (kIn == kBinnedF32)
+        semivariance<float>(s64, c64, g, c);
+      else
+        semivariance<double>(s64, c64, g, c);
+      if (formed != nullptr) {
+        if (kIn == kBinnedF32) {
+          static_cast<float*>(formed)[i] = (float)g;
+          static_cast<float*>(formed)[n + i] = (float)c;
+        } else {
+          static_cast<double*>(formed)[i] = g;
+          static_cast<double*>(formed)[n + i] = c;
+        }
+      }
+    }
     sh_h[i] = h;
     sh_g[i] = g;
     sh_c[i] = c;
@@ -723,9 +767,26 @@ int auvtpu_fit_model(const void* lags, int lags_f64, const void* gamma, int gamm
                      int counts_f64, int n, const void* init, int model, int iters, double stop, void* out,
                      int out_f64, void* flags, void* stream) {
   if (n < 1 || n > kFitMaxBins || model < 0 || model > 3 || iters < 0) return (int)cudaErrorInvalidValue;
-  fit_model_kernel<<<1, 32, 0, (cudaStream_t)stream>>>(lags, lags_f64, gamma, gamma_f64, counts, counts_f64, n,
-                                                      (const double*)init, model, iters, stop, out, out_f64,
-                                                      (signed char*)flags);
+  fit_model_kernel<kArrays><<<1, 32, 0, (cudaStream_t)stream>>>(lags, lags_f64, gamma, gamma_f64, counts,
+                                                               counts_f64, n, (const double*)init, model, iters,
+                                                               stop, out, out_f64, (signed char*)flags, nullptr);
+  return (int)cudaGetLastError();
+}
+
+// B10 on B9's output.  sums, counts: (n,) f64; lags, out and formed (null
+// or (2, n)) in one dtype, f64 where f64 != 0, else f32; the rest as
+// auvtpu_fit_model's.  One kernel launch.
+int auvtpu_fit_binned(const void* lags, const void* sums, const void* counts, int f64, int n, const void* init,
+                      int model, int iters, double stop, void* out, void* flags, void* formed, void* stream) {
+  if (n < 1 || n > kFitMaxBins || model < 0 || model > 3 || iters < 0) return (int)cudaErrorInvalidValue;
+  if (f64)
+    fit_model_kernel<kBinnedF64><<<1, 32, 0, (cudaStream_t)stream>>>(lags, 1, sums, 1, counts, 1, n,
+                                                                    (const double*)init, model, iters, stop, out,
+                                                                    1, (signed char*)flags, formed);
+  else
+    fit_model_kernel<kBinnedF32><<<1, 32, 0, (cudaStream_t)stream>>>(lags, 0, sums, 1, counts, 1, n,
+                                                                    (const double*)init, model, iters, stop, out,
+                                                                    0, (signed char*)flags, formed);
   return (int)cudaGetLastError();
 }
 

@@ -37,8 +37,9 @@ the device's implementation):
 - ``auvtpu_torch::band_resample`` (B8, ``csrc/band_resample.cu``);
 - ``auvtpu_torch::pair_sums`` (B9, ``csrc/variogram.cu``, the binned
   variogram pair sums) and ``auvtpu_torch::fit_model`` (B10, the
-  Gauss-Newton variogram fit), so a fit-then-fill runs through the
-  dispatcher as a fill does.
+  Gauss-Newton variogram fit) with its overload ``::fit_model.binned`` (B10
+  on B9's float64 sums), so a fit-then-fill runs through the dispatcher as
+  a fill does.
 
 Each op takes tensors and python scalars only: a grid is unpacked into its
 ``elev`` and ``valid`` planes with its extent as floats, the variogram is
@@ -800,3 +801,30 @@ fit_model = _op(
     "fit_model(Tensor lags, Tensor gamma, Tensor counts, Tensor? init, str model, int iters, float stop) "
     "-> (Tensor, Tensor)",
     cpu=_fit_cpu, cuda=_fit_cuda, fake=_fit_fake)
+
+
+# ---------------------------------------------------------------------------
+# B10 on B9's float64 (sums, counts) (n,) each: the semivariance formed in
+# lags' dtype, then the fit; (3,) (nugget, p1, p2) in lags' dtype
+# ---------------------------------------------------------------------------
+
+def _fit_binned_cpu(lags, sums, counts, init, model, iters, stop):
+    from .variogram import fit_binned_ref
+
+    return fit_binned_ref(lags, sums, counts, init, model, iters, stop)
+
+
+def _fit_binned_cuda(lags, sums, counts, init, model, iters, stop):
+    from .variogram import fit_binned_launch
+
+    return fit_binned_launch(lags, sums, counts, init, model, iters, stop)
+
+
+def _fit_binned_fake(lags, sums, counts, init, model, iters, stop):
+    return lags.new_empty(3)
+
+
+fit_binned = _op(
+    "fit_model.binned(Tensor lags, Tensor sums, Tensor counts, Tensor? init, str model, int iters, float stop) "
+    "-> Tensor",
+    cpu=_fit_binned_cpu, cuda=_fit_binned_cuda, fake=_fit_binned_fake)

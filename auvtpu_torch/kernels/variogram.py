@@ -17,15 +17,20 @@ Two kernels, both in ``csrc/variogram.cu``:
   :func:`fit_model_ref` in one launch of one warp, optionally with its
   per-step (kept, frozen) record (:func:`fit_walk`); the kernel stops at
   the first step that is not kept or that freezes, after which the loop's
-  state cannot change, and records the rest as not kept.
+  state cannot change, and records the rest as not kept.  With
+  ``binned=True`` it takes B9's float64 sums and counts as they come and
+  forms the semivariance in its launch (:func:`binned_gamma` states how),
+  so a fit is B9's two kernels and B10's one, with nothing between them.
 
 Each has its plain torch version beside it (``<wrapper>_ref``, the loops the
 CPU tests hold against the JAX package).  A wrapper runs the plain version
 only for tensors on the CPU; for CUDA tensors it launches its kernel or
 raises.  Both go through their custom ops (:mod:`.library`:
-``auvtpu_torch::pair_sums``, ``auvtpu_torch::fit_model``), whose ``cuda``
-implementations are :func:`pair_sums_launch` and :func:`fit_launch`.  Each
-launch adds one to ``LAUNCHES[<wrapper name>]``.
+``auvtpu_torch::pair_sums``, ``auvtpu_torch::fit_model`` and its overload
+``::fit_model.binned``), whose ``cuda`` implementations are
+:func:`pair_sums_launch`, :func:`fit_launch` and :func:`fit_binned_launch`.
+Each launch adds one to ``LAUNCHES[<wrapper name>]``; each call of a
+wrapper is a span of its own name.
 """
 
 from __future__ import annotations
@@ -38,7 +43,7 @@ import torch
 import torch.nn.functional as F
 
 from ..grid import device_cache
-from ..utils.profiling import counters, reset, span
+from ..utils.profiling import OFF, counters, reset, span, spanned
 from . import library
 
 LAUNCHES = counters("launches.variogram", ("pair_sums", "fit_model"))
@@ -59,6 +64,7 @@ _P, _I, _D = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
 ARGTYPES = {
     "auvtpu_pair_sums": [_P, _I, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P, _I, _I, _P, _P, _P],
     "auvtpu_fit_model": [_P, _I, _P, _I, _P, _I, _I, _P, _I, _I, _D, _P, _I, _P, _P],
+    "auvtpu_fit_binned": [_P, _P, _P, _I, _I, _P, _I, _I, _D, _P, _P, _P, _P],
 }
 
 
@@ -87,7 +93,17 @@ def _raise_on(err: int, what: str) -> None:
 
 
 def _stream(dev: torch.device) -> ctypes.c_void_p:
-    return ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream)
+    """The current stream of ``dev`` as the C interface takes it: torch's
+    raw handle, with no ``torch.cuda.Stream`` made for it (that costs ~9 µs
+    of host a launch)."""
+    return ctypes.c_void_p(torch._C._cuda_getCurrentRawStream(dev.index))
+
+
+def _on(dev: torch.device):
+    """The device context of a launch on ``dev``: none where ``dev`` is the
+    current device already, as it is on a one-card machine (entering
+    ``torch.cuda.device`` costs ~7 µs of host a launch)."""
+    return OFF if dev.index == torch.cuda.current_device() else torch.cuda.device(dev)
 
 
 # ---------------------------------------------------------------------------
@@ -177,20 +193,33 @@ def _check_layout(elev, valid, n_rows: int, n_cols: int, col0: int, n_out: int, 
         raise ValueError(f"pair_sums: max_lag {max_lag} < 0")
 
 
-def pair_sums(elev, valid, n_rows: int, n_cols: int, col0: int, dys, dxs, bin_of, n_out: int, max_lag: int):
-    """Binned float64 (sums, counts) of the squared elevation differences of
-    the base cells and their partners (B9; the layout of
-    :func:`pair_sums_ref`).  The planes are read in place (any row stride,
-    unit column stride), float32 or float64 alike; every offset must have
-    0 <= dy <= max_lag and |dx| <= max_lag.  On the card a call is two
-    kernel launches (the tiles, then the fixed-order sum of their
-    partials), the same bits every call."""
-    _check_layout(elev, valid, n_rows, n_cols, col0, n_out, max_lag)
+def offset_table(dys, dxs, bin_of, n_out: int, max_lag: int, device) -> torch.Tensor:
+    """The offsets' :func:`grouped_table` on ``device``, made once per
+    offsets and device; every offset must have 0 <= dy <= max_lag and
+    |dx| <= max_lag."""
     dys, dxs, bin_of = (np.asarray(a, np.int64) for a in (dys, dxs, bin_of))
     if dys.size and (dys.min() < 0 or dys.max() > max_lag or np.abs(dxs).max() > max_lag):
         raise ValueError(f"pair_sums: an offset lies outside 0 <= dy <= {max_lag}, |dx| <= {max_lag}")
     key = (tuple(dys.tolist()), tuple(dxs.tolist()), tuple(bin_of.tolist()))
-    table = _device_table(key, n_out, elev.device)
+    return _device_table(key, n_out, device)
+
+
+@spanned
+def pair_sums(elev, valid, n_rows: int, n_cols: int, col0: int, dys, dxs, bin_of, n_out: int, max_lag: int,
+              table=None):
+    """Binned float64 (sums, counts) of the squared elevation differences of
+    the base cells and their partners (B9; the layout of
+    :func:`pair_sums_ref`).  The planes are read in place (any row stride,
+    unit column stride), float32 or float64 alike; every offset must have
+    0 <= dy <= max_lag and |dx| <= max_lag.  ``table``: the offsets'
+    :func:`offset_table` on the planes' device where the caller keeps it,
+    sparing the call the offsets' checks and the table's lookup.  On the
+    card a call is two kernel launches (the tiles, then the fixed-order sum
+    of their partials), the same bits every call.  Returns two views of
+    one (2, n_out) tensor."""
+    _check_layout(elev, valid, n_rows, n_cols, col0, n_out, max_lag)
+    if table is None:
+        table = offset_table(dys, dxs, bin_of, n_out, max_lag, elev.device)
     out = library.pair_sums(elev, valid, table, n_rows, n_cols, col0, max_lag, n_out)
     return out[0], out[1]
 
@@ -213,11 +242,12 @@ def pair_sums_launch(elev, valid, table, n_rows: int, n_cols: int, col0: int, ma
     pe, pv = _pitch(elev, "pair_sums"), _pitch(valid, "pair_sums")
     n_off = (table.numel() - (n_out + 1)) // 2
     n_cta = -(-n_rows // TILE) * -(-n_cols // TILE) if n_rows and n_cols else 0
-    partials = torch.empty((max(n_cta, 1), n_out, 2), dtype=torch.float64, device=dev)
-    out = torch.empty((2, n_out), dtype=torch.float64, device=dev)
+    # one allocation: the (2, n_out) output, then the blocks' partials
+    buf = torch.empty(2 * n_out + max(n_cta, 1) * n_out * 2, dtype=torch.float64, device=dev)
+    out, partials = buf[:2 * n_out].view(2, n_out), buf[2 * n_out:]
     Hs, Ws = elev.shape
     stream = _stream(dev)
-    with torch.cuda.device(dev), span("auvtpu_torch.kernels.variogram.pair_sums_launch:call"):
+    with _on(dev), span("auvtpu_torch.kernels.variogram.pair_sums_launch:call"):
         err = _lib().auvtpu_pair_sums(
             elev.data_ptr(), pe, valid.data_ptr(), pv, int(elev.dtype == torch.float64), Hs, Ws, n_rows, n_cols,
             col0, max_lag, table.data_ptr(), n_off, n_out, partials.data_ptr(), out.data_ptr(), stream,
@@ -289,14 +319,18 @@ def fit_model_ref(lags, gamma, counts, *, model: str = "exponential", iters: int
     return p[0], p[1], p[2]
 
 
+def _init_tensor(init, dev) -> torch.Tensor:
+    """A fit's given start (nugget, p1, p2) as a (3,) float64 tensor on
+    ``dev``."""
+    return torch.stack([torch.as_tensor(v, dtype=torch.float64, device=dev).reshape(()) for v in init])
+
+
 def _fit_args(lags, gamma, counts, init):
     """The fit's inputs as 1-D contiguous tensors on ``gamma``'s device and
     ``init`` as None or a (3,) float64 tensor there."""
     dev = torch.as_tensor(gamma).device
     lags, gamma, counts = (torch.as_tensor(a, device=dev).reshape(-1).contiguous() for a in (lags, gamma, counts))
-    if init is not None:
-        init = torch.stack([torch.as_tensor(v, dtype=torch.float64, device=dev).reshape(()) for v in init])
-    return lags, gamma, counts, init
+    return lags, gamma, counts, None if init is None else _init_tensor(init, dev)
 
 
 def fit_walk(lags, gamma, counts, *, model: str = "exponential", iters: int = 30, init=None, stop: float = 1e-4):
@@ -309,13 +343,38 @@ def fit_walk(lags, gamma, counts, *, model: str = "exponential", iters: int = 30
     return library.fit_model(lags, gamma, counts, init, model, int(iters), float(stop))
 
 
-def fit_model(lags, gamma, counts, *, model: str = "exponential", iters: int = 30, init=None, stop: float = 1e-4):
+@spanned
+def fit_model(lags, gamma, counts, *, model: str = "exponential", iters: int = 30, init=None, stop: float = 1e-4,
+              binned: bool = False):
     """Weighted damped Gauss-Newton fit of a variogram model (B10 on the
     card): :func:`fit_model_ref`'s loop, up to ``iters`` steps in one
     launch, nothing read back.  Returns (nugget, p1, p2) as 0-d views of one (3,)
-    tensor in the dtype and on the device of ``gamma``."""
-    p, _ = fit_walk(lags, gamma, counts, model=model, iters=iters, init=init, stop=stop)
-    return p[0], p[1], p[2]
+    tensor in the dtype and on the device of ``gamma``.
+
+    ``binned``: ``gamma`` and ``counts`` are B9's float64 sums and counts as
+    :func:`pair_sums` returns them, and ``lags`` a (n,) float32 or float64
+    tensor on their device; the fit forms the semivariance and the counts
+    in ``lags``' dtype (:func:`binned_gamma`), inside its launch on the
+    card, and returns the parameters in that dtype: the same bits as
+    :func:`binned_gamma` followed by this fit."""
+    if binned:
+        if model not in _MODELS:
+            raise ValueError(model)
+        p = library.fit_binned(lags, gamma, counts, None if init is None else _init_tensor(init, gamma.device),
+                               model, int(iters), float(stop))
+    else:
+        p, _ = fit_walk(lags, gamma, counts, model=model, iters=iters, init=init, stop=stop)
+    return p.unbind()
+
+
+def binned_gamma(sums, counts, dtype: torch.dtype):
+    """The binned Matheron semivariance and the pair counts in ``dtype``
+    from float64 (sums, counts): both rounded to ``dtype`` once, gamma =
+    s / (2 max(c, 1)) where c > 0, else 0.  The torch ops of
+    :func:`auvtpu_torch.variogram.empirical_variogram`, and what B10's
+    binned form computes in its launch."""
+    s, c = sums.to(dtype), counts.to(dtype)
+    return torch.where(c > 0, s / (2.0 * torch.clamp(c, min=1.0)), torch.zeros_like(s)), c
 
 
 def _is_f64(t: torch.Tensor, what: str) -> int:
@@ -348,7 +407,7 @@ def fit_launch(lags, gamma, counts, init, model: str, iters: int, stop: float):
     out = torch.empty(3, dtype=gamma.dtype, device=dev)
     flags = torch.empty((iters, 2), dtype=torch.int8, device=dev)
     stream = _stream(dev)
-    with torch.cuda.device(dev), span("auvtpu_torch.kernels.variogram.fit_launch:call"):
+    with _on(dev), span("auvtpu_torch.kernels.variogram.fit_launch:call"):
         err = _lib().auvtpu_fit_model(
             lags.data_ptr(), flags_in[0], gamma.data_ptr(), flags_in[1], counts.data_ptr(), flags_in[2], n,
             init.data_ptr() if init is not None else None, _MODELS[model], iters, stop, out.data_ptr(),
@@ -357,3 +416,52 @@ def fit_launch(lags, gamma, counts, init, model: str, iters: int, stop: float):
     _raise_on(err, "fit_model")
     LAUNCHES["fit_model"] += 1
     return out, flags
+
+
+def fit_binned_ref(lags, sums, counts, init, model: str, iters: int, stop: float):
+    """Plain version of the binned fit: :func:`binned_gamma` in ``lags``'
+    dtype, then :func:`fit_model_ref`.  Returns the (3,) parameters."""
+    gamma, c = binned_gamma(sums, counts, lags.dtype)
+    return torch.stack(fit_model_ref(lags, gamma, c, model=model, iters=iters,
+                                     init=None if init is None else init.unbind(), stop=stop))
+
+
+def fit_binned_launch(lags, sums, counts, init, model: str, iters: int, stop: float, formed=None):
+    """One B10 launch on B9's float64 (sums, counts): the ``cuda``
+    implementation of ``auvtpu_torch::fit_model.binned``.  ``formed``, a
+    (2, n) tensor in ``lags``' dtype, receives the gamma and counts the
+    kernel formed.  Returns the (3,) parameters in ``lags``' dtype."""
+    dev = lags.device
+    if dev.type != "cuda" or any(t.device != dev for t in (sums, counts) + ((init,) if init is not None else ())):
+        raise ValueError(f"fit_model: the kernel takes its inputs on one card (lags on {dev}); CPU inputs run "
+                         "the plain loop")
+    n = lags.numel()
+    if lags.dim() != 1 or sums.shape != (n,) or counts.shape != (n,):
+        raise ValueError(f"fit_model: lags {tuple(lags.shape)}, sums {tuple(sums.shape)}, counts "
+                         f"{tuple(counts.shape)}: three (n,) tensors")
+    if not 1 <= n <= MAX_FIT_BINS:
+        raise ValueError(f"fit_model: {n} bins outside the kernel's 1..{MAX_FIT_BINS}")
+    if model not in _MODELS:
+        raise ValueError(model)
+    if iters < 0:
+        raise ValueError(f"fit_model: iters {iters} < 0")
+    f64 = _is_f64(lags, "lags")
+    if sums.dtype != torch.float64 or counts.dtype != torch.float64:
+        raise TypeError(f"fit_model: binned sums and counts are B9's float64 (got {sums.dtype}/{counts.dtype})")
+    lags, sums, counts = (t.contiguous() for t in (lags, sums, counts))
+    if init is not None:
+        init = init.to(torch.float64).contiguous()
+    if formed is not None and (formed.shape != (2, n) or formed.dtype != lags.dtype or formed.device != dev
+                               or not formed.is_contiguous()):
+        raise ValueError(f"fit_model: formed is a contiguous (2, {n}) {lags.dtype} tensor on {dev}")
+    out = torch.empty(3, dtype=lags.dtype, device=dev)
+    stream = _stream(dev)
+    with _on(dev), span("auvtpu_torch.kernels.variogram.fit_binned_launch:call"):
+        err = _lib().auvtpu_fit_binned(
+            lags.data_ptr(), sums.data_ptr(), counts.data_ptr(), f64, n,
+            init.data_ptr() if init is not None else None, _MODELS[model], iters, stop, out.data_ptr(), None,
+            formed.data_ptr() if formed is not None else None, stream,
+        )
+    _raise_on(err, "fit_model")
+    LAUNCHES["fit_model"] += 1
+    return out

@@ -25,7 +25,8 @@ call, whatever its backend: each solves the whole plane; the listed cells
 of a :func:`auvtpu_torch.ops.dense.kriging_at_cells` call that B19 solves
 alone), and
 ``cells_returned``, the cells :func:`auvtpu_torch.ops.dense.kriging_at_cells`
-hands back.
+hands back.  Section ``fit``: ``fits``, one a call of
+:func:`auvtpu_torch.variogram.fit_variogram` (a fit-then-fill's fit).
 """
 
 from __future__ import annotations

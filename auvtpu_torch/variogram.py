@@ -10,6 +10,10 @@ parameters stay on the grid's device throughout: no value is read back to
 the host inside a loop.  On the card the pair sums are one call of B9 and
 the Gauss-Newton loop one launch of B10 (:mod:`auvtpu_torch.kernels.variogram`,
 ``csrc/variogram.cu``); on the CPU they run the kernels' plain twins.
+:func:`fit_variogram` hands B9's sums to B10 as they are, with what does
+not change between calls (B9's offset table, the lags) made once per grid
+geometry (:func:`_fit_plan`); each of its calls adds one to the counter
+``fit.fits``.
 
 The fit lands in a nearly linear regime on real bathymetry, where only
 sill/range and the nugget are pinned down: the weighted SSE then has no
@@ -30,7 +34,9 @@ import torch
 
 from .grid import RegularGrid, device_cache, divisor
 from .kernels import variogram as kv
-from .utils.profiling import spanned
+from .utils.profiling import counters, spanned
+
+FIT = counters("fit", ("fits",))
 
 
 @lru_cache(maxsize=8)
@@ -97,8 +103,7 @@ def empirical_variogram(grid: RegularGrid, *, max_lag: int = 10, n_bins: int = 1
     grid's device, lags in index space; gamma(h) = sum (z_i - z_j)^2 / (2 N_h).
     """
     s, c = pair_sums(grid.elev, grid.valid, grid.shape[0], max_lag=max_lag, n_bins=n_bins)
-    s, c = s.to(grid.dtype), c.to(grid.dtype)
-    gamma = torch.where(c > 0, s / (2.0 * torch.clamp(c, min=1.0)), torch.zeros_like(s))
+    gamma, c = kv.binned_gamma(s, c, grid.dtype)
     return _device_centers(max_lag, n_bins, 1, 1.0, grid.dtype, grid.device)[0], gamma, c
 
 
@@ -150,9 +155,7 @@ def empirical_variogram_directional(grid: RegularGrid, *, max_lag: int = 10, n_b
     dys, dxs, flat, centers, angles = _sector_bin_table(max_lag, n_bins, n_sectors, aspect)
     H, W = grid.shape
     s, c = kv.pair_sums(grid.elev, grid.valid, H, W, 0, dys, dxs, flat, n_sectors * n_bins, max_lag)
-    s = s.to(grid.dtype).reshape(n_sectors, n_bins)
-    c = c.to(grid.dtype).reshape(n_sectors, n_bins)
-    gamma = torch.where(c > 0, s / (2.0 * torch.clamp(c, min=1.0)), torch.zeros_like(s))
+    gamma, c = (t.reshape(n_sectors, n_bins) for t in kv.binned_gamma(s, c, grid.dtype))
     centers, angles = _device_centers(max_lag, n_bins, n_sectors, aspect, grid.dtype, grid.device)
     return centers, angles, gamma, c
 
@@ -342,11 +345,30 @@ def fit_best_model(lags, gamma, counts, *, models=("exponential", "linear", "sph
     return best
 
 
+@device_cache(maxsize=16)
+def _fit_plan(max_lag: int, n_bins: int, lon_step: float, lat_step: float, dtype: torch.dtype,
+              device: torch.device):
+    """What :func:`fit_variogram` hands B9 and B10 that a grid's geometry
+    fixes, made once on ``device``: the offsets (dys, dxs, bin_of), their
+    grouped table, and the lag centres in degrees by the mean grid step
+    (:func:`empirical_variogram`'s centres times the step, the op the fit
+    always ran, so the same bits)."""
+    dys, dxs, bin_of, _ = _bin_table(max_lag, n_bins)
+    table = kv.offset_table(dys, dxs, bin_of, n_bins, max_lag, device)
+    step = 0.5 * (abs(lat_step) + abs(lon_step))
+    return dys, dxs, bin_of, table, _device_centers(max_lag, n_bins, 1, 1.0, dtype, device)[0] * step
+
+
 @spanned
 def fit_variogram(grid: RegularGrid, *, max_lag: int = 10, n_bins: int = 10, iters: int = 25):
     """Empirical variogram + exponential fit, lags scaled from index space to
     degrees by the mean grid step.  Returns (nugget, sill, range) as 0-d
-    tensors on the grid's device."""
-    lags, gamma, counts = empirical_variogram(grid, max_lag=max_lag, n_bins=n_bins)
-    step = 0.5 * (abs(grid.lat_step) + abs(grid.lon_step))
-    return fit_exponential(lags * step, gamma, counts, iters=iters)
+    views of one (3,) tensor on the grid's device: the bits of
+    :func:`empirical_variogram` followed by :func:`fit_exponential` on
+    ``lags * step``, from B9's sums handed to B10 as they are."""
+    H, W = grid.shape
+    dys, dxs, bin_of, table, lags = _fit_plan(max_lag, n_bins, grid.lon_step, grid.lat_step, grid.dtype,
+                                              grid.device)
+    s, c = kv.pair_sums(grid.elev, grid.valid, H, W, 0, dys, dxs, bin_of, n_bins, max_lag, table)
+    FIT["fits"] += 1
+    return kv.fit_model(lags, s, c, model="exponential", iters=iters, stop=STOP_DGAMMA, binned=True)

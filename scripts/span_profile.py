@@ -11,9 +11,8 @@ the card named by the innermost host event at each gap's midpoint
 
     python3 scripts/span_profile.py --cell <name> [--seconds 10] [--seed N]
 
-``--cell`` is a cell of BENCHMARK.json or ``gridb-fitfill-r0.10``, the
-fit-then-fill cell whose files the benchmark keeps but does not run.
-Prints the run's result line and the table as JSON lines.
+``--cell`` is a cell of BENCHMARK.json.  Prints the run's result line and
+the table as JSON lines.
 """
 
 from __future__ import annotations
@@ -30,8 +29,6 @@ from benchmark import harness  # noqa: E402
 from benchmark.yardstick import spans as spans_mod  # noqa: E402
 from benchmark.yardstick import trace as trace_mod  # noqa: E402
 
-HELD = {"name": "gridb-fitfill-r0.10", "config": "gridb-kerguelen", "traffic": "fitfill-cells-r0.10", "chips": 1,
-        "why": "fit-then-fill, kept but not run"}
 OP = "auvtpu_torch::"
 
 
@@ -76,9 +73,7 @@ def main() -> int:
     p.add_argument("--seconds", type=float, default=10.0)
     p.add_argument("--seed", type=int, default=2**31 + 101)
     args = p.parse_args()
-    spec = json.loads((harness.ROOT / "BENCHMARK.json").read_text())
-    spec["workloads"] = spec["workloads"] + [HELD]
-    result = harness.run(args.cell, args.seed, args.seconds, True, spec=spec)
+    result = harness.run(args.cell, args.seed, args.seconds, True)
     print(json.dumps({"cell": args.cell, "result": result}), flush=True)
     events = trace_mod.load(harness.TRACE_FILE)
     red = trace_mod.reduce(events, top=20)

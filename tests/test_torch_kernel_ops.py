@@ -356,7 +356,7 @@ def test_every_launch_lies_in_an_ops_cuda_implementation():
     # each launching function is called from one place: the CUDA
     # implementation (a function registered with _op) in library.py
     sites = _launch_sites()
-    assert len({s[2] for s in sites}) == 19, sites  # B1-B19, one C entry each
+    assert len({s[2] for s in sites}) == 20, sites  # B1-B19, one C entry each, B10 a second for its binned form
     lib_tree = ast.parse(open(os.path.join(KERNELS, "library.py")).read())
     cuda_impls = {kw.value.id for node in ast.walk(lib_tree)
                   if isinstance(node, ast.Call) and getattr(node.func, "id", "") == "_op"

@@ -97,7 +97,9 @@ CALLS = {
     }, ("kernels.scattered_select.idw_select", "auvtpu_torch::idw_select")),
     "fit_fill": (_call_fit_fill, {
         "entry.fit_fill": {"variogram.fit_variogram", "ops.dense.fill_kriging"},
-        "variogram.fit_variogram": set(),
+        "variogram.fit_variogram": {"kernels.variogram.pair_sums", "kernels.variogram.fit_model"},
+        "kernels.variogram.pair_sums": set(),
+        "kernels.variogram.fit_model": set(),
         "ops.dense.fill_kriging": {"kernels.window_fill.fill_kriging_fused"},
         "kernels.window_fill.fill_kriging_fused": set(),
     }, ("kernels.window_fill.fill_kriging_fused", "auvtpu_torch::kriging_fill")),
